@@ -1,0 +1,145 @@
+"""Parity of classification (with explore and demotions), detection
+extraction and separated-background maintenance against vofod_tpu.
+
+Random scenes in the style of tests/test_classify_fuzz.py: an air / unknown /
+ground value field with a few small far-voxel clumps, labelled by the JAX
+propagation, then classified by both packages.  The parity contract:
+
+* integers and bools bit-equal: slots, classes, point counts, reps, far
+  counts and overflow, detection validity, ids and point counts, the
+  demoted grid (the demotion writes min(v, thr) exactly), the sepclusters
+  reach mask and flags;
+* floats: positions within 1e-3 m (float32 sums in another order),
+  confidence within 0.2 % relative, the sepclusters EMA within 1e-3 score
+  units (float32 elementwise).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vofod_tpu.config import DynParams as JDyn, VoFODConfig as JConfig
+from vofod_tpu.geometry import GridSpec as JGrid
+from vofod_tpu.ops.components import label_components_seeded
+from vofod_tpu.pipeline.classify import classify as j_classify
+from vofod_tpu.pipeline.detect import extract_detections as j_extract
+from vofod_tpu.pipeline.sepclusters import run_sepclusters as j_sep
+from vofod_tpu_torch.config import DynParams, VoFODConfig
+from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.pipeline.classify import classify
+from vofod_tpu_torch.pipeline.detect import extract_detections
+from vofod_tpu_torch.pipeline.sepclusters import run_sepclusters
+
+SHAPE, VOXEL = (10, 12, 14), 0.5
+CFG = dict(max_clusters=8, max_far_voxels=256, max_queries=128, explore_submap=16,
+           confidence_submap=8)
+DYN = dict(cls_min_points=2.0, cls_max_size=2.6, cls_max_distance=4.2,
+           cls_max_explore_distance=1.0)
+SENSOR = np.array([3.5, 3.0, 2.5], np.float32)
+
+
+def _scene(seed):
+    rng = np.random.default_rng(seed)
+    p_air, p_unk = [(1.0, 1.0), (0.20, 0.60), (0.45, 0.85)][seed % 3]
+    u = rng.random(SHAPE)
+    vals = np.where(u < p_air, -900.0, np.where(u < p_unk, -500.0, -100.0)).astype(np.float32)
+    far = np.zeros(SHAPE, bool)
+    for _ in range(rng.integers(2, 5)):
+        c = rng.integers(0, SHAPE)
+        for _ in range(rng.integers(1, 6)):
+            z, y, x = np.clip(c + rng.integers(-1, 2, size=3), 0, np.array(SHAPE) - 1)
+            far[z, y, x] = True
+    if seed % 3 == 0:
+        vals[far] = -500.0  # floating unknown pockets -> mav + demotions
+    labels, _, _, _ = label_components_seeded(
+        jnp.asarray(far), jnp.zeros(SHAPE, bool), 3.0, 64
+    )
+    return vals, far, np.array(labels)
+
+
+@functools.lru_cache(maxsize=None)
+def _run_both(seed):
+    vals, far, labels = _scene(seed)
+    jcfg, tcfg = JConfig(**CFG), VoFODConfig(**CFG)
+    jdyn, tdyn = JDyn(**DYN), DynParams(**DYN)
+    jg, tg = JGrid((0.0, 0.0, 0.0), SHAPE, VOXEL), GridSpec((0.0, 0.0, 0.0), SHAPE, VOXEL)
+    jo = j_classify(jcfg, jdyn.as_arrays(), jg, jnp.asarray(vals), jnp.asarray(far),
+                    jnp.asarray(labels), jnp.bool_(True), jnp.asarray(SENSOR),
+                    jnp.bool_(True), jnp.bool_(True))
+    t = torch.tensor
+    to = classify(tcfg, tdyn, tg, torch.from_numpy(vals), torch.from_numpy(far),
+                  torch.from_numpy(labels), t(True), torch.from_numpy(SENSOR), t(True), t(True))
+    jd, jc = j_extract(jcfg, jdyn.as_arrays(), jg, jo.grid, jnp.asarray(labels),
+                       jnp.asarray(far), jo, jnp.asarray(SENSOR), jnp.int32(5))
+    td, tc = extract_detections(tcfg, tdyn, tg, to.grid, torch.from_numpy(labels),
+                                torch.from_numpy(far), to, torch.from_numpy(SENSOR),
+                                t(5, dtype=torch.int32))
+    return jo, to, jd, td, jc, tc
+
+
+SEEDS = list(range(12))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_classify_parity(seed):
+    jo, to, *_ = _run_both(seed)
+    for f in ("cluster_valid", "cluster_class", "n_points", "reps", "n_far", "far_overflow"):
+        assert np.array_equal(getattr(to, f).numpy(), np.asarray(getattr(jo, f))), f
+    assert np.array_equal(to.grid.numpy(), np.asarray(jo.grid))  # demotions exact
+    v = to.cluster_valid.numpy()
+    for f in ("aabb_min", "aabb_max", "obb_center"):
+        np.testing.assert_allclose(getattr(to, f).numpy()[v], np.asarray(getattr(jo, f))[v],
+                                   atol=1e-3, rtol=0, err_msg=f)
+    np.testing.assert_allclose(to.obb_size.numpy()[v], np.asarray(jo.obb_size)[v], atol=1e-3)
+
+
+def test_classify_scenes_exercise_every_class():
+    classes = set()
+    demoted = 0
+    for seed in SEEDS:
+        jo, to, *_ = _run_both(seed)
+        classes |= set(to.cluster_class.numpy()[to.cluster_valid.numpy()].tolist())
+        demoted += int((to.grid.numpy() == -750.0).sum())
+    assert classes == {0, 1, 2} and demoted > 0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_extract_detections_parity(seed):
+    _, _, jd, td, jc, tc = _run_both(seed)
+    valid = td.valid.numpy()
+    assert np.array_equal(valid, np.asarray(jd.valid))
+    assert int(tc) == int(jc)
+    for f in ("id", "n_points", "cluster_class"):
+        assert np.array_equal(getattr(td, f).numpy()[valid], np.asarray(getattr(jd, f))[valid]), f
+    np.testing.assert_allclose(td.position.numpy()[valid], np.asarray(jd.position)[valid],
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(td.confidence.numpy(), np.asarray(jd.confidence),
+                               rtol=2e-3, atol=1e-12)
+    np.testing.assert_allclose(td.detection_probability.numpy(),
+                               np.asarray(jd.detection_probability), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(td.covariance.numpy()[valid], np.asarray(jd.covariance)[valid],
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("warm", [False, True])
+def test_run_sepclusters_parity(seed, warm):
+    rng = np.random.default_rng(100 + seed)
+    shape = (12, 16, 20)
+    u = rng.random(shape)
+    vals = np.where(u < 0.55, -900.0, np.where(u < 0.8, -200.0, -0.05)).astype(np.float32)
+    vals[:2] = 0.5  # a sure ground slab: seeds the safe set
+    prev_safe = (rng.random(shape) < 0.3) if warm else np.zeros(shape, bool)
+    jcfg, tcfg = JConfig(), VoFODConfig()
+    jo = j_sep(jcfg, JDyn().as_arrays(), jnp.asarray(vals), jnp.asarray(prev_safe),
+               jnp.float32(1.0), prev_sure=jnp.bool_(False))
+    to = run_sepclusters(tcfg, DynParams(), torch.from_numpy(vals),
+                         torch.from_numpy(prev_safe), 1.0, prev_sure=torch.tensor(False))
+    assert np.array_equal(to.safe.numpy(), np.asarray(jo.safe))
+    assert bool(to.sure_bg_sufficient) == bool(jo.sure_bg_sufficient)
+    assert bool(to.converged) == bool(jo.converged)
+    np.testing.assert_allclose(to.grid.numpy(), np.asarray(jo.grid), atol=1e-3, rtol=0)
+    assert np.array_equal(to.grid.numpy() != vals, np.asarray(jo.grid) != vals)

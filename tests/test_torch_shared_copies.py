@@ -1,0 +1,219 @@
+"""The PyTorch port's copies of framework-neutral modules equal their originals.
+
+The port cannot import vofod_tpu where it runs (importing any vofod_tpu
+module loads JAX), so it carries numpy copies of the config, sensor,
+scan-source and angular-gate code.  These tests hold each copy to its
+original, check that the port imports no JAX at all, and that asking for a
+CUDA device without one raises instead of running on the CPU.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from vofod_tpu import config as jcfg
+from vofod_tpu import sensor as jsensor
+from vofod_tpu.io import scan_source as jsrc
+from vofod_tpu.ops import raycast as jray
+from vofod_tpu_torch import config as tcfg
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch import sensor as tsensor
+from vofod_tpu_torch.io import scan_source as tsrc
+from vofod_tpu_torch.ops import raycast as tray
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _gradient_angles(H):
+    u = np.linspace(-1.0, 1.0, H)
+    alt = -45.0 * np.sign(u) * np.abs(u) ** 1.3
+    az = 3.0 * np.sin(np.linspace(0, 2 * np.pi, H))
+    return az, alt
+
+
+DICTS = dict(
+    detection={
+        "voxel_map": {"voxel_size": 0.4},
+        "ground_points_max_distance": 1.2,
+        "exclude_box": {"offset": {"x": 0.1, "y": 0.0, "z": -0.5},
+                        "size": {"x": 2.0, "y": 2.0, "z": 1.0}},
+        "separate_cluster_removal_period": 0.2,
+    },
+    sensor={"sensor": {"vertical_rays": 64, "horizontal_rays": 512,
+                       "vertical_fov_angle": 45.0}},
+    apriori={"apriori_map": {"tf": {"yaw": 10.0, "x": 1.0},
+                             "sim_correction": {"z": 0.5}},
+             "operation_area": {"offset": {"x": 1.0, "y": 2.0, "z": -1.0},
+                                "size": {"x": 30.0, "y": 20.0, "z": 10.0}}},
+)
+
+
+@pytest.mark.parametrize("which", ["default", "from_dicts"])
+def test_config_copy_matches(which):
+    if which == "default":
+        j, t = jcfg.VoFODConfig(), tcfg.VoFODConfig()
+    else:
+        j = jcfg.VoFODConfig.from_dicts(DICTS["detection"], DICTS["sensor"], DICTS["apriori"])
+        t = tcfg.VoFODConfig.from_dicts(DICTS["detection"], DICTS["sensor"], DICTS["apriori"])
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert j.grid_shape == t.grid_shape
+    assert j.grid_origin == t.grid_origin
+    assert j.background_min_sufficient_pts == t.background_min_sufficient_pts
+
+
+def test_dynparams_copy_matches():
+    assert dataclasses.asdict(jcfg.DynParams()) == dataclasses.asdict(tcfg.DynParams())
+    d = {"voxel_map": {"scores": {"ray": -900.0}}, "raycast": {"pause": True}}
+    assert dataclasses.asdict(jcfg.DynParams.from_yaml_dict(d)) == dataclasses.asdict(
+        tcfg.DynParams.from_yaml_dict(d)
+    )
+    # as_tensors: the same float32 / bool values as the JAX as_arrays
+    ja = jcfg.DynParams().as_arrays()
+    ta = tcfg.DynParams().as_tensors("cpu")
+    for f in dataclasses.fields(ta):
+        jv, tv = np.asarray(getattr(ja, f.name)), getattr(ta, f.name).numpy()
+        assert jv.dtype == tv.dtype and jv == tv, f.name
+
+
+@pytest.mark.parametrize("kind", ["simulation", "ouster_gradient", "ouster_from_config"])
+def test_lut_copy_bytes_equal(kind):
+    if kind == "simulation":
+        j = jsensor.make_lut_simulation(128, 32, np.deg2rad(90.0))
+        t = tsensor.make_lut_simulation(128, 32, np.deg2rad(90.0))
+    elif kind == "ouster_gradient":
+        az, alt = _gradient_angles(32)
+        j = jsensor.make_lut_ouster(256, 32, az, alt, 15.806)
+        t = tsensor.make_lut_ouster(256, 32, az, alt, 15.806)
+    else:
+        az, alt = _gradient_angles(16)
+        kw = dict(vertical_rays=16, horizontal_rays=64, simulation=False,
+                  beam_azimuth_angles_deg=tuple(az), beam_altitude_angles_deg=tuple(alt))
+        j = jsensor.make_lut(jcfg.SensorConfig(**kw))
+        t = tsensor.make_lut(tcfg.SensorConfig(**kw))
+    assert j.directions.tobytes() == t.directions.tobytes()
+    assert j.offsets.tobytes() == t.offsets.tobytes()
+    assert (j.height, j.width) == (t.height, t.width)
+    assert tsensor.RANGE_TO_METERS == jsensor.RANGE_TO_METERS
+
+
+@pytest.mark.parametrize("mangle", [False, True])
+def test_load_mask_copy_matches(tmp_path, mangle):
+    rng = np.random.default_rng(3)
+    m = (rng.random((8, 32)) > 0.3).astype(np.uint8)
+    path = str(tmp_path / "mask.npy")
+    np.save(path, m)
+    shift = rng.integers(0, 32, 8)
+    j = jsensor.load_mask(path, 32, 8, pixel_shift_by_row=shift, mangle=mangle)
+    t = tsensor.load_mask(path, 32, 8, pixel_shift_by_row=shift, mangle=mangle)
+    assert np.array_equal(j, t)
+    assert np.array_equal(jsensor.load_mask("", 32, 8), tsensor.load_mask("", 32, 8))
+
+
+@pytest.mark.parametrize("kind", ["simulation", "ouster_gradient"])
+def test_angular_gate_copy_matches(kind):
+    if kind == "simulation":
+        lut = tsensor.make_lut_simulation(1024, 128, np.deg2rad(90.0))
+    else:
+        az, alt = _gradient_angles(64)
+        lut = tsensor.make_lut_ouster(512, 64, az, alt, 15.806)
+    j, t = jray.make_angular_gate(lut), tray.make_angular_gate(lut)
+    assert j._fields == t._fields
+    for f in j._fields:
+        a, b = getattr(j, f), getattr(t, f)
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            assert np.array_equal(a, b), f
+        else:
+            assert a == b, f
+
+
+def test_scan_source_copy_matches():
+    lut = tsensor.make_lut_simulation(256, 32, np.deg2rad(90.0))
+    for k in range(3):
+        js, ts = jsrc.Scene(ground_z=-1.0), tsrc.Scene(ground_z=-1.0)
+        for s in (js, ts):
+            s.add_box((5.0, 3.0, -1.0), (7.0, 5.0, 2.0 + k))
+            s.add_sphere((-4.0, 2.0, 3.0 + k), 0.5)
+        jp = jsrc.hover_pose((1.0, 2.0, 3.0 + 0.1 * k), yaw=0.2 * k)
+        tp = tsrc.hover_pose((1.0, 2.0, 3.0 + 0.1 * k), yaw=0.2 * k)
+        assert np.array_equal(jp, tp)
+        assert np.array_equal(jsrc.render_scan(js, lut, jp), tsrc.render_scan(ts, lut, tp))
+
+
+_NO_JAX = textwrap.dedent(
+    """
+    import importlib.abc, sys
+
+    class RefuseJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                raise ImportError(f"jax is refused here: {name}")
+            return None
+
+    sys.meta_path.insert(0, RefuseJax())
+    import numpy as np
+    import vofod_tpu_torch
+    from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig
+    from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan
+    from vofod_tpu_torch.runtime.node import VoFOD
+
+    cfg = VoFODConfig(
+        sensor=SensorConfig(vertical_rays=8, horizontal_rays=32),
+        oparea=Box((0.0, 0.0, 3.0), (8.0, 8.0, 6.0)),
+        max_clusters=4, max_far_voxels=64, max_queries=16,
+        explore_submap=8, confidence_submap=8,
+    )
+    node = VoFOD(cfg, DynParams(), device="cpu")
+    scene = Scene(ground_z=0.0)
+    scene.add_sphere((2.0, 1.0, 3.0), 0.5)
+    for k in range(2):
+        pose = hover_pose((0.0, 0.0, 2.0 + 0.1 * k))
+        node.process_scan(render_scan(scene, node.lut, pose), None, pose)
+    assert node.state.step == 2
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    print("NO_JAX_OK", int(node.last_diag.n_occupied))
+    """
+)
+
+
+def test_port_imports_no_jax_and_runs():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX], capture_output=True, text=True, env=env,
+        cwd=REPO, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NO_JAX_OK" in res.stdout
+    assert int(res.stdout.split("NO_JAX_OK")[1].split()[0]) > 0
+
+
+def test_cuda_request_without_cuda_raises(monkeypatch):
+    """No fallback: a CUDA node where CUDA is absent raises; it never runs on
+    the CPU instead."""
+    from vofod_tpu_torch.runtime.node import VoFOD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VoFOD(device="cuda")
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """A missing compiler is an error, not a switch to the plain versions."""
+    monkeypatch.setattr(kernels, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch only on CUDA tensors; a CPU tensor never reaches
+    them through the ops modules, and directly it is refused."""
+    a = torch.zeros((4, 4, 4), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels._require(a, "ball_pool input", torch.int8)

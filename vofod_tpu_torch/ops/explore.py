@@ -1,0 +1,158 @@
+"""Bounded flood-fill to ground: the exploreToGround query (plain PyTorch).
+
+PyTorch counterpart of vofod_tpu/ops/explore.py (ref src/voxel_map.cpp
+:402-488, call site vofod_nodelet.cpp:1692-1718): per query an SxSxS submap
+around the query voxel, then a masked 6-neighbour BFS through the unknown
+band (frontiers < v <= ground) inside the query's Manhattan ball.
+
+The BFS packs each x-row of the submap into the bits of one int64 (S <= 62),
+so a sweep is a handful of shifts and ORs over [Q, S, S] words, and it runs
+a FIXED ``max_iters`` sweeps: the dilation is monotone, so sweeps past the
+fixpoint change nothing and the result equals the JAX while_loop's, with no
+host sync.  A hand-written kernel (one block per query, masks in shared
+memory) replaces this in a later change.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vofod_tpu_torch.geometry import GridSpec
+
+Tensor = torch.Tensor
+
+
+def _pack_rows(m: Tensor) -> Tensor:
+    """bool [..., S] -> int64 [...] with bit x = m[..., x]."""
+    S = m.shape[-1]
+    w = torch.ones(S, dtype=torch.int64, device=m.device) << torch.arange(
+        S, dtype=torch.int64, device=m.device
+    )
+    return (m.to(torch.int64) * w).sum(-1)
+
+
+def _unpack_rows(b: Tensor, S: int) -> Tensor:
+    sh = torch.arange(S, dtype=torch.int64, device=b.device)
+    return ((b[..., None] >> sh) & 1).to(torch.bool)
+
+
+def _dil6_bits(m: Tensor, full: int) -> Tensor:
+    """6-neighbour dilation of bit-packed [Q, S(z), S(y)] rows (x in bits)."""
+    p = F.pad(m, (1, 1, 1, 1))
+    S = m.shape[1]
+    return (
+        m
+        | ((m << 1) & full) | (m >> 1)
+        | p[:, 2:, 1:-1] | p[:, :S, 1:-1]
+        | p[:, 1:-1, 2:] | p[:, 1:-1, :S]
+    )
+
+
+def _dil6(m: Tensor) -> Tensor:
+    """6-neighbour dilation of bool [Q, S, S, S] (= morphology.dilate6)."""
+    p = F.pad(m, (1, 1, 1, 1, 1, 1))
+    S = m.shape[1]
+    return (
+        m
+        | p[:, 2:, 1:-1, 1:-1] | p[:, :S, 1:-1, 1:-1]
+        | p[:, 1:-1, 2:, 1:-1] | p[:, 1:-1, :S, 1:-1]
+        | p[:, 1:-1, 1:-1, 2:] | p[:, 1:-1, 1:-1, :S]
+    )
+
+
+def explore_to_ground(
+    grid: GridSpec,
+    vmap_grid: Tensor,
+    qx: Tensor,
+    qy: Tensor,
+    qz: Tensor,
+    qvalid: Tensor,
+    max_manhattan: Tensor,
+    thr_frontiers: float,
+    thr_ground: float,
+    submap: int,
+    max_iters: int = 96,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Batched bounded flood-fill.  Returns (connected bool [Q], reached
+    bool [Q, S, S, S] — explored unknown-band voxels, corners int32 [Q, 3]
+    (z, y, x) submap corner in grid coords)."""
+    S = submap
+    if S > 62:
+        raise ValueError("explore submap side must be <= 62 (int64 rows)")
+    half = S // 2
+    dev = vmap_grid.device
+    padded = F.pad(vmap_grid, (half,) * 6, value=-1e30)  # outside: certain air
+    bound = torch.clamp(max_manhattan, max=half - 1)
+
+    # gather the Q submaps: padded[q + a] for a in [0, S) per axis
+    r = torch.arange(S, dtype=torch.int64, device=dev)
+    zi = (qz.long()[:, None] + r)[:, :, None, None]
+    yi = (qy.long()[:, None] + r)[:, None, :, None]
+    xi = (qx.long()[:, None] + r)[:, None, None, :]
+    vals = padded[zi, yi, xi]  # [Q, S, S, S]
+
+    rel = torch.abs(torch.arange(S, dtype=torch.int32, device=dev) - half)
+    manh = rel[:, None, None] + rel[None, :, None] + rel[None, None, :]  # [S,S,S]
+
+    unknown = (vals > thr_frontiers) & (vals <= thr_ground)
+    ground = vals > thr_ground
+    ball = manh[None] <= bound[:, None, None, None]
+    expandable = unknown & ball
+
+    full = (1 << S) - 1
+    exp_bits = _pack_rows(expandable)  # [Q, S, S]
+    # start: the centre voxel (built from comparisons: no host-to-device copy)
+    is_mid = torch.arange(S, device=dev) == half
+    cen = is_mid[:, None, None] & is_mid[None, :, None] & is_mid[None, None, :]
+    reached = exp_bits & _pack_rows(cen)
+    for _ in range(max_iters):
+        reached = reached | (exp_bits & _dil6_bits(reached, full))
+    reached = _unpack_rows(reached, S)
+
+    closure = cen | (_dil6(reached) & ball)
+    hit_ground = torch.any((closure & ground).reshape(len(qx), -1), dim=1)
+    shell = manh[None] == (bound - 1)[:, None, None, None]
+    hit_shell = torch.any((reached & shell).reshape(len(qx), -1), dim=1)
+    # grid-edge starts are "connected" by definition (ref voxel_map.cpp:410-414)
+    at_edge = (
+        (qx <= 0) | (qy <= 0) | (qz <= 0)
+        | (qx >= grid.nx - 1) | (qy >= grid.ny - 1) | (qz >= grid.nz - 1)
+    )
+    connected = (hit_ground | hit_shell | at_edge) & qvalid
+    corners = torch.stack([qz - half, qy - half, qx - half], dim=-1).to(torch.int32)
+    return connected, reached, corners
+
+
+def apply_demotions(
+    vmap_grid: Tensor,
+    reached: Tensor,
+    corners: Tensor,
+    demote: Tensor,
+    thr_frontiers: float,
+) -> Tensor:
+    """Write explored-unknown voxels of failed searches back to the frontiers
+    score (ref vofod_nodelet.cpp:1709-1716).  Every covered voxel ends at
+    min(value, thr) whatever the order (explore.py:178-182), so all Q patches
+    go through one masked scatter at once; with no demoting query it is a
+    no-op."""
+    Q, S = reached.shape[0], reached.shape[1]
+    nz, ny, nx = vmap_grid.shape
+    dev = vmap_grid.device
+    r = torch.arange(S, dtype=torch.int64, device=dev)
+    z = corners[:, 0].long()[:, None] + r
+    y = corners[:, 1].long()[:, None] + r
+    x = corners[:, 2].long()[:, None] + r
+    inz, iny, inx = (z >= 0) & (z < nz), (y >= 0) & (y < ny), (x >= 0) & (x < nx)
+    fid = (z[:, :, None, None] * ny + y[:, None, :, None]) * nx + x[:, None, None, :]
+    inside = inz[:, :, None, None] & iny[:, None, :, None] & inx[:, None, None, :]
+    hit = reached & demote[:, None, None, None] & inside
+    nv = nz * ny * nx
+    hit = hit.reshape(-1)
+    fid = torch.where(hit, fid.reshape(-1), nv)  # nv: discarded slot
+    # a plain (non-accumulating) scatter: every index but the discarded slot
+    # receives True only, so duplicates agree and the result is exact
+    cover = torch.zeros(nv + 1, dtype=torch.bool, device=dev)
+    cover.index_put_((fid,), hit)
+    cover = cover[:nv].reshape(vmap_grid.shape)
+    return torch.where(cover, torch.clamp(vmap_grid, max=thr_frontiers), vmap_grid)

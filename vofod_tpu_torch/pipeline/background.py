@@ -1,0 +1,71 @@
+"""Background separation + voxel-map point update.
+
+PyTorch counterpart of vofod_tpu/pipeline/background.py ``split_and_update``
+(ref findCloseFarClusters, vofod_nodelet.cpp:701-751, and updateVoxel
+:776-796): the sticky background-sufficiency gate, the close/far split and
+component labels from ONE seeded propagation (K1 ball-max seeds, K2
+sweeps), and the weighted EMA point update ``w = 2^-count``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from vofod_tpu_torch.config import DynParams, VoFODConfig
+from vofod_tpu_torch.ops.components import label_components_seeded
+from vofod_tpu_torch.ops.morphology import ball_pool_max
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class BackgroundOut:
+    grid: Tensor  # updated confidence grid
+    occupied: Tensor  # bool — voxels with points this scan (the "flags")
+    far: Tensor  # bool — occupied, not background-connected
+    close: Tensor
+    labels: Tensor  # int32 component labels (SENTINEL off-mask)
+    n_bg_voxels: Tensor
+    bg_sufficient: Tensor
+    cc_converged: Tensor
+    cc_iters: Tensor
+
+
+def split_and_update(
+    cfg: VoFODConfig, dyn: DynParams, grid_vals: Tensor, counts: Tensor,
+    prev_bg_sufficient: Tensor,
+) -> BackgroundOut:
+    radius = cfg.ground_points_max_distance / cfg.voxel_size
+
+    # sticky, on the pre-update map, like the reference (:713-725)
+    bg_mask = grid_vals > dyn.thr_new_obstacles
+    n_bg = bg_mask.sum().to(torch.int32)
+    bg_sufficient = prev_bg_sufficient | (
+        n_bg > cfg.background_min_sufficient_pts
+    )
+
+    occupied = counts > 0
+    bg_near = ball_pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
+    seed = occupied & bg_near
+    labels, close, cc_converged, cc_iters = label_components_seeded(
+        occupied, seed, radius, cfg.cc_sweeps
+    )
+    far = occupied & ~close
+
+    # EMA point update (ref updateVoxel :789-795)
+    w = torch.exp2(-counts.clamp(0, 63).to(torch.float32))
+    score = torch.where(close, float(dyn.score_point), float(dyn.score_unknown))
+    new_vals = torch.where(occupied, w * grid_vals + (1.0 - w) * score, grid_vals)
+    return BackgroundOut(
+        grid=new_vals,
+        occupied=occupied,
+        far=far,
+        close=close,
+        labels=labels,
+        n_bg_voxels=n_bg,
+        bg_sufficient=bg_sufficient,
+        cc_converged=cc_converged,
+        cc_iters=cc_iters,
+    )
