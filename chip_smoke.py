@@ -10,16 +10,27 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 1. build the CUDA kernels from csrc/ and print the build time;
 2. hold each kernel against its plain PyTorch version on the card, on
    inputs taken from a real flagship scan (OS0-128, 241x201x51 grid): K1-K3
-   bit-equal, K4 within one bf16 ulp at 1.0; CUDA-event times of both;
+   bit-equal, K4 within one bf16 ulp at 1.0; CUDA-event times of both.
+   The classify stage's kernels on the same scan's classify inputs and on
+   synthetic cases: K6 (the three compactions, the label-predicate form,
+   an overflow) bit-equal; K7 (the scan's queries, 256 valid queries over
+   a random air/unknown/ground field, a serpentine corridor capped at 8
+   sweeps, 32 of the queries at S = 16 and 62) and K8 (demotion of the
+   random batch) bit-equal; K9 (the scan's far list, a synthetic far set of
+   48 clusters, degenerate ones included)
+   integers, bools and AABB bit-equal, floats within K9_TOL (OBB axes up to
+   their sign, with sign flips counted);
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
-   tests/test_golden.py assertions;
+   tests/test_golden.py assertions and that all eight kernels launched;
 4. drive the flagship main path — ``VoFOD(device="cuda")``, the apriori
    ground plane and 36 scans of a content-varying cycle — and check
    ``bg_sufficient``, a NaN-free grid and that every kernel was launched;
-   print step p50/p95 (CUDA events) and host syncs per scan;
+   print step p50/p95 (CUDA events), host syncs per scan, and the explore
+   queries and demotion writes of the 36 scans;
 5. a torch.profiler trace of 5 flagship scans: device time per stage (the
-   step's ``vofod.*`` ranges), the top device ops, and the device's busy
-   and idle share of the step.
+   step's ``vofod.*`` ranges), the top device ops, the device ops (kernels
+   and copies) launched per scan, and the device's busy and idle share of
+   the step.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
@@ -44,9 +55,15 @@ from vofod_tpu_torch import kernels  # noqa: E402
 from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig  # noqa: E402
 from vofod_tpu_torch.geometry import GridSpec  # noqa: E402
 from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan  # noqa: E402
+from vofod_tpu_torch.ops.compaction import (  # noqa: E402
+    masked_compact, masked_compact_isin, masked_compact_isin_plain, masked_compact_plain)
 from vofod_tpu_torch.ops.components import SENTINEL, sweeps, sweeps_plain  # noqa: E402
+from vofod_tpu_torch.ops.explore import (  # noqa: E402
+    demote_floating, demote_floating_plain, explore, explore_plain)
 from vofod_tpu_torch.ops.morphology import ball_pool, ball_pool_plain  # noqa: E402
 from vofod_tpu_torch.ops.raycast import cone_sweep, cone_sweep_plain, sweep_window  # noqa: E402
+from vofod_tpu_torch.pipeline.background import split_and_update  # noqa: E402
+from vofod_tpu_torch.pipeline.classify import cluster_stats, cluster_stats_plain  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import frontend_bin, frontend_bin_plain  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD  # noqa: E402
 from vofod_tpu_torch.sensor import make_lut  # noqa: E402
@@ -55,6 +72,11 @@ from vofod_tpu_torch.sensor import make_lut  # noqa: E402
 # version follow the same rounding steps, so they may differ by at most one
 # bf16 ulp at 1.0 (2^-8) where an f32 sum rounds across a bf16 tie.
 K4_TOL = 2.0**-8
+# K9 float outputs (OBB centre, extent, size in m; axes unitless, each
+# compared up to its sign): the member sums run in another order than the
+# plain version's matmul and einsum, a few float32 ulps of coordinates up
+# to ~120 m
+K9_TOL = 1e-4
 N_SCANS = 36
 
 KERNEL_INFO = {
@@ -62,6 +84,11 @@ KERNEL_INFO = {
     "propagate_sweep": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/ops/components.py:88"),
     "frontend_bin": ("vofod_tpu_torch/csrc/frontend_bin.cu", "vofod_tpu/ops/binning.py:44"),
     "cone_sweep": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:210"),
+    "masked_compact": ("vofod_tpu_torch/csrc/compact.cu", "vofod_tpu/ops/compaction.py:49"),
+    "explore_bfs": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/ops/explore.py:34"),
+    "demote": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/ops/explore.py:168"),
+    "cluster_stats": ("vofod_tpu_torch/csrc/classify_stats.cu",
+                      "vofod_tpu/pipeline/classify.py:77"),
 }
 
 
@@ -145,10 +172,17 @@ def phase2(lut) -> list[dict]:
     grid = GridSpec.from_config(cfg)
     node = VoFOD(cfg, dyn, NodeOptions(), lut, device=dev)
     node.load_apriori_map(apriori_ground())
-    scans = scan_cycle(lut, 6)
-    for r, p in scans[:5]:
+    # warm up for at least 5 scans, and on until a scan had explore
+    # queries, so that the next scan likely gives K7/K8 main-path work
+    scans = scan_cycle(lut, N_SCANS)
+    n_warm = 0
+    for r, p in scans[:-1]:
         node.process_scan(r, None, p)
-    r_np, pose_np = scans[5]
+        n_warm += 1
+        if n_warm >= 5 and int(node.last_diag.n_queries) > 0:
+            break
+    r_np, pose_np = scans[n_warm]
+    say("2-input", warm_up_scans=n_warm, queries_last_warm_up=int(node.last_diag.n_queries))
     ranges = torch.as_tensor(r_np.astype(np.float32), device=dev)
     pose = torch.as_tensor(pose_np, device=dev)
     dirs = torch.as_tensor(lut.directions, device=dev)
@@ -242,9 +276,266 @@ def phase2(lut) -> list[dict]:
         plain_ms=cuda_ms(lambda: cone_sweep_plain(op_w, rel_x, rel_y, rel_z), reps=3),
         shapes=f"window {tuple(op_w.shape)}, 6 cones",
     ))
+    results += phase2_classify(cfg, dyn, grid, vals, k3, node.state.bg_sufficient, pose)
     for r in results:
         say("2-kernel", **r)
     return results
+
+
+def _equal(a, b, what: str) -> float:
+    """Raise unless every pair is bit-equal; return the max |a - b| seen."""
+    for x, y, name in zip(a, b, what.split()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name} differs from the plain version")
+    return max(max_abs(x, y) for x, y in zip(a, b))
+
+
+def _compact_cases(cfg, grid, excl, far, labels, rep_sel):
+    """K6 at its three call sites, the predicate form and overflow cases."""
+    dev = far.device
+    g = torch.Generator(device=dev).manual_seed(6)
+    dense = torch.rand(grid.shape, generator=g, device=dev) < 0.3
+    rnd_labels = torch.randint(0, 64, grid.shape, generator=g, device=dev, dtype=torch.int32)
+    sel = torch.tensor([3, -2, 17, 40, -2, 63, 5, 22], dtype=torch.int32, device=dev)
+    far_labels = torch.unique(labels[far])[:6].to(torch.int32)  # one host sync, here only
+    sel_far = torch.cat([far_labels, torch.full((2,), -2, dtype=torch.int32, device=dev)])
+    small = dense.reshape(-1)[:1000].contiguous()
+    return [  # (name, kernel call, plain call)
+        ("far 2.47M->2048", lambda: masked_compact(far, cfg.max_far_voxels),
+         lambda: masked_compact_plain(far, cfg.max_far_voxels)),
+        ("excl 131072->4096", lambda: masked_compact(excl, 4096),
+         lambda: masked_compact_plain(excl, 4096)),
+        ("query isin(rep_sel) 2.47M->256",
+         lambda: masked_compact_isin(far, labels, rep_sel, cfg.max_queries),
+         lambda: masked_compact_isin_plain(far, labels, rep_sel, cfg.max_queries)),
+        ("query isin(scan labels) 2.47M->256",
+         lambda: masked_compact_isin(far, labels, sel_far, cfg.max_queries),
+         lambda: masked_compact_isin_plain(far, labels, sel_far, cfg.max_queries)),
+        ("overflow dense 2.47M->4096", lambda: masked_compact(dense, 4096),
+         lambda: masked_compact_plain(dense, 4096)),
+        ("overflow isin dense 2.47M->256",
+         lambda: masked_compact_isin(dense, rnd_labels, sel, 256),
+         lambda: masked_compact_isin_plain(dense, rnd_labels, sel, 256)),
+        ("cap > n 1000->4096", lambda: masked_compact(small, 4096),
+         lambda: masked_compact_plain(small, 4096)),
+    ]
+
+
+def synthetic_far(grid: GridSpec, n_clusters: int, seed: int):
+    """A far mask and label grid of ``n_clusters`` small clusters (single
+    voxels, collinear pairs and triples, L-shapes, coplanar squares, blobs)
+    around the middle of the grid; labels are each cluster's least flat id."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = grid.shape
+    far = np.zeros(grid.shape, bool)
+    labels = np.full(grid.shape, SENTINEL, np.int32)
+    shapes = [
+        [(0, 0, 0)], [(0, 0, 0), (0, 0, 1)], [(0, 0, 0), (0, 1, 0), (0, 2, 0)],
+        [(0, 0, 0), (0, 0, 1), (0, 1, 0)], [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)],
+        [(0, y, x) for y in range(3) for x in range(3)], [(0, 0, 0), (1, 0, 0)],
+    ]
+    for c in range(n_clusters):
+        base = np.array([rng.integers(4, nz - 8), rng.integers(20, ny - 20),
+                         rng.integers(20, nx - 20)])
+        if c < 2 * len(shapes):
+            offs = np.array(shapes[c % len(shapes)])
+        else:
+            offs = rng.integers(0, 4, size=(int(rng.integers(4, 30)), 3))
+        pts = base + offs
+        if far[pts[:, 0], pts[:, 1], pts[:, 2]].any() or any(
+            far[max(z - 2, 0):z + 3, max(y - 2, 0):y + 3, max(x - 2, 0):x + 3].any()
+            for z, y, x in pts
+        ):
+            continue  # keep clusters apart
+        fid = (pts[:, 0] * ny + pts[:, 1]) * nx + pts[:, 2]
+        far[pts[:, 0], pts[:, 1], pts[:, 2]] = True
+        labels[pts[:, 0], pts[:, 1], pts[:, 2]] = fid.min()
+    return far, labels
+
+
+def _stats_compare(ks, ps, what: str) -> dict:
+    exact = ("reps", "slot_valid", "npts", "aabb_min", "aabb_max", "gated", "m_k", "qgate",
+             "rep_sel", "cluster_overflow")
+    for f in exact:
+        a, b = getattr(ks, f), getattr(ps, f)
+        if not torch.equal(a, b):
+            n = int((a != b).sum())
+            raise AssertionError(f"K9 {what}: {f} differs from the plain version in {n} entries")
+    v = ps.slot_valid
+    errs = {f: max_abs(getattr(ks, f)[v], getattr(ps, f)[v]) if bool(v.any()) else 0.0
+            for f in ("obb_center", "obb_extent", "obb_size")}
+    # an eigenvector's sign is arbitrary (the OBB is the same box either
+    # way): each axis is compared as a line, and sign flips are counted
+    d_same = (ks.axes[v] - ps.axes[v]).abs().amax(-1)
+    d_flip = (ks.axes[v] + ps.axes[v]).abs().amax(-1)
+    errs["axes"] = float(torch.minimum(d_same, d_flip).max()) if bool(v.any()) else 0.0
+    flipped = (d_same > K9_TOL) & (d_flip <= K9_TOL)  # [slots, 3 axes]
+    worst = max(errs.values())
+    if not worst <= K9_TOL:
+        raise AssertionError(f"K9 {what}: float max|d| {errs} > {K9_TOL}")
+    flips = dict(rows=int(flipped.sum()),
+                 slot_points=ps.npts[v][flipped.any(-1)].tolist())
+    return dict(n_slots=int(v.sum()), cluster_overflow=bool(ps.cluster_overflow),
+                n_gated=int(ps.gated.sum()), max_abs=errs, axis_sign_flips=flips)
+
+
+def _random_field(grid: GridSpec, dyn: DynParams, seed: int, dev) -> torch.Tensor:
+    """Air / unknown / ground voxels at 62 / 33 / 5 %: unknown pockets just
+    above the percolation threshold, some touching ground, some not."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(grid.shape, generator=g, device=dev)
+    unk = 0.5 * (dyn.thr_frontiers + dyn.thr_new_obstacles)
+    return torch.where(u < 0.62, -900.0, torch.where(u < 0.95, unk, -100.0)).float()
+
+
+def _serpentine(grid: GridSpec, dyn: DynParams, dev):
+    """All air but a winding one-voxel unknown corridor from one query voxel:
+    a Jacobi BFS capped at 8 sweeps stops 8 voxels along it."""
+    nz, ny, nx = grid.shape
+    vals = np.full(grid.shape, -900.0, np.float32)
+    unk = 0.5 * (dyn.thr_frontiers + dyn.thr_new_obstacles)
+    z, y0, x0 = nz // 2, ny // 2, nx // 2
+    path = []
+    for leg in range(6):  # a zig-zag of 10-voxel legs in the x-y plane
+        x_range = range(x0, x0 + 10) if leg % 2 == 0 else range(x0 + 9, x0 - 1, -1)
+        path += [(z, y0 + 2 * leg, x) for x in x_range]
+        if leg < 5:
+            path.append((z, y0 + 2 * leg + 1, x_range[-1]))
+    for p in path:
+        vals[p] = unk
+    q = torch.tensor([[x0], [y0], [z]], dtype=torch.int32, device=dev)
+    return torch.as_tensor(vals, device=dev), q
+
+
+def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
+    """K6-K9 against their plain versions on the scan's classify inputs."""
+    dev = vals.device
+    counts, _, excl, _ = k3
+    bg = split_and_update(cfg, dyn, vals, counts, prev_bg)
+    far, labels = bg.far, bg.labels
+    sensor_pos = pose[:3, 3].contiguous()
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
+    thr_f, thr_g = dyn.thr_frontiers, dyn.thr_new_obstacles
+    out = []
+
+    # K9 — the scan's far list, then a synthetic far set with > K clusters
+    fids, fvalid, ftotal = masked_compact_plain(far, cfg.max_far_voxels)
+    stats_args = (dyn, grid, K, fids, fvalid, labels, ftotal, sensor_pos, bg.bg_sufficient, true)
+    flat = labels.reshape(-1)
+    explore_on = bg.bg_sufficient & ~(ftotal > cfg.max_far_voxels)
+    ks = cluster_stats(*stats_args)
+    ps = cluster_stats_plain(dyn, grid, K, fids, fvalid, flat, sensor_pos, explore_on)
+    scan_cmp = _stats_compare(ks, ps, "scan far list")
+    k9_ms = cuda_ms(lambda: cluster_stats(*stats_args))
+    k9_plain = cuda_ms(lambda: cluster_stats_plain(dyn, grid, K, fids, fvalid, flat,
+                                                   sensor_pos, explore_on))
+    sfar_np, slab_np = synthetic_far(grid, 48, seed=9)
+    sfar, slab = torch.as_tensor(sfar_np, device=dev), torch.as_tensor(slab_np, device=dev)
+    sids, svalid, stotal = masked_compact_plain(sfar, cfg.max_far_voxels)
+    centre = torch.tensor(grid.origin, device=dev) + 0.5 * grid.voxel_size * torch.tensor(
+        grid.shape[::-1], dtype=torch.float32, device=dev)
+    ks2 = cluster_stats(dyn, grid, K, sids, svalid, slab, stotal, centre, true, true)
+    ps2 = cluster_stats_plain(dyn, grid, K, sids, svalid, slab.reshape(-1), centre, true)
+    syn_cmp = _stats_compare(ks2, ps2, "synthetic 48 clusters")
+    if not syn_cmp["cluster_overflow"]:
+        raise AssertionError("K9 synthetic case did not overflow the K slots")
+    out.append(dict(
+        name="cluster_stats", max_abs_err=max(*scan_cmp["max_abs"].values(),
+                                              *syn_cmp["max_abs"].values()),
+        tol=K9_TOL, ms=k9_ms, plain_ms=k9_plain, scan=scan_cmp, synthetic=syn_cmp,
+        n_far_scan=int(ftotal), n_far_synthetic=int(stotal),
+        shapes=f"F={cfg.max_far_voxels}, K={K}; integers, bools, AABB bit-equal",
+    ))
+
+    # K6 — the compactions
+    cases = _compact_cases(cfg, grid, excl, far, labels, ps.rep_sel)
+    case_out, k6_err = {}, 0.0
+    for name, kern, plain in cases:
+        k, p = kern(), plain()
+        k6_err = max(k6_err, _equal(k, p, f"K6[{name}].ids K6[{name}].valid K6[{name}].total"))
+        case_out[name] = dict(total=int(p[2]), ms=cuda_ms(kern), plain_ms=cuda_ms(plain))
+    if not case_out["overflow dense 2.47M->4096"]["total"] > 4096:
+        raise AssertionError("K6 overflow case did not overflow")
+    main = case_out["far 2.47M->2048"]
+    out.append(dict(name="masked_compact", max_abs_err=k6_err, ms=main["ms"],
+                    plain_ms=main["plain_ms"], cases=case_out,
+                    shapes="ms/plain_ms: the far compaction; every case bit-equal"))
+
+    # K7 — the scan's queries (the main path's shapes)
+    qids, qvalid, qtotal = masked_compact_isin_plain(far, labels, ps.rep_sel, Q)
+    qx, qy, qz = grid.unflatten_id(qids)
+    qlab = torch.where(qvalid, flat[qids.long()], SENTINEL)
+    qslot = qvalid[:, None] & (qlab[:, None] == ps.reps[None, :])
+    m_q = (qslot.to(torch.int32) * ps.m_k[None, :]).sum(dim=1).to(torch.int32)
+    scan_q = (grid, bg.grid, qx, qy, qz, qvalid, m_q, thr_f, thr_g, S)
+    k7_err = _equal(explore(*scan_q), explore_plain(*scan_q), "K7.connected K7.reached K7.corners")
+    k7_ms, k7_plain = cuda_ms(lambda: explore(*scan_q)), cuda_ms(lambda: explore_plain(*scan_q))
+
+    # K7 — 256 valid queries over a random field; K8 demotes their patches
+    field = _random_field(grid, dyn, 7, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    unk_ids = torch.nonzero(field.reshape(-1) > thr_f)[:, 0]  # queries start in the band
+    pick = unk_ids[torch.randint(0, unk_ids.shape[0], (Q,), generator=g, device=dev)]
+    rq = [t.to(torch.int32) for t in grid.unflatten_id(pick)]
+    rq[0][:4] = torch.tensor([0, grid.nx - 1, 3, 5], dtype=torch.int32)  # grid-edge starts
+    rvalid = torch.ones(Q, dtype=torch.bool, device=dev)
+    rmm = torch.randint(0, 20, (Q,), generator=g, device=dev, dtype=torch.int32)
+    syn_q = (grid, field, *rq, rvalid, rmm, thr_f, thr_g, S)
+    kc, kr, kco = explore(*syn_q)
+    k7_err = max(k7_err, _equal((kc, kr, kco), explore_plain(*syn_q),
+                                "K7s.connected K7s.reached K7s.corners"))
+    for side in (16, 62):  # the golden side, and 64-bit rows past 48 KB of shared memory
+        q32 = (grid, field, *(t[:32] for t in rq), rvalid[:32], rmm[:32] + side // 4, thr_f,
+               thr_g, side)
+        k7_err = max(k7_err, _equal(explore(*q32), explore_plain(*q32),
+                                    f"K7[S={side}].connected K7[S={side}].reached "
+                                    f"K7[S={side}].corners"))
+    syn_ms = cuda_ms(lambda: explore(*syn_q))
+    syn_plain = cuda_ms(lambda: explore_plain(*syn_q))
+
+    # K7 — the serpentine corridor, capped at 8 sweeps
+    sv, sq = _serpentine(grid, dyn, dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    mm = torch.full((1,), 40, dtype=torch.int32, device=dev)
+    capped = explore(grid, sv, sq[0], sq[1], sq[2], one, mm, thr_f, thr_g, S, 8)
+    k7_err = max(k7_err, _equal(
+        capped, explore_plain(grid, sv, sq[0], sq[1], sq[2], one, mm, thr_f, thr_g, S, 8),
+        "K7c.connected K7c.reached K7c.corners"))
+    free = explore(grid, sv, sq[0], sq[1], sq[2], one, mm, thr_f, thr_g, S, 96)
+    n_capped = int(sum(bin(int(w)).count("1") for w in capped[1].reshape(-1).tolist()))
+    n_free = int(sum(bin(int(w)).count("1") for w in free[1].reshape(-1).tolist()))
+    if not n_capped < n_free:
+        raise AssertionError(f"serpentine: the cap did not bind ({n_capped} vs {n_free})")
+    out.append(dict(
+        name="explore_bfs", max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain,
+        scan_valid_queries=int(qvalid.sum()), synthetic_ms=syn_ms, synthetic_plain_ms=syn_plain,
+        synthetic_connected=int(kc.sum()), serpentine_reached_capped=n_capped,
+        serpentine_reached_free=n_free,
+        shapes=f"Q={Q}, S={S}; ms/plain_ms: the scan's queries; synthetic: 256 valid queries",
+    ))
+
+    # K8 — the random batch's demotions: connected queries share slot 0,
+    # the others spread over slots 1..K-1 (every slot gated), so those float
+    slot_ids = torch.where(kc, 0, 1 + torch.arange(Q, device=dev) % (K - 1))
+    sslot = slot_ids[:, None] == torch.arange(K, device=dev)[None, :]
+    gate = torch.ones(K, dtype=torch.bool, device=dev)
+    no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    dem = (kr, kco, sslot, kc, rvalid, gate, no_ovf, thr_f)
+    pg, pn = demote_floating_plain(field, *dem)
+    kg, kn = demote_floating(field.clone(), *dem)
+    k8_err = _equal((kg, kn), (pg, pn), "K8.grid K8.n_writes")
+    if int(pn) == 0:
+        raise AssertionError("K8: the synthetic batch demoted nothing")
+    work = field.clone()
+    out.append(dict(
+        name="demote", max_abs_err=k8_err,
+        ms=cuda_ms(lambda: demote_floating(work, *dem)),
+        plain_ms=cuda_ms(lambda: demote_floating_plain(field, *dem)),
+        demotion_writes=int(pn), demoted_voxels=int((pg != field).sum()),
+        shapes=f"Q={Q}, S={S}, random batch, {int((~kc).sum())} unconnected queries",
+    ))
+    return out
 
 
 def phase3() -> None:
@@ -289,7 +580,7 @@ def phase4(lut) -> dict:
     scans = scan_cycle(lut, N_SCANS)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    step_ms, syncs, n_dets = [], [], []
+    step_ms, syncs, n_dets, n_queries, n_demoted = [], [], [], [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -305,6 +596,8 @@ def phase4(lut) -> dict:
                 step_ms.append(start.elapsed_time(end))
                 syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)))
                 n_dets.append(len(msg.detections))
+                n_queries.append(int(node.last_diag.n_queries))
+                n_demoted.append(int(node.last_diag.n_demoted))
         finally:
             torch.cuda.set_sync_debug_mode(0)
     launches = kernels.launch_counts()
@@ -324,6 +617,9 @@ def phase4(lut) -> dict:
         host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
         detections_last_scan=n_dets[-1], detections_total=int(sum(n_dets)),
         scans_with_detection=int(sum(1 for n in n_dets if n)),
+        explore_queries_total=int(sum(n_queries)), demotion_writes_total=int(sum(n_demoted)),
+        scans_with_queries=int(sum(1 for n in n_queries if n)),
+        explore_queries_per_scan=n_queries, demotion_writes_per_scan=n_demoted,
         bg_sufficient=bool(d.bg_sufficient), sure_bg_sufficient=bool(d.sure_bg_sufficient),
         n_bg_voxels=int(d.n_bg_voxels), cc_iters=int(d.cc_iters),
         launches=launches, launches_per_scan={k: v / N_SCANS for k, v in launches.items()},
@@ -358,12 +654,13 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5) -> None:
     ev = prof.key_averages()
     stages = {e.key: round(_dev_us(e, False) / n / 1e3, 3) for e in ev if e.key.startswith("vofod.")}
     ops = [e for e in ev if not e.key.startswith("vofod.") and _dev_us(e, True) > 0]
-    busy_ms = sum(_dev_us(e, True) for e in ops if not e.key.startswith("aten::")) / n / 1e3
-    top = sorted((e for e in ops if not e.key.startswith("aten::")),
-                 key=lambda e: -_dev_us(e, True))[:12]
+    dev_ops = [e for e in ops if not e.key.startswith("aten::")]
+    busy_ms = sum(_dev_us(e, True) for e in dev_ops) / n / 1e3
+    top = sorted(dev_ops, key=lambda e: -_dev_us(e, True))[:12]
     say("5-profile", scans=n, profiled_wall_ms_per_scan=round(wall_ms, 3),
         unprofiled_step_ms_p50=round(step_ms_p50, 3),
         device_busy_ms_per_scan=round(busy_ms, 3),
+        device_ops_per_scan=sum(e.count for e in dev_ops) / n,
         idle_share_of_unprofiled_step=round(1.0 - busy_ms / step_ms_p50, 3),
         stage_device_span_ms_per_scan=stages,
         top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n, e.key[:90]]

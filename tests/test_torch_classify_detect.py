@@ -29,7 +29,8 @@ from vofod_tpu.pipeline.detect import extract_detections as j_extract
 from vofod_tpu.pipeline.sepclusters import run_sepclusters as j_sep
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec
-from vofod_tpu_torch.pipeline.classify import classify
+from vofod_tpu_torch.ops.compaction import masked_compact_plain
+from vofod_tpu_torch.pipeline.classify import classify, cluster_stats_plain
 from vofod_tpu_torch.pipeline.detect import extract_detections
 from vofod_tpu_torch.pipeline.sepclusters import run_sepclusters
 
@@ -104,6 +105,70 @@ def test_classify_scenes_exercise_every_class():
         classes |= set(to.cluster_class.numpy()[to.cluster_valid.numpy()].tolist())
         demoted += int((to.grid.numpy() == -750.0).sum())
     assert classes == {0, 1, 2} and demoted > 0
+
+
+# single voxels, collinear pairs / triples, an L, coplanar squares, a slab
+_SHAPES = [
+    [(0, 0, 0)], [(0, 0, 0), (0, 0, 1)], [(0, 0, 0), (0, 1, 0), (0, 2, 0)],
+    [(0, 0, 0), (1, 0, 0), (2, 0, 0)], [(0, 0, 0), (0, 0, 1), (0, 1, 0)],
+    [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1)], [(0, y, x) for y in range(3) for x in range(3)],
+    [(z, 0, x) for z in range(2) for x in range(3)], [(0, 0, 0), (1, 1, 1), (0, 1, 1), (1, 1, 0)],
+]
+
+
+def _cluster_scene(n_clusters, seed):
+    """Far clusters of _SHAPES (shuffled, then random blobs) on a 4-voxel
+    lattice; each cluster's label is its least flat id."""
+    shape = (8, 20, 24)
+    rng = np.random.default_rng(seed)
+    far = np.zeros(shape, bool)
+    labels = np.full(shape, np.iinfo(np.int32).max, np.int32)
+    sites = [(z, y, x) for z in (1, 5) for y in range(1, 17, 4) for x in range(1, 21, 4)]
+    order = rng.permutation(len(_SHAPES))
+    for c, site in enumerate([sites[i] for i in rng.permutation(len(sites))[:n_clusters]]):
+        offs = _SHAPES[order[c]] if c < len(_SHAPES) else rng.integers(0, 3, (5, 3)).tolist()
+        pts = np.array(site) + np.array(offs)
+        far[tuple(pts.T)] = True
+        labels[tuple(pts.T)] = ((pts[:, 0] * shape[1] + pts[:, 1]) * shape[2] + pts[:, 2]).min()
+    return far, labels
+
+
+@pytest.mark.parametrize("n_clusters,seed", [(6, 0), (12, 1), (12, 2), (20, 3)])
+def test_cluster_stats_plain_matches_the_jax_block(n_clusters, seed):
+    """K9's plain version against classify.py:83-157 of the JAX package:
+    more clusters than K = 8 slots (overflow), collinear, coplanar and
+    single-voxel clusters.  Integers, bools and the AABB bit-equal; OBB
+    floats within 1e-3 m as in test_classify_parity."""
+    far, labels = _cluster_scene(n_clusters, seed)
+    shape = far.shape
+    vals = np.full(shape, -100.0, np.float32)
+    sensor = np.array([6.0, 5.0, 2.0], np.float32)
+    jcfg, jdyn = JConfig(**CFG), JDyn(**DYN)
+    jo = j_classify(jcfg, jdyn.as_arrays(), JGrid((0.0, 0.0, 0.0), shape, VOXEL), jnp.asarray(vals),
+                    jnp.asarray(far), jnp.asarray(labels), jnp.bool_(True), jnp.asarray(sensor),
+                    jnp.bool_(True), jnp.bool_(True))
+    tg = GridSpec((0.0, 0.0, 0.0), shape, VOXEL)
+    fids, fvalid, ftotal = masked_compact_plain(torch.from_numpy(far), CFG["max_far_voxels"])
+    st = cluster_stats_plain(DynParams(**DYN), tg, CFG["max_clusters"], fids, fvalid,
+                             torch.from_numpy(labels).reshape(-1), torch.from_numpy(sensor),
+                             torch.tensor(True))
+    assert bool(st.cluster_overflow) == (n_clusters > CFG["max_clusters"])
+    assert bool(st.cluster_overflow) == bool(jo.far_overflow)
+    for f, jf in (("reps", "reps"), ("slot_valid", "cluster_valid"), ("npts", "n_points"),
+                  ("aabb_min", "aabb_min"), ("aabb_max", "aabb_max")):
+        assert np.array_equal(getattr(st, f).numpy(), np.asarray(getattr(jo, jf))), f
+    v = st.slot_valid.numpy()
+    assert np.array_equal(st.gated.numpy(), np.asarray(jo.cluster_class) != 0)
+    assert np.array_equal(st.qgate.numpy(), st.gated.numpy())
+    assert np.array_equal(st.rep_sel.numpy(), np.where(st.gated.numpy(), st.reps.numpy(), -2))
+    want_mk = np.floor((np.asarray(jo.obb_size)[v] + np.float32(DYN["cls_max_explore_distance"]))
+                       / np.float32(VOXEL)).astype(np.int32)
+    assert np.array_equal(st.m_k.numpy()[v], want_mk)
+    assert 0 < st.gated.sum() < v.sum()  # some slots pass the gates, some fail
+    for f, jf in (("obb_center", "obb_center"), ("obb_extent", "obb_extent"),
+                  ("obb_size", "obb_size"), ("axes", "obb_axes")):
+        np.testing.assert_allclose(getattr(st, f).numpy()[v], np.asarray(getattr(jo, jf))[v],
+                                   atol=1e-3, rtol=0, err_msg=f)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

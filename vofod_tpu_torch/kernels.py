@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K4).
+"""Build, load and launch the hand-written CUDA kernels (K1-K4, K6-K9).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -31,12 +31,14 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
-_SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu")
+_SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
+            "compact.cu", "explore.cu", "classify_stats.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {
@@ -44,6 +46,10 @@ LAUNCHES: dict[str, int] = {
     "propagate_sweep": 0,
     "frontend_bin": 0,
     "cone_sweep": 0,
+    "masked_compact": 0,
+    "explore_bfs": 0,
+    "demote": 0,
+    "cluster_stats": 0,
 }
 
 _lib = None
@@ -52,6 +58,7 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 
 def reset_launch_counts() -> None:
@@ -78,9 +85,10 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel library if this source hash is not built yet.
+    """Compile the kernel library if this source hash is not built yet: one
+    ``nvcc -c`` per source, all started together, then one link.
     Returns (path of the .so, compiler log of the build or '' if cached)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
@@ -89,16 +97,29 @@ def build() -> tuple[Path, str]:
         return so, ""
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
-    os.replace(tmp, so)
-    return so, log
+    work = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+    try:
+        jobs = []
+        for src in _SOURCES:
+            obj, log = work / f"{src}.o", work / f"{src}.log"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+            with open(log, "w") as f:
+                jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+        for *_, proc in jobs:
+            proc.wait()
+        logs = [log.read_text() for _, _, log, _ in jobs]
+        for (cmd, _, _, proc), text in zip(jobs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{text}")
+        tmp = work / "lib.so"
+        cmd = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return so, "".join(logs)
 
 
 def load():
@@ -116,8 +137,16 @@ def load():
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+        lib.vofod_compact.argtypes = [_P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P]
+        lib.vofod_explore.argtypes = [
+            _P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
+        lib.vofod_demote.argtypes = [
+            _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
+        lib.vofod_cluster_stats.argtypes = [
+            _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
-                   lib.vofod_frontend_bin, lib.vofod_cone_sweep):
+                   lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
+                   lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats):
             fn.restype = _I
         _lib = lib
         return lib
@@ -241,3 +270,147 @@ def cone_sweep(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
     _check(err, "vofod_cone_sweep")
     LAUNCHES["cone_sweep"] += 1
     return T
+
+
+_COMPACT_CHUNK = 4096  # elements per block of csrc/compact.cu
+
+
+def masked_compact(mask: torch.Tensor, capacity: int, labels: torch.Tensor | None = None,
+                   sel: torch.Tensor | None = None):
+    """K6: (ids int32 [capacity], valid bool [capacity], total int32 scalar)
+    of the set elements of ``mask`` — or, with ``labels`` and ``sel``, of
+    ``mask & isin(labels, sel)`` (``sel``: int32, at most 32 values)."""
+    lib = load()
+    _require(mask, "compact mask", torch.bool)
+    n = mask.numel()
+    if n == 0 or capacity <= 0:
+        raise ValueError(f"masked_compact needs n > 0 and capacity > 0, got {n}, {capacity}")
+    lab_ptr = sel_ptr = None
+    nsel = 0
+    if labels is not None:
+        _require(labels, "compact labels", torch.int32, mask.shape)
+        _require(sel, "compact sel", torch.int32)
+        nsel = sel.numel()
+        if not 0 < nsel <= 32:
+            raise ValueError(f"compact sel takes 1-32 labels, got {nsel}")
+        lab_ptr, sel_ptr = labels.data_ptr(), sel.data_ptr()
+    dev = mask.device
+    nb = -(-n // _COMPACT_CHUNK)
+    scratch = torch.empty(2 * nb, dtype=torch.int32, device=dev)
+    ids = torch.empty(capacity, dtype=torch.int32, device=dev)
+    valid = torch.empty(capacity, dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.vofod_compact(
+        mask.data_ptr(), lab_ptr, sel_ptr, nsel, n, capacity, scratch.data_ptr(),
+        ids.data_ptr(), valid.data_ptr(), total.data_ptr(), _stream())
+    _check(err, "vofod_compact")
+    LAUNCHES["masked_compact"] += 1
+    return ids, valid, total
+
+
+def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
+            qvalid: torch.Tensor, max_manhattan: torch.Tensor, thr_frontiers: float,
+            thr_ground: float, submap: int, max_iters: int):
+    """K7: (connected bool [Q], reached int64 [Q, S, S] packed rows,
+    corners int32 [Q, 3])."""
+    lib = load()
+    if vmap.dim() != 3:
+        raise ValueError("explore takes a 3-D grid")
+    Q, S = qx.shape[0], int(submap)
+    if not 2 <= S <= 62:
+        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
+    _require(vmap, "explore grid", torch.float32)
+    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (max_manhattan, "max_manhattan")):
+        _require(t, f"explore {name}", torch.int32, (Q,))
+    _require(qvalid, "explore qvalid", torch.bool, (Q,))
+    dev = vmap.device
+    connected = torch.empty(Q, dtype=torch.bool, device=dev)
+    reached = torch.empty((Q, S, S), dtype=torch.int64, device=dev)
+    corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
+    nz, ny, nx = vmap.shape
+    err = lib.vofod_explore(
+        vmap.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+        qvalid.data_ptr(), max_manhattan.data_ptr(), float(thr_frontiers), float(thr_ground),
+        Q, S, int(max_iters), connected.data_ptr(), reached.data_ptr(), corners.data_ptr(),
+        _stream())
+    _check(err, "vofod_explore")
+    LAUNCHES["explore_bfs"] += 1
+    return connected, reached, corners
+
+
+def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
+            qslot: torch.Tensor, connected: torch.Tensor, qvalid: torch.Tensor,
+            qgate: torch.Tensor, query_overflow: torch.Tensor, thr_frontiers: float):
+    """K8, in place on ``vmap``: min(v, thr) at the reached voxels of every
+    query that demotes.  Returns the int32 count of those writes."""
+    lib = load()
+    Q, S = reached.shape[0], reached.shape[1]
+    K = qgate.shape[0]
+    _require(vmap, "demote grid", torch.float32)
+    if vmap.dim() != 3:
+        raise ValueError("demote takes a 3-D grid")
+    _require(reached, "demote reached", torch.int64, (Q, S, S))
+    _require(corners, "demote corners", torch.int32, (Q, 3))
+    _require(qslot, "demote qslot", torch.bool, (Q, K))
+    _require(connected, "demote connected", torch.bool, (Q,))
+    _require(qvalid, "demote qvalid", torch.bool, (Q,))
+    _require(qgate, "demote qgate", torch.bool, (K,))
+    _require(query_overflow, "demote query_overflow", torch.bool, ())
+    n_writes = torch.zeros((), dtype=torch.int32, device=vmap.device)
+    nz, ny, nx = vmap.shape
+    err = lib.vofod_demote(
+        vmap.data_ptr(), nz, ny, nx, reached.data_ptr(), corners.data_ptr(), S,
+        qslot.data_ptr(), connected.data_ptr(), qvalid.data_ptr(), qgate.data_ptr(),
+        query_overflow.data_ptr(), Q, K, float(thr_frontiers), n_writes.data_ptr(), _stream())
+    _check(err, "vofod_demote")
+    LAUNCHES["demote"] += 1
+    return n_writes
+
+
+# output fields of K9, in the order of csrc/classify_stats.cu StatsOut
+_STATS_FIELDS = (
+    ("reps", torch.int32, ()), ("slot_valid", torch.bool, ()), ("npts", torch.int32, ()),
+    ("aabb_min", torch.float32, (3,)), ("aabb_max", torch.float32, (3,)),
+    ("obb_center", torch.float32, (3,)), ("axes", torch.float32, (3, 3)),
+    ("obb_extent", torch.float32, (3,)), ("obb_size", torch.float32, ()),
+    ("gated", torch.bool, ()), ("m_k", torch.int32, ()), ("qgate", torch.bool, ()),
+    ("rep_sel", torch.int32, ()),
+)
+
+
+def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor, K: int,
+                  grid_origin, voxel_size: float, gates, sensor_pos: torch.Tensor,
+                  bg_sufficient: torch.Tensor, sure_bg_sufficient: torch.Tensor,
+                  ftotal: torch.Tensor) -> dict[str, torch.Tensor]:
+    """K9: the per-slot statistics of the far list, keyed as
+    ``_STATS_FIELDS`` plus ``cluster_overflow``.  ``gates``: (min_points,
+    max_distance, max_size, max_explore_distance)."""
+    lib = load()
+    F = fids.shape[0]
+    if labels.dim() != 3:
+        raise ValueError("cluster_stats takes the 3-D label grid")
+    _require(fids, "stats fids", torch.int32, (F,))
+    _require(fvalid, "stats fvalid", torch.bool, (F,))
+    _require(labels, "stats labels", torch.int32)
+    _require(sensor_pos, "stats sensor_pos", torch.float32, (3,))
+    _require(bg_sufficient, "stats bg_sufficient", torch.bool, ())
+    _require(sure_bg_sufficient, "stats sure_bg_sufficient", torch.bool, ())
+    _require(ftotal, "stats ftotal", torch.int32, ())
+    dev = fids.device
+    out = {name: torch.empty((K, *tail), dtype=dt, device=dev)
+           for name, dt, tail in _STATS_FIELDS}
+    out["cluster_overflow"] = torch.empty((), dtype=torch.bool, device=dev)
+    ptrs = np.array([t.data_ptr() for t in out.values()], dtype=np.int64)
+    slot_scratch = torch.empty(F, dtype=torch.int32, device=dev)
+    grid_f = np.array([*grid_origin, voxel_size], dtype=np.float32)
+    gate_f = np.array(gates, dtype=np.float32)
+    assert grid_f.shape == (4,) and gate_f.shape == (4,)
+    _, ny, nx = labels.shape
+    err = lib.vofod_cluster_stats(
+        fids.data_ptr(), fvalid.data_ptr(), labels.data_ptr(), F, K, ny, nx,
+        grid_f.ctypes.data_as(_P), gate_f.ctypes.data_as(_P), sensor_pos.data_ptr(),
+        bg_sufficient.data_ptr(), sure_bg_sufficient.data_ptr(), ftotal.data_ptr(),
+        slot_scratch.data_ptr(), ptrs.ctypes.data_as(_P), _stream())
+    _check(err, "vofod_cluster_stats")
+    LAUNCHES["cluster_stats"] += 1
+    return out

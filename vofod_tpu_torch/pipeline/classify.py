@@ -6,11 +6,18 @@ path (ref classifyClusters / classify_cluster, vofod_nodelet.cpp:818-831,
 component labels fill K cluster slots in ascending order, and counts, AABB,
 PCA OBB, gates and the floating check all run on that list.
 
+On CUDA tensors the whole stage runs on hand-written kernels: the two
+compactions (K6, the query one with its label predicate inside the
+kernel), the cluster statistics (K9, :func:`cluster_stats`), the explore
+BFS (K7) and the demotion write-back (K8); CPU tensors take their plain
+versions.
+
 Host-sync-free control flow: the explore always runs at the full Q-query
 capacity (any tier >= qtotal gives the same result, classify.py:281-286,
-and a run with no valid query equals the JAX branch 0), and the masked
-demotion is always applied (a no-op when nothing demotes).
-``sequential_explore`` is not ported yet.
+and a run with no valid query equals the JAX branch 0; the kernel's blocks
+of invalid queries return at once), and the masked demotion is always
+applied (a no-op when nothing demotes).  ``sequential_explore`` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,12 +27,13 @@ from dataclasses import dataclass
 import torch
 from torch.profiler import record_function
 
+from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, to_int32
-from vofod_tpu_torch.ops.compaction import masked_compact
+from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import SENTINEL
 from vofod_tpu_torch.ops.eigh3 import cross, eigh3
-from vofod_tpu_torch.ops.explore import apply_demotions, explore_to_ground
+from vofod_tpu_torch.ops.explore import demote_floating, explore
 
 Tensor = torch.Tensor
 
@@ -51,37 +59,37 @@ class ClassifyOut:
     n_far: Tensor
     far_overflow: Tensor
     labels_converged: Tensor
+    n_queries: Tensor  # int32 — far voxels of gated clusters (explore queries)
+    n_demoted: Tensor  # int32 — demotion writes (a voxel in two patches: 2)
 
 
-def _isin_small(x: Tensor, values: Tensor) -> Tensor:
-    """``torch.isin(x, values)`` for a handful of values, by a binary search
-    in the sorted values (torch.isin on a large CUDA input deduplicates it
-    with a host-synchronising unique)."""
-    sv = torch.sort(values).values
-    pos = torch.searchsorted(sv, x).clamp(max=sv.shape[0] - 1)
-    return sv[pos] == x
+@dataclass
+class ClusterStats:
+    """Per-slot statistics of the far list (K9's outputs)."""
+
+    reps: Tensor  # int32 [K] — component label of each slot, ascending
+    slot_valid: Tensor  # bool [K]
+    npts: Tensor  # int32 [K]
+    aabb_min: Tensor  # f32 [K, 3]
+    aabb_max: Tensor  # f32 [K, 3]
+    obb_center: Tensor  # f32 [K, 3]
+    axes: Tensor  # f32 [K, 3, 3] (rows = principal axes)
+    obb_extent: Tensor  # f32 [K, 3]
+    obb_size: Tensor  # f32 [K]
+    gated: Tensor  # bool [K] — passed the point / distance / size gates
+    m_k: Tensor  # int32 [K] — explore Manhattan bound of the slot
+    qgate: Tensor  # bool [K] — gated and the explore is on
+    rep_sel: Tensor  # int32 [K] — reps where qgate, else -2 (matches nothing)
+    cluster_overflow: Tensor  # bool — more distinct far labels than K
 
 
-def classify(
-    cfg: VoFODConfig,
-    dyn: DynParams,
-    grid: GridSpec,
-    grid_vals: Tensor,
-    far: Tensor,
-    labels: Tensor,
-    labels_converged: Tensor,
-    sensor_pos: Tensor,  # [3] world
-    bg_sufficient: Tensor,
-    sure_bg_sufficient: Tensor,
-) -> ClassifyOut:
-    if cfg.sequential_explore:
-        raise NotImplementedError("sequential_explore is not ported yet")
-    K, F, Q = cfg.max_clusters, cfg.max_far_voxels, cfg.max_queries
-    dev = grid_vals.device
-    flat_labels = labels.reshape(-1)
-
-    fids, fvalid, ftotal = masked_compact(far, F)
-    overflow = ftotal > F
+def cluster_stats_plain(
+    dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor,
+    flat_labels: Tensor, sensor_pos: Tensor, explore_on: Tensor,
+) -> ClusterStats:
+    """Plain version of K9 (vofod_tpu/pipeline/classify.py:83-157)."""
+    F = fids.shape[0]
+    dev = fids.device
     fx, fy, fz = grid.unflatten_id(fids)
     centers = grid.idx_to_coord(fx, fy, fz)  # [F, 3] world
     flabels = torch.where(fvalid, flat_labels[fids.long()], SENTINEL)
@@ -138,57 +146,110 @@ def classify(
         & (dist <= dyn.cls_max_distance)
         & (obb_size <= dyn.cls_max_size)
     )
-
-    # --- floating check (ref :1692-1718) --------------------------------------
-    explore_on = bg_sufficient & sure_bg_sufficient & ~overflow
     m_k = to_int32(torch.floor(
-        (obb_size + float(dyn.cls_max_explore_distance)) / cfg.voxel_size
+        (obb_size + float(dyn.cls_max_explore_distance)) / grid.voxel_size
     ))
     qgate = gated & explore_on  # [K]
+    rep_sel = torch.where(qgate, reps, -2)  # -2 matches nothing
+    return ClusterStats(
+        reps=reps, slot_valid=slot_valid, npts=npts, aabb_min=aabb_min,
+        aabb_max=aabb_max, obb_center=obb_center, axes=axes, obb_extent=obb_extent,
+        obb_size=obb_size, gated=gated, m_k=m_k, qgate=qgate, rep_sel=rep_sel,
+        cluster_overflow=cluster_overflow,
+    )
+
+
+def cluster_stats(
+    dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor, labels: Tensor,
+    ftotal: Tensor, sensor_pos: Tensor, bg_sufficient: Tensor, sure_bg_sufficient: Tensor,
+) -> ClusterStats:
+    """K9: statistics of the far list ``fids``/``fvalid`` (the first F far
+    voxels of ``ftotal``).  The explore runs only when the background is
+    sufficient and the far list did not overflow (ref :1692)."""
+    if fids.is_cuda:
+        out = kernels.cluster_stats(
+            fids, fvalid, labels, K, grid.origin, grid.voxel_size,
+            (dyn.cls_min_points, dyn.cls_max_distance, dyn.cls_max_size,
+             dyn.cls_max_explore_distance),
+            sensor_pos.contiguous(), bg_sufficient, sure_bg_sufficient, ftotal,
+        )
+        return ClusterStats(**out)
+    if fids.device.type != "cpu":
+        raise ValueError(f"cluster_stats: unsupported device {fids.device}")
+    explore_on = bg_sufficient & sure_bg_sufficient & ~(ftotal > fids.shape[0])
+    return cluster_stats_plain(dyn, grid, K, fids, fvalid, labels.reshape(-1), sensor_pos,
+                               explore_on)
+
+
+def classify(
+    cfg: VoFODConfig,
+    dyn: DynParams,
+    grid: GridSpec,
+    grid_vals: Tensor,
+    far: Tensor,
+    labels: Tensor,
+    labels_converged: Tensor,
+    sensor_pos: Tensor,  # [3] world
+    bg_sufficient: Tensor,
+    sure_bg_sufficient: Tensor,
+) -> ClassifyOut:
+    if cfg.sequential_explore:
+        raise NotImplementedError("sequential_explore is not ported yet")
+    K, F, Q = cfg.max_clusters, cfg.max_far_voxels, cfg.max_queries
+    flat_labels = labels.reshape(-1)
+
+    fids, fvalid, ftotal = masked_compact(far, F)
+    overflow = ftotal > F
+    st = cluster_stats(dyn, grid, K, fids, fvalid, labels, ftotal, sensor_pos,
+                       bg_sufficient, sure_bg_sufficient)
 
     # member voxels of gated clusters -> second compaction
-    rep_sel = torch.where(qgate, reps, -2)  # -2 matches nothing
-    qmask = far & _isin_small(labels, rep_sel)
-    qids, qvalid, qtotal = masked_compact(qmask, Q)
+    qids, qvalid, qtotal = masked_compact_isin(far, labels, st.rep_sel, Q)
     query_overflow = qtotal > Q
     qx, qy, qz = grid.unflatten_id(qids)
     qlabels = torch.where(qvalid, flat_labels[qids.long()], SENTINEL)
-    qslot = qvalid[:, None] & (qlabels[:, None] == reps[None, :])  # [Q, K]
-    m_q = (qslot.to(torch.int32) * m_k[None, :]).sum(dim=1).to(torch.int32)
+    qslot = qvalid[:, None] & (qlabels[:, None] == st.reps[None, :])  # [Q, K]
+    m_q = (qslot.to(torch.int32) * st.m_k[None, :]).sum(dim=1).to(torch.int32)
 
     with record_function("vofod.classify.explore"):
-        connected, reached, corners = explore_to_ground(
+        connected, reached, corners = explore(
             grid, grid_vals, qx, qy, qz, qvalid, m_q,
             dyn.thr_frontiers, dyn.thr_new_obstacles, cfg.explore_submap,
         )
     cluster_connected = torch.any(qslot & connected[:, None], dim=0)  # [K]
     # under query overflow some members were never explored: conservative
-    floating = qgate & ~cluster_connected & ~query_overflow
-    demote = qvalid & torch.any(qslot & floating[None, :], dim=1)
+    floating = st.qgate & ~cluster_connected & ~query_overflow
     with record_function("vofod.classify.demote"):
-        new_vals = apply_demotions(grid_vals, reached, corners, demote, dyn.thr_frontiers)
+        # on the card this writes into grid_vals in place: the step's
+        # background grid has no reader after classify (step.py)
+        new_vals, n_demoted = demote_floating(
+            grid_vals, reached, corners, qslot, connected, qvalid, st.qgate,
+            query_overflow, dyn.thr_frontiers,
+        )
 
     cls = torch.where(
-        gated,
+        st.gated,
         torch.where(floating, CLS_MAV, CLS_UNKNOWN),
         CLS_INVALID,
     ).to(torch.int32)
-    cls = torch.where(slot_valid, cls, CLS_INVALID).to(torch.int32)
+    cls = torch.where(st.slot_valid, cls, CLS_INVALID).to(torch.int32)
 
     return ClassifyOut(
         grid=new_vals,
-        cluster_valid=slot_valid,
+        cluster_valid=st.slot_valid,
         cluster_class=cls,
-        n_points=npts,
-        aabb_min=aabb_min,
-        aabb_max=aabb_max,
-        obb_center=obb_center,
-        obb_axes=axes,
-        obb_extent=obb_extent,
-        obb_size=obb_size,
-        reps=reps,
+        n_points=st.npts,
+        aabb_min=st.aabb_min,
+        aabb_max=st.aabb_max,
+        obb_center=st.obb_center,
+        obb_axes=st.axes,
+        obb_extent=st.obb_extent,
+        obb_size=st.obb_size,
+        reps=st.reps,
         labels=labels,
         n_far=ftotal,
-        far_overflow=overflow | cluster_overflow,
+        far_overflow=overflow | st.cluster_overflow,
         labels_converged=labels_converged,
+        n_queries=qtotal,
+        n_demoted=n_demoted,
     )

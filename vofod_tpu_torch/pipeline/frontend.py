@@ -7,7 +7,7 @@ operation-area crop, the clamped flat id and the histogram — is the fused
 CUDA kernel K3 (csrc/frontend_bin.cu) for CUDA tensors and
 :func:`frontend_bin_plain` for CPU tensors.  Both return the per-pixel
 own-airframe mask and flat ids; the first 4096 airframe hits in pixel
-order then become raycast blockers (frontend.py:61-77).
+order, compacted by K6, then become raycast blockers (frontend.py:61-77).
 """
 
 from __future__ import annotations

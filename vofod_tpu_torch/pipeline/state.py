@@ -117,3 +117,6 @@ class StepDiagnostics:
     cc_iters: Tensor  # int32 — label-propagation sweeps this scan
     sep_converged: Tensor  # bool — sepclusters reachability converged
     n_detections: Tensor  # int32
+    # port-only counters (the JAX diagnostics have no such fields)
+    n_queries: Tensor  # int32 — explore queries (gated far voxels) this scan
+    n_demoted: Tensor  # int32 — demotion writes this scan (overlaps count twice)

@@ -6,7 +6,7 @@ production single-stream configuration (raw frontend, gated sweep raycast):
   1. frontend: filter + transform + voxel binning       (K3)
   2. background sufficiency + close/far split            (K1, K2)
   3. point EMA update of the confidence grid
-  4. classification + floating check + demotions
+  4. classification + floating check + demotions      (K6, K9, K7, K8)
   5. detection extraction
   6. freespace raycast + flag-guarded ray EMA update     (K4)
   7. every sepclusters_every steps: background maint.    (K1, K2)
@@ -187,6 +187,8 @@ def make_step_fn(
             cc_iters=bg.cc_iters,
             sep_converged=sep_conv,
             n_detections=dets.valid.sum().to(torch.int32),
+            n_queries=cls.n_queries,
+            n_demoted=cls.n_demoted,
         )
         state.grid = vals
         state.safe = safe
