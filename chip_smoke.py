@@ -19,18 +19,30 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    random batch) bit-equal; K9 (the scan's far list, a synthetic far set of
    48 clusters, degenerate ones included)
    integers, bools and AABB bit-equal, floats within K9_TOL (OBB axes up to
-   their sign, with sign flips counted);
+   their sign, with sign flips counted).  The other stages' kernels on the
+   same scan: K5a (the scan's image, the returns only, a random image
+   under a pitched pose, a calibrated LUT) within K5A_TOL; K5b (the scan's
+   window, both update rules, its_diff 1 and 2, kernel and plain version
+   on separate clones of the grid) with the changed voxels bit-equal and
+   the grid within K5B_TOL_REL x |score_ray|; K10 (the scan's slots, and
+   synthetic slots in two grid corners and on an edge) with ids, valid
+   and the counter bit-equal, confidence within K10_CONF_RTOL, pdet and
+   covariance within K10_RTOL; K11 (the point EMA of the scan and of
+   random counts; the demotion EMA with sure_sufficient True and False)
+   bit-equal;
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
-   tests/test_golden.py assertions and that all eight kernels launched;
+   tests/test_golden.py assertions and that all thirteen kernels launched;
 4. drive the flagship main path — ``VoFOD(device="cuda")``, the apriori
    ground plane and 36 scans of a content-varying cycle — and check
-   ``bg_sufficient``, a NaN-free grid and that every kernel was launched;
-   print step p50/p95 (CUDA events), host syncs per scan, and the explore
-   queries and demotion writes of the 36 scans;
+   ``bg_sufficient``, a NaN-free grid, that every kernel was launched and
+   K5a, K5b, K10 and both K11 passes once per scan; print step p50/p95
+   (CUDA events), host syncs per scan, and the explore queries and
+   demotion writes of the 36 scans.  Then 6 scans with
+   ``NodeOptions(raycast_every=2)``: the ray stage on every second scan;
 5. a torch.profiler trace of 5 flagship scans: device time per stage (the
    step's ``vofod.*`` ranges), the top device ops, the device ops (kernels
-   and copies) launched per scan, and the device's busy and idle share of
-   the step.
+   and copies) launched per scan, matmul kernels and pads per scan, and
+   the device's busy and idle share of the step.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
@@ -38,6 +50,7 @@ The line before the last is the per-kernel JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,12 +74,21 @@ from vofod_tpu_torch.ops.components import SENTINEL, sweeps, sweeps_plain  # noq
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_floating, demote_floating_plain, explore, explore_plain)
 from vofod_tpu_torch.ops.morphology import ball_pool, ball_pool_plain  # noqa: E402
-from vofod_tpu_torch.ops.raycast import cone_sweep, cone_sweep_plain, sweep_window  # noqa: E402
-from vofod_tpu_torch.pipeline.background import split_and_update  # noqa: E402
-from vofod_tpu_torch.pipeline.classify import cluster_stats, cluster_stats_plain  # noqa: E402
+from vofod_tpu_torch.ops.raycast import (  # noqa: E402
+    RayConsts, cone_sweep, cone_sweep_plain, gate_faces, gate_faces_plain, make_angular_gate,
+    ray_window_update_, ray_window_update_plain_, row_table, sweep_window)
+from vofod_tpu_torch.pipeline.background import (  # noqa: E402
+    point_ema, point_ema_plain, split_and_update)
+from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
+    CLS_MAV, classify, cluster_stats, cluster_stats_plain)
+from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
+    DetectConsts, detect_slots, detect_slots_plain)
+from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
+    demote_ema, demote_ema_plain, demote_weights)
+from vofod_tpu_torch.pipeline.step import ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import frontend_bin, frontend_bin_plain  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD  # noqa: E402
-from vofod_tpu_torch.sensor import make_lut  # noqa: E402
+from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
 
 # K4 tolerance: T lies in [0, 1] and is stored in bf16; kernel and plain
 # version follow the same rounding steps, so they may differ by at most one
@@ -77,7 +99,19 @@ K4_TOL = 2.0**-8
 # plain version's matmul and einsum, a few float32 ulps of coordinates up
 # to ~120 m
 K9_TOL = 1e-4
+# K5a faces lie in [0, 1]; kernel and plain version follow the same
+# rounding steps (bit-equal expected)
+K5A_TOL = 1e-6
+# K5b: the grid within 1e-5 x |score_ray| (the bound tests/test_torch_raycast.py
+# holds the ray EMA to against JAX); the set of voxels it changed bit-equal
+K5B_TOL_REL = 1e-5
+# K10 confidence relative; pdet and covariance relative (the window sum is
+# replayed in the kernel's order, so bit-equal is expected)
+K10_CONF_RTOL = 1e-5
+K10_RTOL = 1e-6
 N_SCANS = 36
+# kernels the flagship step launches exactly once per scan
+ONCE_PER_SCAN = ("gate_faces", "ray_update", "detect", "point_ema", "demote_ema")
 
 KERNEL_INFO = {
     "ball_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:70"),
@@ -89,6 +123,11 @@ KERNEL_INFO = {
     "demote": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/ops/explore.py:168"),
     "cluster_stats": ("vofod_tpu_torch/csrc/classify_stats.cu",
                       "vofod_tpu/pipeline/classify.py:77"),
+    "gate_faces": ("vofod_tpu_torch/csrc/ray_gate.cu", "vofod_tpu/ops/raycast.py:559"),
+    "ray_update": ("vofod_tpu_torch/csrc/ray_update.cu", "vofod_tpu/ops/raycast.py:822"),
+    "detect": ("vofod_tpu_torch/csrc/detect.cu", "vofod_tpu/pipeline/detect.py:34"),
+    "point_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/background.py:105"),
+    "demote_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:150"),
 }
 
 
@@ -277,6 +316,8 @@ def phase2(lut) -> list[dict]:
         shapes=f"window {tuple(op_w.shape)}, 6 cones",
     ))
     results += phase2_classify(cfg, dyn, grid, vals, k3, node.state.bg_sufficient, pose)
+    window = (x0, y0, rel_x, rel_y, rel_z)
+    results += phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window)
     for r in results:
         say("2-kernel", **r)
     return results
@@ -538,6 +579,242 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     return out
 
 
+def _grid_cmp(a: torch.Tensor, b: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
+    """Two grids from the same input ``ref``: the same non-finite voxels, the
+    same set of voxels changed from ``ref``; max |a - b| over the rest."""
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError(f"{what}: non-finite voxels differ from the plain version")
+    ch_a, ch_b = a != ref, b != ref
+    if not torch.equal(ch_a, ch_b):
+        raise AssertionError(f"{what}: the changed voxels differ from the plain version in "
+                             f"{int((ch_a != ch_b).sum())} voxels")
+    fin = torch.isfinite(b)
+    return dict(max_abs=max_abs(a[fin], b[fin]) if bool(fin.any()) else 0.0,
+                n_diff=int((a[fin] != b[fin]).sum()), n_changed=int(ch_b.sum()))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / |b| over the entries that differ (0.0 if none)."""
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    nz = d > 0
+    return float((d[nz] / b[nz].abs().clamp(min=1e-30)).max()) if bool(nz.any()) else 0.0
+
+
+def _rot(yaw: float, pitch: float, roll: float) -> np.ndarray:
+    cy, sy, cp, sp, cr, sr = (np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch),
+                              np.cos(roll), np.sin(roll))
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    return (Rz @ Ry @ Rx).astype(np.float32)
+
+
+def _synthetic_slots(cfg, grid: GridSpec, far, labels, sensor_pos, seed: int):
+    """K slots for K10: clusters in two opposite grid corners and on an
+    edge (their windows reach outside the grid, so every fill is read), boxes
+    anywhere in the grid, and empty slots with the +-3e38 AABB of K9."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = grid.shape
+    K = cfg.max_clusters
+    far, labels = far.clone(), labels.clone()
+    dev = far.device
+    vs, org = grid.voxel_size, np.asarray(grid.origin, np.float32)
+    lo = np.zeros((K, 3), np.float32)
+    hi = np.zeros((K, 3), np.float32)
+    reps = np.full(K, 2**31 - 1, np.int32)
+    cls = rng.integers(0, 3, K).astype(np.int32)
+    npts = rng.integers(0, 30, K).astype(np.int32)
+    clusters = [  # (z, y, x) voxels
+        [(0, 0, 0), (0, 0, 1), (1, 0, 0)],
+        [(nz - 1, ny - 1, nx - 1), (nz - 1, ny - 1, nx - 2)],
+        [(nz // 2, 0, nx - 1), (nz // 2, 1, nx - 1)],
+    ]
+    for k, vox in enumerate(clusters):
+        v = np.array(vox)
+        fid = (v[:, 0] * ny + v[:, 1]) * nx + v[:, 2]
+        far.view(-1)[torch.as_tensor(fid, device=dev)] = True
+        labels.view(-1)[torch.as_tensor(fid, device=dev)] = int(fid.min())
+        c = (v[:, ::-1] + 0.5) * vs + org  # voxel centres (x, y, z)
+        lo[k], hi[k] = c.min(0), c.max(0)
+        reps[k], cls[k], npts[k] = fid.min(), CLS_MAV, len(vox)
+    n_fixed = len(clusters)
+    for k in range(n_fixed, K - 2):
+        ctr = org + rng.uniform(0, 1, 3) * np.array([nx, ny, nz]) * vs
+        half = rng.uniform(0, 1.0, 3)
+        lo[k], hi[k] = ctr - half, ctr + half
+        reps[k] = int(labels.view(-1)[int(rng.integers(0, grid.n_voxels))])
+    lo[K - 2:], hi[K - 2:] = 3.0e38, -3.0e38  # empty slots
+    cls[K - 2:] = 0
+    obb = np.where(cls[:, None] > 0, 0.5 * (lo + hi), 0.0).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return far, labels, (t(lo), t(hi), t(reps), t(npts), t(cls), t(obb))
+
+
+def _detect_compare(k, p, what: str) -> dict:
+    names = ("valid", "ids", "confidence", "pdet", "covariance", "counter")
+    for i in (0, 1, 5):
+        if not torch.equal(k[i], p[i]):
+            raise AssertionError(f"K10 {what}: {names[i]} differs from the plain version")
+    errs = dict(confidence=_rel(k[2], p[2]), pdet=_rel(k[3], p[3]), covariance=_rel(k[4], p[4]))
+    if not (errs["confidence"] <= K10_CONF_RTOL and errs["pdet"] <= K10_RTOL
+            and errs["covariance"] <= K10_RTOL):
+        raise AssertionError(f"K10 {what}: relative errors {errs}")
+    return dict(rel_err=errs, mav_slots=int(p[0].sum()),
+                max_abs=max(max_abs(k[i], p[i]) for i in (2, 3, 4)))
+
+
+def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -> list[dict]:
+    """K5a, K5b, K10 and both K11 entry points against their plain versions
+    on the scan's inputs, plus synthetic cases."""
+    dev = vals.device
+    x0, y0, rel_x, rel_y, rel_z = window
+    counts = k3[0]
+    occupied = counts > 0
+    rot = pose[:3, :3].contiguous()
+    sensor_pos = pose[:3, 3].contiguous()
+    H, W = lut.height, lut.width
+    out = []
+
+    # K5a — the step's image (all pixels cast: default mask, unit
+    # intensity), the returns only, a random image under a pitched and
+    # rolled pose, and a calibrated LUT (per-row elevation table)
+    rng = np.random.default_rng(5)
+    gate = make_angular_gate(lut)
+    fd = torch.as_tensor(gate.face_dirs.reshape(-1, 3), device=dev)
+    u = np.linspace(-1.0, 1.0, H)
+    cal = make_lut_ouster(W, H, 3.0 * np.sin(np.linspace(0, 2 * np.pi, H)),
+                          -22.5 * np.sign(u) * np.abs(u) ** 1.3, 15.806)
+    gate_cal = make_angular_gate(cal)
+    if gate_cal.el_rows is None:
+        raise AssertionError("the calibrated LUT did not take the per-row elevation table")
+    rand_img = torch.as_tensor(rng.random((H, W)) < 0.7, device=dev)
+    rot2 = torch.as_tensor(_rot(0.7, 0.3, -0.2), device=dev)
+    ranges = torch.as_tensor(r_np.astype(np.float32).reshape(H, W), device=dev)
+    cases = [
+        ("scan", gate, torch.ones((H, W), dtype=torch.bool, device=dev), rot),
+        ("returns only", gate, ranges > 0, rot),
+        ("random, pitched", gate, rand_img, rot2),
+        ("calibrated, random, pitched", gate_cal, rand_img, rot2),
+    ]
+    k5a, faces = {}, None
+    for name, gt, img, R in cases:
+        fdt = torch.as_tensor(gt.face_dirs.reshape(-1, 3), device=dev)
+        tbl = row_table(gt, dev)
+        kf = gate_faces(gt, fdt, img, R, tbl)
+        pf = gate_faces_plain(gt, fdt, img, R, tbl)
+        e = max_abs(kf, pf)
+        if not e <= K5A_TOL:
+            raise AssertionError(f"K5a {name}: max|d| {e} > {K5A_TOL}")
+        k5a[name] = dict(max_abs=e, n_diff=int((kf != pf).sum()), mean=float(pf.mean()))
+        if faces is None:
+            faces = kf
+    out.append(dict(
+        name="gate_faces", max_abs_err=max(c["max_abs"] for c in k5a.values()), tol=K5A_TOL,
+        ms=cuda_ms(lambda: gate_faces(gate, fd, cases[0][2], rot)),
+        plain_ms=cuda_ms(lambda: gate_faces_plain(gate, fd, cases[0][2], rot)),
+        cases=k5a, shapes=f"{H}x{W} image -> {tuple(faces.shape)} faces",
+    ))
+
+    # K5b — the scan's window: K4's T6, the K5a faces, both rules, its_diff
+    # 1 and 2; kernel and plain version on separate clones
+    c = RayConsts.make(grid.voxel_size, dyn.raycast_max_distance, cfg.sensor.vertical_fov,
+                       H, W)
+    k5b = {}
+    for new_rule in (True, False):
+        for its in (1.0, 2.0):
+            ema = ray_ema(cfg, dataclasses.replace(dyn, raycast_new_update_rule=new_rule), its)
+            args = (occupied, kt, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema)
+            a = ray_window_update_(vals.clone(), *args)
+            b = ray_window_update_plain_(vals.clone(), *args)
+            name = f"{'new' if new_rule else 'old'} rule, its_diff {its:g}"
+            cmp = _grid_cmp(a, b, vals, f"K5b {name}")
+            if not cmp["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray):
+                raise AssertionError(f"K5b {name}: max|d| {cmp['max_abs']}")
+            if cmp["n_changed"] == 0:
+                raise AssertionError(f"K5b {name}: the EMA changed nothing")
+            k5b[name] = cmp
+    ema1 = ray_ema(cfg, dyn, 1.0)
+    work_k, work_p = vals.clone(), vals.clone()
+    args1 = (occupied, kt, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema1)
+    out.append(dict(
+        name="ray_update", max_abs_err=max(v["max_abs"] for v in k5b.values()),
+        tol=K5B_TOL_REL * abs(dyn.score_ray),
+        ms=cuda_ms(lambda: ray_window_update_(work_k, *args1)),
+        plain_ms=cuda_ms(lambda: ray_window_update_plain_(work_p, *args1)),
+        cases=k5b, shapes=f"window {tuple(kt.shape[1:])} of {grid.shape}",
+    ))
+
+    # K10 — the scan's slots, then synthetic slots in grid corners and edges
+    bg = split_and_update(cfg, dyn, vals, counts, node.state.bg_sufficient)
+    cls = classify(cfg, dyn, grid, bg.grid, bg.far, bg.labels, bg.cc_converged, sensor_pos,
+                   bg.bg_sufficient, node.state.sure_bg_sufficient)
+    counter = torch.tensor(7, dtype=torch.int32, device=dev)
+    dc = DetectConsts.make(cfg, dyn)
+    CS = cfg.confidence_submap
+    scan_args = (grid, CS, dc, cls.grid, bg.far, cls.labels, cls.aabb_min, cls.aabb_max,
+                 cls.reps, cls.n_points, cls.cluster_class, cls.obb_center, sensor_pos, counter)
+    scan_cmp = _detect_compare(detect_slots(*scan_args), detect_slots_plain(*scan_args), "scan")
+    sfar, slab, slots = _synthetic_slots(cfg, grid, bg.far, cls.labels, sensor_pos, 10)
+    syn_args = (grid, CS, dc, cls.grid, sfar, slab, *slots[:5], slots[5], sensor_pos, counter)
+    syn_cmp = _detect_compare(detect_slots(*syn_args), detect_slots_plain(*syn_args),
+                              "synthetic corners")
+    out.append(dict(
+        name="detect", max_abs_err=max(scan_cmp["max_abs"], syn_cmp["max_abs"]),
+        tol=dict(confidence_rel=K10_CONF_RTOL, pdet_cov_rel=K10_RTOL),
+        ms=cuda_ms(lambda: detect_slots(*scan_args)),
+        plain_ms=cuda_ms(lambda: detect_slots_plain(*scan_args)),
+        scan=scan_cmp, synthetic=syn_cmp,
+        shapes=f"K={cfg.max_clusters} windows of {CS}^3; ids, valid, counter bit-equal",
+    ))
+
+    # K11 — the point EMA of the scan and of random counts (> 63 included);
+    # the demotion EMA of the carried reach and of a random one, with
+    # sure_sufficient True and False
+    g = torch.Generator(device=dev).manual_seed(11)
+    rnd_counts = torch.where(torch.rand(grid.shape, generator=g, device=dev) < 0.2,
+                             torch.randint(0, 90, grid.shape, generator=g, device=dev), 0
+                             ).to(torch.int32)
+    rnd_close = torch.rand(grid.shape, generator=g, device=dev) < 0.5
+    sp, su = float(dyn.score_point), float(dyn.score_unknown)
+    pe = {}
+    for name, cts, cl in (("scan", counts, bg.close), ("random", rnd_counts, rnd_close)):
+        kk, pp = point_ema(vals, cts, cl, sp, su), point_ema_plain(vals, cts, cl, sp, su)
+        _equal(kk, pp, f"K11p[{name}].grid K11p[{name}].far K11p[{name}].n_occupied")
+        pe[name] = dict(n_occupied=int(pp[2]), changed=int((pp[0] != vals).sum()))
+    radius = cfg.sepclusters_max_bg_distance / cfg.voxel_size
+    bgm = vals > dyn.thr_new_obstacles
+    rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.3
+    rnd_safe = torch.rand(grid.shape, generator=g, device=dev) < 0.5
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    de = {}
+    for name, b_, s_, sure, its in (
+            ("carried reach", bgm, node.state.safe, node.state.sure_bg_sufficient, 1.0),
+            ("random, its_diff 2", rnd_bg, rnd_safe, true, 2.0),
+            ("random, not sure", rnd_bg, rnd_safe, ~true, 1.0)):
+        w1, cst = demote_weights(its, dyn.score_ray)
+        kk = demote_ema(vals, b_, s_, sure, radius, w1, cst)
+        pp = demote_ema_plain(vals, b_, s_, sure, radius, w1, cst)
+        _equal((kk,), (pp,), f"K11d[{name}].grid")
+        de[name] = dict(demoted=int((pp != vals).sum()))
+    if de["random, its_diff 2"]["demoted"] == 0 or de["random, not sure"]["demoted"] != 0:
+        raise AssertionError(f"K11 demotion cases did not exercise both branches: {de}")
+    out.append(dict(
+        name="point_ema", max_abs_err=0.0,
+        ms=cuda_ms(lambda: point_ema(vals, counts, bg.close, sp, su)),
+        plain_ms=cuda_ms(lambda: point_ema_plain(vals, counts, bg.close, sp, su)),
+        cases=pe, shapes=f"{grid.shape}, bit-equal",
+    ))
+    out.append(dict(
+        name="demote_ema", max_abs_err=0.0,
+        ms=cuda_ms(lambda: demote_ema(vals, bgm, node.state.safe, true, radius, 0.5, -500.0)),
+        plain_ms=cuda_ms(lambda: demote_ema_plain(vals, bgm, node.state.safe, true, radius,
+                                                  0.5, -500.0)),
+        cases=de, shapes=f"{grid.shape}, ball r={radius:g}, bit-equal",
+    ))
+    return out
+
+
 def phase3() -> None:
     """tests/test_golden.py's replay and assertions, kernels on."""
     z = np.load(ROOT / "tests" / "fixtures" / "golden_small.npz")
@@ -608,6 +885,10 @@ def phase4(lut) -> dict:
     assert max(syncs) <= 1, f"host syncs per scan: {syncs}"
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    # the ray stage (new update rule: one K5b launch), detect and both EMA
+    # passes run once on every flagship scan
+    not_once = {k: launches[k] for k in ONCE_PER_SCAN if launches[k] != N_SCANS}
+    assert not not_once, f"launches over {N_SCANS} scans, expected once per scan: {not_once}"
     out = dict(
         scans=N_SCANS, grid=list(cfg.grid_shape), rays=cfg.sensor.n_points,
         apriori_voxels=n_apriori,
@@ -626,6 +907,25 @@ def phase4(lut) -> dict:
     )
     say("4-flagship", **out)
     return launches, out["step_ms_p50"]
+
+
+def phase4_raycast_every(lut, n: int = 6) -> None:
+    """``NodeOptions(raycast_every=2)`` on the flagship config: the ray
+    stage (K5a, K4, K5b) runs on every second scan only."""
+    node = VoFOD(VoFODConfig(), DynParams(), NodeOptions(raycast_every=2), lut, device="cuda")
+    node.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, n)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for r, p in scans:
+        node.process_scan(r, None, p)
+    launches = kernels.launch_counts()
+    g = node.state.grid
+    assert not bool(torch.isnan(g).any()), "grid not finite"
+    ray = {k: launches[k] for k in ("gate_faces", "cone_sweep", "ray_update")}
+    assert all(v == n // 2 for v in ray.values()), f"raycast_every=2 over {n} scans: {ray}"
+    assert launches["detect"] == n, launches
+    say("4-raycast-every", scans=n, raycast_every=2, launches=ray)
 
 
 def _dev_us(e, self_only: bool) -> float:
@@ -657,12 +957,16 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5) -> None:
     dev_ops = [e for e in ops if not e.key.startswith("aten::")]
     busy_ms = sum(_dev_us(e, True) for e in dev_ops) / n / 1e3
     top = sorted(dev_ops, key=lambda e: -_dev_us(e, True))[:12]
+    # what K5 and K10 removed: the gate expansion's matmuls, detect's pads
+    gemm = sum(e.count for e in dev_ops if any(w in e.key.lower() for w in ("gemm", "bmm")))
+    pads = sum(e.count for e in ops if e.key == "aten::constant_pad_nd")
     say("5-profile", scans=n, profiled_wall_ms_per_scan=round(wall_ms, 3),
         unprofiled_step_ms_p50=round(step_ms_p50, 3),
         device_busy_ms_per_scan=round(busy_ms, 3),
         device_ops_per_scan=sum(e.count for e in dev_ops) / n,
         idle_share_of_unprofiled_step=round(1.0 - busy_ms / step_ms_p50, 3),
         stage_device_span_ms_per_scan=stages,
+        gemm_kernels_per_scan=gemm / n, pad_ops_per_scan=pads / n,
         top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n, e.key[:90]]
                             for e in top])
 
@@ -674,6 +978,7 @@ def main() -> int:
     results = phase2(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
+    phase4_raycast_every(lut)
     phase5_profile(lut, step_ms_p50)
     record = []
     for r in results:

@@ -61,11 +61,36 @@ def _scene(seed):
     return vals, far, np.array(labels)
 
 
+def _corner_scene(seed):
+    """Floating clumps in two opposite grid corners and on an edge: their
+    detection windows reach past every face of the grid, so each fill of
+    the window read (0 / False / INT_MAX) is taken."""
+    rng = np.random.default_rng(300 + seed)
+    nz, ny, nx = SHAPE
+    vals = np.full(SHAPE, -900.0, np.float32)
+    far = np.zeros(SHAPE, bool)
+    clumps = [[(0, 0, 0), (0, 0, 1), (1, 0, 0)],
+              [(nz - 1, ny - 1, nx - 1), (nz - 1, ny - 2, nx - 1)],
+              [(nz // 2, 0, nx - 1), (nz // 2 + 1, 0, nx - 1)],
+              [(0, ny - 1, nx // 2)]]
+    for c in rng.permutation(len(clumps)):
+        for v in clumps[c]:
+            far[v] = True
+    vals[far] = -500.0
+    labels, _, _, _ = label_components_seeded(
+        jnp.asarray(far), jnp.zeros(SHAPE, bool), 3.0, 64
+    )
+    return vals, far, np.array(labels)
+
+
 @functools.lru_cache(maxsize=None)
 def _run_both(seed):
-    vals, far, labels = _scene(seed)
+    return _run_scene(*_scene(seed), DYN)
+
+
+def _run_scene(vals, far, labels, dyn_kw):
     jcfg, tcfg = JConfig(**CFG), VoFODConfig(**CFG)
-    jdyn, tdyn = JDyn(**DYN), DynParams(**DYN)
+    jdyn, tdyn = JDyn(**dyn_kw), DynParams(**dyn_kw)
     jg, tg = JGrid((0.0, 0.0, 0.0), SHAPE, VOXEL), GridSpec((0.0, 0.0, 0.0), SHAPE, VOXEL)
     jo = j_classify(jcfg, jdyn.as_arrays(), jg, jnp.asarray(vals), jnp.asarray(far),
                     jnp.asarray(labels), jnp.bool_(True), jnp.asarray(SENSOR),
@@ -174,6 +199,10 @@ def test_cluster_stats_plain_matches_the_jax_block(n_clusters, seed):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_extract_detections_parity(seed):
     _, _, jd, td, jc, tc = _run_both(seed)
+    _compare_detections(jd, td, jc, tc)
+
+
+def _compare_detections(jd, td, jc, tc):
     valid = td.valid.numpy()
     assert np.array_equal(valid, np.asarray(jd.valid))
     assert int(tc) == int(jc)
@@ -187,6 +216,41 @@ def test_extract_detections_parity(seed):
                                np.asarray(jd.detection_probability), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(td.covariance.numpy()[valid], np.asarray(jd.covariance)[valid],
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_extract_detections_corner_windows(seed):
+    """K10's plain version at the grid's faces, edges and corners: the
+    classify outputs of a corner scene with the clump slots set to mav (an
+    edge-touching clump is never classified floating), so the confidence of
+    every window that reaches past the grid is computed and compared."""
+    vals, far, labels = _corner_scene(seed)
+    jo, to, *_ = _run_scene(vals, far, labels, DYN)
+    K = CFG["max_clusters"]
+    valid = to.cluster_valid.numpy()
+    assert valid.sum() >= 4 and np.array_equal(valid, np.asarray(jo.cluster_valid))
+    cls = np.where(valid, 1, 0).astype(np.int32)  # CLS_MAV
+    npts = np.where(valid, to.n_points.numpy(), 0).astype(np.int32)
+    jo2 = jo._replace(cluster_class=jnp.asarray(cls), n_points=jnp.asarray(npts))
+    to.cluster_class, to.n_points = torch.from_numpy(cls), torch.from_numpy(npts)
+    jcfg, tcfg = JConfig(**CFG), VoFODConfig(**CFG)
+    jg = JGrid((0.0, 0.0, 0.0), SHAPE, VOXEL)
+    tg = GridSpec((0.0, 0.0, 0.0), SHAPE, VOXEL)
+    jd, jc = j_extract(jcfg, JDyn(**DYN).as_arrays(), jg, jo2.grid, jnp.asarray(labels),
+                       jnp.asarray(far), jo2, jnp.asarray(SENSOR), jnp.int32(9))
+    td, tc = extract_detections(tcfg, DynParams(**DYN), tg, to.grid, torch.from_numpy(labels),
+                                torch.from_numpy(far), to, torch.from_numpy(SENSOR),
+                                torch.tensor(9, dtype=torch.int32))
+    assert int(td.valid.sum()) == int(valid.sum()) and K > int(valid.sum())
+    # every window of a valid slot reaches outside the grid on some axis
+    lo = np.floor(to.aabb_min.numpy()[valid] / VOXEL).astype(int) - 2
+    hi = np.floor(to.aabb_max.numpy()[valid] / VOXEL).astype(int) + 2
+    lim = np.array(SHAPE[::-1]) - 1
+    ctr = (np.clip(lo, 0, lim) + np.clip(hi, 0, lim)) // 2
+    half = CFG["confidence_submap"] // 2
+    assert np.all((((ctr - half) < 0) | ((ctr + half - 1) > lim)).any(axis=1))
+    assert (td.confidence.numpy()[valid] > 0).all()
+    _compare_detections(jd, td, jc, tc)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -217,3 +217,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     a = torch.zeros((4, 4, 4), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         kernels._require(a, "ball_pool input", torch.int8)
+    g = torch.zeros((4, 4, 4))
+    b = torch.zeros((4, 4, 4), dtype=torch.bool)
+    i = torch.zeros((4, 4, 4), dtype=torch.int32)
+    k3, k1 = torch.zeros((2, 3)), torch.zeros(2, dtype=torch.int32)
+    calls = [
+        lambda: kernels.gate_faces(torch.zeros((4, 8), dtype=torch.bool), torch.zeros((6, 3)),
+                                   torch.eye(3), None, (1, 1, 4, 8), np.zeros(9, np.float32)),
+        lambda: kernels.ray_update(g, b, torch.zeros((6, 4, 4, 4)), None, torch.zeros(4),
+                                   torch.zeros(4), torch.zeros(4), torch.eye(3), 0, 0,
+                                   (0.5,) * 6, None),
+        lambda: kernels.detect(g, b, i, k3, k3, k1, k1, k1, k3, torch.zeros(3),
+                               torch.zeros((), dtype=torch.int32), 4, (0.0,) * 3, 2.0,
+                               (1.0,) * 5),
+        lambda: kernels.point_ema(g, i, b, 0.0, -740.0),
+        lambda: kernels.demote_ema(g, b, b, torch.ones((), dtype=torch.bool),
+                                   np.zeros((1, 3), np.int32), 0, 0.5, -500.0),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert all(v == 0 for v in kernels.launch_counts().values())

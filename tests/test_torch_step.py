@@ -44,11 +44,12 @@ def _apriori():
     return np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], axis=1)
 
 
-def _port_node():
+def _port_node(raycast_every=1):
     cfg = VoFODConfig(
         sensor=SensorConfig(vertical_rays=16, horizontal_rays=64, vertical_fov=np.deg2rad(90.0)),
         oparea=Box((0.0, 0.0, 4.0), (16.0, 16.0, 12.0)), **KW)
-    node = VoFOD(cfg, DynParams(), NodeOptions(raycast_mode="sweep"), device="cpu")
+    node = VoFOD(cfg, DynParams(),
+                 NodeOptions(raycast_mode="sweep", raycast_every=raycast_every), device="cpu")
     node.load_apriori_map(_apriori())
     return node
 
@@ -151,6 +152,40 @@ def test_state_carry_over_from_jax(fixture_scans, jax_run):
         msg = node.process_scan(z["ranges"][k], None, z["poses"][k])
         _compare(_record(node, node.last_diag, msg, node.state.grid.numpy()), ref[k], k)
     assert node.state.step == len(z["ranges"])
+
+
+RAYCAST_EVERY_SCANS = 12
+
+
+def test_raycast_every_against_jax(fixture_scans, port_run):
+    """``raycast_every=2``: the freespace update runs on the odd steps only,
+    with its_diff 2; the first 12 golden scans, port node against JAX node,
+    under the budgets of test_scan_for_scan_against_jax."""
+    z = fixture_scans
+    cfg = JConfig(
+        sensor=JSensor(vertical_rays=16, horizontal_rays=64, vertical_fov=np.deg2rad(90.0)),
+        oparea=JBox((0.0, 0.0, 4.0), (16.0, 16.0, 12.0)), **KW)
+    jnode = JNode(cfg, JDyn(), JOptions(raycast_mode="sweep", raycast_every=2))
+    jnode.load_apriori_map(_apriori())
+    node = _port_node(raycast_every=2)
+    every_scan, _, _ = port_run
+    grids = []
+    for k in range(RAYCAST_EVERY_SCANS):
+        r, p = z["ranges"][k], z["poses"][k]
+        jmsg = jnode.process_scan(r, None, p)
+        msg = node.process_scan(r, None, p)
+        ref = _record(jnode, jnode.last_diag, jmsg, jnode.state.grid)
+        _compare(_record(node, node.last_diag, msg, node.state.grid.numpy()), ref, k)
+        grids.append(node.state.grid.numpy().copy())
+    # the update rate differs from raycasting every scan, from the first scan
+    # on (step 0 skips the raycast)
+    assert not np.array_equal(grids[0], every_scan[0]["grid"])
+    assert not np.array_equal(grids[-1], every_scan[RAYCAST_EVERY_SCANS - 1]["grid"])
+
+
+def test_raycast_every_must_be_positive():
+    with pytest.raises(ValueError, match="raycast_every"):
+        _port_node(raycast_every=0)
 
 
 @pytest.mark.parametrize("change", [

@@ -1,0 +1,233 @@
+// K5b — ray assembly, gate expansion and the flag-guarded ray EMA, in place
+// on the sweep window of the confidence grid.
+//
+// Replaces vofod_tpu/ops/raycast.py `_expand_gate` (two tent einsums per
+// cone) and `_assemble_raylen` (cone partition, chord-length density
+// T * density * vs^3 / d^2, FOV and range masks), the full-grid zeros +
+// window update of `raycast_sweep`, and vofod_tpu/pipeline/step.py
+// `ray_update` (the EMA toward score_ray where raylen > 0 and no point
+// landed this scan).
+//
+// Bound on the H100: memory, and little of it.  One thread per window voxel
+// (51 x 97 x 97 = 479,859 at the flagship) reads one T value of the cone
+// its voxel falls in (K4's output), its grid value and point flag, and
+// writes the grid value back: ~10 B per voxel, 5 MB in all, where the plain
+// PyTorch form materialised a second [6, 51, 97, 97] gate tensor, ~40
+// elementwise temporaries and two full-grid passes.  The gate factor is
+// computed per voxel from the face texture: each tent has at most two
+// nonzero taps, so the two einsums become two-term sums.  Voxels outside
+// the window have raylen 0 and are never touched.
+//
+// Under the old update rule the EMA needs max(raylen) first: pass 1 writes
+// the window's raylen and an atomicMax on its float bits (raylen >= 0, so
+// integer order is float order); pass 2 applies the EMA.  The default new
+// rule is one pass.
+//
+// Arithmetic, fixed so that the plain PyTorch version (ops/raycast.py
+// ray_window_plain + ray_ema_plain) reproduces it bit for bit: every float
+// op with __fmul_rn / __fadd_rn / __fdiv_rn / __fsqrt_rn in the plain
+// version's order (no FMA contraction); bf16 rounding where `_expand_gate`
+// rounds (tent weights, the faces, each einsum's output); constants
+// rounded to float32 on the host as the tensor ops round them; asinf,
+// cosf, exp2f and powf as PyTorch's CUDA ops call them, with torch.pow's
+// special cases for the exponents 1, 2, 3 and 0.5.
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int RAY_T = 256;
+
+// float32 constants, in the order of kernels.py ray_update
+struct RayF {
+  float vs, vs3, vs2, c_dens, fov_lim, max_d;  // ops/raycast.py RayConsts
+  float coef, its, weight, score;              // ops/raycast.py RayEma
+};
+
+struct RayI {
+  int nz, ny, nx;  // grid
+  int wy, wx;      // window (all nz planes)
+  int y0, x0;      // window offset in the grid
+  int F;           // face texture side; 0 = no gate
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// torch.clamp: NaN passes through
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// the two nonzero taps of the tent at face coordinate x in [-1, 1]
+__device__ __forceinline__ void tent2(float x, int F, int* i, float* w) {
+  const float g = __fmul_rn(__fadd_rn(x, 1.0f), 0.5f * (float)(F - 1));
+  const float k0 = floorf(g), k1 = k0 + 1.0f;
+  w[0] = round_bf16(fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(g, k0))), 0.0f));
+  w[1] = round_bf16(fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(g, k1))), 0.0f));
+  i[0] = min(max((int)k0, 0), F - 1);
+  i[1] = min(max((int)k1, 0), F - 1);
+}
+
+// one cone's gate factor at face coordinates (u, v): the face texture
+// [F (u), F (v)] through both tents, bf16 at the einsums' rounding points
+__device__ __forceinline__ float gate_factor(const float* __restrict__ face, int F,
+                                             float u, float v) {
+  int iu[2], iv[2];
+  float wu[2], wv[2];
+  tent2(u, F, iu, wu);
+  tent2(v, F, iv, wv);
+  float tmp[2];
+  for (int g = 0; g < 2; ++g) {
+    const float f0 = round_bf16(face[iu[0] * F + iv[g]]);
+    const float f1 = round_bf16(face[iu[1] * F + iv[g]]);
+    tmp[g] = round_bf16(__fadd_rn(__fmul_rn(wu[0], f0), __fmul_rn(wu[1], f1)));
+  }
+  return round_bf16(__fadd_rn(__fmul_rn(wv[0], tmp[0]), __fmul_rn(wv[1], tmp[1])));
+}
+
+// raylen of window voxel (z, j, i)
+__device__ float raylen_at(const float* __restrict__ T6,
+                           const float* __restrict__ faces,
+                           const float* __restrict__ rel_x,
+                           const float* __restrict__ rel_y,
+                           const float* __restrict__ rel_z,
+                           const float* __restrict__ rot, const RayI& n,
+                           const RayF& f, int z, int j, int i) {
+  const float X = rel_x[i], Y = rel_y[j], Z = rel_z[z];
+  const float ax = fabsf(X), ay = fabsf(Y), az = fabsf(Z);
+  // cone partition, priority x > y > z on ties
+  const bool in_x = ax >= ay && ax >= az;
+  const bool in_y = !in_x && ay >= az;
+  const float rel_s = in_x ? X : (in_y ? Y : Z);
+  const bool pos = rel_s > 0.0f;
+  const int cone = 2 * (in_x ? 0 : (in_y ? 1 : 2)) + (pos ? 0 : 1);
+  float T = T6[(((size_t)cone * n.nz + z) * n.wy + j) * n.wx + i];
+  if (n.F > 0) {
+    float rs = pos ? rel_s : -rel_s;
+    rs = fabsf(rs) < 0.5f ? 0.5f : rs;
+    const float ra = (in_x || in_y) ? Z : Y;  // x, y cones: A = z; z cones: A = y
+    const float rb = in_x ? Y : X;            // x cones: B = y; y, z cones: B = x
+    const float u = clampf(__fdiv_rn(ra, rs), -1.0f, 1.0f);
+    const float v = clampf(__fdiv_rn(rb, rs), -1.0f, 1.0f);
+    T = __fmul_rn(T, gate_factor(faces + (size_t)cone * n.F * n.F, n.F, u, v));
+  }
+  const float rx = __fmul_rn(X, f.vs), ry = __fmul_rn(Y, f.vs), rz = __fmul_rn(Z, f.vs);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                             __fmul_rn(rz, rz));
+  const float d = __fsqrt_rn(d2);
+  const float d_safe = fmaxf(d, f.vs);
+  // elevation in the SENSOR frame: s = R^T (c - o)
+  const float sz = __fadd_rn(__fadd_rn(__fmul_rn(rot[2], rx), __fmul_rn(rot[5], ry)),
+                             __fmul_rn(rot[8], rz));
+  const float el = asinf(clampf(__fdiv_rn(sz, d_safe), -1.0f, 1.0f));
+  const float cos_el = fmaxf(cosf(el), 0.05f);
+  const float density = __fdiv_rn(1.0f, __fmul_rn(f.c_dens, cos_el));
+  if (!(fabsf(el) <= f.fov_lim && d <= f.max_d)) return 0.0f;
+  return __fdiv_rn(__fmul_rn(__fmul_rn(T, density), f.vs3), fmaxf(d2, f.vs2));
+}
+
+// torch.pow(base, its) as PyTorch computes it on the card
+__device__ __forceinline__ float torch_pow(float b, float e) {
+  if (e == 1.0f) return b;
+  if (e == 2.0f) return __fmul_rn(b, b);
+  if (e == 3.0f) return __fmul_rn(__fmul_rn(b, b), b);
+  if (e == 0.5f) return __fsqrt_rn(b);
+  return powf(b, e);
+}
+
+__device__ __forceinline__ float ema(float g, float w1, float score) {
+  return __fadd_rn(__fmul_rn(w1, g), __fmul_rn(__fsub_rn(1.0f, w1), score));
+}
+
+// mode 0: new rule, one pass; 1: old rule pass 1 (raylen + max);
+// 2: old rule pass 2 (the EMA from the stored raylen)
+template <int MODE>
+__global__ void __launch_bounds__(RAY_T)
+    ray_update_kernel(float* __restrict__ vals, const uint8_t* __restrict__ had,
+                      const float* __restrict__ T6, const float* __restrict__ faces,
+                      const float* __restrict__ rel_x, const float* __restrict__ rel_y,
+                      const float* __restrict__ rel_z, const float* __restrict__ rot,
+                      RayI n, RayF f, float* __restrict__ raylen_w,
+                      unsigned int* __restrict__ max_bits) {
+  const int nw = n.nz * n.wy * n.wx;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = t < nw;
+  const int i = live ? t % n.wx : 0;
+  const int j = live ? (t / n.wx) % n.wy : 0;
+  const int z = live ? t / (n.wx * n.wy) : 0;
+  if (MODE == 1) {
+    const float rl = live ? raylen_at(T6, faces, rel_x, rel_y, rel_z, rot, n, f, z, j, i)
+                          : 0.0f;
+    if (live) raylen_w[t] = rl;
+    float m = rl;
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if ((threadIdx.x & 31) == 0 && m > 0.0f) atomicMax(max_bits, __float_as_uint(m));
+    return;
+  }
+  if (!live) return;
+  const size_t g = ((size_t)z * n.ny + (n.y0 + j)) * n.nx + (n.x0 + i);
+  if (had[g]) return;
+  float w1;
+  if (MODE == 0) {
+    const float rl = raylen_at(T6, faces, rel_x, rel_y, rel_z, rot, n, f, z, j, i);
+    if (!(rl > 0.0f)) return;
+    w1 = exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl)));
+  } else {
+    const float rl = raylen_w[t];
+    if (!(rl > 0.0f)) return;
+    const float max_val = fmaxf(__uint_as_float(*max_bits), 1e-20f);
+    const float w_single = __fmul_rn(f.weight, __fsqrt_rn(__fdiv_rn(rl, max_val)));
+    w1 = clampf(torch_pow(__fsub_rn(1.0f, w_single), f.its), 0.0f, 1.0f);
+  }
+  vals[g] = ema(vals[g], w1, f.score);
+}
+
+}  // namespace
+
+// vals: device f32 grid [nz, ny, nx], updated in place; had: bool grid;
+// T6: f32 [6, nz, wy, wx] (K4); faces: f32 [6, F, F] or NULL (F = 0);
+// rel_x [wx], rel_y [wy], rel_z [nz]: f32 voxel-centre offsets from the
+// sensor; rot: f32 [3, 3]; ints: host int32 [nz, ny, nx, wy, wx, y0, x0, F];
+// floats: host f32 RayF.  new_rule: 1 launch; old rule: 2 launches, with
+// raylen_w (f32 [nz*wy*wx]) and max_bits (uint32, zeroed by the caller) as
+// scratch.  Returns cudaGetLastError().
+VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
+                               const void* faces, const void* rel_x,
+                               const void* rel_y, const void* rel_z,
+                               const void* rot, const int* ints,
+                               const float* floats, int new_rule, void* raylen_w,
+                               void* max_bits, void* stream) {
+  RayI n;
+  n.nz = ints[0]; n.ny = ints[1]; n.nx = ints[2]; n.wy = ints[3]; n.wx = ints[4];
+  n.y0 = ints[5]; n.x0 = ints[6]; n.F = ints[7];
+  if (n.wy < 1 || n.wx < 1 || n.y0 < 0 || n.x0 < 0 || n.y0 + n.wy > n.ny ||
+      n.x0 + n.wx > n.nx || n.F < 0 || (n.F > 0 && faces == nullptr) ||
+      (!new_rule && (raylen_w == nullptr || max_bits == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  RayF f;
+  f.vs = floats[0]; f.vs3 = floats[1]; f.vs2 = floats[2]; f.c_dens = floats[3];
+  f.fov_lim = floats[4]; f.max_d = floats[5]; f.coef = floats[6]; f.its = floats[7];
+  f.weight = floats[8]; f.score = floats[9];
+  const int nw = n.nz * n.wy * n.wx;
+  const int blocks = (nw + RAY_T - 1) / RAY_T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* v = static_cast<float*>(vals);
+  const uint8_t* h = static_cast<const uint8_t*>(had);
+  const float *t6 = static_cast<const float*>(T6), *fc = static_cast<const float*>(faces),
+              *rx = static_cast<const float*>(rel_x), *ry = static_cast<const float*>(rel_y),
+              *rz = static_cast<const float*>(rel_z), *r = static_cast<const float*>(rot);
+  float* rl = static_cast<float*>(raylen_w);
+  unsigned int* mb = static_cast<unsigned int*>(max_bits);
+  if (new_rule) {
+    ray_update_kernel<0><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+    return (int)cudaGetLastError();
+  }
+  ray_update_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ray_update_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+  return (int)cudaGetLastError();
+}

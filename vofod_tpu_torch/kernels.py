@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K4, K6-K9).
+"""Build, load and launch the hand-written CUDA kernels (K1-K11).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
-            "compact.cu", "explore.cu", "classify_stats.cu")
+            "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
+            "detect.cu", "ema.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +51,11 @@ LAUNCHES: dict[str, int] = {
     "explore_bfs": 0,
     "demote": 0,
     "cluster_stats": 0,
+    "gate_faces": 0,
+    "ray_update": 0,
+    "detect": 0,
+    "point_ema": 0,
+    "demote_ema": 0,
 }
 
 _lib = None
@@ -144,9 +150,16 @@ def load():
             _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
         lib.vofod_cluster_stats.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+        lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
+        lib.vofod_ray_update.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]
+        lib.vofod_detect.argtypes = [_P] * 20
+        lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
+        lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
-                   lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats):
+                   lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats,
+                   lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
+                   lib.vofod_point_ema, lib.vofod_demote_ema):
             fn.restype = _I
         _lib = lib
         return lib
@@ -413,4 +426,164 @@ def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor
         slot_scratch.data_ptr(), ptrs.ctypes.data_as(_P), _stream())
     _check(err, "vofod_cluster_stats")
     LAUNCHES["cluster_stats"] += 1
+    return out
+
+
+def _host_i32(*vals):
+    arr = np.array(vals, dtype=np.int32)
+    return arr, arr.ctypes.data_as(_P)
+
+
+def _host_f32(*vals):
+    arr = np.array(vals, dtype=np.float32)
+    return arr, arr.ctypes.data_as(_P)
+
+
+def gate_faces(active: torch.Tensor, face_dirs: torch.Tensor, rot: torch.Tensor,
+               table: torch.Tensor | None, pools: tuple[int, int, int, int],
+               scalars: np.ndarray) -> torch.Tensor:
+    """K5a: f32 [P] gate value of each face texel (P = face_dirs rows).
+    pools: (pool_v, pool_h, n_rows, n_cols); scalars: the float32
+    constants of ops/raycast.py _gate_scalars."""
+    if active.dim() != 2:
+        raise ValueError("gate_faces takes the [H, W] active-ray image")
+    H, W = active.shape
+    P = face_dirs.shape[0]
+    _require(active, "gate active", torch.bool)
+    _require(face_dirs, "gate face_dirs", torch.float32, (P, 3))
+    _require(rot, "gate rot", torch.float32, (3, 3))
+    n_tbl = 0
+    if table is not None:
+        n_tbl = table.shape[0]
+        _require(table, "gate row table", torch.float32, (n_tbl,))
+    ints = _host_i32(H, W, *pools, P, n_tbl)
+    floats = _host_f32(*scalars)
+    if floats[0].shape != (9,):
+        raise ValueError(f"gate_faces takes 9 float constants, got {floats[0].shape}")
+    out = torch.empty(P, dtype=torch.float32, device=active.device)
+    err = load().vofod_gate_faces(
+        active.data_ptr(), face_dirs.data_ptr(), rot.data_ptr(),
+        None if table is None else table.data_ptr(), ints[1], floats[1], out.data_ptr(),
+        _stream())
+    _check(err, "vofod_gate_faces")
+    LAUNCHES["gate_faces"] += 1
+    return out
+
+
+def ray_update(vals: torch.Tensor, had_point: torch.Tensor, T6: torch.Tensor,
+               faces: torch.Tensor | None, rel_x: torch.Tensor, rel_y: torch.Tensor,
+               rel_z: torch.Tensor, rot: torch.Tensor, x0: int, y0: int, c, ema) -> None:
+    """K5b, in place on ``vals``: the window's raylen from K4's T6 and the
+    gate faces, then the ray EMA.  c: ops/raycast.py RayConsts; ema:
+    RayEma.  One launch under the new rule, two under the old."""
+    if vals.dim() != 3:
+        raise ValueError("ray_update takes the 3-D grid")
+    nz, ny, nx = vals.shape
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    _require(vals, "ray vals", torch.float32)
+    _require(had_point, "ray had_point", torch.bool, vals.shape)
+    _require(T6, "ray T6", torch.float32, (6, nz, wy, wx))
+    _require(rel_x, "ray rel_x", torch.float32, (wx,))
+    _require(rel_y, "ray rel_y", torch.float32, (wy,))
+    _require(rel_z, "ray rel_z", torch.float32, (nz,))
+    _require(rot, "ray rot", torch.float32, (3, 3))
+    F = 0
+    if faces is not None:
+        F = faces.shape[-1]
+        _require(faces, "ray faces", torch.float32, (6, F, F))
+    if not (0 <= x0 and x0 + wx <= nx and 0 <= y0 and y0 + wy <= ny):
+        raise ValueError(f"ray window ({x0}, {y0}, {wx}, {wy}) outside the grid")
+    ints = _host_i32(nz, ny, nx, wy, wx, y0, x0, F)
+    floats = _host_f32(*c, ema.coef, ema.its, ema.weight, ema.score)
+    raylen_w = max_bits = None
+    if not ema.new_rule:
+        raylen_w = torch.empty(nz * wy * wx, dtype=torch.float32, device=vals.device)
+        max_bits = torch.zeros((), dtype=torch.int32, device=vals.device)
+    err = load().vofod_ray_update(
+        vals.data_ptr(), had_point.data_ptr(), T6.data_ptr(),
+        None if faces is None else faces.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),
+        rel_z.data_ptr(), rot.data_ptr(), ints[1], floats[1], int(bool(ema.new_rule)),
+        None if raylen_w is None else raylen_w.data_ptr(),
+        None if max_bits is None else max_bits.data_ptr(), _stream())
+    _check(err, "vofod_ray_update")
+    LAUNCHES["ray_update"] += 1 if ema.new_rule else 2
+
+
+def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
+           aabb_min: torch.Tensor, aabb_max: torch.Tensor, reps: torch.Tensor,
+           n_points: torch.Tensor, cluster_class: torch.Tensor, obb_center: torch.Tensor,
+           sensor_pos: torch.Tensor, det_counter: torch.Tensor, cs: int, origin,
+           inv_voxel: float, c):
+    """K10: (valid bool [K], ids int32 [K], confidence f32 [K], pdet f32
+    [K], covariance f32 [K, 3, 3], new counter int32) of the K cluster
+    slots.  c: pipeline/detect.py DetectConsts."""
+    if vals.dim() != 3:
+        raise ValueError("detect takes the 3-D grid")
+    K = reps.shape[0]
+    _require(vals, "detect vals", torch.float32)
+    _require(far, "detect far", torch.bool, vals.shape)
+    _require(labels, "detect labels", torch.int32, vals.shape)
+    for t, name in ((aabb_min, "aabb_min"), (aabb_max, "aabb_max"), (obb_center, "obb_center")):
+        _require(t, f"detect {name}", torch.float32, (K, 3))
+    for t, name in ((reps, "reps"), (n_points, "n_points"), (cluster_class, "cluster_class")):
+        _require(t, f"detect {name}", torch.int32, (K,))
+    _require(sensor_pos, "detect sensor_pos", torch.float32, (3,))
+    _require(det_counter, "detect det_counter", torch.int32, ())
+    dev = vals.device
+    valid = torch.empty(K, dtype=torch.bool, device=dev)
+    ids = torch.empty(K, dtype=torch.int32, device=dev)
+    confidence = torch.empty(K, dtype=torch.float32, device=dev)
+    pdet = torch.empty(K, dtype=torch.float32, device=dev)
+    cov = torch.empty((K, 3, 3), dtype=torch.float32, device=dev)
+    new_counter = torch.empty((), dtype=torch.int32, device=dev)
+    ints = _host_i32(*vals.shape, K, cs)
+    floats = _host_f32(*origin, inv_voxel, *c)
+    err = load().vofod_detect(
+        vals.data_ptr(), far.data_ptr(), labels.data_ptr(), aabb_min.data_ptr(),
+        aabb_max.data_ptr(), reps.data_ptr(), n_points.data_ptr(), cluster_class.data_ptr(),
+        obb_center.data_ptr(), sensor_pos.data_ptr(), det_counter.data_ptr(), ints[1],
+        floats[1], valid.data_ptr(), ids.data_ptr(), confidence.data_ptr(), pdet.data_ptr(),
+        cov.data_ptr(), new_counter.data_ptr(), _stream())
+    _check(err, "vofod_detect")
+    LAUNCHES["detect"] += 1
+    return valid, ids, confidence, pdet, cov, new_counter
+
+
+def point_ema(vals: torch.Tensor, counts: torch.Tensor, close: torch.Tensor,
+              score_point: float, score_unknown: float):
+    """K11 point EMA: (new grid f32, far bool, n_occupied int32 scalar)."""
+    _require(vals, "point_ema vals", torch.float32)
+    _require(counts, "point_ema counts", torch.int32, vals.shape)
+    _require(close, "point_ema close", torch.bool, vals.shape)
+    out = torch.empty_like(vals)
+    far = torch.empty(vals.shape, dtype=torch.bool, device=vals.device)
+    n_occupied = torch.zeros((), dtype=torch.int32, device=vals.device)
+    err = load().vofod_point_ema(
+        vals.data_ptr(), counts.data_ptr(), close.data_ptr(), vals.numel(),
+        float(score_point), float(score_unknown), out.data_ptr(), far.data_ptr(),
+        n_occupied.data_ptr(), _stream())
+    _check(err, "vofod_point_ema")
+    LAUNCHES["point_ema"] += 1
+    return out, far, n_occupied
+
+
+def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
+               sure_sufficient: torch.Tensor, taps: np.ndarray, halo: int, w1: float,
+               c: float) -> torch.Tensor:
+    """K11 demotion EMA: the K1 ball max of ``bg & ~safe`` (ball ``taps``)
+    with ``v' = w1 v + c`` where it is set and ``sure_sufficient``."""
+    if vals.dim() != 3:
+        raise ValueError("demote_ema takes the 3-D grid")
+    _require(vals, "demote_ema vals", torch.float32)
+    _require(bg, "demote_ema bg", torch.bool, vals.shape)
+    _require(safe, "demote_ema safe", torch.bool, vals.shape)
+    _require(sure_sufficient, "demote_ema sure_sufficient", torch.bool, ())
+    out = torch.empty_like(vals)
+    keep, ptr = _taps_arg(taps)
+    nz, ny, nx = vals.shape
+    err = load().vofod_demote_ema(
+        vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
+        nz, ny, nx, ptr, len(keep), halo, float(w1), float(c), out.data_ptr(), _stream())
+    _check(err, "vofod_demote_ema")
+    LAUNCHES["demote_ema"] += 1
     return out

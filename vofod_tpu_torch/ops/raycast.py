@@ -1,4 +1,5 @@
-"""Freespace raycast: the gated six-cone transmittance sweep (K4).
+"""Freespace raycast: the angular gate (K5a), the gated six-cone
+transmittance sweep (K4) and the ray assembly + ray EMA (K5b).
 
 PyTorch counterpart of the production raycast of vofod_tpu/ops/raycast.py
 (``raycast_sweep`` and its helpers; ref src/vofod_nodelet.cpp:1396-1606
@@ -13,8 +14,12 @@ T in grid layout, [6, nz, ny, nx] for the cones x+, x-, y+, y-, z+, z-.
 The JAX 4+2 padded cone grouping (a TPU workaround) is not kept: each cone
 sweeps its own plane shape.  The angular gate (per-pixel FOV-mask and
 intensity gates as a direction-dependent active-ray fraction) is a numpy
-copy of ``make_angular_gate`` plus plain PyTorch ``gate_faces`` /
-``_expand_gate``; the exact DDA mode is not ported yet.
+copy of ``make_angular_gate``; its face texture is K5a (csrc/ray_gate.cu,
+plain version :func:`gate_faces_plain`).  K5b (csrc/ray_update.cu, plain
+version :func:`ray_window_update_plain_`) expands the gate per voxel,
+assembles the raylen and applies the ray EMA in place on the sweep window,
+so the step never builds a full-grid raylen field.  The exact DDA mode is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -131,61 +136,128 @@ def make_angular_gate(
     )
 
 
-def _row_from_elevation(gate: AngularGate, el: Tensor) -> Tensor:
-    """Continuous full-resolution row coordinate for elevations ``el`` [P]:
-    the linear map, or the exact monotone inverse of ``gate.el_rows``."""
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float (a tensor op with it is
+    then exact in the scalar)."""
+    return float(np.float32(x))
+
+
+def _inv(x: float) -> float:
+    """float32 reciprocal of ``x``: PyTorch's CUDA division by a Python
+    scalar multiplies by it, so the plain versions and the kernels multiply
+    by it explicitly on every device."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def row_table(gate: AngularGate, device) -> Tensor | None:
+    """The sign-folded elevation table of ``gate.el_rows`` (increasing
+    float32 [H]) on ``device``, or None for the linear map.  Upload once."""
     if gate.el_rows is None:
-        return (el - gate.el_b) / gate.el_a
+        return None
     tbl = np.asarray(gate.el_rows, np.float32)
-    sgn = 1.0 if tbl[-1] > tbl[0] else -1.0
-    f = torch.as_tensor(sgn * tbl, device=el.device)  # [H] increasing
-    t = sgn * el
-    H = f.shape[0]
+    return torch.as_tensor(_row_sign(gate) * tbl, device=device)
+
+
+def _row_sign(gate: AngularGate) -> float:
+    tbl = np.asarray(gate.el_rows, np.float32)
+    return 1.0 if tbl[-1] > tbl[0] else -1.0
+
+
+def _row_from_elevation(gate: AngularGate, el: Tensor, table: Tensor | None) -> Tensor:
+    """Continuous full-resolution row coordinate for elevations ``el`` [P]:
+    the linear map, or the exact monotone inverse of ``gate.el_rows``
+    (``table`` from :func:`row_table`)."""
+    if gate.el_rows is None:
+        return (el - _f32(gate.el_b)) * _inv(gate.el_a)
+    t = _row_sign(gate) * el
+    H = table.shape[0]
     idx = torch.clamp(
-        torch.sum((t[:, None] >= f[None, :]).to(torch.int32), dim=-1) - 1, 0, H - 2
+        torch.sum((t[:, None] >= table[None, :]).to(torch.int32), dim=-1) - 1, 0, H - 2
     )
-    f0, f1 = f[:-1][idx], f[1:][idx]
+    f0, f1 = table[:-1][idx], table[1:][idx]
     return idx.to(torch.float32) + (t - f0) / (f1 - f0)
 
 
-def gate_faces(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
-               rot_s2w: Tensor) -> Tensor:
-    """Sample the pooled active-ray fraction onto the six cube faces.
+def _gate_scalars(gate: AngularGate) -> np.ndarray:
+    """K5a's float32 constants, in the order of csrc/ray_gate.cu GateF."""
+    sgn = _row_sign(gate) if gate.el_rows is not None else 1.0
+    return np.array([
+        _inv(gate.pool_v * gate.pool_h), gate.el_b, _inv(gate.el_a), sgn, gate.az_b,
+        _inv(gate.az_a), _inv(gate.pool_v), _inv(gate.pool_h), gate.col_period,
+    ], np.float32)
 
-    face_dirs: the gate's ``face_dirs`` as a [P, 3] float32 tensor on the
-    step's device (uploaded once); active_hw: [H, W] bool, pixels that cast
-    a ray this scan; rot_s2w: [3, 3] sensor-to-world rotation.
-    Returns float32 [6, F, F]; 0 outside the sensor's vertical FOV."""
-    G = (
-        active_hw.to(torch.float32)
+
+def gate_faces_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
+                     rot_s2w: Tensor, table: Tensor | None = None) -> Tensor:
+    """Plain version of K5a (vofod_tpu/ops/raycast.py gate_faces), with
+    every rounding step fixed so that csrc/ray_gate.cu reproduces it: the
+    sensor-frame directions as ((d0 R0j + d1 R1j) + d2 R2j), division by a
+    constant as a multiply by its float32 reciprocal, the azimuth-weight
+    sum and the column products summed in ascending column order.  The row
+    tent has at most two nonzero taps, so its sum is exact in any order."""
+    if table is None and gate.el_rows is not None:
+        table = row_table(gate, active_hw.device)
+    cnt = (
+        active_hw.to(torch.int32)
         .reshape(gate.n_rows, gate.pool_v, gate.n_cols, gate.pool_h)
-        .mean(dim=(1, 3))
-    )  # [V', H']
-    d_s = face_dirs @ rot_s2w  # sensor frame: s = Rᵀ w  (row-vector form)
-    el = torch.arcsin(torch.clamp(d_s[:, 2], -1.0, 1.0))
-    az = torch.atan2(d_s[:, 1], d_s[:, 0])
+        .sum(dim=(1, 3))
+    )
+    G = cnt.to(torch.float32) * _inv(gate.pool_v * gate.pool_h)  # [V', H'] mean
+    d = [face_dirs[:, i] for i in range(3)]
+    s = [(d[0] * rot_s2w[0, j] + d[1] * rot_s2w[1, j]) + d[2] * rot_s2w[2, j]
+         for j in range(3)]  # sensor frame: s = Rᵀ w
+    el = torch.arcsin(torch.clamp(s[2], -1.0, 1.0))
+    az = torch.atan2(s[1], s[0])
 
-    g_r = (_row_from_elevation(gate, el) + 0.5) / gate.pool_v - 0.5
+    g_r = (_row_from_elevation(gate, el, table) + 0.5) * _inv(gate.pool_v) - 0.5
     g_c = torch.remainder(
-        ((az - gate.az_b) / gate.az_a + 0.5) / gate.pool_h - 0.5, gate.col_period
+        ((az - _f32(gate.az_b)) * _inv(gate.az_a) + 0.5) * _inv(gate.pool_h) - 0.5,
+        _f32(gate.col_period),
     )
     dev = active_hw.device
+    P = _f32(gate.col_period)
     kr = torch.arange(gate.n_rows, dtype=torch.float32, device=dev)
     kc = torch.arange(gate.n_cols, dtype=torch.float32, device=dev)
     w_r = torch.clamp(1.0 - torch.abs(g_r[:, None] - kr[None, :]), min=0.0)
-    d0 = torch.abs(g_c[:, None] - kc[None, :])
     dwrap = torch.minimum(
-        d0,
-        torch.minimum(
-            torch.abs(g_c[:, None] - gate.col_period - kc[None, :]),
-            torch.abs(g_c[:, None] + gate.col_period - kc[None, :]),
-        ),
+        torch.abs(g_c[:, None] - kc[None, :]),
+        torch.minimum(torch.abs((g_c - P)[:, None] - kc[None, :]),
+                      torch.abs((g_c + P)[:, None] - kc[None, :])),
     )
-    w_c = torch.clamp(1.0 - dwrap, min=0.0)
-    w_c = w_c / torch.clamp(w_c.sum(dim=-1, keepdim=True), min=1e-6)
-    vals = torch.sum(w_r * (w_c @ G.T), dim=-1)  # [P]
+    w_c = torch.clamp(1.0 - dwrap, min=0.0)  # [P, H']
+    w_sum = torch.zeros_like(g_c)
+    for c in range(gate.n_cols):
+        w_sum = w_sum + w_c[:, c]
+    w_c = w_c / torch.clamp(w_sum, min=1e-6)[:, None]
+    inner = torch.zeros((g_c.shape[0], gate.n_rows), dtype=torch.float32, device=dev)
+    for c in range(gate.n_cols):
+        inner = inner + w_c[:, c:c + 1] * G[:, c][None, :]
+    vals = torch.sum(w_r * inner, dim=-1)  # [P]
     F_ = gate.face_dirs.shape[1]
     return vals.reshape(6, F_, F_)
+
+
+def gate_faces(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
+               rot_s2w: Tensor, table: Tensor | None = None) -> Tensor:
+    """Sample the pooled active-ray fraction onto the six cube faces (K5a).
+
+    face_dirs: the gate's ``face_dirs`` as a [P, 3] float32 tensor on the
+    step's device (uploaded once); active_hw: [H, W] bool, pixels that cast
+    a ray this scan; rot_s2w: [3, 3] sensor-to-world rotation; table: the
+    gate's :func:`row_table` on the same device (uploaded once; built here
+    when omitted).  Returns float32 [6, F, F]; 0 outside the sensor's
+    vertical FOV."""
+    if table is None and gate.el_rows is not None:
+        table = row_table(gate, active_hw.device)
+    if active_hw.is_cuda:
+        F_ = gate.face_dirs.shape[1]
+        return kernels.gate_faces(
+            active_hw.contiguous(), face_dirs, rot_s2w.contiguous(), table,
+            (gate.pool_v, gate.pool_h, gate.n_rows, gate.n_cols), _gate_scalars(gate),
+        ).reshape(6, F_, F_)
+    if active_hw.device.type != "cpu":
+        raise ValueError(f"gate faces: unsupported device {active_hw.device}")
+    return gate_faces_plain(gate, face_dirs, active_hw, rot_s2w, table)
 
 
 # -----------------------------------------------------------------------------
@@ -270,73 +342,152 @@ def cone_sweep(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor) -> T
     return cone_sweep_plain(opaque, rel_x, rel_y, rel_z)
 
 
-def _expand_gate(faces: Tensor, rel_s: Tensor, rel_a: Tensor, rel_b: Tensor) -> Tensor:
-    """One cone's face texture [F, F] expanded onto its planes: rel_s [nS],
-    rel_a [nA], rel_b [nB] -> [nS, nA, nB] multiplicative gate factor
-    (bf16 tents and products, as the JAX einsums)."""
-    F_ = faces.shape[-1]
-    rs = torch.where(torch.abs(rel_s) < 0.5, 0.5, rel_s)[:, None]
-    u = torch.clamp(rel_a[None, :] / rs, -1.0, 1.0)  # [nS, nA]
-    v = torch.clamp(rel_b[None, :] / rs, -1.0, 1.0)  # [nS, nB]
-    k = torch.arange(F_, dtype=torch.float32, device=faces.device)
+class RayConsts(NamedTuple):
+    """Float32 constants of the chord-length density (vofod_tpu
+    _assemble_raylen), each already rounded as the tensor op rounds it."""
 
-    def tent(x):
-        g = (x + 1.0) * ((F_ - 1) / 2.0)
-        return _bf16(torch.clamp(1.0 - torch.abs(g[..., None] - k), min=0.0))
+    vs: float  # voxel size
+    vs3: float  # vs**3
+    vs2: float  # vs*vs
+    c_dens: float  # d_az * d_el (ray spacing, rad²)
+    fov_lim: float  # vertical_fov / 2 + d_el
+    max_d: float  # max_distance
 
-    tmp = _bf16(torch.einsum("saf,fg->sag", tent(u), _bf16(faces)))
-    return _bf16(torch.einsum("sag,sbg->sab", tmp, tent(v)))
-
-
-def _gate_grid(faces: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor) -> Tensor:
-    """The six cones' gate factors in grid layout [6, nz, ny, nx]."""
-    gx_f = _expand_gate(faces[0], rel_x, rel_z, rel_y).permute(1, 2, 0)
-    gx_b = _expand_gate(faces[1], -rel_x.flip(0), rel_z, rel_y).flip(0).permute(1, 2, 0)
-    gy_f = _expand_gate(faces[2], rel_y, rel_z, rel_x).permute(1, 0, 2)
-    gy_b = _expand_gate(faces[3], -rel_y.flip(0), rel_z, rel_x).flip(0).permute(1, 0, 2)
-    gz_f = _expand_gate(faces[4], rel_z, rel_y, rel_x)
-    gz_b = _expand_gate(faces[5], -rel_z.flip(0), rel_y, rel_x).flip(0)
-    return torch.stack([gx_f, gx_b, gy_f, gy_b, gz_f, gz_b])
+    @staticmethod
+    def make(vs: float, max_distance: float, vertical_fov: float, v_rays: int,
+             h_rays: int) -> "RayConsts":
+        d_az = 2.0 * math.pi / max(h_rays - 1, 1)
+        d_el = vertical_fov / max(v_rays - 1, 1)
+        return RayConsts(_f32(vs), _f32(vs**3), _f32(vs * vs), _f32(d_az * d_el),
+                         _f32(vertical_fov / 2.0 + d_el), _f32(max_distance))
 
 
-def _assemble_raylen(vs, rel_x, rel_y, rel_z, T6, rot_s2w, max_distance,
-                     vertical_fov, v_rays, h_rays) -> Tensor:
-    """Cone partition + chord-length density (vofod_tpu _assemble_raylen)."""
-    ax = torch.abs(rel_x)[None, None, :]
-    ay = torch.abs(rel_y)[None, :, None]
-    az = torch.abs(rel_z)[:, None, None]
-    in_x = (ax >= ay) & (ax >= az)
-    in_y = (~in_x) & (ay >= az)
-    in_z = ~(in_x | in_y)
-    pos_x = rel_x[None, None, :] > 0
-    pos_y = rel_y[None, :, None] > 0
-    pos_z = rel_z[:, None, None] > 0
-    T = (
-        torch.where(in_x & pos_x, T6[0], 0.0)
-        + torch.where(in_x & ~pos_x, T6[1], 0.0)
-        + torch.where(in_y & pos_y, T6[2], 0.0)
-        + torch.where(in_y & ~pos_y, T6[3], 0.0)
-        + torch.where(in_z & pos_z, T6[4], 0.0)
-        + torch.where(in_z & ~pos_z, T6[5], 0.0)
-    )
-    rx = rel_x[None, None, :] * vs
-    ry = rel_y[None, :, None] * vs
-    rz = rel_z[:, None, None] * vs
-    d2 = rx * rx + ry * ry + rz * rz
+class RayEma(NamedTuple):
+    """The flag-guarded ray EMA (vofod_tpu/pipeline/step.py ray_update):
+    the rule and its float32 constants."""
+
+    new_rule: bool
+    coef: float  # new rule: weight_coefficient / voxel diagonal
+    its: float  # its_diff (steps since the last raycast)
+    weight: float  # old rule: weight_coefficient
+    score: float  # score_ray
+
+
+def ray_ema_plain(vals: Tensor, raylen: Tensor, had_point: Tensor, ema: RayEma) -> Tensor:
+    """The ray EMA toward ``ema.score`` where ``raylen > 0`` and no point
+    landed this scan (both reference update rules, vofod_nodelet.cpp:
+    1550-1601).  The old rule normalises by ``max(raylen)``: on a window,
+    the window's max, which is the grid's since raylen is 0 outside it."""
+    active = (~had_point) & (raylen > 0.0)
+    if ema.new_rule:  # ref :1550-1573
+        w1 = torch.exp2(-ema.its * (ema.coef * raylen))
+    else:  # ref :1574-1601: normalize by the max cell value
+        max_val = torch.clamp(raylen.max(), min=1e-20)
+        w_single = ema.weight * torch.sqrt(raylen / max_val)
+        w1 = torch.clamp(torch.pow(1.0 - w_single, ema.its), 0.0, 1.0)
+    updated = w1 * vals + (1.0 - w1) * ema.score
+    return torch.where(active, updated, vals)
+
+
+def _gate_factor(faces_bf16: Tensor, cone: Tensor, u: Tensor, v: Tensor) -> Tensor:
+    """The gate factor of each voxel from its cone's face texture, at the
+    face coordinates u, v in [-1, 1] (vofod_tpu _expand_gate).  A tent has
+    at most two nonzero taps, so the two einsums of the JAX function are
+    two-term sums here: products of bf16 values are exact in float32, the
+    sums round once, and the results round to bf16 where the JAX einsums'
+    bf16 outputs do."""
+    F_ = faces_bf16.shape[-1]
+    half = (F_ - 1) / 2.0
+
+    def taps(x):
+        g = (x + 1.0) * half
+        k0 = torch.floor(g)
+        k1 = k0 + 1.0
+        w0 = _bf16(torch.clamp(1.0 - torch.abs(g - k0), min=0.0))
+        w1 = _bf16(torch.clamp(1.0 - torch.abs(g - k1), min=0.0))  # 0 at g = F-1
+        i0 = k0.to(torch.int64).clamp(0, F_ - 1)
+        i1 = k1.to(torch.int64).clamp(0, F_ - 1)
+        return (i0, w0), (i1, w1)
+
+    (iu0, wu0), (iu1, wu1) = taps(u)
+    (iv0, wv0), (iv1, wv1) = taps(v)
+    flat = faces_bf16.reshape(-1)
+    base = cone * (F_ * F_)
+
+    def tex(iu, iv):
+        return flat[base + iu * F_ + iv]
+
+    tmp0 = _bf16(wu0 * tex(iu0, iv0) + wu1 * tex(iu1, iv0))
+    tmp1 = _bf16(wu0 * tex(iu0, iv1) + wu1 * tex(iu1, iv1))
+    return _bf16(wv0 * tmp0 + wv1 * tmp1)
+
+
+def ray_window_plain(T6: Tensor, faces: Tensor | None, rel_x: Tensor, rel_y: Tensor,
+                     rel_z: Tensor, rot_s2w: Tensor, c: RayConsts) -> Tensor:
+    """Plain version of K5b's raylen: cone partition (priority x > y > z),
+    the picked cone's T times its gate factor, chord-length density, FOV
+    and range masks on the sweep window [nz, wy, wx] (vofod_tpu
+    _expand_gate + _assemble_raylen).  Every float32 op in the order
+    csrc/ray_update.cu computes it."""
+    X = rel_x[None, None, :]
+    Y = rel_y[None, :, None]
+    Z = rel_z[:, None, None]
+    shape = (rel_z.shape[0], rel_y.shape[0], rel_x.shape[0])
+    ax, ay, az = torch.abs(X), torch.abs(Y), torch.abs(Z)
+    in_x = ((ax >= ay) & (ax >= az)).expand(shape)
+    in_y = ~in_x & (ay >= az)
+    rel_s = torch.where(in_x, X, torch.where(in_y, Y, Z))
+    pos = rel_s > 0
+    cone = 2 * torch.where(in_x, 0, torch.where(in_y, 1, 2)) + (~pos).to(torch.int64)
+    T = torch.gather(T6, 0, cone[None]).squeeze(0)
+    if faces is not None:
+        rs = torch.where(pos, rel_s, -rel_s)
+        rs = torch.where(torch.abs(rs) < 0.5, 0.5, rs)
+        ra = torch.where(in_x | in_y, Z, Y)  # x, y cones: A = z; z cones: A = y
+        rb = torch.where(in_x, Y, X)  # x cones: B = y; y, z cones: B = x
+        u = torch.clamp(ra / rs, -1.0, 1.0)
+        v = torch.clamp(rb / rs, -1.0, 1.0)
+        T = T * _gate_factor(_bf16(faces), cone, u, v)
+    rx, ry, rz = X * c.vs, Y * c.vs, Z * c.vs
+    d2 = (rx * rx + ry * ry) + rz * rz
     d = torch.sqrt(d2)
-    d_safe = torch.clamp(d, min=vs)
-    Rt = rot_s2w.T
-    sz = Rt[2, 0] * rx + Rt[2, 1] * ry + Rt[2, 2] * rz
-    sin_el = torch.clamp(sz / d_safe, -1.0, 1.0)
-    el = torch.arcsin(sin_el)
+    d_safe = torch.clamp(d, min=c.vs)
+    # elevation in the SENSOR frame: s = Rᵀ (c - o)
+    sz = (rot_s2w[0, 2] * rx + rot_s2w[1, 2] * ry) + rot_s2w[2, 2] * rz
+    el = torch.arcsin(torch.clamp(sz / d_safe, -1.0, 1.0))
     cos_el = torch.clamp(torch.cos(el), min=0.05)
-    d_az = 2.0 * math.pi / max(h_rays - 1, 1)
-    d_el = vertical_fov / max(v_rays - 1, 1)
-    density = 1.0 / ((d_az * d_el) * cos_el)  # rays per steradian
-    fov = torch.abs(el) <= (vertical_fov / 2.0 + d_el)
-    in_range = d <= max_distance
-    raylen = T * density * (vs**3) / torch.clamp(d2, min=vs * vs)
-    return torch.where(fov & in_range, raylen, 0.0)
+    density = torch.reciprocal(c.c_dens * cos_el)  # rays per steradian
+    keep = (torch.abs(el) <= c.fov_lim) & (d <= c.max_d)
+    raylen = ((T * density) * c.vs3) / torch.clamp(d2, min=c.vs2)
+    return torch.where(keep, raylen, 0.0)
+
+
+def ray_window_update_plain_(vals: Tensor, had_point: Tensor, T6: Tensor,
+                             faces: Tensor | None, rel_x: Tensor, rel_y: Tensor,
+                             rel_z: Tensor, rot_s2w: Tensor, x0: int, y0: int,
+                             c: RayConsts, ema: RayEma) -> Tensor:
+    """Plain version of K5b, in place on the window of ``vals``."""
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    raylen = ray_window_plain(T6, faces, rel_x, rel_y, rel_z, rot_s2w, c)
+    win = (slice(None), slice(y0, y0 + wy), slice(x0, x0 + wx))
+    vals[win] = ray_ema_plain(vals[win], raylen, had_point[win], ema)
+    return vals
+
+
+def ray_window_update_(vals: Tensor, had_point: Tensor, T6: Tensor, faces: Tensor | None,
+                       rel_x: Tensor, rel_y: Tensor, rel_z: Tensor, rot_s2w: Tensor,
+                       x0: int, y0: int, c: RayConsts, ema: RayEma) -> Tensor:
+    """K5b: the window's raylen from K4's T6 and the gate faces, and the ray
+    EMA, written into ``vals`` in place (voxels outside the window have
+    raylen 0 and are not touched).  Returns ``vals``."""
+    if vals.is_cuda:
+        kernels.ray_update(vals, had_point, T6, faces, rel_x, rel_y, rel_z,
+                           rot_s2w.contiguous(), x0, y0, c, ema)
+        return vals
+    if vals.device.type != "cpu":
+        raise ValueError(f"ray update: unsupported device {vals.device}")
+    return ray_window_update_plain_(vals, had_point, T6, faces, rel_x, rel_y, rel_z, rot_s2w,
+                                    x0, y0, c, ema)
 
 
 # margin (voxels) beyond the max-distance ball kept inside the sweep window
@@ -367,6 +518,16 @@ def sweep_window(grid: GridSpec, origin_world: np.ndarray,
     return x0, y0, wx, wy, gx, gy, gz
 
 
+def _window_rel(grid: GridSpec, origin_world: np.ndarray, max_distance_bound, dev):
+    """(x0, y0, rel_x, rel_y, rel_z) of the sweep window, the offsets in
+    float32 voxel units as the JAX sweep computes them."""
+    x0, y0, wx, wy, gx, gy, gz = sweep_window(grid, origin_world, max_distance_bound)
+    rel_z = torch.arange(grid.nz, dtype=torch.float32, device=dev) + 0.5 - float(gz)
+    rel_x = torch.arange(wx, dtype=torch.float32, device=dev) + float(x0) + 0.5 - float(gx)
+    rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
+    return x0, y0, rel_x, rel_y, rel_z
+
+
 def raycast_sweep(
     grid: GridSpec,
     opaque: Tensor,
@@ -380,7 +541,9 @@ def raycast_sweep(
     gate: Tensor | None = None,
     max_distance_bound: float | None = None,
 ) -> Tensor:
-    """Gather-free accumulated-ray-length field (see the module docstring).
+    """Gather-free accumulated-ray-length field (see the module docstring),
+    through K4 and the plain raylen of K5b.  The step does not call it: its
+    raycast is :func:`raycast_update_`, which never builds this field.
 
     opaque: (nz, ny, nx) bool — voxels containing scan returns.
     origin_world: host float32 [3] sensor origin (the window and the
@@ -392,23 +555,44 @@ def raycast_sweep(
 
     Returns: float32 (nz, ny, nx) raylen field (≈ sum of ray chord lengths).
     """
-    nz, ny, nx = grid.shape
-    vs = grid.voxel_size
-    dev = opaque.device
-    x0, y0, wx, wy, gx, gy, gz = sweep_window(grid, origin_world, max_distance_bound)
-    rel_z = torch.arange(nz, dtype=torch.float32, device=dev) + 0.5 - float(gz)
-    rel_x = torch.arange(wx, dtype=torch.float32, device=dev) + float(x0) + 0.5 - float(gx)
-    rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
-    op_w = opaque[:, y0:y0 + wy, x0:x0 + wx]
-    T6 = cone_sweep(op_w, rel_x, rel_y, rel_z)
-    if gate is not None:
-        T6 = T6 * _gate_grid(gate, rel_x, rel_y, rel_z)
-    raylen_w = _assemble_raylen(
-        vs, rel_x, rel_y, rel_z, T6, rot_s2w, max_distance, vertical_fov,
-        v_rays, h_rays,
-    )
-    if (wx, wy) == (nx, ny):
+    x0, y0, rel_x, rel_y, rel_z = _window_rel(grid, origin_world, max_distance_bound,
+                                              opaque.device)
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    T6 = cone_sweep(opaque[:, y0:y0 + wy, x0:x0 + wx], rel_x, rel_y, rel_z)
+    c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
+    raylen_w = ray_window_plain(T6, gate, rel_x, rel_y, rel_z, rot_s2w, c)
+    if raylen_w.shape == grid.shape:
         return raylen_w
-    out = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+    out = torch.zeros(grid.shape, dtype=torch.float32, device=opaque.device)
     out[:, y0:y0 + wy, x0:x0 + wx] = raylen_w
     return out
+
+
+def raycast_update_(
+    grid: GridSpec,
+    vals: Tensor,
+    had_point: Tensor,
+    opaque: Tensor,
+    origin_world: np.ndarray,
+    rot_s2w: Tensor,
+    ema: RayEma,
+    *,
+    max_distance: float,
+    vertical_fov: float,
+    v_rays: int,
+    h_rays: int,
+    gate: Tensor | None = None,
+    max_distance_bound: float | None = None,
+) -> Tensor:
+    """The step's raycast: the cone sweeps (K4) on the window around the
+    sensor, then K5b's raylen and ray EMA in place on ``vals`` — the same
+    result as ``ray_update(raycast_sweep(...))`` without the full-grid
+    raylen field.  had_point: bool grid of voxels with a point this scan.
+    Arguments otherwise as :func:`raycast_sweep`.  Returns ``vals``."""
+    x0, y0, rel_x, rel_y, rel_z = _window_rel(grid, origin_world, max_distance_bound,
+                                              opaque.device)
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    T6 = cone_sweep(opaque[:, y0:y0 + wy, x0:x0 + wx], rel_x, rel_y, rel_z)
+    c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
+    return ray_window_update_(vals, had_point, T6, gate, rel_x, rel_y, rel_z, rot_s2w,
+                              x0, y0, c, ema)

@@ -4,7 +4,8 @@ PyTorch counterpart of vofod_tpu/pipeline/background.py ``split_and_update``
 (ref findCloseFarClusters, vofod_nodelet.cpp:701-751, and updateVoxel
 :776-796): the sticky background-sufficiency gate, the close/far split and
 component labels from ONE seeded propagation (K1 ball-max seeds, K2
-sweeps), and the weighted EMA point update ``w = 2^-count``.
+sweeps), and the weighted EMA point update ``w = 2^-count`` (K11's point
+EMA, csrc/ema.cu, for CUDA tensors; :func:`point_ema_plain` for CPU ones).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_components_seeded
 from vofod_tpu_torch.ops.morphology import ball_pool_max
@@ -28,9 +30,30 @@ class BackgroundOut:
     close: Tensor
     labels: Tensor  # int32 component labels (SENTINEL off-mask)
     n_bg_voxels: Tensor
+    n_occupied: Tensor  # int32 — occupied voxels
     bg_sufficient: Tensor
     cc_converged: Tensor
     cc_iters: Tensor
+
+
+def point_ema_plain(grid_vals: Tensor, counts: Tensor, close: Tensor, score_point: float,
+                    score_unknown: float) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of K11's point EMA (vofod_tpu background._finish, ref
+    updateVoxel :789-795): (new grid, far, int32 count of occupied voxels)."""
+    occupied = counts > 0
+    w = torch.exp2(-counts.clamp(0, 63).to(torch.float32))
+    score = torch.where(close, score_point, score_unknown)
+    new_vals = torch.where(occupied, w * grid_vals + (1.0 - w) * score, grid_vals)
+    return new_vals, occupied & ~close, occupied.sum().to(torch.int32)
+
+
+def point_ema(grid_vals: Tensor, counts: Tensor, close: Tensor, score_point: float,
+              score_unknown: float) -> tuple[Tensor, Tensor, Tensor]:
+    if grid_vals.is_cuda:
+        return kernels.point_ema(grid_vals, counts, close, score_point, score_unknown)
+    if grid_vals.device.type != "cpu":
+        raise ValueError(f"point EMA: unsupported device {grid_vals.device}")
+    return point_ema_plain(grid_vals, counts, close, score_point, score_unknown)
 
 
 def split_and_update(
@@ -52,12 +75,9 @@ def split_and_update(
     labels, close, cc_converged, cc_iters = label_components_seeded(
         occupied, seed, radius, cfg.cc_sweeps
     )
-    far = occupied & ~close
-
-    # EMA point update (ref updateVoxel :789-795)
-    w = torch.exp2(-counts.clamp(0, 63).to(torch.float32))
-    score = torch.where(close, float(dyn.score_point), float(dyn.score_unknown))
-    new_vals = torch.where(occupied, w * grid_vals + (1.0 - w) * score, grid_vals)
+    # EMA point update (ref updateVoxel :789-795), far = occupied & ~close
+    new_vals, far, n_occupied = point_ema(
+        grid_vals, counts, close, float(dyn.score_point), float(dyn.score_unknown))
     return BackgroundOut(
         grid=new_vals,
         occupied=occupied,
@@ -65,6 +85,7 @@ def split_and_update(
         close=close,
         labels=labels,
         n_bg_voxels=n_bg,
+        n_occupied=n_occupied,
         bg_sufficient=bg_sufficient,
         cc_converged=cc_converged,
         cc_iters=cc_iters,

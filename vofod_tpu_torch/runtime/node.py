@@ -29,6 +29,7 @@ from vofod_tpu_torch.sensor import XyzLut, load_mask, make_lut
 @dataclass
 class NodeOptions:
     raycast_mode: str = "sweep"  # the only mode ported so far
+    raycast_every: int = 1  # freespace update every N scans, its_diff = N
     world_frame_id: str = "world"
     throttle_period: float = 1.0
     mask_path: str = ""  # FOV mask (ref raycast/mask_filename)
@@ -96,6 +97,7 @@ class VoFOD:
         self._step = make_step_fn(
             self.cfg, self.lut, device=self.device,
             raycast_mode=self.options.raycast_mode,
+            raycast_every=self.options.raycast_every,
             mask=self.mask,
         )
         self._ones_dev = None  # cached all-ones intensity
