@@ -29,23 +29,41 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and the counter bit-equal, confidence within K10_CONF_RTOL, pdet and
    covariance within K10_RTOL; K11 (the point EMA of the scan and of
    random counts; the demotion EMA with sure_sufficient True and False)
-   bit-equal;
+   bit-equal.  The reference-exact path's kernels on a flagship exact scan
+   (exact census, hasCloseTo box, counted indexing) and synthetic cases:
+   K1's hasCloseTo tap set bit-equal; K12's walk with the same nonzero
+   voxels as the plain version's sequential sum on the host and raylen
+   within K12_RAYLEN_RTOL, its EMA pass (both rules, its_diff 1 and 2)
+   bit-equal on the kernel's raylen and within K5B_TOL_REL x |score_ray|
+   after walk and EMA; K2 run to convergence (the scan's coarse cells, where
+   the 128-sweep cap binds, and a random field that converges), K13b (the
+   scan's grids, random fields at leaf sizes 1 and 2), K13a and K13c
+   (sure_sufficient True and False) bit-equal;
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
-   tests/test_golden.py assertions and that all thirteen kernels launched;
+   tests/test_golden.py assertions and that the sweep path's thirteen
+   kernels launched;
 4. drive the flagship main path — ``VoFOD(device="cuda")``, the apriori
    ground plane and 36 scans of a content-varying cycle — and check
    ``bg_sufficient``, a NaN-free grid, that every kernel was launched and
    K5a, K5b, K10 and both K11 passes once per scan; print step p50/p95
    (CUDA events), host syncs per scan, and the explore queries and
    demotion writes of the 36 scans.  Then 6 scans with
-   ``NodeOptions(raycast_every=2)``: the ray stage on every second scan;
-5. a torch.profiler trace of 5 flagship scans: device time per stage (the
-   step's ``vofod.*`` ranges), the top device ops, the device ops (kernels
-   and copies) launched per scan, matmul kernels and pads per scan, and
-   the device's busy and idle share of the step.
+   ``NodeOptions(raycast_every=2)``: the ray stage on every second scan.
+   Then the reference-exact path, ``NodeOptions(raycast_mode="exact")``
+   with the exact census and both compat flags, over the same 36 scans:
+   1 host sync per scan, a finite grid, ``bg_sufficient``, every kernel of
+   the path launched (K12's walk and EMA, K13a-c, K10 and the point EMA
+   once per scan) and none of the sweep path's own; step p50/p95, label
+   sweeps per scan, ``sep_converged`` and detections;
+5. a torch.profiler trace of 5 flagship scans of each path: device time per
+   stage (the step's ``vofod.*`` ranges), the top device ops, the device
+   ops (kernels and copies) launched per scan, matmul kernels and pads per
+   scan, and the device's busy and idle share of the step.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
+The line before the last is the per-kernel JSON record (launches from the
+path that runs each kernel, the sweep path first; bound_ms from the bytes
+and operations of the timed call and the H100's published peaks); the last
+line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
 
 from __future__ import annotations
@@ -70,13 +88,17 @@ from vofod_tpu_torch.geometry import GridSpec  # noqa: E402
 from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan  # noqa: E402
 from vofod_tpu_torch.ops.compaction import (  # noqa: E402
     masked_compact, masked_compact_isin, masked_compact_isin_plain, masked_compact_plain)
-from vofod_tpu_torch.ops.components import SENTINEL, sweeps, sweeps_plain  # noqa: E402
+from vofod_tpu_torch.ops.components import (  # noqa: E402
+    SENTINEL, label_census, label_census_plain, label_components, label_components_plain, sweeps,
+    sweeps_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_floating, demote_floating_plain, explore, explore_plain)
-from vofod_tpu_torch.ops.morphology import ball_pool, ball_pool_plain  # noqa: E402
+from vofod_tpu_torch.ops.morphology import (  # noqa: E402
+    ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, tap_pool_plain)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
-    RayConsts, cone_sweep, cone_sweep_plain, gate_faces, gate_faces_plain, make_angular_gate,
-    ray_window_update_, ray_window_update_plain_, row_table, sweep_window)
+    RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces, gate_faces_plain,
+    dda_n_steps, make_angular_gate, ray_ema_grid_, ray_ema_plain, ray_window_update_,
+    ray_window_update_plain_, raycast_dda, raycast_dda_plain, row_table, sweep_window)
 from vofod_tpu_torch.pipeline.background import (  # noqa: E402
     point_ema, point_ema_plain, split_and_update)
 from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
@@ -84,8 +106,9 @@ from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
 from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
     DetectConsts, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
-    demote_ema, demote_ema_plain, demote_weights)
-from vofod_tpu_torch.pipeline.step import ray_ema  # noqa: E402
+    demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
+    pool_sum_coarse, quirk_sure_counts, quirk_sure_counts_plain)
+from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import frontend_bin, frontend_bin_plain  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD  # noqa: E402
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
@@ -109,9 +132,27 @@ K5B_TOL_REL = 1e-5
 # replayed in the kernel's order, so bit-equal is expected)
 K10_CONF_RTOL = 1e-5
 K10_RTOL = 1e-6
+# K12 raylen against the plain version's sequential (JAX-order) sum: the
+# float atomics add each voxel's chords in another order; the voxel holding
+# the sensor sums ~all 131,072 rays' first chords
+K12_RAYLEN_RTOL = 5e-4
 N_SCANS = 36
-# kernels the flagship step launches exactly once per scan
+N_EXACT_SCANS = 36
+# the kernels of each path, and those its flagship step launches once per scan
+SWEEP_KERNELS = ("ball_pool", "propagate_sweep", "frontend_bin", "cone_sweep", "masked_compact",
+                 "explore_bfs", "demote", "cluster_stats", "gate_faces", "ray_update", "detect",
+                 "point_ema", "demote_ema")
+EXACT_KERNELS = ("ball_pool", "propagate_sweep", "frontend_bin", "masked_compact", "explore_bfs",
+                 "demote", "cluster_stats", "detect", "point_ema", "dda", "ray_ema",
+                 "label_census", "quirk_counts", "exact_demote_ema")
 ONCE_PER_SCAN = ("gate_faces", "ray_update", "detect", "point_ema", "demote_ema")
+ONCE_PER_EXACT_SCAN = ("dda", "ray_ema", "detect", "point_ema", "label_census", "quirk_counts",
+                       "exact_demote_ema")
+# the card's published peaks (H100 SXM data sheet, at 700 W): device memory
+# rate, and float32 outside the tensor cores, the rate every op of these
+# kernels (float or integer compare, add, select) is counted at
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 KERNEL_INFO = {
     "ball_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:70"),
@@ -128,6 +169,11 @@ KERNEL_INFO = {
     "detect": ("vofod_tpu_torch/csrc/detect.cu", "vofod_tpu/pipeline/detect.py:34"),
     "point_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/background.py:105"),
     "demote_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:150"),
+    "dda": ("vofod_tpu_torch/csrc/dda.cu", "vofod_tpu/ops/raycast.py:62"),
+    "ray_ema": ("vofod_tpu_torch/csrc/ray_update.cu", "vofod_tpu/pipeline/step.py:53"),
+    "label_census": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/parallel/gridops.py:134"),
+    "quirk_counts": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:211"),
+    "exact_demote_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:301"),
 }
 
 
@@ -235,10 +281,16 @@ def phase2(lut) -> list[dict]:
     for a, b, what in zip(k3, p3, ("counts", "n_valid", "excl", "fid")):
         if not torch.equal(a, b):
             raise AssertionError(f"K3 {what} differs from the plain version")
+    n_rays, nv = ranges.shape[0], grid.n_voxels
+    all_fids = k3[3].long()
     results.append(dict(
         name="frontend_bin", max_abs_err=max(max_abs(a, b) for a, b in zip(k3, p3)),
         ms=cuda_ms(lambda: frontend_bin(cfg, grid, dirs, offs, ranges, pose)),
         plain_ms=cuda_ms(lambda: frontend_bin_plain(cfg, grid, dirs, offs, ranges, pose)),
+        # ranges, LUT, pose in; counts grid, count, exclude flags, ids out
+        bytes=n_rays * (4 + 12 + 12 + 1 + 4) + 64 + nv * 4 + 4, ops=n_rays * 42,
+        library_ms=cuda_ms(lambda: torch.bincount(all_fids, minlength=nv)),
+        library_call="torch.bincount of the scan's 131,072 clamped point ids",
         shapes=f"{lut.height}x{lut.width} rays -> {grid.shape}",
     ))
     counts = k3[0]
@@ -266,8 +318,19 @@ def phase2(lut) -> list[dict]:
         err = max(err, max_abs(k, p))
         ms.append(cuda_ms(lambda: ball_pool(a, rad, op, fill)))
         pms.append(cuda_ms(lambda: ball_pool_plain(a, rad, op, fill)))
+    # the compat hasCloseTo box (r = 3, the +3 layer missing) as K1's tap set
+    hct_taps = hascloseto_taps(radius)
+    kh = hascloseto_pool_any(bg, radius)
+    ph = tap_pool_plain(bg.to(torch.int8), hct_taps, "max", 0) > 0
+    if not torch.equal(kh, ph):
+        raise AssertionError("K1 hasCloseTo tap set differs from the plain version")
+    hct = dict(taps=len(hct_taps), set_voxels=int(ph.sum()),
+               ms=cuda_ms(lambda: hascloseto_pool_any(bg, radius)),
+               plain_ms=cuda_ms(lambda: tap_pool_plain(bg.to(torch.int8), hct_taps, "max", 0),
+                                reps=3))
     results.append(dict(
         name="ball_pool", max_abs_err=err, ms=ms[0], plain_ms=pms[0],
+        bytes=2 * nv, ops=nv * len(ball_taps(radius)), library_ms=None, hascloseto=hct,
         shapes=f"{grid.shape}; ms/plain_ms per case (int8 max r3, int32 sum r3, "
                f"int8 max r1.6, int32 min r3): {[round(x, 4) for x in ms]} / "
                f"{[round(x, 4) for x in pms]}",
@@ -292,6 +355,7 @@ def phase2(lut) -> list[dict]:
         pms.append(cuda_ms(lambda: sweeps_plain(init, occ, rad, cfg.cc_sweeps)) / cfg.cc_sweeps)
     results.append(dict(
         name="propagate_sweep", max_abs_err=err, ms=ms[0], plain_ms=pms[0],
+        bytes=nv * (4 + 1 + 4), ops=nv * len(ball_taps(radius)), library_ms=None,
         shapes=f"{grid.shape}, per sweep; label r3 then reach r2: "
                f"{[round(x, 4) for x in ms]} / {[round(x, 4) for x in pms]}",
     ))
@@ -309,8 +373,10 @@ def phase2(lut) -> list[dict]:
     n_diff = int((kt != pt).sum())
     if not e4 <= K4_TOL:
         raise AssertionError(f"K4 max|dT| {e4} > {K4_TOL}")
+    nw = op_w.numel()
     results.append(dict(
         name="cone_sweep", max_abs_err=e4, tol=K4_TOL, n_diff=n_diff,
+        bytes=nw * (1 + 6 * 4), ops=nw * 6 * 16, library_ms=None,
         ms=cuda_ms(lambda: cone_sweep(op_w, rel_x, rel_y, rel_z)),
         plain_ms=cuda_ms(lambda: cone_sweep_plain(op_w, rel_x, rel_y, rel_z), reps=3),
         shapes=f"window {tuple(op_w.shape)}, 6 cones",
@@ -485,6 +551,9 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
         name="cluster_stats", max_abs_err=max(*scan_cmp["max_abs"].values(),
                                               *syn_cmp["max_abs"].values()),
         tol=K9_TOL, ms=k9_ms, plain_ms=k9_plain, scan=scan_cmp, synthetic=syn_cmp,
+        # the far list and its labels in; K slots of statistics out
+        bytes=cfg.max_far_voxels * (4 + 1 + 4) + K * 128, ops=cfg.max_far_voxels * 30 + K * 300,
+        library_ms=None,
         n_far_scan=int(ftotal), n_far_synthetic=int(stotal),
         shapes=f"F={cfg.max_far_voxels}, K={K}; integers, bools, AABB bit-equal",
     ))
@@ -499,8 +568,11 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     if not case_out["overflow dense 2.47M->4096"]["total"] > 4096:
         raise AssertionError("K6 overflow case did not overflow")
     main = case_out["far 2.47M->2048"]
+    nv = grid.n_voxels
     out.append(dict(name="masked_compact", max_abs_err=k6_err, ms=main["ms"],
                     plain_ms=main["plain_ms"], cases=case_out,
+                    bytes=nv + cfg.max_far_voxels * 5 + 4, ops=nv, library_ms=cuda_ms(
+                        lambda: torch.nonzero(far)), library_call="torch.nonzero of the far mask",
                     shapes="ms/plain_ms: the far compaction; every case bit-equal"))
 
     # K7 — the scan's queries (the main path's shapes)
@@ -548,8 +620,12 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     n_free = int(sum(bin(int(w)).count("1") for w in free[1].reshape(-1).tolist()))
     if not n_capped < n_free:
         raise AssertionError(f"serpentine: the cap did not bind ({n_capped} vs {n_free})")
+    n_q = int(qvalid.sum())
     out.append(dict(
         name="explore_bfs", max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain,
+        # each valid query's S^3 submap in, its reached rows out
+        bytes=n_q * S**3 * 4 + Q * (4 * 4 + 1) + Q * S * S * 8 + Q * 13,
+        ops=n_q * S**3 * 7, library_ms=None,
         scan_valid_queries=int(qvalid.sum()), synthetic_ms=syn_ms, synthetic_plain_ms=syn_plain,
         synthetic_connected=int(kc.sum()), serpentine_reached_capped=n_capped,
         serpentine_reached_free=n_free,
@@ -571,6 +647,8 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     work = field.clone()
     out.append(dict(
         name="demote", max_abs_err=k8_err,
+        bytes=Q * S * S * 8 + Q * (12 + K + 2) + K + 2 * 4 * int(pn), ops=Q * S**3,
+        library_ms=None,
         ms=cuda_ms(lambda: demote_floating(work, *dem)),
         plain_ms=cuda_ms(lambda: demote_floating_plain(field, *dem)),
         demotion_writes=int(pn), demoted_voxels=int((pg != field).sum()),
@@ -709,8 +787,11 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
         k5a[name] = dict(max_abs=e, n_diff=int((kf != pf).sum()), mean=float(pf.mean()))
         if faces is None:
             faces = kf
+    P = fd.shape[0]
     out.append(dict(
         name="gate_faces", max_abs_err=max(c["max_abs"] for c in k5a.values()), tol=K5A_TOL,
+        bytes=H * W + P * (12 + 4) + 36, ops=P * (gate.n_cols * (2 + 2 * gate.n_rows) + 40),
+        library_ms=None,
         ms=cuda_ms(lambda: gate_faces(gate, fd, cases[0][2], rot)),
         plain_ms=cuda_ms(lambda: gate_faces_plain(gate, fd, cases[0][2], rot)),
         cases=k5a, shapes=f"{H}x{W} image -> {tuple(faces.shape)} faces",
@@ -737,8 +818,10 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     ema1 = ray_ema(cfg, dyn, 1.0)
     work_k, work_p = vals.clone(), vals.clone()
     args1 = (occupied, kt, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema1)
+    nw = kt.shape[1] * kt.shape[2] * kt.shape[3]
     out.append(dict(
         name="ray_update", max_abs_err=max(v["max_abs"] for v in k5b.values()),
+        bytes=nw * (4 + 4 + 1 + 4) + faces.numel() * 4, ops=nw * 80, library_ms=None,
         tol=K5B_TOL_REL * abs(dyn.score_ray),
         ms=cuda_ms(lambda: ray_window_update_(work_k, *args1)),
         plain_ms=cuda_ms(lambda: ray_window_update_plain_(work_p, *args1)),
@@ -761,6 +844,8 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
                               "synthetic corners")
     out.append(dict(
         name="detect", max_abs_err=max(scan_cmp["max_abs"], syn_cmp["max_abs"]),
+        bytes=cfg.max_clusters * (CS**3 * (4 + 1 + 4) + 100), ops=cfg.max_clusters * CS**3 * 10,
+        library_ms=None,
         tol=dict(confidence_rel=K10_CONF_RTOL, pdet_cov_rel=K10_RTOL),
         ms=cuda_ms(lambda: detect_slots(*scan_args)),
         plain_ms=cuda_ms(lambda: detect_slots_plain(*scan_args)),
@@ -799,19 +884,229 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
         de[name] = dict(demoted=int((pp != vals).sum()))
     if de["random, its_diff 2"]["demoted"] == 0 or de["random, not sure"]["demoted"] != 0:
         raise AssertionError(f"K11 demotion cases did not exercise both branches: {de}")
+    nv = grid.n_voxels
     out.append(dict(
-        name="point_ema", max_abs_err=0.0,
+        name="point_ema", max_abs_err=0.0, bytes=nv * (4 + 4 + 1 + 4 + 1), ops=nv * 6,
+        library_ms=None,
         ms=cuda_ms(lambda: point_ema(vals, counts, bg.close, sp, su)),
         plain_ms=cuda_ms(lambda: point_ema_plain(vals, counts, bg.close, sp, su)),
         cases=pe, shapes=f"{grid.shape}, bit-equal",
     ))
     out.append(dict(
-        name="demote_ema", max_abs_err=0.0,
+        name="demote_ema", max_abs_err=0.0, bytes=nv * (1 + 1 + 4 + 4),
+        ops=nv * len(ball_taps(radius)), library_ms=None,
         ms=cuda_ms(lambda: demote_ema(vals, bgm, node.state.safe, true, radius, 0.5, -500.0)),
         plain_ms=cuda_ms(lambda: demote_ema_plain(vals, bgm, node.state.safe, true, radius,
                                                   0.5, -500.0)),
         cases=de, shapes=f"{grid.shape}, ball r={radius:g}, bit-equal",
     ))
+    return out
+
+
+def exact_config() -> VoFODConfig:
+    """The reference-exact configuration at the flagship size."""
+    return VoFODConfig(sepclusters_exact_census=True, compat_hascloseto_bounds=True,
+                       compat_counted_indexing=True)
+
+
+def _rel_stats(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """|a - b| / |b| over the voxels where b > 0: max and 99.9th percentile."""
+    nz = b > 0
+    r = ((a[nz].double() - b[nz].double()).abs() / b[nz].double())
+    q = torch.quantile(r[torch.randperm(r.numel(), device=r.device)[:1_000_000]], 0.999)
+    return dict(max=float(r.max()), p999=float(q), n_differ=int((a[nz] != b[nz]).sum()))
+
+
+def phase2_exact(lut) -> list[dict]:
+    """K12, K13 and the exact path's K1 / K2 uses against their plain
+    versions, on a flagship exact scan and on synthetic cases."""
+    dev = torch.device("cuda")
+    cfg, dyn = exact_config(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    nv = grid.n_voxels
+    node = VoFOD(cfg, dyn, NodeOptions(raycast_mode="exact"), lut, device=dev)
+    node.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, N_SCANS)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    r_np, pose_np = scans[6]
+    vals = node.state.grid
+    H, W = lut.height, lut.width
+    ranges_m = torch.as_tensor(r_np.astype(np.float32), device=dev) * 0.001
+    ones = torch.ones(H * W, dtype=torch.float32, device=dev)
+    pose = torch.as_tensor(pose_np, device=dev)
+    rays = exact_rays(cfg, dyn, grid, torch.as_tensor(lut.directions, device=dev),
+                      torch.as_tensor(lut.offsets, device=dev),
+                      torch.ones(H * W, dtype=torch.bool, device=dev), ranges_m, ones, pose)
+    bound = cfg.raycast_max_distance_bound
+    out = []
+
+    # K12 walk: against the plain version's sequential sum on the host CPU
+    # (the JAX order); the plain version on the card adds with atomics too
+    k12 = raycast_dda(grid, *rays, bound)
+    cpu_rays = [t.cpu() for t in rays]
+    fid_c, w_c = dda_emissions_plain(grid, *cpu_rays, bound)
+    p12 = torch.zeros(nv, dtype=torch.float32).index_add_(0, fid_c, w_c).reshape(grid.shape)
+    p12 = p12.to(dev)
+    if not torch.equal(k12 > 0, p12 > 0):
+        raise AssertionError(f"K12: nonzero voxels differ in {int(((k12 > 0) != (p12 > 0)).sum())}")
+    rel = _rel_stats(k12, p12)
+    if not rel["max"] <= K12_RAYLEN_RTOL:
+        raise AssertionError(f"K12 raylen relative deviation {rel} > {K12_RAYLEN_RTOL}")
+    fid_d, w_d = fid_c.to(dev), w_c.to(dev)
+    zero_grid = torch.zeros(nv, dtype=torch.float32, device=dev)
+    n_emit = int(fid_c.numel())
+    out.append(dict(
+        name="dda", max_abs_err=max_abs(k12, p12), rel=rel, tol_rel=K12_RAYLEN_RTOL,
+        nonzero_voxels=int((p12 > 0).sum()), emissions=n_emit,
+        valid_rays=int(rays[3].sum()), max_voxel_raylen=float(p12.max()),
+        ms=cuda_ms(lambda: raycast_dda(grid, *rays, bound)),
+        plain_ms=cuda_ms(lambda: raycast_dda_plain(grid, *rays, bound), reps=3),
+        # rays in, the raylen grid out once; ~20 ops per walked step
+        bytes=rays[0].shape[0] * (12 + 12 + 4 + 1) + nv * 4, ops=n_emit * 20,
+        library_ms=cuda_ms(lambda: zero_grid.index_add_(0, fid_d, w_d)),
+        library_call="index_add_ of the walk's nonzero (id, chord) emissions",
+        shapes=f"{rays[0].shape[0]} rays x <= {dda_n_steps(grid.voxel_size, bound)} steps -> "
+               f"{grid.shape}",
+    ))
+
+    # K12 EMA pass: both rules, its_diff 1 and 2, on the kernel's raylen
+    # (bit-equal expected), and walk + EMA against the host plain raylen
+    counts = frontend_bin(cfg, grid, torch.as_tensor(lut.directions, device=dev),
+                          torch.as_tensor(lut.offsets, device=dev),
+                          torch.as_tensor(r_np.astype(np.float32), device=dev), pose)[0]
+    had = counts > 0
+    ema_cases = {}
+    for new_rule in (True, False):
+        for its in (1.0, 2.0):
+            ema = ray_ema(cfg, dataclasses.replace(dyn, raycast_new_update_rule=new_rule), its)
+            name = f"{'new' if new_rule else 'old'} rule, its_diff {its:g}"
+            a = ray_ema_grid_(vals.clone(), had, k12, ema)
+            b = ray_ema_plain(vals, k12, had, ema)
+            _equal((a,), (b,), f"K12e[{name}].grid")
+            # walk + EMA against the EMA of the sequential raylen: the same
+            # nonzero raylen voxels (checked above), the grid within K5b's
+            # bound; a chord of a few ulps can move w1 to or from exactly 1,
+            # so the sets of changed voxels may differ by a few voxels
+            c = ray_ema_plain(vals, p12, had, ema)
+            fin = torch.isfinite(c)
+            full = dict(max_abs=max_abs(a[fin], c[fin]), n_diff=int((a[fin] != c[fin]).sum()),
+                        changed_differ=int(((a != vals) != (c != vals)).sum()))
+            if not (torch.equal(fin, torch.isfinite(a))
+                    and full["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray)):
+                raise AssertionError(f"K12 walk+EMA {name}: {full}")
+            ema_cases[name] = dict(changed=int((b != vals).sum()), walk_and_ema=full)
+    ema1 = ray_ema(cfg, dyn, 1.0)
+    work = vals.clone()
+    out.append(dict(
+        name="ray_ema", max_abs_err=0.0, cases=ema_cases,
+        tol_walk_and_ema=K5B_TOL_REL * abs(dyn.score_ray),
+        ms=cuda_ms(lambda: ray_ema_grid_(work, had, k12, ema1)),
+        plain_ms=cuda_ms(lambda: ray_ema_plain(vals, k12, had, ema1)),
+        bytes=nv * (4 + 1 + 4 + 4), ops=nv * 8, library_ms=None,
+        shapes=f"{grid.shape}; EMA on the kernel's raylen bit-equal",
+    ))
+
+    # K2 to convergence: the scan's coarse cells (the cap binds) and a
+    # random field of small components (converges)
+    bg = vals > dyn.thr_new_obstacles
+    sure = vals > dyn.thr_sure_obstacles
+    mv = int(np.ceil(cfg.sepclusters_max_bg_distance / cfg.voxel_size))
+    lsz = max(mv - 1, 1)
+    occ_c = pool_sum_coarse(bg.to(torch.int32), lsz) > 0
+    g = torch.Generator(device=dev).manual_seed(12)
+    rnd_occ = torch.rand(grid.shape, generator=g, device=dev) < 0.01
+    k2 = {}
+    for name, occ in (("scan cells", occ_c), ("random 1 %", rnd_occ)):
+        kl = label_components(occ, mv / lsz, 128)
+        pl = label_components_plain(occ, mv / lsz, 128)
+        _equal(kl, pl, f"K2c[{name}].labels K2c[{name}].converged K2c[{name}].sweeps")
+        k2[name] = dict(converged=bool(pl[1]), sweeps=int(pl[2]),
+                        ms=cuda_ms(lambda: label_components(occ, mv / lsz, 128), reps=3),
+                        plain_ms=cuda_ms(lambda: label_components_plain(occ, mv / lsz, 128),
+                                         reps=1))
+    if k2["random 1 %"]["converged"] is not True or k2["scan cells"]["sweeps"] < 2:
+        raise AssertionError(f"K2 convergence cases: {k2}")
+
+    # K13b: the scan's grids, and random fields at leaf sizes 1 and 2
+    k13b = {}
+    rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.3
+    rnd_sure = torch.rand(grid.shape, generator=g, device=dev) < 0.4
+    for name, b_, s_, l_ in (("scan", bg, sure, lsz), ("random", rnd_bg, rnd_sure, 1),
+                             ("random, leaf 2", rnd_bg, rnd_sure, 2)):
+        kq = quirk_sure_counts(b_, s_, l_)
+        pq = quirk_sure_counts_plain(b_, s_, l_)
+        _equal((kq,), (pq,), f"K13b[{name}].counts")
+        k13b[name] = dict(total=int(pq.sum()), moved_cells=int(
+            (pq != pool_sum_coarse((b_ & s_).to(torch.int32), l_)).sum()))
+    bg_e = bg.permute(2, 1, 0).reshape(-1).to(torch.int32)
+    nc = occ_c.numel()
+    out.append(dict(
+        name="quirk_counts", max_abs_err=0.0, cases=k13b,
+        ms=cuda_ms(lambda: quirk_sure_counts(bg, sure, lsz)),
+        plain_ms=cuda_ms(lambda: quirk_sure_counts_plain(bg, sure, lsz)),
+        bytes=2 * nv + nc * 4, ops=4 * nv,
+        library_ms=cuda_ms(lambda: torch.cumsum(bg_e, 0)),
+        library_call="torch.cumsum of the bg mask in export order (int32)",
+        shapes=f"{grid.shape}, leaf {lsz}; bit-equal",
+    ))
+
+    # K13a: the census over the scan's labels (quirk counts), and random
+    sure_c = quirk_sure_counts(bg, sure, lsz)
+    labels, _, _ = label_components(occ_c, mv / lsz, 128)
+    min_sure = float(np.float32(dyn.sepclusters_min_sure_points))
+    rnd_vals = torch.randint(0, 4, grid.shape, generator=g, device=dev, dtype=torch.int32)
+    rnd_lab = label_components(rnd_occ, 2.0, 128)[0]
+    k13a = {}
+    for name, lab, v_, o_ in (("scan", labels, sure_c, occ_c),
+                              ("random", rnd_lab, rnd_vals, rnd_occ)):
+        kc = label_census(lab, v_, o_, o_.numel(), min_sure)
+        pc = label_census_plain(lab, v_, o_, o_.numel(), min_sure)
+        _equal(kc, pc, f"K13a[{name}].census K13a[{name}].flags")
+        k13a[name] = dict(flags=pc[1].tolist(), sure_cells=int((pc[0] >= min_sure).sum()))
+    occ_ids = labels[occ_c].long()
+    occ_vals = sure_c[occ_c].float()
+    out.append(dict(
+        name="label_census", max_abs_err=0.0, cases=k13a, label_components=k2,
+        ms=cuda_ms(lambda: label_census(labels, sure_c, occ_c, nc, min_sure)),
+        plain_ms=cuda_ms(lambda: label_census_plain(labels, sure_c, occ_c, nc, min_sure)),
+        bytes=nc * (4 + 4 + 1 + 4), ops=nc * 4,
+        library_ms=cuda_ms(lambda: torch.bincount(occ_ids, weights=occ_vals, minlength=nc)),
+        library_call="torch.bincount of the occupied cells' labels weighted by their counts",
+        shapes=f"{tuple(occ_c.shape)} cells; bit-equal",
+    ))
+
+    # K13c: sure_sufficient True (the scan) and False (no sure cell, a
+    # previous value of False), its_diff 1 and 3
+    census, flags = label_census(labels, sure_c, occ_c, nc, min_sure)
+    radius = cfg.sepclusters_max_bg_distance / cfg.voxel_size
+    t_ = torch.ones((), dtype=torch.bool, device=dev)
+    no_sure = torch.stack([flags[0], ~t_])
+    k13c = {}
+    for name, fl, prev, its in (("scan", flags, ~t_, 1.0), ("scan, its_diff 3", flags, ~t_, 3.0),
+                                ("no sure cell", no_sure, ~t_, 1.0)):
+        w1, _ = demote_weights(its, dyn.score_ray)
+        args = (vals, occ_c, census, fl, prev, lsz, radius, min_sure, w1,
+                float(np.float32(dyn.score_ray)), float(np.float32(dyn.thr_new_obstacles)))
+        kk, pp = exact_demote_ema(*args), exact_demote_ema_plain(*args)
+        _equal(kk, pp, f"K13c[{name}].grid K13c[{name}].safe K13c[{name}].sure")
+        k13c[name] = dict(sure_sufficient=bool(pp[2]), demoted=int((pp[0] != vals).sum()),
+                          safe=int(pp[1].sum()))
+    if not (k13c["scan"]["sure_sufficient"] and k13c["scan"]["demoted"] > 0
+            and k13c["no sure cell"]["demoted"] == 0):
+        raise AssertionError(f"K13c cases did not exercise both branches: {k13c}")
+    args = (vals, occ_c, census, flags, ~t_, lsz, radius, min_sure,
+            demote_weights(1.0, dyn.score_ray)[0],
+            float(np.float32(dyn.score_ray)), float(np.float32(dyn.thr_new_obstacles)))
+    out.append(dict(
+        name="exact_demote_ema", max_abs_err=0.0, cases=k13c,
+        ms=cuda_ms(lambda: exact_demote_ema(*args)),
+        plain_ms=cuda_ms(lambda: exact_demote_ema_plain(*args)),
+        bytes=nv * (4 + 4 + 1) + nc * (1 + 4), ops=nv * (len(ball_taps(radius)) + 10),
+        library_ms=None, shapes=f"{grid.shape}, ball r={radius:g}, leaf {lsz}; bit-equal",
+    ))
+    for r in out:
+        say("2-kernel", **r)
     return out
 
 
@@ -843,7 +1138,7 @@ def phase3() -> None:
     g = node.state.grid.cpu().numpy()
     checksum = float(g[np.isfinite(g)].sum())
     np.testing.assert_allclose(checksum, float(z["grid_checksum"]), rtol=1e-4)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in SWEEP_KERNELS), launches
     say("3-golden", ok=True, first_detection_scan=first, position=list(det[0].position),
         n_points=det[0].n_points, confidence=det[0].confidence, grid_checksum=checksum,
         expected_checksum=float(z["grid_checksum"]), launches=launches)
@@ -883,8 +1178,8 @@ def phase4(lut) -> dict:
     assert bool(d.bg_sufficient), "background never became sufficient"
     assert not bool(torch.isnan(g).any()) and not bool(torch.isneginf(g).any()), "grid not finite"
     assert max(syncs) <= 1, f"host syncs per scan: {syncs}"
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+    missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels never launched on the sweep path: {missing}"
     # the ray stage (new update rule: one K5b launch), detect and both EMA
     # passes run once on every flagship scan
     not_once = {k: launches[k] for k in ONCE_PER_SCAN if launches[k] != N_SCANS}
@@ -928,18 +1223,80 @@ def phase4_raycast_every(lut, n: int = 6) -> None:
     say("4-raycast-every", scans=n, raycast_every=2, launches=ray)
 
 
+def phase4_exact(lut) -> dict:
+    """The reference-exact main path: VoFOD(exact config, raycast_mode
+    "exact") over the scan cycle, every kernel of the path launched."""
+    cfg = exact_config()
+    node = VoFOD(cfg, DynParams(), NodeOptions(raycast_mode="exact"), lut, device="cuda")
+    n_apriori = node.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, N_EXACT_SCANS)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_ms, syncs, n_dets, sweeps, sep_conv = [], [], [], [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for r, p in scans:
+                before = len(caught)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pending = node.process_scan_async(r, None, p)
+                end.record()
+                msg = node.fetch_result(pending)
+                step_ms.append(start.elapsed_time(end))
+                syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)))
+                n_dets.append(len(msg.detections))
+                sweeps.append(int(node.last_diag.sep_sweeps))
+                sep_conv.append(bool(node.last_diag.sep_converged))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = kernels.launch_counts()
+    d = node.last_diag
+    g = node.state.grid
+    assert bool(d.bg_sufficient), "background never became sufficient"
+    assert not bool(torch.isnan(g).any()) and not bool(torch.isneginf(g).any()), "grid not finite"
+    assert max(syncs) <= 1, f"host syncs per exact scan: {syncs}"
+    missing = [k for k in EXACT_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels never launched on the exact path: {missing}"
+    not_once = {k: launches[k] for k in ONCE_PER_EXACT_SCAN if launches[k] != N_EXACT_SCANS}
+    assert not not_once, f"launches over {N_EXACT_SCANS} exact scans, expected once: {not_once}"
+    sweep_only = {k: launches[k] for k in ("cone_sweep", "gate_faces", "ray_update", "demote_ema")
+                  if launches[k]}
+    assert not sweep_only, f"sweep-path kernels launched on the exact path: {sweep_only}"
+    out = dict(
+        scans=N_EXACT_SCANS, grid=list(cfg.grid_shape), rays=cfg.sensor.n_points,
+        apriori_voxels=n_apriori,
+        step_ms_p50=float(np.percentile(step_ms, 50)),
+        step_ms_p95=float(np.percentile(step_ms, 95)),
+        step_ms_all=[round(x, 3) for x in step_ms],
+        host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
+        label_sweeps_per_scan=sweeps, sep_converged_per_scan=sep_conv,
+        detections_per_scan=n_dets, detections_total=int(sum(n_dets)),
+        bg_sufficient=bool(d.bg_sufficient), sure_bg_sufficient=bool(d.sure_bg_sufficient),
+        n_bg_voxels=int(d.n_bg_voxels),
+        launches=launches,
+        launches_per_scan={k: v / N_EXACT_SCANS for k, v in launches.items() if v},
+    )
+    say("4-exact", **out)
+    return launches, out["step_ms_p50"]
+
+
 def _dev_us(e, self_only: bool) -> float:
     name = "self_device_time_total" if self_only else "device_time_total"
     legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
     return float(getattr(e, name, None) or getattr(e, legacy, 0.0))
 
 
-def phase5_profile(lut, step_ms_p50: float, n: int = 5) -> None:
-    """Where the flagship step's device time goes (torch.profiler)."""
+def phase5_profile(lut, step_ms_p50: float, n: int = 5, exact: bool = False) -> None:
+    """Where the flagship step's device time goes (torch.profiler), on the
+    sweep path or the exact path."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = VoFODConfig()
-    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+    cfg = exact_config() if exact else VoFODConfig()
+    opts = NodeOptions(raycast_mode="exact") if exact else NodeOptions()
+    node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
     node.load_apriori_map(apriori_ground())
     scans = scan_cycle(lut, 6 + n)
     for r, p in scans[:6]:
@@ -960,7 +1317,8 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5) -> None:
     # what K5 and K10 removed: the gate expansion's matmuls, detect's pads
     gemm = sum(e.count for e in dev_ops if any(w in e.key.lower() for w in ("gemm", "bmm")))
     pads = sum(e.count for e in ops if e.key == "aten::constant_pad_nd")
-    say("5-profile", scans=n, profiled_wall_ms_per_scan=round(wall_ms, 3),
+    say("5-profile-exact" if exact else "5-profile", scans=n,
+        profiled_wall_ms_per_scan=round(wall_ms, 3),
         unprofiled_step_ms_p50=round(step_ms_p50, 3),
         device_busy_ms_per_scan=round(busy_ms, 3),
         device_ops_per_scan=sum(e.count for e in dev_ops) / n,
@@ -976,17 +1334,26 @@ def main() -> int:
     phase1()
     lut = make_lut(VoFODConfig().sensor)
     results = phase2(lut)
+    results += phase2_exact(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
+    exact_launches, exact_ms_p50 = phase4_exact(lut)
     phase5_profile(lut, step_ms_p50)
+    phase5_profile(lut, exact_ms_p50, exact=True)
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]
+        # launches from the path that runs the kernel: the sweep path, else
+        # the exact path
+        n = launches[r["name"]] if r["name"] in SWEEP_KERNELS else exact_launches[r["name"]]
+        t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S
         record.append(dict(
             name=r["name"], route="cuda", source=src, replaces=replaces,
-            launches=launches[r["name"]], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
+            launches=n, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=r["library_ms"],
         ))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", **device}}), flush=True)

@@ -13,11 +13,18 @@ Tolerances, with their reasons:
   99.9th percentile of |Δ|/|raylen| <= 2^-5 (measured 2.2%), and
   max |Δ| <= 1e-3 x max raylen (measured 3.6e-4).
 * ``gate_faces``: float32 trig (arcsin, atan2) of two libraries; the faces lie
-  in [0, 1]: |Δ| <= 5e-5 (measured <= 7.7e-6).
+  in [0, 1]: |Δ| <= 5e-5 (measured <= 7.7e-6), and both sides within
+  5e-5 of a float64 evaluation of the same formula (measured <= 5.1e-6).
+  The JAX call's two matmuls (``d_w @ rot_s2w``, ``w_c @ G.T``) run at
+  HIGHEST precision: at DEFAULT precision a CPU backend may take a
+  reduced-precision (bf16-pass) float32 dot, and one such run put 388
+  texels up to 2.66e-4 off — an elevation error of ~2.8e-5 rad, the size
+  of a bf16x3 product, 35x the float32 one.
 * ``ray_update``: float32 elementwise, exp2 / pow of two libraries:
   |Δ| <= 1e-5 relative to the score scale.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,10 +63,40 @@ def _rot(yaw, pitch=0.0):
 
 def _faces(lut, active, R):
     gate = jr.make_angular_gate(lut)
-    jf = jr.gate_faces(gate, jnp.asarray(active), jnp.asarray(R))
+    with jax.default_matmul_precision("highest"):
+        jf = np.asarray(jr.gate_faces(gate, jnp.asarray(active), jnp.asarray(R)))
     tf = tr.gate_faces(gate, torch.from_numpy(gate.face_dirs.reshape(-1, 3)),
                        torch.from_numpy(active), torch.from_numpy(R))
-    return np.asarray(jf), tf
+    return jf, tf, _faces_f64(gate, active, R)
+
+
+def _faces_f64(gate, active, R):
+    """The formula of ``gate_faces`` in float64 numpy (the row table, where
+    the LUT has one, as the float32 table both packages use)."""
+    G = active.astype(np.float64).reshape(gate.n_rows, gate.pool_v, gate.n_cols,
+                                          gate.pool_h).mean(axis=(1, 3))
+    d_s = gate.face_dirs.reshape(-1, 3).astype(np.float64) @ R.astype(np.float64)
+    el = np.arcsin(np.clip(d_s[:, 2], -1.0, 1.0))
+    az = np.arctan2(d_s[:, 1], d_s[:, 0])
+    if gate.el_rows is None:
+        row = (el - gate.el_b) / gate.el_a
+    else:
+        tbl = np.asarray(gate.el_rows, np.float32).astype(np.float64)
+        sgn = 1.0 if tbl[-1] > tbl[0] else -1.0
+        f, t = sgn * tbl, sgn * el
+        idx = np.clip((t[:, None] >= f[None, :]).sum(-1) - 1, 0, len(f) - 2)
+        row = idx + (t - f[idx]) / (f[idx + 1] - f[idx])
+    g_r = (row + 0.5) / gate.pool_v - 0.5
+    P = gate.col_period
+    g_c = np.mod(((az - gate.az_b) / gate.az_a + 0.5) / gate.pool_h - 0.5, P)
+    kr, kc = np.arange(gate.n_rows), np.arange(gate.n_cols)
+    w_r = np.maximum(0.0, 1.0 - np.abs(g_r[:, None] - kr[None, :]))
+    dwrap = np.minimum(np.abs(g_c[:, None] - kc[None, :]),
+                       np.minimum(np.abs(g_c[:, None] - P - kc[None, :]),
+                                  np.abs(g_c[:, None] + P - kc[None, :])))
+    w_c = np.maximum(0.0, 1.0 - dwrap)
+    w_c = w_c / np.maximum(w_c.sum(axis=-1, keepdims=True), 1e-6)
+    return np.sum(w_r * (w_c @ G.T), axis=-1).reshape(gate.face_dirs.shape[:3])
 
 
 @pytest.mark.parametrize("lut_kind", ["sim", "calibrated"])
@@ -67,9 +104,14 @@ def _faces(lut, active, R):
 def test_gate_faces_f32(lut_kind, seed):
     rng = np.random.default_rng(seed)
     active = rng.random((H, W)) < 0.7
-    jf, tf = _faces(_lut(lut_kind), active, _rot(rng.uniform(-2, 2), rng.uniform(-0.3, 0.3)))
+    jf, tf, f64 = _faces(_lut(lut_kind), active,
+                         _rot(rng.uniform(-2, 2), rng.uniform(-0.3, 0.3)))
     assert tf.shape == jf.shape
-    np.testing.assert_allclose(tf.numpy(), jf, atol=5e-5, rtol=0)
+    # which side moved, should the two ever disagree
+    dev = f"port-f64 {np.abs(tf.numpy() - f64).max():.3g}, jax-f64 {np.abs(jf - f64).max():.3g}"
+    np.testing.assert_allclose(tf.numpy(), f64, atol=5e-5, rtol=0, err_msg=dev)
+    np.testing.assert_allclose(tf.numpy(), jf, atol=5e-5, rtol=0, err_msg=dev)
+    print(f"{lut_kind} seed {seed}: port-jax {np.abs(tf.numpy() - jf).max():.3g}, {dev}")
 
 
 @pytest.mark.parametrize("window", ["full_frame", "windowed"])
@@ -82,7 +124,7 @@ def test_raycast_sweep_bf16_bound(window, gated, seed):
     R = _rot(rng.uniform(-1, 1))
     jf = tf = None
     if gated:
-        jf, tf = _faces(_lut("sim"), rng.random((H, W)) < 0.8, R)
+        jf, tf, _ = _faces(_lut("sim"), rng.random((H, W)) < 0.8, R)
         jf = jnp.asarray(jf)
     # windowed: the static 3 m bound crops the 40x30 frame to 29x29 voxels
     kw = dict(max_distance=3.0 if window == "windowed" else 9.0,

@@ -233,6 +233,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: kernels.point_ema(g, i, b, 0.0, -740.0),
         lambda: kernels.demote_ema(g, b, b, torch.ones((), dtype=torch.bool),
                                    np.zeros((1, 3), np.int32), 0, 0.5, -500.0),
+        lambda: kernels.dda(torch.zeros((2, 3)), torch.zeros((2, 3)), torch.zeros(2),
+                            torch.zeros(2, dtype=torch.bool), (4, 4, 4),
+                            np.zeros(6, np.float32), 8),
+        lambda: kernels.ray_ema(g, b, g, None),
+        lambda: kernels.label_census(i, i, b, 64, 24.0),
+        lambda: kernels.quirk_counts(b, b, 1),
+        lambda: kernels.exact_demote_ema(g, b, i, torch.zeros(2, dtype=torch.bool),
+                                         torch.zeros((), dtype=torch.bool), 1,
+                                         np.zeros((1, 3), np.int32), 0, 24.0, 0.5, -1000.0,
+                                         -300.0),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -188,15 +188,20 @@ def test_raycast_every_must_be_positive():
         _port_node(raycast_every=0)
 
 
-@pytest.mark.parametrize("change", [
-    dict(raycast_mode="exact"), dict(raycast_mode="off"), dict(frontend_mode="prebinned"),
-    dict(cfg="dynamic_radii"), dict(cfg="compat_hascloseto_bounds"),
-    dict(cfg="compat_counted_indexing"), dict(cfg="compat_rangefinder_validity"),
-    dict(cfg="sepclusters_exact_census"), dict(cfg="sequential_explore"),
-])
-def test_unported_modes_raise(change):
+_MODES = [  # (change, ported): the JAX step's modes and whether the port has them
+    (dict(raycast_mode="exact"), True), (dict(raycast_mode="off"), True),
+    (dict(frontend_mode="prebinned"), False), (dict(cfg="dynamic_radii"), False),
+    (dict(cfg="compat_hascloseto_bounds"), True), (dict(cfg="compat_counted_indexing"), True),
+    (dict(cfg="compat_rangefinder_validity"), False), (dict(cfg="sepclusters_exact_census"), True),
+    (dict(cfg="sequential_explore"), False),
+]
+
+
+@pytest.mark.parametrize("change,ported", [
+    pytest.param(c, p, id=f"change{i}") for i, (c, p) in enumerate(_MODES)])
+def test_unported_modes_raise(change, ported):
     """Modes of the JAX step that the port does not have yet are refused,
-    never silently replaced by the production path."""
+    never silently replaced by the production path; the ported ones build."""
     import dataclasses
 
     from vofod_tpu_torch.pipeline.step import make_step_fn
@@ -207,5 +212,9 @@ def test_unported_modes_raise(change):
     kw = {k: v for k, v in change.items() if k != "cfg"}
     if "cfg" in change:
         cfg = dataclasses.replace(cfg, **{change["cfg"]: True})
-    with pytest.raises(NotImplementedError):
-        make_step_fn(cfg, make_lut_simulation(32, 8, cfg.sensor.vertical_fov), device="cpu", **kw)
+    lut = make_lut_simulation(32, 8, cfg.sensor.vertical_fov)
+    if ported:
+        assert callable(make_step_fn(cfg, lut, device="cpu", **kw))
+    else:
+        with pytest.raises(NotImplementedError):
+            make_step_fn(cfg, lut, device="cpu", **kw)

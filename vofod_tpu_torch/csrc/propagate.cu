@@ -17,6 +17,13 @@
 // components unconverged (components.py:120-134), so an in-place update or
 // several sweeps inside shared memory would change the labels and break
 // parity with the JAX step; the wrapper ping-pongs two buffers instead.
+//
+// Run to a fixpoint (vofod_tpu/ops/components.py `label_components`, a
+// while_loop that stops at the first sweep that changed nothing), each
+// launch is also given the previous sweep's device flag: when it is 0 every
+// block exits at once, so the host enqueues the cap's worth of sweeps with
+// no sync.  The sweep that changed nothing wrote B equal to A, so both
+// ping-pong buffers hold the fixpoint and the skipped launches lose nothing.
 #include "common.cuh"
 
 namespace {
@@ -29,7 +36,9 @@ template <typename T, int MODE>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     sweep_kernel(const T* __restrict__ a, T* __restrict__ b,
                  const uint8_t* __restrict__ occ, int nz, int ny, int nx,
-                 BallTaps taps, int* __restrict__ changed) {
+                 BallTaps taps, int* __restrict__ changed,
+                 const int* __restrict__ prev_changed) {
+  if (prev_changed != nullptr && *prev_changed == 0) return;  // past the fixpoint
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   const int h = taps.halo;
@@ -73,12 +82,12 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
 
 template <typename T, int MODE>
 int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx,
-           const BallTaps& taps, int* changed, cudaStream_t stream) {
+           const BallTaps& taps, int* changed, const int* prev, cudaStream_t stream) {
   const size_t smem = tile_elems(taps.halo) * sizeof(T);
   sweep_kernel<T, MODE>
       <<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
           static_cast<const T*>(a), static_cast<T*>(b),
-          static_cast<const uint8_t*>(occ), nz, ny, nx, taps, changed);
+          static_cast<const uint8_t*>(occ), nz, ny, nx, taps, changed, prev);
   return (int)cudaGetLastError();
 }
 
@@ -86,17 +95,21 @@ int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx,
 
 // mode 0: int32 min-label sweep; mode 1: uint8 reach sweep.
 // `changed` is a device int32 the kernel ORs 1 into when any voxel changed
-// (the caller zeroes it).  Returns cudaGetLastError().
+// (the caller zeroes it); `prev_changed` is NULL or the previous sweep's
+// flag, and the launch does nothing when it is 0.  Returns
+// cudaGetLastError().
 VOFOD_API int vofod_propagate_sweep(const void* a, void* b, const void* occ,
                                     int mode, int nz, int ny, int nx,
                                     const int* taps, int n_taps, int halo,
-                                    void* changed, void* stream) {
+                                    void* changed, const void* prev_changed,
+                                    void* stream) {
   if (n_taps < 1 || n_taps > VOFOD_MAX_TAPS || halo < 0 || halo > 7)
     return (int)cudaErrorInvalidValue;
   const BallTaps t = make_taps(taps, n_taps, halo);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ch = static_cast<int*>(changed);
-  if (mode == 0) return launch<int32_t, 0>(a, b, occ, nz, ny, nx, t, ch, s);
-  if (mode == 1) return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, t, ch, s);
+  const int* pv = static_cast<const int*>(prev_changed);
+  if (mode == 0) return launch<int32_t, 0>(a, b, occ, nz, ny, nx, t, ch, pv, s);
+  if (mode == 1) return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, t, ch, pv, s);
   return (int)cudaErrorInvalidValue;
 }

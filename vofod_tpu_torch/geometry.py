@@ -83,6 +83,10 @@ class GridSpec:
             & (iz >= 0) & (iz < self.nz)
         )
 
+    def in_limits(self, xyz: Tensor) -> Tensor:
+        """Bool [...]: points [..., 3] whose voxel lies in the grid."""
+        return self.in_limits_idx(*self.coord_to_idx(xyz))
+
     def in_limits_host(self, xyz: np.ndarray) -> bool:
         """Whether one host point lies in the grid, with the float32 math of
         :meth:`coord_to_idx` — the step's raycast predicate reads it without
@@ -116,6 +120,13 @@ def se3_apply(T: Tensor, pts: Tensor) -> Tensor:
         ((T[a, 0] * x + T[a, 1] * y) + T[a, 2] * z) + T[a, 3] for a in range(3)
     ]
     return torch.stack(out, dim=-1)
+
+
+def rotate(R: Tensor, v: Tensor) -> Tensor:
+    """Rotate vectors [..., 3] by R [3, 3] (``v @ R.T``) in the fixed order
+    of :func:`se3_apply`: ``((R_a0 x + R_a1 y) + R_a2 z)``."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([(R[a, 0] * x + R[a, 1] * y) + R[a, 2] * z for a in range(3)], dim=-1)
 
 
 def box_mask(pts: Tensor, lo, hi) -> Tensor:

@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K11).
+"""Build, load and launch the hand-written CUDA kernels (K1-K13).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -33,7 +33,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
             "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
-            "detect.cu", "ema.cu")
+            "detect.cu", "ema.cu", "dda.cu", "census.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +56,11 @@ LAUNCHES: dict[str, int] = {
     "detect": 0,
     "point_ema": 0,
     "demote_ema": 0,
+    "dda": 0,
+    "ray_ema": 0,
+    "label_census": 0,
+    "quirk_counts": 0,
+    "exact_demote_ema": 0,
 }
 
 _lib = None
@@ -139,7 +144,7 @@ def load():
         lib.vofod_ball_pool.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P]
         lib.vofod_propagate_sweep.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P]
+            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P]
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -155,11 +160,19 @@ def load():
         lib.vofod_detect.argtypes = [_P] * 20
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
         lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
+        lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P]
+        lib.vofod_ray_ema.argtypes = [_P, _P, _P, _LL, _P, _I, _P, _P]
+        lib.vofod_label_census.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P, _P]
+        lib.vofod_quirk_counts.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+        lib.vofod_exact_demote_ema.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats,
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
-                   lib.vofod_point_ema, lib.vofod_demote_ema):
+                   lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
+                   lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
+                   lib.vofod_exact_demote_ema):
             fn.restype = _I
         _lib = lib
         return lib
@@ -215,10 +228,12 @@ def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
 
 
 def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
-                    taps: np.ndarray, halo: int, changed: torch.Tensor) -> None:
+                    taps: np.ndarray, halo: int, changed: torch.Tensor,
+                    prev_changed: torch.Tensor | None = None) -> None:
     """K2: one Jacobi sweep src -> dst.  int32 src: min-label sweep (off-mask
     SENTINEL); uint8 src: reach sweep.  ORs 1 into ``changed`` (device
-    int32 scalar) when any voxel changed."""
+    int32 scalar) when any voxel changed.  With ``prev_changed`` (the
+    previous sweep's flag) the launch does nothing when that flag is 0."""
     lib = load()
     mode = {torch.int32: 0, torch.uint8: 1}.get(src.dtype)
     if mode is None or src.dim() != 3:
@@ -227,11 +242,14 @@ def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
     _require(dst, "propagate_sweep dst", src.dtype, src.shape)
     _require(occ, "propagate_sweep occ", torch.uint8, src.shape)
     _require(changed, "propagate_sweep changed", torch.int32, ())
+    if prev_changed is not None:
+        _require(prev_changed, "propagate_sweep prev_changed", torch.int32, ())
     keep, ptr = _taps_arg(taps)
     nz, ny, nx = src.shape
     err = lib.vofod_propagate_sweep(
         src.data_ptr(), dst.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
-        ptr, len(keep), halo, changed.data_ptr(), _stream())
+        ptr, len(keep), halo, changed.data_ptr(),
+        None if prev_changed is None else prev_changed.data_ptr(), _stream())
     _check(err, "vofod_propagate_sweep")
     LAUNCHES["propagate_sweep"] += 1
 
@@ -587,3 +605,116 @@ def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
     _check(err, "vofod_demote_ema")
     LAUNCHES["demote_ema"] += 1
     return out
+
+
+def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
+        shape: tuple[int, int, int], floats: np.ndarray, n_steps: int) -> torch.Tensor:
+    """K12 walk: the f32 raylen grid ``shape`` of the rays' DDA chords.
+    floats: the f32 grid constants (ox, oy, oz, vs, 1/vs, vs/2) of
+    ops/raycast.py ``_dda_consts``."""
+    R = starts.shape[0]
+    _require(starts, "dda starts", torch.float32, (R, 3))
+    _require(dirs, "dda dirs", torch.float32, (R, 3))
+    _require(lengths, "dda lengths", torch.float32, (R,))
+    _require(valid, "dda valid", torch.bool, (R,))
+    fl = _host_f32(*floats)
+    if fl[0].shape != (6,):
+        raise ValueError(f"dda takes 6 float constants, got {fl[0].shape}")
+    nz, ny, nx = shape
+    ints = _host_i32(nx, ny, nz, n_steps)
+    raylen = torch.zeros(shape, dtype=torch.float32, device=starts.device)
+    err = load().vofod_dda(starts.data_ptr(), dirs.data_ptr(), lengths.data_ptr(),
+                           valid.data_ptr(), R, fl[1], ints[1], raylen.data_ptr(), _stream())
+    _check(err, "vofod_dda")
+    LAUNCHES["dda"] += 1
+    return raylen
+
+
+def ray_ema(vals: torch.Tensor, had_point: torch.Tensor, raylen: torch.Tensor, ema) -> None:
+    """K12 EMA pass, in place on ``vals``: the ray EMA (ops/raycast.py
+    RayEma ``ema``) on a full-grid raylen field.  One launch under the new
+    rule, two under the old."""
+    _require(vals, "ray_ema vals", torch.float32)
+    _require(had_point, "ray_ema had_point", torch.bool, vals.shape)
+    _require(raylen, "ray_ema raylen", torch.float32, vals.shape)
+    floats = _host_f32(ema.coef, ema.its, ema.weight, ema.score)
+    max_bits = None
+    if not ema.new_rule:
+        max_bits = torch.zeros((), dtype=torch.int32, device=vals.device)
+    err = load().vofod_ray_ema(
+        vals.data_ptr(), had_point.data_ptr(), raylen.data_ptr(), vals.numel(), floats[1],
+        int(bool(ema.new_rule)), None if max_bits is None else max_bits.data_ptr(), _stream())
+    _check(err, "vofod_ray_ema")
+    LAUNCHES["ray_ema"] += 1 if ema.new_rule else 2
+
+
+def label_census(labels: torch.Tensor, vals: torch.Tensor, occ: torch.Tensor, ncv: int,
+                 min_sure: float):
+    """K13a: (cell census int32, flags bool [2]) — the census of ``vals``
+    over each component (label = bucket), read back per cell where ``occ``;
+    flags = (any occ, any occ & census >= min_sure)."""
+    _require(labels, "census labels", torch.int32)
+    _require(vals, "census vals", torch.int32, labels.shape)
+    _require(occ, "census occ", torch.bool, labels.shape)
+    dev = labels.device
+    census = torch.zeros(ncv, dtype=torch.int32, device=dev)
+    out = torch.empty_like(labels)
+    flags = torch.zeros(2, dtype=torch.bool, device=dev)
+    err = load().vofod_label_census(
+        labels.data_ptr(), vals.data_ptr(), occ.data_ptr(), labels.numel(), int(ncv),
+        float(min_sure), census.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream())
+    _check(err, "vofod_label_census")
+    LAUNCHES["label_census"] += 1
+    return out, flags
+
+
+def quirk_counts(bg: torch.Tensor, sure: torch.Tensor, lsz: int) -> torch.Tensor:
+    """K13b: the per-coarse-cell sure counts with the reference's
+    VoxelGridCounted indexing quirk, int32 (ceil(nz/lsz), ceil(ny/lsz),
+    ceil(nx/lsz))."""
+    if bg.dim() != 3:
+        raise ValueError("quirk_counts takes 3-D grids")
+    _require(bg, "quirk bg", torch.bool)
+    _require(sure, "quirk sure", torch.bool, bg.shape)
+    nz, ny, nx = bg.shape
+    nv = bg.numel()
+    dev = bg.device
+    scratch = torch.empty(2 * (-(-nv // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
+    u = torch.zeros(nv + 2, dtype=torch.int32, device=dev)
+    out = torch.empty((-(-nz // lsz), -(-ny // lsz), -(-nx // lsz)), dtype=torch.int32,
+                      device=dev)
+    err = load().vofod_quirk_counts(bg.data_ptr(), sure.data_ptr(), nz, ny, nx, int(lsz),
+                                    scratch.data_ptr(), u.data_ptr(), out.data_ptr(), _stream())
+    _check(err, "vofod_quirk_counts")
+    LAUNCHES["quirk_counts"] += 1
+    return out
+
+
+def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tensor,
+                     flags: torch.Tensor, prev_sure: torch.Tensor, lsz: int, taps: np.ndarray,
+                     halo: int, min_sure: float, w1: float, score: float, thr_new: float):
+    """K13c: (new grid f32, safe bool grid, sure_sufficient bool scalar) of
+    the exact demotion: w1^k v + (1 - w1^k) score, k = the ball sum
+    (``taps``) of the unsure coarse-cell centres; flags: K13a's."""
+    if vals.dim() != 3:
+        raise ValueError("exact_demote_ema takes the 3-D grid")
+    nz, ny, nx = vals.shape
+    cshape = (-(-nz // lsz), -(-ny // lsz), -(-nx // lsz))
+    _require(vals, "exact_demote vals", torch.float32)
+    _require(occ_c, "exact_demote occ_c", torch.bool, cshape)
+    _require(census, "exact_demote census", torch.int32, cshape)
+    _require(flags, "exact_demote flags", torch.bool, (2,))
+    _require(prev_sure, "exact_demote prev_sure", torch.bool, ())
+    dev = vals.device
+    out = torch.empty_like(vals)
+    safe = torch.empty(vals.shape, dtype=torch.bool, device=dev)
+    sure_out = torch.empty((), dtype=torch.bool, device=dev)
+    keep, ptr = _taps_arg(taps)
+    floats = _host_f32(min_sure, w1, score, thr_new)
+    err = load().vofod_exact_demote_ema(
+        vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
+        prev_sure.data_ptr(), nz, ny, nx, int(lsz), ptr, len(keep), halo, floats[1],
+        out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(), _stream())
+    _check(err, "vofod_exact_demote_ema")
+    LAUNCHES["exact_demote_ema"] += 1
+    return out, safe, sure_out

@@ -1,14 +1,17 @@
-"""Euclidean-tolerance connected components and reachability (K2).
+"""Euclidean-tolerance connected components and reachability (K2), and
+the per-component census of the exact sepclusters mode (K13a).
 
-PyTorch counterpart of vofod_tpu/ops/components.py ``propagate_reach`` and
-``label_components_seeded`` (ref vofod_nodelet.cpp:689-751: PCL Euclidean
-cluster extraction + the close/far split).  Two occupied voxels are adjacent
-iff the Euclidean distance of their indices is <= ``radius``.
+PyTorch counterpart of vofod_tpu/ops/components.py ``propagate_reach``,
+``label_components_seeded`` and ``label_components`` (ref
+vofod_nodelet.cpp:689-751: PCL Euclidean cluster extraction + the close/far
+split) and of vofod_tpu/parallel/gridops.py ``DenseOps.label_census``.  Two
+occupied voxels are adjacent iff the Euclidean distance of their indices is
+<= ``radius``.
 
-Both run a FIXED number of Jacobi sweeps with no host sync.  Each sweep is
-one launch of the fused CUDA kernel (csrc/propagate.cu) for CUDA tensors,
-or the plain version (K1's pool + mask) for CPU tensors, and records a
-per-sweep changed flag on the device:
+All run Jacobi sweeps with no host sync.  Each sweep is one launch of the
+fused CUDA kernel (csrc/propagate.cu) for CUDA tensors, or the plain
+version (K1's pool + mask) for CPU tensors, and records a per-sweep changed
+flag on the device:
 
 * ``propagate_reach``: the JAX while_loop stops at the first sweep that
   changes nothing or at the cap; growth is monotone, so sweeps past the
@@ -16,6 +19,10 @@ per-sweep changed flag on the device:
 * ``label_components_seeded``: the JAX fori_loop already runs ``max_iters``
   sweeps; ``iters`` (the last sweep that changed anything) stays on the
   device.
+* ``label_components``: the JAX while_loop runs to the first sweep that
+  changes nothing or to the cap.  The cap's worth of sweeps is enqueued and
+  each launch past the fixpoint exits at once on the previous sweep's
+  device flag (``sweeps(..., until_fixpoint=True)``).
 """
 
 from __future__ import annotations
@@ -33,11 +40,17 @@ Tensor = torch.Tensor
 SENTINEL = 2**31 - 1
 
 
-def sweeps_plain(init: Tensor, occ: Tensor, radius: float, n: int) -> tuple[Tensor, Tensor]:
+def sweeps_plain(init: Tensor, occ: Tensor, radius: float, n: int,
+                 until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
     """Plain version of ``n`` K2 sweeps (K1's plain pool + the mask), on any
-    device: (final grid, bool [n] per-sweep changed flags)."""
+    device: (final grid, bool [n] per-sweep changed flags).  With
+    ``until_fixpoint`` the sweeps after the first one that changed nothing
+    are skipped (their flags False), as the gated kernel launches do."""
     cur, flags = init, []
     for _ in range(n):
+        if until_fixpoint and flags and not bool(flags[-1]):
+            flags.append(flags[-1])
+            continue
         if cur.dtype == torch.int32:
             new = torch.where(occ, ball_pool_plain(cur, radius, "min", SENTINEL), SENTINEL)
         else:
@@ -48,10 +61,13 @@ def sweeps_plain(init: Tensor, occ: Tensor, radius: float, n: int) -> tuple[Tens
     return cur, torch.stack(flags)
 
 
-def sweeps(init: Tensor, occ: Tensor, radius: float, n: int) -> tuple[Tensor, Tensor]:
+def sweeps(init: Tensor, occ: Tensor, radius: float, n: int,
+           until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
     """``n`` Jacobi sweeps from ``init``: int32 keys take the masked
     min-label sweep, uint8 masks the reach sweep.  Returns (final grid,
-    bool [n] per-sweep changed flags), both on the device of ``init``."""
+    bool [n] per-sweep changed flags), both on the device of ``init``.
+    ``until_fixpoint``: stop after the first sweep that changes nothing (on
+    the card, every later launch reads that sweep's flag and exits)."""
     if init.is_cuda:
         taps, halo = ball_taps(radius), int(math.floor(radius))
         occ8 = occ.contiguous().view(torch.uint8)
@@ -60,12 +76,13 @@ def sweeps(init: Tensor, occ: Tensor, radius: float, n: int) -> tuple[Tensor, Te
         src, bufs = init.contiguous(), (torch.empty_like(init), torch.empty_like(init))
         for i in range(n):
             dst = bufs[i % 2]
-            kernels.propagate_sweep(src, dst, occ8, taps, halo, changed[i])
+            prev = changed[i - 1] if until_fixpoint and i > 0 else None
+            kernels.propagate_sweep(src, dst, occ8, taps, halo, changed[i], prev)
             src = dst
         return src, changed.bool()
     if init.device.type != "cpu":
         raise ValueError(f"propagation: unsupported device {init.device}")
-    return sweeps_plain(init, occ, radius, n)
+    return sweeps_plain(init, occ, radius, n, until_fixpoint)
 
 
 def propagate_reach(
@@ -108,3 +125,63 @@ def label_components_seeded(
     reached = occ & (keys < nv)
     labels = torch.where(occ, torch.where(keys < nv, keys, keys - nv), SENTINEL)
     return labels, reached, converged, iters
+
+
+def _label_components(occupied: Tensor, radius: float, max_iters: int,
+                      sweep_fn) -> tuple[Tensor, Tensor, Tensor]:
+    occ = occupied.to(torch.bool)
+    nv = occ.numel()
+    flat = torch.arange(nv, dtype=torch.int32, device=occ.device).reshape(occ.shape)
+    labels = torch.where(occ, flat, SENTINEL)
+    labels, changed = sweep_fn(labels, occ, radius, max_iters, until_fixpoint=True)
+    n_run = torch.clamp(changed.sum(dtype=torch.int32) + 1, max=max_iters)
+    return labels, ~changed[-1], n_run
+
+
+def label_components(
+    occupied: Tensor, radius: float, max_iters: int
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Label the components of ``occupied`` with their least member flat id,
+    sweeping to the fixpoint or to ``max_iters`` sweeps.
+
+    Returns (labels int32 grid with SENTINEL on empty voxels, converged
+    bool, sweeps int32: the sweeps the JAX while_loop runs).  The flags are
+    a run of True then False, so the last flag is the while_loop's and the
+    loop ran one sweep past the changing ones (or hit the cap)."""
+    return _label_components(occupied, radius, max_iters, sweeps)
+
+
+def label_components_plain(
+    occupied: Tensor, radius: float, max_iters: int
+) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`label_components` with K2's plain sweeps, on any device."""
+    return _label_components(occupied, radius, max_iters, sweeps_plain)
+
+
+def label_census_plain(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int,
+                       min_sure: float) -> tuple[Tensor, Tensor]:
+    """Plain version of K13a: the JAX census (int32 scatter-add of ``vals``
+    where ``occ`` into bucket ``label``, ids >= ncv dropped, read back at
+    ``min(label, ncv - 1)``), 0 off ``occ``; and the flags (any occ, any occ
+    with census >= min_sure)."""
+    flat_l = labels.reshape(-1).to(torch.int64)
+    v = torch.where(occ, vals, 0).reshape(-1)
+    keep = flat_l < ncv
+    census = torch.zeros(ncv, dtype=torch.int32, device=labels.device)
+    census.index_add_(0, flat_l[keep], v[keep])
+    cell = census[torch.clamp(flat_l, max=ncv - 1)].reshape(labels.shape)
+    cell = torch.where(occ, cell, 0)
+    sure = occ & (cell.to(torch.float32) >= min_sure)
+    return cell, torch.stack([torch.any(occ), torch.any(sure)])
+
+
+def label_census(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int,
+                 min_sure: float) -> tuple[Tensor, Tensor]:
+    """K13a: (per-cell census int32, flags bool [2] = (any occ, any sure
+    cell)); see :func:`label_census_plain`."""
+    if labels.is_cuda:
+        return kernels.label_census(labels.contiguous(), vals.contiguous(), occ.contiguous(),
+                                    ncv, min_sure)
+    if labels.device.type != "cpu":
+        raise ValueError(f"label census: unsupported device {labels.device}")
+    return label_census_plain(labels, vals, occ, ncv, min_sure)

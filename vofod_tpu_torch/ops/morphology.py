@@ -2,7 +2,9 @@
 
 PyTorch counterpart of vofod_tpu/ops/morphology.py ``ball_pool_min/max/sum``
 (ref VoxelMap::hasCloseTo, src/voxel_map.cpp:376-400, and the Euclidean
-cluster tolerance, vofod_nodelet.cpp:689-698, evaluated for every voxel).
+cluster tolerance, vofod_nodelet.cpp:689-698, evaluated for every voxel)
+and ``hascloseto_pool_any`` (the reference's exact hasCloseTo box, a K1 tap
+set: :func:`hascloseto_taps`).
 
 A CUDA tensor goes to the hand-written stencil (csrc/ball_pool.cu); a CPU
 tensor takes the plain version below, which is the JAX decomposition (x
@@ -102,6 +104,49 @@ def ball_pool(a: Tensor, radius: float, op: str, fill: int) -> Tensor:
     if a.device.type != "cpu":
         raise ValueError(f"ball pool: unsupported device {a.device}")
     return ball_pool_plain(a, radius, op, fill)
+
+
+@functools.lru_cache(maxsize=None)
+def hascloseto_taps(radius: float) -> np.ndarray:
+    """The reference's hasCloseTo search (voxel_map.cpp:376-400) as a K1 tap
+    list, int32 [n_taps, 3]: offsets in the box [-ceil(r), ceil(r)) on each
+    axis with ||d||² <= r² + 1e-9.  The upper bound is EXCLUSIVE, so at an
+    integer radius the +r axis-extreme offsets are missing (bug for bug);
+    the box reaches -ceil(r), hence K1's halo is ceil(r), not floor(r)."""
+    m = int(math.ceil(radius))
+    r2 = radius * radius + 1e-9
+    out = [(dz, dy, dx) for dz in range(-m, m) for dy in range(-m, m) for dx in range(-m, m)
+           if dz * dz + dy * dy + dx * dx <= r2]
+    return np.asarray(out, np.int32).reshape(-1, 3)
+
+
+def tap_pool_plain(a: Tensor, taps: np.ndarray, op: str, fill: int) -> Tensor:
+    """Plain version of K1 on an arbitrary tap list: out[v] = op over
+    a[v + d] for the taps d (out-of-grid taps read ``fill``), one shifted
+    slice per tap."""
+    combine = _COMBINE[op]
+    nz, ny, nx = a.shape
+    h = int(np.abs(taps).max()) if len(taps) else 0
+    pad = F.pad(a, (h, h, h, h, h, h), value=fill)
+    out = None
+    for dz, dy, dx in taps.tolist():
+        s = pad[h + dz: h + dz + nz, h + dy: h + dy + ny, h + dx: h + dx + nx]
+        out = s if out is None else combine(out, s)
+    return out.contiguous()
+
+
+def hascloseto_pool_any(mask: Tensor, radius: float) -> Tensor:
+    """Reference-exact hasCloseTo for every voxel (vofod_tpu
+    ``hascloseto_pool_any``): True where a ``mask`` voxel lies in the
+    :func:`hascloseto_taps` box.  CUDA tensors: K1's int8 max with that tap
+    set and halo ceil(r); CPU tensors: :func:`tap_pool_plain`."""
+    taps = hascloseto_taps(radius)
+    m8 = mask.to(torch.int8)
+    if m8.is_cuda:
+        return kernels.ball_pool(m8.contiguous(), taps, int(math.ceil(radius)), "max", 0) > 0
+    if m8.device.type != "cpu":
+        raise ValueError(f"hasCloseTo pool: unsupported device {m8.device}")
+    return tap_pool_plain(m8, taps, "max", 0) > 0
 
 
 def ball_pool_min(a: Tensor, radius: float, fill=None) -> Tensor:

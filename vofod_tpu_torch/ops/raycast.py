@@ -1,9 +1,10 @@
 """Freespace raycast: the angular gate (K5a), the gated six-cone
-transmittance sweep (K4) and the ray assembly + ray EMA (K5b).
+transmittance sweep (K4), the ray assembly + ray EMA (K5b), and the exact
+DDA with its full-grid ray EMA (K12).
 
-PyTorch counterpart of the production raycast of vofod_tpu/ops/raycast.py
-(``raycast_sweep`` and its helpers; ref src/vofod_nodelet.cpp:1396-1606
-raycast_cloud).  Rays are straight lines from one origin, so the fraction of
+PyTorch counterpart of vofod_tpu/ops/raycast.py (the production
+``raycast_sweep`` and its helpers, and the reference-exact ``raycast_dda``;
+ref src/vofod_nodelet.cpp:1396-1606 raycast_cloud).  Rays are straight lines from one origin, so the fraction of
 rays reaching a voxel unobstructed obeys a plane-by-plane recurrence along
 each of six axis cones; the accumulated chord length is then
 T * ray density * voxel volume / d², masked to the FOV and the range.
@@ -18,8 +19,12 @@ copy of ``make_angular_gate``; its face texture is K5a (csrc/ray_gate.cu,
 plain version :func:`gate_faces_plain`).  K5b (csrc/ray_update.cu, plain
 version :func:`ray_window_update_plain_`) expands the gate per voxel,
 assembles the raylen and applies the ray EMA in place on the sweep window,
-so the step never builds a full-grid raylen field.  The exact DDA mode is
-not ported yet.
+so the step never builds a full-grid raylen field.
+
+The exact mode walks every ray with Amanatides–Woo (K12, csrc/dda.cu, plain
+version :func:`raycast_dda_plain`) into a full-grid raylen field and applies
+the same ray EMA to it (K12's second pass, csrc/ray_update.cu
+``vofod_ray_ema``, plain version :func:`ray_ema_plain`).
 """
 
 from __future__ import annotations
@@ -596,3 +601,109 @@ def raycast_update_(
     c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
     return ray_window_update_(vals, had_point, T6, gate, rel_x, rel_y, rel_z, rot_s2w,
                               x0, y0, c, ema)
+
+
+# -----------------------------------------------------------------------------
+# Exact DDA (K12)
+# -----------------------------------------------------------------------------
+
+
+def dda_n_steps(voxel_size: float, max_length: float) -> int:
+    """The DDA's step cap: every ray stops after this many voxel steps."""
+    return int(math.ceil(max_length / voxel_size * math.sqrt(3.0))) + 3
+
+
+def _dda_consts(grid: GridSpec) -> np.ndarray:
+    """K12's float32 grid constants (ox, oy, oz, vs, 1/vs, vs/2), each
+    rounded as the JAX function's weakly typed Python scalars round."""
+    ox, oy, oz = grid.origin
+    vs = grid.voxel_size
+    return np.array([ox, oy, oz, vs, grid.inv_voxel, vs / 2.0], np.float32)
+
+
+def dda_emissions_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                        valid: Tensor, max_length: float) -> tuple[Tensor, Tensor]:
+    """The DDA walk's (flat id int64, chord f32) emissions in (step, ray)
+    order (vofod_tpu ``dda_emissions``), the zero chords and ids outside the
+    grid left out: the JAX walk, vectorised over rays and stepped
+    ``dda_n_steps`` times."""
+    vs = grid.voxel_size
+    nz, ny, nx = grid.shape
+    dev = starts.device
+    absdir = torch.abs(dirs)
+    step = torch.sign(dirs).to(torch.int32)
+    pos = absdir > 0
+    inf = torch.full_like(absdir, float("inf"))
+    # a true division (a Python scalar over a tensor is a reciprocal multiply)
+    tdelta = torch.where(pos, torch.full_like(absdir, _f32(vs)) / absdir, inf)
+    ix, iy, iz = grid.coord_to_idx(starts)
+    cur = torch.stack([ix, iy, iz], dim=-1)  # (x, y, z)
+    ctr = grid.idx_to_coord(ix, iy, iz) - starts
+    tmax = torch.where(pos, (_f32(vs / 2.0) + step.to(torch.float32) * ctr) / absdir, inf)
+    last = torch.where(step > 0, torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
+                                               device=dev), 0)
+    axes = torch.arange(3, device=dev)
+    alive = valid & (lengths > 0)
+    prev = torch.zeros_like(lengths)
+    fids, ws = [], []
+    for _ in range(dda_n_steps(vs, max_length)):
+        tx, ty, tz = tmax.unbind(-1)
+        # jnp.argmin: the first minimum, x before y before z
+        on_x = (tx <= ty) & (tx <= tz)
+        axis = torch.where(on_x, 0, torch.where(ty <= tz, 1, 2))
+        dist = torch.minimum(torch.minimum(tx, ty), tz)
+        ddist = torch.clamp(torch.minimum(dist, lengths) - prev, min=0.0)
+        ws.append(torch.where(alive, ddist, 0.0))
+        fids.append(grid.flat_id(cur[:, 0], cur[:, 1], cur[:, 2]))
+        onehot = axis[:, None] == axes[None, :]
+        at_edge = ((cur == last) & onehot).any(dim=-1)
+        alive = alive & (dist < lengths) & ~at_edge
+        cur = cur + onehot.to(torch.int32) * step
+        # select, don't multiply: tdelta is inf on zero-direction axes
+        tmax = torch.where(onehot, tmax + tdelta, tmax)
+        prev = dist
+    fid = torch.stack(fids).reshape(-1).to(torch.int64)
+    w = torch.stack(ws).reshape(-1)
+    # adding +0.0 changes no sum; the JAX scatter drops ids outside the grid
+    keep = (w > 0) & (fid >= 0) & (fid < grid.n_voxels)
+    return fid[keep], w[keep]
+
+
+def raycast_dda_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                      valid: Tensor, max_length: float) -> Tensor:
+    """Plain version of K12 (vofod_tpu/ops/raycast.py ``raycast_dda``): the
+    :func:`dda_emissions_plain` stream added with ``index_add_``.  On the
+    CPU ``index_add_`` adds sequentially in (step, ray) order, as the JAX
+    scatter does, so the two agree bit for bit on the same inputs."""
+    fid, w = dda_emissions_plain(grid, starts, dirs, lengths, valid, max_length)
+    flat = torch.zeros(grid.n_voxels, dtype=torch.float32, device=starts.device)
+    flat.index_add_(0, fid, w)
+    return flat.reshape(grid.shape)
+
+
+def raycast_dda(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor, valid: Tensor,
+                max_length: float) -> Tensor:
+    """Exact Amanatides–Woo accumulation (ref voxel_map.cpp:229-263): the
+    float32 (nz, ny, nx) field of every ray's chord length per voxel (K12).
+
+    starts, dirs: [R, 3] world ray starts (inside the grid where ``valid``)
+    and unit directions; lengths: [R] traversal lengths; valid: [R] ray
+    gate; max_length: static bound that sizes the step loop."""
+    if starts.is_cuda:
+        return kernels.dda(starts.contiguous(), dirs.contiguous(), lengths.contiguous(),
+                           valid.contiguous(), grid.shape, _dda_consts(grid),
+                           dda_n_steps(grid.voxel_size, max_length))
+    if starts.device.type != "cpu":
+        raise ValueError(f"DDA raycast: unsupported device {starts.device}")
+    return raycast_dda_plain(grid, starts, dirs, lengths, valid, max_length)
+
+
+def ray_ema_grid_(vals: Tensor, had_point: Tensor, raylen: Tensor, ema: RayEma) -> Tensor:
+    """K12's second pass: the ray EMA (:func:`ray_ema_plain`) on a full-grid
+    raylen field, in place on ``vals``.  Returns ``vals``."""
+    if vals.is_cuda:
+        kernels.ray_ema(vals, had_point, raylen, ema)
+        return vals
+    if vals.device.type != "cpu":
+        raise ValueError(f"ray EMA: unsupported device {vals.device}")
+    return vals.copy_(ray_ema_plain(vals, raylen, had_point, ema))

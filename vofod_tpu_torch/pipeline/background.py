@@ -6,6 +6,9 @@ PyTorch counterpart of vofod_tpu/pipeline/background.py ``split_and_update``
 component labels from ONE seeded propagation (K1 ball-max seeds, K2
 sweeps), and the weighted EMA point update ``w = 2^-count`` (K11's point
 EMA, csrc/ema.cu, for CUDA tensors; :func:`point_ema_plain` for CPU ones).
+With ``cfg.compat_hascloseto_bounds`` the seeds come from the reference's
+exact hasCloseTo box (K1 with the ops/morphology.hascloseto_taps tap set)
+instead of the symmetric ball.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_components_seeded
-from vofod_tpu_torch.ops.morphology import ball_pool_max
+from vofod_tpu_torch.ops.morphology import ball_pool_max, hascloseto_pool_any
 
 Tensor = torch.Tensor
 
@@ -70,7 +73,12 @@ def split_and_update(
     )
 
     occupied = counts > 0
-    bg_near = ball_pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
+    if cfg.compat_hascloseto_bounds:
+        # the reference's box [idx - ceil(r), idx + ceil(r)): at the shipped
+        # integer radius (3.0) the +3 axis-extreme offsets are not searched
+        bg_near = hascloseto_pool_any(bg_mask, radius)
+    else:
+        bg_near = ball_pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
     seed = occupied & bg_near
     labels, close, cc_converged, cc_iters = label_components_seeded(
         occupied, seed, radius, cfg.cc_sweeps

@@ -120,3 +120,4 @@ class StepDiagnostics:
     # port-only counters (the JAX diagnostics have no such fields)
     n_queries: Tensor  # int32 — explore queries (gated far voxels) this scan
     n_demoted: Tensor  # int32 — demotion writes this scan (overlaps count twice)
+    sep_sweeps: Tensor  # int32 — exact census: component sweeps run this scan (else 0)

@@ -1,7 +1,9 @@
 """The end-to-end step: scan -> (state, detections, diagnostics).
 
 PyTorch counterpart of vofod_tpu/pipeline/step.py ``make_step_fn`` for the
-production single-stream configuration (raw frontend, gated sweep raycast):
+single-stream configurations with the raw frontend: the production one
+(gated sweep raycast, default sepclusters) and the reference-exact one
+(exact DDA raycast, exact sepclusters census, the compat_* quirks):
 
   1. frontend: filter + transform + voxel binning       (K3)
   2. background sufficiency + close/far split            (K1, K2)
@@ -9,8 +11,9 @@ production single-stream configuration (raw frontend, gated sweep raycast):
   4. classification + floating check + demotions      (K6, K9, K7, K8)
   5. detection extraction                                (K10)
   6. every raycast_every steps: freespace raycast +
-     flag-guarded ray EMA update                   (K5a, K4, K5b)
-  7. every sepclusters_every steps: background maint. (K1, K2, K11)
+     flag-guarded ray EMA update         sweep: (K5a, K4, K5b); exact: (K12)
+  7. every sepclusters_every steps: background maint.
+                                   default: (K1, K2, K11); exact: (K13, K2)
 
 The JAX step branches on the device (lax.cond / switch / while_loop).  Here
 every branch predicate is a host value — the pause flags, the host pose's
@@ -31,9 +34,10 @@ import torch
 from torch.profiler import record_function
 
 from vofod_tpu_torch.config import DynParams, VoFODConfig
-from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.geometry import GridSpec, rotate, se3_apply
 from vofod_tpu_torch.ops.raycast import (
-    RayEma, gate_faces, make_angular_gate, ray_ema_plain, raycast_update_, row_table)
+    RayEma, gate_faces, make_angular_gate, ray_ema_grid_, ray_ema_plain, raycast_dda,
+    raycast_update_, row_table)
 from vofod_tpu_torch.pipeline.background import split_and_update
 from vofod_tpu_torch.pipeline.classify import classify
 from vofod_tpu_torch.pipeline.detect import extract_detections
@@ -45,9 +49,10 @@ from vofod_tpu_torch.pipeline.state import (
     StepDiagnostics,
     VoFODState,
 )
-from vofod_tpu_torch.sensor import XyzLut
+from vofod_tpu_torch.sensor import RANGE_TO_METERS, XyzLut
 
 Tensor = torch.Tensor
+RAYCAST_MODES = ("sweep", "exact", "off")
 
 
 @dataclass
@@ -75,8 +80,28 @@ def ray_update(
 ) -> Tensor:
     """Flag-guarded EMA toward the ray score on a raylen field (both
     reference update rules, vofod_nodelet.cpp:1550-1601) — the plain EMA of
-    K5b; the step applies it on the sweep window only."""
+    K5b and K12; the step applies it through the kernels (K5b on the sweep
+    window, K12's second pass on the exact mode's full grid)."""
     return ray_ema_plain(grid_vals, raylen, had_point, ray_ema(cfg, dyn, its_diff))
+
+
+def exact_rays(cfg: VoFODConfig, dyn: DynParams, grid: GridSpec, lut_dirs: Tensor,
+               lut_offs: Tensor, mask: Tensor, r: Tensor, intensity: Tensor,
+               pose: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The exact mode's rays (vofod_tpu step.py:275-299): (starts, world
+    directions, lengths, valid) of the pixels, from the ranges ``r`` in
+    metres, the intensities, the FOV mask and the [4, 4] pose."""
+    # hostile-float contract (tests/test_hostile_inputs.py): NaN and negative
+    # ranges are no-returns, +inf a return past any operation area
+    r = torch.where(torch.isnan(r) | (r < 0.0), 0.0, torch.clamp(r, max=4.0e6))
+    dirs_w = rotate(pose[:3, :3], lut_dirs)
+    starts = se3_apply(pose, lut_offs)
+    max_d = float(np.float32(dyn.raycast_max_distance))
+    lengths = torch.where(r == 0.0, max_d, torch.clamp(r - float(cfg.voxel_size), max=max_d))
+    # the negated gate (ref :1449-1450): NaN intensity passes
+    valid = (~(intensity < dyn.raycast_min_intensity) & (mask | (r > 0))
+             & grid.in_limits(starts))
+    return starts, dirs_w, lengths, valid
 
 
 def make_step_fn(
@@ -89,26 +114,26 @@ def make_step_fn(
     mask=None,
     frontend_mode: str = "raw",
 ) -> Callable[[VoFODState, ScanInput, DynParams], tuple[VoFODState, StepOutput]]:
-    """Build the step for ``device``: the gated sweep raycast and the raw
-    frontend, raycast every scan.  The other modes of the JAX step ("exact"
-    or "off" raycast, "prebinned" ingest, dynamic radii, the compat_* parity
-    flags, the exact sepclusters census, sequential explore) are not ported
-    yet and raise NotImplementedError.
+    """Build the step for ``device`` with the raw frontend.
+    raycast_mode: "sweep" (the gated transmittance sweep, production),
+      "exact" (per-ray DDA, the reference's traversal) or "off".
     raycast_every: apply the freespace update on the steps with
       ``step % N == N - 1`` only, with its_diff = N (the reference's raycast
       thread skips scans under load and compensates so, ref :1540-1548).
-    mask: optional uint8/bool [H*W] FOV mask (1 = usable) for the gate.
+    mask: optional uint8/bool [H*W] FOV mask (1 = usable) for the ray gate.
+    The config's exact-census and compat_hascloseto_bounds /
+    compat_counted_indexing modes are ported; "prebinned" ingest, dynamic
+    radii, compat_rangefinder_validity and sequential explore are not yet
+    and raise NotImplementedError.
     """
-    if raycast_mode != "sweep":
-        raise NotImplementedError(f"raycast_mode={raycast_mode!r} is not ported yet")
+    if raycast_mode not in RAYCAST_MODES:
+        raise ValueError(f"unknown raycast_mode {raycast_mode!r}, expected one of {RAYCAST_MODES}")
     if frontend_mode != "raw":
         raise NotImplementedError(f"frontend_mode={frontend_mode!r} is not ported yet")
     if raycast_every < 1:
         raise ValueError(f"raycast_every must be >= 1, got {raycast_every}")
     unported = [
-        f for f in ("dynamic_radii", "compat_hascloseto_bounds", "compat_counted_indexing",
-                    "compat_rangefinder_validity", "sepclusters_exact_census",
-                    "sequential_explore")
+        f for f in ("dynamic_radii", "compat_rangefinder_validity", "sequential_explore")
         if getattr(cfg, f)
     ]
     if unported:
@@ -123,23 +148,33 @@ def make_step_fn(
         if mask is not None
         else torch.ones(cfg.sensor.n_points, dtype=torch.bool, device=device)
     )
-    gate_spec = make_angular_gate(lut)
-    face_dirs = torch.as_tensor(gate_spec.face_dirs.reshape(-1, 3), device=device)
-    rows = row_table(gate_spec, device)
+    if raycast_mode == "sweep":  # the exact DDA takes the pixel gates per ray
+        gate_spec = make_angular_gate(lut)
+        face_dirs = torch.as_tensor(gate_spec.face_dirs.reshape(-1, 3), device=device)
+        rows = row_table(gate_spec, device)
+    zero_i32 = torch.zeros((), dtype=torch.int32, device=device)
 
     def ray_stage(scan: ScanInput, pose: Tensor, dyn: DynParams, step_idx: int,
                   vals: Tensor, occupied: Tensor, blockers: Tensor) -> Tensor:
-        """Stage 6: freespace raycast + flag-guarded ray EMA update (K5a,
-        K4, K5b), in place on ``vals``: the step passes classify's output
-        grid, a fresh tensor of this step that detect has already read (in
-        stream order) and nothing reads after, as the JAX step donates it."""
+        """Stage 6: freespace raycast + flag-guarded ray EMA update, in
+        place on ``vals`` (sweep: K5a, K4, K5b; exact: K12's walk and EMA):
+        the step passes classify's output grid, a fresh tensor of this step
+        that detect has already read (in stream order) and nothing reads
+        after, as the JAX step donates it."""
+        if raycast_mode == "off":
+            return vals
         sensor_pos = scan.pose[:3, 3]
         if dyn.raycast_pause or not grid.in_limits_host(sensor_pos):
             return vals
         if step_idx % raycast_every != raycast_every - 1:
             return vals
+        r = scan.ranges_mm * RANGE_TO_METERS
+        if raycast_mode == "exact":
+            rays = exact_rays(cfg, dyn, grid, lut_dirs, lut_offs, mask_dev, r, scan.intensity,
+                              pose)
+            raylen = raycast_dda(grid, *rays, cfg.raycast_max_distance_bound)
+            return ray_ema_grid_(vals, occupied, raylen, ray_ema(cfg, dyn, float(raycast_every)))
         rot = pose[:3, :3]
-        r = scan.ranges_mm * 0.001
         # ref :1449-1450: skip when intensity < min, or masked with no
         # return (NaN intensity passes, as in the reference)
         active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
@@ -181,12 +216,15 @@ def make_step_fn(
             vals = ray_stage(scan, pose, dyn, step_idx, cls.grid, bg.occupied, fe.blockers)
         safe, sure_bg = state.safe, state.sure_bg_sufficient
         sep_conv = torch.ones((), dtype=torch.bool, device=device)
+        sep_sweeps = zero_i32
         if step_idx % cfg.sepclusters_every == 0 and not dyn.sepclusters_pause:
             with record_function("vofod.sepclusters"):
                 sep = run_sepclusters(
                     cfg, dyn, vals, safe, float(cfg.sepclusters_every), prev_sure=sure_bg
                 )
             vals, safe, sure_bg, sep_conv = sep.grid, sep.safe, sep.sure_bg_sufficient, sep.converged
+            if sep.label_sweeps is not None:
+                sep_sweeps = sep.label_sweeps
 
         diag = StepDiagnostics(
             n_bg_voxels=bg.n_bg_voxels,
@@ -201,6 +239,7 @@ def make_step_fn(
             n_detections=dets.valid.sum().to(torch.int32),
             n_queries=cls.n_queries,
             n_demoted=cls.n_demoted,
+            sep_sweeps=sep_sweeps,
         )
         state.grid = vals
         state.safe = safe

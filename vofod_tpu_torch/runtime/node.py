@@ -28,7 +28,7 @@ from vofod_tpu_torch.sensor import XyzLut, load_mask, make_lut
 
 @dataclass
 class NodeOptions:
-    raycast_mode: str = "sweep"  # the only mode ported so far
+    raycast_mode: str = "sweep"  # "sweep" (production), "exact" (per-ray DDA) or "off"
     raycast_every: int = 1  # freespace update every N scans, its_diff = N
     world_frame_id: str = "world"
     throttle_period: float = 1.0
