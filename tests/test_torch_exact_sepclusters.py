@@ -8,8 +8,9 @@ bit-equal (measured: bit-equal):
 * ``hascloseto_pool_any`` (the compat box as a K1 tap set) at r = 3.0
   (integer: the +3 axis extremes are missing) and r = 1.6;
 * ``label_components`` run to convergence (K2 with gated launches): labels
-  and ``converged``, in a converged case and in one that hits the cap, and
-  the sweep count the JAX while_loop runs;
+  and ``converged``, in a converged case, in one that hits the cap and in
+  one whose first sweep is already the fixpoint, and the sweep count the
+  JAX while_loop runs;
 * ``label_census`` (K13a) against ``DenseOps.label_census`` at leaf size 1
   and 2;
 * ``_quirk_sure_counts`` (K13b) at leaf size 1, 2 and 3;
@@ -92,17 +93,20 @@ def _serpentine(shape):
     return occ
 
 
-@pytest.mark.parametrize("case", ["converged", "capped"])
+@pytest.mark.parametrize("case", ["converged", "capped", "isolated"])
 def test_label_components_bit_equal(case):
     rng = np.random.default_rng(3)
     if case == "converged":
         occ, radius, cap = rng.random(SHAPE) < 0.2, 2.0, 128
-    else:
+    elif case == "capped":
         occ, radius, cap = _serpentine(SHAPE), 2.0, 6
+    else:  # voxels 3 apart: sweep 0 is already the fixpoint (an even cap)
+        occ, radius, cap = np.zeros(SHAPE, bool), 2.0, 128
+        occ[::3, ::3, ::3] = True
     jl, jc = j_label_components(jnp.asarray(occ), radius, cap)
     tl, tc, sweeps = label_components(torch.from_numpy(occ), radius, cap)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
-    assert bool(tc) == bool(jc) == (case == "converged")
+    assert bool(tc) == bool(jc) == (case != "capped")
     # the while_loop's sweep count (its body, eagerly): one past the last
     # sweep that changed something, or the cap
     flat = jnp.arange(occ.size, dtype=jnp.int32).reshape(occ.shape)
@@ -114,7 +118,9 @@ def test_label_components_bit_equal(case):
             break
         lab = new
     assert int(sweeps) == n
-    assert (int(sweeps) < cap) == (case == "converged")
+    assert (int(sweeps) < cap) == (case != "capped")
+    if case == "isolated":
+        assert n == 1
 
 
 @pytest.mark.parametrize("lsz", [1, 2])

@@ -16,10 +16,10 @@
 // packed into one 64-bit scan (high word: rank, low word: sure count), a
 // scatter u[rank] = t at the bg voxels, then an exclusive prefix of the
 // coarse bg counts in cell order (x fastest) and, per cell,
-// quirk = u[first + count] - u[first].  Each prefix sum has K6's structure
-// (csrc/compact.cu): a count pass of block totals over CHUNK = 4096
-// elements, one block that scans the totals, and a write pass that rescans
-// each block.
+// quirk = u[first + count] - u[first].  Each prefix sum is K6's device-wide
+// scan (common.cuh block_excl_scan / scan_block_totals): a count pass of
+// block totals over CHUNK = 4096 elements, one block that scans the totals,
+// and a write pass that rescans each block.
 //
 // Bound on the H100: memory.  K13a moves the label, count and occupancy
 // grids (~22 MB at the flagship) and scatters at most one atomic per
@@ -127,28 +127,6 @@ __device__ __forceinline__ u64 element(const QuirkGrid& q, long long i) {
   return PASS == 0 ? export_pair(q, i) : coarse_count(q, i);
 }
 
-// exclusive block-wide prefix of v; the block total through *total
-__device__ __forceinline__ u64 block_excl_scan(u64 v, u64* warp_s, u64* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  u64 incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const u64 u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) warp_s[warp] = incl;
-  __syncthreads();
-  u64 before = 0, all = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    const u64 s = warp_s[w];
-    if (w < warp) before += s;
-    all += s;
-  }
-  __syncthreads();
-  *total = all;
-  return before + incl - v;
-}
-
 template <int PASS>
 __global__ void __launch_bounds__(CT) quirk_count_kernel(QuirkGrid q, long long n,
                                                          u64* __restrict__ block_tot) {
@@ -158,21 +136,14 @@ __global__ void __launch_bounds__(CT) quirk_count_kernel(QuirkGrid q, long long 
   for (int j = 0; j < PER_THREAD; ++j)
     if (first + j < n) s += element<PASS>(q, first + j);
   u64 total;
-  block_excl_scan(s, warp_s, &total);
+  block_excl_scan<u64>(s, warp_s, &total);
   if (threadIdx.x == 0) block_tot[blockIdx.x] = total;
 }
 
 __global__ void __launch_bounds__(SCAN_T) quirk_scan_kernel(const u64* __restrict__ block_tot,
                                                             u64* __restrict__ block_off, int nb) {
   __shared__ u64 warp_s[SCAN_T / 32];
-  u64 carry = 0;
-  for (int base = 0; base < nb; base += SCAN_T) {
-    const int i = base + threadIdx.x;
-    u64 tile;
-    const u64 excl = block_excl_scan(i < nb ? block_tot[i] : 0, warp_s, &tile);
-    if (i < nb) block_off[i] = carry + excl;
-    carry += tile;
-  }
+  scan_block_totals<u64>(block_tot, block_off, nb, warp_s);
 }
 
 // PASS 0: u[rank] = t at every bg voxel (inclusive prefixes in export
@@ -192,7 +163,7 @@ __global__ void __launch_bounds__(CT) quirk_write_kernel(QuirkGrid q, long long 
     s += vals[j];
   }
   u64 total;
-  u64 run = block_off[blockIdx.x] + block_excl_scan(s, warp_s, &total);
+  u64 run = block_off[blockIdx.x] + block_excl_scan<u64>(s, warp_s, &total);
 #pragma unroll
   for (int j = 0; j < PER_THREAD; ++j) {
     if (first + j >= n) break;

@@ -76,3 +76,47 @@ inline dim3 tile_grid(int nz, int ny, int nx) {
   return dim3((nx + TILE_X - 1) / TILE_X, (ny + TILE_Y - 1) / TILE_Y,
               (nz + TILE_Z - 1) / TILE_Z);
 }
+
+// Exclusive block-wide prefix sum of v (blockDim.x a multiple of 32, at most
+// 1024 threads); the block total through *total.  warp_s: shared memory of
+// blockDim.x / 32 elements.  The device-wide scans of K6 (csrc/compact.cu)
+// and K13b (csrc/census.cu) are built from it: a count pass of block
+// totals, one block that scans them (scan_block_totals), a write pass that
+// rescans each block from its offset.
+template <typename T>
+__device__ __forceinline__ T block_excl_scan(T v, T* warp_s, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_s[warp] = incl;
+  __syncthreads();
+  T before = 0, all = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const T s = warp_s[w];
+    if (w < warp) before += s;
+    all += s;
+  }
+  __syncthreads();
+  *total = all;
+  return before + incl - v;
+}
+
+// Exclusive prefix of the nb block totals into block_off, by one block;
+// returns the grand total to every thread.
+template <typename T>
+__device__ __forceinline__ T scan_block_totals(const T* __restrict__ block_tot,
+                                               T* __restrict__ block_off, int nb, T* warp_s) {
+  T carry = 0;
+  for (int base = 0; base < nb; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    T tile;
+    const T excl = block_excl_scan<T>(i < nb ? block_tot[i] : (T)0, warp_s, &tile);
+    if (i < nb) block_off[i] = carry + excl;
+    carry += tile;
+  }
+  return carry;
+}

@@ -64,29 +64,6 @@ __device__ __forceinline__ unsigned thread_bits(const Pred& p, const int32_t* se
   return bits;
 }
 
-// Exclusive block-wide prefix sum of v (CT threads); returns the block total
-// through *total.
-__device__ __forceinline__ int block_excl_scan(int v, int* warp_s, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) warp_s[warp] = incl;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-    const int s = warp_s[w];
-    if (w < warp) before += s;
-    all += s;
-  }
-  __syncthreads();
-  *total = all;
-  return before + incl - v;
-}
-
 __global__ void __launch_bounds__(CT) count_kernel(Pred p, int* __restrict__ block_tot) {
   __shared__ int32_t sel_s[MAX_SEL];
   __shared__ int warp_s[CT / 32];
@@ -94,7 +71,7 @@ __global__ void __launch_bounds__(CT) count_kernel(Pred p, int* __restrict__ blo
   const long long first = (long long)blockIdx.x * CHUNK + (long long)threadIdx.x * PER_THREAD;
   const int c = __popc(thread_bits(p, sel_s, first));
   int total;
-  block_excl_scan(c, warp_s, &total);
+  block_excl_scan<int>(c, warp_s, &total);
   if (threadIdx.x == 0) block_tot[blockIdx.x] = total;
 }
 
@@ -102,15 +79,7 @@ __global__ void __launch_bounds__(SCAN_T) scan_kernel(
     const int* __restrict__ block_tot, int* __restrict__ block_off, int nb, int cap,
     int* __restrict__ ids, uint8_t* __restrict__ valid, int* __restrict__ total_out) {
   __shared__ int warp_s[SCAN_T / 32];
-  int carry = 0;
-  for (int base = 0; base < nb; base += SCAN_T) {
-    const int i = base + threadIdx.x;
-    const int v = i < nb ? block_tot[i] : 0;
-    int tile;
-    const int excl = block_excl_scan(v, warp_s, &tile);
-    if (i < nb) block_off[i] = carry + excl;
-    carry += tile;
-  }
+  const int carry = scan_block_totals<int>(block_tot, block_off, nb, warp_s);
   if (threadIdx.x == 0) *total_out = carry;
   for (int q = threadIdx.x; q < cap; q += SCAN_T) {
     valid[q] = q < carry ? 1 : 0;
@@ -128,7 +97,7 @@ __global__ void __launch_bounds__(CT) write_kernel(
   const long long first = (long long)blockIdx.x * CHUNK + (long long)threadIdx.x * PER_THREAD;
   unsigned bits = thread_bits(p, sel_s, first);
   int total;
-  int rank = off + block_excl_scan(__popc(bits), warp_s, &total);
+  int rank = off + block_excl_scan<int>(__popc(bits), warp_s, &total);
   while (bits != 0 && rank < cap) {
     const int j = __ffs(bits) - 1;
     ids[rank++] = (int)(first + j);

@@ -9,8 +9,9 @@
 // Bound on the H100: the scattered adds.  One thread walks one ray (131,072
 // rays x at most ceil(20 m / 0.5 m * sqrt 3) + 3 = 73 steps at the
 // flagship) with the ray's state in registers; each step with a nonzero
-// chord is one atomicAdd into the zeroed full-grid raylen buffer (9.9 MB,
-// mostly L2-resident).  A thread stops at the first step where its ray is
+// chord is one float64 atomicAdd into a zeroed full-grid accumulator (19.8
+// MB, mostly L2-resident), which a second pass rounds to the float32 raylen
+// grid.  A thread stops at the first step where its ray is
 // dead, so no zero-weight emission is ever issued, and the emission stream
 // is never stored (the JAX form materialises R x n_steps ids and weights).
 // The full grid is used, not a window: lengths follow the live-tunable
@@ -18,10 +19,16 @@
 //
 // Arithmetic: every float op as the JAX function rounds it (no FMA
 // contraction: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn), the argmin
-// tie-break x, then y, then z, and a select on zero-direction axes.  Float
-// atomics add in another order than the sequential scatter of the plain
-// version, so raylen agrees with it to a few float32 ulps per addend, not
-// bit for bit; the set of nonzero voxels is the same.
+// tie-break x, then y, then z, and a select on zero-direction axes.  The
+// chords are those of the plain version; their sum is not.  The JAX scatter
+// (and the plain version) adds each voxel's chords in float32 in (step, ray)
+// order, and the voxel holding the sensor sums ~all 131,072 rays' first
+// chords to ~34 km, so its own rounding reaches ~1e-4 relative.  Float32
+// atomics would add another order-dependent error of the same size that
+// changes from run to run.  Float64 atomics keep each voxel's sum exact to
+// ~1e-11 whatever the order, so raylen is the correctly rounded sum of the
+// chords (within one float32 ulp where the sum lies on a rounding midpoint),
+// and it differs from the sequential sum by that sum's own rounding only.
 #include "common.cuh"
 
 namespace {
@@ -47,7 +54,7 @@ __device__ __forceinline__ int to_i32(float f) {
 __global__ void __launch_bounds__(DDA_T)
     dda_kernel(const float* __restrict__ starts, const float* __restrict__ dirs,
                const float* __restrict__ lengths, const uint8_t* __restrict__ valid, int n_rays,
-               DdaGrid g, float* __restrict__ raylen) {
+               DdaGrid g, double* __restrict__ acc) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const float L = lengths[r];
@@ -84,7 +91,7 @@ __global__ void __launch_bounds__(DDA_T)
     if (ddist > 0.0f) {
       // the JAX scatter drops ids outside the grid (mode="drop")
       const long long fid = ((long long)cur[2] * g.ny + cur[1]) * g.nx + cur[0];
-      if (fid >= 0 && fid < (long long)g.nx * g.ny * g.nz) atomicAdd(raylen + fid, ddist);
+      if (fid >= 0 && fid < (long long)g.nx * g.ny * g.nz) atomicAdd(acc + fid, (double)ddist);
     }
     const bool at_edge = cur[axis] == last[axis];
     if (!(dist < L) || at_edge) return;  // dead: every later emission is 0
@@ -94,25 +101,37 @@ __global__ void __launch_bounds__(DDA_T)
   }
 }
 
+__global__ void __launch_bounds__(256)
+    round_kernel(const double* __restrict__ acc, long long n, float* __restrict__ raylen) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) raylen[i] = __double2float_rn(acc[i]);
+}
+
 }  // namespace
 
 // starts, dirs: device f32 [n_rays, 3] (x, y, z); lengths f32 [n_rays];
 // valid bool [n_rays] (the step gates on in_limits(starts), so a valid ray
 // starts inside the grid and dies at its edge).  floats: host f32 [ox, oy, oz, vs, inv,
-// vs / 2]; ints: host int32 [nx, ny, nz, n_steps].  raylen: device f32
-// grid, zeroed by the caller, accumulated into.  Returns cudaGetLastError().
+// vs / 2]; ints: host int32 [nx, ny, nz, n_steps].  acc: device f64 grid,
+// zeroed by the caller, accumulated into; raylen: device f32 grid, written
+// (acc rounded to nearest).  Returns cudaGetLastError().
 VOFOD_API int vofod_dda(const void* starts, const void* dirs, const void* lengths,
                         const void* valid, int n_rays, const float* floats, const int* ints,
-                        void* raylen, void* stream) {
+                        void* acc, void* raylen, void* stream) {
   if (n_rays <= 0) return (int)cudaErrorInvalidValue;
   DdaGrid g;
   g.ox = floats[0]; g.oy = floats[1]; g.oz = floats[2];
   g.vs = floats[3]; g.inv = floats[4]; g.half_vs = floats[5];
   g.nx = ints[0]; g.ny = ints[1]; g.nz = ints[2]; g.n_steps = ints[3];
   if (g.nx < 1 || g.ny < 1 || g.nz < 1 || g.n_steps < 1) return (int)cudaErrorInvalidValue;
-  dda_kernel<<<(n_rays + DDA_T - 1) / DDA_T, DDA_T, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* a = static_cast<double*>(acc);
+  dda_kernel<<<(n_rays + DDA_T - 1) / DDA_T, DDA_T, 0, s>>>(
       static_cast<const float*>(starts), static_cast<const float*>(dirs),
-      static_cast<const float*>(lengths), static_cast<const uint8_t*>(valid), n_rays, g,
-      static_cast<float*>(raylen));
+      static_cast<const float*>(lengths), static_cast<const uint8_t*>(valid), n_rays, g, a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long nv = (long long)g.nx * g.ny * g.nz;
+  round_kernel<<<(unsigned int)((nv + 255) / 256), 256, 0, s>>>(a, nv, static_cast<float*>(raylen));
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,9 @@
 // launch is also given the previous sweep's device flag: when it is 0 every
 // block exits at once, so the host enqueues the cap's worth of sweeps with
 // no sync.  The sweep that changed nothing wrote B equal to A, so both
-// ping-pong buffers hold the fixpoint and the skipped launches lose nothing.
+// ping-pong buffers hold the fixpoint and the skipped launches lose nothing;
+// when that is sweep 0, only the first buffer was written, so the wrapper
+// starts the second as a copy of the initial labels.
 #include "common.cuh"
 
 namespace {

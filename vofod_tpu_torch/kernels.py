@@ -160,7 +160,7 @@ def load():
         lib.vofod_detect.argtypes = [_P] * 20
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
         lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
-        lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P]
+        lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
         lib.vofod_ray_ema.argtypes = [_P, _P, _P, _LL, _P, _I, _P, _P]
         lib.vofod_label_census.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P, _P]
         lib.vofod_quirk_counts.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
@@ -609,9 +609,9 @@ def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
 
 def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
         shape: tuple[int, int, int], floats: np.ndarray, n_steps: int) -> torch.Tensor:
-    """K12 walk: the f32 raylen grid ``shape`` of the rays' DDA chords.
-    floats: the f32 grid constants (ox, oy, oz, vs, 1/vs, vs/2) of
-    ops/raycast.py ``_dda_consts``."""
+    """K12 walk: the f32 raylen grid ``shape`` of the rays' DDA chords,
+    summed in float64 and rounded once.  floats: the f32 grid constants (ox,
+    oy, oz, vs, 1/vs, vs/2) of ops/raycast.py ``_dda_consts``."""
     R = starts.shape[0]
     _require(starts, "dda starts", torch.float32, (R, 3))
     _require(dirs, "dda dirs", torch.float32, (R, 3))
@@ -622,9 +622,11 @@ def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: 
         raise ValueError(f"dda takes 6 float constants, got {fl[0].shape}")
     nz, ny, nx = shape
     ints = _host_i32(nx, ny, nz, n_steps)
-    raylen = torch.zeros(shape, dtype=torch.float32, device=starts.device)
+    acc = torch.zeros(shape, dtype=torch.float64, device=starts.device)
+    raylen = torch.empty(shape, dtype=torch.float32, device=starts.device)
     err = load().vofod_dda(starts.data_ptr(), dirs.data_ptr(), lengths.data_ptr(),
-                           valid.data_ptr(), R, fl[1], ints[1], raylen.data_ptr(), _stream())
+                           valid.data_ptr(), R, fl[1], ints[1], acc.data_ptr(),
+                           raylen.data_ptr(), _stream())
     _check(err, "vofod_dda")
     LAUNCHES["dda"] += 1
     return raylen

@@ -72,8 +72,11 @@ def sweeps(init: Tensor, occ: Tensor, radius: float, n: int,
         taps, halo = ball_taps(radius), int(math.floor(radius))
         occ8 = occ.contiguous().view(torch.uint8)
         changed = torch.zeros(n, dtype=torch.int32, device=init.device)
-        # ping-pong between two fresh buffers: the caller's ``init`` is read once
-        src, bufs = init.contiguous(), (torch.empty_like(init), torch.empty_like(init))
+        # ping-pong between two fresh buffers: the caller's ``init`` is read
+        # once.  Gated, the second starts as ``init``: when sweep 0 is already
+        # the fixpoint no later launch writes it, and it may be the one returned
+        src = init.contiguous()
+        bufs = (torch.empty_like(src), src.clone() if until_fixpoint else torch.empty_like(src))
         for i in range(n):
             dst = bufs[i % 2]
             prev = changed[i - 1] if until_fixpoint and i > 0 else None

@@ -685,6 +685,9 @@ def raycast_dda(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor, v
                 max_length: float) -> Tensor:
     """Exact Amanatides–Woo accumulation (ref voxel_map.cpp:229-263): the
     float32 (nz, ny, nx) field of every ray's chord length per voxel (K12).
+    The kernel sums each voxel's chords in float64 and rounds once; the
+    plain version adds them in float32 in the JAX scatter's order, whose own
+    rounding is ~1e-4 relative where ~all rays start in one voxel.
 
     starts, dirs: [R, 3] world ray starts (inside the grid where ``valid``)
     and unit directions; lengths: [R] traversal lengths; valid: [R] ray
