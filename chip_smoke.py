@@ -7,7 +7,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 0. require CUDA; print the card's name and power limit (nvidia-smi) and
    pin float32 matmuls and convolutions to full precision (no TF32);
-1. build the CUDA kernels from csrc/ and print the build time;
+1. build the CUDA kernels from csrc/ and, beside them, the native host
+   binner (native/*.cpp, g++); print the build time;
 2. hold each kernel against its plain PyTorch version on the card, on
    inputs taken from a real flagship scan (OS0-128, 241x201x51 grid): K1-K3
    bit-equal, K4 within one bf16 ulp at 1.0; CUDA-event times of both.
@@ -40,7 +41,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    random field that converges, isolated voxels whose first sweep is the
    fixpoint, a serpentine corridor where the 128-sweep cap binds), K13b (the
    scan's grids, random fields at leaf sizes 1 and 2), K13a and K13c
-   (sure_sufficient True and False) bit-equal;
+   (sure_sufficient True and False) bit-equal.  The prebinned ingest on a
+   flagship scan: K15a bit-equal to its plain version on the native
+   binner's packed grid, whose counts (clamped to 63) and blockers are
+   bit-equal to K3's and the raw frontend's; the host bin's p50/p95 over
+   the cycle and the packed upload's time.  The stencils past 256 taps:
+   K1 at radius 4, 5, 6 and 7.99 (257 to 2,103 taps, int32 tiles past 48 KB
+   of shared memory from halo 6), K2 at 4, 5 and 7.99, K11's demotion at 4,
+   5 and 7.99, and K14's shell pools at the dynamic path's tap sets, all
+   bit-equal;
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
    tests/test_golden.py assertions and that the sweep path's thirteen
    kernels launched;
@@ -56,14 +65,24 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    1 host sync per scan, a finite grid, ``bg_sufficient``, every kernel of
    the path launched (K12's walk and EMA, K13a-c, K10 and the point EMA
    once per scan) and none of the sweep path's own; step p50/p95, label
-   sweeps per scan, ``sep_converged`` and detections;
-5. a torch.profiler trace of 5 flagship scans of each path: device time per
+   sweeps per scan, ``sep_converged`` and detections.  Then the prebinned
+   ingest, ``NodeOptions(frontend_mode="prebinned")``, and a raw node over
+   the same 36 scans in one process: bit-equal scan for scan, K15a once per
+   prebinned scan and K3 never, 1 host sync per scan, step p50/p95 of both;
+   the ``frontend_mode="auto"`` probe's choice and numbers; and
+   ``cfg.dynamic_radii`` (bounds 2.0 / 2.0 m) over 36 scans with the radii
+   changed every 12, each segment bit-equal to a static node at its radii
+   started from the same state, K14 launched, 1 host sync per scan and no
+   kernel rebuild; step p50/p95 per segment;
+5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
+   prebinned, dynamic radii at 2.0 / 1.9 m): device time per
    stage (the step's ``vofod.*`` ranges), the top device ops, the device
    ops (kernels and copies) launched per scan, matmul kernels and pads per
    scan, and the device's busy and idle share of the step.
 
 The line before the last is the per-kernel JSON record (launches from the
-path that runs each kernel, the sweep path first; bound_ms from the bytes
+path that runs each kernel: the sweep path, the prebinned path for K15a,
+the dynamic-radii path for K14, else the exact path; bound_ms from the bytes
 and operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -85,6 +104,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from vofod_tpu_torch import kernels  # noqa: E402
+from vofod_tpu_torch.io import native  # noqa: E402
+from vofod_tpu_torch.io.binner import HostBinner  # noqa: E402
 from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig  # noqa: E402
 from vofod_tpu_torch.geometry import GridSpec  # noqa: E402
 from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan  # noqa: E402
@@ -96,7 +117,8 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_floating, demote_floating_plain, explore, explore_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
-    ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, tap_pool_plain)
+    ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, shell_pool,
+    shell_taps, tap_pool_plain)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
     RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces, gate_faces_plain,
     dda_n_steps, make_angular_gate, ray_ema_grid_, ray_ema_plain, ray_window_update_,
@@ -111,7 +133,9 @@ from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
     pool_sum_coarse, quirk_sure_counts, quirk_sure_counts_plain)
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
-from vofod_tpu_torch.pipeline.frontend import frontend_bin, frontend_bin_plain  # noqa: E402
+from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
+    frontend_bin, frontend_bin_plain, run_frontend, unpack, unpack_plain)
+from vofod_tpu_torch.pipeline.state import VoFODState  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD  # noqa: E402
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
 
@@ -179,6 +203,8 @@ KERNEL_INFO = {
     "label_census": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/parallel/gridops.py:134"),
     "quirk_counts": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:211"),
     "exact_demote_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:301"),
+    "shell_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:147"),
+    "unpack": ("vofod_tpu_torch/csrc/unpack.cu", "vofod_tpu/pipeline/frontend.py:86"),
 }
 
 
@@ -248,11 +274,20 @@ def phase0() -> dict:
 
 
 def phase1() -> None:
+    """Build the kernel library (nvcc) and the native host binner (g++)
+    side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    so, log = kernels.build()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build)
+        so, log = kernels.build()
+        host_so = host.result()
     kernels.load()
+    native.load()
     info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    say("1-build", seconds=round(time.perf_counter() - t0, 3), library=so.name, ptxas=info)
+    say("1-build", seconds=round(time.perf_counter() - t0, 3), library=so.name,
+        host_library=host_so.name, ptxas=info)
 
 
 def phase2(lut) -> list[dict]:
@@ -389,6 +424,8 @@ def phase2(lut) -> list[dict]:
     results += phase2_classify(cfg, dyn, grid, vals, k3, node.state.bg_sufficient, pose)
     window = (x0, y0, rel_x, rel_y, rel_z)
     results += phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window)
+    results += phase2_ingest(cfg, grid, lut, scans, n_warm, k3, ranges, pose)
+    results += phase2_taps(cfg, grid, vals, occupied, node.state.safe)
     for r in results:
         say("2-kernel", **r)
     return results
@@ -908,6 +945,110 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     return out
 
 
+def phase2_ingest(cfg, grid, lut, scans, n_scan, k3, ranges, pose) -> list[dict]:
+    """K15a and the native host binner on a flagship scan: the unpack
+    bit-equal to its plain version, the binner's counts (clamped to 63) and
+    blockers bit-equal to K3's and the raw frontend's on the same scan; the
+    host bin's time over the cycle and the packed upload's."""
+    dev = ranges.device
+    r_np, pose_np = scans[n_scan]
+    hb = HostBinner(cfg, lut)
+    if not hb.native:
+        raise AssertionError("the host binner is not the native one")
+    b = hb.bin(r_np, pose_np)
+    packed = torch.as_tensor(b.packed, device=dev)
+    ku, pu = unpack(packed), unpack_plain(packed)
+    _equal(ku, pu, "K15a.counts K15a.blockers")
+    raw = run_frontend(cfg, grid, torch.as_tensor(lut.directions, device=dev),
+                       torch.as_tensor(lut.offsets, device=dev), ranges, pose)
+    _equal((ku[0], ku[1]), (k3[0].clamp(max=63), raw.blockers),
+           "binner-vs-K3.counts binner-vs-raw.blockers")
+    if not (b.n_valid_points == int(k3[1]) and b.n_exclude_hits == int(raw.n_exclude_hits)):
+        raise AssertionError(f"binner counts ({b.n_valid_points}, {b.n_exclude_hits}) differ "
+                             f"from the raw frontend's ({int(k3[1])}, {int(raw.n_exclude_hits)})")
+    bin_ms = []
+    for r, p in scans:
+        t0 = time.perf_counter()
+        hb.bin(r, p)
+        bin_ms.append((time.perf_counter() - t0) * 1e3)
+    staging = [torch.empty(n, dtype=dt, pin_memory=True) for n, dt in (
+        (grid.n_voxels, torch.uint8), (cfg.sensor.n_points, torch.uint8), (2, torch.int32))]
+    upload_ms = cuda_ms(lambda: [t.to(dev, non_blocking=True) for t in staging])
+    nv = grid.n_voxels
+    say("2-ingest", host_bin_ms_p50=float(np.percentile(bin_ms, 50)),
+        host_bin_ms_p95=float(np.percentile(bin_ms, 95)), host_bin_scans=len(bin_ms),
+        packed_upload_ms=upload_ms, packed_upload_bytes=nv + cfg.sensor.n_points + 8,
+        n_valid_points=b.n_valid_points, n_exclude_hits=b.n_exclude_hits,
+        clamped_voxels=int((k3[0] > 63).sum()), blocker_voxels=int(ku[1].sum()))
+    return [dict(
+        name="unpack", max_abs_err=0.0, ms=cuda_ms(lambda: unpack(packed)),
+        plain_ms=cuda_ms(lambda: unpack_plain(packed)),
+        bytes=nv * (1 + 4 + 1), ops=2 * nv,
+        library_ms=cuda_ms(lambda: (packed & 0x3F, packed >= 0x80)),
+        library_call="packed & 0x3F and packed >= 0x80 (two torch ops, uint8 counts)",
+        shapes=f"{grid.shape} uint8 -> int32 counts + bool blockers; bit-equal, and equal to "
+               f"K3 + the raw frontend on the same scan",
+    )]
+
+
+def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
+    """The stencil kernels past 256 taps (K1, K2, K11's demotion; halo 4, 5,
+    6 and 7, int32 tiles above 48 KB of shared memory from halo 6), and K14's
+    shell pools at the dynamic-radii path's tap sets, bit-equal to their
+    plain versions; K14's time beside K1's static pool on the same ball."""
+    dyn = DynParams()
+    dev = vals.device
+    bg = vals > dyn.thr_new_obstacles
+    sure = (vals > dyn.thr_sure_obstacles).to(torch.int32)
+    nv = grid.n_voxels
+    keys = torch.where(bg, torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape),
+                       SENTINEL)
+    cases = {}
+    for rad, a, op, fill in ((4.0, bg.to(torch.int8), "max", 0), (5.0, sure, "sum", 0),
+                             (6.0, keys, "max", -2**31), (7.99, keys, "min", SENTINEL)):
+        k, p = ball_pool(a, rad, op, fill), ball_pool_plain(a, rad, op, fill)
+        _equal((k,), (p,), f"K1[r{rad}].out")
+        cases[f"K1 {a.dtype} {op} r{rad} ({len(ball_taps(rad))} taps)"] = cuda_ms(
+            lambda: ball_pool(a, rad, op, fill), reps=5)
+    flat = torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape)
+    keys0 = torch.where(occupied, (nv - 1) - flat, SENTINEL)
+    reach0 = (bg & (sure > 0)).to(torch.uint8)
+    for rad, init, occ in ((4.0, keys0, occupied), (5.0, reach0, bg), (7.99, keys0, occupied)):
+        _equal(sweeps(init, occ, rad, 4), sweeps_plain(init, occ, rad, 4),
+               f"K2[r{rad}].grid K2[r{rad}].flags")
+        cases[f"K2 {init.dtype} r{rad} ({len(ball_taps(rad))} taps), per sweep"] = cuda_ms(
+            lambda: sweeps(init, occ, rad, 4), reps=3) / 4
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    for rad in (4.0, 5.0, 7.99):
+        _equal((demote_ema(vals, bg, safe, true, rad, 0.5, -500.0),),
+               (demote_ema_plain(vals, bg, safe, true, rad, 0.5, -500.0),), f"K11d[r{rad}].grid")
+        cases[f"K11 demotion r{rad} ({len(ball_taps(rad))} taps)"] = cuda_ms(
+            lambda: demote_ema(vals, bg, safe, true, rad, 0.5, -500.0), reps=5)
+    # K14 at the dynamic path's tap sets: bg_near at the 2 m bound (1.0 m:
+    # r² 4), the local-sure sum at bound 5 (1.9 m: r² 25, 515 taps; 0.8 m:
+    # r² 9), the demotion shells at bound 4 (0.8 m: r² 2.5600002)
+    shells = []
+    for bound, r2, a, op in ((4.0, 4.0, bg.to(torch.int8), "max"), (5.0, 25.0, sure, "sum"),
+                             (5.0, 9.0, sure, "sum"),
+                             (4.0, float(np.float32(1.6) * np.float32(1.6)), bg.to(torch.int8),
+                              "max")):
+        taps = shell_taps(bound, r2)
+        k, p = shell_pool(a, r2, bound, op, 0), tap_pool_plain(a, taps, op, 0)
+        _equal((k,), (p,), f"K14[b{bound} r2 {r2}].out")
+        shells.append(f"{a.dtype} {op} bound {bound} r2 {r2:.7g} ({len(taps)} taps)")
+    say("2-lifted-cap", ms=cases, k14_cases=shells)
+    k14_ms = cuda_ms(lambda: shell_pool(sure, 25.0, 5.0, "sum", 0))
+    return [dict(
+        name="shell_pool", max_abs_err=0.0, ms=k14_ms,
+        plain_ms=cuda_ms(lambda: tap_pool_plain(sure, shell_taps(5.0, 25.0), "sum", 0), reps=3),
+        bytes=2 * 4 * nv, ops=nv * len(shell_taps(5.0, 25.0)),
+        library_ms=cuda_ms(lambda: ball_pool(sure, 5.0, "sum", 0)),
+        library_call="K1's static pool on the same ball (int32 sum r5, 515 taps)",
+        shapes=f"{grid.shape} int32 sum, bound 5, r² 25 (1.9 m): 515 taps, halo 5; cases "
+               f"{shells} bit-equal",
+    )]
+
+
 def exact_config() -> VoFODConfig:
     """The reference-exact configuration at the flagship size."""
     return VoFODConfig(sepclusters_exact_census=True, compat_hascloseto_bounds=True,
@@ -1316,20 +1457,185 @@ def phase4_exact(lut) -> dict:
     return launches, out["step_ms_p50"]
 
 
+def _timed_scan(node, r, p, caught) -> tuple:
+    """One scan through ``node``: (message, CUDA-event ms from the enqueue to
+    the end of its work, host syncs it made, kernel launches it made)."""
+    kernels.reset_launch_counts()
+    before = len(caught)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pending = node.process_scan_async(r, None, p)
+    end.record()
+    msg = node.fetch_result(pending)
+    launches = kernels.launch_counts()
+    syncs = sum(1 for w in caught[before:] if "synchroniz" in str(w.message))
+    return msg, start.elapsed_time(end), syncs, launches
+
+
+def _same_scan(a, b, what: str) -> None:
+    """Two nodes' results of one scan bit-equal: grid, carried state, the
+    diagnostics and the detection messages."""
+    for f in ("grid", "safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
+        if not torch.equal(getattr(a[0].state, f), getattr(b[0].state, f)):
+            raise AssertionError(f"{what}: state.{f} differs")
+    for f in dataclasses.fields(a[0].last_diag):
+        if not np.array_equal(getattr(a[0].last_diag, f.name), getattr(b[0].last_diag, f.name)):
+            raise AssertionError(f"{what}: diag.{f.name} differs")
+    if a[1].detections != b[1].detections:
+        raise AssertionError(f"{what}: detections differ")
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase4_prebinned(lut) -> dict:
+    """The prebinned serving ingest at the flagship size: a raw node and a
+    ``NodeOptions(frontend_mode="prebinned")`` node over the same 36 scans in
+    one process, held bit-equal scan for scan; K15a once per prebinned scan
+    and K3 never, 1 host sync per scan on both; step p50/p95 of each."""
+    cfg = VoFODConfig()
+    nodes = {m: VoFOD(cfg, DynParams(), NodeOptions(frontend_mode=m), lut, device="cuda")
+             for m in ("raw", "prebinned")}
+    pre = nodes["prebinned"]
+    if not (pre._binner is not None and pre._binner.native and pre._staging is not None):
+        raise AssertionError("the CUDA prebinned node does not bin natively into pinned staging")
+    for n in nodes.values():
+        n.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, N_SCANS)
+    torch.cuda.synchronize()
+    ms = {m: [] for m in nodes}
+    syncs = {m: [] for m in nodes}
+    launches = {m: {} for m in nodes}
+    host_ms, n_dets = [], 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k, (r, p) in enumerate(scans):
+            out = {}
+            for m, node in nodes.items():
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    msg, t, s_, ln = _timed_scan(node, r, p, caught)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if m == "prebinned":
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                out[m] = (node, msg)
+                ms[m].append(t)
+                syncs[m].append(s_)
+                _add(launches[m], ln)
+            _same_scan(out["prebinned"], out["raw"], f"prebinned vs raw, scan {k}")
+            n_dets += len(out["raw"][1].detections)
+    lp, lr = launches["prebinned"], launches["raw"]
+    assert lp.get("unpack", 0) == N_SCANS and lp.get("frontend_bin", 0) == 0, lp
+    assert lr.get("frontend_bin", 0) == N_SCANS and lr.get("unpack", 0) == 0, lr
+    assert max(syncs["prebinned"]) <= 1 and max(syncs["raw"]) <= 1, syncs
+    assert bool(pre.last_diag.bg_sufficient), "background never became sufficient"
+    out = dict(
+        scans=N_SCANS, bit_equal_to_raw=True, detections_total=n_dets,
+        step_ms_p50={m: float(np.percentile(v, 50)) for m, v in ms.items()},
+        step_ms_p95={m: float(np.percentile(v, 95)) for m, v in ms.items()},
+        step_ms_all={m: [round(x, 3) for x in v] for m, v in ms.items()},
+        prebinned_host_ms_p50=float(np.percentile(host_ms, 50)),
+        host_syncs_per_scan={m: float(np.mean(v)) for m, v in syncs.items()},
+        launches_prebinned=lp, launches_raw=lr,
+    )
+    say("4-prebinned", **out)
+    return lp, out["step_ms_p50"]["prebinned"]
+
+
+def phase4_auto(lut) -> None:
+    """``NodeOptions(frontend_mode="auto")`` on the flagship config: the
+    probe's choice and every number it measured."""
+    node = VoFOD(VoFODConfig(), DynParams(), NodeOptions(frontend_mode="auto"), lut,
+                 device="cuda")
+    mode = node.options.frontend_mode
+    assert mode in ("raw", "prebinned") and (node._binner is not None) == (mode == "prebinned")
+    say("4-auto", chose=mode, probe=node.ingest_probe)
+
+
+DYN_SEGMENTS = ((1.5, 0.8), (1.0, 1.4), (2.0, 1.9))  # (ground_points, sepclusters) m
+
+
+def phase4_dynamic(lut) -> dict:
+    """``cfg.dynamic_radii`` at the flagship size (bounds 2.0 / 2.0 m): the
+    radii change every 12 scans, each 12-scan segment held bit-equal to a
+    static node at those radii started from the same state; 1 host sync per
+    scan, K14 launched, no kernel rebuild when the radii move."""
+    cfg = VoFODConfig(dynamic_radii=True, ground_points_max_distance_bound=2.0,
+                      sepclusters_max_bg_distance_bound=2.0)
+    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(apriori_ground())
+    lib, sos = kernels.load(), sorted(kernels._BUILD_DIR.glob("*.so"))
+    scans = scan_cycle(lut, N_SCANS)
+    seg_len = N_SCANS // len(DYN_SEGMENTS)
+    torch.cuda.synchronize()
+    launches, segments, syncs = {}, [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i, (g, sep) in enumerate(DYN_SEGMENTS):
+            node.update_params(ground_points_max_distance=g, sepclusters_max_bg_distance=sep)
+            static = VoFOD(dataclasses.replace(cfg, dynamic_radii=False,
+                                               ground_points_max_distance=g,
+                                               sepclusters_max_bg_distance=sep),
+                           node.dyn, NodeOptions(), lut, device="cuda")
+            st = node.state
+            static.state = VoFODState(st.grid.clone(), st.safe.clone(), st.det_counter.clone(),
+                                      st.step, st.sure_bg_sufficient.clone(),
+                                      st.bg_sufficient.clone())
+            ms, dets = [], 0
+            for k in range(i * seg_len, (i + 1) * seg_len):
+                r, p = scans[k]
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    msg, t, s_, ln = _timed_scan(node, r, p, caught)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                ms.append(t)
+                syncs.append(s_)
+                _add(launches, ln)
+                smsg = static.process_scan(r, None, p)
+                _same_scan((node, msg), (static, smsg), f"dynamic vs static {g}/{sep} m, scan {k}")
+                dets += len(msg.detections)
+            segments.append(dict(ground_points_max_distance=g, sepclusters_max_bg_distance=sep,
+                                 step_ms_p50=float(np.percentile(ms, 50)),
+                                 step_ms_p95=float(np.percentile(ms, 95)), detections=dets))
+    rebuilt = kernels.load() is not lib or sorted(kernels._BUILD_DIR.glob("*.so")) != sos
+    assert not rebuilt, "the kernel library was rebuilt when the radii changed"
+    assert max(syncs) <= 1, f"host syncs per dynamic scan: {syncs}"
+    assert launches.get("shell_pool", 0) > 0, launches
+    assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
+    say("4-dynamic", scans=N_SCANS, segments=segments, bit_equal_to_static=True,
+        kernel_rebuilds=0, host_syncs_per_scan=float(np.mean(syncs)), launches=launches,
+        launches_per_scan={k: v / N_SCANS for k, v in launches.items() if v})
+    return launches, segments[-1]["step_ms_p50"]
+
+
 def _dev_us(e, self_only: bool) -> float:
     name = "self_device_time_total" if self_only else "device_time_total"
     legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
     return float(getattr(e, name, None) or getattr(e, legacy, 0.0))
 
 
-def phase5_profile(lut, step_ms_p50: float, n: int = 5, exact: bool = False) -> None:
+def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep") -> None:
     """Where the flagship step's device time goes (torch.profiler), on the
-    sweep path or the exact path."""
+    sweep, exact, prebinned or dynamic-radii path (the last at its heaviest
+    radii, 2.0 / 1.9 m)."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = exact_config() if exact else VoFODConfig()
-    opts = NodeOptions(raycast_mode="exact") if exact else NodeOptions()
+    cfg, opts = VoFODConfig(), NodeOptions()
+    if path == "exact":
+        cfg, opts = exact_config(), NodeOptions(raycast_mode="exact")
+    elif path == "prebinned":
+        opts = NodeOptions(frontend_mode="prebinned")
+    elif path == "dynamic":
+        cfg = VoFODConfig(dynamic_radii=True, ground_points_max_distance_bound=2.0,
+                          sepclusters_max_bg_distance_bound=2.0)
     node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
+    if path == "dynamic":
+        node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
     node.load_apriori_map(apriori_ground())
     scans = scan_cycle(lut, 6 + n)
     for r, p in scans[:6]:
@@ -1350,7 +1656,7 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, exact: bool = False) -> 
     # what K5 and K10 removed: the gate expansion's matmuls, detect's pads
     gemm = sum(e.count for e in dev_ops if any(w in e.key.lower() for w in ("gemm", "bmm")))
     pads = sum(e.count for e in ops if e.key == "aten::constant_pad_nd")
-    say("5-profile-exact" if exact else "5-profile", scans=n,
+    say("5-profile" if path == "sweep" else f"5-profile-{path}", scans=n,
         profiled_wall_ms_per_scan=round(wall_ms, 3),
         unprofiled_step_ms_p50=round(step_ms_p50, 3),
         device_busy_ms_per_scan=round(busy_ms, 3),
@@ -1372,14 +1678,21 @@ def main() -> int:
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
     exact_launches, exact_ms_p50 = phase4_exact(lut)
+    pre_launches, pre_ms_p50 = phase4_prebinned(lut)
+    phase4_auto(lut)
+    dyn_launches, dyn_ms_p50 = phase4_dynamic(lut)
     phase5_profile(lut, step_ms_p50)
-    phase5_profile(lut, exact_ms_p50, exact=True)
+    phase5_profile(lut, exact_ms_p50, path="exact")
+    phase5_profile(lut, pre_ms_p50, path="prebinned")
+    phase5_profile(lut, dyn_ms_p50, path="dynamic")
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]
-        # launches from the path that runs the kernel: the sweep path, else
-        # the exact path
-        n = launches[r["name"]] if r["name"] in SWEEP_KERNELS else exact_launches[r["name"]]
+        # launches from the path that runs the kernel: the sweep path, the
+        # prebinned (K15a) and dynamic-radii (K14) paths, else the exact path
+        n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
+             else {"unpack": pre_launches, "shell_pool": dyn_launches}.get(
+                 r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S
         record.append(dict(
             name=r["name"], route="cuda", source=src, replaces=replaces,

@@ -2,7 +2,7 @@
 
 The port cannot import vofod_tpu where it runs (importing any vofod_tpu
 module loads JAX), so it carries numpy copies of the config, sensor,
-scan-source and angular-gate code.  These tests hold each copy to its
+scan-source, angular-gate and host-binner code.  These tests hold each copy to its
 original, check that the port imports no JAX at all, and that asking for a
 CUDA device without one raises instead of running on the CPU.
 """
@@ -19,11 +19,13 @@ import torch
 
 from vofod_tpu import config as jcfg
 from vofod_tpu import sensor as jsensor
+from vofod_tpu.io import binner as jbinner
 from vofod_tpu.io import scan_source as jsrc
 from vofod_tpu.ops import raycast as jray
 from vofod_tpu_torch import config as tcfg
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch import sensor as tsensor
+from vofod_tpu_torch.io import binner as tbinner
 from vofod_tpu_torch.io import scan_source as tsrc
 from vofod_tpu_torch.ops import raycast as tray
 
@@ -145,6 +147,34 @@ def test_scan_source_copy_matches():
         assert np.array_equal(jsrc.render_scan(js, lut, jp), tsrc.render_scan(ts, lut, tp))
 
 
+@pytest.mark.parametrize("use_native", [True, False])
+def test_binner_copy_matches(use_native):
+    """The port's io/binner.py against vofod_tpu/io/binner.py: the same
+    packed grid, active mask and counts from the same scan (a float-range
+    scan with a NaN, a negative and an +inf return, an intensity gate and a
+    FOV mask), and the same ingest rule."""
+    jc = jcfg.VoFODConfig.from_dicts(DICTS["detection"], DICTS["sensor"], DICTS["apriori"])
+    tc = tcfg.VoFODConfig.from_dicts(DICTS["detection"], DICTS["sensor"], DICTS["apriori"])
+    lut = tsensor.make_lut(tc.sensor)
+    scene = tsrc.Scene(ground_z=-1.0)
+    scene.add_box((5.0, 3.0, -1.0), (7.0, 5.0, 3.0))
+    pose = tsrc.hover_pose((1.0, 2.0, 1.5), yaw=0.3)
+    r = tsrc.render_scan(scene, lut, pose).astype(np.float32)
+    r[:3] = (np.nan, -1.0, np.inf)
+    rng = np.random.default_rng(5)
+    inten = rng.random(r.size).astype(np.float32)
+    mask = (rng.random(r.size) > 0.1).astype(np.uint8)
+    a = tbinner.HostBinner(tc, lut, mask=mask, use_native=use_native).bin(
+        r, pose, intensity=inten, min_intensity=0.3)
+    b = jbinner.HostBinner(jc, lut, mask=mask, use_native=use_native).bin(
+        r, pose, intensity=inten, min_intensity=0.3)
+    assert np.array_equal(a.packed, b.packed) and np.array_equal(a.active, b.active)
+    assert (a.n_valid_points, a.n_exclude_hits) == (b.n_valid_points, b.n_exclude_hits)
+    assert a.n_valid_points > 0 and a.active.sum() > 0
+    for args in ((0.05, 0.15, 1.1, 1.5), (31.0, 95.0, 1.1, 0.06), (0.1, 0.1, 0.0, 0.0)):
+        assert tbinner.choose_ingest(*args) == jbinner.choose_ingest(*args)
+
+
 _NO_JAX = textwrap.dedent(
     """
     import importlib.abc, sys
@@ -156,11 +186,12 @@ _NO_JAX = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, RefuseJax())
+    import dataclasses
     import numpy as np
     import vofod_tpu_torch
     from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig
     from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan
-    from vofod_tpu_torch.runtime.node import VoFOD
+    from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
 
     cfg = VoFODConfig(
         sensor=SensorConfig(vertical_rays=8, horizontal_rays=32),
@@ -175,6 +206,17 @@ _NO_JAX = textwrap.dedent(
         pose = hover_pose((0.0, 0.0, 2.0 + 0.1 * k))
         node.process_scan(render_scan(scene, node.lut, pose), None, pose)
     assert node.state.step == 2
+    # one prebinned step (the native host binner) and one dynamic-radii step
+    pre = VoFOD(cfg, DynParams(), NodeOptions(frontend_mode="prebinned"), device="cpu")
+    dyn_cfg = dataclasses.replace(cfg, dynamic_radii=True, ground_points_max_distance_bound=2.0,
+                                  sepclusters_max_bg_distance_bound=2.0)
+    dyn = VoFOD(dyn_cfg, DynParams(), device="cpu")
+    dyn.update_params(ground_points_max_distance=1.0, sepclusters_max_bg_distance=1.9)
+    pose = hover_pose((0.0, 0.0, 2.0))
+    for extra in (pre, dyn):
+        extra.process_scan(render_scan(scene, node.lut, pose), None, pose)
+        assert extra.state.step == 1 and int(extra.last_diag.n_occupied) > 0
+    assert pre._binner.native
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("NO_JAX_OK", int(node.last_diag.n_occupied))
     """
@@ -239,6 +281,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: kernels.ray_ema(g, b, g, None),
         lambda: kernels.label_census(i, i, b, 64, 24.0),
         lambda: kernels.quirk_counts(b, b, 1),
+        lambda: kernels.unpack(torch.zeros((4, 4, 4), dtype=torch.uint8)),
+        lambda: kernels.shell_pool(a, np.zeros((1, 3), np.int32), 0, "max", 0),
         lambda: kernels.exact_demote_ema(g, b, i, torch.zeros(2, dtype=torch.bool),
                                          torch.zeros((), dtype=torch.bool), 1,
                                          np.zeros((1, 3), np.int32), 0, 24.0, 0.5, -1000.0,

@@ -188,12 +188,17 @@ def test_raycast_every_must_be_positive():
         _port_node(raycast_every=0)
 
 
-_MODES = [  # (change, ported): the JAX step's modes and whether the port has them
+_MODES = [  # (change, ported): the JAX step's modes and whether the port has them; the
+    # combinations the JAX step refuses are refused too
     (dict(raycast_mode="exact"), True), (dict(raycast_mode="off"), True),
-    (dict(frontend_mode="prebinned"), False), (dict(cfg="dynamic_radii"), False),
+    (dict(frontend_mode="prebinned"), True), (dict(cfg="dynamic_radii"), True),
     (dict(cfg="compat_hascloseto_bounds"), True), (dict(cfg="compat_counted_indexing"), True),
     (dict(cfg="compat_rangefinder_validity"), False), (dict(cfg="sepclusters_exact_census"), True),
     (dict(cfg="sequential_explore"), False),
+    (dict(frontend_mode="prebinned", raycast_mode="exact"), False),
+    (dict(cfg=("dynamic_radii", "sepclusters_exact_census")), False),
+    (dict(cfg=("dynamic_radii", "compat_hascloseto_bounds")), False),
+    (dict(frontend_mode="prebinned", raycast_mode="off", cfg="dynamic_radii"), True),
 ]
 
 
@@ -210,8 +215,9 @@ def test_unported_modes_raise(change, ported):
     cfg = VoFODConfig(sensor=SensorConfig(vertical_rays=8, horizontal_rays=32),
                       oparea=Box((0.0, 0.0, 3.0), (8.0, 8.0, 6.0)))
     kw = {k: v for k, v in change.items() if k != "cfg"}
-    if "cfg" in change:
-        cfg = dataclasses.replace(cfg, **{change["cfg"]: True})
+    flags = change.get("cfg", ())
+    cfg = dataclasses.replace(cfg, **{f: True for f in ((flags,) if isinstance(flags, str)
+                                                         else flags)})
     lut = make_lut_simulation(32, 8, cfg.sensor.vertical_fov)
     if ported:
         assert callable(make_step_fn(cfg, lut, device="cpu", **kw))

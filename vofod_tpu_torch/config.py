@@ -119,7 +119,12 @@ class VoFODConfig:
     # default.  Bounds <= 0 default to the static values above.  Composes
     # with the grid-sharded step (halos at the static bound); NOT with
     # sepclusters_exact_census (the coarse leaf size is shape-static) or
-    # compat_hascloseto_bounds (a static parity instrument).
+    # compat_hascloseto_bounds (a static parity instrument).  In this port
+    # the runtime radius picks the kept shells on the host (a launch
+    # argument, nothing is rebuilt); on the card every stencil ball, static
+    # or bounded, must lie within halo 7 (radius < 8 voxels, at most 2,103
+    # taps: the largest is the sepclusters local-sure ball at
+    # ceil(bound / voxel) + 1), else the kernels raise.
     dynamic_radii: bool = False
     ground_points_max_distance_bound: float = 0.0
     sepclusters_max_bg_distance_bound: float = 0.0

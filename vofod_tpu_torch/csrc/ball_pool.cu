@@ -16,7 +16,23 @@
 //
 // Integer min/max/sum are exact in any order, so the output is bit-equal to
 // the JAX decomposition and to the plain PyTorch version.
+//
+// K14 — the traced-shell pools of vofod_tpu/ops/morphology.py
+// `_ball_pool_traced` (`ball_pool_{min,max,sum}_traced`, cfg.dynamic_radii)
+// — are this kernel with another tap set: shell 0 plus every equal-distance
+// shell of the static bound whose squared distance is <= the runtime r²,
+// chosen on the host (ops/morphology.shell_taps).  The JAX form pools each
+// shell on its own and combines it under a `where`; min, max and integer
+// sum do not depend on the order, so one pass over the kept taps is
+// bit-equal to it.  The radius is a launch argument: nothing recompiles.
+//
+// Tap sets of up to 256 taps travel in the 776-byte parameter struct as
+// before; larger balls (radius 4: 257 taps, 5: 515, up to halo 7: 2,103) in
+// the large one, and an int32 tile above 48 KB (halo 6 and 7) opts in to
+// that much dynamic shared memory before its launch.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -28,10 +44,10 @@ __device__ __forceinline__ T combine(T a, T b) {
   return (T)((uint32_t)a + (uint32_t)b);
 }
 
-template <typename T, int OP>
+template <typename T, int OP, typename Taps>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     ball_pool_kernel(const T* __restrict__ in, T* __restrict__ out, int nz,
-                     int ny, int nx, BallTaps taps, T fill) {
+                     int ny, int nx, Taps taps, T fill) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   const int h = taps.halo;
@@ -55,34 +71,34 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
 }
 
 template <typename T, int OP>
-int launch(const void* in, void* out, int nz, int ny, int nx,
-           const BallTaps& taps, int fill, cudaStream_t stream) {
-  const size_t smem = tile_elems(taps.halo) * sizeof(T);
-  ball_pool_kernel<T, OP>
-      <<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
-          static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, taps,
-          (T)fill);
-  return (int)cudaGetLastError();
+int launch(const void* in, void* out, int nz, int ny, int nx, const int* taps,
+           int n_taps, int halo, int fill, cudaStream_t stream) {
+  const size_t smem = tile_elems(halo) * sizeof(T);
+  return with_taps(taps, n_taps, halo, [&](const auto& t) {
+    auto* kernel = ball_pool_kernel<T, OP, std::decay_t<decltype(t)>>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
+        static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, t, (T)fill);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // dtype: 0 = int8, 1 = int32.  op: 0 = min, 1 = max, 2 = sum (int32 only).
-// taps: host int32 [n_taps, 3] (dz, dy, dx).  Returns cudaGetLastError().
+// taps: host int32 [n_taps, 3] (dz, dy, dx), 1 <= n_taps <= 2,112, every
+// |offset| <= halo <= 7.  Returns cudaGetLastError().
 VOFOD_API int vofod_ball_pool(const void* in, void* out, int dtype, int op,
                               int nz, int ny, int nx, const int* taps,
                               int n_taps, int halo, int fill, void* stream) {
-  if (n_taps < 1 || n_taps > VOFOD_MAX_TAPS || halo < 0 || halo > 7)
-    return (int)cudaErrorInvalidValue;
-  const BallTaps t = make_taps(taps, n_taps, halo);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (op == 0) return launch<int8_t, 0>(in, out, nz, ny, nx, t, fill, s);
-    if (op == 1) return launch<int8_t, 1>(in, out, nz, ny, nx, t, fill, s);
+    if (op == 0) return launch<int8_t, 0>(in, out, nz, ny, nx, taps, n_taps, halo, fill, s);
+    if (op == 1) return launch<int8_t, 1>(in, out, nz, ny, nx, taps, n_taps, halo, fill, s);
   } else if (dtype == 1) {
-    if (op == 0) return launch<int32_t, 0>(in, out, nz, ny, nx, t, fill, s);
-    if (op == 1) return launch<int32_t, 1>(in, out, nz, ny, nx, t, fill, s);
-    if (op == 2) return launch<int32_t, 2>(in, out, nz, ny, nx, t, fill, s);
+    if (op == 0) return launch<int32_t, 0>(in, out, nz, ny, nx, taps, n_taps, halo, fill, s);
+    if (op == 1) return launch<int32_t, 1>(in, out, nz, ny, nx, taps, n_taps, halo, fill, s);
+    if (op == 2) return launch<int32_t, 2>(in, out, nz, ny, nx, taps, n_taps, halo, fill, s);
   }
   return (int)cudaErrorInvalidValue;
 }

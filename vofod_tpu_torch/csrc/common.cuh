@@ -12,20 +12,30 @@
 #define VOFOD_API extern "C" __attribute__((visibility("default")))
 
 // Euclidean-ball tap list (dz, dy, dx), built on the host by
-// vofod_tpu_torch.ops.morphology.ball_offsets and passed by value as a kernel
-// parameter (no device allocation, no constant-memory upload).
+// vofod_tpu_torch.ops.morphology and passed by value as a kernel parameter
+// (no device allocation, no constant-memory upload).  Two capacities: the
+// sets of at most 256 taps (every ball up to radius 3.9, 8 + 768 bytes of
+// parameters: the production radii) and every ball up to halo 7 (the ball
+// of r^2 < 64 holds 2,103 taps: 8 + 6,336 bytes, above the classic 4 KB
+// parameter limit, within the 32,764 bytes that CUDA 12.1+ takes on sm_70+).
 #define VOFOD_MAX_TAPS 256
+#define VOFOD_MAX_TAPS_LARGE 2112
+#define VOFOD_MAX_HALO 7
 
-struct BallTaps {
+template <int CAP>
+struct BallTapsN {
   int n;     // number of taps (123 at radius 3.0)
-  int halo;  // floor(radius): tile halo on every side
-  signed char dz[VOFOD_MAX_TAPS];
-  signed char dy[VOFOD_MAX_TAPS];
-  signed char dx[VOFOD_MAX_TAPS];
+  int halo;  // the largest |offset| of the set: tile halo on every side
+  signed char dz[CAP];
+  signed char dy[CAP];
+  signed char dx[CAP];
 };
+using BallTaps = BallTapsN<VOFOD_MAX_TAPS>;
+using BallTapsLarge = BallTapsN<VOFOD_MAX_TAPS_LARGE>;
 
-inline BallTaps make_taps(const int* taps, int n, int halo) {
-  BallTaps t;
+template <int CAP>
+inline BallTapsN<CAP> make_taps(const int* taps, int n, int halo) {
+  BallTapsN<CAP> t;
   t.n = n;
   t.halo = halo;
   for (int i = 0; i < n; ++i) {
@@ -34,6 +44,31 @@ inline BallTaps make_taps(const int* taps, int n, int halo) {
     t.dx[i] = (signed char)taps[3 * i + 2];
   }
   return t;
+}
+
+inline bool taps_ok(int n, int halo) {
+  return n >= 1 && n <= VOFOD_MAX_TAPS_LARGE && halo >= 0 && halo <= VOFOD_MAX_HALO;
+}
+
+// Launch a tiled stencil kernel with the tap set in the smaller parameter
+// struct when it fits (the production radii keep that code path and its
+// timing), else in the large one.  `launch` is a generic lambda taking the
+// tap struct.
+template <typename F>
+inline int with_taps(const int* taps, int n, int halo, F&& launch) {
+  if (!taps_ok(n, halo)) return (int)cudaErrorInvalidValue;
+  if (n <= VOFOD_MAX_TAPS) return launch(make_taps<VOFOD_MAX_TAPS>(taps, n, halo));
+  return launch(make_taps<VOFOD_MAX_TAPS_LARGE>(taps, n, halo));
+}
+
+// A tile above the 48 KB default of dynamic shared memory (an int32 tile
+// from halo 6 on: 56,320 B at h = 6, 72,864 B at h = 7) needs the kernel's
+// opt-in first, or the launch is refused.
+template <typename K>
+inline int allow_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute((const void*)kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // Output tile of the 3-D stencils: one thread per output voxel.

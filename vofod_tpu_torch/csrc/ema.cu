@@ -31,11 +31,18 @@
 //   pass.  The centre mask, k, w1^k and the upsampled sure mask of the
 //   plain version are never stored.
 //
+// Both K1-tile entry points take any tap set up to halo 7: the large tap
+// struct of common.cuh past 256 taps (the traced demotion shells of
+// cfg.dynamic_radii, K14, or a static ball of radius 4 and more); their
+// uint8 tile stays below 48 KB (18,216 B at halo 7).
+//
 // Arithmetic: the EMAs as __fmul_rn / __fadd_rn in the plain version's
 // order (no FMA contraction), exp2f as PyTorch's CUDA exp2 calls it, w1 and
 // c rounded to float32 on the host as the tensor ops round the Python
 // scalars; both entry points are bit-equal to their plain versions.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -92,11 +99,12 @@ __device__ __forceinline__ void load_unsafe_tile(const uint8_t* __restrict__ bg,
   }
 }
 
+template <typename Taps>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     demote_ema_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ bg,
                       const uint8_t* __restrict__ safe,
                       const uint8_t* __restrict__ sure_sufficient, int nz, int ny, int nx,
-                      BallTaps taps, float w1, float c, float* __restrict__ out) {
+                      Taps taps, float w1, float c, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char tile[];
   const int h = taps.halo;
   load_unsafe_tile(bg, safe, tile, nz, ny, nx, h);
@@ -157,11 +165,12 @@ __device__ __forceinline__ void load_centre_tile(const uint8_t* __restrict__ occ
   }
 }
 
+template <typename Taps>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     exact_demote_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ occ_c,
                         const int32_t* __restrict__ census, const uint8_t* __restrict__ flags,
                         const uint8_t* __restrict__ prev_sure, int nz, int ny, int nx,
-                        CoarseLattice c, BallTaps taps, float w1, float score, float thr_new,
+                        CoarseLattice c, Taps taps, float w1, float score, float thr_new,
                         float* __restrict__ out, uint8_t* __restrict__ safe,
                         uint8_t* __restrict__ sure_out) {
   extern __shared__ __align__(16) unsigned char tile[];
@@ -217,15 +226,17 @@ VOFOD_API int vofod_demote_ema(const void* vals, const void* bg, const void* saf
                                const void* sure_sufficient, int nz, int ny, int nx,
                                const int* taps, int n_taps, int halo, float w1, float c,
                                void* out, void* stream) {
-  if (n_taps < 1 || n_taps > VOFOD_MAX_TAPS || halo < 0 || halo > 7)
-    return (int)cudaErrorInvalidValue;
-  const BallTaps t = make_taps(taps, n_taps, halo);
-  demote_ema_kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), tile_elems(halo),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vals), static_cast<const uint8_t*>(bg),
-      static_cast<const uint8_t*>(safe), static_cast<const uint8_t*>(sure_sufficient), nz,
-      ny, nx, t, w1, c, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return with_taps(taps, n_taps, halo, [&](const auto& t) {
+    auto* kernel = demote_ema_kernel<std::decay_t<decltype(t)>>;
+    const size_t smem = tile_elems(halo);
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vals), static_cast<const uint8_t*>(bg),
+        static_cast<const uint8_t*>(safe), static_cast<const uint8_t*>(sure_sufficient), nz,
+        ny, nx, t, w1, c, static_cast<float*>(out));
+    return (int)cudaGetLastError();
+  });
 }
 
 // K13c.  vals: device f32 grid (nz, ny, nx); occ_c: bool coarse cells
@@ -239,18 +250,22 @@ VOFOD_API int vofod_exact_demote_ema(const void* vals, const void* occ_c, const 
                                      int nx, int lsz, const int* taps, int n_taps, int halo,
                                      const float* floats, void* out, void* safe, void* sure_out,
                                      void* stream) {
-  if (n_taps < 1 || n_taps > VOFOD_MAX_TAPS || halo < 0 || halo > 7 || lsz < 1)
-    return (int)cudaErrorInvalidValue;
-  const BallTaps t = make_taps(taps, n_taps, halo);
+  if (lsz < 1) return (int)cudaErrorInvalidValue;
   CoarseLattice c;
   c.lsz = lsz;
   c.ncz = (nz + lsz - 1) / lsz; c.ncy = (ny + lsz - 1) / lsz; c.ncx = (nx + lsz - 1) / lsz;
   c.min_sure = floats[0];
-  exact_demote_kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), tile_elems(halo),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vals), static_cast<const uint8_t*>(occ_c),
-      static_cast<const int32_t*>(census), static_cast<const uint8_t*>(flags),
-      static_cast<const uint8_t*>(prev_sure), nz, ny, nx, c, t, floats[1], floats[2], floats[3],
-      static_cast<float*>(out), static_cast<uint8_t*>(safe), static_cast<uint8_t*>(sure_out));
-  return (int)cudaGetLastError();
+  return with_taps(taps, n_taps, halo, [&](const auto& t) {
+    auto* kernel = exact_demote_kernel<std::decay_t<decltype(t)>>;
+    const size_t smem = tile_elems(halo);
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(vals), static_cast<const uint8_t*>(occ_c),
+        static_cast<const int32_t*>(census), static_cast<const uint8_t*>(flags),
+        static_cast<const uint8_t*>(prev_sure), nz, ny, nx, c, t, floats[1], floats[2],
+        floats[3], static_cast<float*>(out), static_cast<uint8_t*>(safe),
+        static_cast<uint8_t*>(sure_out));
+    return (int)cudaGetLastError();
+  });
 }

@@ -26,7 +26,13 @@
 // ping-pong buffers hold the fixpoint and the skipped launches lose nothing;
 // when that is sweep 0, only the first buffer was written, so the wrapper
 // starts the second as a copy of the initial labels.
+//
+// The ball is any K1 tap set: the static ball, or the traced shells of
+// cfg.dynamic_radii (K14, ops/morphology.shell_taps), up to halo 7 (the
+// large tap struct and the shared-memory opt-in of common.cuh).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -34,11 +40,11 @@ constexpr int32_t SENTINEL = 0x7fffffff;
 
 // MODE 0: int32 labels, min-pool with fill SENTINEL, off-mask -> SENTINEL.
 // MODE 1: uint8 reach mask, max-pool with fill 0, new = cur | (occ & pooled).
-template <typename T, int MODE>
+template <typename T, int MODE, typename Taps>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     sweep_kernel(const T* __restrict__ a, T* __restrict__ b,
                  const uint8_t* __restrict__ occ, int nz, int ny, int nx,
-                 BallTaps taps, int* __restrict__ changed,
+                 Taps taps, int* __restrict__ changed,
                  const int* __restrict__ prev_changed) {
   if (prev_changed != nullptr && *prev_changed == 0) return;  // past the fixpoint
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -83,19 +89,23 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
 }
 
 template <typename T, int MODE>
-int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx,
-           const BallTaps& taps, int* changed, const int* prev, cudaStream_t stream) {
-  const size_t smem = tile_elems(taps.halo) * sizeof(T);
-  sweep_kernel<T, MODE>
-      <<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
-          static_cast<const T*>(a), static_cast<T*>(b),
-          static_cast<const uint8_t*>(occ), nz, ny, nx, taps, changed, prev);
-  return (int)cudaGetLastError();
+int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx, const int* taps,
+           int n_taps, int halo, int* changed, const int* prev, cudaStream_t stream) {
+  const size_t smem = tile_elems(halo) * sizeof(T);
+  return with_taps(taps, n_taps, halo, [&](const auto& t) {
+    auto* kernel = sweep_kernel<T, MODE, std::decay_t<decltype(t)>>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
+        static_cast<const T*>(a), static_cast<T*>(b), static_cast<const uint8_t*>(occ), nz,
+        ny, nx, t, changed, prev);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-// mode 0: int32 min-label sweep; mode 1: uint8 reach sweep.
+// mode 0: int32 min-label sweep; mode 1: uint8 reach sweep.  taps: host
+// int32 [n_taps, 3], 1 <= n_taps <= 2,112, every |offset| <= halo <= 7.
 // `changed` is a device int32 the kernel ORs 1 into when any voxel changed
 // (the caller zeroes it); `prev_changed` is NULL or the previous sweep's
 // flag, and the launch does nothing when it is 0.  Returns
@@ -105,13 +115,12 @@ VOFOD_API int vofod_propagate_sweep(const void* a, void* b, const void* occ,
                                     const int* taps, int n_taps, int halo,
                                     void* changed, const void* prev_changed,
                                     void* stream) {
-  if (n_taps < 1 || n_taps > VOFOD_MAX_TAPS || halo < 0 || halo > 7)
-    return (int)cudaErrorInvalidValue;
-  const BallTaps t = make_taps(taps, n_taps, halo);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ch = static_cast<int*>(changed);
   const int* pv = static_cast<const int*>(prev_changed);
-  if (mode == 0) return launch<int32_t, 0>(a, b, occ, nz, ny, nx, t, ch, pv, s);
-  if (mode == 1) return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, t, ch, pv, s);
+  if (mode == 0)
+    return launch<int32_t, 0>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, s);
+  if (mode == 1)
+    return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, s);
   return (int)cudaErrorInvalidValue;
 }

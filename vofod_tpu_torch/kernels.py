@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K13).
+"""Build, load and launch the hand-written CUDA kernels (K1-K15a).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -33,7 +33,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
             "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
-            "detect.cu", "ema.cu", "dda.cu", "census.cu")
+            "detect.cu", "ema.cu", "dda.cu", "census.cu", "unpack.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = {
     "ball_pool": 0,
+    "shell_pool": 0,
     "propagate_sweep": 0,
     "frontend_bin": 0,
     "cone_sweep": 0,
@@ -61,7 +62,15 @@ LAUNCHES: dict[str, int] = {
     "label_census": 0,
     "quirk_counts": 0,
     "exact_demote_ema": 0,
+    "unpack": 0,
 }
+
+# The stencil kernels (K1, K2, the K11 and K13c epilogues, K14) take any tap
+# set of at most MAX_TAPS offsets within halo MAX_HALO (csrc/common.cuh): the
+# ball of r^2 < 64 has 2,103 taps.
+
+MAX_TAPS = 2112
+MAX_HALO = 7
 
 _lib = None
 _lock = threading.Lock()
@@ -166,13 +175,14 @@ def load():
         lib.vofod_quirk_counts.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.vofod_exact_demote_ema.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
+        lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats,
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
-                   lib.vofod_exact_demote_ema):
+                   lib.vofod_exact_demote_ema, lib.vofod_unpack):
             fn.restype = _I
         _lib = lib
         return lib
@@ -198,8 +208,15 @@ def _require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _taps_arg(taps: np.ndarray):
-    arr = np.ascontiguousarray(taps, dtype=np.int32)
+def _taps_arg(taps: np.ndarray, halo: int):
+    """The tap set as the C entry points take it; raises past the kernels'
+    limits (MAX_TAPS taps, every |offset| <= halo <= MAX_HALO)."""
+    arr = np.ascontiguousarray(taps, dtype=np.int32).reshape(-1, 3)
+    reach = int(np.abs(arr).max()) if len(arr) else 0
+    if not (1 <= len(arr) <= MAX_TAPS and reach <= halo <= MAX_HALO):
+        raise ValueError(
+            f"the stencil kernels take 1-{MAX_TAPS} taps within halo {MAX_HALO} (radius < 8 "
+            f"voxels); got {len(arr)} taps reaching {reach} with halo {halo}")
     return arr, arr.ctypes.data_as(_P)
 
 
@@ -207,23 +224,36 @@ _DTYPE_CODE = {torch.int8: 0, torch.int32: 1}
 _OP_CODE = {"min": 0, "max": 1, "sum": 2}
 
 
-def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
-              fill: int) -> torch.Tensor:
-    """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill)."""
-    lib = load()
+def _pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str, fill: int) -> torch.Tensor:
     if a.dtype not in _DTYPE_CODE or a.dim() != 3:
         raise ValueError(f"ball_pool takes a 3-D int8/int32 grid, got {a.dtype} {tuple(a.shape)}")
     if op == "sum" and a.dtype != torch.int32:
         raise ValueError("ball_pool sum takes int32")
     _require(a, "ball_pool input", a.dtype)
+    keep, ptr = _taps_arg(taps, halo)
     out = torch.empty_like(a)
-    keep, ptr = _taps_arg(taps)
     nz, ny, nx = a.shape
-    err = lib.vofod_ball_pool(
+    err = load().vofod_ball_pool(
         a.data_ptr(), out.data_ptr(), _DTYPE_CODE[a.dtype], _OP_CODE[op],
         nz, ny, nx, ptr, len(keep), halo, int(fill), _stream())
     _check(err, "vofod_ball_pool")
+    return out
+
+
+def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
+              fill: int) -> torch.Tensor:
+    """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill)."""
+    out = _pool(a, taps, halo, op, fill)
     LAUNCHES["ball_pool"] += 1
+    return out
+
+
+def shell_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
+               fill: int) -> torch.Tensor:
+    """K14: the traced-radius pool of cfg.dynamic_radii — K1's kernel on the
+    kept shells of a static bound (ops/morphology.shell_taps)."""
+    out = _pool(a, taps, halo, op, fill)
+    LAUNCHES["shell_pool"] += 1
     return out
 
 
@@ -244,7 +274,7 @@ def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
     _require(changed, "propagate_sweep changed", torch.int32, ())
     if prev_changed is not None:
         _require(prev_changed, "propagate_sweep prev_changed", torch.int32, ())
-    keep, ptr = _taps_arg(taps)
+    keep, ptr = _taps_arg(taps, halo)
     nz, ny, nx = src.shape
     err = lib.vofod_propagate_sweep(
         src.data_ptr(), dst.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
@@ -596,8 +626,8 @@ def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
     _require(bg, "demote_ema bg", torch.bool, vals.shape)
     _require(safe, "demote_ema safe", torch.bool, vals.shape)
     _require(sure_sufficient, "demote_ema sure_sufficient", torch.bool, ())
+    keep, ptr = _taps_arg(taps, halo)
     out = torch.empty_like(vals)
-    keep, ptr = _taps_arg(taps)
     nz, ny, nx = vals.shape
     err = load().vofod_demote_ema(
         vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
@@ -711,7 +741,7 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
     out = torch.empty_like(vals)
     safe = torch.empty(vals.shape, dtype=torch.bool, device=dev)
     sure_out = torch.empty((), dtype=torch.bool, device=dev)
-    keep, ptr = _taps_arg(taps)
+    keep, ptr = _taps_arg(taps, halo)
     floats = _host_f32(min_sure, w1, score, thr_new)
     err = load().vofod_exact_demote_ema(
         vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
@@ -720,3 +750,18 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
     _check(err, "vofod_exact_demote_ema")
     LAUNCHES["exact_demote_ema"] += 1
     return out, safe, sure_out
+
+
+def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K15a: (counts int32, blockers bool) of the host-binned uint8 grid:
+    counts = packed & 0x3F, blockers = packed >= 0x80."""
+    _require(packed, "unpack packed", torch.uint8)
+    if packed.numel() == 0:
+        raise ValueError("unpack takes a non-empty grid")
+    counts = torch.empty(packed.shape, dtype=torch.int32, device=packed.device)
+    blockers = torch.empty(packed.shape, dtype=torch.bool, device=packed.device)
+    err = load().vofod_unpack(packed.data_ptr(), counts.data_ptr(), blockers.data_ptr(),
+                              packed.numel(), _stream())
+    _check(err, "vofod_unpack")
+    LAUNCHES["unpack"] += 1
+    return counts, blockers

@@ -23,16 +23,18 @@ flag on the device:
   changes nothing or to the cap.  The cap's worth of sweeps is enqueued and
   each launch past the fixpoint exits at once on the previous sweep's
   device flag (``sweeps(..., until_fixpoint=True)``).
+
+``traced_r2`` (cfg.dynamic_radii): the adjacency is the ball of the
+runtime squared radius within the static bound ``radius``, the K14 tap set
+ops/morphology.Shells, on the same sweep kernel.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from vofod_tpu_torch import kernels
-from vofod_tpu_torch.ops.morphology import ball_pool_plain, ball_taps
+from vofod_tpu_torch.ops.morphology import Shells, pool_plain, tap_set
 
 Tensor = torch.Tensor
 
@@ -40,10 +42,11 @@ Tensor = torch.Tensor
 SENTINEL = 2**31 - 1
 
 
-def sweeps_plain(init: Tensor, occ: Tensor, radius: float, n: int,
+def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
                  until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
-    """Plain version of ``n`` K2 sweeps (K1's plain pool + the mask), on any
-    device: (final grid, bool [n] per-sweep changed flags).  With
+    """Plain version of ``n`` K2 sweeps (K1's plain pool over ``ball``: a
+    radius, traced shells or a tap set; + the mask), on any device: (final
+    grid, bool [n] per-sweep changed flags).  With
     ``until_fixpoint`` the sweeps after the first one that changed nothing
     are skipped (their flags False), as the gated kernel launches do."""
     cur, flags = init, []
@@ -52,24 +55,25 @@ def sweeps_plain(init: Tensor, occ: Tensor, radius: float, n: int,
             flags.append(flags[-1])
             continue
         if cur.dtype == torch.int32:
-            new = torch.where(occ, ball_pool_plain(cur, radius, "min", SENTINEL), SENTINEL)
+            new = torch.where(occ, pool_plain(cur, ball, "min", SENTINEL), SENTINEL)
         else:
-            pooled = ball_pool_plain(cur.view(torch.int8), radius, "max", 0)
+            pooled = pool_plain(cur.view(torch.int8), ball, "max", 0)
             new = cur | (occ & (pooled > 0)).to(torch.uint8)
         flags.append(torch.any(new != cur))
         cur = new
     return cur, torch.stack(flags)
 
 
-def sweeps(init: Tensor, occ: Tensor, radius: float, n: int,
+def sweeps(init: Tensor, occ: Tensor, ball, n: int,
            until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
-    """``n`` Jacobi sweeps from ``init``: int32 keys take the masked
+    """``n`` Jacobi sweeps from ``init`` over ``ball`` (a radius, traced
+    shells or a tap set): int32 keys take the masked
     min-label sweep, uint8 masks the reach sweep.  Returns (final grid,
     bool [n] per-sweep changed flags), both on the device of ``init``.
     ``until_fixpoint``: stop after the first sweep that changes nothing (on
     the card, every later launch reads that sweep's flag and exits)."""
     if init.is_cuda:
-        taps, halo = ball_taps(radius), int(math.floor(radius))
+        taps, halo = tap_set(ball)
         occ8 = occ.contiguous().view(torch.uint8)
         changed = torch.zeros(n, dtype=torch.int32, device=init.device)
         # ping-pong between two fresh buffers: the caller's ``init`` is read
@@ -85,25 +89,30 @@ def sweeps(init: Tensor, occ: Tensor, radius: float, n: int,
         return src, changed.bool()
     if init.device.type != "cpu":
         raise ValueError(f"propagation: unsupported device {init.device}")
-    return sweeps_plain(init, occ, radius, n, until_fixpoint)
+    return sweeps_plain(init, occ, ball, n, until_fixpoint)
+
+
+def _ball(radius: float, traced_r2):
+    return radius if traced_r2 is None else Shells(radius, traced_r2)
 
 
 def propagate_reach(
-    occupied: Tensor, seed: Tensor, radius: float, max_iters: int
+    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None,
 ) -> tuple[Tensor, Tensor]:
     """Grow ``seed & occupied`` through ``occupied`` under ball adjacency.
 
     Returns (reached bool grid, converged bool scalar): ``converged`` is
     False iff the last of the ``max_iters`` sweeps still changed something.
+    ``traced_r2``: the runtime squared radius, ``radius`` then the bound.
     """
     occ = occupied.to(torch.bool)
     cur = (occ & seed.to(torch.bool)).to(torch.uint8)
-    cur, changed = sweeps(cur, occ, radius, max_iters)
+    cur, changed = sweeps(cur, occ, _ball(radius, traced_r2), max_iters)
     return cur.bool(), ~changed[-1]
 
 
 def label_components_seeded(
-    occupied: Tensor, seed: Tensor, radius: float, max_iters: int
+    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """One propagation computing components AND seed-reachability together
     (``key0 = reversed flat id + (1 - seed) * NV``; see the JAX docstring).
@@ -111,6 +120,7 @@ def label_components_seeded(
     Returns (labels, seed_reached, converged, iters): labels = SENTINEL
     off-mask; ``iters`` is the sweep index after which the labels stopped
     changing (``max_iters`` when the last sweep still changed them).
+    ``traced_r2``: the runtime squared radius, ``radius`` then the bound.
     """
     occ = occupied.to(torch.bool)
     nz, ny, nx = occ.shape
@@ -121,7 +131,7 @@ def label_components_seeded(
     rid = (nv - 1) - flat
     key0 = rid + torch.where(seed & occ, 0, nv).to(torch.int32)
     keys = torch.where(occ, key0, SENTINEL)
-    keys, changed = sweeps(keys, occ, radius, max_iters)
+    keys, changed = sweeps(keys, occ, _ball(radius, traced_r2), max_iters)
     sweep_no = torch.arange(1, max_iters + 1, dtype=torch.int32, device=occ.device)
     iters = (changed.to(torch.int32) * sweep_no).max()
     converged = iters < max_iters

@@ -8,19 +8,23 @@ sweeps), and the weighted EMA point update ``w = 2^-count`` (K11's point
 EMA, csrc/ema.cu, for CUDA tensors; :func:`point_ema_plain` for CPU ones).
 With ``cfg.compat_hascloseto_bounds`` the seeds come from the reference's
 exact hasCloseTo box (K1 with the ops/morphology.hascloseto_taps tap set)
-instead of the symmetric ball.
+instead of the symmetric ball.  With ``cfg.dynamic_radii`` the seed pool
+and the sweeps take the shells of the static bound kept by the runtime
+``dyn.ground_points_max_distance`` (K14, ops/morphology.shell_taps).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_components_seeded
-from vofod_tpu_torch.ops.morphology import ball_pool_max, hascloseto_pool_any
+from vofod_tpu_torch.ops.morphology import (
+    ball_pool_max, ball_pool_max_traced, hascloseto_pool_any)
 
 Tensor = torch.Tensor
 
@@ -59,11 +63,29 @@ def point_ema(grid_vals: Tensor, counts: Tensor, close: Tensor, score_point: flo
     return point_ema_plain(grid_vals, counts, close, score_point, score_unknown)
 
 
+def traced_radius(cfg: VoFODConfig, dyn: DynParams) -> tuple[float, np.float32]:
+    """(static bound, runtime r²) of the clustering radius under
+    ``cfg.dynamic_radii``, in index units, in the JAX step's float32
+    arithmetic (vofod_tpu background.py:48-58): r_idx = f32(radius) / voxel,
+    r² = min(r_idx², f32(bound²)); a bound <= 0 falls back to the static
+    radius."""
+    bound_m = cfg.ground_points_max_distance_bound
+    if bound_m <= 0:
+        bound_m = cfg.ground_points_max_distance
+    bound = bound_m / cfg.voxel_size
+    r_idx = np.float32(dyn.ground_points_max_distance) / np.float32(cfg.voxel_size)
+    return bound, min(r_idx * r_idx, np.float32(bound * bound))
+
+
 def split_and_update(
     cfg: VoFODConfig, dyn: DynParams, grid_vals: Tensor, counts: Tensor,
     prev_bg_sufficient: Tensor,
 ) -> BackgroundOut:
-    radius = cfg.ground_points_max_distance / cfg.voxel_size
+    traced_r2 = None
+    if cfg.dynamic_radii:
+        radius, traced_r2 = traced_radius(cfg, dyn)
+    else:
+        radius = cfg.ground_points_max_distance / cfg.voxel_size
 
     # sticky, on the pre-update map, like the reference (:713-725)
     bg_mask = grid_vals > dyn.thr_new_obstacles
@@ -77,11 +99,13 @@ def split_and_update(
         # the reference's box [idx - ceil(r), idx + ceil(r)): at the shipped
         # integer radius (3.0) the +3 axis-extreme offsets are not searched
         bg_near = hascloseto_pool_any(bg_mask, radius)
+    elif traced_r2 is not None:
+        bg_near = ball_pool_max_traced(bg_mask.to(torch.int8), traced_r2, radius, fill=0) > 0
     else:
         bg_near = ball_pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
     seed = occupied & bg_near
     labels, close, cc_converged, cc_iters = label_components_seeded(
-        occupied, seed, radius, cfg.cc_sweeps
+        occupied, seed, radius, cfg.cc_sweeps, traced_r2=traced_r2
     )
     # EMA point update (ref updateVoxel :789-795), far = occupied & ~close
     new_vals, far, n_occupied = point_ema(

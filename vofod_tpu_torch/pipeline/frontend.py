@@ -8,6 +8,11 @@ CUDA kernel K3 (csrc/frontend_bin.cu) for CUDA tensors and
 :func:`frontend_bin_plain` for CPU tensors.  Both return the per-pixel
 own-airframe mask and flat ids; the first 4096 airframe hits in pixel
 order, compacted by K6, then become raycast blockers (frontend.py:61-77).
+
+:func:`run_frontend_prebinned` is the device half of the prebinned ingest
+(vofod_tpu ``run_frontend_prebinned``): the host binned the scan
+(io/binner.py), and the device unpacks the uint8 grid with K15a
+(csrc/unpack.cu) for CUDA tensors, :func:`unpack_plain` for CPU ones.
 """
 
 from __future__ import annotations
@@ -99,3 +104,29 @@ def run_frontend(
         n_valid_points=n_valid,
         n_exclude_hits=etotal,
     )
+
+
+def unpack_plain(packed: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain version of K15a: (counts = packed & 0x3F as int32, blockers =
+    packed >= 0x80)."""
+    return (packed & 0x3F).to(torch.int32), packed >= 0x80
+
+
+def unpack(packed: Tensor) -> tuple[Tensor, Tensor]:
+    if packed.is_cuda:
+        return kernels.unpack(packed.contiguous())
+    if packed.device.type != "cpu":
+        raise ValueError(f"unpack: unsupported device {packed.device}")
+    return unpack_plain(packed)
+
+
+def run_frontend_prebinned(scan) -> FrontendOut:
+    """The frontend of a host-binned ``PrebinnedScan`` (pipeline/state.py).
+
+    Equal to :func:`run_frontend` on the same scan (vofod_tpu
+    frontend.py:99-103): the 6-bit count clamp matches the point EMA's own
+    clamp at 63, and the blocker bit covers every own-airframe hit, with no
+    counterpart of the raw path's 4,096-hit compaction cap."""
+    counts, blockers = unpack(scan.packed)
+    return FrontendOut(counts=counts, blockers=blockers, n_valid_points=scan.stats[0],
+                       n_exclude_hits=scan.stats[1])

@@ -8,7 +8,11 @@ warm-started reachability through the background (K2), and every voxel
 within max_bg_distance of an unsafe background voxel is demoted toward the
 ray score: K11's demotion EMA (csrc/ema.cu), the K1 ball max over the
 unsafe voxels with the EMA as its epilogue, so the demotion mask is never
-stored.
+stored.  With ``cfg.dynamic_radii`` the three stencils (local-sure sum,
+reach, demotion) take the shells of their static bounds kept by the
+runtime ``dyn.sepclusters_max_bg_distance`` (K14, ops/morphology.
+Shells): the sum as K14, the reach as K2 and the demotion as K11's
+epilogue, each on that tap set.
 
 Exact-census mode (``cfg.sepclusters_exact_census``,
 :func:`run_sepclusters_exact`): the coarse counted binning (with the
@@ -32,7 +36,8 @@ import torch.nn.functional as F
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_census, label_components, propagate_reach
-from vofod_tpu_torch.ops.morphology import ball_pool_plain, ball_pool_sum, ball_taps
+from vofod_tpu_torch.ops.morphology import (
+    Shells, ball_pool_plain, ball_pool_sum, ball_pool_sum_traced, ball_taps, pool_plain, tap_set)
 
 Tensor = torch.Tensor
 
@@ -55,24 +60,38 @@ def demote_weights(its_diff: float, score_ray: float) -> tuple[float, float]:
 
 
 def demote_ema_plain(grid_vals: Tensor, bg: Tensor, safe: Tensor, sure_sufficient: Tensor,
-                     radius: float, w1: float, c: float) -> Tensor:
+                     ball, w1: float, c: float) -> Tensor:
     """Plain version of K11's demotion EMA (vofod_tpu sepclusters.py:
-    144-156): every voxel within ``radius`` of an unsafe background voxel
-    becomes ``w1 * v + c`` (c = (1 - w1) * score_ray), when a sure cluster
-    exists."""
+    144-156): every voxel within ``ball`` (a radius or traced shells) of an
+    unsafe background voxel becomes ``w1 * v + c`` (c = (1 - w1) *
+    score_ray), when a sure cluster exists."""
     unsafe = bg & ~safe
-    demote = ball_pool_plain(unsafe.to(torch.int8), radius, "max", 0) > 0
+    demote = pool_plain(unsafe.to(torch.int8), ball, "max", 0) > 0
     return torch.where(demote & sure_sufficient, w1 * grid_vals + c, grid_vals)
 
 
 def demote_ema(grid_vals: Tensor, bg: Tensor, safe: Tensor, sure_sufficient: Tensor,
-               radius: float, w1: float, c: float) -> Tensor:
+               ball, w1: float, c: float) -> Tensor:
     if grid_vals.is_cuda:
-        return kernels.demote_ema(grid_vals, bg, safe, sure_sufficient, ball_taps(radius),
-                                  int(math.floor(radius)), w1, c)
+        return kernels.demote_ema(grid_vals, bg, safe, sure_sufficient, *tap_set(ball), w1, c)
     if grid_vals.device.type != "cpu":
         raise ValueError(f"demotion EMA: unsupported device {grid_vals.device}")
-    return demote_ema_plain(grid_vals, bg, safe, sure_sufficient, radius, w1, c)
+    return demote_ema_plain(grid_vals, bg, safe, sure_sufficient, ball, w1, c)
+
+
+def traced_radii(cfg: VoFODConfig, dyn: DynParams) -> tuple[float, np.float32, np.float32]:
+    """(static bound, runtime radius, its ceiling) of the sepclusters
+    stencils under ``cfg.dynamic_radii``, in index units, in the JAX step's
+    float32 arithmetic (vofod_tpu sepclusters.py:85-100): the bound is
+    ceil(bound_m / voxel) (a bound <= 0 falls back to the static radius),
+    mdi = min(f32(max_bg) / voxel, f32(bound_m / voxel)), adj = ceil(mdi)."""
+    bound_m = cfg.sepclusters_max_bg_distance_bound
+    if bound_m <= 0:
+        bound_m = cfg.sepclusters_max_bg_distance
+    bound_idx = bound_m / cfg.voxel_size
+    mdi = min(np.float32(dyn.sepclusters_max_bg_distance) / np.float32(cfg.voxel_size),
+              np.float32(bound_idx))
+    return float(math.ceil(bound_idx)), mdi, np.ceil(mdi)
 
 
 def run_sepclusters(
@@ -89,22 +108,33 @@ def run_sepclusters(
     bg = grid_vals > dyn.thr_new_obstacles
     sure = grid_vals > dyn.thr_sure_obstacles
 
-    max_dist_idx = cfg.sepclusters_max_bg_distance / cfg.voxel_size
-    adj_radius = math.ceil(max_dist_idx)  # cluster tolerance, index units
-
-    # local sure-voxel counts stand in for per-cluster counts (JAX docstring)
-    local_sure = ball_pool_sum(sure.to(torch.int32), float(adj_radius) + 1.0)
+    if cfg.dynamic_radii:
+        # the live-tunable max_bg_distance (ref dynamic_reconfigure,
+        # DetectionParams.cfg:36-44): each stencil keeps the shells of its
+        # static bound within the runtime radius
+        adj_bound, mdi, adj = traced_radii(cfg, dyn)
+        local_sure = ball_pool_sum_traced(sure.to(torch.int32), (adj + 1) * (adj + 1),
+                                          adj_bound + 1.0)
+        reach_r, reach_r2 = adj_bound, adj * adj
+        demote_ball = Shells(adj_bound, mdi * mdi)
+    else:
+        max_dist_idx = cfg.sepclusters_max_bg_distance / cfg.voxel_size
+        adj_radius = math.ceil(max_dist_idx)  # cluster tolerance, index units
+        # local sure-voxel counts stand in for per-cluster counts (JAX docstring)
+        local_sure = ball_pool_sum(sure.to(torch.int32), float(adj_radius) + 1.0)
+        reach_r, reach_r2 = float(adj_radius), None
+        demote_ball = max_dist_idx
     seeds = sure & (local_sure.to(torch.float32) >= dyn.sepclusters_min_sure_points)
     # empty background: the reference keeps the previous value (:1155-1159)
     sure_sufficient = torch.where(torch.any(bg), torch.any(seeds), prev_sure)
 
     init = (prev_safe & bg) | (seeds & bg)
-    safe, converged = propagate_reach(bg, init, float(adj_radius), max_iters)
+    safe, converged = propagate_reach(bg, init, reach_r, max_iters, traced_r2=reach_r2)
 
     # demotion ball: ||d|| <= max_bg_distance/voxel around unsafe background
     # (ref :1219-1237); no demotion at all when no sure cluster exists (ref
     # returns early :1197-1206)
-    new_vals = demote_ema(grid_vals, bg, safe, sure_sufficient, max_dist_idx,
+    new_vals = demote_ema(grid_vals, bg, safe, sure_sufficient, demote_ball,
                           *demote_weights(its_diff, dyn.score_ray))
     return SepClustersOut(
         grid=new_vals, safe=safe, sure_bg_sufficient=sure_sufficient, converged=converged

@@ -85,6 +85,20 @@ class ScanInput:
 
 
 @dataclass
+class PrebinnedScan:
+    """A host-binned scan for the prebinned ingest (io/binner.py +
+    native/frontend.cpp; ``make_step_fn(frontend_mode="prebinned")``): the
+    host filtered, transformed and histogrammed the scan, so the device
+    frontend is the elementwise unpack K15a.  The pose stays on the host, as
+    in :class:`ScanInput`."""
+
+    packed: Tensor  # uint8 (nz, ny, nx): count & 0x3f | blocker << 7
+    active: Tensor  # uint8 [H*W] per-pixel raycast gate
+    pose: np.ndarray  # float32 [4, 4] — world_T_sensor
+    stats: Tensor  # int32 [2]: (n_valid_points, n_exclude_hits), host-counted
+
+
+@dataclass
 class Detections:
     """Fixed-capacity detections output (msgs/Detection.msg fields)."""
 

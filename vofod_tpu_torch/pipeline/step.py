@@ -1,19 +1,21 @@
 """The end-to-end step: scan -> (state, detections, diagnostics).
 
 PyTorch counterpart of vofod_tpu/pipeline/step.py ``make_step_fn`` for the
-single-stream configurations with the raw frontend: the production one
-(gated sweep raycast, default sepclusters) and the reference-exact one
-(exact DDA raycast, exact sepclusters census, the compat_* quirks):
+single-stream configurations: the production one (gated sweep raycast,
+default sepclusters; raw or prebinned ingest, static or live-tunable
+stencil radii) and the reference-exact one (exact DDA raycast, exact
+sepclusters census, the compat_* quirks):
 
-  1. frontend: filter + transform + voxel binning       (K3)
-  2. background sufficiency + close/far split            (K1, K2)
+  1. frontend: filter + transform + voxel binning  raw: (K3); prebinned:
+     the host bins (io/binner.py), the device unpacks       (K15a)
+  2. background sufficiency + close/far split  (K1, K2; dynamic radii: K14)
   3. point EMA update of the confidence grid             (K11)
   4. classification + floating check + demotions      (K6, K9, K7, K8)
   5. detection extraction                                (K10)
   6. every raycast_every steps: freespace raycast +
      flag-guarded ray EMA update         sweep: (K5a, K4, K5b); exact: (K12)
   7. every sepclusters_every steps: background maint.
-                                   default: (K1, K2, K11); exact: (K13, K2)
+              default: (K1, K2, K11; dynamic radii: K14, K2, K11); exact: (K13, K2)
 
 The JAX step branches on the device (lax.cond / switch / while_loop).  Here
 every branch predicate is a host value — the pause flags, the host pose's
@@ -41,10 +43,11 @@ from vofod_tpu_torch.ops.raycast import (
 from vofod_tpu_torch.pipeline.background import split_and_update
 from vofod_tpu_torch.pipeline.classify import classify
 from vofod_tpu_torch.pipeline.detect import extract_detections
-from vofod_tpu_torch.pipeline.frontend import run_frontend
+from vofod_tpu_torch.pipeline.frontend import run_frontend, run_frontend_prebinned
 from vofod_tpu_torch.pipeline.sepclusters import run_sepclusters
 from vofod_tpu_torch.pipeline.state import (
     Detections,
+    PrebinnedScan,
     ScanInput,
     StepDiagnostics,
     VoFODState,
@@ -53,6 +56,7 @@ from vofod_tpu_torch.sensor import RANGE_TO_METERS, XyzLut
 
 Tensor = torch.Tensor
 RAYCAST_MODES = ("sweep", "exact", "off")
+FRONTEND_MODES = ("raw", "prebinned")
 
 
 @dataclass
@@ -113,28 +117,43 @@ def make_step_fn(
     raycast_every: int = 1,
     mask=None,
     frontend_mode: str = "raw",
-) -> Callable[[VoFODState, ScanInput, DynParams], tuple[VoFODState, StepOutput]]:
-    """Build the step for ``device`` with the raw frontend.
+) -> Callable[[VoFODState, ScanInput | PrebinnedScan, DynParams],
+              tuple[VoFODState, StepOutput]]:
+    """Build the step for ``device``.
     raycast_mode: "sweep" (the gated transmittance sweep, production),
       "exact" (per-ray DDA, the reference's traversal) or "off".
+    frontend_mode: "raw" (the step takes a ScanInput and bins on the
+      device) or "prebinned" (the step takes a PrebinnedScan the host binned,
+      io/binner.py: the production serving ingest).  The exact DDA needs
+      per-pixel ranges, so "prebinned" pairs with the sweep or no raycast.
     raycast_every: apply the freespace update on the steps with
       ``step % N == N - 1`` only, with its_diff = N (the reference's raycast
       thread skips scans under load and compensates so, ref :1540-1548).
     mask: optional uint8/bool [H*W] FOV mask (1 = usable) for the ray gate.
-    The config's exact-census and compat_hascloseto_bounds /
-    compat_counted_indexing modes are ported; "prebinned" ingest, dynamic
-    radii, compat_rangefinder_validity and sequential explore are not yet
-    and raise NotImplementedError.
+    The config's exact-census, compat_hascloseto_bounds /
+    compat_counted_indexing and dynamic_radii modes are ported (dynamic
+    radii in the default sepclusters mode, as in the JAX step);
+    compat_rangefinder_validity and sequential explore are not yet and raise
+    NotImplementedError.
     """
     if raycast_mode not in RAYCAST_MODES:
         raise ValueError(f"unknown raycast_mode {raycast_mode!r}, expected one of {RAYCAST_MODES}")
-    if frontend_mode != "raw":
-        raise NotImplementedError(f"frontend_mode={frontend_mode!r} is not ported yet")
+    if frontend_mode not in FRONTEND_MODES:
+        raise ValueError(f"unknown frontend_mode {frontend_mode!r}, expected one of "
+                         f"{FRONTEND_MODES}")
+    if frontend_mode == "prebinned" and raycast_mode == "exact":
+        raise NotImplementedError(
+            "the exact DDA needs per-pixel ranges; prebinned ingest pairs with the sweep "
+            "raycast (vofod_tpu make_step_fn)")
+    if cfg.dynamic_radii and (cfg.sepclusters_exact_census or cfg.compat_hascloseto_bounds):
+        raise NotImplementedError(
+            "dynamic_radii (runtime stencil radii) is supported in the default sepclusters "
+            "mode only: the exact census's leaf size and the hasCloseTo box are static "
+            "(VoFODConfig.dynamic_radii)")
     if raycast_every < 1:
         raise ValueError(f"raycast_every must be >= 1, got {raycast_every}")
     unported = [
-        f for f in ("dynamic_radii", "compat_rangefinder_validity", "sequential_explore")
-        if getattr(cfg, f)
+        f for f in ("compat_rangefinder_validity", "sequential_explore") if getattr(cfg, f)
     ]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
@@ -154,7 +173,7 @@ def make_step_fn(
         rows = row_table(gate_spec, device)
     zero_i32 = torch.zeros((), dtype=torch.int32, device=device)
 
-    def ray_stage(scan: ScanInput, pose: Tensor, dyn: DynParams, step_idx: int,
+    def ray_stage(scan: ScanInput | PrebinnedScan, pose: Tensor, dyn: DynParams, step_idx: int,
                   vals: Tensor, occupied: Tensor, blockers: Tensor) -> Tensor:
         """Stage 6: freespace raycast + flag-guarded ray EMA update, in
         place on ``vals`` (sweep: K5a, K4, K5b; exact: K12's walk and EMA):
@@ -168,16 +187,20 @@ def make_step_fn(
             return vals
         if step_idx % raycast_every != raycast_every - 1:
             return vals
-        r = scan.ranges_mm * RANGE_TO_METERS
         if raycast_mode == "exact":
+            r = scan.ranges_mm * RANGE_TO_METERS
             rays = exact_rays(cfg, dyn, grid, lut_dirs, lut_offs, mask_dev, r, scan.intensity,
                               pose)
             raylen = raycast_dda(grid, *rays, cfg.raycast_max_distance_bound)
             return ray_ema_grid_(vals, occupied, raylen, ray_ema(cfg, dyn, float(raycast_every)))
         rot = pose[:3, :3]
-        # ref :1449-1450: skip when intensity < min, or masked with no
-        # return (NaN intensity passes, as in the reference)
-        active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
+        if frontend_mode == "prebinned":
+            active = scan.active > 0  # the host binner evaluated the pixel gate
+        else:
+            # ref :1449-1450: skip when intensity < min, or masked with no
+            # return (NaN intensity passes, as in the reference)
+            r = scan.ranges_mm * RANGE_TO_METERS
+            active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
         faces = gate_faces(gate_spec, face_dirs, active.reshape(H, W), rot, rows)
         return raycast_update_(
             grid, vals, occupied, blockers, np.asarray(sensor_pos, np.float32), rot,
@@ -188,7 +211,8 @@ def make_step_fn(
             max_distance_bound=cfg.raycast_max_distance_bound,
         )
 
-    def step(state: VoFODState, scan: ScanInput, dyn: DynParams) -> tuple[VoFODState, StepOutput]:
+    def step(state: VoFODState, scan: ScanInput | PrebinnedScan,
+             dyn: DynParams) -> tuple[VoFODState, StepOutput]:
         pose_np = np.ascontiguousarray(scan.pose, np.float32)
         pose = torch.from_numpy(pose_np)
         if device.type == "cuda":
@@ -199,7 +223,10 @@ def make_step_fn(
         # the record_function ranges name the stages in a torch.profiler
         # trace (chip_smoke.py phase 5); off the profiler they cost ~1 us
         with record_function("vofod.frontend"):
-            fe = run_frontend(cfg, grid, lut_dirs, lut_offs, scan.ranges_mm, pose)
+            if frontend_mode == "prebinned":
+                fe = run_frontend_prebinned(scan)
+            else:
+                fe = run_frontend(cfg, grid, lut_dirs, lut_offs, scan.ranges_mm, pose)
         with record_function("vofod.background"):  # split + point update
             bg = split_and_update(cfg, dyn, state.grid, fe.counts, state.bg_sufficient)
         with record_function("vofod.classify"):  # + floating check, demotions

@@ -6,6 +6,14 @@ single-stream path: it owns the device-resident state, runs the step per
 scan, and converts the fixed-shape outputs to Detections messages with ONE
 device-to-host readback per scan.  The device is explicit: asking for CUDA
 where there is none raises; the node never moves to the CPU on its own.
+
+Ingest (``NodeOptions.frontend_mode``): "raw" uploads the ranges and bins on
+the device (K3); "prebinned" bins on the host with the native binner
+(io/binner.py) straight into one of two pinned staging buffers, taken in
+turn, each guarded by a CUDA event so that it is never rebinned while its
+copy is in flight, and uploads the packed grid with one non-blocking copy;
+"auto" times both on this machine once (``io.binner.probe_ingest_mode``)
+and takes the cheaper.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ import torch
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, yaw_rotation
 from vofod_tpu_torch.io.msgs import Detection, Detections, Header, Status
-from vofod_tpu_torch.pipeline.state import ScanInput, VoFODState, init_state
+from vofod_tpu_torch.io.binner import HostBinner, probe_ingest_mode
+from vofod_tpu_torch.pipeline.state import PrebinnedScan, ScanInput, VoFODState, init_state
 from vofod_tpu_torch.pipeline.step import make_step_fn
 from vofod_tpu_torch.sensor import XyzLut, load_mask, make_lut
 
@@ -34,6 +43,47 @@ class NodeOptions:
     throttle_period: float = 1.0
     mask_path: str = ""  # FOV mask (ref raycast/mask_filename)
     mask_mangle: bool = False  # destagger+transpose quirk (ref :527-543)
+    # "raw" (the device bins), "prebinned" (the host bins: the production
+    # serving ingest; sweep raycast only) or "auto" (probe this machine's
+    # transport once at start-up and take the cheaper; ``VoFOD.ingest_probe``)
+    frontend_mode: str = "raw"
+
+
+FRONTEND_OPTIONS = ("raw", "prebinned", "auto")
+
+
+class _PinnedStaging:
+    """Two sets of pinned host buffers (packed grid, active mask, stats) for
+    the prebinned upload, used in turn.  A set is rebinned only after the
+    copy that last read it has finished (its CUDA event); by then that scan's
+    readback has long waited for it, so the check does not block."""
+
+    def __init__(self, n_voxels: int, n_pixels: int, device: torch.device):
+        self.device = device
+        self.sets = [
+            tuple(torch.empty(n, dtype=dt, pin_memory=True)
+                  for n, dt in ((n_voxels, torch.uint8), (n_pixels, torch.uint8),
+                                (2, torch.int32)))
+            for _ in range(2)
+        ]
+        self.events = [None, None]
+        self.turn = 0
+
+    def next(self) -> tuple[int, tuple[np.ndarray, ...]]:
+        """(set index, numpy views of its buffers) of the set to bin into."""
+        i, self.turn = self.turn, 1 - self.turn
+        ev = self.events[i]
+        if ev is not None and not ev.query():
+            ev.synchronize()
+        return i, tuple(t.numpy() for t in self.sets[i])
+
+    def upload(self, i: int) -> tuple[torch.Tensor, ...]:
+        """One non-blocking copy per buffer of set ``i``; records its event."""
+        out = tuple(t.to(self.device, non_blocking=True) for t in self.sets[i])
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events[i] = ev
+        return out
 
 
 def resolve_device(device) -> torch.device:
@@ -94,12 +144,30 @@ class VoFOD:
             self.cfg.sensor.vertical_rays,
             mangle=self.options.mask_mangle,
         )
+        if self.options.frontend_mode not in FRONTEND_OPTIONS:
+            raise ValueError(f"unknown frontend_mode {self.options.frontend_mode!r}, expected "
+                             f"one of {FRONTEND_OPTIONS}")
+        self.ingest_probe = None
+        if self.options.frontend_mode == "auto":
+            mode, self.ingest_probe = probe_ingest_mode(self.cfg, self.lut, self.mask,
+                                                        self.device)
+            logging.getLogger("vofod_tpu_torch").info(
+                "ingest probe picked %r: %s", mode, self.ingest_probe)
+            self.options = dataclasses.replace(self.options, frontend_mode=mode)
         self._step = make_step_fn(
             self.cfg, self.lut, device=self.device,
             raycast_mode=self.options.raycast_mode,
             raycast_every=self.options.raycast_every,
             mask=self.mask,
+            frontend_mode=self.options.frontend_mode,
         )
+        self._binner = self._staging = None
+        if self.options.frontend_mode == "prebinned":
+            # native only: a failed build raises, the numpy oracle never serves
+            self._binner = HostBinner(self.cfg, self.lut, mask=self.mask)
+            if self.device.type == "cuda":
+                self._staging = _PinnedStaging(self._binner.n_voxels, self._binner.n,
+                                               self.device)
         self._ones_dev = None  # cached all-ones intensity
         self.state: VoFODState = init_state(self.cfg, self.dyn, device=self.device)
         self.n_pose_rejected = 0
@@ -149,6 +217,10 @@ class VoFOD:
                     self.n_pose_rejected,
                 )
             return None, stamp
+        if self._binner is not None:
+            scan = self._prebinned_scan(r, intensity, pose_np)
+            self.state, out = self._step(self.state, scan, self.dyn)
+            return out, stamp
         if intensity is None:
             if self._ones_dev is None:
                 self._ones_dev = torch.ones(n, dtype=torch.float32, device=self.device)
@@ -160,6 +232,19 @@ class VoFOD:
         )
         self.state, out = self._step(self.state, scan, self.dyn)
         return out, stamp
+
+    def _prebinned_scan(self, r, intensity, pose_np) -> PrebinnedScan:
+        """Bin the scan on the host and upload it (pinned staging on CUDA)."""
+        inten = None if intensity is None else np.asarray(intensity, np.float32).reshape(-1)
+        min_i = float(self.dyn.raycast_min_intensity)
+        if self._staging is None:
+            return self._binner.bin(r, pose_np, intensity=inten,
+                                    min_intensity=min_i).to_device(self.device)
+        i, out = self._staging.next()
+        self._binner.bin(r, pose_np, intensity=inten, min_intensity=min_i, out=out)
+        packed, active, stats = self._staging.upload(i)
+        return PrebinnedScan(packed=packed.view(self._binner.shape), active=active,
+                             pose=pose_np, stats=stats)
 
     def fetch_result(self, pending) -> Detections:
         """Wait for a :meth:`process_scan_async` handle and convert it to the
@@ -254,11 +339,19 @@ class VoFOD:
     # -------------------------------------------------------------- live tuning
     def update_params(self, **kwargs) -> None:
         """Change scores/thresholds/gates between scans (the
-        dynamic_reconfigure analogue).  The two stencil radii are static
-        (``cfg.dynamic_radii`` is not ported yet), so changing them raises."""
-        for k in ("ground_points_max_distance", "sepclusters_max_bg_distance"):
-            if k in kwargs:
-                raise ValueError(f"{k} shapes the stencils; it is static in this port")
+        dynamic_reconfigure analogue; the step reads them as host values, so
+        nothing is rebuilt).  The two stencil radii
+        (``ground_points_max_distance``, ``sepclusters_max_bg_distance``)
+        move only on a node built with ``cfg.dynamic_radii`` (the pools then
+        keep the shells of the *_bound radii within them); otherwise the
+        static VoFODConfig values apply and changing them raises, as in
+        vofod_tpu."""
+        if not self.cfg.dynamic_radii:
+            for k in ("ground_points_max_distance", "sepclusters_max_bg_distance"):
+                if k in kwargs:
+                    raise ValueError(
+                        f"{k} shapes the stencils; it is static unless the node is built "
+                        "with cfg.dynamic_radii=True (VoFODConfig.dynamic_radii)")
         self.dyn = dataclasses.replace(self.dyn, **kwargs)
 
     # ----------------------------------------------------------------- status
