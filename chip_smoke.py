@@ -49,7 +49,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    K1 at radius 4, 5, 6 and 7.99 (257 to 2,103 taps, int32 tiles past 48 KB
    of shared memory from halo 6), K2 at 4, 5 and 7.99, K11's demotion at 4,
    5 and 7.99, and K14's shell pools at the dynamic path's tap sets, all
-   bit-equal;
+   bit-equal; K5b without faces (the ungated sweep) within K5b's bounds.
+   K7s, the sequential explore, bit-equal on the grid, the clusters'
+   connected flags and the write count to its plain version (a host loop
+   over K7's and K8's plain versions): the classify inputs of a flagship
+   sequential-explore scan with valid queries, the adversarial scene of
+   tests/test_sequential_demotion.py in the flagship grid (floating, every
+   carved cell demoted), 256 valid queries in 32 clusters over a random
+   field, the same under query overflow, and no valid query;
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
    tests/test_golden.py assertions and that the sweep path's thirteen
    kernels launched;
@@ -73,16 +80,27 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``cfg.dynamic_radii`` (bounds 2.0 / 2.0 m) over 36 scans with the radii
    changed every 12, each segment bit-equal to a static node at its radii
    started from the same state, K14 launched, 1 host sync per scan and no
-   kernel rebuild; step p50/p95 per segment;
+   kernel rebuild; step p50/p95 per segment.  The raw node's steps over 7 ms
+   are counted beside the prebinned node's.  Then the sequential explore,
+   ``sequential_explore`` on the exact path, over the 36 scans: K7s once
+   per scan, K7 and K8 never, 1 host sync per scan, the explore queries
+   and demotion writes.  Then the node's runtime surface: the rangefinder
+   under both validity rules, an NPZ snapshot round trip, the LUT
+   consistency check, a ``trace_dir`` window and ``profile_stages``
+   (bit-equal to a fused node);
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
-   prebinned, dynamic radii at 2.0 / 1.9 m): device time per
-   stage (the step's ``vofod.*`` ranges), the top device ops, the device
-   ops (kernels and copies) launched per scan, matmul kernels and pads per
-   scan, and the device's busy and idle share of the step.
+   prebinned, dynamic radii at 2.0 / 1.9 m, sequential), each from a fresh
+   node after the same 6 warm-up scans: device time per stage (the step's
+   ``vofod.*`` ranges), the top device ops, the device ops (kernels and
+   copies) launched per scan, counted from key_averages and event by event,
+   matmul kernels and pads per scan, and the device's busy and idle share
+   of the step; then the sweep path once more, to show whether the op
+   count depends on the profiler session.
 
 The line before the last is the per-kernel JSON record (launches from the
 path that runs each kernel: the sweep path, the prebinned path for K15a,
-the dynamic-radii path for K14, else the exact path; bound_ms from the bytes
+the dynamic-radii path for K14, the sequential path for K7s, else the exact
+path; bound_ms from the bytes
 and operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -115,7 +133,8 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
     SENTINEL, label_census, label_census_plain, label_components, label_components_plain, sweeps,
     sweeps_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
-    demote_floating, demote_floating_plain, explore, explore_plain)
+    demote_floating, demote_floating_plain, explore, explore_plain, explore_sequential_,
+    explore_sequential_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, shell_pool,
     shell_taps, tap_pool_plain)
@@ -126,7 +145,7 @@ from vofod_tpu_torch.ops.raycast import (  # noqa: E402
 from vofod_tpu_torch.pipeline.background import (  # noqa: E402
     point_ema, point_ema_plain, split_and_update)
 from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
-    CLS_MAV, classify, cluster_stats, cluster_stats_plain)
+    CLS_MAV, classify, cluster_stats, cluster_stats_plain, explore_queries)
 from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
     DetectConsts, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
@@ -177,6 +196,15 @@ EXACT_KERNELS = ("ball_pool", "propagate_sweep", "frontend_bin", "masked_compact
 ONCE_PER_SCAN = ("gate_faces", "ray_update", "detect", "point_ema", "demote_ema")
 ONCE_PER_EXACT_SCAN = ("dda", "ray_ema", "detect", "point_ema", "label_census", "quirk_counts",
                        "exact_demote_ema")
+# the sequential explore path: the exact path with K7s in place of K7 and K8
+SEQUENTIAL_KERNELS = tuple(k for k in EXACT_KERNELS if k not in ("explore_bfs", "demote")) + (
+    "explore_seq",)
+ONCE_PER_SEQUENTIAL_SCAN = ONCE_PER_EXACT_SCAN + ("explore_seq",)
+# tests/test_sequential_demotion.py's scene: relative (x, y) cells carved as
+# unknown in a wall of ray-carved voxels, members A = (0, 0) and B = (2, 0)
+# of one cluster with Manhattan bound 8; A fails and demotes B's escape
+SEQ_CARVED = ((0, 0), (1, 0), (2, 0), (2, 1), (2, 2), (1, 2), (1, 3), (1, 4), (0, 4), (0, 5))
+SEQ_BASE = (120, 100, 25)  # (x, y, z) of the scene's origin in the flagship grid
 # the card's published peaks (H100 SXM data sheet, at 700 W): device memory
 # rate, and float32 outside the tensor cores, the rate every op of these
 # kernels (float or integer compare, add, select) is counted at
@@ -191,6 +219,7 @@ KERNEL_INFO = {
     "masked_compact": ("vofod_tpu_torch/csrc/compact.cu", "vofod_tpu/ops/compaction.py:49"),
     "explore_bfs": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/ops/explore.py:34"),
     "demote": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/ops/explore.py:168"),
+    "explore_seq": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/pipeline/classify.py:211"),
     "cluster_stats": ("vofod_tpu_torch/csrc/classify_stats.cu",
                       "vofod_tpu/pipeline/classify.py:77"),
     "gate_faces": ("vofod_tpu_torch/csrc/ray_gate.cu", "vofod_tpu/ops/raycast.py:559"),
@@ -858,6 +887,14 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
                 raise AssertionError(f"K5b {name}: the EMA changed nothing")
             k5b[name] = cmp
     ema1 = ray_ema(cfg, dyn, 1.0)
+    # the ungated sweep (make_step_fn(raycast_gate=False)): K5b without faces
+    args0 = (occupied, kt, None, rel_x, rel_y, rel_z, rot, x0, y0, c, ema1)
+    a = ray_window_update_(vals.clone(), *args0)
+    b = ray_window_update_plain_(vals.clone(), *args0)
+    cmp = _grid_cmp(a, b, vals, "K5b ungated")
+    if not (cmp["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray) and cmp["n_changed"] > 0):
+        raise AssertionError(f"K5b ungated (faces=None): {cmp}")
+    k5b["ungated (faces=None), new rule, its_diff 1"] = cmp
     work_k, work_p = vals.clone(), vals.clone()
     args1 = (occupied, kt, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema1)
     nw = kt.shape[1] * kt.shape[2] * kt.shape[3]
@@ -867,6 +904,7 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
         tol=K5B_TOL_REL * abs(dyn.score_ray),
         ms=cuda_ms(lambda: ray_window_update_(work_k, *args1)),
         plain_ms=cuda_ms(lambda: ray_window_update_plain_(work_p, *args1)),
+        ungated_ms=cuda_ms(lambda: ray_window_update_(work_k, *args0)),
         cases=k5b, shapes=f"window {tuple(kt.shape[1:])} of {grid.shape}",
     ))
 
@@ -1284,6 +1322,168 @@ def phase2_exact(lut) -> list[dict]:
     return out
 
 
+def sequential_config() -> VoFODConfig:
+    """The reference-exact configuration with the reference's own explore
+    order (tests/test_sequential_demotion.py:218-222) at the flagship size."""
+    return dataclasses.replace(exact_config(), sequential_explore=True)
+
+
+def _inplace_ms(fn, base: torch.Tensor, reps: int = 20) -> float:
+    """Mean device time of fn(grid) over ``reps`` fresh clones of ``base``
+    (for a kernel that updates the grid in place), after one warm-up."""
+    clones = [base.clone() for _ in range(reps + 1)]
+    fn(clones[0])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c in clones[1:]:
+        fn(c)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _seq_queries(grid: GridSpec, ids: torch.Tensor, cluster: torch.Tensor, valid: torch.Tensor,
+                 m_q: torch.Tensor, Q: int, K: int):
+    """A K7s query table of Q slots from flat ids, cluster slots and bounds
+    (the first len(ids) slots; the rest invalid); a cluster's label is its
+    least member id, as the component labels are."""
+    dev = ids.device
+    n = ids.shape[0]
+    qids = torch.zeros(Q, dtype=torch.int32, device=dev)
+    qids[:n] = ids.to(torch.int32)
+    qvalid = torch.zeros(Q, dtype=torch.bool, device=dev)
+    qvalid[:n] = valid
+    slot = torch.full((Q,), -1, dtype=torch.int64, device=dev)
+    slot[:n] = cluster
+    qslot = qvalid[:, None] & (slot[:, None] == torch.arange(K, device=dev)[None, :])
+    lab = torch.full((K,), SENTINEL, dtype=torch.int32, device=dev).scatter_reduce(
+        0, cluster, ids.to(torch.int32), "amin")
+    qlabels = torch.where(qvalid, lab[slot.clamp(min=0)], SENTINEL)
+    mm = torch.zeros(Q, dtype=torch.int32, device=dev)
+    mm[:n] = m_q
+    qx, qy, qz = (t.to(torch.int32) for t in grid.unflatten_id(qids))
+    return qx, qy, qz, qvalid, qlabels, qids, qslot, mm
+
+
+def phase2_sequential(lut) -> list[dict]:
+    """K7s against its plain version (a host loop over K7's and K8's plain
+    versions) on the card, bit-equal on the grid, the clusters' connected
+    flags and the write count: (a) the classify inputs of a flagship
+    sequential-explore scan with valid queries, (b) the adversarial scene of
+    tests/test_sequential_demotion.py stamped into the flagship grid
+    (floating, every carved cell demoted), (c) 256 valid queries over a
+    random field in 32 clusters, (d) the same under query overflow, (e) no
+    valid query."""
+    dev = torch.device("cuda")
+    cfg, dyn = sequential_config(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
+    thr_f, thr_g = dyn.thr_frontiers, dyn.thr_new_obstacles
+    no, yes = (torch.tensor(v, device=dev) for v in (False, True))
+    cases, results = {}, {}
+
+    # (a) a flagship scan of the sequential node with valid queries: its
+    # classify inputs rebuilt from the state before it (frontend, split and
+    # point update, K9, the query compaction), as the step builds them
+    node = VoFOD(cfg, dyn, NodeOptions(raycast_mode="exact"), lut, device=dev)
+    node.load_apriori_map(apriori_ground())
+    dirs = torch.as_tensor(lut.directions, device=dev)
+    offs = torch.as_tensor(lut.offsets, device=dev)
+    for k, (r, p) in enumerate(scan_cycle(lut, N_SCANS)):
+        st = node.state
+        before = (st.grid.clone(), st.bg_sufficient.clone(), st.sure_bg_sufficient.clone())
+        node.process_scan(r, None, p)
+        if int(node.last_diag.n_queries) > 0:
+            break
+    prev_grid, prev_bg, prev_sure = before
+    pose = torch.as_tensor(p, device=dev)
+    counts = frontend_bin(cfg, grid, dirs, offs, torch.as_tensor(r.astype(np.float32), device=dev),
+                          pose)[0]
+    bg = split_and_update(cfg, dyn, prev_grid, counts, prev_bg)
+    fids, fvalid, ftotal = masked_compact(bg.far, cfg.max_far_voxels)
+    stats = cluster_stats(dyn, grid, K, fids, fvalid, bg.labels, ftotal,
+                          pose[:3, 3].contiguous(), bg.bg_sufficient, prev_sure)
+    qids, qvalid, qtotal, qx, qy, qz, qlabels, qslot, m_q = explore_queries(
+        grid, bg.far, bg.labels, stats, Q)
+    scan_q = (qx, qy, qz, qvalid, qlabels, qids, qslot, m_q, qtotal > Q)
+    scan_base = bg.grid
+
+    # (b) the adversarial scene
+    vals_b = torch.full(grid.shape, float(np.float32(dyn.score_ray)), device=dev)
+    bx, by, bz = SEQ_BASE
+    for x, y in SEQ_CARVED:
+        vals_b[bz, by + y, bx + x] = float(np.float32(dyn.score_unknown))
+    ab = torch.tensor([(bz * grid.ny + by) * grid.nx + bx + dx for dx in (0, 2)], device=dev)
+    scene_q = (*_seq_queries(grid, ab, torch.zeros(2, dtype=torch.int64, device=dev),
+                             torch.ones(2, dtype=torch.bool, device=dev),
+                             torch.full((2,), 8, dtype=torch.int32, device=dev), Q, K), no)
+
+    # (c)-(e) 256 valid queries in 32 clusters, starting in the unknown band
+    # of a random field below the percolation threshold (air / unknown /
+    # ground at 80 / 18 / 2 %); every fourth cluster has bound 0 (its
+    # members cannot connect), the others 0-19
+    g = torch.Generator(device=dev).manual_seed(14)
+    u = torch.rand(grid.shape, generator=g, device=dev)
+    unk = 0.5 * (thr_f + thr_g)
+    field = torch.where(u < 0.80, -900.0, torch.where(u < 0.98, unk, -100.0)).float()
+    band = torch.nonzero(field.reshape(-1) == unk)[:, 0]
+    pick = band[torch.randperm(band.shape[0], generator=g, device=dev)[:Q]]
+    cluster = torch.arange(Q, device=dev) % K
+    bound = torch.randint(0, 20, (Q,), generator=g, device=dev, dtype=torch.int32)
+    rnd = _seq_queries(grid, pick, cluster, torch.ones(Q, dtype=torch.bool, device=dev),
+                       torch.where(cluster % 4 == 0, 0, bound).to(torch.int32), Q, K)
+    none = _seq_queries(grid, pick, torch.arange(Q, device=dev) % K,
+                        torch.zeros(Q, dtype=torch.bool, device=dev),
+                        torch.zeros(Q, dtype=torch.int32, device=dev), Q, K)
+
+    runs = {"(a) flagship scan": (scan_base, scan_q), "(b) adversarial scene": (vals_b, scene_q),
+            "(c) 256 queries, 32 clusters": (field, (*rnd, no)),
+            "(d) query overflow": (field, (*rnd, yes)), "(e) no valid query": (field, (*none, no))}
+    for name, (base, q) in runs.items():
+        kg, kc, kn = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, S)
+        pg, pc, pn = explore_sequential_plain(grid, base.clone(), *q, thr_f, thr_g, S)
+        _equal((kg, kc, kn), (pg, pc, pn), f"K7s{name[:3]}.grid K7s{name[:3]}.connected "
+                                           f"K7s{name[:3]}.n_writes")
+        results[name] = (pg, pc, pn)
+        cases[name] = dict(valid_queries=int(q[3].sum()), overflow=bool(q[8]),
+                           clusters_connected=int(pc.sum()), n_writes=int(pn),
+                           demoted_voxels=int((pg != base).sum()))
+    a, b, c_ = (cases[n] for n in ("(a) flagship scan", "(b) adversarial scene",
+                                   "(c) 256 queries, 32 clusters"))
+    bg_, bc, bn = results["(b) adversarial scene"]
+    carved = torch.stack([bg_[bz, by + y, bx + x] for x, y in SEQ_CARVED])
+    checks = dict(
+        scan_matches_step=(a["n_writes"] == int(node.last_diag.n_demoted)
+                           and int(qtotal) == int(node.last_diag.n_queries)),
+        scene_floating=not bool(bc[0]), scene_carved_demoted=bool((carved == thr_f).all())
+        and int(bn) == len(SEQ_CARVED),
+        random_both_verdicts=0 < c_["clusters_connected"] < K and c_["n_writes"] > 0,
+        overflow_and_empty_untouched=all(
+            cases[n]["n_writes"] == 0 and cases[n]["clusters_connected"] == 0
+            for n in ("(d) query overflow", "(e) no valid query")))
+    if not all(checks.values()):
+        raise AssertionError(f"K7s cases: {checks} {cases}")
+    ms = _inplace_ms(lambda v: explore_sequential_(grid, v, *scan_q, thr_f, thr_g, S), scan_base)
+    plain_ms = _inplace_ms(lambda v: explore_sequential_plain(grid, v, *scan_q, thr_f, thr_g, S),
+                           scan_base, reps=1)
+    syn_ms = _inplace_ms(lambda v: explore_sequential_(grid, v, *rnd, no, thr_f, thr_g, S), field)
+    n_valid = a["valid_queries"]
+    out = [dict(
+        name="explore_seq", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        # each valid query's S^3 submap read once, each write once, the
+        # query table in, the K flags and the count out
+        bytes=n_valid * S**3 * 4 + a["n_writes"] * 4 + Q * (6 * 4 + 1 + K) + K + 4,
+        ops=n_valid * S**3 * 7 + Q * Q, library_ms=None, cases=cases, checks=checks,
+        scan_index=k, synthetic_ms=syn_ms,
+        shapes=f"Q={Q}, K={K}, S={S}, one block; ms/plain_ms: case (a) ({n_valid} valid "
+               f"queries, each launch on a fresh copy of the grid); synthetic_ms: case (c)",
+    )]
+    for r_ in out:
+        say("2-kernel", **r_)
+    return out
+
+
 def phase3() -> None:
     """tests/test_golden.py's replay and assertions, kernels on."""
     z = np.load(ROOT / "tests" / "fixtures" / "golden_small.npz")
@@ -1397,16 +1597,20 @@ def phase4_raycast_every(lut, n: int = 6) -> None:
     say("4-raycast-every", scans=n, raycast_every=2, launches=ray)
 
 
-def phase4_exact(lut) -> dict:
+def phase4_exact(lut, sequential: bool = False) -> dict:
     """The reference-exact main path: VoFOD(exact config, raycast_mode
-    "exact") over the scan cycle, every kernel of the path launched."""
-    cfg = exact_config()
+    "exact") over the scan cycle, every kernel of the path launched.  With
+    ``sequential``, the same with ``cfg.sequential_explore``: K7s once per
+    scan and the batched K7 / K8 never."""
+    cfg = sequential_config() if sequential else exact_config()
+    kernels_of_path = SEQUENTIAL_KERNELS if sequential else EXACT_KERNELS
+    once = ONCE_PER_SEQUENTIAL_SCAN if sequential else ONCE_PER_EXACT_SCAN
     node = VoFOD(cfg, DynParams(), NodeOptions(raycast_mode="exact"), lut, device="cuda")
     n_apriori = node.load_apriori_map(apriori_ground())
     scans = scan_cycle(lut, N_EXACT_SCANS)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    step_ms, syncs, n_dets, sweeps, sep_conv = [], [], [], [], []
+    step_ms, syncs, n_dets, sweeps, sep_conv, n_queries, n_demoted = [], [], [], [], [], [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1424,21 +1628,25 @@ def phase4_exact(lut) -> dict:
                 n_dets.append(len(msg.detections))
                 sweeps.append(int(node.last_diag.sep_sweeps))
                 sep_conv.append(bool(node.last_diag.sep_converged))
+                n_queries.append(int(node.last_diag.n_queries))
+                n_demoted.append(int(node.last_diag.n_demoted))
         finally:
             torch.cuda.set_sync_debug_mode(0)
     launches = kernels.launch_counts()
     d = node.last_diag
     g = node.state.grid
+    what = "sequential" if sequential else "exact"
     assert bool(d.bg_sufficient), "background never became sufficient"
     assert not bool(torch.isnan(g).any()) and not bool(torch.isneginf(g).any()), "grid not finite"
-    assert max(syncs) <= 1, f"host syncs per exact scan: {syncs}"
-    missing = [k for k in EXACT_KERNELS if launches[k] == 0]
-    assert not missing, f"kernels never launched on the exact path: {missing}"
-    not_once = {k: launches[k] for k in ONCE_PER_EXACT_SCAN if launches[k] != N_EXACT_SCANS}
-    assert not not_once, f"launches over {N_EXACT_SCANS} exact scans, expected once: {not_once}"
-    sweep_only = {k: launches[k] for k in ("cone_sweep", "gate_faces", "ray_update", "demote_ema")
-                  if launches[k]}
-    assert not sweep_only, f"sweep-path kernels launched on the exact path: {sweep_only}"
+    assert max(syncs) <= 1, f"host syncs per {what} scan: {syncs}"
+    missing = [k for k in kernels_of_path if launches[k] == 0]
+    assert not missing, f"kernels never launched on the {what} path: {missing}"
+    not_once = {k: launches[k] for k in once if launches[k] != N_EXACT_SCANS}
+    assert not not_once, f"launches over {N_EXACT_SCANS} {what} scans, expected once: {not_once}"
+    foreign = ("cone_sweep", "gate_faces", "ray_update", "demote_ema") + (
+        ("explore_bfs", "demote") if sequential else ("explore_seq",))
+    foreign = {k: launches[k] for k in foreign if launches[k]}
+    assert not foreign, f"kernels of other paths launched on the {what} path: {foreign}"
     out = dict(
         scans=N_EXACT_SCANS, grid=list(cfg.grid_shape), rays=cfg.sensor.n_points,
         apriori_voxels=n_apriori,
@@ -1448,12 +1656,15 @@ def phase4_exact(lut) -> dict:
         host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
         label_sweeps_per_scan=sweeps, sep_converged_per_scan=sep_conv,
         detections_per_scan=n_dets, detections_total=int(sum(n_dets)),
+        explore_queries_total=int(sum(n_queries)), demotion_writes_total=int(sum(n_demoted)),
+        scans_with_queries=int(sum(1 for n in n_queries if n)),
+        explore_queries_per_scan=n_queries, demotion_writes_per_scan=n_demoted,
         bg_sufficient=bool(d.bg_sufficient), sure_bg_sufficient=bool(d.sure_bg_sufficient),
         n_bg_voxels=int(d.n_bg_voxels),
         launches=launches,
         launches_per_scan={k: v / N_EXACT_SCANS for k, v in launches.items() if v},
     )
-    say("4-exact", **out)
+    say("4-sequential" if sequential else "4-exact", **out)
     return launches, out["step_ms_p50"]
 
 
@@ -1494,7 +1705,9 @@ def phase4_prebinned(lut) -> dict:
     """The prebinned serving ingest at the flagship size: a raw node and a
     ``NodeOptions(frontend_mode="prebinned")`` node over the same 36 scans in
     one process, held bit-equal scan for scan; K15a once per prebinned scan
-    and K3 never, 1 host sync per scan on both; step p50/p95 of each."""
+    and K3 never, 1 host sync per scan on both; step p50/p95 of each and the
+    count of steps over 7 ms (both ingests upload from staging buffers
+    pinned once)."""
     cfg = VoFODConfig()
     nodes = {m: VoFOD(cfg, DynParams(), NodeOptions(frontend_mode=m), lut, device="cuda")
              for m in ("raw", "prebinned")}
@@ -1538,6 +1751,7 @@ def phase4_prebinned(lut) -> dict:
         step_ms_p50={m: float(np.percentile(v, 50)) for m, v in ms.items()},
         step_ms_p95={m: float(np.percentile(v, 95)) for m, v in ms.items()},
         step_ms_all={m: [round(x, 3) for x in v] for m, v in ms.items()},
+        steps_over_7ms={m: int(sum(1 for x in v if x > 7.0)) for m, v in ms.items()},
         prebinned_host_ms_p50=float(np.percentile(host_ms, 50)),
         host_syncs_per_scan={m: float(np.mean(v)) for m, v in syncs.items()},
         launches_prebinned=lp, launches_raw=lr,
@@ -1613,21 +1827,122 @@ def phase4_dynamic(lut) -> dict:
     return launches, segments[-1]["step_ms_p50"]
 
 
+def phase4_surface(lut) -> None:
+    """The node's runtime surface on the card at the flagship size:
+    ``process_rangefinder`` under both validity rules (one voxel per
+    accepted hit, by the float32 formula), an NPZ snapshot round trip
+    (bit-equal), the LUT consistency check on a rendered scan, a
+    ``trace_dir`` window (its file written), and ``profile_stages`` (three
+    routine durations > 0 per scan, bit-equal to a fused node)."""
+    cfg, dyn = VoFODConfig(), DynParams()
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    scans = scan_cycle(lut, 6)
+    out = {}
+
+    pose = hover_pose((40.0, 20.0, 3.0))
+    pose[:3, :3] = np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], np.float32)  # x axis down
+    sp = np.float32(dyn.score_point)
+    for compat in (False, True):
+        node = VoFOD(dataclasses.replace(cfg, compat_rangefinder_validity=compat), dyn,
+                     NodeOptions(), lut, device="cuda")
+        before = node.state.grid.cpu().numpy().copy()
+        short = node.process_rangefinder(0.05, 0.1, 10.0, pose)  # under min_range
+        hit = node.process_rangefinder(2.5, 0.1, 10.0, pose)
+        after = node.state.grid.cpu().numpy()
+        changed = np.nonzero(after != before)
+        exact = bool(np.all(after[changed] == (before[changed] + sp) / np.float32(2.0)))
+        if not (hit and short == compat and len(changed[0]) == 1 + compat and exact):
+            raise AssertionError(f"rangefinder (compat {compat}): accepted {short}, {hit}; "
+                                 f"{len(changed[0])} voxels changed, float32 formula {exact}")
+        out[f"rangefinder_compat_{compat}"] = dict(accepted=[short, hit],
+                                                   voxels_changed=len(changed[0]))
+
+    fused = VoFOD(cfg, dyn, NodeOptions(), lut, device="cuda")
+    staged = VoFOD(cfg, dyn, NodeOptions(profile_stages=True, check_consistency=True), lut,
+                   device="cuda")
+    stage_ms = []
+    for k, (r, p) in enumerate(scans):
+        pts = (lut.directions * (r.astype(np.float32) * np.float32(1e-3))[:, None]
+               + lut.offsets)
+        a = fused.process_scan(r, None, p)
+        b = staged.process_scan(r, None, p, points_xyz=pts)
+        _same_scan((fused, a), (staged, b), f"profile_stages vs fused, scan {k}")
+        if not all(v > 0 for v in staged.last_stage_ms.values()):
+            raise AssertionError(f"profile_stages: {staged.last_stage_ms}")
+        stage_ms.append(staged.last_stage_ms)
+    if not (staged._sensor_checked and staged._sensor_params_ok):
+        raise AssertionError("check_consistency: the rendered scan failed the LUT check")
+    out["profile_stages"] = dict(
+        bit_equal_to_fused=True, scans=len(scans),
+        routine_ms_p50={n: float(np.median([m[n] for m in stage_ms])) for n in stage_ms[0]},
+        events=len(staged.profiling.events))
+    out["check_consistency"] = dict(checked=True, ok=staged._sensor_params_ok)
+
+    path = str(work / "snapshot.npz")
+    staged.save_snapshot(path)
+    back = VoFOD(cfg, dyn, NodeOptions(), lut, device="cuda")
+    back.load_snapshot(path)
+    for f in dataclasses.fields(back.state):
+        a, b = getattr(back.state, f.name), getattr(staged.state, f.name)
+        if not (a == b if f.name == "step" else torch.equal(a, b)):
+            raise AssertionError(f"snapshot round trip: state.{f.name} differs")
+    out["snapshot"] = dict(bit_equal=True, bytes=Path(path).stat().st_size)
+
+    tracer = VoFOD(cfg, dyn, NodeOptions(trace_dir=str(work / "trace"), trace_skip=1,
+                                         trace_scans=2), lut, device="cuda")
+    for r, p in scans[:4]:
+        tracer.process_scan(r, None, p)
+    if not (tracer._trace_state == "done" and tracer.trace_path
+            and Path(tracer.trace_path).stat().st_size > 0):
+        raise AssertionError(f"trace window: {tracer._trace_state} {tracer.trace_path}")
+    # the window is the process's first profiler session: its device events
+    # per scan, beside phase 5's counts of later sessions
+    trace = json.loads(Path(tracer.trace_path).read_text())["traceEvents"]
+    cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    out["trace"] = dict(scans="1-2", bytes=Path(tracer.trace_path).stat().st_size,
+                        device_events_per_scan={c: sum(1 for e in trace if e.get("cat") == c) / 2
+                                                for c in cats})
+    say("4-surface", **out)
+
+
 def _dev_us(e, self_only: bool) -> float:
     name = "self_device_time_total" if self_only else "device_time_total"
     legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
     return float(getattr(e, name, None) or getattr(e, legacy, 0.0))
 
 
-def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep") -> None:
+def _device_events(prof, n: int) -> dict:
+    """Device-side events of the trace per scan, counted one by one from
+    ``prof.events()`` (not from key_averages), by kind."""
+    from torch.autograd import DeviceType
+
+    kinds = {"kernel": 0, "memcpy": 0, "memset": 0}
+    names = set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        kinds["memcpy" if "memcpy" in low else "memset" if "memset" in low else "kernel"] += 1
+        names.add(e.name)
+    return dict(per_scan=sum(kinds.values()) / n, by_kind={k: v / n for k, v in kinds.items()},
+                distinct_names=len(names))
+
+
+def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
+                   label: str | None = None) -> dict:
     """Where the flagship step's device time goes (torch.profiler), on the
-    sweep, exact, prebinned or dynamic-radii path (the last at its heaviest
-    radii, 2.0 / 1.9 m)."""
+    sweep, exact, prebinned, dynamic-radii (at its heaviest radii, 2.0 /
+    1.9 m) or sequential-explore path.  Every path is counted the same way:
+    a fresh node, the apriori plane, 6 warm-up scans, then one profiler
+    session over ``n`` scans; device ops are counted both from key_averages
+    (the earlier count) and event by event."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg, opts = VoFODConfig(), NodeOptions()
-    if path == "exact":
-        cfg, opts = exact_config(), NodeOptions(raycast_mode="exact")
+    if path in ("exact", "sequential"):
+        cfg = sequential_config() if path == "sequential" else exact_config()
+        opts = NodeOptions(raycast_mode="exact")
     elif path == "prebinned":
         opts = NodeOptions(frontend_mode="prebinned")
     elif path == "dynamic":
@@ -1656,16 +1971,19 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep") -> 
     # what K5 and K10 removed: the gate expansion's matmuls, detect's pads
     gemm = sum(e.count for e in dev_ops if any(w in e.key.lower() for w in ("gemm", "bmm")))
     pads = sum(e.count for e in ops if e.key == "aten::constant_pad_nd")
-    say("5-profile" if path == "sweep" else f"5-profile-{path}", scans=n,
-        profiled_wall_ms_per_scan=round(wall_ms, 3),
-        unprofiled_step_ms_p50=round(step_ms_p50, 3),
-        device_busy_ms_per_scan=round(busy_ms, 3),
-        device_ops_per_scan=sum(e.count for e in dev_ops) / n,
-        idle_share_of_unprofiled_step=round(1.0 - busy_ms / step_ms_p50, 3),
-        stage_device_span_ms_per_scan=stages,
-        gemm_kernels_per_scan=gemm / n, pad_ops_per_scan=pads / n,
-        top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n, e.key[:90]]
-                            for e in top])
+    out = dict(scans=n, profiled_wall_ms_per_scan=round(wall_ms, 3),
+               unprofiled_step_ms_p50=round(step_ms_p50, 3),
+               device_busy_ms_per_scan=round(busy_ms, 3),
+               device_ops_per_scan=sum(e.count for e in dev_ops) / n,
+               device_events=_device_events(prof, n),
+               idle_share_of_unprofiled_step=round(1.0 - busy_ms / step_ms_p50, 3),
+               stage_device_span_ms_per_scan=stages,
+               gemm_kernels_per_scan=gemm / n, pad_ops_per_scan=pads / n,
+               top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n,
+                                    e.key[:90]] for e in top])
+    say(label or ("5-profile" if path == "sweep" else f"5-profile-{path}"), **out)
+    out["counts_by_name"] = {e.key: e.count for e in dev_ops}
+    return out
 
 
 def main() -> int:
@@ -1674,25 +1992,43 @@ def main() -> int:
     lut = make_lut(VoFODConfig().sensor)
     results = phase2(lut)
     results += phase2_exact(lut)
+    results += phase2_sequential(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
     exact_launches, exact_ms_p50 = phase4_exact(lut)
+    seq_launches, seq_ms_p50 = phase4_exact(lut, sequential=True)
     pre_launches, pre_ms_p50 = phase4_prebinned(lut)
     phase4_auto(lut)
     dyn_launches, dyn_ms_p50 = phase4_dynamic(lut)
-    phase5_profile(lut, step_ms_p50)
+    phase4_surface(lut)
+    first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
     phase5_profile(lut, dyn_ms_p50, path="dynamic")
+    phase5_profile(lut, seq_ms_p50, path="sequential")
+    # the sweep path once more, in the last profiler session: the same code
+    # counted in another session says whether the op count is the session's
+    again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")
+    a, b = first["counts_by_name"], again["counts_by_name"]
+    say("5-op-count-sessions", sweep_first=first["device_ops_per_scan"],
+        sweep_last=again["device_ops_per_scan"],
+        sweep_events_first=first["device_events"]["per_scan"],
+        sweep_events_last=again["device_events"]["per_scan"],
+        session_dependent=first["device_ops_per_scan"] != again["device_ops_per_scan"],
+        # why: the device ops whose count over the 5 scans differs
+        differing_ops={k[:80]: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
+                       if a.get(k, 0) != b.get(k, 0)})
+    path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
+                     "explore_seq": seq_launches}
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]
         # launches from the path that runs the kernel: the sweep path, the
-        # prebinned (K15a) and dynamic-radii (K14) paths, else the exact path
+        # prebinned (K15a), dynamic-radii (K14) and sequential (K7s) paths,
+        # else the exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
-             else {"unpack": pre_launches, "shell_pool": dyn_launches}.get(
-                 r["name"], exact_launches).get(r["name"], 0))
+             else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S
         record.append(dict(
             name=r["name"], route="cuda", source=src, replaces=replaces,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.config import Box as JBox, SensorConfig as JSensor, VoFODConfig as JConfig
 from vofod_tpu.geometry import GridSpec as JGrid
 from vofod_tpu.io import binner as jbinner
@@ -211,7 +212,8 @@ def test_node_auto_resolves_and_builds_ingest():
     d = node.ingest_probe
     for k in ("t_raw_upload_ms", "t_prebinned_upload_ms", "t_host_bin_ms", "scatter_ms"):
         assert d[k] > 0, k
-    assert d["raw_bytes"] == cfg.sensor.n_points * 4 and d["native_binner"]
+    # the node prices the raw upload with the intensity it uploads with a scan
+    assert d["raw_bytes"] == cfg.sensor.n_points * 4 * 2 and d["native_binner"]
     # the picked mode built the matching ingest
     assert (node._binner is not None) == (node.options.frontend_mode == "prebinned")
     pre = VoFOD(cfg, DynParams(), NodeOptions(frontend_mode="prebinned"), device="cpu")

@@ -16,11 +16,13 @@ propagation, then classified by both packages.  The parity contract:
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.config import DynParams as JDyn, VoFODConfig as JConfig
 from vofod_tpu.geometry import GridSpec as JGrid
 from vofod_tpu.ops.components import label_components_seeded
@@ -33,6 +35,11 @@ from vofod_tpu_torch.ops.compaction import masked_compact_plain
 from vofod_tpu_torch.pipeline.classify import classify, cluster_stats_plain
 from vofod_tpu_torch.pipeline.detect import extract_detections
 from vofod_tpu_torch.pipeline.sepclusters import run_sepclusters
+
+# the scenes' JAX reference jitted as the JAX step runs it (config and grid
+# static): the seeds share one compile instead of re-running every op eagerly
+j_classify_jit = jax.jit(j_classify, static_argnums=(0, 2))
+j_extract_jit = jax.jit(j_extract, static_argnums=(0, 2))
 
 SHAPE, VOXEL = (10, 12, 14), 0.5
 CFG = dict(max_clusters=8, max_far_voxels=256, max_queries=128, explore_submap=16,
@@ -92,13 +99,13 @@ def _run_scene(vals, far, labels, dyn_kw):
     jcfg, tcfg = JConfig(**CFG), VoFODConfig(**CFG)
     jdyn, tdyn = JDyn(**dyn_kw), DynParams(**dyn_kw)
     jg, tg = JGrid((0.0, 0.0, 0.0), SHAPE, VOXEL), GridSpec((0.0, 0.0, 0.0), SHAPE, VOXEL)
-    jo = j_classify(jcfg, jdyn.as_arrays(), jg, jnp.asarray(vals), jnp.asarray(far),
+    jo = j_classify_jit(jcfg, jdyn.as_arrays(), jg, jnp.asarray(vals), jnp.asarray(far),
                     jnp.asarray(labels), jnp.bool_(True), jnp.asarray(SENSOR),
                     jnp.bool_(True), jnp.bool_(True))
     t = torch.tensor
     to = classify(tcfg, tdyn, tg, torch.from_numpy(vals), torch.from_numpy(far),
                   torch.from_numpy(labels), t(True), torch.from_numpy(SENSOR), t(True), t(True))
-    jd, jc = j_extract(jcfg, jdyn.as_arrays(), jg, jo.grid, jnp.asarray(labels),
+    jd, jc = j_extract_jit(jcfg, jdyn.as_arrays(), jg, jo.grid, jnp.asarray(labels),
                        jnp.asarray(far), jo, jnp.asarray(SENSOR), jnp.int32(5))
     td, tc = extract_detections(tcfg, tdyn, tg, to.grid, torch.from_numpy(labels),
                                 torch.from_numpy(far), to, torch.from_numpy(SENSOR),

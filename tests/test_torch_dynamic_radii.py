@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.config import Box as JBox, DynParams as JDyn, SensorConfig as JSensor
 from vofod_tpu.config import VoFODConfig as JConfig
 from vofod_tpu.ops import morphology as jm

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.geometry import GridSpec as JGrid
 from vofod_tpu.ops.explore import apply_demotions as j_apply
 from vofod_tpu.ops.explore import explore_to_ground as j_explore

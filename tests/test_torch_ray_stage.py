@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.config import DynParams as JDyn, VoFODConfig as JConfig
 from vofod_tpu.ops import raycast as jr
 from vofod_tpu.pipeline.step import ray_update as j_ray_update

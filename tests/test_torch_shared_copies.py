@@ -2,7 +2,7 @@
 
 The port cannot import vofod_tpu where it runs (importing any vofod_tpu
 module loads JAX), so it carries numpy copies of the config, sensor,
-scan-source, angular-gate and host-binner code.  These tests hold each copy to its
+scan-source, angular-gate, host-binner, message and profiling code.  These tests hold each copy to its
 original, check that the port imports no JAX at all, and that asking for a
 CUDA device without one raises instead of running on the CPU.
 """
@@ -20,14 +20,18 @@ import torch
 from vofod_tpu import config as jcfg
 from vofod_tpu import sensor as jsensor
 from vofod_tpu.io import binner as jbinner
+from vofod_tpu.io import msgs as jmsgs
 from vofod_tpu.io import scan_source as jsrc
 from vofod_tpu.ops import raycast as jray
+from vofod_tpu.runtime import profiling as jprof
 from vofod_tpu_torch import config as tcfg
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch import sensor as tsensor
 from vofod_tpu_torch.io import binner as tbinner
+from vofod_tpu_torch.io import msgs as tmsgs
 from vofod_tpu_torch.io import scan_source as tsrc
 from vofod_tpu_torch.ops import raycast as tray
+from vofod_tpu_torch.runtime import profiling as tprof
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -147,6 +151,63 @@ def test_scan_source_copy_matches():
         assert np.array_equal(jsrc.render_scan(js, lut, jp), tsrc.render_scan(ts, lut, tp))
 
 
+@pytest.mark.parametrize("perturb", [0.0, 5e-4, 2e-3])
+def test_check_sensor_params_copy_matches(perturb):
+    lut = tsensor.make_lut_simulation(64, 16, np.deg2rad(90.0))
+    scene = tsrc.Scene(ground_z=-1.0)
+    scene.add_box((5.0, 3.0, -1.0), (7.0, 5.0, 3.0))
+    r = tsrc.render_scan(scene, lut, tsrc.hover_pose((0.0, 0.0, 1.0)))
+    pts = lut.directions * (r * 1e-3)[:, None] + lut.offsets
+    pts[np.argmax(r)] += perturb
+    pts[0] = np.nan  # a non-finite point is not checked
+    assert tsensor.check_sensor_params(lut, pts, r) == jsensor.check_sensor_params(lut, pts, r)
+    assert tsensor.check_sensor_params(lut, pts, r) == (perturb < 1e-3)
+    zero = np.zeros_like(r)
+    assert tsensor.check_sensor_params(lut, pts, zero) == jsensor.check_sensor_params(lut, pts, zero)
+
+
+@pytest.mark.parametrize("with_intensity", [False, True])
+def test_scans_npz_copy_matches(tmp_path, with_intensity):
+    rng = np.random.default_rng(1)
+    ranges = rng.integers(0, 9000, (3, 64), dtype=np.uint32)
+    poses = np.stack([tsrc.hover_pose((k, 0.0, 1.0)) for k in range(3)])
+    inten = rng.random((3, 64)).astype(np.float32) if with_intensity else None
+    paths = [str(tmp_path / "t.npz"), str(tmp_path / "j.npz")]
+    tsrc.save_scans_npz(paths[0], ranges, poses, intensity=inten)
+    jsrc.save_scans_npz(paths[1], ranges, poses, intensity=inten)
+    for p in paths:
+        a, b = tsrc.load_scans_npz(p), jsrc.load_scans_npz(p)
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or np.array_equal(x, y)
+
+
+def test_profiling_copy_matches():
+    """The same calls give the same event stream (routine ids, sequence
+    numbers, event types) and ScopeTimer checkpoints; ProfilingInfo's
+    fields and constants are the original's."""
+    assert dataclasses.asdict(tmsgs.ProfilingInfo()) == dataclasses.asdict(jmsgs.ProfilingInfo())
+    for name in ("EVENT_START", "EVENT_END", "ROUTINE_CNC", "ROUTINE_SEPBGCLUSTERS",
+                 "ROUTINE_RAYCASTING"):
+        assert getattr(tmsgs.ProfilingInfo, name) == getattr(jmsgs.ProfilingInfo, name)
+    streams = []
+    for mod, msgs in ((tprof, tmsgs), (jprof, jmsgs)):
+        seen = []
+        s = mod.ProfilingStream()
+        s.set_publisher(seen.append)
+        with s.routine(msgs.ProfilingInfo.ROUTINE_CNC):
+            pass
+        s.start(msgs.ProfilingInfo.ROUTINE_RAYCASTING)
+        s.end(msgs.ProfilingInfo.ROUTINE_RAYCASTING)
+        with s.routine(msgs.ProfilingInfo.ROUTINE_CNC):
+            pass
+        assert seen == s.events
+        streams.append([(e.routine_id, e.event_sequence, e.event_type) for e in s.events])
+        t = mod.ScopeTimer("x")
+        t.checkpoint("a")
+        assert [c[0] for c in t.checkpoints] == ["a"] and t.total() >= t.checkpoints[0][1]
+    assert streams[0] == streams[1]
+
+
 @pytest.mark.parametrize("use_native", [True, False])
 def test_binner_copy_matches(use_native):
     """The port's io/binner.py against vofod_tpu/io/binner.py: the same
@@ -217,6 +278,14 @@ _NO_JAX = textwrap.dedent(
         extra.process_scan(render_scan(scene, node.lut, pose), None, pose)
         assert extra.state.step == 1 and int(extra.last_diag.n_occupied) > 0
     assert pre._binner.native
+    # the sequential explore with the exact census, and the node surface
+    seq_cfg = dataclasses.replace(cfg, sequential_explore=True, sepclusters_exact_census=True,
+                                  compat_hascloseto_bounds=True)
+    seq = VoFOD(seq_cfg, DynParams(), NodeOptions(raycast_mode="exact", profile_stages=True),
+                device="cpu")
+    seq.process_scan(render_scan(scene, node.lut, pose), None, pose)
+    assert set(seq.last_stage_ms) == {"cnc", "raycasting", "sepbgclusters"}
+    assert seq.process_rangefinder(1.0, 0.1, 10.0, pose)
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("NO_JAX_OK", int(node.last_diag.n_occupied))
     """
@@ -283,6 +352,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: kernels.quirk_counts(b, b, 1),
         lambda: kernels.unpack(torch.zeros((4, 4, 4), dtype=torch.uint8)),
         lambda: kernels.shell_pool(a, np.zeros((1, 3), np.int32), 0, "max", 0),
+        lambda: kernels.explore_sequential_(g, k1, k1, k1, torch.zeros(2, dtype=torch.bool), k1,
+                                            k1, torch.zeros((2, 3), dtype=torch.bool), k1,
+                                            torch.zeros((), dtype=torch.bool), -750.0, -300.0,
+                                            4, 96),
         lambda: kernels.exact_demote_ema(g, b, i, torch.zeros(2, dtype=torch.bool),
                                          torch.zeros((), dtype=torch.bool), 1,
                                          np.zeros((1, 3), np.int32), 0, 24.0, 0.5, -1000.0,

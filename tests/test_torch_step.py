@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from vofod_tpu.config import Box as JBox, DynParams as JDyn, SensorConfig as JSensor
 from vofod_tpu.config import VoFODConfig as JConfig
 from vofod_tpu.runtime.node import NodeOptions as JOptions, VoFOD as JNode
@@ -193,12 +194,15 @@ _MODES = [  # (change, ported): the JAX step's modes and whether the port has th
     (dict(raycast_mode="exact"), True), (dict(raycast_mode="off"), True),
     (dict(frontend_mode="prebinned"), True), (dict(cfg="dynamic_radii"), True),
     (dict(cfg="compat_hascloseto_bounds"), True), (dict(cfg="compat_counted_indexing"), True),
-    (dict(cfg="compat_rangefinder_validity"), False), (dict(cfg="sepclusters_exact_census"), True),
-    (dict(cfg="sequential_explore"), False),
+    (dict(cfg="compat_rangefinder_validity"), True), (dict(cfg="sepclusters_exact_census"), True),
+    (dict(cfg="sequential_explore"), True),
     (dict(frontend_mode="prebinned", raycast_mode="exact"), False),
     (dict(cfg=("dynamic_radii", "sepclusters_exact_census")), False),
     (dict(cfg=("dynamic_radii", "compat_hascloseto_bounds")), False),
     (dict(frontend_mode="prebinned", raycast_mode="off", cfg="dynamic_radii"), True),
+    (dict(raycast_gate=False), True),
+    (dict(cfg=("sequential_explore", "sepclusters_exact_census", "compat_hascloseto_bounds"),
+          raycast_mode="exact"), True),
 ]
 
 

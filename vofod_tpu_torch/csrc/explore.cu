@@ -1,5 +1,6 @@
-// K7 — the bounded flood-fill to ground (explore BFS), and K8 — the
-// demotion write-back of failed searches.
+// K7 — the bounded flood-fill to ground (explore BFS), K8 — the demotion
+// write-back of failed searches, and K7s — the sequential explore with live
+// demotion.
 //
 // K7 replaces vofod_tpu/ops/explore.py `explore_to_ground`: per query an
 // S x S x S submap around the query voxel, a 6-neighbour BFS through the
@@ -13,7 +14,7 @@
 // 32 MB of grid reads at most) but the BFS is a chain of up to 96
 // dependent sweeps; as plain PyTorch every sweep was ~12 launches over
 // [Q, S, S] words.  Here one block runs one query's whole BFS in shared
-// memory:
+// memory (bfs_block):
 //  - the submap is read straight from the grid, one warp per x-row (a
 //    coalesced 128-byte row at S = 32); a voxel outside the grid reads
 //    -1e30, certain air, so the whole-grid pad of the JAX version is gone;
@@ -37,12 +38,29 @@
 // writers of a voxel store the same value: plain stores, no atomics on the
 // grid.  It updates the grid in place and counts its writes in one device
 // int32.
+//
+// K7s replaces the lax.scan of vofod_tpu/pipeline/classify.py:222-267
+// (cfg.sequential_explore, the reference's own order, vofod_nodelet.cpp
+// :1692-1718): the queries run one at a time in ascending (component label,
+// flat id) order, a query whose cluster already connected is skipped, and a
+// failed query demotes its reached voxels before the next one reads the
+// grid.  That chain is sequential by definition, so it is ONE block of 1024
+// threads walking the Q queries in one launch (no host sync, no launch per
+// query): the order is a Q x Q rank in the block, the connected clusters a
+// flag per slot in shared memory, each query runs K7's bfs_block on the
+// CURRENT grid and, when it fails, writes min(v, thr) at its reached voxels
+// before a __syncthreads().  The grid is read and written in the same
+// launch, so it is no `const __restrict__` pointer and every read goes
+// through L2 (__ldcg), never the read-only cache, which is not coherent with
+// the kernel's own stores.  Bound: latency again — valid queries x sweeps
+// on one SM.
 #include "common.cuh"
 
 namespace {
 
 constexpr int EXPLORE_T = 256;
 constexpr int DEMOTE_T = 256;
+constexpr int SEQ_T = 1024;
 
 template <typename W>
 __device__ __forceinline__ W low_bits(int n) {  // n in [0, 8 * sizeof(W)]
@@ -77,34 +95,22 @@ __device__ __forceinline__ W dil6_row(const W* m, int r, int z, int y, int S, W 
   return d;
 }
 
-template <typename W>
-__global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
-    const float* __restrict__ grid, int nz, int ny, int nx,
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
-    const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
-    int max_iters, uint8_t* __restrict__ connected,
-    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int q = blockIdx.x;
+// A grid read: through the read-only cache when no thread of the launch
+// writes the grid (K7), through L2 when the launch writes it (K7s).
+template <bool kLive>
+__device__ __forceinline__ float grid_at(const float* grid, size_t i) {
+  return kLive ? __ldcg(grid + i) : __ldg(grid + i);
+}
+
+// One query's BFS by the whole block, submap corner (x0, y0, z0).  Returns
+// (the same on every thread) whether the flood's closure touched ground or
+// the reached set the shell at bound - 1; the reached rows are left in
+// `cur`.  Ends on a barrier, so the caller may read every row of `cur`.
+template <typename W, bool kLive>
+__device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
+                          int bound, float thr_f, float thr_g, int S, int max_iters,
+                          W* expandable, W* ground, W*& cur, W*& nxt) {
   const int half = S / 2, rows = S * S;
-  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
-  unsigned long long* rout = reached_out + (size_t)q * rows;
-  if (threadIdx.x == 0) {
-    corners[3 * q + 0] = z0;
-    corners[3 * q + 1] = y0;
-    corners[3 * q + 2] = x0;
-  }
-  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = 0ull;
-    if (threadIdx.x == 0) connected[q] = 0;
-    return;
-  }
-  W* expandable = reinterpret_cast<W*>(smem_raw);
-  W* ground = expandable + rows;
-  W* cur = ground + rows;
-  W* nxt = cur + rows;
-  const int bound = min(max_manhattan[q], half - 1);
   const W full = low_bits<W>(S);
 
   // submap -> packed rows: one warp per row, 32 x-lanes per chunk
@@ -118,7 +124,8 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
     for (int xc = 0; xc < S; xc += 32) {
       const int x = xc + lane, gx = x0 + x;
       float v = -1e30f;  // outside the grid: certain air
-      if (x < S && row_in && gx >= 0 && gx < nx) v = grid[((size_t)gz * ny + gy) * nx + gx];
+      if (x < S && row_in && gx >= 0 && gx < nx)
+        v = grid_at<kLive>(grid, ((size_t)gz * ny + gy) * nx + gx);
       const unsigned bu = __ballot_sync(0xffffffffu, x < S && v > thr_f && v <= thr_g);
       const unsigned bg = __ballot_sync(0xffffffffu, x < S && v > thr_g);
       unk |= W(bu) << xc;
@@ -158,20 +165,51 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const int z = r / S, y = r - (r / S) * S;
     const int dzy = abs(z - half) + abs(y - half);
-    const W c = cur[r];
     W clo = dil6_row<W>(cur, r, z, y, S, full) & ball_bits<W>(dzy, bound, half);
     if (z == half && y == half) clo |= W(1) << half;
     hit |= (clo & ground[r]) != 0;
-    hit |= (c & shell_bits<W>(dzy, bound - 1, half)) != 0;
-    rout[r] = (unsigned long long)c;
+    hit |= (cur[r] & shell_bits<W>(dzy, bound - 1, half)) != 0;
   }
-  hit = __syncthreads_or(hit);
+  return __syncthreads_or(hit) != 0;
+}
+
+__device__ __forceinline__ bool at_grid_edge(int gx, int gy, int gz, int nz, int ny, int nx) {
+  return gx <= 0 || gy <= 0 || gz <= 0 || gx >= nx - 1 || gy >= ny - 1 || gz >= nz - 1;
+}
+
+template <typename W>
+__global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
+    const float* __restrict__ grid, int nz, int ny, int nx,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
+    const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
+    int max_iters, uint8_t* __restrict__ connected,
+    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int q = blockIdx.x;
+  const int half = S / 2, rows = S * S;
+  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
+  unsigned long long* rout = reached_out + (size_t)q * rows;
   if (threadIdx.x == 0) {
-    const int gx = x0 + half, gy = y0 + half, gz = z0 + half;
-    const bool at_edge = gx <= 0 || gy <= 0 || gz <= 0 || gx >= nx - 1 ||
-                         gy >= ny - 1 || gz >= nz - 1;
-    connected[q] = (hit || at_edge) ? 1 : 0;
+    corners[3 * q + 0] = z0;
+    corners[3 * q + 1] = y0;
+    corners[3 * q + 2] = x0;
   }
+  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = 0ull;
+    if (threadIdx.x == 0) connected[q] = 0;
+    return;
+  }
+  W* expandable = reinterpret_cast<W*>(smem_raw);
+  W* ground = expandable + rows;
+  W* cur = ground + rows;
+  W* nxt = cur + rows;
+  const int bound = min(max_manhattan[q], half - 1);
+  const bool hit = bfs_block<W, false>(grid, nz, ny, nx, x0, y0, z0, bound, thr_f, thr_g, S,
+                                       max_iters, expandable, ground, cur, nxt);
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = (unsigned long long)cur[r];
+  if (threadIdx.x == 0)
+    connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz, ny, nx)) ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
@@ -219,22 +257,133 @@ __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
 }
 
 template <typename W>
+__global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
+    float* grid, int nz, int ny, int nx,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
+    const int32_t* __restrict__ qlabels, const int32_t* __restrict__ qids,
+    const uint8_t* __restrict__ qslot, const int32_t* __restrict__ max_manhattan,
+    const uint8_t* __restrict__ query_overflow, float thr_f, float thr_g, int Q, int K, int S,
+    int max_iters, uint8_t* __restrict__ cluster_connected, int32_t* __restrict__ n_writes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int total;
+  const int half = S / 2, rows = S * S;
+  W* expandable = reinterpret_cast<W*>(smem_raw);
+  W* ground = expandable + rows;
+  W* buf_a = ground + rows;
+  W* buf_b = buf_a + rows;
+  int* order = reinterpret_cast<int*>(buf_b + rows);  // order[j]: the j-th query
+  uint8_t* conn = reinterpret_cast<uint8_t*>(order + Q);  // slot k has connected
+
+  // rank by (label, id, index): jnp.lexsort((qids, qlabels)), a stable sort
+  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+    const int li = qlabels[i], di = qids[i];
+    int rank = 0;
+    for (int j = 0; j < Q; ++j) {
+      const int lj = qlabels[j], dj = qids[j];
+      rank += lj < li || (lj == li && (dj < di || (dj == di && j < i)));
+    }
+    order[rank] = i;
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) conn[k] = 0;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+
+  int count = 0;
+  // under query overflow every query is skipped (the cluster verdicts are
+  // conservative then); the launch still happens, so the host never reads it
+  for (int j = 0; j < Q && query_overflow[0] == 0; ++j) {
+    const int q = order[j];
+    if (qvalid[q] == 0) continue;
+    const uint8_t* slots = qslot + (size_t)q * K;
+    int already = 0;
+    for (int k = threadIdx.x; k < K; k += blockDim.x) already |= slots[k] != 0 && conn[k] != 0;
+    if (__syncthreads_or(already)) continue;  // its cluster connected before
+    const int gx = qx[q], gy = qy[q], gz = qz[q];
+    // grid-edge starts connect by definition; their BFS could not change that
+    bool connected = at_grid_edge(gx, gy, gz, nz, ny, nx);
+    if (!connected) {
+      W* cur = buf_a;
+      W* nxt = buf_b;
+      const int bound = min(max_manhattan[q], half - 1);
+      const int x0 = gx - half, y0 = gy - half, z0 = gz - half;
+      connected = bfs_block<W, true>(grid, nz, ny, nx, x0, y0, z0, bound, thr_f, thr_g, S,
+                                     max_iters, expandable, ground, cur, nxt);
+      if (!connected) {
+        // live demotion: min(v, thr) at the reached voxels inside the grid
+        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+          W w = cur[r];
+          const int gzr = z0 + r / S, gyr = y0 + r % S;
+          if (w == W(0) || gzr < 0 || gzr >= nz || gyr < 0 || gyr >= ny) continue;
+          float* row = grid + ((size_t)gzr * ny + gyr) * nx;
+          while (w != W(0)) {
+            const int x = __ffsll((long long)w) - 1;
+            w &= w - 1;
+            const int gxr = x0 + x;
+            if (gxr < 0 || gxr >= nx) continue;
+            if (row[gxr] > thr_f) row[gxr] = thr_f;  // min(v, thr), NaN kept
+            ++count;
+          }
+        }
+        __syncthreads();  // the next query's submap reads these stores
+      }
+    }
+    if (connected) {
+      for (int k = threadIdx.x; k < K; k += blockDim.x)
+        if (slots[k] != 0) conn[k] = 1;
+      __syncthreads();
+    }
+  }
+
+  for (int k = threadIdx.x; k < K; k += blockDim.x) cluster_connected[k] = conn[k];
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(&total, count);
+  __syncthreads();
+  if (threadIdx.x == 0) n_writes[0] = total;
+}
+
+template <typename Kern>
+int allow_smem(Kern kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+template <typename W>
 int launch_explore(const void* grid, int nz, int ny, int nx, const void* qx, const void* qy,
                    const void* qz, const void* qvalid, const void* mm, float thr_f,
                    float thr_g, int Q, int S, int max_iters, void* connected, void* reached,
                    void* corners, cudaStream_t s) {
   const size_t smem = 4 * (size_t)S * S * sizeof(W);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        explore_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = allow_smem(explore_kernel<W>, smem);
+  if (e != 0) return e;
   explore_kernel<W><<<Q, EXPLORE_T, smem, s>>>(
       static_cast<const float*>(grid), nz, ny, nx, static_cast<const int32_t*>(qx),
       static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
       static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(mm), thr_f, thr_g, S,
       max_iters, static_cast<uint8_t*>(connected),
       static_cast<unsigned long long*>(reached), static_cast<int32_t*>(corners));
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_explore_seq(void* grid, int nz, int ny, int nx, const void* qx, const void* qy,
+                       const void* qz, const void* qvalid, const void* qlabels,
+                       const void* qids, const void* qslot, const void* mm,
+                       const void* query_overflow, float thr_f, float thr_g, int Q, int K,
+                       int S, int max_iters, void* cluster_connected, void* n_writes,
+                       cudaStream_t s) {
+  const size_t smem = 4 * (size_t)S * S * sizeof(W) + (size_t)Q * sizeof(int) + (size_t)K;
+  const int e = allow_smem(explore_seq_kernel<W>, smem);
+  if (e != 0) return e;
+  explore_seq_kernel<W><<<1, SEQ_T, smem, s>>>(
+      static_cast<float*>(grid), nz, ny, nx, static_cast<const int32_t*>(qx),
+      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
+      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(qlabels),
+      static_cast<const int32_t*>(qids), static_cast<const uint8_t*>(qslot),
+      static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), thr_f,
+      thr_g, Q, K, S, max_iters, static_cast<uint8_t*>(cluster_connected),
+      static_cast<int32_t*>(n_writes));
   return (int)cudaGetLastError();
 }
 
@@ -275,4 +424,28 @@ VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, const void* reach
       static_cast<const uint8_t*>(qgate), static_cast<const uint8_t*>(query_overflow), Q, K,
       thr, static_cast<int*>(n_writes));
   return (int)cudaGetLastError();
+}
+
+// K7s, in place on grid: the sequential explore of the Q queries in (label,
+// id) order with live demotion.  qx/qy/qz/qlabels/qids/max_manhattan: int32
+// [Q]; qvalid: bool [Q]; qslot: bool [Q, K]; query_overflow: bool scalar.
+// Outputs: cluster_connected bool [K], n_writes int32 scalar (written, not
+// added to).  1 <= Q <= 4096, 2 <= S <= 62.
+VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const void* qx,
+                                       const void* qy, const void* qz, const void* qvalid,
+                                       const void* qlabels, const void* qids, const void* qslot,
+                                       const void* max_manhattan, const void* query_overflow,
+                                       float thr_f, float thr_g, int Q, int K, int S,
+                                       int max_iters, void* cluster_connected, void* n_writes,
+                                       void* stream) {
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S <= 32)
+    return launch_explore_seq<uint32_t>(grid, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
+                                        qslot, max_manhattan, query_overflow, thr_f, thr_g, Q,
+                                        K, S, max_iters, cluster_connected, n_writes, s);
+  return launch_explore_seq<unsigned long long>(grid, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
+                                                qids, qslot, max_manhattan, query_overflow,
+                                                thr_f, thr_g, Q, K, S, max_iters,
+                                                cluster_connected, n_writes, s);
 }

@@ -15,8 +15,8 @@ the native path in the tests; it runs only when asked for
 
 ``probe_ingest_mode`` times this deployment's transport and picks the
 cheaper ingest (``frontend_mode="auto"``).  Where the JAX probe prices the
-device scatter at a TPU v5e figure, this one times a warm K3 launch on the
-device it serves.
+device scatter at a TPU v5e figure, this one times K3 on the device it
+serves, as the step pays for it.
 """
 
 from __future__ import annotations
@@ -215,21 +215,50 @@ def _clock_ms(fn, device: torch.device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def probe_ingest_mode(cfg: VoFODConfig, lut: XyzLut, mask: np.ndarray | None, device,
-                      rounds: int = 3) -> tuple[str, dict]:
-    """Measure this deployment once and pick the ingest: ``(mode, details)``,
-    details holding every number measured (best of ``rounds``, on fresh
-    random scans).
+def _mean_ms(fn, device: torch.device, reps: int) -> float:
+    """Mean milliseconds of ``reps`` warm calls of fn(), back to back as the
+    step issues them: between two CUDA events on the card, on the host clock
+    on the CPU."""
+    fn()
+    fn()  # warm
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
 
-    * the host bin of a scan (native, warm);
-    * the raw upload: the float32 ranges and the pose, as the node sends
-      them (pinned per scan, non-blocking copy);
+
+_K3_LAUNCHES = 10  # the probe's K3 time is the mean of this many warm launches
+
+
+def probe_ingest_mode(cfg: VoFODConfig, lut: XyzLut, mask: np.ndarray | None, device,
+                      rounds: int = 3, with_intensity: bool = True) -> tuple[str, dict]:
+    """Measure this deployment once and pick the ingest: ``(mode, details)``,
+    details holding every number measured.  Each side is priced as the node
+    pays for it (runtime/node.py), best of ``rounds`` on fresh random scans:
+
+    * the host bin of a scan (native, warm) into a staging set;
+    * the raw upload: the float32 ranges, and the intensity when
+      ``with_intensity`` (the node uploads one whenever the scan has it),
+      copied into a staging set and sent with one non-blocking copy each
+      (io/staging.py, as the node does);
     * the prebinned upload: the packed grid, the active mask and the stats
-      pair from pinned staging buffers, and the pose;
-    * the device histogram the raw path pays and prebinned removes: a warm
-      K3 launch (CUDA events on the card, the plain version's host time on
-      the CPU)."""
+      pair from a staging set;
+    * the device histogram the raw path pays and prebinned removes: K3 as
+      the step pays it, the mean of ``_K3_LAUNCHES`` warm launches back to
+      back between two CUDA events (the plain version's host time on the
+      CPU).
+    The pose upload is the same on both paths and left out."""
     from vofod_tpu_torch.geometry import GridSpec
+    from vofod_tpu_torch.io.staging import HostStaging
     from vofod_tpu_torch.pipeline.frontend import frontend_bin
 
     device = torch.device(device)
@@ -238,52 +267,47 @@ def probe_ingest_mode(cfg: VoFODConfig, lut: XyzLut, mask: np.ndarray | None, de
     hb = HostBinner(cfg, lut, mask=mask)
     rng = np.random.default_rng(0)
     pose = np.eye(4, dtype=np.float32)
-    staging = [torch.empty(n, dtype=dt, pin_memory=cuda)
-               for n, dt in ((hb.n_voxels, torch.uint8), (n_pts, torch.uint8), (2, torch.int32))]
-    out = tuple(t.numpy() for t in staging)
+    raw_st = HostStaging(((n_pts, torch.float32), (n_pts, torch.float32)), device)
+    pre_st = HostStaging(((hb.n_voxels, torch.uint8), (n_pts, torch.uint8), (2, torch.int32)),
+                         device)
+    inten = rng.random(n_pts).astype(np.float32)
 
-    def upload(a: torch.Tensor) -> torch.Tensor:
-        return a.pin_memory().to(device, non_blocking=True) if cuda else a.to(device)
+    def raw_upload(r: np.ndarray):
+        i, (r_buf, i_buf) = raw_st.next()
+        np.copyto(r_buf, r, casting="unsafe")
+        if not with_intensity:
+            return raw_st.upload(i, 1)
+        np.copyto(i_buf, inten)
+        return raw_st.upload(i)
 
-    hb.bin(rng.integers(0, 20000, n_pts, dtype=np.uint32), pose, out=out)  # warm
+    t_bin = t_raw = t_pre = float("inf")
+    for k in range(rounds + 1):  # round 0 warms the binner and the copies
+        r = rng.integers(0, 20000, n_pts, dtype=np.uint32)
+        i, out = pre_st.next()
+        t0 = time.perf_counter()
+        hb.bin(r, pose, out=out)
+        t_bin_k = (time.perf_counter() - t0) * 1e3
+        t_pre_k = _clock_ms(lambda: pre_st.upload(i), device)
+        t_raw_k = _clock_ms(lambda: raw_upload(r), device)
+        if k > 0:
+            t_bin, t_raw, t_pre = min(t_bin, t_bin_k), min(t_raw, t_raw_k), min(t_pre, t_pre_k)
     grid = GridSpec.from_config(cfg)
     dirs = torch.as_tensor(lut.directions, device=device)
     offs = torch.as_tensor(lut.offsets, device=device)
     pose_dev = torch.as_tensor(pose, device=device)
-    t_bin = t_raw = t_pre = t_k3 = float("inf")
-    for k in range(rounds + 1):  # round 0 warms the copies and K3
-        r = rng.integers(0, 20000, n_pts, dtype=np.uint32)
-        t0 = time.perf_counter()
-        hb.bin(r, pose, out=out)
-        t_bin_k = (time.perf_counter() - t0) * 1e3
-        raw = torch.from_numpy(r.astype(np.float32))
-        p = torch.from_numpy(pose)
-        t_raw_k = _clock_ms(lambda: (upload(raw), upload(p)), device)
-        t_pre_k = _clock_ms(lambda: ([t.to(device, non_blocking=True) for t in staging],
-                                     upload(p)), device)
-        ranges_dev = raw.to(device)
-        if cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize(device)
-            start.record()
-            frontend_bin(cfg, grid, dirs, offs, ranges_dev, pose_dev)
-            end.record()
-            torch.cuda.synchronize(device)
-            t_k3_k = start.elapsed_time(end)
-        else:
-            t_k3_k = _clock_ms(lambda: frontend_bin(cfg, grid, dirs, offs, ranges_dev, pose_dev),
-                               device)
-        if k > 0:
-            t_bin, t_raw = min(t_bin, t_bin_k), min(t_raw, t_raw_k)
-            t_pre, t_k3 = min(t_pre, t_pre_k), min(t_k3, t_k3_k)
+    ranges_dev = torch.as_tensor(r.astype(np.float32), device=device)
+    t_k3 = _mean_ms(lambda: frontend_bin(cfg, grid, dirs, offs, ranges_dev, pose_dev), device,
+                    _K3_LAUNCHES)
     mode = choose_ingest(t_raw, t_pre, t_bin, t_k3)
+    how = f"the mean of {_K3_LAUNCHES} warm launches back to back"
     return mode, {
         "t_raw_upload_ms": t_raw,
         "t_prebinned_upload_ms": t_pre,
         "t_host_bin_ms": t_bin,
         "scatter_ms": t_k3,
-        "scatter_from": "K3 frontend_bin, CUDA events" if cuda else "K3 plain version, host clock",
-        "raw_bytes": n_pts * 4,
+        "scatter_from": (f"K3 frontend_bin, {how} between two CUDA events" if cuda
+                         else f"K3 plain version, {how} on the host clock"),
+        "raw_bytes": n_pts * 4 * (2 if with_intensity else 1),
         "prebinned_bytes": hb.n_voxels + n_pts + 8,
         "device": str(device),
         "native_binner": hb.native,

@@ -44,3 +44,20 @@ class Status:
     header: Header = field(default_factory=Header)
     detection_enabled: bool = False
     detection_active: bool = False
+
+
+@dataclass
+class ProfilingInfo:
+    """msgs/ProfilingInfo.msg:1-7 (START/END event stream)."""
+
+    EVENT_START = 0
+    EVENT_END = 1
+    # routine ids (ref profile_routines_t, vofod_nodelet.cpp:132-138)
+    ROUTINE_CNC = 1
+    ROUTINE_SEPBGCLUSTERS = 2
+    ROUTINE_RAYCASTING = 3
+
+    stamp: float = 0.0
+    routine_id: int = 0
+    event_sequence: int = 0
+    event_type: int = 0

@@ -1,4 +1,4 @@
-"""Scan source: the analytic scene simulator.
+"""Scan sources: the analytic scene simulator + NPZ replay.
 
 A copy of vofod_tpu/io/scan_source.py that imports no JAX (the original
 reaches JAX through vofod_tpu.sensor); tests/test_torch_shared_copies.py
@@ -97,3 +97,31 @@ def hover_pose(xyz, yaw: float = 0.0) -> np.ndarray:
     T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
     T[:3, 3] = np.asarray(xyz, np.float32)
     return T
+
+
+def save_scans_npz(
+    path: str, ranges: np.ndarray, poses: np.ndarray, stamps=None,
+    intensity: np.ndarray | None = None,
+):
+    """Recorded-scan fixture writer (the rosbag-replay analogue).
+
+    ``intensity``: optional per-pixel channel, same shape as ``ranges`` —
+    the reference gates raycast pixels on it (vofod_nodelet.cpp:1449,
+    raycast/min_intensity); omitted = all pixels pass."""
+    arrays = dict(
+        ranges=ranges,
+        poses=poses,
+        stamps=stamps if stamps is not None else np.arange(len(ranges)) * 0.1,
+    )
+    if intensity is not None:
+        arrays["intensity"] = intensity
+    np.savez_compressed(path, **arrays)
+
+
+def load_scans_npz(path: str):
+    """Returns (ranges, poses, stamps, intensity-or-None)."""
+    z = np.load(path)
+    return (
+        z["ranges"], z["poses"], z["stamps"],
+        z["intensity"] if "intensity" in z.files else None,
+    )

@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K15a).
+"""Build, load and launch the hand-written CUDA kernels (K1-K15a, K7s).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -51,6 +51,7 @@ LAUNCHES: dict[str, int] = {
     "masked_compact": 0,
     "explore_bfs": 0,
     "demote": 0,
+    "explore_seq": 0,
     "cluster_stats": 0,
     "gate_faces": 0,
     "ray_update": 0,
@@ -162,6 +163,9 @@ def load():
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
         lib.vofod_demote.argtypes = [
             _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
+        lib.vofod_explore_sequential.argtypes = [
+            _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P,
+            _P]
         lib.vofod_cluster_stats.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
@@ -178,7 +182,8 @@ def load():
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
-                   lib.vofod_explore, lib.vofod_demote, lib.vofod_cluster_stats,
+                   lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
+                   lib.vofod_cluster_stats,
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
@@ -426,6 +431,45 @@ def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
     _check(err, "vofod_demote")
     LAUNCHES["demote"] += 1
     return n_writes
+
+
+def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                        qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
+                        qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
+                        query_overflow: torch.Tensor, thr_frontiers: float, thr_ground: float,
+                        submap: int, max_iters: int):
+    """K7s, in place on ``vmap``: the queries explored one at a time in
+    (label, id) order, a failed one demoting its reached voxels before the
+    next runs.  Returns (cluster_connected bool [K], n_writes int32)."""
+    if vmap.dim() != 3:
+        raise ValueError("explore_sequential takes a 3-D grid")
+    Q, S = qx.shape[0], int(submap)
+    K = qslot.shape[-1] if qslot.dim() == 2 else 0
+    if not 2 <= S <= 62:
+        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
+    if not (1 <= Q <= 4096 and K >= 1):
+        raise ValueError(f"explore_sequential takes 1-4096 queries and >= 1 slot, got Q={Q}, "
+                         f"K={K}")
+    _require(vmap, "explore_seq grid", torch.float32)
+    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
+                    (max_manhattan, "max_manhattan")):
+        _require(t, f"explore_seq {name}", torch.int32, (Q,))
+    _require(qvalid, "explore_seq qvalid", torch.bool, (Q,))
+    _require(qslot, "explore_seq qslot", torch.bool, (Q, K))
+    _require(query_overflow, "explore_seq query_overflow", torch.bool, ())
+    dev = vmap.device
+    cluster_connected = torch.empty(K, dtype=torch.bool, device=dev)
+    n_writes = torch.empty((), dtype=torch.int32, device=dev)
+    nz, ny, nx = vmap.shape
+    err = load().vofod_explore_sequential(
+        vmap.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+        qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(), qslot.data_ptr(),
+        max_manhattan.data_ptr(), query_overflow.data_ptr(), float(thr_frontiers),
+        float(thr_ground), Q, K, S, int(max_iters), cluster_connected.data_ptr(),
+        n_writes.data_ptr(), _stream())
+    _check(err, "vofod_explore_sequential")
+    LAUNCHES["explore_seq"] += 1
+    return cluster_connected, n_writes
 
 
 # output fields of K9, in the order of csrc/classify_stats.cu StatsOut

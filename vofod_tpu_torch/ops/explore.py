@@ -1,4 +1,5 @@
-"""Bounded flood-fill to ground (K7) and the demotion write-back (K8).
+"""Bounded flood-fill to ground (K7), the demotion write-back (K8) and the
+sequential explore with live demotion (K7s).
 
 PyTorch counterpart of vofod_tpu/ops/explore.py (ref src/voxel_map.cpp
 :402-488, call site vofod_nodelet.cpp:1692-1718): per query an SxSxS submap
@@ -19,6 +20,13 @@ never demotes).
 The plain BFS runs a FIXED ``max_iters`` sweeps over the packed rows: the
 dilation is monotone, so sweeps past the fixpoint change nothing and the
 result equals the JAX while_loop's, with no host sync.
+
+K7s (:func:`explore_sequential_`, ``cfg.sequential_explore``) is the
+reference's order: one query at a time, each reading the grid as the
+earlier failed queries left it (vofod_tpu/pipeline/classify.py:211-267).
+On the card it is one launch of csrc/explore.cu; its plain version is a
+host loop over K7's and K8's plain versions, for the tests and the card's
+comparison only.
 """
 
 from __future__ import annotations
@@ -229,3 +237,59 @@ def demote_floating(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor,
         raise ValueError(f"demote: unsupported device {vmap_grid.device}")
     return demote_floating_plain(vmap_grid, reached_bits, corners, qslot, connected, qvalid,
                                  qgate, query_overflow, thr_frontiers)
+
+
+def explore_sequential_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor,
+                             qz: Tensor, qvalid: Tensor, qlabels: Tensor, qids: Tensor,
+                             qslot: Tensor, max_manhattan: Tensor, query_overflow: Tensor,
+                             thr_frontiers: float, thr_ground: float, submap: int,
+                             max_iters: int = 96) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of K7s: (new grid, cluster_connected bool [K], int32
+    count of demotion writes).  The queries run in ``jnp.lexsort((qids,
+    qlabels))`` order; one is skipped when it is invalid, its slot already
+    connected, or the queries overflowed (the lax.scan of vofod_tpu/pipeline/
+    classify.py:222-267); a query that fails demotes its reached voxels at
+    once (min(v, thr_frontiers)).  A host loop that reads the query table
+    back: it never runs on the card's main path."""
+    K = qslot.shape[1]
+    dev = vmap_grid.device
+    conn = torch.zeros(K, dtype=torch.bool, device=dev)
+    n_writes = torch.zeros((), dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    if bool(query_overflow):
+        return vmap_grid, conn, n_writes
+    labels, ids, valid = qlabels.tolist(), qids.tolist(), qvalid.tolist()
+    for q in sorted(range(len(labels)), key=lambda i: (labels[i], ids[i], i)):
+        if not valid[q] or bool(torch.any(qslot[q] & conn)):
+            continue
+        s = slice(q, q + 1)
+        connected, bits, corners = explore_plain(
+            grid, vmap_grid, qx[s], qy[s], qz[s], one, max_manhattan[s], thr_frontiers,
+            thr_ground, submap, max_iters)
+        if bool(connected[0]):
+            conn = conn | qslot[q]
+        else:
+            vmap_grid, n = _demotion_writes(vmap_grid, unpack_rows(bits, submap), corners, one,
+                                            thr_frontiers)
+            n_writes = n_writes + n
+    return vmap_grid, conn, n_writes
+
+
+def explore_sequential_(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
+                        qvalid: Tensor, qlabels: Tensor, qids: Tensor, qslot: Tensor,
+                        max_manhattan: Tensor, query_overflow: Tensor, thr_frontiers: float,
+                        thr_ground: float, submap: int,
+                        max_iters: int = 96) -> tuple[Tensor, Tensor, Tensor]:
+    """K7s: (grid, cluster_connected bool [K], n_writes int32).  On a CUDA
+    tensor the kernel updates ``vmap_grid`` IN PLACE and returns it; the
+    plain version returns a new tensor.  Callers use the returned grid."""
+    if vmap_grid.is_cuda:
+        conn, n = kernels.explore_sequential_(
+            vmap_grid, qx, qy, qz, qvalid, qlabels, qids, qslot, max_manhattan, query_overflow,
+            thr_frontiers, thr_ground, submap, max_iters)
+        return vmap_grid, conn, n
+    if vmap_grid.device.type != "cpu":
+        raise ValueError(f"explore_sequential: unsupported device {vmap_grid.device}")
+    return explore_sequential_plain(grid, vmap_grid, qx, qy, qz, qvalid, qlabels, qids, qslot,
+                                    max_manhattan, query_overflow, thr_frontiers, thr_ground,
+                                    submap, max_iters)

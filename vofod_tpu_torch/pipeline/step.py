@@ -4,16 +4,18 @@ PyTorch counterpart of vofod_tpu/pipeline/step.py ``make_step_fn`` for the
 single-stream configurations: the production one (gated sweep raycast,
 default sepclusters; raw or prebinned ingest, static or live-tunable
 stencil radii) and the reference-exact one (exact DDA raycast, exact
-sepclusters census, the compat_* quirks):
+sepclusters census, the compat_* quirks, the sequential explore):
 
   1. frontend: filter + transform + voxel binning  raw: (K3); prebinned:
      the host bins (io/binner.py), the device unpacks       (K15a)
   2. background sufficiency + close/far split  (K1, K2; dynamic radii: K14)
   3. point EMA update of the confidence grid             (K11)
-  4. classification + floating check + demotions      (K6, K9, K7, K8)
+  4. classification + floating check + demotions
+                          (K6, K9, K7, K8; sequential explore: K6, K9, K7s)
   5. detection extraction                                (K10)
   6. every raycast_every steps: freespace raycast +
-     flag-guarded ray EMA update         sweep: (K5a, K4, K5b); exact: (K12)
+     flag-guarded ray EMA update
+                  sweep: (K5a, K4, K5b; ungated: K4, K5b); exact: (K12)
   7. every sepclusters_every steps: background maint.
               default: (K1, K2, K11; dynamic radii: K14, K2, K11); exact: (K13, K2)
 
@@ -117,8 +119,8 @@ def make_step_fn(
     raycast_every: int = 1,
     mask=None,
     frontend_mode: str = "raw",
-) -> Callable[[VoFODState, ScanInput | PrebinnedScan, DynParams],
-              tuple[VoFODState, StepOutput]]:
+    raycast_gate: bool = True,
+) -> Callable[..., tuple[VoFODState, StepOutput]]:
     """Build the step for ``device``.
     raycast_mode: "sweep" (the gated transmittance sweep, production),
       "exact" (per-ray DDA, the reference's traversal) or "off".
@@ -130,11 +132,18 @@ def make_step_fn(
       ``step % N == N - 1`` only, with its_diff = N (the reference's raycast
       thread skips scans under load and compensates so, ref :1540-1548).
     mask: optional uint8/bool [H*W] FOV mask (1 = usable) for the ray gate.
-    The config's exact-census, compat_hascloseto_bounds /
-    compat_counted_indexing and dynamic_radii modes are ported (dynamic
-    radii in the default sepclusters mode, as in the JAX step);
-    compat_rangefinder_validity and sequential explore are not yet and raise
-    NotImplementedError.
+    raycast_gate: with the sweep, honour the per-pixel mask / intensity
+      gates through the angular gate factor (K5a); False sweeps ungated (no
+      K5a, K5b without faces), as the JAX step's option of the same name.
+    Every VoFODConfig flag of the JAX step is ported (dynamic radii in the
+    default sepclusters mode, as in the JAX step; compat_rangefinder_validity
+    acts in the node only).
+
+    The returned ``step(state, scan, dyn, stage_hook=None)`` calls
+    ``stage_hook(name)`` where each routine starts ("cnc", "raycasting",
+    "sepbgclusters") and once after the last ("end"): the node's
+    ``profile_stages`` records CUDA events there.  The hook sees host
+    control flow only; the result does not depend on it.
     """
     if raycast_mode not in RAYCAST_MODES:
         raise ValueError(f"unknown raycast_mode {raycast_mode!r}, expected one of {RAYCAST_MODES}")
@@ -152,11 +161,6 @@ def make_step_fn(
             "(VoFODConfig.dynamic_radii)")
     if raycast_every < 1:
         raise ValueError(f"raycast_every must be >= 1, got {raycast_every}")
-    unported = [
-        f for f in ("compat_rangefinder_validity", "sequential_explore") if getattr(cfg, f)
-    ]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
     device = torch.device(device)
     grid = GridSpec.from_config(cfg)
     H, W = cfg.sensor.vertical_rays, cfg.sensor.horizontal_rays
@@ -167,7 +171,8 @@ def make_step_fn(
         if mask is not None
         else torch.ones(cfg.sensor.n_points, dtype=torch.bool, device=device)
     )
-    if raycast_mode == "sweep":  # the exact DDA takes the pixel gates per ray
+    gated = raycast_mode == "sweep" and raycast_gate  # the exact DDA gates per ray
+    if gated:
         gate_spec = make_angular_gate(lut)
         face_dirs = torch.as_tensor(gate_spec.face_dirs.reshape(-1, 3), device=device)
         rows = row_table(gate_spec, device)
@@ -194,14 +199,16 @@ def make_step_fn(
             raylen = raycast_dda(grid, *rays, cfg.raycast_max_distance_bound)
             return ray_ema_grid_(vals, occupied, raylen, ray_ema(cfg, dyn, float(raycast_every)))
         rot = pose[:3, :3]
-        if frontend_mode == "prebinned":
-            active = scan.active > 0  # the host binner evaluated the pixel gate
-        else:
-            # ref :1449-1450: skip when intensity < min, or masked with no
-            # return (NaN intensity passes, as in the reference)
-            r = scan.ranges_mm * RANGE_TO_METERS
-            active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
-        faces = gate_faces(gate_spec, face_dirs, active.reshape(H, W), rot, rows)
+        faces = None
+        if gated:
+            if frontend_mode == "prebinned":
+                active = scan.active > 0  # the host binner evaluated the pixel gate
+            else:
+                # ref :1449-1450: skip when intensity < min, or masked with no
+                # return (NaN intensity passes, as in the reference)
+                r = scan.ranges_mm * RANGE_TO_METERS
+                active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
+            faces = gate_faces(gate_spec, face_dirs, active.reshape(H, W), rot, rows)
         return raycast_update_(
             grid, vals, occupied, blockers, np.asarray(sensor_pos, np.float32), rot,
             ray_ema(cfg, dyn, float(raycast_every)),
@@ -211,8 +218,10 @@ def make_step_fn(
             max_distance_bound=cfg.raycast_max_distance_bound,
         )
 
-    def step(state: VoFODState, scan: ScanInput | PrebinnedScan,
-             dyn: DynParams) -> tuple[VoFODState, StepOutput]:
+    def step(state: VoFODState, scan: ScanInput | PrebinnedScan, dyn: DynParams,
+             stage_hook: Callable[[str], None] | None = None) -> tuple[VoFODState, StepOutput]:
+        hook = stage_hook or (lambda name: None)
+        hook("cnc")
         pose_np = np.ascontiguousarray(scan.pose, np.float32)
         pose = torch.from_numpy(pose_np)
         if device.type == "cuda":
@@ -239,8 +248,10 @@ def make_step_fn(
                 cfg, dyn, grid, cls.grid, cls.labels, bg.far, cls, sensor_pos,
                 state.det_counter,
             )
+        hook("raycasting")
         with record_function("vofod.raycast"):
             vals = ray_stage(scan, pose, dyn, step_idx, cls.grid, bg.occupied, fe.blockers)
+        hook("sepbgclusters")
         safe, sure_bg = state.safe, state.sure_bg_sufficient
         sep_conv = torch.ones((), dtype=torch.bool, device=device)
         sep_sweeps = zero_i32
@@ -252,6 +263,7 @@ def make_step_fn(
             vals, safe, sure_bg, sep_conv = sep.grid, sep.safe, sep.sure_bg_sufficient, sep.converged
             if sep.label_sweeps is not None:
                 sep_sweeps = sep.label_sweeps
+        hook("end")
 
         diag = StepDiagnostics(
             n_bg_voxels=bg.n_bg_voxels,

@@ -206,3 +206,26 @@ def _read_mask_file(path: str) -> np.ndarray | None:
         return np.asarray(Image.open(path).convert("L"))
     except ImportError:
         return None
+
+
+# =============================================================================
+# Consistency check
+# =============================================================================
+
+
+def check_sensor_params(
+    lut: XyzLut, points: np.ndarray, ranges_mm: np.ndarray, tolerance: float = 1e-3
+) -> bool:
+    """Validate that actual point positions match ``dir * range + offset``
+    (ref check_sensor_params, vofod_nodelet.cpp:1869-1917, tolerance 1e-3 m).
+
+    ``points``: [H*W, 3] sensor-frame points; ``ranges_mm``: [H*W] uint32.
+    Returns True when all valid (range > 0, finite) points agree with the LUT.
+    """
+    r = ranges_mm.astype(np.float64) * RANGE_TO_METERS
+    valid = (r > 0) & np.isfinite(points).all(axis=-1)
+    if not valid.any():
+        return False
+    recon = lut.directions.astype(np.float64) * r[:, None] + lut.offsets
+    err = np.linalg.norm(recon[valid] - points[valid].astype(np.float64), axis=-1)
+    return bool(np.max(err) <= tolerance)
