@@ -56,7 +56,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    sequential-explore scan with valid queries, the adversarial scene of
    tests/test_sequential_demotion.py in the flagship grid (floating, every
    carved cell demoted), 256 valid queries in 32 clusters over a random
-   field, the same under query overflow, and no valid query;
+   field, the same under query overflow, and no valid query.  Phase
+   2-grid: the grid-sharded step's kernels with 3 shards of the flagship
+   grid on the card, each bit-equal to its plain version: K15b-1 (halo
+   exchange) on f32 / int32 / bool slabs at r 1-40 (multi-hop past every
+   shard), also equal to the rows cut from the whole grid; K2's sharded
+   sweeps (fixed count and gated) equal to the dense sweeps and flags;
+   K15b-2 (fold-min) at r 16 and 20, equal to the min over every shard's
+   stamp; K15b-3 / K15b-4a through the sharded sweep of a flagship scan,
+   T equal to K4's, and the sharded K4 + K5b equal to the dense update
+   under both rules;
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
    tests/test_golden.py assertions and that the sweep path's thirteen
    kernels launched;
@@ -87,9 +96,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and demotion writes.  Then the node's runtime surface: the rangefinder
    under both validity rules, an NPZ snapshot round trip, the LUT
    consistency check, a ``trace_dir`` window and ``profile_stages``
-   (bit-equal to a fused node);
+   (bit-equal to a fused node).  Then phase 4-grid: 36 scans through
+   ``make_grid_sharded_step`` over 3 shards of 17 planes on the card, each
+   beside a dense node on the same scan: state, diagnostics and detection
+   integers bit-equal, detection floats within 1e-5 relative, every K15b
+   kernel launched on every scan, at most 1 host sync per scan; step
+   p50/p95 of both, K15b launches and collective copies per scan;
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
-   prebinned, dynamic radii at 2.0 / 1.9 m, sequential), each from a fresh
+   prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded),
+   each from a fresh
    node after the same 6 warm-up scans: device time per stage (the step's
    ``vofod.*`` ranges), the top device ops, the device ops (kernels and
    copies) launched per scan, counted from key_averages and event by event,
@@ -99,8 +114,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 The line before the last is the per-kernel JSON record (launches from the
 path that runs each kernel: the sweep path, the prebinned path for K15a,
-the dynamic-radii path for K14, the sequential path for K7s, else the exact
-path; bound_ms from the bytes
+the dynamic-radii path for K14, the sequential path for K7s, the
+grid-sharded path for K15b, else the exact path; bound_ms from the bytes
 and operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -154,8 +169,17 @@ from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
     frontend_bin, frontend_bin_plain, run_frontend, unpack, unpack_plain)
-from vofod_tpu_torch.pipeline.state import VoFODState  # noqa: E402
-from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD  # noqa: E402
+from vofod_tpu_torch.pipeline.state import ScanInput, VoFODState  # noqa: E402
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD, _pack, _unpack  # noqa: E402
+from vofod_tpu_torch.io.staging import HostStaging  # noqa: E402
+from vofod_tpu_torch.ops.raycast import (  # noqa: E402
+    RayEma, cone_lat_step_plain, cone_z_round_plain, raycast_update_, raycast_update_zsharded,
+    sweep_zsharded)
+from vofod_tpu_torch.parallel.comm import LocalComm  # noqa: E402
+from vofod_tpu_torch.parallel.gridops import (  # noqa: E402
+    ZShardOps, halo_exchange_plain, halo_fold_min_plain)
+from vofod_tpu_torch.parallel.grid_step import (  # noqa: E402
+    gather_state, make_grid_sharded_step, shard_state)
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
 
 # K4 tolerance: T lies in [0, 1] and is stored in bf16; kernel and plain
@@ -234,7 +258,15 @@ KERNEL_INFO = {
     "exact_demote_ema": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:301"),
     "shell_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:147"),
     "unpack": ("vofod_tpu_torch/csrc/unpack.cu", "vofod_tpu/pipeline/frontend.py:86"),
+    "halo_exchange": ("vofod_tpu_torch/csrc/halo.cu", "vofod_tpu/parallel/gridops.py:241"),
+    "halo_fold_min": ("vofod_tpu_torch/csrc/halo.cu", "vofod_tpu/parallel/gridops.py:275"),
+    "cone_sweep_lat": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:248"),
+    "cone_sweep_z": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:361"),
 }
+# the grid-sharded step: shards of the flagship grid (51 = 3 x 17 planes),
+# all on the one card, and the kernels its path adds
+GRID_SHARDS = 3
+GRID_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_z")
 
 
 def say(phase: str, **kw) -> None:
@@ -599,22 +631,23 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
 
     # K9 — the scan's far list, then a synthetic far set with > K clusters
     fids, fvalid, ftotal = masked_compact_plain(far, cfg.max_far_voxels)
-    stats_args = (dyn, grid, K, fids, fvalid, labels, ftotal, sensor_pos, bg.bg_sufficient, true)
-    flat = labels.reshape(-1)
+    flab = labels.reshape(-1)[fids.long()]  # the far voxels' labels
+    stats_args = (dyn, grid, K, fids, fvalid, flab, ftotal, sensor_pos, bg.bg_sufficient, true)
     explore_on = bg.bg_sufficient & ~(ftotal > cfg.max_far_voxels)
     ks = cluster_stats(*stats_args)
-    ps = cluster_stats_plain(dyn, grid, K, fids, fvalid, flat, sensor_pos, explore_on)
+    ps = cluster_stats_plain(dyn, grid, K, fids, fvalid, flab, sensor_pos, explore_on)
     scan_cmp = _stats_compare(ks, ps, "scan far list")
     k9_ms = cuda_ms(lambda: cluster_stats(*stats_args))
-    k9_plain = cuda_ms(lambda: cluster_stats_plain(dyn, grid, K, fids, fvalid, flat,
+    k9_plain = cuda_ms(lambda: cluster_stats_plain(dyn, grid, K, fids, fvalid, flab,
                                                    sensor_pos, explore_on))
     sfar_np, slab_np = synthetic_far(grid, 48, seed=9)
     sfar, slab = torch.as_tensor(sfar_np, device=dev), torch.as_tensor(slab_np, device=dev)
     sids, svalid, stotal = masked_compact_plain(sfar, cfg.max_far_voxels)
     centre = torch.tensor(grid.origin, device=dev) + 0.5 * grid.voxel_size * torch.tensor(
         grid.shape[::-1], dtype=torch.float32, device=dev)
+    slab = slab.reshape(-1)[sids.long()]
     ks2 = cluster_stats(dyn, grid, K, sids, svalid, slab, stotal, centre, true, true)
-    ps2 = cluster_stats_plain(dyn, grid, K, sids, svalid, slab.reshape(-1), centre, true)
+    ps2 = cluster_stats_plain(dyn, grid, K, sids, svalid, slab, centre, true)
     syn_cmp = _stats_compare(ks2, ps2, "synthetic 48 clusters")
     if not syn_cmp["cluster_overflow"]:
         raise AssertionError("K9 synthetic case did not overflow the K slots")
@@ -649,7 +682,7 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     # K7 — the scan's queries (the main path's shapes)
     qids, qvalid, qtotal = masked_compact_isin_plain(far, labels, ps.rep_sel, Q)
     qx, qy, qz = grid.unflatten_id(qids)
-    qlab = torch.where(qvalid, flat[qids.long()], SENTINEL)
+    qlab = torch.where(qvalid, labels.reshape(-1)[qids.long()], SENTINEL)
     qslot = qvalid[:, None] & (qlab[:, None] == ps.reps[None, :])
     m_q = (qslot.to(torch.int32) * ps.m_k[None, :]).sum(dim=1).to(torch.int32)
     scan_q = (grid, bg.grid, qx, qy, qz, qvalid, m_q, thr_f, thr_g, S)
@@ -1402,7 +1435,7 @@ def phase2_sequential(lut) -> list[dict]:
                           pose)[0]
     bg = split_and_update(cfg, dyn, prev_grid, counts, prev_bg)
     fids, fvalid, ftotal = masked_compact(bg.far, cfg.max_far_voxels)
-    stats = cluster_stats(dyn, grid, K, fids, fvalid, bg.labels, ftotal,
+    stats = cluster_stats(dyn, grid, K, fids, fvalid, bg.labels.reshape(-1)[fids.long()], ftotal,
                           pose[:3, 3].contiguous(), bg.bg_sufficient, prev_sure)
     qids, qvalid, qtotal, qx, qy, qz, qlabels, qslot, m_q = explore_queries(
         grid, bg.far, bg.labels, stats, Q)
@@ -1906,6 +1939,365 @@ def phase4_surface(lut) -> None:
     say("4-surface", **out)
 
 
+def _global_ext(g: torch.Tensor, z0: int, nzl: int, r: int, fill) -> torch.Tensor:
+    """K15b-1's result from the whole grid: its rows [z0 - r, z0 + nzl + r),
+    ``fill`` past its edges."""
+    pad = torch.full((r,) + tuple(g.shape[1:]), fill, dtype=g.dtype, device=g.device)
+    return torch.cat([pad, g, pad])[z0:z0 + nzl + 2 * r]
+
+
+def _flagship_inputs(lut, n_warm: int = 6):
+    """A dense flagship node after the apriori plane and ``n_warm`` scans of
+    the cycle, and the next scan (ranges, pose)."""
+    node = VoFOD(VoFODConfig(), DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, n_warm + 1)
+    for r, p in scans[:n_warm]:
+        node.process_scan(r, None, p)
+    return node, scans[n_warm]
+
+
+def _sharded_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
+    """K15b-3 and K15b-4a beside their plain versions, launch by launch, on
+    a shard's window slab (inside ``comm.run``): each launch of both gets
+    the same inputs, the kernels' rows and carries are exchanged as
+    ops/raycast.cone_sweep_lat_sharded and cone_sweep_z_pipelined exchange
+    them, and every row block and carry the two produce must be equal.
+    Returns the slab's (T6 of the kernels, T6 of the plain versions)."""
+    nzl, wy, wx = op.shape
+    n, me, dev = comm.n, comm.rank, op.device
+    pb = max(wx, wy)
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    t6 = [torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=dev) for _ in range(2)]
+    bufs = [torch.zeros((nzl, 4, pb), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    plain_out = torch.zeros_like(bufs[0])
+    lo = hi = None
+    for k in range(pb + 1):
+        tmp_in, tmp_out = (bufs[(k + 1) % 2] if k else None), bufs[k % 2]
+        kernels.cone_sweep_lat(op, rel_x, rel_y, rel_z, tmp_in, lo, hi, tmp_out, t6[0][:4], k)
+        cone_lat_step_plain(op, rel_x, rel_y, rel_z, tmp_in, lo, hi, plain_out, t6[1][:4], k)
+        if k < pb:
+            if not torch.equal(tmp_out, plain_out):
+                raise AssertionError(f"K15b-3 launch {k} shard {me}: rows differ from plain")
+            lo, hi = comm.ppermutes([(tmp_out[nzl - 1:nzl], up), (tmp_out[:2], dn)])
+    ones = torch.ones((wy, wx), dtype=torch.bfloat16, device=dev)
+    carry = torch.stack([ones, ones])
+    for r in range(n):
+        keep = (me == r, me == n - 1 - r)
+        out = kernels.cone_sweep_z(op, rel_x, rel_y, rel_z, carry, t6[0][4:], keep)
+        if not torch.equal(out, cone_z_round_plain(op, rel_x, rel_y, rel_z, carry, t6[1][4:],
+                                                   keep)):
+            raise AssertionError(f"K15b-4a round {r} shard {me}: carry differs from plain")
+        if r < n - 1:
+            c0, c1 = comm.ppermutes([(out[0], up), (out[1], dn)])
+            carry = torch.stack([ones if c0 is None else c0, ones if c1 is None else c1])
+    return t6[0], t6[1]
+
+
+def phase2_grid(lut) -> list[dict]:
+    """The grid-sharded step's kernels against their plain versions on the
+    card, with 3 shards of the flagship grid on one card: K15b-1 on f32,
+    int32 and bool slabs at r = 1, 3, 8, 16 and multi-hop at r = 20 and 40
+    (past every shard), bit-equal to its plain version and to the rows cut
+    from the whole grid; K15b-2 at r = 16 and 20 (head and tail ranges
+    overlap), bit-equal to its plain version and to the min over every
+    shard's stamp; K15b-3 and K15b-4a launch by launch beside their plain
+    versions on a flagship scan's window, and the step's sharded sweep, T
+    bit-equal to the plain versions' and to K4's,
+    and the sharded K4 + K5b ray update bit-equal to the dense one under
+    both update rules; K2's sharded sweeps (fixed count and gated) on the
+    background's keys, bit-equal to the dense sweeps with their flags."""
+    dev = torch.device("cuda")
+    cfg, dyn = VoFODConfig(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    node, (r_np, pose_np) = _flagship_inputs(lut)
+    n, nzl = GRID_SHARDS, grid.nz // GRID_SHARDS
+    plane = grid.ny * grid.nx
+    comm = LocalComm(n, [dev])
+    ops = ZShardOps(comm, n)
+    vals = node.state.grid
+    keys = torch.where(vals > dyn.thr_new_obstacles,
+                       torch.arange(grid.n_voxels, dtype=torch.int32, device=dev)
+                       .reshape(grid.shape), SENTINEL)
+    safe = node.state.safe
+    results = []
+
+    # K15b-1: every dtype of the path's exchanges, single hop and multi-hop
+    for r in (1, 3, 8, 16, 20, 40):
+        for g, fill in ((vals, -1e30), (keys, SENTINEL), (safe, False)):
+            def shard(rank, g=g, fill=fill, r=r):
+                # the step's exchange, and K15b-1 / its plain version on the
+                # blocks of one more exchange
+                sl = g[rank * nzl:(rank + 1) * nzl].contiguous()
+                lo, hi, takes = ops.halo_recv(sl, r)
+                return (ops.halo_exchange(sl, r, fill),
+                        kernels.halo_exchange(sl, lo, hi, takes, fill),
+                        halo_exchange_plain(sl, lo, hi, takes, fill))
+            for rank, (e, k, p) in enumerate(comm.run(shard)):
+                ref = _global_ext(g, rank * nzl, nzl, r, fill)
+                if not (torch.equal(k, p) and torch.equal(k, ref) and torch.equal(e, ref)):
+                    raise AssertionError(f"K15b-1 {g.dtype} r={r} shard {rank} differs")
+    z0, h = nzl, 16  # shard 1's inputs at the explore pad
+    slab = vals[z0:z0 + nzl].contiguous()
+    lo, hi = [vals[z0 - h:z0].contiguous()], [vals[z0 + nzl:z0 + nzl + h].contiguous()]
+    ext_bytes = (nzl + 2 * h) * plane * 4
+    results.append(dict(
+        name="halo_exchange", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.halo_exchange(slab, lo, hi, [h], -1e30)),
+        plain_ms=cuda_ms(lambda: halo_exchange_plain(slab, lo, hi, [h], -1e30)),
+        bytes=2 * ext_bytes, ops=0,
+        library_ms=cuda_ms(lambda: torch.cat(lo + [slab] + hi)),
+        library_call="torch.cat of the received rows and the slab",
+        shapes=f"f32 slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x {h} rows -> ({nzl + 2 * h}, ...); "
+               "checked at r 1, 3, 8, 16, 20, 40 on f32 / int32 / bool, 3 shards",
+    ))
+
+    # K2 on halo'd slabs with the interior change flag: the label sweeps of
+    # the step (fixed count) and the gated form, labels and per-sweep flags
+    occ = vals > dyn.thr_new_obstacles
+    radius = cfg.ground_points_max_distance / cfg.voxel_size
+    for gated in (False, True):
+        want, wflags = sweeps(keys, occ, radius, cfg.cc_sweeps, gated)
+        out = comm.run(lambda rank, gated=gated: ops.sweeps(
+            keys[rank * nzl:(rank + 1) * nzl], occ[rank * nzl:(rank + 1) * nzl], radius,
+            cfg.cc_sweeps, gated))
+        if not (torch.equal(torch.cat([k for k, _ in out]), want)
+                and all(torch.equal(f, wflags) for _, f in out)):
+            raise AssertionError(f"sharded K2 sweeps (gated {gated}) differ from the dense ones")
+
+    # K15b-2: each shard stamps its whole halo-extended view with 50 - rank
+    base = (torch.arange(grid.n_voxels, dtype=torch.float32, device=dev) + 100.0).reshape(
+        grid.shape)
+    for r in (16, 20):
+        def shard(rank, r=r):
+            ext = ops.halo_exchange(base[rank * nzl:(rank + 1) * nzl], r, float("inf"))
+            ext = torch.minimum(ext, torch.tensor(50.0 - rank, device=dev)).contiguous()
+            fn, fp, takes = ops.fold_recv(ext, r)
+            return (ops.halo_fold_min(ext, r), kernels.halo_fold_min(ext, r, fn, fp, takes),
+                    halo_fold_min_plain(ext, r, fn, fp, takes))
+        out = comm.run(shard)
+        want = base.clone()
+        for i in range(n):
+            a, b = max(0, i * nzl - r), min(grid.nz, (i + 1) * nzl + r)
+            want[a:b] = torch.minimum(want[a:b], torch.tensor(50.0 - i, device=dev))
+        got_e, got_k, got_p = (torch.cat(parts) for parts in zip(*out))
+        if not (torch.equal(got_k, got_p) and torch.equal(got_k, want)
+                and torch.equal(got_e, want)):
+            raise AssertionError(f"K15b-2 r={r} differs")
+    ext = _global_ext(vals, z0, nzl, h, 0.0).contiguous()
+    fn, fp = [ext[:h].clone()], [ext[-h:].clone()]
+    results.append(dict(
+        name="halo_fold_min", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.halo_fold_min(ext, h, fn, fp, [h])),
+        plain_ms=cuda_ms(lambda: halo_fold_min_plain(ext, h, fn, fp, [h])),
+        bytes=(2 * nzl + 2 * h) * plane * 4, ops=2 * h * plane, library_ms=None,
+        shapes=f"f32 ({nzl + 2 * h}, {grid.ny}, {grid.nx}) + 2 x {h} returned rows -> "
+               f"({nzl}, ...); checked at r 16 and 20 (overlapping head and tail), 3 shards",
+    ))
+
+    # K15b-3 / K15b-4a: the sharded sweep of the scan's blockers, T against
+    # the plain versions and K4; then K4 + K5b dense against the sharded update
+    ranges = torch.as_tensor(r_np.astype(np.float32), device=dev)
+    pose = torch.as_tensor(pose_np, device=dev)
+    dirs = torch.as_tensor(lut.directions, device=dev)
+    offs = torch.as_tensor(lut.offsets, device=dev)
+    occ = frontend_bin(cfg, grid, dirs, offs, ranges, pose)[0] > 0
+    origin = np.asarray(pose_np[:3, 3], np.float32)
+    bound = cfg.raycast_max_distance_bound
+    x0, y0, wx, wy, gx, gy, gz = sweep_window(grid, origin, bound)
+    rel_z = torch.arange(grid.nz, dtype=torch.float32, device=dev) + 0.5 - float(gz)
+    rel_x = torch.arange(wx, dtype=torch.float32, device=dev) + float(x0) + 0.5 - float(gx)
+    rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
+    t_dense = cone_sweep(occ[:, y0:y0 + wy, x0:x0 + wx].contiguous(), rel_x, rel_y, rel_z)
+    op_w = occ[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
+    out = comm.run(lambda rank: (
+        sweep_zsharded(grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound)[0],
+        _sharded_cones_vs_plain(op_w[rank * nzl:(rank + 1) * nzl], rel_x, rel_y,
+                                rel_z[rank * nzl:(rank + 1) * nzl].contiguous(), comm)))
+    t_s = torch.cat([t for t, _ in out], dim=1)
+    t_k = torch.cat([k for _, (k, _) in out], dim=1)
+    t_p = torch.cat([p for _, (_, p) in out], dim=1)
+    if not (torch.equal(t_k, t_p) and torch.equal(t_k, t_dense) and torch.equal(t_s, t_dense)):
+        raise AssertionError(
+            f"sharded sweep T: kernels vs plain {int((t_k != t_p).sum())} voxels, "
+            f"vs K4 {int((t_k != t_dense).sum())}, the step's vs K4 "
+            f"{int((t_s != t_dense).sum())} voxels differ")
+    rot = pose[:3, :3].contiguous()
+    kw = dict(max_distance=float(dyn.raycast_max_distance), vertical_fov=cfg.sensor.vertical_fov,
+              v_rays=lut.height, h_rays=lut.width, max_distance_bound=bound)
+    for new_rule in (True, False):
+        ema = RayEma(new_rule, 0.25, 1.0, 0.5, float(dyn.score_ray))
+        want = raycast_update_(grid, vals.clone(), occ, occ, origin, rot, ema, **kw)
+        got = torch.cat(comm.run(lambda rank: raycast_update_zsharded(
+            grid, vals[rank * nzl:(rank + 1) * nzl].clone(), occ[rank * nzl:(rank + 1) * nzl],
+            occ[rank * nzl:(rank + 1) * nzl], origin, rot, ema, comm=comm, **kw)))
+        if not torch.equal(got, want):
+            raise AssertionError(f"sharded K4 + K5b (new rule {new_rule}) differs from the dense "
+                                 f"update in {int((got != want).sum())} voxels")
+
+    # per-launch times on shard 1's window slab, the received rows fixed
+    op1 = occ[nzl:2 * nzl, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
+    rz1 = rel_z[nzl:2 * nzl].contiguous()
+    pb = max(wx, wy)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = torch.rand((3, 4, pb), device=dev, generator=gen).to(torch.bfloat16)
+    lo1, hi1 = rows[:1].contiguous(), rows[1:].contiguous()
+    bufs = [torch.ones((nzl, 4, pb), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    t4 = torch.empty((4, nzl, wy, wx), dtype=torch.float32, device=dev)
+
+    def lat_sweep(step):
+        for k in range(pb + 1):
+            step(op1, rel_x, rel_y, rz1, bufs[(k + 1) % 2] if k else None, lo1, hi1,
+                 bufs[k % 2], t4, k)
+
+    nw = nzl * wy * wx
+    results.append(dict(
+        name="cone_sweep_lat", max_abs_err=0.0,
+        ms=cuda_ms(lambda: lat_sweep(kernels.cone_sweep_lat), reps=5) / (pb + 1),
+        plain_ms=cuda_ms(lambda: lat_sweep(cone_lat_step_plain), reps=2) / (pb + 1),
+        # per launch: the opacity and T of one plane of each cone, the B-resampled
+        # rows in (slab + 3) and out (slab), bf16
+        bytes=4 * nzl * pb * (1 + 4) + 4 * (2 * nzl + 3) * pb * 2, ops=4 * nzl * pb * 40,
+        library_ms=None,
+        shapes=f"one of {pb + 1} launches per shard per scan: 4 cones x {nzl} rows x {pb} "
+               f"lanes; sweep T bit-equal to K4 on the ({grid.nz}, {wy}, {wx}) window",
+    ))
+    carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=dev)
+    t2 = torch.empty((2, nzl, wy, wx), dtype=torch.float32, device=dev)
+    results.append(dict(
+        name="cone_sweep_z", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry, t2, (True, True))),
+        plain_ms=cuda_ms(lambda: cone_z_round_plain(op1, rel_x, rel_y, rz1, carry, t2,
+                                                    (True, True)), reps=3),
+        bytes=nw * (1 + 2 * 4) + 2 * 2 * wy * wx * 2, ops=nw * 2 * 16, library_ms=None,
+        shapes=f"one round: 2 cones x {nzl} planes of ({wy}, {wx}); {n} rounds per shard",
+    ))
+    for r in results:
+        say("2-grid-kernel", **r)
+    return results
+
+
+class GridDriver:
+    """The grid-sharded step (3 shards on the card) driven as the node drives
+    the dense step: the scan staged in pinned memory and uploaded once, the
+    step, one packed readback of shard 0's diagnostics and detections."""
+
+    def __init__(self, lut, state: VoFODState):
+        self.cfg, self.dyn = VoFODConfig(), DynParams()
+        self.comm = LocalComm(GRID_SHARDS, ["cuda"])
+        self.step = make_grid_sharded_step(self.cfg, lut, self.comm)
+        self.states = shard_state(state, self.comm)
+        n = self.cfg.sensor.n_points
+        self.staging = HostStaging(((n, torch.float32),), "cuda")
+        self.ones = torch.ones(n, dtype=torch.float32, device="cuda")
+
+    def process_scan_async(self, r, pose):
+        i, (buf,) = self.staging.next()
+        np.copyto(buf, np.asarray(r).reshape(-1), casting="unsafe")
+        (ranges,) = self.staging.upload(i)
+        scan = ScanInput(ranges_mm=ranges, intensity=self.ones, pose=np.asarray(pose, np.float32))
+        self.states, out = self.step(self.states, scan, self.dyn)
+        return out
+
+    @staticmethod
+    def fetch(out) -> tuple[dict, dict]:
+        """(diag, detections) as numpy arrays, from one readback."""
+        diag = [f.name for f in dataclasses.fields(out.diag)]
+        dets = [f.name for f in dataclasses.fields(out.detections)]
+        buf, layout = _pack([getattr(out.diag, f) for f in diag]
+                            + [getattr(out.detections, f) for f in dets])
+        host = _unpack(buf.cpu().numpy(), layout)
+        return dict(zip(diag, host)), dict(zip(dets, host[len(diag):]))
+
+    def process_scan(self, r, intensity, pose):
+        return self.fetch(self.process_scan_async(r, pose))
+
+
+def phase4_grid(lut) -> dict:
+    """The grid-sharded step at the flagship size: 36 scans of the cycle
+    through 3 shards of 17 planes on the card, each beside a dense node on
+    the same scan.  Per scan: the gathered grid and safe, the carried
+    scalars and the diagnostics bit-equal to the dense node's, detection
+    integers equal and floats within 1e-5 relative (JAX's bound for its
+    sharded step; bit-equal expected), each K15b kernel launched, at most
+    1 host sync (the readback); step p50/p95 of both, K15b launches and
+    collective copies per scan."""
+    cfg = VoFODConfig()
+    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(apriori_ground())
+    drv = GridDriver(lut, node.state)
+    scans = scan_cycle(lut, N_SCANS)
+    torch.cuda.synchronize()
+    ms = {"dense": [], "grid": []}
+    syncs, per_scan, copies, rel_err, n_dets = [], [], [], 0.0, 0
+    bit_equal_dets = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k, (r, p) in enumerate(scans):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pending = node.process_scan_async(r, None, p)
+            end.record()
+            dense_out = pending[0]
+            msg = node.fetch_result(pending)
+            ms["dense"].append(start.elapsed_time(end))
+            n_dets += len(msg.detections)
+            kernels.reset_launch_counts()
+            drv.comm.reset_copies()
+            before = len(caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start.record()
+                out = drv.process_scan_async(r, p)
+                end.record()
+                diag, dets = drv.fetch(out)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ms["grid"].append(start.elapsed_time(end))
+            syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)))
+            launches = kernels.launch_counts()
+            per_scan.append({g: launches[g] for g in GRID_KERNELS})
+            copies.append(drv.comm.copies)
+            missing = [g for g in GRID_KERNELS if launches[g] == 0]
+            assert not missing, f"scan {k}: K15b kernels not launched: {missing}"
+            g = gather_state(drv.states)
+            for f in ("grid", "safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
+                if not torch.equal(getattr(g, f), getattr(node.state, f)):
+                    raise AssertionError(f"grid-sharded scan {k}: state.{f} differs from dense")
+            for f, v in diag.items():
+                if not np.array_equal(v, getattr(node.last_diag, f)):
+                    raise AssertionError(f"grid-sharded scan {k}: diag.{f} differs from dense")
+            for f, v in dets.items():
+                want = getattr(dense_out.detections, f).cpu().numpy()
+                if v.dtype.kind == "f":
+                    bit_equal_dets &= bool(np.array_equal(v, want))
+                    np.testing.assert_allclose(v, want, rtol=1e-5, atol=0.0,
+                                               err_msg=f"grid-sharded scan {k}: detections.{f}")
+                    den = np.maximum(np.abs(want), 1e-30)
+                    rel_err = max(rel_err, float(np.max(np.abs(v - want) / den, initial=0.0)))
+                elif not np.array_equal(v, want):
+                    raise AssertionError(f"grid-sharded scan {k}: detections.{f} differs")
+    assert max(syncs) <= 1, f"host syncs per grid-sharded scan: {syncs}"
+    assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
+    total = {g: sum(s[g] for s in per_scan) for g in GRID_KERNELS}
+    out = dict(
+        scans=N_SCANS, shards=GRID_SHARDS, shard_shape=[cfg.grid_shape[0] // GRID_SHARDS,
+                                                        *cfg.grid_shape[1:]],
+        bit_equal_state_and_diag=True, detection_floats_bit_equal=bit_equal_dets,
+        detection_float_max_rel_err=rel_err, detections_total=n_dets,
+        step_ms_p50={m: float(np.percentile(v, 50)) for m, v in ms.items()},
+        step_ms_p95={m: float(np.percentile(v, 95)) for m, v in ms.items()},
+        step_ms_all={m: [round(x, 3) for x in v] for m, v in ms.items()},
+        host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
+        k15b_launches_per_scan={g: total[g] / N_SCANS for g in GRID_KERNELS},
+        k15b_launches_per_scan_min={g: min(s[g] for s in per_scan) for g in GRID_KERNELS},
+        collective_copies_per_scan=float(np.mean(copies)),
+    )
+    say("4-grid", **out)
+    return total, out["step_ms_p50"]["grid"]
+
+
 def _dev_us(e, self_only: bool) -> float:
     name = "self_device_time_total" if self_only else "device_time_total"
     legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
@@ -1952,6 +2344,8 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     if path == "dynamic":
         node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
     node.load_apriori_map(apriori_ground())
+    if path == "grid":  # the 3-shard step from the same start
+        node = GridDriver(lut, node.state)
     scans = scan_cycle(lut, 6 + n)
     for r, p in scans[:6]:
         node.process_scan(r, None, p)
@@ -1993,6 +2387,7 @@ def main() -> int:
     results = phase2(lut)
     results += phase2_exact(lut)
     results += phase2_sequential(lut)
+    results += phase2_grid(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
@@ -2002,11 +2397,13 @@ def main() -> int:
     phase4_auto(lut)
     dyn_launches, dyn_ms_p50 = phase4_dynamic(lut)
     phase4_surface(lut)
+    grid_launches, grid_ms_p50 = phase4_grid(lut)
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
     phase5_profile(lut, dyn_ms_p50, path="dynamic")
     phase5_profile(lut, seq_ms_p50, path="sequential")
+    phase5_profile(lut, grid_ms_p50, path="grid")
     # the sweep path once more, in the last profiler session: the same code
     # counted in another session says whether the op count is the session's
     again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")
@@ -2020,13 +2417,13 @@ def main() -> int:
         differing_ops={k[:80]: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
                        if a.get(k, 0) != b.get(k, 0)})
     path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
-                     "explore_seq": seq_launches}
+                     "explore_seq": seq_launches, **{g: grid_launches for g in GRID_KERNELS}}
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]
         # launches from the path that runs the kernel: the sweep path, the
-        # prebinned (K15a), dynamic-radii (K14) and sequential (K7s) paths,
-        # else the exact path
+        # prebinned (K15a), dynamic-radii (K14), sequential (K7s) and
+        # grid-sharded (K15b) paths, else the exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
              else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S

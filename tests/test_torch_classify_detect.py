@@ -182,7 +182,8 @@ def test_cluster_stats_plain_matches_the_jax_block(n_clusters, seed):
     tg = GridSpec((0.0, 0.0, 0.0), shape, VOXEL)
     fids, fvalid, ftotal = masked_compact_plain(torch.from_numpy(far), CFG["max_far_voxels"])
     st = cluster_stats_plain(DynParams(**DYN), tg, CFG["max_clusters"], fids, fvalid,
-                             torch.from_numpy(labels).reshape(-1), torch.from_numpy(sensor),
+                             torch.from_numpy(labels).reshape(-1)[fids.long()],
+                             torch.from_numpy(sensor),
                              torch.tensor(True))
     assert bool(st.cluster_overflow) == (n_clusters > CFG["max_clusters"])
     assert bool(st.cluster_overflow) == bool(jo.far_overflow)

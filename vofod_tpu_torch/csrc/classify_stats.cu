@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(RANK_T) rank_kernel(
   int32_t* lab = reinterpret_cast<int32_t*>(smem_raw);
   uint8_t* is_rep = reinterpret_cast<uint8_t*>(lab + p.F);
   for (int f = threadIdx.x; f < p.F; f += blockDim.x)
-    lab[f] = fvalid[f] ? labels[fids[f]] : SENTINEL;
+    lab[f] = fvalid[f] ? labels[f] : SENTINEL;
   for (int k = threadIdx.x; k < p.K; k += blockDim.x) out.reps[k] = SENTINEL;
   __syncthreads();
   for (int f = threadIdx.x; f < p.F; f += blockDim.x) {
@@ -357,7 +357,9 @@ __global__ void __launch_bounds__(STATS_T) stats_kernel(
 
 }  // namespace
 
-// fids: int32 [F]; fvalid: bool [F]; labels: int32 label grid; sensor_pos:
+// fids: int32 [F]; fvalid: bool [F]; labels: int32 [F], the far voxels'
+// labels (the caller looks them up: one gather on one device, a lookup over
+// the shards on the grid-sharded step); (ny, nx): the grid's; sensor_pos:
 // float32 [3]; bg_sufficient / sure_bg_sufficient: bool scalars; ftotal:
 // int32 scalar (far voxels in the whole grid).  grid_f: host float32
 // [origin x, y, z, voxel]; gates: host float32 [min_points, max_distance,

@@ -43,6 +43,8 @@ struct DetF {
 
 struct DetI {
   int nz, ny, nx, K, CS;
+  int z_lo, nz_buf;        // the grids hold the z rows [z_lo, z_lo + nz_buf)
+  int own_z0, own_z1;      // slots whose window centre lies here keep their confidence
 };
 
 // geometry.to_int32 of floor((v - o) * inv): NaN -> 0, saturating
@@ -99,8 +101,10 @@ __global__ void __launch_bounds__(DET_T)
     float v = 0.0f;  // submaps3 fills: 0 / False / INT_MAX
     bool fv = false;
     int lab = 2147483647;
-    if (gx >= 0 && gx < n.nx && gy >= 0 && gy < n.ny && gz >= 0 && gz < n.nz) {
-      const size_t g = ((size_t)gz * n.ny + gy) * n.nx + gx;
+    const int lz = gz - n.z_lo;
+    if (gx >= 0 && gx < n.nx && gy >= 0 && gy < n.ny && gz >= 0 && gz < n.nz && lz >= 0 &&
+        lz < n.nz_buf) {
+      const size_t g = ((size_t)lz * n.ny + gy) * n.nx + gx;
       v = vals[g];
       fv = far[g] != 0;
       lab = labels[g];
@@ -124,7 +128,8 @@ __global__ void __launch_bounds__(DET_T)
     if (q < k) before += m;
   }
   const float unc = __fdiv_rn(part[0], (float)max(npts[k], 1));
-  confidence[k] = mav ? expf(-unc) : 0.0f;
+  const bool own = ctr[2] >= n.own_z0 && ctr[2] < n.own_z1;
+  confidence[k] = (mav && own) ? expf(-unc) : 0.0f;
 
   const float dx = __fsub_rn(obb_center[3 * k], sensor[0]);
   const float dy = __fsub_rn(obb_center[3 * k + 1], sensor[1]);
@@ -148,7 +153,11 @@ __global__ void __launch_bounds__(DET_T)
 
 // vals: device f32 grid; far: bool grid; labels: int32 grid; aabb_min/max,
 // obb_center: f32 [K, 3]; reps, n_points, cluster_class: int32 [K]; sensor:
-// f32 [3]; det_counter: int32 scalar.  ints: host int32 [nz, ny, nx, K, CS];
+// f32 [3]; det_counter: int32 scalar.  ints: host int32 [nz, ny, nx, K, CS,
+// z_lo, nz_buf, own_z0, own_z1]: the grids hold the z rows [z_lo, z_lo +
+// nz_buf) of the nz-row grid, and only the slots whose window centre lies in
+// [own_z0, own_z1) get their confidence (the others 0: on the grid-sharded
+// step each slot's shard, the shards' results then summed);
 // floats: host f32 DetF.  Outputs: valid bool [K], ids int32 [K],
 // confidence, pdet f32 [K], cov f32 [K, 3, 3], new_counter int32 scalar.
 VOFOD_API int vofod_detect(const void* vals, const void* far, const void* labels,
@@ -159,7 +168,8 @@ VOFOD_API int vofod_detect(const void* vals, const void* far, const void* labels
                            void* pdet, void* cov, void* new_counter, void* stream) {
   DetI n;
   n.nz = ints[0]; n.ny = ints[1]; n.nx = ints[2]; n.K = ints[3]; n.CS = ints[4];
-  if (n.K <= 0 || n.CS <= 0 || n.CS > 64) return (int)cudaErrorInvalidValue;
+  n.z_lo = ints[5]; n.nz_buf = ints[6]; n.own_z0 = ints[7]; n.own_z1 = ints[8];
+  if (n.K <= 0 || n.CS <= 0 || n.CS > 64 || n.nz_buf < 1) return (int)cudaErrorInvalidValue;
   DetF f;
   f.ox = floats[0]; f.oy = floats[1]; f.oz = floats[2]; f.inv_vs = floats[3];
   f.score = floats[4]; f.inv_score = floats[5]; f.inv_v = floats[6]; f.inv_h = floats[7];

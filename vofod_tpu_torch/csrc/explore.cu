@@ -102,13 +102,15 @@ __device__ __forceinline__ float grid_at(const float* grid, size_t i) {
   return kLive ? __ldcg(grid + i) : __ldg(grid + i);
 }
 
-// One query's BFS by the whole block, submap corner (x0, y0, z0).  Returns
+// One query's BFS by the whole block, submap corner (x0, y0, z0).  `grid`
+// holds the z rows [z_lo, z_lo + nz) (the whole grid, or a shard's slab
+// extended by the explore pad); rows outside it read as air.  Returns
 // (the same on every thread) whether the flood's closure touched ground or
 // the reached set the shell at bound - 1; the reached rows are left in
 // `cur`.  Ends on a barrier, so the caller may read every row of `cur`.
 template <typename W, bool kLive>
-__device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
-                          int bound, float thr_f, float thr_g, int S, int max_iters,
+__device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, int x0, int y0,
+                          int z0, int bound, float thr_f, float thr_g, int S, int max_iters,
                           W* expandable, W* ground, W*& cur, W*& nxt) {
   const int half = S / 2, rows = S * S;
   const W full = low_bits<W>(S);
@@ -118,7 +120,7 @@ __device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int x0, int
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < rows; r += nwarps) {
     const int z = r / S, y = r - (r / S) * S;
-    const int gz = z0 + z, gy = y0 + y;
+    const int gz = z0 + z - z_lo, gy = y0 + y;  // gz: the buffer's row
     const bool row_in = gz >= 0 && gz < nz && gy >= 0 && gy < ny;
     W unk = 0, gnd = 0;
     for (int xc = 0; xc < S; xc += 32) {
@@ -179,7 +181,7 @@ __device__ __forceinline__ bool at_grid_edge(int gx, int gy, int gz, int nz, int
 
 template <typename W>
 __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
-    const float* __restrict__ grid, int nz, int ny, int nx,
+    const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
     const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
     const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
     const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
@@ -205,15 +207,15 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
   W* cur = ground + rows;
   W* nxt = cur + rows;
   const int bound = min(max_manhattan[q], half - 1);
-  const bool hit = bfs_block<W, false>(grid, nz, ny, nx, x0, y0, z0, bound, thr_f, thr_g, S,
-                                       max_iters, expandable, ground, cur, nxt);
+  const bool hit = bfs_block<W, false>(grid, nz, ny, nx, z_lo, x0, y0, z0, bound, thr_f, thr_g,
+                                       S, max_iters, expandable, ground, cur, nxt);
   for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = (unsigned long long)cur[r];
   if (threadIdx.x == 0)
-    connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz, ny, nx)) ? 1 : 0;
+    connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
-    float* __restrict__ grid, int nz, int ny, int nx,
+    float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
     const unsigned long long* __restrict__ reached, const int32_t* __restrict__ corners,
     int S, const uint8_t* __restrict__ qslot, const uint8_t* __restrict__ connected,
     const uint8_t* __restrict__ qvalid, const uint8_t* __restrict__ qgate,
@@ -239,9 +241,9 @@ __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     unsigned long long w = rq[r];
     if (w == 0ull) continue;
-    const int gz = z0 + r / S, gy = y0 + r % S;
-    if (gz < 0 || gz >= nz || gy < 0 || gy >= ny) continue;
-    float* row = grid + ((size_t)gz * ny + gy) * nx;
+    const int gz = z0 + r / S, gy = y0 + r % S, lz = gz - z_lo;
+    if (gz < 0 || gz >= nz_g || lz < 0 || lz >= nz || gy < 0 || gy >= ny) continue;
+    float* row = grid + ((size_t)lz * ny + gy) * nx;
     while (w != 0ull) {
       const int x = __ffsll((long long)w) - 1;
       w &= w - 1;
@@ -307,7 +309,7 @@ __global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
       W* nxt = buf_b;
       const int bound = min(max_manhattan[q], half - 1);
       const int x0 = gx - half, y0 = gy - half, z0 = gz - half;
-      connected = bfs_block<W, true>(grid, nz, ny, nx, x0, y0, z0, bound, thr_f, thr_g, S,
+      connected = bfs_block<W, true>(grid, nz, ny, nx, 0, x0, y0, z0, bound, thr_f, thr_g, S,
                                      max_iters, expandable, ground, cur, nxt);
       if (!connected) {
         // live demotion: min(v, thr) at the reached voxels inside the grid
@@ -350,15 +352,15 @@ int allow_smem(Kern kernel, size_t smem) {
 }
 
 template <typename W>
-int launch_explore(const void* grid, int nz, int ny, int nx, const void* qx, const void* qy,
-                   const void* qz, const void* qvalid, const void* mm, float thr_f,
+int launch_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g, const void* qx,
+                   const void* qy, const void* qz, const void* qvalid, const void* mm, float thr_f,
                    float thr_g, int Q, int S, int max_iters, void* connected, void* reached,
                    void* corners, cudaStream_t s) {
   const size_t smem = 4 * (size_t)S * S * sizeof(W);
   const int e = allow_smem(explore_kernel<W>, smem);
   if (e != 0) return e;
   explore_kernel<W><<<Q, EXPLORE_T, smem, s>>>(
-      static_cast<const float*>(grid), nz, ny, nx, static_cast<const int32_t*>(qx),
+      static_cast<const float*>(grid), nz, ny, nx, z_lo, nz_g, static_cast<const int32_t*>(qx),
       static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
       static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(mm), thr_f, thr_g, S,
       max_iters, static_cast<uint8_t*>(connected),
@@ -389,36 +391,43 @@ int launch_explore_seq(void* grid, int nz, int ny, int nx, const void* qx, const
 
 }  // namespace
 
-// grid: device float32 [nz, ny, nx]; qx/qy/qz/max_manhattan: int32 [Q];
+// grid: device float32 [nz, ny, nx] holding the z rows [z_lo, z_lo + nz) of
+// a grid of nz_g rows (z_lo = 0 and nz_g = nz but on the grid-sharded
+// step); qx/qy/qz/max_manhattan: int32 [Q] in global grid coordinates;
 // qvalid: bool [Q].  Outputs: connected bool [Q], reached int64 [Q, S, S]
 // (bit x of row (z, y)), corners int32 [Q, 3] (z, y, x).  2 <= S <= 62.
-VOFOD_API int vofod_explore(const void* grid, int nz, int ny, int nx, const void* qx,
-                            const void* qy, const void* qz, const void* qvalid,
+VOFOD_API int vofod_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
+                            const void* qx, const void* qy, const void* qz, const void* qvalid,
                             const void* max_manhattan, float thr_f, float thr_g, int Q, int S,
                             int max_iters, void* connected, void* reached, void* corners,
                             void* stream) {
   if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 32)
-    return launch_explore<uint32_t>(grid, nz, ny, nx, qx, qy, qz, qvalid, max_manhattan,
+    return launch_explore<uint32_t>(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid,
+                                    max_manhattan,
                                     thr_f, thr_g, Q, S, max_iters, connected, reached,
                                     corners, s);
-  return launch_explore<unsigned long long>(grid, nz, ny, nx, qx, qy, qz, qvalid,
+  return launch_explore<unsigned long long>(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid,
                                             max_manhattan, thr_f, thr_g, Q, S, max_iters,
                                             connected, reached, corners, s);
 }
 
 // In place: grid[v] = min(grid[v], thr) at the reached voxels of every
-// demoting query.  qslot: bool [Q, K]; connected/qvalid: bool [Q]; qgate:
-// bool [K]; query_overflow: bool scalar; n_writes: int32 scalar the kernel
-// adds its stores to (zeroed by the caller).
-VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, const void* reached,
+// demoting query.  grid: the z rows [z_lo, z_lo + nz) of a grid of nz_g
+// rows, as vofod_explore's; writes land only inside both.  qslot: bool
+// [Q, K]; connected/qvalid: bool [Q]; qgate: bool [K]; query_overflow: bool
+// scalar; n_writes: int32 scalar the kernel adds its stores to (zeroed by
+// the caller).
+VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
+                           const void* reached,
                            const void* corners, int S, const void* qslot, const void* connected,
                            const void* qvalid, const void* qgate, const void* query_overflow,
                            int Q, int K, float thr, void* n_writes, void* stream) {
   if (Q <= 0 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
   demote_kernel<<<Q, DEMOTE_T, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(grid), nz, ny, nx, static_cast<const unsigned long long*>(reached),
+      static_cast<float*>(grid), nz, ny, nx, z_lo, nz_g,
+      static_cast<const unsigned long long*>(reached),
       static_cast<const int32_t*>(corners), S, static_cast<const uint8_t*>(qslot),
       static_cast<const uint8_t*>(connected), static_cast<const uint8_t*>(qvalid),
       static_cast<const uint8_t*>(qgate), static_cast<const uint8_t*>(query_overflow), Q, K,

@@ -31,6 +31,7 @@ struct FrontendParams {
   float inv_voxel;
   float range_scale;             // mm -> m
   int nx, ny, nz;
+  int z_lo, nz_loc;  // the z rows the counts buffer holds
 };
 
 __device__ __forceinline__ bool in_box(float x, float y, float z,
@@ -82,7 +83,8 @@ __global__ void frontend_bin_kernel(
     // in-limits test in the float domain: no cast of an unclamped value
     const bool inb = fx >= 0.0f && fx < (float)p.nx && fy >= 0.0f &&
                      fy < (float)p.ny && fz >= 0.0f && fz < (float)p.nz;
-    if (valid && inb) atomicAdd(&counts[fid], 1);
+    if (valid && inb && iz >= p.z_lo && iz < p.z_lo + p.nz_loc)
+      atomicAdd(&counts[fid - p.z_lo * p.ny * p.nx], 1);
     excl[i] = (has_return && in_op && in_excl) ? 1 : 0;
     fid_out[i] = fid;
   }
@@ -94,13 +96,15 @@ __global__ void frontend_bin_kernel(
 }  // namespace
 
 // boxes: host float32[15] = excl_lo[3], excl_hi[3], op_lo[3], op_hi[3],
-// origin[3]; pose: device float32 [4, 4].  counts and n_valid are zeroed by
-// the caller.  Returns cudaGetLastError().
+// origin[3]; pose: device float32 [4, 4].  counts [nz_loc, ny, nx] holds
+// the grid's z rows [z_lo, z_lo + nz_loc) (the whole grid, or a shard's
+// slab on the grid-sharded step: the points it owns); the ids stay global.
+// counts and n_valid are zeroed by the caller.  Returns cudaGetLastError().
 VOFOD_API int vofod_frontend_bin(const void* ranges, const void* dirs,
                                  const void* offs, const void* pose, int n,
                                  const float* boxes, float inv_voxel,
-                                 float range_scale, int nz, int ny, int nx,
-                                 void* counts, void* n_valid, void* excl,
+                                 float range_scale, int nz, int ny, int nx, int z_lo,
+                                 int nz_loc, void* counts, void* n_valid, void* excl,
                                  void* fid_out, void* stream) {
   FrontendParams p;
   for (int a = 0; a < 3; ++a) {
@@ -115,6 +119,9 @@ VOFOD_API int vofod_frontend_bin(const void* ranges, const void* dirs,
   p.nx = nx;
   p.ny = ny;
   p.nz = nz;
+  p.z_lo = z_lo;
+  p.nz_loc = nz_loc;
+  if (z_lo < 0 || nz_loc < 1 || z_lo + nz_loc > nz) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   frontend_bin_kernel<<<(n + threads - 1) / threads, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -45,7 +45,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     sweep_kernel(const T* __restrict__ a, T* __restrict__ b,
                  const uint8_t* __restrict__ occ, int nz, int ny, int nx,
                  Taps taps, int* __restrict__ changed,
-                 const int* __restrict__ prev_changed) {
+                 const int* __restrict__ prev_changed, int flag_z0, int flag_z1) {
   if (prev_changed != nullptr && *prev_changed == 0) return;  // past the fixpoint
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
     else
       nv = (old != 0 || (o && acc != 0)) ? (T)1 : (T)0;
     b[i] = nv;
-    diff = nv != old;
+    diff = nv != old && z >= flag_z0 && z < flag_z1;
   }
   if (__syncthreads_or(diff) &&
       threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0)
@@ -90,14 +90,15 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
 
 template <typename T, int MODE>
 int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx, const int* taps,
-           int n_taps, int halo, int* changed, const int* prev, cudaStream_t stream) {
+           int n_taps, int halo, int* changed, const int* prev, int fz0, int fz1,
+           cudaStream_t stream) {
   const size_t smem = tile_elems(halo) * sizeof(T);
   return with_taps(taps, n_taps, halo, [&](const auto& t) {
     auto* kernel = sweep_kernel<T, MODE, std::decay_t<decltype(t)>>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
         static_cast<const T*>(a), static_cast<T*>(b), static_cast<const uint8_t*>(occ), nz,
-        ny, nx, t, changed, prev);
+        ny, nx, t, changed, prev, fz0, fz1);
     return (int)cudaGetLastError();
   });
 }
@@ -108,19 +109,24 @@ int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx, cons
 // int32 [n_taps, 3], 1 <= n_taps <= 2,112, every |offset| <= halo <= 7.
 // `changed` is a device int32 the kernel ORs 1 into when any voxel changed
 // (the caller zeroes it); `prev_changed` is NULL or the previous sweep's
-// flag, and the launch does nothing when it is 0.  Returns
-// cudaGetLastError().
+// flag, and the launch does nothing when it is 0.  Only changes in the z
+// rows [flag_z0, flag_z1) set the flag: the whole grid, or on the
+// grid-sharded step the interior of a halo-extended slab, whose halo rows
+// are the neighbours' and may change where the dense sweep sees no change.
+// Returns cudaGetLastError().
 VOFOD_API int vofod_propagate_sweep(const void* a, void* b, const void* occ,
                                     int mode, int nz, int ny, int nx,
                                     const int* taps, int n_taps, int halo,
                                     void* changed, const void* prev_changed,
-                                    void* stream) {
+                                    int flag_z0, int flag_z1, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ch = static_cast<int*>(changed);
   const int* pv = static_cast<const int*>(prev_changed);
   if (mode == 0)
-    return launch<int32_t, 0>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, s);
+    return launch<int32_t, 0>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, flag_z0,
+                              flag_z1, s);
   if (mode == 1)
-    return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, s);
+    return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, flag_z0,
+                              flag_z1, s);
   return (int)cudaErrorInvalidValue;
 }

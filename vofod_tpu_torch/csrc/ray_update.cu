@@ -225,13 +225,15 @@ __global__ void __launch_bounds__(RAY_T)
 // sensor; rot: f32 [3, 3]; ints: host int32 [nz, ny, nx, wy, wx, y0, x0, F];
 // floats: host f32 RayF.  new_rule: 1 launch; old rule: 2 launches, with
 // raylen_w (f32 [nz*wy*wx]) and max_bits (uint32, zeroed by the caller) as
-// scratch.  Returns cudaGetLastError().
+// scratch; `passes` (old rule) picks them: bit 0 the raylen + max pass, bit
+// 1 the EMA pass (the grid-sharded step takes the max over the shards
+// between the two).  Returns cudaGetLastError().
 VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
                                const void* faces, const void* rel_x,
                                const void* rel_y, const void* rel_z,
                                const void* rot, const int* ints,
                                const float* floats, int new_rule, void* raylen_w,
-                               void* max_bits, void* stream) {
+                               void* max_bits, int passes, void* stream) {
   RayI n;
   n.nz = ints[0]; n.ny = ints[1]; n.nx = ints[2]; n.wy = ints[3]; n.wx = ints[4];
   n.y0 = ints[5]; n.x0 = ints[6]; n.F = ints[7];
@@ -257,10 +259,13 @@ VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
     ray_update_kernel<0><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
     return (int)cudaGetLastError();
   }
-  ray_update_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ray_update_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+  if (passes & 1) {
+    ray_update_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (passes & 2)
+    ray_update_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
   return (int)cudaGetLastError();
 }
 

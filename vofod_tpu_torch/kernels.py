@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written CUDA kernels (K1-K15a, K7s).
+"""Build, load and launch the hand-written CUDA kernels (K1-K15, K7s).
 
 The sources in ``csrc/`` compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
@@ -10,7 +10,8 @@ compiler's output — there is no fallback to the plain PyTorch versions.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch``, launches on ``torch.cuda.current_stream()``, raises
 when the launch returns a CUDA error, and adds one to its entry of
-:data:`LAUNCHES`.  The ops modules call these wrappers for CUDA tensors
+:data:`LAUNCHES` (under a lock: the grid-sharded step launches from one
+thread per shard).  The ops modules call these wrappers for CUDA tensors
 only; CPU tensors take the plain versions beside them.
 """
 
@@ -33,7 +34,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
             "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
-            "detect.cu", "ema.cu", "dda.cu", "census.cu", "unpack.cu")
+            "detect.cu", "ema.cu", "dda.cu", "census.cu", "unpack.cu", "halo.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +65,10 @@ LAUNCHES: dict[str, int] = {
     "quirk_counts": 0,
     "exact_demote_ema": 0,
     "unpack": 0,
+    "halo_exchange": 0,
+    "halo_fold_min": 0,
+    "cone_sweep_lat": 0,
+    "cone_sweep_z": 0,
 }
 
 # The stencil kernels (K1, K2, the K11 and K13c epilogues, K14) take any tap
@@ -75,6 +80,7 @@ MAX_HALO = 7
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,12 +89,19 @@ _LL = ctypes.c_longlong
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _count_lock:
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -154,22 +167,23 @@ def load():
         lib.vofod_ball_pool.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P]
         lib.vofod_propagate_sweep.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P]
+            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]
         lib.vofod_frontend_bin.argtypes = [
-            _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.vofod_compact.argtypes = [_P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P]
         lib.vofod_explore.argtypes = [
-            _P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
+            _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
         lib.vofod_demote.argtypes = [
-            _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
+            _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
         lib.vofod_explore_sequential.argtypes = [
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P,
             _P]
         lib.vofod_cluster_stats.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
-        lib.vofod_ray_update.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P]
+        lib.vofod_ray_update.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P]
         lib.vofod_detect.argtypes = [_P] * 20
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
         lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
@@ -180,6 +194,11 @@ def load():
         lib.vofod_exact_demote_ema.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
+        lib.vofod_halo_exchange.argtypes = [
+            _P, _P, _I, _I, _I, _LL, _P, _P, _P, _I, ctypes.c_uint, _P]
+        lib.vofod_halo_fold_min.argtypes = [_P, _P, _I, _I, _LL, _P, _P, _P, _I, _P]
+        lib.vofod_cone_sweep_lat.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
@@ -187,7 +206,8 @@ def load():
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
-                   lib.vofod_exact_demote_ema, lib.vofod_unpack):
+                   lib.vofod_exact_demote_ema, lib.vofod_unpack, lib.vofod_halo_exchange,
+                   lib.vofod_halo_fold_min, lib.vofod_cone_sweep_lat, lib.vofod_cone_sweep_z):
             fn.restype = _I
         _lib = lib
         return lib
@@ -249,7 +269,7 @@ def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
               fill: int) -> torch.Tensor:
     """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill)."""
     out = _pool(a, taps, halo, op, fill)
-    LAUNCHES["ball_pool"] += 1
+    _count("ball_pool")
     return out
 
 
@@ -258,17 +278,19 @@ def shell_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
     """K14: the traced-radius pool of cfg.dynamic_radii — K1's kernel on the
     kept shells of a static bound (ops/morphology.shell_taps)."""
     out = _pool(a, taps, halo, op, fill)
-    LAUNCHES["shell_pool"] += 1
+    _count("shell_pool")
     return out
 
 
 def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
                     taps: np.ndarray, halo: int, changed: torch.Tensor,
-                    prev_changed: torch.Tensor | None = None) -> None:
+                    prev_changed: torch.Tensor | None = None,
+                    flag_rows: tuple[int, int] | None = None) -> None:
     """K2: one Jacobi sweep src -> dst.  int32 src: min-label sweep (off-mask
     SENTINEL); uint8 src: reach sweep.  ORs 1 into ``changed`` (device
-    int32 scalar) when any voxel changed.  With ``prev_changed`` (the
-    previous sweep's flag) the launch does nothing when that flag is 0."""
+    int32 scalar) when any voxel of the z rows ``flag_rows`` (default: all)
+    changed.  With ``prev_changed`` (the previous sweep's flag) the launch
+    does nothing when that flag is 0."""
     lib = load()
     mode = {torch.int32: 0, torch.uint8: 1}.get(src.dtype)
     if mode is None or src.dim() != 3:
@@ -281,19 +303,22 @@ def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
         _require(prev_changed, "propagate_sweep prev_changed", torch.int32, ())
     keep, ptr = _taps_arg(taps, halo)
     nz, ny, nx = src.shape
+    fz0, fz1 = (0, nz) if flag_rows is None else flag_rows
     err = lib.vofod_propagate_sweep(
         src.data_ptr(), dst.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
         ptr, len(keep), halo, changed.data_ptr(),
-        None if prev_changed is None else prev_changed.data_ptr(), _stream())
+        None if prev_changed is None else prev_changed.data_ptr(), fz0, fz1, _stream())
     _check(err, "vofod_propagate_sweep")
-    LAUNCHES["propagate_sweep"] += 1
+    _count("propagate_sweep")
 
 
 def frontend_bin(ranges: torch.Tensor, dirs: torch.Tensor, offs: torch.Tensor,
                  pose: torch.Tensor, boxes: np.ndarray, inv_voxel: float,
-                 range_scale: float, shape: tuple[int, int, int]):
+                 range_scale: float, shape: tuple[int, int, int],
+                 slab: tuple[int, int] | None = None):
     """K3: (counts int32 grid, n_valid int32 scalar, excl bool [N],
-    fid int32 [N])."""
+    fid int32 [N] global ids).  ``slab`` (z0, rows): the counts hold only
+    those z rows of the grid ``shape`` (a shard's), default all."""
     lib = load()
     n = ranges.shape[0]
     _require(ranges, "frontend ranges", torch.float32, (n,))
@@ -301,20 +326,21 @@ def frontend_bin(ranges: torch.Tensor, dirs: torch.Tensor, offs: torch.Tensor,
     _require(offs, "frontend lut offs", torch.float32, (n, 3))
     _require(pose, "frontend pose", torch.float32, (4, 4))
     dev = ranges.device
-    counts = torch.zeros(shape, dtype=torch.int32, device=dev)
+    nz, ny, nx = shape
+    z0, nzl = (0, nz) if slab is None else slab
+    counts = torch.zeros((nzl, ny, nx), dtype=torch.int32, device=dev)
     n_valid = torch.zeros((), dtype=torch.int32, device=dev)
     excl = torch.empty(n, dtype=torch.bool, device=dev)
     fid = torch.empty(n, dtype=torch.int32, device=dev)
     b = np.ascontiguousarray(boxes, dtype=np.float32)
     assert b.shape == (15,)
-    nz, ny, nx = shape
     err = lib.vofod_frontend_bin(
         ranges.data_ptr(), dirs.data_ptr(), offs.data_ptr(), pose.data_ptr(),
         n, b.ctypes.data_as(_P), float(inv_voxel), float(range_scale),
-        nz, ny, nx, counts.data_ptr(), n_valid.data_ptr(), excl.data_ptr(),
+        nz, ny, nx, z0, nzl, counts.data_ptr(), n_valid.data_ptr(), excl.data_ptr(),
         fid.data_ptr(), _stream())
     _check(err, "vofod_frontend_bin")
-    LAUNCHES["frontend_bin"] += 1
+    _count("frontend_bin")
     return counts, n_valid, excl, fid
 
 
@@ -334,7 +360,7 @@ def cone_sweep(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
         opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),
         rel_z.data_ptr(), T.data_ptr(), nz, ny, nx, _stream())
     _check(err, "vofod_cone_sweep")
-    LAUNCHES["cone_sweep"] += 1
+    _count("cone_sweep")
     return T
 
 
@@ -370,15 +396,24 @@ def masked_compact(mask: torch.Tensor, capacity: int, labels: torch.Tensor | Non
         mask.data_ptr(), lab_ptr, sel_ptr, nsel, n, capacity, scratch.data_ptr(),
         ids.data_ptr(), valid.data_ptr(), total.data_ptr(), _stream())
     _check(err, "vofod_compact")
-    LAUNCHES["masked_compact"] += 1
+    _count("masked_compact")
     return ids, valid, total
+
+
+def _z_window(vmap: torch.Tensor, z_window: tuple[int, int] | None) -> tuple[int, int]:
+    """(z_lo, nz_g): the grid's first z row in ``vmap`` and the grid's
+    rows — (0, rows of vmap) but on the grid-sharded step, where vmap is a
+    shard's halo-extended slab."""
+    return (0, vmap.shape[0]) if z_window is None else z_window
 
 
 def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
             qvalid: torch.Tensor, max_manhattan: torch.Tensor, thr_frontiers: float,
-            thr_ground: float, submap: int, max_iters: int):
+            thr_ground: float, submap: int, max_iters: int,
+            z_window: tuple[int, int] | None = None):
     """K7: (connected bool [Q], reached int64 [Q, S, S] packed rows,
-    corners int32 [Q, 3])."""
+    corners int32 [Q, 3]).  ``z_window`` (z_lo, nz_g): vmap holds the rows
+    [z_lo, z_lo + rows) of an nz_g-row grid (:func:`_z_window`)."""
     lib = load()
     if vmap.dim() != 3:
         raise ValueError("explore takes a 3-D grid")
@@ -395,20 +430,22 @@ def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Te
     corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
     nz, ny, nx = vmap.shape
     err = lib.vofod_explore(
-        vmap.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
         qvalid.data_ptr(), max_manhattan.data_ptr(), float(thr_frontiers), float(thr_ground),
         Q, S, int(max_iters), connected.data_ptr(), reached.data_ptr(), corners.data_ptr(),
         _stream())
     _check(err, "vofod_explore")
-    LAUNCHES["explore_bfs"] += 1
+    _count("explore_bfs")
     return connected, reached, corners
 
 
 def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
             qslot: torch.Tensor, connected: torch.Tensor, qvalid: torch.Tensor,
-            qgate: torch.Tensor, query_overflow: torch.Tensor, thr_frontiers: float):
+            qgate: torch.Tensor, query_overflow: torch.Tensor, thr_frontiers: float,
+            z_window: tuple[int, int] | None = None):
     """K8, in place on ``vmap``: min(v, thr) at the reached voxels of every
-    query that demotes.  Returns the int32 count of those writes."""
+    query that demotes.  Returns the int32 count of those writes.
+    ``z_window``: as :func:`explore`'s."""
     lib = load()
     Q, S = reached.shape[0], reached.shape[1]
     K = qgate.shape[0]
@@ -425,11 +462,11 @@ def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
     n_writes = torch.zeros((), dtype=torch.int32, device=vmap.device)
     nz, ny, nx = vmap.shape
     err = lib.vofod_demote(
-        vmap.data_ptr(), nz, ny, nx, reached.data_ptr(), corners.data_ptr(), S,
+        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), reached.data_ptr(), corners.data_ptr(), S,
         qslot.data_ptr(), connected.data_ptr(), qvalid.data_ptr(), qgate.data_ptr(),
         query_overflow.data_ptr(), Q, K, float(thr_frontiers), n_writes.data_ptr(), _stream())
     _check(err, "vofod_demote")
-    LAUNCHES["demote"] += 1
+    _count("demote")
     return n_writes
 
 
@@ -468,7 +505,7 @@ def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
         float(thr_ground), Q, K, S, int(max_iters), cluster_connected.data_ptr(),
         n_writes.data_ptr(), _stream())
     _check(err, "vofod_explore_sequential")
-    LAUNCHES["explore_seq"] += 1
+    _count("explore_seq")
     return cluster_connected, n_writes
 
 
@@ -486,17 +523,16 @@ _STATS_FIELDS = (
 def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor, K: int,
                   grid_origin, voxel_size: float, gates, sensor_pos: torch.Tensor,
                   bg_sufficient: torch.Tensor, sure_bg_sufficient: torch.Tensor,
-                  ftotal: torch.Tensor) -> dict[str, torch.Tensor]:
+                  ftotal: torch.Tensor, grid_yx: tuple[int, int]) -> dict[str, torch.Tensor]:
     """K9: the per-slot statistics of the far list, keyed as
-    ``_STATS_FIELDS`` plus ``cluster_overflow``.  ``gates``: (min_points,
-    max_distance, max_size, max_explore_distance)."""
+    ``_STATS_FIELDS`` plus ``cluster_overflow``.  ``labels``: the far
+    voxels' labels, int32 [F]; ``grid_yx``: the grid's (ny, nx).
+    ``gates``: (min_points, max_distance, max_size, max_explore_distance)."""
     lib = load()
     F = fids.shape[0]
-    if labels.dim() != 3:
-        raise ValueError("cluster_stats takes the 3-D label grid")
     _require(fids, "stats fids", torch.int32, (F,))
     _require(fvalid, "stats fvalid", torch.bool, (F,))
-    _require(labels, "stats labels", torch.int32)
+    _require(labels, "stats labels", torch.int32, (F,))
     _require(sensor_pos, "stats sensor_pos", torch.float32, (3,))
     _require(bg_sufficient, "stats bg_sufficient", torch.bool, ())
     _require(sure_bg_sufficient, "stats sure_bg_sufficient", torch.bool, ())
@@ -510,14 +546,14 @@ def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor
     grid_f = np.array([*grid_origin, voxel_size], dtype=np.float32)
     gate_f = np.array(gates, dtype=np.float32)
     assert grid_f.shape == (4,) and gate_f.shape == (4,)
-    _, ny, nx = labels.shape
+    ny, nx = grid_yx
     err = lib.vofod_cluster_stats(
         fids.data_ptr(), fvalid.data_ptr(), labels.data_ptr(), F, K, ny, nx,
         grid_f.ctypes.data_as(_P), gate_f.ctypes.data_as(_P), sensor_pos.data_ptr(),
         bg_sufficient.data_ptr(), sure_bg_sufficient.data_ptr(), ftotal.data_ptr(),
         slot_scratch.data_ptr(), ptrs.ctypes.data_as(_P), _stream())
     _check(err, "vofod_cluster_stats")
-    LAUNCHES["cluster_stats"] += 1
+    _count("cluster_stats")
     return out
 
 
@@ -558,16 +594,19 @@ def gate_faces(active: torch.Tensor, face_dirs: torch.Tensor, rot: torch.Tensor,
         None if table is None else table.data_ptr(), ints[1], floats[1], out.data_ptr(),
         _stream())
     _check(err, "vofod_gate_faces")
-    LAUNCHES["gate_faces"] += 1
+    _count("gate_faces")
     return out
 
 
 def ray_update(vals: torch.Tensor, had_point: torch.Tensor, T6: torch.Tensor,
                faces: torch.Tensor | None, rel_x: torch.Tensor, rel_y: torch.Tensor,
-               rel_z: torch.Tensor, rot: torch.Tensor, x0: int, y0: int, c, ema) -> None:
+               rel_z: torch.Tensor, rot: torch.Tensor, x0: int, y0: int, c, ema,
+               gmax=None) -> None:
     """K5b, in place on ``vals``: the window's raylen from K4's T6 and the
     gate faces, then the ray EMA.  c: ops/raycast.py RayConsts; ema:
-    RayEma.  One launch under the new rule, two under the old."""
+    RayEma.  One launch under the new rule, two under the old, whose max
+    over the window passes through ``gmax`` (int32 bits of a non-negative
+    float -> the same over every shard) between them when given."""
     if vals.dim() != 3:
         raise ValueError("ray_update takes the 3-D grid")
     nz, ny, nx = vals.shape
@@ -591,24 +630,35 @@ def ray_update(vals: torch.Tensor, had_point: torch.Tensor, T6: torch.Tensor,
     if not ema.new_rule:
         raylen_w = torch.empty(nz * wy * wx, dtype=torch.float32, device=vals.device)
         max_bits = torch.zeros((), dtype=torch.int32, device=vals.device)
-    err = load().vofod_ray_update(
-        vals.data_ptr(), had_point.data_ptr(), T6.data_ptr(),
-        None if faces is None else faces.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),
-        rel_z.data_ptr(), rot.data_ptr(), ints[1], floats[1], int(bool(ema.new_rule)),
-        None if raylen_w is None else raylen_w.data_ptr(),
-        None if max_bits is None else max_bits.data_ptr(), _stream())
-    _check(err, "vofod_ray_update")
-    LAUNCHES["ray_update"] += 1 if ema.new_rule else 2
+    def launch(passes: int) -> None:
+        err = load().vofod_ray_update(
+            vals.data_ptr(), had_point.data_ptr(), T6.data_ptr(),
+            None if faces is None else faces.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),
+            rel_z.data_ptr(), rot.data_ptr(), ints[1], floats[1], int(bool(ema.new_rule)),
+            None if raylen_w is None else raylen_w.data_ptr(),
+            None if max_bits is None else max_bits.data_ptr(), passes, _stream())
+        _check(err, "vofod_ray_update")
+
+    if ema.new_rule or gmax is None:
+        launch(3)
+    else:
+        launch(1)
+        max_bits.copy_(gmax(max_bits))
+        launch(2)
+    _count("ray_update", 1 if ema.new_rule else 2)
 
 
 def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
            aabb_min: torch.Tensor, aabb_max: torch.Tensor, reps: torch.Tensor,
            n_points: torch.Tensor, cluster_class: torch.Tensor, obb_center: torch.Tensor,
            sensor_pos: torch.Tensor, det_counter: torch.Tensor, cs: int, origin,
-           inv_voxel: float, c):
+           inv_voxel: float, c, window: tuple[int, int, int, int] | None = None):
     """K10: (valid bool [K], ids int32 [K], confidence f32 [K], pdet f32
     [K], covariance f32 [K, 3, 3], new counter int32) of the K cluster
-    slots.  c: pipeline/detect.py DetectConsts."""
+    slots.  c: pipeline/detect.py DetectConsts.  ``window`` (nz, z_lo,
+    own_z0, own_z1): the grids hold the rows [z_lo, z_lo + rows) of an
+    nz-row grid and only the slots centred in [own_z0, own_z1) get their
+    confidence (default: the whole grid)."""
     if vals.dim() != 3:
         raise ValueError("detect takes the 3-D grid")
     K = reps.shape[0]
@@ -628,7 +678,9 @@ def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
     pdet = torch.empty(K, dtype=torch.float32, device=dev)
     cov = torch.empty((K, 3, 3), dtype=torch.float32, device=dev)
     new_counter = torch.empty((), dtype=torch.int32, device=dev)
-    ints = _host_i32(*vals.shape, K, cs)
+    nzb, ny, nx = vals.shape
+    nz, z_lo, own0, own1 = (nzb, 0, 0, nzb) if window is None else window
+    ints = _host_i32(nz, ny, nx, K, cs, z_lo, nzb, own0, own1)
     floats = _host_f32(*origin, inv_voxel, *c)
     err = load().vofod_detect(
         vals.data_ptr(), far.data_ptr(), labels.data_ptr(), aabb_min.data_ptr(),
@@ -637,7 +689,7 @@ def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
         floats[1], valid.data_ptr(), ids.data_ptr(), confidence.data_ptr(), pdet.data_ptr(),
         cov.data_ptr(), new_counter.data_ptr(), _stream())
     _check(err, "vofod_detect")
-    LAUNCHES["detect"] += 1
+    _count("detect")
     return valid, ids, confidence, pdet, cov, new_counter
 
 
@@ -655,7 +707,7 @@ def point_ema(vals: torch.Tensor, counts: torch.Tensor, close: torch.Tensor,
         float(score_point), float(score_unknown), out.data_ptr(), far.data_ptr(),
         n_occupied.data_ptr(), _stream())
     _check(err, "vofod_point_ema")
-    LAUNCHES["point_ema"] += 1
+    _count("point_ema")
     return out, far, n_occupied
 
 
@@ -677,7 +729,7 @@ def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
         vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
         nz, ny, nx, ptr, len(keep), halo, float(w1), float(c), out.data_ptr(), _stream())
     _check(err, "vofod_demote_ema")
-    LAUNCHES["demote_ema"] += 1
+    _count("demote_ema")
     return out
 
 
@@ -702,7 +754,7 @@ def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: 
                            valid.data_ptr(), R, fl[1], ints[1], acc.data_ptr(),
                            raylen.data_ptr(), _stream())
     _check(err, "vofod_dda")
-    LAUNCHES["dda"] += 1
+    _count("dda")
     return raylen
 
 
@@ -721,7 +773,7 @@ def ray_ema(vals: torch.Tensor, had_point: torch.Tensor, raylen: torch.Tensor, e
         vals.data_ptr(), had_point.data_ptr(), raylen.data_ptr(), vals.numel(), floats[1],
         int(bool(ema.new_rule)), None if max_bits is None else max_bits.data_ptr(), _stream())
     _check(err, "vofod_ray_ema")
-    LAUNCHES["ray_ema"] += 1 if ema.new_rule else 2
+    _count("ray_ema", 1 if ema.new_rule else 2)
 
 
 def label_census(labels: torch.Tensor, vals: torch.Tensor, occ: torch.Tensor, ncv: int,
@@ -740,7 +792,7 @@ def label_census(labels: torch.Tensor, vals: torch.Tensor, occ: torch.Tensor, nc
         labels.data_ptr(), vals.data_ptr(), occ.data_ptr(), labels.numel(), int(ncv),
         float(min_sure), census.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream())
     _check(err, "vofod_label_census")
-    LAUNCHES["label_census"] += 1
+    _count("label_census")
     return out, flags
 
 
@@ -762,7 +814,7 @@ def quirk_counts(bg: torch.Tensor, sure: torch.Tensor, lsz: int) -> torch.Tensor
     err = load().vofod_quirk_counts(bg.data_ptr(), sure.data_ptr(), nz, ny, nx, int(lsz),
                                     scratch.data_ptr(), u.data_ptr(), out.data_ptr(), _stream())
     _check(err, "vofod_quirk_counts")
-    LAUNCHES["quirk_counts"] += 1
+    _count("quirk_counts")
     return out
 
 
@@ -792,7 +844,7 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
         prev_sure.data_ptr(), nz, ny, nx, int(lsz), ptr, len(keep), halo, floats[1],
         out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(), _stream())
     _check(err, "vofod_exact_demote_ema")
-    LAUNCHES["exact_demote_ema"] += 1
+    _count("exact_demote_ema")
     return out, safe, sure_out
 
 
@@ -807,5 +859,123 @@ def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     err = load().vofod_unpack(packed.data_ptr(), counts.data_ptr(), blockers.data_ptr(),
                               packed.numel(), _stream())
     _check(err, "vofod_unpack")
-    LAUNCHES["unpack"] += 1
+    _count("unpack")
     return counts, blockers
+
+
+_MAX_HOPS = 16  # csrc/halo.cu MAX_HOPS
+
+
+def _hop_args(lo: list, hi: list, takes: list[int]):
+    """Host arrays of the per-hop block pointers (NULL for None) and rows."""
+    if len(takes) > _MAX_HOPS:
+        raise ValueError(f"halo of {len(takes)} hops; the kernels take at most {_MAX_HOPS}")
+    lo_p = (_P * max(len(takes), 1))(*[None if t is None else t.data_ptr() for t in lo])
+    hi_p = (_P * max(len(takes), 1))(*[None if t is None else t.data_ptr() for t in hi])
+    tk = np.array(takes or [0], dtype=np.int32)
+    return lo_p, hi_p, tk, tk.ctypes.data_as(_P)
+
+
+def _blocks_ok(blocks: list, g: torch.Tensor, takes: list[int], name: str) -> None:
+    for b, take in zip(blocks, takes):
+        if b is not None:
+            _require(b, name, g.dtype, (take,) + tuple(g.shape[1:]))
+
+
+_FILL_BITS = {torch.float32: lambda v: int(np.float32(v).view(np.uint32)),
+              torch.int32: lambda v: int(np.int32(v).view(np.uint32)),
+              torch.uint8: lambda v: int(v) & 0xFF, torch.int8: lambda v: int(v) & 0xFF,
+              torch.bool: lambda v: int(bool(v))}
+HALO_DTYPES = frozenset(_FILL_BITS)  # the slabs K15b-1 takes
+
+
+def halo_exchange(g: torch.Tensor, lo: list, hi: list, takes: list[int], fill) -> torch.Tensor:
+    """K15b-1: the slab ``g`` [nzl, ...] extended by r = sum(takes) rows on
+    each side: hop h's block ``lo[h]`` (the last takes[h] rows of the shard h
+    below) and ``hi[h]`` (the first rows of the shard h above), ``fill``
+    where a block is None.  f32 / int32 / int8 / uint8 / bool."""
+    if g.dtype not in HALO_DTYPES or g.dim() < 2:
+        raise ValueError(f"halo_exchange takes an f32/int32/int8/uint8/bool slab, got {g.dtype}")
+    _require(g, "halo slab", g.dtype)
+    _blocks_ok(lo, g, takes, "halo lo block")
+    _blocks_ok(hi, g, takes, "halo hi block")
+    nzl, r = g.shape[0], sum(takes)
+    ext = torch.empty((nzl + 2 * r,) + tuple(g.shape[1:]), dtype=g.dtype, device=g.device)
+    lo_p, hi_p, _, tk = _hop_args(lo, hi, takes)
+    err = load().vofod_halo_exchange(
+        g.data_ptr(), ext.data_ptr(), g.element_size(), nzl, r, g[0].numel(), lo_p, hi_p, tk,
+        len(takes), _FILL_BITS[g.dtype](fill), _stream())
+    _check(err, "vofod_halo_exchange")
+    _count("halo_exchange")
+    return ext
+
+
+def halo_fold_min(ext: torch.Tensor, r: int, from_next: list, from_prev: list,
+                  takes: list[int]) -> torch.Tensor:
+    """K15b-2: the interior rows of ``ext`` [nzl + 2r, ...] (f32) min-folded
+    with the blocks the neighbours sent back: ``from_next[h]`` onto the last
+    takes[h] rows, ``from_prev[h]`` onto the first (None: no shard)."""
+    _require(ext, "fold ext", torch.float32)
+    nzl = ext.shape[0] - 2 * r
+    if nzl < 1:
+        raise ValueError(f"halo_fold_min: {ext.shape[0]} rows cannot hold a halo of {r}")
+    _blocks_ok(from_next, ext[:nzl], takes, "fold block")
+    _blocks_ok(from_prev, ext[:nzl], takes, "fold block")
+    out = torch.empty((nzl,) + tuple(ext.shape[1:]), dtype=torch.float32, device=ext.device)
+    nx_p, pv_p, _, tk = _hop_args(from_next, from_prev, takes)
+    err = load().vofod_halo_fold_min(ext.data_ptr(), out.data_ptr(), nzl, r, ext[0].numel(),
+                                     nx_p, pv_p, tk, len(takes), _stream())
+    _check(err, "vofod_halo_fold_min")
+    _count("halo_fold_min")
+    return out
+
+
+def cone_sweep_lat(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
+                   rel_z: torch.Tensor, tmp_in: torch.Tensor | None, lo: torch.Tensor | None,
+                   hi: torch.Tensor | None, tmp_out: torch.Tensor, T4: torch.Tensor,
+                   k: int) -> None:
+    """K15b-3, launch k: the A pass of plane k - 1 and the B pass of plane k
+    of the x and y cones on a shard's window (see csrc/cone_sweep.cu).
+    tmp_*: bf16 [nzl, 4, max(wx, wy)]; lo / hi: the received bf16 rows [1,
+    4, PB] / [2, 4, PB] or None (the global edge); T4: f32 [4, nzl, wy, wx],
+    written in place."""
+    nzl, wy, wx = opaque.shape
+    pb = max(wx, wy)
+    _require(opaque, "cone_lat opaque", torch.uint8)
+    _require(rel_x, "cone_lat rel_x", torch.float32, (wx,))
+    _require(rel_y, "cone_lat rel_y", torch.float32, (wy,))
+    _require(rel_z, "cone_lat rel_z", torch.float32, (nzl,))
+    for t, name, rows in ((tmp_in, "tmp_in", nzl), (tmp_out, "tmp_out", nzl), (lo, "lo", 1),
+                          (hi, "hi", 2)):
+        if t is not None:
+            _require(t, f"cone_lat {name}", torch.bfloat16, (rows, 4, pb))
+    _require(T4, "cone_lat T", torch.float32, (4, nzl, wy, wx))
+    ptr = [None if t is None else t.data_ptr() for t in (tmp_in, lo, hi)]
+    err = load().vofod_cone_sweep_lat(
+        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(), *ptr,
+        tmp_out.data_ptr(), T4.data_ptr(), nzl, wy, wx, int(k), _stream())
+    _check(err, "vofod_cone_sweep_lat")
+    _count("cone_sweep_lat")
+
+
+def cone_sweep_z(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
+                 rel_z: torch.Tensor, carry_in: torch.Tensor, T2: torch.Tensor,
+                 keep: tuple[bool, bool]) -> torch.Tensor:
+    """K15b-4a, one round: the z cones over a shard's planes from the carry
+    planes ``carry_in`` (bf16 [2, wy, wx]); writes T2 (f32 [2, nzl, wy, wx])
+    for the cones in ``keep`` and returns the carry planes out."""
+    nzl, wy, wx = opaque.shape
+    _require(opaque, "cone_z opaque", torch.uint8)
+    _require(rel_x, "cone_z rel_x", torch.float32, (wx,))
+    _require(rel_y, "cone_z rel_y", torch.float32, (wy,))
+    _require(rel_z, "cone_z rel_z", torch.float32, (nzl,))
+    _require(carry_in, "cone_z carry_in", torch.bfloat16, (2, wy, wx))
+    _require(T2, "cone_z T", torch.float32, (2, nzl, wy, wx))
+    carry_out = torch.empty_like(carry_in)
+    err = load().vofod_cone_sweep_z(
+        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(),
+        carry_in.data_ptr(), carry_out.data_ptr(), T2.data_ptr(), nzl, wy, wx,
+        int(keep[0]) | (int(keep[1]) << 1), _stream())
+    _check(err, "vofod_cone_sweep_z")
+    _count("cone_sweep_z")
+    return carry_out

@@ -27,6 +27,12 @@ flag on the device:
 ``traced_r2`` (cfg.dynamic_radii): the adjacency is the ball of the
 runtime squared radius within the static bound ``radius``, the K14 tap set
 ops/morphology.Shells, on the same sweep kernel.
+
+On the grid-sharded step (parallel/gridops.py ZShardOps) the grids are a
+shard's z slab: ``sweep_fn`` is then the sharded sweep (a halo exchange
+per sweep, K2 on the extended slab with its change flag over the interior
+rows, the flags OR-ed over the shards), and the seeded labels take the
+slab's first global row ``z0`` and the grid's ``nz``.
 """
 
 from __future__ import annotations
@@ -42,11 +48,25 @@ Tensor = torch.Tensor
 SENTINEL = 2**31 - 1
 
 
+def sweep_plain(cur: Tensor, occ: Tensor, ball,
+                flag_rows: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
+    """Plain version of one K2 sweep (K1's plain pool over ``ball``: a
+    radius, traced shells or a tap set; + the mask), on any device: (new
+    grid, bool scalar: a voxel of the z rows ``flag_rows`` (default all)
+    changed)."""
+    if cur.dtype == torch.int32:
+        new = torch.where(occ, pool_plain(cur, ball, "min", SENTINEL), SENTINEL)
+    else:
+        pooled = pool_plain(cur.view(torch.int8), ball, "max", 0)
+        new = cur | (occ & (pooled > 0)).to(torch.uint8)
+    rows = slice(None) if flag_rows is None else slice(*flag_rows)
+    return new, torch.any(new[rows] != cur[rows])
+
+
 def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
                  until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
-    """Plain version of ``n`` K2 sweeps (K1's plain pool over ``ball``: a
-    radius, traced shells or a tap set; + the mask), on any device: (final
-    grid, bool [n] per-sweep changed flags).  With
+    """Plain version of ``n`` K2 sweeps (:func:`sweep_plain`), on any
+    device: (final grid, bool [n] per-sweep changed flags).  With
     ``until_fixpoint`` the sweeps after the first one that changed nothing
     are skipped (their flags False), as the gated kernel launches do."""
     cur, flags = init, []
@@ -54,13 +74,8 @@ def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
         if until_fixpoint and flags and not bool(flags[-1]):
             flags.append(flags[-1])
             continue
-        if cur.dtype == torch.int32:
-            new = torch.where(occ, pool_plain(cur, ball, "min", SENTINEL), SENTINEL)
-        else:
-            pooled = pool_plain(cur.view(torch.int8), ball, "max", 0)
-            new = cur | (occ & (pooled > 0)).to(torch.uint8)
-        flags.append(torch.any(new != cur))
-        cur = new
+        cur, changed = sweep_plain(cur, occ, ball)
+        flags.append(changed)
     return cur, torch.stack(flags)
 
 
@@ -97,22 +112,25 @@ def _ball(radius: float, traced_r2):
 
 
 def propagate_reach(
-    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None,
+    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None, *,
+    sweep_fn=sweeps,
 ) -> tuple[Tensor, Tensor]:
     """Grow ``seed & occupied`` through ``occupied`` under ball adjacency.
 
     Returns (reached bool grid, converged bool scalar): ``converged`` is
     False iff the last of the ``max_iters`` sweeps still changed something.
     ``traced_r2``: the runtime squared radius, ``radius`` then the bound.
+    ``sweep_fn``: :func:`sweeps`, or the grid-sharded step's.
     """
     occ = occupied.to(torch.bool)
     cur = (occ & seed.to(torch.bool)).to(torch.uint8)
-    cur, changed = sweeps(cur, occ, _ball(radius, traced_r2), max_iters)
+    cur, changed = sweep_fn(cur, occ, _ball(radius, traced_r2), max_iters)
     return cur.bool(), ~changed[-1]
 
 
 def label_components_seeded(
-    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None,
+    occupied: Tensor, seed: Tensor, radius: float, max_iters: int, traced_r2=None, *,
+    sweep_fn=sweeps, z0: int = 0, nz: int | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """One propagation computing components AND seed-reachability together
     (``key0 = reversed flat id + (1 - seed) * NV``; see the JAX docstring).
@@ -121,17 +139,21 @@ def label_components_seeded(
     off-mask; ``iters`` is the sweep index after which the labels stopped
     changing (``max_iters`` when the last sweep still changed them).
     ``traced_r2``: the runtime squared radius, ``radius`` then the bound.
+    ``sweep_fn``, ``z0``, ``nz``: the grid-sharded step's sweep, the slab's
+    first global row and the grid's rows (the flat ids stay global).
     """
     occ = occupied.to(torch.bool)
-    nz, ny, nx = occ.shape
-    nv = nz * ny * nx
+    nzl, ny, nx = occ.shape
+    nv = (nzl if nz is None else nz) * ny * nx
     # REVERSED flat ids: cluster slots fill in ascending label order, so the
     # highest-altitude components win the low labels (components.py:110-118)
-    flat = torch.arange(nv, dtype=torch.int32, device=occ.device).reshape(occ.shape)
+    f0 = z0 * ny * nx
+    flat = torch.arange(f0, f0 + occ.numel(), dtype=torch.int32,
+                        device=occ.device).reshape(occ.shape)
     rid = (nv - 1) - flat
     key0 = rid + torch.where(seed & occ, 0, nv).to(torch.int32)
     keys = torch.where(occ, key0, SENTINEL)
-    keys, changed = sweeps(keys, occ, _ball(radius, traced_r2), max_iters)
+    keys, changed = sweep_fn(keys, occ, _ball(radius, traced_r2), max_iters)
     sweep_no = torch.arange(1, max_iters + 1, dtype=torch.int32, device=occ.device)
     iters = (changed.to(torch.int32) * sweep_no).max()
     converged = iters < max_iters

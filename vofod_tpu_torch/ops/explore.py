@@ -17,6 +17,11 @@ difference: the reached set of an invalid query is empty here, where the
 JAX version may hold its centre voxel; no caller reads it (an invalid query
 never demotes).
 
+On the grid-sharded step the grid is a shard's slab extended by the
+explore pad: ``z_window = (z_lo, nz_g)`` says it holds the global rows
+[z_lo, z_lo + rows) of an nz_g-row grid (the JAX ``z_halo`` / ``z_off``);
+the queries and corners stay in global coordinates.
+
 The plain BFS runs a FIXED ``max_iters`` sweeps over the packed rows: the
 dilation is monotone, so sweeps past the fixpoint change nothing and the
 result equals the JAX while_loop's, with no host sync.
@@ -91,6 +96,7 @@ def explore_plain(
     thr_ground: float,
     submap: int,
     max_iters: int = 96,
+    z_window: tuple[int, int] | None = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain version of K7: (connected bool [Q], reached int64 [Q, S, S]
     packed rows, corners int32 [Q, 3] (z, y, x) submap corner in grid
@@ -100,12 +106,14 @@ def explore_plain(
         raise ValueError("explore submap side must be <= 62 (int64 rows)")
     half = S // 2
     dev = vmap_grid.device
+    z_lo = 0 if z_window is None else z_window[0]
     padded = F.pad(vmap_grid, (half,) * 6, value=-1e30)  # outside: certain air
     bound = torch.clamp(max_manhattan, max=half - 1)
 
-    # gather the Q submaps: padded[q + a] for a in [0, S) per axis
+    # gather the Q submaps: padded[q + a] for a in [0, S) per axis (a query
+    # outside a shard's window gathers clamped rows: it is invalid there)
     r = torch.arange(S, dtype=torch.int64, device=dev)
-    zi = (qz.long()[:, None] + r)[:, :, None, None]
+    zi = (qz.long()[:, None] - z_lo + r).clamp(0, padded.shape[0] - 1)[:, :, None, None]
     yi = (qy.long()[:, None] + r)[:, None, :, None]
     xi = (qx.long()[:, None] + r)[:, None, None, :]
     vals = padded[zi, yi, xi]  # [Q, S, S, S]
@@ -145,15 +153,16 @@ def explore_plain(
 
 def explore(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
             qvalid: Tensor, max_manhattan: Tensor, thr_frontiers: float,
-            thr_ground: float, submap: int, max_iters: int = 96):
+            thr_ground: float, submap: int, max_iters: int = 96,
+            z_window: tuple[int, int] | None = None):
     """K7 (packed reached rows); see :func:`explore_plain`."""
     if vmap_grid.is_cuda:
         return kernels.explore(vmap_grid, qx, qy, qz, qvalid, max_manhattan,
-                               thr_frontiers, thr_ground, submap, max_iters)
+                               thr_frontiers, thr_ground, submap, max_iters, z_window)
     if vmap_grid.device.type != "cpu":
         raise ValueError(f"explore: unsupported device {vmap_grid.device}")
     return explore_plain(grid, vmap_grid, qx, qy, qz, qvalid, max_manhattan,
-                         thr_frontiers, thr_ground, submap, max_iters)
+                         thr_frontiers, thr_ground, submap, max_iters, z_window)
 
 
 def explore_to_ground(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor,
@@ -168,19 +177,23 @@ def explore_to_ground(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor,
 
 
 def _demotion_writes(vmap_grid: Tensor, reached: Tensor, corners: Tensor,
-                     demote: Tensor, thr_frontiers: float) -> tuple[Tensor, Tensor]:
+                     demote: Tensor, thr_frontiers: float,
+                     z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
     """(new grid, int32 count of demotion writes) — every reached voxel of a
     demoting query inside the grid ends at min(value, thr) whatever the order
     (explore.py:178-182 of the JAX package), so all Q patches go through one
     masked scatter; with no demoting query it is a no-op."""
     Q, S = reached.shape[0], reached.shape[1]
     nz, ny, nx = vmap_grid.shape
+    z_lo, nz_g = (0, nz) if z_window is None else z_window
     dev = vmap_grid.device
     r = torch.arange(S, dtype=torch.int64, device=dev)
-    z = corners[:, 0].long()[:, None] + r
+    zg = corners[:, 0].long()[:, None] + r
+    z = zg - z_lo
     y = corners[:, 1].long()[:, None] + r
     x = corners[:, 2].long()[:, None] + r
-    inz, iny, inx = (z >= 0) & (z < nz), (y >= 0) & (y < ny), (x >= 0) & (x < nx)
+    inz = (zg >= 0) & (zg < nz_g) & (z >= 0) & (z < nz)
+    iny, inx = (y >= 0) & (y < ny), (x >= 0) & (x < nx)
     fid = (z[:, :, None, None] * ny + y[:, None, :, None]) * nx + x[:, None, None, :]
     inside = inz[:, :, None, None] & iny[:, None, :, None] & inx[:, None, None, :]
     hit = reached & demote[:, None, None, None] & inside
@@ -210,7 +223,8 @@ def apply_demotions(
 
 def demote_floating_plain(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor,
                           qslot: Tensor, connected: Tensor, qvalid: Tensor, qgate: Tensor,
-                          query_overflow: Tensor, thr_frontiers: float) -> tuple[Tensor, Tensor]:
+                          query_overflow: Tensor, thr_frontiers: float,
+                          z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
     """Plain version of K8: the demote decision of vofod_tpu/pipeline/
     classify.py:188-194 — a valid query demotes when a slot it belongs to
     passed the explore gate (``qgate``), none of that slot's queries
@@ -220,23 +234,24 @@ def demote_floating_plain(vmap_grid: Tensor, reached_bits: Tensor, corners: Tens
     floating = qgate & ~cluster_connected & ~query_overflow
     demote = qvalid & torch.any(qslot & floating[None, :], dim=1)
     reached = unpack_rows(reached_bits, reached_bits.shape[-1])
-    return _demotion_writes(vmap_grid, reached, corners, demote, thr_frontiers)
+    return _demotion_writes(vmap_grid, reached, corners, demote, thr_frontiers, z_window)
 
 
 def demote_floating(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor,
                     qslot: Tensor, connected: Tensor, qvalid: Tensor, qgate: Tensor,
-                    query_overflow: Tensor, thr_frontiers: float) -> tuple[Tensor, Tensor]:
+                    query_overflow: Tensor, thr_frontiers: float,
+                    z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
     """K8.  On a CUDA tensor the kernel updates ``vmap_grid`` IN PLACE and
     returns it; the plain version returns a new tensor.  Callers use the
     returned grid and must not read ``vmap_grid`` afterwards."""
     if vmap_grid.is_cuda:
         n = kernels.demote_(vmap_grid, reached_bits, corners, qslot, connected, qvalid,
-                            qgate, query_overflow, thr_frontiers)
+                            qgate, query_overflow, thr_frontiers, z_window)
         return vmap_grid, n
     if vmap_grid.device.type != "cpu":
         raise ValueError(f"demote: unsupported device {vmap_grid.device}")
     return demote_floating_plain(vmap_grid, reached_bits, corners, qslot, connected, qvalid,
-                                 qgate, query_overflow, thr_frontiers)
+                                 qgate, query_overflow, thr_frontiers, z_window)
 
 
 def explore_sequential_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor,

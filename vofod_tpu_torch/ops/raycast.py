@@ -21,6 +21,14 @@ version :func:`ray_window_update_plain_`) expands the gate per voxel,
 assembles the raylen and applies the ray EMA in place on the sweep window,
 so the step never builds a full-grid raylen field.
 
+The grid-sharded sweep (:func:`raycast_update_zsharded`, vofod_tpu
+``raycast_sweep_zsharded``) runs on a shard's z slab of the window: the x
+and y cones with their lateral z rows exchanged every plane step (K15b-3,
+csrc/cone_sweep.cu, plain version :func:`cone_lat_step_plain`), the z cones
+pipelined over the shards (K15b-4a, plain version
+:func:`cone_z_round_plain`), then K5b on the slab; its T is bit-equal to
+K4's on the same window.
+
 The exact mode walks every ray with Amanatides–Woo (K12, csrc/dda.cu, plain
 version :func:`raycast_dda_plain`) into a full-grid raylen field and applies
 the same ray EMA to it (K12's second pass, csrc/ray_update.cu
@@ -378,16 +386,29 @@ class RayEma(NamedTuple):
     score: float  # score_ray
 
 
-def ray_ema_plain(vals: Tensor, raylen: Tensor, had_point: Tensor, ema: RayEma) -> Tensor:
+def _lanes(fn, x: Tensor) -> Tensor:
+    """``fn(x)`` elementwise with every element in the vectorised loop of
+    PyTorch's CPU kernels (the flat length padded to a multiple of 64): their
+    scalar tail loop rounds exp2 differently, so without this a voxel's value
+    would depend on where it sits in the tensor, and a shard's slab would
+    not get its voxels' dense values."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % 64
+    return fn(F.pad(flat, (0, pad)))[:flat.numel()].reshape(x.shape)
+
+
+def ray_ema_plain(vals: Tensor, raylen: Tensor, had_point: Tensor, ema: RayEma,
+                  gmax=None) -> Tensor:
     """The ray EMA toward ``ema.score`` where ``raylen > 0`` and no point
     landed this scan (both reference update rules, vofod_nodelet.cpp:
     1550-1601).  The old rule normalises by ``max(raylen)``: on a window,
-    the window's max, which is the grid's since raylen is 0 outside it."""
+    the window's max, which is the grid's since raylen is 0 outside it; on
+    a shard's slab, that max through ``gmax`` (the max over the shards)."""
     active = (~had_point) & (raylen > 0.0)
     if ema.new_rule:  # ref :1550-1573
-        w1 = torch.exp2(-ema.its * (ema.coef * raylen))
+        w1 = _lanes(torch.exp2, -ema.its * (ema.coef * raylen))
     else:  # ref :1574-1601: normalize by the max cell value
-        max_val = torch.clamp(raylen.max(), min=1e-20)
+        max_val = torch.clamp(raylen.max() if gmax is None else gmax(raylen.max()), min=1e-20)
         w_single = ema.weight * torch.sqrt(raylen / max_val)
         w1 = torch.clamp(torch.pow(1.0 - w_single, ema.its), 0.0, 1.0)
     updated = w1 * vals + (1.0 - w1) * ema.score
@@ -470,29 +491,30 @@ def ray_window_plain(T6: Tensor, faces: Tensor | None, rel_x: Tensor, rel_y: Ten
 def ray_window_update_plain_(vals: Tensor, had_point: Tensor, T6: Tensor,
                              faces: Tensor | None, rel_x: Tensor, rel_y: Tensor,
                              rel_z: Tensor, rot_s2w: Tensor, x0: int, y0: int,
-                             c: RayConsts, ema: RayEma) -> Tensor:
+                             c: RayConsts, ema: RayEma, gmax=None) -> Tensor:
     """Plain version of K5b, in place on the window of ``vals``."""
     wy, wx = rel_y.shape[0], rel_x.shape[0]
     raylen = ray_window_plain(T6, faces, rel_x, rel_y, rel_z, rot_s2w, c)
     win = (slice(None), slice(y0, y0 + wy), slice(x0, x0 + wx))
-    vals[win] = ray_ema_plain(vals[win], raylen, had_point[win], ema)
+    vals[win] = ray_ema_plain(vals[win], raylen, had_point[win], ema, gmax)
     return vals
 
 
 def ray_window_update_(vals: Tensor, had_point: Tensor, T6: Tensor, faces: Tensor | None,
                        rel_x: Tensor, rel_y: Tensor, rel_z: Tensor, rot_s2w: Tensor,
-                       x0: int, y0: int, c: RayConsts, ema: RayEma) -> Tensor:
+                       x0: int, y0: int, c: RayConsts, ema: RayEma, gmax=None) -> Tensor:
     """K5b: the window's raylen from K4's T6 and the gate faces, and the ray
     EMA, written into ``vals`` in place (voxels outside the window have
-    raylen 0 and are not touched).  Returns ``vals``."""
+    raylen 0 and are not touched).  ``gmax``: the old rule's max over the
+    shards on the grid-sharded step.  Returns ``vals``."""
     if vals.is_cuda:
         kernels.ray_update(vals, had_point, T6, faces, rel_x, rel_y, rel_z,
-                           rot_s2w.contiguous(), x0, y0, c, ema)
+                           rot_s2w.contiguous(), x0, y0, c, ema, gmax)
         return vals
     if vals.device.type != "cpu":
         raise ValueError(f"ray update: unsupported device {vals.device}")
     return ray_window_update_plain_(vals, had_point, T6, faces, rel_x, rel_y, rel_z, rot_s2w,
-                                    x0, y0, c, ema)
+                                    x0, y0, c, ema, gmax)
 
 
 # margin (voxels) beyond the max-distance ball kept inside the sweep window
@@ -601,6 +623,203 @@ def raycast_update_(
     c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
     return ray_window_update_(vals, had_point, T6, gate, rel_x, rel_y, rel_z, rot_s2w,
                               x0, y0, c, ema)
+
+
+# -----------------------------------------------------------------------------
+# The grid-sharded sweep (K15b-3, K15b-4a)
+# -----------------------------------------------------------------------------
+
+
+def _plane_rs(rel_s: Tensor, n_s: int, p: int, back: bool) -> tuple[int, Tensor]:
+    """(grid index, sensor offset) of a cone's p-th plane from the sensor."""
+    s = n_s - 1 - p if back else p
+    return s, -rel_s[s] if back else rel_s[s]
+
+
+def _lerp_rows(p: Tensor, w: Tensor) -> Tensor:
+    """:func:`_lerp` along the last axis of p [C, m, n] with per-cone weights
+    w [C, n, 4] (1.0 outside), summed left to right, rounded to bf16."""
+    n = p.shape[-1]
+    q = F.pad(p, (1, 2), value=1.0)
+    ws = [w[:, None, :, k] for k in range(4)]
+    return _bf16(ws[0] * q[..., 0:n] + ws[1] * q[..., 1:n + 1] + ws[2] * q[..., 2:n + 2]
+                 + ws[3] * q[..., 3:n + 3])
+
+
+def cone_lat_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                        tmp_in: Tensor | None, lo: Tensor | None, hi: Tensor | None,
+                        tmp_out: Tensor, T4: Tensor, k: int) -> None:
+    """Plain version of K15b-3's launch k, with its arguments (see
+    kernels.cone_sweep_lat): per x/y cone, the A pass of plane k - 1 over
+    the slab's B-resampled rows with the neighbours' rows around them (1.0
+    past the global edge), its T and carry, then the B pass of plane k into
+    ``tmp_out``; each pass as :func:`_lerp` sums and rounds it.  Cones of
+    one plane shape are stepped together."""
+    nzl, wy, wx = opaque.shape
+    op = opaque.to(torch.bool)
+    dev = opaque.device
+    # (cones, planes, lanes, sweep offsets, lane offsets): x cones B = y
+    groups = [((0, 1, 2, 3), wx, wy, (rel_x, rel_x, rel_y, rel_y), (rel_y, rel_y, rel_x, rel_x))]
+    if wx != wy:
+        groups = [((0, 1), wx, wy, (rel_x, rel_x), (rel_y, rel_y)),
+                  ((2, 3), wy, wx, (rel_y, rel_y), (rel_x, rel_x))]
+    for cones, n_s, n_b, rel_s, rel_b in groups:
+        if k > n_s:
+            continue
+        C = len(cones)
+        if k == 0:
+            carry = torch.ones((C, nzl, n_b), dtype=torch.float32, device=dev)
+        else:
+            sr = [_plane_rs(r, n_s, k - 1, c % 2 == 1) for c, r in zip(cones, rel_s)]
+            rs = torch.stack([v for _, v in sr])
+            ones = torch.ones((C, 1, n_b), dtype=torch.float32, device=dev)
+            below = ones if lo is None else lo[0, list(cones), :n_b].float()[:, None]
+            above = (torch.cat([ones, ones], 1) if hi is None
+                     else hi[:, list(cones), :n_b].float().permute(1, 0, 2))
+            mid = tmp_in[:, list(cones), :n_b].float().permute(1, 0, 2)
+            ext = torch.cat([below, mid, above], 1)  # rows a-1 .. a+2, [C, nzl + 3, n_b]
+            wa = _tap_weights(rs, rel_z.expand(C, nzl))[..., None, :]  # [C, nzl, 1, 4]
+            t = _bf16(wa[..., 0] * ext[:, 0:nzl] + wa[..., 1] * ext[:, 1:nzl + 1]
+                      + wa[..., 2] * ext[:, 2:nzl + 2] + wa[..., 3] * ext[:, 3:nzl + 3])
+            t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+            planes = []
+            for j, (c, (s, _)) in enumerate(zip(cones, sr)):
+                if c < 2:
+                    T4[c, :, :, s] = t[j]
+                    planes.append(op[:, :, s])
+                else:
+                    T4[c, :, s, :] = t[j]
+                    planes.append(op[:, s, :])
+            carry = torch.where(torch.stack(planes), 0.0, t)
+        if k < n_s:
+            rs = torch.stack([_plane_rs(r, n_s, k, c % 2 == 1)[1] for c, r in zip(cones, rel_s)])
+            wb = _tap_weights(rs, torch.stack(rel_b))  # [C, n_b, 4]
+            tmp_out[:, list(cones), :n_b] = _lerp_rows(carry, wb).to(torch.bfloat16).permute(1, 0, 2)
+
+
+def cone_z_round_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                       carry_in: Tensor, T2: Tensor, keep: tuple[bool, bool]) -> Tensor:
+    """Plain version of one K15b-4a round (see kernels.cone_sweep_z): the z
+    cones over the slab's planes from ``carry_in``, as :func:`_sweep_axis`
+    steps them (both cones together); T2 written for the kept cones;
+    returns the carry planes out (bf16 [2, wy, wx])."""
+    nzl = opaque.shape[0]
+    op = opaque.to(torch.bool)
+    carry = carry_in.float()
+    for p in range(nzl):
+        (s0, r0), (s1, r1) = _plane_rs(rel_z, nzl, p, False), _plane_rs(rel_z, nzl, p, True)
+        rs = torch.stack([r0, r1])
+        wb = _tap_weights(rs, rel_x.expand(2, -1))  # [2, wx, 4]
+        wa = _tap_weights(rs, rel_y.expand(2, -1))  # [2, wy, 4]
+        t = _lerp_rows(carry, wb)  # along x, then along y (rows)
+        t = _lerp_rows(t.transpose(1, 2), wa).transpose(1, 2)
+        t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+        for c, s in ((0, s0), (1, s1)):
+            if keep[c]:
+                T2[c, s] = t[c]
+        carry = torch.where(torch.stack([op[s0], op[s1]]), 0.0, t)
+    return carry.to(torch.bfloat16)
+
+
+def _sharded_step(opaque: Tensor, kernel, plain_fn):
+    """The kernel on a CUDA slab, its plain version on a CPU one."""
+    if opaque.device.type == "cpu":
+        return plain_fn
+    if not opaque.is_cuda:
+        raise ValueError(f"sharded cone sweep: unsupported device {opaque.device}")
+    return kernel
+
+
+def cone_sweep_lat_sharded(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                           T4: Tensor, comm) -> None:
+    """The x/y cones of a shard's window slab (vofod_tpu
+    ``_sweep_cones_lat_sharded``) into T4 [4, nzl, wy, wx]: K15b-3's
+    max(wx, wy) + 1 launches, the B-resampled plane's edge rows sent after
+    each (the last row up, the first two down) through ``comm`` (a
+    parallel/comm.LocalComm, inside its ``run``)."""
+    step = _sharded_step(opaque, kernels.cone_sweep_lat, cone_lat_step_plain)
+    nzl, wy, wx = opaque.shape
+    pb = max(wx, wy)
+    n = comm.n
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    bufs = [torch.empty((nzl, 4, pb), dtype=torch.bfloat16, device=opaque.device)
+            for _ in range(2)]
+    lo = hi = None
+    for k in range(pb + 1):
+        tmp_in, tmp_out = bufs[(k + 1) % 2], bufs[k % 2]
+        step(opaque, rel_x, rel_y, rel_z, tmp_in if k else None, lo, hi, tmp_out, T4, k)
+        if k < pb:
+            lo, hi = comm.ppermutes([(tmp_out[nzl - 1:nzl], up), (tmp_out[:2], dn)])
+
+
+def cone_sweep_z_pipelined(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                           T2: Tensor, comm) -> None:
+    """The z cones of a shard's window slab (vofod_tpu
+    ``_sweep_cones_z_pipelined``) into T2 [2, nzl, wy, wx]: n rounds of
+    K15b-4a, the carry planes passed on after each (cone 0 up, cone 1 down);
+    shard s keeps cone 0 from round s and cone 1 from round n - 1 - s."""
+    step = _sharded_step(opaque, kernels.cone_sweep_z, cone_z_round_plain)
+    _, wy, wx = opaque.shape
+    n, me = comm.n, comm.rank
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    ones = torch.ones((wy, wx), dtype=torch.bfloat16, device=opaque.device)
+    carry = torch.stack([ones, ones])
+    for r in range(n):
+        out = step(opaque, rel_x, rel_y, rel_z, carry, T2, (me == r, me == n - 1 - r))
+        if r < n - 1:
+            c0, c1 = comm.ppermutes([(out[0], up), (out[1], dn)])
+            # a shard with no sender keeps a carry no kept round reads
+            carry = torch.stack([ones if c0 is None else c0, ones if c1 is None else c1])
+
+
+def sweep_zsharded(grid: GridSpec, opaque: Tensor, origin_world: np.ndarray, comm,
+                   max_distance_bound: float | None = None):
+    """T6 [6, nzl, wy, wx] of a shard's slab of the sweep window (x/y cones
+    by K15b-3, z cones by K15b-4a) and the window: (T6, x0, y0, rel_x,
+    rel_y, rel_z of the slab's rows).  ``opaque``: the shard's bool slab."""
+    nzl = opaque.shape[0]
+    x0, y0, rel_x, rel_y, rel_z_g = _window_rel(grid, origin_world, max_distance_bound,
+                                                opaque.device)
+    z0 = comm.rank * nzl
+    rel_z = rel_z_g[z0:z0 + nzl].contiguous()
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    op_w = opaque[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
+    T6 = torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=opaque.device)
+    cone_sweep_lat_sharded(op_w, rel_x, rel_y, rel_z, T6[:4], comm)
+    cone_sweep_z_pipelined(op_w, rel_x, rel_y, rel_z, T6[4:], comm)
+    return T6, x0, y0, rel_x, rel_y, rel_z
+
+
+def raycast_update_zsharded(
+    grid: GridSpec,
+    vals: Tensor,
+    had_point: Tensor,
+    opaque: Tensor,
+    origin_world: np.ndarray,
+    rot_s2w: Tensor,
+    ema: RayEma,
+    *,
+    comm,
+    max_distance: float,
+    vertical_fov: float,
+    v_rays: int,
+    h_rays: int,
+    gate: Tensor | None = None,
+    max_distance_bound: float | None = None,
+) -> Tensor:
+    """:func:`raycast_update_` on a shard's z slab (vofod_tpu
+    ``raycast_sweep_zsharded`` with the pipelined z cones): the window is
+    cropped in x/y only, the cones run sharded (:func:`sweep_zsharded`), and
+    K5b assembles and applies the ray EMA on the slab's window, the old
+    rule's max taken over the shards.  ``comm``: the shards'
+    parallel/comm.LocalComm, inside its ``run``.  Returns ``vals``."""
+    T6, x0, y0, rel_x, rel_y, rel_z = sweep_zsharded(grid, opaque, origin_world, comm,
+                                                     max_distance_bound)
+    c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
+    return ray_window_update_(vals, had_point, T6, gate, rel_x, rel_y, rel_z, rot_s2w, x0, y0,
+                              c, ema, gmax=comm.pmax)
 
 
 # -----------------------------------------------------------------------------

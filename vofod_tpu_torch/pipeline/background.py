@@ -11,6 +11,8 @@ exact hasCloseTo box (K1 with the ops/morphology.hascloseto_taps tap set)
 instead of the symmetric ball.  With ``cfg.dynamic_radii`` the seed pool
 and the sweeps take the shells of the static bound kept by the runtime
 ``dyn.ground_points_max_distance`` (K14, ops/morphology.shell_taps).
+The grid-wide sums, the seed pool and the seeded propagation go through
+``ops`` (parallel/gridops.py), as in the JAX stage.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ import torch
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_components_seeded
-from vofod_tpu_torch.ops.morphology import (
-    ball_pool_max, ball_pool_max_traced, hascloseto_pool_any)
+from vofod_tpu_torch.ops.morphology import ball_pool_max_traced, hascloseto_pool_any
+from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
 
@@ -79,7 +81,7 @@ def traced_radius(cfg: VoFODConfig, dyn: DynParams) -> tuple[float, np.float32]:
 
 def split_and_update(
     cfg: VoFODConfig, dyn: DynParams, grid_vals: Tensor, counts: Tensor,
-    prev_bg_sufficient: Tensor,
+    prev_bg_sufficient: Tensor, ops=DENSE,
 ) -> BackgroundOut:
     traced_r2 = None
     if cfg.dynamic_radii:
@@ -89,7 +91,7 @@ def split_and_update(
 
     # sticky, on the pre-update map, like the reference (:713-725)
     bg_mask = grid_vals > dyn.thr_new_obstacles
-    n_bg = bg_mask.sum().to(torch.int32)
+    n_bg = ops.gsum(bg_mask).to(torch.int32)
     bg_sufficient = prev_bg_sufficient | (
         n_bg > cfg.background_min_sufficient_pts
     )
@@ -102,14 +104,18 @@ def split_and_update(
     elif traced_r2 is not None:
         bg_near = ball_pool_max_traced(bg_mask.to(torch.int8), traced_r2, radius, fill=0) > 0
     else:
-        bg_near = ball_pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
+        bg_near = ops.pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
     seed = occupied & bg_near
-    labels, close, cc_converged, cc_iters = label_components_seeded(
-        occupied, seed, radius, cfg.cc_sweeps, traced_r2=traced_r2
-    )
+    if traced_r2 is None:
+        labels, close, cc_converged, cc_iters = ops.label_seeded(
+            occupied, seed, radius, cfg.cc_sweeps)
+    else:
+        labels, close, cc_converged, cc_iters = label_components_seeded(
+            occupied, seed, radius, cfg.cc_sweeps, traced_r2=traced_r2)
     # EMA point update (ref updateVoxel :789-795), far = occupied & ~close
     new_vals, far, n_occupied = point_ema(
         grid_vals, counts, close, float(dyn.score_point), float(dyn.score_unknown))
+    n_occupied = ops.psum(n_occupied)
     return BackgroundOut(
         grid=new_vals,
         occupied=occupied,

@@ -13,6 +13,13 @@ batched explore BFS (K7) with the demotion write-back (K8), or, under
 ``cfg.sequential_explore``, the sequential explore with live demotion
 (K7s, one launch); CPU tensors take their plain versions.
 
+Grid layout: the dense grids go through ``ops`` (parallel/gridops.py), as
+in the JAX stage: ``DENSE`` on one device, or ``ZShardOps`` on the
+grid-sharded step, where the compactions merge per-shard lists, the label
+lookups (K9's far labels among them) sum the owners' values over the
+shards, and the explore and demotion run on the
+shards' halo-extended slabs.
+
 Host-sync-free control flow: the batched explore always runs at the full
 Q-query capacity (any tier >= qtotal gives the same result,
 classify.py:281-286, and a run with no valid query equals the JAX branch 0;
@@ -31,10 +38,10 @@ from torch.profiler import record_function
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, to_int32
-from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import SENTINEL
 from vofod_tpu_torch.ops.eigh3 import cross, eigh3
-from vofod_tpu_torch.ops.explore import demote_floating, explore, explore_sequential_
+from vofod_tpu_torch.ops.explore import explore_sequential_
+from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
 
@@ -86,14 +93,15 @@ class ClusterStats:
 
 def cluster_stats_plain(
     dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor,
-    flat_labels: Tensor, sensor_pos: Tensor, explore_on: Tensor,
+    far_labels: Tensor, sensor_pos: Tensor, explore_on: Tensor,
 ) -> ClusterStats:
-    """Plain version of K9 (vofod_tpu/pipeline/classify.py:83-157)."""
+    """Plain version of K9 (vofod_tpu/pipeline/classify.py:83-157).
+    ``far_labels``: the far voxels' labels, int32 [F]."""
     F = fids.shape[0]
     dev = fids.device
     fx, fy, fz = grid.unflatten_id(fids)
     centers = grid.idx_to_coord(fx, fy, fz)  # [F, 3] world
-    flabels = torch.where(fvalid, flat_labels[fids.long()], SENTINEL)
+    flabels = torch.where(fvalid, far_labels, SENTINEL)
 
     # --- distinct component labels into K slots (ascending) -----------------
     lab = flabels
@@ -161,35 +169,38 @@ def cluster_stats_plain(
 
 
 def cluster_stats(
-    dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor, labels: Tensor,
+    dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor, far_labels: Tensor,
     ftotal: Tensor, sensor_pos: Tensor, bg_sufficient: Tensor, sure_bg_sufficient: Tensor,
 ) -> ClusterStats:
     """K9: statistics of the far list ``fids``/``fvalid`` (the first F far
     voxels of ``ftotal``).  The explore runs only when the background is
-    sufficient and the far list did not overflow (ref :1692)."""
+    sufficient and the far list did not overflow (ref :1692).
+    ``far_labels``: the far voxels' labels (int32 [F], ``ops.lookup`` of the
+    label grid at ``fids``)."""
     if fids.is_cuda:
         out = kernels.cluster_stats(
-            fids, fvalid, labels, K, grid.origin, grid.voxel_size,
+            fids, fvalid, far_labels, K, grid.origin, grid.voxel_size,
             (dyn.cls_min_points, dyn.cls_max_distance, dyn.cls_max_size,
              dyn.cls_max_explore_distance),
             sensor_pos.contiguous(), bg_sufficient, sure_bg_sufficient, ftotal,
+            grid_yx=(grid.ny, grid.nx),
         )
         return ClusterStats(**out)
     if fids.device.type != "cpu":
         raise ValueError(f"cluster_stats: unsupported device {fids.device}")
     explore_on = bg_sufficient & sure_bg_sufficient & ~(ftotal > fids.shape[0])
-    return cluster_stats_plain(dyn, grid, K, fids, fvalid, labels.reshape(-1), sensor_pos,
-                               explore_on)
+    return cluster_stats_plain(dyn, grid, K, fids, fvalid, far_labels, sensor_pos, explore_on)
 
 
-def explore_queries(grid: GridSpec, far: Tensor, labels: Tensor, st: ClusterStats, Q: int):
+def explore_queries(grid: GridSpec, far: Tensor, labels: Tensor, st: ClusterStats, Q: int,
+                    ops=DENSE):
     """The explore's queries: the far voxels of the gated clusters, compacted
     to Q slots (K6's label-predicate form).  Returns (qids, qvalid, qtotal,
     qx, qy, qz, qlabels — SENTINEL where invalid, qslot bool [Q, K] — the
     query's cluster slot, m_q — its Manhattan bound)."""
-    qids, qvalid, qtotal = masked_compact_isin(far, labels, st.rep_sel, Q)
+    qids, qvalid, qtotal = ops.compact_isin(far, labels, st.rep_sel, Q)
     qx, qy, qz = grid.unflatten_id(qids)
-    qlabels = torch.where(qvalid, labels.reshape(-1)[qids.long()], SENTINEL)
+    qlabels = torch.where(qvalid, ops.lookup(labels, qids), SENTINEL)
     qslot = qvalid[:, None] & (qlabels[:, None] == st.reps[None, :])  # [Q, K]
     m_q = (qslot.to(torch.int32) * st.m_k[None, :]).sum(dim=1).to(torch.int32)
     return qids, qvalid, qtotal, qx, qy, qz, qlabels, qslot, m_q
@@ -206,15 +217,16 @@ def classify(
     sensor_pos: Tensor,  # [3] world
     bg_sufficient: Tensor,
     sure_bg_sufficient: Tensor,
+    ops=DENSE,
 ) -> ClassifyOut:
     K, F, Q = cfg.max_clusters, cfg.max_far_voxels, cfg.max_queries
 
-    fids, fvalid, ftotal = masked_compact(far, F)
+    fids, fvalid, ftotal = ops.compact(far, F)
     overflow = ftotal > F
-    st = cluster_stats(dyn, grid, K, fids, fvalid, labels, ftotal, sensor_pos,
-                       bg_sufficient, sure_bg_sufficient)
+    st = cluster_stats(dyn, grid, K, fids, fvalid, ops.lookup(labels, fids), ftotal,
+                       sensor_pos, bg_sufficient, sure_bg_sufficient)
 
-    q = explore_queries(grid, far, labels, st, Q)
+    q = explore_queries(grid, far, labels, st, Q, ops)
     qids, qvalid, qtotal, qx, qy, qz, qlabels, qslot, m_q = q
     query_overflow = qtotal > Q
 
@@ -227,12 +239,12 @@ def classify(
                 query_overflow, thr_f, thr_g, S)
     else:
         with record_function("vofod.classify.explore"):
-            connected, reached, corners = explore(grid, grid_vals, qx, qy, qz, qvalid, m_q,
-                                                  thr_f, thr_g, S)
+            connected, reached, corners = ops.explore(grid, grid_vals, qx, qy, qz, qvalid, m_q,
+                                                      thr_f, thr_g, S)
         with record_function("vofod.classify.demote"):
             # on the card this writes into grid_vals in place: the step's
             # background grid has no reader after classify (step.py)
-            new_vals, n_demoted = demote_floating(
+            new_vals, n_demoted = ops.demote(
                 grid_vals, reached, corners, qslot, connected, qvalid, st.qgate,
                 query_overflow, thr_f,
             )

@@ -8,6 +8,11 @@ sum over the in-box voxels, exp(-uncertainty), detection probability,
 covariance and ids.  On CUDA tensors all of it is the hand-written kernel
 K10 (csrc/detect.cu), one block per cluster slot reading its window
 straight from the grids; CPU tensors take :func:`detect_slots_plain`.
+
+On the grid-sharded step (``ops`` a parallel/gridops.ZShardOps) K10 reads
+each shard's slab extended by the window's half width, and each slot's
+confidence comes from the shard holding its window centre, the others
+giving 0 before the sum over the shards (``window``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.parallel.gridops import DENSE
 from vofod_tpu_torch.pipeline.classify import CLS_MAV, ClassifyOut
 from vofod_tpu_torch.pipeline.state import Detections
 
@@ -30,11 +36,13 @@ Tensor = torch.Tensor
 _INT_MAX = 2**31 - 1
 
 
-def submaps3(vals: Tensor, far: Tensor, labels: Tensor, ctr_i: Tensor, cs: int):
+def submaps3(vals: Tensor, far: Tensor, labels: Tensor, ctr_i: Tensor, cs: int,
+             z_lo: int = 0):
     """Per-cluster CS³ windows of (vals, far, labels) around integer centres
     ctr_i [K, 3] (x, y, z): window position a holds grid index
     ctr - CS//2 + a; out-of-grid reads give 0 / False / INT_MAX
-    (ref getSubmapCopy, voxel_map.cpp:547-571)."""
+    (ref getSubmapCopy, voxel_map.cpp:547-571).  The grids hold the z rows
+    from ``z_lo`` on (a window outside them reads clamped rows)."""
     half = cs // 2
     pv = F.pad(vals, (half,) * 6, value=0.0)
     pf = F.pad(far, (half,) * 6, value=False)
@@ -43,7 +51,7 @@ def submaps3(vals: Tensor, far: Tensor, labels: Tensor, ctr_i: Tensor, cs: int):
     # padded index = grid index + half = ctr + a
     xi = (ctr_i[:, 0].long()[:, None] + r)[:, None, None, :]
     yi = (ctr_i[:, 1].long()[:, None] + r)[:, None, :, None]
-    zi = (ctr_i[:, 2].long()[:, None] + r)[:, :, None, None]
+    zi = (ctr_i[:, 2].long()[:, None] - z_lo + r).clamp(0, pv.shape[0] - 1)[:, :, None, None]
     return pv[zi, yi, xi], pf[zi, yi, xi], pl[zi, yi, xi]
 
 
@@ -94,11 +102,14 @@ def _block_sum(x: Tensor) -> Tensor:
 def detect_slots_plain(grid: GridSpec, cs: int, c: DetectConsts, grid_vals: Tensor,
                        far: Tensor, labels: Tensor, aabb_min: Tensor, aabb_max: Tensor,
                        reps: Tensor, n_points: Tensor, cluster_class: Tensor,
-                       obb_center: Tensor, sensor_pos: Tensor, det_counter: Tensor):
+                       obb_center: Tensor, sensor_pos: Tensor, det_counter: Tensor,
+                       window: tuple[int, int, int, int] | None = None):
     """Plain version of K10: (valid, ids, confidence, pdet, covariance,
     new det_counter) of the K cluster slots, every float op in the order
-    csrc/detect.cu computes it (the window sum in its block order)."""
+    csrc/detect.cu computes it (the window sum in its block order).
+    ``window``: as kernels.detect's."""
     half = cs // 2
+    _, z_lo, own0, own1 = (grid.nz, 0, 0, grid.nz) if window is None else window
     dev = grid_vals.device
     is_mav = cluster_class == CLS_MAV
     dd = obb_center - sensor_pos[None, :]
@@ -112,7 +123,7 @@ def detect_slots_plain(grid: GridSpec, cs: int, c: DetectConsts, grid_vals: Tens
     hi_i = torch.stack([torch.clamp(hi_i[:, a] + 2, 0, hi_lim[a]) for a in range(3)], -1)
     ctr_i = torch.div(lo_i + hi_i, 2, rounding_mode="floor")
 
-    sub_vals, sub_far, sub_lab = submaps3(grid_vals, far, labels, ctr_i, cs)
+    sub_vals, sub_far, sub_lab = submaps3(grid_vals, far, labels, ctr_i, cs, z_lo)
 
     r = torch.arange(cs, dtype=torch.int32, device=dev)
     ax = ctr_i[:, :, None] - half + r  # [K, 3, CS] absolute (x, y, z) indices
@@ -126,7 +137,8 @@ def detect_slots_plain(grid: GridSpec, cs: int, c: DetectConsts, grid_vals: Tens
     contrib = torch.where(inbox, 1.0 - v_eff * c.inv_score, 0.0)
     n_pts = torch.clamp(n_points, min=1).to(torch.float32)
     unc = _block_sum(contrib.reshape(contrib.shape[0], -1)) / n_pts
-    confidence = torch.where(is_mav, torch.exp(-unc), 0.0)
+    own = (ctr_i[:, 2] >= own0) & (ctr_i[:, 2] < own1)
+    confidence = torch.where(is_mav & own, torch.exp(-unc), 0.0)
 
     # detection probability (ref :869-874)
     ang = torch.arctan(torch.reciprocal(torch.clamp(dist, min=1e-6)))
@@ -147,16 +159,21 @@ def detect_slots_plain(grid: GridSpec, cs: int, c: DetectConsts, grid_vals: Tens
 def detect_slots(grid: GridSpec, cs: int, c: DetectConsts, grid_vals: Tensor, far: Tensor,
                  labels: Tensor, aabb_min: Tensor, aabb_max: Tensor, reps: Tensor,
                  n_points: Tensor, cluster_class: Tensor, obb_center: Tensor,
-                 sensor_pos: Tensor, det_counter: Tensor):
+                 sensor_pos: Tensor, det_counter: Tensor,
+                 window: tuple[int, int, int, int] | None = None):
+    """K10; ``window`` (nz, z_lo, own_z0, own_z1): the grids hold the rows
+    [z_lo, z_lo + rows) of the nz-row grid, and only the slots centred in
+    [own_z0, own_z1) get their confidence (default: the whole grid)."""
     if grid_vals.is_cuda:
         return kernels.detect(
             grid_vals, far, labels, aabb_min, aabb_max, reps, n_points, cluster_class,
             obb_center, sensor_pos.contiguous(), det_counter, cs, grid.origin,
-            grid.inv_voxel, c)
+            grid.inv_voxel, c, window)
     if grid_vals.device.type != "cpu":
         raise ValueError(f"detect: unsupported device {grid_vals.device}")
     return detect_slots_plain(grid, cs, c, grid_vals, far, labels, aabb_min, aabb_max, reps,
-                              n_points, cluster_class, obb_center, sensor_pos, det_counter)
+                              n_points, cluster_class, obb_center, sensor_pos, det_counter,
+                              window)
 
 
 def extract_detections(
@@ -169,12 +186,17 @@ def extract_detections(
     cls_out: ClassifyOut,
     sensor_pos: Tensor,
     det_counter: Tensor,
+    ops=DENSE,
 ) -> tuple[Detections, Tensor]:
+    cs = cfg.confidence_submap
+    (vals_w, far_w, labels_w), window = ops.halo_window(
+        (grid_vals, far, labels), (0.0, False, _INT_MAX), cs - cs // 2, grid.nz)
     valid, ids, confidence, pdet, cov, new_counter = detect_slots(
-        grid, cfg.confidence_submap, DetectConsts.make(cfg, dyn), grid_vals, far, labels,
+        grid, cs, DetectConsts.make(cfg, dyn), vals_w, far_w, labels_w,
         cls_out.aabb_min, cls_out.aabb_max, cls_out.reps, cls_out.n_points,
-        cls_out.cluster_class, cls_out.obb_center, sensor_pos, det_counter,
+        cls_out.cluster_class, cls_out.obb_center, sensor_pos, det_counter, window,
     )
+    confidence = ops.psum(confidence)  # the slots' shards' values, 0 elsewhere
     dets = Detections(
         valid=valid,
         id=ids,

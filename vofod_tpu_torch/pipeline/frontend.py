@@ -8,6 +8,10 @@ CUDA kernel K3 (csrc/frontend_bin.cu) for CUDA tensors and
 :func:`frontend_bin_plain` for CPU tensors.  Both return the per-pixel
 own-airframe mask and flat ids; the first 4096 airframe hits in pixel
 order, compacted by K6, then become raycast blockers (frontend.py:61-77).
+On the grid-sharded step (``ops`` a parallel/gridops.ZShardOps) every shard
+runs K3 on the whole scan and bins only the points in its z slab
+(``ops.slab``), and the blockers scatter onto the slab
+(``ops.scatter_add``), as the JAX ``bin_points`` / ``scatter_add``.
 
 :func:`run_frontend_prebinned` is the device half of the prebinned ingest
 (vofod_tpu ``run_frontend_prebinned``): the host binned the scan
@@ -27,6 +31,7 @@ from vofod_tpu_torch.config import VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, box_mask, se3_apply
 from vofod_tpu_torch.ops.binning import bin_points, point_fids
 from vofod_tpu_torch.ops.compaction import masked_compact
+from vofod_tpu_torch.parallel.gridops import DENSE
 from vofod_tpu_torch.sensor import RANGE_TO_METERS
 
 Tensor = torch.Tensor
@@ -45,8 +50,10 @@ class FrontendOut:
 
 
 def frontend_bin_plain(cfg: VoFODConfig, grid: GridSpec, lut_dirs: Tensor,
-                       lut_offs: Tensor, ranges_mm: Tensor, pose: Tensor):
-    """Plain version of K3: (counts, n_valid, excl [N] bool, fid [N] int32)."""
+                       lut_offs: Tensor, ranges_mm: Tensor, pose: Tensor,
+                       slab: tuple[int, int] | None = None):
+    """Plain version of K3: (counts, n_valid, excl [N] bool, fid [N] int32);
+    ``slab`` (z0, rows): the counts of those z rows only."""
     r = ranges_mm.to(torch.float32) * RANGE_TO_METERS
     has_return = r > 0
     pts_sensor = lut_dirs * r[:, None] + lut_offs
@@ -55,6 +62,8 @@ def frontend_bin_plain(cfg: VoFODConfig, grid: GridSpec, lut_dirs: Tensor,
     in_oparea = box_mask(pts_world, cfg.oparea.lo, cfg.oparea.hi)
     valid = has_return & ~in_exclude & in_oparea
     counts = bin_points(grid, pts_world, valid)
+    if slab is not None:
+        counts = counts[slab[0]:slab[0] + slab[1]].contiguous()
     fid, _ = point_fids(grid, pts_world, valid)
     excl = has_return & in_oparea & in_exclude
     return counts, valid.sum().to(torch.int32), excl, fid
@@ -68,15 +77,16 @@ def _frontend_boxes(cfg: VoFODConfig, grid: GridSpec) -> np.ndarray:
 
 
 def frontend_bin(cfg: VoFODConfig, grid: GridSpec, lut_dirs: Tensor,
-                 lut_offs: Tensor, ranges_mm: Tensor, pose: Tensor):
+                 lut_offs: Tensor, ranges_mm: Tensor, pose: Tensor,
+                 slab: tuple[int, int] | None = None):
     if ranges_mm.is_cuda:
         return kernels.frontend_bin(
             ranges_mm, lut_dirs, lut_offs, pose, _frontend_boxes(cfg, grid),
-            grid.inv_voxel, RANGE_TO_METERS, grid.shape,
+            grid.inv_voxel, RANGE_TO_METERS, grid.shape, slab,
         )
     if ranges_mm.device.type != "cpu":
         raise ValueError(f"frontend: unsupported device {ranges_mm.device}")
-    return frontend_bin_plain(cfg, grid, lut_dirs, lut_offs, ranges_mm, pose)
+    return frontend_bin_plain(cfg, grid, lut_dirs, lut_offs, ranges_mm, pose, slab)
 
 
 def run_frontend(
@@ -86,18 +96,17 @@ def run_frontend(
     lut_offs: Tensor,  # float32 [N, 3]
     ranges_mm: Tensor,  # float32 [N]
     pose: Tensor,  # float32 [4, 4]
+    ops=DENSE,
 ) -> FrontendOut:
     counts, n_valid, excl, fid = frontend_bin(
-        cfg, grid, lut_dirs, lut_offs, ranges_mm, pose
+        cfg, grid, lut_dirs, lut_offs, ranges_mm, pose, ops.slab(grid.nz)
     )
     # raycast opacity: any return inside the grid, own-airframe hits
     # included (they truncate rays in the reference too, :1455); the first
     # _MAX_EXCLUDE_HITS in pixel order are scattered, overflow is flagged
     eids, evalid, etotal = masked_compact(excl, _MAX_EXCLUDE_HITS)
-    efid = fid[eids.long()]
-    excl_counts = torch.zeros(grid.n_voxels, dtype=torch.int32, device=counts.device)
-    excl_counts.index_add_(0, efid.long(), evalid.to(torch.int32))
-    blockers = (counts > 0) | (excl_counts.reshape(grid.shape) > 0)
+    excl_counts = ops.scatter_add(grid, fid[eids.long()], evalid.to(torch.int32))
+    blockers = (counts > 0) | (excl_counts > 0)
     return FrontendOut(
         counts=counts,
         blockers=blockers,

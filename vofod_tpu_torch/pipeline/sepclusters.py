@@ -14,6 +14,10 @@ runtime ``dyn.sepclusters_max_bg_distance`` (K14, ops/morphology.
 Shells): the sum as K14, the reach as K2 and the demotion as K11's
 epilogue, each on that tap set.
 
+The default mode's grid-wide flags, pools, reach and demotion go through
+``ops`` (parallel/gridops.py), as in the JAX stage: on the grid-sharded step
+the stencils read halo-extended slabs.
+
 Exact-census mode (``cfg.sepclusters_exact_census``,
 :func:`run_sepclusters_exact`): the coarse counted binning (with the
 reference's indexing quirk behind ``cfg.compat_counted_indexing``: K13b,
@@ -37,7 +41,8 @@ from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.ops.components import label_census, label_components, propagate_reach
 from vofod_tpu_torch.ops.morphology import (
-    Shells, ball_pool_plain, ball_pool_sum, ball_pool_sum_traced, ball_taps, pool_plain, tap_set)
+    Shells, ball_pool_plain, ball_pool_sum_traced, ball_taps, pool_plain, tap_set)
+from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
 
@@ -102,6 +107,7 @@ def run_sepclusters(
     its_diff: float,
     prev_sure: Tensor,
     max_iters: int = 8,
+    ops=DENSE,
 ) -> SepClustersOut:
     if cfg.sepclusters_exact_census:
         return run_sepclusters_exact(cfg, dyn, grid_vals, its_diff, prev_sure)
@@ -121,21 +127,26 @@ def run_sepclusters(
         max_dist_idx = cfg.sepclusters_max_bg_distance / cfg.voxel_size
         adj_radius = math.ceil(max_dist_idx)  # cluster tolerance, index units
         # local sure-voxel counts stand in for per-cluster counts (JAX docstring)
-        local_sure = ball_pool_sum(sure.to(torch.int32), float(adj_radius) + 1.0)
+        local_sure = ops.pool_sum(sure.to(torch.int32), float(adj_radius) + 1.0)
         reach_r, reach_r2 = float(adj_radius), None
         demote_ball = max_dist_idx
     seeds = sure & (local_sure.to(torch.float32) >= dyn.sepclusters_min_sure_points)
     # empty background: the reference keeps the previous value (:1155-1159)
-    sure_sufficient = torch.where(torch.any(bg), torch.any(seeds), prev_sure)
+    sure_sufficient = torch.where(ops.gany(bg), ops.gany(seeds), prev_sure)
 
     init = (prev_safe & bg) | (seeds & bg)
-    safe, converged = propagate_reach(bg, init, reach_r, max_iters, traced_r2=reach_r2)
+    if reach_r2 is None:
+        safe, converged = ops.propagate_reach(bg, init, reach_r, max_iters)
+    else:
+        safe, converged = propagate_reach(bg, init, reach_r, max_iters, traced_r2=reach_r2)
 
     # demotion ball: ||d|| <= max_bg_distance/voxel around unsafe background
     # (ref :1219-1237); no demotion at all when no sure cluster exists (ref
     # returns early :1197-1206)
-    new_vals = demote_ema(grid_vals, bg, safe, sure_sufficient, demote_ball,
-                          *demote_weights(its_diff, dyn.score_ray))
+    w1, c = demote_weights(its_diff, dyn.score_ray)
+    new_vals = ops.stencil(
+        lambda v, b, s: demote_ema(v, b, s, sure_sufficient, demote_ball, w1, c),
+        (grid_vals, bg, safe), (0.0, False, False), tap_set(demote_ball)[1])
     return SepClustersOut(
         grid=new_vals, safe=safe, sure_bg_sufficient=sure_sufficient, converged=converged
     )

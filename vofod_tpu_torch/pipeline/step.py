@@ -25,6 +25,12 @@ in-limits test and the host step counter — or the branch is replaced by a
 fixed-size computation with the same result (see classify.py,
 ops/components.py, ops/explore.py), so a step issues no host sync.  The
 state dataclass is updated in place (JAX donates it instead).
+
+``ops`` is the dense-grid provider of vofod_tpu/parallel/gridops.py:
+``DENSE`` for one device, or a ``ZShardOps`` for the grid-sharded step
+(parallel/grid_step.py), which runs this same step code on every shard's
+z slab.  Since no predicate here is on device data, every shard issues the
+same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ from torch.profiler import record_function
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, rotate, se3_apply
 from vofod_tpu_torch.ops.raycast import (
-    RayEma, gate_faces, make_angular_gate, ray_ema_grid_, ray_ema_plain, raycast_dda,
-    raycast_update_, row_table)
+    RayEma, gate_faces, make_angular_gate, ray_ema_grid_, ray_ema_plain, raycast_dda, row_table)
+from vofod_tpu_torch.parallel.gridops import DENSE
 from vofod_tpu_torch.pipeline.background import split_and_update
 from vofod_tpu_torch.pipeline.classify import classify
 from vofod_tpu_torch.pipeline.detect import extract_detections
@@ -120,6 +126,7 @@ def make_step_fn(
     mask=None,
     frontend_mode: str = "raw",
     raycast_gate: bool = True,
+    ops=DENSE,
 ) -> Callable[..., tuple[VoFODState, StepOutput]]:
     """Build the step for ``device``.
     raycast_mode: "sweep" (the gated transmittance sweep, production),
@@ -138,6 +145,9 @@ def make_step_fn(
     Every VoFODConfig flag of the JAX step is ported (dynamic radii in the
     default sepclusters mode, as in the JAX step; compat_rangefinder_validity
     acts in the node only).
+    ops: the dense-grid provider (parallel/gridops.py); the grid-sharded
+      step passes its ZShardOps through parallel/grid_step.py, which
+      refuses the modes that have no sharded form yet.
 
     The returned ``step(state, scan, dyn, stage_hook=None)`` calls
     ``stage_hook(name)`` where each routine starts ("cnc", "raycasting",
@@ -161,6 +171,8 @@ def make_step_fn(
             "(VoFODConfig.dynamic_radii)")
     if raycast_every < 1:
         raise ValueError(f"raycast_every must be >= 1, got {raycast_every}")
+    if ops.is_sharded:
+        ops.check_step(cfg, raycast_mode, frontend_mode)
     device = torch.device(device)
     grid = GridSpec.from_config(cfg)
     H, W = cfg.sensor.vertical_rays, cfg.sensor.horizontal_rays
@@ -209,7 +221,7 @@ def make_step_fn(
                 r = scan.ranges_mm * RANGE_TO_METERS
                 active = ~(scan.intensity < dyn.raycast_min_intensity) & (mask_dev | (r > 0))
             faces = gate_faces(gate_spec, face_dirs, active.reshape(H, W), rot, rows)
-        return raycast_update_(
+        return ops.raycast_update_(
             grid, vals, occupied, blockers, np.asarray(sensor_pos, np.float32), rot,
             ray_ema(cfg, dyn, float(raycast_every)),
             max_distance=float(dyn.raycast_max_distance),
@@ -235,18 +247,18 @@ def make_step_fn(
             if frontend_mode == "prebinned":
                 fe = run_frontend_prebinned(scan)
             else:
-                fe = run_frontend(cfg, grid, lut_dirs, lut_offs, scan.ranges_mm, pose)
+                fe = run_frontend(cfg, grid, lut_dirs, lut_offs, scan.ranges_mm, pose, ops)
         with record_function("vofod.background"):  # split + point update
-            bg = split_and_update(cfg, dyn, state.grid, fe.counts, state.bg_sufficient)
+            bg = split_and_update(cfg, dyn, state.grid, fe.counts, state.bg_sufficient, ops)
         with record_function("vofod.classify"):  # + floating check, demotions
             cls = classify(
                 cfg, dyn, grid, bg.grid, bg.far, bg.labels, bg.cc_converged,
-                sensor_pos, bg.bg_sufficient, state.sure_bg_sufficient,
+                sensor_pos, bg.bg_sufficient, state.sure_bg_sufficient, ops,
             )
         with record_function("vofod.detect"):
             dets, det_counter = extract_detections(
                 cfg, dyn, grid, cls.grid, cls.labels, bg.far, cls, sensor_pos,
-                state.det_counter,
+                state.det_counter, ops,
             )
         hook("raycasting")
         with record_function("vofod.raycast"):
@@ -258,7 +270,8 @@ def make_step_fn(
         if step_idx % cfg.sepclusters_every == 0 and not dyn.sepclusters_pause:
             with record_function("vofod.sepclusters"):
                 sep = run_sepclusters(
-                    cfg, dyn, vals, safe, float(cfg.sepclusters_every), prev_sure=sure_bg
+                    cfg, dyn, vals, safe, float(cfg.sepclusters_every), prev_sure=sure_bg,
+                    ops=ops,
                 )
             vals, safe, sure_bg, sep_conv = sep.grid, sep.safe, sep.sure_bg_sufficient, sep.converged
             if sep.label_sweeps is not None:
