@@ -65,7 +65,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    K15b-2 (fold-min) at r 16 and 20, equal to the min over every shard's
    stamp; K15b-3 / K15b-4a through the sharded sweep of a flagship scan,
    T equal to K4's, and the sharded K4 + K5b equal to the dense update
-   under both rules;
+   under both rules; K15b-4b (the transposed z cones) launch by launch
+   beside its plain version on the all_to_all'd window, T equal to K4's z
+   cones.  Then the reference-exact grid path's kernels on a flagship
+   exact scan, 3 shards, each beside its plain version on the same
+   received blocks and against the dense kernel: K15b-6b's three passes
+   (equal to K13b), K2's sharded label components (labels, converged and
+   sweeps equal to the dense ones), K15b-6a's two passes (equal to K13a
+   with its flags), K13c on halo'd coarse arrays through its z window
+   (equal to K13c), K15b-6c's slabs (equal to K12's rows, within
+   K12_RAYLEN_RTOL of the plain version's sequential sum on the host) and
+   the sharded exact raycast with K12's EMA under both rules (equal to the
+   dense one);
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
    tests/test_golden.py assertions and that the sweep path's thirteen
    kernels launched;
@@ -101,9 +112,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside a dense node on the same scan: state, diagnostics and detection
    integers bit-equal, detection floats within 1e-5 relative, every K15b
    kernel launched on every scan, at most 1 host sync per scan; step
-   p50/p95 of both, K15b launches and collective copies per scan;
+   p50/p95 of both, K15b launches and collective copies per scan.  Then
+   phase 4-grid-exact, the same for the reference-exact path (exact census,
+   counted indexing, hasCloseTo box, exact raycast) with its own kernel
+   list (K15b-1/-2, K1, K2, K15b-6a/b/c, K12's EMA, K13c on every scan; the
+   dense K12 and K13a/b never), label sweeps and capped scans, and phase
+   4-grid-transpose, the sweep path with ``zcone_mode="transpose"`` (K15b-4b
+   on every scan, K15b-4a never; all_to_all copies per scan);
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
-   prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded),
+   prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
+   grid-sharded exact),
    each from a fresh
    node after the same 6 warm-up scans: device time per stage (the step's
    ``vofod.*`` ranges), the top device ops, the device ops (kernels and
@@ -115,7 +133,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 The line before the last is the per-kernel JSON record (launches from the
 path that runs each kernel: the sweep path, the prebinned path for K15a,
 the dynamic-radii path for K14, the sequential path for K7s, the
-grid-sharded path for K15b, else the exact path; bound_ms from the bytes
+grid-sharded paths for K15b (the transposed one for K15b-4b, the exact one
+for K15b-6a/b/c), else the exact path; bound_ms from the bytes
 and operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -173,11 +192,14 @@ from vofod_tpu_torch.pipeline.state import ScanInput, VoFODState  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD, _pack, _unpack  # noqa: E402
 from vofod_tpu_torch.io.staging import HostStaging  # noqa: E402
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
-    RayEma, cone_lat_step_plain, cone_z_round_plain, raycast_update_, raycast_update_zsharded,
-    sweep_zsharded)
+    RayEma, cone_lat_step_plain, cone_z_round_plain, cone_zt_step_plain, raycast_dda_slab,
+    raycast_dda_slab_plain, raycast_update_, raycast_update_zsharded, sweep_zsharded, zt_planes)
+from vofod_tpu_torch.ops.components import census_read_plain, census_scatter_plain  # noqa: E402
+from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
+    quirk_columns_plain, quirk_query_plain, quirk_ranks_plain, quirk_sure_counts_sharded)
 from vofod_tpu_torch.parallel.comm import LocalComm  # noqa: E402
 from vofod_tpu_torch.parallel.gridops import (  # noqa: E402
-    ZShardOps, halo_exchange_plain, halo_fold_min_plain)
+    DENSE, ZShardOps, halo_exchange_plain, halo_fold_min_plain)
 from vofod_tpu_torch.parallel.grid_step import (  # noqa: E402
     gather_state, make_grid_sharded_step, shard_state)
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
@@ -262,11 +284,24 @@ KERNEL_INFO = {
     "halo_fold_min": ("vofod_tpu_torch/csrc/halo.cu", "vofod_tpu/parallel/gridops.py:275"),
     "cone_sweep_lat": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:248"),
     "cone_sweep_z": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:361"),
+    "cone_sweep_zt": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:308"),
+    "census_scatter": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/parallel/gridops.py:440"),
+    "census_read": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/parallel/gridops.py:440"),
+    "quirk_columns": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:243"),
+    "quirk_ranks": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:243"),
+    "quirk_query": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:243"),
+    "dda_slab": ("vofod_tpu_torch/csrc/dda.cu", "vofod_tpu/parallel/gridops.py:600"),
 }
 # the grid-sharded step: shards of the flagship grid (51 = 3 x 17 planes),
 # all on the one card, and the kernels its path adds
 GRID_SHARDS = 3
 GRID_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_z")
+# the reference-exact grid path (no sweep: K15b-3/-4a never) and the
+# sweep path with the transposed z cones (K15b-4b in place of K15b-4a)
+GRID_EXACT_KERNELS = ("halo_exchange", "halo_fold_min", "ball_pool", "propagate_sweep",
+                      "census_scatter", "census_read", "quirk_columns", "quirk_ranks",
+                      "quirk_query", "dda_slab", "ray_ema", "exact_demote_ema")
+GRID_TRANSPOSE_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_zt")
 
 
 def say(phase: str, **kw) -> None:
@@ -1995,6 +2030,35 @@ def _sharded_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
     return t6[0], t6[1]
 
 
+def _transposed_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
+    """K15b-4b beside its plain version, launch by launch, on a shard's
+    window slab (inside ``comm.run``): the window's y padded and made
+    y-sharded by the all_to_all as ops/raycast.cone_sweep_z_transposed does,
+    each launch of both on the same inputs, the kernel's edge rows
+    exchanged, every row block equal; both T brought back by the all_to_all.
+    Returns the slab's (T2 of the kernel, T2 of the plain version)."""
+    _, wy, wx = op.shape
+    nz = rel_z.shape[0]
+    n, me, dev = comm.n, comm.rank, op.device
+    planes, ryl, pin = zt_planes(op, rel_y, comm)
+    nyl = ryl.shape[0]
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    tt = [torch.empty((2, nz, nyl, wx), dtype=torch.float32, device=dev) for _ in range(2)]
+    bufs = [torch.zeros((nyl, 2, wx), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    plain_out = torch.zeros_like(bufs[0])
+    lo = hi = None
+    for k in range(nz + 1):
+        tmp_in, tmp_out = (bufs[(k + 1) % 2] if k else None), bufs[k % 2]
+        kernels.cone_sweep_zt(planes, rel_x, ryl, rel_z, tmp_in, lo, hi, tmp_out, tt[0], k, pin)
+        cone_zt_step_plain(planes, rel_x, ryl, rel_z, tmp_in, lo, hi, plain_out, tt[1], k, pin)
+        if k < nz:
+            if not torch.equal(tmp_out, plain_out):
+                raise AssertionError(f"K15b-4b launch {k} shard {me}: rows differ from plain")
+            lo, hi = comm.ppermutes([(tmp_out[nyl - 1:nyl], up), (tmp_out[:2], dn)])
+    return tuple(comm.all_to_all(t, 1, 2)[:, :, :wy] for t in tt)
+
+
 def phase2_grid(lut) -> list[dict]:
     """The grid-sharded step's kernels against their plain versions on the
     card, with 3 shards of the flagship grid on one card: K15b-1 on f32,
@@ -2136,6 +2200,23 @@ def phase2_grid(lut) -> list[dict]:
             raise AssertionError(f"sharded K4 + K5b (new rule {new_rule}) differs from the dense "
                                  f"update in {int((got != want).sum())} voxels")
 
+    # K15b-4b: the transposed z cones launch by launch beside the plain
+    # version, and the step's transposed sweep, T against K4's z cones
+    out = comm.run(lambda rank: (
+        sweep_zsharded(grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound,
+                       "transpose")[0][4:],
+        _transposed_cones_vs_plain(op_w[rank * nzl:(rank + 1) * nzl], rel_x, rel_y, rel_z,
+                                   comm)))
+    t_s = torch.cat([t for t, _ in out], dim=1)
+    t_k = torch.cat([k for _, (k, _) in out], dim=1)
+    t_p = torch.cat([p for _, (_, p) in out], dim=1)
+    if not (torch.equal(t_k, t_p) and torch.equal(t_k, t_dense[4:])
+            and torch.equal(t_s, t_dense[4:])):
+        raise AssertionError(
+            f"transposed z cones T: kernel vs plain {int((t_k != t_p).sum())} voxels, vs K4 "
+            f"{int((t_k != t_dense[4:]).sum())}, the step's vs K4 "
+            f"{int((t_s != t_dense[4:]).sum())} voxels differ")
+
     # per-launch times on shard 1's window slab, the received rows fixed
     op1 = occ[nzl:2 * nzl, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
     rz1 = rel_z[nzl:2 * nzl].contiguous()
@@ -2173,6 +2254,263 @@ def phase2_grid(lut) -> list[dict]:
         bytes=nw * (1 + 2 * 4) + 2 * 2 * wy * wx * 2, ops=nw * 2 * 16, library_ms=None,
         shapes=f"one round: 2 cones x {nzl} planes of ({wy}, {wx}); {n} rounds per shard",
     ))
+    # K15b-4b per launch on shard 1's received planes (every z plane of its
+    # window rows), the received rows fixed
+    nyl = -(-wy // n)
+    planes1 = torch.nn.functional.pad(occ[:, y0:y0 + wy, x0:x0 + wx], (0, 0, 0, nyl * n - wy))
+    planes1 = planes1[:, nyl:2 * nyl].contiguous().view(torch.uint8)
+    ry1 = rel_y[nyl:2 * nyl].contiguous()
+    zrows = torch.rand((3, 2, wx), device=dev, generator=gen).to(torch.bfloat16)
+    zlo, zhi = zrows[:1].contiguous(), zrows[1:].contiguous()
+    zbufs = [torch.ones((nyl, 2, wx), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    tt = torch.empty((2, grid.nz, nyl, wx), dtype=torch.float32, device=dev)
+
+    def zt_sweep(step):
+        for k in range(grid.nz + 1):
+            step(planes1, rel_x, ry1, rel_z, zbufs[(k + 1) % 2] if k else None, zlo, zhi,
+                 zbufs[k % 2], tt, k, nyl)
+
+    results.append(dict(
+        name="cone_sweep_zt", max_abs_err=0.0,
+        ms=cuda_ms(lambda: zt_sweep(kernels.cone_sweep_zt), reps=5) / (grid.nz + 1),
+        plain_ms=cuda_ms(lambda: zt_sweep(cone_zt_step_plain), reps=2) / (grid.nz + 1),
+        # per launch: the opacity and T of one plane of both cones, the
+        # x-resampled rows in (slab + 3) and out (slab), bf16
+        bytes=2 * nyl * wx * (1 + 4) + 2 * (2 * nyl + 3) * wx * 2, ops=2 * nyl * wx * 40,
+        library_ms=None,
+        shapes=f"one of {grid.nz + 1} launches per shard per scan: 2 cones x {nyl} rows x {wx} "
+               f"lanes; T bit-equal to K4's z cones on the ({grid.nz}, {wy}, {wx}) window",
+    ))
+    for r in results:
+        say("2-grid-kernel", **r)
+    return results
+
+
+def phase2_grid_exact(lut) -> list[dict]:
+    """The reference-exact grid path's kernels with 3 shards of a flagship
+    exact scan on the card, each against its plain version on the same
+    received blocks and against the dense kernel on the gathered grid:
+    K15b-6b (column sums, ranks, cell queries) bit-equal, equal to K13b;
+    K2's sharded label components equal to the dense labels, converged flag
+    and sweep count; K15b-6a (scatter, read-back) bit-equal, equal to K13a
+    with the flags; K13c on the halo'd coarse arrays through its z window
+    bit-equal, equal to K13c; K15b-6c's slabs equal to K12's rows, within
+    K12_RAYLEN_RTOL of the plain version's sequential sum on the host, and
+    the sharded exact raycast (walk + EMA, both rules) equal to the dense."""
+    dev = torch.device("cuda")
+    cfg, dyn = exact_config(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    nv = grid.n_voxels
+    n, nzl = GRID_SHARDS, grid.nz // GRID_SHARDS
+    node = VoFOD(cfg, dyn, NodeOptions(raycast_mode="exact"), lut, device=dev)
+    node.load_apriori_map(apriori_ground())
+    scans = scan_cycle(lut, 7)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    r_np, pose_np = scans[6]
+    vals = node.state.grid
+    comm = LocalComm(n, [dev])
+    ops = ZShardOps(comm, n)
+    sl = [slice(i * nzl, (i + 1) * nzl) for i in range(n)]
+    bg = vals > dyn.thr_new_obstacles
+    sure = vals > dyn.thr_sure_obstacles
+    mv = int(np.ceil(cfg.sepclusters_max_bg_distance / cfg.voxel_size))
+    lsz = max(mv - 1, 1)
+    radius = cfg.sepclusters_max_bg_distance / cfg.voxel_size
+    min_sure = float(np.float32(dyn.sepclusters_min_sure_points))
+    results, checks = [], {}
+
+    # K15b-6b: each pass beside its plain version on the same gathered
+    # columns and psum'd table; the slabs' counts against K13b
+    def quirk_shard(rank):
+        b, s_ = bg[sl[rank]].contiguous(), sure[sl[rank]].contiguous()
+        cols = kernels.quirk_columns(b, s_)
+        _equal((cols,), (quirk_columns_plain(b, s_),), f"K15b-6b.columns[{rank}]")
+        blocks = comm.all_gather(cols)
+        u_k, below = kernels.quirk_ranks(b, s_, blocks, rank, nv)
+        _equal((u_k, below), quirk_ranks_plain(b, s_, blocks, rank, nv),
+               f"K15b-6b.u[{rank}] K15b-6b.below[{rank}]")
+        u = comm.psum(u_k)
+        q = kernels.quirk_query(b, lsz, u, below)
+        _equal((q,), (quirk_query_plain(b, lsz, u, below),), f"K15b-6b.query[{rank}]")
+        return q, quirk_sure_counts_sharded(b, s_, lsz, comm)
+
+    out = comm.run(quirk_shard)
+    sure_c = quirk_sure_counts(bg, sure, lsz)
+    if not (torch.equal(torch.cat([q for q, _ in out]), sure_c)
+            and torch.equal(torch.cat([q for _, q in out]), sure_c)):
+        raise AssertionError("K15b-6b: the sharded quirk counts differ from K13b")
+    checks["quirk_moved_cells"] = int((sure_c != pool_sum_coarse((bg & sure).to(torch.int32),
+                                                                 lsz)).sum())
+
+    # K2's sharded label components against the dense ones
+    occ_c = pool_sum_coarse(bg.to(torch.int32), lsz) > 0
+    labels, conv, n_sweeps = label_components(occ_c, mv / lsz, 128)
+    out = comm.run(lambda rank: ops.label_components(occ_c[sl[rank]], mv / lsz, 128))
+    if not (torch.equal(torch.cat([o[0] for o in out]), labels)
+            and all(bool(o[1]) == bool(conv) and int(o[2]) == int(n_sweeps) for o in out)):
+        raise AssertionError("sharded K2 label components differ from the dense ones")
+    checks.update(label_sweeps=int(n_sweeps), converged=bool(conv))
+
+    # K15b-6a: scatter and read-back beside their plain versions around the
+    # psum; the cells and the flags against K13a
+    cell_d, flags_d = label_census(labels, sure_c, occ_c, nv, min_sure)
+
+    def census_shard(rank):
+        lab, v, o = (t[sl[rank]].contiguous() for t in (labels, sure_c, occ_c))
+        cen = kernels.census_scatter(lab, v, o, nv)
+        _equal((cen,), (census_scatter_plain(lab, v, o, nv),), f"K15b-6a.census[{rank}]")
+        cen = comm.psum(cen)
+        got = kernels.census_read(lab, o, cen, min_sure)
+        _equal(got, census_read_plain(lab, o, cen, min_sure),
+               f"K15b-6a.cells[{rank}] K15b-6a.flags[{rank}]")
+        return got[0], comm.any(got[1]), ops.label_census(lab, v, o, nv, min_sure)
+
+    out = comm.run(census_shard)
+    if not (torch.equal(torch.cat([c for c, _, _ in out]), cell_d)
+            and torch.equal(torch.cat([st[0] for _, _, st in out]), cell_d)
+            and all(torch.equal(f, flags_d) and torch.equal(st[1], flags_d)
+                    for _, f, st in out)):
+        raise AssertionError("K15b-6a: the sharded census differs from K13a")
+
+    # K13c on the halo'd coarse arrays through its z window, beside its
+    # plain version on the same arrays; the slabs against K13c
+    w1, _ = demote_weights(1.0, dyn.score_ray)
+    consts = (min_sure, w1, float(np.float32(dyn.score_ray)),
+              float(np.float32(dyn.thr_new_obstacles)))
+    prev = torch.zeros((), dtype=torch.bool, device=dev)
+    dense13c = exact_demote_ema(vals, occ_c, cell_d, flags_d, prev, lsz, radius, *consts)
+
+    def demote_shard(rank):
+        (o_h, c_h), win = ops.halo_window((occ_c[sl[rank]], cell_d[sl[rank]]), (False, 0),
+                                          -(-int(np.floor(radius)) // lsz), grid.nz // lsz)
+        args = (vals[sl[rank]], o_h, c_h, flags_d, prev, lsz, radius, *consts,
+                (win[2] * lsz, win[1], grid.nz // lsz))
+        k = exact_demote_ema(*args)
+        _equal(k, exact_demote_ema_plain(*args),
+               f"K13c-win.grid[{rank}] K13c-win.safe[{rank}] K13c-win.sure[{rank}]")
+        return k
+
+    out = comm.run(demote_shard)
+    for j, what in enumerate(("grid", "safe")):
+        if not torch.equal(torch.cat([o[j] for o in out]), dense13c[j]):
+            raise AssertionError(f"windowed K13c {what} differs from the dense K13c")
+    checks["k13c_demoted"] = int((dense13c[0] != vals).sum())
+
+    # K15b-6c: the slabs against K12's rows (bit-equal) and the plain
+    # version's sequential sum on the host; walk + EMA under both rules
+    H, W = lut.height, lut.width
+    ranges_m = torch.as_tensor(r_np.astype(np.float32), device=dev) * 0.001
+    pose = torch.as_tensor(pose_np, device=dev)
+    rays = exact_rays(cfg, dyn, grid, torch.as_tensor(lut.directions, device=dev),
+                      torch.as_tensor(lut.offsets, device=dev),
+                      torch.ones(H * W, dtype=torch.bool, device=dev), ranges_m,
+                      torch.ones(H * W, dtype=torch.float32, device=dev), pose)
+    bound = cfg.raycast_max_distance_bound
+    k12 = raycast_dda(grid, *rays, bound)
+    slabs = comm.run(lambda rank: raycast_dda_slab(grid, *rays, bound, ops.slab(grid.nz)))
+    if not torch.equal(torch.cat(slabs), k12):
+        raise AssertionError(f"K15b-6c slabs differ from K12 in "
+                             f"{int((torch.cat(slabs) != k12).sum())} voxels")
+    cpu_rays = [t.cpu() for t in rays]
+    rel, err = [], 0.0
+    for rank, k in enumerate(slabs):
+        p_ = raycast_dda_slab_plain(grid, *cpu_rays, bound, (rank * nzl, nzl)).to(dev)
+        if not torch.equal(k > 0, p_ > 0):
+            raise AssertionError(f"K15b-6c shard {rank}: nonzero voxels differ from plain")
+        rel.append(_rel_stats(k, p_) if bool((p_ > 0).any()) else dict(max=0.0))
+        err = max(err, max_abs(k, p_))
+    if max(r_["max"] for r_ in rel) > K12_RAYLEN_RTOL:
+        raise AssertionError(f"K15b-6c against plain: {rel} (tol {K12_RAYLEN_RTOL})")
+    had = node.state.grid > 1e30  # no voxel: every ray EMA applies where raylen > 0
+    for new_rule in (True, False):
+        ema = ray_ema(cfg, dataclasses.replace(dyn, raycast_new_update_rule=new_rule), 1.0)
+        want = DENSE.raycast_dda_update_(grid, vals.clone(), had, *rays, bound, ema)
+        got = torch.cat(comm.run(lambda rank: ops.raycast_dda_update_(
+            grid, vals[sl[rank]].clone(), had[sl[rank]], *rays, bound, ema)))
+        if not torch.equal(got, want):
+            raise AssertionError(f"sharded exact raycast (new rule {new_rule}) differs from "
+                                 f"the dense one in {int((got != want).sum())} voxels")
+    say("2-grid-exact-checks", **checks, dda_slab_rel=rel)
+
+    # per-call times on the slab with the most background (the ground's)
+    t = int(torch.stack([bg[x].sum() for x in sl]).argmax())
+    b1, s1 = bg[sl[t]].contiguous(), sure[sl[t]].contiguous()
+    plane = grid.ny * grid.nx
+    blocks = torch.stack([kernels.quirk_columns(bg[x].contiguous(), sure[x].contiguous())
+                          for x in sl])
+    u1, below1 = kernels.quirk_ranks(b1, s1, blocks, t, nv)
+    nb1 = int(b1.sum())
+    bg_e1 = b1.permute(2, 1, 0).reshape(-1).to(torch.int32)
+    results.append(dict(
+        name="quirk_columns", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.quirk_columns(b1, s1)),
+        plain_ms=cuda_ms(lambda: quirk_columns_plain(b1, s1)),
+        bytes=2 * nzl * plane + 8 * plane, ops=2 * nzl * plane,
+        library_ms=cuda_ms(lambda: b1.sum(0, dtype=torch.int32)),
+        library_call="torch.sum of the bg slab over z (int32)",
+        shapes=f"shard {t}'s slab ({nzl}, {grid.ny}, {grid.nx}) -> {plane} columns; bit-equal",
+    ))
+    results.append(dict(
+        name="quirk_ranks", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.quirk_ranks(b1, s1, blocks, t, nv)),
+        plain_ms=cuda_ms(lambda: quirk_ranks_plain(b1, s1, blocks, t, nv)),
+        bytes=2 * nzl * plane + 8 * n * plane + 4 * (nv + 2), ops=4 * nzl * plane,
+        library_ms=cuda_ms(lambda: torch.cumsum(bg_e1, 0)),
+        library_call="torch.cumsum of the bg slab in export order (int32)",
+        shapes=f"slab ({nzl}, {grid.ny}, {grid.nx}), {n} x {plane} gathered columns -> "
+               f"the {nv + 2}-entry rank table ({nb1} bg ranks written); bit-equal",
+    ))
+    u = u1.clone()
+    nc1 = nzl * plane
+    results.append(dict(
+        name="quirk_query", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.quirk_query(b1, lsz, u, below1)),
+        plain_ms=cuda_ms(lambda: quirk_query_plain(b1, lsz, u, below1)),
+        bytes=nzl * plane + 8 * nc1 + 4 * nc1, ops=4 * nc1, library_ms=None,
+        shapes=f"{nc1} cells of the slab, leaf {lsz}; bit-equal",
+    ))
+    lab1, v1, o1 = (x[sl[t]].contiguous() for x in (labels, sure_c, occ_c))
+    cen = torch.zeros(nv, dtype=torch.int32, device=dev)
+    lab_occ = torch.where(o1, lab1, 0).reshape(-1).long()
+    v_occ = torch.where(o1, v1, 0).reshape(-1)
+    cen_psum = census_scatter_plain(labels, sure_c, occ_c, nv)  # the psum'd census
+    results.append(dict(
+        name="census_scatter", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.census_scatter(lab1, v1, o1, nv)),
+        plain_ms=cuda_ms(lambda: census_scatter_plain(lab1, v1, o1, nv)),
+        bytes=nc1 * (4 + 4 + 1) + nv * 4, ops=nc1,
+        library_ms=cuda_ms(lambda: cen.zero_().index_add_(0, lab_occ, v_occ)),
+        library_call="index_add_ of the slab's counts at its cells' labels",
+        shapes=f"{nc1} cells into the global label space of {nv}; bit-equal",
+    ))
+    results.append(dict(
+        name="census_read", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.census_read(lab1, o1, cen_psum, min_sure)),
+        plain_ms=cuda_ms(lambda: census_read_plain(lab1, o1, cen_psum, min_sure)),
+        bytes=nc1 * (4 + 1 + 4 + 4), ops=nc1 * 3, library_ms=None,
+        shapes=f"{nc1} cells read back from {nv} buckets, with the two flags; bit-equal",
+    ))
+    # the DDA on the slab with the most chords
+    fid_c, w_c = dda_emissions_plain(grid, *cpu_rays, bound)
+    t = int(torch.bincount(fid_c // (nzl * plane), minlength=n).argmax())
+    slab1 = (t * nzl, nzl)
+    own = fid_c // (nzl * plane) == t
+    lf1, w1_ = (fid_c[own] - t * nzl * plane).to(dev), w_c[own].to(dev)
+    acc1 = torch.zeros(nzl * plane, dtype=torch.float32, device=dev)
+    results.append(dict(
+        name="dda_slab", max_abs_err=err, rel=rel, tol_rel=K12_RAYLEN_RTOL,
+        emissions=int(fid_c.numel()), slab_emissions=int(own.sum()),
+        ms=cuda_ms(lambda: raycast_dda_slab(grid, *rays, bound, slab1)),
+        plain_ms=cuda_ms(lambda: raycast_dda_slab_plain(grid, *rays, bound, slab1), reps=3),
+        # rays in, the slab out once; ~20 ops per walked step of every ray
+        bytes=rays[0].shape[0] * (12 + 12 + 4 + 1) + nzl * plane * 4,
+        ops=int(fid_c.numel()) * 20,
+        library_ms=cuda_ms(lambda: acc1.index_add_(0, lf1, w1_)),
+        library_call="index_add_ of the slab's nonzero (id, chord) emissions",
+        shapes=f"{rays[0].shape[0]} rays walked, slab rows [{t * nzl}, {(t + 1) * nzl}) of "
+               f"{grid.shape}; every slab equal to K12's rows",
+    ))
     for r in results:
         say("2-grid-kernel", **r)
     return results
@@ -2181,12 +2519,14 @@ def phase2_grid(lut) -> list[dict]:
 class GridDriver:
     """The grid-sharded step (3 shards on the card) driven as the node drives
     the dense step: the scan staged in pinned memory and uploaded once, the
-    step, one packed readback of shard 0's diagnostics and detections."""
+    step, one packed readback of shard 0's diagnostics and detections.
+    ``cfg`` and ``step_kw``: the step's config and make_grid_sharded_step
+    options (default the flagship sweep path)."""
 
-    def __init__(self, lut, state: VoFODState):
-        self.cfg, self.dyn = VoFODConfig(), DynParams()
+    def __init__(self, lut, state: VoFODState, cfg: VoFODConfig | None = None, **step_kw):
+        self.cfg, self.dyn = cfg or VoFODConfig(), DynParams()
         self.comm = LocalComm(GRID_SHARDS, ["cuda"])
-        self.step = make_grid_sharded_step(self.cfg, lut, self.comm)
+        self.step = make_grid_sharded_step(self.cfg, lut, self.comm, **step_kw)
         self.states = shard_state(state, self.comm)
         n = self.cfg.sensor.n_points
         self.staging = HostStaging(((n, torch.float32),), "cuda")
@@ -2214,23 +2554,41 @@ class GridDriver:
         return self.fetch(self.process_scan_async(r, pose))
 
 
-def phase4_grid(lut) -> dict:
-    """The grid-sharded step at the flagship size: 36 scans of the cycle
-    through 3 shards of 17 planes on the card, each beside a dense node on
-    the same scan.  Per scan: the gathered grid and safe, the carried
-    scalars and the diagnostics bit-equal to the dense node's, detection
-    integers equal and floats within 1e-5 relative (JAX's bound for its
-    sharded step; bit-equal expected), each K15b kernel launched, at most
-    1 host sync (the readback); step p50/p95 of both, K15b launches and
-    collective copies per scan."""
-    cfg = VoFODConfig()
-    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+# the grid-sharded paths: (config, node options, make_grid_sharded_step
+# options, the kernels each scan must launch, kernels it must never launch)
+GRID_PATHS = {
+    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt",)),
+    "exact": (exact_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
+              GRID_EXACT_KERNELS, ("dda", "label_census", "quirk_counts", "cone_sweep_lat",
+                                   "cone_sweep_z", "cone_sweep_zt")),
+    "transpose": (VoFODConfig, {}, dict(zcone_mode="transpose"), GRID_TRANSPOSE_KERNELS,
+                  ("cone_sweep_z",)),
+}
+
+
+def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
+    """A grid-sharded path at the flagship size: 36 scans of the cycle
+    through 3 shards of 17 planes on the card, each beside a dense node of
+    the same path on the same scan.  Paths: "sweep" (phase 4-grid), "exact"
+    (4-grid-exact: the reference-exact config and raycast) and "transpose"
+    (4-grid-transpose: the sweep with the transposed z cones).  Per scan:
+    the gathered grid and safe, the carried scalars and every diagnostic
+    (label sweeps and sep_converged included) bit-equal to the dense node's,
+    detection integers equal and floats within 1e-5 relative (JAX's bound
+    for its sharded step; bit-equal expected), each kernel of the path
+    launched and none of the dense forms it replaces, at most 1 host sync
+    (the readback); step p50/p95 of both, launches and collective copies
+    per scan.  Returns (launches summed over the scans, grid step p50)."""
+    make_cfg, node_kw, step_kw, path_kernels, never = GRID_PATHS[path]
+    cfg = make_cfg()
+    node = VoFOD(cfg, DynParams(), NodeOptions(**node_kw), lut, device="cuda")
     node.load_apriori_map(apriori_ground())
-    drv = GridDriver(lut, node.state)
+    drv = GridDriver(lut, node.state, cfg, **step_kw)
     scans = scan_cycle(lut, N_SCANS)
     torch.cuda.synchronize()
     ms = {"dense": [], "grid": []}
     syncs, per_scan, copies, rel_err, n_dets = [], [], [], 0.0, 0
+    sweeps, capped = [], []
     bit_equal_dets = True
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2255,46 +2613,62 @@ def phase4_grid(lut) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             ms["grid"].append(start.elapsed_time(end))
-            syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)))
+            # (the sync-debug mode's own first-use notice says "Synchronization")
+            synced = [f"{w.filename}:{w.lineno}" for w in caught[before:]
+                      if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+            syncs.append(len(synced))
+            assert len(synced) <= 1, f"{path} grid scan {k}: host syncs at {synced}"
             launches = kernels.launch_counts()
-            per_scan.append({g: launches[g] for g in GRID_KERNELS})
-            copies.append(drv.comm.copies)
-            missing = [g for g in GRID_KERNELS if launches[g] == 0]
-            assert not missing, f"scan {k}: K15b kernels not launched: {missing}"
+            per_scan.append(launches)
+            copies.append(dict(drv.comm.copies_by, total=drv.comm.copies))
+            missing = [g for g in path_kernels if launches[g] == 0]
+            assert not missing, f"{path} grid scan {k}: kernels not launched: {missing}"
+            foreign = {g: launches[g] for g in never if launches[g]}
+            assert not foreign, f"{path} grid scan {k}: other paths' kernels launched: {foreign}"
             g = gather_state(drv.states)
             for f in ("grid", "safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
                 if not torch.equal(getattr(g, f), getattr(node.state, f)):
-                    raise AssertionError(f"grid-sharded scan {k}: state.{f} differs from dense")
+                    raise AssertionError(f"{path} grid scan {k}: state.{f} differs from dense")
             for f, v in diag.items():
                 if not np.array_equal(v, getattr(node.last_diag, f)):
-                    raise AssertionError(f"grid-sharded scan {k}: diag.{f} differs from dense")
+                    raise AssertionError(f"{path} grid scan {k}: diag.{f} differs from dense")
+            sweeps.append(int(diag["sep_sweeps"]))
+            capped.append(not bool(diag["sep_converged"]))
             for f, v in dets.items():
                 want = getattr(dense_out.detections, f).cpu().numpy()
                 if v.dtype.kind == "f":
                     bit_equal_dets &= bool(np.array_equal(v, want))
                     np.testing.assert_allclose(v, want, rtol=1e-5, atol=0.0,
-                                               err_msg=f"grid-sharded scan {k}: detections.{f}")
+                                               err_msg=f"{path} grid scan {k}: detections.{f}")
                     den = np.maximum(np.abs(want), 1e-30)
                     rel_err = max(rel_err, float(np.max(np.abs(v - want) / den, initial=0.0)))
                 elif not np.array_equal(v, want):
-                    raise AssertionError(f"grid-sharded scan {k}: detections.{f} differs")
-    assert max(syncs) <= 1, f"host syncs per grid-sharded scan: {syncs}"
+                    raise AssertionError(f"{path} grid scan {k}: detections.{f} differs")
+    assert max(syncs) <= 1, f"host syncs per {path} grid scan: {syncs}"
     assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
-    total = {g: sum(s[g] for s in per_scan) for g in GRID_KERNELS}
+    total = {g: sum(s[g] for s in per_scan) for g in per_scan[0]}
+    kinds = sorted({c for s in copies for c in s})
     out = dict(
-        scans=N_SCANS, shards=GRID_SHARDS, shard_shape=[cfg.grid_shape[0] // GRID_SHARDS,
-                                                        *cfg.grid_shape[1:]],
+        path=path, scans=N_SCANS, shards=GRID_SHARDS,
+        shard_shape=[cfg.grid_shape[0] // GRID_SHARDS, *cfg.grid_shape[1:]],
         bit_equal_state_and_diag=True, detection_floats_bit_equal=bit_equal_dets,
         detection_float_max_rel_err=rel_err, detections_total=n_dets,
         step_ms_p50={m: float(np.percentile(v, 50)) for m, v in ms.items()},
         step_ms_p95={m: float(np.percentile(v, 95)) for m, v in ms.items()},
         step_ms_all={m: [round(x, 3) for x in v] for m, v in ms.items()},
         host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
-        k15b_launches_per_scan={g: total[g] / N_SCANS for g in GRID_KERNELS},
-        k15b_launches_per_scan_min={g: min(s[g] for s in per_scan) for g in GRID_KERNELS},
-        collective_copies_per_scan=float(np.mean(copies)),
+        path_launches_per_scan={g: total[g] / N_SCANS for g in path_kernels},
+        path_launches_per_scan_min={g: min(s[g] for s in per_scan) for g in path_kernels},
+        launches_per_scan={g: v / N_SCANS for g, v in total.items() if v},
+        collective_copies_per_scan=float(np.mean([c["total"] for c in copies])),
+        collective_copies_per_scan_by_kind={c: float(np.mean([s.get(c, 0) for s in copies]))
+                                            for c in kinds if c != "total"},
     )
-    say("4-grid", **out)
+    if path == "exact":
+        out.update(label_sweeps_per_scan=sweeps, capped_scans=int(sum(capped)),
+                   capped_scan_indices=[i for i, c in enumerate(capped) if c])
+    say({"sweep": "4-grid", "exact": "4-grid-exact", "transpose": "4-grid-transpose"}[path],
+        **out)
     return total, out["step_ms_p50"]["grid"]
 
 
@@ -2325,14 +2699,15 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                    label: str | None = None) -> dict:
     """Where the flagship step's device time goes (torch.profiler), on the
     sweep, exact, prebinned, dynamic-radii (at its heaviest radii, 2.0 /
-    1.9 m) or sequential-explore path.  Every path is counted the same way:
+    1.9 m), sequential-explore, grid-sharded sweep or grid-sharded exact
+    path.  Every path is counted the same way:
     a fresh node, the apriori plane, 6 warm-up scans, then one profiler
     session over ``n`` scans; device ops are counted both from key_averages
     (the earlier count) and event by event."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg, opts = VoFODConfig(), NodeOptions()
-    if path in ("exact", "sequential"):
+    if path in ("exact", "sequential", "grid-exact"):
         cfg = sequential_config() if path == "sequential" else exact_config()
         opts = NodeOptions(raycast_mode="exact")
     elif path == "prebinned":
@@ -2346,6 +2721,8 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     node.load_apriori_map(apriori_ground())
     if path == "grid":  # the 3-shard step from the same start
         node = GridDriver(lut, node.state)
+    elif path == "grid-exact":
+        node = GridDriver(lut, node.state, cfg, raycast_mode="exact")
     scans = scan_cycle(lut, 6 + n)
     for r, p in scans[:6]:
         node.process_scan(r, None, p)
@@ -2388,6 +2765,7 @@ def main() -> int:
     results += phase2_exact(lut)
     results += phase2_sequential(lut)
     results += phase2_grid(lut)
+    results += phase2_grid_exact(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
@@ -2398,12 +2776,15 @@ def main() -> int:
     dyn_launches, dyn_ms_p50 = phase4_dynamic(lut)
     phase4_surface(lut)
     grid_launches, grid_ms_p50 = phase4_grid(lut)
+    gx_launches, gx_ms_p50 = phase4_grid(lut, "exact")
+    gt_launches, _ = phase4_grid(lut, "transpose")
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
     phase5_profile(lut, dyn_ms_p50, path="dynamic")
     phase5_profile(lut, seq_ms_p50, path="sequential")
     phase5_profile(lut, grid_ms_p50, path="grid")
+    phase5_profile(lut, gx_ms_p50, path="grid-exact")
     # the sweep path once more, in the last profiler session: the same code
     # counted in another session says whether the op count is the session's
     again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")
@@ -2417,13 +2798,17 @@ def main() -> int:
         differing_ops={k[:80]: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
                        if a.get(k, 0) != b.get(k, 0)})
     path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
-                     "explore_seq": seq_launches, **{g: grid_launches for g in GRID_KERNELS}}
+                     "explore_seq": seq_launches, "cone_sweep_zt": gt_launches,
+                     **{g: grid_launches for g in GRID_KERNELS},
+                     **{g: gx_launches for g in ("census_scatter", "census_read", "quirk_columns",
+                                                 "quirk_ranks", "quirk_query", "dda_slab")}}
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]
         # launches from the path that runs the kernel: the sweep path, the
         # prebinned (K15a), dynamic-radii (K14), sequential (K7s) and
-        # grid-sharded (K15b) paths, else the exact path
+        # grid-sharded (K15b: sweep, exact, transposed) paths, else the
+        # exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
              else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S

@@ -27,7 +27,9 @@ its ``sharded_config`` (32 x 33 x 33 grid, explore halo 8):
   tests/test_torch_step.py; measured 0.37 %); every other diagnostic is
   equal;
 * the configurations the slice does not shard are refused, naming the
-  ROADMAP queue, and a process with jax refused runs a sharded step.
+  ROADMAP queue, as is an exact-census leaf that does not divide the shard
+  height, and a process with jax refused runs the sharded sweep step, the
+  sharded exact step and the transposed z cones.
 """
 
 import dataclasses
@@ -226,17 +228,13 @@ _REFUSED = {
     "indivisible_nz": (dict(nz_box=((0.0, 0.0, 7.5), (16.0, 16.0, 15.0))), 8, {},
                        ValueError, "divisible"),
     "shard_height_1": ({}, 32, {}, ValueError, "< 2 planes"),
+    "exact_census_leaf": (dict(sepclusters_exact_census=True, sepclusters_max_bg_distance=2.0),
+                          8, {}, ValueError, "coarse leaf 3 must divide the shard height 4"),
     "prebinned": ({}, 8, dict(frontend_mode="prebinned"), NotImplementedError, "ROADMAP"),
-    "exact_raycast": ({}, 8, dict(raycast_mode="exact"), NotImplementedError, "ROADMAP"),
-    "exact_census": (dict(sepclusters_exact_census=True), 8, {}, NotImplementedError, "ROADMAP"),
-    "hascloseto_box": (dict(compat_hascloseto_bounds=True), 8, {}, NotImplementedError,
-                       "ROADMAP"),
     "dynamic_radii": (dict(dynamic_radii=True, ground_points_max_distance_bound=2.0,
                            sepclusters_max_bg_distance_bound=2.0), 8, {}, NotImplementedError,
                       "ROADMAP"),
     "sequential_explore": (dict(sequential_explore=True), 8, {}, NotImplementedError,
-                           "ROADMAP"),
-    "transposed_z_cones": ({}, 8, dict(zcone_mode="transpose"), NotImplementedError,
                            "ROADMAP"),
 }
 
@@ -269,6 +267,8 @@ _NO_JAX = textwrap.dedent(
     from vofod_tpu_torch.parallel.comm import LocalComm
     from vofod_tpu_torch.parallel.grid_step import (
         gather_state, init_grid_sharded_state, make_grid_sharded_step)
+    from vofod_tpu_torch.ops.raycast import cone_sweep_z_transposed, raycast_dda_slab
+    from vofod_tpu_torch.pipeline.sepclusters import quirk_sure_counts_sharded
     from vofod_tpu_torch.pipeline.state import ScanInput
     from vofod_tpu_torch.sensor import make_lut
 
@@ -288,6 +288,15 @@ _NO_JAX = textwrap.dedent(
                      intensity=torch.ones(r.size), pose=pose.astype(np.float32))
     states, out = step(states, scan, DynParams())
     assert gather_state(states).step == 1
+    # the reference-exact sharded step, and the transposed z cones
+    xcfg = VoFODConfig(**{**cfg.__dict__, "sepclusters_exact_census": True,
+                          "compat_counted_indexing": True, "compat_hascloseto_bounds": True})
+    xstep = make_grid_sharded_step(xcfg, lut, comm, raycast_mode="exact")
+    xstates, xout = xstep(init_grid_sharded_state(xcfg, DynParams(), comm), scan, DynParams())
+    assert int(xout.diag.sep_sweeps) > 0
+    tstep = make_grid_sharded_step(cfg, lut, comm, zcone_mode="transpose")
+    tstates, tout = tstep(init_grid_sharded_state(cfg, DynParams(), comm), scan, DynParams())
+    assert torch.equal(gather_state(tstates).grid, gather_state(states).grid)
     assert not any(m.split(".")[0] in ("jax", "vofod_tpu") for m in sys.modules)
     print("NO_JAX_OK", int(out.diag.n_occupied))
     """

@@ -145,8 +145,7 @@ def test_stuck_shard_times_out():
     assert time.perf_counter() - t0 < 4.0
 
 
-@pytest.mark.parametrize("flag", ["sepclusters_exact_census", "sequential_explore",
-                                  "compat_hascloseto_bounds"])
+@pytest.mark.parametrize("flag", ["sequential_explore", "dynamic_radii", "prebinned"])
 def test_step_with_sharded_ops_refuses_unsharded_modes(flag):
     """A ZShardOps handed to make_step_fn directly refuses what has no
     sharded form: those stages would run their dense form on a slab."""
@@ -154,14 +153,15 @@ def test_step_with_sharded_ops_refuses_unsharded_modes(flag):
     from vofod_tpu_torch.sensor import make_lut
 
     _, cfg = _configs()
-    cfg = VoFODConfig(**{**{f: getattr(cfg, f) for f in ("sensor", "oparea")}, **KW,
-                         flag: True})
+    step_kw = {}
+    if flag == "prebinned":
+        step_kw = dict(frontend_mode="prebinned")
+    else:
+        cfg = VoFODConfig(**{**{f: getattr(cfg, f) for f in ("sensor", "oparea")}, **KW,
+                             flag: True})
     ops = ZShardOps(LocalComm(2, ["cpu"]), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_step_fn(cfg, make_lut(cfg.sensor), device="cpu", ops=ops)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_step_fn(_configs()[1], make_lut(cfg.sensor), device="cpu", ops=ops,
-                     raycast_mode="exact")
+        make_step_fn(cfg, make_lut(cfg.sensor), device="cpu", ops=ops, **step_kw)
 
 
 def test_cpu_and_cuda_shards_refused():
@@ -169,8 +169,6 @@ def test_cpu_and_cuda_shards_refused():
         LocalComm(2, ["cpu", "cuda"])
     with pytest.raises(ValueError, match="zcone_mode"):
         ZShardOps(LocalComm(2, ["cpu"]), 2, zcone_mode="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ZShardOps(LocalComm(2, ["cpu"]), 2, zcone_mode="transpose")
 
 
 # ---- halo exchange / fold (K15b-1, K15b-2) -------------------------------------

@@ -43,6 +43,20 @@
 // carry plane out; n rounds with the carry passed along (cone 0 up, cone 1
 // down) make the pipeline, and each shard keeps cone 0 from round `rank`
 // and cone 1 from round n - 1 - rank.  Bound: latency, as K4's z cones.
+//
+// K15b-4b `vofod_cone_sweep_zt` replaces `_sweep_cones_z_transposed`
+// (raycast.py:308, zcone_mode="transpose"): the z cones after an
+// all_to_all has made the window y-sharded, so a shard holds all nz planes
+// of its nyl = ceil(wy / n) rows of the (padded) window y.  It is K15b-3's
+// scheme with the sweep along z, A = y (the sharded lateral axis) and B =
+// x: one launch per plane step, the A pass of plane k - 1 on the
+// B-resampled rows with the neighbours' edge rows (1 below, 2 above), then
+// the B pass of plane k.  The pad rows at or past wy are set to exactly
+// bf16 1.0 after every B pass (`pin_rows`, raycast.py:283-287), the value
+// the dense sweep's A taps read past the window's edge, so T is bit-equal
+// to K4's z cones.  Both cones are written in grid order (z ascending), as
+// K4 writes them.  Bound: latency; nz + 1 launches and nz exchanges per
+// scan per shard, launch-bound by design in this version.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -79,6 +93,44 @@ __device__ __forceinline__ float lerp4(const float* w, float m1, float c,
   return __fadd_rn(v, __fmul_rn(w[3], p2));
 }
 
+// The lateral-sharded sweeps' row r of the B-resampled plane around a slab
+// of n_rows local rows: tmp_in for the slab's own rows, `lo` the row below,
+// `hi` the two above; NULL past the global edge (reads 1.0)
+__device__ __forceinline__ const __nv_bfloat16* slab_row(const __nv_bfloat16* tmp_in,
+                                                         const __nv_bfloat16* lo,
+                                                         const __nv_bfloat16* hi, int r,
+                                                         int n_rows, size_t row) {
+  if (r < 0) return lo;
+  if (r < n_rows) return tmp_in + r * row;
+  return hi != nullptr ? hi + (r - n_rows) * row : nullptr;
+}
+
+// the A pass at local row a: the 4-tap resample across the slab's rows at
+// lane `col` (seed: 1.0), rounded to bf16
+__device__ __forceinline__ float slab_a_pass(const float* wa, const __nv_bfloat16* tmp_in,
+                                             const __nv_bfloat16* lo, const __nv_bfloat16* hi,
+                                             int a, int n_rows, size_t row, size_t col,
+                                             bool seed) {
+  if (seed) return 1.0f;
+  float v[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const __nv_bfloat16* src = slab_row(tmp_in, lo, hi, a - 1 + d, n_rows, row);
+    v[d] = src != nullptr ? __bfloat162float(src[col]) : 1.0f;
+  }
+  return round_bf16(lerp4(wa, v[0], v[1], v[2], v[3]));
+}
+
+// the B pass of a carry row at lane b (1.0 past its ends), before rounding
+__device__ __forceinline__ float row_b_pass(const float* wb, const __nv_bfloat16* crow, int b,
+                                            int nB) {
+  const float m1 = b >= 1 ? __bfloat162float(crow[b - 1]) : 1.0f;
+  const float c0 = __bfloat162float(crow[b]);
+  const float p1 = b + 1 < nB ? __bfloat162float(crow[b + 1]) : 1.0f;
+  const float p2 = b + 2 < nB ? __bfloat162float(crow[b + 2]) : 1.0f;
+  return lerp4(wb, m1, c0, p1, p2);
+}
+
 // One cone's plane loop (K4's, shared by K15b-4a): nS planes moving away
 // from the sensor, the carry and the B-resampled plane in shared memory
 // (the caller fills the carry; the first barrier below orders that).  Per
@@ -104,12 +156,7 @@ __device__ __forceinline__ void sweep_planes(
     // pass 1: resample along B (the carry's fastest axis)
     for (int i = threadIdx.x; i < nP; i += blockDim.x) {
       const int a = i / nB, b = i - a * nB;
-      const __nv_bfloat16* row = carry + a * nB;
-      const float m1 = b >= 1 ? __bfloat162float(row[b - 1]) : 1.0f;
-      const float c0 = __bfloat162float(row[b]);
-      const float p1 = b + 1 < nB ? __bfloat162float(row[b + 1]) : 1.0f;
-      const float p2 = b + 2 < nB ? __bfloat162float(row[b + 2]) : 1.0f;
-      tmp[i] = __float2bfloat16_rn(lerp4(wb + 4 * b, m1, c0, p1, p2));
+      tmp[i] = __float2bfloat16_rn(row_b_pass(wb + 4 * b, carry + a * nB, b, nB));
     }
     __syncthreads();
 
@@ -219,19 +266,7 @@ __global__ void __launch_bounds__(LAT_THREADS)
     tap_weights(rs, rel_z[a], wa);
     float* Tc = T + (size_t)cone * nzl * wy * wx;
     for (int b = threadIdx.x; b < nB; b += blockDim.x) {
-      float t = 1.0f;
-      if (!seed) {
-        float v[4];
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          const int r = a - 1 + d;
-          const __nv_bfloat16* src =
-              r < 0 ? lo : (r >= nzl ? (hi != nullptr ? hi + (r - nzl) * row : nullptr)
-                                     : tmp_in + r * row);
-          v[d] = src != nullptr ? __bfloat162float(src[col + b]) : 1.0f;
-        }
-        t = round_bf16(lerp4(wa, v[0], v[1], v[2], v[3]));
-      }
+      const float t = slab_a_pass(wa, tmp_in, lo, hi, a, nzl, row, col + b, seed);
       const size_t g = axis == 0 ? ((size_t)a * wy + b) * wx + s : ((size_t)a * wy + s) * wx + b;
       Tc[g] = t;
       crow[b] = __float2bfloat16_rn(opaque[g] ? 0.0f : t);
@@ -244,11 +279,61 @@ __global__ void __launch_bounds__(LAT_THREADS)
   for (int b = threadIdx.x; b < nB; b += blockDim.x) {
     float wb[4];
     tap_weights(rs, rel_b[b], wb);
-    const float m1 = b >= 1 ? __bfloat162float(crow[b - 1]) : 1.0f;
-    const float c0 = __bfloat162float(crow[b]);
-    const float p1 = b + 1 < nB ? __bfloat162float(crow[b + 1]) : 1.0f;
-    const float p2 = b + 2 < nB ? __bfloat162float(crow[b + 2]) : 1.0f;
-    tmp_out[a * row + col + b] = __float2bfloat16_rn(lerp4(wb, m1, c0, p1, p2));
+    tmp_out[a * row + col + b] = __float2bfloat16_rn(row_b_pass(wb, crow, b, nB));
+  }
+}
+
+// K15b-4b: launch k of the transposed z cones on a shard's nyl rows of the
+// padded window y.  One block per (cone, local row a), one thread per x
+// lane.  A phase (k >= 1, plane k - 1 of the cone): the y resample of the
+// x-resampled rows (tmp_in, `lo` below the slab, `hi` above; NULL = 1.0,
+// the global edge), the seed, the T write and the carry row.  B phase
+// (plane k): the x resample of the carry row into tmp_out, rows at or past
+// pin_from set to bf16 1.0.  tmp / lo / hi rows are [2][wx] bf16.
+__global__ void __launch_bounds__(LAT_THREADS)
+    cone_zt_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
+                   const float* __restrict__ rel_y, const float* __restrict__ rel_z,
+                   const __nv_bfloat16* __restrict__ tmp_in,
+                   const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
+                   __nv_bfloat16* __restrict__ tmp_out, float* __restrict__ T, int nz, int nyl,
+                   int wx, int pin_from, int k) {
+  const int cone = blockIdx.x;  // z+, z-
+  const int a = blockIdx.y;
+  const bool back = cone & 1;
+  const size_t row = 2 * (size_t)wx;  // elements per row of tmp / lo / hi
+  const size_t col = (size_t)cone * wx;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* crow = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [wx]
+
+  if (k == 0) {
+    for (int b = threadIdx.x; b < wx; b += blockDim.x) crow[b] = __float2bfloat16_rn(1.0f);
+  } else {
+    const int s = back ? nz - k : k - 1;
+    const float rs = back ? -rel_z[s] : rel_z[s];
+    const bool seed = rs <= 1.0f;
+    float wa[4];
+    tap_weights(rs, rel_y[a], wa);
+    float* Tc = T + (size_t)cone * nz * nyl * wx;
+    for (int b = threadIdx.x; b < wx; b += blockDim.x) {
+      const float t = slab_a_pass(wa, tmp_in, lo, hi, a, nyl, row, col + b, seed);
+      const size_t g = ((size_t)s * nyl + a) * wx + b;
+      Tc[g] = t;
+      crow[b] = __float2bfloat16_rn(opaque[g] ? 0.0f : t);
+    }
+  }
+  __syncthreads();
+  if (k == nz) return;
+  const int s = back ? nz - 1 - k : k;
+  const float rs = back ? -rel_z[s] : rel_z[s];
+  const bool pinned = a >= pin_from;
+  for (int b = threadIdx.x; b < wx; b += blockDim.x) {
+    float q = 1.0f;
+    if (!pinned) {
+      float wb[4];
+      tap_weights(rs, rel_x[b], wb);
+      q = row_b_pass(wb, crow, b, wx);
+    }
+    tmp_out[a * row + col + b] = __float2bfloat16_rn(q);
   }
 }
 
@@ -359,5 +444,29 @@ VOFOD_API int vofod_cone_sweep_z(const void* opaque, const void* rel_x, const vo
       static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
       static_cast<const __nv_bfloat16*>(carry_in), static_cast<__nv_bfloat16*>(carry_out),
       static_cast<float*>(T), nzl, wy, wx, keep_mask);
+  return (int)cudaGetLastError();
+}
+
+// K15b-4b, launch k (0 <= k <= nz).  opaque: device uint8 [nz, nyl, wx], the
+// shard's rows of the padded window after the all_to_all; rel_x [wx], rel_y
+// [nyl] (the shard's rows), rel_z [nz] (the global column): device f32;
+// tmp_in / tmp_out: device bf16 [nyl][2][wx] (tmp_in unused at k == 0); lo
+// [1][2][wx] and hi [2][2][wx]: the received rows, NULL = 1.0; T: device
+// f32 [2, nz, nyl, wx]; pin_from: the first local row at or past wy.
+VOFOD_API int vofod_cone_sweep_zt(const void* opaque, const void* rel_x, const void* rel_y,
+                                  const void* rel_z, const void* tmp_in, const void* lo,
+                                  const void* hi, void* tmp_out, void* T, int nz, int nyl,
+                                  int wx, int pin_from, int k, void* stream) {
+  if (nz < 1 || nyl < 2 || wx < 1 || k < 0 || k > nz || pin_from < 0 ||
+      (k > 0 && tmp_in == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int threads = wx >= LAT_THREADS ? LAT_THREADS : ((wx + 31) / 32) * 32;
+  cone_zt_kernel<<<dim3(2, nyl), threads, (size_t)wx * sizeof(__nv_bfloat16),
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(opaque), static_cast<const float*>(rel_x),
+      static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
+      static_cast<const __nv_bfloat16*>(tmp_in), static_cast<const __nv_bfloat16*>(lo),
+      static_cast<const __nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(tmp_out),
+      static_cast<float*>(T), nz, nyl, wx, pin_from, k);
   return (int)cudaGetLastError();
 }

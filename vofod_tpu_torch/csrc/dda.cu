@@ -29,6 +29,14 @@
 // ~1e-11 whatever the order, so raylen is the correctly rounded sum of the
 // chords (within one float32 ulp where the sum lies on a rounding midpoint),
 // and it differs from the sequential sum by that sum's own rounding only.
+//
+// K15b-6c, the grid-sharded form (vofod_tpu/parallel/gridops.py
+// `ZShardOps.raycast_dda`), is this kernel with a z window: every shard
+// walks every ray (ray-space work is replicated) and adds into an
+// accumulator of its own nzl rows only the emissions whose flat id lies in
+// them, as JAX's ownership filter does.  Each voxel gets the dense walk's
+// set of chords, summed in float64 and rounded once, so a shard's raylen
+// is the dense raylen's rows.
 #include "common.cuh"
 
 namespace {
@@ -41,6 +49,7 @@ struct DdaGrid {
   float half_vs;     // vs / 2
   int nx, ny, nz;
   int n_steps;
+  int z0, nzl;  // the accumulator holds the grid rows [z0, z0 + nzl)
 };
 
 // XLA's float -> int32 conversion: NaN -> 0, saturating
@@ -90,8 +99,11 @@ __global__ void __launch_bounds__(DDA_T)
     const float ddist = fmaxf(__fsub_rn(fminf(dist, L), prev), 0.0f);
     if (ddist > 0.0f) {
       // the JAX scatter drops ids outside the grid (mode="drop")
+      const long long plane = (long long)g.nx * g.ny;
       const long long fid = ((long long)cur[2] * g.ny + cur[1]) * g.nx + cur[0];
-      if (fid >= 0 && fid < (long long)g.nx * g.ny * g.nz) atomicAdd(acc + fid, (double)ddist);
+      const long long lf = fid - g.z0 * plane;
+      if (fid >= 0 && fid < plane * g.nz && lf >= 0 && lf < plane * g.nzl)
+        atomicAdd(acc + lf, (double)ddist);
     }
     const bool at_edge = cur[axis] == last[axis];
     if (!(dist < L) || at_edge) return;  // dead: every later emission is 0
@@ -112,9 +124,11 @@ __global__ void __launch_bounds__(256)
 // starts, dirs: device f32 [n_rays, 3] (x, y, z); lengths f32 [n_rays];
 // valid bool [n_rays] (the step gates on in_limits(starts), so a valid ray
 // starts inside the grid and dies at its edge).  floats: host f32 [ox, oy, oz, vs, inv,
-// vs / 2]; ints: host int32 [nx, ny, nz, n_steps].  acc: device f64 grid,
-// zeroed by the caller, accumulated into; raylen: device f32 grid, written
-// (acc rounded to nearest).  Returns cudaGetLastError().
+// vs / 2]; ints: host int32 [nx, ny, nz, n_steps, z0, nzl]: the output
+// holds the grid rows [z0, z0 + nzl) (the whole grid: 0, nz).  acc: device
+// f64 [nzl, ny, nx], zeroed by the caller, accumulated into; raylen: device
+// f32 [nzl, ny, nx], written (acc rounded to nearest).  Returns
+// cudaGetLastError().
 VOFOD_API int vofod_dda(const void* starts, const void* dirs, const void* lengths,
                         const void* valid, int n_rays, const float* floats, const int* ints,
                         void* acc, void* raylen, void* stream) {
@@ -123,7 +137,10 @@ VOFOD_API int vofod_dda(const void* starts, const void* dirs, const void* length
   g.ox = floats[0]; g.oy = floats[1]; g.oz = floats[2];
   g.vs = floats[3]; g.inv = floats[4]; g.half_vs = floats[5];
   g.nx = ints[0]; g.ny = ints[1]; g.nz = ints[2]; g.n_steps = ints[3];
-  if (g.nx < 1 || g.ny < 1 || g.nz < 1 || g.n_steps < 1) return (int)cudaErrorInvalidValue;
+  g.z0 = ints[4]; g.nzl = ints[5];
+  if (g.nx < 1 || g.ny < 1 || g.nz < 1 || g.n_steps < 1 || g.z0 < 0 || g.nzl < 1 ||
+      g.z0 + g.nzl > g.nz)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* a = static_cast<double*>(acc);
   dda_kernel<<<(n_rays + DDA_T - 1) / DDA_T, DDA_T, 0, s>>>(
@@ -131,7 +148,7 @@ VOFOD_API int vofod_dda(const void* starts, const void* dirs, const void* length
       static_cast<const float*>(lengths), static_cast<const uint8_t*>(valid), n_rays, g, a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long nv = (long long)g.nx * g.ny * g.nz;
+  const long long nv = (long long)g.nx * g.ny * g.nzl;
   round_kernel<<<(unsigned int)((nv + 255) / 256), 256, 0, s>>>(a, nv, static_cast<float*>(raylen));
   return (int)cudaGetLastError();
 }

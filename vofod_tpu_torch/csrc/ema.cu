@@ -29,7 +29,11 @@
 //   sure_sufficient (from K13a's two flags and the previous value, on the
 //   device); the carried safe = bg & sure cell is written in the same
 //   pass.  The centre mask, k, w1^k and the upsampled sure mask of the
-//   plain version are never stored.
+//   plain version are never stored.  On the grid-sharded step it takes a z
+//   window: the grid is a shard's slab and the coarse arrays hold its
+//   coarse rows with a halo of the neighbours' (K15b-1), enough rows for
+//   the ball's reach; the centres are placed by global row, so each own
+//   voxel sums the dense step's centres.
 //
 // Both K1-tile entry points take any tap set up to halo 7: the large tap
 // struct of common.cuh past 256 taps (the traced demotion shells of
@@ -126,12 +130,15 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
 
 // K13c: the coarse lattice of the exact census
 struct CoarseLattice {
-  int ncz, ncy, ncx, lsz;
-  float min_sure;  // a cell is sure when its census >= min_sure
+  int ncz, ncy, ncx, lsz;  // the grid's lattice (ncz: every coarse row)
+  int z_off;               // global fine row of the output's row 0
+  int zc_lo, ncz_held;     // the coarse arrays hold the rows [zc_lo, zc_lo + ncz_held)
+  float min_sure;          // a cell is sure when its census >= min_sure
 };
 
+// the cell of global fine voxel (z, y, x) in the held coarse arrays
 __device__ __forceinline__ size_t cell_of(const CoarseLattice& c, int z, int y, int x) {
-  return ((size_t)(z / c.lsz) * c.ncy + y / c.lsz) * c.ncx + x / c.lsz;
+  return ((size_t)(z / c.lsz - c.zc_lo) * c.ncy + y / c.lsz) * c.ncx + x / c.lsz;
 }
 
 // K1's tile of the EXTENDED coarse-centre mask (vofod_tpu sepclusters.py
@@ -145,7 +152,7 @@ __device__ __forceinline__ void load_centre_tile(const uint8_t* __restrict__ occ
   const int sx = TILE_X + 2 * halo, sy = TILE_Y + 2 * halo, sz = TILE_Z + 2 * halo;
   const int x0 = blockIdx.x * TILE_X - halo;
   const int y0 = blockIdx.y * TILE_Y - halo;
-  const int z0 = blockIdx.z * TILE_Z - halo;
+  const int z0 = c.z_off + blockIdx.z * TILE_Z - halo;  // global rows
   const int tid = threadIdx.x + TILE_X * (threadIdx.y + TILE_Y * threadIdx.z);
   const int n = sx * sy * sz;
   const int mid = c.lsz / 2;
@@ -157,7 +164,8 @@ __device__ __forceinline__ void load_centre_tile(const uint8_t* __restrict__ occ
     const int gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
     uint8_t v = 0;
     if (gx >= 0 && gx < c.ncx * c.lsz && gy >= 0 && gy < c.ncy * c.lsz && gz >= 0 &&
-        gz < c.ncz * c.lsz && gx % c.lsz == mid && gy % c.lsz == mid && gz % c.lsz == mid) {
+        gz < c.ncz * c.lsz && gz / c.lsz >= c.zc_lo && gz / c.lsz < c.zc_lo + c.ncz_held &&
+        gx % c.lsz == mid && gy % c.lsz == mid && gz % c.lsz == mid) {
       const size_t cell = cell_of(c, gz, gy, gx);
       v = occ_c[cell] != 0 && !((float)census[cell] >= c.min_sure);
     }
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
   out[g] = sure_sufficient
                ? __fadd_rn(__fmul_rn(w1k, v), __fmul_rn(__fsub_rn(1.0f, w1k), score))
                : v;
-  const size_t cell = cell_of(c, z, y, x);
+  const size_t cell = cell_of(c, c.z_off + z, y, x);
   safe[g] = v > thr_new && occ_c[cell] != 0 && (float)census[cell] >= c.min_sure;
 }
 
@@ -243,17 +251,27 @@ VOFOD_API int vofod_demote_ema(const void* vals, const void* bg, const void* saf
 // (ncz, ncy, ncx) with ncz = ceil(nz / lsz) etc.; census: int32 per cell
 // (K13a's out); flags: uint8 [2] (K13a's any occ, any sure); prev_sure:
 // bool scalar.  taps: the demotion ball; floats: host f32 [min_sure, w1,
-// score_ray, thr_new_obstacles].  Outputs: out f32 grid, safe bool grid,
+// score_ray, thr_new_obstacles].  window: NULL (the whole grid), or host
+// int32 [z_off, zc_lo, ncz_held, ncz]: the grid is the rows [z_off, z_off +
+// nz) of a grid of ncz coarse rows, occ_c / census hold its coarse rows
+// [zc_lo, zc_lo + ncz_held).  Outputs: out f32 grid, safe bool grid,
 // sure_out bool scalar.  Returns cudaGetLastError().
 VOFOD_API int vofod_exact_demote_ema(const void* vals, const void* occ_c, const void* census,
                                      const void* flags, const void* prev_sure, int nz, int ny,
                                      int nx, int lsz, const int* taps, int n_taps, int halo,
-                                     const float* floats, void* out, void* safe, void* sure_out,
-                                     void* stream) {
+                                     const float* floats, const int* window, void* out,
+                                     void* safe, void* sure_out, void* stream) {
   if (lsz < 1) return (int)cudaErrorInvalidValue;
   CoarseLattice c;
   c.lsz = lsz;
   c.ncz = (nz + lsz - 1) / lsz; c.ncy = (ny + lsz - 1) / lsz; c.ncx = (nx + lsz - 1) / lsz;
+  c.z_off = 0; c.zc_lo = 0; c.ncz_held = c.ncz;
+  if (window != nullptr) {
+    c.z_off = window[0]; c.zc_lo = window[1]; c.ncz_held = window[2]; c.ncz = window[3];
+    if (c.z_off < 0 || c.z_off % lsz || c.z_off / lsz < c.zc_lo ||
+        (c.z_off + nz + lsz - 1) / lsz > c.zc_lo + c.ncz_held)
+      return (int)cudaErrorInvalidValue;
+  }
   c.min_sure = floats[0];
   return with_taps(taps, n_taps, halo, [&](const auto& t) {
     auto* kernel = exact_demote_kernel<std::decay_t<decltype(t)>>;

@@ -272,9 +272,12 @@ VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
 // K12's EMA pass, in place on vals (device f32 [n]); had: bool [n]; raylen:
 // f32 [n]; floats: host f32 [coef, its, weight, score] (ops/raycast.py
 // RayEma).  new_rule: 1 launch; old rule: 2 launches, max_bits (uint32,
-// zeroed by the caller) as scratch.  Returns cudaGetLastError().
+// zeroed by the caller) as scratch; `passes` (old rule) picks them: bit 0
+// the max pass, bit 1 the EMA pass (the grid-sharded step takes the max
+// over the shards between the two).  Returns cudaGetLastError().
 VOFOD_API int vofod_ray_ema(void* vals, const void* had, const void* raylen, long long n,
-                            const float* floats, int new_rule, void* max_bits, void* stream) {
+                            const float* floats, int new_rule, void* max_bits, int passes,
+                            void* stream) {
   if (n <= 0 || (!new_rule && max_bits == nullptr)) return (int)cudaErrorInvalidValue;
   RayF f = {};
   f.coef = floats[0]; f.its = floats[1]; f.weight = floats[2]; f.score = floats[3];
@@ -288,9 +291,11 @@ VOFOD_API int vofod_ray_ema(void* vals, const void* had, const void* raylen, lon
     ray_ema_grid_kernel<0><<<blocks, RAY_T, 0, s>>>(v, h, rl, n, f, mb);
     return (int)cudaGetLastError();
   }
-  ray_ema_grid_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, rl, n, f, mb);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ray_ema_grid_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, rl, n, f, mb);
+  if (passes & 1) {
+    ray_ema_grid_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, rl, n, f, mb);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (passes & 2) ray_ema_grid_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, rl, n, f, mb);
   return (int)cudaGetLastError();
 }

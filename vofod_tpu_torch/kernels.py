@@ -69,6 +69,13 @@ LAUNCHES: dict[str, int] = {
     "halo_fold_min": 0,
     "cone_sweep_lat": 0,
     "cone_sweep_z": 0,
+    "cone_sweep_zt": 0,
+    "census_scatter": 0,
+    "census_read": 0,
+    "quirk_columns": 0,
+    "quirk_ranks": 0,
+    "quirk_query": 0,
+    "dda_slab": 0,
 }
 
 # The stencil kernels (K1, K2, the K11 and K13c epilogues, K14) take any tap
@@ -188,17 +195,23 @@ def load():
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
         lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
         lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
-        lib.vofod_ray_ema.argtypes = [_P, _P, _P, _LL, _P, _I, _P, _P]
+        lib.vofod_ray_ema.argtypes = [_P, _P, _P, _LL, _P, _I, _P, _I, _P]
         lib.vofod_label_census.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P, _P]
+        lib.vofod_census_scatter.argtypes = [_P, _P, _P, _LL, _I, _P, _P]
+        lib.vofod_census_read.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P]
         lib.vofod_quirk_counts.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+        lib.vofod_quirk_columns.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+        lib.vofod_quirk_ranks.argtypes = [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P]
+        lib.vofod_quirk_query.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_exact_demote_ema.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         lib.vofod_halo_exchange.argtypes = [
             _P, _P, _I, _I, _I, _LL, _P, _P, _P, _I, ctypes.c_uint, _P]
         lib.vofod_halo_fold_min.argtypes = [_P, _P, _I, _I, _LL, _P, _P, _P, _I, _P]
         lib.vofod_cone_sweep_lat.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.vofod_cone_sweep_zt.argtypes = [_P] * 9 + [_I] * 5 + [_P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
@@ -207,7 +220,9 @@ def load():
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
                    lib.vofod_exact_demote_ema, lib.vofod_unpack, lib.vofod_halo_exchange,
-                   lib.vofod_halo_fold_min, lib.vofod_cone_sweep_lat, lib.vofod_cone_sweep_z):
+                   lib.vofod_halo_fold_min, lib.vofod_cone_sweep_lat, lib.vofod_cone_sweep_z,
+                   lib.vofod_cone_sweep_zt, lib.vofod_census_scatter, lib.vofod_census_read,
+                   lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query):
             fn.restype = _I
         _lib = lib
         return lib
@@ -639,13 +654,20 @@ def ray_update(vals: torch.Tensor, had_point: torch.Tensor, T6: torch.Tensor,
             None if max_bits is None else max_bits.data_ptr(), passes, _stream())
         _check(err, "vofod_ray_update")
 
+    _rule_passes(launch, ema, gmax, max_bits)
+    _count("ray_update", 1 if ema.new_rule else 2)
+
+
+def _rule_passes(launch, ema, gmax, max_bits) -> None:
+    """The ray EMA's launches: all passes in one under the new rule (or
+    with no ``gmax``); under the old, the max pass, the max over the shards
+    (``gmax`` of the int32 bits), then the EMA pass."""
     if ema.new_rule or gmax is None:
         launch(3)
     else:
         launch(1)
         max_bits.copy_(gmax(max_bits))
         launch(2)
-    _count("ray_update", 1 if ema.new_rule else 2)
 
 
 def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
@@ -738,6 +760,18 @@ def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: 
     """K12 walk: the f32 raylen grid ``shape`` of the rays' DDA chords,
     summed in float64 and rounded once.  floats: the f32 grid constants (ox,
     oy, oz, vs, 1/vs, vs/2) of ops/raycast.py ``_dda_consts``."""
+    return _dda(starts, dirs, lengths, valid, shape, floats, n_steps, (0, shape[0]), "dda")
+
+
+def dda_slab(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor,
+             valid: torch.Tensor, shape: tuple[int, int, int], floats: np.ndarray, n_steps: int,
+             slab: tuple[int, int]) -> torch.Tensor:
+    """K15b-6c: K12's walk on every ray, keeping the chords of the grid rows
+    ``slab`` (z0, rows) only: a shard's rows of :func:`dda`'s grid."""
+    return _dda(starts, dirs, lengths, valid, shape, floats, n_steps, slab, "dda_slab")
+
+
+def _dda(starts, dirs, lengths, valid, shape, floats, n_steps, slab, name) -> torch.Tensor:
     R = starts.shape[0]
     _require(starts, "dda starts", torch.float32, (R, 3))
     _require(dirs, "dda dirs", torch.float32, (R, 3))
@@ -747,21 +781,25 @@ def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: 
     if fl[0].shape != (6,):
         raise ValueError(f"dda takes 6 float constants, got {fl[0].shape}")
     nz, ny, nx = shape
-    ints = _host_i32(nx, ny, nz, n_steps)
-    acc = torch.zeros(shape, dtype=torch.float64, device=starts.device)
-    raylen = torch.empty(shape, dtype=torch.float32, device=starts.device)
+    z0, nzl = slab
+    ints = _host_i32(nx, ny, nz, n_steps, z0, nzl)
+    acc = torch.zeros((nzl, ny, nx), dtype=torch.float64, device=starts.device)
+    raylen = torch.empty((nzl, ny, nx), dtype=torch.float32, device=starts.device)
     err = load().vofod_dda(starts.data_ptr(), dirs.data_ptr(), lengths.data_ptr(),
                            valid.data_ptr(), R, fl[1], ints[1], acc.data_ptr(),
                            raylen.data_ptr(), _stream())
     _check(err, "vofod_dda")
-    _count("dda")
+    _count(name)
     return raylen
 
 
-def ray_ema(vals: torch.Tensor, had_point: torch.Tensor, raylen: torch.Tensor, ema) -> None:
+def ray_ema(vals: torch.Tensor, had_point: torch.Tensor, raylen: torch.Tensor, ema,
+            gmax=None) -> None:
     """K12 EMA pass, in place on ``vals``: the ray EMA (ops/raycast.py
     RayEma ``ema``) on a full-grid raylen field.  One launch under the new
-    rule, two under the old."""
+    rule, two under the old, whose max passes through ``gmax`` (int32 bits
+    of a non-negative float -> the same over every shard) between them
+    when given."""
     _require(vals, "ray_ema vals", torch.float32)
     _require(had_point, "ray_ema had_point", torch.bool, vals.shape)
     _require(raylen, "ray_ema raylen", torch.float32, vals.shape)
@@ -769,10 +807,14 @@ def ray_ema(vals: torch.Tensor, had_point: torch.Tensor, raylen: torch.Tensor, e
     max_bits = None
     if not ema.new_rule:
         max_bits = torch.zeros((), dtype=torch.int32, device=vals.device)
-    err = load().vofod_ray_ema(
-        vals.data_ptr(), had_point.data_ptr(), raylen.data_ptr(), vals.numel(), floats[1],
-        int(bool(ema.new_rule)), None if max_bits is None else max_bits.data_ptr(), _stream())
-    _check(err, "vofod_ray_ema")
+    def launch(passes: int) -> None:
+        err = load().vofod_ray_ema(
+            vals.data_ptr(), had_point.data_ptr(), raylen.data_ptr(), vals.numel(), floats[1],
+            int(bool(ema.new_rule)), None if max_bits is None else max_bits.data_ptr(), passes,
+            _stream())
+        _check(err, "vofod_ray_ema")
+
+    _rule_passes(launch, ema, gmax, max_bits)
     _count("ray_ema", 1 if ema.new_rule else 2)
 
 
@@ -793,6 +835,38 @@ def label_census(labels: torch.Tensor, vals: torch.Tensor, occ: torch.Tensor, nc
         float(min_sure), census.data_ptr(), out.data_ptr(), flags.data_ptr(), _stream())
     _check(err, "vofod_label_census")
     _count("label_census")
+    return out, flags
+
+
+def census_scatter(labels: torch.Tensor, vals: torch.Tensor, occ: torch.Tensor,
+                   ncv: int) -> torch.Tensor:
+    """K15b-6a scatter: the int32 [ncv] census of a slab's cells, ``vals``
+    added at each occupied cell's global label (ids >= ncv dropped)."""
+    _require(labels, "census labels", torch.int32)
+    _require(vals, "census vals", torch.int32, labels.shape)
+    _require(occ, "census occ", torch.bool, labels.shape)
+    census = torch.zeros(ncv, dtype=torch.int32, device=labels.device)
+    err = load().vofod_census_scatter(labels.data_ptr(), vals.data_ptr(), occ.data_ptr(),
+                                      labels.numel(), int(ncv), census.data_ptr(), _stream())
+    _check(err, "vofod_census_scatter")
+    _count("census_scatter")
+    return census
+
+
+def census_read(labels: torch.Tensor, occ: torch.Tensor, census: torch.Tensor,
+                min_sure: float):
+    """K15b-6a read-back: (cell census int32, flags bool [2] of this slab's
+    cells) from the psum'd ``census``, as :func:`label_census`'s second pass."""
+    _require(labels, "census labels", torch.int32)
+    _require(occ, "census occ", torch.bool, labels.shape)
+    _require(census, "census", torch.int32)
+    out = torch.empty_like(labels)
+    flags = torch.zeros(2, dtype=torch.bool, device=labels.device)
+    err = load().vofod_census_read(labels.data_ptr(), occ.data_ptr(), census.data_ptr(),
+                                   labels.numel(), census.numel(), float(min_sure),
+                                   out.data_ptr(), flags.data_ptr(), _stream())
+    _check(err, "vofod_census_read")
+    _count("census_read")
     return out, flags
 
 
@@ -818,16 +892,87 @@ def quirk_counts(bg: torch.Tensor, sure: torch.Tensor, lsz: int) -> torch.Tensor
     return out
 
 
+def quirk_columns(bg: torch.Tensor, sure: torch.Tensor) -> torch.Tensor:
+    """K15b-6b pass 1: int64 [ny * nx], each (y, x) column's sum over the
+    slab of (bg << 32) | (sure & bg)."""
+    if bg.dim() != 3:
+        raise ValueError("quirk_columns takes a 3-D slab")
+    _require(bg, "quirk bg", torch.bool)
+    _require(sure, "quirk sure", torch.bool, bg.shape)
+    nzl, ny, nx = bg.shape
+    cols = torch.empty(ny * nx, dtype=torch.int64, device=bg.device)
+    err = load().vofod_quirk_columns(bg.data_ptr(), sure.data_ptr(), nzl, ny, nx,
+                                     cols.data_ptr(), _stream())
+    _check(err, "vofod_quirk_columns")
+    _count("quirk_columns")
+    return cols
+
+
+def quirk_ranks(bg: torch.Tensor, sure: torch.Tensor, blocks: torch.Tensor, rank: int,
+                nv: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K15b-6b pass 2: (u int32 [nv + 2] with u[rank] = t at the slab's bg
+    voxels, 0 elsewhere; int64 scalar: the bg voxels of the shards below)
+    from every shard's :func:`quirk_columns` ``blocks`` [n, ny * nx]."""
+    _require(bg, "quirk bg", torch.bool)
+    _require(sure, "quirk sure", torch.bool, bg.shape)
+    nzl, ny, nx = bg.shape
+    nsh = blocks.shape[0]
+    _require(blocks, "quirk blocks", torch.int64, (nsh, ny * nx))
+    dev = bg.device
+    scratch = torch.empty(2 * (-(-(ny * nx) // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
+    u = torch.zeros(nv + 2, dtype=torch.int32, device=dev)
+    below = torch.zeros((), dtype=torch.int64, device=dev)
+    err = load().vofod_quirk_ranks(bg.data_ptr(), sure.data_ptr(), nzl, ny, nx,
+                                   blocks.data_ptr(), nsh, int(rank), scratch.data_ptr(),
+                                   u.data_ptr(), below.data_ptr(), _stream())
+    _check(err, "vofod_quirk_ranks")
+    _count("quirk_ranks")
+    return u, below
+
+
+def quirk_query(bg: torch.Tensor, lsz: int, u: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
+    """K15b-6b pass 3: the slab's per-coarse-cell quirk counts (int32
+    (nzl / lsz, ceil(ny / lsz), ceil(nx / lsz))) from the psum'd ``u`` and
+    :func:`quirk_ranks`' ``below``."""
+    _require(bg, "quirk bg", torch.bool)
+    _require(u, "quirk u", torch.int32)
+    _require(below, "quirk below", torch.int64, ())
+    nzl, ny, nx = bg.shape
+    if nzl % lsz:
+        raise ValueError(f"quirk_query: the leaf {lsz} must divide the slab height {nzl}")
+    dev = bg.device
+    cshape = (nzl // lsz, -(-ny // lsz), -(-nx // lsz))
+    nc = cshape[0] * cshape[1] * cshape[2]
+    scratch = torch.empty(2 * (-(-nc // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
+    out = torch.empty(cshape, dtype=torch.int32, device=dev)
+    err = load().vofod_quirk_query(bg.data_ptr(), nzl, ny, nx, int(lsz), u.data_ptr(),
+                                   below.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                                   _stream())
+    _check(err, "vofod_quirk_query")
+    _count("quirk_query")
+    return out
+
+
 def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tensor,
                      flags: torch.Tensor, prev_sure: torch.Tensor, lsz: int, taps: np.ndarray,
-                     halo: int, min_sure: float, w1: float, score: float, thr_new: float):
+                     halo: int, min_sure: float, w1: float, score: float, thr_new: float,
+                     window: tuple[int, int, int] | None = None):
     """K13c: (new grid f32, safe bool grid, sure_sufficient bool scalar) of
     the exact demotion: w1^k v + (1 - w1^k) score, k = the ball sum
-    (``taps``) of the unsure coarse-cell centres; flags: K13a's."""
+    (``taps``) of the unsure coarse-cell centres; flags: K13a's.
+    ``window`` (z_off, zc_lo, ncz): ``vals`` holds the rows [z_off, z_off +
+    rows) of a grid of ncz coarse rows and occ_c / census its coarse rows
+    from zc_lo (a shard's slab and its halo'd coarse arrays); default the
+    whole grid."""
     if vals.dim() != 3:
         raise ValueError("exact_demote_ema takes the 3-D grid")
     nz, ny, nx = vals.shape
     cshape = (-(-nz // lsz), -(-ny // lsz), -(-nx // lsz))
+    win = None
+    if window is not None:
+        z_off, zc_lo, ncz = window
+        cshape = (occ_c.shape[0],) + cshape[1:]
+        win = _host_i32(z_off, zc_lo, occ_c.shape[0], ncz)
     _require(vals, "exact_demote vals", torch.float32)
     _require(occ_c, "exact_demote occ_c", torch.bool, cshape)
     _require(census, "exact_demote census", torch.int32, cshape)
@@ -842,7 +987,8 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
     err = load().vofod_exact_demote_ema(
         vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
         prev_sure.data_ptr(), nz, ny, nx, int(lsz), ptr, len(keep), halo, floats[1],
-        out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(), _stream())
+        None if win is None else win[1], out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(),
+        _stream())
     _check(err, "vofod_exact_demote_ema")
     _count("exact_demote_ema")
     return out, safe, sure_out
@@ -979,3 +1125,31 @@ def cone_sweep_z(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
     _check(err, "vofod_cone_sweep_z")
     _count("cone_sweep_z")
     return carry_out
+
+
+def cone_sweep_zt(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
+                  rel_z: torch.Tensor, tmp_in: torch.Tensor | None, lo: torch.Tensor | None,
+                  hi: torch.Tensor | None, tmp_out: torch.Tensor, T2: torch.Tensor, k: int,
+                  pin_from: int) -> None:
+    """K15b-4b, launch k: the A (y) pass of plane k - 1 and the B (x) pass
+    of plane k of both z cones on a shard's nyl rows of the padded window
+    (see csrc/cone_sweep.cu).  opaque: uint8 [nz, nyl, wx]; tmp_*: bf16
+    [nyl, 2, wx]; lo / hi: the received bf16 rows [1, 2, wx] / [2, 2, wx] or
+    None (the global edge); T2: f32 [2, nz, nyl, wx], written in place; rows
+    from ``pin_from`` on are pinned to 1.0 after the B pass."""
+    nz, nyl, wx = opaque.shape
+    _require(opaque, "cone_zt opaque", torch.uint8)
+    _require(rel_x, "cone_zt rel_x", torch.float32, (wx,))
+    _require(rel_y, "cone_zt rel_y", torch.float32, (nyl,))
+    _require(rel_z, "cone_zt rel_z", torch.float32, (nz,))
+    for t, name, rows in ((tmp_in, "tmp_in", nyl), (tmp_out, "tmp_out", nyl), (lo, "lo", 1),
+                          (hi, "hi", 2)):
+        if t is not None:
+            _require(t, f"cone_zt {name}", torch.bfloat16, (rows, 2, wx))
+    _require(T2, "cone_zt T", torch.float32, (2, nz, nyl, wx))
+    ptr = [None if t is None else t.data_ptr() for t in (tmp_in, lo, hi)]
+    err = load().vofod_cone_sweep_zt(
+        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(), *ptr,
+        tmp_out.data_ptr(), T2.data_ptr(), nz, nyl, wx, int(pin_from), int(k), _stream())
+    _check(err, "vofod_cone_sweep_zt")
+    _count("cone_sweep_zt")

@@ -31,8 +31,11 @@ ops/morphology.Shells, on the same sweep kernel.
 On the grid-sharded step (parallel/gridops.py ZShardOps) the grids are a
 shard's z slab: ``sweep_fn`` is then the sharded sweep (a halo exchange
 per sweep, K2 on the extended slab with its change flag over the interior
-rows, the flags OR-ed over the shards), and the seeded labels take the
-slab's first global row ``z0`` and the grid's ``nz``.
+rows, the flags OR-ed over the shards), and both labellings take the
+slab's first global row ``z0`` (the seeded one also the grid's ``nz``).
+The census splits into its scatter and read-back passes there (K15b-6a,
+:func:`census_scatter_plain`, :func:`census_read_plain`), with a psum of
+the census between them.
 """
 
 from __future__ import annotations
@@ -162,19 +165,8 @@ def label_components_seeded(
     return labels, reached, converged, iters
 
 
-def _label_components(occupied: Tensor, radius: float, max_iters: int,
-                      sweep_fn) -> tuple[Tensor, Tensor, Tensor]:
-    occ = occupied.to(torch.bool)
-    nv = occ.numel()
-    flat = torch.arange(nv, dtype=torch.int32, device=occ.device).reshape(occ.shape)
-    labels = torch.where(occ, flat, SENTINEL)
-    labels, changed = sweep_fn(labels, occ, radius, max_iters, until_fixpoint=True)
-    n_run = torch.clamp(changed.sum(dtype=torch.int32) + 1, max=max_iters)
-    return labels, ~changed[-1], n_run
-
-
 def label_components(
-    occupied: Tensor, radius: float, max_iters: int
+    occupied: Tensor, radius: float, max_iters: int, *, sweep_fn=sweeps, z0: int = 0,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Label the components of ``occupied`` with their least member flat id,
     sweeping to the fixpoint or to ``max_iters`` sweeps.
@@ -182,15 +174,48 @@ def label_components(
     Returns (labels int32 grid with SENTINEL on empty voxels, converged
     bool, sweeps int32: the sweeps the JAX while_loop runs).  The flags are
     a run of True then False, so the last flag is the while_loop's and the
-    loop ran one sweep past the changing ones (or hit the cap)."""
-    return _label_components(occupied, radius, max_iters, sweeps)
+    loop ran one sweep past the changing ones (or hit the cap).
+    ``sweep_fn``, ``z0``: the grid-sharded step's sweep and the slab's
+    first global row (the labels stay global flat ids)."""
+    occ = occupied.to(torch.bool)
+    f0 = z0 * occ.shape[1] * occ.shape[2]
+    flat = torch.arange(f0, f0 + occ.numel(), dtype=torch.int32,
+                        device=occ.device).reshape(occ.shape)
+    labels = torch.where(occ, flat, SENTINEL)
+    labels, changed = sweep_fn(labels, occ, radius, max_iters, until_fixpoint=True)
+    n_run = torch.clamp(changed.sum(dtype=torch.int32) + 1, max=max_iters)
+    return labels, ~changed[-1], n_run
 
 
 def label_components_plain(
     occupied: Tensor, radius: float, max_iters: int
 ) -> tuple[Tensor, Tensor, Tensor]:
     """:func:`label_components` with K2's plain sweeps, on any device."""
-    return _label_components(occupied, radius, max_iters, sweeps_plain)
+    return label_components(occupied, radius, max_iters, sweep_fn=sweeps_plain)
+
+
+def census_scatter_plain(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int) -> Tensor:
+    """Plain version of K13a's (and K15b-6a's) scatter: the int32 [ncv]
+    census, ``vals`` added where ``occ`` into bucket ``label`` (ids >= ncv
+    dropped)."""
+    flat_l = labels.reshape(-1).to(torch.int64)
+    v = torch.where(occ, vals, 0).reshape(-1)
+    keep = flat_l < ncv
+    census = torch.zeros(ncv, dtype=torch.int32, device=labels.device)
+    census.index_add_(0, flat_l[keep], v[keep])
+    return census
+
+
+def census_read_plain(labels: Tensor, occ: Tensor, census: Tensor,
+                      min_sure: float) -> tuple[Tensor, Tensor]:
+    """Plain version of K13a's (and K15b-6a's) read-back: each cell's bucket
+    ``census[min(label, ncv - 1)]``, 0 off ``occ``; and the flags (any occ,
+    any occ with census >= min_sure)."""
+    flat_l = labels.reshape(-1).to(torch.int64)
+    cell = census[torch.clamp(flat_l, max=census.numel() - 1)].reshape(labels.shape)
+    cell = torch.where(occ, cell, 0)
+    sure = occ & (cell.to(torch.float32) >= min_sure)
+    return cell, torch.stack([torch.any(occ), torch.any(sure)])
 
 
 def label_census_plain(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int,
@@ -199,15 +224,8 @@ def label_census_plain(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int,
     where ``occ`` into bucket ``label``, ids >= ncv dropped, read back at
     ``min(label, ncv - 1)``), 0 off ``occ``; and the flags (any occ, any occ
     with census >= min_sure)."""
-    flat_l = labels.reshape(-1).to(torch.int64)
-    v = torch.where(occ, vals, 0).reshape(-1)
-    keep = flat_l < ncv
-    census = torch.zeros(ncv, dtype=torch.int32, device=labels.device)
-    census.index_add_(0, flat_l[keep], v[keep])
-    cell = census[torch.clamp(flat_l, max=ncv - 1)].reshape(labels.shape)
-    cell = torch.where(occ, cell, 0)
-    sure = occ & (cell.to(torch.float32) >= min_sure)
-    return cell, torch.stack([torch.any(occ), torch.any(sure)])
+    return census_read_plain(labels, occ, census_scatter_plain(labels, vals, occ, ncv),
+                             min_sure)
 
 
 def label_census(labels: Tensor, vals: Tensor, occ: Tensor, ncv: int,

@@ -26,13 +26,18 @@ The grid-sharded sweep (:func:`raycast_update_zsharded`, vofod_tpu
 and y cones with their lateral z rows exchanged every plane step (K15b-3,
 csrc/cone_sweep.cu, plain version :func:`cone_lat_step_plain`), the z cones
 pipelined over the shards (K15b-4a, plain version
-:func:`cone_z_round_plain`), then K5b on the slab; its T is bit-equal to
+:func:`cone_z_round_plain`) or, with ``zcone_mode="transpose"``, swept
+y-sharded between two all_to_alls (K15b-4b, plain version
+:func:`cone_zt_step_plain`), then K5b on the slab; its T is bit-equal to
 K4's on the same window.
 
 The exact mode walks every ray with Amanatides–Woo (K12, csrc/dda.cu, plain
 version :func:`raycast_dda_plain`) into a full-grid raylen field and applies
 the same ray EMA to it (K12's second pass, csrc/ray_update.cu
-``vofod_ray_ema``, plain version :func:`ray_ema_plain`).
+``vofod_ray_ema``, plain version :func:`ray_ema_plain`).  On the
+grid-sharded step each shard walks every ray into its slab's rows only
+(K15b-6c, :func:`raycast_dda_slab`), and the old rule's max is taken over
+the shards.
 """
 
 from __future__ import annotations
@@ -774,11 +779,99 @@ def cone_sweep_z_pipelined(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: 
             carry = torch.stack([ones if c0 is None else c0, ones if c1 is None else c1])
 
 
+def cone_zt_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                       tmp_in: Tensor | None, lo: Tensor | None, hi: Tensor | None,
+                       tmp_out: Tensor, T2: Tensor, k: int, pin_from: int) -> None:
+    """Plain version of K15b-4b's launch k, with its arguments (see
+    kernels.cone_sweep_zt): per z cone, the A (y) pass of plane k - 1 over
+    the shard's x-resampled rows with the neighbours' rows around them (1.0
+    past the global edge), its T and carry, then the B (x) pass of plane k
+    into ``tmp_out``, the rows from ``pin_from`` on set to 1.0; each pass as
+    :func:`_lerp` sums and rounds it."""
+    nz, nyl, wx = opaque.shape
+    op = opaque.to(torch.bool)
+    dev = opaque.device
+    if k == 0:
+        carry = torch.ones((2, nyl, wx), dtype=torch.float32, device=dev)
+    else:
+        (s0, r0), (s1, r1) = _plane_rs(rel_z, nz, k - 1, False), _plane_rs(rel_z, nz, k - 1, True)
+        rs = torch.stack([r0, r1])
+        ones = torch.ones((2, 1, wx), dtype=torch.float32, device=dev)
+        below = ones if lo is None else lo[0].float()[:, None]
+        above = torch.cat([ones, ones], 1) if hi is None else hi.float().permute(1, 0, 2)
+        ext = torch.cat([below, tmp_in.float().permute(1, 0, 2), above], 1)  # [2, nyl + 3, wx]
+        wa = _tap_weights(rs, rel_y.expand(2, nyl))[..., None, :]  # [2, nyl, 1, 4]
+        t = _bf16(wa[..., 0] * ext[:, 0:nyl] + wa[..., 1] * ext[:, 1:nyl + 1]
+                  + wa[..., 2] * ext[:, 2:nyl + 2] + wa[..., 3] * ext[:, 3:nyl + 3])
+        t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+        T2[0, s0], T2[1, s1] = t[0], t[1]
+        carry = torch.where(torch.stack([op[s0], op[s1]]), 0.0, t)
+    if k < nz:
+        rs = torch.stack([_plane_rs(rel_z, nz, k, False)[1], _plane_rs(rel_z, nz, k, True)[1]])
+        q = _lerp_rows(carry, _tap_weights(rs, rel_x.expand(2, wx)))
+        q[:, pin_from:] = 1.0
+        tmp_out.copy_(q.to(torch.bfloat16).permute(1, 0, 2))
+
+
+def zt_planes(opaque: Tensor, rel_y: Tensor, comm) -> tuple[Tensor, Tensor, int]:
+    """The transposed z cones' input on a shard (inside ``comm.run``): the
+    window slab's y padded to nyl = ceil(wy / n) rows a shard and made
+    y-sharded by an all_to_all, (every z plane of the shard's nyl rows
+    [nz, nyl, wx], their sensor offsets (the pad rows' continuing the
+    window's), the first pinned local row: the first at or past wy)."""
+    wy = opaque.shape[1]
+    n, me = comm.n, comm.rank
+    nyl = -(-wy // n)
+    if nyl < 2:
+        raise ValueError(f"transposed z cones: a shard needs >= 2 of the window's {wy} y rows "
+                         f"(4-tap halo), got {nyl} over {n} shards")
+    pad = nyl * n - wy
+    if pad:
+        opaque = F.pad(opaque, (0, 0, 0, pad))
+        rel_y = torch.cat([rel_y, rel_y[-1] + torch.arange(1, pad + 1, dtype=rel_y.dtype,
+                                                           device=rel_y.device)])
+    planes = comm.all_to_all(opaque, 1, 0)  # z ascending: the blocks come in rank order
+    return planes, rel_y[me * nyl:(me + 1) * nyl].contiguous(), min(max(wy - me * nyl, 0), nyl)
+
+
+def cone_sweep_z_transposed(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                            T2: Tensor, comm) -> None:
+    """The z cones of a shard's window slab (vofod_tpu
+    ``_sweep_cones_z_transposed``) into T2 [2, nzl, wy, wx]: the window's y
+    padded to a multiple of the n shards, an all_to_all to y-sharded (every
+    plane of nyl = ceil(wy / n) rows), K15b-4b's nz + 1 launches with the
+    x-resampled plane's edge rows sent after each (the last row up, the
+    first two down) and the pad rows pinned to 1.0, and an all_to_all back.
+    ``rel_z``: the window's global column.  K15b-4b writes both cones in
+    grid order, so one all_to_all brings both back (JAX's scan output holds
+    cone 1 reversed, hence its flip and re-reversal)."""
+    step = _sharded_step(opaque, kernels.cone_sweep_zt, cone_zt_step_plain)
+    _, wy, wx = opaque.shape
+    nz = rel_z.shape[0]
+    n = comm.n
+    planes, rel_yl, pin_from = zt_planes(opaque, rel_y, comm)
+    nyl = rel_yl.shape[0]
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    Tt = torch.empty((2, nz, nyl, wx), dtype=torch.float32, device=opaque.device)
+    bufs = [torch.empty((nyl, 2, wx), dtype=torch.bfloat16, device=opaque.device)
+            for _ in range(2)]
+    lo = hi = None
+    for k in range(nz + 1):
+        tmp_in, tmp_out = bufs[(k + 1) % 2], bufs[k % 2]
+        step(planes, rel_x, rel_yl, rel_z, tmp_in if k else None, lo, hi, tmp_out, Tt, k,
+             pin_from)
+        if k < nz:
+            lo, hi = comm.ppermutes([(tmp_out[nyl - 1:nyl], up), (tmp_out[:2], dn)])
+    T2.copy_(comm.all_to_all(Tt, 1, 2)[:, :, :wy])
+
+
 def sweep_zsharded(grid: GridSpec, opaque: Tensor, origin_world: np.ndarray, comm,
-                   max_distance_bound: float | None = None):
+                   max_distance_bound: float | None = None, zcone_mode: str = "pipelined"):
     """T6 [6, nzl, wy, wx] of a shard's slab of the sweep window (x/y cones
-    by K15b-3, z cones by K15b-4a) and the window: (T6, x0, y0, rel_x,
-    rel_y, rel_z of the slab's rows).  ``opaque``: the shard's bool slab."""
+    by K15b-3, z cones by K15b-4a, or K15b-4b when ``zcone_mode`` is
+    "transpose") and the window: (T6, x0, y0, rel_x, rel_y, rel_z of the
+    slab's rows).  ``opaque``: the shard's bool slab."""
     nzl = opaque.shape[0]
     x0, y0, rel_x, rel_y, rel_z_g = _window_rel(grid, origin_world, max_distance_bound,
                                                 opaque.device)
@@ -788,7 +881,10 @@ def sweep_zsharded(grid: GridSpec, opaque: Tensor, origin_world: np.ndarray, com
     op_w = opaque[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
     T6 = torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=opaque.device)
     cone_sweep_lat_sharded(op_w, rel_x, rel_y, rel_z, T6[:4], comm)
-    cone_sweep_z_pipelined(op_w, rel_x, rel_y, rel_z, T6[4:], comm)
+    if zcone_mode == "transpose":
+        cone_sweep_z_transposed(op_w, rel_x, rel_y, rel_z_g, T6[4:], comm)
+    else:
+        cone_sweep_z_pipelined(op_w, rel_x, rel_y, rel_z, T6[4:], comm)
     return T6, x0, y0, rel_x, rel_y, rel_z
 
 
@@ -808,15 +904,16 @@ def raycast_update_zsharded(
     h_rays: int,
     gate: Tensor | None = None,
     max_distance_bound: float | None = None,
+    zcone_mode: str = "pipelined",
 ) -> Tensor:
     """:func:`raycast_update_` on a shard's z slab (vofod_tpu
-    ``raycast_sweep_zsharded`` with the pipelined z cones): the window is
-    cropped in x/y only, the cones run sharded (:func:`sweep_zsharded`), and
-    K5b assembles and applies the ray EMA on the slab's window, the old
-    rule's max taken over the shards.  ``comm``: the shards'
-    parallel/comm.LocalComm, inside its ``run``.  Returns ``vals``."""
+    ``raycast_sweep_zsharded``): the window is cropped in x/y only, the
+    cones run sharded (:func:`sweep_zsharded`, the z cones pipelined or
+    transposed), and K5b assembles and applies the ray EMA on the slab's
+    window, the old rule's max taken over the shards.  ``comm``: the
+    shards' parallel/comm.LocalComm, inside its ``run``.  Returns ``vals``."""
     T6, x0, y0, rel_x, rel_y, rel_z = sweep_zsharded(grid, opaque, origin_world, comm,
-                                                     max_distance_bound)
+                                                     max_distance_bound, zcone_mode)
     c = RayConsts.make(grid.voxel_size, max_distance, vertical_fov, v_rays, h_rays)
     return ray_window_update_(vals, had_point, T6, gate, rel_x, rel_y, rel_z, rot_s2w, x0, y0,
                               c, ema, gmax=comm.pmax)
@@ -900,6 +997,35 @@ def raycast_dda_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Ten
     return flat.reshape(grid.shape)
 
 
+def raycast_dda_slab_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                           valid: Tensor, max_length: float, slab: tuple[int, int]) -> Tensor:
+    """Plain version of K15b-6c: :func:`raycast_dda_plain`'s rows ``slab``
+    (z0, rows), from the emissions whose flat id lies in them, added in the
+    same (step, ray) order."""
+    z0, nzl = slab
+    plane = grid.ny * grid.nx
+    fid, w = dda_emissions_plain(grid, starts, dirs, lengths, valid, max_length)
+    lf = fid - z0 * plane
+    own = (lf >= 0) & (lf < nzl * plane)
+    flat = torch.zeros(nzl * plane, dtype=torch.float32, device=starts.device)
+    flat.index_add_(0, lf[own], w[own])
+    return flat.reshape(nzl, grid.ny, grid.nx)
+
+
+def raycast_dda_slab(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                     valid: Tensor, max_length: float, slab: tuple[int, int]) -> Tensor:
+    """K15b-6c: the rows ``slab`` (z0, rows) of :func:`raycast_dda`'s field,
+    every ray walked (vofod_tpu ``ZShardOps.raycast_dda``): a shard's raylen
+    on the grid-sharded step."""
+    if starts.is_cuda:
+        return kernels.dda_slab(starts.contiguous(), dirs.contiguous(), lengths.contiguous(),
+                                valid.contiguous(), grid.shape, _dda_consts(grid),
+                                dda_n_steps(grid.voxel_size, max_length), slab)
+    if starts.device.type != "cpu":
+        raise ValueError(f"DDA raycast: unsupported device {starts.device}")
+    return raycast_dda_slab_plain(grid, starts, dirs, lengths, valid, max_length, slab)
+
+
 def raycast_dda(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor, valid: Tensor,
                 max_length: float) -> Tensor:
     """Exact Amanatides–Woo accumulation (ref voxel_map.cpp:229-263): the
@@ -920,12 +1046,15 @@ def raycast_dda(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor, v
     return raycast_dda_plain(grid, starts, dirs, lengths, valid, max_length)
 
 
-def ray_ema_grid_(vals: Tensor, had_point: Tensor, raylen: Tensor, ema: RayEma) -> Tensor:
+def ray_ema_grid_(vals: Tensor, had_point: Tensor, raylen: Tensor, ema: RayEma,
+                  gmax=None) -> Tensor:
     """K12's second pass: the ray EMA (:func:`ray_ema_plain`) on a full-grid
-    raylen field, in place on ``vals``.  Returns ``vals``."""
+    raylen field (or a shard's slab of it, the old rule's max then through
+    ``gmax``, the max over the shards), in place on ``vals``.  Returns
+    ``vals``."""
     if vals.is_cuda:
-        kernels.ray_ema(vals, had_point, raylen, ema)
+        kernels.ray_ema(vals, had_point, raylen, ema, gmax)
         return vals
     if vals.device.type != "cpu":
         raise ValueError(f"ray EMA: unsupported device {vals.device}")
-    return vals.copy_(ray_ema_plain(vals, raylen, had_point, ema))
+    return vals.copy_(ray_ema_plain(vals, raylen, had_point, ema, gmax))

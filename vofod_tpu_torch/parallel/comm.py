@@ -6,8 +6,8 @@ the port's counterpart for a process that drives every shard itself: each
 shard runs the same step code in a host thread of its own, with its own CUDA
 stream, on ``devices[i % len(devices)]`` (all on one card, or spread over a
 host's cards).  The collectives carry the names of the JAX ones —
-``ppermute``, ``psum``, ``pmax``, ``any``, ``all_gather`` — and are device
-copies ordered by CUDA events, with no host sync:
+``ppermute``, ``psum``, ``pmax``, ``any``, ``all_gather``, ``all_to_all``
+— and are device copies ordered by CUDA events, with no host sync:
 
 * the sender copies its tensor once on its own stream (so later writes to
   the original cannot race the receiver) and records an event;
@@ -81,6 +81,7 @@ class LocalComm:
         self._broken = False
         self._copy_lock = threading.Lock()
         self.copies = 0  # device copies made by the collectives since reset_copies()
+        self.copies_by: dict[str, int] = {}  # the same, by collective
 
     # ---- the shards -------------------------------------------------------------
     @property
@@ -162,10 +163,12 @@ class LocalComm:
     def reset_copies(self) -> None:
         with self._copy_lock:
             self.copies = 0
+            self.copies_by = {}
 
-    def _count_copy(self, n: int = 1) -> None:
+    def _count_copy(self, kind: str) -> None:
         with self._copy_lock:
-            self.copies += n
+            self.copies += 1
+            self.copies_by[kind] = self.copies_by.get(kind, 0) + 1
 
     def _break(self) -> None:
         self._broken = True
@@ -199,16 +202,16 @@ class LocalComm:
         self._wait_turn()
         return slots
 
-    def _send(self, x: Tensor):
+    def _send(self, x: Tensor, kind: str):
         buf = x.detach().clone(memory_format=torch.contiguous_format)
-        self._count_copy()
+        self._count_copy(kind)
         ev = None
         if buf.is_cuda:
             ev = torch.cuda.Event()
             ev.record()
         return buf, ev
 
-    def _recv(self, item) -> Tensor:
+    def _recv(self, item, kind: str) -> Tensor:
         buf, ev = item
         if ev is not None:
             s = torch.cuda.current_stream()
@@ -216,7 +219,7 @@ class LocalComm:
             buf.record_stream(s)
             if buf.device != self.device:
                 buf = buf.to(self.device, non_blocking=True)
-                self._count_copy()
+                self._count_copy(kind)
         return buf
 
     # ---- collectives ------------------------------------------------------------
@@ -226,12 +229,13 @@ class LocalComm:
         per item what this shard received, or None when no shard sends to it
         (JAX's ppermute gives zeros there; every caller here fills instead)."""
         me = self.rank
-        payload = [self._send(x) if any(s == me for s, _ in perm) else None for x, perm in items]
+        payload = [self._send(x, "ppermute") if any(s == me for s, _ in perm) else None
+                   for x, perm in items]
         slots = self._exchange(payload)
         out = []
         for j, (_, perm) in enumerate(items):
             src = next((s for s, d in perm if d == me), None)
-            out.append(None if src is None else self._recv(slots[src][j]))
+            out.append(None if src is None else self._recv(slots[src][j], "ppermute"))
         return out
 
     def ppermute(self, x: Tensor, perm) -> Tensor | None:
@@ -239,23 +243,39 @@ class LocalComm:
 
     def all_gather(self, x: Tensor) -> Tensor:
         """[n, *x.shape]: every shard's ``x`` in rank order."""
-        slots = self._exchange(self._send(x))
-        return torch.stack([self._recv(slots[j]) for j in range(self.n)])
+        slots = self._exchange(self._send(x, "all_gather"))
+        return torch.stack([self._recv(slots[j], "all_gather") for j in range(self.n)])
 
-    def _reduce(self, x: Tensor, op) -> Tensor:
-        slots = self._exchange(self._send(x))
-        acc = self._recv(slots[0])
+    def all_to_all(self, x: Tensor, split_axis: int, concat_axis: int) -> Tensor:
+        """JAX's tiled ``lax.all_to_all``: ``x`` split into n equal blocks
+        along ``split_axis``, block j sent to shard j; returns the blocks
+        received (block ``rank`` of every shard's split), concatenated in
+        rank order along ``concat_axis``.  The shard's own block is kept
+        without a copy; the n - 1 others are the collective's copies."""
+        me, n = self.rank, self.n
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} does not "
+                             f"split into {n} blocks")
+        blocks = torch.chunk(x, n, dim=split_axis)
+        slots = self._exchange([None if j == me else self._send(b, "all_to_all")
+                                for j, b in enumerate(blocks)])
+        return torch.cat([blocks[me] if j == me else self._recv(slots[j][me], "all_to_all")
+                          for j in range(n)], dim=concat_axis)
+
+    def _reduce(self, x: Tensor, op, kind: str) -> Tensor:
+        slots = self._exchange(self._send(x, kind))
+        acc = self._recv(slots[0], kind)
         for j in range(1, self.n):
-            acc = op(acc, self._recv(slots[j]))
+            acc = op(acc, self._recv(slots[j], kind))
         return acc
 
     def psum(self, x: Tensor) -> Tensor:
         """Elementwise sum over the shards, added in rank order."""
-        return self._reduce(x, torch.add)
+        return self._reduce(x, torch.add, "psum")
 
     def pmax(self, x: Tensor) -> Tensor:
-        return self._reduce(x, torch.maximum)
+        return self._reduce(x, torch.maximum, "pmax")
 
     def any(self, x: Tensor) -> Tensor:
         """Elementwise OR of a bool tensor over the shards."""
-        return self._reduce(x, torch.logical_or)
+        return self._reduce(x, torch.logical_or, "any")

@@ -1,9 +1,11 @@
 """Grid-sharded step: one operation area over n shards of one process.
 
 PyTorch counterpart of vofod_tpu/parallel/grid_step.py
-``make_grid_sharded_step`` on the production sweep path (raw ingest, the
-gated sweep raycast with pipelined z cones, default sepclusters, static
-radii).  The confidence grid and the sepclusters warm-start mask shard
+``make_grid_sharded_step`` on the raw ingest with static radii: the
+production sweep path (the gated sweep raycast, its z cones pipelined or
+transposed, default sepclusters) and the reference-exact path (the exact
+DDA raycast, the exact census with the counted indexing, the hasCloseTo
+box).  The confidence grid and the sepclusters warm-start mask shard
 along z, the leading axis; the step of pipeline/step.py runs unchanged on
 every shard with parallel/gridops.ZShardOps as its grid provider, each
 shard in a thread of a parallel/comm.LocalComm with its own CUDA stream.
@@ -16,12 +18,16 @@ and back; ``gather_state`` is the port's counterpart of ``np.asarray`` on
 a sharded JAX array.
 
 Every output equals the dense step's bit for bit (tests/
-test_torch_grid_step.py, chip_smoke.py phase 4-grid).
+test_torch_grid_step.py, tests/test_torch_grid_exact.py, chip_smoke.py
+phases 4-grid, 4-grid-exact and 4-grid-transpose).  JAX's sharded step
+pools the hasCloseTo box on the bare slab; this one takes its halo, so it
+is held to the dense step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -45,6 +51,13 @@ def _validate_grid_sharding(cfg: VoFODConfig, n: int) -> None:
         # label_seeded keys use flat_id + (1 - seed) * n_voxels in int32
         raise ValueError(f"n_voxels={nz * ny * nx} exceeds the int32 id/key ceiling of 2^30; "
                          "shrink the oparea or coarsen the voxel size")
+    if cfg.sepclusters_exact_census:
+        # the coarse pooling is shard-local: the leaf must tile each slab
+        mv = math.ceil(cfg.sepclusters_max_bg_distance / cfg.voxel_size)
+        lsz = max(mv - 1, 1)
+        if (nz // n) % lsz:
+            raise ValueError(f"exact-census coarse leaf {lsz} must divide the shard height "
+                             f"{nz // n} (pad the operation-area height)")
 
 
 def _shard(t: torch.Tensor, i: int, n: int, dev) -> torch.Tensor:
@@ -102,12 +115,14 @@ def make_grid_sharded_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
     ``step(states, scan, dyn) -> (states, StepOutput)``, with ``states`` one
     VoFODState per shard (:func:`shard_state`, :func:`init_grid_sharded_state`)
     and the scan (a ScanInput) replicated.  ``step_kw``: the make_step_fn
-    options of the sweep path (raycast_every, mask, raycast_gate,
-    raycast_mode "sweep" or "off").  Requires nz divisible by the shards and
-    a shard height of at least 2 planes (the sweep's lateral halo taps);
-    refuses, naming ROADMAP queue 1, the modes not sharded yet: the
-    prebinned ingest, the exact raycast, the exact census, the hasCloseTo
-    box, dynamic radii, the sequential explore and the transposed z cones."""
+    options (raycast_mode "sweep", "exact" or "off", raycast_every, mask,
+    raycast_gate); ``zcone_mode``: "pipelined" or "transpose" (K15b-4b).
+    The config may set the exact census, the counted indexing and the
+    hasCloseTo box.  Requires nz divisible by the shards, a shard height of
+    at least 2 planes (the sweep's lateral halo taps) and, with the exact
+    census, divisible by its coarse leaf; refuses, naming ROADMAP queue 1,
+    the modes not sharded yet: the prebinned ingest, dynamic radii and the
+    sequential explore."""
     _validate_grid_sharding(cfg, comm.n)
     ops = ZShardOps(comm, comm.n, zcone_mode=zcone_mode)
     steps = {dev: make_step_fn(cfg, lut, device=dev, ops=ops, **step_kw)

@@ -16,7 +16,13 @@ small set of primitives below, so the same stage code runs in two layouts:
   onto their owners (K15b-2), compactions merge per-shard lists (z is the
   leading axis, so shard-major concatenation keeps ids ascending), lookups
   and sums reduce over the shards, and the sweep raycast runs lateral-
-  sharded with pipelined z cones (ops/raycast.py raycast_update_zsharded).
+  sharded with pipelined or transposed z cones (ops/raycast.py
+  raycast_update_zsharded).  The reference-exact modes run sharded too:
+  the coarse components sweep halo'd slabs to the global fixpoint, the
+  census scatters into the global label space around a psum (K15b-6a), and
+  the exact DDA walks every ray on every shard, keeping the slab's chords
+  (K15b-6c); the counted-indexing quirk (K15b-6b) and the exact demotion
+  (K13c on halo'd coarse arrays) are in pipeline/sepclusters.py.
 
 Point-space arrays and compacted lists are replicated.  Every output equals
 the dense one bit for bit: each element gets the same operands in the same
@@ -33,10 +39,12 @@ from vofod_tpu_torch import kernels
 from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import (
-    SENTINEL, label_components_seeded, propagate_reach, sweep_plain)
+    SENTINEL, census_read_plain, census_scatter_plain, label_census, label_components,
+    label_components_seeded, propagate_reach, sweep_plain)
 from vofod_tpu_torch.ops.explore import demote_floating, explore
 from vofod_tpu_torch.ops.morphology import INT_FILL, ball_pool, ball_pool_max, ball_pool_sum, tap_set
-from vofod_tpu_torch.ops.raycast import raycast_update_, raycast_update_zsharded
+from vofod_tpu_torch.ops.raycast import (
+    ray_ema_grid_, raycast_dda, raycast_dda_slab, raycast_update_, raycast_update_zsharded)
 
 Tensor = torch.Tensor
 
@@ -85,6 +93,13 @@ class DenseOps:
     def propagate_reach(self, occupied, seed, radius: float, max_iters: int):
         return propagate_reach(occupied, seed, radius, max_iters)
 
+    def label_components(self, occupied, radius: float, max_iters: int):
+        return label_components(occupied, radius, max_iters)
+
+    def label_census(self, labels, vals, occ, ncv: int, min_sure: float):
+        """K13a: (cell census, flags); one call, two launches."""
+        return label_census(labels, vals, occ, ncv, min_sure)
+
     # ---- histogram scatter -------------------------------------------------------
     def scatter_add(self, grid: GridSpec, fid: Tensor, w: Tensor) -> Tensor:
         """int32 grid of w added at the flat ids (w 0 where invalid)."""
@@ -115,6 +130,13 @@ class DenseOps:
     # ---- raycast -----------------------------------------------------------------
     def raycast_update_(self, grid, vals, had_point, opaque, origin_world, rot_s2w, ema, **kw):
         return raycast_update_(grid, vals, had_point, opaque, origin_world, rot_s2w, ema, **kw)
+
+    def raycast_dda_update_(self, grid, vals, had_point, starts, dirs, lengths, valid,
+                            max_length: float, ema):
+        """The exact raycast: K12's walk, then its ray EMA in place on
+        ``vals``."""
+        raylen = raycast_dda(grid, starts, dirs, lengths, valid, max_length)
+        return ray_ema_grid_(vals, had_point, raylen, ema)
 
 
 DENSE = DenseOps()
@@ -162,8 +184,8 @@ class ZShardOps:
     dense grid arguments being the calling shard's (nz/n, ny, nx) slab.
 
     zcone_mode: "pipelined" (the z cones run sweep-sharded, n rounds), the
-      JAX default.  "transpose" (the all_to_all form) has no port yet
-      (ROADMAP queue 1) and raises.
+      JAX default, or "transpose" (the window made y-sharded by an
+      all_to_all, both z cones swept over all planes, K15b-4b).
     """
 
     is_sharded = True
@@ -171,10 +193,6 @@ class ZShardOps:
     def __init__(self, comm, n: int | None = None, zcone_mode: str = "pipelined"):
         if zcone_mode not in ZCONE_MODES:
             raise ValueError(f"unknown zcone_mode {zcone_mode!r}, expected one of {ZCONE_MODES}")
-        if zcone_mode == "transpose":
-            raise NotImplementedError(
-                "zcone_mode='transpose' (the all_to_all z cones, K15b-4b) is not ported yet: "
-                "ROADMAP queue 1, K15b rest")
         if n is not None and n != comm.n:
             raise ValueError(f"ZShardOps n={n} differs from the comm's {comm.n} shards")
         self.comm = comm
@@ -189,12 +207,10 @@ class ZShardOps:
     def check_step(cfg, raycast_mode: str, frontend_mode: str) -> None:
         """Refuse the step modes with no sharded form yet (their stages
         would run the dense form on a slab): make_step_fn calls this for a
-        sharded ``ops``."""
+        sharded ``ops``.  The exact raycast, the exact census, the counted
+        indexing and the hasCloseTo box are sharded."""
         refused = [
             (frontend_mode != "raw", f"frontend_mode={frontend_mode!r}"),
-            (raycast_mode == "exact", "raycast_mode='exact'"),
-            (cfg.sepclusters_exact_census, "sepclusters_exact_census"),
-            (cfg.compat_hascloseto_bounds, "compat_hascloseto_bounds"),
             (cfg.dynamic_radii, "dynamic_radii"),
             (cfg.sequential_explore, "sequential_explore"),
         ]
@@ -360,6 +376,28 @@ class ZShardOps:
     def propagate_reach(self, occupied, seed, radius: float, max_iters: int):
         return propagate_reach(occupied, seed, radius, max_iters, sweep_fn=self.sweeps)
 
+    def label_components(self, occupied, radius: float, max_iters: int):
+        """ops/components.label_components with global flat ids, swept to
+        the global fixpoint: each gated K2 launch reads the previous sweep's
+        flag OR-ed over the shards, so the labels, ``converged`` and the
+        sweep count are the dense step's."""
+        return label_components(occupied, radius, max_iters, sweep_fn=self.sweeps,
+                                z0=self.slab(occupied.shape[0] * self.n)[0])
+
+    def label_census(self, labels, vals, occ, ncv: int, min_sure: float):
+        """K13a across the shards (vofod_tpu ``ZShardOps.label_census``):
+        the slab's cells scattered into the global label space (K15b-6a),
+        the int32 census psum'd, then read back for the slab's cells with
+        the two flags (K15b-6a), each OR-ed over the shards."""
+        labels, vals, occ = labels.contiguous(), vals.contiguous(), occ.contiguous()
+        if _on_card(labels, "label census"):
+            census = self.comm.psum(kernels.census_scatter(labels, vals, occ, ncv))
+            out, flags = kernels.census_read(labels, occ, census, min_sure)
+        else:
+            census = self.comm.psum(census_scatter_plain(labels, vals, occ, ncv))
+            out, flags = census_read_plain(labels, occ, census, min_sure)
+        return out, self.comm.any(flags)
+
     # ---- histogram scatter ----------------------------------------------------------
     def scatter_add(self, grid: GridSpec, fid: Tensor, w: Tensor) -> Tensor:
         """The slab's part of DenseOps.scatter_add: only the owned ids add."""
@@ -444,4 +482,13 @@ class ZShardOps:
     # ---- raycast --------------------------------------------------------------------
     def raycast_update_(self, grid, vals, had_point, opaque, origin_world, rot_s2w, ema, **kw):
         return raycast_update_zsharded(grid, vals, had_point, opaque, origin_world, rot_s2w,
-                                       ema, comm=self.comm, **kw)
+                                       ema, comm=self.comm, zcone_mode=self.zcone_mode, **kw)
+
+    def raycast_dda_update_(self, grid, vals, had_point, starts, dirs, lengths, valid,
+                            max_length: float, ema):
+        """The exact raycast on the slab (vofod_tpu ``ZShardOps.raycast_dda``):
+        every ray walked, the slab's chords kept (K15b-6c), then K12's ray
+        EMA with the old rule's max over the shards."""
+        raylen = raycast_dda_slab(grid, starts, dirs, lengths, valid, max_length,
+                                  self.slab(grid.nz))
+        return ray_ema_grid_(vals, had_point, raylen, ema, gmax=self.comm.pmax)

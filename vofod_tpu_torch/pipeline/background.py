@@ -12,12 +12,16 @@ instead of the symmetric ball.  With ``cfg.dynamic_radii`` the seed pool
 and the sweeps take the shells of the static bound kept by the runtime
 ``dyn.ground_points_max_distance`` (K14, ops/morphology.shell_taps).
 The grid-wide sums, the seed pool and the seeded propagation go through
-``ops`` (parallel/gridops.py), as in the JAX stage.
+``ops`` (parallel/gridops.py), as in the JAX stage; so does the hasCloseTo
+box, with a halo of ceil(r) rows (its reach below the voxel), which JAX's
+sharded stage leaves out: there the box is pooled on the bare slab.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import math
 
 import numpy as np
 import torch
@@ -100,7 +104,8 @@ def split_and_update(
     if cfg.compat_hascloseto_bounds:
         # the reference's box [idx - ceil(r), idx + ceil(r)): at the shipped
         # integer radius (3.0) the +3 axis-extreme offsets are not searched
-        bg_near = hascloseto_pool_any(bg_mask, radius)
+        bg_near = ops.stencil(lambda m: hascloseto_pool_any(m, radius), (bg_mask,), (False,),
+                              math.ceil(radius))
     elif traced_r2 is not None:
         bg_near = ball_pool_max_traced(bg_mask.to(torch.int8), traced_r2, radius, fill=0) > 0
     else:

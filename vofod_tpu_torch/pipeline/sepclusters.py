@@ -25,7 +25,14 @@ csrc/census.cu), coarse-cell components to convergence (K2 with gated
 launches), the per-component sure census (K13a) and the demotion around the
 unsure cells' centres, w1^k for k overlapping balls (K13c, csrc/ema.cu).
 The coarse lattice is anchored at the grid origin; at the flagship leaf
-size 1 it is the fine grid.
+size 1 it is the fine grid.  On the grid-sharded step (``ops`` a
+parallel/gridops.ZShardOps) the coarse pooling stays shard-local (the leaf
+divides the shard height), the quirk counts take global export ranks from
+gathered column sums and a psum'd rank table (K15b-6b,
+:func:`quirk_sure_counts_sharded`), the components and the census go
+through ``ops`` (K2 on halo'd slabs, K15b-6a), and K13c reads the coarse
+arrays with a halo of the neighbours' rows (K15b-1) through a z window,
+writing its own rows: every output is the dense step's.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
-from vofod_tpu_torch.ops.components import label_census, label_components, propagate_reach
+from vofod_tpu_torch.ops.components import propagate_reach
 from vofod_tpu_torch.ops.morphology import (
     Shells, ball_pool_plain, ball_pool_sum_traced, ball_taps, pool_plain, tap_set)
 from vofod_tpu_torch.parallel.gridops import DENSE
@@ -110,7 +117,7 @@ def run_sepclusters(
     ops=DENSE,
 ) -> SepClustersOut:
     if cfg.sepclusters_exact_census:
-        return run_sepclusters_exact(cfg, dyn, grid_vals, its_diff, prev_sure)
+        return run_sepclusters_exact(cfg, dyn, grid_vals, its_diff, prev_sure, ops=ops)
     bg = grid_vals > dyn.thr_new_obstacles
     sure = grid_vals > dyn.thr_sure_obstacles
 
@@ -229,39 +236,103 @@ def quirk_sure_counts(bg: Tensor, sure: Tensor, lsz: int) -> Tensor:
     return quirk_sure_counts_plain(bg, sure, lsz)
 
 
+def _export_pairs(bg: Tensor, sure: Tensor) -> Tensor:
+    """int64 (bg << 32) | (sure & bg) per voxel: both export prefixes in one."""
+    return (bg.to(torch.int64) << 32) | (bg & sure).to(torch.int64)
+
+
+def quirk_columns_plain(bg: Tensor, sure: Tensor) -> Tensor:
+    """Plain version of K15b-6b pass 1 (kernels.quirk_columns)."""
+    return _export_pairs(bg, sure).sum(0).reshape(-1)
+
+
+def quirk_ranks_plain(bg: Tensor, sure: Tensor, blocks: Tensor, rank: int,
+                      nv: int) -> tuple[Tensor, Tensor]:
+    """Plain version of K15b-6b pass 2 (kernels.quirk_ranks): the global
+    inclusive export prefixes at the slab's voxels (the columns before in
+    export order over every shard, the column's rows on the shards below,
+    the local z prefix), u[rank] = t at its bg voxels, and the bg voxels of
+    the shards below."""
+    nzl, ny, nx = bg.shape
+    tot = blocks.sum(0).reshape(ny, nx)
+    below = blocks[:rank].sum(0).reshape(ny, nx)
+    flat = tot.T.reshape(-1)  # export order: x outer
+    excl = (torch.cumsum(flat, 0) - flat).reshape(nx, ny).T
+    pref = excl + below + torch.cumsum(_export_pairs(bg, sure), 0)
+    u = torch.zeros(nv + 2, dtype=torch.int32, device=bg.device)
+    u[(pref >> 32)[bg]] = (pref & 0xFFFFFFFF)[bg].to(torch.int32)
+    return u, (below >> 32).sum()
+
+
+def quirk_query_plain(bg: Tensor, lsz: int, u: Tensor, below: Tensor) -> Tensor:
+    """Plain version of K15b-6b pass 3 (kernels.quirk_query): K13b's cell
+    queries on the slab's cells, every first rank moved on by ``below``."""
+    counts_c = pool_sum_coarse(bg.to(torch.int32), lsz)
+    cf = counts_c.reshape(-1).to(torch.int64)
+    first = torch.cumsum(cf, 0) - cf + below
+    quirk = u[first + cf] - u[first]
+    return torch.where(cf > 0, quirk, 0).reshape(counts_c.shape)
+
+
+def quirk_sure_counts_sharded(bg: Tensor, sure: Tensor, lsz: int, comm) -> Tensor:
+    """K15b-6b: :func:`quirk_sure_counts` on a shard's slab (vofod_tpu
+    ``_quirk_sure_counts_sharded``), inside ``comm.run``: the column sums
+    all-gathered, the slab's ranks scattered into a full-grid int32 table
+    (disjoint over the shards) that is psum'd, then the slab's cell
+    queries.  The table is replicated at the full grid's size (9.9 MB at
+    the flagship), as in JAX: the parity mode does not shrink with n."""
+    bg, sure = bg.contiguous(), sure.contiguous()
+    nv = bg.numel() * comm.n
+    if bg.is_cuda:
+        blocks = comm.all_gather(kernels.quirk_columns(bg, sure))
+        u, below = kernels.quirk_ranks(bg, sure, blocks, comm.rank, nv)
+        return kernels.quirk_query(bg, lsz, comm.psum(u), below)
+    if bg.device.type != "cpu":
+        raise ValueError(f"quirk counts: unsupported device {bg.device}")
+    blocks = comm.all_gather(quirk_columns_plain(bg, sure))
+    u, below = quirk_ranks_plain(bg, sure, blocks, comm.rank, nv)
+    return quirk_query_plain(bg, lsz, comm.psum(u), below)
+
+
 def exact_demote_ema_plain(grid_vals: Tensor, occ_c: Tensor, cell_census: Tensor,
                            flags: Tensor, prev_sure: Tensor, lsz: int, radius: float,
-                           min_sure: float, w1: float, score: float,
-                           thr_new: float) -> tuple[Tensor, Tensor, Tensor]:
+                           min_sure: float, w1: float, score: float, thr_new: float,
+                           window: tuple[int, int, int] | None = None
+                           ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain version of K13c (vofod_tpu sepclusters.py:356-390): sure
     cells have census >= min_sure; sure_sufficient = any occupied cell ?
     any sure cell : the previous value (``flags`` = K13a's two); every voxel
     within ``radius`` of k unsure-cell centres becomes w1^k v + (1 - w1^k)
-    score when sure_sufficient; safe = bg & in a sure cell.  Returns (new
-    grid, safe, sure_sufficient)."""
+    score when sure_sufficient; safe = bg & in a sure cell.  ``window``
+    (z_off, zc_lo, ncz): as kernels.exact_demote_ema's (a shard's slab and
+    its halo'd coarse arrays).  Returns (new grid, safe, sure_sufficient)."""
     sure_c = occ_c & (cell_census.to(torch.float32) >= min_sure)
     sure_sufficient = torch.where(flags[0], flags[1], prev_sure)
     centers = center_mask(occ_c & ~sure_c, lsz)
     nz, ny, nx = grid_vals.shape
-    k = ball_pool_plain(centers.to(torch.int32), radius, "sum", 0)[:nz, :ny, :nx]
+    z1 = 0 if window is None else window[0] - window[1] * lsz  # own rows in the held ones
+    k = ball_pool_plain(centers.to(torch.int32), radius, "sum", 0)[z1:z1 + nz, :ny, :nx]
     w1k = torch.pow(w1, k.to(torch.float32))  # k = 0 -> identity
     new_vals = torch.where(sure_sufficient, w1k * grid_vals + (1.0 - w1k) * score, grid_vals)
-    safe = (grid_vals > thr_new) & upsample_coarse(sure_c, lsz, grid_vals.shape)
+    c1 = z1 // lsz
+    safe = (grid_vals > thr_new) & upsample_coarse(sure_c[c1:c1 + -(-nz // lsz)], lsz,
+                                                   grid_vals.shape)
     return new_vals, safe, sure_sufficient
 
 
 def exact_demote_ema(grid_vals: Tensor, occ_c: Tensor, cell_census: Tensor, flags: Tensor,
                      prev_sure: Tensor, lsz: int, radius: float, min_sure: float, w1: float,
-                     score: float, thr_new: float) -> tuple[Tensor, Tensor, Tensor]:
+                     score: float, thr_new: float,
+                     window: tuple[int, int, int] | None = None) -> tuple[Tensor, Tensor, Tensor]:
     """K13c: see :func:`exact_demote_ema_plain`."""
     if grid_vals.is_cuda:
         return kernels.exact_demote_ema(
             grid_vals, occ_c.contiguous(), cell_census.contiguous(), flags, prev_sure, lsz,
-            ball_taps(radius), int(math.floor(radius)), min_sure, w1, score, thr_new)
+            ball_taps(radius), int(math.floor(radius)), min_sure, w1, score, thr_new, window)
     if grid_vals.device.type != "cpu":
         raise ValueError(f"exact demotion EMA: unsupported device {grid_vals.device}")
     return exact_demote_ema_plain(grid_vals, occ_c, cell_census, flags, prev_sure, lsz, radius,
-                                  min_sure, w1, score, thr_new)
+                                  min_sure, w1, score, thr_new, window)
 
 
 def run_sepclusters_exact(
@@ -271,11 +342,13 @@ def run_sepclusters_exact(
     its_diff: float,
     prev_sure: Tensor,
     max_label_iters: int = 128,
+    ops=DENSE,
 ) -> SepClustersOut:
     """Reference-exact separated-background maintenance (vofod_tpu
     ``run_sepclusters_exact``; see the module docstring).  The carried
     ``safe`` means "member of a sure coarse cluster" in this mode, so the
-    previous one is not read."""
+    previous one is not read.  ``ops``: the grid provider; on the
+    grid-sharded step the grids are a shard's slab."""
     max_dist_idx = cfg.sepclusters_max_bg_distance / cfg.voxel_size
     mv = math.ceil(max_dist_idx)  # max_voxel_dist (ref :1143)
     lsz = max(mv - 1, 1)  # ref :1162 (PCL breaks at 0)
@@ -283,18 +356,27 @@ def run_sepclusters_exact(
     sure = grid_vals > dyn.thr_sure_obstacles
     counts_c = pool_sum_coarse(bg.to(torch.int32), lsz)
     if cfg.compat_counted_indexing:
-        sure_c = quirk_sure_counts(bg, sure, lsz)
+        if ops.is_sharded:
+            sure_c = quirk_sure_counts_sharded(bg, sure, lsz, ops.comm)
+        else:
+            sure_c = quirk_sure_counts(bg, sure, lsz)
     else:
         sure_c = pool_sum_coarse((bg & sure).to(torch.int32), lsz)
     occ_c = counts_c > 0
     # coarse cells cluster at tolerance max_voxel_dist on cell centres lsz
     # apart (ref :1171): adjacency radius mv / lsz
-    labels, converged, n_sweeps = label_components(occ_c, mv / lsz, max_label_iters)
+    labels, converged, n_sweeps = ops.label_components(occ_c, mv / lsz, max_label_iters)
     min_sure = _f32(dyn.sepclusters_min_sure_points)
-    cell_census, flags = label_census(labels, sure_c, occ_c, occ_c.numel(), min_sure)
+    ncz = occ_c.shape[0] * (ops.n if ops.is_sharded else 1)
+    cell_census, flags = ops.label_census(labels, sure_c, occ_c,
+                                          ncz * occ_c.shape[1] * occ_c.shape[2], min_sure)
     w1, _ = demote_weights(its_diff, dyn.score_ray)  # ref :1242-1244
+    # the demotion ball reaches ceil(floor(r) / lsz) coarse rows past the slab
+    (occ_h, census_h), win = ops.halo_window((occ_c, cell_census), (False, 0),
+                                             -(-int(math.floor(max_dist_idx)) // lsz), ncz)
+    window = None if win is None else (win[2] * lsz, win[1], ncz)
     new_vals, safe, sure_sufficient = exact_demote_ema(
-        grid_vals, occ_c, cell_census, flags, prev_sure, lsz, max_dist_idx, min_sure, w1,
-        _f32(dyn.score_ray), _f32(dyn.thr_new_obstacles))
+        grid_vals, occ_h, census_h, flags, prev_sure, lsz, max_dist_idx, min_sure, w1,
+        _f32(dyn.score_ray), _f32(dyn.thr_new_obstacles), window)
     return SepClustersOut(grid=new_vals, safe=safe, sure_bg_sufficient=sure_sufficient,
                           converged=converged, label_sweeps=n_sweeps)

@@ -46,7 +46,7 @@ from torch.profiler import record_function
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, rotate, se3_apply
 from vofod_tpu_torch.ops.raycast import (
-    RayEma, gate_faces, make_angular_gate, ray_ema_grid_, ray_ema_plain, raycast_dda, row_table)
+    RayEma, gate_faces, make_angular_gate, ray_ema_plain, row_table)
 from vofod_tpu_torch.parallel.gridops import DENSE
 from vofod_tpu_torch.pipeline.background import split_and_update
 from vofod_tpu_torch.pipeline.classify import classify
@@ -146,8 +146,9 @@ def make_step_fn(
     default sepclusters mode, as in the JAX step; compat_rangefinder_validity
     acts in the node only).
     ops: the dense-grid provider (parallel/gridops.py); the grid-sharded
-      step passes its ZShardOps through parallel/grid_step.py, which
-      refuses the modes that have no sharded form yet.
+      step passes its ZShardOps through parallel/grid_step.py; the modes
+      with no sharded form yet (prebinned, dynamic radii, the sequential
+      explore) are refused.
 
     The returned ``step(state, scan, dyn, stage_hook=None)`` calls
     ``stage_hook(name)`` where each routine starts ("cnc", "raycasting",
@@ -208,8 +209,9 @@ def make_step_fn(
             r = scan.ranges_mm * RANGE_TO_METERS
             rays = exact_rays(cfg, dyn, grid, lut_dirs, lut_offs, mask_dev, r, scan.intensity,
                               pose)
-            raylen = raycast_dda(grid, *rays, cfg.raycast_max_distance_bound)
-            return ray_ema_grid_(vals, occupied, raylen, ray_ema(cfg, dyn, float(raycast_every)))
+            return ops.raycast_dda_update_(grid, vals, occupied, *rays,
+                                           cfg.raycast_max_distance_bound,
+                                           ray_ema(cfg, dyn, float(raycast_every)))
         rot = pose[:3, :3]
         faces = None
         if gated:
