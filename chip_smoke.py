@@ -76,7 +76,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (equal to K13c), K15b-6c's slabs (equal to K12's rows, within
    K12_RAYLEN_RTOL of the plain version's sequential sum on the host) and
    the sharded exact raycast with K12's EMA under both rules (equal to the
-   dense one);
+   dense one).  Phase 2-grid-seq: the sequential explore over the 3 shards
+   in two K7s cases (a flagship scan's queries; 256 random queries in 32
+   clusters, boxes overlapping and demotions chaining): K15b-7a's cut of
+   each slab, the psum'd stack (equal to the whole grid's cut), K15b-7b's
+   walk and K15b-7c's write-back of each slab, each bit-equal to its plain
+   version, and the three through ``ZShardOps.explore_sequential`` equal to
+   the dense K7s (grid, connected flags, writes);
 3. replay tests/fixtures/golden_small.npz with the kernels on and check the
    tests/test_golden.py assertions and that the sweep path's thirteen
    kernels launched;
@@ -118,10 +124,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    list (K15b-1/-2, K1, K2, K15b-6a/b/c, K12's EMA, K13c on every scan; the
    dense K12 and K13a/b never), label sweeps and capped scans, and phase
    4-grid-transpose, the sweep path with ``zcone_mode="transpose"`` (K15b-4b
-   on every scan, K15b-4a never; all_to_all copies per scan);
+   on every scan, K15b-4a never; all_to_all copies per scan).  Then the
+   grid step's last three modes, each beside its dense node: phase
+   4-grid-prebinned (the host-binned scan, each shard uploading its slab:
+   K15a once a shard, K3 never; host bin p50/p95, the slab uploads' ms),
+   4-grid-dynamic (the dynamic radii's schedule on both, K14 launched, no
+   kernel rebuild; p50 per segment) and 4-grid-sequential (the exact path
+   with the sequential explore: K15b-7a/b/c once a shard, K7s, K7, K8 and
+   the fold never; explore queries, demotion writes, copies by kind);
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
    prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
-   grid-sharded exact),
+   grid-sharded exact, grid-sharded sequential),
    each from a fresh
    node after the same 6 warm-up scans: device time per stage (the step's
    ``vofod.*`` ranges), the top device ops, the device ops (kernels and
@@ -134,7 +147,7 @@ The line before the last is the per-kernel JSON record (launches from the
 path that runs each kernel: the sweep path, the prebinned path for K15a,
 the dynamic-radii path for K14, the sequential path for K7s, the
 grid-sharded paths for K15b (the transposed one for K15b-4b, the exact one
-for K15b-6a/b/c), else the exact path; bound_ms from the bytes
+for K15b-6a/b/c, the sequential one for K15b-7a/b/c), else the exact path; bound_ms from the bytes
 and operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -167,8 +180,9 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
     SENTINEL, label_census, label_census_plain, label_components, label_components_plain, sweeps,
     sweeps_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
-    demote_floating, demote_floating_plain, explore, explore_plain, explore_sequential_,
-    explore_sequential_plain)
+    demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
+    explore_cut_plain, explore_plain, explore_sequential_, explore_sequential_plain,
+    explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, shell_pool,
     shell_taps, tap_pool_plain)
@@ -188,7 +202,7 @@ from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
     frontend_bin, frontend_bin_plain, run_frontend, unpack, unpack_plain)
-from vofod_tpu_torch.pipeline.state import ScanInput, VoFODState  # noqa: E402
+from vofod_tpu_torch.pipeline.state import PrebinnedScan, ScanInput, VoFODState  # noqa: E402
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD, _pack, _unpack  # noqa: E402
 from vofod_tpu_torch.io.staging import HostStaging  # noqa: E402
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
@@ -291,6 +305,11 @@ KERNEL_INFO = {
     "quirk_ranks": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:243"),
     "quirk_query": ("vofod_tpu_torch/csrc/census.cu", "vofod_tpu/pipeline/sepclusters.py:243"),
     "dda_slab": ("vofod_tpu_torch/csrc/dda.cu", "vofod_tpu/parallel/gridops.py:600"),
+    # K7s under ZShardOps: the per-query sharded explore and demotion
+    "explore_cut": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/parallel/gridops.py:532"),
+    "explore_seq_stack": ("vofod_tpu_torch/csrc/explore.cu",
+                          "vofod_tpu/pipeline/classify.py:211"),
+    "demote_direct": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/parallel/gridops.py:548"),
 }
 # the grid-sharded step: shards of the flagship grid (51 = 3 x 17 planes),
 # all on the one card, and the kernels its path adds
@@ -302,6 +321,10 @@ GRID_EXACT_KERNELS = ("halo_exchange", "halo_fold_min", "ball_pool", "propagate_
                       "census_scatter", "census_read", "quirk_columns", "quirk_ranks",
                       "quirk_query", "dda_slab", "ray_ema", "exact_demote_ema")
 GRID_TRANSPOSE_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_zt")
+# the reference-exact grid path with the sequential explore: K15b-7a/b/c in
+# place of K7s (and of the sharded K7 / K8 and their fold)
+GRID_SEQ_KERNELS = tuple(k for k in GRID_EXACT_KERNELS if k != "halo_fold_min") + (
+    "explore_cut", "explore_seq_stack", "demote_direct")
 
 
 def say(phase: str, **kw) -> None:
@@ -1434,22 +1457,25 @@ def _seq_queries(grid: GridSpec, ids: torch.Tensor, cluster: torch.Tensor, valid
     return qx, qy, qz, qvalid, qlabels, qids, qslot, mm
 
 
-def phase2_sequential(lut) -> list[dict]:
-    """K7s against its plain version (a host loop over K7's and K8's plain
-    versions) on the card, bit-equal on the grid, the clusters' connected
-    flags and the write count: (a) the classify inputs of a flagship
+_SEQ_CASES: dict = {}
+
+
+def _seq_cases(lut) -> tuple[dict, dict]:
+    """The sequential explore's cases on the card, made once: ({name:
+    (grid, query table)}, {the sequential node, the scan's index in the
+    cycle, its query count}): (a) the classify inputs of a flagship
     sequential-explore scan with valid queries, (b) the adversarial scene of
-    tests/test_sequential_demotion.py stamped into the flagship grid
-    (floating, every carved cell demoted), (c) 256 valid queries over a
-    random field in 32 clusters, (d) the same under query overflow, (e) no
-    valid query."""
+    tests/test_sequential_demotion.py stamped into the flagship grid, (c) 256
+    valid queries over a random field in 32 clusters, (d) the same under
+    query overflow, (e) no valid query."""
+    if _SEQ_CASES:
+        return _SEQ_CASES["runs"], _SEQ_CASES["info"]
     dev = torch.device("cuda")
     cfg, dyn = sequential_config(), DynParams()
     grid = GridSpec.from_config(cfg)
-    S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
+    K, Q = cfg.max_clusters, cfg.max_queries
     thr_f, thr_g = dyn.thr_frontiers, dyn.thr_new_obstacles
     no, yes = (torch.tensor(v, device=dev) for v in (False, True))
-    cases, results = {}, {}
 
     # (a) a flagship scan of the sequential node with valid queries: its
     # classify inputs rebuilt from the state before it (frontend, split and
@@ -1508,6 +1534,28 @@ def phase2_sequential(lut) -> list[dict]:
     runs = {"(a) flagship scan": (scan_base, scan_q), "(b) adversarial scene": (vals_b, scene_q),
             "(c) 256 queries, 32 clusters": (field, (*rnd, no)),
             "(d) query overflow": (field, (*rnd, yes)), "(e) no valid query": (field, (*none, no))}
+    _SEQ_CASES.update(runs=runs, info=dict(node=node, scan_index=k, qtotal=qtotal))
+    return runs, _SEQ_CASES["info"]
+
+
+def phase2_sequential(lut) -> list[dict]:
+    """K7s against its plain version (a host loop over K7's and K8's plain
+    versions) on the card, bit-equal on the grid, the clusters' connected
+    flags and the write count, in the five cases of :func:`_seq_cases`: (b)
+    floating, every carved cell demoted; (c) both verdicts; (d) and (e)
+    nothing written."""
+    cfg, dyn = sequential_config(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
+    thr_f, thr_g = dyn.thr_frontiers, dyn.thr_new_obstacles
+    no = torch.tensor(False, device="cuda")
+    runs, info = _seq_cases(lut)
+    node, k, qtotal = info["node"], info["scan_index"], info["qtotal"]
+    scan_base, scan_q = runs["(a) flagship scan"]
+    field, c_q = runs["(c) 256 queries, 32 clusters"]
+    rnd = c_q[:-1]
+    bx, by, bz = SEQ_BASE
+    cases, results = {}, {}
     for name, (base, q) in runs.items():
         kg, kc, kn = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, S)
         pg, pc, pn = explore_sequential_plain(grid, base.clone(), *q, thr_f, thr_g, S)
@@ -2516,12 +2564,149 @@ def phase2_grid_exact(lut) -> list[dict]:
     return results
 
 
+def _voxels_read(grid: GridSpec, qx, qy, qz, qvalid, S: int, z0: int, nzl: int) -> int:
+    """The grid voxels the valid queries' submaps hold inside the z rows
+    [z0, z0 + nzl) (what K15b-7a reads)."""
+    half = S // 2
+
+    def span(c, lo, hi):
+        a = torch.clamp(c.long() - half, min=lo)
+        b = torch.clamp(c.long() - half + S, max=hi)
+        return torch.clamp(b - a, min=0)
+
+    n = span(qz, z0, z0 + nzl) * span(qy, 0, grid.ny) * span(qx, 0, grid.nx)
+    return int((n * qvalid).sum())
+
+
+def phase2_grid_seq(lut) -> list[dict]:
+    """The sequential explore over z shards (K15b-7a/b/c) with 3 shards of
+    17 planes of the flagship grid on the card, in two K7s cases of
+    :func:`_seq_cases`: (a) a flagship scan's queries and (c) 256 random
+    queries over 32 clusters, where boxes overlap and demotions chain.
+    K15b-7a's cut of each slab bit-equal to its plain version, and the
+    psum'd stack equal to the plain cut of the whole grid; K15b-7b's walk
+    bit-equal to its plain version on that stack; K15b-7c on each slab
+    bit-equal to its plain version; and the three through
+    ``ZShardOps.explore_sequential`` bit-equal to the dense K7s on the same
+    grid: the grid, cluster_connected and n_writes.  CUDA-event ms of each
+    kernel and its plain version, on case (a) (case (c) beside it)."""
+    dev = torch.device("cuda")
+    cfg, dyn = sequential_config(), DynParams()
+    grid = GridSpec.from_config(cfg)
+    S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
+    thr_f, thr_g = dyn.thr_frontiers, dyn.thr_new_obstacles
+    n, nzl = GRID_SHARDS, grid.nz // GRID_SHARDS
+    sl = [slice(i * nzl, (i + 1) * nzl) for i in range(n)]
+    comm = LocalComm(n, [dev])
+    ops = ZShardOps(comm, n)
+    runs, _ = _seq_cases(lut)
+    cases, timed = {}, {}
+    for name in ("(a) flagship scan", "(c) 256 queries, 32 clusters"):
+        tag = name[:3]
+        base, q = runs[name]
+        qx, qy, qz, qvalid, qlabels, qids, qslot, mm, ov = q
+
+        def cut_shard(rank):
+            slab = base[sl[rank]].contiguous()
+            k = kernels.explore_cut(slab, qx, qy, qz, qvalid, thr_f, thr_g, S, rank * nzl)
+            _equal((k,), (explore_cut_plain(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
+                                            rank * nzl),), f"K15b-7a{tag}[{rank}]")
+            return comm.psum(k)
+
+        whole = explore_cut_plain(base, qx, qy, qz, qvalid, thr_f, thr_g, S)
+        for rank, st in enumerate(comm.run(cut_shard)):
+            _equal((st,), (whole,), f"K15b-7a{tag}.stack[{rank}]")
+        walk = kernels.explore_seq_stack(whole, grid.shape, qx, qy, qz, qvalid, qlabels, qids,
+                                         qslot, mm, ov, 96)
+        _equal(walk, explore_sequential_stack_plain(grid, whole, *q),
+               " ".join(f"K15b-7b{tag}.{f}" for f in ("connected", "reached", "corners",
+                                                       "demoted")))
+        conn, reached, corners, demoted = walk
+        for rank in range(n):
+            args = (reached, corners, demoted, thr_f, (rank * nzl, grid.nz))
+            k = demote_direct(base[sl[rank]].clone(), *args)
+            _equal(k, demote_direct_plain(base[sl[rank]].clone(), *args),
+                   f"K15b-7c{tag}.grid[{rank}] K15b-7c{tag}.n_writes[{rank}]")
+        dg, dc, dn = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, S)
+        outs = comm.run(lambda rank: ops.explore_sequential(grid, base[sl[rank]].clone(), *q,
+                                                            thr_f, thr_g, S))
+        for rank, (_, c, w) in enumerate(outs):
+            _equal((c, w), (dc, dn), f"K15b-7{tag}.connected[{rank}] K15b-7{tag}.n_writes[{rank}]")
+        _equal((torch.cat([o[0] for o in outs]),), (dg,), f"K15b-7{tag}.grid")
+        # boxes that overlap an earlier failed query's (what the walk's
+        # clearing reads)
+        gz = corners.long()
+        idx = torch.nonzero(demoted)[:, 0]
+        close = ((gz[:, None, :] - gz[idx][None, :, :]).abs() < S).all(-1)
+        close &= torch.arange(Q, device=dev)[:, None] != idx[None, :]
+        overlap = close.any(-1) & qvalid
+        cases[name] = dict(valid_queries=int(qvalid.sum()), failed_queries=int(demoted.sum()),
+                           clusters_connected=int(dc.sum()), n_writes=int(dn),
+                           queries_overlapping_a_failed_box=int(overlap.sum()))
+        mid = 1  # the middle shard's slab
+        z0 = mid * nzl
+        slab = base[sl[mid]].contiguous()
+        win = (z0, grid.nz)
+        slab_writes = int(demote_direct_plain(slab.clone(), reached, corners, demoted, thr_f,
+                                              win)[1])
+        timed[name] = dict(
+            cut=(cuda_ms(lambda: kernels.explore_cut(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
+                                                     z0)),
+                 cuda_ms(lambda: explore_cut_plain(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
+                                                   z0), reps=3)),
+            walk=(cuda_ms(lambda: kernels.explore_seq_stack(whole, grid.shape, *q, 96)),
+                  cuda_ms(lambda: explore_sequential_stack_plain(grid, whole, *q), reps=1)),
+            demote=(_inplace_ms(lambda v: demote_direct(v, reached, corners, demoted, thr_f,
+                                                        win), slab),
+                    _inplace_ms(lambda v: demote_direct_plain(v, reached, corners, demoted,
+                                                              thr_f, win), slab, reps=3)),
+            voxels_read=_voxels_read(grid, qx, qy, qz, qvalid, S, z0, nzl),
+            slab_writes=slab_writes)
+    c_ = cases["(c) 256 queries, 32 clusters"]
+    if not (c_["n_writes"] > 0 and 0 < c_["clusters_connected"] < K
+            and c_["queries_overlapping_a_failed_box"] > 0):
+        raise AssertionError(f"K15b-7 case (c) does not chain demotions: {c_}")
+    a, ta, tc = (cases["(a) flagship scan"], timed["(a) flagship scan"],
+                 timed["(c) 256 queries, 32 clusters"])
+    word = 4 if S <= 32 else 8
+    rows = Q * S * S * word
+    qtab = Q * (6 * 4 + 1 + K)
+    shapes = (f"Q={Q}, K={K}, S={S}, {n} shards of {nzl} planes; ms/plain_ms: case (a) "
+              f"({a['valid_queries']} valid queries, {a['failed_queries']} failed), the middle "
+              f"shard's slab; synthetic_ms: case (c) ({c_['valid_queries']} valid, "
+              f"{c_['failed_queries']} failed, {c_['n_writes']} writes)")
+    common = dict(max_abs_err=0.0, library_ms=None, cases=cases, shapes=shapes)
+    out = [
+        # the slab voxels of the submaps read once, the stack written once
+        dict(name="explore_cut", ms=ta["cut"][0], plain_ms=ta["cut"][1],
+             synthetic_ms=tc["cut"][0], bytes=ta["voxels_read"] * 4 + 2 * rows + qtab,
+             ops=ta["voxels_read"] * 3, **common),
+        # each valid query's stack rows read once, the reached rows written
+        # once; K7s's op count
+        dict(name="explore_seq_stack", ms=ta["walk"][0], plain_ms=ta["walk"][1],
+             synthetic_ms=tc["walk"][0],
+             bytes=a["valid_queries"] * 2 * S * S * word + rows + Q * 14 + qtab + K,
+             ops=a["valid_queries"] * S**3 * 7 + Q * Q, **common),
+        # the failed queries' rows read, each written voxel read and written
+        dict(name="demote_direct", ms=ta["demote"][0], plain_ms=ta["demote"][1],
+             synthetic_ms=tc["demote"][0],
+             bytes=a["failed_queries"] * S * S * word + ta["slab_writes"] * 8 + Q * 13 + 4,
+             ops=ta["slab_writes"], **common),
+    ]
+    for r_ in out:
+        say("2-grid-seq", **r_)
+    return out
+
+
 class GridDriver:
     """The grid-sharded step (3 shards on the card) driven as the node drives
-    the dense step: the scan staged in pinned memory and uploaded once, the
-    step, one packed readback of shard 0's diagnostics and detections.
-    ``cfg`` and ``step_kw``: the step's config and make_grid_sharded_step
-    options (default the flagship sweep path)."""
+    the dense step: the scan staged in pinned memory, the step, one packed
+    readback of shard 0's diagnostics and detections.  The raw scan is
+    uploaded once; a prebinned one (``frontend_mode="prebinned"``) is binned
+    on the host into a staging set, each shard uploads its slab, and the set
+    is guarded by the shards' copy events.  ``cfg`` and ``step_kw``: the
+    step's config and make_grid_sharded_step options (default the flagship
+    sweep path)."""
 
     def __init__(self, lut, state: VoFODState, cfg: VoFODConfig | None = None, **step_kw):
         self.cfg, self.dyn = cfg or VoFODConfig(), DynParams()
@@ -2529,15 +2714,34 @@ class GridDriver:
         self.step = make_grid_sharded_step(self.cfg, lut, self.comm, **step_kw)
         self.states = shard_state(state, self.comm)
         n = self.cfg.sensor.n_points
-        self.staging = HostStaging(((n, torch.float32),), "cuda")
-        self.ones = torch.ones(n, dtype=torch.float32, device="cuda")
+        self.binner = None
+        self.bin_ms = []
+        if step_kw.get("frontend_mode") == "prebinned":
+            self.binner = HostBinner(self.cfg, lut)
+            self.staging = HostStaging(((self.binner.n_voxels, torch.uint8), (n, torch.uint8),
+                                        (2, torch.int32)), "cuda")
+        else:
+            self.staging = HostStaging(((n, torch.float32),), "cuda")
+            self.ones = torch.ones(n, dtype=torch.float32, device="cuda")
 
     def process_scan_async(self, r, pose):
-        i, (buf,) = self.staging.next()
-        np.copyto(buf, np.asarray(r).reshape(-1), casting="unsafe")
-        (ranges,) = self.staging.upload(i)
-        scan = ScanInput(ranges_mm=ranges, intensity=self.ones, pose=np.asarray(pose, np.float32))
-        self.states, out = self.step(self.states, scan, self.dyn)
+        pose = np.asarray(pose, np.float32)
+        i, bufs = self.staging.next()
+        if self.binner is None:
+            np.copyto(bufs[0], np.asarray(r).reshape(-1), casting="unsafe")
+            (ranges,) = self.staging.upload(i)
+            scan = ScanInput(ranges_mm=ranges, intensity=self.ones, pose=pose)
+            self.states, out = self.step(self.states, scan, self.dyn)
+            return out
+        t0 = time.perf_counter()
+        self.binner.bin(r, pose, min_intensity=float(self.dyn.raycast_min_intensity), out=bufs)
+        self.bin_ms.append((time.perf_counter() - t0) * 1e3)
+        packed, active, stats = self.staging.sets[i]
+        scan = PrebinnedScan(packed=packed.view(self.binner.shape), active=active, pose=pose,
+                             stats=stats)
+        events = []
+        self.states, out = self.step(self.states, scan, self.dyn, upload_events=events)
+        self.staging.guard(i, events)
         return out
 
     @staticmethod
@@ -2554,45 +2758,78 @@ class GridDriver:
         return self.fetch(self.process_scan_async(r, pose))
 
 
+def dynamic_config() -> VoFODConfig:
+    """The dynamic-radii configuration (bounds 2.0 / 2.0 m)."""
+    return VoFODConfig(dynamic_radii=True, ground_points_max_distance_bound=2.0,
+                       sepclusters_max_bg_distance_bound=2.0)
+
+
+_EXACT_NEVER = ("dda", "label_census", "quirk_counts", "cone_sweep_lat", "cone_sweep_z",
+                "cone_sweep_zt")
 # the grid-sharded paths: (config, node options, make_grid_sharded_step
-# options, the kernels each scan must launch, kernels it must never launch)
+# options, the kernels each scan must launch, kernels it must never launch,
+# kernels it must launch exactly so many times a scan)
 GRID_PATHS = {
-    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt",)),
+    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt",), {}),
     "exact": (exact_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
-              GRID_EXACT_KERNELS, ("dda", "label_census", "quirk_counts", "cone_sweep_lat",
-                                   "cone_sweep_z", "cone_sweep_zt")),
+              GRID_EXACT_KERNELS, _EXACT_NEVER, {}),
     "transpose": (VoFODConfig, {}, dict(zcone_mode="transpose"), GRID_TRANSPOSE_KERNELS,
-                  ("cone_sweep_z",)),
+                  ("cone_sweep_z",), {}),
+    "prebinned": (VoFODConfig, dict(frontend_mode="prebinned"), dict(frontend_mode="prebinned"),
+                  GRID_KERNELS + ("unpack",), ("frontend_bin", "cone_sweep_zt"),
+                  {"unpack": GRID_SHARDS}),
+    "dynamic": (dynamic_config, {}, {}, GRID_KERNELS + ("shell_pool", "propagate_sweep"),
+                ("ball_pool", "cone_sweep_zt"), {}),
+    "sequential": (sequential_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
+                   GRID_SEQ_KERNELS, _EXACT_NEVER + ("halo_fold_min", "explore_seq",
+                                                     "explore_bfs", "demote"),
+                   {k: GRID_SHARDS for k in ("explore_cut", "explore_seq_stack",
+                                             "demote_direct")}),
 }
+GRID_PHASES = {"sweep": "4-grid", "exact": "4-grid-exact", "transpose": "4-grid-transpose",
+               "prebinned": "4-grid-prebinned", "dynamic": "4-grid-dynamic",
+               "sequential": "4-grid-sequential"}
 
 
 def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
     """A grid-sharded path at the flagship size: 36 scans of the cycle
     through 3 shards of 17 planes on the card, each beside a dense node of
     the same path on the same scan.  Paths: "sweep" (phase 4-grid), "exact"
-    (4-grid-exact: the reference-exact config and raycast) and "transpose"
-    (4-grid-transpose: the sweep with the transposed z cones).  Per scan:
-    the gathered grid and safe, the carried scalars and every diagnostic
-    (label sweeps and sep_converged included) bit-equal to the dense node's,
-    detection integers equal and floats within 1e-5 relative (JAX's bound
-    for its sharded step; bit-equal expected), each kernel of the path
-    launched and none of the dense forms it replaces, at most 1 host sync
-    (the readback); step p50/p95 of both, launches and collective copies
-    per scan.  Returns (launches summed over the scans, grid step p50)."""
-    make_cfg, node_kw, step_kw, path_kernels, never = GRID_PATHS[path]
+    (4-grid-exact: the reference-exact config and raycast), "transpose"
+    (4-grid-transpose: the sweep with the transposed z cones), "prebinned"
+    (4-grid-prebinned: the host-binned scan, each shard uploading its slab;
+    host bin p50 and the slab uploads' ms), "dynamic" (4-grid-dynamic: the
+    radii of DYN_SEGMENTS, changed every 12 scans on both; p50 per segment,
+    no kernel rebuild) and "sequential" (4-grid-sequential: the exact path
+    with the sequential explore; explore queries and demotion writes).  Per
+    scan: the gathered grid and safe, the carried scalars and every
+    diagnostic (label sweeps and sep_converged included) bit-equal to the
+    dense node's, detection integers equal and floats within 1e-5 relative
+    (JAX's bound for its sharded step; bit-equal expected), each kernel of
+    the path launched (some exactly once a shard) and none of the dense
+    forms it replaces, at most 1 host sync (the readback); step p50/p95 of
+    both, launches and collective copies per scan.  Returns (launches
+    summed over the scans, grid step p50)."""
+    make_cfg, node_kw, step_kw, path_kernels, never, exactly = GRID_PATHS[path]
     cfg = make_cfg()
     node = VoFOD(cfg, DynParams(), NodeOptions(**node_kw), lut, device="cuda")
     node.load_apriori_map(apriori_ground())
     drv = GridDriver(lut, node.state, cfg, **step_kw)
     scans = scan_cycle(lut, N_SCANS)
+    seg_len = N_SCANS // len(DYN_SEGMENTS)
+    lib, sos = kernels.load(), sorted(kernels._BUILD_DIR.glob("*.so"))
     torch.cuda.synchronize()
     ms = {"dense": [], "grid": []}
     syncs, per_scan, copies, rel_err, n_dets = [], [], [], 0.0, 0
-    sweeps, capped = [], []
+    sweeps, capped, queries, demoted = [], [], [], []
     bit_equal_dets = True
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for k, (r, p) in enumerate(scans):
+            if path == "dynamic" and k % seg_len == 0:
+                g, sep = DYN_SEGMENTS[k // seg_len]
+                node.update_params(ground_points_max_distance=g, sepclusters_max_bg_distance=sep)
+                drv.dyn = node.dyn
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             pending = node.process_scan_async(r, None, p)
@@ -2625,6 +2862,8 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
             assert not missing, f"{path} grid scan {k}: kernels not launched: {missing}"
             foreign = {g: launches[g] for g in never if launches[g]}
             assert not foreign, f"{path} grid scan {k}: other paths' kernels launched: {foreign}"
+            off = {g: launches[g] for g, want in exactly.items() if launches[g] != want}
+            assert not off, f"{path} grid scan {k}: launches {off}, expected {exactly}"
             g = gather_state(drv.states)
             for f in ("grid", "safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
                 if not torch.equal(getattr(g, f), getattr(node.state, f)):
@@ -2634,6 +2873,8 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
                     raise AssertionError(f"{path} grid scan {k}: diag.{f} differs from dense")
             sweeps.append(int(diag["sep_sweeps"]))
             capped.append(not bool(diag["sep_converged"]))
+            queries.append(int(diag["n_queries"]))
+            demoted.append(int(diag["n_demoted"]))
             for f, v in dets.items():
                 want = getattr(dense_out.detections, f).cpu().numpy()
                 if v.dtype.kind == "f":
@@ -2664,11 +2905,30 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
         collective_copies_per_scan_by_kind={c: float(np.mean([s.get(c, 0) for s in copies]))
                                             for c in kinds if c != "total"},
     )
-    if path == "exact":
+    if path in ("exact", "sequential"):
         out.update(label_sweeps_per_scan=sweeps, capped_scans=int(sum(capped)),
                    capped_scan_indices=[i for i, c in enumerate(capped) if c])
-    say({"sweep": "4-grid", "exact": "4-grid-exact", "transpose": "4-grid-transpose"}[path],
-        **out)
+    if path == "sequential":
+        out.update(explore_queries_per_scan=queries, demotion_writes_per_scan=demoted,
+                   explore_queries_total=sum(queries), demotion_writes_total=sum(demoted))
+    if path == "prebinned":
+        packed = drv.staging.sets[0][0].view(drv.binner.shape)
+        nzl = cfg.grid_shape[0] // GRID_SHARDS
+        out.update(host_bin_ms_p50=float(np.percentile(drv.bin_ms, 50)),
+                   host_bin_ms_p95=float(np.percentile(drv.bin_ms, 95)),
+                   # the three slabs' copies from pinned memory, one stream
+                   slab_upload_ms=cuda_ms(lambda: [
+                       packed[i * nzl:(i + 1) * nzl].to("cuda", non_blocking=True)
+                       for i in range(GRID_SHARDS)]))
+    if path == "dynamic":
+        rebuilt = kernels.load() is not lib or sorted(kernels._BUILD_DIR.glob("*.so")) != sos
+        assert not rebuilt, "the kernel library was rebuilt when the radii changed"
+        out.update(kernel_rebuilds=0, segments=[dict(
+            ground_points_max_distance=g, sepclusters_max_bg_distance=sep,
+            step_ms_p50={m: float(np.percentile(v[i * seg_len:(i + 1) * seg_len], 50))
+                         for m, v in ms.items()})
+            for i, (g, sep) in enumerate(DYN_SEGMENTS)])
+    say(GRID_PHASES[path], **out)
     return total, out["step_ms_p50"]["grid"]
 
 
@@ -2699,16 +2959,16 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                    label: str | None = None) -> dict:
     """Where the flagship step's device time goes (torch.profiler), on the
     sweep, exact, prebinned, dynamic-radii (at its heaviest radii, 2.0 /
-    1.9 m), sequential-explore, grid-sharded sweep or grid-sharded exact
-    path.  Every path is counted the same way:
+    1.9 m), sequential-explore, grid-sharded sweep, grid-sharded exact or
+    grid-sharded sequential-explore path.  Every path is counted the same way:
     a fresh node, the apriori plane, 6 warm-up scans, then one profiler
     session over ``n`` scans; device ops are counted both from key_averages
     (the earlier count) and event by event."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg, opts = VoFODConfig(), NodeOptions()
-    if path in ("exact", "sequential", "grid-exact"):
-        cfg = sequential_config() if path == "sequential" else exact_config()
+    if path in ("exact", "sequential", "grid-exact", "grid-sequential"):
+        cfg = sequential_config() if path.endswith("sequential") else exact_config()
         opts = NodeOptions(raycast_mode="exact")
     elif path == "prebinned":
         opts = NodeOptions(frontend_mode="prebinned")
@@ -2721,7 +2981,7 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     node.load_apriori_map(apriori_ground())
     if path == "grid":  # the 3-shard step from the same start
         node = GridDriver(lut, node.state)
-    elif path == "grid-exact":
+    elif path in ("grid-exact", "grid-sequential"):
         node = GridDriver(lut, node.state, cfg, raycast_mode="exact")
     scans = scan_cycle(lut, 6 + n)
     for r, p in scans[:6]:
@@ -2766,6 +3026,7 @@ def main() -> int:
     results += phase2_sequential(lut)
     results += phase2_grid(lut)
     results += phase2_grid_exact(lut)
+    results += phase2_grid_seq(lut)
     phase3()
     launches, step_ms_p50 = phase4(lut)
     phase4_raycast_every(lut)
@@ -2778,6 +3039,9 @@ def main() -> int:
     grid_launches, grid_ms_p50 = phase4_grid(lut)
     gx_launches, gx_ms_p50 = phase4_grid(lut, "exact")
     gt_launches, _ = phase4_grid(lut, "transpose")
+    phase4_grid(lut, "prebinned")
+    phase4_grid(lut, "dynamic")
+    gs_launches, gs_ms_p50 = phase4_grid(lut, "sequential")
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
@@ -2785,6 +3049,7 @@ def main() -> int:
     phase5_profile(lut, seq_ms_p50, path="sequential")
     phase5_profile(lut, grid_ms_p50, path="grid")
     phase5_profile(lut, gx_ms_p50, path="grid-exact")
+    phase5_profile(lut, gs_ms_p50, path="grid-sequential")
     # the sweep path once more, in the last profiler session: the same code
     # counted in another session says whether the op count is the session's
     again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")
@@ -2800,6 +3065,8 @@ def main() -> int:
     path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
                      "explore_seq": seq_launches, "cone_sweep_zt": gt_launches,
                      **{g: grid_launches for g in GRID_KERNELS},
+                     **{g: gs_launches for g in ("explore_cut", "explore_seq_stack",
+                                                 "demote_direct")},
                      **{g: gx_launches for g in ("census_scatter", "census_read", "quirk_columns",
                                                  "quirk_ranks", "quirk_query", "dda_slab")}}
     record = []
@@ -2807,8 +3074,8 @@ def main() -> int:
         src, replaces = KERNEL_INFO[r["name"]]
         # launches from the path that runs the kernel: the sweep path, the
         # prebinned (K15a), dynamic-radii (K14), sequential (K7s) and
-        # grid-sharded (K15b: sweep, exact, transposed) paths, else the
-        # exact path
+        # grid-sharded (K15b: sweep, exact, transposed, sequential) paths,
+        # else the exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
              else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S

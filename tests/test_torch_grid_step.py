@@ -26,10 +26,12 @@ its ``sharded_config`` (32 x 33 x 33 grid, explore halo 8):
   n_points) over the detection window, is held to 1 % relative (0.2 % in
   tests/test_torch_step.py; measured 0.37 %); every other diagnostic is
   equal;
-* the configurations the slice does not shard are refused, naming the
-  ROADMAP queue, as is an exact-census leaf that does not divide the shard
-  height, and a process with jax refused runs the sharded sweep step, the
-  sharded exact step and the transposed z cones.
+* a grid that does not split into shards of at least 2 planes is refused,
+  as is an exact-census leaf that does not divide the shard height, and a
+  process with jax refused runs the sharded sweep step, the sharded exact
+  step, the transposed z cones and the prebinned, dynamic-radii and
+  sequential-explore sharded steps (tests/test_torch_grid_modes.py holds
+  those three modes to the dense step).
 """
 
 import dataclasses
@@ -230,18 +232,13 @@ _REFUSED = {
     "shard_height_1": ({}, 32, {}, ValueError, "< 2 planes"),
     "exact_census_leaf": (dict(sepclusters_exact_census=True, sepclusters_max_bg_distance=2.0),
                           8, {}, ValueError, "coarse leaf 3 must divide the shard height 4"),
-    "prebinned": ({}, 8, dict(frontend_mode="prebinned"), NotImplementedError, "ROADMAP"),
-    "dynamic_radii": (dict(dynamic_radii=True, ground_points_max_distance_bound=2.0,
-                           sepclusters_max_bg_distance_bound=2.0), 8, {}, NotImplementedError,
-                      "ROADMAP"),
-    "sequential_explore": (dict(sequential_explore=True), 8, {}, NotImplementedError,
-                           "ROADMAP"),
 }
 
 
 @pytest.mark.parametrize("case", list(_REFUSED))
 def test_refused_configs(scenario, case):
-    """What the slice does not shard raises (never runs the dense form)."""
+    """A grid the shards cannot split, or an exact-census leaf that does not
+    tile a shard, raises."""
     cfg_kw, n, step_kw, exc, match = _REFUSED[case]
     with pytest.raises(exc, match=match):
         make_grid_sharded_step(_cfg(**cfg_kw), scenario[2], LocalComm(n, ["cpu"]), **step_kw)
@@ -263,6 +260,7 @@ _NO_JAX = textwrap.dedent(
     import torch
     import vofod_tpu_torch.parallel
     from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig
+    from vofod_tpu_torch.io.binner import HostBinner
     from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan
     from vofod_tpu_torch.parallel.comm import LocalComm
     from vofod_tpu_torch.parallel.grid_step import (
@@ -297,6 +295,22 @@ _NO_JAX = textwrap.dedent(
     tstep = make_grid_sharded_step(cfg, lut, comm, zcone_mode="transpose")
     tstates, tout = tstep(init_grid_sharded_state(cfg, DynParams(), comm), scan, DynParams())
     assert torch.equal(gather_state(tstates).grid, gather_state(states).grid)
+    # the prebinned ingest on slabs, live-tunable radii, the sequential explore
+    pstep = make_grid_sharded_step(cfg, lut, comm, frontend_mode="prebinned")
+    pscan = HostBinner(cfg, lut).bin(r, pose).to_device("cpu")
+    pstates, _ = pstep(init_grid_sharded_state(cfg, DynParams(), comm), pscan, DynParams())
+    assert torch.equal(gather_state(pstates).grid, gather_state(states).grid)
+    dcfg = VoFODConfig(**{**cfg.__dict__, "dynamic_radii": True,
+                          "ground_points_max_distance_bound": 2.0,
+                          "sepclusters_max_bg_distance_bound": 2.0})
+    dyn = DynParams(ground_points_max_distance=1.0, sepclusters_max_bg_distance=1.5)
+    dstep = make_grid_sharded_step(dcfg, lut, comm)
+    dstates, dout = dstep(init_grid_sharded_state(dcfg, dyn, comm), scan, dyn)
+    assert int(dout.diag.n_occupied) == int(out.diag.n_occupied)
+    scfg = VoFODConfig(**{**cfg.__dict__, "sequential_explore": True})
+    sstep = make_grid_sharded_step(scfg, lut, comm)
+    sstates, sout = sstep(init_grid_sharded_state(scfg, DynParams(), comm), scan, DynParams())
+    assert gather_state(sstates).step == 1
     assert not any(m.split(".")[0] in ("jax", "vofod_tpu") for m in sys.modules)
     print("NO_JAX_OK", int(out.diag.n_occupied))
     """

@@ -145,25 +145,6 @@ def test_stuck_shard_times_out():
     assert time.perf_counter() - t0 < 4.0
 
 
-@pytest.mark.parametrize("flag", ["sequential_explore", "dynamic_radii", "prebinned"])
-def test_step_with_sharded_ops_refuses_unsharded_modes(flag):
-    """A ZShardOps handed to make_step_fn directly refuses what has no
-    sharded form: those stages would run their dense form on a slab."""
-    from vofod_tpu_torch.pipeline.step import make_step_fn
-    from vofod_tpu_torch.sensor import make_lut
-
-    _, cfg = _configs()
-    step_kw = {}
-    if flag == "prebinned":
-        step_kw = dict(frontend_mode="prebinned")
-    else:
-        cfg = VoFODConfig(**{**{f: getattr(cfg, f) for f in ("sensor", "oparea")}, **KW,
-                             flag: True})
-    ops = ZShardOps(LocalComm(2, ["cpu"]), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_step_fn(cfg, make_lut(cfg.sensor), device="cpu", ops=ops, **step_kw)
-
-
 def test_cpu_and_cuda_shards_refused():
     with pytest.raises(ValueError, match="all CUDA or all CPU"):
         LocalComm(2, ["cpu", "cuda"])

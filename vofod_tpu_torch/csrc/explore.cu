@@ -102,47 +102,41 @@ __device__ __forceinline__ float grid_at(const float* grid, size_t i) {
   return kLive ? __ldcg(grid + i) : __ldg(grid + i);
 }
 
-// One query's BFS by the whole block, submap corner (x0, y0, z0).  `grid`
-// holds the z rows [z_lo, z_lo + nz) (the whole grid, or a shard's slab
-// extended by the explore pad); rows outside it read as air.  Returns
-// (the same on every thread) whether the flood's closure touched ground or
-// the reached set the shell at bound - 1; the reached rows are left in
-// `cur`.  Ends on a barrier, so the caller may read every row of `cur`.
+// The band and ground bits of one submap row by one warp, 32 x-lanes per
+// chunk: row (gz, gy) of a grid of (nz, ny, nx) rows whose x runs from x0;
+// a row or voxel outside the grid is certain air (no bit).  The same words
+// on every lane.
 template <typename W, bool kLive>
-__device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, int x0, int y0,
-                          int z0, int bound, float thr_f, float thr_g, int S, int max_iters,
-                          W* expandable, W* ground, W*& cur, W*& nxt) {
+__device__ __forceinline__ void submap_row_bits(const float* grid, int nz, int ny, int nx,
+                                                int gz, int gy, int x0, int S, float thr_f,
+                                                float thr_g, W& unk, W& gnd) {
+  const int lane = threadIdx.x & 31;
+  const bool row_in = gz >= 0 && gz < nz && gy >= 0 && gy < ny;
+  unk = 0;
+  gnd = 0;
+  for (int xc = 0; xc < S; xc += 32) {
+    const int x = xc + lane, gx = x0 + x;
+    float v = -1e30f;  // outside the grid: certain air
+    if (x < S && row_in && gx >= 0 && gx < nx)
+      v = grid_at<kLive>(grid, ((size_t)gz * ny + gy) * nx + gx);
+    const unsigned bu = __ballot_sync(0xffffffffu, x < S && v > thr_f && v <= thr_g);
+    const unsigned bg = __ballot_sync(0xffffffffu, x < S && v > thr_g);
+    unk |= W(bu) << xc;
+    gnd |= W(bg) << xc;
+  }
+}
+
+// The BFS proper, by the whole block, on the packed rows a caller filled
+// (expandable = unknown & ball, ground, cur = the expandable centre bit)
+// and synced: Jacobi sweeps, then whether the flood's closure touched
+// ground or the reached set the shell at bound - 1 (the same on every
+// thread).  The reached rows are left in `cur`.  Ends on a barrier, so the
+// caller may read every row of `cur`.
+template <typename W>
+__device__ bool bfs_sweeps(int bound, int S, int max_iters, const W* expandable, const W* ground,
+                           W*& cur, W*& nxt) {
   const int half = S / 2, rows = S * S;
   const W full = low_bits<W>(S);
-
-  // submap -> packed rows: one warp per row, 32 x-lanes per chunk
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += nwarps) {
-    const int z = r / S, y = r - (r / S) * S;
-    const int gz = z0 + z - z_lo, gy = y0 + y;  // gz: the buffer's row
-    const bool row_in = gz >= 0 && gz < nz && gy >= 0 && gy < ny;
-    W unk = 0, gnd = 0;
-    for (int xc = 0; xc < S; xc += 32) {
-      const int x = xc + lane, gx = x0 + x;
-      float v = -1e30f;  // outside the grid: certain air
-      if (x < S && row_in && gx >= 0 && gx < nx)
-        v = grid_at<kLive>(grid, ((size_t)gz * ny + gy) * nx + gx);
-      const unsigned bu = __ballot_sync(0xffffffffu, x < S && v > thr_f && v <= thr_g);
-      const unsigned bg = __ballot_sync(0xffffffffu, x < S && v > thr_g);
-      unk |= W(bu) << xc;
-      gnd |= W(bg) << xc;
-    }
-    if (lane == 0) {
-      const int dzy = abs(z - half) + abs(y - half);
-      const W e = unk & ball_bits<W>(dzy, bound, half);
-      expandable[r] = e;
-      ground[r] = gnd;
-      cur[r] = (z == half && y == half) ? (e & (W(1) << half)) : W(0);
-    }
-  }
-  __syncthreads();
-
   // Jacobi sweeps: nxt = cur | (expandable & dil6(cur)) until no change
   int it = 0;
   bool changed = true;
@@ -173,6 +167,34 @@ __device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, i
     hit |= (cur[r] & shell_bits<W>(dzy, bound - 1, half)) != 0;
   }
   return __syncthreads_or(hit) != 0;
+}
+
+// One query's BFS by the whole block, submap corner (x0, y0, z0).  `grid`
+// holds the z rows [z_lo, z_lo + nz) (the whole grid, or a shard's slab
+// extended by the explore pad); rows outside it read as air.  Returns
+// bfs_sweeps' verdict; the reached rows are left in `cur`.
+template <typename W, bool kLive>
+__device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, int x0, int y0,
+                          int z0, int bound, float thr_f, float thr_g, int S, int max_iters,
+                          W* expandable, W* ground, W*& cur, W*& nxt) {
+  const int half = S / 2, rows = S * S;
+  // submap -> packed rows: one warp per row
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += nwarps) {
+    const int z = r / S, y = r - (r / S) * S;
+    W unk, gnd;
+    submap_row_bits<W, kLive>(grid, nz, ny, nx, z0 + z - z_lo, y0 + y, x0, S, thr_f, thr_g,
+                              unk, gnd);
+    if ((threadIdx.x & 31) == 0) {
+      const int dzy = abs(z - half) + abs(y - half);
+      const W e = unk & ball_bits<W>(dzy, bound, half);
+      expandable[r] = e;
+      ground[r] = gnd;
+      cur[r] = (z == half && y == half) ? (e & (W(1) << half)) : W(0);
+    }
+  }
+  __syncthreads();
+  return bfs_sweeps<W>(bound, S, max_iters, expandable, ground, cur, nxt);
 }
 
 __device__ __forceinline__ bool at_grid_edge(int gx, int gy, int gz, int nz, int ny, int nx) {
@@ -214,6 +236,40 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
     connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
 }
 
+// The stores of one query's demotion, by the whole block: min(v, thr) at
+// the reached voxels (rows `rq`, submap corner (z0, y0, x0)) inside
+// both the buffer (rows [z_lo, z_lo + nz)) and the grid (nz_g rows).  Every
+// reached voxel was in the unknown band (v > thr) of the grid the BFS
+// read, so all writers of a voxel store the same value: plain stores, no
+// atomics on the grid.  Returns this thread's count of the stores.
+template <typename W>
+__device__ int store_min_rows(float* grid, int nz, int ny, int nx, int z_lo, int nz_g,
+                              const W* rq, int z0, int y0, int x0, int S, float thr) {
+  int count = 0;
+  for (int r = threadIdx.x; r < S * S; r += blockDim.x) {
+    unsigned long long w = (unsigned long long)rq[r];
+    if (w == 0ull) continue;
+    const int gz = z0 + r / S, gy = y0 + r % S, lz = gz - z_lo;
+    if (gz < 0 || gz >= nz_g || lz < 0 || lz >= nz || gy < 0 || gy >= ny) continue;
+    float* row = grid + ((size_t)lz * ny + gy) * nx;
+    while (w != 0ull) {
+      const int x = __ffsll((long long)w) - 1;
+      w &= w - 1;
+      const int gx = x0 + x;
+      if (gx < 0 || gx >= nx) continue;
+      if (row[gx] > thr) row[gx] = thr;  // min(v, thr), NaN kept as in torch.clamp
+      ++count;
+    }
+  }
+  return count;
+}
+
+// One atomic per warp on a device write counter.
+__device__ __forceinline__ void add_count(int count, int* n_writes) {
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(n_writes, count);
+}
+
 __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
     float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
     const unsigned long long* __restrict__ reached, const int32_t* __restrict__ corners,
@@ -234,28 +290,24 @@ __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
   }
   if (!__syncthreads_or(floats)) return;
 
-  const int rows = S * S;
-  const int z0 = corners[3 * q + 0], y0 = corners[3 * q + 1], x0 = corners[3 * q + 2];
-  const unsigned long long* rq = reached + (size_t)q * rows;
-  int count = 0;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    unsigned long long w = rq[r];
-    if (w == 0ull) continue;
-    const int gz = z0 + r / S, gy = y0 + r % S, lz = gz - z_lo;
-    if (gz < 0 || gz >= nz_g || lz < 0 || lz >= nz || gy < 0 || gy >= ny) continue;
-    float* row = grid + ((size_t)lz * ny + gy) * nx;
-    while (w != 0ull) {
-      const int x = __ffsll((long long)w) - 1;
-      w &= w - 1;
-      const int gx = x0 + x;
-      if (gx < 0 || gx >= nx) continue;
-      if (row[gx] > thr) row[gx] = thr;  // min(v, thr), NaN kept as in torch.clamp
-      ++count;
+  const int count = store_min_rows(grid, nz, ny, nx, z_lo, nz_g, reached + (size_t)q * S * S,
+                                   corners[3 * q], corners[3 * q + 1], corners[3 * q + 2], S, thr);
+  add_count(count, n_writes);
+}
+
+// The (label, id, index) rank of every query, jnp.lexsort((qids, qlabels))
+// (a stable sort): order[j] is the j-th query.  No barrier.
+__device__ void rank_queries(const int32_t* __restrict__ qlabels,
+                             const int32_t* __restrict__ qids, int Q, int* order) {
+  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+    const int li = qlabels[i], di = qids[i];
+    int rank = 0;
+    for (int j = 0; j < Q; ++j) {
+      const int lj = qlabels[j], dj = qids[j];
+      rank += lj < li || (lj == li && (dj < di || (dj == di && j < i)));
     }
+    order[rank] = i;
   }
-  // one atomic per warp on the write counter
-  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-  if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(n_writes, count);
 }
 
 template <typename W>
@@ -277,16 +329,7 @@ __global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
   int* order = reinterpret_cast<int*>(buf_b + rows);  // order[j]: the j-th query
   uint8_t* conn = reinterpret_cast<uint8_t*>(order + Q);  // slot k has connected
 
-  // rank by (label, id, index): jnp.lexsort((qids, qlabels)), a stable sort
-  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
-    const int li = qlabels[i], di = qids[i];
-    int rank = 0;
-    for (int j = 0; j < Q; ++j) {
-      const int lj = qlabels[j], dj = qids[j];
-      rank += lj < li || (lj == li && (dj < di || (dj == di && j < i)));
-    }
-    order[rank] = i;
-  }
+  rank_queries(qlabels, qids, Q, order);
   for (int k = threadIdx.x; k < K; k += blockDim.x) conn[k] = 0;
   if (threadIdx.x == 0) total = 0;
   __syncthreads();
@@ -313,20 +356,7 @@ __global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
                                      max_iters, expandable, ground, cur, nxt);
       if (!connected) {
         // live demotion: min(v, thr) at the reached voxels inside the grid
-        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-          W w = cur[r];
-          const int gzr = z0 + r / S, gyr = y0 + r % S;
-          if (w == W(0) || gzr < 0 || gzr >= nz || gyr < 0 || gyr >= ny) continue;
-          float* row = grid + ((size_t)gzr * ny + gyr) * nx;
-          while (w != W(0)) {
-            const int x = __ffsll((long long)w) - 1;
-            w &= w - 1;
-            const int gxr = x0 + x;
-            if (gxr < 0 || gxr >= nx) continue;
-            if (row[gxr] > thr_f) row[gxr] = thr_f;  // min(v, thr), NaN kept
-            ++count;
-          }
-        }
+        count += store_min_rows(grid, nz, ny, nx, 0, nz, cur, z0, y0, x0, S, thr_f);
         __syncthreads();  // the next query's submap reads these stores
       }
     }
@@ -338,10 +368,153 @@ __global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
   }
 
   for (int k = threadIdx.x; k < K; k += blockDim.x) cluster_connected[k] = conn[k];
-  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-  if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(&total, count);
+  add_count(count, &total);
   __syncthreads();
   if (threadIdx.x == 0) n_writes[0] = total;
+}
+
+// K15b-7a, the cut: one block per query packs the band and ground bits of
+// the submap rows that lie in this shard's slab (rows [z_lo, z_lo + nz) of
+// the grid), one warp per row as bfs_block; every other row, and every row
+// of an invalid query, is 0.  Each row has one owner, so a psum of the
+// shards' stacks is the whole grid's.
+template <typename W>
+__global__ void __launch_bounds__(EXPLORE_T) explore_cut_kernel(
+    const float* __restrict__ grid, int nz, int ny, int nx, int z_lo,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid, float thr_f,
+    float thr_g, int S, W* __restrict__ stack) {
+  const int q = blockIdx.x;
+  const int half = S / 2, rows = S * S;
+  W* band = stack + (size_t)q * 2 * rows;
+  W* gnd = band + rows;
+  const bool valid = qvalid[q] != 0;
+  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += nwarps) {
+    const int z = r / S, y = r - (r / S) * S;
+    W unk = 0, g = 0;
+    if (valid)
+      submap_row_bits<W, false>(grid, nz, ny, nx, z0 + z - z_lo, y0 + y, x0, S, thr_f, thr_g,
+                                unk, g);
+    if ((threadIdx.x & 31) == 0) {
+      band[r] = unk;
+      gnd[r] = g;
+    }
+  }
+}
+
+// K15b-7b, the walk: K7s on the replicated stack.  The order, the skips,
+// the grid-edge rule (global dims) and the BFS are explore_seq_kernel's;
+// instead of reading a grid the earlier failed queries demoted, a query
+// takes its stack rows and clears from its band every voxel an earlier
+// failed query reached (a demoted voxel holds thr_f: neither band nor
+// ground).  Query i's box is offset by d = corner_j - corner_i from query
+// j's, so j's row (z, y) meets i's row (z + dz, y + dy) with x shifted by
+// dx.  The failed queries' rows are written to `reached` and read back
+// from it (through L2: written in this launch) for the later queries;
+// every other query's rows are 0.
+template <typename W>
+__global__ void __launch_bounds__(SEQ_T) explore_stack_kernel(
+    const W* __restrict__ stack, int nz, int ny, int nx,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
+    const int32_t* __restrict__ qlabels, const int32_t* __restrict__ qids,
+    const uint8_t* __restrict__ qslot, const int32_t* __restrict__ max_manhattan,
+    const uint8_t* __restrict__ query_overflow, int Q, int K, int S, int max_iters,
+    uint8_t* __restrict__ cluster_connected, W* reached, int32_t* __restrict__ corners,
+    uint8_t* __restrict__ demoted) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int half = S / 2, rows = S * S;
+  W* expandable = reinterpret_cast<W*>(smem_raw);
+  W* ground = expandable + rows;
+  W* buf_a = ground + rows;
+  W* buf_b = buf_a + rows;
+  int* order = reinterpret_cast<int*>(buf_b + rows);
+  int* failed = order + Q;  // the failed queries so far, in order
+  uint8_t* conn = reinterpret_cast<uint8_t*>(failed + Q);
+
+  rank_queries(qlabels, qids, Q, order);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) conn[k] = 0;
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+    corners[3 * q + 0] = qz[q] - half;
+    corners[3 * q + 1] = qy[q] - half;
+    corners[3 * q + 2] = qx[q] - half;
+  }
+  __syncthreads();
+
+  const bool overflow = query_overflow[0] != 0;
+  int nf = 0;  // the same on every thread
+  for (int j = 0; j < Q; ++j) {
+    const int q = order[j];
+    const uint8_t* slots = qslot + (size_t)q * K;
+    // under query overflow every query is skipped, as in K7s
+    bool skip = overflow || qvalid[q] == 0;
+    if (!skip) {
+      int already = 0;
+      for (int k = threadIdx.x; k < K; k += blockDim.x) already |= slots[k] != 0 && conn[k] != 0;
+      skip = __syncthreads_or(already) != 0;  // its cluster connected before
+    }
+    W* cur = buf_a;
+    W* nxt = buf_b;
+    bool fails = false;
+    if (!skip) {
+      const int gx = qx[q], gy = qy[q], gz = qz[q];
+      bool connected = at_grid_edge(gx, gy, gz, nz, ny, nx);
+      if (!connected) {
+        const int bound = min(max_manhattan[q], half - 1);
+        const W* band = stack + (size_t)q * 2 * rows;
+        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+          const int z = r / S, y = r - (r / S) * S;
+          W clear = 0;
+          for (int f = 0; f < nf; ++f) {
+            const int i = failed[f];
+            const int dz = gz - qz[i], dy = gy - qy[i], dx = gx - qx[i];
+            const int iz = z + dz, iy = y + dy;
+            if (dx <= -S || dx >= S || iz < 0 || iz >= S || iy < 0 || iy >= S) continue;
+            const W w = __ldcg(reached + ((size_t)i * S + iz) * S + iy);
+            clear |= dx >= 0 ? W(w >> dx) : W(w << -dx);
+          }
+          const int dzy = abs(z - half) + abs(y - half);
+          const W e = band[r] & ~clear & ball_bits<W>(dzy, bound, half);
+          expandable[r] = e;
+          ground[r] = band[rows + r];
+          cur[r] = (z == half && y == half) ? (e & (W(1) << half)) : W(0);
+        }
+        __syncthreads();
+        connected = bfs_sweeps<W>(bound, S, max_iters, expandable, ground, cur, nxt);
+      }
+      fails = !connected;
+      if (connected)
+        for (int k = threadIdx.x; k < K; k += blockDim.x)
+          if (slots[k] != 0) conn[k] = 1;
+    }
+    // the query's reached rows: a failed query's flood, else 0
+    W* rq = reached + (size_t)q * rows;
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) rq[r] = fails ? cur[r] : W(0);
+    if (threadIdx.x == 0) {
+      demoted[q] = fails ? 1 : 0;
+      if (fails) failed[nf] = q;
+    }
+    nf += fails ? 1 : 0;
+    __syncthreads();  // the next query reads these rows, the list and the flags
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) cluster_connected[k] = conn[k];
+}
+
+// K15b-7c, the write-back: min(v, thr) at the reached voxels of every
+// demoted query inside the shard's slab (the z window of K8), one block per
+// query; the stores and the count are K8's.
+template <typename W>
+__global__ void __launch_bounds__(DEMOTE_T) demote_direct_kernel(
+    float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
+    const W* __restrict__ reached, const int32_t* __restrict__ corners,
+    const uint8_t* __restrict__ demoted, int S, float thr, int* __restrict__ n_writes) {
+  const int q = blockIdx.x;
+  if (demoted[q] == 0) return;
+  add_count(store_min_rows(grid, nz, ny, nx, z_lo, nz_g, reached + (size_t)q * S * S,
+                           corners[3 * q], corners[3 * q + 1], corners[3 * q + 2], S, thr),
+            n_writes);
 }
 
 template <typename Kern>
@@ -386,6 +559,27 @@ int launch_explore_seq(void* grid, int nz, int ny, int nx, const void* qx, const
       static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), thr_f,
       thr_g, Q, K, S, max_iters, static_cast<uint8_t*>(cluster_connected),
       static_cast<int32_t*>(n_writes));
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_explore_stack(const void* stack, int nz, int ny, int nx, const void* qx,
+                         const void* qy, const void* qz, const void* qvalid, const void* qlabels,
+                         const void* qids, const void* qslot, const void* mm,
+                         const void* query_overflow, int Q, int K, int S, int max_iters,
+                         void* cluster_connected, void* reached, void* corners, void* demoted,
+                         cudaStream_t s) {
+  const size_t smem = 4 * (size_t)S * S * sizeof(W) + 2 * (size_t)Q * sizeof(int) + (size_t)K;
+  const int e = allow_smem(explore_stack_kernel<W>, smem);
+  if (e != 0) return e;
+  explore_stack_kernel<W><<<1, SEQ_T, smem, s>>>(
+      static_cast<const W*>(stack), nz, ny, nx, static_cast<const int32_t*>(qx),
+      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
+      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(qlabels),
+      static_cast<const int32_t*>(qids), static_cast<const uint8_t*>(qslot),
+      static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), Q, K, S,
+      max_iters, static_cast<uint8_t*>(cluster_connected), static_cast<W*>(reached),
+      static_cast<int32_t*>(corners), static_cast<uint8_t*>(demoted));
   return (int)cudaGetLastError();
 }
 
@@ -457,4 +651,78 @@ VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const
                                                 qids, qslot, max_manhattan, query_overflow,
                                                 thr_f, thr_g, Q, K, S, max_iters,
                                                 cluster_connected, n_writes, s);
+}
+
+// K15b-7a: the cut of a shard's slab.  grid: device float32 [nz, ny, nx],
+// the rows [z_lo, z_lo + nz) of the grid; qx/qy/qz: int32 [Q] global;
+// qvalid: bool [Q].  Output: stack [Q, 2, S, S] (band rows, then ground
+// rows), uint32 words for S <= 32, else uint64.  2 <= S <= 62.
+VOFOD_API int vofod_explore_cut(const void* grid, int nz, int ny, int nx, int z_lo,
+                                const void* qx, const void* qy, const void* qz,
+                                const void* qvalid, float thr_f, float thr_g, int Q, int S,
+                                void* stack, void* stream) {
+  if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(grid);
+  const int32_t *x = static_cast<const int32_t*>(qx), *y = static_cast<const int32_t*>(qy),
+                *z = static_cast<const int32_t*>(qz);
+  const uint8_t* v = static_cast<const uint8_t*>(qvalid);
+  if (S <= 32)
+    explore_cut_kernel<uint32_t><<<Q, EXPLORE_T, 0, s>>>(g, nz, ny, nx, z_lo, x, y, z, v, thr_f,
+                                                         thr_g, S,
+                                                         static_cast<uint32_t*>(stack));
+  else
+    explore_cut_kernel<unsigned long long><<<Q, EXPLORE_T, 0, s>>>(
+        g, nz, ny, nx, z_lo, x, y, z, v, thr_f, thr_g, S,
+        static_cast<unsigned long long*>(stack));
+  return (int)cudaGetLastError();
+}
+
+// K15b-7b: the walk on the replicated stack (vofod_explore_cut's words)
+// of a grid of (nz, ny, nx) rows.  The query table as
+// vofod_explore_sequential's.  Outputs: cluster_connected bool [K],
+// reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
+// corners int32 [Q, 3] (z, y, x), demoted bool [Q] (the failed queries).
+// 1 <= Q <= 4096, 2 <= S <= 62.
+VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx, const void* qx,
+                                      const void* qy, const void* qz, const void* qvalid,
+                                      const void* qlabels, const void* qids, const void* qslot,
+                                      const void* max_manhattan, const void* query_overflow,
+                                      int Q, int K, int S, int max_iters,
+                                      void* cluster_connected, void* reached, void* corners,
+                                      void* demoted, void* stream) {
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S <= 32)
+    return launch_explore_stack<uint32_t>(stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
+                                          qslot, max_manhattan, query_overflow, Q, K, S,
+                                          max_iters, cluster_connected, reached, corners,
+                                          demoted, s);
+  return launch_explore_stack<unsigned long long>(stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
+                                                  qids, qslot, max_manhattan, query_overflow, Q,
+                                                  K, S, max_iters, cluster_connected, reached,
+                                                  corners, demoted, s);
+}
+
+// K15b-7c, in place on a shard's slab: min(v, thr) at the reached voxels
+// (vofod_explore_seq_stack's words) of the demoted queries.  grid: the z
+// rows [z_lo, z_lo + nz) of a grid of nz_g rows; n_writes: int32 scalar the
+// kernel adds its stores to (zeroed by the caller).
+VOFOD_API int vofod_demote_direct(void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
+                                  const void* reached, const void* corners, const void* demoted,
+                                  int Q, int S, float thr, void* n_writes, void* stream) {
+  if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(grid);
+  const int32_t* c = static_cast<const int32_t*>(corners);
+  const uint8_t* d = static_cast<const uint8_t*>(demoted);
+  int* n = static_cast<int*>(n_writes);
+  if (S <= 32)
+    demote_direct_kernel<uint32_t><<<Q, DEMOTE_T, 0, s>>>(
+        g, nz, ny, nx, z_lo, nz_g, static_cast<const uint32_t*>(reached), c, d, S, thr, n);
+  else
+    demote_direct_kernel<unsigned long long><<<Q, DEMOTE_T, 0, s>>>(
+        g, nz, ny, nx, z_lo, nz_g, static_cast<const unsigned long long*>(reached), c, d, S,
+        thr, n);
+  return (int)cudaGetLastError();
 }

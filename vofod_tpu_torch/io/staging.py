@@ -7,7 +7,10 @@ per buffer.  On a CUDA device the buffers are pinned once at start-up (no
 ``pin_memory()`` per scan) and each set is guarded by the CUDA event of its
 last copy, so it is never overwritten while that copy is in flight; by the
 time a set comes round again the scan that read it has long been read back,
-so the guard does not block.  On the CPU the buffers are plain and the
+so the guard does not block.  The grid-sharded prebinned step uploads a
+set's packed grid slab by slab, one copy on each shard's stream
+(parallel/grid_step.py): :meth:`HostStaging.guard` then takes the events of
+all those copies.  On the CPU the buffers are plain and the
 upload is a copy, so a step never holds a view of a buffer the next scan
 overwrites.
 """
@@ -28,16 +31,21 @@ class HostStaging:
         pin = self.device.type == "cuda"
         self.sets = [tuple(torch.empty(n, dtype=dt, pin_memory=pin) for n, dt in specs)
                      for _ in range(2)]
-        self.events = [None, None]
+        self.events: list[list] = [[], []]
         self.turn = 0
 
     def next(self) -> tuple[int, tuple[np.ndarray, ...]]:
         """(set index, numpy views of its buffers) of the set to fill next."""
         i, self.turn = self.turn, 1 - self.turn
-        ev = self.events[i]
-        if ev is not None and not ev.query():
-            ev.synchronize()
+        for ev in self.events[i]:
+            if not ev.query():
+                ev.synchronize()
         return i, tuple(t.numpy() for t in self.sets[i])
+
+    def guard(self, i: int, events) -> None:
+        """Set ``i`` may be refilled once every one of ``events`` (CUDA
+        events of the copies that read it) has completed."""
+        self.events[i] = list(events)
 
     def upload(self, i: int, count: int | None = None) -> tuple[torch.Tensor, ...]:
         """The first ``count`` (default: all) buffers of set ``i`` on the
@@ -48,5 +56,5 @@ class HostStaging:
         out = tuple(t.to(self.device, non_blocking=True) for t in bufs)
         ev = torch.cuda.Event()
         ev.record()
-        self.events[i] = ev
+        self.guard(i, [ev])
         return out

@@ -76,6 +76,9 @@ LAUNCHES: dict[str, int] = {
     "quirk_ranks": 0,
     "quirk_query": 0,
     "dda_slab": 0,
+    "explore_cut": 0,
+    "explore_seq_stack": 0,
+    "demote_direct": 0,
 }
 
 # The stencil kernels (K1, K2, the K11 and K13c epilogues, K14) take any tap
@@ -212,6 +215,11 @@ def load():
         lib.vofod_cone_sweep_lat.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_zt.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.vofod_explore_cut.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _P,
+                                          _P]
+        lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 5
+        lib.vofod_demote_direct.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P,
+                                            _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
@@ -222,7 +230,8 @@ def load():
                    lib.vofod_exact_demote_ema, lib.vofod_unpack, lib.vofod_halo_exchange,
                    lib.vofod_halo_fold_min, lib.vofod_cone_sweep_lat, lib.vofod_cone_sweep_z,
                    lib.vofod_cone_sweep_zt, lib.vofod_census_scatter, lib.vofod_census_read,
-                   lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query):
+                   lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query,
+                   lib.vofod_explore_cut, lib.vofod_explore_seq_stack, lib.vofod_demote_direct):
             fn.restype = _I
         _lib = lib
         return lib
@@ -522,6 +531,102 @@ def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
     _check(err, "vofod_explore_sequential")
     _count("explore_seq")
     return cluster_connected, n_writes
+
+
+def stack_words(submap: int) -> torch.dtype:
+    """K15b-7's word: uint32 rows (as int32) for S <= 32, else 64-bit."""
+    return torch.int32 if submap <= 32 else torch.int64
+
+
+def explore_cut(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Tensor,
+                qvalid: torch.Tensor, thr_frontiers: float, thr_ground: float, submap: int,
+                z_lo: int) -> torch.Tensor:
+    """K15b-7a: the [Q, 2, S, S] band and ground rows of every valid query's
+    submap rows inside ``vmap``, the grid's z rows [z_lo, z_lo + rows) (0
+    elsewhere)."""
+    if vmap.dim() != 3:
+        raise ValueError("explore_cut takes a 3-D grid")
+    Q, S = qx.shape[0], int(submap)
+    if not 2 <= S <= 62 or Q < 1:
+        raise ValueError(f"explore_cut takes S in [2, 62] and >= 1 query, got S={S}, Q={Q}")
+    _require(vmap, "explore_cut grid", torch.float32)
+    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz")):
+        _require(t, f"explore_cut {name}", torch.int32, (Q,))
+    _require(qvalid, "explore_cut qvalid", torch.bool, (Q,))
+    stack = torch.empty((Q, 2, S, S), dtype=stack_words(S), device=vmap.device)
+    nz, ny, nx = vmap.shape
+    err = load().vofod_explore_cut(
+        vmap.data_ptr(), nz, ny, nx, int(z_lo), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+        qvalid.data_ptr(), float(thr_frontiers), float(thr_ground), Q, S, stack.data_ptr(),
+        _stream())
+    _check(err, "vofod_explore_cut")
+    _count("explore_cut")
+    return stack
+
+
+def explore_seq_stack(stack: torch.Tensor, grid_shape, qx: torch.Tensor, qy: torch.Tensor,
+                      qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
+                      qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
+                      query_overflow: torch.Tensor, max_iters: int):
+    """K15b-7b: K7s on the replicated stack of a grid of ``grid_shape``.
+    Returns (cluster_connected bool [K], reached [Q, S, S] words, corners
+    int32 [Q, 3], demoted bool [Q])."""
+    if stack.dim() != 4 or stack.shape[1] != 2 or stack.shape[2] != stack.shape[3]:
+        raise ValueError(f"explore_seq_stack takes a [Q, 2, S, S] stack, got {tuple(stack.shape)}")
+    Q, S = stack.shape[0], stack.shape[-1]
+    K = qslot.shape[-1] if qslot.dim() == 2 else 0
+    if not 2 <= S <= 62:
+        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
+    if not (1 <= Q <= 4096 and K >= 1):
+        raise ValueError(f"explore_seq_stack takes 1-4096 queries and >= 1 slot, got Q={Q}, "
+                         f"K={K}")
+    _require(stack, "explore_seq_stack stack", stack_words(S))
+    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
+                    (max_manhattan, "max_manhattan")):
+        _require(t, f"explore_seq_stack {name}", torch.int32, (Q,))
+    _require(qvalid, "explore_seq_stack qvalid", torch.bool, (Q,))
+    _require(qslot, "explore_seq_stack qslot", torch.bool, (Q, K))
+    _require(query_overflow, "explore_seq_stack query_overflow", torch.bool, ())
+    dev = stack.device
+    conn = torch.empty(K, dtype=torch.bool, device=dev)
+    reached = torch.empty((Q, S, S), dtype=stack.dtype, device=dev)
+    corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
+    demoted = torch.empty(Q, dtype=torch.bool, device=dev)
+    nz, ny, nx = (int(d) for d in grid_shape)
+    err = load().vofod_explore_seq_stack(
+        stack.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
+        qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(), qslot.data_ptr(),
+        max_manhattan.data_ptr(), query_overflow.data_ptr(), Q, K, S, int(max_iters),
+        conn.data_ptr(), reached.data_ptr(), corners.data_ptr(), demoted.data_ptr(), _stream())
+    _check(err, "vofod_explore_seq_stack")
+    _count("explore_seq_stack")
+    return conn, reached, corners, demoted
+
+
+def demote_direct_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
+                   demoted: torch.Tensor, thr_frontiers: float,
+                   z_window: tuple[int, int] | None = None) -> torch.Tensor:
+    """K15b-7c, in place on ``vmap``: min(v, thr) at the reached voxels of
+    the ``demoted`` queries.  Returns the int32 count of those writes.
+    ``z_window``: as :func:`explore`'s."""
+    if vmap.dim() != 3 or reached.dim() != 3:
+        raise ValueError("demote_direct takes a 3-D grid and [Q, S, S] rows")
+    Q, S = reached.shape[0], reached.shape[-1]
+    if not 2 <= S <= 62 or Q < 1:
+        raise ValueError(f"demote_direct takes S in [2, 62] and >= 1 query, got S={S}, Q={Q}")
+    _require(vmap, "demote_direct grid", torch.float32)
+    _require(reached, "demote_direct reached", stack_words(S), (Q, S, S))
+    _require(corners, "demote_direct corners", torch.int32, (Q, 3))
+    _require(demoted, "demote_direct demoted", torch.bool, (Q,))
+    n_writes = torch.zeros((), dtype=torch.int32, device=vmap.device)
+    nz, ny, nx = vmap.shape
+    err = load().vofod_demote_direct(
+        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), reached.data_ptr(),
+        corners.data_ptr(), demoted.data_ptr(), Q, S, float(thr_frontiers), n_writes.data_ptr(),
+        _stream())
+    _check(err, "vofod_demote_direct")
+    _count("demote_direct")
+    return n_writes
 
 
 # output fields of K9, in the order of csrc/classify_stats.cu StatsOut

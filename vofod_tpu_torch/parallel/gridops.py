@@ -22,7 +22,12 @@ small set of primitives below, so the same stage code runs in two layouts:
   census scatters into the global label space around a psum (K15b-6a), and
   the exact DDA walks every ray on every shard, keeping the slab's chords
   (K15b-6c); the counted-indexing quirk (K15b-6b) and the exact demotion
-  (K13c on halo'd coarse arrays) are in pipeline/sepclusters.py.
+  (K13c on halo'd coarse arrays) are in pipeline/sepclusters.py.  The
+  traced-radius pools and sweeps of ``cfg.dynamic_radii`` exchange a halo
+  of the static bound and run K14's tap set on the extended slab (the
+  exchange pattern does not move with the radius), and the sequential
+  explore runs on a replicated stack of its queries' submap bits
+  (K15b-7a/b/c, :meth:`ZShardOps.explore_sequential`).
 
 Point-space arrays and compacted lists are replicated.  Every output equals
 the dense one bit for bit: each element gets the same operands in the same
@@ -41,8 +46,12 @@ from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import (
     SENTINEL, census_read_plain, census_scatter_plain, label_census, label_components,
     label_components_seeded, propagate_reach, sweep_plain)
-from vofod_tpu_torch.ops.explore import demote_floating, explore
-from vofod_tpu_torch.ops.morphology import INT_FILL, ball_pool, ball_pool_max, ball_pool_sum, tap_set
+from vofod_tpu_torch.ops.explore import (
+    demote_direct, demote_floating, explore, explore_cut, explore_sequential_,
+    explore_sequential_stack)
+from vofod_tpu_torch.ops.morphology import (
+    INT_FILL, Shells, ball_pool, ball_pool_max, ball_pool_max_traced, ball_pool_sum,
+    ball_pool_sum_traced, shell_pool, tap_set)
 from vofod_tpu_torch.ops.raycast import (
     ray_ema_grid_, raycast_dda, raycast_dda_slab, raycast_update_, raycast_update_zsharded)
 
@@ -81,17 +90,23 @@ class DenseOps:
         the slab: here the grids themselves and no window."""
         return list(arrays), None
 
-    def pool_max(self, a: Tensor, radius: float, fill=None) -> Tensor:
+    # ``traced_r2``: the runtime squared radius of cfg.dynamic_radii (K14's
+    # shells), ``radius`` then the static bound
+    def pool_max(self, a: Tensor, radius: float, fill=None, traced_r2=None) -> Tensor:
+        if traced_r2 is not None:
+            return ball_pool_max_traced(a, traced_r2, radius, fill=fill)
         return ball_pool_max(a, radius, fill=fill)
 
-    def pool_sum(self, a: Tensor, radius: float) -> Tensor:
+    def pool_sum(self, a: Tensor, radius: float, traced_r2=None) -> Tensor:
+        if traced_r2 is not None:
+            return ball_pool_sum_traced(a, traced_r2, radius)
         return ball_pool_sum(a, radius)
 
-    def label_seeded(self, occupied, seed, radius: float, max_iters: int):
-        return label_components_seeded(occupied, seed, radius, max_iters)
+    def label_seeded(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
+        return label_components_seeded(occupied, seed, radius, max_iters, traced_r2=traced_r2)
 
-    def propagate_reach(self, occupied, seed, radius: float, max_iters: int):
-        return propagate_reach(occupied, seed, radius, max_iters)
+    def propagate_reach(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
+        return propagate_reach(occupied, seed, radius, max_iters, traced_r2=traced_r2)
 
     def label_components(self, occupied, radius: float, max_iters: int):
         return label_components(occupied, radius, max_iters)
@@ -126,6 +141,13 @@ class DenseOps:
                thr_frontiers):
         return demote_floating(vals, reached, corners, qslot, connected, qvalid, qgate,
                                query_overflow, thr_frontiers)
+
+    def explore_sequential(self, grid, vals, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q,
+                           query_overflow, thr_frontiers, thr_ground, submap: int):
+        """K7s: (grid, cluster_connected bool [K], n_writes int32); on the
+        card in place on ``vals``."""
+        return explore_sequential_(grid, vals, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q,
+                                   query_overflow, thr_frontiers, thr_ground, submap)
 
     # ---- raycast -----------------------------------------------------------------
     def raycast_update_(self, grid, vals, had_point, opaque, origin_world, rot_s2w, ema, **kw):
@@ -202,23 +224,6 @@ class ZShardOps:
     def slab(self, nz: int) -> tuple[int, int]:
         nzl = nz // self.n
         return self.comm.rank * nzl, nzl
-
-    @staticmethod
-    def check_step(cfg, raycast_mode: str, frontend_mode: str) -> None:
-        """Refuse the step modes with no sharded form yet (their stages
-        would run the dense form on a slab): make_step_fn calls this for a
-        sharded ``ops``.  The exact raycast, the exact census, the counted
-        indexing and the hasCloseTo box are sharded."""
-        refused = [
-            (frontend_mode != "raw", f"frontend_mode={frontend_mode!r}"),
-            (cfg.dynamic_radii, "dynamic_radii"),
-            (cfg.sequential_explore, "sequential_explore"),
-        ]
-        for on, what in refused:
-            if on:
-                raise NotImplementedError(
-                    f"the grid-sharded step: {what} is not sharded yet (ROADMAP queue 1, "
-                    "K15b rest)")
 
     # ---- K15b-1 / K15b-2 ------------------------------------------------------------
     def halo_recv(self, g: Tensor, r: int):
@@ -319,14 +324,22 @@ class ZShardOps:
         exts = [self.halo_exchange(a, halo, f) for a, f in zip(arrays, fills)]
         return exts, (nz, z0 - halo, z0, z0 + nzl)
 
-    def pool_max(self, a: Tensor, radius: float, fill=None) -> Tensor:
-        fill = INT_FILL["max"][a.dtype] if fill is None else fill
-        return self.stencil(lambda e: ball_pool(e, radius, "max", fill), (a,), (fill,),
-                            int(math.floor(radius)))
+    def _pool(self, a: Tensor, radius: float, op: str, fill, traced_r2) -> Tensor:
+        """K1 (K14 with ``traced_r2``) on the slab extended by floor(radius)
+        rows: with a traced radius that is the static bound, so the exchange
+        does not move with the radius (vofod_tpu ``ZShardOps._pool``)."""
+        if traced_r2 is None:
+            fn = lambda e: ball_pool(e, radius, op, fill)  # noqa: E731
+        else:
+            fn = lambda e: shell_pool(e, traced_r2, radius, op, fill)  # noqa: E731
+        return self.stencil(fn, (a,), (fill,), int(math.floor(radius)))
 
-    def pool_sum(self, a: Tensor, radius: float) -> Tensor:
-        return self.stencil(lambda e: ball_pool(e, radius, "sum", 0), (a,), (0,),
-                            int(math.floor(radius)))
+    def pool_max(self, a: Tensor, radius: float, fill=None, traced_r2=None) -> Tensor:
+        fill = INT_FILL["max"][a.dtype] if fill is None else fill
+        return self._pool(a, radius, "max", fill, traced_r2)
+
+    def pool_sum(self, a: Tensor, radius: float, traced_r2=None) -> Tensor:
+        return self._pool(a, radius, "sum", 0, traced_r2)
 
     def sweeps(self, init: Tensor, occ: Tensor, ball, n: int,
                until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
@@ -335,8 +348,10 @@ class ZShardOps:
         the interior rows only (a flag over the halo rows would count changes
         the dense sweep never sees); the flags are OR-ed over the shards.
         ``until_fixpoint`` gates each launch on the previous sweep's global
-        flag.  Returns (slab, bool [n] global per-sweep flags)."""
-        taps, halo = tap_set(ball)
+        flag.  Traced shells exchange the halo of their static bound.
+        Returns (slab, bool [n] global per-sweep flags)."""
+        taps, reach = tap_set(ball)
+        halo = int(math.floor(ball.bound)) if isinstance(ball, Shells) else reach
         nzl = init.shape[0]
         rows = (halo, halo + nzl)
         fill = SENTINEL if init.dtype == torch.int32 else 0
@@ -349,7 +364,7 @@ class ZShardOps:
                 ext = self.halo_exchange(cur, halo, fill)
                 # gated: a skipped launch must leave the fixpoint in place
                 dst = ext.clone() if until_fixpoint else torch.empty_like(ext)
-                kernels.propagate_sweep(ext, dst, occ_ext, taps, halo, changed[i], prev, rows)
+                kernels.propagate_sweep(ext, dst, occ_ext, taps, reach, changed[i], prev, rows)
                 if until_fixpoint:
                     flags.append(self.comm.any(changed[i] != 0))
                     prev = flags[-1].to(torch.int32)
@@ -367,14 +382,15 @@ class ZShardOps:
         flags = torch.stack(flags)
         return cur, flags if until_fixpoint else self.comm.any(flags)
 
-    def label_seeded(self, occupied, seed, radius: float, max_iters: int):
+    def label_seeded(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
         """ops/components.label_components_seeded with global flat ids."""
         nz = occupied.shape[0] * self.n
-        return label_components_seeded(occupied, seed, radius, max_iters, sweep_fn=self.sweeps,
-                                       z0=self.slab(nz)[0], nz=nz)
+        return label_components_seeded(occupied, seed, radius, max_iters, traced_r2=traced_r2,
+                                       sweep_fn=self.sweeps, z0=self.slab(nz)[0], nz=nz)
 
-    def propagate_reach(self, occupied, seed, radius: float, max_iters: int):
-        return propagate_reach(occupied, seed, radius, max_iters, sweep_fn=self.sweeps)
+    def propagate_reach(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
+        return propagate_reach(occupied, seed, radius, max_iters, traced_r2=traced_r2,
+                               sweep_fn=self.sweeps)
 
     def label_components(self, occupied, radius: float, max_iters: int):
         """ops/components.label_components with global flat ids, swept to
@@ -478,6 +494,27 @@ class ZShardOps:
                                         qgate, query_overflow, thr_frontiers,
                                         z_window=(z0 - pad, nzl * self.n))
         return self.halo_fold_min(ext, pad), self.comm.psum(n_writes)
+
+    def explore_sequential(self, grid, vals, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q,
+                           query_overflow, thr_frontiers, thr_ground, submap: int):
+        """K7s over the shards, with no collective per query: the sequential
+        walk reads and writes only its queries' S^3 submaps, and its BFS only
+        two bits a voxel (unknown band, ground).  Each shard cuts those bits
+        of the rows it owns (K15b-7a), one psum replicates the stack (each
+        row has one owner, the others send 0), every shard walks the queries
+        on it (K15b-7b, replicated as K9 is), and each writes the failed
+        queries' demotions into its own rows (K15b-7c, on the bare slab);
+        the write counts are psum'd.  Returns (slab, cluster_connected
+        bool [K], n_writes int32), the dense K7s's."""
+        z0, _ = self.slab(grid.nz)
+        vals = vals.contiguous()
+        stack = self.comm.psum(explore_cut(vals, qx, qy, qz, qvalid, thr_frontiers, thr_ground,
+                                           submap, z0))
+        conn, reached, corners, demoted = explore_sequential_stack(
+            grid, stack, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q, query_overflow)
+        vals, n_writes = demote_direct(vals, reached, corners, demoted, thr_frontiers,
+                                       z_window=(z0, grid.nz))
+        return vals, conn, self.comm.psum(n_writes)
 
     # ---- raycast --------------------------------------------------------------------
     def raycast_update_(self, grid, vals, had_point, opaque, origin_world, rot_s2w, ema, **kw):

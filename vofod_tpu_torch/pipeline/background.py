@@ -12,7 +12,8 @@ instead of the symmetric ball.  With ``cfg.dynamic_radii`` the seed pool
 and the sweeps take the shells of the static bound kept by the runtime
 ``dyn.ground_points_max_distance`` (K14, ops/morphology.shell_taps).
 The grid-wide sums, the seed pool and the seeded propagation go through
-``ops`` (parallel/gridops.py), as in the JAX stage; so does the hasCloseTo
+``ops`` (parallel/gridops.py), as in the JAX stage (the traced ones too:
+sharded, they exchange the static bound's halo); so does the hasCloseTo
 box, with a halo of ceil(r) rows (its reach below the voxel), which JAX's
 sharded stage leaves out: there the box is pooled on the bare slab.
 """
@@ -28,8 +29,7 @@ import torch
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
-from vofod_tpu_torch.ops.components import label_components_seeded
-from vofod_tpu_torch.ops.morphology import ball_pool_max_traced, hascloseto_pool_any
+from vofod_tpu_torch.ops.morphology import hascloseto_pool_any
 from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
@@ -106,17 +106,11 @@ def split_and_update(
         # integer radius (3.0) the +3 axis-extreme offsets are not searched
         bg_near = ops.stencil(lambda m: hascloseto_pool_any(m, radius), (bg_mask,), (False,),
                               math.ceil(radius))
-    elif traced_r2 is not None:
-        bg_near = ball_pool_max_traced(bg_mask.to(torch.int8), traced_r2, radius, fill=0) > 0
     else:
-        bg_near = ops.pool_max(bg_mask.to(torch.int8), radius, fill=0) > 0
+        bg_near = ops.pool_max(bg_mask.to(torch.int8), radius, fill=0, traced_r2=traced_r2) > 0
     seed = occupied & bg_near
-    if traced_r2 is None:
-        labels, close, cc_converged, cc_iters = ops.label_seeded(
-            occupied, seed, radius, cfg.cc_sweeps)
-    else:
-        labels, close, cc_converged, cc_iters = label_components_seeded(
-            occupied, seed, radius, cfg.cc_sweeps, traced_r2=traced_r2)
+    labels, close, cc_converged, cc_iters = ops.label_seeded(
+        occupied, seed, radius, cfg.cc_sweeps, traced_r2=traced_r2)
     # EMA point update (ref updateVoxel :789-795), far = occupied & ~close
     new_vals, far, n_occupied = point_ema(
         grid_vals, counts, close, float(dyn.score_point), float(dyn.score_unknown))

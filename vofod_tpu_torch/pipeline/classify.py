@@ -17,8 +17,9 @@ Grid layout: the dense grids go through ``ops`` (parallel/gridops.py), as
 in the JAX stage: ``DENSE`` on one device, or ``ZShardOps`` on the
 grid-sharded step, where the compactions merge per-shard lists, the label
 lookups (K9's far labels among them) sum the owners' values over the
-shards, and the explore and demotion run on the
-shards' halo-extended slabs.
+shards, the explore and demotion run on the shards' halo-extended slabs,
+and the sequential explore walks a replicated stack of its queries'
+submap bits (K15b-7a/b/c) in place of K7s.
 
 Host-sync-free control flow: the batched explore always runs at the full
 Q-query capacity (any tier >= qtotal gives the same result,
@@ -40,7 +41,6 @@ from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec, to_int32
 from vofod_tpu_torch.ops.components import SENTINEL
 from vofod_tpu_torch.ops.eigh3 import cross, eigh3
-from vofod_tpu_torch.ops.explore import explore_sequential_
 from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
@@ -234,7 +234,7 @@ def classify(
     if cfg.sequential_explore:
         # on the card this writes into grid_vals in place, as K8 does
         with record_function("vofod.classify.explore_sequential"):
-            new_vals, cluster_connected, n_demoted = explore_sequential_(
+            new_vals, cluster_connected, n_demoted = ops.explore_sequential(
                 grid, grid_vals, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q,
                 query_overflow, thr_f, thr_g, S)
     else:

@@ -16,7 +16,8 @@ epilogue, each on that tap set.
 
 The default mode's grid-wide flags, pools, reach and demotion go through
 ``ops`` (parallel/gridops.py), as in the JAX stage: on the grid-sharded step
-the stencils read halo-extended slabs.
+the stencils read halo-extended slabs (the traced ones a halo of their
+static bound).
 
 Exact-census mode (``cfg.sepclusters_exact_census``,
 :func:`run_sepclusters_exact`): the coarse counted binning (with the
@@ -46,9 +47,7 @@ import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
-from vofod_tpu_torch.ops.components import propagate_reach
-from vofod_tpu_torch.ops.morphology import (
-    Shells, ball_pool_plain, ball_pool_sum_traced, ball_taps, pool_plain, tap_set)
+from vofod_tpu_torch.ops.morphology import Shells, ball_pool_plain, ball_taps, pool_plain, tap_set
 from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
@@ -126,8 +125,8 @@ def run_sepclusters(
         # DetectionParams.cfg:36-44): each stencil keeps the shells of its
         # static bound within the runtime radius
         adj_bound, mdi, adj = traced_radii(cfg, dyn)
-        local_sure = ball_pool_sum_traced(sure.to(torch.int32), (adj + 1) * (adj + 1),
-                                          adj_bound + 1.0)
+        local_sure = ops.pool_sum(sure.to(torch.int32), adj_bound + 1.0,
+                                  traced_r2=(adj + 1) * (adj + 1))
         reach_r, reach_r2 = adj_bound, adj * adj
         demote_ball = Shells(adj_bound, mdi * mdi)
     else:
@@ -142,10 +141,7 @@ def run_sepclusters(
     sure_sufficient = torch.where(ops.gany(bg), ops.gany(seeds), prev_sure)
 
     init = (prev_safe & bg) | (seeds & bg)
-    if reach_r2 is None:
-        safe, converged = ops.propagate_reach(bg, init, reach_r, max_iters)
-    else:
-        safe, converged = propagate_reach(bg, init, reach_r, max_iters, traced_r2=reach_r2)
+    safe, converged = ops.propagate_reach(bg, init, reach_r, max_iters, traced_r2=reach_r2)
 
     # demotion ball: ||d|| <= max_bg_distance/voxel around unsafe background
     # (ref :1219-1237); no demotion at all when no sure cluster exists (ref

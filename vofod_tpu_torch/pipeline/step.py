@@ -11,7 +11,8 @@ sepclusters census, the compat_* quirks, the sequential explore):
   2. background sufficiency + close/far split  (K1, K2; dynamic radii: K14)
   3. point EMA update of the confidence grid             (K11)
   4. classification + floating check + demotions
-                          (K6, K9, K7, K8; sequential explore: K6, K9, K7s)
+                          (K6, K9, K7, K8; sequential explore: K6, K9, K7s;
+                           grid-sharded: K15b-7a/b/c)
   5. detection extraction                                (K10)
   6. every raycast_every steps: freespace raycast +
      flag-guarded ray EMA update
@@ -146,9 +147,8 @@ def make_step_fn(
     default sepclusters mode, as in the JAX step; compat_rangefinder_validity
     acts in the node only).
     ops: the dense-grid provider (parallel/gridops.py); the grid-sharded
-      step passes its ZShardOps through parallel/grid_step.py; the modes
-      with no sharded form yet (prebinned, dynamic radii, the sequential
-      explore) are refused.
+      step passes its ZShardOps through parallel/grid_step.py (every mode
+      above runs sharded; a prebinned scan is then the shard's slab).
 
     The returned ``step(state, scan, dyn, stage_hook=None)`` calls
     ``stage_hook(name)`` where each routine starts ("cnc", "raycasting",
@@ -172,8 +172,6 @@ def make_step_fn(
             "(VoFODConfig.dynamic_radii)")
     if raycast_every < 1:
         raise ValueError(f"raycast_every must be >= 1, got {raycast_every}")
-    if ops.is_sharded:
-        ops.check_step(cfg, raycast_mode, frontend_mode)
     device = torch.device(device)
     grid = GridSpec.from_config(cfg)
     H, W = cfg.sensor.vertical_rays, cfg.sensor.horizontal_rays
