@@ -12,6 +12,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, on
    inputs taken from a real flagship scan (OS0-128, 241x201x51 grid): K1-K3
    bit-equal, K4 within one bf16 ulp at 1.0; CUDA-event times of both.
+   K2's persistent launch (one per ``sweeps()`` call) in grid, per-sweep
+   flags and tiles computed per sweep against the plain sweeps and the
+   plain model of its schedule: the scan's 8 label sweeps at r3 and 8
+   reach sweeps at r2, a fixpoint at sweep 0, a grid no multiple of the
+   tile, each timed beside one one-sweep launch a sweep; the seeded labels,
+   reach, converged and iters; the one-sweep launch of the grid paths
+   alone.  K4 on the scan's window, the sensor 4 m from an edge, a window
+   clipped by the grid (60 m bound), A rows no multiple of the cluster,
+   all opaque and all clear: bit-equal (no voxel differs), with their
+   times and the cluster size.
    The classify stage's kernels on the same scan's classify inputs and on
    synthetic cases: K6 (the three compactions, the label-predicate form,
    an overflow) bit-equal; K7 (the scan's queries, 256 valid queries over
@@ -39,7 +49,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    bit-equal on the kernel's raylen and within K5B_TOL_REL x |score_ray|
    after walk and EMA; K2 run to convergence (the scan's coarse cells, a
    random field that converges, isolated voxels whose first sweep is the
-   fixpoint, a serpentine corridor where the 128-sweep cap binds), K13b (the
+   fixpoint, a serpentine corridor where the 128-sweep cap binds; each
+   call's grid, flags and tiles per sweep too, beside the 128 gated
+   one-sweep launches), K13b (the
    scan's grids, random fields at leaf sizes 1 and 2), K13a and K13c
    (sure_sufficient True and False) bit-equal.  The prebinned ingest on a
    flagship scan: K15a bit-equal to its plain version on the native
@@ -89,7 +101,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 4. drive the flagship main path — ``VoFOD(device="cuda")``, the apriori
    ground plane and 36 scans of a content-varying cycle — and check
    ``bg_sufficient``, a NaN-free grid, that every kernel was launched and
-   K5a, K5b, K10 and both K11 passes once per scan; print step p50/p95
+   K5a, K5b, K10 and both K11 passes once per scan, K2 twice (one
+   persistent launch a ``sweeps()`` call; so on every dense path) with the
+   tiles they computed; print step p50/p95
    (CUDA events), host syncs per scan, and the explore queries and
    demotion writes of the 36 scans.  Then 6 scans with
    ``NodeOptions(raycast_every=2)``: the ray stage on every second scan.
@@ -147,13 +161,15 @@ The line before the last is the per-kernel JSON record (launches from the
 path that runs each kernel: the sweep path, the prebinned path for K15a,
 the dynamic-radii path for K14, the sequential path for K7s, the
 grid-sharded paths for K15b (the transposed one for K15b-4b, the exact one
-for K15b-6a/b/c, the sequential one for K15b-7a/b/c), else the exact path; bound_ms from the bytes
-and operations of the timed call and the H100's published peaks); the last
+for K15b-6a/b/c, the sequential one for K15b-7a/b/c, the exact one for
+K2's one-sweep launch), else the exact path; bound_ms from the bytes and
+operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -177,15 +193,15 @@ from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan  # noq
 from vofod_tpu_torch.ops.compaction import (  # noqa: E402
     masked_compact, masked_compact_isin, masked_compact_isin_plain, masked_compact_plain)
 from vofod_tpu_torch.ops.components import (  # noqa: E402
-    SENTINEL, label_census, label_census_plain, label_components, label_components_plain, sweeps,
-    sweeps_plain)
+    SENTINEL, label_census, label_census_plain, label_components, label_components_plain,
+    label_components_seeded, sweep_plain, sweeps, sweeps_plain, sweeps_tiled_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
     explore_cut_plain, explore_plain, explore_sequential_, explore_sequential_plain,
     explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, shell_pool,
-    shell_taps, tap_pool_plain)
+    shell_taps, tap_pool_plain, tap_set)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
     RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces, gate_faces_plain,
     dda_n_steps, make_angular_gate, ray_ema_grid_, ray_ema_plain, ray_window_update_,
@@ -247,13 +263,17 @@ K12_RAYLEN_RTOL = 5e-4
 N_SCANS = 36
 N_EXACT_SCANS = 36
 # the kernels of each path, and those its flagship step launches once per scan
-SWEEP_KERNELS = ("ball_pool", "propagate_sweep", "frontend_bin", "cone_sweep", "masked_compact",
+SWEEP_KERNELS = ("ball_pool", "propagate_sweeps", "frontend_bin", "cone_sweep", "masked_compact",
                  "explore_bfs", "demote", "cluster_stats", "gate_faces", "ray_update", "detect",
                  "point_ema", "demote_ema")
-EXACT_KERNELS = ("ball_pool", "propagate_sweep", "frontend_bin", "masked_compact", "explore_bfs",
+EXACT_KERNELS = ("ball_pool", "propagate_sweeps", "frontend_bin", "masked_compact", "explore_bfs",
                  "demote", "cluster_stats", "detect", "point_ema", "dda", "ray_ema",
                  "label_census", "quirk_counts", "exact_demote_ema")
 ONCE_PER_SCAN = ("gate_faces", "ray_update", "detect", "point_ema", "demote_ema")
+# K2 on every dense path: one persistent launch per sweeps() call, a seeded
+# label and a reach call (or the census's label call) a scan; the one-sweep
+# launch only on the grid paths
+K2_CALLS_PER_DENSE_SCAN = 2
 ONCE_PER_EXACT_SCAN = ("dda", "ray_ema", "detect", "point_ema", "label_census", "quirk_counts",
                        "exact_demote_ema")
 # the sequential explore path: the exact path with K7s in place of K7 and K8
@@ -273,7 +293,9 @@ F32_OPS_PER_S = 67e12
 
 KERNEL_INFO = {
     "ball_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:70"),
-    "propagate_sweep": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/ops/components.py:88"),
+    "propagate_sweeps": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/ops/components.py:88"),
+    # the one-sweep launch of the grid-sharded step's halo'd sweeps
+    "propagate_sweep": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/parallel/gridops.py:374"),
     "frontend_bin": ("vofod_tpu_torch/csrc/frontend_bin.cu", "vofod_tpu/ops/binning.py:44"),
     "cone_sweep": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:210"),
     "masked_compact": ("vofod_tpu_torch/csrc/compact.cu", "vofod_tpu/ops/compaction.py:49"),
@@ -409,6 +431,92 @@ def phase1() -> None:
         host_library=host_so.name, ptxas=info)
 
 
+def _one_sweep_calls(init, occ, ball, n: int, until_fixpoint: bool):
+    """K2 as one launch a sweep, for comparison in the same call: the
+    one-sweep kernel (the grid paths') once per sweep, ping-ponging two
+    buffers, each launch past the fixpoint exiting on the previous sweep's
+    flag when ``until_fixpoint``."""
+    taps, halo = tap_set(ball)
+    occ8 = occ.contiguous().view(torch.uint8)
+
+    def run():
+        changed = torch.zeros(n, dtype=torch.int32, device=init.device)
+        src = init
+        bufs = (torch.empty_like(init), init.clone() if until_fixpoint else torch.empty_like(init))
+        for i in range(n):
+            prev = changed[i - 1] if until_fixpoint and i > 0 else None
+            kernels.propagate_sweep(src, bufs[i % 2], occ8, taps, halo, changed[i], prev)
+            src = bufs[i % 2]
+        return src, changed.bool()
+    return run
+
+
+@contextlib.contextmanager
+def k2_tiles_recorded():
+    """Within the block, record the tiles computed per sweep (device int32
+    [n]) of every persistent K2 call, in order, by wrapping
+    kernels.propagate_sweeps; yields the list."""
+    calls, real = [], kernels.propagate_sweeps
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out[1])
+        return out
+    kernels.propagate_sweeps = recording
+    try:
+        yield calls
+    finally:
+        kernels.propagate_sweeps = real
+
+
+def _k2_case(init, occ, ball, n: int, until_fixpoint: bool = False, reps: int = 20) -> dict:
+    """One persistent K2 call (``sweeps``) held bit-equal to the plain sweeps
+    (grid, per-sweep flags) and to the plain model of its schedule (tiles
+    computed per sweep), and one one-sweep launch a sweep to the same grid and
+    flags; ms of the call, of the one-sweep launches and of the plain
+    sweeps, and the blocks the launch used."""
+    with k2_tiles_recorded() as calls:
+        kg, kf = sweeps(init, occ, ball, n, until_fixpoint)
+    kt, = calls
+    pg, pf = sweeps_plain(init, occ, ball, n, until_fixpoint)
+    _, _, mt = sweeps_tiled_plain(init, occ, ball, n, until_fixpoint)
+    err = _equal((kg, kf, kt), (pg, pf, mt), "K2.grid K2.flags K2.tiles_per_sweep")
+    one = _one_sweep_calls(init, occ, ball, n, until_fixpoint)
+    _equal(one(), (pg, pf), "K2[one-sweep].grid K2[one-sweep].flags")
+    taps, halo = tap_set(ball)
+    _, _, blocks = kernels.propagate_sweeps(init.clone(), torch.empty_like(init),
+                                            occ.contiguous().view(torch.uint8), taps, halo, 1)
+    return dict(shape=list(init.shape), dtype=str(init.dtype), taps=len(taps), halo=halo,
+                max_abs_err=err, sweeps=n, sweeps_run=min(n, int(pf.sum()) + 1),
+                flags=pf.int().tolist(), tiles=kt.tolist(), model_tiles=mt.tolist(),
+                full_sweep_tiles=int(mt[0]), blocks=blocks,
+                ms=cuda_ms(lambda: sweeps(init, occ, ball, n, until_fixpoint), reps=reps),
+                one_sweep_launches_ms=cuda_ms(one, reps=reps),
+                plain_ms=cuda_ms(lambda: sweeps_plain(init, occ, ball, n, until_fixpoint),
+                                 reps=max(reps // 4, 1)))
+
+
+def _window_offsets(grid: GridSpec, x0, y0, wx, wy, gx, gy, gz, dev):
+    """(rel_x, rel_y, rel_z) of a sweep window, as the step computes them."""
+    rel_z = torch.arange(grid.nz, dtype=torch.float32, device=dev) + 0.5 - float(gz)
+    rel_x = torch.arange(wx, dtype=torch.float32, device=dev) + float(x0) + 0.5 - float(gx)
+    rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
+    return rel_x, rel_y, rel_z
+
+
+def _k4_case(op_w, rel_x, rel_y, rel_z) -> dict:
+    """K4 on one window against its plain version: bit-equal (n_diff 0,
+    within K4_TOL); ms of it and of the plain version."""
+    kt = cone_sweep(op_w, rel_x, rel_y, rel_z)
+    pt = cone_sweep_plain(op_w, rel_x, rel_y, rel_z)
+    e4, n_diff = max_abs(kt, pt), int((kt != pt).sum())
+    if not (e4 <= K4_TOL and n_diff == 0):
+        raise AssertionError(f"K4 window {tuple(op_w.shape)}: max|dT| {e4}, {n_diff} differ")
+    return dict(window=list(op_w.shape), max_abs_err=e4, n_diff=n_diff,
+                ms=cuda_ms(lambda: cone_sweep(op_w, rel_x, rel_y, rel_z)),
+                plain_ms=cuda_ms(lambda: cone_sweep_plain(op_w, rel_x, rel_y, rel_z), reps=2))
+
+
 def phase2(lut) -> list[dict]:
     """Each kernel against its plain version at flagship shapes."""
     dev = torch.device("cuda")
@@ -495,7 +603,10 @@ def phase2(lut) -> list[dict]:
                f"{[round(x, 4) for x in pms]}",
     ))
 
-    # K2 — 8 label sweeps from the scan's seeded keys; 8 reach sweeps
+    # K2 — the persistent launch: 8 label sweeps at r3 from the scan's seeded
+    # keys, 8 reach sweeps at r2, a fixpoint at sweep 0 (voxels 3 apart at
+    # r2) and a grid that is no multiple of the 32 x 8 x 4 tile; each beside
+    # one one-sweep launch a sweep, in this call
     bg_near = ball_pool_plain(bg.to(torch.int8), radius, "max", 0) > 0
     seed = occupied & bg_near
     nv = grid.n_voxels
@@ -503,43 +614,78 @@ def phase2(lut) -> list[dict]:
     key0 = (nv - 1) - flat + torch.where(seed, 0, nv).to(torch.int32)
     keys0 = torch.where(occupied, key0, SENTINEL)
     reach0 = (bg & (sure > 0)).to(torch.uint8)
-    err, ms, pms = 0.0, [], []
-    for init, occ, rad in ((keys0, occupied, radius), (reach0, bg, 2.0)):
-        kg, kc = sweeps(init, occ, rad, cfg.cc_sweeps)
-        pg, pc = sweeps_plain(init, occ, rad, cfg.cc_sweeps)
-        if not (torch.equal(kg, pg) and torch.equal(kc, pc)):
-            raise AssertionError(f"K2 {init.dtype} sweeps differ from the plain version")
-        err = max(err, max_abs(kg, pg))
-        ms.append(cuda_ms(lambda: sweeps(init, occ, rad, cfg.cc_sweeps)) / cfg.cc_sweeps)
-        pms.append(cuda_ms(lambda: sweeps_plain(init, occ, rad, cfg.cc_sweeps)) / cfg.cc_sweeps)
+    iso = torch.zeros(grid.shape, dtype=torch.bool, device=dev)
+    iso[::3, ::3, ::3] = True
+    odd = (slice(0, 50), slice(0, 199), slice(0, 237))
+    k2 = {}
+    for name, init, occ, rad in (
+            ("label r3", keys0, occupied, radius), ("reach r2", reach0, bg, 2.0),
+            ("fixpoint at sweep 0", torch.where(iso, flat, SENTINEL), iso, 2.0),
+            ("grid 50x199x237", keys0[odd].contiguous(), occupied[odd].contiguous(), radius)):
+        k2[name] = _k2_case(init, occ, rad, cfg.cc_sweeps)
+    if not (k2["fixpoint at sweep 0"]["sweeps_run"] == 1
+            and k2["fixpoint at sweep 0"]["tiles"][1:] == [0] * (cfg.cc_sweeps - 1)):
+        raise AssertionError(f"K2 fixpoint at sweep 0: {k2['fixpoint at sweep 0']}")
+    # the seeded labelling end to end: labels, reach, converged, iters
+    kl = label_components_seeded(occupied, seed, radius, cfg.cc_sweeps)
+    pl = label_components_seeded(occupied, seed, radius, cfg.cc_sweeps, sweep_fn=sweeps_plain)
+    _equal(kl, pl, "K2s.labels K2s.reached K2s.converged K2s.iters")
+    say("2-k2", cases=k2, seeded=dict(converged=bool(pl[2]), iters=int(pl[3])))
+    lab = k2["label r3"]
+    n_taps = len(ball_taps(radius))
+    both = {k: [round(v["ms"], 4), round(v["one_sweep_launches_ms"], 4)] for k, v in k2.items()}
     results.append(dict(
-        name="propagate_sweep", max_abs_err=err, ms=ms[0], plain_ms=pms[0],
-        bytes=nv * (4 + 1 + 4), ops=nv * len(ball_taps(radius)), library_ms=None,
-        shapes=f"{grid.shape}, per sweep; label r3 then reach r2: "
-               f"{[round(x, 4) for x in ms]} / {[round(x, 4) for x in pms]}",
+        name="propagate_sweeps", max_abs_err=lab["max_abs_err"], ms=lab["ms"], plain_ms=lab["plain_ms"],
+        # one call: the keys and the mask read once, the keys written once;
+        # the taps of every tile this call's schedule computed
+        bytes=nv * (4 + 1 + 4), ops=sum(lab["tiles"]) * 32 * 8 * 4 * n_taps, library_ms=None,
+        shapes=f"{grid.shape}, one call of {cfg.cc_sweeps} label sweeps at r3 ({n_taps} taps); "
+               f"ms per call / one-sweep launches x sweeps: {both}",
+    ))
+    # the one-sweep launch of the grid-sharded step, alone
+    taps, halo = tap_set(radius)
+    occ8 = occupied.view(torch.uint8)
+    dst, flag = torch.empty_like(keys0), torch.zeros((), dtype=torch.int32, device=dev)
+    kernels.propagate_sweep(keys0, dst, occ8, taps, halo, flag)
+    pn, pc = sweep_plain(keys0, occupied, radius)
+    e2 = _equal((dst, flag.bool()), (pn, pc), "K2[one sweep].grid K2[one sweep].flag")
+    results.append(dict(
+        name="propagate_sweep", max_abs_err=e2,
+        ms=cuda_ms(lambda: kernels.propagate_sweep(keys0, dst, occ8, taps, halo, flag)),
+        plain_ms=cuda_ms(lambda: sweep_plain(keys0, occupied, radius)),
+        bytes=nv * (4 + 1 + 4), ops=nv * n_taps, library_ms=None,
+        shapes=f"{grid.shape}, one label sweep at r3 ({n_taps} taps)",
     ))
 
-    # K4 — the cone sweep on the scan's blocker window
+    # K4 — the cone sweep on the scan's blocker window, and four more windows
     x0, y0, wx, wy, gx, gy, gz = sweep_window(grid, pose_np[:3, 3], cfg.raycast_max_distance_bound)
-    nz = grid.nz
-    rel_z = torch.arange(nz, dtype=torch.float32, device=dev) + 0.5 - float(gz)
-    rel_x = torch.arange(wx, dtype=torch.float32, device=dev) + float(x0) + 0.5 - float(gx)
-    rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
+    rel_x, rel_y, rel_z = _window_offsets(grid, x0, y0, wx, wy, gx, gy, gz, dev)
     op_w = occupied[:, y0:y0 + wy, x0:x0 + wx].contiguous()
-    kt = cone_sweep(op_w, rel_x, rel_y, rel_z)
-    pt = cone_sweep_plain(op_w, rel_x, rel_y, rel_z)
-    e4 = max_abs(kt, pt)
-    n_diff = int((kt != pt).sum())
-    if not e4 <= K4_TOL:
-        raise AssertionError(f"K4 max|dT| {e4} > {K4_TOL}")
+    k4 = {"flagship": _k4_case(op_w, rel_x, rel_y, rel_z)}
+    # the sensor 4 m from the grid's x and 6 m from its y edge: the window
+    # shifts against the edge; at a 60 m bound it is clipped to the grid
+    # (wx 241, wy 201)
+    edge = np.array([grid.origin[0] + 4.0, grid.origin[1] + 6.0, pose_np[2, 3]], np.float32)
+    for name, bound in (("sensor 4 m from an edge", cfg.raycast_max_distance_bound),
+                        ("clipped by the grid, 60 m bound", 60.0)):
+        w = sweep_window(grid, edge, bound)
+        ex, ey, ez = _window_offsets(grid, *w, dev)
+        k4[name] = _k4_case(occupied[:, w[1]:w[1] + w[3], w[0]:w[0] + w[2]].contiguous(),
+                            ex, ey, ez)
+    cut = op_w[:45, :93].contiguous()  # A rows 45 (x/y cones) and 93 (z cones): no multiple of C
+    k4["rows not a multiple of C"] = _k4_case(cut, rel_x, rel_y[:93], rel_z[:45])
+    for name, fill in (("all opaque", 1), ("all transparent", 0)):
+        k4[name] = _k4_case(torch.full_like(op_w, fill), rel_x, rel_y, rel_z)
+    say("2-k4", cluster=kernels.CONE_CLUSTER, cases=k4)
     nw = op_w.numel()
     results.append(dict(
-        name="cone_sweep", max_abs_err=e4, tol=K4_TOL, n_diff=n_diff,
+        name="cone_sweep", max_abs_err=k4["flagship"]["max_abs_err"], tol=K4_TOL, n_diff=0,
         bytes=nw * (1 + 6 * 4), ops=nw * 6 * 16, library_ms=None,
-        ms=cuda_ms(lambda: cone_sweep(op_w, rel_x, rel_y, rel_z)),
-        plain_ms=cuda_ms(lambda: cone_sweep_plain(op_w, rel_x, rel_y, rel_z), reps=3),
-        shapes=f"window {tuple(op_w.shape)}, 6 cones",
+        ms=k4["flagship"]["ms"], plain_ms=k4["flagship"]["plain_ms"],
+        shapes=f"window {tuple(op_w.shape)}, 6 cones on clusters of "
+               f"{kernels.CONE_CLUSTER} blocks",
     ))
+    kt = cone_sweep(op_w, rel_x, rel_y, rel_z)
     results += phase2_classify(cfg, dyn, grid, vals, k3, node.state.bg_sufficient, pose)
     window = (x0, y0, rel_x, rel_y, rel_z)
     results += phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window)
@@ -1142,11 +1288,14 @@ def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
     flat = torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape)
     keys0 = torch.where(occupied, (nv - 1) - flat, SENTINEL)
     reach0 = (bg & (sure > 0)).to(torch.uint8)
+    # K2's persistent launch up to halo 7 (2,103 taps: the large tap struct
+    # and the int32 tile above 48 KB), its blocks from the occupancy
+    # calculator at that tile
     for rad, init, occ in ((4.0, keys0, occupied), (5.0, reach0, bg), (7.99, keys0, occupied)):
-        _equal(sweeps(init, occ, rad, 4), sweeps_plain(init, occ, rad, 4),
-               f"K2[r{rad}].grid K2[r{rad}].flags")
-        cases[f"K2 {init.dtype} r{rad} ({len(ball_taps(rad))} taps), per sweep"] = cuda_ms(
-            lambda: sweeps(init, occ, rad, 4), reps=3) / 4
+        c = _k2_case(init, occ, rad, 4, reps=3)
+        cases[f"K2 {init.dtype} r{rad} ({c['taps']} taps), 4 sweeps, one call"] = dict(
+            ms=c["ms"], one_sweep_launches_ms=c["one_sweep_launches_ms"], blocks=c["blocks"],
+            tiles=c["tiles"])
     true = torch.ones((), dtype=torch.bool, device=dev)
     for rad in (4.0, 5.0, 7.99):
         _equal((demote_ema(vals, bg, safe, true, rad, 0.5, -500.0),),
@@ -1314,22 +1463,30 @@ def phase2_exact(lut) -> list[dict]:
     for y in range(0, grid.shape[1] - 4, 4):
         serp[0, y:y + 4, -1 if (y // 4) % 2 == 0 else 0] = True
     k2 = {}
+    flat = torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape)
     for name, occ in (("scan cells", occ_c), ("random 1 %", rnd_occ),
                       ("isolated", iso_occ), ("serpentine", serp)):
         kl = label_components(occ, mv / lsz, 128)
         pl = label_components_plain(occ, mv / lsz, 128)
         _equal(kl, pl, f"K2c[{name}].labels K2c[{name}].converged K2c[{name}].sweeps")
+        # the one call under it: grid, flags and tiles per sweep, and
+        # 128 gated one-sweep launches in this call
+        c = _k2_case(torch.where(occ, flat, SENTINEL), occ, mv / lsz, 128, until_fixpoint=True,
+                     reps=3)
         k2[name] = dict(converged=bool(pl[1]), sweeps=int(pl[2]),
                         ms=cuda_ms(lambda: label_components(occ, mv / lsz, 128), reps=3),
                         plain_ms=cuda_ms(lambda: label_components_plain(occ, mv / lsz, 128),
-                                         reps=1))
-    flat = torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape)
+                                         reps=1),
+                        sweeps_call_ms=c["ms"], one_sweep_launches_ms=c["one_sweep_launches_ms"],
+                        tiles_computed=sum(c["tiles"]), tiles_per_sweep=c["tiles"],
+                        full_sweep_tiles=c["full_sweep_tiles"])
     if not (k2["random 1 %"]["converged"] and k2["scan cells"]["sweeps"] >= 2
             and k2["isolated"]["converged"] and k2["isolated"]["sweeps"] == 1
             and torch.equal(label_components(iso_occ, mv / lsz, 128)[0],
                             torch.where(iso_occ, flat, SENTINEL))
             and not k2["serpentine"]["converged"] and k2["serpentine"]["sweeps"] == 128):
         raise AssertionError(f"K2 convergence cases: {k2}")
+    say("2-k2-convergence", cases=k2)
 
     # K13b: the scan's grids, and random fields at leaf sizes 1 and 2
     k13b = {}
@@ -1634,6 +1791,27 @@ def phase3() -> None:
         expected_checksum=float(z["grid_checksum"]), launches=launches)
 
 
+def _k2_dense_scans(launches: dict, calls: list | None, n_scans: int, what: str) -> dict:
+    """K2 on a dense path: exactly K2_CALLS_PER_DENSE_SCAN persistent launches
+    a scan and no one-sweep launch; from ``calls`` (k2_tiles_recorded over
+    the run, read after it) the tiles computed a scan and the sweeps each
+    call ran, beside a full sweep's tiles."""
+    want = K2_CALLS_PER_DENSE_SCAN * n_scans
+    got = (launches.get("propagate_sweeps", 0), launches.get("propagate_sweep", 0))
+    assert got == (want, 0), (
+        f"{what}: K2 persistent / one-sweep launches {got}, expected ({want}, 0)")
+    if calls is None:
+        return {}
+    assert len(calls) == want, f"{what}: {len(calls)} K2 calls recorded, expected {want}"
+    k = K2_CALLS_PER_DENSE_SCAN
+    per_call = [int(t.sum()) for t in calls]
+    per_scan = [sum(per_call[i * k:(i + 1) * k]) for i in range(n_scans)]
+    full = int(np.prod([-(-n // t) for n, t in zip(VoFODConfig().grid_shape, kernels.TILE_ZYX)]))
+    return dict(k2_launches_per_scan=k, k2_tiles_per_scan=per_scan,
+                k2_tiles_per_scan_mean=float(np.mean(per_scan)), k2_full_sweep_tiles=full,
+                k2_sweeps_run_per_call=[int((t > 0).sum()) for t in calls])
+
+
 def phase4(lut) -> dict:
     """The flagship main path: 36 scans through VoFOD(device="cuda")."""
     cfg = VoFODConfig()
@@ -1643,7 +1821,7 @@ def phase4(lut) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     step_ms, syncs, n_dets, n_queries, n_demoted = [], [], [], [], []
-    with warnings.catch_warnings(record=True) as caught:
+    with k2_tiles_recorded() as calls, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -1668,6 +1846,7 @@ def phase4(lut) -> dict:
     assert bool(d.bg_sufficient), "background never became sufficient"
     assert not bool(torch.isnan(g).any()) and not bool(torch.isneginf(g).any()), "grid not finite"
     assert max(syncs) <= 1, f"host syncs per scan: {syncs}"
+    k2 = _k2_dense_scans(launches, calls, N_SCANS, "sweep path")
     missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
     assert not missing, f"kernels never launched on the sweep path: {missing}"
     # the ray stage (new update rule: one K5b launch), detect and both EMA
@@ -1689,6 +1868,7 @@ def phase4(lut) -> dict:
         bg_sufficient=bool(d.bg_sufficient), sure_bg_sufficient=bool(d.sure_bg_sufficient),
         n_bg_voxels=int(d.n_bg_voxels), cc_iters=int(d.cc_iters),
         launches=launches, launches_per_scan={k: v / N_SCANS for k, v in launches.items()},
+        **k2,
     )
     say("4-flagship", **out)
     return launches, out["step_ms_p50"]
@@ -1727,7 +1907,7 @@ def phase4_exact(lut, sequential: bool = False) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     step_ms, syncs, n_dets, sweeps, sep_conv, n_queries, n_demoted = [], [], [], [], [], [], []
-    with warnings.catch_warnings(record=True) as caught:
+    with k2_tiles_recorded() as calls, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -1752,6 +1932,7 @@ def phase4_exact(lut, sequential: bool = False) -> dict:
     d = node.last_diag
     g = node.state.grid
     what = "sequential" if sequential else "exact"
+    k2 = _k2_dense_scans(launches, calls, N_EXACT_SCANS, f"{what} path")
     assert bool(d.bg_sufficient), "background never became sufficient"
     assert not bool(torch.isnan(g).any()) and not bool(torch.isneginf(g).any()), "grid not finite"
     assert max(syncs) <= 1, f"host syncs per {what} scan: {syncs}"
@@ -1777,8 +1958,10 @@ def phase4_exact(lut, sequential: bool = False) -> dict:
         explore_queries_per_scan=n_queries, demotion_writes_per_scan=n_demoted,
         bg_sufficient=bool(d.bg_sufficient), sure_bg_sufficient=bool(d.sure_bg_sufficient),
         n_bg_voxels=int(d.n_bg_voxels),
+        capped_scans=int(sum(1 for c in sep_conv if not c)),
         launches=launches,
         launches_per_scan={k: v / N_EXACT_SCANS for k, v in launches.items() if v},
+        **k2,
     )
     say("4-sequential" if sequential else "4-exact", **out)
     return launches, out["step_ms_p50"]
@@ -1860,6 +2043,8 @@ def phase4_prebinned(lut) -> dict:
     lp, lr = launches["prebinned"], launches["raw"]
     assert lp.get("unpack", 0) == N_SCANS and lp.get("frontend_bin", 0) == 0, lp
     assert lr.get("frontend_bin", 0) == N_SCANS and lr.get("unpack", 0) == 0, lr
+    _k2_dense_scans(lp, None, N_SCANS, "prebinned path")
+    _k2_dense_scans(lr, None, N_SCANS, "raw path beside the prebinned one")
     assert max(syncs["prebinned"]) <= 1 and max(syncs["raw"]) <= 1, syncs
     assert bool(pre.last_diag.bg_sufficient), "background never became sufficient"
     out = dict(
@@ -1936,6 +2121,7 @@ def phase4_dynamic(lut) -> dict:
     assert not rebuilt, "the kernel library was rebuilt when the radii changed"
     assert max(syncs) <= 1, f"host syncs per dynamic scan: {syncs}"
     assert launches.get("shell_pool", 0) > 0, launches
+    _k2_dense_scans(launches, None, N_SCANS, "dynamic path")
     assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
     say("4-dynamic", scans=N_SCANS, segments=segments, bit_equal_to_static=True,
         kernel_rebuilds=0, host_syncs_per_scan=float(np.mean(syncs)), launches=launches,
@@ -2765,21 +2951,21 @@ def dynamic_config() -> VoFODConfig:
 
 
 _EXACT_NEVER = ("dda", "label_census", "quirk_counts", "cone_sweep_lat", "cone_sweep_z",
-                "cone_sweep_zt")
+                "cone_sweep_zt", "propagate_sweeps")
 # the grid-sharded paths: (config, node options, make_grid_sharded_step
 # options, the kernels each scan must launch, kernels it must never launch,
 # kernels it must launch exactly so many times a scan)
 GRID_PATHS = {
-    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt",), {}),
+    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt", "propagate_sweeps"), {}),
     "exact": (exact_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
               GRID_EXACT_KERNELS, _EXACT_NEVER, {}),
     "transpose": (VoFODConfig, {}, dict(zcone_mode="transpose"), GRID_TRANSPOSE_KERNELS,
-                  ("cone_sweep_z",), {}),
+                  ("cone_sweep_z", "propagate_sweeps"), {}),
     "prebinned": (VoFODConfig, dict(frontend_mode="prebinned"), dict(frontend_mode="prebinned"),
-                  GRID_KERNELS + ("unpack",), ("frontend_bin", "cone_sweep_zt"),
+                  GRID_KERNELS + ("unpack",), ("frontend_bin", "cone_sweep_zt", "propagate_sweeps"),
                   {"unpack": GRID_SHARDS}),
     "dynamic": (dynamic_config, {}, {}, GRID_KERNELS + ("shell_pool", "propagate_sweep"),
-                ("ball_pool", "cone_sweep_zt"), {}),
+                ("ball_pool", "cone_sweep_zt", "propagate_sweeps"), {}),
     "sequential": (sequential_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
                    GRID_SEQ_KERNELS, _EXACT_NEVER + ("halo_fold_min", "explore_seq",
                                                      "explore_bfs", "demote"),
@@ -3063,6 +3249,7 @@ def main() -> int:
         differing_ops={k[:80]: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
                        if a.get(k, 0) != b.get(k, 0)})
     path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
+                     "propagate_sweep": gx_launches,
                      "explore_seq": seq_launches, "cone_sweep_zt": gt_launches,
                      **{g: grid_launches for g in GRID_KERNELS},
                      **{g: gs_launches for g in ("explore_cut", "explore_seq_stack",
@@ -3074,8 +3261,8 @@ def main() -> int:
         src, replaces = KERNEL_INFO[r["name"]]
         # launches from the path that runs the kernel: the sweep path, the
         # prebinned (K15a), dynamic-radii (K14), sequential (K7s) and
-        # grid-sharded (K15b: sweep, exact, transposed, sequential) paths,
-        # else the exact path
+        # grid-sharded (K15b: sweep, exact, transposed, sequential; K2's
+        # one-sweep launch: exact) paths, else the exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
              else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S

@@ -102,6 +102,34 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
+// load_tile for the output tile (tx, ty, tz): a persistent kernel's
+// blocks walk over many tiles.  `in` is neither const nor __restrict__ at
+// its callers, so the loads are coherent ones (never ld.global.nc): they
+// read what other blocks wrote before a grid barrier whose acquire fence
+// orders them after those writes.
+template <typename T>
+__device__ __forceinline__ void load_tile_at(const T* in, T* tile, int tx, int ty, int tz,
+                                             int nz, int ny, int nx, int halo, T fill) {
+  const int sx = TILE_X + 2 * halo, sy = TILE_Y + 2 * halo,
+            sz = TILE_Z + 2 * halo;
+  const int x0 = tx * TILE_X - halo;
+  const int y0 = ty * TILE_Y - halo;
+  const int z0 = tz * TILE_Z - halo;
+  const int tid = threadIdx.x + TILE_X * (threadIdx.y + TILE_Y * threadIdx.z);
+  const int n = sx * sy * sz;
+  for (int i = tid; i < n; i += TILE_X * TILE_Y * TILE_Z) {
+    const int lx = i % sx;
+    const int rest = i / sx;
+    const int ly = rest % sy;
+    const int lz = rest / sy;
+    const int gx = x0 + lx, gy = y0 + ly, gz = z0 + lz;
+    T v = fill;
+    if (gx >= 0 && gx < nx && gy >= 0 && gy < ny && gz >= 0 && gz < nz)
+      v = in[((size_t)gz * ny + gy) * nx + gx];
+    tile[i] = v;
+  }
+}
+
 inline size_t tile_elems(int halo) {
   return (size_t)(TILE_X + 2 * halo) * (TILE_Y + 2 * halo) *
          (TILE_Z + 2 * halo);

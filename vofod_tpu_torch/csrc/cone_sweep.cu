@@ -11,19 +11,35 @@
 // Bound on the H100: latency, not bytes.  The flagship window is 97 x 97 x
 // 51 voxels around the sensor, so the x/y cones step through 97 planes of
 // 51 x 97 and the z cones through 51 planes of 97 x 97; each plane step
-// depends on the previous one.  The design keeps one cone's whole sweep in
-// ONE thread block: the carry and the B-resampled plane stay in shared
-// memory in bf16 (2 x 97 x 97 x 2 B = 37.6 KB), the per-plane tap weights
-// are computed into shared memory by the block itself, and each plane costs
-// three block barriers and no device-memory round trip except the f32 T it
-// writes.  Six blocks leave most of the 132 SMs idle: the first thing to
-// fix later (split each cone's lateral plane over a thread-block cluster).
+// depends on the previous one, so the time is planes x the latency of one
+// step.  The design (`cone_cluster_kernel`) shortens that step:
+//   * each cone runs on a thread-block cluster of C = 16 blocks (a
+//     non-portable size), each block owning a band of the plane's A
+//     rows (z for the x/y cones, y for the z cones): 96 SMs in place of 6;
+//   * the B pass (along a row) reads only the block's own carry rows; the
+//     A pass at row a reads the B-resampled rows a - 1 .. a + 2, at a
+//     band's edge from the neighbouring blocks through distributed shared
+//     memory.  The B-resampled plane is double-buffered by plane parity, so
+//     one cluster barrier and one block barrier a plane suffice: no block
+//     can overwrite a buffer a neighbour still reads;
+//   * nothing inside the recurrence reads device memory: before the plane
+//     loop each block packs its band's opacity for every plane as bits (32
+//     voxels of x a word, from aligned 16-byte loads) and copies the
+//     offsets into shared memory;
+//     each plane's tap weights (bf16, 8 bytes a lane) are computed during
+//     the plane before, by the threads the passes leave idle, into a
+//     buffer of the other parity;
+//   * T is written in runs along x: the y and z cones' lanes are x already;
+//     the x cones stage 32 planes of their lanes in shared memory (bf16: T
+//     is bf16-exact) and store each lane's 32 planes as one 128-byte run.
+// The carry stays in bf16 in shared memory as before.
 //
 // Arithmetic, fixed so that the plain PyTorch version reproduces it: tap
 // weights in f32 exactly as `_tap_weights`, rounded to bf16; each resample
 // is w0*p[i-1] + w1*p[i] + w2*p[i+1] + w3*p[i+2] in f32, summed left to
 // right with __fmul_rn / __fadd_rn (no FMA), out-of-plane taps reading 1.0,
-// and rounded to bf16 after each of the two lateral passes.
+// and rounded to bf16 after each of the two lateral passes.  So T is
+// bit-equal to the plain version's.
 //
 // The grid-sharded sweep (vofod_tpu/ops/raycast.py raycast_sweep_zsharded)
 // has two kernels here, with K4's arithmetic so that its T is bit-equal:
@@ -39,10 +55,11 @@
 //
 // K15b-4a `vofod_cone_sweep_z` replaces `_sweep_cones_z_pipelined`
 // (raycast.py:361): the z cones with the sweep axis sharded.  One launch
-// runs K4's z-cone loop over the shard's planes from a carry plane in to a
-// carry plane out; n rounds with the carry passed along (cone 0 up, cone 1
-// down) make the pipeline, and each shard keeps cone 0 from round `rank`
-// and cone 1 from round n - 1 - rank.  Bound: latency, as K4's z cones.
+// runs a one-block z-cone loop (`sweep_planes`, K4's arithmetic) over the
+// shard's planes from a carry plane in to a carry plane out; n rounds with
+// the carry passed along (cone 0 up, cone 1 down) make the pipeline, and
+// each shard keeps cone 0 from round `rank` and cone 1 from round n - 1 -
+// rank.  Bound: latency, one block a cone.
 //
 // K15b-4b `vofod_cone_sweep_zt` replaces `_sweep_cones_z_transposed`
 // (raycast.py:308, zcone_mode="transpose"): the z cones after an
@@ -57,9 +74,12 @@
 // to K4's z cones.  Both cones are written in grid order (z ascending), as
 // K4 writes them.  Bound: latency; nz + 1 launches and nz exchanges per
 // scan per shard, launch-bound by design in this version.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -131,7 +151,7 @@ __device__ __forceinline__ float row_b_pass(const float* wb, const __nv_bfloat16
   return lerp4(wb, m1, c0, p1, p2);
 }
 
-// One cone's plane loop (K4's, shared by K15b-4a): nS planes moving away
+// One cone's plane loop in one block (K15b-4a's): nS planes moving away
 // from the sensor, the carry and the B-resampled plane in shared memory
 // (the caller fills the carry; the first barrier below orders that).  Per
 // plane s: T_in = seed ? 1 : resample(carry), written to Tc (skipped when
@@ -182,42 +202,257 @@ __device__ __forceinline__ void sweep_planes(
   }
 }
 
-__global__ void __launch_bounds__(SWEEP_THREADS)
-    cone_sweep_kernel(const uint8_t* __restrict__ opaque,
-                      const float* __restrict__ rel_x,
-                      const float* __restrict__ rel_y,
-                      const float* __restrict__ rel_z, float* __restrict__ T,
-                      int nz, int ny, int nx) {
-  const int cone = blockIdx.x;  // x+, x-, y+, y-, z+, z-
-  const int axis = cone >> 1;
-  const bool back = cone & 1;
+// One cone's geometry in the window: nS planes of nA x nB lanes, the
+// strides of the sweep axis S and the lateral axes A, B in T's [nz, ny,
+// nx] layout, and the voxel-centre offsets along each.
+struct Cone {
   int nS, nA, nB;
   size_t st_s, st_a, st_b;
   const float *rel_s, *rel_a, *rel_b;
-  if (axis == 0) {  // x cones: A = z, B = y
-    nS = nx; nA = nz; nB = ny;
-    st_s = 1; st_a = (size_t)ny * nx; st_b = nx;
-    rel_s = rel_x; rel_a = rel_z; rel_b = rel_y;
-  } else if (axis == 1) {  // y cones: A = z, B = x
-    nS = ny; nA = nz; nB = nx;
-    st_s = nx; st_a = (size_t)ny * nx; st_b = 1;
-    rel_s = rel_y; rel_a = rel_z; rel_b = rel_x;
-  } else {  // z cones: A = y, B = x
-    nS = nz; nA = ny; nB = nx;
-    st_s = (size_t)ny * nx; st_a = nx; st_b = 1;
-    rel_s = rel_z; rel_a = rel_y; rel_b = rel_x;
-  }
-  const int nP = nA * nB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* wa = reinterpret_cast<float*>(smem_raw);  // [nA][4]
-  float* wb = wa + 4 * nA;                          // [nB][4]
-  __nv_bfloat16* carry = reinterpret_cast<__nv_bfloat16*>(wb + 4 * nB);
-  __nv_bfloat16* tmp = carry + nP;
+};
 
-  for (int i = threadIdx.x; i < nP; i += blockDim.x)
-    carry[i] = __float2bfloat16_rn(1.0f);
-  sweep_planes(opaque, rel_s, rel_a, rel_b, nS, nA, nB, st_s, st_a, st_b, back, wa, wb, carry,
-               tmp, T + (size_t)cone * nz * ny * nx);
+__device__ __forceinline__ Cone cone_of(int axis, const float* rel_x, const float* rel_y,
+                                        const float* rel_z, int nz, int ny, int nx) {
+  if (axis == 0)  // x cones: A = z, B = y
+    return {nx, nz, ny, 1, (size_t)ny * nx, (size_t)nx, rel_x, rel_z, rel_y};
+  if (axis == 1)  // y cones: A = z, B = x
+    return {ny, nz, nx, (size_t)nx, (size_t)ny * nx, 1, rel_y, rel_z, rel_x};
+  return {nz, ny, nx, (size_t)ny * nx, (size_t)nx, 1, rel_z, rel_y, rel_x};  // z: A = y, B = x
+}
+
+constexpr int CLUSTER_THREADS = 1024;
+constexpr int CONE_CLUSTER = 16;  // blocks a cone: 96 SMs for the six cones
+constexpr int STAGE = 32;        // planes of the x cones' T staged per store run
+constexpr int STAGE_PITCH = 34;  // bf16 a staged lane: 17 words, so lanes hit distinct banks
+
+// Byte offsets of one block's shared memory, the same in every block of the
+// launch (sized for the largest of the three cone shapes at cluster size C;
+// the host sizes the launch with the same function).
+struct ClusterSmem {
+  size_t rs, rel_b, rel_a, wb, wa, bits, rowp, carry, tmp, stage, total;
+};
+
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline ClusterSmem cluster_smem(int nz, int ny, int nx, int C) {
+  const int band_z = (nz + C - 1) / C, band_y = (ny + C - 1) / C;
+  const int band = imax(band_z, band_y), n_b = imax(nx, ny);
+  const int n_s = imax(nx, imax(ny, nz));
+  const int lanes = imax(band_z * n_b, band_y * nx);
+  const int words = imax(band_z * ny, nz * band_y) * ((nx + 31) / 32);
+  ClusterSmem m;
+  m.rs = 0;
+  m.rel_b = align16(m.rs + 4 * (size_t)n_s);
+  m.rel_a = align16(m.rel_b + 4 * (size_t)n_b);
+  m.wb = align16(m.rel_a + 4 * (size_t)band);
+  m.wa = align16(m.wb + 8 * 2 * (size_t)n_b);
+  m.bits = align16(m.wa + 8 * 2 * (size_t)band);
+  m.rowp = align16(m.bits + 4 * (size_t)words);
+  m.carry = align16(m.rowp + 8 * 2 * (size_t)(band + 3));
+  m.tmp = align16(m.carry + 2 * (size_t)lanes);
+  m.stage = align16(m.tmp + 2 * 2 * (size_t)lanes);
+  m.total = align16(m.stage + 2 * (size_t)STAGE_PITCH * band_z * ny);
+  return m;
+}
+
+// Tap weights of plane p for lane i of the block: B lane i < nB, else its
+// own A row i - nB; packed as 4 bf16 (each weight is bf16-rounded, so its
+// upper 16 bits are the bf16).
+__device__ __forceinline__ void plane_weights(const float* rs, const float* rel_b,
+                                              const float* rel_a, int p, int i, int nB,
+                                              uint2* wb, uint2* wa) {
+  float w[4];
+  tap_weights(rs[p], i < nB ? rel_b[i] : rel_a[i - nB], w);
+  const uint2 packed =
+      make_uint2((__float_as_uint(w[0]) >> 16) | (__float_as_uint(w[1]) & 0xffff0000u),
+                 (__float_as_uint(w[2]) >> 16) | (__float_as_uint(w[3]) & 0xffff0000u));
+  if (i < nB)
+    wb[i] = packed;
+  else
+    wa[i - nB] = packed;
+}
+
+__device__ __forceinline__ void unpack_weights(uint2 p, float* w) {
+  w[0] = __uint_as_float(p.x << 16);
+  w[1] = __uint_as_float(p.x & 0xffff0000u);
+  w[2] = __uint_as_float(p.y << 16);
+  w[3] = __uint_as_float(p.y & 0xffff0000u);
+}
+
+// K4: cluster c = blockIdx.x / C sweeps cone c (x+, x-, y+, y-, z+, z-);
+// block rank k of the cluster owns the A rows [k nA / C, (k + 1) nA / C).
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+    cone_cluster_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
+                        const float* __restrict__ rel_y, const float* __restrict__ rel_z,
+                        float* __restrict__ T, int nz, int ny, int nx) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cone = blockIdx.x / C;
+  const int axis = cone >> 1;
+  const bool back = cone & 1;
+  const Cone g = cone_of(axis, rel_x, rel_y, rel_z, nz, ny, nx);
+  const int nS = g.nS, nA = g.nA, nB = g.nB;
+  const int a0 = rank * nA / C, band = (rank + 1) * nA / C - a0;
+  const int band_max = (nA + C - 1) / C;  // the tmp rows of every block of the cluster
+  const int lanes = band * nB;
+  const int nwx = (nx + 31) / 32;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ClusterSmem m = cluster_smem(nz, ny, nx, C);
+  float* rs = reinterpret_cast<float*>(smem_raw + m.rs);        // [nS] signed rel_s a plane
+  float* rel_b = reinterpret_cast<float*>(smem_raw + m.rel_b);  // [nB]
+  float* rel_a = reinterpret_cast<float*>(smem_raw + m.rel_a);  // [band], own rows
+  uint2* wb = reinterpret_cast<uint2*>(smem_raw + m.wb);        // [2][nB] by plane parity
+  uint2* wa = reinterpret_cast<uint2*>(smem_raw + m.wa);        // [2][band]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem_raw + m.bits);
+  const __nv_bfloat16** rowp = reinterpret_cast<const __nv_bfloat16**>(smem_raw + m.rowp);
+  __nv_bfloat16* carry = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.carry);  // [band][nB]
+  __nv_bfloat16* tmp = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.tmp);  // [2][band_max][nB]
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.stage);
+  // --- prologue: offsets, plane 0's weights, opacity bits, carry, the A
+  // pass's row pointers, all in shared memory
+  for (int i = tid; i < nS + nB + band; i += nthr) {
+    if (i < nS) {
+      const int s = back ? nS - 1 - i : i;
+      rs[i] = back ? -g.rel_s[s] : g.rel_s[s];
+    } else if (i < nS + nB) {
+      rel_b[i - nS] = g.rel_b[i - nS];
+    } else {
+      rel_a[i - nS - nB] = g.rel_a[a0 + i - nS - nB];
+    }
+  }
+  // opacity rows (z, y) of this block as bits, 32 voxels of x a word: the
+  // band's z rows and every y (x/y cones), or every z and the band's y rows
+  // (z cones).  For each z those rows are one run of bytes, read in aligned
+  // 16-byte loads, 4 in flight a thread; the opaque voxels are OR-ed in.
+  const int rz = axis < 2 ? band : nz, ry = axis < 2 ? ny : band;
+  const int z0 = axis < 2 ? a0 : 0, y0 = axis < 2 ? 0 : a0;
+  const int n_words = rz * ry * nwx;
+  for (int w = tid; w < n_words; w += nthr) bits[w] = 0u;
+  __syncthreads();
+  const long run = (long)ry * nx;
+  const int n16 = (int)((run + 30) / 16);  // 16-byte words a run spans at most
+  constexpr int IN_FLIGHT = 4;
+  for (int q0 = tid; q0 < rz * n16; q0 += IN_FLIGHT * nthr) {
+    uint4 v[IN_FLIGHT];
+    long first[IN_FLIGHT];  // byte offset of each load's first byte in its run
+    int zr[IN_FLIGHT];
+#pragma unroll
+    for (int k = 0; k < IN_FLIGHT; ++k) {
+      const int q = q0 + k * nthr;
+      zr[k] = q / n16;
+      const uint8_t* base = opaque + ((size_t)(z0 + zr[k]) * ny + y0) * nx;
+      const uintptr_t lo = reinterpret_cast<uintptr_t>(base) & ~(uintptr_t)15;
+      first[k] = (long)(lo - reinterpret_cast<uintptr_t>(base)) + 16L * (q - zr[k] * n16);
+      v[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (q < rz * n16 && first[k] < run)
+        v[k] = *reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(lo) +
+                                               16L * (q - zr[k] * n16));
+    }
+#pragma unroll
+    for (int k = 0; k < IN_FLIGHT; ++k) {
+      const uint32_t w4[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+      for (int j = 0; j < 16; ++j) {
+        const long off = first[k] + j;
+        if (((w4[j >> 2] >> (8 * (j & 3))) & 0xffu) == 0u || off < 0 || off >= run) continue;
+        const int r = (int)(off / nx), x = (int)(off - (long)r * nx);
+        atomicOr(&bits[(zr[k] * ry + r) * nwx + (x >> 5)], 1u << (x & 31));
+      }
+    }
+  }
+  for (int i = tid; i < lanes; i += nthr) carry[i] = __float2bfloat16_rn(1.0f);
+  // rowp[par][k]: row a0 - 1 + k of the B-resampled plane of parity par, in
+  // the shared memory of the block that owns it; NULL past the plane (1.0)
+  for (int i = tid; i < 2 * (band + 3); i += nthr) {
+    const int par = i / (band + 3), r = a0 - 1 + i % (band + 3);
+    const __nv_bfloat16* ptr = nullptr;
+    if (r >= 0 && r < nA) {
+      const int owner = ((r + 1) * C - 1) / nA;
+      __nv_bfloat16* local = tmp + ((size_t)par * band_max + r - owner * nA / C) * nB;
+      ptr = cluster.map_shared_rank(local, owner);
+    }
+    rowp[i] = ptr;
+  }
+  __syncthreads();
+  for (int i = tid; i < nB + band; i += nthr) plane_weights(rs, rel_b, rel_a, 0, i, nB, wb, wa);
+  __syncthreads();
+
+  float* Tc = T + (size_t)cone * nz * ny * nx;
+  for (int p = 0; p < nS; ++p) {
+    const int s = back ? nS - 1 - p : p;
+    const bool seed = rs[p] <= 1.0f;
+    const int par = p & 1;
+    __nv_bfloat16* tb = tmp + (size_t)par * band_max * nB;
+    const uint2* wbp = wb + par * nB;
+    const uint2* wap = wa + par * band;
+    // pass 1: resample the own carry rows along B
+    for (int i = tid; i < lanes; i += nthr) {
+      const int al = i / nB, b = i - al * nB;
+      float w[4];
+      unpack_weights(wbp[b], w);
+      tb[i] = __float2bfloat16_rn(row_b_pass(w, carry + al * nB, b, nB));
+    }
+    cluster.sync();  // every block's B-resampled rows of this plane are ready
+    // pass 2: resample along A (rows a - 1 .. a + 2, some in the
+    // neighbours' shared memory), seed, T, attenuate into the carry
+    const __nv_bfloat16* const* rows = rowp + par * (band + 3);
+    for (int i = tid; i < lanes; i += nthr) {
+      const int al = i / nB, b = i - al * nB;
+      float t = 1.0f;
+      if (!seed) {
+        float w[4], v[4];
+        unpack_weights(wap[al], w);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const __nv_bfloat16* src = rows[al + d];
+          v[d] = src != nullptr ? __bfloat162float(src[b]) : 1.0f;
+        }
+        t = round_bf16(lerp4(w, v[0], v[1], v[2], v[3]));
+      }
+      int x, word;
+      if (axis == 0) {  // (z, y) = (a, b), x = s
+        x = s;
+        word = (al * ny + b) * nwx;
+      } else if (axis == 1) {  // (z, y) = (a, s), x = b
+        x = b;
+        word = (al * ny + s) * nwx;
+      } else {  // (z, y) = (s, a), x = b
+        x = b;
+        word = (s * band + al) * nwx;
+      }
+      const bool op = (bits[word + (x >> 5)] >> (x & 31)) & 1u;
+      if (axis == 0)
+        stage[i * STAGE_PITCH + p % STAGE] = __float2bfloat16_rn(t);  // bf16-exact
+      else
+        Tc[(size_t)s * g.st_s + (size_t)(a0 + al) * g.st_a + (size_t)b * g.st_b] = t;
+      carry[i] = __float2bfloat16_rn(op ? 0.0f : t);
+    }
+    // the next plane's weights, off the recurrence, by the highest threads
+    // (idle in the passes above where the block has fewer lanes)
+    if (p + 1 < nS)
+      for (int i = nthr - 1 - tid; i < nB + band; i += nthr)
+        plane_weights(rs, rel_b, rel_a, p + 1, i, nB, wb + (par ^ 1) * nB,
+                      wa + (par ^ 1) * band);
+    __syncthreads();  // the carry, the staged planes and the weights complete
+    if (axis == 0 && (p % STAGE == STAGE - 1 || p == nS - 1)) {
+      // each lane's staged planes as one run along x (descending for x-);
+      // the next plane's A pass rewrites `stage` only after its cluster
+      // barrier, which every thread reaches after this loop
+      const int p0 = p - p % STAGE, cnt = p - p0 + 1;
+      for (int i = tid; i < lanes * STAGE; i += nthr) {
+        const int l = i / STAGE, j = i - l * STAGE;
+        if (j >= cnt) continue;
+        const int al = l / nB, b = l - al * nB;
+        const int sj = back ? nS - 1 - (p0 + j) : p0 + j;
+        Tc[(size_t)(a0 + al) * g.st_a + (size_t)b * g.st_b + sj] =
+            __bfloat162float(stage[l * STAGE_PITCH + j]);
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while a neighbour may read its rows
 }
 
 // K15b-3: launch k of the x/y cone sweep with the lateral A axis (= grid
@@ -337,8 +572,8 @@ __global__ void __launch_bounds__(LAT_THREADS)
   }
 }
 
-// K15b-4a: one round of the pipelined z cones on a shard's nzl planes: K4's
-// z-cone loop (A = y, B = x), cone 0 ascending and cone 1 descending,
+// K15b-4a: one round of the pipelined z cones on a shard's nzl planes: the
+// one-block z-cone loop (A = y, B = x), cone 0 ascending and cone 1 descending,
 // starting from carry_in [2][wy][wx] and leaving the last plane's carry in
 // carry_out.  T (the z+ and z- cones of the local T6) is written only for
 // the cones in keep_mask (bit c): the rounds a shard does not keep compute
@@ -363,40 +598,46 @@ __global__ void __launch_bounds__(SWEEP_THREADS)
   for (int i = threadIdx.x; i < nP; i += blockDim.x) carry_out[(size_t)cone * nP + i] = carry[i];
 }
 
-// Bytes of dynamic shared memory the sweep needs for this window: the tap
-// weights (2 x 4 f32 per lateral lane) and the carry + resampled plane (bf16)
-// of the largest of the three plane shapes.
-long long cone_sweep_smem(int nz, int ny, int nx) {
-  long long best = 0;
-  const int shapes[3][2] = {{nz, ny}, {nz, nx}, {ny, nx}};
-  for (int k = 0; k < 3; ++k) {
-    const long long nA = shapes[k][0], nB = shapes[k][1];
-    const long long bytes = 16 * (nA + nB) + 4 * nA * nB;
-    if (bytes > best) best = bytes;
-  }
-  return best;
-}
-
 }  // namespace
 
 // opaque: device uint8 (nz, ny, nx); rel_*: device f32 voxel-centre offsets
-// from the sensor; T: device f32 [6, nz, ny, nx].  Returns cudaGetLastError().
-VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x,
-                               const void* rel_y, const void* rel_z, void* T,
-                               int nz, int ny, int nx, void* stream) {
-  const long long smem = cone_sweep_smem(nz, ny, nx);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cone_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cone_sweep_kernel<<<6, SWEEP_THREADS, (size_t)smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(opaque), static_cast<const float*>(rel_x),
-      static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
-      static_cast<float*>(T), nz, ny, nx);
+// from the sensor; T: device f32 [6, nz, ny, nx].  Each cone runs on a
+// cluster of CONE_CLUSTER blocks (non-portable); clusters the card cannot
+// hold at once run one after another.  Returns cudaGetLastError(), or the
+// refusal of a cluster the card cannot schedule at all (never another
+// launch).
+VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void* rel_y,
+                               const void* rel_z, void* T, int nz, int ny, int nx,
+                               void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(nz, ny, nx, CONE_CLUSTER).total;
+  if (smem > 232448) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaFuncSetAttribute(cone_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(cone_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CONE_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(6 * CONE_CLUSTER);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, cone_cluster_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, cone_cluster_kernel, static_cast<const uint8_t*>(opaque),
+                         static_cast<const float*>(rel_x), static_cast<const float*>(rel_y),
+                         static_cast<const float*>(rel_z), static_cast<float*>(T), nz, ny, nx);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

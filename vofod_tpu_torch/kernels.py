@@ -47,6 +47,7 @@ LAUNCHES: dict[str, int] = {
     "ball_pool": 0,
     "shell_pool": 0,
     "propagate_sweep": 0,
+    "propagate_sweeps": 0,
     "frontend_bin": 0,
     "cone_sweep": 0,
     "masked_compact": 0,
@@ -87,6 +88,10 @@ LAUNCHES: dict[str, int] = {
 
 MAX_TAPS = 2112
 MAX_HALO = 7
+# their output tile (z, y, x): csrc/common.cuh TILE_Z, TILE_Y, TILE_X
+TILE_ZYX = (4, 8, 32)
+# K4's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
+CONE_CLUSTER = 16
 
 _lib = None
 _lock = threading.Lock()
@@ -178,6 +183,8 @@ def load():
             _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P]
         lib.vofod_propagate_sweep.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]
+        lib.vofod_propagate_sweeps.argtypes = [
+            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _P]
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -220,7 +227,7 @@ def load():
         lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 5
         lib.vofod_demote_direct.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P,
                                             _P]
-        for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep,
+        for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep, lib.vofod_propagate_sweeps,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
                    lib.vofod_cluster_stats,
@@ -336,6 +343,42 @@ def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
     _count("propagate_sweep")
 
 
+def propagate_sweeps(buf0: torch.Tensor, buf1: torch.Tensor, occ: torch.Tensor,
+                     taps: np.ndarray, halo: int, n: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """K2, persistent: ``n`` Jacobi sweeps in one cooperative launch, sweep i
+    from ``(buf0, buf1)[i % 2]`` into the other, ``buf0`` holding the
+    initial grid (sweep 1 overwrites it) and ``buf1`` anything (sweep 0
+    writes all of it); the result lands in
+    ``(buf0, buf1)[n % 2]``.  int32: min-label sweeps, uint8: reach sweeps.
+    Stops after the first sweep that changed nothing (a fixpoint; the later
+    flags stay 0).  Returns (changed int32 [n], tiles computed int32 [n],
+    blocks launched); raises when the launch is refused."""
+    mode = {torch.int32: 0, torch.uint8: 1}.get(buf0.dtype)
+    if mode is None or buf0.dim() != 3:
+        raise ValueError(f"propagate_sweeps takes a 3-D int32/uint8 grid, got {buf0.dtype}")
+    if n < 1:
+        raise ValueError(f"propagate_sweeps runs at least one sweep, got {n}")
+    _require(buf0, "propagate_sweeps buf0", buf0.dtype)
+    _require(buf1, "propagate_sweeps buf1", buf0.dtype, buf0.shape)
+    _require(occ, "propagate_sweeps occ", torch.uint8, buf0.shape)
+    keep, ptr = _taps_arg(taps, halo)
+    nz, ny, nx = buf0.shape
+    n_tiles = 1
+    for size, tile in zip(buf0.shape, TILE_ZYX):
+        n_tiles *= -(-size // tile)
+    lib = load()
+    # changed flags, tiles per sweep, the barrier counter, the tiles' marks
+    scratch = torch.zeros(2 * n + 1 + n_tiles, dtype=torch.int32, device=buf0.device)
+    lists = torch.empty(2 * n_tiles, dtype=torch.int32, device=buf0.device)
+    blocks = _I(0)
+    err = lib.vofod_propagate_sweeps(
+        buf0.data_ptr(), buf1.data_ptr(), occ.data_ptr(), mode, nz, ny, nx, ptr, len(keep),
+        halo, n, scratch.data_ptr(), lists.data_ptr(), ctypes.byref(blocks), _stream())
+    _check(err, "vofod_propagate_sweeps")
+    _count("propagate_sweeps")
+    return scratch[:n], scratch[n:2 * n], blocks.value
+
+
 def frontend_bin(ranges: torch.Tensor, dirs: torch.Tensor, offs: torch.Tensor,
                  pose: torch.Tensor, boxes: np.ndarray, inv_voxel: float,
                  range_scale: float, shape: tuple[int, int, int],
@@ -370,8 +413,9 @@ def frontend_bin(ranges: torch.Tensor, dirs: torch.Tensor, offs: torch.Tensor,
 
 def cone_sweep(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
                rel_z: torch.Tensor) -> torch.Tensor:
-    """K4: transmittance T [6, nz, ny, nx] f32 of the six cone sweeps."""
-    lib = load()
+    """K4: transmittance T [6, nz, ny, nx] f32 of the six cone sweeps, each
+    cone on a thread-block cluster of :data:`CONE_CLUSTER` blocks.  Raises
+    when the card cannot schedule such a cluster."""
     if opaque.dim() != 3:
         raise ValueError("cone_sweep takes a 3-D opacity window")
     nz, ny, nx = opaque.shape
@@ -379,6 +423,7 @@ def cone_sweep(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
     _require(rel_x, "cone_sweep rel_x", torch.float32, (nx,))
     _require(rel_y, "cone_sweep rel_y", torch.float32, (ny,))
     _require(rel_z, "cone_sweep rel_z", torch.float32, (nz,))
+    lib = load()
     T = torch.empty((6, nz, ny, nx), dtype=torch.float32, device=opaque.device)
     err = lib.vofod_cone_sweep(
         opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),

@@ -8,21 +8,25 @@ split) and of vofod_tpu/parallel/gridops.py ``DenseOps.label_census``.  Two
 occupied voxels are adjacent iff the Euclidean distance of their indices is
 <= ``radius``.
 
-All run Jacobi sweeps with no host sync.  Each sweep is one launch of the
-fused CUDA kernel (csrc/propagate.cu) for CUDA tensors, or the plain
-version (K1's pool + mask) for CPU tensors, and records a per-sweep changed
-flag on the device:
+All run Jacobi sweeps with no host sync.  On CUDA tensors every sweep of
+one call runs in ONE persistent launch of the fused kernel
+(csrc/propagate.cu ``vofod_propagate_sweeps``): a grid-wide barrier between
+sweeps, the blocks leaving after the first sweep that changed nothing, and
+each sweep after the first recomputing only the 32 x 8 x 4 tiles within
+the ball's reach of a tile that changed in the sweep before
+(:func:`sweeps_tiled_plain` is the plain model of that schedule).  CPU
+tensors take the plain version (K1's pool + mask).  Each records a
+per-sweep changed flag on the device:
 
 * ``propagate_reach``: the JAX while_loop stops at the first sweep that
   changes nothing or at the cap; growth is monotone, so sweeps past the
   fixpoint are no-ops and ``converged = ~changed[last]`` equals the JAX flag.
 * ``label_components_seeded``: the JAX fori_loop already runs ``max_iters``
   sweeps; ``iters`` (the last sweep that changed anything) stays on the
-  device.
+  device.  Sweeps past a fixpoint change nothing, so stopping there
+  leaves the labels and flags of the fixed count.
 * ``label_components``: the JAX while_loop runs to the first sweep that
-  changes nothing or to the cap.  The cap's worth of sweeps is enqueued and
-  each launch past the fixpoint exits at once on the previous sweep's
-  device flag (``sweeps(..., until_fixpoint=True)``).
+  changes nothing or to the cap (``sweeps(..., until_fixpoint=True)``).
 
 ``traced_r2`` (cfg.dynamic_radii): the adjacency is the ball of the
 runtime squared radius within the static bound ``radius``, the K14 tap set
@@ -30,9 +34,10 @@ ops/morphology.Shells, on the same sweep kernel.
 
 On the grid-sharded step (parallel/gridops.py ZShardOps) the grids are a
 shard's z slab: ``sweep_fn`` is then the sharded sweep (a halo exchange
-per sweep, K2 on the extended slab with its change flag over the interior
-rows, the flags OR-ed over the shards), and both labellings take the
-slab's first global row ``z0`` (the seeded one also the grid's ``nz``).
+per sweep, K2's one-sweep launch on the extended slab with its change
+flag over the interior rows, the flags OR-ed over the shards), and both
+labellings take the slab's first global row ``z0`` (the seeded one also
+the grid's ``nz``).
 The census splits into its scatter and read-back passes there (K15b-6a,
 :func:`census_scatter_plain`, :func:`census_read_plain`), with a psum of
 the census between them.
@@ -41,6 +46,7 @@ the census between them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.ops.morphology import Shells, pool_plain, tap_set
@@ -82,29 +88,71 @@ def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
     return cur, torch.stack(flags)
 
 
+def sweeps_tiled_plain(init: Tensor, occ: Tensor, ball, n: int, until_fixpoint: bool = False,
+                       tile: tuple[int, int, int] = kernels.TILE_ZYX
+                       ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain model of the persistent K2 launch's schedule, on any device:
+    (final grid, bool [n] per-sweep changed flags, int32 [n] tiles computed
+    per sweep).  Sweep i reads ``bufs[i % 2]`` and writes ``bufs[(i + 1) %
+    2]``, ``bufs[0]`` starting as ``init``; sweep 0 computes every ``tile``
+    (z, y, x), sweep i >= 1 only the tiles within ``ceil(halo / extent)``
+    tiles per axis of one that changed in sweep i - 1, the rest keeping what
+    the destination holds.  It stops after the first sweep that changed
+    nothing, in either mode: that sweep is a fixpoint, so the grid and flags
+    equal :func:`sweeps_plain`'s with or without ``until_fixpoint``."""
+    del until_fixpoint  # the schedule always stops at a fixpoint
+    _, halo = tap_set(ball)
+    shape = init.shape
+    grid_t = [-(-s // t) for s, t in zip(shape, tile)]
+    reach = [-(-halo // t) for t in tile]
+    bufs = [init.clone(), torch.empty_like(init)]
+    flags = torch.zeros(n, dtype=torch.bool, device=init.device)
+    tiles = torch.zeros(n, dtype=torch.int32, device=init.device)
+    tile_changed = None
+    for i in range(n):
+        src, dst = bufs[i % 2], bufs[(i + 1) % 2]
+        if i == 0:
+            active = torch.ones(grid_t, dtype=torch.bool, device=init.device)
+        else:
+            near = F.max_pool3d(tile_changed[None, None].to(torch.float32),
+                                [2 * r + 1 for r in reach], stride=1, padding=reach)
+            active = near[0, 0] > 0
+        vox = active
+        for axis, t in enumerate(tile):
+            vox = vox.repeat_interleave(t, dim=axis)
+        vox = vox[:shape[0], :shape[1], :shape[2]]
+        new, _ = sweep_plain(src, occ, ball)
+        dst.copy_(torch.where(vox, new, dst))
+        diff = F.pad(vox & (new != src), [0, grid_t[2] * tile[2] - shape[2],
+                                          0, grid_t[1] * tile[1] - shape[1],
+                                          0, grid_t[0] * tile[0] - shape[0]])
+        tile_changed = diff.reshape(grid_t[0], tile[0], grid_t[1], tile[1], grid_t[2],
+                                    tile[2]).any(5).any(3).any(1)
+        flags[i] = tile_changed.any()
+        tiles[i] = active.sum()
+        if not bool(flags[i]):
+            break
+    return bufs[n % 2], flags, tiles
+
+
 def sweeps(init: Tensor, occ: Tensor, ball, n: int,
            until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
     """``n`` Jacobi sweeps from ``init`` over ``ball`` (a radius, traced
     shells or a tap set): int32 keys take the masked
     min-label sweep, uint8 masks the reach sweep.  Returns (final grid,
     bool [n] per-sweep changed flags), both on the device of ``init``.
-    ``until_fixpoint``: stop after the first sweep that changes nothing (on
-    the card, every later launch reads that sweep's flag and exits)."""
+    ``until_fixpoint``: stop after the first sweep that changes nothing.
+    On the card the one persistent launch always stops there, which
+    changes neither the grid nor the flags of a fixed count."""
     if init.is_cuda:
         taps, halo = tap_set(ball)
-        occ8 = occ.contiguous().view(torch.uint8)
-        changed = torch.zeros(n, dtype=torch.int32, device=init.device)
-        # ping-pong between two fresh buffers: the caller's ``init`` is read
-        # once.  Gated, the second starts as ``init``: when sweep 0 is already
-        # the fixpoint no later launch writes it, and it may be the one returned
         src = init.contiguous()
-        bufs = (torch.empty_like(src), src.clone() if until_fixpoint else torch.empty_like(src))
-        for i in range(n):
-            dst = bufs[i % 2]
-            prev = changed[i - 1] if until_fixpoint and i > 0 else None
-            kernels.propagate_sweep(src, dst, occ8, taps, halo, changed[i], prev)
-            src = dst
-        return src, changed.bool()
+        # sweep 1 writes the first buffer, where a tile it skips must hold
+        # output(-1) = init; sweep 0 writes all of the second
+        bufs = (src.clone(), torch.empty_like(src))
+        changed, _, _ = kernels.propagate_sweeps(bufs[0], bufs[1], occ.contiguous().view(
+            torch.uint8), taps, halo, n)
+        return bufs[n % 2], changed.bool()
     if init.device.type != "cpu":
         raise ValueError(f"propagation: unsupported device {init.device}")
     return sweeps_plain(init, occ, ball, n, until_fixpoint)
