@@ -52,8 +52,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    fixpoint, a serpentine corridor where the 128-sweep cap binds; each
    call's grid, flags and tiles per sweep too, beside the 128 gated
    one-sweep launches), K13b (the
-   scan's grids, random fields at leaf sizes 1 and 2), K13a and K13c
-   (sure_sufficient True and False) bit-equal.  The prebinned ingest on a
+   scan's grids; random fields at leaf sizes 1-4; no bg, all bg, a single
+   bg voxel; a grid whose columns and cells take more look-back tiles than
+   the card holds resident; each also equal to the column-walk model
+   ``quirk_counts_columnwalk_plain``), K13a and K13c (sure_sufficient True
+   and False) bit-equal.  K13b and K15b-6b also report their device-kernel
+   ms, kernel launches and memsets a call (torch.profiler) beside the
+   CUDA-event mean.  The prebinned ingest on a
    flagship scan: K15a bit-equal to its plain version on the native
    binner's packed grid, whose counts (clamped to 63) and blockers are
    bit-equal to K3's and the raw frontend's; the host bin's p50/p95 over
@@ -81,8 +86,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside its plain version on the all_to_all'd window, T equal to K4's z
    cones.  Then the reference-exact grid path's kernels on a flagship
    exact scan, 3 shards, each beside its plain version on the same
-   received blocks and against the dense kernel: K15b-6b's three passes
-   (equal to K13b), K2's sharded label components (labels, converged and
+   received blocks and against the dense kernel: K15b-6b's three entries
+   (equal to K13b; also with no bg and all bg), K2's sharded label components (labels, converged and
    sweeps equal to the dense ones), K15b-6a's two passes (equal to K13a
    with its flags), K13c on halo'd coarse arrays through its z window
    (equal to K13c), K15b-6c's slabs (equal to K12's rows, within
@@ -127,7 +132,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and demotion writes.  Then the node's runtime surface: the rangefinder
    under both validity rules, an NPZ snapshot round trip, the LUT
    consistency check, a ``trace_dir`` window and ``profile_stages``
-   (bit-equal to a fused node).  Then phase 4-grid: 36 scans through
+   (bit-equal to a fused node).  Then phase 4-hostile, the hostile-input
+   contract of tests/test_hostile_inputs.py on the sweep, exact and off
+   paths with the raw ingest and the sweep path with the prebinned one:
+   from a learned state, 6 scans with NaN, +-inf and negative float ranges
+   and NaN intensity leave grid and safe bit-equal to the sanitized run's,
+   NaN-free; a non-finite pose skips the scan (no launch, state kept) on
+   both ingests.  Then phase 4-grid: 36 scans through
    ``make_grid_sharded_step`` over 3 shards of 17 planes on the card, each
    beside a dense node on the same scan: state, diagnostics and detection
    integers bit-equal, detection floats within 1e-5 relative, every K15b
@@ -214,7 +225,7 @@ from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
     DetectConsts, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
-    pool_sum_coarse, quirk_sure_counts, quirk_sure_counts_plain)
+    pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain)
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
     frontend_bin, frontend_bin_plain, run_frontend, unpack, unpack_plain)
@@ -364,6 +375,34 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(fn, reps: int = 20) -> dict:
+    """The device side of fn() from torch.profiler over reps calls, after
+    one warm-up: kernel ms a call (the sum of its kernels' durations),
+    kernel launches a call, and the same for memsets.  Beside cuda_ms it
+    says whether the host or the device holds the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {"kernel": 0.0, "memset": 0.0, "memcpy": 0.0}
+    n = dict.fromkeys(us, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        kind = "memcpy" if "memcpy" in low else "memset" if "memset" in low else "kernel"
+        us[kind] += float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+        n[kind] += 1
+    return dict(device_ms=us["kernel"] / reps / 1e3, cuda_launches=n["kernel"] / reps,
+                memset_ms=us["memset"] / reps / 1e3, memsets=n["memset"] / reps,
+                memcpys=n["memcpy"] / reps)
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1488,22 +1527,51 @@ def phase2_exact(lut) -> list[dict]:
         raise AssertionError(f"K2 convergence cases: {k2}")
     say("2-k2-convergence", cases=k2)
 
-    # K13b: the scan's grids, and random fields at leaf sizes 1 and 2
-    k13b = {}
+    # K13b: the scan's grids; random fields at leaf sizes 1-4 (51 rows:
+    # leaves 2 and 4 leave a partial top cell, 3 and 4 partial x cells);
+    # no bg, all bg, one bg voxel; a grid whose columns and cells take more
+    # look-back tiles than the card holds blocks of the two scans resident.
+    # Each bit-equal to the plain version and to the column-walk model.
+    geo = kernels.quirk_geometry()
+    if (geo["col_tile"], geo["cell_tile"]) != (kernels.QUIRK_COL_TILE, kernels.QUIRK_CELL_TILE):
+        raise AssertionError(f"csrc/census.cu's tiles {geo} differ from kernels.QUIRK_*_TILE")
+    side = 1 + int(np.ceil(np.sqrt(max((geo["col_resident"] + 1) * geo["col_tile"],
+                                       (geo["cell_resident"] + 1) * geo["cell_tile"] / 3))))
+    wide = (3, side, side)
+    tiles = (-(-side * side // geo["col_tile"]), -(-3 * side * side // geo["cell_tile"]))
+    if not (tiles[0] > geo["col_resident"] and tiles[1] > geo["cell_resident"]):
+        raise AssertionError(f"K13b wide case: tiles {tiles} within {geo}")
     rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.3
     rnd_sure = torch.rand(grid.shape, generator=g, device=dev) < 0.4
+    no_bg = torch.zeros_like(rnd_bg)
+    one_bg = no_bg.clone()
+    one_bg[grid.nz // 2, grid.ny // 2, grid.nx // 2] = True
+    g_wide = torch.Generator(device=dev).manual_seed(13)  # g's later draws stay as they were
+    wide_bg = torch.rand(wide, generator=g_wide, device=dev) < 0.3
+    wide_sure = torch.rand(wide, generator=g_wide, device=dev) < 0.4
+    k13b = {"geometry": geo, "wide tiles": tiles}
     for name, b_, s_, l_ in (("scan", bg, sure, lsz), ("random", rnd_bg, rnd_sure, 1),
-                             ("random, leaf 2", rnd_bg, rnd_sure, 2)):
+                             ("random, leaf 2", rnd_bg, rnd_sure, 2),
+                             ("random, leaf 3", rnd_bg, rnd_sure, 3),
+                             ("random, leaf 4", rnd_bg, rnd_sure, 4),
+                             ("no bg", no_bg, rnd_sure, 1), ("all bg", ~no_bg, rnd_sure, 1),
+                             ("all bg, leaf 3", ~no_bg, rnd_sure, 3),
+                             ("single bg", one_bg, one_bg, 1),
+                             (f"{wide}, tiles past resident", wide_bg, wide_sure, 1)):
         kq = quirk_sure_counts(b_, s_, l_)
         pq = quirk_sure_counts_plain(b_, s_, l_)
-        _equal((kq,), (pq,), f"K13b[{name}].counts")
+        _equal((kq, quirk_counts_columnwalk_plain(b_, s_, l_)), (pq, pq),
+               f"K13b[{name}].counts K13b[{name}].column-walk-model")
         k13b[name] = dict(total=int(pq.sum()), moved_cells=int(
             (pq != pool_sum_coarse((b_ & s_).to(torch.int32), l_)).sum()))
+    if not (k13b["no bg"]["total"] == 0 and k13b["single bg"]["total"] == 1):
+        raise AssertionError(f"K13b edge cases: {k13b}")
     bg_e = bg.permute(2, 1, 0).reshape(-1).to(torch.int32)
     nc = occ_c.numel()
     out.append(dict(
         name="quirk_counts", max_abs_err=0.0, cases=k13b,
         ms=cuda_ms(lambda: quirk_sure_counts(bg, sure, lsz)),
+        **device_profile(lambda: quirk_sure_counts(bg, sure, lsz)),
         plain_ms=cuda_ms(lambda: quirk_sure_counts_plain(bg, sure, lsz)),
         bytes=2 * nv + nc * 4, ops=4 * nv,
         library_ms=cuda_ms(lambda: torch.cumsum(bg_e, 0)),
@@ -2129,6 +2197,117 @@ def phase4_dynamic(lut) -> dict:
     return launches, segments[-1]["step_ms_p50"]
 
 
+def poison(ranges_u32: np.ndarray, seed: int):
+    """tests/test_hostile_inputs.py's ``poison``: a float copy of a rendered
+    scan with NaN, +inf, -inf and negative pixels (a sixteenth of them
+    each), its sanitized equivalent (NaN, -inf and negatives -> 0, +inf ->
+    4e9) and the four pixel sets."""
+    rng = np.random.default_rng(seed)
+    r = ranges_u32.astype(np.float32).ravel().copy()
+    n = r.size
+    qs = np.array_split(rng.choice(n, size=4 * (n // 16), replace=False), 4)
+    r[qs[0]] = np.nan
+    r[qs[1]] = np.inf
+    r[qs[2]] = -np.inf
+    r[qs[3]] = -1234.5
+    sane = r.copy()
+    sane[qs[0]] = 0.0
+    sane[qs[1]] = 4.0e9
+    sane[qs[2]] = 0.0
+    sane[qs[3]] = 0.0
+    return r, sane, qs
+
+
+# the dense paths of the hostile-input phase: (config, node options, the
+# kernels that read the poisoned scan first)
+HOSTILE_PATHS = {
+    "sweep/raw": (VoFODConfig, {}, ("frontend_bin",)),
+    "exact/raw": (exact_config, dict(raycast_mode="exact"), ("frontend_bin", "dda")),
+    "sweep/prebinned": (VoFODConfig, dict(frontend_mode="prebinned"), ("unpack",)),
+    "off/raw": (VoFODConfig, dict(raycast_mode="off"), ("frontend_bin",)),
+}
+
+
+def phase4_hostile(lut, n: int = 6) -> None:
+    """The hostile-input contract of tests/test_hostile_inputs.py on the
+    card, at the flagship size: from a learned state, n scans of the cycle
+    with poisoned float ranges and NaN intensity on a quarter of the poisoned pixels (1e9 in
+    the sanitized twin, which passes the intensity gate as NaN does) leave
+    grid and safe bit-equal to the sanitized run's, with no NaN and the grid
+    moved, on each dense path; a non-finite pose (all NaN, a NaN rotation with a finite
+    translation, an infinite translation) skips the scan, launching nothing
+    and leaving the state as it was, on the raw and the prebinned ingest."""
+    cycle = scan_cycle(lut, 2 * n)
+    # both runs of a path start from the state of a sweep node after the
+    # apriori plane and n clean scans, so that the raycast-off path's point
+    # EMA has a background to land near
+    warm = VoFOD(VoFODConfig(), DynParams(), NodeOptions(), lut, device="cuda")
+    warm.load_apriori_map(apriori_ground())
+    for r, p in cycle[n:]:
+        warm.process_scan(r, None, p)
+    seq = []
+    for i, (r, p) in enumerate(cycle[:n]):
+        bad, sane, qs = poison(r, seed=100 + i)
+        inten_bad = np.full(r.size, 100.0, np.float32)
+        inten_sane = inten_bad.copy()
+        inten_bad[qs[0]] = np.nan
+        inten_sane[qs[0]] = 1.0e9
+        seq.append((bad, inten_bad, sane, inten_sane, p))
+    out = {}
+    for path, (make_cfg, opts, readers) in HOSTILE_PATHS.items():
+        nodes = [VoFOD(make_cfg(), DynParams(), NodeOptions(**opts), lut, device="cuda")
+                 for _ in range(2)]
+        for node in nodes:
+            node.state = dataclasses.replace(warm.state, **{
+                k: v.clone() for k, v in vars(warm.state).items() if isinstance(v, torch.Tensor)})
+        reads = []
+        for node, poisoned in zip(nodes, (True, False)):
+            kernels.reset_launch_counts()
+            for k, (bad, ib, sane, isane, p) in enumerate(seq):
+                if poisoned:
+                    node.process_scan(bad, ib, p, stamp=0.1 * k)
+                else:
+                    node.process_scan(sane, isane, p, stamp=0.1 * k)
+            launched = kernels.launch_counts()
+            reads.append({k: launched[k] for k in readers})
+        a, b = (node.state for node in nodes)
+        nan = int(torch.isnan(a.grid).sum())
+        differ = dict(grid=int((a.grid != b.grid).sum()), safe=int((a.safe != b.safe).sum()))
+        moved = int((a.grid != warm.state.grid).sum())
+        out[path] = dict(nan_voxels=nan, differ=differ, reader_launches=reads[0],
+                         voxels_moved_by_the_scans=moved)
+        if (nan or any(differ.values()) or not moved or not all(reads[0].values())
+                or reads[0] != reads[1]):
+            raise AssertionError(f"hostile inputs on the {path} path: {out[path]}")
+    for path in ("sweep/raw", "sweep/prebinned"):
+        make_cfg, opts, _ = HOSTILE_PATHS[path]
+        node = VoFOD(make_cfg(), DynParams(), NodeOptions(**opts), lut, device="cuda")
+        r, p = scan_cycle(lut, 1)[0]
+        node.process_scan(r, None, p)
+        before = {k: v.clone() for k, v in vars(node.state).items()
+                  if isinstance(v, torch.Tensor)}
+        step = node.state.step
+        rot_nan = p.astype(np.float32).copy()
+        rot_nan[:3, :3] = np.nan
+        inf_pose = p.astype(np.float32).copy()
+        inf_pose[2, 3] = np.inf
+        kernels.reset_launch_counts()
+        for k, bad_pose in enumerate((np.full((4, 4), np.nan, np.float32), rot_nan, inf_pose)):
+            msg = node.process_scan(r, None, bad_pose, stamp=1.0 + k)
+            if msg.detections or node.n_pose_rejected != k + 1:
+                raise AssertionError(f"{path}: non-finite pose {k} was not skipped")
+        launched = sum(kernels.launch_counts().values())
+        kept = all(torch.equal(getattr(node.state, k), v) for k, v in before.items())
+        if launched or not kept or node.state.step != step:
+            raise AssertionError(f"{path}: a skipped scan launched {launched} kernels, state "
+                                 f"kept {kept}, step {step} -> {node.state.step}")
+        node.process_scan(r, None, p)
+        if node.state.step != step + 1:
+            raise AssertionError(f"{path}: the node stopped after the skipped scans")
+        out[f"pose skip, {path}"] = dict(rejected=node.n_pose_rejected, launches=launched)
+    say("4-hostile", scans=n, **out)
+
+
 def phase4_surface(lut) -> None:
     """The node's runtime surface on the card at the flagship size:
     ``process_rangefinder`` under both validity rules (one voxel per
@@ -2555,25 +2734,29 @@ def phase2_grid_exact(lut) -> list[dict]:
     results, checks = [], {}
 
     # K15b-6b: each pass beside its plain version on the same gathered
-    # columns and psum'd table; the slabs' counts against K13b
-    def quirk_shard(rank):
-        b, s_ = bg[sl[rank]].contiguous(), sure[sl[rank]].contiguous()
+    # columns and psum'd table; the slabs' counts against K13b; the same on
+    # grids with no bg and all bg
+    def quirk_shard(rank, bg_, what):
+        b, s_ = bg_[sl[rank]].contiguous(), sure[sl[rank]].contiguous()
         cols = kernels.quirk_columns(b, s_)
-        _equal((cols,), (quirk_columns_plain(b, s_),), f"K15b-6b.columns[{rank}]")
+        _equal((cols,), (quirk_columns_plain(b, s_),), f"K15b-6b{what}.columns[{rank}]")
         blocks = comm.all_gather(cols)
         u_k, below = kernels.quirk_ranks(b, s_, blocks, rank, nv)
         _equal((u_k, below), quirk_ranks_plain(b, s_, blocks, rank, nv),
-               f"K15b-6b.u[{rank}] K15b-6b.below[{rank}]")
+               f"K15b-6b{what}.u[{rank}] K15b-6b{what}.below[{rank}]")
         u = comm.psum(u_k)
         q = kernels.quirk_query(b, lsz, u, below)
-        _equal((q,), (quirk_query_plain(b, lsz, u, below),), f"K15b-6b.query[{rank}]")
+        _equal((q,), (quirk_query_plain(b, lsz, u, below),), f"K15b-6b{what}.query[{rank}]")
         return q, quirk_sure_counts_sharded(b, s_, lsz, comm)
 
-    out = comm.run(quirk_shard)
+    no_bg = torch.zeros_like(bg)
+    for bg_, what in ((bg, ""), (no_bg, "[no bg]"), (~no_bg, "[all bg]")):
+        out = comm.run(lambda rank: quirk_shard(rank, bg_, what))
+        sure_c = quirk_sure_counts(bg_, sure, lsz)
+        if not (torch.equal(torch.cat([q for q, _ in out]), sure_c)
+                and torch.equal(torch.cat([q for _, q in out]), sure_c)):
+            raise AssertionError(f"K15b-6b{what}: the sharded quirk counts differ from K13b")
     sure_c = quirk_sure_counts(bg, sure, lsz)
-    if not (torch.equal(torch.cat([q for q, _ in out]), sure_c)
-            and torch.equal(torch.cat([q for _, q in out]), sure_c)):
-        raise AssertionError("K15b-6b: the sharded quirk counts differ from K13b")
     checks["quirk_moved_cells"] = int((sure_c != pool_sum_coarse((bg & sure).to(torch.int32),
                                                                  lsz)).sum())
 
@@ -2679,6 +2862,7 @@ def phase2_grid_exact(lut) -> list[dict]:
     results.append(dict(
         name="quirk_columns", max_abs_err=0.0,
         ms=cuda_ms(lambda: kernels.quirk_columns(b1, s1)),
+        **device_profile(lambda: kernels.quirk_columns(b1, s1)),
         plain_ms=cuda_ms(lambda: quirk_columns_plain(b1, s1)),
         bytes=2 * nzl * plane + 8 * plane, ops=2 * nzl * plane,
         library_ms=cuda_ms(lambda: b1.sum(0, dtype=torch.int32)),
@@ -2688,6 +2872,7 @@ def phase2_grid_exact(lut) -> list[dict]:
     results.append(dict(
         name="quirk_ranks", max_abs_err=0.0,
         ms=cuda_ms(lambda: kernels.quirk_ranks(b1, s1, blocks, t, nv)),
+        **device_profile(lambda: kernels.quirk_ranks(b1, s1, blocks, t, nv)),
         plain_ms=cuda_ms(lambda: quirk_ranks_plain(b1, s1, blocks, t, nv)),
         bytes=2 * nzl * plane + 8 * n * plane + 4 * (nv + 2), ops=4 * nzl * plane,
         library_ms=cuda_ms(lambda: torch.cumsum(bg_e1, 0)),
@@ -2700,6 +2885,7 @@ def phase2_grid_exact(lut) -> list[dict]:
     results.append(dict(
         name="quirk_query", max_abs_err=0.0,
         ms=cuda_ms(lambda: kernels.quirk_query(b1, lsz, u, below1)),
+        **device_profile(lambda: kernels.quirk_query(b1, lsz, u, below1)),
         plain_ms=cuda_ms(lambda: quirk_query_plain(b1, lsz, u, below1)),
         bytes=nzl * plane + 8 * nc1 + 4 * nc1, ops=4 * nc1, library_ms=None,
         shapes=f"{nc1} cells of the slab, leaf {lsz}; bit-equal",
@@ -3222,6 +3408,7 @@ def main() -> int:
     phase4_auto(lut)
     dyn_launches, dyn_ms_p50 = phase4_dynamic(lut)
     phase4_surface(lut)
+    phase4_hostile(lut)
     grid_launches, grid_ms_p50 = phase4_grid(lut)
     gx_launches, gx_ms_p50 = phase4_grid(lut, "exact")
     gt_launches, _ = phase4_grid(lut, "transpose")

@@ -142,10 +142,11 @@ inline dim3 tile_grid(int nz, int ny, int nx) {
 
 // Exclusive block-wide prefix sum of v (blockDim.x a multiple of 32, at most
 // 1024 threads); the block total through *total.  warp_s: shared memory of
-// blockDim.x / 32 elements.  The device-wide scans of K6 (csrc/compact.cu)
-// and K13b (csrc/census.cu) are built from it: a count pass of block
-// totals, one block that scans them (scan_block_totals), a write pass that
-// rescans each block from its offset.
+// blockDim.x / 32 elements.  K6's device-wide scan (csrc/compact.cu) is
+// built from it: a count pass of block totals, one block that scans them
+// (scan_block_totals), a write pass that rescans each block from its
+// offset.  K13b's and K15b-6b's single-pass scans (csrc/census.cu) scan
+// each tile with it and add the tiles before by decoupled look-back.
 template <typename T>
 __device__ __forceinline__ T block_excl_scan(T v, T* warp_s, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

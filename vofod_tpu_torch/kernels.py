@@ -92,6 +92,11 @@ MAX_HALO = 7
 TILE_ZYX = (4, 8, 32)
 # K4's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
 CONE_CLUSTER = 16
+# K13b's and K15b-6b's single-pass scans: export-order columns per tile of
+# the column prefix, cells per tile of the cell pass (csrc/census.cu
+# COL_TILE, CELL_TILE)
+QUIRK_COL_TILE = 1024
+QUIRK_CELL_TILE = 4096
 
 _lib = None
 _lock = threading.Lock()
@@ -211,7 +216,8 @@ def load():
         lib.vofod_census_read.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P]
         lib.vofod_quirk_counts.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.vofod_quirk_columns.argtypes = [_P, _P, _I, _I, _I, _P, _P]
-        lib.vofod_quirk_ranks.argtypes = [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P]
+        lib.vofod_quirk_ranks.argtypes = [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _LL, _P, _P]
+        lib.vofod_quirk_geometry.argtypes = [_P]
         lib.vofod_quirk_query.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_exact_demote_ema.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]
@@ -1023,23 +1029,34 @@ def census_read(labels: torch.Tensor, occ: torch.Tensor, census: torch.Tensor,
 def quirk_counts(bg: torch.Tensor, sure: torch.Tensor, lsz: int) -> torch.Tensor:
     """K13b: the per-coarse-cell sure counts with the reference's
     VoxelGridCounted indexing quirk, int32 (ceil(nz/lsz), ceil(ny/lsz),
-    ceil(nx/lsz))."""
+    ceil(nx/lsz)).  Four launches; the rank table gets no zero fill."""
     if bg.dim() != 3:
         raise ValueError("quirk_counts takes 3-D grids")
     _require(bg, "quirk bg", torch.bool)
     _require(sure, "quirk sure", torch.bool, bg.shape)
     nz, ny, nx = bg.shape
-    nv = bg.numel()
+    nv, plane = bg.numel(), ny * nx
     dev = bg.device
-    scratch = torch.empty(2 * (-(-nv // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
-    u = torch.zeros(nv + 2, dtype=torch.int32, device=dev)
-    out = torch.empty((-(-nz // lsz), -(-ny // lsz), -(-nx // lsz)), dtype=torch.int32,
-                      device=dev)
+    cshape = (-(-nz // lsz), -(-ny // lsz), -(-nx // lsz))
+    nc = cshape[0] * cshape[1] * cshape[2]
+    scratch = torch.empty(2 * plane + 2 + -(-plane // QUIRK_COL_TILE) + -(-nc // QUIRK_CELL_TILE),
+                          dtype=torch.int64, device=dev)
+    u = torch.empty(nv + 2, dtype=torch.int32, device=dev)
+    out = torch.empty(cshape, dtype=torch.int32, device=dev)
     err = load().vofod_quirk_counts(bg.data_ptr(), sure.data_ptr(), nz, ny, nx, int(lsz),
                                     scratch.data_ptr(), u.data_ptr(), out.data_ptr(), _stream())
     _check(err, "vofod_quirk_counts")
     _count("quirk_counts")
     return out
+
+
+def quirk_geometry() -> dict[str, int]:
+    """K13b's and K15b-6b's single-pass scans on the current device:
+    columns per tile of the column prefix, cells per tile of the cell pass,
+    and how many blocks of each the card holds resident at once."""
+    out = (ctypes.c_int * 4)()
+    _check(load().vofod_quirk_geometry(out), "vofod_quirk_geometry")
+    return dict(col_tile=out[0], cell_tile=out[1], col_resident=out[2], cell_resident=out[3])
 
 
 def quirk_columns(bg: torch.Tensor, sure: torch.Tensor) -> torch.Tensor:
@@ -1060,30 +1077,32 @@ def quirk_columns(bg: torch.Tensor, sure: torch.Tensor) -> torch.Tensor:
 
 def quirk_ranks(bg: torch.Tensor, sure: torch.Tensor, blocks: torch.Tensor, rank: int,
                 nv: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K15b-6b pass 2: (u int32 [nv + 2] with u[rank] = t at the slab's bg
-    voxels, 0 elsewhere; int64 scalar: the bg voxels of the shards below)
-    from every shard's :func:`quirk_columns` ``blocks`` [n, ny * nx]."""
+    """K15b-6b passes 2 and 3: (u int32 [nv + 2] with u[rank] = t at the
+    slab's bg voxels, 0 elsewhere; int64 scalar: the bg voxels of the shards
+    below) from every shard's :func:`quirk_columns` ``blocks`` [n, ny * nx].
+    Two launches beside the memsets of u and of the scan's state."""
     _require(bg, "quirk bg", torch.bool)
     _require(sure, "quirk sure", torch.bool, bg.shape)
     nzl, ny, nx = bg.shape
-    nsh = blocks.shape[0]
-    _require(blocks, "quirk blocks", torch.int64, (nsh, ny * nx))
+    nsh, plane = blocks.shape[0], ny * nx
+    _require(blocks, "quirk blocks", torch.int64, (nsh, plane))
     dev = bg.device
-    scratch = torch.empty(2 * (-(-(ny * nx) // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
-    u = torch.zeros(nv + 2, dtype=torch.int32, device=dev)
-    below = torch.zeros((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(plane + 1 + -(-plane // QUIRK_COL_TILE), dtype=torch.int64, device=dev)
+    u = torch.empty(nv + 2, dtype=torch.int32, device=dev)
+    below = torch.empty((), dtype=torch.int64, device=dev)
     err = load().vofod_quirk_ranks(bg.data_ptr(), sure.data_ptr(), nzl, ny, nx,
                                    blocks.data_ptr(), nsh, int(rank), scratch.data_ptr(),
-                                   u.data_ptr(), below.data_ptr(), _stream())
+                                   u.data_ptr(), u.numel(), below.data_ptr(), _stream())
     _check(err, "vofod_quirk_ranks")
     _count("quirk_ranks")
     return u, below
 
 
 def quirk_query(bg: torch.Tensor, lsz: int, u: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
-    """K15b-6b pass 3: the slab's per-coarse-cell quirk counts (int32
+    """K15b-6b pass 4: the slab's per-coarse-cell quirk counts (int32
     (nzl / lsz, ceil(ny / lsz), ceil(nx / lsz))) from the psum'd ``u`` and
-    :func:`quirk_ranks`' ``below``."""
+    :func:`quirk_ranks`' ``below``.  One launch beside the memset of the
+    scan's state."""
     _require(bg, "quirk bg", torch.bool)
     _require(u, "quirk u", torch.int32)
     _require(below, "quirk below", torch.int64, ())
@@ -1093,7 +1112,7 @@ def quirk_query(bg: torch.Tensor, lsz: int, u: torch.Tensor, below: torch.Tensor
     dev = bg.device
     cshape = (nzl // lsz, -(-ny // lsz), -(-nx // lsz))
     nc = cshape[0] * cshape[1] * cshape[2]
-    scratch = torch.empty(2 * (-(-nc // _COMPACT_CHUNK)), dtype=torch.int64, device=dev)
+    scratch = torch.empty(1 + -(-nc // QUIRK_CELL_TILE), dtype=torch.int64, device=dev)
     out = torch.empty(cshape, dtype=torch.int32, device=dev)
     err = load().vofod_quirk_query(bg.data_ptr(), nzl, ny, nx, int(lsz), u.data_ptr(),
                                    below.data_ptr(), scratch.data_ptr(), out.data_ptr(),

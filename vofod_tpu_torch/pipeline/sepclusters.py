@@ -223,6 +223,47 @@ def quirk_sure_counts_plain(bg: Tensor, sure: Tensor, lsz: int) -> Tensor:
     return torch.where(cf > 0, quirk, 0).reshape(counts_c.shape)
 
 
+def _tiled_excl_scan(v: Tensor, tile: int) -> Tensor:
+    """The exclusive prefix of a 1-D int64 tensor as a single-pass scan
+    forms it: each tile's own exclusive prefix plus the sum of the tiles
+    before (what the decoupled look-back gathers)."""
+    n = v.numel()
+    t = F.pad(v, (0, (-n) % tile)).reshape(-1, tile)
+    agg = t.sum(1)
+    return ((torch.cumsum(agg, 0) - agg)[:, None] + torch.cumsum(t, 1) - t).reshape(-1)[:n]
+
+
+def quirk_counts_columnwalk_plain(bg: Tensor, sure: Tensor, lsz: int,
+                                  col_tile: int = kernels.QUIRK_COL_TILE,
+                                  cell_tile: int = kernels.QUIRK_CELL_TILE) -> Tensor:
+    """Plain model of K13b's column-walk design (csrc/census.cu), equal to
+    :func:`quirk_sure_counts_plain`.  The export prefix at a voxel is the
+    prefix of the (y, x) columns before its own in export order plus its
+    column's z prefix: (1) each column's (bg << 32) | (sure & bg) sum; (2)
+    their exclusive prefix in export order (e = x * ny + y) by tiles,
+    stored at [y, x]; (3) each column walked up z from it, u[rank] = t at
+    its bg voxels; (4) the cells' bg counts in x-fastest order (partial top
+    cells as :func:`pool_sum_coarse`), their exclusive prefix by tiles and
+    quirk = u[first + count] - u[first].  The tiles are the kernel's by
+    default.  u gets no zero fill: only u[0] and the ranks 1..#bg are
+    written, the rest holds INT32_MIN, which no cell reads.  Nothing on the
+    card's path calls it."""
+    nz, ny, nx = bg.shape
+    pairs = _export_pairs(bg, sure)
+    cols = pairs.sum(0)
+    excl = _tiled_excl_scan(cols.T.reshape(-1), col_tile).reshape(nx, ny).T
+    u = torch.full((bg.numel() + 2,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                   device=bg.device)
+    u[0] = 0
+    pref = excl + torch.cumsum(pairs, 0)
+    u[(pref >> 32)[bg]] = (pref & 0xFFFFFFFF)[bg].to(torch.int32)
+    counts_c = pool_sum_coarse(bg.to(torch.int32), lsz)
+    cf = counts_c.reshape(-1).to(torch.int64)
+    first = _tiled_excl_scan(cf, cell_tile)
+    quirk = u[first + cf] - u[first]
+    return torch.where(cf > 0, quirk, 0).reshape(counts_c.shape)
+
+
 def quirk_sure_counts(bg: Tensor, sure: Tensor, lsz: int) -> Tensor:
     """K13b: see :func:`quirk_sure_counts_plain`."""
     if bg.is_cuda:
