@@ -2,26 +2,33 @@
 """Two trees of the port on one card, in turns.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
-                       [--out build/ab]
+                       [--grid-exact-pairs N] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
-(p: parent, c: change) the script times that tree's quirk-count kernels
-(K13b ``quirk_counts``; K15b-6b ``quirk_columns``, ``quirk_ranks``,
-``quirk_query`` on the slab with the most background of 3 shards) on a
-flagship exact scan, then runs that tree's ``chip_smoke.py`` in full
-(its log under ``--out``).  Each kernel gets its CUDA-event mean over 20
-back-to-back calls (host work included where the host is slower) and,
-from torch.profiler, its device-kernel ms, kernel launches and memsets a
-call.  One JSON line per run, then a summary line of every run: those
-kernel figures, each run's own chip_smoke kernel ms, and the exact and
-grid-exact step p50 / p95 (phases 4-exact, 4-grid-exact) with their
-device busy ms and idle share (phases 5-profile-exact,
-5-profile-grid-exact).  With ``--exact-pairs N`` it then runs N pairs of
-phase 4-exact alone (36 flagship scans of the reference-exact path, a
-fresh process each), alternating which tree goes first, and reports each
-run's step p50 / p95, the medians of both trees and the pairs each won.
-Exits non-zero if any run fails.  Needs one GPU.
+(p: parent, c: change) the script times that tree's K15b-1 halo exchange
+at the grid paths' shapes (shard 1 of 3 of the flagship grid): what one
+sharded K2 sweep spends on its halo (the change: the in-place fill of a
+halo'd buffer; a tree without it: the out-of-place exchange and, gated,
+the clone of the extended slab), int32 labels at r = 3 and uint8 reach at
+r = 2, the out-of-place exchange at r = 3 and the explore pad's f32 r =
+16, and ``torch.cat`` of the same extended slab; each with its CUDA-event
+mean over 20 back-to-back calls (host work included where the host is
+slower) and, from torch.profiler, its device-kernel ms, kernel launches
+and memcpys a call.  Then it profiles 5 scans of the grid and grid-exact
+paths (as chip_smoke phase 5: a fresh node, the apriori plane, 6 warm-up
+scans): K15b-1's launches and device ms a scan, the direct_copy kernels
+and device-to-device memcpys a scan, and the device busy ms.  Then it
+runs that tree's ``chip_smoke.py`` in full (its log under ``--out``).
+One JSON line per run, then a summary line of every run: those figures
+and the exact and grid-exact step p50 / p95 (phases 4-exact,
+4-grid-exact) with their device busy ms and idle share (phases
+5-profile-exact, 5-profile-grid-exact).  With ``--exact-pairs N`` /
+``--grid-exact-pairs N`` it then runs N pairs of phase 4-exact /
+4-grid-exact alone (36 flagship scans of the reference-exact path, dense
+or over 3 shards, a fresh process each), alternating which tree goes
+first, and reports each run's step p50 / p95, the medians of both trees
+and the pairs each won.  Exits non-zero if any run fails.  Needs one GPU.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from pathlib import Path
 _KERNEL_TIMES = r"""
 import json
 import sys
+from functools import partial
 
 import torch
 from torch.autograd import DeviceType
@@ -46,7 +54,6 @@ import chip_smoke as cs
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams
 from vofod_tpu_torch.geometry import GridSpec
-from vofod_tpu_torch.pipeline.sepclusters import quirk_sure_counts
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
 
 
@@ -57,43 +64,84 @@ def device_side(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ms, n = {"kernel": 0.0, "memset": 0.0}, {"kernel": 0, "memset": 0}
+    ms, n = {"kernel": 0.0, "memcpy": 0.0}, {"kernel": 0, "memcpy": 0}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or "memcpy" in e.name.lower():
+        if e.device_type != DeviceType.CUDA or "memset" in e.name.lower():
             continue
-        kind = "memset" if "memset" in e.name.lower() else "kernel"
+        kind = "memcpy" if "memcpy" in e.name.lower() else "kernel"
         ms[kind] += float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)) / 1e3
         n[kind] += 1
     return dict(device_ms=ms["kernel"] / reps, cuda_launches=n["kernel"] / reps,
-                memset_ms=ms["memset"] / reps, memsets=n["memset"] / reps)
+                memcpy_ms=ms["memcpy"] / reps, memcpys=n["memcpy"] / reps)
+
+
+def grid_profile(lut, exact, n=5):
+    cfg = cs.exact_config() if exact else cs.VoFODConfig()
+    opts = NodeOptions(raycast_mode="exact") if exact else NodeOptions()
+    node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    drv = (cs.GridDriver(lut, node.state, cfg, raycast_mode="exact") if exact
+           else cs.GridDriver(lut, node.state))
+    scans = cs.scan_cycle(lut, 6 + n)
+    for r, p in scans[:6]:
+        drv.process_scan(r, None, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r, p in scans[6:]:
+            drv.process_scan(r, None, p)
+        torch.cuda.synchronize()
+    out = {"busy_ms": 0.0}
+    for key in ("k15b1", "direct_copy", "memcpy_dtod"):
+        out[key + "_launches"] = 0
+        out[key + "_ms"] = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+        out["busy_ms"] += us / 1e3 / n
+        low = e.name.lower()
+        for key, match in (("k15b1", "halo_exchange_kernel"), ("direct_copy", "direct_copy"),
+                           ("memcpy_dtod", "memcpy dtod")):
+            if match in low:
+                out[key + "_launches"] += 1 / n
+                out[key + "_ms"] += us / 1e3 / n
+    return out
 
 
 lut = cs.make_lut(cs.VoFODConfig().sensor)
-cfg, dyn = cs.exact_config(), DynParams()
+cfg, dyn = cs.VoFODConfig(), DynParams()
 grid = GridSpec.from_config(cfg)
-node = VoFOD(cfg, dyn, NodeOptions(raycast_mode="exact"), lut, device="cuda")
+node = VoFOD(cfg, dyn, NodeOptions(), lut, device="cuda")
 node.load_apriori_map(cs.apriori_ground())
 for r, p in cs.scan_cycle(lut, 7)[:6]:
     node.process_scan(r, None, p)
 vals = node.state.grid
-bg, sure = vals > dyn.thr_new_obstacles, vals > dyn.thr_sure_obstacles
-n, nv = cs.GRID_SHARDS, grid.n_voxels
-nzl = grid.nz // n
-sl = [slice(i * nzl, (i + 1) * nzl) for i in range(n)]
-t = int(torch.stack([bg[x].sum() for x in sl]).argmax())
-b1, s1 = bg[sl[t]].contiguous(), sure[sl[t]].contiguous()
-blocks = torch.stack([kernels.quirk_columns(bg[x].contiguous(), sure[x].contiguous())
-                      for x in sl])
-u1, below1 = kernels.quirk_ranks(b1, s1, blocks, t, nv)
-u = u1.clone()
-calls = {
-    "quirk_counts": lambda: quirk_sure_counts(bg, sure, 1),
-    "quirk_columns": lambda: kernels.quirk_columns(b1, s1),
-    "quirk_ranks": lambda: kernels.quirk_ranks(b1, s1, blocks, t, nv),
-    "quirk_query": lambda: kernels.quirk_query(b1, 1, u, below1),
-}
+keys = torch.where(vals > dyn.thr_new_obstacles,
+                   torch.arange(grid.n_voxels, dtype=torch.int32, device="cuda")
+                   .reshape(grid.shape), cs.SENTINEL)
+reach = (vals > dyn.thr_new_obstacles).to(torch.uint8)
+nzl = grid.nz // cs.GRID_SHARDS
+z0 = nzl  # shard 1 of 3
+in_place = hasattr(kernels, "halo_fill_")
+calls = {}
+for name, g, h, fill in (("int32_r3", keys, 3, cs.SENTINEL), ("uint8_r2", reach, 2, 0),
+                         ("f32_r16", vals, 16, -1e30)):
+    slab = g[z0:z0 + nzl].contiguous()
+    lo, hi = [g[z0 - h:z0].contiguous()], [g[z0 + nzl:z0 + nzl + h].contiguous()]
+    ext = cs._global_ext(g, z0, nzl, h, fill).contiguous()
+    calls[name + "_out_of_place"] = partial(kernels.halo_exchange, slab, lo, hi, [h], fill)
+    calls[name + "_cat"] = partial(torch.cat, lo + [slab] + hi)
+    if name == "f32_r16":
+        continue
+    if in_place:  # one sweep's halo: only the halo rows of a halo'd buffer
+        calls[name + "_sweep"] = partial(kernels.halo_fill_, ext, h, lo, hi, [h], fill)
+    else:  # a tree without that form: the whole extended slab, then (gated) its clone
+        calls[name + "_sweep"] = (
+            lambda slab=slab, lo=lo, hi=hi, h=h, fill=fill: kernels.halo_exchange(
+                slab, lo, hi, [h], fill).clone())
 out = {name: dict(ms=cs.cuda_ms(fn), **device_side(fn)) for name, fn in calls.items()}
-print(json.dumps(dict(bg_voxels=int(bg.sum()), slab=t, kernels=out)))
+prof = {"grid": grid_profile(lut, False), "grid_exact": grid_profile(lut, True)}
+print(json.dumps(dict(in_place=in_place, halo=out, profiles=prof)))
 """
 
 # runs in the tree's root; prints phase 4-exact's JSON line
@@ -106,12 +154,24 @@ import chip_smoke as cs
 cs.phase4_exact(cs.make_lut(cs.VoFODConfig().sensor))
 """
 
-QUIRK = ("quirk_counts", "quirk_columns", "quirk_ranks", "quirk_query")
+# runs in the tree's root; prints phase 4-grid-exact's JSON line
+_GRID_EXACT_STEP = r"""
+import sys
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+
+cs.phase4_grid(cs.make_lut(cs.VoFODConfig().sensor), "exact")
+"""
+
+HALO_CASES = ("inplace_int32_r3", "inplace_uint8_r2", "f32_r16")
+PAIR_MODES = {"exact": (_EXACT_STEP, "4-exact", "dense"),
+              "grid_exact": (_GRID_EXACT_STEP, "4-grid-exact", "grid")}
 
 
 def phases(log: str) -> dict:
     """The JSON phase lines of a chip_smoke log, by phase (the last of each
-    name, kernel lines by kernel name)."""
+    name, kernel lines by kernel name, 2-grid-halo lines by case)."""
     got = {}
     for line in log.splitlines():
         if not line.startswith("{"):
@@ -123,6 +183,8 @@ def phases(log: str) -> dict:
         ph = d.get("phase")
         if ph in ("2-kernel", "2-grid-kernel"):
             got[d["name"]] = d
+        elif ph == "2-grid-halo":
+            got[d["case"]] = d
         elif ph:
             got[ph] = d
     return got
@@ -132,15 +194,43 @@ def summarize(ph: dict) -> dict:
     ex, gx = ph.get("4-exact", {}), ph.get("4-grid-exact", {})
     pe, pg = ph.get("5-profile-exact", {}), ph.get("5-profile-grid-exact", {})
     return dict(
-        smoke_kernel_ms={k: ph[k]["ms"] for k in QUIRK if k in ph},
-        smoke_kernel_device_ms={k: ph[k].get("device_ms") for k in QUIRK if k in ph},
+        smoke_halo={k: {m: ph[k].get(m) for m in ("ms", "device_ms", "library_ms", "bound_ms")}
+                    for k in HALO_CASES if k in ph},
+        smoke_halo_exchange_ms=ph.get("halo_exchange", {}).get("ms"),
         exact_step_ms_p50=ex.get("step_ms_p50"), exact_step_ms_p95=ex.get("step_ms_p95"),
         exact_busy_ms=pe.get("device_busy_ms_per_scan"),
         exact_idle_share=pe.get("idle_share_of_unprofiled_step"),
         grid_exact_step_ms_p50=gx.get("step_ms_p50"), grid_exact_step_ms_p95=gx.get("step_ms_p95"),
         grid_exact_busy_ms=pg.get("device_busy_ms_per_scan"),
         grid_exact_idle_share=pg.get("idle_share_of_unprofiled_step"),
+        grid_exact_label_sweeps=sum(gx.get("label_sweeps_per_scan") or []),
+        grid_exact_capped_scans=gx.get("capped_scans"),
     )
+
+
+def run_pairs(trees: dict, mode: str, n: int) -> tuple[dict | None, bool]:
+    """``n`` pairs of one step phase alone, alternating which tree goes
+    first: each run's p50 / p95 and both trees' medians."""
+    script, phase, key = PAIR_MODES[mode]
+    pairs, ok = [], True
+    for i in range(n):
+        p50 = {}
+        for tag in ("pc" if i % 2 == 0 else "cp"):
+            e = subprocess.run([sys.executable, "-c", script], cwd=trees[tag],
+                               capture_output=True, text=True, timeout=900)
+            got = phases(e.stdout).get(phase, {})
+            ok = ok and e.returncode == 0 and bool(got)
+            p50[tag] = got.get("step_ms_p50", {}).get(key)
+            print(json.dumps(dict(mode=mode, pair=i, tree={"p": "parent", "c": "change"}[tag],
+                                  rc=e.returncode, step_ms_p50=p50[tag],
+                                  step_ms_p95=got.get("step_ms_p95", {}).get(key))), flush=True)
+        pairs.append(p50)
+    if not (pairs and ok):
+        return None, ok
+    med = {t: sorted(p[t] for p in pairs)[len(pairs) // 2] for t in "pc"}
+    return dict(pairs=len(pairs), parent_median=med["p"], change_median=med["c"],
+                change_faster=sum(p["c"] < p["p"] for p in pairs),
+                parent_faster=sum(p["p"] < p["c"] for p in pairs)), ok
 
 
 def main() -> int:
@@ -149,6 +239,7 @@ def main() -> int:
     ap.add_argument("change", type=Path)
     ap.add_argument("--order", default="pccp")
     ap.add_argument("--exact-pairs", type=int, default=0)
+    ap.add_argument("--grid-exact-pairs", type=int, default=0)
     ap.add_argument("--out", type=Path, default=Path("build/ab"))
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
@@ -169,25 +260,12 @@ def main() -> int:
         ok = ok and k.returncode == 0 and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
-    pairs = []
-    for i in range(args.exact_pairs):
-        p50 = {}
-        for tag in ("pc" if i % 2 == 0 else "cp"):
-            e = subprocess.run([sys.executable, "-c", _EXACT_STEP], cwd=trees[tag],
-                               capture_output=True, text=True, timeout=600)
-            got = phases(e.stdout).get("4-exact", {})
-            ok = ok and e.returncode == 0 and bool(got)
-            p50[tag] = got.get("step_ms_p50")
-            print(json.dumps(dict(pair=i, tree={"p": "parent", "c": "change"}[tag], rc=e.returncode,
-                                  exact_step_ms_p50=p50[tag],
-                                  exact_step_ms_p95=got.get("step_ms_p95"))), flush=True)
-        pairs.append(p50)
-    out = {"summary": runs, "ok": ok}
-    if pairs and ok:
-        med = {t: sorted(p[t] for p in pairs)[len(pairs) // 2] for t in "pc"}
-        out["exact_pairs"] = dict(pairs=len(pairs), parent_median=med["p"], change_median=med["c"],
-                                  change_faster=sum(p["c"] < p["p"] for p in pairs),
-                                  parent_faster=sum(p["p"] < p["c"] for p in pairs))
+    out = {"summary": runs}
+    for mode, n in (("exact", args.exact_pairs), ("grid_exact", args.grid_exact_pairs)):
+        if n:
+            out[mode + "_pairs"], mode_ok = run_pairs(trees, mode, n)
+            ok = ok and mode_ok
+    out["ok"] = ok
     print(json.dumps(out), flush=True)
     return 0 if ok else 1
 

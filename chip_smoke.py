@@ -76,8 +76,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    field, the same under query overflow, and no valid query.  Phase
    2-grid: the grid-sharded step's kernels with 3 shards of the flagship
    grid on the card, each bit-equal to its plain version: K15b-1 (halo
-   exchange) on f32 / int32 / bool slabs at r 1-40 (multi-hop past every
-   shard), also equal to the rows cut from the whole grid; K2's sharded
+   exchange) on f32 / int32 / bool / uint8 slabs at r 1-40 (multi-hop past
+   every shard), out of place and in place, also equal to the rows cut
+   from the whole grid, and on a segment past the resident blocks; its
+   in-place fills at the sharded sweeps' shapes and the r 16 exchange
+   timed (CUDA events, device ms and launches, bound, torch.cat); K2's sharded
    sweeps (fixed count and gated) equal to the dense sweeps and flags;
    K15b-2 (fold-min) at r 16 and 20, equal to the min over every shard's
    stamp; K15b-3 / K15b-4a through the sharded sweep of a flagship scan,
@@ -165,7 +168,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``vofod.*`` ranges), the top device ops, the device ops (kernels and
    copies) launched per scan, counted from key_averages and event by event,
    matmul kernels and pads per scan, and the device's busy and idle share
-   of the step; then the sweep path once more, to show whether the op
+   of the step (the grid paths also K15b-1's launches and device ms a
+   scan, and the direct_copy launches and device-to-device memcpys beside
+   them); then the sweep path once more, to show whether the op
    count depends on the profiler session.
 
 The line before the last is the per-kernel JSON record (launches from the
@@ -187,6 +192,7 @@ import subprocess
 import sys
 import time
 import warnings
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -240,7 +246,8 @@ from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     quirk_columns_plain, quirk_query_plain, quirk_ranks_plain, quirk_sure_counts_sharded)
 from vofod_tpu_torch.parallel.comm import LocalComm  # noqa: E402
 from vofod_tpu_torch.parallel.gridops import (  # noqa: E402
-    DENSE, ZShardOps, halo_exchange_plain, halo_fold_min_plain)
+    DENSE, HALO_TILE_BYTES, ZShardOps, halo_exchange_plain, halo_fill_plain_,
+    halo_fold_min_plain, halo_segments)
 from vofod_tpu_torch.parallel.grid_step import (  # noqa: E402
     gather_state, make_grid_sharded_step, shard_state)
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
@@ -1289,6 +1296,8 @@ def phase2_ingest(cfg, grid, lut, scans, n_scan, k3, ranges, pose) -> list[dict]
         (grid.n_voxels, torch.uint8), (cfg.sensor.n_points, torch.uint8), (2, torch.int32))]
     upload_ms = cuda_ms(lambda: [t.to(dev, non_blocking=True) for t in staging])
     nv = grid.n_voxels
+    lib_counts = torch.empty(packed.shape, dtype=torch.int32, device=dev)
+    lib_blockers = torch.empty(packed.shape, dtype=torch.bool, device=dev)
     say("2-ingest", host_bin_ms_p50=float(np.percentile(bin_ms, 50)),
         host_bin_ms_p95=float(np.percentile(bin_ms, 95)), host_bin_scans=len(bin_ms),
         packed_upload_ms=upload_ms, packed_upload_bytes=nv + cfg.sensor.n_points + 8,
@@ -1298,8 +1307,11 @@ def phase2_ingest(cfg, grid, lut, scans, n_scan, k3, ranges, pose) -> list[dict]
         name="unpack", max_abs_err=0.0, ms=cuda_ms(lambda: unpack(packed)),
         plain_ms=cuda_ms(lambda: unpack_plain(packed)),
         bytes=nv * (1 + 4 + 1), ops=2 * nv,
-        library_ms=cuda_ms(lambda: (packed & 0x3F, packed >= 0x80)),
-        library_call="packed & 0x3F and packed >= 0x80 (two torch ops, uint8 counts)",
+        library_ms=cuda_ms(lambda: (torch.bitwise_and(packed, 0x3F, out=lib_counts),
+                                    torch.ge(packed, 0x80, out=lib_blockers))),
+        library_call="torch.bitwise_and(packed, 0x3F, out=int32 counts) and torch.ge(packed, "
+                     "0x80, out=bool blockers): two torch ops writing the kernel's outputs",
+        library_uint8_ms=cuda_ms(lambda: (packed & 0x3F, packed >= 0x80)),
         shapes=f"{grid.shape} uint8 -> int32 counts + bool blockers; bit-equal, and equal to "
                f"K3 + the raw frontend on the same scan",
     )]
@@ -1441,7 +1453,8 @@ def phase2_exact(lut) -> list[dict]:
         # rays in, the raylen grid out once; ~20 ops per walked step
         bytes=rays[0].shape[0] * (12 + 12 + 4 + 1) + nv * 4, ops=n_emit * 20,
         library_ms=cuda_ms(lambda: zero_grid.index_add_(0, fid_d, w_d)),
-        library_call="index_add_ of the walk's nonzero (id, chord) emissions",
+        library_call="index_add_ of the walk's nonzero (id, chord) emissions: the scatter "
+                     "half only (the walk that finds the emissions is not timed)",
         shapes=f"{rays[0].shape[0]} rays x <= {dda_n_steps(grid.voxel_size, bound)} steps -> "
                f"{grid.shape}",
     ))
@@ -2475,9 +2488,14 @@ def _transposed_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
 def phase2_grid(lut) -> list[dict]:
     """The grid-sharded step's kernels against their plain versions on the
     card, with 3 shards of the flagship grid on one card: K15b-1 on f32,
-    int32 and bool slabs at r = 1, 3, 8, 16 and multi-hop at r = 20 and 40
-    (past every shard), bit-equal to its plain version and to the rows cut
-    from the whole grid; K15b-2 at r = 16 and 20 (head and tail ranges
+    int32, bool and uint8 slabs at r = 1, 2, 3, 8, 16 and multi-hop at r =
+    20 and 40 (past every shard), out of place and in place (the halo rows
+    of a poisoned buffer), bit-equal to its plain versions and to the rows
+    cut from the whole grid, and on a 51-row slab whose interior segment
+    runs past the blocks the card holds resident; timed in place at the
+    sharded sweeps' shapes (int32 r = 3, uint8 r = 2) and out of place at
+    the explore pad's (f32 r = 16), each with its device time, bound and
+    torch.cat's time (phase 2-grid-halo); K15b-2 at r = 16 and 20 (head and tail ranges
     overlap), bit-equal to its plain version and to the min over every
     shard's stamp; K15b-3 and K15b-4a launch by launch beside their plain
     versions on a flagship scan's window, and the step's sharded sweep, T
@@ -2500,34 +2518,87 @@ def phase2_grid(lut) -> list[dict]:
     safe = node.state.safe
     results = []
 
-    # K15b-1: every dtype of the path's exchanges, single hop and multi-hop
-    for r in (1, 3, 8, 16, 20, 40):
-        for g, fill in ((vals, -1e30), (keys, SENTINEL), (safe, False)):
+    # K15b-1: every dtype of the path's exchanges, single hop and multi-hop,
+    # out of place and in place (the sharded sweeps' form: only the halo
+    # rows of a halo'd buffer written, its interior left as it was)
+    reach = (vals > dyn.thr_new_obstacles).to(torch.uint8)
+    for r in (1, 2, 3, 8, 16, 20, 40):
+        for g, fill in ((vals, -1e30), (keys, SENTINEL), (safe, False), (reach, 0)):
             def shard(rank, g=g, fill=fill, r=r):
-                # the step's exchange, and K15b-1 / its plain version on the
-                # blocks of one more exchange
+                # the step's exchange, and K15b-1 / its plain versions on the
+                # blocks of one more exchange; the in-place forms on a
+                # poisoned buffer holding the slab
                 sl = g[rank * nzl:(rank + 1) * nzl].contiguous()
                 lo, hi, takes = ops.halo_recv(sl, r)
+                bufs = []
+                for _ in range(3):
+                    b = torch.empty((nzl + 2 * r,) + tuple(sl.shape[1:]), dtype=sl.dtype,
+                                    device=dev)
+                    b.view(torch.uint8).fill_(0xA5)
+                    b[r:r + nzl] = sl
+                    bufs.append(b)
+                kernels.halo_fill_(bufs[0], r, lo, hi, takes, fill)
+                halo_fill_plain_(bufs[1], r, lo, hi, takes, fill)
+                ops.halo_fill_(bufs[2], r, fill)
                 return (ops.halo_exchange(sl, r, fill),
                         kernels.halo_exchange(sl, lo, hi, takes, fill),
-                        halo_exchange_plain(sl, lo, hi, takes, fill))
-            for rank, (e, k, p) in enumerate(comm.run(shard)):
+                        halo_exchange_plain(sl, lo, hi, takes, fill), *bufs)
+            for rank, outs in enumerate(comm.run(shard)):
                 ref = _global_ext(g, rank * nzl, nzl, r, fill)
-                if not (torch.equal(k, p) and torch.equal(k, ref) and torch.equal(e, ref)):
+                if not all(torch.equal(o, ref) for o in outs):
                     raise AssertionError(f"K15b-1 {g.dtype} r={r} shard {rank} differs")
-    z0, h = nzl, 16  # shard 1's inputs at the explore pad
-    slab = vals[z0:z0 + nzl].contiguous()
-    lo, hi = [vals[z0 - h:z0].contiguous()], [vals[z0 + nzl:z0 + nzl + h].contiguous()]
-    ext_bytes = (nzl + 2 * h) * plane * 4
+    # one segment past the blocks the card holds resident: the whole grid
+    # as the slab (51 rows, 9.9 MB of f32), one hop each side
+    geo = kernels.halo_geometry()
+    if geo["tile_bytes"] != HALO_TILE_BYTES:
+        raise AssertionError(f"K15b-1's tile {geo['tile_bytes']} B != the model's")
+    big = vals.contiguous()
+    lo1, hi1 = [vals[-1:].contiguous()], [vals[:1].contiguous()]
+    seg_tiles = [t["tiles"] for t in halo_segments(grid.nz, 1, [1], plane * 4, big.data_ptr())]
+    if max(seg_tiles) <= geo["resident"]:
+        raise AssertionError(f"no K15b-1 segment past the {geo['resident']} resident blocks")
+    if not torch.equal(kernels.halo_exchange(big, lo1, hi1, [1], -1e30),
+                       halo_exchange_plain(big, lo1, hi1, [1], -1e30)):
+        raise AssertionError("K15b-1 differs on a segment past the resident blocks")
+    say("2-grid-halo-geometry", tile_bytes=geo["tile_bytes"], resident_blocks=geo["resident"],
+        segment_tiles=max(seg_tiles))
+    # the timed calls: the sharded sweeps' in-place fills (int32 labels at
+    # r = 3, uint8 reach at r = 2) and the explore pad's exchange (f32, r =
+    # 16), shard 1's inputs; library: torch.cat of the whole extended slab
+    # (what the out-of-place exchange computes; the in-place fill writes its
+    # 2r halo rows of it)
+    z0 = nzl
+    halo_lines = {}
+    for case, g, h, fill, in_place in (("inplace_int32_r3", keys, 3, SENTINEL, True),
+                                       ("inplace_uint8_r2", reach, 2, 0, True),
+                                       ("f32_r16", vals, 16, -1e30, False)):
+        slab = g[z0:z0 + nzl].contiguous()
+        lo, hi = [g[z0 - h:z0].contiguous()], [g[z0 + nzl:z0 + nzl + h].contiguous()]
+        row = plane * g.element_size()
+        if in_place:
+            ext = _global_ext(g, z0, nzl, h, fill).contiguous()
+            call = partial(kernels.halo_fill_, ext, h, lo, hi, [h], fill)
+            plain = partial(halo_fill_plain_, ext, h, lo, hi, [h], fill)
+            moved = 2 * (2 * h * row)  # the blocks read, the halo rows written
+        else:
+            call = partial(kernels.halo_exchange, slab, lo, hi, [h], fill)
+            plain = partial(halo_exchange_plain, slab, lo, hi, [h], fill)
+            moved = 2 * (nzl + 2 * h) * row
+        line = dict(case=case, dtype=str(g.dtype), r=h, rows_out=nzl + 2 * h,
+                    ms=cuda_ms(call), plain_ms=cuda_ms(plain),
+                    library_ms=cuda_ms(partial(torch.cat, lo + [slab] + hi)),
+                    bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3, **device_profile(call))
+        line["device_share_of_bound"] = line["bound_ms"] / line["device_ms"]
+        say("2-grid-halo", **line)
+        halo_lines[case] = line
+    f16 = halo_lines["f32_r16"]
     results.append(dict(
-        name="halo_exchange", max_abs_err=0.0,
-        ms=cuda_ms(lambda: kernels.halo_exchange(slab, lo, hi, [h], -1e30)),
-        plain_ms=cuda_ms(lambda: halo_exchange_plain(slab, lo, hi, [h], -1e30)),
-        bytes=2 * ext_bytes, ops=0,
-        library_ms=cuda_ms(lambda: torch.cat(lo + [slab] + hi)),
+        name="halo_exchange", max_abs_err=0.0, ms=f16["ms"], plain_ms=f16["plain_ms"],
+        bytes=f16["bytes"], ops=0, library_ms=f16["library_ms"], device_ms=f16["device_ms"],
         library_call="torch.cat of the received rows and the slab",
-        shapes=f"f32 slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x {h} rows -> ({nzl + 2 * h}, ...); "
-               "checked at r 1, 3, 8, 16, 20, 40 on f32 / int32 / bool, 3 shards",
+        shapes=f"f32 slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x 16 rows -> ({nzl + 32}, ...); "
+               "checked at r 1, 2, 3, 8, 16, 20, 40 on f32 / int32 / bool / uint8, in and out "
+               "of place, 3 shards, and a 51-row slab past the resident blocks",
     ))
 
     # K2 on halo'd slabs with the interior change flag: the label sweeps of
@@ -2562,6 +2633,7 @@ def phase2_grid(lut) -> list[dict]:
         if not (torch.equal(got_k, got_p) and torch.equal(got_k, want)
                 and torch.equal(got_e, want)):
             raise AssertionError(f"K15b-2 r={r} differs")
+    h = 16  # shard 1's inputs at the explore pad
     ext = _global_ext(vals, z0, nzl, h, 0.0).contiguous()
     fn, fp = [ext[:h].clone()], [ext[-h:].clone()]
     results.append(dict(
@@ -2927,7 +2999,8 @@ def phase2_grid_exact(lut) -> list[dict]:
         bytes=rays[0].shape[0] * (12 + 12 + 4 + 1) + nzl * plane * 4,
         ops=int(fid_c.numel()) * 20,
         library_ms=cuda_ms(lambda: acc1.index_add_(0, lf1, w1_)),
-        library_call="index_add_ of the slab's nonzero (id, chord) emissions",
+        library_call="index_add_ of the slab's nonzero (id, chord) emissions: the scatter "
+                     "half only (the walk that finds the emissions is not timed)",
         shapes=f"{rays[0].shape[0]} rays walked, slab rows [{t * nzl}, {(t + 1) * nzl}) of "
                f"{grid.shape}; every slab equal to K12's rows",
     ))
@@ -3384,6 +3457,14 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                gemm_kernels_per_scan=gemm / n, pad_ops_per_scan=pads / n,
                top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n,
                                     e.key[:90]] for e in top])
+    if path.startswith("grid"):
+        # K15b-1 (both forms are one kernel) and the device copies beside it
+        for key, match in (("k15b1", "halo_exchange_kernel"), ("direct_copy", "direct_copy"),
+                           ("memcpy_dtod", "memcpy dtod")):
+            hit = [e for e in dev_ops if match in e.key.lower()]
+            out[f"{key}_launches_per_scan"] = sum(e.count for e in hit) / n
+            ms = sum(_dev_us(e, True) for e in hit) / n / 1e3
+            out[f"{key}_device_ms_per_scan"] = round(ms, 4)
     say(label or ("5-profile" if path == "sweep" else f"5-profile-{path}"), **out)
     out["counts_by_name"] = {e.key: e.count for e in dev_ops}
     return out

@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import threading
@@ -223,8 +224,9 @@ def load():
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         lib.vofod_halo_exchange.argtypes = [
-            _P, _P, _I, _I, _I, _LL, _P, _P, _P, _I, ctypes.c_uint, _P]
-        lib.vofod_halo_fold_min.argtypes = [_P, _P, _I, _I, _LL, _P, _P, _P, _I, _P]
+            _P, _P, _I, _I, _I, _LL, ctypes.c_char_p, _I, ctypes.c_uint, _P]
+        lib.vofod_halo_fold_min.argtypes = [_P, _P, _I, _I, _LL, ctypes.c_char_p, _I, _P]
+        lib.vofod_halo_geometry.argtypes = [_P]
         lib.vofod_cone_sweep_lat.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_zt.argtypes = [_P] * 9 + [_I] * 5 + [_P]
@@ -241,8 +243,9 @@ def load():
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
                    lib.vofod_exact_demote_ema, lib.vofod_unpack, lib.vofod_halo_exchange,
-                   lib.vofod_halo_fold_min, lib.vofod_cone_sweep_lat, lib.vofod_cone_sweep_z,
-                   lib.vofod_cone_sweep_zt, lib.vofod_census_scatter, lib.vofod_census_read,
+                   lib.vofod_halo_fold_min, lib.vofod_halo_geometry, lib.vofod_cone_sweep_lat,
+                   lib.vofod_cone_sweep_z, lib.vofod_cone_sweep_zt, lib.vofod_census_scatter,
+                   lib.vofod_census_read,
                    lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query,
                    lib.vofod_explore_cut, lib.vofod_explore_seq_stack, lib.vofod_demote_direct):
             fn.restype = _I
@@ -1181,27 +1184,37 @@ def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _MAX_HOPS = 16  # csrc/halo.cu MAX_HOPS
 
 
-def _hop_args(lo: list, hi: list, takes: list[int]):
-    """Host arrays of the per-hop block pointers (NULL for None) and rows."""
+def _hops_arg(lo: list, hi: list, takes: list[int], like: torch.Tensor) -> bytes:
+    """The packed hop table of csrc/halo.cu: per hop (lo block pointer, hi
+    block pointer, rows) as three int64, 0 for a missing block.  Checks what
+    the C side cannot: each block's device, dtype, shape and contiguity
+    against ``like`` (a slab of the same planes)."""
     if len(takes) > _MAX_HOPS:
         raise ValueError(f"halo of {len(takes)} hops; the kernels take at most {_MAX_HOPS}")
-    lo_p = (_P * max(len(takes), 1))(*[None if t is None else t.data_ptr() for t in lo])
-    hi_p = (_P * max(len(takes), 1))(*[None if t is None else t.data_ptr() for t in hi])
-    tk = np.array(takes or [0], dtype=np.int32)
-    return lo_p, hi_p, tk, tk.ctypes.data_as(_P)
+    dev, dt, plane = like.device, like.dtype, tuple(like.shape[1:])
+    flat = []
+    for a, b, take in zip(lo, hi, takes):
+        want = (take,) + plane
+        for blk in (a, b):
+            if blk is not None and (blk.shape != want or blk.dtype != dt or blk.device != dev
+                                    or not blk.is_contiguous()):
+                raise ValueError(f"halo block {blk.dtype} {tuple(blk.shape)} on {blk.device}: "
+                                 f"expected a contiguous {dt} {want} on {dev}")
+        flat += (0 if a is None else a.data_ptr(), 0 if b is None else b.data_ptr(), take)
+    return struct.pack("<%dq" % len(flat), *flat)
 
 
-def _blocks_ok(blocks: list, g: torch.Tensor, takes: list[int], name: str) -> None:
-    for b, take in zip(blocks, takes):
-        if b is not None:
-            _require(b, name, g.dtype, (take,) + tuple(g.shape[1:]))
-
-
-_FILL_BITS = {torch.float32: lambda v: int(np.float32(v).view(np.uint32)),
-              torch.int32: lambda v: int(np.int32(v).view(np.uint32)),
+_FILL_BITS = {torch.float32: lambda v: struct.unpack("<I", struct.pack("<f", v))[0],
+              torch.int32: lambda v: int(v) & 0xFFFFFFFF,
               torch.uint8: lambda v: int(v) & 0xFF, torch.int8: lambda v: int(v) & 0xFF,
               torch.bool: lambda v: int(bool(v))}
 HALO_DTYPES = frozenset(_FILL_BITS)  # the slabs K15b-1 takes
+
+
+def _halo_slab(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda or t.dtype not in HALO_DTYPES or t.dim() < 2 or not t.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous CUDA f32/int32/int8/uint8/bool slab, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def halo_exchange(g: torch.Tensor, lo: list, hi: list, takes: list[int], fill) -> torch.Tensor:
@@ -1209,20 +1222,42 @@ def halo_exchange(g: torch.Tensor, lo: list, hi: list, takes: list[int], fill) -
     each side: hop h's block ``lo[h]`` (the last takes[h] rows of the shard h
     below) and ``hi[h]`` (the first rows of the shard h above), ``fill``
     where a block is None.  f32 / int32 / int8 / uint8 / bool."""
-    if g.dtype not in HALO_DTYPES or g.dim() < 2:
-        raise ValueError(f"halo_exchange takes an f32/int32/int8/uint8/bool slab, got {g.dtype}")
-    _require(g, "halo slab", g.dtype)
-    _blocks_ok(lo, g, takes, "halo lo block")
-    _blocks_ok(hi, g, takes, "halo hi block")
+    _halo_slab(g, "halo_exchange")
+    hops = _hops_arg(lo, hi, takes, g)
     nzl, r = g.shape[0], sum(takes)
     ext = torch.empty((nzl + 2 * r,) + tuple(g.shape[1:]), dtype=g.dtype, device=g.device)
-    lo_p, hi_p, _, tk = _hop_args(lo, hi, takes)
     err = load().vofod_halo_exchange(
-        g.data_ptr(), ext.data_ptr(), g.element_size(), nzl, r, g[0].numel(), lo_p, hi_p, tk,
+        g.data_ptr(), ext.data_ptr(), g.element_size(), nzl, r, g.numel() // nzl, hops,
         len(takes), _FILL_BITS[g.dtype](fill), _stream())
     _check(err, "vofod_halo_exchange")
     _count("halo_exchange")
     return ext
+
+
+def halo_fill_(ext: torch.Tensor, r: int, lo: list, hi: list, takes: list[int], fill) -> None:
+    """K15b-1 in place: the 2r halo rows of ``ext`` [nzl + 2r, ...] from the
+    hops' blocks (as :func:`halo_exchange`), its interior rows untouched.
+    Launches nothing at r = 0."""
+    _halo_slab(ext, "halo_fill_")
+    nzl = ext.shape[0] - 2 * r
+    if nzl < 1:
+        raise ValueError(f"halo_fill_: {ext.shape[0]} rows cannot hold a halo of {r}")
+    if r == 0:
+        return
+    hops = _hops_arg(lo, hi, takes, ext)
+    err = load().vofod_halo_exchange(
+        None, ext.data_ptr(), ext.element_size(), nzl, r, ext.numel() // ext.shape[0], hops,
+        len(takes), _FILL_BITS[ext.dtype](fill), _stream())
+    _check(err, "vofod_halo_exchange")
+    _count("halo_exchange")
+
+
+def halo_geometry() -> dict[str, int]:
+    """K15b-1 on the current device: bytes a thread block copies (one tile)
+    and how many blocks the card holds resident at once."""
+    out = (ctypes.c_int * 2)()
+    _check(load().vofod_halo_geometry(out), "vofod_halo_geometry")
+    return dict(tile_bytes=out[0], resident=out[1])
 
 
 def halo_fold_min(ext: torch.Tensor, r: int, from_next: list, from_prev: list,
@@ -1234,12 +1269,10 @@ def halo_fold_min(ext: torch.Tensor, r: int, from_next: list, from_prev: list,
     nzl = ext.shape[0] - 2 * r
     if nzl < 1:
         raise ValueError(f"halo_fold_min: {ext.shape[0]} rows cannot hold a halo of {r}")
-    _blocks_ok(from_next, ext[:nzl], takes, "fold block")
-    _blocks_ok(from_prev, ext[:nzl], takes, "fold block")
+    hops = _hops_arg(from_next, from_prev, takes, ext)
     out = torch.empty((nzl,) + tuple(ext.shape[1:]), dtype=torch.float32, device=ext.device)
-    nx_p, pv_p, _, tk = _hop_args(from_next, from_prev, takes)
     err = load().vofod_halo_fold_min(ext.data_ptr(), out.data_ptr(), nzl, r, ext[0].numel(),
-                                     nx_p, pv_p, tk, len(takes), _stream())
+                                     hops, len(takes), _stream())
     _check(err, "vofod_halo_fold_min")
     _count("halo_fold_min")
     return out

@@ -33,9 +33,10 @@ runtime squared radius within the static bound ``radius``, the K14 tap set
 ops/morphology.Shells, on the same sweep kernel.
 
 On the grid-sharded step (parallel/gridops.py ZShardOps) the grids are a
-shard's z slab: ``sweep_fn`` is then the sharded sweep (a halo exchange
-per sweep, K2's one-sweep launch on the extended slab with its change
-flag over the interior rows, the flags OR-ed over the shards), and both
+shard's z slab: ``sweep_fn`` is then the sharded sweep (two halo'd
+buffers taking turns, the source's halo rows filled in place before each
+sweep, K2's one-sweep launch with its change flag over the interior rows,
+the flags OR-ed over the shards), and both
 labellings take the slab's first global row ``z0`` (the seeded one also
 the grid's ``nz``).
 The census splits into its scatter and read-back passes there (K15b-6a,
@@ -70,6 +71,21 @@ def sweep_plain(cur: Tensor, occ: Tensor, ball,
         new = cur | (occ & (pooled > 0)).to(torch.uint8)
     rows = slice(None) if flag_rows is None else slice(*flag_rows)
     return new, torch.any(new[rows] != cur[rows])
+
+
+def propagate_sweep_plain(src: Tensor, dst: Tensor, occ: Tensor, ball, changed: Tensor,
+                          prev_changed: Tensor | None = None,
+                          flag_rows: tuple[int, int] | None = None) -> None:
+    """Plain version of one K2 launch (kernels.propagate_sweep), on any
+    device: ``dst`` = :func:`sweep_plain` of ``src``; ORs 1 into ``changed``
+    (int32 scalar) when a voxel of the z rows ``flag_rows`` changed.  With
+    ``prev_changed`` 0 it does nothing, ``dst`` and ``changed`` untouched,
+    as the gated launch."""
+    if prev_changed is not None and not bool(prev_changed):
+        return
+    new, ch = sweep_plain(src, occ, ball, flag_rows)
+    dst.copy_(new)
+    changed.bitwise_or_(ch.to(torch.int32))
 
 
 def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,

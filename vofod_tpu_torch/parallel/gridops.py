@@ -45,7 +45,7 @@ from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import (
     SENTINEL, census_read_plain, census_scatter_plain, label_census, label_components,
-    label_components_seeded, propagate_reach, sweep_plain)
+    label_components_seeded, propagate_reach, propagate_sweep_plain)
 from vofod_tpu_torch.ops.explore import (
     demote_direct, demote_floating, explore, explore_cut, explore_sequential_,
     explore_sequential_stack)
@@ -179,6 +179,93 @@ def halo_exchange_plain(g: Tensor, lo: list, hi: list, takes: list[int], fill) -
     return torch.cat(lo_parts[::-1] + [g] + hi_parts)
 
 
+def halo_fill_plain_(ext: Tensor, r: int, lo: list, hi: list, takes: list[int],
+                     fill) -> Tensor:
+    """Plain version of K15b-1's in-place form (kernels.halo_fill_'s
+    arguments): the 2r halo rows of ``ext`` [nzl + 2r, ...] written as
+    :func:`halo_exchange_plain` places them, the interior untouched."""
+    nzl, below = ext.shape[0] - 2 * r, 0
+    for b_lo, b_hi, take in zip(lo, hi, takes):
+        for row0, b in ((r - below - take, b_lo), (r + nzl + below, b_hi)):
+            ext[row0:row0 + take] = fill if b is None else b
+        below += take
+    return ext
+
+
+HALO_TILE_BYTES = 8192  # csrc/halo.cu TILE_CHUNKS x 16: the bytes of one thread block
+
+
+def halo_segments(nzl: int, r: int, takes: list[int], row_bytes: int, addr: int = 0,
+                  interior: bool = True) -> list[dict]:
+    """Plain model of K15b-1's segment table (csrc/halo.cu
+    ``vofod_halo_exchange``): the extended slab's contiguous byte ranges in
+    order, the low hops' blocks farthest first, the interior (unless
+    ``interior`` is False: the in-place form), the high hops' blocks.  Each
+    has its byte offset ``off`` in the slab, ``bytes``, its ``source``
+    (("lo", h), ("slab", 0) or ("hi", h)) and how the kernel splits it when
+    the slab starts at address ``addr``: ``head`` bytes before its first
+    whole 16-byte chunk, ``chunks``, ``tail`` bytes after them (chunk_span)
+    and ``tiles``, the thread blocks of HALO_TILE_BYTES of chunks (at least
+    one, which also writes the head and tail)."""
+    below = [sum(takes[:h]) for h in range(len(takes))]
+    rows = [(r - below[h] - takes[h], takes[h], ("lo", h)) for h in reversed(range(len(takes)))]
+    if interior:
+        rows.append((r, nzl, ("slab", 0)))
+    rows += [(r + nzl + below[h], takes[h], ("hi", h)) for h in range(len(takes))]
+    segs = []
+    for row0, n, source in rows:
+        off, size = row0 * row_bytes, n * row_bytes
+        d0, d1 = addr + off, addr + off + size
+        v0, v1 = -(-d0 // 16) * 16, d1 // 16 * 16
+        if v0 > v1:  # no whole chunk: every byte is head
+            v0 = v1 = d1
+        chunks = (v1 - v0) // 16
+        segs.append(dict(off=off, bytes=size, source=source, head=v0 - d0, chunks=chunks,
+                         tail=d1 - v1, tiles=max(1, -(-chunks * 16 // HALO_TILE_BYTES))))
+    return segs
+
+
+def halo_exchange_segments_plain(ext: Tensor, g: Tensor | None, lo: list, hi: list,
+                                 takes: list[int], fill, addr: int = 0) -> Tensor:
+    """K15b-1 as its kernel runs it, on any device: ``ext`` [nzl + 2r, ...]
+    written byte range by byte range from :func:`halo_segments` (``g`` None:
+    the in-place form), tile by tile, each segment's first tile also writing
+    its head and tail bytes, a fill byte at address a being byte a % 4 of
+    the fill's element pattern.  ``addr``: the slab's address the split
+    assumes (a multiple of the element size, as the kernel requires)."""
+    elem = ext.element_size()
+    if addr % elem:
+        raise ValueError(f"a slab of {elem}-byte elements cannot start at address {addr}")
+    r = sum(takes)
+    nzl = ext.shape[0] - 2 * r
+    row_bytes = ext[0].numel() * elem
+    out = ext.view(torch.uint8).reshape(-1)
+    pattern = torch.tensor([fill], dtype=ext.dtype).view(torch.uint8).repeat(4 // elem)
+    srcs = {("slab", 0): g, **{("lo", h): b for h, b in enumerate(lo)},
+            **{("hi", h): b for h, b in enumerate(hi)}}
+
+    def put(seg, a: int, b: int) -> None:  # bytes [a, b) of the segment
+        d = seg["off"]
+        src = srcs[seg["source"]]
+        if src is not None:
+            out[d + a:d + b] = src.reshape(-1).view(torch.uint8)[a:b]
+        else:
+            phase = torch.arange(addr + d + a, addr + d + b) % 4
+            out[d + a:d + b] = pattern[phase].to(out.device)
+
+    for seg in halo_segments(nzl, r, takes, row_bytes, addr, interior=g is not None):
+        head, body = seg["head"], 16 * seg["chunks"]
+        tile_chunks = HALO_TILE_BYTES // 16
+        for t in range(seg["tiles"]):
+            if t == 0:
+                put(seg, 0, head)
+                put(seg, head + body, seg["bytes"])
+            c0, c1 = t * tile_chunks, min((t + 1) * tile_chunks, seg["chunks"])
+            if c1 > c0:
+                put(seg, head + 16 * c0, head + 16 * c1)
+    return ext
+
+
 def halo_fold_min_plain(ext: Tensor, r: int, from_next: list, from_prev: list,
                         takes: list[int]) -> Tensor:
     """Plain version of K15b-2 (kernels.halo_fold_min's arguments)."""
@@ -264,6 +351,24 @@ class ZShardOps:
             return kernels.halo_exchange(g, lo, hi, takes, fill)
         return halo_exchange_plain(g, lo, hi, takes, fill)
 
+    def halo_fill_(self, ext: Tensor, r: int, fill) -> Tensor:
+        """In place: the 2r halo rows of ``ext`` [nzl + 2r, ...] from the
+        neighbours' edge rows of its interior (``fill`` past the global
+        edges), so that ``ext`` is :meth:`halo_exchange` of its interior
+        (K15b-1's in-place form); the interior is not copied.  Returns
+        ``ext``."""
+        if ext.dtype not in kernels.HALO_DTYPES:
+            raise ValueError(f"halo fill of a {ext.dtype} slab: K15b-1 takes "
+                             f"{sorted(map(str, kernels.HALO_DTYPES))}")
+        if r <= 0:
+            return ext
+        lo, hi, takes = self.halo_recv(ext[r:ext.shape[0] - r], r)
+        if _on_card(ext, "halo fill"):
+            kernels.halo_fill_(ext, r, lo, hi, takes, fill)
+        else:
+            halo_fill_plain_(ext, r, lo, hi, takes, fill)
+        return ext
+
     def fold_recv(self, ext: Tensor, r: int):
         """The collective of :meth:`halo_fold_min`: (from_next, from_prev,
         takes), the halo blocks each neighbour sends back, per hop."""
@@ -343,44 +448,48 @@ class ZShardOps:
 
     def sweeps(self, init: Tensor, occ: Tensor, ball, n: int,
                until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
-        """ops/components.sweeps on the slab: each sweep exchanges a halo of
-        the keys and runs K2 on the extended slab with its change flag over
-        the interior rows only (a flag over the halo rows would count changes
-        the dense sweep never sees); the flags are OR-ed over the shards.
-        ``until_fixpoint`` gates each launch on the previous sweep's global
-        flag.  Traced shells exchange the halo of their static bound.
-        Returns (slab, bool [n] global per-sweep flags)."""
+        """ops/components.sweeps on the slab, one schedule on both devices:
+        two halo'd buffers of nzl + 2 halo rows take turns; sweep i fills
+        the halo rows of its source in place from the neighbours' edge rows
+        (K15b-1's in-place form: the interior is never copied), then runs
+        K2's one-sweep launch from it into the other buffer with its change
+        flag over the interior rows only (a flag over the halo rows would
+        count changes the dense sweep never sees); the flags are OR-ed over
+        the shards.  ``until_fixpoint`` gates each launch on the previous
+        sweep's global flag.  Traced shells exchange the halo of their
+        static bound.  The CPU takes the plain leaves (halo_fill_plain_,
+        propagate_sweep_plain) in the same schedule.  Returns (slab: the
+        last destination's interior, bool [n] global per-sweep flags)."""
         taps, reach = tap_set(ball)
         halo = int(math.floor(ball.bound)) if isinstance(ball, Shells) else reach
         nzl = init.shape[0]
         rows = (halo, halo + nzl)
         fill = SENTINEL if init.dtype == torch.int32 else 0
-        cur = init.contiguous()
-        if _on_card(init, "sharded sweeps"):
-            occ_ext = self.halo_exchange(occ.contiguous().view(torch.uint8), halo, 0)
-            changed = torch.zeros(n, dtype=torch.int32, device=init.device)
-            flags, prev = [], None
-            for i in range(n):
-                ext = self.halo_exchange(cur, halo, fill)
-                # gated: a skipped launch must leave the fixpoint in place
-                dst = ext.clone() if until_fixpoint else torch.empty_like(ext)
-                kernels.propagate_sweep(ext, dst, occ_ext, taps, reach, changed[i], prev, rows)
-                if until_fixpoint:
-                    flags.append(self.comm.any(changed[i] != 0))
-                    prev = flags[-1].to(torch.int32)
-                cur = dst[halo:halo + nzl]
-            return cur, torch.stack(flags) if until_fixpoint else self.comm.any(changed != 0)
-        occ_ext = self.halo_exchange(occ, halo, False)
-        flags = []
-        for _ in range(n):
-            if until_fixpoint and flags and not bool(flags[-1]):
-                flags.append(flags[-1])
-                continue
-            new, ch = sweep_plain(self.halo_exchange(cur, halo, fill), occ_ext, ball, rows)
-            cur = new[halo:halo + nzl]
-            flags.append(self.comm.any(ch) if until_fixpoint else ch)
-        flags = torch.stack(flags)
-        return cur, flags if until_fixpoint else self.comm.any(flags)
+        card = _on_card(init, "sharded sweeps")
+        occ_ext = self.halo_exchange(occ.contiguous().view(torch.uint8), halo, 0)
+        bufs = [torch.empty((nzl + 2 * halo,) + tuple(init.shape[1:]), dtype=init.dtype,
+                            device=init.device) for _ in range(2)]
+        bufs[0][halo:halo + nzl] = init
+        changed = torch.zeros(n, dtype=torch.int32, device=init.device)
+        flags, prev = [], None
+        for i in range(n):
+            src, dst = bufs[i % 2], bufs[(i + 1) % 2]
+            self.halo_fill_(src, halo, fill)
+            # Gated, a launch is skipped only when the previous sweep's global
+            # flag is 0: that sweep changed no interior voxel on any shard, so
+            # src's interior already equals dst's and the untouched dst holds
+            # the fixpoint (the argument of the persistent K2's early stop,
+            # csrc/propagate.cu).  dst's halo rows are refilled before use.
+            if card:
+                kernels.propagate_sweep(src, dst, occ_ext, taps, reach, changed[i], prev, rows)
+            else:
+                propagate_sweep_plain(src, dst, occ_ext.view(torch.bool), ball, changed[i], prev,
+                                      rows)
+            if until_fixpoint:  # the 0 / 1 flags' max over the shards: their OR, in int32
+                prev = self.comm.pmax(changed[i])
+                flags.append(prev)
+        flags = torch.stack(flags) != 0 if until_fixpoint else self.comm.any(changed != 0)
+        return bufs[n % 2][halo:halo + nzl], flags
 
     def label_seeded(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
         """ops/components.label_components_seeded with global flat ids."""
