@@ -6,29 +6,43 @@
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
-(p: parent, c: change) the script times that tree's K15b-1 halo exchange
-at the grid paths' shapes (shard 1 of 3 of the flagship grid): what one
-sharded K2 sweep spends on its halo (the change: the in-place fill of a
-halo'd buffer; a tree without it: the out-of-place exchange and, gated,
-the clone of the extended slab), int32 labels at r = 3 and uint8 reach at
-r = 2, the out-of-place exchange at r = 3 and the explore pad's f32 r =
-16, and ``torch.cat`` of the same extended slab; each with its CUDA-event
-mean over 20 back-to-back calls (host work included where the host is
-slower) and, from torch.profiler, its device-kernel ms, kernel launches
-and memcpys a call.  Then it profiles 5 scans of the grid and grid-exact
-paths (as chip_smoke phase 5: a fresh node, the apriori plane, 6 warm-up
-scans): K15b-1's launches and device ms a scan, the direct_copy kernels
-and device-to-device memcpys a scan, and the device busy ms.  Then it
-runs that tree's ``chip_smoke.py`` in full (its log under ``--out``).
-One JSON line per run, then a summary line of every run: those figures
-and the exact and grid-exact step p50 / p95 (phases 4-exact,
-4-grid-exact) with their device busy ms and idle share (phases
-5-profile-exact, 5-profile-grid-exact).  With ``--exact-pairs N`` /
-``--grid-exact-pairs N`` it then runs N pairs of phase 4-exact /
-4-grid-exact alone (36 flagship scans of the reference-exact path, dense
-or over 3 shards, a fresh process each), alternating which tree goes
-first, and reports each run's step p50 / p95, the medians of both trees
-and the pairs each won.  Exits non-zero if any run fails.  Needs one GPU.
+(p: parent, c: change) the script times that tree's kernels on a flagship
+node's state (6 warm-up scans), each with its CUDA-event mean over 20
+back-to-back calls (host work included where the host is slower) and,
+from torch.profiler, its device-kernel ms, kernel launches and memcpys a
+call:
+
+- K1's two sweep-path calls (bg_near, int8 max r3; the local sure count,
+  int32 sum r3), K14's two calls at the dynamic path's 2.0 / 1.9 m radii
+  (int8 max at bound 4, r² 16; int32 sum at bound 5, r² 25), and K15a on a
+  flagship scan's packed grid beside ``torch.bitwise_and`` + ``torch.ge``
+  into preallocated outputs;
+- the K15a wrapper's host profile: ``time.perf_counter_ns`` around 1,000
+  calls of each step of ``kernels.unpack`` (and of the whole wrapper, the
+  frontend's ``unpack`` and the two torch ops) with no sync;
+- K15b-1's halo exchange at the grid paths' shapes (shard 1 of 3 of the
+  flagship grid): what one sharded K2 sweep spends on its halo (a tree
+  with the in-place fill: that fill of a halo'd buffer; one without it:
+  the out-of-place exchange and its clone), int32 labels at r = 3 and
+  uint8 reach at r = 2, the out-of-place exchange at r = 3 and the explore
+  pad's f32 r = 16, and ``torch.cat`` of the same extended slab.
+
+Then it profiles 5 scans of the sweep, prebinned and dynamic (2.0 / 1.9
+m) paths (K1, K14 and K15a device ms and launches a scan) and of the grid
+and grid-exact paths (K15b-1's launches and device ms a
+scan, the direct_copy kernels and device-to-device memcpys, the busy ms),
+each from a fresh node after the apriori plane and 6 warm-up scans, as
+chip_smoke phase 5 does.  Then it runs that tree's ``chip_smoke.py`` in
+full (its log under ``--out``).  One JSON line per run, then a summary
+line of every run: those figures and, from the smoke, the step p50 / p95
+of the sweep, prebinned, dynamic, exact and grid-exact paths (phases 4-*)
+with their device busy ms and idle share (phases 5-profile-*).  With
+``--exact-pairs N`` / ``--grid-exact-pairs N`` it then runs N pairs of
+phase 4-exact / 4-grid-exact alone (36 flagship scans of the
+reference-exact path, dense or over 3 shards, a fresh process each),
+alternating which tree goes first, and reports each run's step p50 / p95,
+the medians of both trees and the pairs each won.  Exits non-zero if any
+run fails.  Needs one GPU.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from pathlib import Path
 _KERNEL_TIMES = r"""
 import json
 import sys
+import time
 from functools import partial
 
 import torch
@@ -53,6 +68,9 @@ sys.path.insert(0, ".")
 import chip_smoke as cs
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.io.binner import HostBinner
+from vofod_tpu_torch.ops import morphology as tm
+from vofod_tpu_torch.pipeline.frontend import unpack
 from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
 
@@ -73,6 +91,54 @@ def device_side(fn, reps=20):
         n[kind] += 1
     return dict(device_ms=ms["kernel"] / reps, cuda_launches=n["kernel"] / reps,
                 memcpy_ms=ms["memcpy"] / reps, memcpys=n["memcpy"] / reps)
+
+
+def dense_profile(lut, path, n=5):
+    # K1, K14 and K15a device ms and launches a scan over n profiled scans of
+    # a dense path from a fresh node (its busy ms: the smoke's phase 5)
+    cfg, opts = cs.VoFODConfig(), NodeOptions()
+    if path == "prebinned":
+        opts = NodeOptions(frontend_mode="prebinned")
+    elif path == "dynamic":
+        cfg = cs.dynamic_config()
+    node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
+    if path == "dynamic":
+        node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
+    node.load_apriori_map(cs.apriori_ground())
+    scans = cs.scan_cycle(lut, 6 + n)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r, p in scans[6:]:
+            node.process_scan(r, None, p)
+        torch.cuda.synchronize()
+    out = {}
+    for key in ("ball_pool", "unpack"):
+        out[key + "_launches"] = 0
+        out[key + "_ms"] = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+        for key in ("ball_pool", "unpack"):
+            if key + "_kernel" in e.name:
+                out[key + "_launches"] += 1 / n
+                out[key + "_ms"] += us / 1e3 / n
+    return out
+
+
+def host_us(fn, n=1000):
+    # host microseconds a call over n calls with no sync, after 50
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(dt, 3)
 
 
 def grid_profile(lut, exact, n=5):
@@ -140,8 +206,41 @@ for name, g, h, fill in (("int32_r3", keys, 3, cs.SENTINEL), ("uint8_r2", reach,
             lambda slab=slab, lo=lo, hi=hi, h=h, fill=fill: kernels.halo_exchange(
                 slab, lo, hi, [h], fill).clone())
 out = {name: dict(ms=cs.cuda_ms(fn), **device_side(fn)) for name, fn in calls.items()}
-prof = {"grid": grid_profile(lut, False), "grid_exact": grid_profile(lut, True)}
-print(json.dumps(dict(in_place=in_place, halo=out, profiles=prof)))
+# K1 (bg_near, the local sure count), K14 at 2.0 / 1.9 m, K15a
+bg8 = (vals > dyn.thr_new_obstacles).to(torch.int8)
+sure = (vals > dyn.thr_sure_obstacles).to(torch.int32)
+r_np, p_np = cs.scan_cycle(lut, 7)[6]
+packed = torch.as_tensor(HostBinner(cfg, lut).bin(r_np, p_np).packed, device="cuda")
+lc, lb = torch.empty_like(packed, dtype=torch.int32), torch.empty_like(packed, dtype=torch.bool)
+two_ops = lambda: (torch.bitwise_and(packed, 0x3F, out=lc), torch.ge(packed, 0x80, out=lb))
+pools = {"k1_int8_max_r3": partial(tm.ball_pool, bg8, 3.0, "max", 0),
+         "k1_int32_sum_r3": partial(tm.ball_pool, sure, 3.0, "sum", 0),
+         "k14_int8_max_b4_r2_16": partial(tm.shell_pool, bg8, 16.0, 4.0, "max", 0),
+         "k14_int32_sum_b5_r2_25": partial(tm.shell_pool, sure, 25.0, 5.0, "sum", 0),
+         "k15a_unpack": partial(unpack, packed), "k15a_two_torch_ops": two_ops}
+kern = {name: dict(ms=cs.cuda_ms(fn), **device_side(fn)) for name, fn in pools.items()}
+lib, n = kernels.load(), packed.numel()
+stream = kernels._stream()
+host = {
+    "frontend.unpack": partial(unpack, packed), "kernels.unpack": partial(kernels.unpack, packed),
+    "two torch ops": two_ops,
+    "_require": partial(kernels._require, packed, "unpack packed", torch.uint8),
+    "numel": packed.numel, "load()": kernels.load, "_stream()": kernels._stream,
+    "torch.empty x2 (device=packed.device)": lambda: (
+        torch.empty(packed.shape, dtype=torch.int32, device=packed.device),
+        torch.empty(packed.shape, dtype=torch.bool, device=packed.device)),
+    "torch.empty_like x2": lambda: (torch.empty_like(packed, dtype=torch.int32),
+                                    torch.empty_like(packed, dtype=torch.bool)),
+    "data_ptr x3": lambda: (packed.data_ptr(), lc.data_ptr(), lb.data_ptr()),
+    "launch (ctypes, outputs given)": lambda: lib.vofod_unpack(
+        packed.data_ptr(), lc.data_ptr(), lb.data_ptr(), n, stream),
+    "_count": partial(kernels._count, "unpack"),
+}
+host = {k: host_us(f) for k, f in host.items()}
+prof = {"grid": grid_profile(lut, False), "grid_exact": grid_profile(lut, True),
+        **{p: dense_profile(lut, p) for p in ("sweep", "prebinned", "dynamic")}}
+print(json.dumps(dict(in_place=in_place, halo=out, kernels=kern, k15a_host_us=host,
+                      profiles=prof)))
 """
 
 # runs in the tree's root; prints phase 4-exact's JSON line
@@ -193,7 +292,24 @@ def phases(log: str) -> dict:
 def summarize(ph: dict) -> dict:
     ex, gx = ph.get("4-exact", {}), ph.get("4-grid-exact", {})
     pe, pg = ph.get("5-profile-exact", {}), ph.get("5-profile-grid-exact", {})
+    dense = {}
+    for path, step, prof in (("sweep", "4-flagship", "5-profile"),
+                             ("prebinned", "4-prebinned", "5-profile-prebinned"),
+                             ("dynamic", "4-dynamic", "5-profile-dynamic")):
+        p50 = ph.get(step, {}).get("step_ms_p50")
+        if isinstance(p50, dict):
+            p50 = p50.get("prebinned")
+        elif path == "dynamic":
+            segs = ph.get(step, {}).get("segments") or [{}]
+            p50 = segs[-1].get("step_ms_p50")
+        dense[path] = dict(step_ms_p50=p50,
+                           busy_ms=ph.get(prof, {}).get("device_busy_ms_per_scan"),
+                           idle_share=ph.get(prof, {}).get("idle_share_of_unprofiled_step"))
     return dict(
+        dense=dense,
+        smoke_k1_k14_k15a={k: {m: ph[k].get(m) for m in ("ms", "device_ms", "library_ms",
+                                                          "library_device_ms", "calls")}
+                           for k in ("ball_pool", "shell_pool", "unpack") if k in ph},
         smoke_halo={k: {m: ph[k].get(m) for m in ("ms", "device_ms", "library_ms", "bound_ms")}
                     for k in HALO_CASES if k in ph},
         smoke_halo_exchange_ms=ph.get("halo_exchange", {}).get("ms"),

@@ -12,6 +12,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, on
    inputs taken from a real flagship scan (OS0-128, 241x201x51 grid): K1-K3
    bit-equal, K4 within one bf16 ulp at 1.0; CUDA-event times of both.
+   K1's run-table kernel also on the flagship grid where it can go wrong
+   (phase 2-k1-cases: fills that are not the op's identity, an int32 sum
+   past 2^31, fewer planes than 2 h + 1, a 23-plane slab, a grid no
+   multiple of the tile, rows misaligned in memory, tap sets with gaps
+   inside rows up to 2,112 taps at halo 7, the asymmetric hasCloseTo box),
+   each bit-equal; its two sweep-path calls with device ms (torch.profiler)
+   and each call's own bound, beside one F.conv3d of the 0/1 sure grid.
    K2's persistent launch (one per ``sweeps()`` call) in grid, per-sweep
    flags and tiles computed per sweep against the plain sweeps and the
    plain model of its schedule: the scan's 8 label sweeps at r3 and 8
@@ -61,12 +68,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    CUDA-event mean.  The prebinned ingest on a
    flagship scan: K15a bit-equal to its plain version on the native
    binner's packed grid, whose counts (clamped to 63) and blockers are
-   bit-equal to K3's and the raw frontend's; the host bin's p50/p95 over
-   the cycle and the packed upload's time.  The stencils past 256 taps:
+   bit-equal to K3's and the raw frontend's, its device ms beside the two
+   torch ops'; the host bin's p50/p95 over the cycle and the packed
+   upload's time.  The stencils past 256 taps:
    K1 at radius 4, 5, 6 and 7.99 (257 to 2,103 taps, int32 tiles past 48 KB
    of shared memory from halo 6), K2 at 4, 5 and 7.99, K11's demotion at 4,
    5 and 7.99, and K14's shell pools at the dynamic path's tap sets, all
-   bit-equal; K5b without faces (the ungated sweep) within K5b's bounds.
+   bit-equal, K14's two calls at the dynamic path's 2.0 / 1.9 m radii with
+   device ms and their bounds, beside one F.conv3d of the 0/1 sure grid;
+   K5b without faces (the ungated sweep) within K5b's bounds.
    K7s, the sequential explore, bit-equal on the grid, the clusters'
    connected flags and the write count to its plain version (a host loop
    over K7's and K8's plain versions): the classify inputs of a flagship
@@ -217,8 +227,8 @@ from vofod_tpu_torch.ops.explore import (  # noqa: E402
     explore_cut_plain, explore_plain, explore_sequential_, explore_sequential_plain,
     explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
-    ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps, shell_pool,
-    shell_taps, tap_pool_plain, tap_set)
+    Shells, ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps,
+    run_table, shell_pool, shell_taps, tap_pool_plain, tap_set)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
     RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces, gate_faces_plain,
     dda_n_steps, make_angular_gate, ray_ema_grid_, ray_ema_plain, ray_window_update_,
@@ -563,6 +573,79 @@ def _k4_case(op_w, rel_x, rel_y, rel_z) -> dict:
                 plain_ms=cuda_ms(lambda: cone_sweep_plain(op_w, rel_x, rel_y, rel_z), reps=2))
 
 
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time of a call on the card: its bytes at the memory rate or
+    its operations at the float32 rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _gapped_taps(h: int, n: int, seed: int) -> np.ndarray:
+    """n distinct taps drawn from the (2h + 1)^3 box: rows of several runs."""
+    rng = np.random.default_rng(seed)
+    box = np.array([(z, y, x) for z in range(-h, h + 1) for y in range(-h, h + 1)
+                    for x in range(-h, h + 1)], np.int32)
+    return box[rng.permutation(len(box))[:n]]
+
+
+def _k1_hard_cases(grid: GridSpec, dev) -> dict:
+    """K1's run-table kernel on the flagship grid where it can go wrong,
+    each bit-equal to the plain per-tap version: fills that are not the
+    op's identity (max with fill 0 over negative values, min with fill 5, a
+    sum with fill 7), an int32 sum past 2^31, fewer planes than 2 h + 1, a
+    23-plane slab (the grid paths' halo'd slab), rows misaligned in memory
+    (a view 1 or 3 bytes, 1 int32 past an allocation), tap sets of several
+    runs a row (one group of pairs at halo 3; several at halo 5 and 7, up
+    to 2,112 taps) and the asymmetric hasCloseTo box at r 1.5.  Returns
+    {case: (taps, runs, ms)}."""
+    rng = np.random.default_rng(13)
+    shape = grid.shape
+
+    def rand(lo, hi, dtype):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(dtype), device=dev)
+
+    def misaligned(a, off):
+        flat = torch.empty(a.numel() + off, dtype=a.dtype, device=dev)
+        flat[off:].view(a.shape).copy_(a)
+        return flat[off:].view(a.shape)
+
+    neg8, pos8 = rand(-128, 0, np.int8), rand(0, 128, np.int8)
+    neg32, pos32 = rand(-2**31, 0, np.int32), rand(0, 2**31 - 1, np.int32)
+    big32, bit32 = rand(2**29, 2**30, np.int32), rand(0, 2, np.int32)
+    cases = {
+        "int8 max fill 0 over negatives r3": (neg8, 3.0, "max", 0),
+        "int8 min fill 5 r3": (pos8, 3.0, "min", 5),
+        "int32 max fill 0 over negatives r2": (neg32, 2.0, "max", 0),
+        "int32 min fill 5 r3": (pos32, 3.0, "min", 5),
+        "int32 sum past 2^31 r3": (big32, 3.0, "sum", 0),
+        "int32 sum fill 7 r3": (bit32, 3.0, "sum", 7),
+        "5 planes < 2h + 1, int8 max r3": (neg8[:5].contiguous(), 3.0, "max", 0),
+        "2 planes, int32 sum r3": (big32[:2].contiguous(), 3.0, "sum", 0),
+        "23-plane slab, int32 sum r3": (bit32[:23].contiguous(), 3.0, "sum", 0),
+        "23-plane slab, int8 max r3": (neg8[:23].contiguous(), 3.0, "max", 0),
+        "grid 50x199x237, int8 min r3": (pos8[:50, :199, :237].contiguous(), 3.0, "min", 5),
+        "rows 1 byte misaligned, int8 max r3": (misaligned(neg8, 1), 3.0, "max", 0),
+        "rows 3 bytes misaligned, int8 min r3": (misaligned(pos8, 3), 3.0, "min", 5),
+        "rows 1 int32 misaligned, int32 sum r3": (misaligned(big32, 1), 3.0, "sum", 0),
+        "60 taps with gaps at halo 3, int8 max": (neg8, _gapped_taps(3, 60, 1), "max", 0),
+        "200 taps with gaps at halo 3, int32 sum": (big32, _gapped_taps(3, 200, 2), "sum", 0),
+        "400 taps with gaps at halo 5, int32 max": (neg32, _gapped_taps(5, 400, 3), "max", -7),
+        "2,112 taps with gaps at halo 7, int32 sum": (big32, _gapped_taps(7, 2112, 4), "sum", 0),
+        "1,500 taps with gaps at halo 7, int8 min": (pos8, _gapped_taps(7, 1500, 5), "min", 5),
+        "hasCloseTo box r1.5, int8 max": (neg8, hascloseto_taps(1.5), "max", 0),
+    }
+    out = {}
+    for name, (a, ball, op, fill) in cases.items():
+        taps, _ = tap_set(ball)
+        _equal((ball_pool(a, ball, op, fill),), (tap_pool_plain(a, taps, op, fill),),
+               f"K1[{name.replace(' ', '_')}].out")
+        out[name] = (len(taps), len(run_table(ball).runs),
+                     round(cuda_ms(lambda: ball_pool(a, ball, op, fill), reps=5), 4))
+    say("2-k1-cases", cases=out)
+    return out
+
+
 def phase2(lut) -> list[dict]:
     """Each kernel against its plain version at flagship shapes."""
     dev = torch.device("cuda")
@@ -641,9 +724,35 @@ def phase2(lut) -> list[dict]:
                ms=cuda_ms(lambda: hascloseto_pool_any(bg, radius)),
                plain_ms=cuda_ms(lambda: tap_pool_plain(bg.to(torch.int8), hct_taps, "max", 0),
                                 reps=3))
+    hard = _k1_hard_cases(grid, dev)
+    # the two calls of the sweep path, each with its own bound: inputs read
+    # and outputs written once, the run decomposition's combines a voxel
+    calls = []
+    for (a, rad, op, fill), what, t, pt in zip(cases[:2], ("bg_near", "local sure count"),
+                                              ms, pms):
+        n_bytes, n_ops = 2 * a.numel() * a.element_size(), nv * run_table(rad).combines()
+        calls.append(dict(call=f"{what}: {a.dtype} {op} r{rad}", ms=t, plain_ms=pt,
+                          device_ms=device_profile(lambda: ball_pool(a, rad, op, fill))[
+                              "device_ms"],
+                          schedule=kernels.ball_pool_schedule(a, *tap_set(rad), op, fill)[1],
+                          bytes=n_bytes, ops=n_ops, **_bound(n_bytes, n_ops)))
+    # one float32 convolution of the 0/1 sure grid with the r3 ball of ones:
+    # the sum call's values on the step's 0/1 inputs only
+    ball_w = torch.zeros((1, 1, 7, 7, 7), dtype=torch.float32, device=dev)
+    for dz, dy, dx in ball_taps(3.0).tolist():
+        ball_w[0, 0, dz + 3, dy + 3, dx + 3] = 1.0
+    sure_f = sure.to(torch.float32)[None, None]
+    conv = torch.nn.functional.conv3d(sure_f, ball_w, padding=3)[0, 0]
+    if not torch.equal(conv.to(torch.int32), ball_pool(sure, 3.0, "sum", 0)):
+        raise AssertionError("F.conv3d of the 0/1 sure grid differs from K1's sum")
     results.append(dict(
-        name="ball_pool", max_abs_err=err, ms=ms[0], plain_ms=pms[0],
-        bytes=2 * nv, ops=nv * len(ball_taps(radius)), library_ms=None, hascloseto=hct,
+        name="ball_pool", max_abs_err=err, ms=calls[1]["ms"], plain_ms=calls[1]["plain_ms"],
+        device_ms=calls[1]["device_ms"], bytes=calls[1]["bytes"], ops=calls[1]["ops"],
+        library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(sure_f, ball_w, padding=3)),
+        library_call="F.conv3d of the 0/1 sure grid (float32, cudnn tf32 off) with the r3 "
+                     "ball of ones: the local sure count's values on the step's 0/1 inputs "
+                     "only; the record's ms and bound are that call's",
+        calls=calls, hascloseto=hct, cases=hard,
         shapes=f"{grid.shape}; ms/plain_ms per case (int8 max r3, int32 sum r3, "
                f"int8 max r1.6, int32 min r3): {[round(x, 4) for x in ms]} / "
                f"{[round(x, 4) for x in pms]}",
@@ -1303,12 +1412,14 @@ def phase2_ingest(cfg, grid, lut, scans, n_scan, k3, ranges, pose) -> list[dict]
         packed_upload_ms=upload_ms, packed_upload_bytes=nv + cfg.sensor.n_points + 8,
         n_valid_points=b.n_valid_points, n_exclude_hits=b.n_exclude_hits,
         clamped_voxels=int((k3[0] > 63).sum()), blocker_voxels=int(ku[1].sum()))
+    two_ops = (lambda: (torch.bitwise_and(packed, 0x3F, out=lib_counts),
+                        torch.ge(packed, 0x80, out=lib_blockers)))
     return [dict(
         name="unpack", max_abs_err=0.0, ms=cuda_ms(lambda: unpack(packed)),
+        device_ms=device_profile(lambda: unpack(packed))["device_ms"],
         plain_ms=cuda_ms(lambda: unpack_plain(packed)),
         bytes=nv * (1 + 4 + 1), ops=2 * nv,
-        library_ms=cuda_ms(lambda: (torch.bitwise_and(packed, 0x3F, out=lib_counts),
-                                    torch.ge(packed, 0x80, out=lib_blockers))),
+        library_ms=cuda_ms(two_ops), library_device_ms=device_profile(two_ops)["device_ms"],
         library_call="torch.bitwise_and(packed, 0x3F, out=int32 counts) and torch.ge(packed, "
                      "0x80, out=bool blockers): two torch ops writing the kernel's outputs",
         library_uint8_ms=cuda_ms(lambda: (packed & 0x3F, packed >= 0x80)),
@@ -1366,13 +1477,37 @@ def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
         _equal((k,), (p,), f"K14[b{bound} r2 {r2}].out")
         shells.append(f"{a.dtype} {op} bound {bound} r2 {r2:.7g} ({len(taps)} taps)")
     say("2-lifted-cap", ms=cases, k14_cases=shells)
-    k14_ms = cuda_ms(lambda: shell_pool(sure, 25.0, 5.0, "sum", 0))
+    # the dynamic path's two K14 calls at its 2.0 / 1.9 m radii (bounds 4
+    # and 5 index units): bg_near, int8 max r² 16 (257 taps), and the local
+    # sure count, int32 sum r² 25 (515 taps)
+    calls = []
+    for a, r2, bound, op, what in ((bg.to(torch.int8), 16.0, 4.0, "max", "bg_near"),
+                                   (sure, 25.0, 5.0, "sum", "local sure count")):
+        n_bytes = 2 * a.numel() * a.element_size()
+        n_ops = nv * run_table(Shells(bound, r2)).combines()
+        calls.append(dict(
+            call=f"{what}: {a.dtype} {op}, bound {bound}, r² {r2:g}",
+            ms=cuda_ms(lambda: shell_pool(a, r2, bound, op, 0)),
+            device_ms=device_profile(lambda: shell_pool(a, r2, bound, op, 0))["device_ms"],
+            schedule=kernels.ball_pool_schedule(a, *tap_set(Shells(bound, r2)), op, 0)[1],
+            bytes=n_bytes, ops=n_ops, **_bound(n_bytes, n_ops)))
+    # one float32 convolution of the 0/1 sure grid with the r5 ball of ones:
+    # the local sure count's values on the step's 0/1 inputs only
+    ball_w = torch.zeros((1, 1, 11, 11, 11), dtype=torch.float32, device=dev)
+    for dz, dy, dx in shell_taps(5.0, 25.0).tolist():
+        ball_w[0, 0, dz + 5, dy + 5, dx + 5] = 1.0
+    sure_f = sure.to(torch.float32)[None, None]
+    conv = torch.nn.functional.conv3d(sure_f, ball_w, padding=5)[0, 0]
+    if not torch.equal(conv.to(torch.int32), shell_pool(sure, 25.0, 5.0, "sum", 0)):
+        raise AssertionError("F.conv3d of the 0/1 sure grid differs from K14's sum")
     return [dict(
-        name="shell_pool", max_abs_err=0.0, ms=k14_ms,
+        name="shell_pool", max_abs_err=0.0, ms=calls[1]["ms"], device_ms=calls[1]["device_ms"],
         plain_ms=cuda_ms(lambda: tap_pool_plain(sure, shell_taps(5.0, 25.0), "sum", 0), reps=3),
-        bytes=2 * 4 * nv, ops=nv * len(shell_taps(5.0, 25.0)),
-        library_ms=cuda_ms(lambda: ball_pool(sure, 5.0, "sum", 0)),
-        library_call="K1's static pool on the same ball (int32 sum r5, 515 taps)",
+        bytes=calls[1]["bytes"], ops=calls[1]["ops"],
+        library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(sure_f, ball_w, padding=5)),
+        library_call="F.conv3d of the 0/1 sure grid (float32, cudnn tf32 off) with the r5 "
+                     "ball of ones: the local sure count's values on the step's 0/1 inputs only",
+        k1_static_ms=cuda_ms(lambda: ball_pool(sure, 5.0, "sum", 0)), calls=calls,
         shapes=f"{grid.shape} int32 sum, bound 5, r² 25 (1.9 m): 515 taps, halo 5; cases "
                f"{shells} bit-equal",
     )]

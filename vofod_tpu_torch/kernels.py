@@ -8,7 +8,7 @@ the sources and flags; a missing ``nvcc`` or a failed build raises with the
 compiler's output — there is no fallback to the plain PyTorch versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch``, launches on ``torch.cuda.current_stream()``, raises
+outputs with ``torch``, launches on the calling thread's current stream, raises
 when the launch returns a CUDA error, and adds one to its entry of
 :data:`LAUNCHES` (under a lock: the grid-sharded step launches from one
 thread per shard).  The ops modules call these wrappers for CUDA tensors
@@ -180,13 +180,15 @@ def build() -> tuple[Path, str]:
 def load():
     """Build (if needed) and load the library once per process."""
     global _lib
+    if _lib is not None:  # loaded: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
         so, _ = build()
         lib = ctypes.CDLL(str(so))
         lib.vofod_ball_pool.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P]
+            _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P]
         lib.vofod_propagate_sweep.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]
         lib.vofod_propagate_sweeps.argtypes = [
@@ -258,8 +260,12 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device_index: int | None = None) -> int:
+    """The raw current stream of the calling thread on ``device_index``
+    (default: the current device).  ``torch.accelerator.current_stream`` is
+    one C call; ``torch.cuda.current_stream()`` builds a Python ``Stream``
+    (1.1 against 6.8 us a call on the H100 machine's host)."""
+    return torch.accelerator.current_stream(device_index).native_handle
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
@@ -287,27 +293,46 @@ def _taps_arg(taps: np.ndarray, halo: int):
 
 _DTYPE_CODE = {torch.int8: 0, torch.int32: 1}
 _OP_CODE = {"min": 0, "max": 1, "sum": 2}
+# K1's column tiles (y, x) by dtype (csrc/ball_pool.cu Lanes: 16 x 16
+# threads of 8 int8 or 4 int32 voxels)
+BALL_POOL_TILE = {torch.int8: (16, 128), torch.int32: (16, 64)}
+# the (lo, hi) pairs whose pools K1 holds in shared memory at once (BP_GROUP)
+BALL_RUN_GROUP = 8
 
 
-def _pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str, fill: int) -> torch.Tensor:
+def _pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str, fill: int,
+          used=None) -> torch.Tensor:
     if a.dtype not in _DTYPE_CODE or a.dim() != 3:
         raise ValueError(f"ball_pool takes a 3-D int8/int32 grid, got {a.dtype} {tuple(a.shape)}")
     if op == "sum" and a.dtype != torch.int32:
         raise ValueError("ball_pool sum takes int32")
     _require(a, "ball_pool input", a.dtype)
-    keep, ptr = _taps_arg(taps, halo)
+    from vofod_tpu_torch.ops.morphology import run_table  # it imports this module
+
+    table = run_table(taps, halo)
     out = torch.empty_like(a)
     nz, ny, nx = a.shape
     err = load().vofod_ball_pool(
         a.data_ptr(), out.data_ptr(), _DTYPE_CODE[a.dtype], _OP_CODE[op],
-        nz, ny, nx, ptr, len(keep), halo, int(fill), _stream())
+        nz, ny, nx, table.blob_ptr, len(table.blob), int(fill), used, _stream(a.get_device()))
     _check(err, "vofod_ball_pool")
     return out
 
 
+def ball_pool_schedule(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
+                       fill: int) -> tuple[torch.Tensor, dict]:
+    """K1 once, with the schedule the card chose for it: (output, {zchunk,
+    blocks, blocks_per_sm})."""
+    used = (ctypes.c_int * 3)()
+    out = _pool(a, taps, halo, op, fill, used)
+    _count("ball_pool")
+    return out, dict(zchunk=used[0], blocks=used[1], blocks_per_sm=used[2])
+
+
 def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
               fill: int) -> torch.Tensor:
-    """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill)."""
+    """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill),
+    run from the tap set's run table (ops/morphology.run_table)."""
     out = _pool(a, taps, halo, op, fill)
     _count("ball_pool")
     return out
@@ -1169,13 +1194,16 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
 def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K15a: (counts int32, blockers bool) of the host-binned uint8 grid:
     counts = packed & 0x3F, blockers = packed >= 0x80."""
-    _require(packed, "unpack packed", torch.uint8)
-    if packed.numel() == 0:
+    if not (packed.is_cuda and packed.dtype == torch.uint8 and packed.is_contiguous()):
+        _require(packed, "unpack packed", torch.uint8)  # raises, naming what is wrong
+    n = packed.numel()
+    if n == 0:
         raise ValueError("unpack takes a non-empty grid")
-    counts = torch.empty(packed.shape, dtype=torch.int32, device=packed.device)
-    blockers = torch.empty(packed.shape, dtype=torch.bool, device=packed.device)
-    err = load().vofod_unpack(packed.data_ptr(), counts.data_ptr(), blockers.data_ptr(),
-                              packed.numel(), _stream())
+    # empty_like: the cheapest allocation on the host (chip_ab.py's profile)
+    counts = torch.empty_like(packed, dtype=torch.int32)
+    blockers = torch.empty_like(packed, dtype=torch.bool)
+    err = load().vofod_unpack(packed.data_ptr(), counts.data_ptr(), blockers.data_ptr(), n,
+                              _stream(packed.get_device()))
     _check(err, "vofod_unpack")
     _count("unpack")
     return counts, blockers

@@ -13,10 +13,12 @@ A "ball" below is a radius (the static ball of :func:`ball_offsets`), the
 The CUDA kernels take any tap set within halo 7 (radius < 8 voxels, at
 most 2,103 taps); past that they raise.
 
-A CUDA tensor goes to the hand-written stencil (csrc/ball_pool.cu); a CPU
-tensor takes the plain version below, which is the JAX decomposition (x
-running pools shared across rows, then one shifted combine per (dz, dy)
-row).  Integer pools are exact in any order, so both are bit-equal to JAX.
+A CUDA tensor goes to the hand-written stencil (csrc/ball_pool.cu), given
+the ball's :class:`RunTable` (its x-runs, pairs and z slices); a CPU tensor
+takes the plain version below, which is the JAX decomposition (x running
+pools shared across rows, then one shifted combine per (dz, dy) row).
+:func:`ball_pool_runs_plain` models the kernel's schedule on the CPU.
+Integer pools are exact in any order, so all are bit-equal to JAX.
 
 Grids are (nz, ny, nx); radii are in voxel units and may be fractional.
 """
@@ -75,31 +77,222 @@ def _ball_rows(radius: float) -> tuple[tuple[int, int, int], ...]:
     return tuple(rows)
 
 
+@dataclass(frozen=True, eq=False)
+class RunTable:
+    """K1's tap set as the kernel runs it (csrc/ball_pool.cu).
+
+    The taps are cut into x-runs ``(dz, dy, lo, hi)``, each a (dz, dy)
+    row's contiguous dx values.  The distinct ``(lo, hi)`` pairs (``runs``,
+    int32 [n_runs, 2]) are pooled once per staged row, in groups of
+    :data:`kernels.BALL_RUN_GROUP`, the pools shared memory holds at once.
+    A symmetric pair ``(-w, w)`` is pooled on the chain ``S[w] = op(S[w -
+    1], e[-w], e[w])`` of the row's elements ``e`` (the JAX x pools' nested
+    widths); ``sym`` int32 [n_groups, 8] holds each pair ``(-w, w)``'s index
+    within its group, -1 where the group has none.  Any other pair is
+    pooled element by element.
+
+    A z slice is the rows ``(dy, run)`` of one dz; equal slices (a ball's
+    dz and -dz) are kept once and feed each accumulator k = halo - dz they
+    belong to.  ``slices`` int32 [n_slices, 3]: ``first row, end row,
+    kmask`` (bit k for accumulator k), group by group (``gslice`` int32
+    [n_groups + 1]: the slices of group g are ``gslice[g]:gslice[g + 1]``);
+    ``rows`` int32 [n_rows, 2]: ``dy, run`` (its index within the group).
+    ``blob`` is the packed int16 form the kernel takes."""
+
+    halo: int
+    runs: np.ndarray
+    sym: np.ndarray
+    gslice: np.ndarray
+    slices: np.ndarray
+    rows: np.ndarray
+    blob: np.ndarray
+    blob_ptr: int  # the blob's address, taken once (numpy's .ctypes costs a microsecond)
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.gslice) - 1
+
+    def combines(self) -> int:
+        """Combines an output voxel takes: 2 a step of the symmetric
+        pairs' chain (to the widest), hi - lo for any other pair, one a
+        slice row and one a slice's accumulator (radius 3: 6 + 18 + 7)."""
+        n, group = 0, kernels.BALL_RUN_GROUP
+        for g in range(self.n_groups):
+            pairs = self.runs[g * group:(g + 1) * group].tolist()
+            widths = [hi for lo, hi in pairs if lo == -hi]
+            n += 2 * max(widths, default=0)
+            n += sum(hi - lo for lo, hi in pairs if lo != -hi)
+        for first, end, kmask in self.slices.tolist():
+            n += end - first + bin(kmask).count("1")
+        return n
+
+
+# a slice's accumulators k = halo - dz: at most 2 x the largest halo + 1
+_KS = 2 * kernels.MAX_HALO + 1
+
+
+def x_runs(taps: np.ndarray) -> list[tuple[int, int, int, int]]:
+    """The maximal x-runs ``(dz, dy, lo, hi)`` of a tap set: each (dz, dy)
+    row's dx values cut where they have a gap."""
+    rows: dict[tuple[int, int], list[int]] = {}
+    for dz, dy, dx in np.asarray(taps).reshape(-1, 3).tolist():
+        rows.setdefault((dz, dy), []).append(dx)
+    out = []
+    for (dz, dy), dxs in sorted(rows.items()):
+        dxs = sorted(set(dxs))
+        lo = prev = dxs[0]
+        for dx in dxs[1:] + [None]:
+            if dx is None or dx != prev + 1:
+                out.append((dz, dy, lo, prev))
+                lo = dx
+            prev = dx
+    return out
+
+
+def _build_run_table(taps: np.ndarray, halo: int) -> RunTable:
+    kernels._taps_arg(taps, halo)  # the stencil kernels' limits
+    if len(np.unique(taps.reshape(-1, 3), axis=0)) != len(taps):
+        raise ValueError("a ball pool's tap set must not repeat a tap")
+    runs_dz = x_runs(taps)
+    # symmetric pairs first, narrowest first: the chain pools them in order
+    pairs = sorted({(lo, hi) for _, _, lo, hi in runs_dz},
+                   key=lambda p: (p[0] != -p[1], p[1] - p[0], p[0]))
+    group = kernels.BALL_RUN_GROUP
+    index = {p: i for i, p in enumerate(pairs)}
+    n_groups = -(-len(pairs) // group)
+    sym = np.full((n_groups, 8), -1, np.int32)
+    for i, (lo, hi) in enumerate(pairs):
+        if lo == -hi:
+            sym[i // group, hi] = i % group
+    # per group, the slice (sorted rows) of each dz; equal slices kept once
+    by_g: dict[int, dict[int, list]] = {}
+    for dz, dy, lo, hi in runs_dz:
+        i = index[(lo, hi)]
+        by_g.setdefault(i // group, {}).setdefault(halo - dz, []).append((dy, i % group))
+    gslice, slices, rows = [0], [], []
+    for g in range(n_groups):
+        kmasks: dict[tuple, int] = {}
+        for k, sl in sorted(by_g.get(g, {}).items()):
+            key = tuple(sorted(sl))
+            kmasks[key] = kmasks.get(key, 0) | 1 << k
+        for key, kmask in kmasks.items():
+            slices.append((len(rows), len(rows) + len(key), kmask))
+            rows += key
+        gslice.append(len(slices))
+    runs = np.asarray(pairs, np.int32).reshape(-1, 2)
+    slices = np.asarray(slices, np.int32).reshape(-1, 3)
+    rows = np.asarray(rows, np.int32).reshape(-1, 2)
+    gslice = np.asarray(gslice, np.int32)
+    blob = np.concatenate([
+        [halo, len(runs), len(rows), len(slices)], runs.reshape(-1), sym.reshape(-1), gslice,
+        slices.reshape(-1), (rows[:, 0] + kernels.MAX_HALO) * 256 + rows[:, 1]]).astype(np.int16)
+    return RunTable(halo, runs, sym, gslice, slices, rows, blob, blob.ctypes.data)
+
+
+@functools.lru_cache(maxsize=256)
+def _run_table_of_taps(key: bytes, halo: int) -> RunTable:
+    return _build_run_table(np.frombuffer(key, np.int32).reshape(-1, 3), halo)
+
+
+def run_table(ball, halo: int | None = None) -> RunTable:
+    """The :class:`RunTable` of a ball (a radius, traced shells or a tap
+    set) at ``halo`` (default :func:`tap_set`'s), built once per tap set
+    and halo; the kernels' wrappers pass a tap set and its halo."""
+    taps, reach = tap_set(ball)
+    taps = np.ascontiguousarray(taps, np.int32).reshape(-1, 3)
+    return _run_table_of_taps(taps.tobytes(), reach if halo is None else halo)
+
+
+def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
+                         tile: tuple[int, int], zchunk: int) -> Tensor:
+    """Plain model of the K1 kernel's schedule, on any device: ``a``'s
+    (y, x) plane cut into ``tile`` (TY, TX) column tiles and its z into
+    chunks of ``zchunk`` output planes.  A tile and chunk stages every input
+    plane from ``halo`` before its chunk to ``halo`` after it (out-of-grid
+    voxels read ``fill``) with ``halo`` rows and 8 columns around the tile.
+    Per group of pairs it pools each staged row: the symmetric pairs on one
+    chain, the others element by element; then each slice combines its
+    rows' pools and feeds the accumulators of the output planes in the
+    chunk it belongs to.  Output plane ``zi - halo`` is done after input
+    plane ``zi``."""
+    combine = _COMBINE[op]
+    nz, ny, nx = a.shape
+    h, (ty, tx), pad = table.halo, tile, 8
+    nty, ntx = -(-ny // ty), -(-nx // tx)
+    ident = 0 if op == "sum" else INT_FILL[op][a.dtype]
+    group = kernels.BALL_RUN_GROUP
+    out = torch.empty_like(a)
+    fill_plane = torch.full((ny, nx), fill, dtype=a.dtype, device=a.device)
+    for zc0 in range(0, nz, zchunk):
+        zc1 = min(nz, zc0 + zchunk)
+        acc = [torch.full((nty, ntx, ty, tx), ident, dtype=a.dtype, device=a.device)
+               for _ in range(2 * h + 1)]
+        for zi in range(zc0 - h, zc1 + h):
+            plane = a[zi] if 0 <= zi < nz else fill_plane
+            staged = F.pad(plane, (pad, ntx * tx - nx + pad, h, nty * ty - ny + h), value=fill)
+            # [tiles_y, tiles_x, TY + 2h, TX + 16]
+            stage = staged.unfold(0, ty + 2 * h, ty).unfold(1, tx + 2 * pad, tx)
+            e = {k: stage[..., pad + k: pad + k + tx] for k in range(-h, h + 1)}
+            for g in range(table.n_groups):
+                pairs = table.runs[g * group:(g + 1) * group].tolist()
+                pools = [None] * len(pairs)
+                chain = e[0]
+                for w in range(h + 1):
+                    if w:
+                        chain = combine(combine(chain, e[-w]), e[w])
+                    if table.sym[g, w] >= 0:
+                        pools[table.sym[g, w]] = chain
+                for i, (lo, hi) in enumerate(pairs):
+                    if lo != -hi:
+                        pools[i] = e[lo]
+                        for k in range(lo + 1, hi + 1):
+                            pools[i] = combine(pools[i], e[k])
+                for first, end, kmask in table.slices[table.gslice[g]:
+                                                      table.gslice[g + 1]].tolist():
+                    live = [k for k in range(2 * h + 1)
+                            if kmask >> k & 1 and zc0 <= zi - h + k < zc1]
+                    if not live:
+                        continue
+                    d = None
+                    for dy, run in table.rows[first:end].tolist():
+                        s = pools[run][:, :, h + dy: h + dy + ty, :]
+                        d = s if d is None else combine(d, s)
+                    for k in live:
+                        acc[k] = combine(acc[k], d)
+            if zi - h >= zc0:
+                done = acc[0].permute(0, 2, 1, 3).reshape(nty * ty, ntx * tx)
+                out[zi - h] = done[:ny, :nx]
+            acc = acc[1:] + [torch.full_like(acc[0], ident)]
+    return out
+
+
 _COMBINE = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}
 
 
 def ball_pool_plain(a: Tensor, radius: float, op: str, fill: int) -> Tensor:
-    """Plain version: the JAX decomposition, out[v] = op over ball(radius)."""
+    """Plain version: the JAX decomposition, out[v] = op over ball(radius),
+    with the grid padded by ``fill`` on every axis before the x pools, so
+    that an out-of-grid tap reads ``fill`` also in a sum (the JAX form pads
+    the x pools of out-of-grid rows with one ``fill`` each; its sums use
+    fill 0, where the two agree)."""
     combine = _COMBINE[op]
     nz, ny, nx = a.shape
     rows = _ball_rows(radius)
     widths = sorted({w for _, _, w in rows})
-    xpool = {0: a}
-    max_w = widths[-1]
-    if max_w > 0:
-        pad = F.pad(a, (max_w, max_w), value=fill)
-        prev = a
-        for w in range(1, max_w + 1):
-            lo = pad[:, :, max_w - w: max_w - w + nx]
-            hi = pad[:, :, max_w + w: max_w + w + nx]
-            prev = combine(combine(lo, prev), hi)
-            if w in widths:
-                xpool[w] = prev
     m = max(max(abs(dz), abs(dy)) for dz, dy, _ in rows)
-    padded = {w: F.pad(xpool[w], (0, 0, m, m, m, m), value=fill) for w in widths}
+    max_w = widths[-1]
+    pad = F.pad(a, (max_w, max_w, m, m, m, m), value=fill)
+    prev = pad[:, :, max_w: max_w + nx]
+    xpool = {0: prev}
+    for w in range(1, max_w + 1):
+        lo = pad[:, :, max_w - w: max_w - w + nx]
+        hi = pad[:, :, max_w + w: max_w + w + nx]
+        prev = combine(combine(lo, prev), hi)
+        if w in widths:
+            xpool[w] = prev
     out = None
     for dz, dy, w in rows:
-        s = padded[w][m + dz: m + dz + nz, m + dy: m + dy + ny, :]
+        s = xpool[w][m + dz: m + dz + nz, m + dy: m + dy + ny, :]
         out = s if out is None else combine(out, s)
     return out.contiguous()
 
