@@ -25,18 +25,25 @@ call:
   with the in-place fill: that fill of a halo'd buffer; one without it:
   the out-of-place exchange and its clone), int32 labels at r = 3 and
   uint8 reach at r = 2, the out-of-place exchange at r = 3 and the explore
-  pad's f32 r = 16, and ``torch.cat`` of the same extended slab.
+  pad's f32 r = 16, and ``torch.cat`` of the same extended slab;
+- K9 on the sweep scan's far list and on synthetic far lists at F = 2048,
+  8192 and 20000 (> K clusters, long label ties; the parent refuses F >
+  16384), with each of its kernels' device ms and its memsets a call, and
+  its wrapper's host us a call over 1,000 calls;
+- the DDA walk (K12) on a flagship exact scan's rays and K15b-6c on each
+  of the 3 shards' rows.
 
-Then it profiles 5 scans of the sweep, prebinned and dynamic (2.0 / 1.9
-m) paths (K1, K14 and K15a device ms and launches a scan) and of the grid
-and grid-exact paths (K15b-1's launches and device ms a
-scan, the direct_copy kernels and device-to-device memcpys, the busy ms),
-each from a fresh node after the apriori plane and 6 warm-up scans, as
-chip_smoke phase 5 does.  Then it runs that tree's ``chip_smoke.py`` in
-full (its log under ``--out``).  One JSON line per run, then a summary
-line of every run: those figures and, from the smoke, the step p50 / p95
-of the sweep, prebinned, dynamic, exact and grid-exact paths (phases 4-*)
-with their device busy ms and idle share (phases 5-profile-*).  With
+Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
+and exact paths (K1, K14, K15a, K9 and the DDA walk's device ms and
+launches a scan) and of the grid and grid-exact paths (K15b-1's
+launches and device ms a scan, the direct_copy kernels and
+device-to-device memcpys, the busy ms), each from a fresh node after the
+apriori plane and 6 warm-up scans, as chip_smoke phase 5 does.  Then it
+runs that tree's ``chip_smoke.py`` in full (its log under ``--out``).  One
+JSON line per run, then a summary line of every run: those figures and,
+from the smoke, the step p50 / p95 of the sweep, prebinned, dynamic, exact
+and grid-exact paths (phases 4-*) with every profiled path's device busy
+ms and idle share (phases 5-profile-*).  With
 ``--exact-pairs N`` / ``--grid-exact-pairs N`` it then runs N pairs of
 phase 4-exact / 4-grid-exact alone (36 flagship scans of the
 reference-exact path, dense or over 3 shards, a fresh process each),
@@ -55,7 +62,9 @@ from pathlib import Path
 
 # runs in the tree's root; prints one JSON line
 _KERNEL_TIMES = r"""
+import ctypes
 import json
+import re
 import sys
 import time
 from functools import partial
@@ -93,6 +102,48 @@ def device_side(fn, reps=20):
                 memcpy_ms=ms["memcpy"] / reps, memcpys=n["memcpy"] / reps)
 
 
+# kernel families a dense scan profile counts, by their kernels' names (K9:
+# the parent's rank and stats passes, the sort's one launch or four chunked)
+DENSE_KERNELS = {"ball_pool": ("ball_pool_kernel",), "unpack": ("unpack_kernel",),
+                 "k9": ("rank_kernel", "stats_kernel", "slots_kernel", "chunk_"),
+                 "dda_walk": ("dda_kernel",), "dda_round": ("round_kernel",)}
+
+
+def kernel_side(fn, reps=20):
+    # device ms a call of each kernel name fn launches, and its memsets
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.name)
+        name = m.group(1) if m else e.name[:40]
+        ms, k = by.get(name, (0.0, 0))
+        by[name] = (ms + float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+                    / 1e3 / reps, k + 1 / reps)
+    return {name: dict(device_ms=round(ms, 5), per_call=k) for name, (ms, k) in by.items()}
+
+
+def k9_far_list(grid, F, n_far, seed):
+    # a far list of capacity F with ~n_far far voxels in > K clusters: a copy
+    # of chip_smoke.synthetic_far_list, kept here because a tree from before
+    # K9's chunked path has no such function.  48 compact clusters and
+    # scattered voxels in ties of 100 labels
+    rng = np.random.default_rng(seed)
+    far, labels = cs.synthetic_far(grid, 48, seed)
+    bg = rng.choice(grid.n_voxels, max(n_far - int(far.sum()), 0), replace=False)
+    bg = bg[~far.reshape(-1)[bg]]
+    far.reshape(-1)[bg] = True
+    labels.reshape(-1)[bg] = cs.SENTINEL - 1 - rng.integers(0, 100, len(bg))
+    fids, fvalid, ftotal = cs.masked_compact_plain(torch.as_tensor(far, device="cuda"), F)
+    return fids, fvalid, torch.as_tensor(labels, device="cuda").reshape(-1)[fids.long()], ftotal
+
+
 def dense_profile(lut, path, n=5):
     # K1, K14 and K15a device ms and launches a scan over n profiled scans of
     # a dense path from a fresh node (its busy ms: the smoke's phase 5)
@@ -101,6 +152,8 @@ def dense_profile(lut, path, n=5):
         opts = NodeOptions(frontend_mode="prebinned")
     elif path == "dynamic":
         cfg = cs.dynamic_config()
+    elif path == "exact":
+        cfg, opts = cs.exact_config(), NodeOptions(raycast_mode="exact")
     node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
     if path == "dynamic":
         node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
@@ -114,15 +167,15 @@ def dense_profile(lut, path, n=5):
             node.process_scan(r, None, p)
         torch.cuda.synchronize()
     out = {}
-    for key in ("ball_pool", "unpack"):
+    for key in DENSE_KERNELS:
         out[key + "_launches"] = 0
         out[key + "_ms"] = 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
-        for key in ("ball_pool", "unpack"):
-            if key + "_kernel" in e.name:
+        for key, names in DENSE_KERNELS.items():
+            if any(m in e.name for m in names):
                 out[key + "_launches"] += 1 / n
                 out[key + "_ms"] += us / 1e3 / n
     return out
@@ -173,6 +226,11 @@ def grid_profile(lut, exact, n=5):
                 out[key + "_ms"] += us / 1e3 / n
     return out
 
+
+import numpy as np
+from vofod_tpu_torch.ops.raycast import raycast_dda, raycast_dda_slab
+from vofod_tpu_torch.pipeline import classify as tcls
+from vofod_tpu_torch.pipeline.step import exact_rays
 
 lut = cs.make_lut(cs.VoFODConfig().sensor)
 cfg, dyn = cs.VoFODConfig(), DynParams()
@@ -237,10 +295,78 @@ host = {
     "_count": partial(kernels._count, "unpack"),
 }
 host = {k: host_us(f) for k, f in host.items()}
+# K9 on the sweep scan's far list (the node's state after 6 scans) and on
+# synthetic far lists at F = 2048, 8192 and 20000 (the parent refuses
+# F > 16384); its wrapper's host us a call
+from vofod_tpu_torch.pipeline.background import split_and_update
+true = torch.ones((), dtype=torch.bool, device="cuda")
+K = cfg.max_clusters
+r6, p6 = cs.scan_cycle(lut, 7)[6]
+pose6 = torch.as_tensor(p6, device="cuda")
+k3 = cs.frontend_bin(cfg, grid, torch.as_tensor(lut.directions, device="cuda"),
+                     torch.as_tensor(lut.offsets, device="cuda"),
+                     torch.as_tensor(r6.astype(np.float32), device="cuda"), pose6)
+bg = split_and_update(cfg, dyn, vals, k3[0], node.state.bg_sufficient)
+fids, fvalid, ftotal = cs.masked_compact_plain(bg.far, cfg.max_far_voxels)
+k9_args = {"sweep_scan": (fids, fvalid, bg.labels.reshape(-1)[fids.long()], ftotal,
+                          pose6[:3, 3].contiguous(), bg.bg_sufficient, true)}
+for F in (2048, 8192, 20000):
+    k9_args[f"F{F}"] = (*k9_far_list(grid, F, F - 600, F), pose6[:3, 3].contiguous(), true, true)
+k9 = {}
+capped = not hasattr(kernels, "K9_SMEM_KEYS")  # a tree whose K9 refuses F > 16384
+for name, args in k9_args.items():
+    fn = partial(tcls.cluster_stats, dyn, grid, K, *args)
+    if capped and args[0].shape[0] > 16384:
+        try:
+            fn()
+        except (RuntimeError, ValueError) as e:
+            k9[name] = dict(refused=str(e)[:200])
+            continue
+    k9[name] = dict(ms=cs.cuda_ms(fn), **cs.device_profile(fn), kernels=kernel_side(fn),
+                    n_far=int(args[3]))
+# host us on the list's first 64 voxels, so that the device keeps up
+small = tuple(t[:64] for t in k9_args["sweep_scan"][:3]) + k9_args["sweep_scan"][3:]
+wrap = partial(kernels.cluster_stats, small[0], small[1], small[2], K, grid.origin,
+               grid.voxel_size, (dyn.cls_min_points, dyn.cls_max_distance, dyn.cls_max_size,
+                                 dyn.cls_max_explore_distance), small[4], small[5], small[6],
+               small[3], grid_yx=(grid.ny, grid.nx))
+gates = (dyn.cls_min_points, dyn.cls_max_distance, dyn.cls_max_size,
+         dyn.cls_max_explore_distance)
+k9_host = {"kernels.cluster_stats": host_us(wrap),
+           "classify.cluster_stats": host_us(partial(tcls.cluster_stats, dyn, grid, K, *small)),
+           "torch.empty": host_us(lambda: torch.empty(K, device="cuda")),
+           "15 x torch.empty": host_us(lambda: [torch.empty(K, device="cuda")
+                                                for _ in range(15)]),
+           "host constants built": host_us(lambda: [
+               a.ctypes.data_as(ctypes.c_void_p)
+               for a in (np.array([*grid.origin, grid.voxel_size], dtype=np.float32),
+                         np.array(gates, dtype=np.float32))])}
+if hasattr(kernels, "_stats_host"):  # the change's cache of them
+    k9_host["host constants cached"] = host_us(
+        partial(kernels._stats_host, grid.origin, grid.voxel_size, gates))
+# the DDA walk on a flagship exact scan's rays (6 warm-up scans of the exact
+# path), dense and each shard's rows (K15b-6c; shard 0 holds the sensor)
+ecfg = cs.exact_config()
+enode = VoFOD(ecfg, dyn, NodeOptions(raycast_mode="exact"), lut, device="cuda")
+enode.load_apriori_map(cs.apriori_ground())
+for r, p in cs.scan_cycle(lut, 7)[:6]:
+    enode.process_scan(r, None, p)
+H, W = lut.height, lut.width
+rays = exact_rays(ecfg, dyn, grid, torch.as_tensor(lut.directions, device="cuda"),
+                  torch.as_tensor(lut.offsets, device="cuda"),
+                  torch.ones(H * W, dtype=torch.bool, device="cuda"),
+                  torch.as_tensor(r6.astype(np.float32), device="cuda") * 0.001,
+                  torch.ones(H * W, dtype=torch.float32, device="cuda"), pose6)
+bound = ecfg.raycast_max_distance_bound
+walks = {"dda_exact_scan": partial(raycast_dda, grid, *rays, bound),
+         **{f"dda_slab_shard{i}": partial(raycast_dda_slab, grid, *rays, bound, (i * nzl, nzl))
+            for i in range(cs.GRID_SHARDS)}}
+dda = {name: dict(ms=cs.cuda_ms(fn), **cs.device_profile(fn), kernels=kernel_side(fn))
+       for name, fn in walks.items()}
 prof = {"grid": grid_profile(lut, False), "grid_exact": grid_profile(lut, True),
-        **{p: dense_profile(lut, p) for p in ("sweep", "prebinned", "dynamic")}}
+        **{p: dense_profile(lut, p) for p in ("sweep", "prebinned", "dynamic", "exact")}}
 print(json.dumps(dict(in_place=in_place, halo=out, kernels=kern, k15a_host_us=host,
-                      profiles=prof)))
+                      k9=k9, k9_host_us=k9_host, dda=dda, profiles=prof)))
 """
 
 # runs in the tree's root; prints phase 4-exact's JSON line
@@ -305,8 +431,18 @@ def summarize(ph: dict) -> dict:
         dense[path] = dict(step_ms_p50=p50,
                            busy_ms=ph.get(prof, {}).get("device_busy_ms_per_scan"),
                            idle_share=ph.get(prof, {}).get("idle_share_of_unprofiled_step"))
+    busy = {path: {k: ph.get(f"5-profile{sfx}", {}).get(m) for k, m in (
+        ("busy_ms", "device_busy_ms_per_scan"), ("idle_share", "idle_share_of_unprofiled_step"))}
+        for path, sfx in (("sweep", ""), ("exact", "-exact"), ("sequential", "-sequential"),
+                          ("prebinned", "-prebinned"), ("dynamic", "-dynamic"),
+                          ("grid", "-grid"), ("grid_exact", "-grid-exact"),
+                          ("grid_sequential", "-grid-sequential"))}
     return dict(
-        dense=dense,
+        dense=dense, busy=busy,
+        smoke_k9_k12={k: {m: ph[k].get(m) for m in ("ms", "plain_ms", "max_abs_err",
+                                                     "large_far_lists", "random_directions")
+                          if m in ph[k]}
+                      for k in ("cluster_stats", "dda", "dda_slab") if k in ph},
         smoke_k1_k14_k15a={k: {m: ph[k].get(m) for m in ("ms", "device_ms", "library_ms",
                                                           "library_device_ms", "calls")}
                            for k in ("ball_pool", "shell_pool", "unpack") if k in ph},

@@ -35,9 +35,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    a random air/unknown/ground field, a serpentine corridor capped at 8
    sweeps, 32 of the queries at S = 16 and 62) and K8 (demotion of the
    random batch) bit-equal; K9 (the scan's far list, a synthetic far set of
-   48 clusters, degenerate ones included)
-   integers, bools and AABB bit-equal, floats within K9_TOL (OBB axes up to
-   their sign, with sign flips counted).  The other stages' kernels on the
+   48 clusters, degenerate ones included, and synthetic far lists of
+   F = 8192, sorted in one block, and F = 20000, past the one-block sort on
+   the chunked path, with > K clusters, long label ties and slots spanning
+   chunks) integers, bools and AABB bit-equal, floats within K9_TOL (OBB
+   axes up to their sign, with sign flips counted).  The other stages' kernels on the
    same scan: K5a (the scan's image, the returns only, a random image
    under a pitched pose, a calibrated LUT) within K5A_TOL; K5b (the scan's
    window, both update rules, its_diff 1 and 2, kernel and plain version
@@ -49,10 +51,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    random counts; the demotion EMA with sure_sufficient True and False)
    bit-equal.  The reference-exact path's kernels on a flagship exact scan
    (exact census, hasCloseTo box, counted indexing) and synthetic cases:
-   K1's hasCloseTo tap set bit-equal; K12's walk with the same nonzero
+   K1's hasCloseTo tap set bit-equal; K12's walk (the scan's rays, and as
+   many rays from the sensor in random directions, each warp diverging at
+   once) with the same nonzero
    voxels as the plain version's sequential sum on the host, raylen within
    K12_RAYLEN_RTOL of it and, in five walks, within one float32 ulp of the
-   float64 sum of the same chords, its EMA pass (both rules, its_diff 1 and 2)
+   float64 sum of the same chords, K15b-6c's three slabs of the random
+   directions bit-equal to K12's rows, its EMA pass (both rules, its_diff 1 and 2)
    bit-equal on the kernel's raylen and within K5B_TOL_REL x |score_ray|
    after walk and EMA; K2 run to convergence (the scan's coarse cells, a
    random field that converges, isolated voxels whose first sweep is the
@@ -404,19 +409,24 @@ def device_profile(fn, reps: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = {"kernel": 0.0, "memset": 0.0, "memcpy": 0.0}
-    n = dict.fromkeys(us, 0)
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        low = e.name.lower()
-        kind = "memcpy" if "memcpy" in low else "memset" if "memset" in low else "kernel"
-        us[kind] += float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
-        n[kind] += 1
+    # a session now and then records no device event at all (PERF.md §7):
+    # up to three sessions, the first that saw a kernel counts
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {"kernel": 0.0, "memset": 0.0, "memcpy": 0.0}
+        n = dict.fromkeys(us, 0)
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            low = e.name.lower()
+            kind = "memcpy" if "memcpy" in low else "memset" if "memset" in low else "kernel"
+            us[kind] += float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+            n[kind] += 1
+        if n["kernel"]:
+            break
     return dict(device_ms=us["kernel"] / reps / 1e3, cuda_launches=n["kernel"] / reps,
                 memset_ms=us["memset"] / reps / 1e3, memsets=n["memset"] / reps,
                 memcpys=n["memcpy"] / reps)
@@ -922,6 +932,35 @@ def synthetic_far(grid: GridSpec, n_clusters: int, seed: int):
     return far, labels
 
 
+def synthetic_far_list(grid: GridSpec, F: int, n_far: int, seed: int, dev):
+    """A far list of capacity F (K6's form: ascending flat ids, then an
+    invalid tail) holding ~n_far far voxels: synthetic_far's 48 compact
+    clusters labelled with their least flat ids, two 3-plane columns labelled
+    0 and 1 (slots 0 and 1) across the planes where the list crosses each
+    multiple of the chunk kernels.K9_CHUNK, and scattered voxels in long
+    ties of 100 labels just below SENTINEL.  Returns (fids, fvalid, labels
+    of the list, ftotal)."""
+    rng = np.random.default_rng(seed)
+    far, labels = synthetic_far(grid, 48, seed)
+    nz, ny, nx = grid.shape
+    n_bg = max(n_far - int(far.sum()), 0)
+    bg = rng.choice(grid.n_voxels, n_bg, replace=False)
+    bg = bg[~far.reshape(-1)[bg]]
+    far.reshape(-1)[bg] = True
+    labels.reshape(-1)[bg] = SENTINEL - 1 - rng.integers(0, 100, len(bg))
+    before = np.cumsum(far.sum(axis=(1, 2)))  # far voxels up to each plane
+    crossings = [int(np.searchsorted(before, m)) for m in
+                 range(kernels.K9_CHUNK, int(before[-1]), kernels.K9_CHUNK)]
+    for i, z in enumerate(crossings[:2]):
+        z = min(max(z, 1), nz - 2)
+        y, x = 4 + 3 * i, 4
+        far[z - 1:z + 2, y, x] = True
+        labels[z - 1:z + 2, y, x] = i
+    fids, fvalid, ftotal = masked_compact_plain(torch.as_tensor(far, device=dev), F)
+    flab = torch.as_tensor(labels, device=dev).reshape(-1)[fids.long()]
+    return fids, fvalid, flab, ftotal
+
+
 def _stats_compare(ks, ps, what: str) -> dict:
     exact = ("reps", "slot_valid", "npts", "aabb_min", "aabb_max", "gated", "m_k", "qgate",
              "rep_sel", "cluster_overflow")
@@ -1010,10 +1049,39 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     syn_cmp = _stats_compare(ks2, ps2, "synthetic 48 clusters")
     if not syn_cmp["cluster_overflow"]:
         raise AssertionError("K9 synthetic case did not overflow the K slots")
+    # large far lists: F = 8192 sorts in one block; past kernels.K9_SMEM_KEYS
+    # the chunked path, its slots 0 and 1 spanning chunks
+    large = {}
+    for F in (8192, 20000):
+        args = synthetic_far_list(grid, F, F - 600, seed=F, dev=dev)
+        kl = cluster_stats(dyn, grid, K, *args, centre, true, true)
+        pl = cluster_stats_plain(dyn, grid, K, *args[:3], centre, true)
+        large[F] = _stats_compare(kl, pl, f"synthetic far list F = {F}")
+        if not large[F]["cluster_overflow"] or large[F]["n_slots"] != K:
+            raise AssertionError(f"K9 F = {F}: expected K full slots and an overflow")
+        large[F].update(n_far=int(args[3]), chunked=F > kernels.K9_SMEM_KEYS,
+                        ms=cuda_ms(lambda: cluster_stats(dyn, grid, K, *args, centre, true, true)))
+    # the entry holds the scratch to its own SMEM_KEYS and CHUNK: a wrapper
+    # whose constant sends F = 20000 down the one-launch sizing (no scratch)
+    # is refused, not written past
+    kernels.K9_SMEM_KEYS, keys = 1 << 20, kernels.K9_SMEM_KEYS
+    try:
+        cluster_stats(dyn, grid, K, *args, centre, true, true)
+    except RuntimeError:
+        refused = True
+    else:
+        refused = False
+    finally:
+        kernels.K9_SMEM_KEYS = keys
+    if not refused:
+        raise AssertionError("K9: a chunked call without its scratch was not refused")
     out.append(dict(
-        name="cluster_stats", max_abs_err=max(*scan_cmp["max_abs"].values(),
-                                              *syn_cmp["max_abs"].values()),
+        name="cluster_stats", undersized_scratch_refused=refused, max_abs_err=max(*scan_cmp["max_abs"].values(),
+                                              *syn_cmp["max_abs"].values(),
+                                              *(v for c in large.values()
+                                                for v in c["max_abs"].values())),
         tol=K9_TOL, ms=k9_ms, plain_ms=k9_plain, scan=scan_cmp, synthetic=syn_cmp,
+        large_far_lists=large,
         # the far list and its labels in; K slots of statistics out
         bytes=cfg.max_far_voxels * (4 + 1 + 4) + K * 128, ops=cfg.max_far_voxels * 30 + K * 300,
         library_ms=None,
@@ -1527,6 +1595,41 @@ def _rel_stats(a: torch.Tensor, b: torch.Tensor) -> dict:
     return dict(max=float(r.max()), p999=float(q), n_differ=int((a[nz] != b[nz]).sum()))
 
 
+def _dda_check(grid: GridSpec, rays, bound: float, k12: torch.Tensor, what: str) -> dict:
+    """K12's walk ``k12`` of ``rays`` against the plain version's sequential
+    float32 sum on the host CPU (the JAX order; the plain version on the
+    card adds with atomics) and against the float64 sum of the same chords
+    rounded once, which the kernel's float64 adds give up to one ulp; five
+    walks.  Raises past the contract."""
+    nv = grid.n_voxels
+    cpu_rays = [t.cpu() for t in rays]
+    fid_c, w_c = dda_emissions_plain(grid, *cpu_rays, bound)
+    p12 = torch.zeros(nv, dtype=torch.float32).index_add_(0, fid_c, w_c).reshape(grid.shape)
+    p12 = p12.to(k12.device)
+    e64 = torch.zeros(nv, dtype=torch.float64).index_add_(0, fid_c, w_c.double())
+    e64 = e64.reshape(grid.shape).to(k12.device)
+    e12 = e64.float()
+    ulp = torch.nextafter(e12, torch.full_like(e12, float("inf"))) - e12
+    if not torch.equal(k12 > 0, p12 > 0):
+        raise AssertionError(f"K12 {what}: nonzero voxels differ in "
+                             f"{int(((k12 > 0) != (p12 > 0)).sum())}")
+    rel = _rel_stats(k12, p12)
+    walks = [k12] + [raycast_dda(grid, *rays, bound) for _ in range(4)]
+    off_ulp = [int((w_ != e12).sum()) for w_ in walks]
+    if not (rel["max"] <= K12_RAYLEN_RTOL
+            and all(bool(((w_ - e12).abs() <= ulp).all()) for w_ in walks)):
+        raise AssertionError(f"K12 {what} raylen: {rel} (tol {K12_RAYLEN_RTOL}); voxels off "
+                             f"the rounded float64 sum in five walks {off_ulp}")
+    return dict(
+        max_abs_err=max_abs(k12, p12), rel=rel,
+        sequential_own_rel=_rel_stats(p12.double(), e64)["max"],
+        off_rounded_f64_sum_per_walk=off_ulp,
+        walks_identical=all(torch.equal(w_, k12) for w_ in walks),
+        nonzero_voxels=int((p12 > 0).sum()), emissions=int(fid_c.numel()),
+        valid_rays=int(rays[3].sum()), max_voxel_raylen=float(p12.max()),
+        emissions_dev=(fid_c.to(k12.device), w_c.to(k12.device)), plain_dev=p12)
+
+
 def phase2_exact(lut) -> list[dict]:
     """K12, K13 and the exact path's K1 / K2 uses against their plain
     versions, on a flagship exact scan and on synthetic cases."""
@@ -1551,46 +1654,45 @@ def phase2_exact(lut) -> list[dict]:
     bound = cfg.raycast_max_distance_bound
     out = []
 
-    # K12 walk: against the plain version's sequential float32 sum on the
-    # host CPU (the JAX order; the plain version on the card adds with
-    # atomics) and against the float64 sum of the same chords rounded once,
-    # which the kernel's float64 atomics give up to one ulp; five walks
+    # K12 walk on the scan's rays, and on as many rays from the sensor in
+    # random directions (each warp diverging at once, few shared voxels)
     k12 = raycast_dda(grid, *rays, bound)
-    cpu_rays = [t.cpu() for t in rays]
-    fid_c, w_c = dda_emissions_plain(grid, *cpu_rays, bound)
-    p12 = torch.zeros(nv, dtype=torch.float32).index_add_(0, fid_c, w_c).reshape(grid.shape)
-    p12 = p12.to(dev)
-    e64 = torch.zeros(nv, dtype=torch.float64).index_add_(0, fid_c, w_c.double())
-    e64 = e64.reshape(grid.shape).to(dev)
-    e12 = e64.float()
-    ulp = torch.nextafter(e12, torch.full_like(e12, float("inf"))) - e12
-    if not torch.equal(k12 > 0, p12 > 0):
-        raise AssertionError(f"K12: nonzero voxels differ in {int(((k12 > 0) != (p12 > 0)).sum())}")
-    rel = _rel_stats(k12, p12)
-    walks = [k12] + [raycast_dda(grid, *rays, bound) for _ in range(4)]
-    off_ulp = [int((w_ != e12).sum()) for w_ in walks]
-    if not (rel["max"] <= K12_RAYLEN_RTOL
-            and all(bool(((w_ - e12).abs() <= ulp).all()) for w_ in walks)):
-        raise AssertionError(f"K12 raylen: {rel} (tol {K12_RAYLEN_RTOL}); voxels off the "
-                             f"rounded float64 sum in five walks {off_ulp}")
-    fid_d, w_d = fid_c.to(dev), w_c.to(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    n_rays = rays[0].shape[0]
+    rdirs = torch.randn((n_rays, 3), generator=g, device=dev)
+    rdirs = rdirs / torch.linalg.vector_norm(rdirs, dim=1, keepdim=True)
+    scattered = (pose[:3, 3].expand(n_rays, 3).contiguous(), rdirs,
+                 torch.rand(n_rays, generator=g, device=dev) * bound,
+                 torch.ones(n_rays, dtype=torch.bool, device=dev))
+    rec = _dda_check(grid, rays, bound, k12, "scan rays")
+    fid_d, w_d = rec.pop("emissions_dev")
+    p12 = rec.pop("plain_dev")
     zero_grid = torch.zeros(nv, dtype=torch.float32, device=dev)
-    n_emit = int(fid_c.numel())
+    k12_scattered = raycast_dda(grid, *scattered, bound)
+    random_dirs = _dda_check(grid, scattered, bound, k12_scattered, "random directions")
+    del random_dirs["emissions_dev"], random_dirs["plain_dev"]
+    # K15b-6c's skip and stop rules on the diverging rays: the grid-exact
+    # path's three slabs bit-equal to K12's rows
+    nzl = grid.nz // GRID_SHARDS
+    slabs = [raycast_dda_slab(grid, *scattered, bound, (i * nzl, nzl))
+             for i in range(GRID_SHARDS)]
+    if not torch.equal(torch.cat(slabs), k12_scattered):
+        raise AssertionError(f"K15b-6c slabs of the random directions differ from K12 in "
+                             f"{int((torch.cat(slabs) != k12_scattered).sum())} voxels")
+    random_dirs["slabs_equal"] = True
+    random_dirs["ms"] = cuda_ms(lambda: raycast_dda(grid, *scattered, bound))
     out.append(dict(
-        name="dda", max_abs_err=max_abs(k12, p12), rel=rel, tol_rel=K12_RAYLEN_RTOL,
-        sequential_own_rel=_rel_stats(p12.double(), e64)["max"],
-        off_rounded_f64_sum_per_walk=off_ulp,
-        walks_identical=all(torch.equal(w_, k12) for w_ in walks),
-        nonzero_voxels=int((p12 > 0).sum()), emissions=n_emit,
-        valid_rays=int(rays[3].sum()), max_voxel_raylen=float(p12.max()),
+        name="dda", max_abs_err=max(rec["max_abs_err"], random_dirs["max_abs_err"]),
+        **{k: v for k, v in rec.items() if k != "max_abs_err"}, tol_rel=K12_RAYLEN_RTOL,
+        random_directions=random_dirs,
         ms=cuda_ms(lambda: raycast_dda(grid, *rays, bound)),
         plain_ms=cuda_ms(lambda: raycast_dda_plain(grid, *rays, bound), reps=3),
         # rays in, the raylen grid out once; ~20 ops per walked step
-        bytes=rays[0].shape[0] * (12 + 12 + 4 + 1) + nv * 4, ops=n_emit * 20,
+        bytes=n_rays * (12 + 12 + 4 + 1) + nv * 4, ops=rec["emissions"] * 20,
         library_ms=cuda_ms(lambda: zero_grid.index_add_(0, fid_d, w_d)),
         library_call="index_add_ of the walk's nonzero (id, chord) emissions: the scatter "
                      "half only (the walk that finds the emissions is not timed)",
-        shapes=f"{rays[0].shape[0]} rays x <= {dda_n_steps(grid.voxel_size, bound)} steps -> "
+        shapes=f"{n_rays} rays x <= {dda_n_steps(grid.voxel_size, bound)} steps -> "
                f"{grid.shape}",
     ))
 
@@ -2723,7 +2825,8 @@ def phase2_grid(lut) -> list[dict]:
                     ms=cuda_ms(call), plain_ms=cuda_ms(plain),
                     library_ms=cuda_ms(partial(torch.cat, lo + [slab] + hi)),
                     bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3, **device_profile(call))
-        line["device_share_of_bound"] = line["bound_ms"] / line["device_ms"]
+        line["device_share_of_bound"] = (line["bound_ms"] / line["device_ms"]
+                                         if line["device_ms"] else None)  # not measured
         say("2-grid-halo", **line)
         halo_lines[case] = line
     f16 = halo_lines["f32_r16"]

@@ -205,7 +205,7 @@ def load():
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P,
             _P]
         lib.vofod_cluster_stats.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+            _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P]
         lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_ray_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P]
@@ -708,25 +708,39 @@ def demote_direct_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Ten
     return n_writes
 
 
-# output fields of K9, in the order of csrc/classify_stats.cu StatsOut
-_STATS_FIELDS = (
-    ("reps", torch.int32, ()), ("slot_valid", torch.bool, ()), ("npts", torch.int32, ()),
-    ("aabb_min", torch.float32, (3,)), ("aabb_max", torch.float32, (3,)),
-    ("obb_center", torch.float32, (3,)), ("axes", torch.float32, (3, 3)),
-    ("obb_extent", torch.float32, (3,)), ("obb_size", torch.float32, ()),
-    ("gated", torch.bool, ()), ("m_k", torch.int32, ()), ("qgate", torch.bool, ()),
-    ("rep_sel", torch.int32, ()),
-)
+# K9: F up to K9_SMEM_KEYS sorts in one block's shared memory (one launch);
+# past it, chunks of K9_CHUNK keys (csrc/classify_stats.cu SMEM_KEYS, CHUNK;
+# the entry refuses a scratch smaller than its own constants need)
+K9_SMEM_KEYS = 8192
+K9_CHUNK = 8192
+_stats_consts: dict = {}
+
+
+def _stats_host(grid_origin, voxel_size: float, gates):
+    """The K9 entry's two host float32 arrays, kept per (grid, gates)."""
+    key = (*grid_origin, voxel_size, *gates)
+    got = _stats_consts.get(key)
+    if got is None:
+        if len(_stats_consts) >= 64:  # live-tuned gates: keep the recent ones
+            _stats_consts.clear()
+        grid_f = np.array([*grid_origin, voxel_size], dtype=np.float32)
+        gate_f = np.array(gates, dtype=np.float32)
+        if grid_f.shape != (4,) or gate_f.shape != (4,):
+            raise ValueError("cluster_stats takes a 3-D origin, a voxel size and 4 gates")
+        got = _stats_consts[key] = (grid_f, gate_f, grid_f.ctypes.data_as(_P),
+                                    gate_f.ctypes.data_as(_P))
+    return got[2], got[3]
 
 
 def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor, K: int,
                   grid_origin, voxel_size: float, gates, sensor_pos: torch.Tensor,
                   bg_sufficient: torch.Tensor, sure_bg_sufficient: torch.Tensor,
                   ftotal: torch.Tensor, grid_yx: tuple[int, int]) -> dict[str, torch.Tensor]:
-    """K9: the per-slot statistics of the far list, keyed as
-    ``_STATS_FIELDS`` plus ``cluster_overflow``.  ``labels``: the far
-    voxels' labels, int32 [F]; ``grid_yx``: the grid's (ny, nx).
-    ``gates``: (min_points, max_distance, max_size, max_explore_distance)."""
+    """K9: the per-slot statistics of the far list (any F >= 1), keyed as
+    pipeline/classify.py ``ClusterStats``.  ``labels``: the far voxels'
+    labels, int32 [F]; ``grid_yx``: the grid's (ny, nx).  ``gates``:
+    (min_points, max_distance, max_size, max_explore_distance).  The
+    outputs are views of one device buffer."""
     lib = load()
     F = fids.shape[0]
     _require(fids, "stats fids", torch.int32, (F,))
@@ -736,21 +750,26 @@ def cluster_stats(fids: torch.Tensor, fvalid: torch.Tensor, labels: torch.Tensor
     _require(bg_sufficient, "stats bg_sufficient", torch.bool, ())
     _require(sure_bg_sufficient, "stats sure_bg_sufficient", torch.bool, ())
     _require(ftotal, "stats ftotal", torch.int32, ())
-    dev = fids.device
-    out = {name: torch.empty((K, *tail), dtype=dt, device=dev)
-           for name, dt, tail in _STATS_FIELDS}
-    out["cluster_overflow"] = torch.empty((), dtype=torch.bool, device=dev)
-    ptrs = np.array([t.data_ptr() for t in out.values()], dtype=np.int64)
-    slot_scratch = torch.empty(F, dtype=torch.int32, device=dev)
-    grid_f = np.array([*grid_origin, voxel_size], dtype=np.float32)
-    gate_f = np.array(gates, dtype=np.float32)
-    assert grid_f.shape == (4,) and gate_f.shape == (4,)
+    # one float32 buffer: the chunked path's scratch (12 bytes a key slot),
+    # then the outputs in csrc/classify_stats.cu StatsOut's layout
+    scratch = 0 if F <= K9_SMEM_KEYS else 3 * K9_CHUNK * -(-F // K9_CHUNK)
+    n_flags = -(-(3 * K + 1) // 4)
+    buf = torch.empty(scratch + 26 * K + n_flags, dtype=torch.float32, device=fids.device)
+    _, box, axes, size, i32, b8 = buf.split([scratch, 12 * K, 9 * K, K, 4 * K, n_flags])
+    out = dict(zip(("aabb_min", "aabb_max", "obb_center", "obb_extent"),
+                   box.view(4, K, 3).unbind(0)))
+    out["axes"] = axes.view(K, 3, 3)
+    out["obb_size"] = size
+    out.update(zip(("reps", "npts", "m_k", "rep_sel"), i32.view(torch.int32).view(4, K).unbind(0)))
+    flags = b8.view(torch.bool)
+    out.update(zip(("slot_valid", "gated", "qgate"), flags[:3 * K].view(3, K).unbind(0)))
+    out["cluster_overflow"] = flags[3 * K]
+    grid_f, gate_f = _stats_host(grid_origin, voxel_size, gates)
     ny, nx = grid_yx
     err = lib.vofod_cluster_stats(
-        fids.data_ptr(), fvalid.data_ptr(), labels.data_ptr(), F, K, ny, nx,
-        grid_f.ctypes.data_as(_P), gate_f.ctypes.data_as(_P), sensor_pos.data_ptr(),
-        bg_sufficient.data_ptr(), sure_bg_sufficient.data_ptr(), ftotal.data_ptr(),
-        slot_scratch.data_ptr(), ptrs.ctypes.data_as(_P), _stream())
+        fids.data_ptr(), fvalid.data_ptr(), labels.data_ptr(), F, K, ny, nx, grid_f, gate_f,
+        sensor_pos.data_ptr(), bg_sufficient.data_ptr(), sure_bg_sufficient.data_ptr(),
+        ftotal.data_ptr(), box.data_ptr(), buf.data_ptr(), 4 * scratch, _stream())
     _check(err, "vofod_cluster_stats")
     _count("cluster_stats")
     return out

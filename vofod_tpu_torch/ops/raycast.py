@@ -938,11 +938,17 @@ def _dda_consts(grid: GridSpec) -> np.ndarray:
 
 
 def dda_emissions_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
-                        valid: Tensor, max_length: float) -> tuple[Tensor, Tensor]:
+                        valid: Tensor, max_length: float, with_index: bool = False,
+                        slab: tuple[int, int] | None = None):
     """The DDA walk's (flat id int64, chord f32) emissions in (step, ray)
     order (vofod_tpu ``dda_emissions``), the zero chords and ids outside the
     grid left out: the JAX walk, vectorised over rays and stepped
-    ``dda_n_steps`` times."""
+    ``dda_n_steps`` times.  ``with_index`` adds each emission's position
+    step * R + ray in the full stream (int64).  ``slab`` (z0, rows) walks as
+    K15b-6c does (csrc/dda.cu): a ray whose z rows miss a slab smaller than
+    the grid is not walked (:func:`dda_slab_skips_plain`), and a ray stops
+    once its rows have passed the slab's; the emissions in the slab's rows
+    are the dense walk's."""
     vs = grid.voxel_size
     nz, ny, nx = grid.shape
     dev = starts.device
@@ -960,6 +966,8 @@ def dda_emissions_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: T
                                                device=dev), 0)
     axes = torch.arange(3, device=dev)
     alive = valid & (lengths > 0)
+    if slab is not None and slab[1] < nz:
+        alive = alive & ~dda_slab_skips_plain(grid, starts, dirs, lengths, slab)
     prev = torch.zeros_like(lengths)
     fids, ws = [], []
     for _ in range(dda_n_steps(vs, max_length)):
@@ -978,10 +986,16 @@ def dda_emissions_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: T
         # select, don't multiply: tdelta is inf on zero-direction axes
         tmax = torch.where(onehot, tmax + tdelta, tmax)
         prev = dist
+        if slab is not None:  # z rows run one way along a ray: past the slab, stop
+            cz, sz = cur[:, 2], step[:, 2]
+            alive = alive & torch.where(sz > 0, cz < slab[0] + slab[1],
+                                        (sz == 0) | (cz >= slab[0]))
     fid = torch.stack(fids).reshape(-1).to(torch.int64)
     w = torch.stack(ws).reshape(-1)
     # adding +0.0 changes no sum; the JAX scatter drops ids outside the grid
     keep = (w > 0) & (fid >= 0) & (fid < grid.n_voxels)
+    if with_index:
+        return fid[keep], w[keep], torch.nonzero(keep).flatten()
     return fid[keep], w[keep]
 
 
@@ -1010,6 +1024,77 @@ def raycast_dda_slab_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths
     flat = torch.zeros(nzl * plane, dtype=torch.float32, device=starts.device)
     flat.index_add_(0, lf[own], w[own])
     return flat.reshape(nzl, grid.ny, grid.nx)
+
+
+def dda_warp_groups_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                          valid: Tensor, max_length: float,
+                          slab: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
+    """Plain model of K12's / K15b-6c's warp-combined adds
+    (csrc/dda.cu): at each step the lanes of a warp (rays r // 32) whose
+    chord lies in the rows ``slab`` (z0, rows; default the whole grid)
+    group by voxel, and each group's float64 chords are summed to its
+    lowest lane by the kernel's pointer jumping (each round, every member
+    adds the partial of the member ``next`` above it and takes that
+    member's ``next``), a slab's rays walked by K15b-6c's rules
+    (:func:`dda_emissions_plain`).  Returns the groups' slab-local flat ids (int64) and
+    sums (float64), in (step, warp, lane) order: one atomicAdd of the kernel
+    each."""
+    z0, nzl = (0, grid.nz) if slab is None else slab
+    plane = grid.ny * grid.nx
+    fid, w, idx = dda_emissions_plain(grid, starts, dirs, lengths, valid, max_length,
+                                      with_index=True, slab=slab)
+    R = starts.shape[0]
+    n_warps = -(-R // 32)
+    lf = fid - z0 * plane
+    own = (lf >= 0) & (lf < nzl * plane)
+    lf, w, idx = lf[own], w[own], idx[own]
+    row = (idx // R) * n_warps + (idx % R) // 32  # (step, warp)
+    rows, row = torch.unique(row, return_inverse=True)
+    dev = w.device
+    ids = torch.full((len(rows), 32), -1, dtype=torch.int64, device=dev)
+    ids[row, (idx % R) % 32] = lf
+    vals = torch.zeros((len(rows), 32), dtype=torch.float64, device=dev)
+    vals[row, (idx % R) % 32] = w.to(torch.float64)
+    lanes = torch.arange(32, device=dev)
+    grp = (ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)  # __match_any_sync
+    above = grp & (lanes[None, None, :] > lanes[None, :, None])
+    nxt = torch.where(above.any(-1), above.to(torch.int32).argmax(-1), -1)
+    while bool((nxt >= 0).any()):
+        src = torch.where(nxt >= 0, nxt, lanes)
+        o, nn = vals.gather(1, src), nxt.gather(1, src)
+        vals = torch.where(nxt >= 0, vals + o, vals)
+        nxt = torch.where(nxt >= 0, nn, -1)
+    lead = (ids >= 0) & ~(grp & (lanes[None, None, :] < lanes[None, :, None])).any(-1)
+    return ids[lead], vals[lead]
+
+
+def dda_slab_skips_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                         slab: tuple[int, int]) -> Tensor:
+    """The rays K15b-6c drops before walking (csrc/dda.cu), bool [R]: those
+    whose z rows, from the start's to that of start + length * dir and 2
+    rows wider at each end, miss the slab's rows.  None of them has a chord
+    in the slab."""
+    z0, nzl = slab
+    inv, oz = np.float32(grid.inv_voxel), np.float32(grid.origin[2])
+    zs = torch.floor((starts[:, 2] - oz) * inv)
+    ze = torch.where(dirs[:, 2] == 0, zs,
+                     torch.floor((starts[:, 2] + lengths * dirs[:, 2] - oz) * inv))
+    return (torch.fmax(zs, ze) + 2 < z0) | (torch.fmin(zs, ze) - 2 >= z0 + nzl)
+
+
+def raycast_dda_warp_plain(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,
+                           valid: Tensor, max_length: float, slab: tuple[int, int] | None = None,
+                           order: torch.Generator | None = None) -> Tensor:
+    """Plain model of the warp-combined walk's result: the groups of
+    :func:`dda_warp_groups_plain` added into a float64 field in the order
+    ``order`` shuffles them to (the kernel's atomics land in any order), then
+    rounded once to float32: the slab's rows of the raylen field."""
+    nzl = grid.nz if slab is None else slab[1]
+    lf, sums = dda_warp_groups_plain(grid, starts, dirs, lengths, valid, max_length, slab)
+    perm = torch.randperm(len(lf), generator=order) if order is not None else slice(None)
+    acc = torch.zeros(nzl * grid.ny * grid.nx, dtype=torch.float64, device=sums.device)
+    acc.index_add_(0, lf[perm], sums[perm])
+    return acc.to(torch.float32).reshape(nzl, grid.ny, grid.nx)
 
 
 def raycast_dda_slab(grid: GridSpec, starts: Tensor, dirs: Tensor, lengths: Tensor,

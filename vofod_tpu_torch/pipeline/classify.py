@@ -168,6 +168,51 @@ def cluster_stats_plain(
     )
 
 
+def cluster_slots_sorted_plain(fvalid: Tensor, far_labels: Tensor, K: int,
+                               chunk: int | None = None):
+    """Plain model of K9's slot schedule (csrc/classify_stats.cu): far voxel
+    f's key is (its label as unsigned, f), an invalid f's sorts last, and
+    a far voxel labelled SENTINEL joins no slot.  The keys are sorted in chunks
+    of ``chunk`` (default: one chunk, the one-launch path); a chunk's run
+    head is a label head if no earlier chunk holds the label; a head's rank
+    is the sum over the chunks of their heads below its label; slot k's
+    members are the runs of the label of rank k.  Returns (reps int32 [K],
+    slot_valid bool [K], npts int32 [K], cluster_overflow bool, members: per
+    slot the sorted far indices f), which equal ``cluster_stats_plain``'s."""
+    F = fvalid.shape[0]
+    none = 2**32 - 1  # the high word of an invalid key, and of label SENTINEL
+    hi = torch.where(fvalid, far_labels.to(torch.int64) + 2**31, none)
+    key = hi * F + torch.arange(F, dtype=torch.int64, device=hi.device)  # (hi, f) order
+    C = F if chunk is None else chunk
+    keys = [torch.sort(key[c:c + C]).values for c in range(0, F, C)]
+    his = [k // F for k in keys]
+    counts = []  # per chunk: the label heads at or before each position
+    for c, h in enumerate(his):
+        head = (h < none) & torch.cat([h.new_ones(1, dtype=torch.bool), h[1:] != h[:-1]])
+        for e in range(c):
+            j = torch.searchsorted(his[e], h).clamp(max=len(his[e]) - 1)
+            head &= his[e][j] != h
+        counts.append(torch.cumsum(head.to(torch.int64), 0))
+    reps = torch.full((K,), SENTINEL, dtype=torch.int32, device=hi.device)
+    overflow = False
+    for h, n in zip(his, counts):
+        head = n - torch.cat([n.new_zeros(1), n[:-1]]) > 0
+        rank = torch.zeros(int(head.sum()), dtype=torch.int64, device=hi.device)
+        for e_h, e_n in zip(his, counts):
+            j = torch.searchsorted(e_h, h[head])
+            rank += torch.where(j > 0, e_n[(j - 1).clamp(min=0)], 0)
+        reps[rank[rank < K]] = (h[head][rank < K] - 2**31).to(torch.int32)
+        overflow |= bool((rank >= K).any())
+    members = []  # the runs of each slot's label, chunk by chunk
+    for rep in reps.tolist():
+        u = rep + 2**31
+        runs = [k[int(torch.searchsorted(h, u)):int(torch.searchsorted(h, u + 1))] % F
+                for k, h in zip(keys, his) if rep != SENTINEL]
+        members.append(torch.cat(runs) if runs else key.new_zeros(0))
+    npts = torch.tensor([len(m) for m in members], dtype=torch.int32, device=hi.device)
+    return reps, reps < SENTINEL, npts, torch.tensor(overflow, device=hi.device), members
+
+
 def cluster_stats(
     dyn: DynParams, grid: GridSpec, K: int, fids: Tensor, fvalid: Tensor, far_labels: Tensor,
     ftotal: Tensor, sensor_pos: Tensor, bg_sufficient: Tensor, sure_bg_sufficient: Tensor,
