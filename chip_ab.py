@@ -2,7 +2,7 @@
 """Two trees of the port on one card, in turns.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
-                       [--grid-exact-pairs N] [--out build/ab]
+                       [--grid-exact-pairs N] [--demote-only] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -31,19 +31,31 @@ call:
   16384), with each of its kernels' device ms and its memsets a call, and
   its wrapper's host us a call over 1,000 calls;
 - the DDA walk (K12) on a flagship exact scan's rays and K15b-6c on each
-  of the 3 shards' rows.
+  of the 3 shards' rows;
+- K11's demotion EMA and K13c on the inputs the step passes them (its
+  calls recorded on the 7th scan of a fresh node): K11 in cases (a) the
+  sweep step's, r 1.6 (19 taps, halo 1), (b) the dynamic step's shells at
+  2.0 / 1.9 m (bound 4, r² 14.44) and (c) (a)'s inputs at halo 7 (r 7.99,
+  2,103 taps), K13c in (d) the exact step's (leaf size 1), (e) the exact
+  step's at 1.2 m (leaf size 2) and (f) the grid-exact step's on shard 1
+  of 3; and where every tile pools, (a) on random masks and (d) on random
+  cells; each checked bit-equal to its plain version, with the schedule
+  the card chose, beside K1 on the same 0/1 mask and taps (the stencil
+  alone) and one elementwise kernel moving the call's bytes (the floor).
+  ``--demote-only`` runs these cases alone.
 
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
-and exact paths (K1, K14, K15a, K9 and the DDA walk's device ms and
-launches a scan) and of the grid and grid-exact paths (K15b-1's
-launches and device ms a scan, the direct_copy kernels and
-device-to-device memcpys, the busy ms), each from a fresh node after the
+and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
+device ms and launches a scan) and of the grid and grid-exact paths
+(K15b-1's, K11's and K13c's launches and device ms a scan, the direct_copy
+kernels and device-to-device memcpys, the busy ms), each from a fresh node after the
 apriori plane and 6 warm-up scans, as chip_smoke phase 5 does.  Then it
 runs that tree's ``chip_smoke.py`` in full (its log under ``--out``).  One
 JSON line per run, then a summary line of every run: those figures and,
 from the smoke, the step p50 / p95 of the sweep, prebinned, dynamic, exact
 and grid-exact paths (phases 4-*) with every profiled path's device busy
-ms and idle share (phases 5-profile-*).  With
+ms, idle share and each port kernel's device ms and launches a scan
+(phases 5-profile-*).  With
 ``--exact-pairs N`` / ``--grid-exact-pairs N`` it then runs N pairs of
 phase 4-exact / 4-grid-exact alone (36 flagship scans of the
 reference-exact path, dense or over 3 shards, a fresh process each),
@@ -106,7 +118,8 @@ def device_side(fn, reps=20):
 # the parent's rank and stats passes, the sort's one launch or four chunked)
 DENSE_KERNELS = {"ball_pool": ("ball_pool_kernel",), "unpack": ("unpack_kernel",),
                  "k9": ("rank_kernel", "stats_kernel", "slots_kernel", "chunk_"),
-                 "dda_walk": ("dda_kernel",), "dda_round": ("round_kernel",)}
+                 "dda_walk": ("dda_kernel",), "dda_round": ("round_kernel",),
+                 "k11_demote": ("demote_ema_kernel",), "k13c": ("exact_demote_kernel",)}
 
 
 def kernel_side(fn, reps=20):
@@ -210,7 +223,7 @@ def grid_profile(lut, exact, n=5):
             drv.process_scan(r, None, p)
         torch.cuda.synchronize()
     out = {"busy_ms": 0.0}
-    for key in ("k15b1", "direct_copy", "memcpy_dtod"):
+    for key in ("k15b1", "direct_copy", "memcpy_dtod", "k11_demote", "k13c"):
         out[key + "_launches"] = 0
         out[key + "_ms"] = 0.0
     for e in prof.events():
@@ -220,7 +233,8 @@ def grid_profile(lut, exact, n=5):
         out["busy_ms"] += us / 1e3 / n
         low = e.name.lower()
         for key, match in (("k15b1", "halo_exchange_kernel"), ("direct_copy", "direct_copy"),
-                           ("memcpy_dtod", "memcpy dtod")):
+                           ("memcpy_dtod", "memcpy dtod"), ("k11_demote", "demote_ema_kernel"),
+                           ("k13c", "exact_demote_kernel")):
             if match in low:
                 out[key + "_launches"] += 1 / n
                 out[key + "_ms"] += us / 1e3 / n
@@ -369,6 +383,153 @@ print(json.dumps(dict(in_place=in_place, halo=out, kernels=kern, k15a_host_us=ho
                       k9=k9, k9_host_us=k9_host, dda=dda, profiles=prof)))
 """
 
+# The inputs of K11's demotion and K13c as the step passes them (its
+# sepclusters stage's calls of the two wrappers, recorded on the 7th scan of
+# a path from a fresh node after the apriori plane); exec'd by the demotion
+# cases below and by demote_probe.py: demote_inputs(cs) -> {case: (kind,
+# args)}, kind "k11" (sepclusters.demote_ema's args) or "k13c"
+# (sepclusters.exact_demote_ema's)
+DEMOTE_INPUTS = r"""
+import dataclasses
+
+import torch
+
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.ops import morphology as tm
+from vofod_tpu_torch.pipeline import sepclusters as ts
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+
+def step_calls(cs, lut, name, cfg, opts=None, dyn_radii=None, grid=False):
+    node = VoFOD(cfg, DynParams(), opts or NodeOptions(), lut, device="cuda")
+    if dyn_radii:
+        node.update_params(ground_points_max_distance=dyn_radii[0],
+                           sepclusters_max_bg_distance=dyn_radii[1])
+    node.load_apriori_map(cs.apriori_ground())
+    if grid:
+        node = cs.GridDriver(lut, node.state, cfg, raycast_mode="exact")
+    scans = cs.scan_cycle(lut, 7)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    orig, got = getattr(ts, name), []
+
+    def record(*a):
+        got.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+        return orig(*a)
+
+    setattr(ts, name, record)
+    try:
+        node.process_scan(scans[6][0], None, scans[6][1])
+        torch.cuda.synchronize()
+    finally:
+        setattr(ts, name, orig)
+    return got
+
+
+def demote_inputs(cs):
+    lut = cs.make_lut(cs.VoFODConfig().sensor)
+    a = step_calls(cs, lut, "demote_ema", cs.VoFODConfig())[0]
+    ex = cs.exact_config()
+    opts = NodeOptions(raycast_mode="exact")
+    shard = [c for c in step_calls(cs, lut, "exact_demote_ema", ex, opts, grid=True)
+             if c[11][0] == ex.grid_shape[0] // cs.GRID_SHARDS]
+    return {
+        "a": ("k11", a),
+        "b": ("k11", step_calls(cs, lut, "demote_ema", cs.dynamic_config(),
+                                dyn_radii=(2.0, 1.9))[0]),
+        "c": ("k11", a[:4] + (7.99,) + a[5:]),
+        "d": ("k13c", step_calls(cs, lut, "exact_demote_ema", ex, opts)[0]),
+        "e": ("k13c", step_calls(cs, lut, "exact_demote_ema",
+                                 dataclasses.replace(ex, sepclusters_max_bg_distance=1.2),
+                                 opts)[0]),
+        "f": ("k13c", shard[0]),
+    }
+"""
+
+# runs in the tree's root; prints one JSON line: K11's demotion in cases
+# (a) the sweep step's call, (b) the dynamic step's at 2.0 / 1.9 m, (c) (a)'s
+# inputs at halo 7, and K13c in (d) the exact step's call (leaf 1), (e) at
+# 1.2 m (leaf 2), (f) the grid-exact step's call on shard 1 of 3; and, where
+# every tile pools, (a) on random masks and (d) on random cells; each checked
+# bit-equal to its plain version, beside K1 on the same 0/1 mask and taps
+# (the stencil alone) and one elementwise kernel moving the call's bytes
+# (the floor)
+_DEMOTE_CASES = DEMOTE_INPUTS + r"""
+import json
+import math
+import subprocess
+import sys
+
+import numpy as np
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+
+dev = torch.device("cuda")
+
+
+def timed(fn):
+    return dict(ms=cs.cuda_ms(fn), **cs.device_profile(fn))
+
+
+def copy_floor(n_bytes):
+    # one elementwise kernel reading and writing half the call's bytes each
+    src = torch.ones(n_bytes // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    return timed(lambda: torch.mul(src, 1.0, out=dst))
+
+
+def schedule(name, *args):
+    fn = getattr(kernels, name + "_schedule", None)  # the run-table kernels only
+    return None if fn is None else fn(*args)[-1]
+
+
+inputs = demote_inputs(cs)
+g = torch.Generator(device=dev).manual_seed(15)
+vals = inputs["a"][1][0]
+inputs["a dense"] = ("k11", (vals, torch.rand(vals.shape, generator=g, device=dev) < 0.02,
+                             torch.rand(vals.shape, generator=g, device=dev) < 0.5)
+                     + inputs["a"][1][3:])
+d = inputs["d"][1]
+occ = torch.rand(d[1].shape, generator=g, device=dev) < 0.05
+inputs["d dense"] = ("k13c", (d[0], occ, torch.randint(0, 36, occ.shape, generator=g, device=dev,
+                                                       dtype=torch.int32),
+                              torch.ones(2, dtype=torch.bool, device=dev)) + d[4:])
+cases = {}
+for name, (kind, a) in inputs.items():
+    if kind == "k11":
+        v, bg, safe, sure, ball, w1, c = a
+        taps, halo = tm.tap_set(ball)
+        fn = lambda: kernels.demote_ema(v, bg, safe, sure, taps, halo, w1, c)
+        got, want = (fn(),), (ts.demote_ema_plain(*a),)
+        unsafe = (bg & ~safe).to(torch.int8)
+        stencil = dict(k1_int8_max=timed(lambda: kernels.ball_pool(unsafe, taps, halo, "max", 0)))
+        n_bytes = v.numel() * (4 + 4 + 1 + 1)
+        args = (v, bg, safe, sure, taps, halo, w1, c)
+    else:
+        v, o, ce, flags, prev, lsz, radius, min_sure, w1, score, thr, win = a
+        taps, halo = tm.ball_taps(radius), int(math.floor(radius))
+        args = (v, o, ce, flags, prev, lsz, taps, halo, min_sure, w1, score, thr, win)
+        fn = lambda: kernels.exact_demote_ema(*args)
+        got, want = fn(), ts.exact_demote_ema_plain(*a)
+        centres = ts.center_mask(o & ~(ce.to(torch.float32) >= min_sure), lsz).to(torch.int32)
+        stencil = dict(k1_int32_sum=timed(lambda: kernels.ball_pool(centres, taps, halo, "sum",
+                                                                      0)))
+        n_bytes = v.numel() * (4 + 4 + 1) + o.numel() * (1 + 4)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"case {name}: the kernel differs from its plain version")
+    cases[name] = dict(kind=kind, taps=len(taps), halo=halo, shape=list(v.shape),
+                       demoted=int((got[0] != v).sum()), bytes=n_bytes,
+                       bound_ms=n_bytes / cs.HBM_BYTES_PER_S * 1e3, kernel=timed(fn),
+                       schedule=schedule("demote_ema" if kind == "k11" else "exact_demote_ema",
+                                         *args),
+                       **stencil, copy=copy_floor(n_bytes))
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, demote_cases=cases)))
+"""
+
 # runs in the tree's root; prints phase 4-exact's JSON line
 _EXACT_STEP = r"""
 import sys
@@ -432,7 +593,8 @@ def summarize(ph: dict) -> dict:
                            busy_ms=ph.get(prof, {}).get("device_busy_ms_per_scan"),
                            idle_share=ph.get(prof, {}).get("idle_share_of_unprofiled_step"))
     busy = {path: {k: ph.get(f"5-profile{sfx}", {}).get(m) for k, m in (
-        ("busy_ms", "device_busy_ms_per_scan"), ("idle_share", "idle_share_of_unprofiled_step"))}
+        ("busy_ms", "device_busy_ms_per_scan"), ("idle_share", "idle_share_of_unprofiled_step"),
+        ("port_kernels_ms_per_scan", "port_kernels_ms_per_scan"))}
         for path, sfx in (("sweep", ""), ("exact", "-exact"), ("sequential", "-sequential"),
                           ("prebinned", "-prebinned"), ("dynamic", "-dynamic"),
                           ("grid", "-grid"), ("grid_exact", "-grid-exact"),
@@ -485,6 +647,17 @@ def run_pairs(trees: dict, mode: str, n: int) -> tuple[dict | None, bool]:
                 parent_faster=sum(p["p"] < p["c"] for p in pairs)), ok
 
 
+def _json_run(script: str, tree: Path) -> tuple[bool, dict]:
+    """``script`` in ``tree``'s root: (ok, its last line's JSON object or
+    the error)."""
+    k = subprocess.run([sys.executable, "-c", script], cwd=tree, capture_output=True, text=True,
+                       timeout=600)
+    lines = k.stdout.strip().splitlines()
+    if k.returncode == 0 and lines:
+        return True, json.loads(lines[-1])
+    return False, {"error": k.stderr[-2000:]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path)
@@ -493,23 +666,28 @@ def main() -> int:
     ap.add_argument("--exact-pairs", type=int, default=0)
     ap.add_argument("--grid-exact-pairs", type=int, default=0)
     ap.add_argument("--out", type=Path, default=Path("build/ab"))
+    ap.add_argument("--demote-only", action="store_true",
+                    help="time only the demotion cases (a)-(f) of each run")
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
     args.out.mkdir(parents=True, exist_ok=True)
     runs, ok = [], True
     for i, tag in enumerate(args.order):
         tree, name = trees[tag], {"p": "parent", "c": "change"}[tag]
-        k = subprocess.run([sys.executable, "-c", _KERNEL_TIMES], cwd=tree, capture_output=True,
-                           text=True, timeout=600)
-        lines = k.stdout.strip().splitlines()
-        kern = json.loads(lines[-1]) if k.returncode == 0 and lines else {"error": k.stderr[-2000:]}
+        d, demote = _json_run(_DEMOTE_CASES, tree)
+        if args.demote_only:
+            ok = ok and d
+            print(json.dumps(dict(run=i, tree=name, **demote)), flush=True)
+            runs.append(dict(run=i, tree=name, **demote))
+            continue
+        k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
-        run = dict(run=i, tree=name, kernel_times=kern, smoke_rc=s.returncode,
+        run = dict(run=i, tree=name, kernel_times=kern, **demote, smoke_rc=s.returncode,
                    smoke_last_line=last[0], **summarize(phases(s.stdout)))
-        ok = ok and k.returncode == 0 and s.returncode == 0
+        ok = ok and d and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}

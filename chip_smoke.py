@@ -48,8 +48,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    synthetic slots in two grid corners and on an edge) with ids, valid
    and the counter bit-equal, confidence within K10_CONF_RTOL, pdet and
    covariance within K10_RTOL; K11 (the point EMA of the scan and of
-   random counts; the demotion EMA with sure_sufficient True and False)
-   bit-equal.  The reference-exact path's kernels on a flagship exact scan
+   random counts; the demotion EMA with sure_sufficient True and False, on
+   random masks, in one corner only (blocks that skip their pool beside
+   blocks that pool) and on a grid path's slab of 17 + 2 planes; with the
+   schedule the card chose) bit-equal.  The reference-exact path's kernels on a flagship exact scan
    (exact census, hasCloseTo box, counted indexing) and synthetic cases:
    K1's hasCloseTo tap set bit-equal; K12's walk (the scan's rays, and as
    many rays from the sensor in random directions, each warp diverging at
@@ -68,7 +70,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    bg voxel; a grid whose columns and cells take more look-back tiles than
    the card holds resident; each also equal to the column-walk model
    ``quirk_counts_columnwalk_plain``), K13a and K13c (sure_sufficient True
-   and False) bit-equal.  K13b and K15b-6b also report their device-kernel
+   and False; also at leaf sizes 2 and 3, on the scan's coarse cells and on
+   random ones, boundary cells whose centres lie outside the grid included;
+   with the schedules) bit-equal.  K13b and K15b-6b also report their device-kernel
    ms, kernel launches and memsets a call (torch.profiler) beside the
    CUDA-event mean.  The prebinned ingest on a
    flagship scan: K15a bit-equal to its plain version on the native
@@ -78,7 +82,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    upload's time.  The stencils past 256 taps:
    K1 at radius 4, 5, 6 and 7.99 (257 to 2,103 taps, int32 tiles past 48 KB
    of shared memory from halo 6), K2 at 4, 5 and 7.99, K11's demotion at 4,
-   5 and 7.99, and K14's shell pools at the dynamic path's tap sets, all
+   5 and 7.99 and on the dynamic path's shells at 2.0 / 1.9 m (on the
+   scan's masks and random ones, the flagship grid and a slab of 17 + 2h
+   planes, with the schedules and device ms), and K14's shell pools at the
+   dynamic path's tap sets, all
    bit-equal, K14's two calls at the dynamic path's 2.0 / 1.9 m radii with
    device ms and their bounds, beside one F.conv3d of the 0/1 sure grid;
    K5b without faces (the ungated sweep) within K5b's bounds.
@@ -177,10 +184,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the fold never; explore queries, demotion writes, copies by kind);
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
    prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
-   grid-sharded exact, grid-sharded sequential),
+   grid-sharded exact, grid-sharded sequential, grid-sharded with the
+   transposed z cones),
    each from a fresh
    node after the same 6 warm-up scans: device time per stage (the step's
-   ``vofod.*`` ranges), the top device ops, the device ops (kernels and
+   ``vofod.*`` ranges), the top device ops, every port kernel's device ms
+   and launches a scan (``PORT_KERNELS``), the device ops (kernels and
    copies) launched per scan, counted from key_averages and event by event,
    matmul kernels and pads per scan, and the device's busy and idle share
    of the step (the grid paths also K15b-1's launches and device ms a
@@ -203,6 +212,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -246,7 +256,8 @@ from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
     DetectConsts, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
-    pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain)
+    pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain,
+    traced_radii)
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
     frontend_bin, frontend_bin_plain, run_frontend, unpack, unpack_plain)
@@ -493,8 +504,20 @@ def phase1() -> None:
     kernels.load()
     native.load()
     info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    # registers and spills of the run-table kernels, by instantiation
+    pool, entry = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif entry and "Used" in ln and "registers" in ln:
+            k = re.search(r"(ball_pool_kernel|demote_ema_kernel|exact_demote_kernel)(\w{0,40})",
+                          entry)
+            if k:
+                pool.append([k.group(0), int(re.search(r"Used (\d+) registers", ln).group(1))])
+            entry = None
     say("1-build", seconds=round(time.perf_counter() - t0, 3), library=so.name,
-        host_library=host_so.name, ptxas=info)
+        host_library=host_so.name, ptxas=info, run_table_kernels_registers=pool)
 
 
 def _one_sweep_calls(init, occ, ball, n: int, until_fixpoint: bool):
@@ -1412,18 +1435,34 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.3
     rnd_safe = torch.rand(grid.shape, generator=g, device=dev) < 0.5
     true = torch.ones((), dtype=torch.bool, device=dev)
+    # unsafe voxels in one corner: blocks that pool beside blocks that skip
+    corner = torch.zeros_like(rnd_bg)
+    corner[:20, :64, :96] = True
     de = {}
     for name, b_, s_, sure, its in (
             ("carried reach", bgm, node.state.safe, node.state.sure_bg_sufficient, 1.0),
             ("random, its_diff 2", rnd_bg, rnd_safe, true, 2.0),
-            ("random, not sure", rnd_bg, rnd_safe, ~true, 1.0)):
+            ("random, not sure", rnd_bg, rnd_safe, ~true, 1.0),
+            ("random in one corner", rnd_bg & corner, rnd_safe, true, 1.0)):
         w1, cst = demote_weights(its, dyn.score_ray)
         kk = demote_ema(vals, b_, s_, sure, radius, w1, cst)
         pp = demote_ema_plain(vals, b_, s_, sure, radius, w1, cst)
         _equal((kk,), (pp,), f"K11d[{name}].grid")
         de[name] = dict(demoted=int((pp != vals).sum()))
-    if de["random, its_diff 2"]["demoted"] == 0 or de["random, not sure"]["demoted"] != 0:
+    if (de["random, its_diff 2"]["demoted"] == 0 or de["random, not sure"]["demoted"] != 0
+            or not 0 < de["random in one corner"]["demoted"] < grid.n_voxels // 4):
         raise AssertionError(f"K11 demotion cases did not exercise both branches: {de}")
+    # case (a): the sweep scan's demotion at r 1.6 (19 taps, halo 1), and the
+    # schedule the card chose for the flagship grid and for the grid paths'
+    # slab (17 + 2 halo planes)
+    de["schedule (a), flagship"] = kernels.demote_ema_schedule(
+        vals, bgm, node.state.safe, true, *tap_set(radius), 0.5, -500.0)[1]
+    slab = slice(0, grid.nz // GRID_SHARDS + 2 * tap_set(radius)[1])
+    kk, de["schedule (a), grid slab"] = kernels.demote_ema_schedule(
+        vals[slab].contiguous(), rnd_bg[slab].contiguous(), rnd_safe[slab].contiguous(), true,
+        *tap_set(radius), 0.5, -500.0)
+    _equal((kk,), (demote_ema_plain(vals[slab], rnd_bg[slab], rnd_safe[slab], true, radius, 0.5,
+                                    -500.0),), "K11d[grid slab].grid")
     nv = grid.n_voxels
     out.append(dict(
         name="point_ema", max_abs_err=0.0, bytes=nv * (4 + 4 + 1 + 4 + 1), ops=nv * 6,
@@ -1434,7 +1473,9 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     ))
     out.append(dict(
         name="demote_ema", max_abs_err=0.0, bytes=nv * (1 + 1 + 4 + 4),
-        ops=nv * len(ball_taps(radius)), library_ms=None,
+        ops=nv * run_table(radius).combines(), library_ms=None,
+        device_ms=device_profile(lambda: demote_ema(vals, bgm, node.state.safe, true, radius, 0.5,
+                                                    -500.0))["device_ms"],
         ms=cuda_ms(lambda: demote_ema(vals, bgm, node.state.safe, true, radius, 0.5, -500.0)),
         plain_ms=cuda_ms(lambda: demote_ema_plain(vals, bgm, node.state.safe, true, radius,
                                                   0.5, -500.0)),
@@ -1527,11 +1568,40 @@ def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
             ms=c["ms"], one_sweep_launches_ms=c["one_sweep_launches_ms"], blocks=c["blocks"],
             tiles=c["tiles"])
     true = torch.ones((), dtype=torch.bool, device=dev)
-    for rad in (4.0, 5.0, 7.99):
-        _equal((demote_ema(vals, bg, safe, true, rad, 0.5, -500.0),),
-               (demote_ema_plain(vals, bg, safe, true, rad, 0.5, -500.0),), f"K11d[r{rad}].grid")
-        cases[f"K11 demotion r{rad} ({len(ball_taps(rad))} taps)"] = cuda_ms(
-            lambda: demote_ema(vals, bg, safe, true, rad, 0.5, -500.0), reps=5)
+    # K11's demotion past 256 taps, and the dynamic path's shells at 2.0 /
+    # 1.9 m (case (b): bound 4, r² 14.44) and halo 7 (case (c)), on random
+    # masks (demotions everywhere) and the scan's; the schedule the card
+    # chose for the flagship grid and for the grid paths' slab of 17 + 2h
+    # planes
+    g = torch.Generator(device=dev).manual_seed(12)
+    rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.02
+    rnd_safe = torch.rand(grid.shape, generator=g, device=dev) < 0.5
+    mdi = traced_radii(dynamic_config(), DynParams(sepclusters_max_bg_distance=1.9))[1]
+    k11 = {}
+    for name, ball in (("r4", 4.0), ("r5", 5.0),
+                       ("(b) shells b4 r² 14.44", Shells(4.0, mdi * mdi)), ("(c) r7.99", 7.99)):
+        taps, h = tap_set(ball)
+        hit = 0
+        for b_, s_ in ((bg, safe), (rnd_bg, rnd_safe)):
+            k = demote_ema(vals, b_, s_, true, ball, 0.5, -500.0)
+            _equal((k,), (demote_ema_plain(vals, b_, s_, true, ball, 0.5, -500.0),),
+                   f"K11d[{name}].grid")
+            hit += int((k != vals).sum())
+        nzl = grid.nz // GRID_SHARDS + 2 * h
+        slab = kernels.demote_ema_schedule(vals[:nzl].contiguous(), rnd_bg[:nzl].contiguous(),
+                                           rnd_safe[:nzl].contiguous(), true, taps, h, 0.5,
+                                           -500.0)
+        _equal((slab[0],), (demote_ema_plain(vals[:nzl], rnd_bg[:nzl], rnd_safe[:nzl], true, ball,
+                                             0.5, -500.0),), f"K11d[{name}, slab].grid")
+        fn = lambda: demote_ema(vals, bg, safe, true, ball, 0.5, -500.0)  # noqa: E731
+        k11[name] = dict(
+            taps=len(taps), halo=h, demoted=hit, ms=cuda_ms(fn, reps=5),
+            device_ms=device_profile(fn, reps=5)["device_ms"],
+            schedule=kernels.demote_ema_schedule(vals, bg, safe, true, taps, h, 0.5, -500.0)[1],
+            slab_schedule=dict(planes=nzl, **slab[1]))
+        if hit == 0:
+            raise AssertionError(f"K11 demotion [{name}] demoted nothing")
+        cases[f"K11 demotion {name} ({len(taps)} taps)"] = k11[name]
     # K14 at the dynamic path's tap sets: bg_near at the 2 m bound (1.0 m:
     # r² 4), the local-sure sum at bound 5 (1.9 m: r² 25, 515 taps; 0.8 m:
     # r² 9), the demotion shells at bound 4 (0.8 m: r² 2.5600002)
@@ -1876,15 +1946,63 @@ def phase2_exact(lut) -> list[dict]:
     args = (vals, occ_c, census, flags, ~t_, lsz, radius, min_sure,
             demote_weights(1.0, dyn.score_ray)[0],
             float(np.float32(dyn.score_ray)), float(np.float32(dyn.thr_new_obstacles)))
+    k13c["schedule (d), flagship"] = kernels.exact_demote_ema_schedule(
+        *args[:6], ball_taps(radius), int(np.floor(radius)), *args[7:])[-1]
+    k13c.update(_k13c_leaf_cases(vals, dyn, g))
     out.append(dict(
         name="exact_demote_ema", max_abs_err=0.0, cases=k13c,
+        device_ms=device_profile(lambda: exact_demote_ema(*args))["device_ms"],
         ms=cuda_ms(lambda: exact_demote_ema(*args)),
         plain_ms=cuda_ms(lambda: exact_demote_ema_plain(*args)),
-        bytes=nv * (4 + 4 + 1) + nc * (1 + 4), ops=nv * (len(ball_taps(radius)) + 10),
+        bytes=nv * (4 + 4 + 1) + nc * (1 + 4), ops=nv * (run_table(radius).combines() + 10),
         library_ms=None, shapes=f"{grid.shape}, ball r={radius:g}, leaf {lsz}; bit-equal",
     ))
     for r in out:
         say("2-kernel", **r)
+    return out
+
+
+def _k13c_leaf_cases(vals: torch.Tensor, dyn: DynParams, g: torch.Generator) -> dict:
+    """K13c at leaf sizes 2 (case (e): 1.2 m, r 2.4) and 3 (1.8 m, r 3.6) on the
+    flagship grid (no multiple of either: boundary cells' centres lie
+    outside it), on the scan's coarse cells and on random ones (occupied
+    cells everywhere, the boundary's included), sure_sufficient True and
+    False, bit-equal to the plain version; the schedule the card chose."""
+    dev = vals.device
+    bg, sure = vals > dyn.thr_new_obstacles, vals > dyn.thr_sure_obstacles
+    min_sure = float(np.float32(dyn.sepclusters_min_sure_points))
+    consts = (demote_weights(1.0, dyn.score_ray)[0], float(np.float32(dyn.score_ray)),
+              float(np.float32(dyn.thr_new_obstacles)))
+    t_ = torch.ones((), dtype=torch.bool, device=dev)
+    out = {}
+    for max_bg in (1.2, 1.8):
+        radius = max_bg / 0.5
+        mv = int(np.ceil(radius))
+        lsz = max(mv - 1, 1)
+        occ_c = pool_sum_coarse(bg.to(torch.int32), lsz) > 0
+        sure_c = quirk_sure_counts(bg, sure, lsz)
+        labels, _, _ = label_components(occ_c, mv / lsz, 128)
+        census, flags = label_census(labels, sure_c, occ_c, occ_c.numel(), min_sure)
+        rnd_occ = torch.rand(occ_c.shape, generator=g, device=dev) < 0.05
+        rnd_census = torch.randint(0, 50, occ_c.shape, generator=g, device=dev,
+                                   dtype=torch.int32)
+        hits = {}
+        for name, o, ce, fl in (("scan", occ_c, census, flags),
+                                ("random", rnd_occ, rnd_census, torch.stack([t_, t_])),
+                                ("random, not sure", rnd_occ, rnd_census, torch.stack([t_, ~t_]))):
+            args = (vals, o, ce, fl, ~t_, lsz, radius, min_sure, *consts)
+            kk, pp = exact_demote_ema(*args), exact_demote_ema_plain(*args)
+            _equal(kk, pp, f"K13c[lsz {lsz} {name}].grid K13c[lsz {lsz} {name}].safe "
+                           f"K13c[lsz {lsz} {name}].sure")
+            hits[name] = int((pp[0] != vals).sum())
+        if hits["random"] == 0 or hits["random, not sure"] != 0:
+            raise AssertionError(f"K13c lsz {lsz} cases did not exercise both branches: {hits}")
+        args = (vals, occ_c, census, flags, ~t_, lsz, ball_taps(radius), int(np.floor(radius)),
+                min_sure, *consts)
+        fn = lambda: kernels.exact_demote_ema(*args)  # noqa: E731
+        out[f"lsz {lsz} (r {radius:g})"] = dict(
+            demoted=hits, ms=cuda_ms(fn), device_ms=device_profile(fn)["device_ms"],
+            schedule=kernels.exact_demote_ema_schedule(*args)[-1])
     return out
 
 
@@ -3116,9 +3234,12 @@ def phase2_grid_exact(lut) -> list[dict]:
         k = exact_demote_ema(*args)
         _equal(k, exact_demote_ema_plain(*args),
                f"K13c-win.grid[{rank}] K13c-win.safe[{rank}] K13c-win.sure[{rank}]")
-        return k
+        taps = (ball_taps(radius), int(np.floor(radius)))
+        sched = kernels.exact_demote_ema_schedule(*args[:6], *taps, *args[7:])[-1]
+        return k + (sched,)
 
     out = comm.run(demote_shard)
+    checks["k13c_window_schedules"] = [o[3] for o in out]
     for j, what in enumerate(("grid", "safe")):
         if not torch.equal(torch.cat([o[j] for o in out]), dense13c[j]):
             raise AssertionError(f"windowed K13c {what} differs from the dense K13c")
@@ -3638,12 +3759,41 @@ def _device_events(prof, n: int) -> dict:
                 distinct_names=len(names))
 
 
+# the device functions of csrc/*.cu, as torch.profiler names them: each
+# path profile reports every one's device ms and launches a scan
+PORT_KERNELS = (
+    "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
+    "sweeps_kernel", "sweep_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
+    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "count_kernel", "scan_kernel",
+    "write_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
+    "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
+    "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
+    "gate_faces_kernel", "ray_update_kernel", "ray_ema_grid_kernel", "detect_kernel",
+    "dda_kernel", "round_kernel", "census_add_kernel", "census_read_kernel",
+    "quirk_columns_kernel", "quirk_colprefix_kernel", "quirk_walk_kernel", "quirk_cells_kernel",
+    "unpack_kernel", "halo_exchange_kernel", "halo_fold_min_kernel")
+_PORT_KERNEL_RE = re.compile(r"\b(" + "|".join(PORT_KERNELS) + r")\b")
+
+
+def port_kernel_ms(dev_ops, n: int) -> dict:
+    """{device function: [device ms a scan, launches a scan]} of the port's
+    kernels among a profile's device ops (key_averages over n scans)."""
+    out = {}
+    for e in dev_ops:
+        m = _PORT_KERNEL_RE.search(e.key)
+        if m:
+            ms, k = out.get(m.group(1), (0.0, 0.0))
+            out[m.group(1)] = (ms + _dev_us(e, True) / n / 1e3, k + e.count / n)
+    return {k: [round(ms, 4), cnt] for k, (ms, cnt) in sorted(out.items())}
+
+
 def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                    label: str | None = None) -> dict:
     """Where the flagship step's device time goes (torch.profiler), on the
     sweep, exact, prebinned, dynamic-radii (at its heaviest radii, 2.0 /
-    1.9 m), sequential-explore, grid-sharded sweep, grid-sharded exact or
-    grid-sharded sequential-explore path.  Every path is counted the same way:
+    1.9 m), sequential-explore, grid-sharded sweep, grid-sharded exact,
+    grid-sharded sequential-explore or grid-sharded sweep with the
+    transposed z cones path.  Every path is counted the same way:
     a fresh node, the apriori plane, 6 warm-up scans, then one profiler
     session over ``n`` scans; device ops are counted both from key_averages
     (the earlier count) and event by event."""
@@ -3664,6 +3814,8 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     node.load_apriori_map(apriori_ground())
     if path == "grid":  # the 3-shard step from the same start
         node = GridDriver(lut, node.state)
+    elif path == "grid-transpose":
+        node = GridDriver(lut, node.state, zcone_mode="transpose")
     elif path in ("grid-exact", "grid-sequential"):
         node = GridDriver(lut, node.state, cfg, raycast_mode="exact")
     scans = scan_cycle(lut, 6 + n)
@@ -3694,7 +3846,8 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                stage_device_span_ms_per_scan=stages,
                gemm_kernels_per_scan=gemm / n, pad_ops_per_scan=pads / n,
                top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n,
-                                    e.key[:90]] for e in top])
+                                    e.key[:90]] for e in top],
+               port_kernels_ms_per_scan=port_kernel_ms(dev_ops, n))
     if path.startswith("grid"):
         # K15b-1 (both forms are one kernel) and the device copies beside it
         for key, match in (("k15b1", "halo_exchange_kernel"), ("direct_copy", "direct_copy"),
@@ -3730,7 +3883,7 @@ def main() -> int:
     phase4_hostile(lut)
     grid_launches, grid_ms_p50 = phase4_grid(lut)
     gx_launches, gx_ms_p50 = phase4_grid(lut, "exact")
-    gt_launches, _ = phase4_grid(lut, "transpose")
+    gt_launches, gt_ms_p50 = phase4_grid(lut, "transpose")
     phase4_grid(lut, "prebinned")
     phase4_grid(lut, "dynamic")
     gs_launches, gs_ms_p50 = phase4_grid(lut, "sequential")
@@ -3742,6 +3895,7 @@ def main() -> int:
     phase5_profile(lut, grid_ms_p50, path="grid")
     phase5_profile(lut, gx_ms_p50, path="grid-exact")
     phase5_profile(lut, gs_ms_p50, path="grid-sequential")
+    phase5_profile(lut, gt_ms_p50, path="grid-transpose")
     # the sweep path once more, in the last profiler session: the same code
     # counted in another session says whether the op count is the session's
     again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")

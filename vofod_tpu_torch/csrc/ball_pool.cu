@@ -42,485 +42,64 @@
 //   a run clipped at the grid edge combines the fill exactly as the plain
 //   version's padding does.
 // - One kernel for every accepted tap set (1-2,112 taps within halo 7):
-//   the table travels in the kernel parameters, in a small struct (the
-//   production radii) or a large one; the pools of 8 pairs sit in shared
+//   the table travels in the kernel parameters, in a tiny struct (halo 1:
+//   3 accumulators), a small one (the production radii) or a large one
+//   (ball_pool.cuh with_table); the pools of 8 pairs sit in shared
 //   memory at once, more pairs take turns, and a block above 48 KB of
 //   shared memory opts in first.
 //
 // Integer min / max / sum are exact in any order, so the output is
 // bit-equal to the JAX decomposition and to the plain PyTorch version;
 // ops/morphology.ball_pool_runs_plain is the plain model of this schedule.
-#include "common.cuh"
+// The kernel body is ball_pool.cuh's pool_stream, shared with the demotion
+// EMAs of csrc/ema.cu: here it stages the input and stores the pool.
+#include "ball_pool.cuh"
 
 namespace {
 
-constexpr int BP_GROUP = 8;                      // pair pools held in shared memory at once
-constexpr int BP_XPAD = 8;                       // staged columns each side (>= halo)
-constexpr int BP_KS = 2 * VOFOD_MAX_HALO + 1;    // row ranges per group in the table
-
-// The run table (ops/morphology.RunTable): the distinct x-run pairs
-// (lo, hi), in groups of BP_GROUP; per group, sym[g][w] the index in the
-// group of the pair (-w, w) (-1: none), and its z slices
-// [gslice[g], gslice[g + 1]), slice q the rows [sbegin[q], send[q]) feeding
-// the accumulators of kmask[q] (bit k: k = halo - dz); a row is
-// (dy + 7) << 8 | its pair's index in the group.
-template <int MAXR, int MAXROWS, int MAXSL, int HMAX_>
-struct RunTableN {
-  static constexpr int HMAX = HMAX_;
-  static constexpr int MAX_RUNS = MAXR;
-  static constexpr int MAX_ROWS = MAXROWS;
-  static constexpr int MAX_SLICES = MAXSL;
-  static constexpr int MAX_GROUPS = (MAXR + BP_GROUP - 1) / BP_GROUP;
-  int halo, n_runs, n_rows, n_slices;
-  signed char lo[MAXR], hi[MAXR];
-  signed char sym[MAX_GROUPS][8];
-  unsigned short gslice[MAX_GROUPS + 1];
-  unsigned short sbegin[MAXSL], send[MAXSL], kmask[MAXSL];
-  unsigned short row[MAXROWS];
-};
-// the small table: the production radii (at most 16 pairs, 256 rows and
-// 14 slices, halo 3; 668 bytes of parameters); the large one: every
-// (lo, hi) pair within halo 7 (120), 15 slices a group of 8 pairs, and
-// every row set of 15 x 15 (dz, dy) rows of at most 8 runs each (5.4 KB)
-using RunTableSmall = RunTableN<16, 256, 14, 3>;
-using RunTableLarge = RunTableN<120, 1800, 225, VOFOD_MAX_HALO>;
-
-// The packed table (int16): halo, n_runs, n_rows, n_slices; lo, hi per
-// pair; sym (8 a group); gslice; sbegin, send, kmask per slice; row.  False
-// when it breaks a bound the kernel's shared-memory indexing relies on.
-template <typename Tab>
-bool parse_table(const short* b, int len, Tab* t) {
-  if (len < 4) return false;
-  const int h = b[0], nr = b[1], nrows = b[2], nsl = b[3];
-  if (h < 0 || h > Tab::HMAX || nr < 1 || nr > Tab::MAX_RUNS || nrows < 1 ||
-      nrows > Tab::MAX_ROWS || nsl < 1 || nsl > Tab::MAX_SLICES)
-    return false;
-  const int ng = (nr + BP_GROUP - 1) / BP_GROUP;
-  if (len != 4 + 2 * nr + 8 * ng + ng + 1 + 3 * nsl + nrows) return false;
-  t->halo = h;
-  t->n_runs = nr;
-  t->n_rows = nrows;
-  t->n_slices = nsl;
-  const short* p = b + 4;
-  for (int i = 0; i < nr; ++i, p += 2) {
-    if (p[0] < -h || p[1] > h || p[0] > p[1]) return false;
-    t->lo[i] = (signed char)p[0];
-    t->hi[i] = (signed char)p[1];
-  }
-  for (int g = 0; g < ng; ++g, p += 8) {
-    const int in_group = nr - g * BP_GROUP < BP_GROUP ? nr - g * BP_GROUP : BP_GROUP;
-    for (int w = 0; w < 8; ++w) {
-      const int i = p[w];
-      if (i < -1 || i >= in_group || (i >= 0 && (w > h || t->lo[g * BP_GROUP + i] != -w ||
-                                                t->hi[g * BP_GROUP + i] != w)))
-        return false;
-      t->sym[g][w] = (signed char)i;
-    }
-    // every symmetric pair is the chain's: the kernel pools no other way
-    for (int i = 0; i < in_group; ++i)
-      if (t->lo[g * BP_GROUP + i] == -t->hi[g * BP_GROUP + i] &&
-          t->sym[g][t->hi[g * BP_GROUP + i]] != i)
-        return false;
-  }
-  for (int g = 0; g <= ng; ++g, ++p) {
-    if (p[0] < (g == 0 ? 0 : t->gslice[g - 1]) || p[0] > nsl || (g == 0 && p[0] != 0)) return false;
-    t->gslice[g] = (unsigned short)p[0];
-  }
-  if (t->gslice[ng] != nsl) return false;
-  for (int q = 0; q < nsl; ++q, p += 3) {
-    if (p[0] < 0 || p[0] > p[1] || p[1] > nrows || p[2] < 0 || (p[2] >> (2 * h + 1)) != 0)
-      return false;
-    t->sbegin[q] = (unsigned short)p[0];
-    t->send[q] = (unsigned short)p[1];
-    t->kmask[q] = (unsigned short)p[2];
-  }
-  for (int i = 0; i < nrows; ++i) t->row[i] = (unsigned short)p[i];
-  for (int g = 0; g < ng; ++g) {
-    const int in_group = nr - g * BP_GROUP < BP_GROUP ? nr - g * BP_GROUP : BP_GROUP;
-    for (int q = t->gslice[g]; q < t->gslice[g + 1]; ++q)
-      for (int i = t->sbegin[q]; i < t->send[q]; ++i) {
-        const int dy = (t->row[i] >> 8) - VOFOD_MAX_HALO;
-        if (dy < -h || dy > h || (t->row[i] & 0xFF) >= in_group) return false;
-      }
-  }
-  return true;
-}
-
-// A thread's unit of the tile: NW words of VX voxels in x; a block is
-// TXU x TY units, one a thread.  int8 voxels are carried
-// as sign-extended 16-bit pairs, two a word, whose min / max the H100 does
-// in one instruction (its DPX max.s16x2 / min.s16x2; four packed bytes
-// would take six); int32 voxels one a word.  SW: a staged row, in words
-// (int8: bytes; 16 mod 32 words, so that a warp's two rows take different
-// banks; int32: a multiple of 4, so that a unit's window loads are 16-byte
-// loads).
+// K1's staging and store: the input grid, out-of-grid cells read `fill`;
+// the pooled unit stored as it is
 template <typename T>
-struct Lanes;
-template <>
-struct Lanes<int8_t> {
-  using W = uint32_t;
-  static constexpr int NW = 4, VX = 8, TXU = 16, TY = 16, SW = 48;
-};
-template <>
-struct Lanes<int32_t> {
-  using W = int32_t;
-  static constexpr int NW = 4, VX = 4, TXU = 16, TY = 16, SW = 80;
-};
-
-template <typename W, int NW>
-struct alignas(4 * NW) Vec {
-  W w[NW];
-};
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t d;  // selector nibbles with bit 3 set replicate the byte's sign
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-  return d;
-}
-
-// the prmt selector taking bytes b and b + 1 of (a, b) as two s16 lanes
-__device__ __forceinline__ constexpr uint32_t sext_pair(int b) {
-  return b | (b | 8) << 4 | (b + 1) << 8 | ((b + 1) | 8) << 12;
-}
-
-template <int OP>  // int8 pairs: OP 0 = min, 1 = max
-__device__ __forceinline__ uint32_t combine1(uint32_t a, uint32_t b) {
-  uint32_t d;
-  if (OP == 0) {
-    asm("min.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  } else {
-    asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+struct PoolIO {
+  const T* __restrict__ in;
+  T* __restrict__ out;
+  int nz, ny, nx;
+  T none;  // the fill
+  __device__ __forceinline__ long long plane(int zi, bool& ok) const {
+    ok = zi >= 0 && zi < nz;
+    return (long long)(ok ? zi : 0) * ny * nx;
   }
-  return d;
-}
-
-template <int OP>  // OP 0 = min, 1 = max, 2 = sum (wraps like XLA's int32 add)
-__device__ __forceinline__ int32_t combine1(int32_t a, int32_t b) {
-  if (OP == 0) return a < b ? a : b;
-  if (OP == 1) return a > b ? a : b;
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-
-template <int OP, typename W, int NW>
-__device__ __forceinline__ Vec<W, NW> combine(Vec<W, NW> a, const Vec<W, NW>& b) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j) a.w[j] = combine1<OP>(a.w[j], b.w[j]);
-  return a;
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ typename Lanes<T>::W identity() {
-  if constexpr (sizeof(T) == 1) {
-    return OP == 0 ? 0x007F007Fu : 0xFF80FF80u;  // 127, -128 in each s16 lane
-  } else {
-    return OP == 0 ? INT32_MAX : OP == 1 ? INT32_MIN : 0;
+  __device__ __forceinline__ int row(int gy, bool& ok) const {
+    ok = gy >= 0 && gy < ny;
+    return gy * nx;
   }
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ Vec<typename Lanes<T>::W, Lanes<T>::NW> identity_vec() {
-  Vec<typename Lanes<T>::W, Lanes<T>::NW> v;
-#pragma unroll
-  for (int j = 0; j < Lanes<T>::NW; ++j) v.w[j] = identity<T, OP>();
-  return v;
-}
-
-// The unit's staged elements k columns right of its first, read from
-// shared memory (the runs beside the centre of tap sets with gaps).
-template <int NW>
-__device__ __forceinline__ Vec<uint32_t, NW> element(const uint32_t* srow, int u, int k) {
-  Vec<uint32_t, NW> v;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    const int o = BP_XPAD + 2 * (NW * u + j) + k;
-    v.w[j] = prmt(srow[o >> 2], srow[(o >> 2) + 1], sext_pair(o & 3));
+  __device__ __forceinline__ int col(int gx, bool& ok) const {
+    ok = gx >= 0 && gx < nx;
+    return gx;
   }
-  return v;
-}
-
-template <int NW>
-__device__ __forceinline__ Vec<int32_t, NW> element(const int32_t* srow, int u, int k) {
-  Vec<int32_t, NW> v;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) v.w[j] = srow[BP_XPAD + NW * u + j + k];
-  return v;
-}
-
-// The unit's window of staged elements k in [-HMAX, HMAX], loaded once
-// into registers (int8: the aligned words its bytes span; int32: its
-// values); at(k) is static in k.
-template <typename T, int HMAX>
-struct Window;
-
-template <int HMAX>
-struct Window<int8_t, HMAX> {
-  static constexpr int NW = Lanes<int8_t>::NW;
-  static constexpr int M0 = (-HMAX) >> 2, M1 = (2 * NW - 1 + HMAX) >> 2;
-  uint32_t w[M1 - M0 + 2];
-  __device__ __forceinline__ void load(const uint32_t* srow, int u) {
-    const uint32_t* p = srow + (BP_XPAD + 2 * NW * u) / 4;
-#pragma unroll
-    for (int m = M0; m <= M1 + 1; ++m) w[m - M0] = p[m];
-  }
-  __device__ __forceinline__ Vec<uint32_t, NW> at(int k) const {
-    Vec<uint32_t, NW> v;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const int o = 2 * j + k, m = o >> 2;
-      v.w[j] = prmt(w[m - M0], w[m - M0 + 1], sext_pair(o & 3));
-    }
-    return v;
+  using Raw = T;
+  __device__ __forceinline__ T load(long long i) const { return __ldg(in + i); }
+  __device__ __forceinline__ T stage(T v) const { return v; }
+  static constexpr bool SKIP = false;
+  __device__ __forceinline__ bool row_any(int, int, int, int) const { return true; }
+  template <typename V>
+  __device__ __forceinline__ void store(int zo, int gy, int gx, const V& v) const {
+    store_unit<Lanes<T>::NW>(out + ((size_t)zo * ny + gy) * nx, gx, nx, v);
   }
 };
 
-template <int HMAX>
-struct Window<int32_t, HMAX> {
-  static constexpr int NW = Lanes<int32_t>::NW;  // 4: a unit starts 16-byte aligned
-  static constexpr int Q0 = (-HMAX) >> 2, Q1 = (NW - 1 + HMAX) >> 2;
-  int32_t x[4 * (Q1 - Q0 + 1)];
-  __device__ __forceinline__ void load(const int32_t* srow, int u) {
-    const int4* p = reinterpret_cast<const int4*>(srow + BP_XPAD + NW * u);
-#pragma unroll
-    for (int q = Q0; q <= Q1; ++q) {
-      const int4 v = p[q];
-      x[4 * (q - Q0)] = v.x;
-      x[4 * (q - Q0) + 1] = v.y;
-      x[4 * (q - Q0) + 2] = v.z;
-      x[4 * (q - Q0) + 3] = v.w;
-    }
-  }
-  __device__ __forceinline__ Vec<int32_t, NW> at(int k) const {
-    Vec<int32_t, NW> v;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) v.w[j] = x[j + k - 4 * Q0];
-    return v;
-  }
-};
-
-template <int NW>
-__device__ __forceinline__ void store_unit(int32_t* row, int gx, int nx,
-                                           const Vec<int32_t, NW>& v) {
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-    if (gx + j < nx) row[gx + j] = v.w[j];
-}
-
-// int8: two s16 pair words back to four bytes, stored as one word where
-// aligned and whole, else byte by byte
-template <int NW>
-__device__ __forceinline__ void store_unit(int8_t* row, int gx, int nx,
-                                           const Vec<uint32_t, NW>& v) {
-#pragma unroll
-  for (int j = 0; j < NW / 2; ++j) {
-    const uint32_t bytes = prmt(v.w[2 * j], v.w[2 * j + 1], 0x6420);
-    int8_t* p = row + gx + 4 * j;
-    const int x = gx + 4 * j;
-    if (x + 3 < nx && ((uintptr_t)p & 3) == 0) {
-      *reinterpret_cast<uint32_t*>(p) = bytes;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (x + i < nx) p[i] = (int8_t)(bytes >> (8 * i));
-    }
-  }
-}
-
-// One step is one group of pairs on one staged plane: the x pools of the
-// next step are built into one pool buffer while the rows of this step read
-// the other, one barrier a step.  Plane p + 2 is staged (from registers
-// loaded a plane earlier) in the step that ends plane p.
 template <typename T, int OP, typename Tab>
 __global__ void __launch_bounds__(Lanes<T>::TXU* Lanes<T>::TY)
-    ball_pool_kernel(const T* __restrict__ in, T* __restrict__ out, int nz, int ny, int nx,
-                     int zchunk, T fill, const Tab tab) {
-  using L = Lanes<T>;
-  using W = typename L::W;
-  using V = Vec<W, L::NW>;
-  constexpr int HMAX = Tab::HMAX, NACC = 2 * HMAX + 1;
-  constexpr int TXU = L::TXU, TY = L::TY, TX = TXU * L::VX, NT = TXU * TY, NWARPS = NT / 32;
-  constexpr int SW = L::SW, EPR = SW * 4 / (int)sizeof(T);  // staged elements a row
-  constexpr int RPW = (TY + 2 * HMAX + NWARPS - 1) / NWARPS;
-  constexpr int CPL = (TX + 2 * HMAX + 31) / 32;
-
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int h = tab.halo, SY = TY + 2 * h, SXL = TX + 2 * h;
-  const int n_groups = (tab.n_runs + BP_GROUP - 1) / BP_GROUP;
-  const int G = tab.n_runs < BP_GROUP ? tab.n_runs : BP_GROUP;
-  const int pool_units = G * SY * TXU;
-  V* pools = reinterpret_cast<V*>(smem);                                 // [2][G][SY][TXU]
-  uint32_t* stage = smem + 2 * pool_units * L::NW;                       // [2][SY][SW]
-  int* roff = reinterpret_cast<int*>(stage + 2 * SY * SW);               // [n_rows]
-
-  const int tid = threadIdx.x + TXU * threadIdx.y, lane = tid & 31, warp = tid >> 5;
-  for (int t = tid; t < tab.n_rows; t += NT) {
-    const int rw = tab.row[t];
-    roff[t] = ((rw & 0xFF) * SY + (rw >> 8) - VOFOD_MAX_HALO) * TXU;
-  }
-
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int zc0 = blockIdx.z * zchunk, zc1 = min(nz, zc0 + zchunk);
-  const int n_planes = zc1 - zc0 + 2 * h, n_steps = n_planes * n_groups;
-
-  // the staged cells this thread loads: rows warp + NWARPS i, columns
-  // lane + 32 j of the (SY, SXL) plane around the tile
-  int rowoff[RPW], gxs[CPL];
-  bool row_in[RPW], row_ok[RPW], col_in[CPL], col_ok[CPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + NWARPS * i, gy = y0 - h + r;
-    row_in[i] = r < SY;
-    row_ok[i] = row_in[i] && gy >= 0 && gy < ny;
-    rowoff[i] = gy * nx;
-  }
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j, gx = x0 - h + c;
-    col_in[j] = c < SXL;
-    col_ok[j] = col_in[j] && gx >= 0 && gx < nx;
-    gxs[j] = gx;
-  }
-  T pf[RPW][CPL];
-  auto fetch = [&](int p) {  // plane p of the chunk (input plane zc0 - h + p)
-    const int zi = zc0 - h + p;
-    const bool z_ok = zi >= 0 && zi < nz;
-    const T* plane = in + (size_t)(z_ok ? zi : 0) * ny * nx;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < CPL; ++j)
-        pf[i][j] = z_ok && row_ok[i] && col_ok[j] ? __ldg(plane + rowoff[i] + gxs[j]) : fill;
-  };
-  auto put = [&](int p) {
-    T* st = reinterpret_cast<T*>(stage + (p & 1) * SY * SW);
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int j = 0; j < CPL; ++j)
-        if (row_in[i] && col_in[j])
-          st[(warp + NWARPS * i) * EPR + BP_XPAD - h + lane + 32 * j] = pf[i][j];
-  };
-  // the x pools of step s: its group's pairs on every staged row.  A task
-  // (staged row, unit) loads its window once; the symmetric pairs (-w, w)
-  // are the chain S[w] = op(S[w - 1], e[-w], e[w]), stored where the group
-  // has them, any other pair element by element.
-  auto xpool = [&](int s) {
-    const int p = s / n_groups, g = s - p * n_groups, r0 = g * BP_GROUP;
-    const int n_in = tab.n_runs - r0 < BP_GROUP ? tab.n_runs - r0 : BP_GROUP;
-    const uint32_t* sbuf = stage + (p & 1) * SY * SW;
-    V* pbuf = pools + (s & 1) * pool_units;
-    for (int task = tid; task < SY * TXU; task += NT) {
-      const int r = task / TXU, u = task % TXU;
-      const auto* srow = reinterpret_cast<const W*>(sbuf + r * SW);
-      V* prow = pbuf + r * TXU + u;
-      Window<T, HMAX> win;
-      win.load(srow, u);
-      V chain = win.at(0);
-      if (tab.sym[g][0] >= 0) prow[tab.sym[g][0] * SY * TXU] = chain;
-#pragma unroll
-      for (int w = 1; w <= HMAX; ++w) {
-        if (w <= h) {
-          chain = combine<OP>(combine<OP>(chain, win.at(-w)), win.at(w));
-          if (tab.sym[g][w] >= 0) prow[tab.sym[g][w] * SY * TXU] = chain;
-        }
-      }
-      for (int i = 0; i < n_in; ++i) {
-        const int lo = tab.lo[r0 + i], hi = tab.hi[r0 + i];
-        if (lo == -hi) continue;
-        V v = element<L::NW>(srow, u, lo);
-        for (int k = lo + 1; k <= hi; ++k) v = combine<OP>(v, element<L::NW>(srow, u, k));
-        prow[i * SY * TXU] = v;
-      }
-    }
-  };
-
-  V acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = identity_vec<T, OP>();
-  const int u = threadIdx.x, y = threadIdx.y, gy = y0 + y;
-  fetch(0);
-  put(0);
-  if (n_planes > 1) {
-    fetch(1);
-    put(1);
-  }
-  if (n_planes > 2) fetch(2);
-  __syncthreads();
-  xpool(0);
-  __syncthreads();
-  for (int s = 0; s < n_steps; ++s) {
-    const int p = s / n_groups, g = s - p * n_groups, zi = zc0 - h + p;
-    if (s + 1 < n_steps) xpool(s + 1);
-    const V* pbase = pools + (s & 1) * pool_units + (y + h) * TXU + u;
-    // the accumulators of output planes in the chunk: k = zo - (zi - h)
-    const int k0 = zc0 - (zi - h) > 0 ? zc0 - (zi - h) : 0;
-    const int k1 = zc1 - 1 - (zi - h) < 2 * h ? zc1 - 1 - (zi - h) : 2 * h;
-    const unsigned live = k1 < k0 ? 0u : ((2u << k1) - 1u) & ~((1u << k0) - 1u);
-    for (int q = tab.gslice[g]; q < tab.gslice[g + 1]; ++q) {
-      const unsigned kmask = tab.kmask[q] & live;
-      if (kmask == 0) continue;
-      V d = identity_vec<T, OP>();
-      const int t1 = tab.send[q];
-#pragma unroll 4
-      for (int t = tab.sbegin[q]; t < t1; ++t) d = combine<OP>(d, pbase[roff[t]]);
-#pragma unroll
-      for (int k = 0; k < NACC; ++k)
-        if (kmask >> k & 1u) acc[k] = combine<OP>(acc[k], d);
-    }
-    if (g == n_groups - 1) {  // plane p is pooled: output plane zi - h is done
-      if (zi - h >= zc0 && gy < ny)
-        store_unit<L::NW>(out + ((size_t)(zi - h) * ny + gy) * nx, x0 + u * L::VX, nx, acc[0]);
-#pragma unroll
-      for (int k = 0; k + 1 < NACC; ++k) acc[k] = acc[k + 1];
-      acc[NACC - 1] = identity_vec<T, OP>();
-      if (p + 2 < n_planes) put(p + 2);  // plane p's buffer: its last x pool ran a step ago
-      if (p + 3 < n_planes) fetch(p + 3);
-    }
-    __syncthreads();
-  }
-}
-
-// The z chunk: as many chunks as the card's
-// resident blocks of this kernel take, up to 2.4 blocks an SM (measured
-// best on an H100 at the flagship grid and the grid paths' 23-plane slabs:
-// fewer leave SMs idle, more pay for more halo planes), every chunk of
-// equal length but the last.
-template <typename K>
-int auto_zchunk(K* kernel, int threads, size_t smem, int tiles, int nz, int* blocks_per_sm) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem) !=
-          cudaSuccess)
-    return -1;
-  const int cap = *blocks_per_sm * sms, target = cap < 12 * sms / 5 ? cap : 12 * sms / 5;
-  int chunks = target / tiles;
-  chunks = chunks < 1 ? 1 : chunks > nz ? nz : chunks;
-  return (nz + chunks - 1) / chunks;
+    ball_pool_kernel(PoolIO<T> io, int nz, int ny, int nx, int zchunk,
+                     const __grid_constant__ Tab tab) {
+  pool_stream<T, OP>(io, nz, ny, nx, zchunk, tab);
 }
 
 template <typename T, int OP, typename Tab>
 int launch(const void* in, void* out, int nz, int ny, int nx, const Tab& tab, int fill,
            int* used, cudaStream_t stream) {
-  using L = Lanes<T>;
-  const int SY = L::TY + 2 * tab.halo;
-  const int G = tab.n_runs < BP_GROUP ? tab.n_runs : BP_GROUP;
-  const size_t smem =
-      (size_t)(2 * G * SY * L::TXU * L::NW + 2 * SY * L::SW + tab.n_rows) * 4;
-  auto* kernel = ball_pool_kernel<T, OP, Tab>;
-  if (const int err = allow_smem(kernel, smem)) return err;
-  const int tx = L::TXU * L::VX, gx = (nx + tx - 1) / tx, gy = (ny + L::TY - 1) / L::TY;
-  int per_sm = 0;
-  const int zchunk = auto_zchunk(kernel, L::TXU * L::TY, smem, gx * gy, nz, &per_sm);
-  if (zchunk < 1) return (int)cudaGetLastError();
-  const dim3 grid(gx, gy, (nz + zchunk - 1) / zchunk);
-  if (used != nullptr) {
-    used[0] = zchunk;
-    used[1] = (int)(grid.x * grid.y * grid.z);
-    used[2] = per_sm;
-  }
-  kernel<<<grid, dim3(L::TXU, L::TY), smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, zchunk, (T)fill, tab);
-  return (int)cudaGetLastError();
+  const PoolIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, (T)fill};
+  return launch_pool<T>(ball_pool_kernel<T, OP, Tab>, io, nz, ny, nx, tab, used, stream);
 }
 
 template <typename Tab>
@@ -547,17 +126,9 @@ int dispatch(const void* in, void* out, int dtype, int op, int nz, int ny, int n
 VOFOD_API int vofod_ball_pool(const void* in, void* out, int dtype, int op, int nz, int ny,
                               int nx, const short* table, int table_len, int fill, int* used,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nz < 1 || ny < 1 || nx < 1 || table == nullptr || table_len < 4)
-    return (int)cudaErrorInvalidValue;
-  if (table_len >= 4 && table[0] <= RunTableSmall::HMAX &&
-      table[1] <= RunTableSmall::MAX_RUNS && table[2] <= RunTableSmall::MAX_ROWS &&
-      table[3] <= RunTableSmall::MAX_SLICES) {
-    RunTableSmall t;
-    if (!parse_table(table, table_len, &t)) return (int)cudaErrorInvalidValue;
-    return dispatch(in, out, dtype, op, nz, ny, nx, t, fill, used, s);
-  }
-  RunTableLarge t;
-  if (!parse_table(table, table_len, &t)) return (int)cudaErrorInvalidValue;
-  return dispatch(in, out, dtype, op, nz, ny, nx, t, fill, used, s);
+  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  return with_table(table, table_len, [&](const auto& t) {
+    return dispatch(in, out, dtype, op, nz, ny, nx, t, fill, used,
+                    static_cast<cudaStream_t>(stream));
+  });
 }

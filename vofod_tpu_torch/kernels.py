@@ -36,7 +36,7 @@ _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
             "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
             "detect.cu", "ema.cu", "dda.cu", "census.cu", "unpack.cu", "halo.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "ball_pool.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -83,9 +83,9 @@ LAUNCHES: dict[str, int] = {
     "demote_direct": 0,
 }
 
-# The stencil kernels (K1, K2, the K11 and K13c epilogues, K14) take any tap
-# set of at most MAX_TAPS offsets within halo MAX_HALO (csrc/common.cuh): the
-# ball of r^2 < 64 has 2,103 taps.
+# The stencil kernels (K1 and the demotion EMAs of K11 and K13c on its run
+# table, K2, K14) take any tap set of at most MAX_TAPS offsets within halo
+# MAX_HALO (csrc/common.cuh): the ball of r^2 < 64 has 2,103 taps.
 
 MAX_TAPS = 2112
 MAX_HALO = 7
@@ -211,7 +211,7 @@ def load():
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P]
         lib.vofod_detect.argtypes = [_P] * 20
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
-        lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P]
+        lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _P, _P, _P]
         lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
         lib.vofod_ray_ema.argtypes = [_P, _P, _P, _LL, _P, _I, _P, _I, _P]
         lib.vofod_label_census.argtypes = [_P, _P, _P, _LL, _I, _F, _P, _P, _P, _P]
@@ -223,7 +223,7 @@ def load():
         lib.vofod_quirk_geometry.argtypes = [_P]
         lib.vofod_quirk_query.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_exact_demote_ema.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         lib.vofod_halo_exchange.argtypes = [
             _P, _P, _I, _I, _I, _LL, ctypes.c_char_p, _I, ctypes.c_uint, _P]
@@ -326,7 +326,7 @@ def ball_pool_schedule(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
     used = (ctypes.c_int * 3)()
     out = _pool(a, taps, halo, op, fill, used)
     _count("ball_pool")
-    return out, dict(zchunk=used[0], blocks=used[1], blocks_per_sm=used[2])
+    return out, _schedule(used)
 
 
 def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
@@ -936,26 +936,47 @@ def point_ema(vals: torch.Tensor, counts: torch.Tensor, close: torch.Tensor,
     return out, far, n_occupied
 
 
-def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
-               sure_sufficient: torch.Tensor, taps: np.ndarray, halo: int, w1: float,
-               c: float) -> torch.Tensor:
-    """K11 demotion EMA: the K1 ball max of ``bg & ~safe`` (ball ``taps``)
-    with ``v' = w1 v + c`` where it is set and ``sure_sufficient``."""
+def _schedule(used) -> dict:
+    return dict(zchunk=used[0], blocks=used[1], blocks_per_sm=used[2])
+
+
+def _demote(vals, bg, safe, sure_sufficient, taps, halo, w1, c, used=None) -> torch.Tensor:
     if vals.dim() != 3:
         raise ValueError("demote_ema takes the 3-D grid")
     _require(vals, "demote_ema vals", torch.float32)
     _require(bg, "demote_ema bg", torch.bool, vals.shape)
     _require(safe, "demote_ema safe", torch.bool, vals.shape)
     _require(sure_sufficient, "demote_ema sure_sufficient", torch.bool, ())
-    keep, ptr = _taps_arg(taps, halo)
+    from vofod_tpu_torch.ops.morphology import run_table  # it imports this module
+
+    table = run_table(taps, halo)
     out = torch.empty_like(vals)
     nz, ny, nx = vals.shape
     err = load().vofod_demote_ema(
         vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
-        nz, ny, nx, ptr, len(keep), halo, float(w1), float(c), out.data_ptr(), _stream())
+        nz, ny, nx, table.blob_ptr, len(table.blob), float(w1), float(c), out.data_ptr(), used,
+        _stream())
     _check(err, "vofod_demote_ema")
     _count("demote_ema")
     return out
+
+
+def demote_ema(vals: torch.Tensor, bg: torch.Tensor, safe: torch.Tensor,
+               sure_sufficient: torch.Tensor, taps: np.ndarray, halo: int, w1: float,
+               c: float) -> torch.Tensor:
+    """K11 demotion EMA: K1's int8 ball max (run table of ``taps``) of ``bg
+    & ~safe``, built while staging, with ``v' = w1 v + c`` where it is set
+    and ``sure_sufficient``, applied where K1 stores."""
+    return _demote(vals, bg, safe, sure_sufficient, taps, halo, w1, c)
+
+
+def demote_ema_schedule(vals, bg, safe, sure_sufficient, taps, halo, w1,
+                        c) -> tuple[torch.Tensor, dict]:
+    """K11's demotion once, with the schedule the card chose (as
+    :func:`ball_pool_schedule`)."""
+    used = (ctypes.c_int * 3)()
+    out = _demote(vals, bg, safe, sure_sufficient, taps, halo, w1, c, used)
+    return out, _schedule(used)
 
 
 def dda(starts: torch.Tensor, dirs: torch.Tensor, lengths: torch.Tensor, valid: torch.Tensor,
@@ -1169,17 +1190,8 @@ def quirk_query(bg: torch.Tensor, lsz: int, u: torch.Tensor, below: torch.Tensor
     return out
 
 
-def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tensor,
-                     flags: torch.Tensor, prev_sure: torch.Tensor, lsz: int, taps: np.ndarray,
-                     halo: int, min_sure: float, w1: float, score: float, thr_new: float,
-                     window: tuple[int, int, int] | None = None):
-    """K13c: (new grid f32, safe bool grid, sure_sufficient bool scalar) of
-    the exact demotion: w1^k v + (1 - w1^k) score, k = the ball sum
-    (``taps``) of the unsure coarse-cell centres; flags: K13a's.
-    ``window`` (z_off, zc_lo, ncz): ``vals`` holds the rows [z_off, z_off +
-    rows) of a grid of ncz coarse rows and occ_c / census its coarse rows
-    from zc_lo (a shard's slab and its halo'd coarse arrays); default the
-    whole grid."""
+def _exact_demote(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_sure, w1, score,
+                  thr_new, window, used=None):
     if vals.dim() != 3:
         raise ValueError("exact_demote_ema takes the 3-D grid")
     nz, ny, nx = vals.shape
@@ -1194,20 +1206,47 @@ def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tens
     _require(census, "exact_demote census", torch.int32, cshape)
     _require(flags, "exact_demote flags", torch.bool, (2,))
     _require(prev_sure, "exact_demote prev_sure", torch.bool, ())
+    from vofod_tpu_torch.ops.morphology import run_table  # it imports this module
+
+    table = run_table(taps, halo)
     dev = vals.device
     out = torch.empty_like(vals)
     safe = torch.empty(vals.shape, dtype=torch.bool, device=dev)
     sure_out = torch.empty((), dtype=torch.bool, device=dev)
-    keep, ptr = _taps_arg(taps, halo)
     floats = _host_f32(min_sure, w1, score, thr_new)
     err = load().vofod_exact_demote_ema(
         vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
-        prev_sure.data_ptr(), nz, ny, nx, int(lsz), ptr, len(keep), halo, floats[1],
+        prev_sure.data_ptr(), nz, ny, nx, int(lsz), table.blob_ptr, len(table.blob), floats[1],
         None if win is None else win[1], out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(),
-        _stream())
+        used, _stream())
     _check(err, "vofod_exact_demote_ema")
     _count("exact_demote_ema")
     return out, safe, sure_out
+
+
+def exact_demote_ema(vals: torch.Tensor, occ_c: torch.Tensor, census: torch.Tensor,
+                     flags: torch.Tensor, prev_sure: torch.Tensor, lsz: int, taps: np.ndarray,
+                     halo: int, min_sure: float, w1: float, score: float, thr_new: float,
+                     window: tuple[int, int, int] | None = None):
+    """K13c: (new grid f32, safe bool grid, sure_sufficient bool scalar) of
+    the exact demotion: w1^k v + (1 - w1^k) score, k = K1's ball sum (run
+    table of ``taps``) of the unsure coarse-cell centres on the extended
+    lattice, built while staging; flags: K13a's.  ``window`` (z_off, zc_lo,
+    ncz): ``vals`` holds the rows [z_off, z_off + rows) of a grid of ncz
+    coarse rows and occ_c / census its coarse rows from zc_lo (a shard's slab
+    and its halo'd coarse arrays); default the whole grid."""
+    return _exact_demote(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_sure, w1,
+                         score, thr_new, window)
+
+
+def exact_demote_ema_schedule(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_sure,
+                              w1, score, thr_new, window=None):
+    """K13c once, with the schedule the card chose: (out, safe, sure,
+    {zchunk, blocks, blocks_per_sm})."""
+    used = (ctypes.c_int * 3)()
+    got = _exact_demote(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_sure, w1,
+                        score, thr_new, window, used)
+    return (*got, _schedule(used))
 
 
 def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

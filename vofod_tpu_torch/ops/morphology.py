@@ -204,7 +204,8 @@ def run_table(ball, halo: int | None = None) -> RunTable:
 
 
 def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
-                         tile: tuple[int, int], zchunk: int) -> Tensor:
+                         tile: tuple[int, int], zchunk: int, staging=None,
+                         skip_empty: bool = False) -> Tensor:
     """Plain model of the K1 kernel's schedule, on any device: ``a``'s
     (y, x) plane cut into ``tile`` (TY, TX) column tiles and its z into
     chunks of ``zchunk`` output planes.  A tile and chunk stages every input
@@ -214,25 +215,45 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
     chain, the others element by element; then each slice combines its
     rows' pools and feeds the accumulators of the output planes in the
     chunk it belongs to.  Output plane ``zi - halo`` is done after input
-    plane ``zi``."""
+    plane ``zi``.
+
+    ``staging(zi, rows, cols)``, where given, is the staging rule of a kernel
+    that builds the pooled value while loading (K11's demotion, K13c): the
+    staged values of input plane ``zi`` at the global ``rows`` and
+    ``cols`` (int64, out-of-grid ones included), in place of ``a``'s padded
+    by ``fill``; ``a`` then gives only the output's shape, dtype and
+    device.  The sum of int8 values (K13c's s16 pairs) is taken in int32.
+    With ``skip_empty`` a tile and chunk whose staged values are all 0 pools
+    nothing: its outputs are the op's identity (K11's and K13c's kernels
+    then run only their epilogue)."""
     combine = _COMBINE[op]
     nz, ny, nx = a.shape
     h, (ty, tx), pad = table.halo, tile, 8
     nty, ntx = -(-ny // ty), -(-nx // tx)
+    dtype = torch.int32 if op == "sum" else a.dtype
     ident = 0 if op == "sum" else INT_FILL[op][a.dtype]
     group = kernels.BALL_RUN_GROUP
-    out = torch.empty_like(a)
+    out = torch.empty_like(a, dtype=dtype)
     fill_plane = torch.full((ny, nx), fill, dtype=a.dtype, device=a.device)
+    rows = torch.arange(-h, nty * ty + h, device=a.device)
+    cols = torch.arange(-pad, ntx * tx + pad, device=a.device)
     for zc0 in range(0, nz, zchunk):
         zc1 = min(nz, zc0 + zchunk)
-        acc = [torch.full((nty, ntx, ty, tx), ident, dtype=a.dtype, device=a.device)
+        acc = [torch.full((nty, ntx, ty, tx), ident, dtype=dtype, device=a.device)
                for _ in range(2 * h + 1)]
+        busy = torch.zeros((nty, ntx, 1, 1), dtype=torch.bool, device=a.device)
+        dones = []
         for zi in range(zc0 - h, zc1 + h):
-            plane = a[zi] if 0 <= zi < nz else fill_plane
-            staged = F.pad(plane, (pad, ntx * tx - nx + pad, h, nty * ty - ny + h), value=fill)
+            if staging is not None:
+                staged = staging(zi, rows, cols).to(dtype)
+            else:
+                plane = a[zi] if 0 <= zi < nz else fill_plane
+                staged = F.pad(plane, (pad, ntx * tx - nx + pad, h, nty * ty - ny + h),
+                               value=fill).to(dtype)
             # [tiles_y, tiles_x, TY + 2h, TX + 16]
             stage = staged.unfold(0, ty + 2 * h, ty).unfold(1, tx + 2 * pad, tx)
             e = {k: stage[..., pad + k: pad + k + tx] for k in range(-h, h + 1)}
+            busy |= (stage[..., pad - h: pad + tx + h] != 0).any(-1).any(-1)[..., None, None]
             for g in range(table.n_groups):
                 pairs = table.runs[g * group:(g + 1) * group].tolist()
                 pools = [None] * len(pairs)
@@ -260,9 +281,12 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
                     for k in live:
                         acc[k] = combine(acc[k], d)
             if zi - h >= zc0:
-                done = acc[0].permute(0, 2, 1, 3).reshape(nty * ty, ntx * tx)
-                out[zi - h] = done[:ny, :nx]
+                dones.append((zi - h, acc[0]))
             acc = acc[1:] + [torch.full_like(acc[0], ident)]
+        for zo, done in dones:  # a skipping tile's decision takes its whole chunk
+            if skip_empty:
+                done = torch.where(busy, done, torch.full_like(done, ident))
+            out[zo] = done.permute(0, 2, 1, 3).reshape(nty * ty, ntx * tx)[:ny, :nx]
     return out
 
 

@@ -47,7 +47,8 @@ import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams, VoFODConfig
-from vofod_tpu_torch.ops.morphology import Shells, ball_pool_plain, ball_taps, pool_plain, tap_set
+from vofod_tpu_torch.ops.morphology import (
+    Shells, ball_pool_plain, ball_pool_runs_plain, ball_taps, pool_plain, run_table, tap_set)
 from vofod_tpu_torch.parallel.gridops import DENSE
 
 Tensor = torch.Tensor
@@ -79,6 +80,32 @@ def demote_ema_plain(grid_vals: Tensor, bg: Tensor, safe: Tensor, sure_sufficien
     unsafe = bg & ~safe
     demote = pool_plain(unsafe.to(torch.int8), ball, "max", 0) > 0
     return torch.where(demote & sure_sufficient, w1 * grid_vals + c, grid_vals)
+
+
+def demote_ema_runs_plain(grid_vals: Tensor, bg: Tensor, safe: Tensor, sure_sufficient: Tensor,
+                          ball, w1: float, c: float, zchunk: int) -> Tensor:
+    """Plain model of K11's demotion kernel (csrc/ema.cu): K1's schedule
+    (``ball_pool_runs_plain`` at the int8 tile, z chunks of ``zchunk``)
+    staging ``bg & ~safe`` while loading (0 outside the grid), the int8 max
+    on ``ball``'s run table (a tile and chunk with no unsafe voxel skips
+    it), and the epilogue where K1 stores."""
+    nz, ny, nx = grid_vals.shape
+    unsafe = bg & ~safe
+
+    def stage(zi, rows, cols):
+        out = torch.zeros((len(rows), len(cols)), dtype=torch.int8, device=bg.device)
+        if 0 <= zi < nz:
+            ry = (rows >= 0) & (rows < ny)
+            cx = (cols >= 0) & (cols < nx)
+            out[ry[:, None] & cx[None, :]] = unsafe[zi][rows[ry]][:, cols[cx]].reshape(-1).to(
+                torch.int8)
+        return out
+
+    taps, halo = tap_set(ball)
+    pooled = ball_pool_runs_plain(unsafe.to(torch.int8), run_table(taps, halo), "max", 0,
+                                  kernels.BALL_POOL_TILE[torch.int8], zchunk, stage,
+                                  skip_empty=True)
+    return torch.where((pooled > 0) & sure_sufficient, w1 * grid_vals + c, grid_vals)
 
 
 def demote_ema(grid_vals: Tensor, bg: Tensor, safe: Tensor, sure_sufficient: Tensor,
@@ -354,6 +381,66 @@ def exact_demote_ema_plain(grid_vals: Tensor, occ_c: Tensor, cell_census: Tensor
     c1 = z1 // lsz
     safe = (grid_vals > thr_new) & upsample_coarse(sure_c[c1:c1 + -(-nz // lsz)], lsz,
                                                    grid_vals.shape)
+    return new_vals, safe, sure_sufficient
+
+
+def centre_stage(occ_c: Tensor, cell_census: Tensor, lsz: int, min_sure: float, ncz: int,
+                 ncy: int, ncx: int, z_off: int = 0, zc_lo: int = 0):
+    """K13c's staging rule (csrc/ema.cu CentreIO), as ``ball_pool_runs_plain``
+    takes it: input plane zi (global row z_off + zi) at global ``rows`` and
+    ``cols`` holds 1 at the centre ijk * lsz + lsz // 2 of an unsure coarse
+    cell (occupied, census < min_sure).  Points are masked by the EXTENDED
+    lattice (ncz * lsz, ncy * lsz, ncx * lsz) and by the held coarse rows
+    [zc_lo, zc_lo + len(occ_c)), never by the fine grid: a boundary cell's
+    centre may lie outside the grid and still demote voxels in it."""
+    unsure = occ_c & ~(cell_census.to(torch.float32) >= min_sure)
+    mid = lsz // 2
+
+    def on_lattice(v, n):
+        return (v >= 0) & (v < n * lsz) & (v % lsz == mid)
+
+    def stage(zi, rows, cols):
+        out = torch.zeros((len(rows), len(cols)), dtype=torch.int8, device=occ_c.device)
+        gz = z_off + zi
+        if not (on_lattice(torch.tensor(gz), ncz) and zc_lo <= gz // lsz < zc_lo + len(unsure)):
+            return out
+        ry, cx = on_lattice(rows, ncy), on_lattice(cols, ncx)
+        cells = unsure[gz // lsz - zc_lo][rows[ry] // lsz][:, cols[cx] // lsz]
+        out[ry[:, None] & cx[None, :]] = cells.reshape(-1).to(torch.int8)
+        return out
+
+    return stage
+
+
+def exact_demote_runs_plain(grid_vals: Tensor, occ_c: Tensor, cell_census: Tensor,
+                            flags: Tensor, prev_sure: Tensor, lsz: int, radius: float,
+                            min_sure: float, w1: float, score: float, thr_new: float,
+                            window: tuple[int, int, int] | None, zchunk: int
+                            ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain model of K13c's kernel (csrc/ema.cu): K1's schedule
+    (``ball_pool_runs_plain`` at the int8 tile, z chunks of ``zchunk``)
+    staging :func:`centre_stage` while loading, the ball sum k of the
+    centres on the run table (a tile and chunk with no centre skips it; the
+    kernel's test, no occupied cell, is stricter and gives the same grid),
+    and the epilogue where K1 stores: w1^k v +
+    (1 - w1^k) score where sure_sufficient, safe = bg & a sure cell.
+    Arguments as :func:`exact_demote_ema_plain`'s."""
+    nz, ny, nx = grid_vals.shape
+    ncz, z_off, zc_lo = -(-nz // lsz), 0, 0
+    if window is not None:
+        z_off, zc_lo, ncz = window
+    stage = centre_stage(occ_c, cell_census, lsz, min_sure, ncz, -(-ny // lsz), -(-nx // lsz),
+                         z_off, zc_lo)
+    k = ball_pool_runs_plain(torch.empty_like(grid_vals, dtype=torch.int8),
+                             run_table(radius), "sum", 0, kernels.BALL_POOL_TILE[torch.int8],
+                             zchunk, stage, skip_empty=True)
+    sure_sufficient = torch.where(flags[0], flags[1], prev_sure)
+    w1k = torch.pow(w1, k.to(torch.float32))
+    new_vals = torch.where(sure_sufficient, w1k * grid_vals + (1.0 - w1k) * score, grid_vals)
+    sure_c = occ_c & (cell_census.to(torch.float32) >= min_sure)
+    c1 = z_off // lsz - zc_lo
+    safe = (grid_vals > thr_new) & upsample_coarse(
+        sure_c[c1:c1 + -(-nz // lsz)], lsz, grid_vals.shape)
     return new_vals, safe, sure_sufficient
 
 
