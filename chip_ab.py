@@ -2,7 +2,8 @@
 """Two trees of the port on one card, in turns.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
-                       [--grid-exact-pairs N] [--demote-only] [--out build/ab]
+                       [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
+                       [--variants all|NAME,...] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -42,7 +43,21 @@ call:
   cells; each checked bit-equal to its plain version, with the schedule
   the card chose, beside K1 on the same 0/1 mask and taps (the stencil
   alone) and one elementwise kernel moving the call's bytes (the floor).
-  ``--demote-only`` runs these cases alone.
+  ``--demote-only`` runs these cases alone;
+- K6 and K5a on the inputs the sweep step passes them (the wrappers'
+  calls recorded on the 7th scan of a fresh node: the frontend's 131,072
+  -> 4,096 hits, the far voxels 2.47 M -> 2,048, the query form 2.47 M ->
+  256, the gate), each checked against its plain version (K6 bit-equal, K5a
+  within chip_smoke.K5A_TOL), with its device ms, launches and memsets a
+  call, the wrapper's host us a call over 1,000 calls with no sync, the sum
+  of the three K6 calls, ``torch.nonzero`` of each K6 mask beside it, and
+  the host us of the K6 wrapper's pieces (its allocations in three forms:
+  four, three, one with its views; the look-back state's pick).
+  ``--compact-gate-only`` runs these cases alone.  ``--variants`` then
+  builds variants of the change tree's K6 and K5a (their schedule's
+  constants edited in the source text: K6's threads and chunks a thread,
+  K5a's block size and cluster size, clusters of one pooling the whole
+  image) and times them on the same calls (``_COMPACT_GATE_VARIANTS``).
 
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
@@ -530,6 +545,297 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=cs
 print(json.dumps(dict(nvidia_smi=smi, demote_cases=cases)))
 """
 
+# The inputs of K6 and K5a as the sweep step passes them (the wrappers'
+# calls on the 7th scan of a fresh node after the apriori plane), the head
+# of the two scripts below: compact_gate_inputs(cs) -> (lut, {case:
+# (wrapper name, positional args)})
+COMPACT_GATE_INPUTS = r"""
+import torch
+
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+
+def compact_gate_inputs(cs):
+    lut = cs.make_lut(cs.VoFODConfig().sensor)
+    node = VoFOD(cs.VoFODConfig(), DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    scans = cs.scan_cycle(lut, 7)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    names = ("masked_compact", "gate_faces")
+    orig, got = {k: getattr(kernels, k) for k in names}, []
+
+    def recorder(name):
+        def record(*a):
+            got.append((name, tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)))
+            return orig[name](*a)
+        return record
+
+    for k in names:
+        setattr(kernels, k, recorder(k))
+    try:
+        node.process_scan(scans[6][0], None, scans[6][1])
+        torch.cuda.synchronize()
+    finally:
+        for k in names:
+            setattr(kernels, k, orig[k])
+    cases = {}
+    for name, a in got:
+        if name == "gate_faces":
+            cases["k5a gate"] = (name, a)
+        else:
+            form = "query" if len(a) > 2 else "mask"
+            cases[f"k6 {form} {a[0].numel()}->{a[1]}"] = (name, a)
+    return lut, cases
+"""
+
+# runs in the tree's root; prints one JSON line: K6's and K5a's calls of the
+# sweep step's 7th scan, each checked against its plain version and timed
+_COMPACT_GATE_CASES = COMPACT_GATE_INPUTS + r"""
+import json
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch.ops.compaction import masked_compact_isin_plain, masked_compact_plain
+from vofod_tpu_torch.ops.raycast import gate_faces_plain, make_angular_gate
+
+
+def timed(fn):
+    return dict(ms=cs.cuda_ms(fn), **cs.device_profile(fn))
+
+
+def host_us(fn, n=1000):
+    # host microseconds a call over n calls with no sync, after 50
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(dt, 3)
+
+
+def one_buffer(cap):  # K6's outputs as views of one allocation: ids, total, valid's bytes
+    buf = torch.empty(cap + 1 + -(-cap // 4), dtype=torch.int32, device="cuda")
+    return buf[:cap], buf[cap + 1:].view(torch.bool)[:cap], buf[cap]
+
+
+def empties(cap, scratch=0):  # K6's outputs: ids, valid, total (and a scratch)
+    out = (torch.empty(cap, dtype=torch.int32, device="cuda"),
+           torch.empty(cap, dtype=torch.bool, device="cuda"),
+           torch.empty((), dtype=torch.int32, device="cuda"))
+    return out + ((torch.empty(scratch, dtype=torch.int32, device="cuda"),) if scratch else ())
+
+
+# the host cost of the K6 wrapper's allocations at the far call's capacity
+# (2,048), in the three forms it has had: the outputs and the three-launch
+# scan's scratch (two words a 4,096-byte block of 2.47 M), the outputs
+# alone, the outputs as views of one allocation
+pieces = {"4 torch.empty (outputs, three-launch scratch)": lambda: empties(2048, 1208),
+          "3 torch.empty (outputs)": lambda: empties(2048),
+          "1 torch.empty and its 3 views (outputs)": lambda: one_buffer(2048)}
+if hasattr(kernels, "_compact_state_for"):
+    def state_pick(dev=torch.device("cuda"), stream=kernels._stream()):
+        with kernels._compact_lock:
+            st = kernels._compact_state_for(dev, stream, 152)
+            use, other = st[st[2]], st[1 - st[2]]
+            st[2] ^= 1
+        return use, other
+
+    pieces["the look-back state: lock, lookup and flip"] = state_pick
+pieces = {k: host_us(f) for k, f in pieces.items()}
+
+lut, inputs = compact_gate_inputs(cs)
+gate = make_angular_gate(lut)
+cases = {}
+for name, (wrapper, a) in inputs.items():
+    fn = lambda wrapper=wrapper, a=a: getattr(kernels, wrapper)(*a)
+    if wrapper == "masked_compact":
+        plain = (masked_compact_plain(a[0], a[1]) if len(a) == 2
+                 else masked_compact_isin_plain(a[0], a[2], a[3], a[1]))
+        err = 0.0 if all(torch.equal(x, y) for x, y in zip(fn(), plain)) else float("inf")
+        extra = dict(total=int(plain[2]), nonzero=timed(lambda m=a[0]: torch.nonzero(m)))
+    else:
+        active, fd, rot, table = a[:4]
+        want = gate_faces_plain(gate, fd, active, rot, table).reshape(-1)
+        err = float((fn().reshape(-1) - want).abs().max())
+        extra = dict(texels=fd.shape[0])
+    if not err <= (cs.K5A_TOL if wrapper == "gate_faces" else 0.0):
+        raise AssertionError(f"case {name}: the kernel differs from its plain version ({err})")
+    cases[name] = dict(kernel=timed(fn), host_us=host_us(fn), max_abs_err=err, **extra)
+k6 = [c["kernel"]["device_ms"] for n, c in cases.items() if n.startswith("k6")]
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, compact_gate_cases=cases, k6_calls=len(k6),
+                      k6_sweep_scan_device_ms=sum(k6),
+                      k6_sweep_scan_host_us=sum(c["host_us"] for n, c in cases.items()
+                                                if n.startswith("k6")),
+                      k5a_device_ms=cases["k5a gate"]["kernel"]["device_ms"],
+                      k6_wrapper_pieces_host_us=pieces)))
+"""
+
+# runs in the change tree's root with variant names as arguments (all when
+# none); prints one JSON line: variants of K6 (csrc/compact.cu) and K5a
+# (csrc/ray_gate.cu), each source edited by text substitution of its
+# schedule's constants, built alone (one nvcc each, started together) and
+# called through its C entry point on the sweep step's calls (and K6 on the
+# far mask from a view at byte offset 7), each call checked against the
+# plain version; per variant and case the device ms, launches and memsets a
+# call and the CUDA-event ms, and each variant's registers
+_COMPACT_GATE_VARIANTS = COMPACT_GATE_INPUTS + r"""
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.ops.compaction import masked_compact_isin_plain, masked_compact_plain
+from vofod_tpu_torch.ops.raycast import gate_faces_plain, make_angular_gate
+
+CSRC = Path("vofod_tpu_torch/csrc")
+OUT = Path("build/probe")
+CT, VEC = "constexpr int CT = 256;", "constexpr int VEC = 4;"
+GT, GC = "constexpr int GATE_T = 128;", "constexpr int GATE_CLUSTER = 8;"
+VARIANTS = {  # name: (source, [(text, replacement), ...])
+    "k6_base": ("compact.cu", []),
+    "k6_vec1": ("compact.cu", [(VEC, "constexpr int VEC = 1;")]),
+    "k6_vec2": ("compact.cu", [(VEC, "constexpr int VEC = 2;")]),
+    "k6_t512": ("compact.cu", [(CT, "constexpr int CT = 512;")]),
+    "k6_vec2_t512": ("compact.cu", [(CT, "constexpr int CT = 512;"),
+                                    (VEC, "constexpr int VEC = 2;")]),
+    "k5a_base": ("ray_gate.cu", []),
+    "k5a_c8_t64": ("ray_gate.cu", [(GT, "constexpr int GATE_T = 64;")]),
+    "k5a_c2": ("ray_gate.cu", [(GC, "constexpr int GATE_CLUSTER = 2;")]),
+    "k5a_c4": ("ray_gate.cu", [(GC, "constexpr int GATE_CLUSTER = 4;")]),
+    # clusters of one: every block pools the whole image
+    "k5a_whole_t128": ("ray_gate.cu", [(GC, "constexpr int GATE_CLUSTER = 1;")]),
+    "k5a_whole_t256": ("ray_gate.cu", [(GC, "constexpr int GATE_CLUSTER = 1;"),
+                                       (GT, "constexpr int GATE_T = 256;")]),
+}
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def build(name):
+    src, edits = VARIANTS[name]
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    text = (CSRC / src).read_text()
+    for a, b in edits:
+        if a not in text:
+            raise RuntimeError(f"probe {name}: {a!r} not found")
+        text = text.replace(a, b, 1)
+    for h in CSRC.glob("*.cuh"):
+        (d / h.name).write_text(h.read_text())
+    (d / src).write_text(text)
+    so = d / f"libprobe_{name}.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(d / src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"probe {name}: nvcc failed\n{res.stdout}{res.stderr}")
+    regs = [ln.split("Used ")[1].split(",")[0] for ln in (res.stdout + res.stderr).splitlines()
+            if "Used" in ln and "registers" in ln]
+    lib = ctypes.CDLL(str(so))
+    if src == "compact.cu":
+        lib.vofod_compact.argtypes = [P, P, P, I, LL, I, P, P, LL, P, P, P, P]
+    else:
+        lib.vofod_gate_faces.argtypes = [P] * 8
+    return lib, regs
+
+
+def k6_call(lib, stream, mask, cap, labels=None, sel=None):
+    n = mask.numel()
+    pair = [torch.zeros(n // 4096 + 8, dtype=torch.int64, device=mask.device) for _ in "ab"]
+    ids = torch.empty(cap, dtype=torch.int32, device=mask.device)
+    valid = torch.empty(cap, dtype=torch.bool, device=mask.device)
+    total = torch.empty((), dtype=torch.int32, device=mask.device)
+
+    def launch():
+        err = lib.vofod_compact(
+            mask.data_ptr(), None if labels is None else labels.data_ptr(),
+            None if sel is None else sel.data_ptr(), 0 if sel is None else sel.numel(), n, cap,
+            pair[0].data_ptr(), pair[1].data_ptr(), pair[0].numel(), ids.data_ptr(),
+            valid.data_ptr(), total.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"vofod_compact: {err}")
+        pair.reverse()
+        return ids, valid, total
+
+    return launch
+
+
+def k5a_call(lib, stream, active, fd, rot, table, pools, scalars):
+    ints = kernels._host_i32(*active.shape, *pools, fd.shape[0],
+                             0 if table is None else table.shape[0])
+    floats = kernels._host_f32(*scalars)
+    out = torch.empty(fd.shape[0], dtype=torch.float32, device=active.device)
+
+    def launch():
+        err = lib.vofod_gate_faces(active.data_ptr(), fd.data_ptr(), rot.data_ptr(),
+                                   None if table is None else table.data_ptr(), ints[1],
+                                   floats[1], out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"vofod_gate_faces: {err}")
+        return out
+
+    return launch
+
+
+def main():
+    names = sys.argv[1:] or list(VARIANTS)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    with ThreadPoolExecutor(len(names)) as pool:
+        futs = {n: pool.submit(build, n) for n in names}
+        libs = {n: f.result() for n, f in futs.items()}
+    stream = kernels._stream()
+    lut, inputs = compact_gate_inputs(cs)
+    gate = make_angular_gate(lut)
+    far = next(a for w, a in inputs.values() if w == "masked_compact" and a[1] == 2048)[0]
+    buf = torch.zeros(far.numel() + 32, dtype=torch.bool, device=far.device)
+    view = buf[7:7 + far.numel()]
+    view.copy_(far.reshape(-1))
+    inputs["k6 mask at byte 7"] = ("masked_compact", (view, 2048))
+    result = {}
+    for vn, (lib, regs) in libs.items():
+        row = {"registers": regs}
+        for case, (wrapper, a) in inputs.items():
+            if (wrapper == "masked_compact") != vn.startswith("k6"):
+                continue
+            if wrapper == "masked_compact":
+                launch = k6_call(lib, stream, a[0], a[1], *a[2:])
+                want = (masked_compact_plain(a[0], a[1]) if len(a) == 2
+                        else masked_compact_isin_plain(a[0], a[2], a[3], a[1]))
+                ok = all(torch.equal(x, y) for x, y in zip(launch(), want))
+            else:
+                launch = k5a_call(lib, stream, *a)
+                want = gate_faces_plain(gate, a[1], a[0], a[2], a[3]).reshape(-1)
+                ok = float((launch() - want).abs().max()) <= cs.K5A_TOL
+            if not ok:
+                raise AssertionError(f"probe {vn} case {case}: differs from the plain version")
+            prof = cs.device_profile(launch)
+            row[case] = dict(ms=round(cs.cuda_ms(launch), 5),
+                             device_ms=round(prof["device_ms"], 5),
+                             launches=prof["cuda_launches"], memsets=prof["memsets"])
+        result[vn] = row
+    print(json.dumps(dict(nvidia_smi=smi, variants=result)), flush=True)
+
+
+main()
+"""
+
 # runs in the tree's root; prints phase 4-exact's JSON line
 _EXACT_STEP = r"""
 import sys
@@ -668,29 +974,49 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=Path("build/ab"))
     ap.add_argument("--demote-only", action="store_true",
                     help="time only the demotion cases (a)-(f) of each run")
+    ap.add_argument("--compact-gate-only", action="store_true",
+                    help="time only K6's and K5a's calls of the sweep step in each run")
+    ap.add_argument("--variants", default="",
+                    help="then time these variants of the change's K6 and K5a ('all': every one)")
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
     args.out.mkdir(parents=True, exist_ok=True)
     runs, ok = [], True
     for i, tag in enumerate(args.order):
         tree, name = trees[tag], {"p": "parent", "c": "change"}[tag]
+        if args.compact_gate_only:
+            g, gate = _json_run(_COMPACT_GATE_CASES, tree)
+            ok = ok and g
+            print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
+            runs.append(dict(run=i, tree=name, **gate))
+            continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:
             ok = ok and d
             print(json.dumps(dict(run=i, tree=name, **demote)), flush=True)
             runs.append(dict(run=i, tree=name, **demote))
             continue
+        g, gate = _json_run(_COMPACT_GATE_CASES, tree)
         k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
-        run = dict(run=i, tree=name, kernel_times=kern, **demote, smoke_rc=s.returncode,
-                   smoke_last_line=last[0], **summarize(phases(s.stdout)))
-        ok = ok and d and k_ok and s.returncode == 0
+        run = {"run": i, "tree": name, "kernel_times": kern, **demote, **gate,  # one nvidia_smi
+               "smoke_rc": s.returncode, "smoke_last_line": last[0],
+               **summarize(phases(s.stdout))}
+        ok = ok and d and g and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}
+    if args.variants:
+        names = [] if args.variants == "all" else args.variants.split(",")
+        v = subprocess.run([sys.executable, "-c", _COMPACT_GATE_VARIANTS, *names],
+                           cwd=trees["c"], capture_output=True, text=True, timeout=900)
+        lines = v.stdout.strip().splitlines()
+        out["variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
+                           else {"error": v.stderr[-4000:]})
+        ok = ok and v.returncode == 0
     for mode, n in (("exact", args.exact_pairs), ("grid_exact", args.grid_exact_pairs)):
         if n:
             out[mode + "_pairs"], mode_ok = run_pairs(trees, mode, n)

@@ -31,7 +31,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    times and the cluster size.
    The classify stage's kernels on the same scan's classify inputs and on
    synthetic cases: K6 (the three compactions, the label-predicate form,
-   an overflow) bit-equal; K7 (the scan's queries, 256 valid queries over
+   an overflow, the far mask and the query form from views at byte
+   offsets 1, 7 and 15, a mask of more tiles than the card holds resident)
+   bit-equal, one launch and no memset a call; K7 (the scan's queries, 256 valid queries over
    a random air/unknown/ground field, a serpentine corridor capped at 8
    sweeps, 32 of the queries at S = 16 and 62) and K8 (demotion of the
    random batch) bit-equal; K9 (the scan's far list, a synthetic far set of
@@ -41,7 +43,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    chunks) integers, bools and AABB bit-equal, floats within K9_TOL (OBB
    axes up to their sign, with sign flips counted).  The other stages' kernels on the
    same scan: K5a (the scan's image, the returns only, a random image
-   under a pitched pose, a calibrated LUT) within K5A_TOL; K5b (the scan's
+   under a pitched pose, a calibrated LUT, the random image from a view at
+   byte offset 1 and a 1000-column LUT, both pooled byte by byte) within
+   K5A_TOL, one launch and no memset a call; K5b (the scan's
    window, both update rules, its_diff 1 and 2, kernel and plain version
    on separate clones of the grid) with the changed voxels bit-equal and
    the grid within K5B_TOL_REL x |score_ray|; K10 (the scan's slots, and
@@ -194,7 +198,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    matmul kernels and pads per scan, and the device's busy and idle share
    of the step (the grid paths also K15b-1's launches and device ms a
    scan, and the direct_copy launches and device-to-device memcpys beside
-   them); then the sweep path once more, to show whether the op
+   them; K6's and K5a's wrapper launches a scan, 3 and 1 on the sweep
+   path, 15 and 3 on the grid path, and never fewer than their device
+   launches); then the sweep path once more, to show whether the op
    count depends on the profiler session.
 
 The line before the last is the per-kernel JSON record (launches from the
@@ -441,6 +447,18 @@ def device_profile(fn, reps: int = 20) -> dict:
     return dict(device_ms=us["kernel"] / reps / 1e3, cuda_launches=n["kernel"] / reps,
                 memset_ms=us["memset"] / reps / 1e3, memsets=n["memset"] / reps,
                 memcpys=n["memcpy"] / reps)
+
+
+def one_launch_profile(fn, what: str) -> dict:
+    """device_profile(fn) of a kernel that must be one launch and no memset
+    a call.  A session loses the first kernels it should record (the first
+    scan's first two in phase 5, the first call's here: 19 of 20), so the
+    launches a call are its count over the calls, rounded; raises unless
+    that is 1 and no memset was seen."""
+    prof = device_profile(fn)
+    if round(prof["cuda_launches"]) != 1 or prof["memsets"] != 0:
+        raise AssertionError(f"{what}: {prof} (1 launch and 0 memsets a call)")
+    return prof
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -902,7 +920,18 @@ def _compact_cases(cfg, grid, excl, far, labels, rep_sel):
     far_labels = torch.unique(labels[far])[:6].to(torch.int32)  # one host sync, here only
     sel_far = torch.cat([far_labels, torch.full((2,), -2, dtype=torch.int32, device=dev)])
     small = dense.reshape(-1)[:1000].contiguous()
-    return [  # (name, kernel call, plain call)
+    # views of the far mask at byte offsets 1, 7 and 15 (allocations are
+    # 512-byte aligned): a scalar head and tail around the 16-byte loads
+    buf = torch.zeros(far.numel() + 64, dtype=torch.bool, device=dev)
+    views = {off: buf[off:off + far.numel()].view(grid.shape) for off in (1, 7, 15)}
+    tile, resident = kernels.compact_geometry()
+    if tile != kernels.COMPACT_TILE:  # the wrapper sizes the look-back state from its own
+        raise AssertionError(f"K6 tile {tile} bytes, kernels.COMPACT_TILE {kernels.COMPACT_TILE}")
+    past = torch.rand((resident + 37) * tile + 5, generator=g, device=dev) < 0.01
+    past_view = torch.zeros(past.numel() + 16, dtype=torch.bool, device=dev)[3:3 + past.numel()]
+    past_view.copy_(past)
+
+    cases = [  # (name, kernel call, plain call)
         ("far 2.47M->2048", lambda: masked_compact(far, cfg.max_far_voxels),
          lambda: masked_compact_plain(far, cfg.max_far_voxels)),
         ("excl 131072->4096", lambda: masked_compact(excl, 4096),
@@ -920,7 +949,20 @@ def _compact_cases(cfg, grid, excl, far, labels, rep_sel):
          lambda: masked_compact_isin_plain(dense, rnd_labels, sel, 256)),
         ("cap > n 1000->4096", lambda: masked_compact(small, 4096),
          lambda: masked_compact_plain(small, 4096)),
+        (f"past resident {past.numel()} at byte 3 ->4096",
+         lambda: masked_compact(past_view, 4096), lambda: masked_compact_plain(past_view, 4096)),
     ]
+    for off in (1, 7, 15):
+        views[off].copy_(far)
+        cases += [
+            (f"far at byte {off} 2.47M->2048",
+             lambda o=off: masked_compact(views[o], cfg.max_far_voxels),
+             lambda o=off: masked_compact_plain(views[o], cfg.max_far_voxels)),
+            (f"query at byte {off} 2.47M->256",
+             lambda o=off: masked_compact_isin(views[o], labels, sel_far, cfg.max_queries),
+             lambda o=off: masked_compact_isin_plain(views[o], labels, sel_far, cfg.max_queries)),
+        ]
+    return cases
 
 
 def synthetic_far(grid: GridSpec, n_clusters: int, seed: int):
@@ -1119,15 +1161,28 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
         k, p = kern(), plain()
         k6_err = max(k6_err, _equal(k, p, f"K6[{name}].ids K6[{name}].valid K6[{name}].total"))
         case_out[name] = dict(total=int(p[2]), ms=cuda_ms(kern), plain_ms=cuda_ms(plain))
+        # one launch and no memset a call (the step's three calls, the
+        # misaligned views, the tiles past the resident blocks)
+        if name.startswith(("far", "excl", "query isin(rep_sel)", "query at", "past")):
+            case_out[name].update(one_launch_profile(kern, f"K6[{name}]"))
     if not case_out["overflow dense 2.47M->4096"]["total"] > 4096:
         raise AssertionError("K6 overflow case did not overflow")
     main = case_out["far 2.47M->2048"]
     nv = grid.n_voxels
+    library = device_profile(lambda: torch.nonzero(far))
     out.append(dict(name="masked_compact", max_abs_err=k6_err, ms=main["ms"],
-                    plain_ms=main["plain_ms"], cases=case_out,
+                    plain_ms=main["plain_ms"], device_ms=main["device_ms"],
+                    device_ms_sweep_scan_calls=sum(case_out[c]["device_ms"] for c in (
+                        "far 2.47M->2048", "excl 131072->4096",
+                        "query isin(rep_sel) 2.47M->256")),
+                    geometry=dict(zip(("tile_bytes", "resident_blocks"),
+                                      kernels.compact_geometry())),
+                    cases=case_out,
                     bytes=nv + cfg.max_far_voxels * 5 + 4, ops=nv, library_ms=cuda_ms(
                         lambda: torch.nonzero(far)), library_call="torch.nonzero of the far mask",
-                    shapes="ms/plain_ms: the far compaction; every case bit-equal"))
+                    library_device_ms=library["device_ms"],
+                    library_launches=library["cuda_launches"],
+                    shapes="ms/plain_ms/device_ms: the far compaction; every case bit-equal"))
 
     # K7 — the scan's queries (the main path's shapes)
     qids, qvalid, qtotal = masked_compact_isin_plain(far, labels, ps.rep_sel, Q)
@@ -1323,11 +1378,20 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     rand_img = torch.as_tensor(rng.random((H, W)) < 0.7, device=dev)
     rot2 = torch.as_tensor(_rot(0.7, 0.3, -0.2), device=dev)
     ranges = torch.as_tensor(r_np.astype(np.float32).reshape(H, W), device=dev)
+    # the byte-by-byte pooling: an image view at byte offset 1, and a LUT
+    # of 1000 columns (pooled by 5, which does not divide 16)
+    shifted = torch.zeros(H * W + 16, dtype=torch.bool, device=dev)[1:1 + H * W].view(H, W)
+    shifted.copy_(rand_img)
+    lut1000 = make_lut_ouster(1000, H, np.zeros(H), np.linspace(22.5, -22.5, H), 15.806)
+    gate1000 = make_angular_gate(lut1000)
+    img1000 = torch.as_tensor(rng.random((H, 1000)) < 0.6, device=dev)
     cases = [
         ("scan", gate, torch.ones((H, W), dtype=torch.bool, device=dev), rot),
         ("returns only", gate, ranges > 0, rot),
         ("random, pitched", gate, rand_img, rot2),
         ("calibrated, random, pitched", gate_cal, rand_img, rot2),
+        ("random, pitched, at byte 1", gate, shifted, rot2),
+        (f"1000 columns pooled by {gate1000.pool_h}, pitched", gate1000, img1000, rot2),
     ]
     k5a, faces = {}, None
     for name, gt, img, R in cases:
@@ -1342,10 +1406,13 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
         if faces is None:
             faces = kf
     P = fd.shape[0]
+    k5a_dev = one_launch_profile(lambda: gate_faces(gate, fd, cases[0][2], rot), "K5a")
     out.append(dict(
         name="gate_faces", max_abs_err=max(c["max_abs"] for c in k5a.values()), tol=K5A_TOL,
-        bytes=H * W + P * (12 + 4) + 36, ops=P * (gate.n_cols * (2 + 2 * gate.n_rows) + 40),
-        library_ms=None,
+        # the image pooled, and each texel's trig and its tent support: at
+        # most 2 x 4 cells, a weight and two products each
+        bytes=H * W + P * (12 + 4) + 36, ops=H * W + P * (4 * 8 + 40),
+        library_ms=None, **k5a_dev,
         ms=cuda_ms(lambda: gate_faces(gate, fd, cases[0][2], rot)),
         plain_ms=cuda_ms(lambda: gate_faces_plain(gate, fd, cases[0][2], rot)),
         cases=k5a, shapes=f"{H}x{W} image -> {tuple(faces.shape)} faces",
@@ -3764,8 +3831,7 @@ def _device_events(prof, n: int) -> dict:
 PORT_KERNELS = (
     "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
     "sweeps_kernel", "sweep_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
-    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "count_kernel", "scan_kernel",
-    "write_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
+    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "compact_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
     "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
     "gate_faces_kernel", "ray_update_kernel", "ray_ema_grid_kernel", "detect_kernel",
@@ -3822,12 +3888,14 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     for r, p in scans[:6]:
         node.process_scan(r, None, p)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r, p in scans[6:]:
             node.process_scan(r, None, p)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    calls = kernels.launch_counts()
     ev = prof.key_averages()
     stages = {e.key: round(_dev_us(e, False) / n / 1e3, 3) for e in ev if e.key.startswith("vofod.")}
     ops = [e for e in ev if not e.key.startswith("vofod.") and _dev_us(e, True) > 0]
@@ -3848,6 +3916,21 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
                top_device_kernels=[[round(_dev_us(e, True) / n / 1e3, 3), e.count // n,
                                     e.key[:90]] for e in top],
                port_kernels_ms_per_scan=port_kernel_ms(dev_ops, n))
+    # K6 and K5a: their wrappers' launches a scan (one kernel launch each:
+    # phase 2's one_launch_profile), 3 and 1 on the sweep path, 15 and 3 on
+    # the grid path (5 compactions and a gate a shard); the profile never
+    # sees more device launches than that (it may see fewer: a session
+    # loses the first kernels of its first scan, PERF.md section 7)
+    pk = out["port_kernels_ms_per_scan"]
+    expect = {"sweep": (3, 1), "grid": (15, 3)}.get(path)
+    for i, (fn, wrapper) in enumerate((("compact_kernel", "masked_compact"),
+                                       ("gate_faces_kernel", "gate_faces"))):
+        got, want = pk.get(fn, [0.0, 0.0])[1], calls[wrapper] / n
+        out[f"{wrapper}_launches_per_scan"] = want
+        out[f"{fn}_device_launches_per_scan"] = got
+        if got > want or (expect is not None and want != expect[i]):
+            raise AssertionError(f"{path}: {wrapper} {want} launches a scan (expected "
+                                 f"{expect and expect[i]}), {got} {fn} on the device")
     if path.startswith("grid"):
         # K15b-1 (both forms are one kernel) and the device copies beside it
         for key, match in (("k15b1", "halo_exchange_kernel"), ("direct_copy", "direct_copy"),

@@ -27,8 +27,8 @@
 //      rows; neighbouring threads read neighbouring bytes of each z row,
 //      16 rows in flight.  Reads the bg and sure grids once, writes 8
 //      bytes per column.
-//   2. column prefix: one single-pass scan (decoupled look-back, Merrill &
-//      Garland 2016) of the columns' totals in export order, e = x * ny +
+//   2. column prefix: one single-pass scan (decoupled look-back,
+//      csrc/lookback.cuh) of the columns' totals in export order, e = x * ny +
 //      y, reading column y * nx + x (summed over the shards' gathered
 //      columns) and writing its exclusive prefix back at y * nx + x.  The
 //      ~0.4 MB of columns stay in L2, so its strided accesses cost L2
@@ -77,11 +77,9 @@
 // flagship) and scatters at most one atomic per occupied cell into a 9.9
 // MB bucket array; integer atomics add in any order to the same result.
 // Everything here is integer arithmetic: bit-equal to the plain versions.
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
-
-typedef unsigned long long u64;
 
 constexpr int EW_T = 256;         // elementwise passes, the columns, the walk
 constexpr int COL_T = 256;        // pass 2: threads per tile
@@ -90,16 +88,6 @@ constexpr int COL_TILE = COL_T * COL_ITEMS;
 constexpr int CELL_T = 256;       // pass 4: threads per tile
 constexpr int CELL_ITEMS = 16;    //   consecutive cells per thread
 constexpr int CELL_TILE = CELL_T * CELL_ITEMS;
-
-// a look-back status word: the flag in the top two bits, the value (a sum
-// of packed pairs whose bg count is below 2^30, or a bg count) below
-constexpr u64 ST_AGG = 1ull << 62;  // the tile's own sum
-constexpr u64 ST_PRE = 2ull << 62;  // the sum of every tile up to this one
-constexpr u64 ST_VAL = ST_AGG - 1;
-// polls of one predecessor's word before a launch gives up (__trap): a
-// predecessor took its tile first, so it runs and publishes within
-// microseconds; a hang would be a bug, and turns into an error instead
-constexpr unsigned int LOOKBACK_SPIN_MAX = 1u << 22;
 
 // ---------------------------------------------------------------- K13a
 
@@ -177,59 +165,6 @@ __device__ __forceinline__ unsigned int coarse_count(const QuirkGrid& q, long lo
     }
   }
   return s;
-}
-
-// The look-back state of one single-pass scan: word 0 hands out the tile
-// ids in the order the blocks start (so every tile's predecessors have
-// started: forward progress whatever the number of resident blocks), then
-// one status word per tile.  All zero before the launch.
-__device__ __forceinline__ int take_tile(u64* state, int* s_tile) {
-  if (threadIdx.x == 0) *s_tile = (int)atomicAdd(state, 1ull);
-  __syncthreads();
-  return *s_tile;
-}
-
-__device__ __forceinline__ u64 poll(const u64* word) {
-  const volatile u64* w = word;
-  u64 v = *w;
-  for (unsigned int k = 0; v == 0; v = *w) {
-    if (++k == LOOKBACK_SPIN_MAX) __trap();
-    __nanosleep(32);
-  }
-  return v;
-}
-
-// The sum of every tile before `tile` (decoupled look-back): warp 0
-// publishes the tile's aggregate, sums its predecessors' words 32 at a
-// time back to the nearest one holding an inclusive prefix, and publishes
-// its own inclusive prefix.  Each word holds flag and value together (one
-// 64-bit store), so no fence orders them.  Called by every thread;
-// returns the sum to every thread through *s_excl.
-__device__ __forceinline__ u64 look_back(u64* status, int tile, u64 agg, u64* s_excl) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    u64 excl = 0;
-    if (tile == 0) {
-      if (lane == 0) *(volatile u64*)status = ST_PRE | agg;
-    } else {
-      if (lane == 0) *(volatile u64*)(status + tile) = ST_AGG | agg;
-      for (int last = tile - 1;; last -= 32) {
-        const int p = last - lane;  // tile 0 holds a prefix: the window stops there
-        const u64 w = p >= 0 ? poll(status + p) : ST_PRE;
-        const unsigned int pre = __ballot_sync(0xffffffffu, (w & ~ST_VAL) == ST_PRE);
-        const int stop = pre ? __ffs(pre) - 1 : 31;
-        u64 v = lane <= stop ? (w & ST_VAL) : 0;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        excl += v;
-        if (pre) break;
-      }
-      if (lane == 0) *(volatile u64*)(status + tile) = ST_PRE | (excl + agg);
-    }
-    if (lane == 0) *s_excl = excl;
-  }
-  __syncthreads();
-  return *s_excl;
 }
 
 // Pass 1: each (y, x) column's pair summed over the grid's (slab's) rows;

@@ -142,11 +142,9 @@ inline dim3 tile_grid(int nz, int ny, int nx) {
 
 // Exclusive block-wide prefix sum of v (blockDim.x a multiple of 32, at most
 // 1024 threads); the block total through *total.  warp_s: shared memory of
-// blockDim.x / 32 elements.  K6's device-wide scan (csrc/compact.cu) is
-// built from it: a count pass of block totals, one block that scans them
-// (scan_block_totals), a write pass that rescans each block from its
-// offset.  K13b's and K15b-6b's single-pass scans (csrc/census.cu) scan
-// each tile with it and add the tiles before by decoupled look-back.
+// blockDim.x / 32 elements.  The single-pass scans of K6 (csrc/compact.cu)
+// and of K13b and K15b-6b (csrc/census.cu) scan each tile with it and add
+// the tiles before by decoupled look-back (csrc/lookback.cuh).
 template <typename T>
 __device__ __forceinline__ T block_excl_scan(T v, T* warp_s, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -167,20 +165,4 @@ __device__ __forceinline__ T block_excl_scan(T v, T* warp_s, T* total) {
   __syncthreads();
   *total = all;
   return before + incl - v;
-}
-
-// Exclusive prefix of the nb block totals into block_off, by one block;
-// returns the grand total to every thread.
-template <typename T>
-__device__ __forceinline__ T scan_block_totals(const T* __restrict__ block_tot,
-                                               T* __restrict__ block_off, int nb, T* warp_s) {
-  T carry = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    T tile;
-    const T excl = block_excl_scan<T>(i < nb ? block_tot[i] : (T)0, warp_s, &tile);
-    if (i < nb) block_off[i] = carry + excl;
-    carry += tile;
-  }
-  return carry;
 }

@@ -36,7 +36,7 @@ _BUILD_DIR = _PKG.parent / "build" / "vofod_tpu_torch"
 _SOURCES = ("ball_pool.cu", "propagate.cu", "frontend_bin.cu", "cone_sweep.cu",
             "compact.cu", "explore.cu", "classify_stats.cu", "ray_gate.cu", "ray_update.cu",
             "detect.cu", "ema.cu", "dda.cu", "census.cu", "unpack.cu", "halo.cu")
-_HEADERS = ("common.cuh", "ball_pool.cuh")
+_HEADERS = ("common.cuh", "ball_pool.cuh", "lookback.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -196,7 +196,8 @@ def load():
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
-        lib.vofod_compact.argtypes = [_P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P]
+        lib.vofod_compact.argtypes = [_P, _P, _P, _I, _LL, _I, _P, _P, _LL, _P, _P, _P, _P]
+        lib.vofod_compact_geometry.argtypes = [_P]
         lib.vofod_explore.argtypes = [
             _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
         lib.vofod_demote.argtypes = [
@@ -239,6 +240,7 @@ def load():
                                             _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep, lib.vofod_propagate_sweeps,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
+                   lib.vofod_compact_geometry,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
                    lib.vofod_cluster_stats,
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
@@ -467,14 +469,45 @@ def cone_sweep(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
     return T
 
 
-_COMPACT_CHUNK = 4096  # elements per block of csrc/compact.cu
+# K6's schedule (csrc/compact.cu CT, VEC): threads a tile, 16-byte chunks a
+# thread, and so mask bytes a tile (its TILE, which compact_geometry reads)
+COMPACT_THREADS, COMPACT_VEC = 256, 4
+COMPACT_TILE = COMPACT_THREADS * COMPACT_VEC * 16
+# K6's look-back state (csrc/compact.cu): per (device, stream), two zeroed
+# int64 buffers of [1 + tiles] words and the one the next launch uses; each
+# launch zeroes the other for the launch after it.  The lock keeps two host
+# threads launching on one stream from taking the same buffer.  The pair
+# assumes eager launches: a captured CUDA graph replays one buffer order,
+# so capturing K6 needs an epoch-tagged state or a last-tile clear.
+_compact_state: dict[tuple[int, int], list] = {}
+_compact_lock = threading.Lock()
+
+
+def _compact_state_for(dev: torch.device, stream: int, tiles: int) -> list:
+    key = (dev.index, stream)
+    st = _compact_state.get(key)
+    if st is None or st[0].numel() < tiles + 1:
+        # zeroed here only: the launches on this stream keep them zero
+        words = max(tiles + 1, 512)
+        st = [torch.zeros(words, dtype=torch.int64, device=dev),
+              torch.zeros(words, dtype=torch.int64, device=dev), 0]
+        _compact_state[key] = st
+    return st
+
+
+def compact_geometry() -> tuple[int, int]:
+    """K6's (mask bytes per tile, blocks the current card holds resident)."""
+    out = (ctypes.c_int * 2)()
+    _check(load().vofod_compact_geometry(out), "vofod_compact_geometry")
+    return out[0], out[1]
 
 
 def masked_compact(mask: torch.Tensor, capacity: int, labels: torch.Tensor | None = None,
                    sel: torch.Tensor | None = None):
     """K6: (ids int32 [capacity], valid bool [capacity], total int32 scalar)
     of the set elements of ``mask`` — or, with ``labels`` and ``sel``, of
-    ``mask & isin(labels, sel)`` (``sel``: int32, at most 32 values)."""
+    ``mask & isin(labels, sel)`` (``sel``: int32, at most 32 values).  One
+    launch."""
     lib = load()
     _require(mask, "compact mask", torch.bool)
     n = mask.numel()
@@ -490,15 +523,20 @@ def masked_compact(mask: torch.Tensor, capacity: int, labels: torch.Tensor | Non
             raise ValueError(f"compact sel takes 1-32 labels, got {nsel}")
         lab_ptr, sel_ptr = labels.data_ptr(), sel.data_ptr()
     dev = mask.device
-    nb = -(-n // _COMPACT_CHUNK)
-    scratch = torch.empty(2 * nb, dtype=torch.int32, device=dev)
+    stream = _stream()
+    ptr = mask.data_ptr()
+    # three allocations cost the host less than one carved into three views
     ids = torch.empty(capacity, dtype=torch.int32, device=dev)
     valid = torch.empty(capacity, dtype=torch.bool, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    err = lib.vofod_compact(
-        mask.data_ptr(), lab_ptr, sel_ptr, nsel, n, capacity, scratch.data_ptr(),
-        ids.data_ptr(), valid.data_ptr(), total.data_ptr(), _stream())
-    _check(err, "vofod_compact")
+    with _compact_lock:
+        st = _compact_state_for(dev, stream, -(-(n + ptr % 16) // COMPACT_TILE))
+        use, other = st[st[2]], st[1 - st[2]]
+        err = lib.vofod_compact(
+            ptr, lab_ptr, sel_ptr, nsel, n, capacity, use.data_ptr(), other.data_ptr(),
+            use.numel(), ids.data_ptr(), valid.data_ptr(), total.data_ptr(), stream)
+        _check(err, "vofod_compact")
+        st[2] ^= 1  # launched: it zeroes `other`, which the next launch uses
     _count("masked_compact")
     return ids, valid, total
 

@@ -205,14 +205,11 @@ def _gate_scalars(gate: AngularGate) -> np.ndarray:
     ], np.float32)
 
 
-def gate_faces_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
-                     rot_s2w: Tensor, table: Tensor | None = None) -> Tensor:
-    """Plain version of K5a (vofod_tpu/ops/raycast.py gate_faces), with
-    every rounding step fixed so that csrc/ray_gate.cu reproduces it: the
-    sensor-frame directions as ((d0 R0j + d1 R1j) + d2 R2j), division by a
-    constant as a multiply by its float32 reciprocal, the azimuth-weight
-    sum and the column products summed in ascending column order.  The row
-    tent has at most two nonzero taps, so its sum is exact in any order."""
+def _gate_coords(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor, rot_s2w: Tensor,
+                 table: Tensor | None) -> tuple[Tensor, Tensor, Tensor]:
+    """K5a's pooled grid G [n_rows, n_cols] and each texel's continuous
+    pooled row g_r and column g_c [P], rounded as csrc/ray_gate.cu rounds
+    them."""
     if table is None and gate.el_rows is not None:
         table = row_table(gate, active_hw.device)
     cnt = (
@@ -232,17 +229,34 @@ def gate_faces_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
         ((az - _f32(gate.az_b)) * _inv(gate.az_a) + 0.5) * _inv(gate.pool_h) - 0.5,
         _f32(gate.col_period),
     )
+    return G, g_r, g_c
+
+
+def _col_weight(g_c: Tensor, P: float, kc: Tensor) -> Tensor:
+    """The circular column tent of pooled columns ``kc`` at ``g_c``
+    (broadcast), as csrc/ray_gate.cu col_weight."""
+    dwrap = torch.minimum(
+        torch.abs(g_c - kc),
+        torch.minimum(torch.abs((g_c - P) - kc), torch.abs((g_c + P) - kc)),
+    )
+    return torch.clamp(1.0 - dwrap, min=0.0)
+
+
+def gate_faces_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
+                     rot_s2w: Tensor, table: Tensor | None = None) -> Tensor:
+    """Plain version of K5a (vofod_tpu/ops/raycast.py gate_faces), with
+    every rounding step fixed so that csrc/ray_gate.cu reproduces it: the
+    sensor-frame directions as ((d0 R0j + d1 R1j) + d2 R2j), division by a
+    constant as a multiply by its float32 reciprocal, the azimuth-weight
+    sum and the column products summed in ascending column order.  The row
+    tent has at most two nonzero taps, so its sum is exact in any order."""
+    G, g_r, g_c = _gate_coords(gate, face_dirs, active_hw, rot_s2w, table)
     dev = active_hw.device
     P = _f32(gate.col_period)
     kr = torch.arange(gate.n_rows, dtype=torch.float32, device=dev)
     kc = torch.arange(gate.n_cols, dtype=torch.float32, device=dev)
     w_r = torch.clamp(1.0 - torch.abs(g_r[:, None] - kr[None, :]), min=0.0)
-    dwrap = torch.minimum(
-        torch.abs(g_c[:, None] - kc[None, :]),
-        torch.minimum(torch.abs((g_c - P)[:, None] - kc[None, :]),
-                      torch.abs((g_c + P)[:, None] - kc[None, :])),
-    )
-    w_c = torch.clamp(1.0 - dwrap, min=0.0)  # [P, H']
+    w_c = _col_weight(g_c[:, None], P, kc[None, :])  # [P, H']
     w_sum = torch.zeros_like(g_c)
     for c in range(gate.n_cols):
         w_sum = w_sum + w_c[:, c]
@@ -251,6 +265,52 @@ def gate_faces_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
     for c in range(gate.n_cols):
         inner = inner + w_c[:, c:c + 1] * G[:, c][None, :]
     vals = torch.sum(w_r * inner, dim=-1)  # [P]
+    F_ = gate.face_dirs.shape[1]
+    return vals.reshape(6, F_, F_)
+
+
+def gate_tent_support(gate: AngularGate, g_c: Tensor) -> tuple[Tensor, Tensor]:
+    """The support of each texel's column tent as csrc/ray_gate.cu walks
+    it: (cols int64 [P, 6] ascending, first bool [P, 6]) — the columns
+    floor(c) and floor(c) + 1 of c = g_c - period, g_c, g_c + period (as the
+    tent rounds them) inside [0, n_cols), sorted, ``first`` marking each
+    distinct column once (False at duplicates and outside the range)."""
+    P = _f32(gate.col_period)
+    cand = []
+    for centre in (g_c - P, g_c, g_c + P):
+        fc = torch.floor(centre)
+        for k in (0.0, 1.0):
+            kc = fc + k
+            inside = (kc >= 0.0) & (kc <= float(gate.n_cols - 1))
+            cand.append(torch.where(inside, kc, float("inf")))
+    cols = torch.sort(torch.stack(cand, 1), dim=1).values  # [P, 6], inf last
+    first = torch.isfinite(cols)
+    first[:, 1:] &= cols[:, 1:] != cols[:, :-1]
+    return torch.where(first, cols, 0.0).to(torch.int64), first
+
+
+def gate_faces_support_plain(gate: AngularGate, face_dirs: Tensor, active_hw: Tensor,
+                             rot_s2w: Tensor, table: Tensor | None = None) -> Tensor:
+    """Plain model of K5a's support walk (csrc/ray_gate.cu): the weight sum
+    and the column products over :func:`gate_tent_support` alone, in its
+    ascending order, skipping zero weights as the kernel does.  Bit-equal
+    to :func:`gate_faces_plain`: off the support every weight is +0."""
+    G, g_r, g_c = _gate_coords(gate, face_dirs, active_hw, rot_s2w, table)
+    dev = active_hw.device
+    P = _f32(gate.col_period)
+    cols, first = gate_tent_support(gate, g_c)
+    w = _col_weight(g_c[:, None], P, cols.to(torch.float32))  # [P, 6]
+    w_sum = torch.zeros_like(g_c)
+    for i in range(6):
+        w_sum = torch.where(first[:, i], w_sum + w[:, i], w_sum)
+    wn = w / torch.clamp(w_sum, min=1e-6)[:, None]
+    inner = torch.zeros((g_c.shape[0], gate.n_rows), dtype=torch.float32, device=dev)
+    for i in range(6):
+        add = (first[:, i] & (w[:, i] > 0.0))[:, None]
+        inner = torch.where(add, inner + wn[:, i:i + 1] * G[:, cols[:, i]].T, inner)
+    kr = torch.arange(gate.n_rows, dtype=torch.float32, device=dev)
+    w_r = torch.clamp(1.0 - torch.abs(g_r[:, None] - kr[None, :]), min=0.0)
+    vals = torch.sum(w_r * inner, dim=-1)
     F_ = gate.face_dirs.shape[1]
     return vals.reshape(6, F_, F_)
 
