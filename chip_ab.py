@@ -3,7 +3,7 @@
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
-                       [--variants all|NAME,...] [--out build/ab]
+                       [--explore-only] [--variants all|NAME,...] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -59,6 +59,15 @@ call:
   K5a's block size and cluster size, clusters of one pooling the whole
   image) and times them on the same calls (``_COMPACT_GATE_VARIANTS``).
 
+- K7 and K8 on the inputs the steps pass them (the wrappers' calls on the
+  7th to 11th scans of a fresh node, the scans the smoke's phase 5
+  profiles: K7 and K8 of the sweep step, K7 of the exact step), each
+  checked against its plain version (bit-equal: K7's outputs; K8's grid,
+  count and, where K8 gives it, cluster_connected), with its device ms,
+  launches and other device ops (a fill, a memset) a call, the wrapper's
+  host us a call over 1,000 calls with no sync, and the means over the
+  five scans.  ``--explore-only`` runs these cases alone.
+
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
 device ms and launches a scan) and of the grid and grid-exact paths
@@ -66,7 +75,8 @@ device ms and launches a scan) and of the grid and grid-exact paths
 kernels and device-to-device memcpys, the busy ms), each from a fresh node after the
 apriori plane and 6 warm-up scans, as chip_smoke phase 5 does.  Then it
 runs that tree's ``chip_smoke.py`` in full (its log under ``--out``).  One
-JSON line per run, then a summary line of every run: those figures and,
+JSON line per run, then a summary line of every run (also written to
+``--out``/summary.json): those figures and,
 from the smoke, the step p50 / p95 of the sweep, prebinned, dynamic, exact
 and grid-exact paths (phases 4-*) with every profiled path's device busy
 ms, idle share and each port kernel's device ms and launches a scan
@@ -857,6 +867,152 @@ cs.phase4_grid(cs.make_lut(cs.VoFODConfig().sensor), "exact")
 """
 
 HALO_CASES = ("inplace_int32_r3", "inplace_uint8_r2", "f32_r16")
+# The inputs of K7 and K8 as the step passes them (the wrappers' calls on
+# the 7th to 11th scans of a fresh node after the apriori plane: the scans
+# chip_smoke's phase 5 profiles; the sweep path's 7th has no valid query),
+# the head of the script below: explore_inputs(cs, lut, cfg, opts) ->
+# [(kernels.explore args, kernels.demote_ args)], a pair a scan
+EXPLORE_INPUTS = r"""
+import torch
+
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.runtime.node import VoFOD
+
+
+def explore_inputs(cs, lut, cfg, opts, first=7, n=5):
+    node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    scans = cs.scan_cycle(lut, first - 1 + n)
+    for r, p in scans[:first - 1]:
+        node.process_scan(r, None, p)
+    names = ("explore", "demote_")
+    orig, got, out = {k: getattr(kernels, k) for k in names}, {}, []
+
+    def recorder(name):
+        def record(*a):
+            # K8's corners stay K7's own tensor: on a tree whose K8 adds to a
+            # count beside them, their allocation holds it
+            got[name] = tuple(x if name == "demote_" and i == 2 else
+                              x.clone() if isinstance(x, torch.Tensor) else x
+                              for i, x in enumerate(a))
+            return orig[name](*a)
+        return record
+
+    for k in names:
+        setattr(kernels, k, recorder(k))
+    try:
+        for r, p in scans[first - 1:]:
+            node.process_scan(r, None, p)
+            torch.cuda.synchronize()
+            out.append((got.get("explore"), got.get("demote_")))
+    finally:
+        for k in names:
+            setattr(kernels, k, orig[k])
+    return out
+"""
+
+# runs in the tree's root; prints one JSON line: K7's and K8's calls of the
+# sweep step's scans 7-11 and K7's of the exact step's, each checked against
+# its plain version (bit-equal; K8 on a fresh copy of its grid every call,
+# its count and, on a tree whose K8 gives it, cluster_connected), with the
+# device ms, launches, other device ops (fills, memsets) a call of each
+# kernel (torch.profiler; K8's grid copy not counted) and the wrapper's
+# host us a call over 1,000 calls with no sync; the means over the five
+# scans
+_EXPLORE_CASES = EXPLORE_INPUTS + r"""
+import json
+import subprocess
+import sys
+import time
+
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.ops.explore import demote_floating_plain, explore_plain
+from vofod_tpu_torch.runtime.node import NodeOptions
+
+
+def host_us(fn, n=1000):
+    # host microseconds a call over n calls with no sync, after 50
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(dt, 3)
+
+
+def profiled(fn, match, reps=20):
+    # device ms and launches a call of the kernels named ``match``, and the
+    # other device ops a call but memcpys (a fill kernel, a memset)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in ev if match in e.name]
+        if mine:
+            break
+    us = sum(float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)) for e in mine)
+    other = [e for e in ev if match not in e.name and "memcpy" not in e.name.lower()]
+    return dict(device_ms=round(us / reps / 1e3, 5), launches=len(mine) / reps,
+                other_ops=len(other) / reps,
+                memsets=sum("memset" in e.name.lower() for e in ev) / reps)
+
+
+lut = cs.make_lut(cs.VoFODConfig().sensor)
+grid = GridSpec.from_config(cs.VoFODConfig())
+count = getattr(kernels, "demote_count", None)  # K8's count beside K7's corners
+cases = {}
+for path, cfg, opts in (("sweep", cs.VoFODConfig(), NodeOptions()),
+                        ("exact", cs.exact_config(), NodeOptions(raycast_mode="exact"))):
+    for i, (k7, k8) in enumerate(explore_inputs(cs, lut, cfg, opts)):
+        fn7 = lambda a=k7: kernels.explore(*a)
+        want = explore_plain(grid, *k7)
+        if not all(torch.equal(x, y) for x, y in zip(fn7(), want)):
+            raise AssertionError(f"K7 {path} scan {7 + i}: differs from explore_plain")
+        row = dict(valid_queries=int(k7[4].sum()), connected=int(want[0].sum()),
+                   k7=dict(**profiled(fn7, "explore"), host_us=host_us(fn7)))
+        if path == "sweep":
+            vmap, work = k8[0], k8[0].clone()
+            a8 = (work,) + k8[1:]
+
+            def fn8(a8=a8, vmap=vmap, work=work):
+                work.copy_(vmap)  # a fresh grid every call: every demotion stores
+                return kernels.demote_(*a8)
+
+            if count is not None:
+                count(k8[2]).zero_()
+            got = fn8()
+            got = got if isinstance(got, tuple) else (got,)
+            want = demote_floating_plain(*k8)
+            if not (torch.equal(work, want[0]) and all(
+                    torch.equal(x, y) for x, y in zip(got, want[1:]))):
+                raise AssertionError(f"K8 sweep scan {7 + i}: differs from its plain version")
+            row.update(demotion_writes=int(want[1]),
+                       k8=dict(**profiled(fn8, "demote_kernel"),
+                               host_us=host_us(lambda a8=a8: kernels.demote_(*a8))))
+        cases[f"{path} scan {7 + i}"] = row
+means = {}
+for path, k in (("sweep", "k7"), ("exact", "k7"), ("sweep", "k8")):
+    rows = [r[k] for c, r in cases.items() if c.startswith(path)]
+    means[f"{path} {k}"] = {m: round(sum(r[m] for r in rows) / len(rows), 5)
+                            for m in ("device_ms", "launches", "other_ops", "memsets", "host_us")}
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, explore_cases=cases, explore_means=means)))
+"""
+
 PAIR_MODES = {"exact": (_EXACT_STEP, "4-exact", "dense"),
               "grid_exact": (_GRID_EXACT_STEP, "4-grid-exact", "grid")}
 
@@ -976,6 +1132,8 @@ def main() -> int:
                     help="time only the demotion cases (a)-(f) of each run")
     ap.add_argument("--compact-gate-only", action="store_true",
                     help="time only K6's and K5a's calls of the sweep step in each run")
+    ap.add_argument("--explore-only", action="store_true",
+                    help="time only K7's and K8's calls of the sweep and exact steps in each run")
     ap.add_argument("--variants", default="",
                     help="then time these variants of the change's K6 and K5a ('all': every one)")
     args = ap.parse_args()
@@ -984,11 +1142,14 @@ def main() -> int:
     runs, ok = [], True
     for i, tag in enumerate(args.order):
         tree, name = trees[tag], {"p": "parent", "c": "change"}[tag]
-        if args.compact_gate_only:
-            g, gate = _json_run(_COMPACT_GATE_CASES, tree)
-            ok = ok and g
-            print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
-            runs.append(dict(run=i, tree=name, **gate))
+        for flag, script in ((args.compact_gate_only, _COMPACT_GATE_CASES),
+                             (args.explore_only, _EXPLORE_CASES)):
+            if flag:
+                g, gate = _json_run(script, tree)
+                ok = ok and g
+                print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
+                runs.append(dict(run=i, tree=name, **gate))
+        if args.compact_gate_only or args.explore_only:
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:
@@ -997,15 +1158,16 @@ def main() -> int:
             runs.append(dict(run=i, tree=name, **demote))
             continue
         g, gate = _json_run(_COMPACT_GATE_CASES, tree)
+        e, expl = _json_run(_EXPLORE_CASES, tree)
         k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
-        run = {"run": i, "tree": name, "kernel_times": kern, **demote, **gate,  # one nvidia_smi
+        run = {"run": i, "tree": name, "kernel_times": kern, **demote, **gate, **expl,  # one nvidia_smi
                "smoke_rc": s.returncode, "smoke_last_line": last[0],
                **summarize(phases(s.stdout))}
-        ok = ok and d and g and k_ok and s.returncode == 0
+        ok = ok and d and g and e and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}
@@ -1023,6 +1185,8 @@ def main() -> int:
             ok = ok and mode_ok
     out["ok"] = ok
     print(json.dumps(out), flush=True)
+    # the whole line under --out too: a log's end may not hold it
+    (args.out / "summary.json").write_text(json.dumps(out))
     return 0 if ok else 1
 
 

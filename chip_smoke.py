@@ -245,8 +245,8 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
     label_components_seeded, sweep_plain, sweeps, sweeps_plain, sweeps_tiled_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
-    explore_cut_plain, explore_plain, explore_sequential_, explore_sequential_plain,
-    explore_sequential_stack_plain)
+    explore_cut_plain, explore_plain, explore_planes_plain, explore_sequential_,
+    explore_sequential_plain, explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     Shells, ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps,
     run_table, shell_pool, shell_taps, tap_pool_plain, tap_set)
@@ -1193,6 +1193,8 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     scan_q = (grid, bg.grid, qx, qy, qz, qvalid, m_q, thr_f, thr_g, S)
     k7_err = _equal(explore(*scan_q), explore_plain(*scan_q), "K7.connected K7.reached K7.corners")
     k7_ms, k7_plain = cuda_ms(lambda: explore(*scan_q)), cuda_ms(lambda: explore_plain(*scan_q))
+    # the Jacobi sweeps of the slowest valid query (K7's plain model)
+    scan_sweeps = int(explore_planes_plain(*scan_q)[3].max())
 
     # K7 — 256 valid queries over a random field; K8 demotes their patches
     field = _random_field(grid, dyn, 7, dev)
@@ -1207,12 +1209,21 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     kc, kr, kco = explore(*syn_q)
     k7_err = max(k7_err, _equal((kc, kr, kco), explore_plain(*syn_q),
                                 "K7s.connected K7s.reached K7s.corners"))
+    syn_sweeps = explore_planes_plain(*syn_q)[3]
     for side in (16, 62):  # the golden side, and 64-bit rows past 48 KB of shared memory
         q32 = (grid, field, *(t[:32] for t in rq), rvalid[:32], rmm[:32] + side // 4, thr_f,
                thr_g, side)
         k7_err = max(k7_err, _equal(explore(*q32), explore_plain(*q32),
                                     f"K7[S={side}].connected K7[S={side}].reached "
                                     f"K7[S={side}].corners"))
+    # the grid path's call: shard 1 of 3's slab extended by the explore pad
+    # (its z window), the random queries it owns
+    nzl, pad = grid.nz // GRID_SHARDS, S // 2
+    ext = _global_ext(field, nzl, nzl, pad, -1e30)
+    own = rvalid & (rq[2] >= nzl) & (rq[2] < 2 * nzl)
+    slab_q = (grid, ext, *rq, own, rmm, thr_f, thr_g, S, 96, (nzl - pad, grid.nz))
+    k7_err = max(k7_err, _equal(explore(*slab_q), explore_plain(*slab_q),
+                                "K7[slab].connected K7[slab].reached K7[slab].corners"))
     syn_ms = cuda_ms(lambda: explore(*syn_q))
     syn_plain = cuda_ms(lambda: explore_plain(*syn_q))
 
@@ -1235,8 +1246,12 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
         # each valid query's S^3 submap in, its reached rows out
         bytes=n_q * S**3 * 4 + Q * (4 * 4 + 1) + Q * S * S * 8 + Q * 13,
         ops=n_q * S**3 * 7, library_ms=None,
-        scan_valid_queries=int(qvalid.sum()), synthetic_ms=syn_ms, synthetic_plain_ms=syn_plain,
-        synthetic_connected=int(kc.sum()), serpentine_reached_capped=n_capped,
+        device=one_launch_profile(lambda: explore(*scan_q), "K7"),
+        scan_valid_queries=int(qvalid.sum()), scan_max_sweeps=scan_sweeps,
+        synthetic_ms=syn_ms, synthetic_plain_ms=syn_plain,
+        synthetic_connected=int(kc.sum()), synthetic_max_sweeps=int(syn_sweeps.max()),
+        synthetic_mean_sweeps=float(syn_sweeps.float().mean()),
+        slab_valid_queries=int(own.sum()), serpentine_reached_capped=n_capped,
         serpentine_reached_free=n_free,
         shapes=f"Q={Q}, S={S}; ms/plain_ms: the scan's queries; synthetic: 256 valid queries",
     ))
@@ -1248,11 +1263,17 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
     gate = torch.ones(K, dtype=torch.bool, device=dev)
     no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
     dem = (kr, kco, sslot, kc, rvalid, gate, no_ovf, thr_f)
-    pg, pn = demote_floating_plain(field, *dem)
-    kg, kn = demote_floating(field.clone(), *dem)
-    k8_err = _equal((kg, kn), (pg, pn), "K8.grid K8.n_writes")
+    pg, pn, pcc = demote_floating_plain(field, *dem)
+    kg, kn, kcc = demote_floating(field.clone(), *dem)  # the count K7's launch zeroed
+    k8_err = _equal((kg, kn, kcc), (pg, pn, pcc), "K8.grid K8.n_writes K8.cluster_connected")
     if int(pn) == 0:
         raise AssertionError("K8: the synthetic batch demoted nothing")
+    # under query overflow: nothing demotes, cluster_connected still written
+    kernels.demote_count(kco).zero_()
+    ovf = torch.ones((), dtype=torch.bool, device=dev)
+    k8_err = max(k8_err, _equal(demote_floating(field.clone(), *dem[:6], ovf, thr_f),
+                                demote_floating_plain(field, *dem[:6], ovf, thr_f),
+                                "K8o.grid K8o.n_writes K8o.cluster_connected"))
     work = field.clone()
     out.append(dict(
         name="demote", max_abs_err=k8_err,
@@ -1260,7 +1281,10 @@ def phase2_classify(cfg, dyn, grid, vals, k3, prev_bg, pose) -> list[dict]:
         library_ms=None,
         ms=cuda_ms(lambda: demote_floating(work, *dem)),
         plain_ms=cuda_ms(lambda: demote_floating_plain(field, *dem)),
+        # one launch and no fill or memset a call
+        device=one_launch_profile(lambda: demote_floating(work, *dem), "K8"),
         demotion_writes=int(pn), demoted_voxels=int((pg != field).sum()),
+        connected_slots=int(pcc.sum()),
         shapes=f"Q={Q}, S={S}, random batch, {int((~kc).sum())} unconnected queries",
     ))
     return out
@@ -3831,7 +3855,8 @@ def _device_events(prof, n: int) -> dict:
 PORT_KERNELS = (
     "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
     "sweeps_kernel", "sweep_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
-    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "compact_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
+    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "compact_kernel",
+    "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
     "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
     "gate_faces_kernel", "ray_update_kernel", "ray_ema_grid_kernel", "detect_kernel",

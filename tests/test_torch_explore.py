@@ -166,13 +166,14 @@ def test_demotions_overlapping_patches(seed):
         demote = qvalid & np.any(qslot & floating[None, :], axis=1)
         want = np.asarray(j_apply(jnp.asarray(vals), jnp.asarray(reached), jnp.asarray(corners),
                                   jnp.asarray(demote), jnp.float32(FRONT)))
-        got, n = demote_floating_plain(
+        got, n, conn = demote_floating_plain(
             torch.from_numpy(vals), torch.from_numpy(_pack(reached)), torch.from_numpy(corners),
             torch.from_numpy(qslot), torch.from_numpy(connected), torch.from_numpy(qvalid),
             torch.from_numpy(qgate), torch.tensor(bool(overflow)), FRONT,
         )
         assert np.array_equal(got.numpy(), want)
         assert int(n) == _writes(reached, corners, demote, shape)
+        assert np.array_equal(conn.numpy(), cc)
         got_bool = apply_demotions(torch.from_numpy(vals), torch.from_numpy(reached),
                                    torch.from_numpy(corners), torch.from_numpy(demote), FRONT)
         assert np.array_equal(got_bool.numpy(), want)

@@ -371,10 +371,11 @@ def test_demote_spans_shard_boundaries(mesh, comm):
     ops = ZShardOps(comm, N)
     slabs = _shards(vals)
     out = comm.run(lambda rank: ops.demote(slabs[rank], *args))
-    got = torch.cat([g for g, _ in out]).numpy()
+    got = torch.cat([g for g, _, _ in out]).numpy()
     np.testing.assert_array_equal(got, want)
-    _, n_dense = DENSE.demote(torch.from_numpy(vals), *args)
-    assert all(int(n) == int(n_dense) > 0 for _, n in out)
+    _, n_dense, conn_dense = DENSE.demote(torch.from_numpy(vals), *args)
+    assert all(int(n) == int(n_dense) > 0 for _, n, _ in out)
+    assert all(torch.equal(c, conn_dense) and not c.any() for _, _, c in out)
     assert len(np.unique(np.nonzero(got != vals)[0] // 4)) >= 4  # landed past the owners
 
 

@@ -10,34 +10,45 @@
 // of vofod_tpu/pipeline/classify.py:188-194: the explored unknown voxels of
 // a query whose cluster floats are written down to the frontiers score.
 //
-// Bound on the H100: latency.  The work is tiny (256 queries x 32^3 voxels,
-// 32 MB of grid reads at most) but the BFS is a chain of up to 96
-// dependent sweeps; as plain PyTorch every sweep was ~12 launches over
-// [Q, S, S] words.  Here one block runs one query's whole BFS in shared
-// memory (bfs_block):
-//  - the submap is read straight from the grid, one warp per x-row (a
-//    coalesced 128-byte row at S = 32); a voxel outside the grid reads
-//    -1e30, certain air, so the whole-grid pad of the JAX version is gone;
-//  - expandable (unknown & ball), ground and reached live bit-packed, one
-//    word per (z, y) row (32-bit words for S <= 32: 4 KB a mask; 64-bit for
-//    S <= 62); the Manhattan ball and shell of a row are bit ranges
-//    computed from the row's offset, never stored;
-//  - the sweeps are Jacobi, like the JAX while_loop: two reached buffers,
-//    and __syncthreads_or on "changed" ends the loop at the fixpoint or
-//    after max_iters.  An in-place update would advance more than one voxel
-//    per sweep and differ whenever max_iters binds;
-//  - an invalid query's block writes empty outputs and returns.
-// Reached leaves the kernel as packed int64 rows [Q, S, S] (bit x of row
-// (z, y)), 2 MB at the flagship shape instead of an 8.4 MB bool tensor.
+// Bound on the H100: latency.  The work is tiny (a few valid queries of
+// 256 x 32^3 voxels; the flagship grid, 9.9 MB, sits in L2), so a query's
+// time is its chain of dependent steps.  K7 at S <= 32
+// (explore_planes_kernel) is one block of 8 warps a query:
+//  - the load keeps many rows in flight: a warp owns 4 z planes and starts
+//    16 rows' loads (128 coalesced bytes each) before their ballots, so a
+//    warp waits 8 L2 round trips for its 128 rows, not 128 (4-byte cp.async
+//    copies into shared memory measured slower; a TMA box cannot take it: a
+//    tensor map's strides must be multiples of 16 bytes, the flagship row is
+//    241 x 4 = 964); a voxel outside the grid, or outside the buffer's z
+//    rows [z_lo, z_lo + nz) on the grid-sharded step, reads as certain air;
+//  - the masks live in registers, bit-packed: lane y holds the 32-bit word
+//    of row (z, y) of each of its warp's planes (expandable = unknown &
+//    ball, ground, reached); the Manhattan ball and shell of a row are bit
+//    ranges computed from the row's offset, never stored;
+//  - the sweeps are Jacobi, like the JAX while_loop: a level builds every
+//    next word from the current ones, y neighbours by two shuffles, z
+//    neighbours from the lane's own registers or, at a warp's edge planes,
+//    from the neighbouring warps' edge planes in shared memory (two parity
+//    buffers: one __syncthreads_or a level, which also ends the loop at the
+//    fixpoint or after max_iters sweeps; an in-place update would advance
+//    more than one voxel per sweep and differ whenever max_iters binds);
+//  - an invalid query's block writes empty outputs and returns; block 0
+//    zeroes the int32 K8 adds its writes to (it lies after the corners in
+//    their allocation: no fill launch).
+// 32 < S <= 62 keeps the block BFS of 64-bit rows in shared memory
+// (explore_kernel on bfs_block / bfs_sweeps, K7s's too).  Reached leaves the
+// kernel as packed int64 rows [Q, S, S] (bit x of row (z, y)).
 //
-// K8 runs one block per query.  The block decides on its own whether its
-// query demotes (valid, and some slot it belongs to passed the explore gate
-// with no connected member under no query overflow), then stores
-// min(v, thr) at every reached voxel inside the grid.  Every reached voxel
-// was in the unknown band (v > thr) of the grid the BFS read, so all
-// writers of a voxel store the same value: plain stores, no atomics on the
-// grid.  It updates the grid in place and counts its writes in one device
-// int32.
+// K8 runs one block per query.  The verdict is one parallel pass: the
+// block's threads OR the slots of the connected queries into words of 32
+// slots (block 0 writes them out as cluster_connected), and the query
+// demotes when it is valid, the queries did not overflow, and one of its
+// gated slots has no connected query.  The stores are a warp a row (lane =
+// x, 4 rows in flight, empty rows skipped together): min(v, thr) at every
+// reached voxel inside the grid.  Every reached voxel was in the unknown
+// band (v > thr) of the grid the BFS read, so all writers of a voxel store
+// the same value: plain stores, no atomics on the grid.  It updates the
+// grid in place and counts its writes in the int32 K7 zeroed.
 //
 // K7s replaces the lax.scan of vofod_tpu/pipeline/classify.py:222-267
 // (cfg.sequential_explore, the reference's own order, vofod_nodelet.cpp
@@ -47,7 +58,7 @@
 // grid.  That chain is sequential by definition, so it is ONE block of 1024
 // threads walking the Q queries in one launch (no host sync, no launch per
 // query): the order is a Q x Q rank in the block, the connected clusters a
-// flag per slot in shared memory, each query runs K7's bfs_block on the
+// flag per slot in shared memory, each query runs bfs_block on the
 // CURRENT grid and, when it fails, writes min(v, thr) at its reached voxels
 // before a __syncthreads().  The grid is read and written in the same
 // launch, so it is no `const __restrict__` pointer and every read goes
@@ -59,7 +70,6 @@
 namespace {
 
 constexpr int EXPLORE_T = 256;
-constexpr int DEMOTE_T = 256;
 constexpr int SEQ_T = 1024;
 
 template <typename W>
@@ -201,27 +211,184 @@ __device__ __forceinline__ bool at_grid_edge(int gx, int gy, int gz, int nz, int
   return gx <= 0 || gy <= 0 || gz <= 0 || gx >= nx - 1 || gy >= ny - 1 || gz >= nz - 1;
 }
 
-template <typename W>
+// An invalid query's block: empty rows, not connected.
+__device__ __forceinline__ void explore_skip(unsigned long long* rout, int rows,
+                                             uint8_t* connected, int q) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = 0ull;
+  if (threadIdx.x == 0) connected[q] = 0;
+}
+
+// The submap corner of query q, stored as corners[q] = (z0, y0, x0); block 0
+// also zeroes K8's write count, which K8 adds to after this launch.
+__device__ __forceinline__ void explore_head(int q, int x0, int y0, int z0, int32_t* corners,
+                                             int32_t* n_writes) {
+  if (threadIdx.x == 0) {
+    corners[3 * q + 0] = z0;
+    corners[3 * q + 1] = y0;
+    corners[3 * q + 2] = x0;
+    if (q == 0) n_writes[0] = 0;
+  }
+}
+
+// 6-neighbour dilation of one lane's row word c of plane j: x by shifts, y
+// from the lanes y - 1 and y + 1 (0 past lanes 0 and 31), z from the planes
+// zm and zp.  Every lane of the warp calls it (the shuffles).
+__device__ __forceinline__ uint32_t lane_dil6(uint32_t c, uint32_t zm, uint32_t zp, int lane,
+                                              uint32_t full) {
+  uint32_t ym = __shfl_up_sync(0xffffffffu, c, 1);
+  uint32_t yp = __shfl_down_sync(0xffffffffu, c, 1);
+  if (lane == 0) ym = 0;
+  if (lane == 31) yp = 0;
+  return c | ((c << 1) & full) | (c >> 1) | zm | zp | ym | yp;
+}
+
+// K7 for S <= 32, one block a query: EXPLORE_WARPS warps, warp w owning the
+// EXPLORE_PLANES z planes [w * PLANES, (w + 1) * PLANES) of the submap, lane
+// y holding the 32-bit word of row (z, y) of each plane in registers
+// (expandable, ground, reached: 3 x PLANES words a lane).
+//  - The load: a warp reads its rows with lane = x (128 coalesced bytes a
+//    row), LOAD_ROWS rows in flight before their ballots, and lane y keeps
+//    row y's band and ground words.
+//  - A level (one Jacobi sweep): each warp puts its first and last planes
+//    into shared memory (two parity buffers), one __syncthreads_or ORs the
+//    lanes' "changed" of the last sweep and publishes the edge planes, and
+//    each lane computes its planes' next words from its registers, two
+//    shuffles a plane and the neighbouring warps' edge planes.  The block
+//    leaves at the first level whose barrier saw no change, or after
+//    max_iters sweeps: exactly the JAX while_loop's Jacobi sweeps.
+//  - The closure, ground and shell tests run on the fixpoint's registers;
+//    lanes y store the reached rows of a plane coalesced (S x 8 bytes).
+constexpr int EXPLORE_WARPS = 8;
+constexpr int EXPLORE_PLANES = 32 / EXPLORE_WARPS;
+constexpr int LOAD_ROWS = 16;
+
+__global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
+    const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
+    const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
+    int max_iters, uint8_t* __restrict__ connected,
+    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners,
+    int32_t* __restrict__ n_writes) {
+  __shared__ uint32_t edge[2][EXPLORE_WARPS][2][32];  // parity, warp, (first, last), lane
+  const int q = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = S / 2, rows = S * S;
+  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
+  unsigned long long* rout = reached_out + (size_t)q * rows;
+  explore_head(q, x0, y0, z0, corners, n_writes);
+  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
+    explore_skip(rout, rows, connected, q);
+    return;
+  }
+  const int bound = min(max_manhattan[q], half - 1);
+  const int zw = warp * EXPLORE_PLANES;  // this warp's first plane
+
+  // the load: band and ground words of rows (zw + j, lane)
+  uint32_t expd[EXPLORE_PLANES], gnd[EXPLORE_PLANES], cur[EXPLORE_PLANES];
+  const int gx = x0 + lane;
+  const bool x_in = lane < S && gx >= 0 && gx < nx;
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j) {
+    expd[j] = 0;
+    gnd[j] = 0;
+    const int lz = z0 + zw + j - z_lo;  // the row's plane in the buffer
+    if (zw + j >= S) continue;          // warp-uniform
+    const bool z_in = lz >= 0 && lz < nz;
+    for (int yc = 0; yc < S; yc += LOAD_ROWS) {
+      float v[LOAD_ROWS];
+#pragma unroll
+      for (int b = 0; b < LOAD_ROWS; ++b) {
+        const int gy = y0 + yc + b;
+        v[b] = -1e30f;  // outside the grid or the buffer: certain air
+        if (x_in && z_in && yc + b < S && gy >= 0 && gy < ny)
+          v[b] = __ldg(grid + ((size_t)lz * ny + gy) * nx + gx);
+      }
+#pragma unroll
+      for (int b = 0; b < LOAD_ROWS; ++b) {
+        const uint32_t bu = __ballot_sync(0xffffffffu, v[b] > thr_f && v[b] <= thr_g);
+        const uint32_t bg = __ballot_sync(0xffffffffu, v[b] > thr_g);
+        if (lane == yc + b) {
+          expd[j] = bu;
+          gnd[j] = bg;
+        }
+      }
+    }
+  }
+  // the submap is loaded
+  const int dy = abs(lane - half);
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j) {
+    const int z = zw + j;
+    expd[j] &= ball_bits<uint32_t>(abs(z - half) + dy, bound, half);
+    cur[j] = (z == half && lane == half) ? (expd[j] & (1u << half)) : 0u;
+  }
+
+  const uint32_t full = low_bits<uint32_t>(S);
+  int it = 0, par = 0;
+  bool changed = true;
+  for (;;) {
+    edge[par][warp][0][lane] = cur[0];
+    edge[par][warp][1][lane] = cur[EXPLORE_PLANES - 1];
+    if (!__syncthreads_or(changed) || it == max_iters) break;
+    const uint32_t below = warp > 0 ? edge[par][warp - 1][1][lane] : 0u;
+    const uint32_t above = warp < EXPLORE_WARPS - 1 ? edge[par][warp + 1][0][lane] : 0u;
+    uint32_t nw[EXPLORE_PLANES];
+    changed = false;
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) {
+      const uint32_t zm = j > 0 ? cur[j - 1] : below;
+      const uint32_t zp = j < EXPLORE_PLANES - 1 ? cur[j + 1] : above;
+      nw[j] = cur[j] | (expd[j] & lane_dil6(cur[j], zm, zp, lane, full));
+      changed |= nw[j] != cur[j];
+    }
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) cur[j] = nw[j];
+    ++it;
+    par ^= 1;
+  }
+
+  // closure = centre | (dil6(reached) & ball); shell at manh == bound - 1.
+  // The barrier that ended the loop published the fixpoint's edge planes.
+  const uint32_t below = warp > 0 ? edge[par][warp - 1][1][lane] : 0u;
+  const uint32_t above = warp < EXPLORE_WARPS - 1 ? edge[par][warp + 1][0][lane] : 0u;
+  int hit = 0;
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j) {
+    const int z = zw + j, dzy = abs(z - half) + dy;
+    const uint32_t zm = j > 0 ? cur[j - 1] : below;
+    const uint32_t zp = j < EXPLORE_PLANES - 1 ? cur[j + 1] : above;
+    uint32_t clo = lane_dil6(cur[j], zm, zp, lane, full) & ball_bits<uint32_t>(dzy, bound, half);
+    if (z == half && lane == half) clo |= 1u << half;
+    hit |= (clo & gnd[j]) != 0u;
+    hit |= (cur[j] & shell_bits<uint32_t>(dzy, bound - 1, half)) != 0u;
+  }
+  const bool h = __syncthreads_or(hit) != 0;
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j)
+    if (zw + j < S && lane < S) rout[(zw + j) * S + lane] = (unsigned long long)cur[j];
+  if (threadIdx.x == 0)
+    connected[q] = (h || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
+}
+
+// K7 for 32 < S <= 62 (64-bit rows): one block a query runs bfs_block, the
+// Jacobi sweeps over packed rows in shared memory.
 __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
     const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
     const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
     const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
     const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
     int max_iters, uint8_t* __restrict__ connected,
-    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners) {
+    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners,
+    int32_t* __restrict__ n_writes) {
+  using W = unsigned long long;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q = blockIdx.x;
   const int half = S / 2, rows = S * S;
   const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
   unsigned long long* rout = reached_out + (size_t)q * rows;
-  if (threadIdx.x == 0) {
-    corners[3 * q + 0] = z0;
-    corners[3 * q + 1] = y0;
-    corners[3 * q + 2] = x0;
-  }
-  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = 0ull;
-    if (threadIdx.x == 0) connected[q] = 0;
+  explore_head(q, x0, y0, z0, corners, n_writes);
+  if (qvalid[q] == 0) {
+    explore_skip(rout, rows, connected, q);
     return;
   }
   W* expandable = reinterpret_cast<W*>(smem_raw);
@@ -231,7 +398,7 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
   const int bound = min(max_manhattan[q], half - 1);
   const bool hit = bfs_block<W, false>(grid, nz, ny, nx, z_lo, x0, y0, z0, bound, thr_f, thr_g,
                                        S, max_iters, expandable, ground, cur, nxt);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = (unsigned long long)cur[r];
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = cur[r];
   if (threadIdx.x == 0)
     connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
 }
@@ -270,28 +437,103 @@ __device__ __forceinline__ void add_count(int count, int* n_writes) {
   if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(n_writes, count);
 }
 
+// K8, one block a query (DEMOTE_T threads):
+//  - the verdict in one parallel pass: the block's threads take one query
+//    each and, when it connected, OR its slots into ceil(K / 32) words
+//    (__reduce_or_sync in the warp, an atomicOr in shared memory); block 0
+//    writes those bits as cluster_connected.  The query demotes when it is
+//    valid, the queries did not overflow, and one of its gated slots has no
+//    connected query.  A block whose query has no gated slot (or is invalid,
+//    or overflowed) leaves before the pass, but block 0.
+//  - the stores a warp a row: each warp takes 32 rows (lane i loads row i's
+//    word), skips the empty ones together, and runs DEMOTE_ROWS non-empty
+//    rows at a time with lane = x: one coalesced read of each row's span,
+//    min(v, thr) stored where the row's bit is set (NaN kept), the count
+//    from __popc of the row's bits inside the grid.
+constexpr int DEMOTE_T = 256;
+constexpr int DEMOTE_ROWS = 4;
+
 __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
     float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
     const unsigned long long* __restrict__ reached, const int32_t* __restrict__ corners,
     int S, const uint8_t* __restrict__ qslot, const uint8_t* __restrict__ connected,
     const uint8_t* __restrict__ qvalid, const uint8_t* __restrict__ qgate,
     const uint8_t* __restrict__ query_overflow, int Q, int K, float thr,
-    int* __restrict__ n_writes) {
-  const int q = blockIdx.x;
-  if (qvalid[q] == 0 || query_overflow[0] != 0) return;
-  // demote = some slot of q passed the gate and none of its members connected
-  int floats = 0;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    if (qslot[(size_t)q * K + k] == 0 || qgate[k] == 0) continue;
-    bool any_conn = false;
-    for (int p = 0; p < Q && !any_conn; ++p)
-      any_conn = qslot[(size_t)p * K + k] != 0 && connected[p] != 0;
-    floats |= !any_conn;
-  }
-  if (!__syncthreads_or(floats)) return;
+    int* __restrict__ n_writes, uint8_t* __restrict__ cluster_connected) {
+  extern __shared__ uint32_t slot_conn[];  // ceil(K / 32) words: slot k has a connected query
+  const int q = blockIdx.x, lane = threadIdx.x & 31;
+  const int KW = (K + 31) / 32;
+  for (int j = threadIdx.x; j < KW; j += blockDim.x) slot_conn[j] = 0u;
+  const bool live = qvalid[q] != 0 && query_overflow[0] == 0;
+  int gated = 0;
+  for (int k = threadIdx.x; k < K && live; k += blockDim.x)
+    gated |= qslot[(size_t)q * K + k] != 0 && qgate[k] != 0;
+  if (!__syncthreads_or(gated) && q != 0) return;
 
-  const int count = store_min_rows(grid, nz, ny, nx, z_lo, nz_g, reached + (size_t)q * S * S,
-                                   corners[3 * q], corners[3 * q + 1], corners[3 * q + 2], S, thr);
+  for (int p0 = 0; p0 < Q; p0 += blockDim.x) {  // warp-uniform trip count
+    const int p = p0 + threadIdx.x;
+    const bool conn = p < Q && connected[p] != 0;
+    for (int j = 0; j < KW; ++j) {
+      uint32_t bits = 0u;
+      if (conn) {
+        const uint8_t* row = qslot + (size_t)p * K + 32 * j;
+        const int n = min(32, K - 32 * j);
+#pragma unroll 8
+        for (int b = 0; b < n; ++b) bits |= (uint32_t)(row[b] != 0) << b;
+      }
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (lane == 0 && bits != 0u) atomicOr(slot_conn + j, bits);
+    }
+  }
+  __syncthreads();
+  if (q == 0)
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      cluster_connected[k] = (slot_conn[k >> 5] >> (k & 31)) & 1u;
+  int floats = 0;
+  for (int k = threadIdx.x; k < K && live; k += blockDim.x)
+    floats |= qslot[(size_t)q * K + k] != 0 && qgate[k] != 0 &&
+              ((slot_conn[k >> 5] >> (k & 31)) & 1u) == 0u;
+  if (!__syncthreads_or(floats)) return;  // the verdict
+
+  const unsigned long long* rq = reached + (size_t)q * S * S;
+  const int z0 = corners[3 * q], y0 = corners[3 * q + 1], x0 = corners[3 * q + 2];
+  // the row's bits inside the grid in x
+  const int xlo = max(0, -x0), xhi = min(S, nx - x0);
+  const unsigned long long xmask =
+      xhi <= xlo ? 0ull : ((xhi - xlo >= 64 ? ~0ull : ((1ull << (xhi - xlo)) - 1ull)) << xlo);
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5, rows = S * S;
+  int count = 0;
+  for (int r0 = warp * 32; r0 < rows; r0 += nwarps * 32) {
+    // lane i: row r0 + i, its word and its offset in the buffer
+    const int r = r0 + lane;
+    unsigned long long w = r < rows ? rq[r] & xmask : 0ull;
+    const int gz = z0 + r / S, gy = y0 + r % S, lz = gz - z_lo;
+    if (gz < 0 || gz >= nz_g || lz < 0 || lz >= nz || gy < 0 || gy >= ny) w = 0ull;
+    const long long off = ((long long)lz * ny + gy) * nx + x0;
+    count += __popcll(w);
+    unsigned todo = __ballot_sync(0xffffffffu, w != 0ull);
+    while (todo != 0u) {  // DEMOTE_ROWS non-empty rows in flight
+      unsigned long long wb[DEMOTE_ROWS];
+      long long ob[DEMOTE_ROWS];
+#pragma unroll
+      for (int b = 0; b < DEMOTE_ROWS; ++b) {
+        const int i = todo != 0u ? __ffs(todo) - 1 : 0;
+        wb[b] = __shfl_sync(0xffffffffu, w, i);
+        ob[b] = __shfl_sync(0xffffffffu, off, i);
+        if (todo == 0u) wb[b] = 0ull;
+        todo &= todo - 1u;
+      }
+      for (int xc = 0; xc < S; xc += 32) {
+        float v[DEMOTE_ROWS];
+#pragma unroll
+        for (int b = 0; b < DEMOTE_ROWS; ++b)
+          v[b] = (wb[b] >> (xc + lane)) & 1ull ? grid[ob[b] + xc + lane] : 0.0f;
+#pragma unroll
+        for (int b = 0; b < DEMOTE_ROWS; ++b)
+          if (((wb[b] >> (xc + lane)) & 1ull) && v[b] > thr) grid[ob[b] + xc + lane] = thr;
+      }
+    }
+  }
   add_count(count, n_writes);
 }
 
@@ -524,20 +766,28 @@ int allow_smem(Kern kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <typename W>
 int launch_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g, const void* qx,
                    const void* qy, const void* qz, const void* qvalid, const void* mm, float thr_f,
                    float thr_g, int Q, int S, int max_iters, void* connected, void* reached,
-                   void* corners, cudaStream_t s) {
-  const size_t smem = 4 * (size_t)S * S * sizeof(W);
-  const int e = allow_smem(explore_kernel<W>, smem);
+                   void* corners, void* n_writes, cudaStream_t s) {
+  const float* g = static_cast<const float*>(grid);
+  const int32_t *x = static_cast<const int32_t*>(qx), *y = static_cast<const int32_t*>(qy),
+                *z = static_cast<const int32_t*>(qz), *m = static_cast<const int32_t*>(mm);
+  const uint8_t* v = static_cast<const uint8_t*>(qvalid);
+  uint8_t* c = static_cast<uint8_t*>(connected);
+  unsigned long long* r = static_cast<unsigned long long*>(reached);
+  int32_t *co = static_cast<int32_t*>(corners), *n = static_cast<int32_t*>(n_writes);
+  if (S <= 32) {
+    explore_planes_kernel<<<Q, EXPLORE_WARPS * 32, 0, s>>>(g, nz, ny, nx, z_lo, nz_g, x, y, z, v,
+                                                            m, thr_f, thr_g, S, max_iters, c, r,
+                                                            co, n);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = 4 * (size_t)S * S * sizeof(unsigned long long);
+  const int e = allow_smem(explore_kernel, smem);
   if (e != 0) return e;
-  explore_kernel<W><<<Q, EXPLORE_T, smem, s>>>(
-      static_cast<const float*>(grid), nz, ny, nx, z_lo, nz_g, static_cast<const int32_t*>(qx),
-      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
-      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(mm), thr_f, thr_g, S,
-      max_iters, static_cast<uint8_t*>(connected),
-      static_cast<unsigned long long*>(reached), static_cast<int32_t*>(corners));
+  explore_kernel<<<Q, EXPLORE_T, smem, s>>>(g, nz, ny, nx, z_lo, nz_g, x, y, z, v, m, thr_f,
+                                            thr_g, S, max_iters, c, r, co, n);
   return (int)cudaGetLastError();
 }
 
@@ -589,43 +839,43 @@ int launch_explore_stack(const void* stack, int nz, int ny, int nx, const void* 
 // a grid of nz_g rows (z_lo = 0 and nz_g = nz but on the grid-sharded
 // step); qx/qy/qz/max_manhattan: int32 [Q] in global grid coordinates;
 // qvalid: bool [Q].  Outputs: connected bool [Q], reached int64 [Q, S, S]
-// (bit x of row (z, y)), corners int32 [Q, 3] (z, y, x).  2 <= S <= 62.
+// (bit x of row (z, y)), corners int32 [Q, 3] (z, y, x), and n_writes, the
+// int32 K8 adds its stores to, zeroed.  2 <= S <= 62.
 VOFOD_API int vofod_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
                             const void* qx, const void* qy, const void* qz, const void* qvalid,
                             const void* max_manhattan, float thr_f, float thr_g, int Q, int S,
                             int max_iters, void* connected, void* reached, void* corners,
-                            void* stream) {
+                            void* n_writes, void* stream) {
   if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S <= 32)
-    return launch_explore<uint32_t>(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid,
-                                    max_manhattan,
-                                    thr_f, thr_g, Q, S, max_iters, connected, reached,
-                                    corners, s);
-  return launch_explore<unsigned long long>(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid,
-                                            max_manhattan, thr_f, thr_g, Q, S, max_iters,
-                                            connected, reached, corners, s);
+  return launch_explore(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid, max_manhattan, thr_f,
+                        thr_g, Q, S, max_iters, connected, reached, corners, n_writes,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // In place: grid[v] = min(grid[v], thr) at the reached voxels of every
 // demoting query.  grid: the z rows [z_lo, z_lo + nz) of a grid of nz_g
 // rows, as vofod_explore's; writes land only inside both.  qslot: bool
 // [Q, K]; connected/qvalid: bool [Q]; qgate: bool [K]; query_overflow: bool
-// scalar; n_writes: int32 scalar the kernel adds its stores to (zeroed by
-// the caller).
+// scalar; n_writes: the int32 the kernel adds its stores to (vofod_explore's,
+// zeroed by its launch).  Output: cluster_connected bool [K], whether a
+// slot has a connected query (written under query overflow too).
 VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
                            const void* reached,
                            const void* corners, int S, const void* qslot, const void* connected,
                            const void* qvalid, const void* qgate, const void* query_overflow,
-                           int Q, int K, float thr, void* n_writes, void* stream) {
+                           int Q, int K, float thr, void* n_writes, void* cluster_connected,
+                           void* stream) {
   if (Q <= 0 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
-  demote_kernel<<<Q, DEMOTE_T, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = (size_t)(K + 31) / 32 * sizeof(uint32_t);
+  const int e = allow_smem(demote_kernel, smem);
+  if (e != 0) return e;
+  demote_kernel<<<Q, DEMOTE_T, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(grid), nz, ny, nx, z_lo, nz_g,
       static_cast<const unsigned long long*>(reached),
       static_cast<const int32_t*>(corners), S, static_cast<const uint8_t*>(qslot),
       static_cast<const uint8_t*>(connected), static_cast<const uint8_t*>(qvalid),
       static_cast<const uint8_t*>(qgate), static_cast<const uint8_t*>(query_overflow), Q, K,
-      thr, static_cast<int*>(n_writes));
+      thr, static_cast<int*>(n_writes), static_cast<uint8_t*>(cluster_connected));
   return (int)cudaGetLastError();
 }
 

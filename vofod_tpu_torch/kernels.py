@@ -199,9 +199,9 @@ def load():
         lib.vofod_compact.argtypes = [_P, _P, _P, _I, _LL, _I, _P, _P, _LL, _P, _P, _P, _P]
         lib.vofod_compact_geometry.argtypes = [_P]
         lib.vofod_explore.argtypes = [
-            _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P]
+            _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_demote.argtypes = [
-            _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P]
+            _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P]
         lib.vofod_explore_sequential.argtypes = [
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P,
             _P]
@@ -554,7 +554,9 @@ def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Te
             z_window: tuple[int, int] | None = None):
     """K7: (connected bool [Q], reached int64 [Q, S, S] packed rows,
     corners int32 [Q, 3]).  ``z_window`` (z_lo, nz_g): vmap holds the rows
-    [z_lo, z_lo + rows) of an nz_g-row grid (:func:`_z_window`)."""
+    [z_lo, z_lo + rows) of an nz_g-row grid (:func:`_z_window`).  The
+    corners are the first 3 Q int32 of one allocation whose last int32 is
+    K8's write count, which the launch zeroes (:func:`demote_`)."""
     lib = load()
     if vmap.dim() != 3:
         raise ValueError("explore takes a 3-D grid")
@@ -568,16 +570,28 @@ def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Te
     dev = vmap.device
     connected = torch.empty(Q, dtype=torch.bool, device=dev)
     reached = torch.empty((Q, S, S), dtype=torch.int64, device=dev)
-    corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
+    corners = torch.empty(3 * Q + 1, dtype=torch.int32, device=dev).as_strided((Q, 3), (3, 1))
     nz, ny, nx = vmap.shape
     err = lib.vofod_explore(
-        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
-        qvalid.data_ptr(), max_manhattan.data_ptr(), float(thr_frontiers), float(thr_ground),
-        Q, S, int(max_iters), connected.data_ptr(), reached.data_ptr(), corners.data_ptr(),
-        _stream())
+        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), qx.data_ptr(), qy.data_ptr(),
+        qz.data_ptr(), qvalid.data_ptr(), max_manhattan.data_ptr(), float(thr_frontiers),
+        float(thr_ground), Q, S, int(max_iters), connected.data_ptr(), reached.data_ptr(),
+        corners.data_ptr(), corners.data_ptr() + 12 * Q, _stream())
     _check(err, "vofod_explore")
     _count("explore_bfs")
     return connected, reached, corners
+
+
+def demote_count(corners: torch.Tensor) -> torch.Tensor:
+    """K8's write count: the int32 after K7's ``corners`` in their
+    allocation, which K7's launch zeroed and K8 adds to.  Raises on corners
+    that :func:`explore` did not make."""
+    base, Q = corners._base, corners.shape[0]
+    if (base is None or base.dtype != torch.int32 or base.shape != (3 * Q + 1,)
+            or corners.data_ptr() != base.data_ptr()):
+        raise ValueError("demote_ takes the corners of kernels.explore (their allocation holds "
+                         "K8's write count)")
+    return base[3 * Q]
 
 
 def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
@@ -585,7 +599,9 @@ def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
             qgate: torch.Tensor, query_overflow: torch.Tensor, thr_frontiers: float,
             z_window: tuple[int, int] | None = None):
     """K8, in place on ``vmap``: min(v, thr) at the reached voxels of every
-    query that demotes.  Returns the int32 count of those writes.
+    query that demotes.  Returns (the int32 count of those writes — the
+    count :func:`demote_count` finds beside ``corners``, which K7 zeroed —,
+    cluster_connected bool [K]: whether a slot has a connected query).
     ``z_window``: as :func:`explore`'s."""
     lib = load()
     Q, S = reached.shape[0], reached.shape[1]
@@ -600,15 +616,17 @@ def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
     _require(qvalid, "demote qvalid", torch.bool, (Q,))
     _require(qgate, "demote qgate", torch.bool, (K,))
     _require(query_overflow, "demote query_overflow", torch.bool, ())
-    n_writes = torch.zeros((), dtype=torch.int32, device=vmap.device)
+    n_writes = demote_count(corners)
+    cluster_connected = torch.empty(K, dtype=torch.bool, device=vmap.device)
     nz, ny, nx = vmap.shape
     err = lib.vofod_demote(
-        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), reached.data_ptr(), corners.data_ptr(), S,
-        qslot.data_ptr(), connected.data_ptr(), qvalid.data_ptr(), qgate.data_ptr(),
-        query_overflow.data_ptr(), Q, K, float(thr_frontiers), n_writes.data_ptr(), _stream())
+        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), reached.data_ptr(),
+        corners.data_ptr(), S, qslot.data_ptr(), connected.data_ptr(), qvalid.data_ptr(),
+        qgate.data_ptr(), query_overflow.data_ptr(), Q, K, float(thr_frontiers),
+        n_writes.data_ptr(), cluster_connected.data_ptr(), _stream())
     _check(err, "vofod_demote")
     _count("demote")
-    return n_writes
+    return n_writes, cluster_connected
 
 
 def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,

@@ -6,8 +6,14 @@ PyTorch counterpart of vofod_tpu/ops/explore.py (ref src/voxel_map.cpp
 around the query voxel, then a masked 6-neighbour BFS through the unknown
 band (frontiers < v <= ground) inside the query's Manhattan ball.  For CUDA
 tensors both steps are hand-written kernels (csrc/explore.cu: one block per
-query, masks bit-packed in shared memory); CPU tensors take the plain
-versions here.
+query; K7's masks bit-packed in registers for S <= 32, in shared memory
+past it); CPU tensors take the plain versions here.  The kernels' schedules
+have plain models here too, held to the JAX package by the CPU tests:
+:func:`explore_planes_plain` (K7's warps of z planes, lane = y, its level
+loop; it also returns each query's sweep count) and
+:func:`demote_rows_plain` (K8's verdict words and row stores).  K8 returns
+``cluster_connected`` beside the grid and its count, and on the card its
+count is the int32 K7 zeroed after its corners (``kernels.demote_count``).
 
 The reached set travels between the two as packed rows: int64 [Q, S, S]
 with bit x of row (z, y) set when voxel (z, y, x) of the query's submap was
@@ -128,6 +134,114 @@ def _bfs_plain(unknown: Tensor, ground: Tensor, bound: Tensor, max_iters: int,
     shell = manh[None] == (bound - 1)[:, None, None, None]
     hit_shell = torch.any((reached & shell).reshape(Q, -1), dim=1)
     return bits, hit_ground | hit_shell
+
+
+# K7's schedule for S <= 32 (csrc/explore.cu explore_planes_kernel, its
+# constexprs EXPLORE_WARPS and EXPLORE_PLANES): each of the block's warps
+# owns PLANES consecutive z planes of the submap, lane y holding the word of
+# row (z, y) of each in a register
+EXPLORE_WARPS = 8
+EXPLORE_PLANES = 32 // EXPLORE_WARPS
+
+
+def _lanes(rows: Tensor) -> Tensor:
+    """[Q, S(z), S(y)] words -> the kernel's registers [Q, WARPS, PLANES, 32
+    lanes] (lane = y; 0 past S in z and y)."""
+    Q, S = rows.shape[0], rows.shape[1]
+    out = rows.new_zeros((Q, 32, 32))
+    out[:, :S, :S] = rows
+    return out.reshape(Q, EXPLORE_WARPS, EXPLORE_PLANES, 32)
+
+
+def _edge_planes(cur: Tensor) -> tuple[Tensor, Tensor]:
+    """(below, above) [Q, WARPS, 32]: the planes next to each warp's first
+    and last, read from the other warps' edge planes in shared memory (0
+    past the submap)."""
+    first, last = cur[:, :, 0], cur[:, :, -1]
+    return F.pad(last[:, :-1], (0, 0, 1, 0)), F.pad(first[:, 1:], (0, 0, 0, 1))
+
+
+def _lane_dil6(cur: Tensor, full: int) -> Tensor:
+    """6-neighbour dilation of the registers: x by shifts, y from lanes y -/+
+    1 (``__shfl_up_sync`` / ``__shfl_down_sync``, masked at lanes 0 and 31),
+    z from the warp's own neighbouring planes or, at its edge planes, from
+    :func:`_edge_planes`."""
+    below, above = _edge_planes(cur)
+    zm = torch.cat([below[:, :, None], cur[:, :, :-1]], dim=2)
+    zp = torch.cat([cur[:, :, 1:], above[:, :, None]], dim=2)
+    ym, yp = F.pad(cur[..., :-1], (1, 0)), F.pad(cur[..., 1:], (0, 1))
+    return cur | ((cur << 1) & full) | (cur >> 1) | zm | zp | ym | yp
+
+
+def _ring_bits(dzy: Tensor, s: Tensor, half: int, shell: bool) -> Tensor:
+    """Each lane's row bits at Manhattan distance <= s (``ball_bits``) or ==
+    s (``shell_bits``) from the centre; ``dzy`` the row's |dz| + |dy|."""
+    rem = s - dzy
+    r = rem.clamp(min=0)
+    one = torch.ones_like(r)
+    bits = ((one << (half - r)) | (one << (half + r)) if shell
+            else ((one << (2 * r + 1)) - 1) << (half - r))
+    return torch.where(rem >= 0, bits, 0)
+
+
+def explore_planes_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
+                         qvalid: Tensor, max_manhattan: Tensor, thr_frontiers: float,
+                         thr_ground: float, submap: int, max_iters: int = 96,
+                         z_window: tuple[int, int] | None = None):
+    """K7's schedule for S <= 32, step by step: (connected bool [Q], reached
+    int64 [Q, S, S], corners int32 [Q, 3], sweeps int32 [Q] — the Jacobi
+    sweeps each query's block ran, 0 for an invalid query).
+
+    The load: lane x of a warp reads voxel x of each of its rows, and two
+    ballots give the row's band and ground words, which lane y keeps.  A
+    level: every warp puts its first and last planes into shared memory,
+    one barrier ORs the blocks' "changed" flags (the block leaves at the
+    first level that saw no change, or after ``max_iters`` sweeps), then
+    each lane computes its planes' next words from registers, shuffles and
+    the neighbouring warps' edge planes (parity-buffered, so one barrier a
+    level).  The closure, ground and shell tests run on the fixpoint's
+    registers."""
+    S = submap
+    if not 2 <= S <= 32:
+        raise ValueError(f"K7's register schedule takes S in [2, 32], got {S}")
+    half, dev = S // 2, vmap_grid.device
+    z_lo = 0 if z_window is None else z_window[0]
+    vals = _submaps(vmap_grid, qx, qy, qz, S, z_lo)
+    gz = qz.long()[:, None] - half - z_lo + torch.arange(S, device=dev)
+    inz = ((gz >= 0) & (gz < vmap_grid.shape[0]))[:, :, None, None]
+    vals = torch.where(inz, vals, -1e30)  # rows past the buffer: certain air
+    band = _lanes(_pack_rows((vals > thr_frontiers) & (vals <= thr_ground)))
+    ground = _lanes(_pack_rows(vals > thr_ground))
+
+    lane = torch.arange(32, device=dev)
+    z = lane.reshape(EXPLORE_WARPS, EXPLORE_PLANES)  # the plane of (warp, j)
+    dzy = ((z - half).abs()[:, :, None] + (lane - half).abs()[None, None, :])[None]
+    bound = torch.clamp(max_manhattan, max=half - 1).long()[:, None, None, None]
+    ball = _ring_bits(dzy, bound, half, shell=False)
+    centre = torch.where((z == half)[:, :, None] & (lane == half)[None, None, :], 1 << half, 0)
+    expandable = band & ball
+    cur = expandable & centre
+    full = (1 << S) - 1
+
+    Q = qx.shape[0]
+    sweeps = torch.zeros(Q, dtype=torch.int32, device=dev)
+    running = qvalid.clone()  # an invalid query's block stores empty rows and leaves
+    for _ in range(max_iters):
+        if not bool(running.any()):
+            break
+        new = cur | (expandable & _lane_dil6(cur, full))
+        changed = (new != cur).any(dim=(1, 2, 3))
+        cur = torch.where(running[:, None, None, None], new, cur)
+        sweeps += running.to(torch.int32)
+        running = running & changed
+    clo = (_lane_dil6(cur, full) & ball) | centre
+    shell = _ring_bits(dzy, bound - 1, half, shell=True)
+    hit = ((clo & ground) != 0).any(dim=(1, 2, 3)) | ((cur & shell) != 0).any(dim=(1, 2, 3))
+    connected = (hit | _at_grid_edge(grid, qx, qy, qz)) & qvalid
+    reached = torch.where(qvalid[:, None, None],
+                          cur.reshape(Q, 32, 32)[:, :S, :S], 0)
+    corners = torch.stack([qz - half, qy - half, qx - half], dim=-1).to(torch.int32)
+    return connected, reached, corners, sweeps
 
 
 def _at_grid_edge(grid: GridSpec, qx: Tensor, qy: Tensor, qz: Tensor) -> Tensor:
@@ -259,30 +373,86 @@ def apply_demotions(
 def demote_floating_plain(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor,
                           qslot: Tensor, connected: Tensor, qvalid: Tensor, qgate: Tensor,
                           query_overflow: Tensor, thr_frontiers: float,
-                          z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
+                          z_window: tuple[int, int] | None = None
+                          ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain version of K8: the demote decision of vofod_tpu/pipeline/
     classify.py:188-194 — a valid query demotes when a slot it belongs to
     passed the explore gate (``qgate``), none of that slot's queries
     connected, and the queries did not overflow — then the write-back.
-    Returns (new grid, int32 count of demotion writes)."""
+    Returns (new grid, int32 count of demotion writes, cluster_connected
+    bool [K] — the slots with a connected query)."""
     cluster_connected = torch.any(qslot & connected[:, None], dim=0)  # [K]
     floating = qgate & ~cluster_connected & ~query_overflow
     demote = qvalid & torch.any(qslot & floating[None, :], dim=1)
     reached = unpack_rows(reached_bits, reached_bits.shape[-1])
-    return _demotion_writes(vmap_grid, reached, corners, demote, thr_frontiers, z_window)
+    new, n = _demotion_writes(vmap_grid, reached, corners, demote, thr_frontiers, z_window)
+    return new, n, cluster_connected
+
+
+def demote_rows_plain(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor, qslot: Tensor,
+                      connected: Tensor, qvalid: Tensor, qgate: Tensor, query_overflow: Tensor,
+                      thr_frontiers: float, z_window: tuple[int, int] | None = None
+                      ) -> tuple[Tensor, Tensor, Tensor]:
+    """K8's schedule, step by step: (new grid, int32 count, cluster_connected
+    bool [K]), :func:`demote_floating_plain`'s.
+
+    The verdict: thread p of a block reads ``connected[p]`` and, when set,
+    packs query p's slots into ceil(K / 32) words; each warp ORs its 32
+    queries' words (``__reduce_or_sync``) and the warps OR theirs into
+    shared memory; a valid query under no overflow demotes when one of its
+    gated slots has no bit there.  The stores: each warp takes 32 rows at a
+    time; a row whose word is 0, or that lies outside the buffer and the
+    grid in z or y, is skipped; a non-empty one stores min(v, thr) at its
+    set bits inside the grid in x (lane = x, NaN kept) and counts them
+    (``__popc``)."""
+    Q, S = reached_bits.shape[0], reached_bits.shape[1]
+    K = qslot.shape[1]
+    nz, ny, nx = vmap_grid.shape
+    z_lo, nz_g = (0, nz) if z_window is None else z_window
+    dev = vmap_grid.device
+    kw = -(-K // 32)
+    # the verdict: the warps' OR of their queries' slot words, then the block's
+    words = _pack_rows(F.pad(qslot & connected[:, None], (0, 32 * kw - K)).reshape(Q, kw, 32))
+    lanes = F.pad(words, (0, 0, 0, -Q % 32)).reshape(-1, 32, kw)
+    bits = unpack_rows(lanes, 32).any(dim=1).any(dim=0)  # [kw, 32]: the block's words
+    cluster_connected = bits.reshape(-1)[:K]
+    floating = qgate & ~cluster_connected
+    demote = qvalid & ~query_overflow & torch.any(qslot & floating[None, :], dim=1)
+    # the stores: a row r = z * S + y of query q, its word inside the grid
+    r = torch.arange(S * S, device=dev)
+    gz = corners[:, 0].long()[:, None] + r // S
+    gy = corners[:, 1].long()[:, None] + r % S
+    lz = gz - z_lo
+    row_in = (gz >= 0) & (gz < nz_g) & (lz >= 0) & (lz < nz) & (gy >= 0) & (gy < ny)
+    x0 = corners[:, 2].long()
+    xlo, xhi = (-x0).clamp(min=0), (nx - x0).clamp(max=S)
+    xmask = torch.where(xhi > xlo, ((1 << (xhi - xlo).clamp(min=0)) - 1) << xlo, 0)
+    w = torch.where(row_in & demote[:, None], reached_bits.reshape(Q, -1) & xmask[:, None], 0)
+    hit = unpack_rows(w, S)  # [Q, S * S, S]: lane x of each non-empty row
+    count = hit.sum().to(torch.int32)
+    x = x0[:, None, None] + torch.arange(S, device=dev)
+    fid = (lz.clamp(0, nz - 1)[:, :, None] * ny + gy.clamp(0, ny - 1)[:, :, None]) * nx + x
+    ids = fid[hit]
+    flat = vmap_grid.reshape(-1).clone()
+    v = flat[ids]
+    flat[ids] = torch.where(v > thr_frontiers, thr_frontiers, v)  # NaN kept
+    return flat.reshape(vmap_grid.shape), count, cluster_connected
 
 
 def demote_floating(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor,
                     qslot: Tensor, connected: Tensor, qvalid: Tensor, qgate: Tensor,
                     query_overflow: Tensor, thr_frontiers: float,
-                    z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
-    """K8.  On a CUDA tensor the kernel updates ``vmap_grid`` IN PLACE and
-    returns it; the plain version returns a new tensor.  Callers use the
-    returned grid and must not read ``vmap_grid`` afterwards."""
+                    z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """K8: (grid, n_writes int32, cluster_connected bool [K]).  On a CUDA
+    tensor the kernel updates ``vmap_grid`` IN PLACE and returns it, and its
+    count is the one beside K7's ``corners`` (``kernels.demote_count``); the
+    plain version returns a new tensor.  Callers use the returned grid and
+    must not read ``vmap_grid`` afterwards."""
     if vmap_grid.is_cuda:
-        n = kernels.demote_(vmap_grid, reached_bits, corners, qslot, connected, qvalid,
-                            qgate, query_overflow, thr_frontiers, z_window)
-        return vmap_grid, n
+        n, cluster_connected = kernels.demote_(vmap_grid, reached_bits, corners, qslot,
+                                               connected, qvalid, qgate, query_overflow,
+                                               thr_frontiers, z_window)
+        return vmap_grid, n, cluster_connected
     if vmap_grid.device.type != "cpu":
         raise ValueError(f"demote: unsupported device {vmap_grid.device}")
     return demote_floating_plain(vmap_grid, reached_bits, corners, qslot, connected, qvalid,

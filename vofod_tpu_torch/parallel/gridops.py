@@ -139,6 +139,7 @@ class DenseOps:
 
     def demote(self, vals, reached, corners, qslot, connected, qvalid, qgate, query_overflow,
                thr_frontiers):
+        """K8: (grid, n_writes int32, cluster_connected bool [K])."""
         return demote_floating(vals, reached, corners, qslot, connected, qvalid, qgate,
                                query_overflow, thr_frontiers)
 
@@ -592,17 +593,19 @@ class ZShardOps:
                thr_frontiers):
         """K8 by each query's owner on its halo-extended slab, folded back
         onto the neighbours with K15b-2 (min is idempotent, so the fold is
-        exact); the write count summed over the shards."""
+        exact); the write count summed over the shards.  ``connected`` is
+        OR-ed over the shards already, so every shard's cluster_connected
+        is the same."""
         pad = reached.shape[1] // 2
         nzl = vals.shape[0]
         z0, _ = self.slab(nzl * self.n)
         qz = corners[:, 0] + pad
         own = (qz >= z0) & (qz < z0 + nzl)
         ext = self.halo_exchange(vals, pad, 0.0)
-        ext, n_writes = demote_floating(ext, reached, corners, qslot, connected, qvalid & own,
-                                        qgate, query_overflow, thr_frontiers,
-                                        z_window=(z0 - pad, nzl * self.n))
-        return self.halo_fold_min(ext, pad), self.comm.psum(n_writes)
+        ext, n_writes, cluster_connected = demote_floating(
+            ext, reached, corners, qslot, connected, qvalid & own, qgate, query_overflow,
+            thr_frontiers, z_window=(z0 - pad, nzl * self.n))
+        return self.halo_fold_min(ext, pad), self.comm.psum(n_writes), cluster_connected
 
     def explore_sequential(self, grid, vals, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q,
                            query_overflow, thr_frontiers, thr_ground, submap: int):

@@ -9,7 +9,8 @@ PCA OBB, gates and the floating check all run on that list.
 On CUDA tensors the whole stage runs on hand-written kernels: the two
 compactions (K6, the query one with its label predicate inside the
 kernel), the cluster statistics (K9, :func:`cluster_stats`), and either the
-batched explore BFS (K7) with the demotion write-back (K8), or, under
+batched explore BFS (K7) with the demotion write-back (K8, which also gives
+the slots with a connected query, ``cluster_connected``), or, under
 ``cfg.sequential_explore``, the sequential explore with live demotion
 (K7s, one launch); CPU tensors take their plain versions.
 
@@ -288,12 +289,12 @@ def classify(
                                                       thr_f, thr_g, S)
         with record_function("vofod.classify.demote"):
             # on the card this writes into grid_vals in place: the step's
-            # background grid has no reader after classify (step.py)
-            new_vals, n_demoted = ops.demote(
+            # background grid has no reader after classify (step.py); K8
+            # also gives cluster_connected, any(qslot & connected) by slot
+            new_vals, n_demoted, cluster_connected = ops.demote(
                 grid_vals, reached, corners, qslot, connected, qvalid, st.qgate,
                 query_overflow, thr_f,
             )
-        cluster_connected = torch.any(qslot & connected[:, None], dim=0)  # [K]
     # under query overflow some members were never explored: conservative
     floating = st.qgate & ~cluster_connected & ~query_overflow
 
