@@ -3,7 +3,8 @@
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
-                       [--explore-only] [--variants all|NAME,...] [--out build/ab]
+                       [--explore-only] [--ray-detect-only] [--variants all|NAME,...]
+                       [--ray-detect-variants all|NAME,...] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -67,6 +68,17 @@ call:
   launches and other device ops (a fill, a memset) a call, the wrapper's
   host us a call over 1,000 calls with no sync, and the means over the
   five scans.  ``--explore-only`` runs these cases alone.
+- K10 and K5b on the inputs the sweep step passes them (the wrappers'
+  calls on the 7th to 11th scans of a fresh node), each checked against
+  its plain version (K10: valid, ids and the counter bit-equal, the floats
+  within chip_smoke's bounds; K5b on a fresh copy of its grid every call,
+  the changed voxels bit-equal), with its device ms, launches and other
+  device ops a call, the wrapper's host us a call over 1,000 calls with no
+  sync, and the means over the five scans.  ``--ray-detect-only`` runs
+  these cases alone.  ``--ray-detect-variants`` then builds variants of
+  both trees' K10 and K5b (the windows skipped, the loads alone, tiles,
+  warps, staged faces, packing, where the time goes; edited in the source
+  text, ``_RAY_DETECT_VARIANTS``) and times them on the same calls.
 
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
@@ -1013,6 +1025,584 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=cs
 print(json.dumps(dict(nvidia_smi=smi, explore_cases=cases, explore_means=means)))
 """
 
+# the sweep step's calls of K10 and K5b on scans 7-11 (the wrappers' calls
+# recorded on a fresh node after the apriori plane, the scans chip_smoke's
+# phase 5 profiles) and the profile of a call; the ray-detect cases and
+# variants share them
+RAY_DETECT_INPUTS = r"""
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+
+def step_calls(cs, lut, first=7, n=5):
+    # [(kernels.detect args, kernels.ray_update args)] of sweep scans first
+    # .. first + n - 1
+    node = VoFOD(cs.VoFODConfig(), DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    scans = cs.scan_cycle(lut, first - 1 + n)
+    for r, p in scans[:first - 1]:
+        node.process_scan(r, None, p)
+    names = ("detect", "ray_update")
+    orig, got, out = {k: getattr(kernels, k) for k in names}, {}, []
+
+    def recorder(name):
+        def record(*a):
+            got[name] = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+            return orig[name](*a)
+        return record
+
+    for k in names:
+        setattr(kernels, k, recorder(k))
+    try:
+        for r, p in scans[first - 1:]:
+            node.process_scan(r, None, p)
+            torch.cuda.synchronize()
+            out.append((got["detect"], got["ray_update"]))
+    finally:
+        for k in names:
+            setattr(kernels, k, orig[k])
+    return out
+
+
+def profiled(fn, match, reps=20):
+    # device ms and launches a call of the kernels named ``match``, and the
+    # other device ops a call but memcpys (a fill kernel, a memset); a
+    # session now and then loses events: up to three sessions until one
+    # holds every call's launch
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in ev if match in e.name]
+        if best is None or len(mine) > len(best[0]):
+            best = (mine, ev)
+        if len(mine) >= reps:
+            break
+    mine, ev = best
+    us = sum(float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)) for e in mine)
+    other = [e for e in ev if match not in e.name and "memcpy" not in e.name.lower()]
+    return dict(device_ms=round(us / max(len(mine), 1) / 1e3, 5), launches=len(mine) / reps,
+                other_ops=len(other) / reps,
+                memsets=sum("memset" in e.name.lower() for e in ev) / reps)
+"""
+
+# runs in the tree's root; prints one JSON line: K10's and K5b's calls of
+# the sweep step's scans 7-11, each checked against its plain version (K10:
+# valid, ids and the counter bit-equal, the floats within chip_smoke's
+# bounds; K5b on a fresh copy of its grid every call: the changed voxels
+# bit-equal), with the device ms, launches and other device ops (a fill, a
+# memset) a call of each kernel (torch.profiler; K5b's grid copy not
+# counted) and the wrapper's host us a call over 1,000 calls with no sync;
+# the means over the five scans
+_RAY_DETECT_CASES = RAY_DETECT_INPUTS + r"""
+import json
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.ops.raycast import ray_window_update_plain_
+from vofod_tpu_torch.pipeline.detect import detect_slots_plain
+
+
+def host_us(fn, n=1000):
+    # host microseconds a call over n calls with no sync, after 50
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(dt, 3)
+
+
+lut = cs.make_lut(cs.VoFODConfig().sensor)
+grid = GridSpec.from_config(cs.VoFODConfig())
+cases = {}
+for i, (kd, kr) in enumerate(step_calls(cs, lut)):
+    case = f"sweep scan {7 + i}"
+    fn10 = lambda a=kd: kernels.detect(*a)
+    (vals, far, labels, amin, amax, reps, npts, cls, obb, sensor, counter, cs_, _o, _iv, c,
+     window) = kd
+    want = detect_slots_plain(grid, cs_, c, vals, far, labels, amin, amax, reps, npts, cls, obb,
+                              sensor, counter, window)
+    cs._detect_compare(fn10(), want, case)
+    base, work = kr[0], kr[0].clone()
+    a5 = (work,) + kr[1:]
+
+    def fn5(a5=a5, base=base, work=work):
+        work.copy_(base)  # a fresh grid every call
+        kernels.ray_update(*a5)
+
+    fn5()
+    want5 = ray_window_update_plain_(base.clone(), *kr[1:])
+    cmp = cs._grid_cmp(work, want5, base, f"K5b {case}")
+    cases[case] = dict(
+        mav_slots=int(want[0].sum()), k5b_changed=cmp["n_changed"],
+        k10=dict(**profiled(fn10, "detect_kernel"), host_us=host_us(fn10)),
+        k5b=dict(**profiled(fn5, "ray_update_kernel"),
+                 host_us=host_us(lambda a5=a5: kernels.ray_update(*a5))))
+means = {k: {m: round(sum(r[k][m] for r in cases.values()) / len(cases), 5)
+             for m in ("device_ms", "launches", "other_ops", "memsets", "host_us")}
+         for k in ("k10", "k5b")}
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, ray_detect_cases=cases, ray_detect_means=means)))
+"""
+
+
+# runs in the change tree's root with the parent tree's root as its first
+# argument (its K10 walked every slot's whole CS^3 window, its K5b ran the
+# whole raylen chain on every window voxel: commit 3aa92df); prints one JSON
+# line.  Variants of csrc/detect.cu and csrc/ray_update.cu, built by text
+# substitution (the edits raise on a source that does not hold their text),
+# each alone under build/probe (one nvcc each, started together) and called
+# through its C entry point on the ray-detect cases' calls.  The names
+# after the parent's root select some (all by default):
+# - parent, change: the two trees' sources;
+# - parent_detect_no_window: the parent's K10 with every slot's window loop
+#   skipped (unchecked: the launch and the slots' scalars alone);
+# - parent_detect_mav_window: the parent's K10 walking only the mav slots'
+#   windows (unchecked);
+# - parent_ray_loads_only: the parent's K5b loading each voxel's offsets,
+#   point flag, its cone's T and grid value, and storing the grid value
+#   where T > 0 and no point landed, with no raylen arithmetic (unchecked);
+# - change_detect_warps2, change_detect_warps8: the change's K10 on 2 or 8
+#   warps a slot (the tree's: 4; their sums in another order, so confidence
+#   within chip_smoke.K10_CONF_RTOL);
+# - change_ray_tile32x8, _tile32x4, _tile64x4, _tile32x16: the change's K5b
+#   on tiles of that many voxels (the tree's: 16 x 16);
+# - change_ray_minblocks: the change's K5b with its launch bounded to 2,048
+#   threads an SM, so at most 32 registers a thread;
+# - change_ray_warps8x4: the change's K5b with a warp on 8 x 4 voxels of the
+#   tile (the tree's: two rows of 16);
+# - change_ray_smem_faces: the change's K5b with the six gate faces staged in
+#   shared memory by each block that survives its tile test;
+# - change_ray_compact: the change's K5b (new rule) with the voxels past the
+#   range, point flag and T tests packed into the block's first threads,
+#   which alone run the FOV test, the raylen and the EMA;
+# - change_ray_compact_fov: the same packing after the FOV test;
+# - change_ray_fov_first: the change's K5b testing the FOV before the loads;
+# - change_ray_tile_only, _range_only, _tests_only: the change's K5b
+#   returning after the tile test, after the range test, or after the point
+#   flag, T and FOV tests (unchecked: where the time goes).
+# The checked variants are held to the plain version (K10:
+# detect_slots_plain, valid, ids and the counter bit-equal, confidence too
+# for the change's own order, the floats within chip_smoke's bounds; K5b:
+# ray_window_update_plain_ on the same grid, the changed voxels bit-equal).
+# Per case: the mav slots and the slots that keep a confidence, their box ∩
+# window voxels; K5b's window voxels and how many pass each test of
+# ops.raycast.ray_cull_plain (the tile, the range, no point, T nonzero, the
+# FOV) and the voxels changed.  Per variant and case the device ms a call
+# (torch.profiler, 20 calls), its launches and memsets a call and the
+# CUDA-event ms; each variant's registers; the means over the five scans.
+# On the first scan the two trees' own K5b also run the old rule with T6
+# or the faces holding NaN, against the plain version (the parent's window
+# max took fmaxf, which drops a NaN raylen)
+_RAY_DETECT_VARIANTS = RAY_DETECT_INPUTS + r"""
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.ops.raycast import ray_cull_plain, ray_window_update_plain_
+from vofod_tpu_torch.pipeline.detect import detect_boxes, detect_slots_plain
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def edit(src, pairs):
+    for a, b in pairs:
+        if src.count(a) != 1:
+            raise RuntimeError(f"probe: {a!r} found {src.count(a)} times")
+        src = src.replace(a, b)
+    return src
+
+
+PAR_CS3 = "  const int cs3 = n.CS * n.CS * n.CS;\n"
+PAR_RAYLEN0 = (
+    "    const float rl = raylen_at(T6, faces, rel_x, rel_y, rel_z, rot, n, f, z, j, i);\n"
+    "    if (!(rl > 0.0f)) return;\n"
+    "    w1 = exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl)));\n")
+# the voxel's cone's T, with no raylen arithmetic
+T_ONLY = '''__device__ float t_only(const float* __restrict__ T6, const float* __restrict__ rel_x,
+                       const float* __restrict__ rel_y, const float* __restrict__ rel_z,
+                       const RayI& n, int z, int j, int i) {
+  const float X = rel_x[i], Y = rel_y[j], Z = rel_z[z];
+  const float ax = fabsf(X), ay = fabsf(Y), az = fabsf(Z);
+  const bool in_x = ax >= ay && ax >= az;
+  const bool in_y = !in_x && ay >= az;
+  const float rel_s = in_x ? X : (in_y ? Y : Z);
+  const int cone = 2 * (in_x ? 0 : (in_y ? 1 : 2)) + (rel_s > 0.0f ? 0 : 1);
+  return T6[(((size_t)cone * n.nz + z) * n.wy + j) * n.wx + i];
+}
+
+// torch.pow(base, its) as PyTorch computes it on the card
+'''
+PAR_POW = "// torch.pow(base, its) as PyTorch computes it on the card\n"
+
+
+def parent_variants(par_det: str, par_ray: str) -> dict:
+    return {
+        "parent": (par_det, par_ray),
+        "parent_detect_no_window": (edit(par_det, [(PAR_CS3, "  const int cs3 = 0;\n")]), None),
+        "parent_detect_mav_window": (edit(par_det, [(PAR_CS3, (
+            "  const int cs3 = cls[k] == CLS_MAV ? n.CS * n.CS * n.CS : 0;\n"))]), None),
+        "parent_ray_loads_only": (None, edit(par_ray, [(PAR_POW, T_ONLY), (PAR_RAYLEN0, (
+            "    const float rl = t_only(T6, rel_x, rel_y, rel_z, n, z, j, i);\n"
+            "    if (!(rl > 0.0f)) return;\n    w1 = rl;\n"))])),
+    }
+
+
+def change_variants(det: str, ray: str) -> dict:
+    out = {"change": (det, ray)}
+    warps = "constexpr int DET_WARPS = 4;"
+    for w in (2, 8):
+        out[f"change_detect_warps{w}"] = (
+            edit(det, [(warps, f"constexpr int DET_WARPS = {w};")]), None)
+    tile = "constexpr int RAY_TX = 16, RAY_TY = 16;"
+    for tx, ty in ((32, 8), (32, 4), (64, 4), (32, 16)):
+        out[f"change_ray_tile{tx}x{ty}"] = (
+            None, edit(ray, [(tile, f"constexpr int RAY_TX = {tx}, RAY_TY = {ty};")]))
+    # the launch bounded to 2,048 threads an SM: at most 32 registers a thread
+    bounds = ("__global__ void __launch_bounds__(RAY_TX * RAY_TY)\n    ray_update_kernel(",
+              "__global__ void __launch_bounds__(RAY_TX * RAY_TY, 2048 / (RAY_TX * RAY_TY))\n"
+              "    ray_update_kernel(")
+    out["change_ray_minblocks"] = (None, edit(ray, [bounds]))
+    out["change_ray_warps8x4"] = (None, edit(ray, [WARPS8X4]))
+    out["change_ray_smem_faces"] = (None, edit(ray, SMEM_FACES))
+    out["change_ray_compact"] = (None, edit(ray, COMPACT))
+    out["change_ray_compact_fov"] = (None, edit(ray, COMPACT_FOV))
+    out["change_ray_fov_first"] = (None, edit(ray, FOV_FIRST))
+    for name, anchor, stop in STAGES:
+        out[f"change_ray_{name}_only"] = (None, edit(ray, [(anchor, anchor + stop)]))
+    return out
+
+
+# a warp on 8 x 4 voxels of the tile
+WARPS8X4 = ('''  const int i = xa + (int)threadIdx.x % RAY_TX, j = ya + (int)threadIdx.x / RAY_TX;
+''', '''  const int w8 = (int)threadIdx.x >> 5, l8 = (int)threadIdx.x & 31;
+  const int i = xa + (w8 % (RAY_TX / 8)) * 8 + l8 % 8, j = ya + (w8 / (RAY_TX / 8)) * 4 + l8 / 8;
+''')
+# the six gate faces staged in shared memory by each block past its tile
+# test (F <= 32: 24 KB)
+SMEM_FACES = [
+    ("    if (dn2 > __fmul_rn(lim, lim)) return;  // the whole block\n  }\n", (
+        "    if (dn2 > __fmul_rn(lim, lim)) return;  // the whole block\n  }\n"
+        "  __shared__ float faces_sm[6 * 32 * 32];\n"
+        "  const float* faces_s = faces;\n"
+        "  if (n.F > 0 && n.F <= 32) {\n"
+        "    for (int e = threadIdx.x; e < 6 * n.F * n.F; e += blockDim.x)\n"
+        "      faces_sm[e] = faces[e];\n"
+        "    __syncthreads();\n"
+        "    faces_s = faces_sm;\n"
+        "  }\n")),
+    ("rl = raylen(T, v, c, el, faces, n, f);", "rl = raylen(T, v, c, el, faces_s, n, f);"),
+]
+
+
+# where the time goes (unchecked): every voxel returns after the tile test,
+# after its range test, or after its point flag, T and FOV tests (a store
+# that never happens keeps the tests)
+STAGES = [
+    ("tile", "    if (dn2 > __fmul_rn(lim, lim)) return;  // the whole block\n  }\n",
+     "  if (MODE == 0 && n.F < 0) vals[0] = 0.0f;\n  if (MODE == 0) return;\n"),
+    ("range", "  const bool in_range = live && v.d <= f.max_d;  // in registers\n",
+     "  if (MODE == 0 && in_range && n.F < 0) vals[0] = 0.0f;\n  if (MODE == 0) return;\n"),
+    ("tests", "  const bool reach = in_range && !hit;  // a point landed: no EMA\n",
+     "  if (MODE == 0) {\n    float el;\n"
+     "    if (reach && (T > 0.0f || T < 0.0f) && in_fov(v, rot, f, &el) && n.F < 0)\n"
+     "      vals[0] = g_val;\n    return;\n  }\n"),
+]
+# the new rule's voxels past the range, point flag and T tests packed into
+# the block's first threads (a ballot a warp, a prefix over the warps in
+# shared memory), which then run the FOV test, the raylen and the EMA
+COMPACT = [("  const bool reach = in_range && !hit;  // a point landed: no EMA\n",
+            '''  const bool reach = in_range && !hit;  // a point landed: no EMA
+  if (MODE == 0) {
+    constexpr int NW = RAY_TX * RAY_TY / 32;
+    __shared__ int p_src[RAY_TX * RAY_TY], w_n[NW];
+    __shared__ float p_T[RAY_TX * RAY_TY], p_g[RAY_TX * RAY_TY];
+    const bool want = reach && (T > 0.0f || T < 0.0f);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint32_t bal = __ballot_sync(0xffffffffu, want);
+    if (lane == 0) w_n[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int w = 0; w < NW; ++w) {
+      off += w < warp ? w_n[w] : 0;
+      total += w_n[w];
+    }
+    if (want) {
+      const int p = off + __popc(bal & ((1u << lane) - 1u));
+      p_src[p] = threadIdx.x;
+      p_T[p] = T;
+      p_g[p] = g_val;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x >= total) return;
+    const int src = p_src[threadIdx.x];
+    const int i2 = xa + src % RAY_TX, j2 = ya + src / RAY_TX;
+    const Geo v2 = geometry(rel_x[i2], rel_y[j2], Z, f);
+    float el;
+    if (!in_fov(v2, rot, f, &el)) return;
+    const float rl2 = raylen(p_T[threadIdx.x], v2, cone_of(v2), el, faces, n, f);
+    if (!(rl2 > 0.0f)) return;
+    const size_t g2 = ((size_t)z * n.ny + (n.y0 + j2)) * n.nx + (n.x0 + i2);
+    vals[g2] = ema(p_g[threadIdx.x], exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl2))), f.score);
+    return;
+  }
+''')]
+
+
+# the same packing after the FOV test: the packed threads run only the
+# gate, the density and the EMA
+COMPACT_FOV = [("  const bool reach = in_range && !hit;  // a point landed: no EMA\n",
+                '''  const bool reach = in_range && !hit;  // a point landed: no EMA
+  if (MODE == 0) {
+    constexpr int NW = RAY_TX * RAY_TY / 32;
+    __shared__ int p_src[RAY_TX * RAY_TY], w_n[NW];
+    __shared__ float p_T[RAY_TX * RAY_TY], p_g[RAY_TX * RAY_TY], p_el[RAY_TX * RAY_TY];
+    float el = 0.0f;
+    const bool want = reach && (T > 0.0f || T < 0.0f) && in_fov(v, rot, f, &el);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint32_t bal = __ballot_sync(0xffffffffu, want);
+    if (lane == 0) w_n[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, total = 0;
+    for (int w = 0; w < NW; ++w) {
+      off += w < warp ? w_n[w] : 0;
+      total += w_n[w];
+    }
+    if (want) {
+      const int p = off + __popc(bal & ((1u << lane) - 1u));
+      p_src[p] = threadIdx.x;
+      p_T[p] = T;
+      p_g[p] = g_val;
+      p_el[p] = el;
+    }
+    __syncthreads();
+    if ((int)threadIdx.x >= total) return;
+    const int src = p_src[threadIdx.x];
+    const int i2 = xa + src % RAY_TX, j2 = ya + src / RAY_TX;
+    const Geo v2 = geometry(rel_x[i2], rel_y[j2], Z, f);
+    const float rl2 = raylen(p_T[threadIdx.x], v2, cone_of(v2), p_el[threadIdx.x], faces, n, f);
+    if (!(rl2 > 0.0f)) return;
+    const size_t g2 = ((size_t)z * n.ny + (n.y0 + j2)) * n.nx + (n.x0 + i2);
+    vals[g2] = ema(p_g[threadIdx.x], exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl2))), f.score);
+    return;
+  }
+''')]
+# the FOV test before the loads: a voxel in range and in the FOV loads its
+# point flag, T and grid value
+FOV_FIRST = [
+    ("  if (in_range) {\n    if (MODE != 1) hit = had[g] != 0;\n",
+     "  float el0 = 0.0f;\n"
+     "  const bool seen = in_range && (MODE == 2 || in_fov(v, rot, f, &el0));\n"
+     "  if (seen) {\n    if (MODE != 1) hit = had[g] != 0;\n"),
+    ("  const bool reach = in_range && !hit;  // a point landed: no EMA\n",
+     "  const bool reach = seen && !hit;\n"),
+    ("    float el;\n    if (in_fov(v, rot, f, &el)) rl = raylen(T, v, c, el, faces, n, f);\n",
+     "    rl = raylen(T, v, c, el0, faces, n, f);\n"),
+]
+
+
+def build(srcs: dict) -> tuple[dict, dict]:
+    out_dir = Path("build/probe")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = kernels._nvcc()
+    jobs = {}
+    for name, pair in srcs.items():
+        for kind, src in zip(("det", "ray"), pair):
+            if src is None:
+                continue
+            stem = f"{name}_{kind}"
+            (out_dir / f"{stem}.cu").write_text(src)
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels._CSRC), "-o",
+                   str(out_dir / f"{stem}.so"), str(out_dir / f"{stem}.cu")]
+            jobs[(name, kind)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)
+    libs, regs = {}, {}
+    for (name, kind), job in jobs.items():
+        log = job.communicate()[0]
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc {name} {kind}: {log[-3000:]}")
+        regs[f"{name}_{kind}"] = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                                  if "registers" in ln]
+        lib = ctypes.CDLL(str(out_dir / f"{name}_{kind}.so"))
+        if kind == "det":
+            lib.vofod_detect.argtypes = [_P] * 20
+        else:
+            lib.vofod_ray_update.argtypes = [_P] * 8 + [_P, _P, _I, _P, _P, _I, _P]
+        libs.setdefault(name, {})[kind] = lib
+    return libs, regs
+
+
+def det_call(lib, a):
+    (vals, far, labels, aabb_min, aabb_max, reps, n_points, cls, obb, sensor, counter, cs_,
+     origin, inv_voxel, c, window) = a
+    K, dev = reps.shape[0], vals.device
+    out = (torch.empty(K, dtype=torch.bool, device=dev),
+           torch.empty(K, dtype=torch.int32, device=dev),
+           torch.empty(K, dtype=torch.float32, device=dev),
+           torch.empty(K, dtype=torch.float32, device=dev),
+           torch.empty((K, 3, 3), dtype=torch.float32, device=dev),
+           torch.empty((), dtype=torch.int32, device=dev))
+    nzb, ny, nx = vals.shape
+    nz, z_lo, own0, own1 = (nzb, 0, 0, nzb) if window is None else window
+    ints = kernels._host_i32(nz, ny, nx, K, cs_, z_lo, nzb, own0, own1)
+    floats = kernels._host_f32(*origin, inv_voxel, *c)
+
+    def launch():
+        err = lib.vofod_detect(
+            vals.data_ptr(), far.data_ptr(), labels.data_ptr(), aabb_min.data_ptr(),
+            aabb_max.data_ptr(), reps.data_ptr(), n_points.data_ptr(), cls.data_ptr(),
+            obb.data_ptr(), sensor.data_ptr(), counter.data_ptr(), ints[1], floats[1],
+            *(t.data_ptr() for t in out), kernels._stream())
+        if err:
+            raise RuntimeError(f"vofod_detect: CUDA error {err}")
+        return out
+    return launch
+
+
+def ray_call(lib, a, work):
+    _, had, T6, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema, _gmax = a
+    nz, ny, nx = work.shape
+    wy, wx = rel_y.shape[0], rel_x.shape[0]
+    F = 0 if faces is None else faces.shape[-1]
+    ints = kernels._host_i32(nz, ny, nx, wy, wx, y0, x0, F)
+    floats = kernels._host_f32(*c, ema.coef, ema.its, ema.weight, ema.score)
+    # the old rule's scratch: the window's raylen and its max's bits
+    raylen_w = torch.empty(nz * wy * wx, dtype=torch.float32, device=work.device)
+    max_bits = torch.zeros((), dtype=torch.int32, device=work.device)
+
+    def launch():
+        if not ema.new_rule:
+            max_bits.zero_()
+        err = lib.vofod_ray_update(
+            work.data_ptr(), had.data_ptr(), T6.data_ptr(),
+            None if faces is None else faces.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(),
+            rel_z.data_ptr(), rot.data_ptr(), ints[1], floats[1], int(bool(ema.new_rule)),
+            raylen_w.data_ptr(), max_bits.data_ptr(), 3, kernels._stream())
+        if err:
+            raise RuntimeError(f"vofod_ray_update: CUDA error {err}")
+        return work
+    return launch
+
+
+def old_rule_nan(lib, a, base):
+    # the old rule on a call's inputs with T6 holding NaN (every 101st value)
+    # or the faces (every 13th), as chip_smoke's phase 2 cases: whether the
+    # grid is the plain version's, NaN where it is NaN
+    out = {}
+    for name, i in (("T6 holding NaN", 2), ("faces holding NaN", 3)):
+        b = list(a)
+        b[i] = a[i].clone()
+        b[i].view(-1)[::101 if i == 2 else 13] = float("nan")
+        b[11] = a[11]._replace(new_rule=False)
+        work = base.clone()
+        ray_call(lib, b, work)()
+        want = ray_window_update_plain_(base.clone(), *b[1:12])
+        out[name] = dict(plain_nan=int(want.isnan().sum()), kernel_nan=int(work.isnan().sum()),
+                         equal=bool(((work == want) | (work.isnan() & want.isnan())).all()))
+    return out
+
+
+def main() -> int:
+    par_dir = Path(sys.argv[1]) / "vofod_tpu_torch/csrc"
+    par = ((par_dir / "detect.cu").read_text(), (par_dir / "ray_update.cu").read_text())
+    chg = (Path("vofod_tpu_torch/csrc/detect.cu").read_text(),
+           Path("vofod_tpu_torch/csrc/ray_update.cu").read_text())
+    srcs = parent_variants(*par)
+    if chg != par:  # this tree holds the redesigned kernels
+        srcs.update(change_variants(*chg))
+    if sys.argv[2:]:
+        srcs = {k: v for k, v in srcs.items() if k in sys.argv[2:]}
+    libs, regs = build(srcs)
+
+    cfg, dyn = cs.VoFODConfig(), DynParams()
+    lut = cs.make_lut(cfg.sensor)
+    grid = GridSpec.from_config(cfg)
+    res = {"k10": {}, "k5b": {}, "registers": regs}
+    for s, (kd, kr) in enumerate(step_calls(cs, lut)):
+        case = f"sweep scan {7 + s}"
+        (vals, far, labels, amin, amax, reps, npts, cls, obb, sensor, counter, cs_, _o, _iv, c,
+         window) = kd
+        want = detect_slots_plain(grid, cs_, c, vals, far, labels, amin, amax, reps, npts, cls,
+                                  obb, sensor, counter, window)
+        lo, hi, ctr = detect_boxes(grid, amin, amax)
+        keep = (want[0] & (ctr[:, 2] >= window[2]) & (ctr[:, 2] < window[3]) if window else
+                want[0])
+        half = cs_ // 2
+        box = torch.clamp(torch.minimum(hi, ctr - half + cs_ - 1)
+                          - torch.maximum(lo, ctr - half) + 1, min=0).prod(1)
+        row = dict(mav_slots=int(want[0].sum()), keeping_slots=int(keep.sum()),
+                   box_window_voxels=[int(b) for b in box[keep]])
+        for name, lib in libs.items():
+            if "det" not in lib:
+                continue
+            fn = det_call(lib["det"], kd)
+            got = fn()
+            if not any(k in name for k in ("no_window", "mav_window")):
+                # the parent's and the warps variants' sums run in another order
+                cs._detect_compare(got, want, f"{name} {case}",
+                                   conf_equal=name.startswith("change") and "warps" not in name)
+            row[name] = dict(**profiled(fn, "detect"), ms=cs.cuda_ms(fn))
+        res["k10"][case] = row
+
+        base, had, T6, faces, rel_x, rel_y, rel_z, rot, x0, y0, rc, ema, _ = kr
+        wy, wx = rel_y.shape[0], rel_x.shape[0]
+        win = (slice(None), slice(y0, y0 + wy), slice(x0, x0 + wx))
+        m = ray_cull_plain(T6, had[win], rel_x, rel_y, rel_z, rot, rc, ema.new_rule)
+        want = ray_window_update_plain_(base.clone(), had, T6, faces, rel_x, rel_y, rel_z, rot,
+                                        x0, y0, rc, ema)
+        row = dict(window_voxels=int(m["tile"].numel()),
+                   **{f"after_{k}": int(v.sum()) for k, v in m.items()},
+                   changed=int((want != base).sum()))
+        for name, lib in libs.items():
+            if "ray" not in lib:
+                continue
+            work = base.clone()
+            fn = ray_call(lib["ray"], kr, work)
+            fn()
+            if not name.endswith("_only"):
+                cs._grid_cmp(work, want, base, f"K5b {name} {case}")
+            row[name] = dict(**profiled(fn, "ray_update"), ms=cs.cuda_ms(fn))
+            if s == 0 and name in ("parent", "change"):
+                row[name]["old_rule_nan"] = old_rule_nan(lib["ray"], kr, base)
+        res["k5b"][case] = row
+    for k in ("k10", "k5b"):
+        rows = [r for c, r in res[k].items() if c.startswith("sweep scan")]
+        res[k]["sweep scans 7-11 mean"] = {
+            n: round(sum(r[n]["device_ms"] for r in rows) / len(rows), 5)
+            for n in rows[0] if isinstance(rows[0][n], dict)}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(json.dumps(res))
+    return 0
+
+
+sys.exit(main())
+"""
+
 PAIR_MODES = {"exact": (_EXACT_STEP, "4-exact", "dense"),
               "grid_exact": (_GRID_EXACT_STEP, "4-grid-exact", "grid")}
 
@@ -1134,8 +1724,12 @@ def main() -> int:
                     help="time only K6's and K5a's calls of the sweep step in each run")
     ap.add_argument("--explore-only", action="store_true",
                     help="time only K7's and K8's calls of the sweep and exact steps in each run")
+    ap.add_argument("--ray-detect-only", action="store_true",
+                    help="time only K10's and K5b's calls of the sweep step in each run")
     ap.add_argument("--variants", default="",
                     help="then time these variants of the change's K6 and K5a ('all': every one)")
+    ap.add_argument("--ray-detect-variants", default="",
+                    help="then time these variants of both trees' K10 and K5b ('all': every one)")
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
     args.out.mkdir(parents=True, exist_ok=True)
@@ -1143,13 +1737,14 @@ def main() -> int:
     for i, tag in enumerate(args.order):
         tree, name = trees[tag], {"p": "parent", "c": "change"}[tag]
         for flag, script in ((args.compact_gate_only, _COMPACT_GATE_CASES),
-                             (args.explore_only, _EXPLORE_CASES)):
+                             (args.explore_only, _EXPLORE_CASES),
+                             (args.ray_detect_only, _RAY_DETECT_CASES)):
             if flag:
                 g, gate = _json_run(script, tree)
                 ok = ok and g
                 print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
                 runs.append(dict(run=i, tree=name, **gate))
-        if args.compact_gate_only or args.explore_only:
+        if args.compact_gate_only or args.explore_only or args.ray_detect_only:
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:
@@ -1159,15 +1754,17 @@ def main() -> int:
             continue
         g, gate = _json_run(_COMPACT_GATE_CASES, tree)
         e, expl = _json_run(_EXPLORE_CASES, tree)
+        rd_ok, rd = _json_run(_RAY_DETECT_CASES, tree)
         k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
-        run = {"run": i, "tree": name, "kernel_times": kern, **demote, **gate, **expl,  # one nvidia_smi
+        run = {"run": i, "tree": name, "kernel_times": kern,  # one nvidia_smi
+               **demote, **gate, **expl, **rd,
                "smoke_rc": s.returncode, "smoke_last_line": last[0],
                **summarize(phases(s.stdout))}
-        ok = ok and d and g and e and k_ok and s.returncode == 0
+        ok = ok and d and g and e and rd_ok and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}
@@ -1178,6 +1775,14 @@ def main() -> int:
         lines = v.stdout.strip().splitlines()
         out["variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
                            else {"error": v.stderr[-4000:]})
+        ok = ok and v.returncode == 0
+    if args.ray_detect_variants:
+        names = [] if args.ray_detect_variants == "all" else args.ray_detect_variants.split(",")
+        v = subprocess.run([sys.executable, "-c", _RAY_DETECT_VARIANTS, str(trees["p"]), *names],
+                           cwd=trees["c"], capture_output=True, text=True, timeout=1200)
+        lines = v.stdout.strip().splitlines()
+        out["ray_detect_variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
+                                      else {"error": v.stderr[-4000:]})
         ok = ok and v.returncode == 0
     for mode, n in (("exact", args.exact_pairs), ("grid_exact", args.grid_exact_pairs)):
         if n:

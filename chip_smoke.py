@@ -47,11 +47,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    byte offset 1 and a 1000-column LUT, both pooled byte by byte) within
    K5A_TOL, one launch and no memset a call; K5b (the scan's
    window, both update rules, its_diff 1 and 2, kernel and plain version
-   on separate clones of the grid) with the changed voxels bit-equal and
-   the grid within K5B_TOL_REL x |score_ray|; K10 (the scan's slots, and
-   synthetic slots in two grid corners and on an edge) with ids, valid
-   and the counter bit-equal, confidence within K10_CONF_RTOL, pdet and
-   covariance within K10_RTOL; K11 (the point EMA of the scan and of
+   on separate clones of the grid; under both rules the sensor in the low
+   and the high grid corner, the window clamped there, a pose pitched 52
+   and rolled -40 degrees, T6 holding NaN and faces holding NaN) with the
+   changed voxels bit-equal and the grid within K5B_TOL_REL x |score_ray|,
+   its tile the cull model's RAY_TILE;
+   K10 (the scan's slots, synthetic slots in two grid corners and on an
+   edge, the synthetic slots all mav and none mav) with ids, valid, the
+   counter and confidence bit-equal (its warps the plain version's
+   DET_WARPS), pdet and covariance within K10_RTOL; K11 (the point EMA of the scan and of
    random counts; the demotion EMA with sure_sufficient True and False, on
    random masks, in one corner only (blocks that skip their pool beside
    blocks that pool) and on a grid path's slab of 17 + 2 planes; with the
@@ -251,15 +255,16 @@ from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     Shells, ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps,
     run_table, shell_pool, shell_taps, tap_pool_plain, tap_set)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
-    RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces, gate_faces_plain,
-    dda_n_steps, make_angular_gate, ray_ema_grid_, ray_ema_plain, ray_window_update_,
-    ray_window_update_plain_, raycast_dda, raycast_dda_plain, row_table, sweep_window)
+    RAY_TILE, RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces,
+    gate_faces_plain, dda_n_steps, make_angular_gate, ray_cull_plain, ray_ema_grid_, ray_ema_plain,
+    ray_window_update_, ray_window_update_plain_, raycast_dda, raycast_dda_plain, row_table,
+    sweep_window)
 from vofod_tpu_torch.pipeline.background import (  # noqa: E402
     point_ema, point_ema_plain, split_and_update)
 from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
     CLS_MAV, classify, cluster_stats, cluster_stats_plain, explore_queries)
 from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
-    DetectConsts, detect_slots, detect_slots_plain)
+    DET_WARPS, DetectConsts, detect_boxes, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
     pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain,
@@ -299,8 +304,9 @@ K5A_TOL = 1e-6
 # K5b: the grid within 1e-5 x |score_ray| (the bound tests/test_torch_raycast.py
 # holds the ray EMA to against JAX); the set of voxels it changed bit-equal
 K5B_TOL_REL = 1e-5
-# K10 confidence relative; pdet and covariance relative (the window sum is
-# replayed in the kernel's order, so bit-equal is expected)
+# K10 confidence relative; pdet and covariance relative.  The plain version
+# replays the window sum in the kernel's order (DET_WARPS, which phase 2
+# holds to the kernel's), so phase 2 also holds confidence bit-equal
 K10_CONF_RTOL = 1e-5
 K10_RTOL = 1e-6
 # K12 raylen against the plain version's sequential (JAX-order) float32 sum:
@@ -1362,9 +1368,12 @@ def _synthetic_slots(cfg, grid: GridSpec, far, labels, sensor_pos, seed: int):
     return far, labels, (t(lo), t(hi), t(reps), t(npts), t(cls), t(obb))
 
 
-def _detect_compare(k, p, what: str) -> dict:
+def _detect_compare(k, p, what: str, conf_equal: bool = True) -> dict:
+    """K10's outputs ``k`` against the plain version's ``p``: valid, ids and
+    the counter bit-equal, confidence too unless ``conf_equal`` is False (a
+    sum in another order), and the floats within their bounds."""
     names = ("valid", "ids", "confidence", "pdet", "covariance", "counter")
-    for i in (0, 1, 5):
+    for i in (0, 1, 2, 5) if conf_equal else (0, 1, 5):
         if not torch.equal(k[i], p[i]):
             raise AssertionError(f"K10 {what}: {names[i]} differs from the plain version")
     errs = dict(confidence=_rel(k[2], p[2]), pdet=_rel(k[3], p[3]), covariance=_rel(k[4], p[4]))
@@ -1443,7 +1452,10 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     ))
 
     # K5b — the scan's window: K4's T6, the K5a faces, both rules, its_diff
-    # 1 and 2; kernel and plain version on separate clones
+    # 1 and 2; kernel and plain version on separate clones.  The cull model
+    # (ray_cull_plain, the bound's counts) tiles the window as the kernel does
+    if kernels.ray_update_geometry() != RAY_TILE:
+        raise AssertionError(f"K5b tile {kernels.ray_update_geometry()}, RAY_TILE {RAY_TILE}")
     c = RayConsts.make(grid.voxel_size, dyn.raycast_max_distance, cfg.sensor.vertical_fov,
                        H, W)
     k5b = {}
@@ -1469,20 +1481,78 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     if not (cmp["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray) and cmp["n_changed"] > 0):
         raise AssertionError(f"K5b ungated (faces=None): {cmp}")
     k5b["ungated (faces=None), new rule, its_diff 1"] = cmp
+    # where the cull can go wrong: a pitched and rolled pose (the FOV test
+    # off the level), the sensor in a grid corner (the window clamped at
+    # x0 = y0 = 0 and at nx - wx, ny - wy; its T6 from K4), T6 holding NaN
+    # (the new rule culls it) and faces holding NaN (the old rule's max
+    # keeps it, as torch.max does: every voxel the EMA reaches turns NaN)
+    sz_ = float(sensor_pos[2])
+    nz_, ny_, nx_ = grid.shape
+    for where, pos in (("low", (1.5, 1.5)), ("high", (nx_ * grid.voxel_size - 2.0,
+                                                      ny_ * grid.voxel_size - 1.5))):
+        w = sweep_window(grid, np.array([grid.origin[0] + pos[0], grid.origin[1] + pos[1], sz_],
+                                        np.float32), cfg.raycast_max_distance_bound)
+        if (w[0], w[1]) != ((0, 0) if where == "low" else (nx_ - w[2], ny_ - w[3])):
+            raise AssertionError(f"K5b case: the window {w[:4]} is not in the {where} corner")
+        ex, ey, ez = _window_offsets(grid, *w, dev)
+        tc = cone_sweep(occupied[:, w[1]:w[1] + w[3], w[0]:w[0] + w[2]].contiguous(), ex, ey, ez)
+        for new_rule in (True, False):
+            k5b[f"sensor in the {where} grid corner, {'new' if new_rule else 'old'} rule"] = (
+                occupied, tc, faces, ex, ey, ez, rot, w[0], w[1], new_rule)
+    rot_t = torch.as_tensor(_rot(0.4, 0.9, -0.7), device=dev)
+    t_nan = kt.clone()
+    t_nan.view(-1)[::101] = float("nan")
+    f_nan = faces.clone()
+    f_nan.view(-1)[::13] = float("nan")
+    for new_rule in (True, False):
+        r = "new" if new_rule else "old"
+        k5b[f"pitched 52 and rolled -40 degrees, {r} rule"] = (
+            occupied, kt, faces, rel_x, rel_y, rel_z, rot_t, x0, y0, new_rule)
+        k5b[f"T6 holding NaN, {r} rule"] = (
+            occupied, t_nan, faces, rel_x, rel_y, rel_z, rot, x0, y0, new_rule)
+        k5b[f"faces holding NaN, {r} rule"] = (
+            occupied, kt, f_nan, rel_x, rel_y, rel_z, rot, x0, y0, new_rule)
+    for name, case in list(k5b.items()):
+        if isinstance(case, dict):
+            continue
+        *a, new_rule = case
+        ema = ray_ema(cfg, dataclasses.replace(dyn, raycast_new_update_rule=new_rule), 1.0)
+        ka = ray_window_update_(vals.clone(), *a, c, ema)
+        pa = ray_window_update_plain_(vals.clone(), *a, c, ema)
+        cmp = _grid_cmp(ka, pa, vals, f"K5b {name}")
+        if not (cmp["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray) and cmp["n_changed"] > 0):
+            raise AssertionError(f"K5b {name}: {cmp}")
+        cmp["non_finite"] = int((~torch.isfinite(pa)).sum())
+        k5b[name] = cmp
+    if k5b["faces holding NaN, old rule"]["non_finite"] == 0:
+        raise AssertionError("K5b: NaN faces under the old rule made no voxel NaN")
     work_k, work_p = vals.clone(), vals.clone()
     args1 = (occupied, kt, faces, rel_x, rel_y, rel_z, rot, x0, y0, c, ema1)
-    nw = kt.shape[1] * kt.shape[2] * kt.shape[3]
+    # the bytes this call needs: the point flag of the voxels in range, T of
+    # those with no point, the grid value of those past the FOV test read
+    # and of those changed written, the faces; the range test of the kept
+    # tiles' voxels and the raylen and EMA of those past the FOV
+    m = ray_cull_plain(kt, occupied[:, y0:y0 + rel_y.shape[0], x0:x0 + rel_x.shape[0]], rel_x,
+                       rel_y, rel_z, rot, c, True)
+    n_changed = k5b["new rule, its_diff 1"]["n_changed"]
+    culls = {k: int(v.sum()) for k, v in m.items()}
     out.append(dict(
         name="ray_update", max_abs_err=max(v["max_abs"] for v in k5b.values()),
-        bytes=nw * (4 + 4 + 1 + 4) + faces.numel() * 4, ops=nw * 80, library_ms=None,
+        bytes=culls["range"] + 4 * culls["had"] + 4 * culls["fov"] + 4 * n_changed
+        + faces.numel() * 4, ops=culls["tile"] * 12 + culls["fov"] * 80, library_ms=None,
         tol=K5B_TOL_REL * abs(dyn.score_ray),
         ms=cuda_ms(lambda: ray_window_update_(work_k, *args1)),
+        device_ms=device_profile(lambda: ray_window_update_(work_k, *args1))["device_ms"],
         plain_ms=cuda_ms(lambda: ray_window_update_plain_(work_p, *args1)),
         ungated_ms=cuda_ms(lambda: ray_window_update_(work_k, *args0)),
-        cases=k5b, shapes=f"window {tuple(kt.shape[1:])} of {grid.shape}",
+        window_voxels=m["tile"].numel(), passing=culls, cases=k5b,
+        shapes=f"window {tuple(kt.shape[1:])} of {grid.shape}",
     ))
 
-    # K10 — the scan's slots, then synthetic slots in grid corners and edges
+    # K10 — the scan's slots, then synthetic slots in grid corners and edges;
+    # the plain version replays the window sum on DET_WARPS warps
+    if kernels.detect_geometry() != DET_WARPS:
+        raise AssertionError(f"K10 on {kernels.detect_geometry()} warps, DET_WARPS {DET_WARPS}")
     bg = split_and_update(cfg, dyn, vals, counts, node.state.bg_sufficient)
     cls = classify(cfg, dyn, grid, bg.grid, bg.far, bg.labels, bg.cc_converged, sensor_pos,
                    bg.bg_sufficient, node.state.sure_bg_sufficient)
@@ -1496,15 +1566,32 @@ def phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window) -
     syn_args = (grid, CS, dc, cls.grid, sfar, slab, *slots[:5], slots[5], sensor_pos, counter)
     syn_cmp = _detect_compare(detect_slots(*syn_args), detect_slots_plain(*syn_args),
                               "synthetic corners")
+    # every slot mav (each reads its box ∩ window, boxes anywhere) and none
+    k10 = {}
+    for name, cls_all in (("every slot mav", CLS_MAV), ("no slot mav", 0)):
+        a = (*syn_args[:10], torch.full_like(slots[4], cls_all), *syn_args[11:])
+        k10[name] = _detect_compare(detect_slots(*a), detect_slots_plain(*a), name)
+        if k10[name]["mav_slots"] != (cfg.max_clusters if cls_all else 0):
+            raise AssertionError(f"K10 {name}: {k10[name]['mav_slots']} mav slots")
+    # the bytes this call needs: the box ∩ window of each slot that keeps a
+    # confidence (vals, far, labels), each slot's scalars and outputs
+    lo, hi, ctr = detect_boxes(grid, cls.aabb_min, cls.aabb_max)
+    keep = (cls.cluster_class == CLS_MAV).cpu()
+    n_read = int(torch.clamp(torch.minimum(hi, ctr - CS // 2 + CS - 1)
+                             - torch.maximum(lo, ctr - CS // 2) + 1, min=0).prod(1).cpu()[keep]
+                 .sum())
     out.append(dict(
-        name="detect", max_abs_err=max(scan_cmp["max_abs"], syn_cmp["max_abs"]),
-        bytes=cfg.max_clusters * (CS**3 * (4 + 1 + 4) + 100), ops=cfg.max_clusters * CS**3 * 10,
+        name="detect", max_abs_err=max(scan_cmp["max_abs"], syn_cmp["max_abs"],
+                                       *(v["max_abs"] for v in k10.values())),
+        bytes=n_read * (4 + 1 + 4) + cfg.max_clusters * 100, ops=n_read * 4 + cfg.max_clusters * 40,
         library_ms=None,
         tol=dict(confidence_rel=K10_CONF_RTOL, pdet_cov_rel=K10_RTOL),
         ms=cuda_ms(lambda: detect_slots(*scan_args)),
+        device_ms=device_profile(lambda: detect_slots(*scan_args))["device_ms"],
         plain_ms=cuda_ms(lambda: detect_slots_plain(*scan_args)),
-        scan=scan_cmp, synthetic=syn_cmp,
-        shapes=f"K={cfg.max_clusters} windows of {CS}^3; ids, valid, counter bit-equal",
+        box_window_voxels_read=n_read, scan=scan_cmp, synthetic=syn_cmp, **k10,
+        shapes=f"K={cfg.max_clusters} windows of {CS}^3; ids, valid, counter, confidence "
+               "bit-equal",
     ))
 
     # K11 — the point EMA of the scan and of random counts (> 63 included);

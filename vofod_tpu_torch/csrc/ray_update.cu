@@ -8,20 +8,39 @@
 // `ray_update` (the EMA toward score_ray where raylen > 0 and no point
 // landed this scan).
 //
-// Bound on the H100: memory, and little of it.  One thread per window voxel
-// (51 x 97 x 97 = 479,859 at the flagship) reads one T value of the cone
-// its voxel falls in (K4's output), its grid value and point flag, and
-// writes the grid value back: ~10 B per voxel, 5 MB in all, where the plain
-// PyTorch form materialised a second [6, 51, 97, 97] gate tensor, ~40
-// elementwise temporaries and two full-grid passes.  The gate factor is
-// computed per voxel from the face texture: each tent has at most two
-// nonzero taps, so the two einsums become two-term sums.  Voxels outside
-// the window have raylen 0 and are never touched.
+// Bound on the H100: memory, and little of it.  The window is 51 x 97 x 97
+// = 479,859 voxels at the flagship, but at the 20 m range and the +-24 m
+// window only a quarter to two fifths of them lie inside both the range
+// ball and the vertical FOV, and only those can change.  A block takes a
+// tile of RAY_TX x RAY_TY voxels of one z plane (a warp two rows of 16,
+// which the range ball's and the FOV cone's edges cut through less often
+// than a row of 32) and first culls itself: a tile whose nearest voxel
+// centre lies farther than max_d plus one voxel from the sensor returns
+// before any load (the margin keeps the test conservative; the offsets
+// increase along each axis, so the nearest centre is at the tile's ends).
+// A voxel then runs its tests in order of cost: the range (d from its
+// offsets, in registers); a voxel in range loads its point flag (1 B), its
+// cone's T (4 B, K4's output; 0 or NaN gives a raylen of 0 or NaN) and its
+// grid value (4 B) together, then tests the point flag, T, the elevation
+// and the FOV; only the voxels past all of them read the gate's faces
+// (each tent has at most two nonzero taps, so the two einsums become
+// two-term sums), compute the density and apply the EMA (the grid value
+// written).  What remains sets the time: the launch of the window's blocks
+// with their tile test, and the arithmetic of the warps that hold a voxel
+// past the tests.  The plain PyTorch form materialised a second [6, 51,
+// 97, 97] gate tensor, ~40 elementwise temporaries and two full-grid
+// passes.  Voxels outside the window have raylen 0 and are never touched.
 //
 // Under the old update rule the EMA needs max(raylen) first: pass 1 writes
-// the window's raylen and an atomicMax on its float bits (raylen >= 0, so
-// integer order is float order); pass 2 applies the EMA.  The default new
-// rule is one pass.
+// the window's raylen (0 where the range or the FOV cuts a voxel of a tile
+// that survives) and an atomicMax on its float bits (raylen > 0, so integer
+// order is float order; a NaN raylen, which torch.max keeps, as the largest
+// NaN pattern); pass 2 repeats the tile and range tests and applies the
+// EMA.  Pass 1 culls by neither the point flag (the max takes every voxel)
+// nor T (a T of 0 times a NaN gate is NaN).  The default new rule is one
+// pass.  Every cull drops only voxels whose raylen is 0 or NaN (or, under
+// the new rule, that had a point), none of which the EMA changes: the
+// plain model ops/raycast.py ray_cull_plain replays the cull.
 //
 // A second entry point, vofod_ray_ema, is K12's second pass: the same EMA
 // (both rules, the same max construction) on the exact DDA's full-grid
@@ -42,7 +61,8 @@
 
 namespace {
 
-constexpr int RAY_T = 256;
+constexpr int RAY_TX = 16, RAY_TY = 16;  // ops/raycast.py RAY_TILE: K5b's tile
+constexpr int RAY_T = 256;  // K12's EMA pass
 
 // float32 constants, in the order of kernels.py ray_update
 struct RayF {
@@ -65,6 +85,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v != v ? v : fminf(fmaxf(v, lo), hi);
 }
+
+__device__ __forceinline__ float clamp_min(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
 
 // the two nonzero taps of the tent at face coordinate x in [-1, 1]
 __device__ __forceinline__ void tent2(float x, int F, int* i, float* w) {
@@ -93,45 +115,77 @@ __device__ __forceinline__ float gate_factor(const float* __restrict__ face, int
   return round_bf16(__fadd_rn(__fmul_rn(wv[0], tmp[0]), __fmul_rn(wv[1], tmp[1])));
 }
 
-// raylen of window voxel (z, j, i)
-__device__ float raylen_at(const float* __restrict__ T6,
-                           const float* __restrict__ faces,
-                           const float* __restrict__ rel_x,
-                           const float* __restrict__ rel_y,
-                           const float* __restrict__ rel_z,
-                           const float* __restrict__ rot, const RayI& n,
-                           const RayF& f, int z, int j, int i) {
-  const float X = rel_x[i], Y = rel_y[j], Z = rel_z[z];
-  const float ax = fabsf(X), ay = fabsf(Y), az = fabsf(Z);
-  // cone partition, priority x > y > z on ties
-  const bool in_x = ax >= ay && ax >= az;
-  const bool in_y = !in_x && ay >= az;
-  const float rel_s = in_x ? X : (in_y ? Y : Z);
-  const bool pos = rel_s > 0.0f;
-  const int cone = 2 * (in_x ? 0 : (in_y ? 1 : 2)) + (pos ? 0 : 1);
-  float T = T6[(((size_t)cone * n.nz + z) * n.wy + j) * n.wx + i];
+// |offset| of the nearest voxel centre of a tile spanning [a, b] along one
+// axis (the offsets increase along each axis): 0 where it holds the sensor
+__device__ __forceinline__ float nearest(float a, float b) {
+  return (a <= 0.0f && b >= 0.0f) ? 0.0f : fminf(fabsf(a), fabsf(b));
+}
+
+// A voxel's offsets from the sensor and its distance, as ray_window_plain
+struct Geo {
+  float X, Y, Z, rx, ry, rz, d2, d;
+};
+
+__device__ __forceinline__ Geo geometry(float X, float Y, float Z, const RayF& f) {
+  Geo v;
+  v.X = X;
+  v.Y = Y;
+  v.Z = Z;
+  v.rx = __fmul_rn(X, f.vs);
+  v.ry = __fmul_rn(Y, f.vs);
+  v.rz = __fmul_rn(Z, f.vs);
+  v.d2 = __fadd_rn(__fadd_rn(__fmul_rn(v.rx, v.rx), __fmul_rn(v.ry, v.ry)),
+                   __fmul_rn(v.rz, v.rz));
+  v.d = __fsqrt_rn(v.d2);
+  return v;
+}
+
+// cone partition, priority x > y > z on ties
+struct Cone {
+  bool in_x, in_y, pos;
+  float rel_s;
+  int id;
+};
+
+__device__ __forceinline__ Cone cone_of(const Geo& v) {
+  const float ax = fabsf(v.X), ay = fabsf(v.Y), az = fabsf(v.Z);
+  Cone c;
+  c.in_x = ax >= ay && ax >= az;
+  c.in_y = !c.in_x && ay >= az;
+  c.rel_s = c.in_x ? v.X : (c.in_y ? v.Y : v.Z);
+  c.pos = c.rel_s > 0.0f;
+  c.id = 2 * (c.in_x ? 0 : (c.in_y ? 1 : 2)) + (c.pos ? 0 : 1);
+  return c;
+}
+
+// the elevation *el in the SENSOR frame (s = R^T (c - o)) inside the
+// vertical FOV
+__device__ __forceinline__ bool in_fov(const Geo& v, const float* __restrict__ rot,
+                                       const RayF& f, float* el) {
+  const float d_safe = fmaxf(v.d, f.vs);
+  const float sz = __fadd_rn(__fadd_rn(__fmul_rn(rot[2], v.rx), __fmul_rn(rot[5], v.ry)),
+                             __fmul_rn(rot[8], v.rz));
+  *el = asinf(clampf(__fdiv_rn(sz, d_safe), -1.0f, 1.0f));
+  return fabsf(*el) <= f.fov_lim;
+}
+
+// raylen of a voxel past every test: its cone's T times the gate factor,
+// the chord-length density at elevation el
+__device__ __forceinline__ float raylen(float T, const Geo& v, const Cone& c, float el,
+                                        const float* __restrict__ faces, const RayI& n,
+                                        const RayF& f) {
   if (n.F > 0) {
-    float rs = pos ? rel_s : -rel_s;
+    float rs = c.pos ? c.rel_s : -c.rel_s;
     rs = fabsf(rs) < 0.5f ? 0.5f : rs;
-    const float ra = (in_x || in_y) ? Z : Y;  // x, y cones: A = z; z cones: A = y
-    const float rb = in_x ? Y : X;            // x cones: B = y; y, z cones: B = x
+    const float ra = (c.in_x || c.in_y) ? v.Z : v.Y;  // x, y cones: A = z; z cones: A = y
+    const float rb = c.in_x ? v.Y : v.X;              // x cones: B = y; y, z cones: B = x
     const float u = clampf(__fdiv_rn(ra, rs), -1.0f, 1.0f);
-    const float v = clampf(__fdiv_rn(rb, rs), -1.0f, 1.0f);
-    T = __fmul_rn(T, gate_factor(faces + (size_t)cone * n.F * n.F, n.F, u, v));
+    const float w = clampf(__fdiv_rn(rb, rs), -1.0f, 1.0f);
+    T = __fmul_rn(T, gate_factor(faces + (size_t)c.id * n.F * n.F, n.F, u, w));
   }
-  const float rx = __fmul_rn(X, f.vs), ry = __fmul_rn(Y, f.vs), rz = __fmul_rn(Z, f.vs);
-  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                             __fmul_rn(rz, rz));
-  const float d = __fsqrt_rn(d2);
-  const float d_safe = fmaxf(d, f.vs);
-  // elevation in the SENSOR frame: s = R^T (c - o)
-  const float sz = __fadd_rn(__fadd_rn(__fmul_rn(rot[2], rx), __fmul_rn(rot[5], ry)),
-                             __fmul_rn(rot[8], rz));
-  const float el = asinf(clampf(__fdiv_rn(sz, d_safe), -1.0f, 1.0f));
   const float cos_el = fmaxf(cosf(el), 0.05f);
   const float density = __fdiv_rn(1.0f, __fmul_rn(f.c_dens, cos_el));
-  if (!(fabsf(el) <= f.fov_lim && d <= f.max_d)) return 0.0f;
-  return __fdiv_rn(__fmul_rn(__fmul_rn(T, density), f.vs3), fmaxf(d2, f.vs2));
+  return __fdiv_rn(__fmul_rn(__fmul_rn(T, density), f.vs3), fmaxf(v.d2, f.vs2));
 }
 
 // torch.pow(base, its) as PyTorch computes it on the card
@@ -148,46 +202,74 @@ __device__ __forceinline__ float ema(float g, float w1, float score) {
 }
 
 // mode 0: new rule, one pass; 1: old rule pass 1 (raylen + max);
-// 2: old rule pass 2 (the EMA from the stored raylen)
+// 2: old rule pass 2 (the EMA from the stored raylen).  A block per tile
+// (x, y tiles of plane blockIdx.z), a warp on RAY_TX x 32 / RAY_TX voxels.
 template <int MODE>
-__global__ void __launch_bounds__(RAY_T)
+__global__ void __launch_bounds__(RAY_TX * RAY_TY)
     ray_update_kernel(float* __restrict__ vals, const uint8_t* __restrict__ had,
                       const float* __restrict__ T6, const float* __restrict__ faces,
                       const float* __restrict__ rel_x, const float* __restrict__ rel_y,
                       const float* __restrict__ rel_z, const float* __restrict__ rot,
                       RayI n, RayF f, float* __restrict__ raylen_w,
                       unsigned int* __restrict__ max_bits) {
-  const int nw = n.nz * n.wy * n.wx;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = t < nw;
-  const int i = live ? t % n.wx : 0;
-  const int j = live ? (t / n.wx) % n.wy : 0;
-  const int z = live ? t / (n.wx * n.wy) : 0;
+  const int z = blockIdx.z, xa = blockIdx.x * RAY_TX, ya = blockIdx.y * RAY_TY;
+  const int i = xa + (int)threadIdx.x % RAY_TX, j = ya + (int)threadIdx.x / RAY_TX;
+  const bool live = i < n.wx && j < n.wy;
+  // the offsets of the tile's ends and of this voxel, loaded together
+  const float ex0 = rel_x[xa], ex1 = rel_x[min(xa + RAY_TX, n.wx) - 1];
+  const float ey0 = rel_y[ya], ey1 = rel_y[min(ya + RAY_TY, n.wy) - 1];
+  const float Z = rel_z[z], X = rel_x[min(i, n.wx - 1)], Y = rel_y[min(j, n.wy - 1)];
+  {  // the tile test, in voxel units: nothing of the tile within max_d + 1 voxel
+    const float nx = nearest(ex0, ex1), ny = nearest(ey0, ey1), nz = fabsf(Z);
+    const float dn2 = __fadd_rn(__fadd_rn(__fmul_rn(nx, nx), __fmul_rn(ny, ny)),
+                                __fmul_rn(nz, nz));
+    const float lim = __fadd_rn(__fdiv_rn(f.max_d, f.vs), 1.0f);
+    if (dn2 > __fmul_rn(lim, lim)) return;  // the whole block
+  }
+  const size_t t = ((size_t)z * n.wy + j) * n.wx + i;                      // window voxel
+  const size_t g = ((size_t)z * n.ny + (n.y0 + j)) * n.nx + (n.x0 + i);  // its grid voxel
+  const Geo v = geometry(X, Y, Z, f);
+  const bool in_range = live && v.d <= f.max_d;  // in registers
+  // a voxel in range loads what its tests and its EMA read, together: its
+  // point flag, its cone's T (pass 2: the stored raylen) and grid value
+  const Cone c = cone_of(v);
+  bool hit = false;
+  float T = 0.0f, g_val = 0.0f;
+  if (in_range) {
+    if (MODE != 1) hit = had[g] != 0;
+    T = MODE == 2 ? raylen_w[t] : T6[(((size_t)c.id * n.nz + z) * n.wy + j) * n.wx + i];
+    if (MODE != 1) g_val = vals[g];
+  }
+  const bool reach = in_range && !hit;  // a point landed: no EMA
+  float rl = 0.0f;
+  if (MODE == 2) {
+    rl = reach ? T : 0.0f;
+  } else if (reach && (MODE == 1 || T > 0.0f || T < 0.0f)) {
+    // (T = 0 or NaN: a raylen of 0 or NaN, which the old rule's max keeps)
+    float el;
+    if (in_fov(v, rot, f, &el)) rl = raylen(T, v, c, el, faces, n, f);
+  }
   if (MODE == 1) {
-    const float rl = live ? raylen_at(T6, faces, rel_x, rel_y, rel_z, rot, n, f, z, j, i)
-                          : 0.0f;
     if (live) raylen_w[t] = rl;
-    float m = rl;
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if ((threadIdx.x & 31) == 0 && m > 0.0f) atomicMax(max_bits, __float_as_uint(m));
+    float m = rl;  // the max, a NaN kept as torch.max keeps it
+    for (int o = 16; o > 0; o >>= 1) {
+      const float x = __shfl_xor_sync(0xffffffffu, m, o);
+      m = (m != m || x != x) ? __int_as_float(0x7fffffff) : fmaxf(m, x);
+    }
+    if ((threadIdx.x & 31) == 0 && (m != m || m > 0.0f))
+      atomicMax(max_bits, m != m ? 0x7fffffffu : __float_as_uint(m));
     return;
   }
-  if (!live) return;
-  const size_t g = ((size_t)z * n.ny + (n.y0 + j)) * n.nx + (n.x0 + i);
-  if (had[g]) return;
+  if (!(rl > 0.0f)) return;
   float w1;
   if (MODE == 0) {
-    const float rl = raylen_at(T6, faces, rel_x, rel_y, rel_z, rot, n, f, z, j, i);
-    if (!(rl > 0.0f)) return;
     w1 = exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl)));
   } else {
-    const float rl = raylen_w[t];
-    if (!(rl > 0.0f)) return;
-    const float max_val = fmaxf(__uint_as_float(*max_bits), 1e-20f);
+    const float max_val = clamp_min(__uint_as_float(*max_bits), 1e-20f);
     const float w_single = __fmul_rn(f.weight, __fsqrt_rn(__fdiv_rn(rl, max_val)));
     w1 = clampf(torch_pow(__fsub_rn(1.0f, w_single), f.its), 0.0f, 1.0f);
   }
-  vals[g] = ema(vals[g], w1, f.score);
+  vals[g] = ema(g_val, w1, f.score);
 }
 
 // K12's second pass: the same EMA on a full-grid raylen field (the exact
@@ -219,6 +301,13 @@ __global__ void __launch_bounds__(RAY_T)
 
 }  // namespace
 
+// out = (RAY_TX, RAY_TY): K5b's tile, which ops/raycast.py RAY_TILE mirrors
+VOFOD_API int vofod_ray_update_geometry(int* out) {
+  out[0] = RAY_TX;
+  out[1] = RAY_TY;
+  return 0;
+}
+
 // vals: device f32 grid [nz, ny, nx], updated in place; had: bool grid;
 // T6: f32 [6, nz, wy, wx] (K4); faces: f32 [6, F, F] or NULL (F = 0);
 // rel_x [wx], rel_y [wy], rel_z [nz]: f32 voxel-centre offsets from the
@@ -245,8 +334,7 @@ VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
   f.vs = floats[0]; f.vs3 = floats[1]; f.vs2 = floats[2]; f.c_dens = floats[3];
   f.fov_lim = floats[4]; f.max_d = floats[5]; f.coef = floats[6]; f.its = floats[7];
   f.weight = floats[8]; f.score = floats[9];
-  const int nw = n.nz * n.wy * n.wx;
-  const int blocks = (nw + RAY_T - 1) / RAY_T;
+  const dim3 blocks((n.wx + RAY_TX - 1) / RAY_TX, (n.wy + RAY_TY - 1) / RAY_TY, n.nz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* v = static_cast<float*>(vals);
   const uint8_t* h = static_cast<const uint8_t*>(had);
@@ -256,16 +344,16 @@ VOFOD_API int vofod_ray_update(void* vals, const void* had, const void* T6,
   float* rl = static_cast<float*>(raylen_w);
   unsigned int* mb = static_cast<unsigned int*>(max_bits);
   if (new_rule) {
-    ray_update_kernel<0><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+    ray_update_kernel<0><<<blocks, RAY_TX * RAY_TY, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
     return (int)cudaGetLastError();
   }
   if (passes & 1) {
-    ray_update_kernel<1><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+    ray_update_kernel<1><<<blocks, RAY_TX * RAY_TY, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (passes & 2)
-    ray_update_kernel<2><<<blocks, RAY_T, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
+    ray_update_kernel<2><<<blocks, RAY_TX * RAY_TY, 0, s>>>(v, h, t6, fc, rx, ry, rz, r, n, f, rl, mb);
   return (int)cudaGetLastError();
 }
 

@@ -210,7 +210,9 @@ def load():
         lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_ray_update.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P]
+        lib.vofod_ray_update_geometry.argtypes = [_P]
         lib.vofod_detect.argtypes = [_P] * 20
+        lib.vofod_detect_geometry.argtypes = [_P]
         lib.vofod_point_ema.argtypes = [_P, _P, _P, _LL, _F, _F, _P, _P, _P, _P]
         lib.vofod_demote_ema.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _P, _P, _P]
         lib.vofod_dda.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
@@ -243,7 +245,8 @@ def load():
                    lib.vofod_compact_geometry,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
                    lib.vofod_cluster_stats,
-                   lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_detect,
+                   lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_ray_update_geometry,
+                   lib.vofod_detect, lib.vofod_detect_geometry,
                    lib.vofod_point_ema, lib.vofod_demote_ema, lib.vofod_dda,
                    lib.vofod_ray_ema, lib.vofod_label_census, lib.vofod_quirk_counts,
                    lib.vofod_exact_demote_ema, lib.vofod_unpack, lib.vofod_halo_exchange,
@@ -917,6 +920,14 @@ def ray_update(vals: torch.Tensor, had_point: torch.Tensor, T6: torch.Tensor,
     _count("ray_update", 1 if ema.new_rule else 2)
 
 
+def ray_update_geometry() -> tuple[int, int]:
+    """K5b's tile (voxels along x, rows along y), which ops/raycast.py
+    RAY_TILE mirrors."""
+    out = (ctypes.c_int * 2)()
+    _check(load().vofod_ray_update_geometry(out), "vofod_ray_update_geometry")
+    return out[0], out[1]
+
+
 def _rule_passes(launch, ema, gmax, max_bits) -> None:
     """The ray EMA's launches: all passes in one under the new rule (or
     with no ``gmax``); under the old, the max pass, the max over the shards
@@ -972,6 +983,14 @@ def detect(vals: torch.Tensor, far: torch.Tensor, labels: torch.Tensor,
     _check(err, "vofod_detect")
     _count("detect")
     return valid, ids, confidence, pdet, cov, new_counter
+
+
+def detect_geometry() -> int:
+    """K10's warps a slot, which set its window sum's order
+    (pipeline/detect.py DET_WARPS mirrors it)."""
+    out = (ctypes.c_int * 1)()
+    _check(load().vofod_detect_geometry(out), "vofod_detect_geometry")
+    return out[0]
 
 
 def point_ema(vals: torch.Tensor, counts: torch.Tensor, close: torch.Tensor,

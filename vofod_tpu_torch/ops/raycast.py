@@ -565,6 +565,69 @@ def ray_window_update_plain_(vals: Tensor, had_point: Tensor, T6: Tensor,
     return vals
 
 
+# csrc/ray_update.cu's tile: RAY_TX voxels along x by RAY_TY rows along y of
+# one z plane, a block each (kernels.ray_update_geometry reads the kernel's)
+RAY_TILE = (16, 16)
+
+
+def _tile_nearest(rel: Tensor, t: int) -> Tensor:
+    """The smallest |offset| of each t-wide tile's voxel centres along one
+    axis, from the tile's two ends as csrc/ray_update.cu takes it (the
+    offsets increase along each axis): 0 where the ends straddle the sensor,
+    ``fminf``'s NaN rule elsewhere."""
+    n = rel.shape[0]
+    first = torch.arange(0, n, t, device=rel.device)
+    a, b = rel[first], rel[torch.clamp(first + t, max=n) - 1]
+    return torch.where((a <= 0.0) & (b >= 0.0), 0.0, torch.fmin(a.abs(), b.abs()))
+
+
+def ray_cull_plain(T6: Tensor, had_w: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                   rot_s2w: Tensor, c: RayConsts, new_rule: bool) -> dict[str, Tensor]:
+    """Plain model of K5b's cull, in the kernel's order of cost: masks
+    [nz, wy, wx] of the window voxels still live after each test.  ``tile``
+    the test of the RAY_TILE tiles; ``range`` then d <= max_d; ``had`` then
+    no point this scan; ``T`` then a nonzero T; ``fov`` then the elevation
+    inside the vertical FOV: ``fov`` is the set that reads the gate's faces
+    and computes the density.  Under the old rule's first pass (``new_rule`` False: the
+    window max) neither ``had`` nor ``T`` culls: the max takes every voxel's
+    raylen, NaN included, and a T of 0 times a NaN gate is NaN.  ``had_w``:
+    the window of the point flags."""
+    shape = (rel_z.shape[0], rel_y.shape[0], rel_x.shape[0])
+    tx, ty = RAY_TILE
+    # a tile is culled when its nearest voxel centre lies farther than max_d
+    # plus one voxel (in voxel units, float32 as the kernel rounds it): a
+    # voxel's own range test sees it 1 / vs voxels past its limit, far
+    # beyond any rounding
+    nx_ = _tile_nearest(rel_x, tx)[None, None, :]
+    ny_ = _tile_nearest(rel_y, ty)[None, :, None]
+    nz_ = rel_z.abs()[:, None, None]
+    dn2 = (nx_ * nx_ + ny_ * ny_) + nz_ * nz_
+    lim = np.float32(c.max_d) / np.float32(c.vs) + np.float32(1.0)
+    kept = ~(dn2 > float(lim * lim))
+    m = {"tile": kept.repeat_interleave(ty, 1)[:, :shape[1]]
+         .repeat_interleave(tx, 2)[:, :, :shape[2]]}
+    X, Y, Z = rel_x[None, None, :], rel_y[None, :, None], rel_z[:, None, None]
+    rx, ry, rz = X * c.vs, Y * c.vs, Z * c.vs
+    d2 = (rx * rx + ry * ry) + rz * rz
+    d = torch.sqrt(d2)
+    m["range"] = m["tile"] & (d <= c.max_d)
+    m["had"] = m["range"] & ~had_w if new_rule else m["range"]
+    if new_rule:
+        ax, ay, az = torch.abs(X), torch.abs(Y), torch.abs(Z)
+        in_x = ((ax >= ay) & (ax >= az)).expand(shape)
+        in_y = ~in_x & (ay >= az)
+        rel_s = torch.where(in_x, X, torch.where(in_y, Y, Z))
+        cone = 2 * torch.where(in_x, 0, torch.where(in_y, 1, 2)) + (~(rel_s > 0)).to(torch.int64)
+        T = torch.gather(T6, 0, cone[None]).squeeze(0)
+        m["T"] = m["had"] & ((T > 0.0) | (T < 0.0))
+    else:
+        m["T"] = m["had"]
+    sz = (rot_s2w[0, 2] * rx + rot_s2w[1, 2] * ry) + rot_s2w[2, 2] * rz
+    el = torch.arcsin(torch.clamp(sz / torch.clamp(d, min=c.vs), -1.0, 1.0))
+    m["fov"] = m["T"] & (torch.abs(el) <= c.fov_lim)
+    return m
+
+
 def ray_window_update_(vals: Tensor, had_point: Tensor, T6: Tensor, faces: Tensor | None,
                        rel_x: Tensor, rel_y: Tensor, rel_z: Tensor, rot_s2w: Tensor,
                        x0: int, y0: int, c: RayConsts, ema: RayEma, gmax=None) -> Tensor:
