@@ -4,7 +4,8 @@
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
                        [--explore-only] [--ray-detect-only] [--variants all|NAME,...]
-                       [--ray-detect-variants all|NAME,...] [--out build/ab]
+                       [--ray-detect-variants all|NAME,...] [--grid-sweeps-only]
+                       [--grid-sweeps-variants all|K,...] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -80,6 +81,19 @@ call:
   warps, staged faces, packing, where the time goes; edited in the source
   text, ``_RAY_DETECT_VARIANTS``) and times them on the same calls.
 
+- K2's sharded sweeps and K15b-4a on the calls the grid-sharded step
+  makes on scans 7 to 11 of the grid, grid-exact and grid-dynamic (2.0 /
+  1.9 m) paths (``ZShardOps.sweeps`` and ``cone_sweep_z_pipelined``
+  recorded on each of the 3 shards), each call replayed over the shards and
+  checked against the dense plain version on their concatenated inputs
+  (bit-equal: K2's grid and per-sweep flags, K15b-4a's T), with its device
+  ms, K2's (K15b-4a's) kernel ms and launches, memsets and memcpys a call
+  (torch.profiler), its CUDA-event ms, the kernel wrappers' host us a call
+  and the sums a scan.  ``--grid-sweeps-only`` runs these cases alone.
+  ``--grid-sweeps-variants`` then replays K2's calls in the change tree
+  with each given SWEEP_BATCH (``all``: 2, 4, 8, 16), each a module built
+  from the tree's parallel/gridops.py with the constant edited in its text.
+
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
 device ms and launches a scan) and of the grid and grid-exact paths
@@ -109,8 +123,73 @@ import subprocess
 import sys
 from pathlib import Path
 
+# the profile helpers that the scripts below share (each script string
+# starts with this one): host_us(fn) and profiled(fn, match)
+PROFILE = r"""
+import re
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+
+def host_us(fn, n=1000):
+    # host microseconds a call over n calls with no sync, after 50
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n / 1e3
+    torch.cuda.synchronize()
+    return round(dt, 3)
+
+
+def profiled(fn, match, reps=20):
+    # the device ops of a call, over reps calls after one (torch.profiler):
+    # device_ms and launches of the kernels whose names match the regex
+    # ``match`` (the ms a launch times the launches a call, rounded: a
+    # session now and then loses events, so up to three sessions until one
+    # holds reps launches), other_ops (the other device ops but memcpys: a
+    # fill kernel, a memset), memsets, memcpys, and busy_ms and ops over
+    # every device op but memsets and memcpys
+    pattern = re.compile(match)
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in ev if pattern.search(e.name)]
+        if best is None or len(mine) > len(best[0]):
+            best = (mine, ev)
+        if len(mine) >= reps:
+            break
+    mine, ev = best
+
+    def ms(events):
+        return sum(float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0))
+                   for e in events) / 1e3
+
+    names = [e.name.lower() for e in ev]
+    ops = [e for e, n in zip(ev, names) if "memset" not in n and "memcpy" not in n]
+    a_call = max(round(len(mine) / reps), 1)
+    return dict(device_ms=round(ms(mine) / max(len(mine), 1) * a_call, 5),
+                launches=len(mine) / reps,
+                other_ops=sum(not pattern.search(e.name) and "memcpy" not in n
+                              for e, n in zip(ev, names)) / reps,
+                memsets=sum("memset" in n for n in names) / reps,
+                memcpys=sum("memcpy" in n for n in names) / reps,
+                busy_ms=round(ms(ops) / reps, 5), ops=len(ops) / reps)
+"""
+
 # runs in the tree's root; prints one JSON line
-_KERNEL_TIMES = r"""
+_KERNEL_TIMES = PROFILE + r"""
 import ctypes
 import json
 import re
@@ -229,19 +308,6 @@ def dense_profile(lut, path, n=5):
                 out[key + "_launches"] += 1 / n
                 out[key + "_ms"] += us / 1e3 / n
     return out
-
-
-def host_us(fn, n=1000):
-    # host microseconds a call over n calls with no sync, after 50
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        fn()
-    dt = (time.perf_counter_ns() - t0) / n / 1e3
-    torch.cuda.synchronize()
-    return round(dt, 3)
 
 
 def grid_profile(lut, exact, n=5):
@@ -615,11 +681,10 @@ def compact_gate_inputs(cs):
 
 # runs in the tree's root; prints one JSON line: K6's and K5a's calls of the
 # sweep step's 7th scan, each checked against its plain version and timed
-_COMPACT_GATE_CASES = COMPACT_GATE_INPUTS + r"""
+_COMPACT_GATE_CASES = COMPACT_GATE_INPUTS + PROFILE + r"""
 import json
 import subprocess
 import sys
-import time
 
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -629,19 +694,6 @@ from vofod_tpu_torch.ops.raycast import gate_faces_plain, make_angular_gate
 
 def timed(fn):
     return dict(ms=cs.cuda_ms(fn), **cs.device_profile(fn))
-
-
-def host_us(fn, n=1000):
-    # host microseconds a call over n calls with no sync, after 50
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        fn()
-    dt = (time.perf_counter_ns() - t0) / n / 1e3
-    torch.cuda.synchronize()
-    return round(dt, 3)
 
 
 def one_buffer(cap):  # K6's outputs as views of one allocation: ids, total, valid's bytes
@@ -932,54 +984,18 @@ def explore_inputs(cs, lut, cfg, opts, first=7, n=5):
 # kernel (torch.profiler; K8's grid copy not counted) and the wrapper's
 # host us a call over 1,000 calls with no sync; the means over the five
 # scans
-_EXPLORE_CASES = EXPLORE_INPUTS + r"""
+_EXPLORE_CASES = EXPLORE_INPUTS + PROFILE + r"""
 import json
 import subprocess
 import sys
 import time
 
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.explore import demote_floating_plain, explore_plain
 from vofod_tpu_torch.runtime.node import NodeOptions
-
-
-def host_us(fn, n=1000):
-    # host microseconds a call over n calls with no sync, after 50
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        fn()
-    dt = (time.perf_counter_ns() - t0) / n / 1e3
-    torch.cuda.synchronize()
-    return round(dt, 3)
-
-
-def profiled(fn, match, reps=20):
-    # device ms and launches a call of the kernels named ``match``, and the
-    # other device ops a call but memcpys (a fill kernel, a memset)
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device event
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        mine = [e for e in ev if match in e.name]
-        if mine:
-            break
-    us = sum(float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)) for e in mine)
-    other = [e for e in ev if match not in e.name and "memcpy" not in e.name.lower()]
-    return dict(device_ms=round(us / reps / 1e3, 5), launches=len(mine) / reps,
-                other_ops=len(other) / reps,
-                memsets=sum("memset" in e.name.lower() for e in ev) / reps)
 
 
 lut = cs.make_lut(cs.VoFODConfig().sensor)
@@ -1029,10 +1045,8 @@ print(json.dumps(dict(nvidia_smi=smi, explore_cases=cases, explore_means=means))
 # recorded on a fresh node after the apriori plane, the scans chip_smoke's
 # phase 5 profiles) and the profile of a call; the ray-detect cases and
 # variants share them
-RAY_DETECT_INPUTS = r"""
+RAY_DETECT_INPUTS = PROFILE + r"""
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams
@@ -1069,31 +1083,6 @@ def step_calls(cs, lut, first=7, n=5):
     return out
 
 
-def profiled(fn, match, reps=20):
-    # device ms and launches a call of the kernels named ``match``, and the
-    # other device ops a call but memcpys (a fill kernel, a memset); a
-    # session now and then loses events: up to three sessions until one
-    # holds every call's launch
-    fn()
-    torch.cuda.synchronize()
-    best = None
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        mine = [e for e in ev if match in e.name]
-        if best is None or len(mine) > len(best[0]):
-            best = (mine, ev)
-        if len(mine) >= reps:
-            break
-    mine, ev = best
-    us = sum(float(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0)) for e in mine)
-    other = [e for e in ev if match not in e.name and "memcpy" not in e.name.lower()]
-    return dict(device_ms=round(us / max(len(mine), 1) / 1e3, 5), launches=len(mine) / reps,
-                other_ops=len(other) / reps,
-                memsets=sum("memset" in e.name.lower() for e in ev) / reps)
 """
 
 # runs in the tree's root; prints one JSON line: K10's and K5b's calls of
@@ -1108,26 +1097,12 @@ _RAY_DETECT_CASES = RAY_DETECT_INPUTS + r"""
 import json
 import subprocess
 import sys
-import time
 
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.raycast import ray_window_update_plain_
 from vofod_tpu_torch.pipeline.detect import detect_slots_plain
-
-
-def host_us(fn, n=1000):
-    # host microseconds a call over n calls with no sync, after 50
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        fn()
-    dt = (time.perf_counter_ns() - t0) / n / 1e3
-    torch.cuda.synchronize()
-    return round(dt, 3)
 
 
 lut = cs.make_lut(cs.VoFODConfig().sensor)
@@ -1603,6 +1578,195 @@ def main() -> int:
 sys.exit(main())
 """
 
+# K2's sharded sweeps and K15b-4a on the calls the grid step makes (scans 7
+# to 11 of the grid, grid-exact and grid-dynamic paths from the apriori
+# plane), replayed in this tree: each call's three shards through
+# ``ZShardOps.sweeps`` / ``cone_sweep_z_pipelined`` checked against the
+# dense plain version on the shards' concatenated inputs, with its device
+# ms, K2's (K15b-4a's) kernel ms, launches, memsets and memcpys a call
+# (torch.profiler, 5 calls), its CUDA-event ms and the kernel wrappers'
+# host us a call.  Arguments: the SWEEP_BATCH values to replay K2 with,
+# each a module built from this tree's parallel/gridops.py with the
+# constant edited in its text (none: the tree's own).  Prints one JSON line.
+_GRID_SWEEPS = PROFILE + r"""
+import json
+import re
+import sys
+import time
+import types
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.ops import raycast
+from vofod_tpu_torch.ops.components import sweeps_plain
+from vofod_tpu_torch.parallel import gridops
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+K2_RE = re.compile(r"\bsweeps?_kernel\b")
+ZC_RE = re.compile(r"\bcone_(z|cluster)_kernel\b")
+WRAPPERS = ("propagate_batch", "propagate_sweep", "cone_sweep_z")
+
+
+def variant(k):
+    src = open("vofod_tpu_torch/parallel/gridops.py").read()
+    edited, n = re.subn(r"^SWEEP_BATCH = \d+$", f"SWEEP_BATCH = {k}", src, flags=re.M)
+    if n != 1:
+        raise RuntimeError(f"grid sweeps variant: SWEEP_BATCH found {n} times")
+    mod = types.ModuleType(f"gridops_k{k}")
+    mod.__file__ = gridops.__file__
+    exec(compile(edited, mod.__file__, "exec"), mod.__dict__)
+    return mod
+
+
+def record(lut, path, first=7, n=5):
+    # per recorded scan: [K2 calls: {rank: args}], [z-cone calls: {rank: args}]
+    cfg = {"grid": cs.VoFODConfig, "grid_exact": cs.exact_config,
+           "grid_dynamic": cs.dynamic_config}[path]()
+    opts = NodeOptions(raycast_mode="exact") if path == "grid_exact" else NodeOptions()
+    node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    kw = dict(raycast_mode="exact") if path == "grid_exact" else {}
+    drv = cs.GridDriver(lut, node.state, cfg, **kw)
+    if path == "grid_dynamic":
+        node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
+        drv.dyn = node.dyn
+    scans = cs.scan_cycle(lut, first - 1 + n)
+    on, store = [False], {}
+    sw, zc = gridops.ZShardOps.sweeps, raycast.cone_sweep_z_pipelined
+
+    def sweeps(self, init, occ, ball, n_sw, until_fixpoint=False):
+        if on[0]:
+            store.setdefault(("k2", self.comm.rank), []).append(
+                (init.clone(), occ.clone(), ball, n_sw, until_fixpoint))
+        return sw(self, init, occ, ball, n_sw, until_fixpoint)
+
+    def cones(opaque, rel_x, rel_y, rel_z, T2, comm):
+        if on[0]:
+            store.setdefault(("zc", comm.rank), []).append(
+                tuple(t.clone() for t in (opaque, rel_x, rel_y, rel_z)) + (tuple(T2.shape),))
+        return zc(opaque, rel_x, rel_y, rel_z, T2, comm)
+
+    gridops.ZShardOps.sweeps, raycast.cone_sweep_z_pipelined = sweeps, cones
+    out = []
+    try:
+        for i, (r, p) in enumerate(scans):
+            on[0] = i >= first - 1
+            store.clear()
+            drv.process_scan(r, None, p)
+            if on[0]:
+                torch.cuda.synchronize()
+                out.append({kind: [{rank: store[(kind, rank)][j] for rank in range(drv.comm.n)}
+                                   for j in range(len(store.get((kind, 0), [])))]
+                            for kind in ("k2", "zc")})
+    finally:
+        gridops.ZShardOps.sweeps, raycast.cone_sweep_z_pipelined = sw, zc
+    return drv.comm, out
+
+
+def wrapper_us(fn):
+    # host us a call of the kernel wrappers fn calls, over one call
+    real = {w: getattr(kernels, w) for w in WRAPPERS if hasattr(kernels, w)}
+    spent = {w: [0, 0] for w in real}
+
+    def timed(w):
+        def call(*a, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                return real[w](*a, **kw)
+            finally:
+                spent[w][0] += time.perf_counter_ns() - t0
+                spent[w][1] += 1
+        return call
+
+    for w in real:
+        setattr(kernels, w, timed(w))
+    try:
+        fn()
+    finally:
+        for w, f in real.items():
+            setattr(kernels, w, f)
+    torch.cuda.synchronize()
+    return {w: round(t / c / 1e3, 2) for w, (t, c) in spent.items() if c}
+
+
+def k2_call(comm, ops_cls, call):
+    ops = ops_cls(comm)
+    return lambda: comm.run(lambda rank: ops.sweeps(*call[rank]))
+
+
+def main():
+    ks = [int(a) for a in sys.argv[1:]]
+    mods = {f"k{k}": variant(k) for k in ks} or {"tree": gridops}
+    lut = cs.make_lut(cs.VoFODConfig().sensor)
+    out = {"nvidia_smi": cs.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), "paths": {}}
+    for path in ("grid", "grid_exact", "grid_dynamic"):
+        comm, scans = record(lut, path)
+        res = {name: {"k2": [], "zc": []} for name in mods}
+        for s, scan in enumerate(scans):
+            for call in scan["k2"]:
+                init = torch.cat([call[r][0] for r in range(comm.n)])
+                occ = torch.cat([call[r][1] for r in range(comm.n)])
+                _, _, ball, n_sw, fix = call[0]
+                want = sweeps_plain(init, occ, ball, n_sw, fix)
+                for name, mod in mods.items():
+                    fn = k2_call(comm, mod.ZShardOps, call)
+                    got = fn()
+                    if not (torch.equal(torch.cat([g[0] for g in got]), want[0])
+                            and all(torch.equal(g[1], want[1]) for g in got)):
+                        raise AssertionError(f"{path} scan {s} {name}: K2 differs from plain")
+                    res[name]["k2"].append(dict(
+                        scan=s, sweeps=n_sw, gated=fix, ran=int(want[1].sum()) + 1,
+                        event_ms=round(cs.cuda_ms(fn, reps=5), 4),
+                        **profiled(fn, K2_RE, reps=5),
+                        wrapper_us=wrapper_us(fn)))
+            for call in scan["zc"]:
+                op = torch.cat([call[r][0] for r in range(comm.n)])
+                _, rel_x, rel_y, _, shape = call[0]
+                rel_z = torch.cat([call[r][3] for r in range(comm.n)])
+                want = cs.cone_sweep_plain(op, rel_x, rel_y, rel_z)[4:]
+                t2s = [torch.empty(shape, dtype=torch.float32, device="cuda")
+                       for _ in range(comm.n)]
+                fn = lambda: comm.run(lambda rank: raycast.cone_sweep_z_pipelined(
+                    *call[rank][:4], t2s[rank], comm))  # noqa: E731
+                fn()
+                if not torch.equal(torch.cat(t2s, dim=1), want):
+                    raise AssertionError(f"{path} scan {s}: K15b-4a differs from plain")
+                for name in mods:  # K15b-4a does not depend on the variant
+                    res[name]["zc"].append(dict(
+                        scan=s, event_ms=round(cs.cuda_ms(fn, reps=5), 4),
+                        **profiled(fn, ZC_RE, reps=5),
+                        wrapper_us=wrapper_us(fn)))
+                    break
+        summary = {}
+        for name, r in res.items():
+            n_scans = len(scans)
+            summary[name] = dict(
+                k2_calls=len(r["k2"]),
+                k2_kernel_ms_per_scan=round(sum(c["device_ms"] for c in r["k2"]) / n_scans, 4),
+                k2_device_ms_per_scan=round(sum(c["busy_ms"] for c in r["k2"]) / n_scans, 4),
+                k2_launches_per_scan=round(sum(c["launches"] for c in r["k2"]) / n_scans,
+                                           2),
+                k2_device_ops_per_scan=round(sum(c["ops"] + c["memsets"] + c["memcpys"]
+                                                 for c in r["k2"]) / n_scans, 2),
+                k2_event_ms_per_scan=round(sum(c["event_ms"] for c in r["k2"]) / n_scans, 4),
+                zc_kernel_ms_per_scan=round(sum(c["device_ms"] for c in r["zc"]) / n_scans, 4),
+                zc_launches_per_scan=round(sum(c["launches"] for c in r["zc"]) / n_scans,
+                                           2),
+                zc_event_ms_per_scan=round(sum(c["event_ms"] for c in r["zc"]) / n_scans, 4),
+                calls=r)
+        out["paths"][path] = summary
+    print(json.dumps(out))
+
+
+main()
+"""
+
 PAIR_MODES = {"exact": (_EXACT_STEP, "4-exact", "dense"),
               "grid_exact": (_GRID_EXACT_STEP, "4-grid-exact", "grid")}
 
@@ -1646,13 +1810,23 @@ def summarize(ph: dict) -> dict:
                            idle_share=ph.get(prof, {}).get("idle_share_of_unprofiled_step"))
     busy = {path: {k: ph.get(f"5-profile{sfx}", {}).get(m) for k, m in (
         ("busy_ms", "device_busy_ms_per_scan"), ("idle_share", "idle_share_of_unprofiled_step"),
+        ("device_ops_per_scan", "device_ops_per_scan"),
         ("port_kernels_ms_per_scan", "port_kernels_ms_per_scan"))}
         for path, sfx in (("sweep", ""), ("exact", "-exact"), ("sequential", "-sequential"),
                           ("prebinned", "-prebinned"), ("dynamic", "-dynamic"),
                           ("grid", "-grid"), ("grid_exact", "-grid-exact"),
-                          ("grid_sequential", "-grid-sequential"))}
+                          ("grid_sequential", "-grid-sequential"),
+                          ("grid_transpose", "-grid-transpose"))}
+    grid_steps = {path: {k: ph.get(phase, {}).get(k) for k in (
+        "step_ms_p50", "launches_per_scan", "collective_copies_per_scan",
+        "collective_copies_per_scan_by_kind")}
+        for path, phase in (("grid", "4-grid"), ("grid_exact", "4-grid-exact"),
+                            ("grid_transpose", "4-grid-transpose"),
+                            ("grid_prebinned", "4-grid-prebinned"),
+                            ("grid_dynamic", "4-grid-dynamic"),
+                            ("grid_sequential", "4-grid-sequential"))}
     return dict(
-        dense=dense, busy=busy,
+        dense=dense, busy=busy, grid_steps=grid_steps,
         smoke_k9_k12={k: {m: ph[k].get(m) for m in ("ms", "plain_ms", "max_abs_err",
                                                      "large_far_lists", "random_directions")
                           if m in ph[k]}
@@ -1703,7 +1877,7 @@ def _json_run(script: str, tree: Path) -> tuple[bool, dict]:
     """``script`` in ``tree``'s root: (ok, its last line's JSON object or
     the error)."""
     k = subprocess.run([sys.executable, "-c", script], cwd=tree, capture_output=True, text=True,
-                       timeout=600)
+                       timeout=1200)
     lines = k.stdout.strip().splitlines()
     if k.returncode == 0 and lines:
         return True, json.loads(lines[-1])
@@ -1730,6 +1904,11 @@ def main() -> int:
                     help="then time these variants of the change's K6 and K5a ('all': every one)")
     ap.add_argument("--ray-detect-variants", default="",
                     help="then time these variants of both trees' K10 and K5b ('all': every one)")
+    ap.add_argument("--grid-sweeps-only", action="store_true",
+                    help="time only K2's sharded sweeps and K15b-4a on the grid steps' calls")
+    ap.add_argument("--grid-sweeps-variants", default="",
+                    help="then replay K2's sharded sweeps with these SWEEP_BATCH values built "
+                         "from the change's source ('all': 2,4,8,16)")
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
     args.out.mkdir(parents=True, exist_ok=True)
@@ -1738,13 +1917,15 @@ def main() -> int:
         tree, name = trees[tag], {"p": "parent", "c": "change"}[tag]
         for flag, script in ((args.compact_gate_only, _COMPACT_GATE_CASES),
                              (args.explore_only, _EXPLORE_CASES),
-                             (args.ray_detect_only, _RAY_DETECT_CASES)):
+                             (args.ray_detect_only, _RAY_DETECT_CASES),
+                             (args.grid_sweeps_only, _GRID_SWEEPS)):
             if flag:
                 g, gate = _json_run(script, tree)
                 ok = ok and g
                 print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
                 runs.append(dict(run=i, tree=name, **gate))
-        if args.compact_gate_only or args.explore_only or args.ray_detect_only:
+        if (args.compact_gate_only or args.explore_only or args.ray_detect_only
+                or args.grid_sweeps_only):
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:
@@ -1755,16 +1936,17 @@ def main() -> int:
         g, gate = _json_run(_COMPACT_GATE_CASES, tree)
         e, expl = _json_run(_EXPLORE_CASES, tree)
         rd_ok, rd = _json_run(_RAY_DETECT_CASES, tree)
+        gs_ok, gs = _json_run(_GRID_SWEEPS, tree)
         k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
         run = {"run": i, "tree": name, "kernel_times": kern,  # one nvidia_smi
-               **demote, **gate, **expl, **rd,
+               **demote, **gate, **expl, **rd, "grid_sweeps": gs,
                "smoke_rc": s.returncode, "smoke_last_line": last[0],
                **summarize(phases(s.stdout))}
-        ok = ok and d and g and e and rd_ok and k_ok and s.returncode == 0
+        ok = ok and d and g and e and rd_ok and gs_ok and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}
@@ -1783,6 +1965,15 @@ def main() -> int:
         lines = v.stdout.strip().splitlines()
         out["ray_detect_variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
                                       else {"error": v.stderr[-4000:]})
+        ok = ok and v.returncode == 0
+    if args.grid_sweeps_variants:
+        ks = ("2,4,8,16" if args.grid_sweeps_variants == "all"
+              else args.grid_sweeps_variants).split(",")
+        v = subprocess.run([sys.executable, "-c", _GRID_SWEEPS, *ks], cwd=trees["c"],
+                           capture_output=True, text=True, timeout=1800)
+        lines = v.stdout.strip().splitlines()
+        out["grid_sweeps_variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
+                                       else {"error": v.stderr[-4000:]})
         ok = ok and v.returncode == 0
     for mode, n in (("exact", args.exact_pairs), ("grid_exact", args.grid_exact_pairs)):
         if n:

@@ -23,10 +23,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    flags and tiles computed per sweep against the plain sweeps and the
    plain model of its schedule: the scan's 8 label sweeps at r3 and 8
    reach sweeps at r2, a fixpoint at sweep 0, a grid no multiple of the
-   tile, each timed beside one one-sweep launch a sweep; the seeded labels,
-   reach, converged and iters; the one-sweep launch of the grid paths
-   alone.  K4 on the scan's window, the sensor 4 m from an edge, a window
-   clipped by the grid (60 m bound), A rows no multiple of the cluster,
+   tile, each timed; the seeded labels, reach, converged and iters.  K4
+   on the scan's window, the sensor 4 m from an edge, a window clipped by
+   the grid (60 m bound), A rows no multiple of the cluster,
    all opaque and all clear: bit-equal (no voxel differs), with their
    times and the cluster size.
    The classify stage's kernels on the same scan's classify inputs and on
@@ -69,11 +68,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    float64 sum of the same chords, K15b-6c's three slabs of the random
    directions bit-equal to K12's rows, its EMA pass (both rules, its_diff 1 and 2)
    bit-equal on the kernel's raylen and within K5B_TOL_REL x |score_ray|
-   after walk and EMA; K2 run to convergence (the scan's coarse cells, a
+   after walk and EMA, and under the old rule on a raylen field holding a
+   NaN (every voxel the EMA reaches turns NaN, as in the plain version's
+   ``torch.max``); K2 run to convergence (the scan's coarse cells, a
    random field that converges, isolated voxels whose first sweep is the
    fixpoint, a serpentine corridor where the 128-sweep cap binds; each
-   call's grid, flags and tiles per sweep too, beside the 128 gated
-   one-sweep launches), K13b (the
+   call's grid, flags and tiles per sweep too), K13b (the
    scan's grids; random fields at leaf sizes 1-4; no bg, all bg, a single
    bg voxel; a grid whose columns and cells take more look-back tiles than
    the card holds resident; each also equal to the column-walk model
@@ -110,14 +110,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    every shard), out of place and in place, also equal to the rows cut
    from the whole grid, and on a segment past the resident blocks; its
    in-place fills at the sharded sweeps' shapes and the r 16 exchange
-   timed (CUDA events, device ms and launches, bound, torch.cat); K2's sharded
-   sweeps (fixed count and gated) equal to the dense sweeps and flags;
+   timed (CUDA events, device ms and launches, bound, torch.cat); K2's
+   batched launches (SWEEP_BATCH sweeps a launch on a halo of their reach,
+   the 3 shards' launches concurrent on their streams) beside the same
+   schedule with their plain model: slab, flags and tiles per sweep
+   bit-equal, also past one slab's rows (multi-hop), with a short last
+   launch, the shells and a corridor where the cap binds, slabs and flags
+   equal to the dense K2's, one launch timed;
    K15b-2 (fold-min) at r 16 and 20, equal to the min over every shard's
-   stamp; K15b-3 / K15b-4a through the sharded sweep of a flagship scan,
-   T equal to K4's, and the sharded K4 + K5b equal to the dense update
-   under both rules; K15b-4b (the transposed z cones) launch by launch
-   beside its plain version on the all_to_all'd window, T equal to K4's z
-   cones.  Then the reference-exact grid path's kernels on a flagship
+   stamp; K15b-3 / K15b-4a (each shard's kept z cones on clusters) through
+   the sharded sweep of a flagship scan, T equal to K4's, and the sharded
+   K4 + K5b equal to the dense update under both rules; K15b-4b (the
+   transposed z cones) launch by launch beside its plain version on the
+   all_to_all'd window, T equal to K4's z cones.  Then the reference-exact grid path's kernels on a flagship
    exact scan, 3 shards, each beside its plain version on the same
    received blocks and against the dense kernel: K15b-6b's three entries
    (equal to K13b; also with no bg and all bg), K2's sharded label components (labels, converged and
@@ -175,8 +180,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``make_grid_sharded_step`` over 3 shards of 17 planes on the card, each
    beside a dense node on the same scan: state, diagnostics and detection
    integers bit-equal, detection floats within 1e-5 relative, every K15b
-   kernel launched on every scan, at most 1 host sync per scan; step
-   p50/p95 of both, K15b launches and collective copies per scan.  Then
+   kernel launched on every scan, K2's batched launches, K15b-1's launches
+   and K15b-4a's (its kept rounds only) exactly as many as the schedule
+   gives, at most 1 host sync per scan; step p50/p95 of both, launches and
+   collective copies per scan.  Then
    phase 4-grid-exact, the same for the reference-exact path (exact census,
    counted indexing, hasCloseTo box, exact raycast) with its own kernel
    list (K15b-1/-2, K1, K2, K15b-6a/b/c, K12's EMA, K13c on every scan; the
@@ -212,7 +219,7 @@ path that runs each kernel: the sweep path, the prebinned path for K15a,
 the dynamic-radii path for K14, the sequential path for K7s, the
 grid-sharded paths for K15b (the transposed one for K15b-4b, the exact one
 for K15b-6a/b/c, the sequential one for K15b-7a/b/c, the exact one for
-K2's one-sweep launch), else the exact path; bound_ms from the bytes and
+K2's batched launch), else the exact path; bound_ms from the bytes and
 operations of the timed call and the H100's published peaks); the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network and one GPU.
 """
@@ -246,7 +253,7 @@ from vofod_tpu_torch.ops.compaction import (  # noqa: E402
     masked_compact, masked_compact_isin, masked_compact_isin_plain, masked_compact_plain)
 from vofod_tpu_torch.ops.components import (  # noqa: E402
     SENTINEL, label_census, label_census_plain, label_components, label_components_plain,
-    label_components_seeded, sweep_plain, sweeps, sweeps_plain, sweeps_tiled_plain)
+    label_components_seeded, sweeps, sweeps_plain, sweeps_tiled_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
     explore_cut_plain, explore_plain, explore_planes_plain, explore_sequential_,
@@ -283,8 +290,8 @@ from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     quirk_columns_plain, quirk_query_plain, quirk_ranks_plain, quirk_sure_counts_sharded)
 from vofod_tpu_torch.parallel.comm import LocalComm  # noqa: E402
 from vofod_tpu_torch.parallel.gridops import (  # noqa: E402
-    DENSE, HALO_TILE_BYTES, ZShardOps, halo_exchange_plain, halo_fill_plain_,
-    halo_fold_min_plain, halo_segments)
+    DENSE, HALO_TILE_BYTES, SWEEP_BATCH, ZShardOps, batch_on_card, batch_plain,
+    halo_exchange_plain, halo_fill_plain_, halo_fold_min_plain, halo_segments, sharded_sweeps)
 from vofod_tpu_torch.parallel.grid_step import (  # noqa: E402
     gather_state, make_grid_sharded_step, shard_state)
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
@@ -327,7 +334,7 @@ EXACT_KERNELS = ("ball_pool", "propagate_sweeps", "frontend_bin", "masked_compac
                  "label_census", "quirk_counts", "exact_demote_ema")
 ONCE_PER_SCAN = ("gate_faces", "ray_update", "detect", "point_ema", "demote_ema")
 # K2 on every dense path: one persistent launch per sweeps() call, a seeded
-# label and a reach call (or the census's label call) a scan; the one-sweep
+# label and a reach call (or the census's label call) a scan; the batched
 # launch only on the grid paths
 K2_CALLS_PER_DENSE_SCAN = 2
 ONCE_PER_EXACT_SCAN = ("dda", "ray_ema", "detect", "point_ema", "label_census", "quirk_counts",
@@ -350,8 +357,8 @@ F32_OPS_PER_S = 67e12
 KERNEL_INFO = {
     "ball_pool": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:70"),
     "propagate_sweeps": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/ops/components.py:88"),
-    # the one-sweep launch of the grid-sharded step's halo'd sweeps
-    "propagate_sweep": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/parallel/gridops.py:374"),
+    # the grid-sharded step's launches of k sweeps on a halo'd slab
+    "propagate_batch": ("vofod_tpu_torch/csrc/propagate.cu", "vofod_tpu/parallel/gridops.py:374"),
     "frontend_bin": ("vofod_tpu_torch/csrc/frontend_bin.cu", "vofod_tpu/ops/binning.py:44"),
     "cone_sweep": ("vofod_tpu_torch/csrc/cone_sweep.cu", "vofod_tpu/ops/raycast.py:210"),
     "masked_compact": ("vofod_tpu_torch/csrc/compact.cu", "vofod_tpu/ops/compaction.py:49"),
@@ -395,7 +402,7 @@ GRID_SHARDS = 3
 GRID_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_z")
 # the reference-exact grid path (no sweep: K15b-3/-4a never) and the
 # sweep path with the transposed z cones (K15b-4b in place of K15b-4a)
-GRID_EXACT_KERNELS = ("halo_exchange", "halo_fold_min", "ball_pool", "propagate_sweep",
+GRID_EXACT_KERNELS = ("halo_exchange", "halo_fold_min", "ball_pool", "propagate_batch",
                       "census_scatter", "census_read", "quirk_columns", "quirk_ranks",
                       "quirk_query", "dda_slab", "ray_ema", "exact_demote_ema")
 GRID_TRANSPOSE_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_zt")
@@ -544,26 +551,6 @@ def phase1() -> None:
         host_library=host_so.name, ptxas=info, run_table_kernels_registers=pool)
 
 
-def _one_sweep_calls(init, occ, ball, n: int, until_fixpoint: bool):
-    """K2 as one launch a sweep, for comparison in the same call: the
-    one-sweep kernel (the grid paths') once per sweep, ping-ponging two
-    buffers, each launch past the fixpoint exiting on the previous sweep's
-    flag when ``until_fixpoint``."""
-    taps, halo = tap_set(ball)
-    occ8 = occ.contiguous().view(torch.uint8)
-
-    def run():
-        changed = torch.zeros(n, dtype=torch.int32, device=init.device)
-        src = init
-        bufs = (torch.empty_like(init), init.clone() if until_fixpoint else torch.empty_like(init))
-        for i in range(n):
-            prev = changed[i - 1] if until_fixpoint and i > 0 else None
-            kernels.propagate_sweep(src, bufs[i % 2], occ8, taps, halo, changed[i], prev)
-            src = bufs[i % 2]
-        return src, changed.bool()
-    return run
-
-
 @contextlib.contextmanager
 def k2_tiles_recorded():
     """Within the block, record the tiles computed per sweep (device int32
@@ -573,7 +560,7 @@ def k2_tiles_recorded():
 
     def recording(*args, **kwargs):
         out = real(*args, **kwargs)
-        calls.append(out[1])
+        calls.append(out[2])
         return out
     kernels.propagate_sweeps = recording
     try:
@@ -585,26 +572,22 @@ def k2_tiles_recorded():
 def _k2_case(init, occ, ball, n: int, until_fixpoint: bool = False, reps: int = 20) -> dict:
     """One persistent K2 call (``sweeps``) held bit-equal to the plain sweeps
     (grid, per-sweep flags) and to the plain model of its schedule (tiles
-    computed per sweep), and one one-sweep launch a sweep to the same grid and
-    flags; ms of the call, of the one-sweep launches and of the plain
-    sweeps, and the blocks the launch used."""
+    computed per sweep); ms of the call and of the plain sweeps, and the
+    blocks the launch used."""
     with k2_tiles_recorded() as calls:
         kg, kf = sweeps(init, occ, ball, n, until_fixpoint)
     kt, = calls
     pg, pf = sweeps_plain(init, occ, ball, n, until_fixpoint)
     _, _, mt = sweeps_tiled_plain(init, occ, ball, n, until_fixpoint)
     err = _equal((kg, kf, kt), (pg, pf, mt), "K2.grid K2.flags K2.tiles_per_sweep")
-    one = _one_sweep_calls(init, occ, ball, n, until_fixpoint)
-    _equal(one(), (pg, pf), "K2[one-sweep].grid K2[one-sweep].flags")
     taps, halo = tap_set(ball)
-    _, _, blocks = kernels.propagate_sweeps(init.clone(), torch.empty_like(init),
-                                            occ.contiguous().view(torch.uint8), taps, halo, 1)
+    *_, blocks = kernels.propagate_sweeps(init, occ.contiguous().view(torch.uint8), taps,
+                                          halo, 1)
     return dict(shape=list(init.shape), dtype=str(init.dtype), taps=len(taps), halo=halo,
                 max_abs_err=err, sweeps=n, sweeps_run=min(n, int(pf.sum()) + 1),
                 flags=pf.int().tolist(), tiles=kt.tolist(), model_tiles=mt.tolist(),
                 full_sweep_tiles=int(mt[0]), blocks=blocks,
                 ms=cuda_ms(lambda: sweeps(init, occ, ball, n, until_fixpoint), reps=reps),
-                one_sweep_launches_ms=cuda_ms(one, reps=reps),
                 plain_ms=cuda_ms(lambda: sweeps_plain(init, occ, ball, n, until_fixpoint),
                                  reps=max(reps // 4, 1)))
 
@@ -817,8 +800,7 @@ def phase2(lut) -> list[dict]:
 
     # K2 — the persistent launch: 8 label sweeps at r3 from the scan's seeded
     # keys, 8 reach sweeps at r2, a fixpoint at sweep 0 (voxels 3 apart at
-    # r2) and a grid that is no multiple of the 32 x 8 x 4 tile; each beside
-    # one one-sweep launch a sweep, in this call
+    # r2) and a grid that is no multiple of the 32 x 8 x 4 tile
     bg_near = ball_pool_plain(bg.to(torch.int8), radius, "max", 0) > 0
     seed = occupied & bg_near
     nv = grid.n_voxels
@@ -845,28 +827,14 @@ def phase2(lut) -> list[dict]:
     say("2-k2", cases=k2, seeded=dict(converged=bool(pl[2]), iters=int(pl[3])))
     lab = k2["label r3"]
     n_taps = len(ball_taps(radius))
-    both = {k: [round(v["ms"], 4), round(v["one_sweep_launches_ms"], 4)] for k, v in k2.items()}
+    per_call = {k: round(v["ms"], 4) for k, v in k2.items()}
     results.append(dict(
         name="propagate_sweeps", max_abs_err=lab["max_abs_err"], ms=lab["ms"], plain_ms=lab["plain_ms"],
         # one call: the keys and the mask read once, the keys written once;
         # the taps of every tile this call's schedule computed
         bytes=nv * (4 + 1 + 4), ops=sum(lab["tiles"]) * 32 * 8 * 4 * n_taps, library_ms=None,
         shapes=f"{grid.shape}, one call of {cfg.cc_sweeps} label sweeps at r3 ({n_taps} taps); "
-               f"ms per call / one-sweep launches x sweeps: {both}",
-    ))
-    # the one-sweep launch of the grid-sharded step, alone
-    taps, halo = tap_set(radius)
-    occ8 = occupied.view(torch.uint8)
-    dst, flag = torch.empty_like(keys0), torch.zeros((), dtype=torch.int32, device=dev)
-    kernels.propagate_sweep(keys0, dst, occ8, taps, halo, flag)
-    pn, pc = sweep_plain(keys0, occupied, radius)
-    e2 = _equal((dst, flag.bool()), (pn, pc), "K2[one sweep].grid K2[one sweep].flag")
-    results.append(dict(
-        name="propagate_sweep", max_abs_err=e2,
-        ms=cuda_ms(lambda: kernels.propagate_sweep(keys0, dst, occ8, taps, halo, flag)),
-        plain_ms=cuda_ms(lambda: sweep_plain(keys0, occupied, radius)),
-        bytes=nv * (4 + 1 + 4), ops=nv * n_taps, library_ms=None,
-        shapes=f"{grid.shape}, one label sweep at r3 ({n_taps} taps)",
+               f"ms per call: {per_call}",
     ))
 
     # K4 — the cone sweep on the scan's blocker window, and four more windows
@@ -1743,7 +1711,7 @@ def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
     for rad, init, occ in ((4.0, keys0, occupied), (5.0, reach0, bg), (7.99, keys0, occupied)):
         c = _k2_case(init, occ, rad, 4, reps=3)
         cases[f"K2 {init.dtype} r{rad} ({c['taps']} taps), 4 sweeps, one call"] = dict(
-            ms=c["ms"], one_sweep_launches_ms=c["one_sweep_launches_ms"], blocks=c["blocks"],
+            ms=c["ms"], blocks=c["blocks"],
             tiles=c["tiles"])
     true = torch.ones((), dtype=torch.bool, device=dev)
     # K11's demotion past 256 taps, and the dynamic path's shells at 2.0 /
@@ -1970,6 +1938,19 @@ def phase2_exact(lut) -> list[dict]:
                     and full["max_abs"] <= K5B_TOL_REL * abs(dyn.score_ray)):
                 raise AssertionError(f"K12 walk+EMA {name}: {full}")
             ema_cases[name] = dict(changed=int((b != vals).sum()), walk_and_ema=full)
+    # the old rule's max keeps a NaN raylen, as torch.max does: every voxel
+    # the EMA reaches turns NaN, in the kernel as in the plain version
+    ema = ray_ema(cfg, dataclasses.replace(dyn, raycast_new_update_rule=False), 1.0)
+    rl_nan = k12.clone()
+    rl_nan.view(-1)[::100003] = float("nan")
+    a = ray_ema_grid_(vals.clone(), had, rl_nan, ema)
+    b = ray_ema_plain(vals, rl_nan, had, ema)
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not (torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
+            and int(nan_b.sum()) > 0):
+        raise AssertionError(f"K12e old rule, raylen holding NaN: {int(nan_a.sum())} NaN voxels "
+                             f"against the plain version's {int(nan_b.sum())}")
+    ema_cases["old rule, raylen holding NaN"] = dict(nan_voxels=int(nan_b.sum()))
     ema1 = ray_ema(cfg, dyn, 1.0)
     work = vals.clone()
     out.append(dict(
@@ -2006,15 +1987,14 @@ def phase2_exact(lut) -> list[dict]:
         kl = label_components(occ, mv / lsz, 128)
         pl = label_components_plain(occ, mv / lsz, 128)
         _equal(kl, pl, f"K2c[{name}].labels K2c[{name}].converged K2c[{name}].sweeps")
-        # the one call under it: grid, flags and tiles per sweep, and
-        # 128 gated one-sweep launches in this call
+        # the one call under it: grid, flags and tiles per sweep
         c = _k2_case(torch.where(occ, flat, SENTINEL), occ, mv / lsz, 128, until_fixpoint=True,
                      reps=3)
         k2[name] = dict(converged=bool(pl[1]), sweeps=int(pl[2]),
                         ms=cuda_ms(lambda: label_components(occ, mv / lsz, 128), reps=3),
                         plain_ms=cuda_ms(lambda: label_components_plain(occ, mv / lsz, 128),
                                          reps=1),
-                        sweeps_call_ms=c["ms"], one_sweep_launches_ms=c["one_sweep_launches_ms"],
+                        sweeps_call_ms=c["ms"],
                         tiles_computed=sum(c["tiles"]), tiles_per_sweep=c["tiles"],
                         full_sweep_tiles=c["full_sweep_tiles"])
     if not (k2["random 1 %"]["converged"] and k2["scan cells"]["sweeps"] >= 2
@@ -2407,13 +2387,13 @@ def phase3() -> None:
 
 def _k2_dense_scans(launches: dict, calls: list | None, n_scans: int, what: str) -> dict:
     """K2 on a dense path: exactly K2_CALLS_PER_DENSE_SCAN persistent launches
-    a scan and no one-sweep launch; from ``calls`` (k2_tiles_recorded over
+    a scan and no batched (grid) launch; from ``calls`` (k2_tiles_recorded over
     the run, read after it) the tiles computed a scan and the sweeps each
     call ran, beside a full sweep's tiles."""
     want = K2_CALLS_PER_DENSE_SCAN * n_scans
-    got = (launches.get("propagate_sweeps", 0), launches.get("propagate_sweep", 0))
+    got = (launches.get("propagate_sweeps", 0), launches.get("propagate_batch", 0))
     assert got == (want, 0), (
-        f"{what}: K2 persistent / one-sweep launches {got}, expected ({want}, 0)")
+        f"{what}: K2 persistent / batched launches {got}, expected ({want}, 0)")
     if calls is None:
         return {}
     assert len(calls) == want, f"{what}: {len(calls)} K2 calls recorded, expected {want}"
@@ -2956,7 +2936,8 @@ def _sharded_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
     a shard's window slab (inside ``comm.run``): each launch of both gets
     the same inputs, the kernels' rows and carries are exchanged as
     ops/raycast.cone_sweep_lat_sharded and cone_sweep_z_pipelined exchange
-    them, and every row block and carry the two produce must be equal.
+    them (K15b-4a on the shard's kept cones only), and every row block and
+    kept carry the two produce must be equal.
     Returns the slab's (T6 of the kernels, T6 of the plain versions)."""
     nzl, wy, wx = op.shape
     n, me, dev = comm.n, comm.rank, op.device
@@ -2975,17 +2956,20 @@ def _sharded_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
             if not torch.equal(tmp_out, plain_out):
                 raise AssertionError(f"K15b-3 launch {k} shard {me}: rows differ from plain")
             lo, hi = comm.ppermutes([(tmp_out[nzl - 1:nzl], up), (tmp_out[:2], dn)])
-    ones = torch.ones((wy, wx), dtype=torch.bfloat16, device=dev)
-    carry = torch.stack([ones, ones])
+    carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=dev)
     for r in range(n):
         keep = (me == r, me == n - 1 - r)
-        out = kernels.cone_sweep_z(op, rel_x, rel_y, rel_z, carry, t6[0][4:], keep)
-        if not torch.equal(out, cone_z_round_plain(op, rel_x, rel_y, rel_z, carry, t6[1][4:],
-                                                   keep)):
-            raise AssertionError(f"K15b-4a round {r} shard {me}: carry differs from plain")
+        if any(keep):
+            out = kernels.cone_sweep_z(op, rel_x, rel_y, rel_z, carry, t6[0][4:], keep)
+            want = cone_z_round_plain(op, rel_x, rel_y, rel_z, carry, t6[1][4:], keep)
+            if not all(torch.equal(out[c], want[c]) for c in (0, 1) if keep[c]):
+                raise AssertionError(f"K15b-4a round {r} shard {me}: carry differs from plain")
+            carry = out
         if r < n - 1:
-            c0, c1 = comm.ppermutes([(out[0], up), (out[1], dn)])
-            carry = torch.stack([ones if c0 is None else c0, ones if c1 is None else c1])
+            got = comm.ppermutes([(carry[0], [(r, r + 1)]), (carry[1], [(n - 1 - r, n - 2 - r)])])
+            for c, recv in enumerate(got):
+                if recv is not None:
+                    carry[c] = recv
     return t6[0], t6[1]
 
 
@@ -3018,6 +3002,123 @@ def _transposed_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
     return tuple(comm.all_to_all(t, 1, 2)[:, :, :wy] for t in tt)
 
 
+def _serpentine_xz(grid: GridSpec, dev) -> torch.Tensor:
+    """Occupancy of one winding corridor in the x-z plane y = ny / 2: rows of
+    x on every other z, joined at alternate ends, through every shard."""
+    occ = torch.zeros(grid.shape, dtype=torch.bool, device=dev)
+    y, nx = grid.ny // 2, grid.nx
+    for z in range(0, grid.nz, 2):
+        occ[z, y, 4:nx - 4] = True
+        if z + 2 < grid.nz:
+            occ[z + 1, y, nx - 5 if (z // 2) % 2 == 0 else 4] = True
+    return occ
+
+
+def _sharded_k2_cases(comm, ops, grid: GridSpec, cfg, dyn, vals, keys) -> dict:
+    """K2's batched launches (up to SWEEP_BATCH sweeps a launch on a halo of
+    as many sweeps' reach) through parallel/gridops.sharded_sweeps on the 3
+    shards at once, each shard's launches on its own stream, beside the same
+    schedule with the plain model of each launch on the same inputs: slab,
+    global per-sweep flags and tiles per sweep bit-equal, and the slabs and
+    flags equal to the dense K2's.  Cases: the step's 8 label sweeps at r3
+    (one launch, a halo of 24 rows: 2 hops of 17), 20 gated ones (a short
+    last launch), 8 reach sweeps at r2, the dynamic path's shells at bound
+    4 (a halo of 32 rows) and 40 gated sweeps along a corridor through every
+    shard (the cap binds: every launch runs).  Times one launch of the
+    step's label sweeps on shard 1 (a fresh scratch each: its memset
+    included; fresh buffers, the second at the fill) beside its plain
+    model; the bound is by bytes: the keys and the mask of the rows the
+    interior's result depends on (within k sweeps' reach of it, clipped to
+    the grid: no row past its edges) read once, the interior's keys written
+    once."""
+    dev = vals.device
+    n, nzl = GRID_SHARDS, grid.nz // GRID_SHARDS
+    bg = vals > dyn.thr_new_obstacles
+    sure = vals > dyn.thr_sure_obstacles
+    radius = cfg.ground_points_max_distance / cfg.voxel_size
+    serp = _serpentine_xz(grid, dev)
+    flat = torch.arange(grid.n_voxels, dtype=torch.int32, device=dev).reshape(grid.shape)
+    cases = {
+        "label r3, 8 sweeps": (keys, bg, radius, cfg.cc_sweeps, False),
+        "label r3, 20 gated": (keys, bg, radius, 20, True),
+        "reach r2, 8 sweeps": ((bg & sure).to(torch.uint8), bg, 2.0, cfg.cc_sweeps, False),
+        "shells bound 4, 8 sweeps": (keys, bg, Shells(4.0, 14.44), cfg.cc_sweeps, False),
+        "corridor r1.5, 40 gated": (torch.where(serp, flat, SENTINEL), serp, 1.5, 40, True),
+    }
+    out = {}
+    for name, (init, occ, ball, n_sw, gated) in cases.items():
+        want, wflags = sweeps(init, occ, ball, n_sw, gated)
+        kernels.reset_launch_counts()
+
+        def shard(rank, init=init, occ=occ, ball=ball, n_sw=n_sw, gated=gated):
+            sl = slice(rank * nzl, (rank + 1) * nzl)
+            args = (init[sl].contiguous(), occ[sl].contiguous(), ball, n_sw, gated)
+            return (sharded_sweeps(ops, *args, batch_on_card),
+                    sharded_sweeps(ops, *args, batch_plain))
+        got = comm.run(shard)
+        launches = kernels.launch_counts()["propagate_batch"]
+        for rank, (k, p) in enumerate(got):
+            for x, y, what in zip(k, p, ("slab", "flags", "tiles per sweep")):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"sharded K2 [{name}] shard {rank}: {what} differs "
+                                         "from the plain model")
+        if not (torch.equal(torch.cat([k[0] for k, _ in got]), want)
+                and all(torch.equal(k[1], wflags) for k, _ in got)):
+            raise AssertionError(f"sharded K2 [{name}] differs from the dense sweeps")
+        k = min(SWEEP_BATCH, n_sw)
+        if launches != n * -(-n_sw // k):
+            raise AssertionError(f"sharded K2 [{name}]: {launches} launches")
+        _, reach = tap_set(ball)
+        grow = int(ball.bound) if isinstance(ball, Shells) else reach
+        out[name] = dict(sweeps=n_sw, gated=gated, sweeps_a_launch=k, halo_rows=k * grow,
+                         hops=-(-k * grow // nzl), launches=launches,
+                         flags=wflags.int().tolist(),
+                         tiles_per_sweep=[t.tolist() for (_, _, t), _ in got])
+    if not (out["label r3, 8 sweeps"]["hops"] >= 2 and 20 % SWEEP_BATCH
+            and out["label r3, 20 gated"]["launches"] == n * -(-20 // SWEEP_BATCH) > n
+            and out["corridor r1.5, 40 gated"]["flags"][-1] == 1):
+        raise AssertionError(f"sharded K2 cases: {out}")
+    say("2-grid-k2", cases=out)
+    # one launch of the step's label sweeps on shard 1's extended slab
+    taps, reach = tap_set(radius)
+    k = min(SWEEP_BATCH, cfg.cc_sweeps)
+    h = k * reach
+    z0 = nzl
+    # the launch's two buffers, the second at the fill, a fresh copy a call
+    pair = torch.stack(kernels.sweep_buffers(_global_ext(keys, z0, nzl, h, SENTINEL)))
+    occ_e = _global_ext(bg.view(torch.uint8), z0, nzl, h, 0).contiguous()
+    rows = (h, h + nzl)
+
+    def launch(bufs):
+        sc = kernels.sweeps_scratch(bufs.shape[1:], k, 1, dev)
+        kernels.propagate_batch(bufs[0], bufs[1], occ_e, taps, reach, sc, 0, 0, k, reach, rows,
+                                None, n)
+        return sc
+
+    def plain(bufs):
+        sc = kernels.sweeps_scratch(bufs.shape[1:], k, 1, dev)
+        batch_plain(bufs[0], bufs[1], occ_e, radius, taps, reach, sc, 0, 0, k, reach, rows,
+                    None, n)
+        return sc
+
+    tiles = launch(pair.clone())[1]
+    if not torch.equal(tiles, plain(pair.clone())[1]):
+        raise AssertionError("K2b: one launch's tiles differ from the plain model's")
+    plane = grid.ny * grid.nx
+    cone = min(grid.nz, z0 + nzl + h) - max(0, z0 - h)  # rows the interior depends on
+    return dict(
+        name="propagate_batch", max_abs_err=0.0, ms=_inplace_ms(launch, pair),
+        plain_ms=_inplace_ms(plain, pair, reps=2),
+        bytes=cone * plane * (4 + 1) + nzl * plane * 4,
+        ops=int(tiles.sum()) * 32 * 8 * 4 * len(taps),
+        library_ms=None, cases=out, tiles_per_sweep=tiles.tolist(),
+        shapes=f"shard 1's slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x {h} halo rows, "
+               f"{k} label sweeps at r3 ({len(taps)} taps) a launch; checked bit-equal "
+               f"to its plain model on 3 concurrent shards in {len(out)} cases; bound: "
+               f"{cone} rows read (keys, mask), {nzl} written",
+    )
+
+
 def phase2_grid(lut) -> list[dict]:
     """The grid-sharded step's kernels against their plain versions on the
     card, with 3 shards of the flagship grid on one card: K15b-1 on f32,
@@ -3031,11 +3132,11 @@ def phase2_grid(lut) -> list[dict]:
     torch.cat's time (phase 2-grid-halo); K15b-2 at r = 16 and 20 (head and tail ranges
     overlap), bit-equal to its plain version and to the min over every
     shard's stamp; K15b-3 and K15b-4a launch by launch beside their plain
-    versions on a flagship scan's window, and the step's sharded sweep, T
-    bit-equal to the plain versions' and to K4's,
-    and the sharded K4 + K5b ray update bit-equal to the dense one under
-    both update rules; K2's sharded sweeps (fixed count and gated) on the
-    background's keys, bit-equal to the dense sweeps with their flags."""
+    versions on a flagship scan's window (K15b-4a on each shard's kept cones
+    only), and the step's sharded sweep, T bit-equal to the plain versions'
+    and to K4's, and the sharded K4 + K5b ray update bit-equal to the dense
+    one under both update rules; K2's batched launches on the 3 shards at
+    once beside their plain model (_sharded_k2_cases)."""
     dev = torch.device("cuda")
     cfg, dyn = VoFODConfig(), DynParams()
     grid = GridSpec.from_config(cfg)
@@ -3135,18 +3236,8 @@ def phase2_grid(lut) -> list[dict]:
                "of place, 3 shards, and a 51-row slab past the resident blocks",
     ))
 
-    # K2 on halo'd slabs with the interior change flag: the label sweeps of
-    # the step (fixed count) and the gated form, labels and per-sweep flags
-    occ = vals > dyn.thr_new_obstacles
-    radius = cfg.ground_points_max_distance / cfg.voxel_size
-    for gated in (False, True):
-        want, wflags = sweeps(keys, occ, radius, cfg.cc_sweeps, gated)
-        out = comm.run(lambda rank, gated=gated: ops.sweeps(
-            keys[rank * nzl:(rank + 1) * nzl], occ[rank * nzl:(rank + 1) * nzl], radius,
-            cfg.cc_sweeps, gated))
-        if not (torch.equal(torch.cat([k for k, _ in out]), want)
-                and all(torch.equal(f, wflags) for _, f in out)):
-            raise AssertionError(f"sharded K2 sweeps (gated {gated}) differ from the dense ones")
+    # K2's batched launches on halo'd slabs, beside their plain model
+    results.append(_sharded_k2_cases(comm, ops, grid, cfg, dyn, vals, keys))
 
     # K15b-2: each shard stamps its whole halo-extended view with 50 - rank
     base = (torch.arange(grid.n_voxels, dtype=torch.float32, device=dev) + 100.0).reshape(
@@ -3265,13 +3356,20 @@ def phase2_grid(lut) -> list[dict]:
     ))
     carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=dev)
     t2 = torch.empty((2, nzl, wy, wx), dtype=torch.float32, device=dev)
+    both = (True, True)
     results.append(dict(
         name="cone_sweep_z", max_abs_err=0.0,
-        ms=cuda_ms(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry, t2, (True, True))),
-        plain_ms=cuda_ms(lambda: cone_z_round_plain(op1, rel_x, rel_y, rz1, carry, t2,
-                                                    (True, True)), reps=3),
+        ms=cuda_ms(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry, t2, both)),
+        one_cone_ms=cuda_ms(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry, t2,
+                                                         (True, False))),
+        device_ms=device_profile(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry,
+                                                              t2, both))["device_ms"],
+        plain_ms=cuda_ms(lambda: cone_z_round_plain(op1, rel_x, rel_y, rz1, carry, t2, both),
+                         reps=3),
         bytes=nw * (1 + 2 * 4) + 2 * 2 * wy * wx * 2, ops=nw * 2 * 16, library_ms=None,
-        shapes=f"one round: 2 cones x {nzl} planes of ({wy}, {wx}); {n} rounds per shard",
+        shapes=f"the middle shard's launch: 2 cones x {nzl} planes of ({wy}, {wx}), each on a "
+               f"cluster of {kernels.CONE_CLUSTER} blocks; one_cone_ms: an end shard's launch; "
+               f"{2 * n - n % 2} launches a scan over {n} shards",
     ))
     # K15b-4b per launch on shard 1's received planes (every z plane of its
     # window rows), the received rows fixed
@@ -3748,25 +3846,45 @@ def dynamic_config() -> VoFODConfig:
 
 _EXACT_NEVER = ("dda", "label_census", "quirk_counts", "cone_sweep_lat", "cone_sweep_z",
                 "cone_sweep_zt", "propagate_sweeps")
+
+
+def _grid_counts(other_halo: int, *calls: int) -> dict:
+    """K2's batched launches and K15b-1's launches a grid scan, from the
+    sweeps a shard's sweeps() calls run (SWEEP_BATCH a launch): per call
+    one exchange of the occupancy and one halo fill a launch, beside the
+    ``other_halo`` exchanges the path makes for its other stencils."""
+    launches = [-(-n // min(SWEEP_BATCH, n)) for n in calls]
+    return {"propagate_batch": GRID_SHARDS * sum(launches),
+            "halo_exchange": other_halo + GRID_SHARDS * sum(1 + k for k in launches)}
+
+
+# a grid scan's sweeps() calls: the seeded labels and the reach (cc_sweeps
+# and sepclusters' 8), or the seeded labels and the exact census's labels
+# (its cap of 128); K15b-4a: each shard's kept cones, one launch a round
+# that keeps one
+_CC = VoFODConfig().cc_sweeps
+_SWEEP_COUNTS = {**_grid_counts(30, _CC, 8), "cone_sweep_z": 2 * GRID_SHARDS - GRID_SHARDS % 2}
 # the grid-sharded paths: (config, node options, make_grid_sharded_step
 # options, the kernels each scan must launch, kernels it must never launch,
 # kernels it must launch exactly so many times a scan)
 GRID_PATHS = {
-    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt", "propagate_sweeps"), {}),
+    "sweep": (VoFODConfig, {}, {}, GRID_KERNELS, ("cone_sweep_zt", "propagate_sweeps"),
+              _SWEEP_COUNTS),
     "exact": (exact_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
-              GRID_EXACT_KERNELS, _EXACT_NEVER, {}),
+              GRID_EXACT_KERNELS, _EXACT_NEVER, _grid_counts(24, _CC, 128)),
     "transpose": (VoFODConfig, {}, dict(zcone_mode="transpose"), GRID_TRANSPOSE_KERNELS,
-                  ("cone_sweep_z", "propagate_sweeps"), {}),
+                  ("cone_sweep_z", "propagate_sweeps"), _grid_counts(30, _CC, 8)),
     "prebinned": (VoFODConfig, dict(frontend_mode="prebinned"), dict(frontend_mode="prebinned"),
                   GRID_KERNELS + ("unpack",), ("frontend_bin", "cone_sweep_zt", "propagate_sweeps"),
-                  {"unpack": GRID_SHARDS}),
-    "dynamic": (dynamic_config, {}, {}, GRID_KERNELS + ("shell_pool", "propagate_sweep"),
-                ("ball_pool", "cone_sweep_zt", "propagate_sweeps"), {}),
+                  {"unpack": GRID_SHARDS, **_SWEEP_COUNTS}),
+    "dynamic": (dynamic_config, {}, {}, GRID_KERNELS + ("shell_pool", "propagate_batch"),
+                ("ball_pool", "cone_sweep_zt", "propagate_sweeps"), _SWEEP_COUNTS),
     "sequential": (sequential_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
                    GRID_SEQ_KERNELS, _EXACT_NEVER + ("halo_fold_min", "explore_seq",
                                                      "explore_bfs", "demote"),
-                   {k: GRID_SHARDS for k in ("explore_cut", "explore_seq_stack",
-                                             "demote_direct")}),
+                   {**{k: GRID_SHARDS for k in ("explore_cut", "explore_seq_stack",
+                                                "demote_direct")},
+                    **_grid_counts(18, _CC, 128)}),
 }
 GRID_PHASES = {"sweep": "4-grid", "exact": "4-grid-exact", "transpose": "4-grid-transpose",
                "prebinned": "4-grid-prebinned", "dynamic": "4-grid-dynamic",
@@ -3941,8 +4059,8 @@ def _device_events(prof, n: int) -> dict:
 # path profile reports every one's device ms and launches a scan
 PORT_KERNELS = (
     "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
-    "sweeps_kernel", "sweep_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
-    "cone_lat_kernel", "cone_z_kernel", "cone_zt_kernel", "compact_kernel",
+    "sweeps_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
+    "cone_lat_kernel", "cone_zt_kernel", "compact_kernel",
     "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
     "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
@@ -4104,7 +4222,7 @@ def main() -> int:
         differing_ops={k[:80]: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
                        if a.get(k, 0) != b.get(k, 0)})
     path_launches = {"unpack": pre_launches, "shell_pool": dyn_launches,
-                     "propagate_sweep": gx_launches,
+                     "propagate_batch": gx_launches,
                      "explore_seq": seq_launches, "cone_sweep_zt": gt_launches,
                      **{g: grid_launches for g in GRID_KERNELS},
                      **{g: gs_launches for g in ("explore_cut", "explore_seq_stack",
@@ -4117,7 +4235,7 @@ def main() -> int:
         # launches from the path that runs the kernel: the sweep path, the
         # prebinned (K15a), dynamic-radii (K14), sequential (K7s) and
         # grid-sharded (K15b: sweep, exact, transposed, sequential; K2's
-        # one-sweep launch: exact) paths, else the exact path
+        # batched launch: exact) paths, else the exact path
         n = (launches[r["name"]] if r["name"] in SWEEP_KERNELS
              else path_launches.get(r["name"], exact_launches).get(r["name"], 0))
         t_bytes, t_ops = r["bytes"] / HBM_BYTES_PER_S, r["ops"] / F32_OPS_PER_S

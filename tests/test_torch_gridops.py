@@ -10,7 +10,10 @@ sweep's T is bit-equal to the port's dense K4 plain version; its raylen
 against JAX's sweep carries the per-voxel bf16 bounds of
 tests/test_torch_raycast.py (the two frameworks round the bf16 carry at
 different points), and max |d| <= 2e-3 x max raylen (measured 1.29e-3 at
-this sensor placement).  Each JAX program is compiled once per module.
+this sensor placement).  The z cones' kept-cone schedule (K15b-4a) at 2,
+3 and 4 shards is bit-equal to JAX's pipeline schedule replayed with the
+port's arithmetic, and within 2^-6 of JAX's own T (its bf16 rounding
+points differ).  Each JAX program is compiled once per module.
 """
 
 import threading
@@ -33,11 +36,12 @@ from vofod_tpu.parallel.gridops import DENSE as JDENSE, ZShardOps as JZShardOps
 from vofod_tpu_torch.config import Box, SensorConfig, VoFODConfig
 from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.components import SENTINEL, label_components, sweeps_plain
+from vofod_tpu_torch.ops import raycast as raycast_mod
 from vofod_tpu_torch.ops.compaction import masked_compact
 from vofod_tpu_torch.ops.explore import _pack_rows
 from vofod_tpu_torch.ops.raycast import (
-    RayConsts, RayEma, cone_sweep_plain, ray_window_plain, raycast_update_,
-    raycast_update_zsharded, sweep_zsharded)
+    RayConsts, RayEma, cone_sweep_plain, cone_sweep_z_pipelined, cone_z_round_plain,
+    ray_window_plain, raycast_update_, raycast_update_zsharded, sweep_zsharded)
 from vofod_tpu_torch.parallel.comm import LocalComm
 from vofod_tpu_torch.parallel.gridops import DENSE, ZShardOps
 
@@ -444,6 +448,94 @@ def test_sweep_zsharded_non_square_window(comm):
     rel_z = torch.cat([o[5] for o in out])
     assert (rel_x.shape[0], rel_y.shape[0]) == (33, 25)
     assert torch.equal(T6, cone_sweep_plain(blockers, rel_x, rel_y, rel_z))
+
+
+def _jax_z_pipeline(op: np.ndarray, rel_x, rel_y, rel_z, n: int) -> np.ndarray:
+    """JAX's ``_sweep_cones_z_pipelined`` over n shards of ``op`` in
+    shard_map: T of both z cones [2, nz, ny, nx] in grid order."""
+    ny, nx = op.shape[1:]
+
+    def fn(o, rz):
+        of = o.astype(jnp.float32)
+        rs = jnp.stack([rz[:, 0], -rz[::-1, 0]], axis=1)
+        t = jr._sweep_cones_z_pipelined(
+            jnp.stack([of, of[::-1]], axis=1), rs,
+            jnp.broadcast_to(jnp.asarray(rel_y)[None], (2, ny)),
+            jnp.broadcast_to(jnp.asarray(rel_x)[None], (2, nx)), "grid", n)
+        return jnp.stack([t[:, 0], t[::-1, 1]])  # both cones in the slab's row order
+
+    return np.asarray(jax.jit(shard_map(
+        fn, mesh=make_grid_mesh(n), in_specs=(SPEC, P("grid", None)),
+        out_specs=P(None, "grid", None, None), check_vma=False))(
+            jnp.asarray(op), jnp.asarray(rel_z)[:, None]))
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_kept_cone_schedule_matches_jax_pipeline(n, monkeypatch):
+    """K15b-4a's kept cones at 2, 3 and 4 shards (4 planes each, the sensor
+    between planes so that seed and swept planes mix): each shard sweeps
+    only the cones it keeps (2 cone sweeps a shard, in 2 launches, 1 on the
+    middle shard of an odd count) and passes 2 (n - 1) carries.  T is
+    bit-equal to JAX's pipeline schedule (every round of both cones on every
+    shard, zeros where no shard sends) replayed with the port's arithmetic,
+    and to the dense K4 plain version's z cones.  JAX's own
+    ``_sweep_cones_z_pipelined`` rounds to bf16 after every add and
+    multiply where the port rounds each 4-tap sum once, so its T is held
+    within 2^-6 of the port's (T in [0, 1]; measured 3 x 2^-8 at 3 shards,
+    a few percent of the voxels differing)."""
+    nzl, ny, nx = 4, 13, 11
+    rng = np.random.default_rng(20 + n)
+    op = rng.random((n * nzl, ny, nx)) < 0.1
+    rel_z = torch.arange(n * nzl, dtype=torch.float32) + 0.5 - (1.7 * n)
+    rel_y = torch.arange(ny, dtype=torch.float32) + 0.5 - 6.2
+    rel_x = torch.arange(nx, dtype=torch.float32) + 0.5 - 4.7
+    comm_n = LocalComm(n, ["cpu"], timeout=60.0)
+    up = [(i, i + 1) for i in range(n - 1)]
+    dn = [(i, i - 1) for i in range(1, n)]
+    sweeps = []
+    real = cone_z_round_plain
+
+    def counted(*a):
+        sweeps.append((comm_n.rank, sum(a[-1])))
+        return real(*a)
+
+    def kept(rank):
+        sl = slice(rank * nzl, (rank + 1) * nzl)
+        T2 = torch.full((2, nzl, ny, nx), float("nan"))
+        cone_sweep_z_pipelined(torch.from_numpy(op[sl].copy()), rel_x, rel_y,
+                               rel_z[sl].contiguous(), T2, comm_n)
+        return T2
+
+    def jax_schedule(rank):
+        sl = slice(rank * nzl, (rank + 1) * nzl)
+        o = torch.from_numpy(op[sl].copy())
+        T2 = torch.full((2, nzl, ny, nx), float("nan"))
+        carry = torch.ones((2, ny, nx), dtype=torch.bfloat16)
+        for r in range(n):
+            t_r = torch.empty((2, nzl, ny, nx))
+            out = real(o, rel_x, rel_y, rel_z[sl].contiguous(), carry, t_r, (True, True))
+            for c, keep in enumerate((rank == r, rank == n - 1 - r)):
+                if keep:
+                    T2[c] = t_r[c]
+            if r < n - 1:
+                c0, c1 = comm_n.ppermutes([(out[0], up), (out[1], dn)])
+                zeros = torch.zeros((ny, nx), dtype=torch.bfloat16)
+                carry = torch.stack([zeros if c0 is None else c0, zeros if c1 is None else c1])
+        return T2
+
+    monkeypatch.setattr(raycast_mod, "cone_z_round_plain", counted)
+    comm_n.reset_copies()
+    got = torch.cat(comm_n.run(kept), dim=1)
+    monkeypatch.undo()
+    assert comm_n.copies_by == {"ppermute": 2 * (n - 1)}
+    per_shard = {i: [k for r, k in sweeps if r == i] for i in range(n)}
+    assert all(sum(v) == 2 for v in per_shard.values())
+    assert all(len(v) == (1 if 2 * i == n - 1 else 2) for i, v in per_shard.items())
+    want = torch.cat(comm_n.run(jax_schedule), dim=1)
+    assert torch.equal(got, want)
+    assert torch.equal(got, cone_sweep_plain(torch.from_numpy(op), rel_x, rel_y, rel_z)[4:])
+    jt = _jax_z_pipeline(op, rel_x.numpy(), rel_y.numpy(), rel_z.numpy(), n)
+    assert np.abs(jt - got.numpy()).max() <= 2.0**-6
 
 
 @pytest.mark.parametrize("new_rule", [True, False], ids=["new_rule", "old_rule"])

@@ -12,15 +12,20 @@ their halo rows in place, on the CPU.
 * ``halo_fill_plain_`` (the in-place form) against ``halo_exchange_plain``,
   its interior untouched, and ``ZShardOps.halo_fill_`` through the
   collective.
-* ``ZShardOps.sweeps``, one schedule on both devices (two halo'd buffers,
-  the source's halo rows filled in place, the gated launch skipped after a
-  sweep that changed nothing), at 2 and 4 shards against the dense
+* ``ZShardOps.sweeps``, one schedule on both devices (``sharded_sweeps``:
+  two buffers of the slab with a halo of k sweeps' reach, the source's halo
+  rows filled in place once a launch of k sweeps, a gated launch after a
+  fixpoint doing nothing), at 2 and 4 shards against the dense
   ``ops/components.sweeps``: labels or reach, per-sweep flags and the sweep
   count, fixed-count and gated, a fixpoint after 2 of 5 and of 6 sweeps
-  (skipped sweeps leave either buffer as the result), a halo of more hops
+  (an early stop leaves either buffer as the result), a halo of more hops
   than the slab's rows, traced shells, and one exchange of the slab a call.
 * The sharded labels against JAX's sharded ``label_components`` at 8 shards
-  (the fixtures of tests/test_torch_gridops.py).
+  (the fixtures of tests/test_torch_gridops.py), and the batched schedule's
+  ``label_seeded``, ``propagate_reach`` and ``label_components`` against
+  JAX's at 2, 3 and 4 shards, each launch's tiles per sweep against an
+  oracle from unskipped sweeps, and the rows past the global edges at the
+  fill.
 
 Everything is integer or selection arithmetic: bit-equal throughout.
 """
@@ -32,13 +37,17 @@ import pytest
 import torch
 
 from tests.test_torch_gridops import _jax_sharded, mesh  # noqa: F401
+from tests.test_torch_sweep_schedule import _oracle_batch
 from tests.torch_threads import one_torch_thread  # noqa: F401
+from vofod_tpu.parallel.grid_step import make_grid_mesh
 from vofod_tpu.parallel.gridops import ZShardOps as JZShardOps
+from vofod_tpu_torch import kernels
 from vofod_tpu_torch.ops import components as tc
 from vofod_tpu_torch.ops.morphology import Shells
+from vofod_tpu_torch.parallel import gridops as tg
 from vofod_tpu_torch.parallel.comm import LocalComm
 from vofod_tpu_torch.parallel.gridops import (
-    HALO_TILE_BYTES, ZShardOps, halo_exchange_plain, halo_exchange_segments_plain,
+    HALO_TILE_BYTES, SWEEP_BATCH, ZShardOps, halo_exchange_plain, halo_exchange_segments_plain,
     halo_fill_plain_, halo_segments)
 
 N_HALO, NZL = 4, 5  # 4 shards of 5 rows: r = 16 takes 4 hops, the 4th past every shard
@@ -232,9 +241,11 @@ def test_unified_sweeps_match_dense(case, n_shards, gated):
 
 def test_sweeps_exchange_the_slab_once_and_fill_halos_in_place(monkeypatch):
     """One full exchange a sweeps() call (the occupancy's) and one in-place
-    halo fill a sweep, also for the gated sweeps skipped after the fixpoint:
-    the interior is never copied or cloned per sweep."""
-    init, occ, ball, n = _sweep_inputs("fixpoint_2_of_6")
+    halo fill a launch of k sweeps, also for the gated launches after the
+    fixpoint: the interior is never copied or cloned per sweep.  The
+    fixpoint comes in the first launch, so the second is gated off."""
+    init, occ, ball, _ = _sweep_inputs("fixpoint_2_of_6")
+    n = SWEEP_BATCH + 3  # two launches: one of k sweeps and the rest
     comm = LocalComm(2, ["cpu"], timeout=60.0)
     ops = ZShardOps(comm)
     calls = {"halo_exchange": 0, "halo_fill_": 0}
@@ -243,26 +254,38 @@ def test_sweeps_exchange_the_slab_once_and_fill_halos_in_place(monkeypatch):
             calls[_name] += 1
             return _fn(ops, *a, **kw)
         monkeypatch.setattr(ops, name, counted)
+    gates = {0: [], 1: []}
+
+    def leaf(*a, _fn=tg.batch_plain):
+        gate = a[12]
+        gates[comm.rank].append(gate is None or bool(gate))
+        return _fn(*a)
+    monkeypatch.setattr(tg, "batch_plain", leaf)
     nzl = init.shape[0] // 2
     out = comm.run(lambda rank: ops.sweeps(init[rank * nzl:(rank + 1) * nzl].contiguous(),
                                            occ[rank * nzl:(rank + 1) * nzl], ball, n, True))
-    assert calls == {"halo_exchange": 2, "halo_fill_": 2 * n}
+    assert calls == {"halo_exchange": 2, "halo_fill_": 2 * -(-n // SWEEP_BATCH)}
+    assert gates == {0: [True, False], 1: [True, False]}  # the second launch gated off
     assert torch.equal(torch.cat([s for s, _ in out]), tc.sweeps(init, occ, ball, n, True)[0])
 
 
 def test_plain_sweep_leaf_skips_like_the_gated_launch():
-    """propagate_sweep_plain leaves dst and the flag untouched when the
-    previous flag is 0, and otherwise writes one sweep and ORs the flag of
-    the given rows."""
+    """sweeps_batch_plain leaves both buffers, the flags and the tile counts
+    untouched when the gate is 0, and otherwise writes its sweeps' entries
+    of the call's flags (the given rows only) and tile counts."""
     init, occ, ball, _ = _sweep_inputs("random")
-    dst = torch.full_like(init, 7)
-    changed = torch.zeros((), dtype=torch.int32)
-    tc.propagate_sweep_plain(init, dst, occ, ball, changed, torch.tensor(0, dtype=torch.int32))
-    assert bool((dst == 7).all()) and int(changed) == 0
-    tc.propagate_sweep_plain(init, dst, occ, ball, changed, torch.tensor(1, dtype=torch.int32),
-                             (2, 6))
-    new, ch = tc.sweep_plain(init, occ, ball, (2, 6))
-    assert torch.equal(dst, new) and int(changed) == int(ch) == 1
+    bufs = (init.clone(), torch.where(occ, 7, tc.SENTINEL).to(torch.int32))
+    changed, tiles = torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32)
+    tc.sweeps_batch_plain(*bufs, occ, ball, changed, tiles, 1, 2,
+                          gate=torch.tensor(0, dtype=torch.int32))
+    assert torch.equal(bufs[0], init) and torch.equal(bufs[1], torch.where(occ, 7, tc.SENTINEL))
+    assert not bool(changed.any()) and not bool(tiles.any())
+    tc.sweeps_batch_plain(*bufs, occ, ball, changed, tiles, 1, 1, rows=(2, 6),
+                          gate=torch.tensor(1, dtype=torch.int32))
+    new, _ = tc.sweep_plain(init, occ, ball)
+    assert torch.equal(bufs[1], new) and torch.equal(bufs[0], init)
+    assert changed.tolist() == [0, int(bool((new[2:6] != init[2:6]).any())), 0, 0]
+    assert tiles.tolist() == [0, kernels.sweep_tiles(init.shape), 0, 0]
 
 
 @pytest.fixture(scope="module")
@@ -292,3 +315,118 @@ def test_sharded_labels_match_jax(jax_pair_labels):
         out = comm.run(lambda rank: ops.label_components(slabs[rank], radius, n))
         np.testing.assert_array_equal(torch.cat([o[0] for o in out]).numpy(), jl)
         assert all(bool(c) == bool(jc) for _, c, _ in out)
+
+
+# ---- the batched schedule against JAX's sharded labellings --------------------------
+
+# (shards, grid shape, the seeded labels' and reach's ball, label_components'
+# radius and cap): 2 shards of 4 rows at r 2 (a halo of 16 rows: 4 hops, past
+# every shard) with a cap of 19 (launches of 16 and 3, the fixpoint inside
+# the first); 3 shards with the traced shells of a 3-voxel bound and a
+# corridor that hits a cap of 12 (one launch); 4 shards of 2 rows at r 3
+# (24 hops) with a cap of 20 (launches of 16 and 4)
+BATCH_CASES = {
+    "2_shards": (2, (8, 9, 10), 2.0, (2.0, 19)),
+    "3_shards_shells": (3, (12, 9, 10), Shells(3.0, 5.0), (1.5, 12)),
+    "4_shards": (4, (8, 7, 8), 3.0, (3.0, 20)),
+}
+
+
+def _batch_scene(case: str):
+    n, shape, ball, (lr, cap) = BATCH_CASES[case]
+    rng = np.random.default_rng(n)
+    occ = rng.random(shape) < 0.25
+    if case == "3_shards_shells":  # a serpentine corridor on row 5: the cap binds
+        occ[5] = False
+        occ[5, ::2, :] = True
+        for y in range(1, shape[1], 2):
+            occ[5, y, -1 if (y // 2) % 2 == 0 else 0] = True
+    seed = occ & (rng.random(shape) < 0.05)
+    return n, occ, seed, ball, lr, cap
+
+
+def _recording_leaf(rec: list, comm, nz: int):
+    """The plain leaf, checked launch by launch: its tiles per sweep and the
+    exact rows' result against the oracle of unskipped sweeps
+    (tests/test_torch_sweep_schedule.py), whatever the second buffer held on
+    the mask (a poison); the rows past the global edges hold the fill before the launch
+    and after every unskipped sweep.  ``rec`` gets "launch" or "gated"."""
+    def leaf(src, dst, occ, ball, taps, reach, scratch, launch, i0, n, grow, rows, gate, share):
+        if gate is not None and not bool(gate):
+            rec.append("gated")
+        else:
+            rec.append("launch")
+            init = src.clone()
+            outs, want_tiles = _oracle_batch(init, occ.view(torch.bool), ball, n, grow,
+                                             kernels.TILE_ZYX)
+            dst[occ.view(torch.bool)] = 7  # a poison where the launch may leave stale values
+        tg.batch_plain(src, dst, occ, ball, taps, reach, scratch, launch, i0, n, grow, rows,
+                        gate, share)
+        if rec[-1] == "gated":
+            return
+        assert scratch[1][i0:i0 + n].tolist() == want_tiles
+        lo, hi = n * grow, src.shape[0] - n * grow
+        assert torch.equal((src, dst)[n % 2][lo:hi], outs[-1][lo:hi])
+        g = comm.rank * (nz // comm.n) - rows[0] + torch.arange(src.shape[0])  # global rows
+        past = (g < 0) | (g >= nz)
+        fill = tc.SENTINEL if src.dtype == torch.int32 else 0
+        for out in outs:
+            assert bool((out[past] == fill).all())
+    return leaf
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+def test_batched_sweeps_match_jax_sharded(case):
+    """The batched schedule's sharded label_seeded, propagate_reach and
+    label_components (plain leaves, k sweeps a launch) equal JAX's sharded
+    ones in shard_map: labels, reach, ``converged`` and ``iters``;
+    label_components' sweep count equals the dense one's; every launch's
+    tiles per sweep and exact rows equal the oracle's."""
+    n, occ, seed, ball, lr, cap = _batch_scene(case)
+    shells = isinstance(ball, Shells)
+    radius, r2 = (ball.bound, ball.r2) if shells else (ball, None)
+    jops = JZShardOps("grid", n)
+    spec, rep = jax.sharding.PartitionSpec("grid", None, None), jax.sharding.PartitionSpec()
+    jr2 = None if r2 is None else jnp.float32(r2)
+    want = _jax_sharded(make_grid_mesh(n), lambda o, s: (
+        *jops.label_seeded(o, s, radius, 8, traced_r2=jr2),
+        *jops.propagate_reach(o, s, radius, 6, traced_r2=jr2),
+        *jops.label_components(o, lr, cap)), jnp.asarray(occ), jnp.asarray(seed),
+        out=(spec, spec, rep, rep, spec, rep, spec, rep))
+    want = [np.asarray(a) for a in want]
+    comm = LocalComm(n, ["cpu"], timeout=60.0)
+    ops = ZShardOps(comm)
+    rec = []
+    nz = occ.shape[0]
+    nzl = nz // n
+    o = [torch.from_numpy(occ[i * nzl:(i + 1) * nzl].copy()) for i in range(n)]
+    sd = [torch.from_numpy(seed[i * nzl:(i + 1) * nzl].copy()) for i in range(n)]
+
+    def sweeps(init, occ_, ball_, n_, until_fixpoint=False):
+        slab, flags, _ = tg.sharded_sweeps(ops, init, occ_, ball_, n_, until_fixpoint,
+                                           _recording_leaf(rec, comm, nz))
+        return slab, flags
+
+    def shard(rank):
+        z0 = rank * nzl
+        return (tc.label_components_seeded(o[rank], sd[rank], radius, 8, traced_r2=r2,
+                                           sweep_fn=sweeps, z0=z0, nz=nz),
+                tc.propagate_reach(o[rank], sd[rank], radius, 6, traced_r2=r2, sweep_fn=sweeps),
+                tc.label_components(o[rank], lr, cap, sweep_fn=sweeps, z0=z0))
+
+    got = comm.run(shard)
+    cat = lambda f: torch.cat([f(g) for g in got]).numpy()  # noqa: E731
+    np.testing.assert_array_equal(cat(lambda g: g[0][0]), want[0])
+    np.testing.assert_array_equal(cat(lambda g: g[0][1]), want[1])
+    np.testing.assert_array_equal(cat(lambda g: g[1][0]), want[4])
+    np.testing.assert_array_equal(cat(lambda g: g[2][0]), want[6])
+    dense = tc.label_components(torch.from_numpy(occ), lr, cap)
+    for (_, _, conv, it), (_, sconv), (_, cconv, cn) in got:
+        assert bool(conv) == bool(want[2]) and int(it) == int(want[3])
+        assert bool(sconv) == bool(want[5]) and bool(cconv) == bool(want[7]) == bool(dense[1])
+        assert int(cn) == int(dense[2])
+    assert "launch" in rec
+    if case == "3_shards_shells":  # the cap binds: every launch runs
+        assert not bool(want[7]) and int(dense[2]) == cap and "gated" not in rec
+    else:  # the fixpoint comes inside the cap, and the launches after it do nothing
+        assert bool(want[7]) and int(dense[2]) < cap and "gated" in rec

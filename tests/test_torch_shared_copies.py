@@ -360,8 +360,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                          torch.zeros((), dtype=torch.bool), 1,
                                          np.zeros((1, 3), np.int32), 0, 24.0, 0.5, -1000.0,
                                          -300.0),
-        lambda: kernels.propagate_sweeps(i, i.clone(), b.view(torch.uint8),
-                                         np.zeros((1, 3), np.int32), 0, 8),
+        lambda: kernels.propagate_sweeps(i, b.view(torch.uint8), np.zeros((1, 3), np.int32),
+                                         0, 8),
         lambda: kernels.cone_sweep(b.view(torch.uint8), torch.zeros(4), torch.zeros(4),
                                    torch.zeros(4)),
     ]

@@ -54,12 +54,17 @@
 // and exchanges per scan per shard, launch-bound by design in this version.
 //
 // K15b-4a `vofod_cone_sweep_z` replaces `_sweep_cones_z_pipelined`
-// (raycast.py:361): the z cones with the sweep axis sharded.  One launch
-// runs a one-block z-cone loop (`sweep_planes`, K4's arithmetic) over the
-// shard's planes from a carry plane in to a carry plane out; n rounds with
-// the carry passed along (cone 0 up, cone 1 down) make the pipeline, and
-// each shard keeps cone 0 from round `rank` and cone 1 from round n - 1 -
-// rank.  Bound: latency, one block a cone.
+// (raycast.py:361): the z cones with the sweep axis sharded, n rounds with
+// the carry plane passed along (cone 0 up, cone 1 down), shard s keeping
+// cone 0 from round s and cone 1 from round n - 1 - s.  The rounds a shard
+// does not keep compute values no kept round reads (JAX's SPMD program runs
+// them because every shard runs one program), so a launch sweeps only the
+// shard's kept cones of its round: one to two launches a shard a scan, a
+// cone sweep each kept cone.  Bound: latency, the planes' dependent steps.
+// A launch is K4's cluster kernel on the shard's planes (`cones` its kept
+// cones, each on a cluster of CONE_CLUSTER blocks with bands of y rows),
+// starting from the received carry plane and leaving the last plane's
+// carry, with K4's arithmetic, so T is bit-equal to the dense sweep's.
 //
 // K15b-4b `vofod_cone_sweep_zt` replaces `_sweep_cones_z_transposed`
 // (raycast.py:308, zcone_mode="transpose"): the z cones after an
@@ -83,7 +88,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int SWEEP_THREADS = 1024;
 constexpr int LAT_THREADS = 256;
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -149,57 +153,6 @@ __device__ __forceinline__ float row_b_pass(const float* wb, const __nv_bfloat16
   const float p1 = b + 1 < nB ? __bfloat162float(crow[b + 1]) : 1.0f;
   const float p2 = b + 2 < nB ? __bfloat162float(crow[b + 2]) : 1.0f;
   return lerp4(wb, m1, c0, p1, p2);
-}
-
-// One cone's plane loop in one block (K15b-4a's): nS planes moving away
-// from the sensor, the carry and the B-resampled plane in shared memory
-// (the caller fills the carry; the first barrier below orders that).  Per
-// plane s: T_in = seed ? 1 : resample(carry), written to Tc (skipped when
-// Tc is NULL), carry = T_in where transparent, 0 where opaque.
-__device__ __forceinline__ void sweep_planes(
-    const uint8_t* __restrict__ opaque, const float* __restrict__ rel_s,
-    const float* __restrict__ rel_a, const float* __restrict__ rel_b, int nS, int nA, int nB,
-    size_t st_s, size_t st_a, size_t st_b, bool back, float* wa, float* wb,
-    __nv_bfloat16* carry, __nv_bfloat16* tmp, float* __restrict__ Tc) {
-  const int nP = nA * nB;
-  for (int p = 0; p < nS; ++p) {
-    const int s = back ? nS - 1 - p : p;
-    const float rs = back ? -rel_s[s] : rel_s[s];
-    for (int i = threadIdx.x; i < nA + nB; i += blockDim.x) {
-      if (i < nA)
-        tap_weights(rs, rel_a[i], wa + 4 * i);
-      else
-        tap_weights(rs, rel_b[i - nA], wb + 4 * (i - nA));
-    }
-    __syncthreads();  // weights ready; previous plane's carry complete
-
-    // pass 1: resample along B (the carry's fastest axis)
-    for (int i = threadIdx.x; i < nP; i += blockDim.x) {
-      const int a = i / nB, b = i - a * nB;
-      tmp[i] = __float2bfloat16_rn(row_b_pass(wb + 4 * b, carry + a * nB, b, nB));
-    }
-    __syncthreads();
-
-    // pass 2: resample along A, seed, write T, attenuate into the carry
-    const bool seed = rs <= 1.0f;
-    for (int i = threadIdx.x; i < nP; i += blockDim.x) {
-      const int a = i / nB, b = i - a * nB;
-      float t;
-      if (seed) {
-        t = 1.0f;
-      } else {
-        const float m1 = a >= 1 ? __bfloat162float(tmp[i - nB]) : 1.0f;
-        const float c0 = __bfloat162float(tmp[i]);
-        const float p1 = a + 1 < nA ? __bfloat162float(tmp[i + nB]) : 1.0f;
-        const float p2 = a + 2 < nA ? __bfloat162float(tmp[i + 2 * nB]) : 1.0f;
-        t = round_bf16(lerp4(wa + 4 * a, m1, c0, p1, p2));
-      }
-      const size_t g = (size_t)s * st_s + (size_t)a * st_a + (size_t)b * st_b;
-      if (Tc != nullptr) Tc[g] = t;
-      carry[i] = __float2bfloat16_rn(opaque[g] ? 0.0f : t);
-    }
-    __syncthreads();
-  }
 }
 
 // One cone's geometry in the window: nS planes of nA x nB lanes, the
@@ -280,16 +233,25 @@ __device__ __forceinline__ void unpack_weights(uint2 p, float* w) {
   w[3] = __uint_as_float(p.y & 0xffff0000u);
 }
 
-// K4: cluster c = blockIdx.x / C sweeps cone c (x+, x-, y+, y-, z+, z-);
-// block rank k of the cluster owns the A rows [k nA / C, (k + 1) nA / C).
+// K4 (and K15b-4a): cluster c = blockIdx.x / C sweeps the c-th cone set in
+// `cones` (bit i: cone i of x+, x-, y+, y-, z+, z-); block rank k of the
+// cluster owns the A rows [k nA / C, (k + 1) nA / C).  T holds the cones
+// from `t_first` on ([cone - t_first] is the cone's volume); carry_in
+// (NULL: the carry starts at 1.0) and carry_out (NULL: not written) the
+// cones' carry planes [cone - t_first][nA][nB], before the first plane and
+// after the last.
 __global__ void __launch_bounds__(CLUSTER_THREADS)
     cone_cluster_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
                         const float* __restrict__ rel_y, const float* __restrict__ rel_z,
-                        float* __restrict__ T, int nz, int ny, int nx) {
+                        float* __restrict__ T, int nz, int ny, int nx, int cones, int t_first,
+                        const __nv_bfloat16* __restrict__ carry_in,
+                        __nv_bfloat16* __restrict__ carry_out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int cone = blockIdx.x / C;
+  int cone = 0;
+  for (int c = blockIdx.x / C;; ++cone)
+    if (((cones >> cone) & 1) && c-- == 0) break;
   const int axis = cone >> 1;
   const bool back = cone & 1;
   const Cone g = cone_of(axis, rel_x, rel_y, rel_z, nz, ny, nx);
@@ -363,7 +325,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
       }
     }
   }
-  for (int i = tid; i < lanes; i += nthr) carry[i] = __float2bfloat16_rn(1.0f);
+  const size_t plane0 = (size_t)(cone - t_first) * nA * nB + (size_t)a0 * nB;  // the band's carry
+  for (int i = tid; i < lanes; i += nthr)
+    carry[i] = carry_in != nullptr ? carry_in[plane0 + i] : __float2bfloat16_rn(1.0f);
   // rowp[par][k]: row a0 - 1 + k of the B-resampled plane of parity par, in
   // the shared memory of the block that owns it; NULL past the plane (1.0)
   for (int i = tid; i < 2 * (band + 3); i += nthr) {
@@ -380,7 +344,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
   for (int i = tid; i < nB + band; i += nthr) plane_weights(rs, rel_b, rel_a, 0, i, nB, wb, wa);
   __syncthreads();
 
-  float* Tc = T + (size_t)cone * nz * ny * nx;
+  float* Tc = T + (size_t)(cone - t_first) * nz * ny * nx;
   for (int p = 0; p < nS; ++p) {
     const int s = back ? nS - 1 - p : p;
     const bool seed = rs[p] <= 1.0f;
@@ -452,6 +416,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
       }
     }
   }
+  // the last plane's carry (its barrier above completed it)
+  if (carry_out != nullptr)
+    for (int i = tid; i < lanes; i += nthr) carry_out[plane0 + i] = carry[i];
   cluster.sync();  // no block leaves while a neighbour may read its rows
 }
 
@@ -572,44 +539,18 @@ __global__ void __launch_bounds__(LAT_THREADS)
   }
 }
 
-// K15b-4a: one round of the pipelined z cones on a shard's nzl planes: the
-// one-block z-cone loop (A = y, B = x), cone 0 ascending and cone 1 descending,
-// starting from carry_in [2][wy][wx] and leaving the last plane's carry in
-// carry_out.  T (the z+ and z- cones of the local T6) is written only for
-// the cones in keep_mask (bit c): the rounds a shard does not keep compute
-// discarded values, as the JAX pipeline's do.
-__global__ void __launch_bounds__(SWEEP_THREADS)
-    cone_z_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
-                  const float* __restrict__ rel_y, const float* __restrict__ rel_z,
-                  const __nv_bfloat16* __restrict__ carry_in,
-                  __nv_bfloat16* __restrict__ carry_out, float* __restrict__ T, int nzl, int wy,
-                  int wx, int keep_mask) {
-  const int cone = blockIdx.x;  // z+, z-
-  const int nP = wy * wx;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* wa = reinterpret_cast<float*>(smem_raw);  // [wy][4]
-  float* wb = wa + 4 * wy;                          // [wx][4]
-  __nv_bfloat16* carry = reinterpret_cast<__nv_bfloat16*>(wb + 4 * wx);
-  __nv_bfloat16* tmp = carry + nP;
-  for (int i = threadIdx.x; i < nP; i += blockDim.x) carry[i] = carry_in[(size_t)cone * nP + i];
-  float* Tc = (keep_mask >> cone) & 1 ? T + (size_t)cone * nzl * nP : nullptr;
-  sweep_planes(opaque, rel_z, rel_y, rel_x, nzl, wy, wx, (size_t)nP, (size_t)wx, 1, cone == 1,
-               wa, wb, carry, tmp, Tc);
-  for (int i = threadIdx.x; i < nP; i += blockDim.x) carry_out[(size_t)cone * nP + i] = carry[i];
-}
-
 }  // namespace
 
-// opaque: device uint8 (nz, ny, nx); rel_*: device f32 voxel-centre offsets
-// from the sensor; T: device f32 [6, nz, ny, nx].  Each cone runs on a
-// cluster of CONE_CLUSTER blocks (non-portable); clusters the card cannot
-// hold at once run one after another.  Returns cudaGetLastError(), or the
-// refusal of a cluster the card cannot schedule at all (never another
-// launch).
-VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void* rel_y,
-                               const void* rel_z, void* T, int nz, int ny, int nx,
-                               void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+namespace {
+
+// The clusters of `cones` (one each, CONE_CLUSTER blocks, non-portable) on
+// the window (nz, ny, nx); clusters the card cannot hold at once run one
+// after another.  Returns cudaGetLastError(), or the refusal of a cluster
+// the card cannot schedule at all (never another launch).
+int launch_cone_clusters(const void* opaque, const void* rel_x, const void* rel_y,
+                         const void* rel_z, void* T, int nz, int ny, int nx, int cones,
+                         int t_first, const void* carry_in, void* carry_out, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1 || cones <= 0 || cones >= 64) return (int)cudaErrorInvalidValue;
   const size_t smem = cluster_smem(nz, ny, nx, CONE_CLUSTER).total;
   if (smem > 232448) return (int)cudaErrorInvalidConfiguration;
   cudaError_t e = cudaFuncSetAttribute(cone_cluster_kernel,
@@ -624,7 +565,7 @@ VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(6 * CONE_CLUSTER);
+  cfg.gridDim = dim3(__builtin_popcount(cones) * CONE_CLUSTER);
   cfg.blockDim = dim3(CLUSTER_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -636,9 +577,26 @@ VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void
   if (active < 1) return (int)cudaErrorInvalidConfiguration;
   e = cudaLaunchKernelEx(&cfg, cone_cluster_kernel, static_cast<const uint8_t*>(opaque),
                          static_cast<const float*>(rel_x), static_cast<const float*>(rel_y),
-                         static_cast<const float*>(rel_z), static_cast<float*>(T), nz, ny, nx);
+                         static_cast<const float*>(rel_z), static_cast<float*>(T), nz, ny, nx,
+                         cones, t_first, static_cast<const __nv_bfloat16*>(carry_in),
+                         static_cast<__nv_bfloat16*>(carry_out));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// opaque: device uint8 (nz, ny, nx); rel_*: device f32 voxel-centre offsets
+// from the sensor; T: device f32 [6, nz, ny, nx].  Each cone runs on a
+// cluster of CONE_CLUSTER blocks (non-portable); clusters the card cannot
+// hold at once run one after another.  Returns cudaGetLastError(), or the
+// refusal of a cluster the card cannot schedule at all (never another
+// launch).
+VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void* rel_y,
+                               const void* rel_z, void* T, int nz, int ny, int nx,
+                               void* stream) {
+  return launch_cone_clusters(opaque, rel_x, rel_y, rel_z, T, nz, ny, nx, 0x3f, 0, nullptr,
+                              nullptr, stream);
 }
 
 // K15b-3, launch k (0 <= k <= max(wx, wy)).  opaque: device uint8 local
@@ -665,27 +623,19 @@ VOFOD_API int vofod_cone_sweep_lat(const void* opaque, const void* rel_x, const 
   return (int)cudaGetLastError();
 }
 
-// K15b-4a, one round.  opaque: device uint8 local window [nzl, wy, wx];
-// rel_*: as K15b-3; carry_in / carry_out: device bf16 [2, wy, wx]; T:
+// K15b-4a, a shard's kept cones of one round.  opaque: device uint8 local
+// window [nzl, wy, wx]; rel_*: as K15b-3; carry_in / carry_out: device bf16
+// [2, wy, wx], of which the kept cones' planes are read / written; T:
 // device f32 [2, nzl, wy, wx] (the z cones of the local T6); keep_mask: bit
-// c writes cone c's T.
+// c sweeps cone c (z+, z-), at least one.
 VOFOD_API int vofod_cone_sweep_z(const void* opaque, const void* rel_x, const void* rel_y,
                                  const void* rel_z, const void* carry_in, void* carry_out,
                                  void* T, int nzl, int wy, int wx, int keep_mask,
                                  void* stream) {
-  const long long smem = 16 * ((long long)wy + wx) + 4 * (long long)wy * wx;
-  if (nzl < 1 || wy < 1 || wx < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cone_z_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cone_z_kernel<<<2, SWEEP_THREADS, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(opaque), static_cast<const float*>(rel_x),
-      static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
-      static_cast<const __nv_bfloat16*>(carry_in), static_cast<__nv_bfloat16*>(carry_out),
-      static_cast<float*>(T), nzl, wy, wx, keep_mask);
-  return (int)cudaGetLastError();
+  if (keep_mask < 1 || keep_mask > 3 || carry_in == nullptr || carry_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_cone_clusters(opaque, rel_x, rel_y, rel_z, T, nzl, wy, wx, keep_mask << 4, 4,
+                              carry_in, carry_out, stream);
 }
 
 // K15b-4b, launch k (0 <= k <= nz).  opaque: device uint8 [nz, nyl, wx], the

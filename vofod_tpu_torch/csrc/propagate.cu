@@ -7,37 +7,38 @@
 // ballmax(cur)) and `label_components` (the min-label sweep to the
 // fixpoint or the cap), each of which XLA runs as K1's ~35 shifted passes
 // plus a masked select and a full-grid compare-and-reduce for the change
-// flag, inside a fori_loop or while_loop.
+// flag, inside a fori_loop or while_loop; and of their grid-sharded forms
+// (vofod_tpu/parallel/gridops.py `label_seeded`, `label_components`: a
+// halo exchange, one sweep and a psum'd or pmax'd flag a sweep).
 //
-// Two entry points share the sweep arithmetic (`sweep_voxel`; the
-// persistent one reads the taps' offsets into the tile from shared memory,
-// the one-sweep one forms each tap's index from the tap struct):
-//
-// `vofod_propagate_sweeps` (the dense paths) runs every sweep of one call
-// in ONE persistent cooperative launch: as many blocks as the occupancy
-// calculator lets stay resident (every SM, one or two blocks each), each
-// looping over the 32 x 8 x 4 tiles of the grid, with a grid-wide barrier
-// between sweeps.  Bound on the H100: a full sweep is memory-bound (the key
-// grid and the mask read once, the keys written once: 0.0066 ms for the
-// flagship grid), but the sweeps a call needs are data-dependent and most
-// tiles settle within a few of them.  So the design removes what does not
-// depend on the data:
+// One kernel, `sweeps_kernel`, runs several sweeps in ONE persistent
+// cooperative launch: as many blocks as the occupancy calculator lets stay
+// resident (every SM, one or two blocks each), each looping over the 32 x
+// 8 x 4 tiles of the grid, with a grid-wide barrier between sweeps.  Bound
+// on the H100: a full sweep is memory-bound (the key grid and the mask read
+// once, the keys written once: 0.0066 ms for the flagship grid), but the
+// sweeps a call needs are data-dependent and most tiles settle within a few
+// of them.  So the design removes what does not depend on the data:
 //   * the launch per sweep (and its ~25 us floor past the fixpoint): one
 //     launch per call, every block returning after the barrier of the first
-//     sweep that changed nothing (a fixpoint: every later sweep would
-//     change nothing, so their flags stay 0, as the gated launches gave);
+//     sweep that leaves the next sweep nothing to compute;
 //   * the tiles that cannot change: sweep i >= 1 recomputes a tile only if
 //     a tile within the ball's reach (itself, +-ceil(halo / extent) tiles
 //     per axis) changed in sweep i - 1.  Otherwise the tile's inputs are
 //     those of sweep i - 1, so its output is output(i - 1) = output(i - 2),
 //     which the destination buffer of the ping-pong already holds (sweep 1
 //     writes the buffer that holds the initial grid, output(-1); sweep 0
-//     computes every tile).  A changed tile puts the tiles in its reach on
-//     the next sweep's work list, which that sweep's blocks share evenly:
-//     no block scans tiles that have nothing to do.
+//     computes every tile that holds an occupied voxel).  A changed tile
+//     puts the tiles in its reach on the next sweep's work list, which
+//     that sweep's blocks share evenly:
+//     no block scans tiles that have nothing to do;
+//   * the tiles and voxels off the mask: their value is the fill whatever
+//     the ball holds, and both buffers start with it there, so a tile with
+//     no occupied voxel (most of a sparse grid's) is never computed, and a
+//     warp with none skips the tap loop.
 // The same Jacobi arithmetic as one launch per sweep, so the grid, the
 // per-sweep flags and the tiles computed per sweep are bit-equal to the
-// plain model ops/components.sweeps_tiled_plain.  The flagship step runs a
+// plain model ops/components.sweeps_batch_plain.  The flagship step runs a
 // fixed 8 sweeps and deliberately leaves very large components unconverged
 // (components.py:120-134): an in-place update or several sweeps inside
 // shared memory would change the labels, so the buffers still ping-pong.
@@ -45,11 +46,30 @@
 // every block is resident) with the fences of cooperative groups' grid
 // sync, so the ordinary loads after it see what every block wrote before.
 //
-// `vofod_propagate_sweep` (the grid-sharded step) is ONE sweep from buffer
-// A into buffer B: the sharded sweep exchanges a halo between sweeps, and
-// counts changes in the slab's interior rows only.  Given the previous
-// sweep's device flag, a launch does nothing when it is 0, so the host
-// enqueues the cap's worth of sweeps with no sync.
+// The dense paths run a whole `sweeps()` call in one launch.  The
+// grid-sharded step runs k sweeps a launch on a shard's slab extended by
+// H = k g rows of its neighbours' (g: at least the ball's z reach), so that
+// one halo exchange serves k sweeps in place of one:
+//   * after sweep j of a launch, the rows within j g of the extended slab's
+//     ends are stale (each row needs rows g away that only a neighbour
+//     held), while the interior [H, H + nzl) stays exact through sweep k.
+//     Sweep j computes only the tiles that meet the rows [j g, rows - j g)
+//     still exact after it (`grow` = g), and a change counts toward the work
+//     lists only in those rows.  The stale rows are never read into an
+//     exact row, and no count depends on them (they hold what the buffers
+//     held before, which the plain model need not know);
+//   * the per-sweep flags count changes in the interior rows only (the
+//     dense sweep's flag); the host takes the k flags' max over the shards
+//     in one collective;
+//   * a launch given the previous launch's last global flag (`gate`, a
+//     device int) does nothing when it is 0, a fixpoint: the host enqueues
+//     the cap's launches with no sync;
+//   * its blocks are the card's resident blocks divided by the shards that
+//     share the card (`share`), so that every shard's cooperative launch
+//     can be resident beside the others' on their own streams; each launch
+//     has its own barrier counter, and each shard its scratch.
+// k is the host's (parallel/gridops.py SWEEP_BATCH); a launch takes any
+// number of sweeps.
 //
 // The ball is any K1 tap set: the static ball, or the traced shells of
 // cfg.dynamic_radii (K14, ops/morphology.shell_taps), up to halo 7 (the
@@ -66,11 +86,13 @@ constexpr int32_t SENTINEL = 0x7fffffff;
 // MODE 1: uint8 reach mask, max-pool with fill 0, new = cur | (occ & pooled).
 // One voxel of a sweep from the tile in shared memory (its box loaded
 // around the tile's origin): `c` is the voxel's index in the tile, `at(t)`
-// tap t's.  Returns the new value, `old` the voxel's own.
+// tap t's.  Returns the new value, `old` the voxel's own; an unoccupied
+// voxel's does not depend on the pool, so it skips the taps.
 template <typename T, int MODE, typename At>
 __device__ __forceinline__ T sweep_voxel(const T* tile, int n_taps, At at, int c, bool o,
                                          T* old) {
   *old = tile[c];
+  if (!o) return MODE == 0 ? (T)SENTINEL : (*old != 0 ? (T)1 : (T)0);
   T acc = tile[at(0)];
   for (int t = 1; t < n_taps; ++t) {
     const T v = tile[at(t)];
@@ -79,41 +101,8 @@ __device__ __forceinline__ T sweep_voxel(const T* tile, int n_taps, At at, int c
     else
       acc = v > acc ? v : acc;
   }
-  if (MODE == 0) return o ? acc : (T)SENTINEL;  // the ball holds its centre: min(key, pool) == pool
-  return (*old != 0 || (o && acc != 0)) ? (T)1 : (T)0;
-}
-
-template <typename T, int MODE, typename Taps>
-__global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z)
-    sweep_kernel(const T* __restrict__ a, T* __restrict__ b,
-                 const uint8_t* __restrict__ occ, int nz, int ny, int nx,
-                 Taps taps, int* __restrict__ changed,
-                 const int* __restrict__ prev_changed, int flag_z0, int flag_z1) {
-  if (prev_changed != nullptr && *prev_changed == 0) return;  // past the fixpoint
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);
-  load_tile<T>(a, tile, nz, ny, nx, taps.halo, MODE == 0 ? (T)SENTINEL : (T)0);
-  __syncthreads();
-
-  const int x = blockIdx.x * TILE_X + threadIdx.x;
-  const int y = blockIdx.y * TILE_Y + threadIdx.y;
-  const int z = blockIdx.z * TILE_Z + threadIdx.z;
-  int diff = 0;
-  if (x < nx && y < ny && z < nz) {
-    const size_t i = ((size_t)z * ny + y) * nx + x;
-    const int h = taps.halo, sx = TILE_X + 2 * h, sy = TILE_Y + 2 * h;
-    const int cx = threadIdx.x + h, cy = threadIdx.y + h, cz = threadIdx.z + h;
-    T old;
-    const T nv = sweep_voxel<T, MODE>(
-        tile, taps.n,
-        [&](int t) { return ((cz + taps.dz[t]) * sy + cy + taps.dy[t]) * sx + cx + taps.dx[t]; },
-        (cz * sy + cy) * sx + cx, occ[i] != 0, &old);
-    b[i] = nv;
-    diff = nv != old && z >= flag_z0 && z < flag_z1;
-  }
-  if (__syncthreads_or(diff) &&
-      threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0)
-    atomicOr(changed, 1);
+  if (MODE == 0) return acc;  // the ball holds its centre: min(key, pool) == pool
+  return (*old != 0 || acc != 0) ? (T)1 : (T)0;
 }
 
 // Grid-wide barrier number k (1, 2, ...) of a cooperative launch: every
@@ -139,18 +128,33 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int k
 // Tiles of a sweep's work list a block reads at once.
 constexpr int BLOCK_TILES = 8;
 
-// The persistent form: sweeps 0 .. n - 1 from buf0 (the initial grid) and
-// buf1 (any contents), sweep i reading buf[i % 2] and writing buf[(i + 1)
-// % 2].  Sweep 0 computes every tile; a tile that changes in sweep i puts
-// every tile within the ball's reach on sweep i + 1's work list (once: a
-// mark per tile holds the last sweep it was listed for), so sweep i + 1
-// computes exactly the tiles next to a change, spread evenly over the
-// blocks.  scratch: int32 [2n + 1 + n_tiles] zeroed: changed[n] (1 iff a
-// voxel changed in sweep i), tiles[n] (tiles computed in sweep i: the
-// length of its list), the barrier counter, the marks.  lists: int32
-// [2][n_tiles], the work lists by sweep parity.  Sets of at most 256 taps
-// run two blocks a multiprocessor (32 registers: the tile loads of one
-// overlap the other's taps); larger sets one (their tap loop spills at 32).
+// One launch's sweeps: sweeps i0 .. i0 + n - 1 of the caller's count.
+struct Batch {
+  int i0, n;
+  int grow;        // rows the exact region loses at each end a sweep (0: all exact)
+  int fz0, fz1;    // the rows whose changes set the flags
+  const int* gate; // NULL, or a device flag: the launch does nothing when it is 0
+};
+
+// Sweeps 0 .. n - 1 of the launch from buf0 (its initial grid) and buf1,
+// sweep s reading buf[s % 2] and writing buf[(s + 1) % 2]; both buffers
+// hold the fill (SENTINEL, 0) at every voxel off the mask (the caller's
+// contract, which every sweep keeps).  A tile holding no occupied voxel
+// never changes and is never computed: first a warp a tile marks the
+// tiles holding one (tile_occ) and lists those meeting sweep 0's exact
+// rows.  Sweep s computes the tiles on its list: all those of sweep 0; for
+// s >= 1, the occupied tiles within the ball's reach of a tile with a
+// change in sweep s - 1's exact rows [s grow, nz - s grow) that meet sweep
+// s's exact rows [(s + 1) grow, nz - (s + 1) grow) (listed once: a mark per
+// tile holds the last sweep it was listed for), spread evenly over the
+// blocks.  Per sweep i of the caller's count: changed[i] (1 iff a voxel of
+// the rows [fz0, fz1) changed), tiles[i] (tiles computed: the length of its
+// list); `barrier` this launch's counter, `mark` the tiles' marks, all
+// zeroed before the caller's first launch.  lists: int32 [2][n_tiles], the
+// work lists by sweep parity; tile_occ: int32 [n_tiles].  Sets of at most
+// 256 taps run two blocks a multiprocessor (32 registers: the tile loads of
+// one overlap the other's taps); larger sets one (their tap loop spills at
+// 32).
 template <typename Taps>
 constexpr int sweeps_blocks_per_sm() {
   return sizeof(Taps) <= sizeof(BallTaps) ? 2 : 1;
@@ -159,116 +163,136 @@ constexpr int sweeps_blocks_per_sm() {
 template <typename T, int MODE, typename Taps>
 __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<Taps>())
     sweeps_kernel(T* buf0, T* buf1, const uint8_t* __restrict__ occ, int nz, int ny, int nx,
-                  Taps taps, int n_sweeps, int* scratch, int* lists) {
+                  Taps taps, Batch bt, int* changed, int* tiles, unsigned int* barrier,
+                  int* mark, int* lists, int* tile_occ) {
+  if (bt.gate != nullptr && *bt.gate == 0) return;  // past the fixpoint
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // what thread 0 read for the block past a barrier (1,024 threads of every
-  // block reading one address would queue at L2): the flag of the sweep
-  // just done and the next sweep's list length; this block's list entries
-  __shared__ int after[2], mine[BLOCK_TILES];
+  // block reading one address would queue at L2): the next sweep's list
+  // length; this block's list entries
+  __shared__ int after, mine[BLOCK_TILES];
   const int h = taps.halo;
   T* tile = reinterpret_cast<T*>(smem_raw);
   // after the tile: each tap's offset into it (the host sizes the launch so)
   const size_t tile_bytes =
       (size_t)(TILE_X + 2 * h) * (TILE_Y + 2 * h) * (TILE_Z + 2 * h) * sizeof(T);
   int* off = reinterpret_cast<int*>(smem_raw + ((tile_bytes + 15) & ~(size_t)15));
-  int* changed = scratch;
-  int* tiles = scratch + n_sweeps;
-  unsigned int* barrier = reinterpret_cast<unsigned int*>(scratch + 2 * n_sweeps);
-  int* mark = scratch + 2 * n_sweeps + 1;
   const T fill = MODE == 0 ? (T)SENTINEL : (T)0;
   const int gx = (nx + TILE_X - 1) / TILE_X, gy = (ny + TILE_Y - 1) / TILE_Y,
             gz = (nz + TILE_Z - 1) / TILE_Z;
-  const int n_tiles = gx * gy * gz;
+  const int plane_tiles = gx * gy, n_tiles = plane_tiles * gz;
   // the tiles a tile's ball reaches: +-ceil(h / extent) per axis
   const int rx = (h + TILE_X - 1) / TILE_X, ry = (h + TILE_Y - 1) / TILE_Y,
             rz = (h + TILE_Z - 1) / TILE_Z;
   const int wx = 2 * rx + 1, wy = 2 * ry + 1, n_near = wx * wy * (2 * rz + 1);
   const int tid = threadIdx.x + TILE_X * (threadIdx.y + TILE_Y * threadIdx.z);
   const bool lead = tid == 0;
-  if (blockIdx.x == 0 && lead) tiles[0] = n_tiles;
   const int sx = TILE_X + 2 * h, sy = TILE_Y + 2 * h;
   const int centre = ((threadIdx.z + h) * sy + threadIdx.y + h) * sx + threadIdx.x + h;
   for (int t = tid; t < taps.n; t += TILE_X * TILE_Y * TILE_Z)
     off[t] = (taps.dz[t] * sy + taps.dy[t]) * sx + taps.dx[t];
-  __syncthreads();
 
-  int n_todo = n_tiles;
-  for (int i = 0; i < n_sweeps; ++i) {
-    const T* src = i & 1 ? buf1 : buf0;
-    T* dst = i & 1 ? buf0 : buf1;
-    const int* todo = lists + (size_t)(i & 1) * n_tiles;
-    int* next = lists + (size_t)((i + 1) & 1) * n_tiles;
+  // the occupied tiles, a warp a tile (lane = x, the tile's 32 rows' bytes
+  // loaded together), and sweep 0's list
+  {
+    constexpr int WARPS = TILE_X * TILE_Y * TILE_Z / 32;
+    constexpr int ROWS = TILE_Y * TILE_Z;
+    const int lane = tid & 31;
+    for (int t = blockIdx.x * WARPS + (tid >> 5); t < n_tiles; t += gridDim.x * WARPS) {
+      const int tx = t % gx, ty = (t / gx) % gy, tz = t / plane_tiles;
+      const int x = tx * TILE_X + lane;
+      int any = 0;
+#pragma unroll 8
+      for (int r = 0; r < ROWS; ++r) {
+        const int y = ty * TILE_Y + r % TILE_Y, z = tz * TILE_Z + r / TILE_Y;
+        if (x < nx && y < ny && z < nz) any |= occ[((size_t)z * ny + y) * nx + x];
+      }
+      const int held = __any_sync(0xffffffffu, any != 0);
+      if (lane == 0) {
+        tile_occ[t] = held;
+        if (held && tz * TILE_Z < nz - bt.grow && tz * TILE_Z + TILE_Z > bt.grow)
+          lists[atomicAdd(tiles + bt.i0, 1)] = t;
+      }
+    }
+  }
+  grid_barrier(barrier, 1, [&] { after = *reinterpret_cast<volatile int*>(tiles + bt.i0); });
+  int n_todo = after;
+  if (n_todo == 0) return;  // no occupied tile: nothing can change
+
+  for (int s = 0; s < bt.n; ++s) {
+    const int i = bt.i0 + s;
+    const T* src = s & 1 ? buf1 : buf0;
+    T* dst = s & 1 ? buf0 : buf1;
+    const int* todo = lists + (size_t)(s & 1) * n_tiles;
+    int* next = lists + (size_t)((s + 1) & 1) * n_tiles;
+    const bool last = s + 1 == bt.n;
+    // this sweep's exact rows, and the next one's
+    const int lo = (s + 1) * bt.grow, hi = nz - lo;
+    const int next_lo = lo + bt.grow, next_hi = hi - bt.grow;
     const int n_mine = blockIdx.x < n_todo ? (n_todo - blockIdx.x - 1) / gridDim.x + 1 : 0;
     int any = 0;
     for (int c = 0; c < n_mine; c += BLOCK_TILES) {
       const int n_c = n_mine - c < BLOCK_TILES ? n_mine - c : BLOCK_TILES;
-      if (i > 0) {  // (the last tile's barrier below ordered the reads of `mine`)
-        if (tid < n_c) mine[tid] = todo[blockIdx.x + (c + tid) * gridDim.x];
-        __syncthreads();
-      }
+      // (the last tile's barrier below ordered the reads of `mine`)
+      if (tid < n_c) mine[tid] = todo[blockIdx.x + (c + tid) * gridDim.x];
+      __syncthreads();
       for (int k = 0; k < n_c; ++k) {
-        const int t = i == 0 ? blockIdx.x + (c + k) * gridDim.x : mine[k];
-        const int tx = t % gx, ty = (t / gx) % gy, tz = t / (gx * gy);
+        const int t = mine[k];
+        const int tx = t % gx, ty = (t / gx) % gy, tz = t / plane_tiles;
         load_tile_at<T>(src, tile, tx, ty, tz, nz, ny, nx, h, fill);
         __syncthreads();
         const int x = tx * TILE_X + threadIdx.x, y = ty * TILE_Y + threadIdx.y,
                   z = tz * TILE_Z + threadIdx.z;
-        int diff = 0;
+        int diff = 0, inner = 0;
         if (x < nx && y < ny && z < nz) {
           const size_t v = ((size_t)z * ny + y) * nx + x;
           T old;
           const T nv = sweep_voxel<T, MODE>(
               tile, taps.n, [&](int t) { return centre + off[t]; }, centre, occ[v] != 0, &old);
           dst[v] = nv;
-          diff = nv != old;
+          diff = nv != old && z >= lo && z < hi;
+          inner = nv != old && z >= bt.fz0 && z < bt.fz1;
         }
         // also the barrier before the next tile's load overwrites `tile`
         const int tile_changed = __syncthreads_or(diff);
-        any |= tile_changed;
-        if (tile_changed && i + 1 < n_sweeps && tid < n_near) {
+        // the flag's rows lie inside the exact ones: a tile inside them
+        // changed there iff it changed; one across their edge asks again
+        const int z_lo = tz * TILE_Z, z_hi = z_lo + TILE_Z;
+        if (z_lo >= bt.fz0 && z_hi <= bt.fz1)
+          any |= tile_changed;
+        else if (z_hi > bt.fz0 && z_lo < bt.fz1)
+          any |= __syncthreads_or(inner);
+        if (tile_changed && !last && tid < n_near) {
           const int qx = tx + tid % wx - rx, qy = ty + (tid / wx) % wy - ry,
                     qz = tz + tid / (wx * wy) - rz;
-          if (qx >= 0 && qx < gx && qy >= 0 && qy < gy && qz >= 0 && qz < gz) {
+          if (qx >= 0 && qx < gx && qy >= 0 && qy < gy && qz >= 0 && qz < gz &&
+              qz * TILE_Z < next_hi && qz * TILE_Z + TILE_Z > next_lo) {
             const int u = (qz * gy + qy) * gx + qx;
-            if (atomicExch(mark + u, i + 1) != i + 1) next[atomicAdd(tiles + i + 1, 1)] = u;
+            if (tile_occ[u] && atomicExch(mark + u, i + 1) != i + 1)
+              next[atomicAdd(tiles + i + 1, 1)] = u;
           }
         }
       }
     }
     if (lead && any) atomicOr(changed + i, 1);
-    grid_barrier(barrier, i + 1, [&] {
-      after[0] = *reinterpret_cast<volatile int*>(changed + i);
-      after[1] = i + 1 < n_sweeps ? *reinterpret_cast<volatile int*>(tiles + i + 1) : 0;
-    });
-    // a sweep that changed nothing is a fixpoint: every block leaves here
-    if (after[0] == 0) return;
-    n_todo = after[1];
+    if (last) return;
+    grid_barrier(barrier, s + 2, [&] { after = *reinterpret_cast<volatile int*>(tiles + i + 1); });
+    // nothing on the next sweep's list: no later sweep can change a voxel
+    // of the exact rows, so every block leaves here
+    if (after == 0) return;
+    n_todo = after;
   }
 }
 
-template <typename T, int MODE>
-int launch(const void* a, void* b, const void* occ, int nz, int ny, int nx, const int* taps,
-           int n_taps, int halo, int* changed, const int* prev, int fz0, int fz1,
-           cudaStream_t stream) {
-  const size_t smem = tile_elems(halo) * sizeof(T);
-  return with_taps(taps, n_taps, halo, [&](const auto& t) {
-    auto* kernel = sweep_kernel<T, MODE, std::decay_t<decltype(t)>>;
-    if (const int err = allow_smem(kernel, smem)) return err;
-    kernel<<<tile_grid(nz, ny, nx), dim3(TILE_X, TILE_Y, TILE_Z), smem, stream>>>(
-        static_cast<const T*>(a), static_cast<T*>(b), static_cast<const uint8_t*>(occ), nz,
-        ny, nx, t, changed, prev, fz0, fz1);
-    return (int)cudaGetLastError();
-  });
-}
-
 // The persistent launch: as many blocks as stay resident on every SM at
-// this tile's shared memory (the occupancy calculator's count, at most one
-// per tile), cooperative so that the launch is refused rather than run
-// with blocks that could never reach the barrier.
+// this tile's shared memory (the occupancy calculator's count), divided by
+// `share`, at most one per tile; cooperative so that the launch is refused
+// rather than run with blocks that could never reach the barrier.
 template <typename T, int MODE>
 int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, const int* taps,
-                  int n_taps, int halo, int n_sweeps, int* scratch, int* lists,
-                  int* blocks_out, cudaStream_t stream) {
+                  int n_taps, int halo, const Batch& bt, int share, int* changed, int* tiles,
+                  unsigned int* barrier, int* mark, int* lists, int* tile_occ, int* blocks_out,
+                  cudaStream_t stream) {
   // the tile, then the taps' offsets into it
   const size_t smem = ((tile_elems(halo) * sizeof(T) + 15) & ~(size_t)15) + 4 * (size_t)n_taps;
   return with_taps(taps, n_taps, halo, [&](const auto& t) {
@@ -281,10 +305,11 @@ int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, c
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         TILE_X * TILE_Y * TILE_Z, smem);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const int resident = per_sm * sms / share;
+    if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     const dim3 g = tile_grid(nz, ny, nx);
     const int n_tiles = (int)(g.x * g.y * g.z);
-    const int blocks = per_sm * sms < n_tiles ? per_sm * sms : n_tiles;
+    const int blocks = resident < n_tiles ? resident : n_tiles;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeCooperative;
     attr[0].val.cooperative = 1;
@@ -297,8 +322,8 @@ int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, c
     cfg.numAttrs = 1;
     *blocks_out = blocks;
     e = cudaLaunchKernelEx(&cfg, kernel, static_cast<T*>(b0), static_cast<T*>(b1),
-                           static_cast<const uint8_t*>(occ), nz, ny, nx, t, n_sweeps, scratch,
-                           lists);
+                           static_cast<const uint8_t*>(occ), nz, ny, nx, t, bt, changed, tiles,
+                           barrier, mark, lists, tile_occ);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   });
@@ -306,55 +331,47 @@ int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, c
 
 }  // namespace
 
-// mode 0: int32 min-label sweep; mode 1: uint8 reach sweep.  taps: host
+// mode 0: int32 min-label sweeps; mode 1: uint8 reach sweeps.  taps: host
 // int32 [n_taps, 3], 1 <= n_taps <= 2,112, every |offset| <= halo <= 7.
-// `changed` is a device int32 the kernel ORs 1 into when any voxel changed
-// (the caller zeroes it); `prev_changed` is NULL or the previous sweep's
-// flag, and the launch does nothing when it is 0.  Only changes in the z
-// rows [flag_z0, flag_z1) set the flag: the whole grid, or on the
-// grid-sharded step the interior of a halo-extended slab, whose halo rows
-// are the neighbours' and may change where the dense sweep sees no change.
-// Returns cudaGetLastError().
-VOFOD_API int vofod_propagate_sweep(const void* a, void* b, const void* occ,
-                                    int mode, int nz, int ny, int nx,
-                                    const int* taps, int n_taps, int halo,
-                                    void* changed, const void* prev_changed,
-                                    int flag_z0, int flag_z1, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* ch = static_cast<int*>(changed);
-  const int* pv = static_cast<const int*>(prev_changed);
-  if (mode == 0)
-    return launch<int32_t, 0>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, flag_z0,
-                              flag_z1, s);
-  if (mode == 1)
-    return launch<uint8_t, 1>(a, b, occ, nz, ny, nx, taps, n_taps, halo, ch, pv, flag_z0,
-                              flag_z1, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// mode 0: int32 min-label sweeps; mode 1: uint8 reach sweeps; taps as
-// vofod_propagate_sweep.  Runs sweeps 0 .. n_sweeps - 1 in one cooperative
-// launch, stopping after the first sweep that changed nothing: buf0 holds
-// the initial grid (sweep 1 writes it), buf1 anything (sweep 0 writes all
-// of it), and the result is in buf[n_sweeps % 2] (both buffers hold it
-// after an early stop).  scratch: device int32 [2 n_sweeps + 1 + n_tiles],
-// zeroed by the caller: per-sweep changed flags, per-sweep tiles computed,
-// the barrier counter, the tiles' marks (n_tiles of 32 x 8 x 4).  lists:
-// device int32 [2 n_tiles].  *blocks: the blocks launched.  Returns
-// cudaGetLastError(), or the launch's refusal (never run in parts).
+// Runs sweeps i0 .. i0 + n_sweeps - 1 of the caller's count in one
+// cooperative launch, stopping after the first sweep that leaves the next
+// one nothing to compute: buf0 holds the launch's initial grid, buf1 the
+// fill or earlier sweeps' values, both the fill (SENTINEL, 0) at every
+// voxel off the mask; the exact rows' result is in buf[n_sweeps % 2] (both
+// buffers hold it after an early stop).  grow: the rows the exact region
+// loses at each end a sweep (0 on a whole grid; on a halo-extended slab its
+// halo over n_sweeps, the ball's z reach at least); [flag_z0, flag_z1): the
+// rows whose changes set the flags, inside the last sweep's exact rows.
+// gate: NULL or a device int32 (the launch does nothing when it is 0).
+// share: the launches that may run on the card at once (its resident
+// blocks are split between them).  changed, tiles: device int32 [i0 +
+// n_sweeps] (per-sweep flags, tiles computed); barrier: a device uint32 of
+// this launch; marks: device int32 [n_tiles of 32 x 8 x 4]; all zeroed
+// before the caller's first launch.  lists: device int32 [2 n_tiles];
+// tile_occ: device int32 [n_tiles].  *blocks: the blocks launched.
+// Returns cudaGetLastError(), or the launch's refusal (never run in parts).
 VOFOD_API int vofod_propagate_sweeps(void* buf0, void* buf1, const void* occ, int mode, int nz,
                                      int ny, int nx, const int* taps, int n_taps, int halo,
-                                     int n_sweeps, void* scratch, void* lists, int* blocks,
-                                     void* stream) {
-  if (n_sweeps < 1 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+                                     int i0, int n_sweeps, int grow, int flag_z0, int flag_z1,
+                                     const void* gate, int share, void* changed, void* tiles,
+                                     void* barrier, void* marks, void* lists, void* tile_occ,
+                                     int* blocks, void* stream) {
+  if (n_sweeps < 1 || i0 < 0 || share < 1 || grow < 0 || blocks == nullptr ||
+      flag_z0 < n_sweeps * grow || flag_z1 > nz - n_sweeps * grow || flag_z0 >= flag_z1)
+    return (int)cudaErrorInvalidValue;
+  const Batch bt = {i0, n_sweeps, grow, flag_z0, flag_z1, static_cast<const int*>(gate)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* sc = static_cast<int*>(scratch);
+  int* ch = static_cast<int*>(changed);
+  int* ti = static_cast<int*>(tiles);
+  unsigned int* ba = static_cast<unsigned int*>(barrier);
+  int* mk = static_cast<int*>(marks);
   int* ls = static_cast<int*>(lists);
+  int* to = static_cast<int*>(tile_occ);
   if (mode == 0)
-    return launch_sweeps<int32_t, 0>(buf0, buf1, occ, nz, ny, nx, taps, n_taps, halo, n_sweeps,
-                                     sc, ls, blocks, s);
+    return launch_sweeps<int32_t, 0>(buf0, buf1, occ, nz, ny, nx, taps, n_taps, halo, bt, share,
+                                     ch, ti, ba, mk, ls, to, blocks, s);
   if (mode == 1)
-    return launch_sweeps<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, taps, n_taps, halo, n_sweeps,
-                                     sc, ls, blocks, s);
+    return launch_sweeps<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, taps, n_taps, halo, bt, share,
+                                     ch, ti, ba, mk, ls, to, blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -282,9 +282,13 @@ __global__ void __launch_bounds__(RAY_T)
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const float rl = g < n ? raylen[g] : 0.0f;
   if (MODE == 1) {
-    float m = rl;
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if ((threadIdx.x & 31) == 0 && m > 0.0f) atomicMax(max_bits, __float_as_uint(m));
+    float m = rl;  // the max, a NaN kept as torch.max keeps it
+    for (int o = 16; o > 0; o >>= 1) {
+      const float x = __shfl_xor_sync(0xffffffffu, m, o);
+      m = (m != m || x != x) ? __int_as_float(0x7fffffff) : fmaxf(m, x);
+    }
+    if ((threadIdx.x & 31) == 0 && (m != m || m > 0.0f))
+      atomicMax(max_bits, m != m ? 0x7fffffffu : __float_as_uint(m));
     return;
   }
   if (g >= n || had[g] || !(rl > 0.0f)) return;
@@ -292,7 +296,7 @@ __global__ void __launch_bounds__(RAY_T)
   if (MODE == 0) {
     w1 = exp2f(__fmul_rn(-f.its, __fmul_rn(f.coef, rl)));
   } else {
-    const float max_val = fmaxf(__uint_as_float(*max_bits), 1e-20f);
+    const float max_val = clamp_min(__uint_as_float(*max_bits), 1e-20f);
     const float w_single = __fmul_rn(f.weight, __fsqrt_rn(__fdiv_rn(rl, max_val)));
     w1 = clampf(torch_pow(__fsub_rn(1.0f, w_single), f.its), 0.0f, 1.0f);
   }

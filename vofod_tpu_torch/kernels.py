@@ -47,8 +47,8 @@ _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LAUNCHES: dict[str, int] = {
     "ball_pool": 0,
     "shell_pool": 0,
-    "propagate_sweep": 0,
     "propagate_sweeps": 0,
+    "propagate_batch": 0,
     "frontend_bin": 0,
     "cone_sweep": 0,
     "masked_compact": 0,
@@ -189,10 +189,9 @@ def load():
         lib = ctypes.CDLL(str(so))
         lib.vofod_ball_pool.argtypes = [
             _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P]
-        lib.vofod_propagate_sweep.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]
         lib.vofod_propagate_sweeps.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _P]
+            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+            _P, _P, ctypes.POINTER(_I), _P]
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -240,7 +239,7 @@ def load():
         lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 5
         lib.vofod_demote_direct.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P,
                                             _P]
-        for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweep, lib.vofod_propagate_sweeps,
+        for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweeps,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_compact_geometry,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
@@ -352,70 +351,115 @@ def shell_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
     return out
 
 
-def propagate_sweep(src: torch.Tensor, dst: torch.Tensor, occ: torch.Tensor,
-                    taps: np.ndarray, halo: int, changed: torch.Tensor,
-                    prev_changed: torch.Tensor | None = None,
-                    flag_rows: tuple[int, int] | None = None) -> None:
-    """K2: one Jacobi sweep src -> dst.  int32 src: min-label sweep (off-mask
-    SENTINEL); uint8 src: reach sweep.  ORs 1 into ``changed`` (device
-    int32 scalar) when any voxel of the z rows ``flag_rows`` (default: all)
-    changed.  With ``prev_changed`` (the previous sweep's flag) the launch
-    does nothing when that flag is 0."""
-    lib = load()
-    mode = {torch.int32: 0, torch.uint8: 1}.get(src.dtype)
-    if mode is None or src.dim() != 3:
-        raise ValueError(f"propagate_sweep takes a 3-D int32/uint8 grid, got {src.dtype}")
-    _require(src, "propagate_sweep src", src.dtype)
-    _require(dst, "propagate_sweep dst", src.dtype, src.shape)
-    _require(occ, "propagate_sweep occ", torch.uint8, src.shape)
-    _require(changed, "propagate_sweep changed", torch.int32, ())
-    if prev_changed is not None:
-        _require(prev_changed, "propagate_sweep prev_changed", torch.int32, ())
-    keep, ptr = _taps_arg(taps, halo)
-    nz, ny, nx = src.shape
-    fz0, fz1 = (0, nz) if flag_rows is None else flag_rows
-    err = lib.vofod_propagate_sweep(
-        src.data_ptr(), dst.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
-        ptr, len(keep), halo, changed.data_ptr(),
-        None if prev_changed is None else prev_changed.data_ptr(), fz0, fz1, _stream())
-    _check(err, "vofod_propagate_sweep")
-    _count("propagate_sweep")
+def sweep_tiles(shape) -> int:
+    """K2's output tiles (:data:`TILE_ZYX`) over a grid of ``shape``."""
+    n = 1
+    for size, tile in zip(shape, TILE_ZYX):
+        n *= -(-size // tile)
+    return n
 
 
-def propagate_sweeps(buf0: torch.Tensor, buf1: torch.Tensor, occ: torch.Tensor,
-                     taps: np.ndarray, halo: int, n: int) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """K2, persistent: ``n`` Jacobi sweeps in one cooperative launch, sweep i
-    from ``(buf0, buf1)[i % 2]`` into the other, ``buf0`` holding the
-    initial grid (sweep 1 overwrites it) and ``buf1`` anything (sweep 0
-    writes all of it); the result lands in
-    ``(buf0, buf1)[n % 2]``.  int32: min-label sweeps, uint8: reach sweeps.
-    Stops after the first sweep that changed nothing (a fixpoint; the later
-    flags stay 0).  Returns (changed int32 [n], tiles computed int32 [n],
-    blocks launched); raises when the launch is refused."""
+def sweeps_scratch(shape, n_sweeps: int, n_launches: int, device) -> tuple:
+    """The scratch of one call of ``n_sweeps`` K2 sweeps in ``n_launches``
+    persistent launches on a grid of ``shape``: (changed int32 [n_sweeps],
+    tiles computed int32 [n_sweeps], barrier counters [n_launches], the
+    tiles' marks), views of one zeroed tensor, then the work lists (int32
+    [2, tiles]) and the tiles' occupancy (int32 [tiles]), views of one
+    uninitialised tensor."""
+    n_tiles = sweep_tiles(shape)
+    flat = torch.zeros(2 * n_sweeps + n_launches + n_tiles, dtype=torch.int32, device=device)
+    work = torch.empty(3 * n_tiles, dtype=torch.int32, device=device)
+    return (flat[:n_sweeps], flat[n_sweeps:2 * n_sweeps],
+            flat[2 * n_sweeps:2 * n_sweeps + n_launches], flat[2 * n_sweeps + n_launches:],
+            work[:2 * n_tiles], work[2 * n_tiles:])
+
+
+def _sweeps(buf0, buf1, occ, taps, halo, scratch, launch: int, i0: int, n: int, grow: int,
+            rows, gate, share: int, name: str) -> int:
     mode = {torch.int32: 0, torch.uint8: 1}.get(buf0.dtype)
     if mode is None or buf0.dim() != 3:
-        raise ValueError(f"propagate_sweeps takes a 3-D int32/uint8 grid, got {buf0.dtype}")
+        raise ValueError(f"{name} takes a 3-D int32/uint8 grid, got {buf0.dtype}")
     if n < 1:
-        raise ValueError(f"propagate_sweeps runs at least one sweep, got {n}")
-    _require(buf0, "propagate_sweeps buf0", buf0.dtype)
-    _require(buf1, "propagate_sweeps buf1", buf0.dtype, buf0.shape)
-    _require(occ, "propagate_sweeps occ", torch.uint8, buf0.shape)
+        raise ValueError(f"{name} runs at least one sweep, got {n}")
+    _require(buf0, f"{name} buf0", buf0.dtype)
+    _require(buf1, f"{name} buf1", buf0.dtype, buf0.shape)
+    _require(occ, f"{name} occ", torch.uint8, buf0.shape)
+    if gate is not None:
+        _require(gate, f"{name} gate", torch.int32, ())
+    changed, tiles, barriers, marks, lists, tile_occ = scratch
+    if not (i0 + n <= changed.shape[0] and launch < barriers.shape[0]
+            and marks.shape[0] == sweep_tiles(buf0.shape)):
+        raise ValueError(f"{name}: scratch of {changed.shape[0]} sweeps, {barriers.shape[0]} "
+                         f"launches and {marks.shape[0]} tiles for sweeps {i0}..{i0 + n - 1} "
+                         f"of launch {launch} on {tuple(buf0.shape)}")
     keep, ptr = _taps_arg(taps, halo)
     nz, ny, nx = buf0.shape
-    n_tiles = 1
-    for size, tile in zip(buf0.shape, TILE_ZYX):
-        n_tiles *= -(-size // tile)
-    lib = load()
-    # changed flags, tiles per sweep, the barrier counter, the tiles' marks
-    scratch = torch.zeros(2 * n + 1 + n_tiles, dtype=torch.int32, device=buf0.device)
-    lists = torch.empty(2 * n_tiles, dtype=torch.int32, device=buf0.device)
+    fz0, fz1 = (0, nz) if rows is None else rows
     blocks = _I(0)
-    err = lib.vofod_propagate_sweeps(
+    err = load().vofod_propagate_sweeps(
         buf0.data_ptr(), buf1.data_ptr(), occ.data_ptr(), mode, nz, ny, nx, ptr, len(keep),
-        halo, n, scratch.data_ptr(), lists.data_ptr(), ctypes.byref(blocks), _stream())
+        halo, i0, n, grow, fz0, fz1, None if gate is None else gate.data_ptr(), share,
+        changed.data_ptr(), tiles.data_ptr(), barriers.data_ptr() + 4 * launch, marks.data_ptr(),
+        lists.data_ptr(), tile_occ.data_ptr(), ctypes.byref(blocks), _stream())
     _check(err, "vofod_propagate_sweeps")
-    _count("propagate_sweeps")
-    return scratch[:n], scratch[n:2 * n], blocks.value
+    _count(name)
+    return blocks.value
+
+
+def sweep_buffers(init: torch.Tensor, halo: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's two buffers for ``init`` (int32 keys or uint8 reach) with
+    ``halo`` more rows at each end, both the fill (SENTINEL, 0) but the
+    first's rows [halo, halo + nz), which hold ``init``.  A launch never
+    writes a tile that holds no occupied voxel, so both buffers must hold
+    the fill wherever the occupancy is 0: the second does by this
+    allocation, the first because ``init`` does (the callers' contract,
+    ops/components.sweeps).  One fill kernel and one copy."""
+    fill = {torch.int32: 2**31 - 1, torch.uint8: 0}[init.dtype]
+    if not halo:
+        return (torch.clone(init, memory_format=torch.contiguous_format),
+                torch.full(init.shape, fill, dtype=init.dtype, device=init.device))
+    nz = init.shape[0]
+    bufs = torch.full((2, nz + 2 * halo) + tuple(init.shape[1:]), fill, dtype=init.dtype,
+                      device=init.device)
+    bufs[0, halo:halo + nz] = init
+    return bufs[0], bufs[1]
+
+
+def propagate_sweeps(init: torch.Tensor, occ: torch.Tensor, taps: np.ndarray, halo: int,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """K2, persistent: ``n`` Jacobi sweeps from ``init`` in one cooperative
+    launch, sweep i from ``bufs[i % 2]`` into the other of the wrapper's
+    :func:`sweep_buffers` (``init`` holds the fill wherever ``occ`` is 0).
+    int32: min-label sweeps, uint8: reach sweeps.  Stops after the first
+    sweep that changed nothing (a fixpoint; the later flags stay 0).
+    Returns (final grid, changed int32 [n], tiles computed int32 [n],
+    blocks launched); raises when the launch is refused."""
+    bufs = sweep_buffers(init)
+    scratch = sweeps_scratch(init.shape, max(n, 1), 1, init.device)
+    blocks = _sweeps(*bufs, occ, taps, halo, scratch, 0, 0, n, 0, None, None, 1,
+                     "propagate_sweeps")
+    return bufs[n % 2], scratch[0], scratch[1], blocks
+
+
+def propagate_batch(buf0: torch.Tensor, buf1: torch.Tensor, occ: torch.Tensor,
+                    taps: np.ndarray, halo: int, scratch: tuple, launch: int, i0: int, n: int,
+                    grow: int, rows: tuple[int, int], gate: torch.Tensor | None,
+                    share: int) -> int:
+    """K2 on a shard's halo-extended slab: sweeps ``i0 .. i0 + n - 1`` of a
+    sharded ``sweeps()`` call in one cooperative launch (its number
+    ``launch`` of the call), from ``buf0`` (the slab with fresh halo rows)
+    and ``buf1`` (earlier values), both holding the fill wherever ``occ``
+    is 0 (:func:`sweep_buffers` makes them), the result's exact rows in
+    ``(buf0, buf1)[n % 2]``.  ``grow``: the rows the exact region loses at
+    each end a sweep; ``rows``: the interior (z0, z1) whose changes set the
+    flags; ``gate``: None or the
+    previous launch's last global flag (the launch does nothing when it is
+    0); ``share``: the shards on this card (the launch takes a
+    ``share``-th of its resident blocks).  ``scratch``: the call's
+    :func:`sweeps_scratch`, whose changed and tiles entries ``i0 ..`` the
+    launch writes.  Returns the blocks launched."""
+    return _sweeps(buf0, buf1, occ, taps, halo, scratch, launch, i0, n, grow, rows, gate, share,
+                   "propagate_batch")
 
 
 def frontend_bin(ranges: torch.Tensor, dirs: torch.Tensor, offs: torch.Tensor,
@@ -1470,9 +1514,11 @@ def cone_sweep_lat(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tenso
 def cone_sweep_z(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
                  rel_z: torch.Tensor, carry_in: torch.Tensor, T2: torch.Tensor,
                  keep: tuple[bool, bool]) -> torch.Tensor:
-    """K15b-4a, one round: the z cones over a shard's planes from the carry
-    planes ``carry_in`` (bf16 [2, wy, wx]); writes T2 (f32 [2, nzl, wy, wx])
-    for the cones in ``keep`` and returns the carry planes out."""
+    """K15b-4a, a shard's kept cones of one round: the z cones in ``keep``
+    (at least one) over the shard's planes, each on a thread-block cluster of
+    :data:`CONE_CLUSTER` blocks, from their carry planes in ``carry_in``
+    (bf16 [2, wy, wx]); writes their T2 (f32 [2, nzl, wy, wx]) and returns
+    the carry planes out (the planes of the cones not kept undefined)."""
     nzl, wy, wx = opaque.shape
     _require(opaque, "cone_z opaque", torch.uint8)
     _require(rel_x, "cone_z rel_x", torch.float32, (wx,))
@@ -1480,6 +1526,8 @@ def cone_sweep_z(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
     _require(rel_z, "cone_z rel_z", torch.float32, (nzl,))
     _require(carry_in, "cone_z carry_in", torch.bfloat16, (2, wy, wx))
     _require(T2, "cone_z T", torch.float32, (2, nzl, wy, wx))
+    if not any(keep):
+        raise ValueError("cone_sweep_z sweeps at least one cone")
     carry_out = torch.empty_like(carry_in)
     err = load().vofod_cone_sweep_z(
         opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(),

@@ -33,12 +33,11 @@ runtime squared radius within the static bound ``radius``, the K14 tap set
 ops/morphology.Shells, on the same sweep kernel.
 
 On the grid-sharded step (parallel/gridops.py ZShardOps) the grids are a
-shard's z slab: ``sweep_fn`` is then the sharded sweep (two halo'd
-buffers taking turns, the source's halo rows filled in place before each
-sweep, K2's one-sweep launch with its change flag over the interior rows,
-the flags OR-ed over the shards), and both
-labellings take the slab's first global row ``z0`` (the seeded one also
-the grid's ``nz``).
+shard's z slab: ``sweep_fn`` is then the sharded sweeps (parallel/gridops.py
+``sharded_sweeps``: K2 launches of several sweeps each on a slab with a halo
+as deep as their reach, filled in place once a launch, the flags over the
+interior rows and reduced over the shards), and both labellings take the
+slab's first global row ``z0`` (the seeded one also the grid's ``nz``).
 The census splits into its scatter and read-back passes there (K15b-6a,
 :func:`census_scatter_plain`, :func:`census_read_plain`), with a psum of
 the census between them.
@@ -58,34 +57,16 @@ Tensor = torch.Tensor
 SENTINEL = 2**31 - 1
 
 
-def sweep_plain(cur: Tensor, occ: Tensor, ball,
-                flag_rows: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
+def sweep_plain(cur: Tensor, occ: Tensor, ball) -> tuple[Tensor, Tensor]:
     """Plain version of one K2 sweep (K1's plain pool over ``ball``: a
     radius, traced shells or a tap set; + the mask), on any device: (new
-    grid, bool scalar: a voxel of the z rows ``flag_rows`` (default all)
-    changed)."""
+    grid, bool scalar: a voxel changed)."""
     if cur.dtype == torch.int32:
         new = torch.where(occ, pool_plain(cur, ball, "min", SENTINEL), SENTINEL)
     else:
         pooled = pool_plain(cur.view(torch.int8), ball, "max", 0)
         new = cur | (occ & (pooled > 0)).to(torch.uint8)
-    rows = slice(None) if flag_rows is None else slice(*flag_rows)
-    return new, torch.any(new[rows] != cur[rows])
-
-
-def propagate_sweep_plain(src: Tensor, dst: Tensor, occ: Tensor, ball, changed: Tensor,
-                          prev_changed: Tensor | None = None,
-                          flag_rows: tuple[int, int] | None = None) -> None:
-    """Plain version of one K2 launch (kernels.propagate_sweep), on any
-    device: ``dst`` = :func:`sweep_plain` of ``src``; ORs 1 into ``changed``
-    (int32 scalar) when a voxel of the z rows ``flag_rows`` changed.  With
-    ``prev_changed`` 0 it does nothing, ``dst`` and ``changed`` untouched,
-    as the gated launch."""
-    if prev_changed is not None and not bool(prev_changed):
-        return
-    new, ch = sweep_plain(src, occ, ball, flag_rows)
-    dst.copy_(new)
-    changed.bitwise_or_(ch.to(torch.int32))
+    return new, torch.any(new != cur)
 
 
 def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
@@ -104,71 +85,111 @@ def sweeps_plain(init: Tensor, occ: Tensor, ball, n: int,
     return cur, torch.stack(flags)
 
 
-def sweeps_tiled_plain(init: Tensor, occ: Tensor, ball, n: int, until_fixpoint: bool = False,
-                       tile: tuple[int, int, int] = kernels.TILE_ZYX
-                       ) -> tuple[Tensor, Tensor, Tensor]:
-    """Plain model of the persistent K2 launch's schedule, on any device:
-    (final grid, bool [n] per-sweep changed flags, int32 [n] tiles computed
-    per sweep).  Sweep i reads ``bufs[i % 2]`` and writes ``bufs[(i + 1) %
-    2]``, ``bufs[0]`` starting as ``init``; sweep 0 computes every ``tile``
-    (z, y, x), sweep i >= 1 only the tiles within ``ceil(halo / extent)``
-    tiles per axis of one that changed in sweep i - 1, the rest keeping what
-    the destination holds.  It stops after the first sweep that changed
-    nothing, in either mode: that sweep is a fixpoint, so the grid and flags
-    equal :func:`sweeps_plain`'s with or without ``until_fixpoint``."""
-    del until_fixpoint  # the schedule always stops at a fixpoint
+def _tiles_any(vox: Tensor, grid_t, tile) -> Tensor:
+    """Per tile of ``tile`` (z, y, x) voxels: any voxel of ``vox`` set."""
+    pad = [0, grid_t[2] * tile[2] - vox.shape[2], 0, grid_t[1] * tile[1] - vox.shape[1],
+           0, grid_t[0] * tile[0] - vox.shape[0]]
+    return F.pad(vox, pad).reshape(grid_t[0], tile[0], grid_t[1], tile[1], grid_t[2],
+                                   tile[2]).any(5).any(3).any(1)
+
+
+def sweeps_batch_plain(buf0: Tensor, buf1: Tensor, occ: Tensor, ball, changed: Tensor,
+                       tiles: Tensor, i0: int, n: int, grow: int = 0,
+                       rows: tuple[int, int] | None = None, gate: Tensor | None = None,
+                       tile: tuple[int, int, int] = kernels.TILE_ZYX) -> None:
+    """Plain model of one persistent K2 launch's schedule (csrc/propagate.cu
+    ``sweeps_kernel``; kernels.propagate_sweeps and propagate_batch), on any
+    device: sweeps ``i0 .. i0 + n - 1`` of a call, sweep s reading
+    ``(buf0, buf1)[s % 2]`` and writing the other, ``buf0`` holding the
+    launch's initial grid, both buffers the fill (SENTINEL, 0) wherever
+    ``occ`` is False.  Sweep s computes the ``tile`` (z, y, x) tiles that
+    hold an occupied voxel and meet its exact rows [(s + 1) grow, nz - (s +
+    1) grow): all of them at s = 0, later those within ``ceil(halo /
+    extent)`` tiles per axis of one with a change in sweep s - 1's exact
+    rows; the others keep what the destination holds.  Writes
+    ``changed[i0 + s]`` (1 iff a voxel of the z ``rows``, default all,
+    changed) and ``tiles[i0 + s]`` (tiles computed), and stops when the
+    next sweep has no tile.  With ``gate`` 0 it does nothing."""
+    if gate is not None and not bool(gate):
+        return
     _, halo = tap_set(ball)
-    shape = init.shape
+    shape = buf0.shape
+    nz = shape[0]
+    fz0, fz1 = (0, nz) if rows is None else rows
     grid_t = [-(-s // t) for s, t in zip(shape, tile)]
     reach = [-(-halo // t) for t in tile]
-    bufs = [init.clone(), torch.empty_like(init)]
-    flags = torch.zeros(n, dtype=torch.bool, device=init.device)
-    tiles = torch.zeros(n, dtype=torch.int32, device=init.device)
+    dev = buf0.device
+    first_z = torch.arange(grid_t[0], device=dev) * tile[0]  # each tile row's first row
+    z = torch.arange(nz, device=dev)[:, None, None]
+    held = _tiles_any(occ, grid_t, tile)
+    bufs = (buf0, buf1)
     tile_changed = None
-    for i in range(n):
-        src, dst = bufs[i % 2], bufs[(i + 1) % 2]
-        if i == 0:
-            active = torch.ones(grid_t, dtype=torch.bool, device=init.device)
+    for s in range(n):
+        src, dst = bufs[s % 2], bufs[(s + 1) % 2]
+        lo, hi = (s + 1) * grow, nz - (s + 1) * grow
+        meets = ((first_z < hi) & (first_z + tile[0] > lo))[:, None, None] & held
+        if s == 0:
+            active = meets
+            if not bool(active.any()):
+                break
         else:
             near = F.max_pool3d(tile_changed[None, None].to(torch.float32),
                                 [2 * r + 1 for r in reach], stride=1, padding=reach)
-            active = near[0, 0] > 0
+            active = (near[0, 0] > 0) & meets
+            if not bool(active.any()):
+                break
         vox = active
         for axis, t in enumerate(tile):
             vox = vox.repeat_interleave(t, dim=axis)
         vox = vox[:shape[0], :shape[1], :shape[2]]
-        new, _ = sweep_plain(src, occ, ball)
+        # the sweep over the active tile rows and the rows their taps read
+        rows_on = torch.nonzero(active.any(2).any(1)).flatten()
+        za, zb = int(rows_on[0]) * tile[0], min(nz, (int(rows_on[-1]) + 1) * tile[0])
+        ra, rb = max(0, za - halo), min(nz, zb + halo)
+        new = src.clone()
+        new[za:zb] = sweep_plain(src[ra:rb], occ[ra:rb], ball)[0][za - ra:zb - ra]
         dst.copy_(torch.where(vox, new, dst))
-        diff = F.pad(vox & (new != src), [0, grid_t[2] * tile[2] - shape[2],
-                                          0, grid_t[1] * tile[1] - shape[1],
-                                          0, grid_t[0] * tile[0] - shape[0]])
-        tile_changed = diff.reshape(grid_t[0], tile[0], grid_t[1], tile[1], grid_t[2],
-                                    tile[2]).any(5).any(3).any(1)
-        flags[i] = tile_changed.any()
-        tiles[i] = active.sum()
-        if not bool(flags[i]):
-            break
-    return bufs[n % 2], flags, tiles
+        d = vox & (new != src)
+        tile_changed = _tiles_any(d & (z >= lo) & (z < hi), grid_t, tile)
+        changed[i0 + s] = torch.any(d & (z >= fz0) & (z < fz1)).to(changed.dtype)
+        tiles[i0 + s] = active.sum().to(tiles.dtype)
+
+
+def sweeps_tiled_plain(init: Tensor, occ: Tensor, ball, n: int, until_fixpoint: bool = False,
+                       tile: tuple[int, int, int] = kernels.TILE_ZYX
+                       ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain model of the dense persistent K2 launch, on any device: (final
+    grid, bool [n] per-sweep changed flags, int32 [n] tiles computed per
+    sweep) of :func:`sweeps_batch_plain` over the whole grid, on
+    ``kernels.sweep_buffers(init)`` as the launch (``init`` holds the fill
+    off the mask, as :func:`sweeps`' callers' grids do).  It stops after
+    the first sweep that changed nothing, in either mode: that sweep is a
+    fixpoint, so the grid and flags equal :func:`sweeps_plain`'s with or
+    without ``until_fixpoint``."""
+    del until_fixpoint  # the schedule always stops at a fixpoint
+    bufs = kernels.sweep_buffers(init)
+    flags = torch.zeros(n, dtype=torch.int32, device=init.device)
+    tiles = torch.zeros(n, dtype=torch.int32, device=init.device)
+    sweeps_batch_plain(bufs[0], bufs[1], occ, ball, flags, tiles, 0, n, tile=tile)
+    return bufs[n % 2], flags.bool(), tiles
 
 
 def sweeps(init: Tensor, occ: Tensor, ball, n: int,
            until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
     """``n`` Jacobi sweeps from ``init`` over ``ball`` (a radius, traced
     shells or a tap set): int32 keys take the masked
-    min-label sweep, uint8 masks the reach sweep.  Returns (final grid,
+    min-label sweep, uint8 masks the reach sweep.  ``init`` holds the fill
+    (SENTINEL, 0) wherever ``occ`` is False, as the sweeps leave it (the
+    card skips the tiles that hold no occupied voxel).  Returns (final grid,
     bool [n] per-sweep changed flags), both on the device of ``init``.
     ``until_fixpoint``: stop after the first sweep that changes nothing.
     On the card the one persistent launch always stops there, which
     changes neither the grid nor the flags of a fixed count."""
     if init.is_cuda:
         taps, halo = tap_set(ball)
-        src = init.contiguous()
-        # sweep 1 writes the first buffer, where a tile it skips must hold
-        # output(-1) = init; sweep 0 writes all of the second
-        bufs = (src.clone(), torch.empty_like(src))
-        changed, _, _ = kernels.propagate_sweeps(bufs[0], bufs[1], occ.contiguous().view(
-            torch.uint8), taps, halo, n)
-        return bufs[n % 2], changed.bool()
+        out, changed, _, _ = kernels.propagate_sweeps(init, occ.contiguous().view(torch.uint8),
+                                                      taps, halo, n)
+        return out, changed.bool()
     if init.device.type != "cpu":
         raise ValueError(f"propagation: unsupported device {init.device}")
     return sweeps_plain(init, occ, ball, n, until_fixpoint)

@@ -25,9 +25,9 @@ The grid-sharded sweep (:func:`raycast_update_zsharded`, vofod_tpu
 ``raycast_sweep_zsharded``) runs on a shard's z slab of the window: the x
 and y cones with their lateral z rows exchanged every plane step (K15b-3,
 csrc/cone_sweep.cu, plain version :func:`cone_lat_step_plain`), the z cones
-pipelined over the shards (K15b-4a, plain version
-:func:`cone_z_round_plain`) or, with ``zcone_mode="transpose"``, swept
-y-sharded between two all_to_alls (K15b-4b, plain version
+pipelined over the shards, each shard sweeping only the cones it keeps
+(K15b-4a on K4's clusters, plain version :func:`cone_z_round_plain`) or,
+with ``zcone_mode="transpose"``, swept y-sharded between two all_to_alls (K15b-4b, plain version
 :func:`cone_zt_step_plain`), then K5b on the slab; its T is bit-equal to
 K4's on the same window.
 
@@ -827,26 +827,29 @@ def cone_lat_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Ten
 
 def cone_z_round_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
                        carry_in: Tensor, T2: Tensor, keep: tuple[bool, bool]) -> Tensor:
-    """Plain version of one K15b-4a round (see kernels.cone_sweep_z): the z
-    cones over the slab's planes from ``carry_in``, as :func:`_sweep_axis`
-    steps them (both cones together); T2 written for the kept cones;
-    returns the carry planes out (bf16 [2, wy, wx])."""
+    """Plain version of K15b-4a's launch (see kernels.cone_sweep_z): the z
+    cones in ``keep`` over the slab's planes from their carry planes in
+    ``carry_in``, as :func:`_sweep_axis` steps them (the kept cones
+    together); their T2 written; returns the carry planes out (bf16 [2, wy,
+    wx], a cone not kept keeping its plane in)."""
     nzl = opaque.shape[0]
     op = opaque.to(torch.bool)
-    carry = carry_in.float()
+    cones = [c for c in (0, 1) if keep[c]]
+    carry = carry_in[cones].float()
     for p in range(nzl):
-        (s0, r0), (s1, r1) = _plane_rs(rel_z, nzl, p, False), _plane_rs(rel_z, nzl, p, True)
-        rs = torch.stack([r0, r1])
-        wb = _tap_weights(rs, rel_x.expand(2, -1))  # [2, wx, 4]
-        wa = _tap_weights(rs, rel_y.expand(2, -1))  # [2, wy, 4]
+        planes = [_plane_rs(rel_z, nzl, p, c == 1) for c in cones]
+        rs = torch.stack([r for _, r in planes])
+        wb = _tap_weights(rs, rel_x.expand(len(cones), -1))  # [C, wx, 4]
+        wa = _tap_weights(rs, rel_y.expand(len(cones), -1))  # [C, wy, 4]
         t = _lerp_rows(carry, wb)  # along x, then along y (rows)
         t = _lerp_rows(t.transpose(1, 2), wa).transpose(1, 2)
         t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
-        for c, s in ((0, s0), (1, s1)):
-            if keep[c]:
-                T2[c, s] = t[c]
-        carry = torch.where(torch.stack([op[s0], op[s1]]), 0.0, t)
-    return carry.to(torch.bfloat16)
+        for j, (c, (s, _)) in enumerate(zip(cones, planes)):
+            T2[c, s] = t[j]
+        carry = torch.where(torch.stack([op[s] for s, _ in planes]), 0.0, t)
+    out = carry_in.clone()
+    out[cones] = carry.to(torch.bfloat16)
+    return out
 
 
 def _sharded_step(opaque: Tensor, kernel, plain_fn):
@@ -884,22 +887,28 @@ def cone_sweep_lat_sharded(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: 
 def cone_sweep_z_pipelined(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
                            T2: Tensor, comm) -> None:
     """The z cones of a shard's window slab (vofod_tpu
-    ``_sweep_cones_z_pipelined``) into T2 [2, nzl, wy, wx]: n rounds of
-    K15b-4a, the carry planes passed on after each (cone 0 up, cone 1 down);
-    shard s keeps cone 0 from round s and cone 1 from round n - 1 - s."""
+    ``_sweep_cones_z_pipelined``) into T2 [2, nzl, wy, wx]: n rounds, cone 0
+    swept up the shards and cone 1 down; shard s keeps cone 0 from round s
+    and cone 1 from round n - 1 - s.  A shard sweeps only its kept cones,
+    in one K15b-4a launch a round that keeps one (no launch in the others):
+    what the other rounds compute no kept round reads.  After round r the
+    cone 0 carry goes from shard r to r + 1 and the cone 1 carry from shard
+    n - 1 - r to n - 2 - r, each the carry the receiver's kept round reads
+    (the shards at the ends start from 1.0, as the JAX pipeline's kept
+    rounds do)."""
     step = _sharded_step(opaque, kernels.cone_sweep_z, cone_z_round_plain)
     _, wy, wx = opaque.shape
     n, me = comm.n, comm.rank
-    up = [(i, i + 1) for i in range(n - 1)]
-    dn = [(i, i - 1) for i in range(1, n)]
-    ones = torch.ones((wy, wx), dtype=torch.bfloat16, device=opaque.device)
-    carry = torch.stack([ones, ones])
+    carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=opaque.device)
     for r in range(n):
-        out = step(opaque, rel_x, rel_y, rel_z, carry, T2, (me == r, me == n - 1 - r))
+        keep = (me == r, me == n - 1 - r)
+        if any(keep):
+            carry = step(opaque, rel_x, rel_y, rel_z, carry, T2, keep)
         if r < n - 1:
-            c0, c1 = comm.ppermutes([(out[0], up), (out[1], dn)])
-            # a shard with no sender keeps a carry no kept round reads
-            carry = torch.stack([ones if c0 is None else c0, ones if c1 is None else c1])
+            got = comm.ppermutes([(carry[0], [(r, r + 1)]), (carry[1], [(n - 1 - r, n - 2 - r)])])
+            for c, recv in enumerate(got):
+                if recv is not None:
+                    carry[c] = recv
 
 
 def cone_zt_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,

@@ -45,7 +45,7 @@ from vofod_tpu_torch.geometry import GridSpec
 from vofod_tpu_torch.ops.compaction import masked_compact, masked_compact_isin
 from vofod_tpu_torch.ops.components import (
     SENTINEL, census_read_plain, census_scatter_plain, label_census, label_components,
-    label_components_seeded, propagate_reach, propagate_sweep_plain)
+    label_components_seeded, propagate_reach, sweeps_batch_plain)
 from vofod_tpu_torch.ops.explore import (
     demote_direct, demote_floating, explore, explore_cut, explore_sequential_,
     explore_sequential_stack)
@@ -58,6 +58,12 @@ from vofod_tpu_torch.ops.raycast import (
 Tensor = torch.Tensor
 
 ZCONE_MODES = ("pipelined", "transpose")
+# K2's sweeps a launch on the grid-sharded step (:func:`sharded_sweeps`):
+# one halo exchange and one collective of the flags serve this many sweeps.
+# On the exact census's 128 sweeps 8 costs the least device time, 16 costs
+# 15 % more for a third less host time, which the grid paths are bound by
+# (PERF.md section 6); the step's 8-sweep calls run one launch either way.
+SWEEP_BATCH = 16
 
 
 class DenseOps:
@@ -288,6 +294,73 @@ def _on_card(t: Tensor, what: str) -> bool:
     return False
 
 
+def batch_on_card(src, dst, occ, ball, taps, reach, scratch, launch, i0, n, grow, rows, gate,
+                  share) -> None:
+    """A launch of :func:`sharded_sweeps`: K2's batched kernel."""
+    kernels.propagate_batch(src, dst, occ, taps, reach, scratch, launch, i0, n, grow, rows,
+                            gate, share)
+
+
+def batch_plain(src, dst, occ, ball, taps, reach, scratch, launch, i0, n, grow, rows, gate,
+                share) -> None:
+    """A launch of :func:`sharded_sweeps`: its plain model, on either device."""
+    sweeps_batch_plain(src, dst, occ.view(torch.bool), ball, scratch[0], scratch[1], i0, n,
+                       grow, rows, gate)
+
+
+def sharded_sweeps(ops, init: Tensor, occ: Tensor, ball, n: int, until_fixpoint: bool,
+                   leaf) -> tuple[Tensor, Tensor, Tensor]:
+    """ops/components.sweeps on a shard's slab (inside ``ops.comm.run``), k =
+    min(:data:`SWEEP_BATCH`, n) sweeps a launch: two buffers of the slab
+    extended by H = k g rows (g: the halo of the ball, of the static bound
+    for traced shells) take turns; each launch fills the halo rows of its
+    source in place from the neighbours' (K15b-1's in-place form, multi-hop
+    where H exceeds the slab; ``fill`` past the global edges, where the
+    occupancy reads 0, so those rows stay at the fill) and runs its k
+    sweeps, the last launch the rest.  ``init`` holds the fill off the mask
+    (ops/components.sweeps).  After sweep j of a launch the rows
+    within j g of the extended slab's ends are stale and the interior stays
+    exact (csrc/propagate.cu); the flags count the interior rows only.
+    With ``until_fixpoint`` each launch's flags take their max over the
+    shards in one collective, whose last entry gates the next launch (a
+    launch after a fixpoint does nothing); otherwise the flags are OR-ed
+    over the shards at the end.  ``leaf``: :func:`batch_on_card` (the
+    kernel) or :func:`batch_plain` (its plain model).
+    Returns (slab, bool [n] global per-sweep flags, int32 [n] tiles
+    computed per sweep on this shard)."""
+    taps, reach = tap_set(ball)
+    grow = int(math.floor(ball.bound)) if isinstance(ball, Shells) else reach
+    k = min(SWEEP_BATCH, n)
+    halo = k * grow
+    nzl = init.shape[0]
+    rows = (halo, halo + nzl)
+    fill = SENTINEL if init.dtype == torch.int32 else 0
+    occ_ext = ops.halo_exchange(occ.contiguous().view(torch.uint8), halo, 0)
+    shape = (nzl + 2 * halo,) + tuple(init.shape[1:])
+    bufs = kernels.sweep_buffers(init, halo)
+    n_launches = -(-n // k)
+    scratch = kernels.sweeps_scratch(shape, n, n_launches, init.device)
+    share = ops.comm.devices.count(ops.comm.device)
+    flags, gate, cur = [], None, 0
+    for b in range(n_launches):
+        i0 = b * k
+        m = min(k, n - i0)
+        src = bufs[cur]
+        ops.halo_fill_(src, halo, fill)
+        leaf(src, bufs[1 - cur], occ_ext, ball, taps, reach, scratch, b, i0, m, grow, rows, gate,
+             share)
+        # the interior's result: the buffer the last sweep wrote (after an
+        # early stop or a gated launch both buffers' interiors hold it)
+        cur = (cur + m) % 2
+        if until_fixpoint:  # the 0 / 1 flags' max over the shards: their OR, in int32
+            got = ops.comm.pmax(scratch[0][i0:i0 + m])
+            flags.append(got)
+            gate = got[-1]
+    changed, tiles = scratch[0], scratch[1]
+    flags = torch.cat(flags) != 0 if until_fixpoint else ops.comm.any(changed != 0)
+    return bufs[cur][halo:halo + nzl], flags, tiles
+
+
 class ZShardOps:
     """Z-sharded primitives over the ``n`` shards of ``comm`` (a
     parallel/comm.LocalComm); every method runs inside ``comm.run`` with the
@@ -449,48 +522,12 @@ class ZShardOps:
 
     def sweeps(self, init: Tensor, occ: Tensor, ball, n: int,
                until_fixpoint: bool = False) -> tuple[Tensor, Tensor]:
-        """ops/components.sweeps on the slab, one schedule on both devices:
-        two halo'd buffers of nzl + 2 halo rows take turns; sweep i fills
-        the halo rows of its source in place from the neighbours' edge rows
-        (K15b-1's in-place form: the interior is never copied), then runs
-        K2's one-sweep launch from it into the other buffer with its change
-        flag over the interior rows only (a flag over the halo rows would
-        count changes the dense sweep never sees); the flags are OR-ed over
-        the shards.  ``until_fixpoint`` gates each launch on the previous
-        sweep's global flag.  Traced shells exchange the halo of their
-        static bound.  The CPU takes the plain leaves (halo_fill_plain_,
-        propagate_sweep_plain) in the same schedule.  Returns (slab: the
-        last destination's interior, bool [n] global per-sweep flags)."""
-        taps, reach = tap_set(ball)
-        halo = int(math.floor(ball.bound)) if isinstance(ball, Shells) else reach
-        nzl = init.shape[0]
-        rows = (halo, halo + nzl)
-        fill = SENTINEL if init.dtype == torch.int32 else 0
-        card = _on_card(init, "sharded sweeps")
-        occ_ext = self.halo_exchange(occ.contiguous().view(torch.uint8), halo, 0)
-        bufs = [torch.empty((nzl + 2 * halo,) + tuple(init.shape[1:]), dtype=init.dtype,
-                            device=init.device) for _ in range(2)]
-        bufs[0][halo:halo + nzl] = init
-        changed = torch.zeros(n, dtype=torch.int32, device=init.device)
-        flags, prev = [], None
-        for i in range(n):
-            src, dst = bufs[i % 2], bufs[(i + 1) % 2]
-            self.halo_fill_(src, halo, fill)
-            # Gated, a launch is skipped only when the previous sweep's global
-            # flag is 0: that sweep changed no interior voxel on any shard, so
-            # src's interior already equals dst's and the untouched dst holds
-            # the fixpoint (the argument of the persistent K2's early stop,
-            # csrc/propagate.cu).  dst's halo rows are refilled before use.
-            if card:
-                kernels.propagate_sweep(src, dst, occ_ext, taps, reach, changed[i], prev, rows)
-            else:
-                propagate_sweep_plain(src, dst, occ_ext.view(torch.bool), ball, changed[i], prev,
-                                      rows)
-            if until_fixpoint:  # the 0 / 1 flags' max over the shards: their OR, in int32
-                prev = self.comm.pmax(changed[i])
-                flags.append(prev)
-        flags = torch.stack(flags) != 0 if until_fixpoint else self.comm.any(changed != 0)
-        return bufs[n % 2][halo:halo + nzl], flags
+        """ops/components.sweeps on the slab: :func:`sharded_sweeps` with
+        K2's batched launch on the card, its plain model on the CPU.
+        Returns (slab, bool [n] global per-sweep flags)."""
+        leaf = batch_on_card if _on_card(init, "sharded sweeps") else batch_plain
+        slab, flags, _ = sharded_sweeps(self, init, occ, ball, n, until_fixpoint, leaf)
+        return slab, flags
 
     def label_seeded(self, occupied, seed, radius: float, max_iters: int, traced_r2=None):
         """ops/components.label_components_seeded with global flat ids."""
@@ -504,9 +541,9 @@ class ZShardOps:
 
     def label_components(self, occupied, radius: float, max_iters: int):
         """ops/components.label_components with global flat ids, swept to
-        the global fixpoint: each gated K2 launch reads the previous sweep's
-        flag OR-ed over the shards, so the labels, ``converged`` and the
-        sweep count are the dense step's."""
+        the global fixpoint: each gated K2 launch reads the previous
+        launch's last flag OR-ed over the shards, so the labels,
+        ``converged`` and the sweep count are the dense step's."""
         return label_components(occupied, radius, max_iters, sweep_fn=self.sweeps,
                                 z0=self.slab(occupied.shape[0] * self.n)[0])
 
