@@ -5,7 +5,8 @@
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
                        [--explore-only] [--ray-detect-only] [--variants all|NAME,...]
                        [--ray-detect-variants all|NAME,...] [--grid-sweeps-only]
-                       [--grid-sweeps-variants all|K,...] [--out build/ab]
+                       [--grid-sweeps-variants all|K,...] [--grid-cones-only]
+                       [--grid-cones-variants all|K:C,...] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -93,6 +94,20 @@ call:
   ``--grid-sweeps-variants`` then replays K2's calls in the change tree
   with each given SWEEP_BATCH (``all``: 2, 4, 8, 16), each a module built
   from the tree's parallel/gridops.py with the constant edited in its text.
+- K15b-3's x/y cones and K15b-4b's transposed z cones on the calls the
+  grid-sharded step makes on scans 7 to 11 of the grid (pipelined z cones)
+  and grid transposed paths (``ops/raycast.sweep_zsharded`` recorded on
+  each of the 3 shards), each call replayed over the shards and checked
+  bit-equal to the dense K4 on the gathered window, with K15b-3's and
+  K15b-4b's kernel ms and launches, the call's device ops, busy ms and
+  collective copies (torch.profiler, ``LocalComm.copies``) and its
+  CUDA-event ms, and the sums a scan.  ``--grid-cones-only`` runs these
+  cases alone.  ``--grid-cones-variants`` then replays them in the change
+  tree at each given K:C pair (``all``: 4, 8, 16, 32 and 128 planes a
+  launch on clusters of 8 and 16 blocks): CONE_BATCH = K set on
+  ops/raycast at run time, clusters of C blocks from a copy of the tree
+  whose csrc/cone_sweep.cu (and kernels.py) has CONE_CLUSTER = C in its
+  text, built on its own under the tree's build/cone_variants/.
 
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
@@ -119,6 +134,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -1767,6 +1784,158 @@ def main():
 main()
 """
 
+# K15b-3's and K15b-4b's calls of scans 7-11 of the grid (pipelined z cones)
+# and grid transposed paths (ops/raycast.sweep_zsharded, recorded on each of
+# the 3 shards), each replayed over the shards and checked against the dense
+# K4 on the gathered window (bit-equal), with the call's kernel ms and
+# launches of K15b-3 and K15b-4b, its device ops (kernels, memsets, memcpys)
+# and busy ms (torch.profiler), its collective copies and its CUDA-event ms;
+# the sums a scan.  Arguments (the change tree only): K values, each a
+# variant with CONE_BATCH = K planes a launch set at run time, on the
+# tree's own CONE_CLUSTER.  Prints one JSON line.
+_GRID_CONES = PROFILE + r"""
+import json
+import sys
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.ops import raycast
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+LAT_RE, ZT_RE = r"\bcone_(cluster_)?lat_kernel\b", r"\bcone_(cluster_)?zt_kernel\b"
+
+
+def record(lut, mode, first=7, n=5):
+    # per recorded scan: {rank: (grid, slab, origin, bound, mode)}
+    cfg = cs.VoFODConfig()
+    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    drv = cs.GridDriver(lut, node.state, cfg, zcone_mode=mode)
+    scans = cs.scan_cycle(lut, first - 1 + n)
+    on, store, real = [False], {}, raycast.sweep_zsharded
+
+    def sweep(grid, opaque, origin_world, comm, max_distance_bound=None,
+              zcone_mode="pipelined"):
+        if on[0]:
+            store[comm.rank] = (grid, opaque.clone(), origin_world, max_distance_bound,
+                                zcone_mode)
+        return real(grid, opaque, origin_world, comm, max_distance_bound, zcone_mode)
+
+    raycast.sweep_zsharded = sweep
+    out = []
+    try:
+        for i, (r, p) in enumerate(scans):
+            on[0] = i >= first - 1
+            store.clear()
+            drv.process_scan(r, None, p)
+            if on[0]:
+                torch.cuda.synchronize()
+                out.append(dict(store))
+    finally:
+        raycast.sweep_zsharded = real
+    return drv.comm, out
+
+
+def replay(comm, call):
+    t6 = [None] * comm.n
+
+    def fn():
+        def shard(rank):
+            grid, op, origin, bound, mode = call[rank]
+            t6[rank] = raycast.sweep_zsharded(grid, op, origin, comm, bound, mode)[0]
+        comm.run(shard)
+    return fn, t6
+
+
+def measure(comm, scans):
+    calls = []
+    for s, call in enumerate(scans):
+        fn, t6 = replay(comm, call)
+        fn()
+        grid, _, origin, bound, mode = call[0]
+        full = torch.cat([call[r][1] for r in range(comm.n)])
+        x0, y0, rel_x, rel_y, rel_z = raycast._window_rel(grid, origin, bound, full.device)
+        wy, wx = rel_y.shape[0], rel_x.shape[0]
+        want = kernels.cone_sweep(full[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8),
+                                  rel_x, rel_y, rel_z)
+        if not torch.equal(torch.cat(t6, dim=1), want):
+            raise AssertionError(f"{mode} scan {s}: the sharded sweep's T differs from K4's")
+        comm.reset_copies()
+        fn()
+        torch.cuda.synchronize()
+        copies = comm.copies
+        lat, zt = profiled(fn, LAT_RE, reps=5), profiled(fn, ZT_RE, reps=5)
+        calls.append(dict(scan=s, event_ms=round(cs.cuda_ms(fn, reps=5), 4),
+                          lat_kernel_ms=lat["device_ms"], lat_launches=lat["launches"],
+                          zt_kernel_ms=zt["device_ms"] if zt["launches"] else 0.0,
+                          zt_launches=zt["launches"], busy_ms=lat["busy_ms"],
+                          device_ops=lat["ops"] + lat["memsets"] + lat["memcpys"],
+                          copies=copies))
+    n = len(calls)
+    per_scan = {k: round(sum(c[k] for c in calls) / n, 4)
+                for k in ("lat_kernel_ms", "lat_launches", "zt_kernel_ms", "zt_launches",
+                          "busy_ms", "device_ops", "copies", "event_ms")}
+    return dict(per_scan=per_scan, calls=calls)
+
+
+def main():
+    ks = [int(a) for a in sys.argv[1:]]
+    lut = cs.make_lut(cs.VoFODConfig().sensor)
+    out = {"nvidia_smi": cs.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), "paths": {}}
+    base, c = getattr(raycast, "CONE_BATCH", None), kernels.CONE_CLUSTER
+    out["constants"] = dict(planes_a_launch=base, cluster=c)
+    for mode in ("pipelined", "transpose"):
+        comm, scans = record(lut, mode)
+        res = {"tree": measure(comm, scans)}
+        for k in ks:
+            raycast.CONE_BATCH = k
+            try:
+                res[f"k{k}_c{c}"] = measure(comm, scans)
+            finally:
+                raycast.CONE_BATCH = base
+        out["paths"][{"pipelined": "grid", "transpose": "grid_transpose"}[mode]] = res
+    print(json.dumps(out))
+
+
+main()
+"""
+
+# --grid-cones-variants all: planes a launch x blocks a cluster
+GRID_CONE_VARIANTS = tuple(f"{k}:{c}" for c in (8, 16) for k in (4, 8, 16, 32, 128))
+_CONE_CLUSTER_CU = re.compile(r"^constexpr int CONE_CLUSTER = (\d+);", re.M)
+_CONE_CLUSTER_PY = re.compile(r"^CONE_CLUSTER = \d+$", re.M)
+
+
+def cone_cluster_tree(tree: Path, c: int) -> Path:
+    """``tree`` itself when its csrc/cone_sweep.cu has CONE_CLUSTER = c, else
+    a copy under its build/cone_variants/ with that constant (and kernels.py's)
+    edited to c in the text; the copy builds its own kernel library."""
+    cu = tree / "vofod_tpu_torch" / "csrc" / "cone_sweep.cu"
+    m = _CONE_CLUSTER_CU.search(cu.read_text())
+    if m is None:
+        raise RuntimeError(f"{cu}: no CONE_CLUSTER constant")
+    if int(m.group(1)) == c:
+        return tree
+    dst = tree / "build" / "cone_variants" / f"c{c}"
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(tree, dst, ignore=shutil.ignore_patterns("build", "chiprun_out", ".git"))
+    for rel, pat, new in (("vofod_tpu_torch/csrc/cone_sweep.cu", _CONE_CLUSTER_CU,
+                           f"constexpr int CONE_CLUSTER = {c};"),
+                          ("vofod_tpu_torch/kernels.py", _CONE_CLUSTER_PY,
+                           f"CONE_CLUSTER = {c}")):
+        text, n = pat.subn(new, (dst / rel).read_text())
+        if n != 1:
+            raise RuntimeError(f"{rel}: CONE_CLUSTER found {n} times")
+        (dst / rel).write_text(text)
+    return dst
+
 PAIR_MODES = {"exact": (_EXACT_STEP, "4-exact", "dense"),
               "grid_exact": (_GRID_EXACT_STEP, "4-grid-exact", "grid")}
 
@@ -1909,6 +2078,12 @@ def main() -> int:
     ap.add_argument("--grid-sweeps-variants", default="",
                     help="then replay K2's sharded sweeps with these SWEEP_BATCH values built "
                          "from the change's source ('all': 2,4,8,16)")
+    ap.add_argument("--grid-cones-only", action="store_true",
+                    help="time only the grid steps' sharded cone sweeps (K15b-3, K15b-4b)")
+    ap.add_argument("--grid-cones-variants", default="",
+                    help="then replay the sharded cone sweeps in the change with these K:C "
+                         "pairs (planes a launch : blocks a cluster; 'all': "
+                         + ",".join(GRID_CONE_VARIANTS) + ")")
     args = ap.parse_args()
     trees = {"p": args.parent.resolve(), "c": args.change.resolve()}
     args.out.mkdir(parents=True, exist_ok=True)
@@ -1918,14 +2093,15 @@ def main() -> int:
         for flag, script in ((args.compact_gate_only, _COMPACT_GATE_CASES),
                              (args.explore_only, _EXPLORE_CASES),
                              (args.ray_detect_only, _RAY_DETECT_CASES),
-                             (args.grid_sweeps_only, _GRID_SWEEPS)):
+                             (args.grid_sweeps_only, _GRID_SWEEPS),
+                             (args.grid_cones_only, _GRID_CONES)):
             if flag:
                 g, gate = _json_run(script, tree)
                 ok = ok and g
                 print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
                 runs.append(dict(run=i, tree=name, **gate))
         if (args.compact_gate_only or args.explore_only or args.ray_detect_only
-                or args.grid_sweeps_only):
+                or args.grid_sweeps_only or args.grid_cones_only):
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:
@@ -1937,16 +2113,17 @@ def main() -> int:
         e, expl = _json_run(_EXPLORE_CASES, tree)
         rd_ok, rd = _json_run(_RAY_DETECT_CASES, tree)
         gs_ok, gs = _json_run(_GRID_SWEEPS, tree)
+        gc_ok, gc = _json_run(_GRID_CONES, tree)
         k_ok, kern = _json_run(_KERNEL_TIMES, tree)
         s = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
                            text=True, timeout=1200)
         (args.out / f"{i}-{name}.log").write_text(s.stdout + "\n--- stderr ---\n" + s.stderr)
         last = s.stdout.strip().splitlines()[-1:] or [""]
         run = {"run": i, "tree": name, "kernel_times": kern,  # one nvidia_smi
-               **demote, **gate, **expl, **rd, "grid_sweeps": gs,
+               **demote, **gate, **expl, **rd, "grid_sweeps": gs, "grid_cones": gc,
                "smoke_rc": s.returncode, "smoke_last_line": last[0],
                **summarize(phases(s.stdout))}
-        ok = ok and d and g and e and rd_ok and gs_ok and k_ok and s.returncode == 0
+        ok = ok and d and g and e and rd_ok and gs_ok and gc_ok and k_ok and s.returncode == 0
         print(json.dumps(run), flush=True)
         runs.append(run)
     out = {"summary": runs}
@@ -1975,6 +2152,23 @@ def main() -> int:
         out["grid_sweeps_variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
                                        else {"error": v.stderr[-4000:]})
         ok = ok and v.returncode == 0
+    if args.grid_cones_variants:
+        pairs = (GRID_CONE_VARIANTS if args.grid_cones_variants == "all"
+                 else args.grid_cones_variants.split(","))
+        by_c = {}
+        for pair in pairs:
+            k, c = pair.split(":")
+            by_c.setdefault(int(c), []).append(k)
+        out["grid_cones_variants"] = {}
+        for c, ks in by_c.items():
+            v = subprocess.run([sys.executable, "-c", _GRID_CONES, *ks],
+                               cwd=cone_cluster_tree(trees["c"], c), capture_output=True,
+                               text=True, timeout=1800)
+            lines = v.stdout.strip().splitlines()
+            out["grid_cones_variants"][f"c{c}"] = (
+                json.loads(lines[-1]) if v.returncode == 0 and lines
+                else {"error": v.stderr[-4000:]})
+            ok = ok and v.returncode == 0
     for mode, n in (("exact", args.exact_pairs), ("grid_exact", args.grid_exact_pairs)):
         if n:
             out[mode + "_pairs"], mode_ok = run_pairs(trees, mode, n)

@@ -118,11 +118,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    launch, the shells and a corridor where the cap binds, slabs and flags
    equal to the dense K2's, one launch timed;
    K15b-2 (fold-min) at r 16 and 20, equal to the min over every shard's
-   stamp; K15b-3 / K15b-4a (each shard's kept z cones on clusters) through
-   the sharded sweep of a flagship scan, T equal to K4's, and the sharded
-   K4 + K5b equal to the dense update under both rules; K15b-4b (the
-   transposed z cones) launch by launch beside its plain version on the
-   all_to_all'd window, T equal to K4's z cones.  Then the reference-exact grid path's kernels on a flagship
+   stamp; K15b-3 (the x/y cones) and K15b-4b (the transposed z cones),
+   CONE_BATCH planes a launch on K4's clusters over a halo of the planes'
+   reach, launch by launch beside their plain versions at CONE_BATCH and at
+   16 planes a launch (halo refills between launches), and K15b-4a (each
+   shard's kept z cones on clusters) round by round, through the sharded
+   sweeps of a flagship scan, T equal to K4's, and the sharded K4 + K5b
+   equal to the dense update under both rules (phase 2-grid-cones: the
+   launches a shard).  Then the reference-exact grid path's kernels on a flagship
    exact scan, 3 shards, each beside its plain version on the same
    received blocks and against the dense kernel: K15b-6b's three entries
    (equal to K13b; also with no bg and all bg), K2's sharded label components (labels, converged and
@@ -283,8 +286,9 @@ from vofod_tpu_torch.pipeline.state import PrebinnedScan, ScanInput, VoFODState 
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD, _pack, _unpack  # noqa: E402
 from vofod_tpu_torch.io.staging import HostStaging  # noqa: E402
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
-    RayEma, cone_lat_step_plain, cone_z_round_plain, cone_zt_step_plain, raycast_dda_slab,
-    raycast_dda_slab_plain, raycast_update_, raycast_update_zsharded, sweep_zsharded, zt_planes)
+    CONE_BATCH, RayEma, cone_halo_plan, cone_lat_batch_plain, cone_sweep_lat_sharded,
+    cone_sweep_z_transposed, cone_z_round_plain, cone_zt_batch_plain, raycast_dda_slab,
+    raycast_dda_slab_plain, raycast_update_, raycast_update_zsharded, sweep_zsharded)
 from vofod_tpu_torch.ops.components import census_read_plain, census_scatter_plain  # noqa: E402
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
     quirk_columns_plain, quirk_query_plain, quirk_ranks_plain, quirk_sure_counts_sharded)
@@ -2931,75 +2935,80 @@ def _flagship_inputs(lut, n_warm: int = 6):
     return node, scans[n_warm]
 
 
-def _sharded_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
-    """K15b-3 and K15b-4a beside their plain versions, launch by launch, on
-    a shard's window slab (inside ``comm.run``): each launch of both gets
-    the same inputs, the kernels' rows and carries are exchanged as
-    ops/raycast.cone_sweep_lat_sharded and cone_sweep_z_pipelined exchange
-    them (K15b-4a on the shard's kept cones only), and every row block and
-    kept carry the two produce must be equal.
-    Returns the slab's (T6 of the kernels, T6 of the plain versions)."""
+@contextlib.contextmanager
+def _cone_launches_vs_plain(batch: int):
+    """K15b-3's and K15b-4b's wrappers replaced, for a grid sweep at
+    ``batch`` planes a launch, by ones that launch the kernel and run its
+    plain model on copies of the same inputs, launch by launch (the carry
+    as the kernels left it and the halo refilled, as
+    ops/raycast.cone_sweep_lat_sharded and cone_sweep_z_transposed run
+    them): the T rows and the carry each writes must be bit-equal.  Yields
+    (the mismatches, the launches by (kernel, shard))."""
+    import vofod_tpu_torch.ops.raycast as rc
+
+    bad, seen = [], {}
+    real = kernels.cone_sweep_lat, kernels.cone_sweep_zt, rc.CONE_BATCH
+
+    def paired(name, kernel, plain):
+        def call(window, rel_x, rel_y, rel_z, carry, T, slab, rows, p0, m):
+            n_planes = max(window.shape[1:]) if name == "cone_sweep_lat" else window.shape[0]
+            carry_p = None if carry is None else carry.clone()
+            T_p = T.clone()
+            kernel(window, rel_x, rel_y, rel_z, carry, T, slab, rows, p0, m)
+            plain(window, rel_x, rel_y, rel_z, carry_p, T_p, slab, rows, p0, m)
+            key = (name, torch.cuda.current_stream().cuda_stream)
+            seen[key] = seen.get(key, 0) + 1
+            # bits, not values: the planes no launch has reached yet hold
+            # whatever the allocation held, NaN patterns too
+            if not (torch.equal(T.view(torch.int32), T_p.view(torch.int32)) and (
+                    carry is None or torch.equal(carry.view(torch.int16),
+                                                 carry_p.view(torch.int16)))):
+                bad.append(dict(kernel=name, slab=slab, rows=rows, p0=p0, m=m,
+                                carry_out=p0 + m < n_planes))
+        return call
+
+    kernels.cone_sweep_lat = paired("cone_sweep_lat", real[0], cone_lat_batch_plain)
+    kernels.cone_sweep_zt = paired("cone_sweep_zt", real[1], cone_zt_batch_plain)
+    rc.CONE_BATCH = batch
+    try:
+        yield bad, seen
+    finally:
+        kernels.cone_sweep_lat, kernels.cone_sweep_zt, rc.CONE_BATCH = real
+
+
+def _cones_vs_plain(window, op, rel_x, rel_y, rel_z_g, comm):
+    """The x/y cones and the transposed z cones of a shard's rows of the
+    window (K15b-3, K15b-4b; inside ``comm.run``), and K15b-4a beside its
+    plain version round by round, the carries passed as
+    ops/raycast.cone_sweep_z_pipelined passes them (the kept rounds' carry
+    and T must be equal).  Returns (the slab's T6 with the pipelined z
+    cones, the transposed z cones' T2, K15b-4a's mismatches)."""
     nzl, wy, wx = op.shape
     n, me, dev = comm.n, comm.rank, op.device
-    pb = max(wx, wy)
-    up = [(i, i + 1) for i in range(n - 1)]
-    dn = [(i, i - 1) for i in range(1, n)]
-    t6 = [torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=dev) for _ in range(2)]
-    bufs = [torch.zeros((nzl, 4, pb), dtype=torch.bfloat16, device=dev) for _ in range(2)]
-    plain_out = torch.zeros_like(bufs[0])
-    lo = hi = None
-    for k in range(pb + 1):
-        tmp_in, tmp_out = (bufs[(k + 1) % 2] if k else None), bufs[k % 2]
-        kernels.cone_sweep_lat(op, rel_x, rel_y, rel_z, tmp_in, lo, hi, tmp_out, t6[0][:4], k)
-        cone_lat_step_plain(op, rel_x, rel_y, rel_z, tmp_in, lo, hi, plain_out, t6[1][:4], k)
-        if k < pb:
-            if not torch.equal(tmp_out, plain_out):
-                raise AssertionError(f"K15b-3 launch {k} shard {me}: rows differ from plain")
-            lo, hi = comm.ppermutes([(tmp_out[nzl - 1:nzl], up), (tmp_out[:2], dn)])
+    z0 = me * nzl
+    rel_z = rel_z_g[z0:z0 + nzl].contiguous()
+    t6 = torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=dev)
+    t2 = torch.empty((2, nzl, wy, wx), dtype=torch.float32, device=dev)
+    cone_sweep_lat_sharded(window, rel_x, rel_y, rel_z_g, t6[:4], comm)
+    cone_sweep_z_transposed(window, rel_x, rel_y, rel_z_g, t2, comm)
+    bad = []
     carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=dev)
+    tp = torch.empty((2, nzl, wy, wx), dtype=torch.float32, device=dev)
     for r in range(n):
         keep = (me == r, me == n - 1 - r)
         if any(keep):
-            out = kernels.cone_sweep_z(op, rel_x, rel_y, rel_z, carry, t6[0][4:], keep)
-            want = cone_z_round_plain(op, rel_x, rel_y, rel_z, carry, t6[1][4:], keep)
-            if not all(torch.equal(out[c], want[c]) for c in (0, 1) if keep[c]):
-                raise AssertionError(f"K15b-4a round {r} shard {me}: carry differs from plain")
+            out = kernels.cone_sweep_z(op, rel_x, rel_y, rel_z, carry, t6[4:], keep)
+            want = cone_z_round_plain(op, rel_x, rel_y, rel_z, carry, tp, keep)
+            if not all(torch.equal(out[c], want[c]) and torch.equal(t6[4 + c], tp[c])
+                       for c in (0, 1) if keep[c]):
+                bad.append(dict(kernel="cone_sweep_z", round=r, shard=me))
             carry = out
         if r < n - 1:
             got = comm.ppermutes([(carry[0], [(r, r + 1)]), (carry[1], [(n - 1 - r, n - 2 - r)])])
             for c, recv in enumerate(got):
                 if recv is not None:
                     carry[c] = recv
-    return t6[0], t6[1]
-
-
-def _transposed_cones_vs_plain(op, rel_x, rel_y, rel_z, comm):
-    """K15b-4b beside its plain version, launch by launch, on a shard's
-    window slab (inside ``comm.run``): the window's y padded and made
-    y-sharded by the all_to_all as ops/raycast.cone_sweep_z_transposed does,
-    each launch of both on the same inputs, the kernel's edge rows
-    exchanged, every row block equal; both T brought back by the all_to_all.
-    Returns the slab's (T2 of the kernel, T2 of the plain version)."""
-    _, wy, wx = op.shape
-    nz = rel_z.shape[0]
-    n, me, dev = comm.n, comm.rank, op.device
-    planes, ryl, pin = zt_planes(op, rel_y, comm)
-    nyl = ryl.shape[0]
-    up = [(i, i + 1) for i in range(n - 1)]
-    dn = [(i, i - 1) for i in range(1, n)]
-    tt = [torch.empty((2, nz, nyl, wx), dtype=torch.float32, device=dev) for _ in range(2)]
-    bufs = [torch.zeros((nyl, 2, wx), dtype=torch.bfloat16, device=dev) for _ in range(2)]
-    plain_out = torch.zeros_like(bufs[0])
-    lo = hi = None
-    for k in range(nz + 1):
-        tmp_in, tmp_out = (bufs[(k + 1) % 2] if k else None), bufs[k % 2]
-        kernels.cone_sweep_zt(planes, rel_x, ryl, rel_z, tmp_in, lo, hi, tmp_out, tt[0], k, pin)
-        cone_zt_step_plain(planes, rel_x, ryl, rel_z, tmp_in, lo, hi, plain_out, tt[1], k, pin)
-        if k < nz:
-            if not torch.equal(tmp_out, plain_out):
-                raise AssertionError(f"K15b-4b launch {k} shard {me}: rows differ from plain")
-            lo, hi = comm.ppermutes([(tmp_out[nyl - 1:nyl], up), (tmp_out[:2], dn)])
-    return tuple(comm.all_to_all(t, 1, 2)[:, :, :wy] for t in tt)
+    return t6, t2, bad
 
 
 def _serpentine_xz(grid: GridSpec, dev) -> torch.Tensor:
@@ -3131,12 +3140,13 @@ def phase2_grid(lut) -> list[dict]:
     the explore pad's (f32 r = 16), each with its device time, bound and
     torch.cat's time (phase 2-grid-halo); K15b-2 at r = 16 and 20 (head and tail ranges
     overlap), bit-equal to its plain version and to the min over every
-    shard's stamp; K15b-3 and K15b-4a launch by launch beside their plain
-    versions on a flagship scan's window (K15b-4a on each shard's kept cones
-    only), and the step's sharded sweep, T bit-equal to the plain versions'
-    and to K4's, and the sharded K4 + K5b ray update bit-equal to the dense
-    one under both update rules; K2's batched launches on the 3 shards at
-    once beside their plain model (_sharded_k2_cases)."""
+    shard's stamp; K15b-3, K15b-4a and K15b-4b launch by launch beside their
+    plain versions on a flagship scan's window (K15b-3 and K15b-4b at
+    CONE_BATCH and at 16 planes a launch, K15b-4a on each shard's kept cones
+    only), and the step's sharded sweeps, T bit-equal to K4's, and the
+    sharded K4 + K5b ray update bit-equal to the dense one under both update
+    rules; K2's batched launches on the 3 shards at once beside their plain
+    model (_sharded_k2_cases)."""
     dev = torch.device("cuda")
     cfg, dyn = VoFODConfig(), DynParams()
     grid = GridSpec.from_config(cfg)
@@ -3270,8 +3280,11 @@ def phase2_grid(lut) -> list[dict]:
                f"({nzl}, ...); checked at r 16 and 20 (overlapping head and tail), 3 shards",
     ))
 
-    # K15b-3 / K15b-4a: the sharded sweep of the scan's blockers, T against
-    # the plain versions and K4; then K4 + K5b dense against the sharded update
+    # K15b-3 / K15b-4a / K15b-4b: the sharded sweeps of the scan's blockers,
+    # launch by launch against the plain versions at the module's planes a
+    # launch and at 16 (7 launches of K15b-3, 4 of K15b-4b, their halo of two
+    # hops above, clipped at the grid's edges, refilled between), T against
+    # K4; then K4 + K5b dense against the sharded update
     ranges = torch.as_tensor(r_np.astype(np.float32), device=dev)
     pose = torch.as_tensor(pose_np, device=dev)
     dirs = torch.as_tensor(lut.directions, device=dev)
@@ -3285,18 +3298,35 @@ def phase2_grid(lut) -> list[dict]:
     rel_y = torch.arange(wy, dtype=torch.float32, device=dev) + float(y0) + 0.5 - float(gy)
     t_dense = cone_sweep(occ[:, y0:y0 + wy, x0:x0 + wx].contiguous(), rel_x, rel_y, rel_z)
     op_w = occ[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
-    out = comm.run(lambda rank: (
-        sweep_zsharded(grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound)[0],
-        _sharded_cones_vs_plain(op_w[rank * nzl:(rank + 1) * nzl], rel_x, rel_y,
-                                rel_z[rank * nzl:(rank + 1) * nzl].contiguous(), comm)))
-    t_s = torch.cat([t for t, _ in out], dim=1)
-    t_k = torch.cat([k for _, (k, _) in out], dim=1)
-    t_p = torch.cat([p for _, (_, p) in out], dim=1)
-    if not (torch.equal(t_k, t_p) and torch.equal(t_k, t_dense) and torch.equal(t_s, t_dense)):
-        raise AssertionError(
-            f"sharded sweep T: kernels vs plain {int((t_k != t_p).sum())} voxels, "
-            f"vs K4 {int((t_k != t_dense).sum())}, the step's vs K4 "
-            f"{int((t_s != t_dense).sum())} voxels differ")
+    pb = max(wx, wy)
+    checked = {}
+    for batch in sorted({CONE_BATCH, 16}):
+        with _cone_launches_vs_plain(batch) as (bad, seen):
+            out = comm.run(lambda rank: _cones_vs_plain(
+                op_w, op_w[rank * nzl:(rank + 1) * nzl], rel_x, rel_y, rel_z, comm))
+        t_k = torch.cat([t for t, _, _ in out], dim=1)
+        t_t = torch.cat([t for _, t, _ in out], dim=1)
+        bad = bad + [m for _, _, mis in out for m in mis]
+        want = {"cone_sweep_lat": -(-pb // min(batch, pb)),
+                "cone_sweep_zt": -(-grid.nz // min(batch, grid.nz))}
+        launches = {name: sorted(c for (k, _), c in seen.items() if k == name) for name in want}
+        if bad or not (torch.equal(t_k, t_dense) and torch.equal(t_t, t_dense[4:])) or any(
+                launches[k] != [w] * n for k, w in want.items()):
+            raise AssertionError(
+                f"sharded sweeps at {batch} planes a launch: launches against their plain "
+                f"versions {bad[:4]}; x/y and pipelined z cones vs K4 "
+                f"{int((t_k != t_dense).sum())} voxels, transposed z cones vs K4 "
+                f"{int((t_t != t_dense[4:]).sum())}; launches a shard {launches}, want {want}")
+        checked[batch] = launches
+    say("2-grid-cones", planes_a_launch=CONE_BATCH, cluster=kernels.CONE_CLUSTER,
+        launches_a_shard=checked)
+    t_s = torch.cat(comm.run(lambda rank: sweep_zsharded(
+        grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound)[0]), dim=1)
+    t_t = torch.cat(comm.run(lambda rank: sweep_zsharded(
+        grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound, "transpose")[0][4:]), dim=1)
+    if not (torch.equal(t_s, t_dense) and torch.equal(t_t, t_dense[4:])):
+        raise AssertionError(f"the step's sharded sweep T vs K4: {int((t_s != t_dense).sum())} "
+                             f"voxels, its transposed z cones {int((t_t != t_dense[4:]).sum())}")
     rot = pose[:3, :3].contiguous()
     kw = dict(max_distance=float(dyn.raycast_max_distance), vertical_fov=cfg.sensor.vertical_fov,
               v_rays=lut.height, h_rays=lut.width, max_distance_bound=bound)
@@ -3310,53 +3340,38 @@ def phase2_grid(lut) -> list[dict]:
             raise AssertionError(f"sharded K4 + K5b (new rule {new_rule}) differs from the dense "
                                  f"update in {int((got != want).sum())} voxels")
 
-    # K15b-4b: the transposed z cones launch by launch beside the plain
-    # version, and the step's transposed sweep, T against K4's z cones
-    out = comm.run(lambda rank: (
-        sweep_zsharded(grid, occ[rank * nzl:(rank + 1) * nzl], origin, comm, bound,
-                       "transpose")[0][4:],
-        _transposed_cones_vs_plain(op_w[rank * nzl:(rank + 1) * nzl], rel_x, rel_y, rel_z,
-                                   comm)))
-    t_s = torch.cat([t for t, _ in out], dim=1)
-    t_k = torch.cat([k for _, (k, _) in out], dim=1)
-    t_p = torch.cat([p for _, (_, p) in out], dim=1)
-    if not (torch.equal(t_k, t_p) and torch.equal(t_k, t_dense[4:])
-            and torch.equal(t_s, t_dense[4:])):
-        raise AssertionError(
-            f"transposed z cones T: kernel vs plain {int((t_k != t_p).sum())} voxels, vs K4 "
-            f"{int((t_k != t_dense[4:]).sum())}, the step's vs K4 "
-            f"{int((t_s != t_dense[4:]).sum())} voxels differ")
-
-    # per-launch times on shard 1's window slab, the received rows fixed
-    op1 = occ[nzl:2 * nzl, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
-    rz1 = rel_z[nzl:2 * nzl].contiguous()
-    pb = max(wx, wy)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    rows = torch.rand((3, 4, pb), device=dev, generator=gen).to(torch.bfloat16)
-    lo1, hi1 = rows[:1].contiguous(), rows[1:].contiguous()
-    bufs = [torch.ones((nzl, 4, pb), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    # one launch of each at the module's planes a launch, on shard 1's slab
+    # (its rows extended by the halo, clipped at the grid's edges)
+    k = min(CONE_BATCH, pb)
+    own, lo_t, hi_t = cone_halo_plan(n, nzl, grid.nz, k)
+    slab = (own[1][0] - sum(lo_t[1]), own[1][1] + sum(hi_t[1]))
+    n_e = slab[1] - slab[0]
+    carry = (torch.ones((n_e, 4, pb), dtype=torch.bfloat16, device=dev) if k < pb else None)
     t4 = torch.empty((4, nzl, wy, wx), dtype=torch.float32, device=dev)
-
-    def lat_sweep(step):
-        for k in range(pb + 1):
-            step(op1, rel_x, rel_y, rz1, bufs[(k + 1) % 2] if k else None, lo1, hi1,
-                 bufs[k % 2], t4, k)
-
-    nw = nzl * wy * wx
+    lat_args = (op_w, rel_x, rel_y, rel_z, carry, t4, slab, own[1], 0, k)
+    nw = n_e * wy * wx
     results.append(dict(
         name="cone_sweep_lat", max_abs_err=0.0,
-        ms=cuda_ms(lambda: lat_sweep(kernels.cone_sweep_lat), reps=5) / (pb + 1),
-        plain_ms=cuda_ms(lambda: lat_sweep(cone_lat_step_plain), reps=2) / (pb + 1),
-        # per launch: the opacity and T of one plane of each cone, the B-resampled
-        # rows in (slab + 3) and out (slab), bf16
-        bytes=4 * nzl * pb * (1 + 4) + 4 * (2 * nzl + 3) * pb * 2, ops=4 * nzl * pb * 40,
-        library_ms=None,
-        shapes=f"one of {pb + 1} launches per shard per scan: 4 cones x {nzl} rows x {pb} "
-               f"lanes; sweep T bit-equal to K4 on the ({grid.nz}, {wy}, {wx}) window",
+        ms=cuda_ms(lambda: kernels.cone_sweep_lat(*lat_args)),
+        device_ms=device_profile(lambda: kernels.cone_sweep_lat(*lat_args))["device_ms"],
+        plain_ms=cuda_ms(lambda: cone_lat_batch_plain(*lat_args), reps=2),
+        # the slab's opacity read once, T of the own rows and the carry of
+        # every slab row written once; 16 operations a lane a plane (two
+        # 4-tap resamples and the attenuation) on every slab row
+        bytes=nw + 4 * nzl * wy * wx * 4 + (n_e * 4 * pb * 2 if carry is not None else 0),
+        ops=4 * nw * 16 * k // pb, library_ms=None,
+        shapes=f"shard 1's launch of {k} of {pb} planes ({-(-pb // k)} a shard a scan): 4 "
+               f"cones on the z rows {slab[0]}-{slab[1] - 1} of the ({grid.nz}, {wy}, {wx}) "
+               f"window, T of its {nzl} rows, each cone on a cluster of "
+               f"{kernels.CONE_CLUSTER} blocks; launch by launch bit-equal to the plain "
+               f"version at {CONE_BATCH} and 16 planes a launch, the sweep's T to K4's",
     ))
     carry = torch.ones((2, wy, wx), dtype=torch.bfloat16, device=dev)
+    op1 = op_w[nzl:2 * nzl]
+    rz1 = rel_z[nzl:2 * nzl].contiguous()
     t2 = torch.empty((2, nzl, wy, wx), dtype=torch.float32, device=dev)
     both = (True, True)
+    nw = nzl * wy * wx
     results.append(dict(
         name="cone_sweep_z", max_abs_err=0.0,
         ms=cuda_ms(lambda: kernels.cone_sweep_z(op1, rel_x, rel_y, rz1, carry, t2, both)),
@@ -3371,32 +3386,29 @@ def phase2_grid(lut) -> list[dict]:
                f"cluster of {kernels.CONE_CLUSTER} blocks; one_cone_ms: an end shard's launch; "
                f"{2 * n - n % 2} launches a scan over {n} shards",
     ))
-    # K15b-4b per launch on shard 1's received planes (every z plane of its
-    # window rows), the received rows fixed
+    # K15b-4b: shard 1's rows of the window's y, extended by the halo
+    kz = min(CONE_BATCH, grid.nz)
     nyl = -(-wy // n)
-    planes1 = torch.nn.functional.pad(occ[:, y0:y0 + wy, x0:x0 + wx], (0, 0, 0, nyl * n - wy))
-    planes1 = planes1[:, nyl:2 * nyl].contiguous().view(torch.uint8)
-    ry1 = rel_y[nyl:2 * nyl].contiguous()
-    zrows = torch.rand((3, 2, wx), device=dev, generator=gen).to(torch.bfloat16)
-    zlo, zhi = zrows[:1].contiguous(), zrows[1:].contiguous()
-    zbufs = [torch.ones((nyl, 2, wx), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    own, lo_t, hi_t = cone_halo_plan(n, nyl, wy, kz)
+    slab = (own[1][0] - sum(lo_t[1]), own[1][1] + sum(hi_t[1]))
+    n_e = slab[1] - slab[0]
+    carry = (torch.ones((n_e, 2, wx), dtype=torch.bfloat16, device=dev) if kz < grid.nz
+             else None)
     tt = torch.empty((2, grid.nz, nyl, wx), dtype=torch.float32, device=dev)
-
-    def zt_sweep(step):
-        for k in range(grid.nz + 1):
-            step(planes1, rel_x, ry1, rel_z, zbufs[(k + 1) % 2] if k else None, zlo, zhi,
-                 zbufs[k % 2], tt, k, nyl)
-
+    zt_args = (op_w, rel_x, rel_y, rel_z, carry, tt, slab, own[1], 0, kz)
+    nw = grid.nz * n_e * wx
     results.append(dict(
         name="cone_sweep_zt", max_abs_err=0.0,
-        ms=cuda_ms(lambda: zt_sweep(kernels.cone_sweep_zt), reps=5) / (grid.nz + 1),
-        plain_ms=cuda_ms(lambda: zt_sweep(cone_zt_step_plain), reps=2) / (grid.nz + 1),
-        # per launch: the opacity and T of one plane of both cones, the
-        # x-resampled rows in (slab + 3) and out (slab), bf16
-        bytes=2 * nyl * wx * (1 + 4) + 2 * (2 * nyl + 3) * wx * 2, ops=2 * nyl * wx * 40,
-        library_ms=None,
-        shapes=f"one of {grid.nz + 1} launches per shard per scan: 2 cones x {nyl} rows x {wx} "
-               f"lanes; T bit-equal to K4's z cones on the ({grid.nz}, {wy}, {wx}) window",
+        ms=cuda_ms(lambda: kernels.cone_sweep_zt(*zt_args)),
+        device_ms=device_profile(lambda: kernels.cone_sweep_zt(*zt_args))["device_ms"],
+        plain_ms=cuda_ms(lambda: cone_zt_batch_plain(*zt_args), reps=2),
+        bytes=nw + 2 * grid.nz * nyl * wx * 4 + (n_e * 2 * wx * 2 if carry is not None else 0),
+        ops=2 * nw * 16 * kz // grid.nz, library_ms=None,
+        shapes=f"shard 1's launch of {kz} of {grid.nz} planes ({-(-grid.nz // kz)} a shard a "
+               f"scan): 2 cones on the y rows {slab[0]}-{slab[1] - 1} of the ({grid.nz}, {wy}, "
+               f"{wx}) window, T of its {nyl} rows, each cone on a cluster of "
+               f"{kernels.CONE_CLUSTER} blocks; launch by launch bit-equal to the plain "
+               f"version, T to K4's z cones",
     ))
     for r in results:
         say("2-grid-kernel", **r)
@@ -3848,22 +3860,35 @@ _EXACT_NEVER = ("dda", "label_census", "quirk_counts", "cone_sweep_lat", "cone_s
                 "cone_sweep_zt", "propagate_sweeps")
 
 
-def _grid_counts(other_halo: int, *calls: int) -> dict:
+def _grid_counts(other_halo: int, *calls: int, cones: tuple = ()) -> dict:
     """K2's batched launches and K15b-1's launches a grid scan, from the
     sweeps a shard's sweeps() calls run (SWEEP_BATCH a launch): per call
     one exchange of the occupancy and one halo fill a launch, beside the
-    ``other_halo`` exchanges the path makes for its other stencils."""
+    ``other_halo`` exchanges the path makes for its other stencils; and for
+    each sharded cone sweep of ``cones`` ((kernel, planes), CONE_BATCH
+    planes a launch) its launches and one halo fill between two."""
     launches = [-(-n // min(SWEEP_BATCH, n)) for n in calls]
-    return {"propagate_batch": GRID_SHARDS * sum(launches),
-            "halo_exchange": other_halo + GRID_SHARDS * sum(1 + k for k in launches)}
+    out = {"propagate_batch": GRID_SHARDS * sum(launches),
+           "halo_exchange": other_halo + GRID_SHARDS * sum(1 + k for k in launches)}
+    for name, planes in cones:
+        k = -(-planes // min(CONE_BATCH, planes))
+        out[name] = GRID_SHARDS * k
+        out["halo_exchange"] += GRID_SHARDS * (k - 1)
+    return out
 
 
 # a grid scan's sweeps() calls: the seeded labels and the reach (cc_sweeps
 # and sepclusters' 8), or the seeded labels and the exact census's labels
-# (its cap of 128); K15b-4a: each shard's kept cones, one launch a round
+# (its cap of 128); K15b-3 over the flagship window's x / y planes, K15b-4b
+# over its z planes; K15b-4a: each shard's kept cones, one launch a round
 # that keeps one
 _CC = VoFODConfig().cc_sweeps
-_SWEEP_COUNTS = {**_grid_counts(30, _CC, 8), "cone_sweep_z": 2 * GRID_SHARDS - GRID_SHARDS % 2}
+_FLAGSHIP = GridSpec.from_config(VoFODConfig())
+_WINDOW = sweep_window(_FLAGSHIP, np.asarray(_FLAGSHIP.origin, np.float32),
+                       VoFODConfig().raycast_max_distance_bound)[2:4]
+_LAT = ("cone_sweep_lat", max(_WINDOW))
+_SWEEP_COUNTS = {**_grid_counts(30, _CC, 8, cones=(_LAT,)),
+                 "cone_sweep_z": 2 * GRID_SHARDS - GRID_SHARDS % 2}
 # the grid-sharded paths: (config, node options, make_grid_sharded_step
 # options, the kernels each scan must launch, kernels it must never launch,
 # kernels it must launch exactly so many times a scan)
@@ -3873,7 +3898,8 @@ GRID_PATHS = {
     "exact": (exact_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
               GRID_EXACT_KERNELS, _EXACT_NEVER, _grid_counts(24, _CC, 128)),
     "transpose": (VoFODConfig, {}, dict(zcone_mode="transpose"), GRID_TRANSPOSE_KERNELS,
-                  ("cone_sweep_z", "propagate_sweeps"), _grid_counts(30, _CC, 8)),
+                  ("cone_sweep_z", "propagate_sweeps"),
+                  _grid_counts(30, _CC, 8, cones=(_LAT, ("cone_sweep_zt", _FLAGSHIP.nz)))),
     "prebinned": (VoFODConfig, dict(frontend_mode="prebinned"), dict(frontend_mode="prebinned"),
                   GRID_KERNELS + ("unpack",), ("frontend_bin", "cone_sweep_zt", "propagate_sweeps"),
                   {"unpack": GRID_SHARDS, **_SWEEP_COUNTS}),
@@ -4060,7 +4086,7 @@ def _device_events(prof, n: int) -> dict:
 PORT_KERNELS = (
     "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
     "sweeps_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
-    "cone_lat_kernel", "cone_zt_kernel", "compact_kernel",
+    "cone_cluster_lat_kernel", "cone_cluster_zt_kernel", "compact_kernel",
     "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
     "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",

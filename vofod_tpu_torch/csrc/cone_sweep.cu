@@ -42,16 +42,22 @@
 // bit-equal to the plain version's.
 //
 // The grid-sharded sweep (vofod_tpu/ops/raycast.py raycast_sweep_zsharded)
-// has two kernels here, with K4's arithmetic so that its T is bit-equal:
+// runs on the same cluster kernel, with K4's arithmetic, so its T is
+// bit-equal to the dense sweep's.  Three launches of it keep kernels of
+// their own (`cone_cluster_lat_kernel`, `cone_cluster_zt_kernel`: one body,
+// one symbol each, so a profile tells them apart):
 //
 // K15b-3 `vofod_cone_sweep_lat` replaces `_sweep_cones_lat_sharded`
 // (raycast.py:248): the x and y cones of a shard holding nzl of the nz z
-// rows, whose A (= z) resample needs 1 row below and 2 above the slab.  One
-// launch per plane step: the A pass of plane k - 1 on the B-resampled rows
-// received from the neighbours, the seed, the T write and the carry, then
-// the B pass of plane k, whose edge rows the host sends before the next
-// launch (the carry row stays in the block).  Bound: latency; 98 launches
-// and exchanges per scan per shard, launch-bound by design in this version.
+// rows.  A plane step's A (= z) pass at row a reads rows a - 1 .. a + 2, so
+// a slab whose edges are not the grid's loses one exact row a plane below
+// and two above; a global edge reads 1.0 and stays exact.  A launch sweeps
+// k planes over the shard's rows extended by k rows below and 2k above
+// (clipped to the grid: no row past its edges), writes T only for the
+// shard's own rows and leaves the carry of every row of the slab; the host
+// refills the halo rows from the neighbours' own rows (K15b-1's in-place
+// fill) before the next launch.  ceil(max(wx, wy) / k) launches a shard a
+// scan; at the flagship's 3 x 17 rows any k >= 34 reaches the whole column.
 //
 // K15b-4a `vofod_cone_sweep_z` replaces `_sweep_cones_z_pipelined`
 // (raycast.py:361): the z cones with the sweep axis sharded, n rounds with
@@ -64,21 +70,18 @@
 // A launch is K4's cluster kernel on the shard's planes (`cones` its kept
 // cones, each on a cluster of CONE_CLUSTER blocks with bands of y rows),
 // starting from the received carry plane and leaving the last plane's
-// carry, with K4's arithmetic, so T is bit-equal to the dense sweep's.
+// carry.
 //
 // K15b-4b `vofod_cone_sweep_zt` replaces `_sweep_cones_z_transposed`
-// (raycast.py:308, zcone_mode="transpose"): the z cones after an
-// all_to_all has made the window y-sharded, so a shard holds all nz planes
-// of its nyl = ceil(wy / n) rows of the (padded) window y.  It is K15b-3's
-// scheme with the sweep along z, A = y (the sharded lateral axis) and B =
-// x: one launch per plane step, the A pass of plane k - 1 on the
-// B-resampled rows with the neighbours' edge rows (1 below, 2 above), then
-// the B pass of plane k.  The pad rows at or past wy are set to exactly
-// bf16 1.0 after every B pass (`pin_rows`, raycast.py:283-287), the value
-// the dense sweep's A taps read past the window's edge, so T is bit-equal
-// to K4's z cones.  Both cones are written in grid order (z ascending), as
-// K4 writes them.  Bound: latency; nz + 1 launches and nz exchanges per
-// scan per shard, launch-bound by design in this version.
+// (raycast.py:308, zcone_mode="transpose"): both z cones over all nz planes
+// on a shard's nyl = ceil(wy / n) rows of the window's y, K15b-3's scheme
+// with A = y: k planes a launch on the rows extended by k below and 2k
+// above, clipped at the window's true extent wy (the rows past it read 1.0
+// at the slab's edge, the value the dense sweep's taps read there, so no
+// row is pinned).  Both cones are written in grid order (z ascending), as
+// K4 writes them.  ceil(nz / k) launches a shard a scan.
+//
+// Bound of both: latency, k dependent plane steps a launch at K4's step.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -87,8 +90,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int LAT_THREADS = 256;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -115,34 +116,6 @@ __device__ __forceinline__ float lerp4(const float* w, float m1, float c,
   v = __fadd_rn(v, __fmul_rn(w[1], c));
   v = __fadd_rn(v, __fmul_rn(w[2], p1));
   return __fadd_rn(v, __fmul_rn(w[3], p2));
-}
-
-// The lateral-sharded sweeps' row r of the B-resampled plane around a slab
-// of n_rows local rows: tmp_in for the slab's own rows, `lo` the row below,
-// `hi` the two above; NULL past the global edge (reads 1.0)
-__device__ __forceinline__ const __nv_bfloat16* slab_row(const __nv_bfloat16* tmp_in,
-                                                         const __nv_bfloat16* lo,
-                                                         const __nv_bfloat16* hi, int r,
-                                                         int n_rows, size_t row) {
-  if (r < 0) return lo;
-  if (r < n_rows) return tmp_in + r * row;
-  return hi != nullptr ? hi + (r - n_rows) * row : nullptr;
-}
-
-// the A pass at local row a: the 4-tap resample across the slab's rows at
-// lane `col` (seed: 1.0), rounded to bf16
-__device__ __forceinline__ float slab_a_pass(const float* wa, const __nv_bfloat16* tmp_in,
-                                             const __nv_bfloat16* lo, const __nv_bfloat16* hi,
-                                             int a, int n_rows, size_t row, size_t col,
-                                             bool seed) {
-  if (seed) return 1.0f;
-  float v[4];
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    const __nv_bfloat16* src = slab_row(tmp_in, lo, hi, a - 1 + d, n_rows, row);
-    v[d] = src != nullptr ? __bfloat162float(src[col]) : 1.0f;
-  }
-  return round_bf16(lerp4(wa, v[0], v[1], v[2], v[3]));
 }
 
 // the B pass of a carry row at lane b (1.0 past its ends), before rounding
@@ -233,29 +206,46 @@ __device__ __forceinline__ void unpack_weights(uint2 p, float* w) {
   w[3] = __uint_as_float(p.y & 0xffff0000u);
 }
 
-// K4 (and K15b-4a): cluster c = blockIdx.x / C sweeps the c-th cone set in
+// One launch of the cluster sweep.  The slab is (nz, ny, nx) voxels of the
+// window; `opaque` points at its first voxel, its z rows op_ny y rows apart
+// (op_ny > ny where the slab is a band of the window's y); rel_* at the
+// slab's first row of each axis.  Each cone sweeps its planes [p0, p1)
+// counted from the sensor side (clipped to its own nS).  T holds the cones
+// from `t_first` on, [cone - t_first][t_nz][t_ny][nx]; of a cone's A rows
+// only the slab's [t_lo, t_hi) are written, at T row a - t_lo.  carry_in
+// (NULL: the carry starts at 1.0) and carry_out (NULL: not written) hold
+// the carry of every row of the slab before the first plane and after the
+// last, element (cone - t_first) c_cone + a c_row + b; they may be one
+// buffer (a block reads only the rows it writes, before it writes them).
+struct ConeLaunch {
+  const uint8_t* opaque;
+  const float *rel_x, *rel_y, *rel_z;
+  float* T;
+  const __nv_bfloat16* carry_in;
+  __nv_bfloat16* carry_out;
+  long long c_cone, c_row;
+  int nz, ny, nx, op_ny;
+  int t_nz, t_ny, t_lo, t_hi;
+  int p0, p1, cones, t_first;
+};
+
+// The cluster sweep: cluster c = blockIdx.x / C sweeps the c-th cone set in
 // `cones` (bit i: cone i of x+, x-, y+, y-, z+, z-); block rank k of the
-// cluster owns the A rows [k nA / C, (k + 1) nA / C).  T holds the cones
-// from `t_first` on ([cone - t_first] is the cone's volume); carry_in
-// (NULL: the carry starts at 1.0) and carry_out (NULL: not written) the
-// cones' carry planes [cone - t_first][nA][nB], before the first plane and
-// after the last.
-__global__ void __launch_bounds__(CLUSTER_THREADS)
-    cone_cluster_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
-                        const float* __restrict__ rel_y, const float* __restrict__ rel_z,
-                        float* __restrict__ T, int nz, int ny, int nx, int cones, int t_first,
-                        const __nv_bfloat16* __restrict__ carry_in,
-                        __nv_bfloat16* __restrict__ carry_out) {
+// cluster owns the A rows [k nA / C, (k + 1) nA / C).
+__device__ __forceinline__ void cone_cluster_body(const ConeLaunch& L) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   int cone = 0;
   for (int c = blockIdx.x / C;; ++cone)
-    if (((cones >> cone) & 1) && c-- == 0) break;
+    if (((L.cones >> cone) & 1) && c-- == 0) break;
   const int axis = cone >> 1;
   const bool back = cone & 1;
-  const Cone g = cone_of(axis, rel_x, rel_y, rel_z, nz, ny, nx);
+  const int nz = L.nz, ny = L.ny, nx = L.nx;
+  const Cone g = cone_of(axis, L.rel_x, L.rel_y, L.rel_z, nz, ny, nx);
+  const Cone gt = cone_of(axis, L.rel_x, L.rel_y, L.rel_z, L.t_nz, L.t_ny, nx);  // T's strides
   const int nS = g.nS, nA = g.nA, nB = g.nB;
+  const int p0 = L.p0, p_end = L.p1 < nS ? L.p1 : nS;
   const int a0 = rank * nA / C, band = (rank + 1) * nA / C - a0;
   const int band_max = (nA + C - 1) / C;  // the tmp rows of every block of the cluster
   const int lanes = band * nB;
@@ -274,8 +264,8 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
   __nv_bfloat16* carry = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.carry);  // [band][nB]
   __nv_bfloat16* tmp = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.tmp);  // [2][band_max][nB]
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw + m.stage);
-  // --- prologue: offsets, plane 0's weights, opacity bits, carry, the A
-  // pass's row pointers, all in shared memory
+  // --- prologue: offsets, the first plane's weights, opacity bits, carry,
+  // the A pass's row pointers, all in shared memory
   for (int i = tid; i < nS + nB + band; i += nthr) {
     if (i < nS) {
       const int s = back ? nS - 1 - i : i;
@@ -306,7 +296,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
     for (int k = 0; k < IN_FLIGHT; ++k) {
       const int q = q0 + k * nthr;
       zr[k] = q / n16;
-      const uint8_t* base = opaque + ((size_t)(z0 + zr[k]) * ny + y0) * nx;
+      const uint8_t* base = L.opaque + ((size_t)(z0 + zr[k]) * L.op_ny + y0) * nx;
       const uintptr_t lo = reinterpret_cast<uintptr_t>(base) & ~(uintptr_t)15;
       first[k] = (long)(lo - reinterpret_cast<uintptr_t>(base)) + 16L * (q - zr[k] * n16);
       v[k] = make_uint4(0u, 0u, 0u, 0u);
@@ -325,11 +315,15 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
       }
     }
   }
-  const size_t plane0 = (size_t)(cone - t_first) * nA * nB + (size_t)a0 * nB;  // the band's carry
-  for (int i = tid; i < lanes; i += nthr)
-    carry[i] = carry_in != nullptr ? carry_in[plane0 + i] : __float2bfloat16_rn(1.0f);
+  // the band's carry: lane i = (row al, lane b) at element c0 + al c_row + b
+  const long long c0 = (long long)(cone - L.t_first) * L.c_cone + (long long)a0 * L.c_row;
+  for (int i = tid; i < lanes; i += nthr) {
+    const int al = i / nB, b = i - al * nB;
+    carry[i] = L.carry_in != nullptr ? L.carry_in[c0 + al * L.c_row + b]
+                                     : __float2bfloat16_rn(1.0f);
+  }
   // rowp[par][k]: row a0 - 1 + k of the B-resampled plane of parity par, in
-  // the shared memory of the block that owns it; NULL past the plane (1.0)
+  // the shared memory of the block that owns it; NULL past the slab (1.0)
   for (int i = tid; i < 2 * (band + 3); i += nthr) {
     const int par = i / (band + 3), r = a0 - 1 + i % (band + 3);
     const __nv_bfloat16* ptr = nullptr;
@@ -341,11 +335,13 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
     rowp[i] = ptr;
   }
   __syncthreads();
-  for (int i = tid; i < nB + band; i += nthr) plane_weights(rs, rel_b, rel_a, 0, i, nB, wb, wa);
+  if (p0 < p_end)
+    for (int i = tid; i < nB + band; i += nthr)
+      plane_weights(rs, rel_b, rel_a, p0, i, nB, wb + (p0 & 1) * nB, wa + (p0 & 1) * band);
   __syncthreads();
 
-  float* Tc = T + (size_t)(cone - t_first) * nz * ny * nx;
-  for (int p = 0; p < nS; ++p) {
+  float* Tc = L.T + (size_t)(cone - L.t_first) * L.t_nz * L.t_ny * nx;
+  for (int p = p0; p < p_end; ++p) {
     const int s = back ? nS - 1 - p : p;
     const bool seed = rs[p] <= 1.0f;
     const int par = p & 1;
@@ -388,200 +384,160 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
         word = (s * band + al) * nwx;
       }
       const bool op = (bits[word + (x >> 5)] >> (x & 31)) & 1u;
+      const int a = a0 + al;
       if (axis == 0)
         stage[i * STAGE_PITCH + p % STAGE] = __float2bfloat16_rn(t);  // bf16-exact
-      else
-        Tc[(size_t)s * g.st_s + (size_t)(a0 + al) * g.st_a + (size_t)b * g.st_b] = t;
+      else if (a >= L.t_lo && a < L.t_hi)
+        Tc[(size_t)s * gt.st_s + (size_t)(a - L.t_lo) * gt.st_a + (size_t)b * gt.st_b] = t;
       carry[i] = __float2bfloat16_rn(op ? 0.0f : t);
     }
     // the next plane's weights, off the recurrence, by the highest threads
     // (idle in the passes above where the block has fewer lanes)
-    if (p + 1 < nS)
+    if (p + 1 < p_end)
       for (int i = nthr - 1 - tid; i < nB + band; i += nthr)
         plane_weights(rs, rel_b, rel_a, p + 1, i, nB, wb + (par ^ 1) * nB,
                       wa + (par ^ 1) * band);
     __syncthreads();  // the carry, the staged planes and the weights complete
-    if (axis == 0 && (p % STAGE == STAGE - 1 || p == nS - 1)) {
-      // each lane's staged planes as one run along x (descending for x-);
-      // the next plane's A pass rewrites `stage` only after its cluster
-      // barrier, which every thread reaches after this loop
-      const int p0 = p - p % STAGE, cnt = p - p0 + 1;
+    if (axis == 0 && (p % STAGE == STAGE - 1 || p == p_end - 1)) {
+      // each lane's staged planes as one run along x (descending for x-),
+      // from the launch's first plane or the run's; the next plane's A pass
+      // rewrites `stage` only after its cluster barrier, which every thread
+      // reaches after this loop
+      const int pr = p - p % STAGE, j0 = (pr > p0 ? pr : p0) - pr, j1 = p - pr;
       for (int i = tid; i < lanes * STAGE; i += nthr) {
         const int l = i / STAGE, j = i - l * STAGE;
-        if (j >= cnt) continue;
-        const int al = l / nB, b = l - al * nB;
-        const int sj = back ? nS - 1 - (p0 + j) : p0 + j;
-        Tc[(size_t)(a0 + al) * g.st_a + (size_t)b * g.st_b + sj] =
+        const int al = l / nB, b = l - al * nB, a = a0 + al;
+        if (j < j0 || j > j1 || a < L.t_lo || a >= L.t_hi) continue;
+        const int sj = back ? nS - 1 - (pr + j) : pr + j;
+        Tc[(size_t)(a - L.t_lo) * gt.st_a + (size_t)b * gt.st_b + sj] =
             __bfloat162float(stage[l * STAGE_PITCH + j]);
       }
     }
   }
   // the last plane's carry (its barrier above completed it)
-  if (carry_out != nullptr)
-    for (int i = tid; i < lanes; i += nthr) carry_out[plane0 + i] = carry[i];
+  if (L.carry_out != nullptr)
+    for (int i = tid; i < lanes; i += nthr) {
+      const int al = i / nB, b = i - al * nB;
+      L.carry_out[c0 + al * L.c_row + b] = carry[i];
+    }
   cluster.sync();  // no block leaves while a neighbour may read its rows
 }
 
-// K15b-3: launch k of the x/y cone sweep with the lateral A axis (= grid
-// z) sharded.  One block per (cone, local row a), one thread per B lane.
-//   A phase (k >= 1, plane k - 1 of this cone): the z resample of the
-//     B-resampled rows of plane k - 1 (tmp_in for the local rows, `lo` for
-//     the row below the slab, `hi` for the two above; NULL = 1.0, the
-//     global edge), the seed, the T write and the attenuation into the
-//     block's carry row (shared memory).  k == 0 starts the carry at 1.0.
-//   B phase (plane k): the B resample of that carry row into tmp_out,
-//     whose edge rows the caller sends to the neighbours before launch
-//     k + 1.
-// The carry row never leaves the block, so the only state between launches
-// is the B-resampled plane.  Arithmetic and rounding points are K4's, so T
-// is bit-equal to the dense sweep's.  tmp / lo / hi rows are [4][PB] bf16
-// (cone-major, PB = max(wx, wy)).
-__global__ void __launch_bounds__(LAT_THREADS)
-    cone_lat_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
-                    const float* __restrict__ rel_y, const float* __restrict__ rel_z,
-                    const __nv_bfloat16* __restrict__ tmp_in,
-                    const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
-                    __nv_bfloat16* __restrict__ tmp_out, float* __restrict__ T, int nzl,
-                    int wy, int wx, int k) {
-  const int cone = blockIdx.x;  // x+, x-, y+, y-
-  const int a = blockIdx.y;
-  const int axis = cone >> 1;
-  const bool back = cone & 1;
-  const int nS = axis == 0 ? wx : wy;
-  const int nB = axis == 0 ? wy : wx;
-  const float* rel_s = axis == 0 ? rel_x : rel_y;
-  const float* rel_b = axis == 0 ? rel_y : rel_x;
-  const int PB = wx > wy ? wx : wy;
-  const size_t row = 4 * (size_t)PB;  // elements per row of tmp / lo / hi
-  const size_t col = (size_t)cone * PB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* crow = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [nB]
-
-  if (k > nS) return;  // this cone has finished (block-uniform)
-  if (k == 0) {
-    for (int b = threadIdx.x; b < nB; b += blockDim.x) crow[b] = __float2bfloat16_rn(1.0f);
-  } else {
-    const int s = back ? nS - 1 - (k - 1) : k - 1;
-    const float rs = back ? -rel_s[s] : rel_s[s];
-    const bool seed = rs <= 1.0f;
-    float wa[4];
-    tap_weights(rs, rel_z[a], wa);
-    float* Tc = T + (size_t)cone * nzl * wy * wx;
-    for (int b = threadIdx.x; b < nB; b += blockDim.x) {
-      const float t = slab_a_pass(wa, tmp_in, lo, hi, a, nzl, row, col + b, seed);
-      const size_t g = axis == 0 ? ((size_t)a * wy + b) * wx + s : ((size_t)a * wy + s) * wx + b;
-      Tc[g] = t;
-      crow[b] = __float2bfloat16_rn(opaque[g] ? 0.0f : t);
-    }
-  }
-  __syncthreads();
-  if (k == nS) return;
-  const int s = back ? nS - 1 - k : k;
-  const float rs = back ? -rel_s[s] : rel_s[s];
-  for (int b = threadIdx.x; b < nB; b += blockDim.x) {
-    float wb[4];
-    tap_weights(rs, rel_b[b], wb);
-    tmp_out[a * row + col + b] = __float2bfloat16_rn(row_b_pass(wb, crow, b, nB));
-  }
+// K4 and K15b-4a
+__global__ void __launch_bounds__(CLUSTER_THREADS) cone_cluster_kernel(const ConeLaunch L) {
+  cone_cluster_body(L);
 }
 
-// K15b-4b: launch k of the transposed z cones on a shard's nyl rows of the
-// padded window y.  One block per (cone, local row a), one thread per x
-// lane.  A phase (k >= 1, plane k - 1 of the cone): the y resample of the
-// x-resampled rows (tmp_in, `lo` below the slab, `hi` above; NULL = 1.0,
-// the global edge), the seed, the T write and the carry row.  B phase
-// (plane k): the x resample of the carry row into tmp_out, rows at or past
-// pin_from set to bf16 1.0.  tmp / lo / hi rows are [2][wx] bf16.
-__global__ void __launch_bounds__(LAT_THREADS)
-    cone_zt_kernel(const uint8_t* __restrict__ opaque, const float* __restrict__ rel_x,
-                   const float* __restrict__ rel_y, const float* __restrict__ rel_z,
-                   const __nv_bfloat16* __restrict__ tmp_in,
-                   const __nv_bfloat16* __restrict__ lo, const __nv_bfloat16* __restrict__ hi,
-                   __nv_bfloat16* __restrict__ tmp_out, float* __restrict__ T, int nz, int nyl,
-                   int wx, int pin_from, int k) {
-  const int cone = blockIdx.x;  // z+, z-
-  const int a = blockIdx.y;
-  const bool back = cone & 1;
-  const size_t row = 2 * (size_t)wx;  // elements per row of tmp / lo / hi
-  const size_t col = (size_t)cone * wx;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* crow = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [wx]
+// K15b-3
+__global__ void __launch_bounds__(CLUSTER_THREADS) cone_cluster_lat_kernel(const ConeLaunch L) {
+  cone_cluster_body(L);
+}
 
-  if (k == 0) {
-    for (int b = threadIdx.x; b < wx; b += blockDim.x) crow[b] = __float2bfloat16_rn(1.0f);
-  } else {
-    const int s = back ? nz - k : k - 1;
-    const float rs = back ? -rel_z[s] : rel_z[s];
-    const bool seed = rs <= 1.0f;
-    float wa[4];
-    tap_weights(rs, rel_y[a], wa);
-    float* Tc = T + (size_t)cone * nz * nyl * wx;
-    for (int b = threadIdx.x; b < wx; b += blockDim.x) {
-      const float t = slab_a_pass(wa, tmp_in, lo, hi, a, nyl, row, col + b, seed);
-      const size_t g = ((size_t)s * nyl + a) * wx + b;
-      Tc[g] = t;
-      crow[b] = __float2bfloat16_rn(opaque[g] ? 0.0f : t);
-    }
-  }
-  __syncthreads();
-  if (k == nz) return;
-  const int s = back ? nz - 1 - k : k;
-  const float rs = back ? -rel_z[s] : rel_z[s];
-  const bool pinned = a >= pin_from;
-  for (int b = threadIdx.x; b < wx; b += blockDim.x) {
-    float q = 1.0f;
-    if (!pinned) {
-      float wb[4];
-      tap_weights(rs, rel_x[b], wb);
-      q = row_b_pass(wb, crow, b, wx);
-    }
-    tmp_out[a * row + col + b] = __float2bfloat16_rn(q);
-  }
+// K15b-4b
+__global__ void __launch_bounds__(CLUSTER_THREADS) cone_cluster_zt_kernel(const ConeLaunch L) {
+  cone_cluster_body(L);
 }
 
 }  // namespace
 
 namespace {
 
-// The clusters of `cones` (one each, CONE_CLUSTER blocks, non-portable) on
-// the window (nz, ny, nx); clusters the card cannot hold at once run one
-// after another.  Returns cudaGetLastError(), or the refusal of a cluster
-// the card cannot schedule at all (never another launch).
-int launch_cone_clusters(const void* opaque, const void* rel_x, const void* rel_y,
-                         const void* rel_z, void* T, int nz, int ny, int nx, int cones,
-                         int t_first, const void* carry_in, void* carry_out, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1 || cones <= 0 || cones >= 64) return (int)cudaErrorInvalidValue;
-  const size_t smem = cluster_smem(nz, ny, nx, CONE_CLUSTER).total;
+// `kernel`'s clusters of L.cones (one each, C blocks, non-portable past 8)
+// on the slab; clusters the card cannot hold at once run one after
+// another.  Returns cudaGetLastError(), or the refusal of a cluster the
+// card cannot schedule at all (never another launch).
+int launch_cone_clusters(void (*kernel)(const ConeLaunch), const ConeLaunch& L, int C,
+                         void* stream) {
+  if (L.nz < 1 || L.ny < 1 || L.nx < 1 || L.cones <= 0 || L.cones >= 64 || C < 1 || C > 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(L.nz, L.ny, L.nx, C).total;
   if (smem > 232448) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(cone_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cone_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CONE_CLUSTER;
+  attr.val.clusterDim.x = C;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(__builtin_popcount(cones) * CONE_CLUSTER);
+  cfg.gridDim = dim3(__builtin_popcount(L.cones) * C);
   cfg.blockDim = dim3(CLUSTER_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, cone_cluster_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
   if (active < 1) return (int)cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, cone_cluster_kernel, static_cast<const uint8_t*>(opaque),
-                         static_cast<const float*>(rel_x), static_cast<const float*>(rel_y),
-                         static_cast<const float*>(rel_z), static_cast<float*>(T), nz, ny, nx,
-                         cones, t_first, static_cast<const __nv_bfloat16*>(carry_in),
-                         static_cast<__nv_bfloat16*>(carry_out));
+  e = cudaLaunchKernelEx(&cfg, kernel, L);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The window (nz, ny, nx) whole: every row of every cone written, carries
+// as [cone][nA][nB] planes.
+ConeLaunch whole_window(const void* opaque, const void* rel_x, const void* rel_y,
+                        const void* rel_z, void* T, int nz, int ny, int nx, int cones,
+                        int t_first) {
+  ConeLaunch L = {};
+  L.opaque = static_cast<const uint8_t*>(opaque);
+  L.rel_x = static_cast<const float*>(rel_x);
+  L.rel_y = static_cast<const float*>(rel_y);
+  L.rel_z = static_cast<const float*>(rel_z);
+  L.T = static_cast<float*>(T);
+  L.nz = nz;
+  L.ny = ny;
+  L.nx = nx;
+  L.op_ny = ny;
+  L.t_nz = nz;
+  L.t_ny = ny;
+  L.t_lo = 0;
+  L.t_hi = nz > ny ? nz : ny;
+  L.p0 = 0;
+  L.p1 = 0x7fffffff;
+  L.cones = cones;
+  L.t_first = t_first;
+  return L;
+}
+
+// The sharded sweeps' slab [lo, hi) of the A axis of a window (nz, wy, wx)
+// and its launch fields (K15b-3: A = z, K15b-4b: A = y); carry [hi - lo]
+// [n_cones][pitch] bf16, read from plane p0 > 0 and written when more
+// planes follow.  False on arguments out of range.
+bool sharded_launch(ConeLaunch* L, const void* opaque, const void* rel_x, const void* rel_y,
+                    const void* rel_z, void* carry, void* T, int nz, int wy, int wx, int lo,
+                    int hi, int t_lo, int t_hi, int p0, int m, int n_s, int n_cones, int pitch,
+                    bool a_is_z) {
+  const int extent = a_is_z ? nz : wy;
+  if (nz < 1 || wy < 1 || wx < 1 || lo < 0 || hi > extent || lo >= hi || t_lo < lo ||
+      t_hi > hi || t_lo >= t_hi || p0 < 0 || m < 1 || p0 >= n_s)
+    return false;
+  const bool more = p0 + m < n_s;
+  if ((p0 > 0 || more) && carry == nullptr) return false;
+  const int rows = hi - lo;
+  const uint8_t* op = static_cast<const uint8_t*>(opaque);
+  if (a_is_z) {
+    *L = whole_window(op + (size_t)lo * wy * wx, rel_x, rel_y,
+                      static_cast<const float*>(rel_z) + lo, T, rows, wy, wx, 0x0f, 0);
+    L->t_nz = t_hi - t_lo;
+  } else {
+    *L = whole_window(op + (size_t)lo * wx, rel_x, static_cast<const float*>(rel_y) + lo, rel_z,
+                      T, nz, rows, wx, 0x30, 4);
+    L->op_ny = wy;
+  }
+  L->t_lo = t_lo - lo;
+  L->t_hi = t_hi - lo;
+  L->p0 = p0;
+  L->p1 = p0 + m;
+  L->c_cone = pitch;
+  L->c_row = (long long)n_cones * pitch;
+  L->carry_in = p0 > 0 ? static_cast<const __nv_bfloat16*>(carry) : nullptr;
+  L->carry_out = more ? static_cast<__nv_bfloat16*>(carry) : nullptr;
+  return true;
 }
 
 }  // namespace
@@ -595,69 +551,68 @@ int launch_cone_clusters(const void* opaque, const void* rel_x, const void* rel_
 VOFOD_API int vofod_cone_sweep(const void* opaque, const void* rel_x, const void* rel_y,
                                const void* rel_z, void* T, int nz, int ny, int nx,
                                void* stream) {
-  return launch_cone_clusters(opaque, rel_x, rel_y, rel_z, T, nz, ny, nx, 0x3f, 0, nullptr,
-                              nullptr, stream);
+  return launch_cone_clusters(cone_cluster_kernel,
+                              whole_window(opaque, rel_x, rel_y, rel_z, T, nz, ny, nx, 0x3f, 0),
+                              CONE_CLUSTER, stream);
 }
 
-// K15b-3, launch k (0 <= k <= max(wx, wy)).  opaque: device uint8 local
-// window [nzl, wy, wx]; rel_x [wx], rel_y [wy], rel_z [nzl]: device f32
-// offsets (rel_z the slab's rows of the global column); tmp_in / tmp_out:
-// device bf16 [nzl][4][max(wx, wy)] (tmp_in unused at k == 0); lo [1][4][PB]
-// and hi [2][4][PB]: the received rows, NULL = 1.0 (the global edges); T:
-// device f32 [4, nzl, wy, wx] (the x and y cones of the local T6).
+// K15b-3, one launch: planes [p0, p0 + m) of the x and y cones (clipped to
+// each cone's planes; p0 < max(wx, wy)) on the window's z rows [lo, hi).
+// opaque: device uint8 window [nz, wy, wx]; rel_x [wx], rel_y [wy], rel_z
+// [nz]: device f32 offsets (the whole window's); carry: device bf16 [hi -
+// lo][4][max(wx, wy)] (cone c's lane b of row r at (r * 4 + c) * pb + b),
+// read when p0 > 0 and written when planes follow, else may be NULL; T:
+// device f32 [4, t_hi - t_lo, wy, wx], the x and y cones of the z rows
+// [t_lo, t_hi) (within [lo, hi)).  Each cone on a cluster of CONE_CLUSTER
+// blocks.
 VOFOD_API int vofod_cone_sweep_lat(const void* opaque, const void* rel_x, const void* rel_y,
-                                   const void* rel_z, const void* tmp_in, const void* lo,
-                                   const void* hi, void* tmp_out, void* T, int nzl, int wy,
-                                   int wx, int k, void* stream) {
+                                   const void* rel_z, void* carry, void* T, int nz, int wy,
+                                   int wx, int lo, int hi, int t_lo, int t_hi, int p0, int m,
+                                   void* stream) {
   const int pb = wx > wy ? wx : wy;
-  if (nzl < 2 || wy < 1 || wx < 1 || k < 0 || k > pb || (k > 0 && tmp_in == nullptr))
+  ConeLaunch L;
+  if (!sharded_launch(&L, opaque, rel_x, rel_y, rel_z, carry, T, nz, wy, wx, lo, hi, t_lo, t_hi,
+                      p0, m, pb, 4, pb, true))
     return (int)cudaErrorInvalidValue;
-  const int threads = pb >= LAT_THREADS ? LAT_THREADS : ((pb + 31) / 32) * 32;
-  cone_lat_kernel<<<dim3(4, nzl), threads, (size_t)pb * sizeof(__nv_bfloat16),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(opaque), static_cast<const float*>(rel_x),
-      static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
-      static_cast<const __nv_bfloat16*>(tmp_in), static_cast<const __nv_bfloat16*>(lo),
-      static_cast<const __nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(tmp_out),
-      static_cast<float*>(T), nzl, wy, wx, k);
-  return (int)cudaGetLastError();
+  return launch_cone_clusters(cone_cluster_lat_kernel, L, CONE_CLUSTER, stream);
 }
 
 // K15b-4a, a shard's kept cones of one round.  opaque: device uint8 local
-// window [nzl, wy, wx]; rel_*: as K15b-3; carry_in / carry_out: device bf16
-// [2, wy, wx], of which the kept cones' planes are read / written; T:
-// device f32 [2, nzl, wy, wx] (the z cones of the local T6); keep_mask: bit
-// c sweeps cone c (z+, z-), at least one.
+// window [nzl, wy, wx]; rel_x [wx], rel_y [wy], rel_z [nzl] (the slab's rows
+// of the global column): device f32; carry_in / carry_out: device bf16 [2,
+// wy, wx], of which the kept cones' planes are read / written; T: device
+// f32 [2, nzl, wy, wx] (the z cones of the local T6); keep_mask: bit c
+// sweeps cone c (z+, z-), at least one.
 VOFOD_API int vofod_cone_sweep_z(const void* opaque, const void* rel_x, const void* rel_y,
                                  const void* rel_z, const void* carry_in, void* carry_out,
                                  void* T, int nzl, int wy, int wx, int keep_mask,
                                  void* stream) {
   if (keep_mask < 1 || keep_mask > 3 || carry_in == nullptr || carry_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_cone_clusters(opaque, rel_x, rel_y, rel_z, T, nzl, wy, wx, keep_mask << 4, 4,
-                              carry_in, carry_out, stream);
+  ConeLaunch L = whole_window(opaque, rel_x, rel_y, rel_z, T, nzl, wy, wx, keep_mask << 4, 4);
+  L.carry_in = static_cast<const __nv_bfloat16*>(carry_in);
+  L.carry_out = static_cast<__nv_bfloat16*>(carry_out);
+  L.c_cone = (long long)wy * wx;
+  L.c_row = wx;
+  return launch_cone_clusters(cone_cluster_kernel, L, CONE_CLUSTER, stream);
 }
 
-// K15b-4b, launch k (0 <= k <= nz).  opaque: device uint8 [nz, nyl, wx], the
-// shard's rows of the padded window after the all_to_all; rel_x [wx], rel_y
-// [nyl] (the shard's rows), rel_z [nz] (the global column): device f32;
-// tmp_in / tmp_out: device bf16 [nyl][2][wx] (tmp_in unused at k == 0); lo
-// [1][2][wx] and hi [2][2][wx]: the received rows, NULL = 1.0; T: device
-// f32 [2, nz, nyl, wx]; pin_from: the first local row at or past wy.
+// K15b-4b, one launch: planes [p0, p0 + m) of both z cones (p0 < nz) on the
+// window's y rows [lo, hi) (hi <= wy).  opaque: device uint8 window [nz,
+// wy, wx]; rel_x [wx], rel_y [wy], rel_z [nz]: device f32; carry: device
+// bf16 [hi - lo][2][wx], read when p0 > 0 and written when planes follow,
+// else may be NULL; T: device f32 [2, nz, t_ny, wx], the y rows [t_lo,
+// t_hi) (within [lo, hi), t_hi - t_lo <= t_ny) at its rows from 0.  Each
+// cone on a cluster of CONE_CLUSTER blocks.
 VOFOD_API int vofod_cone_sweep_zt(const void* opaque, const void* rel_x, const void* rel_y,
-                                  const void* rel_z, const void* tmp_in, const void* lo,
-                                  const void* hi, void* tmp_out, void* T, int nz, int nyl,
-                                  int wx, int pin_from, int k, void* stream) {
-  if (nz < 1 || nyl < 2 || wx < 1 || k < 0 || k > nz || pin_from < 0 ||
-      (k > 0 && tmp_in == nullptr))
+                                  const void* rel_z, void* carry, void* T, int nz, int wy,
+                                  int wx, int lo, int hi, int t_lo, int t_hi, int t_ny, int p0,
+                                  int m, void* stream) {
+  ConeLaunch L;
+  if (t_ny < t_hi - t_lo ||
+      !sharded_launch(&L, opaque, rel_x, rel_y, rel_z, carry, T, nz, wy, wx, lo, hi, t_lo, t_hi,
+                      p0, m, nz, 2, wx, false))
     return (int)cudaErrorInvalidValue;
-  const int threads = wx >= LAT_THREADS ? LAT_THREADS : ((wx + 31) / 32) * 32;
-  cone_zt_kernel<<<dim3(2, nyl), threads, (size_t)wx * sizeof(__nv_bfloat16),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(opaque), static_cast<const float*>(rel_x),
-      static_cast<const float*>(rel_y), static_cast<const float*>(rel_z),
-      static_cast<const __nv_bfloat16*>(tmp_in), static_cast<const __nv_bfloat16*>(lo),
-      static_cast<const __nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(tmp_out),
-      static_cast<float*>(T), nz, nyl, wx, pin_from, k);
-  return (int)cudaGetLastError();
+  L.t_ny = t_ny;
+  return launch_cone_clusters(cone_cluster_zt_kernel, L, CONE_CLUSTER, stream);
 }

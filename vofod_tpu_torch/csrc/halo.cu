@@ -7,11 +7,14 @@
 // assemble and fold what arrived.
 //
 // K15b-1 `vofod_halo_exchange` replaces vofod_tpu/parallel/gridops.py
-// ZShardOps.halo_exchange (:241): the slab extended by r rows of the
-// neighbours' content on each side.  Hop h (0-based) brings take[h] rows
-// from the shard h + 1 away: its LAST rows on the low side, its FIRST rows
-// on the high side, nearest hop innermost, so r > nzl takes several hops.
-// A hop with no shard that far (past the global edge) reads `fill`.
+// ZShardOps.halo_exchange (:241): the slab extended by r_lo rows of the
+// neighbours' content below and r_hi above (the stencils' r each side; the
+// sharded cone sweeps' carry k below and 2k above, clipped at the grid's
+// edges).  Hop h (0-based) brings take_lo[h] rows from the shard h + 1
+// below (its LAST rows) and take_hi[h] from the shard h + 1 above (its
+// FIRST rows), nearest hop innermost, so a side longer than nzl takes
+// several hops; a side's hop of 0 rows brings nothing.  A hop with no
+// shard that far (past the global edge) reads `fill`.
 //
 // Design (bound: bytes).  The extended slab is a run of contiguous
 // segments: the low hops' blocks (farthest first), the interior, the high
@@ -41,8 +44,8 @@
 // reads the interior and the returned rows once and writes the interior
 // once.
 //
-// Both take the hop table packed as `hops` 64-bit triples (lo pointer, hi
-// pointer, rows; a NULL pointer = no shard that far).
+// Both take the hop table packed as `hops` 64-bit quadruples (lo pointer,
+// hi pointer, lo rows, hi rows; a NULL pointer = no shard that far).
 #include "common.cuh"
 
 namespace {
@@ -55,11 +58,12 @@ constexpr long long TILE_CHUNKS = (long long)HALO_T * CHUNKS_PER_THREAD;  // 8 K
 
 // The received blocks of every hop: `lo[h]` / `hi[h]` (device pointers,
 // NULL = no shard that far: the fill, or for the fold nothing to min in),
-// each of take[h] rows.
+// of take_lo[h] / take_hi[h] rows.
 struct HaloBlocks {
   const void* lo[MAX_HOPS];
   const void* hi[MAX_HOPS];
-  int take[MAX_HOPS];
+  int take_lo[MAX_HOPS];
+  int take_hi[MAX_HOPS];
   int hops;
 };
 
@@ -162,12 +166,13 @@ __global__ void __launch_bounds__(HALO_T)
     const long long off = i - (long long)z * plane;
     float v = ext[(long long)(r + z) * plane + off];
     for (int h = 0; h < b.hops; ++h) {
-      const int take = b.take[h];
+      const int take_n = b.take_lo[h], take_p = b.take_hi[h];
       const float* from_next = static_cast<const float*>(b.lo[h]);
       const float* from_prev = static_cast<const float*>(b.hi[h]);
-      if (from_next != nullptr && z >= nzl - take)
-        v = min_nan(v, from_next[(long long)(z - (nzl - take)) * plane + off]);
-      if (from_prev != nullptr && z < take) v = min_nan(v, from_prev[(long long)z * plane + off]);
+      if (from_next != nullptr && z >= nzl - take_n)
+        v = min_nan(v, from_next[(long long)(z - (nzl - take_n)) * plane + off]);
+      if (from_prev != nullptr && z < take_p)
+        v = min_nan(v, from_prev[(long long)z * plane + off]);
     }
     out[i] = v;
   }
@@ -178,21 +183,25 @@ unsigned grid_blocks(long long n) {
   return (unsigned)(b < 4096 ? (b > 0 ? b : 1) : 4096);
 }
 
-// The packed hop table into HaloBlocks: 1 <= take <= nzl, the rows summing
-// to r (the exchange) or to at most r (the fold: no hop past the edges).
-bool blocks_ok(const long long* hops, int n, int nzl, int r, bool exact, HaloBlocks* out) {
+// The packed hop table into HaloBlocks: rows >= 0 (a hop brings at most a
+// shard's rows, which may be more than the receiver's own where the slab
+// is clipped), each side's rows summing to r_lo / r_hi (the exchange) or
+// to at most them (the fold: no hop past the edges).
+bool blocks_ok(const long long* hops, int n, int r_lo, int r_hi, bool exact, HaloBlocks* out) {
   if (n < 0 || n > MAX_HOPS) return false;
   out->hops = n;
-  long long need = r;
+  long long need_lo = r_lo, need_hi = r_hi;
   for (int h = 0; h < n; ++h) {
-    const long long take = hops[3 * h + 2];
-    if (take < 1 || take > nzl) return false;
-    out->lo[h] = reinterpret_cast<const void*>(hops[3 * h]);
-    out->hi[h] = reinterpret_cast<const void*>(hops[3 * h + 1]);
-    out->take[h] = (int)take;
-    need -= take;
+    const long long take_lo = hops[4 * h + 2], take_hi = hops[4 * h + 3];
+    if (take_lo < 0 || take_hi < 0) return false;
+    out->lo[h] = reinterpret_cast<const void*>(hops[4 * h]);
+    out->hi[h] = reinterpret_cast<const void*>(hops[4 * h + 1]);
+    out->take_lo[h] = (int)take_lo;
+    out->take_hi[h] = (int)take_hi;
+    need_lo -= take_lo;
+    need_hi -= take_hi;
   }
-  return exact ? need == 0 : need >= 0;
+  return exact ? need_lo == 0 && need_hi == 0 : need_lo >= 0 && need_hi >= 0;
 }
 
 }  // namespace
@@ -211,16 +220,16 @@ VOFOD_API int vofod_halo_geometry(int* out) {
 }
 
 // g: device slab [nzl, plane] of `elem` (1 or 4) bytes an element, or NULL: fill
-// only the 2r halo rows of ext in place.  ext: device [nzl + 2r, plane],
-// `elem`-aligned.  hops: the packed hop table (host).  fill: the
-// element's bit pattern.  Returns cudaGetLastError(); launches nothing
+// only the r_lo + r_hi halo rows of ext in place.  ext: device [r_lo + nzl +
+// r_hi, plane], `elem`-aligned.  hops: the packed hop table (host).  fill:
+// the element's bit pattern.  Returns cudaGetLastError(); launches nothing
 // when there is nothing to write.
-VOFOD_API int vofod_halo_exchange(const void* g, void* ext, int elem, int nzl, int r,
-                                  long long plane, const long long* hops, int nhops,
+VOFOD_API int vofod_halo_exchange(const void* g, void* ext, int elem, int nzl, int r_lo,
+                                  int r_hi, long long plane, const long long* hops, int nhops,
                                   unsigned int fill, void* stream) {
   HaloBlocks b;
-  if (nzl < 1 || r < 0 || plane < 1 || (elem != 1 && elem != 4) ||
-      ((uintptr_t)ext % elem) != 0 || !blocks_ok(hops, nhops, nzl, r, true, &b))
+  if (nzl < 1 || r_lo < 0 || r_hi < 0 || plane < 1 || (elem != 1 && elem != 4) ||
+      ((uintptr_t)ext % elem) != 0 || !blocks_ok(hops, nhops, r_lo, r_hi, true, &b))
     return (int)cudaErrorInvalidValue;
   SegTable t;
   t.n = 0;
@@ -230,11 +239,16 @@ VOFOD_API int vofod_halo_exchange(const void* g, void* ext, int elem, int nzl, i
   auto add = [&](const void* src, long long row0, long long rows) {
     t.seg[t.n++] = Seg{static_cast<const unsigned char*>(src), base + row0 * row, rows * row};
   };
-  int below[MAX_HOPS];  // rows of the hops nearer than h
-  for (int h = 0, acc = 0; h < nhops; acc += b.take[h], ++h) below[h] = acc;
-  for (int h = nhops - 1; h >= 0; --h) add(b.lo[h], r - below[h] - b.take[h], b.take[h]);
-  if (g != nullptr) add(g, r, nzl);
-  for (int h = 0; h < nhops; ++h) add(b.hi[h], r + nzl + below[h], b.take[h]);
+  int below_lo[MAX_HOPS], below_hi[MAX_HOPS];  // each side's rows of the hops nearer than h
+  for (int h = 0, lo = 0, hi = 0; h < nhops; lo += b.take_lo[h], hi += b.take_hi[h], ++h) {
+    below_lo[h] = lo;
+    below_hi[h] = hi;
+  }
+  for (int h = nhops - 1; h >= 0; --h)
+    if (b.take_lo[h] > 0) add(b.lo[h], r_lo - below_lo[h] - b.take_lo[h], b.take_lo[h]);
+  if (g != nullptr) add(g, r_lo, nzl);
+  for (int h = 0; h < nhops; ++h)
+    if (b.take_hi[h] > 0) add(b.hi[h], r_lo + nzl + below_hi[h], b.take_hi[h]);
   long long tiles = 0;
   for (int s = 0; s < t.n; ++s) {
     uintptr_t v0, v1;
@@ -256,7 +270,7 @@ VOFOD_API int vofod_halo_exchange(const void* g, void* ext, int elem, int nzl, i
 VOFOD_API int vofod_halo_fold_min(const void* ext, void* out, int nzl, int r, long long plane,
                                   const long long* hops, int nhops, void* stream) {
   HaloBlocks b;
-  if (nzl < 1 || r < 0 || plane < 1 || !blocks_ok(hops, nhops, nzl, r, false, &b))
+  if (nzl < 1 || r < 0 || plane < 1 || !blocks_ok(hops, nhops, r, r, false, &b))
     return (int)cudaErrorInvalidValue;
   halo_fold_min_kernel<<<grid_blocks((long long)nzl * plane), HALO_T, 0,
                          static_cast<cudaStream_t>(stream)>>>(

@@ -91,7 +91,7 @@ MAX_TAPS = 2112
 MAX_HALO = 7
 # their output tile (z, y, x): csrc/common.cuh TILE_Z, TILE_Y, TILE_X
 TILE_ZYX = (4, 8, 32)
-# K4's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
+# K4's, K15b-3's and K15b-4b's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
 CONE_CLUSTER = 16
 # K13b's and K15b-6b's single-pass scans: export-order columns per tile of
 # the column prefix, cells per tile of the cell pass (csrc/census.cu
@@ -228,12 +228,12 @@ def load():
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_unpack.argtypes = [_P, _P, _P, _LL, _P]
         lib.vofod_halo_exchange.argtypes = [
-            _P, _P, _I, _I, _I, _LL, ctypes.c_char_p, _I, ctypes.c_uint, _P]
+            _P, _P, _I, _I, _I, _I, _LL, ctypes.c_char_p, _I, ctypes.c_uint, _P]
         lib.vofod_halo_fold_min.argtypes = [_P, _P, _I, _I, _LL, ctypes.c_char_p, _I, _P]
         lib.vofod_halo_geometry.argtypes = [_P]
-        lib.vofod_cone_sweep_lat.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.vofod_cone_sweep_lat.argtypes = [_P] * 6 + [_I] * 9 + [_P]
         lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
-        lib.vofod_cone_sweep_zt.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.vofod_cone_sweep_zt.argtypes = [_P] * 6 + [_I] * 10 + [_P]
         lib.vofod_explore_cut.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _P,
                                           _P]
         lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 5
@@ -1389,23 +1389,34 @@ def unpack(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _MAX_HOPS = 16  # csrc/halo.cu MAX_HOPS
 
 
-def _hops_arg(lo: list, hi: list, takes: list[int], like: torch.Tensor) -> bytes:
+def _hops_arg(lo: list, hi: list, takes: list[int], like: torch.Tensor,
+              hi_takes: list[int] | None = None) -> bytes:
     """The packed hop table of csrc/halo.cu: per hop (lo block pointer, hi
-    block pointer, rows) as three int64, 0 for a missing block.  Checks what
-    the C side cannot: each block's device, dtype, shape and contiguity
-    against ``like`` (a slab of the same planes)."""
-    if len(takes) > _MAX_HOPS:
-        raise ValueError(f"halo of {len(takes)} hops; the kernels take at most {_MAX_HOPS}")
+    block pointer, lo rows, hi rows) as four int64, 0 for a missing block;
+    ``hi_takes`` (default ``takes``) the high side's rows a hop, the shorter
+    list padded with 0.  Checks what the C side cannot: each block's device,
+    dtype, shape and contiguity against ``like`` (a slab of the same
+    planes)."""
+    hi_takes = takes if hi_takes is None else hi_takes
+    n = max(len(takes), len(hi_takes))
+    if n > _MAX_HOPS:
+        raise ValueError(f"halo of {n} hops; the kernels take at most {_MAX_HOPS}")
+    if len(lo) != len(takes) or len(hi) != len(hi_takes):
+        raise ValueError(f"halo blocks ({len(lo)}, {len(hi)}) for hops of rows {takes} / "
+                         f"{hi_takes}")
     dev, dt, plane = like.device, like.dtype, tuple(like.shape[1:])
     flat = []
-    for a, b, take in zip(lo, hi, takes):
-        want = (take,) + plane
-        for blk in (a, b):
+    for h in range(n):
+        row = []
+        for blocks, rows in ((lo, takes), (hi, hi_takes)):
+            blk, take = (blocks[h], rows[h]) if h < len(rows) else (None, 0)
+            want = (take,) + plane
             if blk is not None and (blk.shape != want or blk.dtype != dt or blk.device != dev
                                     or not blk.is_contiguous()):
                 raise ValueError(f"halo block {blk.dtype} {tuple(blk.shape)} on {blk.device}: "
                                  f"expected a contiguous {dt} {want} on {dev}")
-        flat += (0 if a is None else a.data_ptr(), 0 if b is None else b.data_ptr(), take)
+            row.append((0 if blk is None else blk.data_ptr(), take))
+        flat += (row[0][0], row[1][0], row[0][1], row[1][1])
     return struct.pack("<%dq" % len(flat), *flat)
 
 
@@ -1432,27 +1443,33 @@ def halo_exchange(g: torch.Tensor, lo: list, hi: list, takes: list[int], fill) -
     nzl, r = g.shape[0], sum(takes)
     ext = torch.empty((nzl + 2 * r,) + tuple(g.shape[1:]), dtype=g.dtype, device=g.device)
     err = load().vofod_halo_exchange(
-        g.data_ptr(), ext.data_ptr(), g.element_size(), nzl, r, g.numel() // nzl, hops,
+        g.data_ptr(), ext.data_ptr(), g.element_size(), nzl, r, r, g.numel() // nzl, hops,
         len(takes), _FILL_BITS[g.dtype](fill), _stream())
     _check(err, "vofod_halo_exchange")
     _count("halo_exchange")
     return ext
 
 
-def halo_fill_(ext: torch.Tensor, r: int, lo: list, hi: list, takes: list[int], fill) -> None:
-    """K15b-1 in place: the 2r halo rows of ``ext`` [nzl + 2r, ...] from the
-    hops' blocks (as :func:`halo_exchange`), its interior rows untouched.
-    Launches nothing at r = 0."""
+def halo_fill_(ext: torch.Tensor, r: int, lo: list, hi: list, takes: list[int], fill,
+               hi_takes: list[int] | None = None) -> None:
+    """K15b-1 in place: the halo rows of ``ext`` [r + nzl + r_hi, ...] from
+    the hops' blocks (as :func:`halo_exchange`), its interior rows
+    untouched: r = sum(takes) rows below and r_hi = sum(hi_takes) above
+    (``hi_takes`` default ``takes``; a hop of 0 rows on one side brings
+    nothing there).  Launches nothing when there is no halo row."""
     _halo_slab(ext, "halo_fill_")
-    nzl = ext.shape[0] - 2 * r
-    if nzl < 1:
-        raise ValueError(f"halo_fill_: {ext.shape[0]} rows cannot hold a halo of {r}")
-    if r == 0:
+    hi_takes = takes if hi_takes is None else hi_takes
+    r_hi = sum(hi_takes)
+    nzl = ext.shape[0] - r - r_hi
+    if nzl < 1 or r != sum(takes):
+        raise ValueError(f"halo_fill_: {ext.shape[0]} rows cannot hold a halo of {takes} / "
+                         f"{hi_takes}")
+    if r + r_hi == 0:
         return
-    hops = _hops_arg(lo, hi, takes, ext)
+    hops = _hops_arg(lo, hi, takes, ext, hi_takes)
     err = load().vofod_halo_exchange(
-        None, ext.data_ptr(), ext.element_size(), nzl, r, ext.numel() // ext.shape[0], hops,
-        len(takes), _FILL_BITS[ext.dtype](fill), _stream())
+        None, ext.data_ptr(), ext.element_size(), nzl, r, r_hi, ext.numel() // ext.shape[0],
+        hops, max(len(takes), len(hi_takes)), _FILL_BITS[ext.dtype](fill), _stream())
     _check(err, "vofod_halo_exchange")
     _count("halo_exchange")
 
@@ -1483,30 +1500,48 @@ def halo_fold_min(ext: torch.Tensor, r: int, from_next: list, from_prev: list,
     return out
 
 
+def _cone_slab(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
+               rel_z: torch.Tensor, carry: torch.Tensor | None, slab, rows, p0: int, m: int,
+               n_planes: int, carry_shape, what: str) -> None:
+    """The checks of K15b-3's and K15b-4b's launches (see the wrappers)."""
+    nz, wy, wx = opaque.shape
+    _require(opaque, f"{what} opaque", torch.uint8)
+    _require(rel_x, f"{what} rel_x", torch.float32, (wx,))
+    _require(rel_y, f"{what} rel_y", torch.float32, (wy,))
+    _require(rel_z, f"{what} rel_z", torch.float32, (nz,))
+    if not (0 <= slab[0] <= rows[0] < rows[1] <= slab[1] and 0 <= p0 < n_planes and m >= 1):
+        raise ValueError(f"{what}: slab {tuple(slab)}, T rows {tuple(rows)}, planes [{p0}, "
+                         f"{p0 + m}) of {n_planes}")
+    if carry is not None:
+        _require(carry, f"{what} carry", torch.bfloat16, carry_shape)
+    elif p0 > 0 or p0 + m < n_planes:
+        raise ValueError(f"{what}: planes [{p0}, {p0 + m}) of {n_planes} need a carry")
+
+
 def cone_sweep_lat(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
-                   rel_z: torch.Tensor, tmp_in: torch.Tensor | None, lo: torch.Tensor | None,
-                   hi: torch.Tensor | None, tmp_out: torch.Tensor, T4: torch.Tensor,
-                   k: int) -> None:
-    """K15b-3, launch k: the A pass of plane k - 1 and the B pass of plane k
-    of the x and y cones on a shard's window (see csrc/cone_sweep.cu).
-    tmp_*: bf16 [nzl, 4, max(wx, wy)]; lo / hi: the received bf16 rows [1,
-    4, PB] / [2, 4, PB] or None (the global edge); T4: f32 [4, nzl, wy, wx],
-    written in place."""
-    nzl, wy, wx = opaque.shape
+                   rel_z: torch.Tensor, carry: torch.Tensor | None, T4: torch.Tensor,
+                   slab: tuple[int, int], rows: tuple[int, int], p0: int, m: int) -> None:
+    """K15b-3, one launch: planes [p0, p0 + m) of the x and y cones (each
+    clipped to its own planes) on the z rows [slab[0], slab[1]) of the
+    window, each cone on a thread-block cluster of
+    :data:`CONE_CLUSTER` blocks (see csrc/cone_sweep.cu).  opaque:
+    uint8 window [nz, wy, wx]; rel_*: its f32 offsets; carry: bf16 [slab
+    rows, 4, max(wx, wy)], the carry of every slab row, read when p0 > 0 and
+    written in place when planes follow (None when the launch sweeps every
+    plane); T4: f32 [4, rows[1] - rows[0], wy, wx], the x and y cones of the
+    z rows [rows[0], rows[1]), written in place.  Raises when the card
+    cannot schedule such a cluster."""
+    nz, wy, wx = opaque.shape
     pb = max(wx, wy)
-    _require(opaque, "cone_lat opaque", torch.uint8)
-    _require(rel_x, "cone_lat rel_x", torch.float32, (wx,))
-    _require(rel_y, "cone_lat rel_y", torch.float32, (wy,))
-    _require(rel_z, "cone_lat rel_z", torch.float32, (nzl,))
-    for t, name, rows in ((tmp_in, "tmp_in", nzl), (tmp_out, "tmp_out", nzl), (lo, "lo", 1),
-                          (hi, "hi", 2)):
-        if t is not None:
-            _require(t, f"cone_lat {name}", torch.bfloat16, (rows, 4, pb))
-    _require(T4, "cone_lat T", torch.float32, (4, nzl, wy, wx))
-    ptr = [None if t is None else t.data_ptr() for t in (tmp_in, lo, hi)]
+    _cone_slab(opaque, rel_x, rel_y, rel_z, carry, slab, rows, p0, m, pb,
+               (slab[1] - slab[0], 4, pb), "cone_lat")
+    if slab[1] > nz:
+        raise ValueError(f"cone_lat: slab {tuple(slab)} past the window's {nz} z rows")
+    _require(T4, "cone_lat T", torch.float32, (4, rows[1] - rows[0], wy, wx))
     err = load().vofod_cone_sweep_lat(
-        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(), *ptr,
-        tmp_out.data_ptr(), T4.data_ptr(), nzl, wy, wx, int(k), _stream())
+        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(),
+        None if carry is None else carry.data_ptr(), T4.data_ptr(), nz, wy, wx, int(slab[0]),
+        int(slab[1]), int(rows[0]), int(rows[1]), int(p0), int(m), _stream())
     _check(err, "vofod_cone_sweep_lat")
     _count("cone_sweep_lat")
 
@@ -1539,28 +1574,29 @@ def cone_sweep_z(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
 
 
 def cone_sweep_zt(opaque: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor,
-                  rel_z: torch.Tensor, tmp_in: torch.Tensor | None, lo: torch.Tensor | None,
-                  hi: torch.Tensor | None, tmp_out: torch.Tensor, T2: torch.Tensor, k: int,
-                  pin_from: int) -> None:
-    """K15b-4b, launch k: the A (y) pass of plane k - 1 and the B (x) pass
-    of plane k of both z cones on a shard's nyl rows of the padded window
-    (see csrc/cone_sweep.cu).  opaque: uint8 [nz, nyl, wx]; tmp_*: bf16
-    [nyl, 2, wx]; lo / hi: the received bf16 rows [1, 2, wx] / [2, 2, wx] or
-    None (the global edge); T2: f32 [2, nz, nyl, wx], written in place; rows
-    from ``pin_from`` on are pinned to 1.0 after the B pass."""
-    nz, nyl, wx = opaque.shape
-    _require(opaque, "cone_zt opaque", torch.uint8)
-    _require(rel_x, "cone_zt rel_x", torch.float32, (wx,))
-    _require(rel_y, "cone_zt rel_y", torch.float32, (nyl,))
-    _require(rel_z, "cone_zt rel_z", torch.float32, (nz,))
-    for t, name, rows in ((tmp_in, "tmp_in", nyl), (tmp_out, "tmp_out", nyl), (lo, "lo", 1),
-                          (hi, "hi", 2)):
-        if t is not None:
-            _require(t, f"cone_zt {name}", torch.bfloat16, (rows, 2, wx))
-    _require(T2, "cone_zt T", torch.float32, (2, nz, nyl, wx))
-    ptr = [None if t is None else t.data_ptr() for t in (tmp_in, lo, hi)]
+                  rel_z: torch.Tensor, carry: torch.Tensor | None, T2: torch.Tensor,
+                  slab: tuple[int, int], rows: tuple[int, int], p0: int, m: int) -> None:
+    """K15b-4b, one launch: planes [p0, p0 + m) of both z cones on the y
+    rows [slab[0], slab[1]) of the window (slab[1] <= wy), each cone on a
+    thread-block cluster of :data:`CONE_CLUSTER` blocks (see
+    csrc/cone_sweep.cu).  opaque: uint8 window [nz, wy, wx]; rel_*: its f32
+    offsets; carry: bf16 [slab rows, 2, wx], read when p0 > 0 and written in
+    place when planes follow (None when the launch sweeps every plane); T2:
+    f32 [2, nz, t_ny, wx], the y rows [rows[0], rows[1]) at its rows from 0
+    (t_ny >= rows[1] - rows[0]), written in place."""
+    nz, wy, wx = opaque.shape
+    _cone_slab(opaque, rel_x, rel_y, rel_z, carry, slab, rows, p0, m, nz,
+               (slab[1] - slab[0], 2, wx), "cone_zt")
+    if slab[1] > wy:
+        raise ValueError(f"cone_zt: slab {tuple(slab)} past the window's {wy} y rows")
+    _require(T2, "cone_zt T", torch.float32)
+    t_ny = T2.shape[2] if T2.dim() == 4 else -1
+    if tuple(T2.shape) != (2, nz, t_ny, wx) or t_ny < rows[1] - rows[0]:
+        raise ValueError(f"cone_zt T {tuple(T2.shape)}: expected (2, {nz}, >= "
+                         f"{rows[1] - rows[0]}, {wx})")
     err = load().vofod_cone_sweep_zt(
-        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(), *ptr,
-        tmp_out.data_ptr(), T2.data_ptr(), nz, nyl, wx, int(pin_from), int(k), _stream())
+        opaque.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), rel_z.data_ptr(),
+        None if carry is None else carry.data_ptr(), T2.data_ptr(), nz, wy, wx, int(slab[0]),
+        int(slab[1]), int(rows[0]), int(rows[1]), t_ny, int(p0), int(m), _stream())
     _check(err, "vofod_cone_sweep_zt")
     _count("cone_sweep_zt")

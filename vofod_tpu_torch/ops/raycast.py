@@ -22,14 +22,16 @@ assembles the raylen and applies the ray EMA in place on the sweep window,
 so the step never builds a full-grid raylen field.
 
 The grid-sharded sweep (:func:`raycast_update_zsharded`, vofod_tpu
-``raycast_sweep_zsharded``) runs on a shard's z slab of the window: the x
-and y cones with their lateral z rows exchanged every plane step (K15b-3,
-csrc/cone_sweep.cu, plain version :func:`cone_lat_step_plain`), the z cones
-pipelined over the shards, each shard sweeping only the cones it keeps
-(K15b-4a on K4's clusters, plain version :func:`cone_z_round_plain`) or,
-with ``zcone_mode="transpose"``, swept y-sharded between two all_to_alls (K15b-4b, plain version
-:func:`cone_zt_step_plain`), then K5b on the slab; its T is bit-equal to
-K4's on the same window.
+``raycast_sweep_zsharded``) runs on a shard's z slab of the window, whose
+opacity every shard gathers once: the x and y cones :data:`CONE_BATCH`
+planes a launch on the shard's z rows extended by a halo of as many plane
+steps' reach (K15b-3 on K4's clusters, plain version
+:func:`cone_lat_batch_plain`), the z cones pipelined over the shards, each
+shard sweeping only the cones it keeps (K15b-4a on K4's clusters, plain
+version :func:`cone_z_round_plain`) or, with ``zcone_mode="transpose"``,
+on the shard's rows of the window's y by the same scheme (K15b-4b, plain
+version :func:`cone_zt_batch_plain`) and brought back by an all_to_all,
+then K5b on the slab; its T is bit-equal to K4's on the same window.
 
 The exact mode walks every ray with Amanatides–Woo (K12, csrc/dda.cu, plain
 version :func:`raycast_dda_plain`) into a full-grid raylen field and applies
@@ -754,8 +756,17 @@ def raycast_update_(
 
 
 # -----------------------------------------------------------------------------
-# The grid-sharded sweep (K15b-3, K15b-4a)
+# The grid-sharded sweep (K15b-3, K15b-4a, K15b-4b)
 # -----------------------------------------------------------------------------
+
+# K15b-3's and K15b-4b's planes a launch (:func:`cone_sweep_lat_sharded`,
+# :func:`cone_sweep_z_transposed`): a launch of k planes sweeps the shard's
+# rows extended by k rows below and 2k above, and one refill of that halo
+# serves the k planes.  At the flagship's 3 x 17 z rows any k >= 34 reaches
+# the whole column, so more planes a launch cost no more rows: 128 sweeps
+# every plane of the flagship window in one launch a shard, the least
+# device time, device ops and event time of the curve (PERF.md section 6).
+CONE_BATCH = 128
 
 
 def _plane_rs(rel_s: Tensor, n_s: int, p: int, back: bool) -> tuple[int, Tensor]:
@@ -774,55 +785,82 @@ def _lerp_rows(p: Tensor, w: Tensor) -> Tensor:
                  + ws[3] * q[..., 3:n + 3])
 
 
-def cone_lat_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
-                        tmp_in: Tensor | None, lo: Tensor | None, hi: Tensor | None,
-                        tmp_out: Tensor, T4: Tensor, k: int) -> None:
-    """Plain version of K15b-3's launch k, with its arguments (see
-    kernels.cone_sweep_lat): per x/y cone, the A pass of plane k - 1 over
-    the slab's B-resampled rows with the neighbours' rows around them (1.0
-    past the global edge), its T and carry, then the B pass of plane k into
-    ``tmp_out``; each pass as :func:`_lerp` sums and rounds it.  Cones of
-    one plane shape are stepped together."""
-    nzl, wy, wx = opaque.shape
-    op = opaque.to(torch.bool)
-    dev = opaque.device
+def _cone_step(carry: Tensor, rs: Tensor, rel_a: Tensor, rel_b: Tensor) -> Tensor:
+    """One plane step of C cones as K4 takes it: T_in [C, nA, nB] of the
+    carries [C, nA, nB] at the sensor offsets rs [C], resampled along B
+    (lane offsets rel_b [C or 1, nB]) then along A (rel_a [C or 1, nA]),
+    1.0 past either edge, seeded planes 1.0."""
+    C = rs.shape[0]
+    t = _lerp_rows(carry, _tap_weights(rs, rel_b.expand(C, -1)))
+    t = _lerp_rows(t.transpose(1, 2), _tap_weights(rs, rel_a.expand(C, -1))).transpose(1, 2)
+    return torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+
+
+def cone_lat_batch_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                         carry: Tensor | None, T4: Tensor, slab: tuple[int, int],
+                         rows: tuple[int, int], p0: int, m: int) -> None:
+    """Plain version of a K15b-3 launch, with its arguments (see
+    kernels.cone_sweep_lat): the x and y cones' planes [p0, p0 + m) (each
+    clipped to its own planes) stepped on the window's z rows [slab[0],
+    slab[1]) as K4 steps them, 1.0 past the slab's edges, from the carry
+    (1.0 at p0 = 0); T4 written for the z rows ``rows``; the carry of every
+    slab row written back when planes follow.  Cones of one plane shape are
+    stepped together."""
+    _, wy, wx = opaque.shape
+    lo, hi = slab
+    pb = max(wx, wy)
+    op = opaque[lo:hi].to(torch.bool)
+    ra = rel_z[lo:hi][None]
+    t0, t1 = rows[0] - lo, rows[1] - lo
     # (cones, planes, lanes, sweep offsets, lane offsets): x cones B = y
     groups = [((0, 1, 2, 3), wx, wy, (rel_x, rel_x, rel_y, rel_y), (rel_y, rel_y, rel_x, rel_x))]
     if wx != wy:
         groups = [((0, 1), wx, wy, (rel_x, rel_x), (rel_y, rel_y)),
                   ((2, 3), wy, wx, (rel_y, rel_y), (rel_x, rel_x))]
     for cones, n_s, n_b, rel_s, rel_b in groups:
-        if k > n_s:
-            continue
-        C = len(cones)
-        if k == 0:
-            carry = torch.ones((C, nzl, n_b), dtype=torch.float32, device=dev)
-        else:
-            sr = [_plane_rs(r, n_s, k - 1, c % 2 == 1) for c, r in zip(cones, rel_s)]
-            rs = torch.stack([v for _, v in sr])
-            ones = torch.ones((C, 1, n_b), dtype=torch.float32, device=dev)
-            below = ones if lo is None else lo[0, list(cones), :n_b].float()[:, None]
-            above = (torch.cat([ones, ones], 1) if hi is None
-                     else hi[:, list(cones), :n_b].float().permute(1, 0, 2))
-            mid = tmp_in[:, list(cones), :n_b].float().permute(1, 0, 2)
-            ext = torch.cat([below, mid, above], 1)  # rows a-1 .. a+2, [C, nzl + 3, n_b]
-            wa = _tap_weights(rs, rel_z.expand(C, nzl))[..., None, :]  # [C, nzl, 1, 4]
-            t = _bf16(wa[..., 0] * ext[:, 0:nzl] + wa[..., 1] * ext[:, 1:nzl + 1]
-                      + wa[..., 2] * ext[:, 2:nzl + 2] + wa[..., 3] * ext[:, 3:nzl + 3])
-            t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+        ci = list(cones)
+        c = (carry[:, ci, :n_b].float().permute(1, 0, 2) if p0 > 0
+             else torch.ones((len(ci), hi - lo, n_b), dtype=torch.float32, device=op.device))
+        for p in range(p0, min(p0 + m, n_s)):
+            sr = [_plane_rs(r, n_s, p, cc % 2 == 1) for cc, r in zip(cones, rel_s)]
+            t = _cone_step(c, torch.stack([v for _, v in sr]), ra, torch.stack(rel_b))
             planes = []
-            for j, (c, (s, _)) in enumerate(zip(cones, sr)):
-                if c < 2:
-                    T4[c, :, :, s] = t[j]
+            for j, (cc, (s, _)) in enumerate(zip(cones, sr)):
+                if cc < 2:
+                    T4[cc, :, :, s] = t[j, t0:t1]
                     planes.append(op[:, :, s])
                 else:
-                    T4[c, :, s, :] = t[j]
+                    T4[cc, :, s, :] = t[j, t0:t1]
                     planes.append(op[:, s, :])
-            carry = torch.where(torch.stack(planes), 0.0, t)
-        if k < n_s:
-            rs = torch.stack([_plane_rs(r, n_s, k, c % 2 == 1)[1] for c, r in zip(cones, rel_s)])
-            wb = _tap_weights(rs, torch.stack(rel_b))  # [C, n_b, 4]
-            tmp_out[:, list(cones), :n_b] = _lerp_rows(carry, wb).to(torch.bfloat16).permute(1, 0, 2)
+            c = torch.where(torch.stack(planes), 0.0, t)
+        if carry is not None and p0 + m < pb:
+            carry[:, ci, :n_b] = c.to(torch.bfloat16).permute(1, 0, 2)
+
+
+def cone_zt_batch_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                        carry: Tensor | None, T2: Tensor, slab: tuple[int, int],
+                        rows: tuple[int, int], p0: int, m: int) -> None:
+    """Plain version of a K15b-4b launch, with its arguments (see
+    kernels.cone_sweep_zt): both z cones' planes [p0, p0 + m) stepped on
+    the window's y rows [slab[0], slab[1]) as K4 steps them, 1.0 past the
+    slab's edges, from the carry (1.0 at p0 = 0); T2 written for the y rows
+    ``rows`` at its rows from 0; the carry written back when planes
+    follow."""
+    nz = opaque.shape[0]
+    lo, hi = slab
+    op = opaque[:, lo:hi].to(torch.bool)
+    ra = rel_y[lo:hi][None]
+    t0, t1 = rows[0] - lo, rows[1] - lo
+    c = (carry.float().permute(1, 0, 2) if p0 > 0 else
+         torch.ones((2, hi - lo, opaque.shape[2]), dtype=torch.float32, device=op.device))
+    for p in range(p0, min(p0 + m, nz)):
+        sr = [_plane_rs(rel_z, nz, p, back) for back in (False, True)]
+        t = _cone_step(c, torch.stack([v for _, v in sr]), ra, rel_x[None])
+        for j, (s, _) in enumerate(sr):
+            T2[j, s, :t1 - t0] = t[j, t0:t1]
+        c = torch.where(torch.stack([op[s] for s, _ in sr]), 0.0, t)
+    if carry is not None and p0 + m < nz:
+        carry.copy_(c.to(torch.bfloat16).permute(1, 0, 2))
 
 
 def cone_z_round_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
@@ -838,12 +876,7 @@ def cone_z_round_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tens
     carry = carry_in[cones].float()
     for p in range(nzl):
         planes = [_plane_rs(rel_z, nzl, p, c == 1) for c in cones]
-        rs = torch.stack([r for _, r in planes])
-        wb = _tap_weights(rs, rel_x.expand(len(cones), -1))  # [C, wx, 4]
-        wa = _tap_weights(rs, rel_y.expand(len(cones), -1))  # [C, wy, 4]
-        t = _lerp_rows(carry, wb)  # along x, then along y (rows)
-        t = _lerp_rows(t.transpose(1, 2), wa).transpose(1, 2)
-        t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
+        t = _cone_step(carry, torch.stack([r for _, r in planes]), rel_y[None], rel_x[None])
         for j, (c, (s, _)) in enumerate(zip(cones, planes)):
             T2[c, s] = t[j]
         carry = torch.where(torch.stack([op[s] for s, _ in planes]), 0.0, t)
@@ -861,27 +894,107 @@ def _sharded_step(opaque: Tensor, kernel, plain_fn):
     return kernel
 
 
-def cone_sweep_lat_sharded(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+def cone_halo_plan(n: int, rows: int, extent: int, k: int):
+    """The rows of a sharded cone sweep of k planes a launch: shard i owns
+    the A rows own[i] = [i rows, min((i + 1) rows, extent)) (empty past
+    ``extent``) and sweeps them extended by k rows below and 2k above,
+    clipped to [0, extent).  Returns (own, lo_takes, hi_takes): per shard
+    the rows its halo takes from the shards 1, 2, ... below (their last
+    rows) and above (their first rows), nearest first."""
+    own = [(min(i * rows, extent), min((i + 1) * rows, extent)) for i in range(n)]
+    lo_takes, hi_takes = [], []
+    for i, (a, b) in enumerate(own):
+        lo_t, hi_t = [], []
+        if a < b:
+            need = min(k, a)
+            while need > 0:  # the shards below are whole
+                lo_t.append(min(rows, need))
+                need -= lo_t[-1]
+            need, j = min(2 * k, extent - b), i + 1
+            while need > 0:
+                hi_t.append(min(own[j][1] - own[j][0], need))
+                need -= hi_t[-1]
+                j += 1
+        lo_takes.append(lo_t)
+        hi_takes.append(hi_t)
+    return own, lo_takes, hi_takes
+
+
+def _refill_halo(carry: Tensor | None, plan, comm) -> None:
+    """The halo rows of a shard's slab carry [r_lo + own + r_hi, ...] from
+    the neighbours' own rows, in one collective and one in-place fill
+    (K15b-1 on the card, its plain version on the CPU; the carry moved as
+    bytes).  Every shard takes part, also one that owns no row."""
+    from vofod_tpu_torch.parallel.gridops import halo_fill_plain_  # gridops imports this module
+
+    own, lo_takes, hi_takes = plan
+    n, me = comm.n, comm.rank
+    lo_t, hi_t = lo_takes[me], hi_takes[me]
+    r_lo = sum(lo_t)
+    size = own[me][1] - own[me][0]
+    body = carry[r_lo:r_lo + size] if carry is not None else None
+    items = []
+    for h in range(1, max(map(len, lo_takes + hi_takes)) + 1):
+        up = [(i - h, i) for i in range(n) if len(lo_takes[i]) >= h]
+        dn = [(i + h, i) for i in range(n) if len(hi_takes[i]) >= h]
+        t_up = lo_takes[me + h][h - 1] if (me, me + h) in up else 0
+        t_dn = hi_takes[me - h][h - 1] if (me, me - h) in dn else 0
+        items.append((body[size - t_up:] if t_up else None, up))
+        items.append((body[:t_dn] if t_dn else None, dn))
+    if not items:  # one shard: no halo
+        return
+    got = comm.ppermutes(items)
+    if carry is None:
+        return
+    lo = [b.view(torch.uint8) for b in got[0::2][:len(lo_t)]]
+    hi = [b.view(torch.uint8) for b in got[1::2][:len(hi_t)]]
+    ext = carry.view(torch.uint8)
+    if ext.is_cuda:
+        kernels.halo_fill_(ext, r_lo, lo, hi, lo_t, 0, hi_takes=hi_t)
+    else:
+        halo_fill_plain_(ext, r_lo, lo, hi, lo_t, 0, hi_takes=hi_t)
+
+
+def _cone_batches(step, window: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                  T: Tensor, comm, rows: int, extent: int, n_planes: int, carry_plane) -> None:
+    """The launches of a sharded cone sweep (K15b-3, K15b-4b): ceil(n_planes
+    / k) of ``step``, k = :data:`CONE_BATCH` planes each, on the shard's A
+    rows (``rows`` a shard of ``extent``) extended by the k-plane halo; the
+    carry's halo rows refilled between launches.  A shard that owns no row
+    launches nothing but joins the collectives."""
+    k = min(CONE_BATCH, n_planes)
+    plan = cone_halo_plan(comm.n, rows, extent, k)
+    own, lo_takes, hi_takes = plan
+    me = comm.rank
+    a, b = own[me]
+    slab = (a - sum(lo_takes[me]), b + sum(hi_takes[me]))
+    n_launches = -(-n_planes // k)
+    carry = None
+    if n_launches > 1 and a < b:
+        carry = torch.empty((slab[1] - slab[0],) + tuple(carry_plane), dtype=torch.bfloat16,
+                            device=window.device)
+    for j in range(n_launches):
+        if j:
+            _refill_halo(carry, plan, comm)
+        if a < b:
+            step(window, rel_x, rel_y, rel_z, carry, T, slab, (a, b), j * k,
+                 min(k, n_planes - j * k))
+
+
+def cone_sweep_lat_sharded(window: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
                            T4: Tensor, comm) -> None:
-    """The x/y cones of a shard's window slab (vofod_tpu
+    """The x/y cones of a shard's z rows of the window (vofod_tpu
     ``_sweep_cones_lat_sharded``) into T4 [4, nzl, wy, wx]: K15b-3's
-    max(wx, wy) + 1 launches, the B-resampled plane's edge rows sent after
-    each (the last row up, the first two down) through ``comm`` (a
-    parallel/comm.LocalComm, inside its ``run``)."""
-    step = _sharded_step(opaque, kernels.cone_sweep_lat, cone_lat_step_plain)
-    nzl, wy, wx = opaque.shape
+    ceil(max(wx, wy) / k) launches of k = :data:`CONE_BATCH` planes on the
+    rows extended by k below and 2k above (clipped at the grid's edges),
+    the carry's halo rows refilled from the neighbours' rows between them
+    through ``comm`` (a parallel/comm.LocalComm, inside its ``run``).
+    ``window``: the uint8 opacity of the whole window [nz, wy, wx], every
+    shard's rows; ``rel_z``: its [nz] offsets."""
+    step = _sharded_step(window, kernels.cone_sweep_lat, cone_lat_batch_plain)
+    nz, wy, wx = window.shape
     pb = max(wx, wy)
-    n = comm.n
-    up = [(i, i + 1) for i in range(n - 1)]
-    dn = [(i, i - 1) for i in range(1, n)]
-    bufs = [torch.empty((nzl, 4, pb), dtype=torch.bfloat16, device=opaque.device)
-            for _ in range(2)]
-    lo = hi = None
-    for k in range(pb + 1):
-        tmp_in, tmp_out = bufs[(k + 1) % 2], bufs[k % 2]
-        step(opaque, rel_x, rel_y, rel_z, tmp_in if k else None, lo, hi, tmp_out, T4, k)
-        if k < pb:
-            lo, hi = comm.ppermutes([(tmp_out[nzl - 1:nzl], up), (tmp_out[:2], dn)])
+    _cone_batches(step, window, rel_x, rel_y, rel_z, T4, comm, T4.shape[1], nz, pb, (4, pb))
 
 
 def cone_sweep_z_pipelined(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
@@ -911,90 +1024,29 @@ def cone_sweep_z_pipelined(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: 
                     carry[c] = recv
 
 
-def cone_zt_step_plain(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
-                       tmp_in: Tensor | None, lo: Tensor | None, hi: Tensor | None,
-                       tmp_out: Tensor, T2: Tensor, k: int, pin_from: int) -> None:
-    """Plain version of K15b-4b's launch k, with its arguments (see
-    kernels.cone_sweep_zt): per z cone, the A (y) pass of plane k - 1 over
-    the shard's x-resampled rows with the neighbours' rows around them (1.0
-    past the global edge), its T and carry, then the B (x) pass of plane k
-    into ``tmp_out``, the rows from ``pin_from`` on set to 1.0; each pass as
-    :func:`_lerp` sums and rounds it."""
-    nz, nyl, wx = opaque.shape
-    op = opaque.to(torch.bool)
-    dev = opaque.device
-    if k == 0:
-        carry = torch.ones((2, nyl, wx), dtype=torch.float32, device=dev)
-    else:
-        (s0, r0), (s1, r1) = _plane_rs(rel_z, nz, k - 1, False), _plane_rs(rel_z, nz, k - 1, True)
-        rs = torch.stack([r0, r1])
-        ones = torch.ones((2, 1, wx), dtype=torch.float32, device=dev)
-        below = ones if lo is None else lo[0].float()[:, None]
-        above = torch.cat([ones, ones], 1) if hi is None else hi.float().permute(1, 0, 2)
-        ext = torch.cat([below, tmp_in.float().permute(1, 0, 2), above], 1)  # [2, nyl + 3, wx]
-        wa = _tap_weights(rs, rel_y.expand(2, nyl))[..., None, :]  # [2, nyl, 1, 4]
-        t = _bf16(wa[..., 0] * ext[:, 0:nyl] + wa[..., 1] * ext[:, 1:nyl + 1]
-                  + wa[..., 2] * ext[:, 2:nyl + 2] + wa[..., 3] * ext[:, 3:nyl + 3])
-        t = torch.where(rs[:, None, None] <= 1.0, 1.0, t)
-        T2[0, s0], T2[1, s1] = t[0], t[1]
-        carry = torch.where(torch.stack([op[s0], op[s1]]), 0.0, t)
-    if k < nz:
-        rs = torch.stack([_plane_rs(rel_z, nz, k, False)[1], _plane_rs(rel_z, nz, k, True)[1]])
-        q = _lerp_rows(carry, _tap_weights(rs, rel_x.expand(2, wx)))
-        q[:, pin_from:] = 1.0
-        tmp_out.copy_(q.to(torch.bfloat16).permute(1, 0, 2))
-
-
-def zt_planes(opaque: Tensor, rel_y: Tensor, comm) -> tuple[Tensor, Tensor, int]:
-    """The transposed z cones' input on a shard (inside ``comm.run``): the
-    window slab's y padded to nyl = ceil(wy / n) rows a shard and made
-    y-sharded by an all_to_all, (every z plane of the shard's nyl rows
-    [nz, nyl, wx], their sensor offsets (the pad rows' continuing the
-    window's), the first pinned local row: the first at or past wy)."""
-    wy = opaque.shape[1]
-    n, me = comm.n, comm.rank
+def cone_sweep_z_transposed(window: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
+                            T2: Tensor, comm) -> None:
+    """The z cones of a shard's z rows of the window (vofod_tpu
+    ``_sweep_cones_z_transposed``) into T2 [2, nzl, wy, wx]: the shard's
+    nyl = ceil(wy / n) rows of the window's y (fewer or none past wy) swept
+    over all nz planes, K15b-4b's ceil(nz / k) launches of k =
+    :data:`CONE_BATCH` planes on the rows extended by k below and 2k above
+    (clipped at 0 and wy: the rows past wy read 1.0 at the slab's edge, as
+    the dense sweep's taps read past the window), the carry's halo rows
+    refilled between launches, and an all_to_all back to the shard's z
+    rows.  ``window``: the uint8 opacity of the whole window [nz, wy, wx];
+    ``rel_z``: its [nz] offsets.  K15b-4b writes both cones in grid order,
+    so one all_to_all brings both back (JAX's scan output holds cone 1
+    reversed, hence its flip and re-reversal)."""
+    step = _sharded_step(window, kernels.cone_sweep_zt, cone_zt_batch_plain)
+    nz, wy, wx = window.shape
+    n = comm.n
     nyl = -(-wy // n)
     if nyl < 2:
         raise ValueError(f"transposed z cones: a shard needs >= 2 of the window's {wy} y rows "
                          f"(4-tap halo), got {nyl} over {n} shards")
-    pad = nyl * n - wy
-    if pad:
-        opaque = F.pad(opaque, (0, 0, 0, pad))
-        rel_y = torch.cat([rel_y, rel_y[-1] + torch.arange(1, pad + 1, dtype=rel_y.dtype,
-                                                           device=rel_y.device)])
-    planes = comm.all_to_all(opaque, 1, 0)  # z ascending: the blocks come in rank order
-    return planes, rel_y[me * nyl:(me + 1) * nyl].contiguous(), min(max(wy - me * nyl, 0), nyl)
-
-
-def cone_sweep_z_transposed(opaque: Tensor, rel_x: Tensor, rel_y: Tensor, rel_z: Tensor,
-                            T2: Tensor, comm) -> None:
-    """The z cones of a shard's window slab (vofod_tpu
-    ``_sweep_cones_z_transposed``) into T2 [2, nzl, wy, wx]: the window's y
-    padded to a multiple of the n shards, an all_to_all to y-sharded (every
-    plane of nyl = ceil(wy / n) rows), K15b-4b's nz + 1 launches with the
-    x-resampled plane's edge rows sent after each (the last row up, the
-    first two down) and the pad rows pinned to 1.0, and an all_to_all back.
-    ``rel_z``: the window's global column.  K15b-4b writes both cones in
-    grid order, so one all_to_all brings both back (JAX's scan output holds
-    cone 1 reversed, hence its flip and re-reversal)."""
-    step = _sharded_step(opaque, kernels.cone_sweep_zt, cone_zt_step_plain)
-    _, wy, wx = opaque.shape
-    nz = rel_z.shape[0]
-    n = comm.n
-    planes, rel_yl, pin_from = zt_planes(opaque, rel_y, comm)
-    nyl = rel_yl.shape[0]
-    up = [(i, i + 1) for i in range(n - 1)]
-    dn = [(i, i - 1) for i in range(1, n)]
-    Tt = torch.empty((2, nz, nyl, wx), dtype=torch.float32, device=opaque.device)
-    bufs = [torch.empty((nyl, 2, wx), dtype=torch.bfloat16, device=opaque.device)
-            for _ in range(2)]
-    lo = hi = None
-    for k in range(nz + 1):
-        tmp_in, tmp_out = bufs[(k + 1) % 2], bufs[k % 2]
-        step(planes, rel_x, rel_yl, rel_z, tmp_in if k else None, lo, hi, tmp_out, Tt, k,
-             pin_from)
-        if k < nz:
-            lo, hi = comm.ppermutes([(tmp_out[nyl - 1:nyl], up), (tmp_out[:2], dn)])
+    Tt = torch.empty((2, nz, nyl, wx), dtype=torch.float32, device=window.device)
+    _cone_batches(step, window, rel_x, rel_y, rel_z, Tt, comm, nyl, wy, nz, (2, wx))
     T2.copy_(comm.all_to_all(Tt, 1, 2)[:, :, :wy])
 
 
@@ -1003,7 +1055,8 @@ def sweep_zsharded(grid: GridSpec, opaque: Tensor, origin_world: np.ndarray, com
     """T6 [6, nzl, wy, wx] of a shard's slab of the sweep window (x/y cones
     by K15b-3, z cones by K15b-4a, or K15b-4b when ``zcone_mode`` is
     "transpose") and the window: (T6, x0, y0, rel_x, rel_y, rel_z of the
-    slab's rows).  ``opaque``: the shard's bool slab."""
+    slab's rows).  ``opaque``: the shard's bool slab.  The window's opacity
+    is gathered once (one all_gather) for K15b-3 and K15b-4b."""
     nzl = opaque.shape[0]
     x0, y0, rel_x, rel_y, rel_z_g = _window_rel(grid, origin_world, max_distance_bound,
                                                 opaque.device)
@@ -1011,10 +1064,11 @@ def sweep_zsharded(grid: GridSpec, opaque: Tensor, origin_world: np.ndarray, com
     rel_z = rel_z_g[z0:z0 + nzl].contiguous()
     wy, wx = rel_y.shape[0], rel_x.shape[0]
     op_w = opaque[:, y0:y0 + wy, x0:x0 + wx].contiguous().view(torch.uint8)
+    window = comm.all_gather(op_w).reshape(-1, wy, wx)
     T6 = torch.empty((6, nzl, wy, wx), dtype=torch.float32, device=opaque.device)
-    cone_sweep_lat_sharded(op_w, rel_x, rel_y, rel_z, T6[:4], comm)
+    cone_sweep_lat_sharded(window, rel_x, rel_y, rel_z_g, T6[:4], comm)
     if zcone_mode == "transpose":
-        cone_sweep_z_transposed(op_w, rel_x, rel_y, rel_z_g, T6[4:], comm)
+        cone_sweep_z_transposed(window, rel_x, rel_y, rel_z_g, T6[4:], comm)
     else:
         cone_sweep_z_pipelined(op_w, rel_x, rel_y, rel_z, T6[4:], comm)
     return T6, x0, y0, rel_x, rel_y, rel_z

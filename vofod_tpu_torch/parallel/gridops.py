@@ -187,14 +187,20 @@ def halo_exchange_plain(g: Tensor, lo: list, hi: list, takes: list[int], fill) -
 
 
 def halo_fill_plain_(ext: Tensor, r: int, lo: list, hi: list, takes: list[int],
-                     fill) -> Tensor:
+                     fill, hi_takes: list[int] | None = None) -> Tensor:
     """Plain version of K15b-1's in-place form (kernels.halo_fill_'s
-    arguments): the 2r halo rows of ``ext`` [nzl + 2r, ...] written as
-    :func:`halo_exchange_plain` places them, the interior untouched."""
-    nzl, below = ext.shape[0] - 2 * r, 0
-    for b_lo, b_hi, take in zip(lo, hi, takes):
-        for row0, b in ((r - below - take, b_lo), (r + nzl + below, b_hi)):
-            ext[row0:row0 + take] = fill if b is None else b
+    arguments): the halo rows of ``ext`` [r + nzl + r_hi, ...] (r_hi =
+    sum(hi_takes), default ``takes``) written as :func:`halo_exchange_plain`
+    places them, the interior untouched."""
+    hi_takes = takes if hi_takes is None else hi_takes
+    nzl = ext.shape[0] - r - sum(hi_takes)
+    below = 0
+    for b, take in zip(lo, takes):
+        ext[r - below - take:r - below] = fill if b is None else b
+        below += take
+    below = r + nzl
+    for b, take in zip(hi, hi_takes):
+        ext[below:below + take] = fill if b is None else b
         below += take
     return ext
 
@@ -203,7 +209,7 @@ HALO_TILE_BYTES = 8192  # csrc/halo.cu TILE_CHUNKS x 16: the bytes of one thread
 
 
 def halo_segments(nzl: int, r: int, takes: list[int], row_bytes: int, addr: int = 0,
-                  interior: bool = True) -> list[dict]:
+                  interior: bool = True, hi_takes: list[int] | None = None) -> list[dict]:
     """Plain model of K15b-1's segment table (csrc/halo.cu
     ``vofod_halo_exchange``): the extended slab's contiguous byte ranges in
     order, the low hops' blocks farthest first, the interior (unless
@@ -213,12 +219,18 @@ def halo_segments(nzl: int, r: int, takes: list[int], row_bytes: int, addr: int 
     the slab starts at address ``addr``: ``head`` bytes before its first
     whole 16-byte chunk, ``chunks``, ``tail`` bytes after them (chunk_span)
     and ``tiles``, the thread blocks of HALO_TILE_BYTES of chunks (at least
-    one, which also writes the head and tail)."""
+    one, which also writes the head and tail).  ``hi_takes`` (default
+    ``takes``): the high side's rows a hop; a hop of 0 rows has no
+    segment."""
+    hi_takes = takes if hi_takes is None else hi_takes
     below = [sum(takes[:h]) for h in range(len(takes))]
-    rows = [(r - below[h] - takes[h], takes[h], ("lo", h)) for h in reversed(range(len(takes)))]
+    above = [sum(hi_takes[:h]) for h in range(len(hi_takes))]
+    rows = [(r - below[h] - takes[h], takes[h], ("lo", h)) for h in reversed(range(len(takes)))
+            if takes[h]]
     if interior:
         rows.append((r, nzl, ("slab", 0)))
-    rows += [(r + nzl + below[h], takes[h], ("hi", h)) for h in range(len(takes))]
+    rows += [(r + nzl + above[h], hi_takes[h], ("hi", h)) for h in range(len(hi_takes))
+             if hi_takes[h]]
     segs = []
     for row0, n, source in rows:
         off, size = row0 * row_bytes, n * row_bytes
@@ -233,18 +245,21 @@ def halo_segments(nzl: int, r: int, takes: list[int], row_bytes: int, addr: int 
 
 
 def halo_exchange_segments_plain(ext: Tensor, g: Tensor | None, lo: list, hi: list,
-                                 takes: list[int], fill, addr: int = 0) -> Tensor:
-    """K15b-1 as its kernel runs it, on any device: ``ext`` [nzl + 2r, ...]
+                                 takes: list[int], fill, addr: int = 0,
+                                 hi_takes: list[int] | None = None) -> Tensor:
+    """K15b-1 as its kernel runs it, on any device: ``ext`` [r + nzl + r_hi, ...]
     written byte range by byte range from :func:`halo_segments` (``g`` None:
     the in-place form), tile by tile, each segment's first tile also writing
     its head and tail bytes, a fill byte at address a being byte a % 4 of
     the fill's element pattern.  ``addr``: the slab's address the split
-    assumes (a multiple of the element size, as the kernel requires)."""
+    assumes (a multiple of the element size, as the kernel requires);
+    ``hi_takes`` as :func:`halo_segments`."""
     elem = ext.element_size()
     if addr % elem:
         raise ValueError(f"a slab of {elem}-byte elements cannot start at address {addr}")
+    hi_takes = takes if hi_takes is None else hi_takes
     r = sum(takes)
-    nzl = ext.shape[0] - 2 * r
+    nzl = ext.shape[0] - r - sum(hi_takes)
     row_bytes = ext[0].numel() * elem
     out = ext.view(torch.uint8).reshape(-1)
     pattern = torch.tensor([fill], dtype=ext.dtype).view(torch.uint8).repeat(4 // elem)
@@ -260,7 +275,8 @@ def halo_exchange_segments_plain(ext: Tensor, g: Tensor | None, lo: list, hi: li
             phase = torch.arange(addr + d + a, addr + d + b) % 4
             out[d + a:d + b] = pattern[phase].to(out.device)
 
-    for seg in halo_segments(nzl, r, takes, row_bytes, addr, interior=g is not None):
+    for seg in halo_segments(nzl, r, takes, row_bytes, addr, interior=g is not None,
+                             hi_takes=hi_takes):
         head, body = seg["head"], 16 * seg["chunks"]
         tile_chunks = HALO_TILE_BYTES // 16
         for t in range(seg["tiles"]):
