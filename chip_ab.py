@@ -3,7 +3,8 @@
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
-                       [--explore-only] [--ray-detect-only] [--variants all|NAME,...]
+                       [--explore-only] [--ray-detect-only] [--seq-only]
+                       [--variants all|NAME,...]
                        [--ray-detect-variants all|NAME,...] [--grid-sweeps-only]
                        [--grid-sweeps-variants all|K,...] [--grid-cones-only]
                        [--grid-cones-variants all|K:C,...] [--out build/ab]
@@ -70,6 +71,15 @@ call:
   launches and other device ops (a fill, a memset) a call, the wrapper's
   host us a call over 1,000 calls with no sync, and the means over the
   five scans.  ``--explore-only`` runs these cases alone.
+- K7s and K15b-7b on the inputs the steps pass them (the wrappers' calls
+  on the 7th to 11th scans of a fresh sequential node and grid-sequential
+  driver, those with valid queries), each checked bit-equal to its plain
+  version, with its device ms, launches, other device ops and memsets a
+  scan (K7s replayed on a fresh copy of its grid every call), the
+  wrapper's host us a call over 300 calls with no sync, and the means over
+  the scans; and an L2 round trip (one thread chasing pointers through a
+  4 MB random cycle with ``ld.global.cg``).  ``--seq-only`` runs these
+  cases alone.
 - K10 and K5b on the inputs the sweep step passes them (the wrappers'
   calls on the 7th to 11th scans of a fresh node), each checked against
   its plain version (K10: valid, ids and the counter bit-equal, the floats
@@ -1056,6 +1066,156 @@ for path, k in (("sweep", "k7"), ("exact", "k7"), ("sweep", "k8")):
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
 print(json.dumps(dict(nvidia_smi=smi, explore_cases=cases, explore_means=means)))
+"""
+
+# runs in the tree's root; prints one JSON line: K7s's calls of the dense
+# sequential step's scans 7-11 and K15b-7b's of the grid-sequential step's
+# (one a shard, 3 a scan), the scans with valid queries, each checked
+# bit-equal to its plain version (K7s on a fresh copy of its grid every
+# call) and replayed: device ms, launches, other device ops (K7s's grid copy
+# among them) and memsets a scan (torch.profiler), the wrapper's host us a
+# call over 300 calls with no sync, and the means over the scans; and an L2
+# round trip (a pointer chase on one thread)
+_SEQ_CASES = PROFILE + r"""
+import json
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.geometry import GridSpec
+from vofod_tpu_torch.ops.explore import explore_sequential_plain, explore_sequential_stack_plain
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+KERNEL = r"explore_(seq|stack|spec)_kernel"
+# one thread chasing pointers through a 4 MB random cycle (a 128-byte line a
+# hop, resident in L2 after one pass; ld.global.cg skips L1): an L2 round
+# trip, the unit of the walk's chain
+CHASE = r'''
+#include <cuda_runtime.h>
+__global__ void chase(const unsigned* next, int n, unsigned* out) {
+  unsigned i = 0;
+  for (int k = 0; k < n; ++k) i = __ldcg(next + i);
+  *out = i;
+}
+extern "C" int launch_chase(const void* next, int n, void* out, void* s) {
+  chase<<<1, 1, 0, (cudaStream_t)s>>>((const unsigned*)next, n, (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def l2_round_trip_us(hops=100000):
+    import ctypes
+    import pathlib
+    d = pathlib.Path("build/l2_chase")
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "chase.cu").write_text(CHASE)
+    subprocess.run([kernels._nvcc(), *kernels._LINK_FLAGS, "-Xcompiler", "-fPIC", "-O3", "-o",
+                    str(d / "chase.so"), str(d / "chase.cu")], check=True)
+    lib = ctypes.CDLL(str((d / "chase.so").resolve()))
+    lib.launch_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lines = 4 * 2**20 // 128
+    perm = torch.randperm(lines, generator=torch.Generator().manual_seed(0)) * 32
+    nxt = torch.zeros(lines * 32, dtype=torch.int32)
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    nxt, out = nxt.cuda(), torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = kernels._stream()
+    ms = []
+    for _ in range(3):  # the first pass brings the lines into L2
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        if lib.launch_chase(nxt.data_ptr(), hops, out.data_ptr(), stream) != 0:
+            raise RuntimeError("launch_chase failed")
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return round(min(ms[1:]) * 1e3 / hops, 4)
+
+
+
+def record(lut, name, grid_path, first=7, n=5):
+    # kernels.<name>'s calls (inputs cloned before the call) on scans
+    # first .. first + n - 1 of a fresh sequential node or grid driver
+    cfg = cs.sequential_config()
+    node = VoFOD(cfg, DynParams(), NodeOptions(raycast_mode="exact"), lut, device="cuda")
+    node.load_apriori_map(cs.apriori_ground())
+    drive = cs.GridDriver(lut, node.state, cfg, raycast_mode="exact") if grid_path else node
+    orig, got, on, out = getattr(kernels, name), [], [False], []
+
+    def rec(*a, **kw):
+        if on[0]:
+            got.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+        return orig(*a, **kw)
+
+    setattr(kernels, name, rec)
+    try:
+        for i, (r, p) in enumerate(cs.scan_cycle(lut, first - 1 + n)):
+            on[0] = i >= first - 1
+            got.clear()
+            drive.process_scan(r, None, p)
+            torch.cuda.synchronize()
+            if on[0]:
+                out.append((i + 1, list(got)))
+    finally:
+        setattr(kernels, name, orig)
+    return cfg, out
+
+
+lut = cs.make_lut(cs.VoFODConfig().sensor)
+cases = {}
+cfg, calls = record(lut, "explore_sequential_", False)
+grid = GridSpec.from_config(cfg)
+for scan, got in calls:
+    (a,) = got
+    if not bool(a[4].any()):
+        continue
+    vmap, work = a[0], a[0].clone()
+    want = explore_sequential_plain(grid, vmap.clone(), *a[1:])
+    res = kernels.explore_sequential_(work, *a[1:])
+    if not (torch.equal(work, want[0]) and torch.equal(res[0], want[1])
+            and torch.equal(res[1], want[2])):
+        raise AssertionError(f"K7s sequential scan {scan}: differs from its plain version")
+
+    def fn(a=a, vmap=vmap, work=work):
+        work.copy_(vmap)  # a fresh grid every call: every demotion stores
+        return kernels.explore_sequential_(work, *a[1:])
+
+    cases[f"sequential scan {scan}"] = dict(
+        valid_queries=int(a[4].sum()), n_writes=int(want[2]),
+        k7s=dict(**profiled(fn, KERNEL),
+                 host_us=host_us(lambda a=a, work=work: kernels.explore_sequential_(work, *a[1:]),
+                                 n=300)))
+cfg, calls = record(lut, "explore_seq_stack", True)
+for scan, got in calls:
+    if not bool(got[0][5].any()):
+        continue
+    for a in got:
+        want = explore_sequential_stack_plain(grid, a[0], *a[2:11], a[11])
+        if not all(torch.equal(x, y) for x, y in zip(kernels.explore_seq_stack(*a), want)):
+            raise AssertionError(f"K15b-7b grid-sequential scan {scan}: differs from its plain "
+                                 "version")
+
+    def fn(got=got):
+        return [kernels.explore_seq_stack(*a) for a in got]
+
+    cases[f"grid sequential scan {scan}"] = dict(
+        valid_queries=int(got[0][5].sum()), calls=len(got),
+        k15b7b=dict(**profiled(fn, KERNEL),
+                    host_us=host_us(lambda a=got[0]: kernels.explore_seq_stack(*a), n=300)))
+means = {}
+for path, k in (("sequential", "k7s"), ("grid sequential", "k15b7b")):
+    rows = [r[k] for c, r in cases.items() if c.startswith(path + " ")]
+    means[f"{path} {k}"] = {m: round(sum(r[m] for r in rows) / len(rows), 5)
+                            for m in ("device_ms", "launches", "other_ops", "memsets", "host_us")}
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, seq_cases=cases, seq_means=means,
+                      l2_round_trip_us=l2_round_trip_us())))
 """
 
 # the sweep step's calls of K10 and K5b on scans 7-11 (the wrappers' calls
@@ -2069,6 +2229,9 @@ def main() -> int:
                     help="time only K7's and K8's calls of the sweep and exact steps in each run")
     ap.add_argument("--ray-detect-only", action="store_true",
                     help="time only K10's and K5b's calls of the sweep step in each run")
+    ap.add_argument("--seq-only", action="store_true",
+                    help="time only K7s's calls of the sequential step and K15b-7b's of the "
+                         "grid-sequential step in each run")
     ap.add_argument("--variants", default="",
                     help="then time these variants of the change's K6 and K5a ('all': every one)")
     ap.add_argument("--ray-detect-variants", default="",
@@ -2093,6 +2256,7 @@ def main() -> int:
         for flag, script in ((args.compact_gate_only, _COMPACT_GATE_CASES),
                              (args.explore_only, _EXPLORE_CASES),
                              (args.ray_detect_only, _RAY_DETECT_CASES),
+                             (args.seq_only, _SEQ_CASES),
                              (args.grid_sweeps_only, _GRID_SWEEPS),
                              (args.grid_cones_only, _GRID_CONES)):
             if flag:
@@ -2101,7 +2265,7 @@ def main() -> int:
                 print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
                 runs.append(dict(run=i, tree=name, **gate))
         if (args.compact_gate_only or args.explore_only or args.ray_detect_only
-                or args.grid_sweeps_only or args.grid_cones_only):
+                or args.seq_only or args.grid_sweeps_only or args.grid_cones_only):
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:

@@ -260,7 +260,7 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
     demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
     explore_cut_plain, explore_plain, explore_planes_plain, explore_sequential_,
-    explore_sequential_plain, explore_sequential_stack_plain)
+    explore_sequential_plain, explore_sequential_spec_plain, explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
     Shells, ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps,
     run_table, shell_pool, shell_taps, tap_pool_plain, tap_set)
@@ -352,6 +352,9 @@ ONCE_PER_SEQUENTIAL_SCAN = ONCE_PER_EXACT_SCAN + ("explore_seq",)
 # of one cluster with Manhattan bound 8; A fails and demotes B's escape
 SEQ_CARVED = ((0, 0), (1, 0), (2, 0), (2, 1), (2, 2), (1, 2), (1, 3), (1, 4), (0, 4), (0, 5))
 SEQ_BASE = (120, 100, 25)  # (x, y, z) of the scene's origin in the flagship grid
+# the K7s / K15b-7b case past the resident blocks: an H100 holds 132 x 8
+# blocks of 256 threads at once
+SEQ_Q_BIG = 2048
 # the card's published peaks (H100 SXM data sheet, at 700 W): device memory
 # rate, and float32 outside the tensor cores, the rate every op of these
 # kernels (float or integer compare, add, select) is counted at
@@ -2222,7 +2225,10 @@ def _seq_cases(lut) -> tuple[dict, dict]:
     sequential-explore scan with valid queries, (b) the adversarial scene of
     tests/test_sequential_demotion.py stamped into the flagship grid, (c) 256
     valid queries over a random field in 32 clusters, (d) the same under
-    query overflow, (e) no valid query."""
+    query overflow, (e) no valid query, (f) 64 queries whose boxes overlap
+    and whose floods never meet (none flooded again), (g) 7 queries in one
+    closed pocket (each after the first flooded again), (h) (c)'s queries
+    scattered over SEQ_Q_BIG slots, more blocks than the card holds."""
     if _SEQ_CASES:
         return _SEQ_CASES["runs"], _SEQ_CASES["info"]
     dev = torch.device("cuda")
@@ -2286,19 +2292,72 @@ def _seq_cases(lut) -> tuple[dict, dict]:
                         torch.zeros(Q, dtype=torch.bool, device=dev),
                         torch.zeros(Q, dtype=torch.int32, device=dev), Q, K)
 
+    # (f) 64 closed 3^3 pockets of band on a lattice 8 voxels apart, a query
+    # at each centre (slots cycling), bound 6: every query fails, the S^3
+    # boxes overlap, no two floods meet, so the walk floods none again.
+    # (g) one such pocket and 7 queries in it (its centre and face centres)
+    # in 7 slots: the first fails and demotes the pocket, and every later
+    # one is flooded again.
+    air = torch.full(grid.shape, -900.0, device=dev)
+    centres = [(z, y, x) for z in (10, 18, 26, 34) for y in (90, 98, 106, 114)
+               for x in (110, 118, 126, 134)]
+    pockets = air.clone()
+    for z, y, x in centres + [(30, 150, 150)]:
+        pockets[z - 1:z + 2, y - 1:y + 2, x - 1:x + 2] = unk
+    flat = lambda zyx: (zyx[0] * grid.ny + zyx[1]) * grid.nx + zyx[2]
+    lat = torch.tensor([flat(c) for c in centres], device=dev)
+    apart = _seq_queries(grid, lat, torch.arange(64, device=dev) % K,
+                         torch.ones(64, dtype=torch.bool, device=dev),
+                         torch.full((64,), 6, dtype=torch.int32, device=dev), Q, K)
+    one = torch.tensor([flat((30 + dz, 150 + dy, 150 + dx)) for dz, dy, dx in (
+        (0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))],
+        device=dev)
+    chain = _seq_queries(grid, one, torch.arange(7, device=dev),
+                         torch.ones(7, dtype=torch.bool, device=dev),
+                         torch.full((7,), 6, dtype=torch.int32, device=dev), Q, K)
+    # (h) Q_BIG slots, past the blocks the card holds at once, case (c)'s
+    # 256 queries scattered over them
+    big = _seq_queries(grid, pick, cluster, torch.ones(Q, dtype=torch.bool, device=dev),
+                       torch.where(cluster % 4 == 0, 0, bound).to(torch.int32), SEQ_Q_BIG, K)
+    perm = torch.randperm(SEQ_Q_BIG, generator=g, device=dev)
+    big = tuple(t[perm] for t in big)
+
     runs = {"(a) flagship scan": (scan_base, scan_q), "(b) adversarial scene": (vals_b, scene_q),
             "(c) 256 queries, 32 clusters": (field, (*rnd, no)),
-            "(d) query overflow": (field, (*rnd, yes)), "(e) no valid query": (field, (*none, no))}
+            "(d) query overflow": (field, (*rnd, yes)), "(e) no valid query": (field, (*none, no)),
+            "(f) no flood meets another": (pockets, (*apart, no)),
+            "(g) every later query flooded again": (pockets, (*chain, no)),
+            f"(h) {SEQ_Q_BIG} slots": (field, (*big, no))}
     _SEQ_CASES.update(runs=runs, info=dict(node=node, scan_index=k, qtotal=qtotal))
     return runs, _SEQ_CASES["info"]
+
+
+def _seq_walk_check(grid: GridSpec, base: torch.Tensor, q: tuple, stats: torch.Tensor,
+                    what: str, S: int, thr_f: float, thr_g: float) -> dict:
+    """After a K7s or K15b-7b launch on ``q`` that wrote ``stats``: its walk's
+    counts equal the schedule's plain model's (``explore_sequential_spec_plain``
+    on the cut of ``base``: the floods redone above all), and the launch left
+    the ticket of this stream at 0.  Returns the counts."""
+    stack = explore_cut_plain(base, *q[:4], thr_f, thr_g, S)
+    *_, demoted, redo = explore_sequential_spec_plain(grid, stack, *q)
+    torch.cuda.synchronize()
+    got = dict(zip(("redo", "walked", "failed", "valid"), stats.tolist()))
+    ticket = int(kernels.seq_ticket(base.device, kernels._stream()))
+    if got["redo"] != redo or got["failed"] != int(demoted.sum()) or ticket != 0:
+        raise AssertionError(f"{what}: walk counts {got} (ticket {ticket}), the model's redo "
+                             f"{redo} and failed {int(demoted.sum())}")
+    return dict(got, ticket_after=ticket)
 
 
 def phase2_sequential(lut) -> list[dict]:
     """K7s against its plain version (a host loop over K7's and K8's plain
     versions) on the card, bit-equal on the grid, the clusters' connected
-    flags and the write count, in the five cases of :func:`_seq_cases`: (b)
+    flags and the write count, in the eight cases of :func:`_seq_cases`: (b)
     floating, every carved cell demoted; (c) both verdicts; (d) and (e)
-    nothing written."""
+    nothing written; (f) no query flooded again; (g) every query after the
+    first; (h) past the resident blocks.  The walk's counts (floods redone,
+    failed queries) equal the schedule model's, and each launch leaves its
+    ticket at 0."""
     cfg, dyn = sequential_config(), DynParams()
     grid = GridSpec.from_config(cfg)
     S, K, Q = cfg.explore_submap, cfg.max_clusters, cfg.max_queries
@@ -2312,16 +2371,20 @@ def phase2_sequential(lut) -> list[dict]:
     bx, by, bz = SEQ_BASE
     cases, results = {}, {}
     for name, (base, q) in runs.items():
-        kg, kc, kn = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, S)
+        stats = torch.full((4,), -1, dtype=torch.int32, device="cuda")
+        kg = base.clone()
+        kc, kn = kernels.explore_sequential_(kg, *q, thr_f, thr_g, S, 96, stats=stats)
+        walk = _seq_walk_check(grid, base, q, stats, f"K7s{name[:3]}", S, thr_f, thr_g)
         pg, pc, pn = explore_sequential_plain(grid, base.clone(), *q, thr_f, thr_g, S)
         _equal((kg, kc, kn), (pg, pc, pn), f"K7s{name[:3]}.grid K7s{name[:3]}.connected "
                                            f"K7s{name[:3]}.n_writes")
         results[name] = (pg, pc, pn)
-        cases[name] = dict(valid_queries=int(q[3].sum()), overflow=bool(q[8]),
-                           clusters_connected=int(pc.sum()), n_writes=int(pn),
-                           demoted_voxels=int((pg != base).sum()))
+        cases[name] = dict(slots=int(q[0].shape[0]), valid_queries=int(q[3].sum()),
+                           overflow=bool(q[8]), clusters_connected=int(pc.sum()),
+                           n_writes=int(pn), demoted_voxels=int((pg != base).sum()), walk=walk)
     a, b, c_ = (cases[n] for n in ("(a) flagship scan", "(b) adversarial scene",
                                    "(c) 256 queries, 32 clusters"))
+    f_, g_ = cases["(f) no flood meets another"], cases["(g) every later query flooded again"]
     bg_, bc, bn = results["(b) adversarial scene"]
     carved = torch.stack([bg_[bz, by + y, bx + x] for x, y in SEQ_CARVED])
     checks = dict(
@@ -2332,9 +2395,15 @@ def phase2_sequential(lut) -> list[dict]:
         random_both_verdicts=0 < c_["clusters_connected"] < K and c_["n_writes"] > 0,
         overflow_and_empty_untouched=all(
             cases[n]["n_writes"] == 0 and cases[n]["clusters_connected"] == 0
-            for n in ("(d) query overflow", "(e) no valid query")))
+            for n in ("(d) query overflow", "(e) no valid query")),
+        none_flooded_again=f_["walk"]["redo"] == 0 and f_["walk"]["failed"] == 64,
+        every_later_flooded_again=g_["walk"]["redo"] == 6 and g_["walk"]["failed"] == 7,
+        past_resident=cases[f"(h) {SEQ_Q_BIG} slots"]["slots"] > 132 * 8)
     if not all(checks.values()):
         raise AssertionError(f"K7s cases: {checks} {cases}")
+    say("2-sequential-walk", flagship_redo=a["walk"]["redo"],
+        flagship_walked=a["walk"]["walked"], flagship_valid=a["walk"]["valid"],
+        **{n: c["walk"] for n, c in cases.items()})
     ms = _inplace_ms(lambda v: explore_sequential_(grid, v, *scan_q, thr_f, thr_g, S), scan_base)
     plain_ms = _inplace_ms(lambda v: explore_sequential_plain(grid, v, *scan_q, thr_f, thr_g, S),
                            scan_base, reps=1)
@@ -2347,8 +2416,9 @@ def phase2_sequential(lut) -> list[dict]:
         bytes=n_valid * S**3 * 4 + a["n_writes"] * 4 + Q * (6 * 4 + 1 + K) + K + 4,
         ops=n_valid * S**3 * 7 + Q * Q, library_ms=None, cases=cases, checks=checks,
         scan_index=k, synthetic_ms=syn_ms,
-        shapes=f"Q={Q}, K={K}, S={S}, one block; ms/plain_ms: case (a) ({n_valid} valid "
-               f"queries, each launch on a fresh copy of the grid); synthetic_ms: case (c)",
+        shapes=f"Q={Q}, K={K}, S={S}, a block a slot, then the last one's walk; ms/plain_ms: "
+               f"case (a) ({n_valid} valid queries, {a['walk']['redo']} flooded again, each "
+               f"launch on a fresh copy of the grid); synthetic_ms: case (c)",
     )]
     for r_ in out:
         say("2-kernel", **r_)
@@ -3680,8 +3750,12 @@ def phase2_grid_seq(lut) -> list[dict]:
     bit-equal to its plain version on that stack; K15b-7c on each slab
     bit-equal to its plain version; and the three through
     ``ZShardOps.explore_sequential`` bit-equal to the dense K7s on the same
-    grid: the grid, cluster_connected and n_writes.  CUDA-event ms of each
-    kernel and its plain version, on case (a) (case (c) beside it)."""
+    grid: the grid, cluster_connected and n_writes.  Then K15b-7b alone on
+    the whole grid's stack in all eight cases (its walk's counts equal the
+    schedule model's, its ticket 0 after), and the 3 shards' K15b-7b
+    launches of case (c) at once on their own streams and tickets.
+    CUDA-event ms of each kernel and its plain version, on case (a) (case
+    (c) beside it)."""
     dev = torch.device("cuda")
     cfg, dyn = sequential_config(), DynParams()
     grid = GridSpec.from_config(cfg)
@@ -3758,6 +3832,40 @@ def phase2_grid_seq(lut) -> list[dict]:
     if not (c_["n_writes"] > 0 and 0 < c_["clusters_connected"] < K
             and c_["queries_overlapping_a_failed_box"] > 0):
         raise AssertionError(f"K15b-7 case (c) does not chain demotions: {c_}")
+    # K15b-7b alone in every case of _seq_cases, on the whole grid's stack,
+    # its walk's counts held to the schedule model's
+    walks = {}
+    for name, (base, q) in runs.items():
+        whole = explore_cut_plain(base, *q[:4], thr_f, thr_g, S)
+        stats = torch.full((4,), -1, dtype=torch.int32, device=dev)
+        walk = kernels.explore_seq_stack(whole, grid.shape, *q, 96, stats=stats)
+        _equal(walk, explore_sequential_stack_plain(grid, whole, *q),
+               " ".join(f"K15b-7b{name[:3]}.{f}" for f in ("connected", "reached", "corners",
+                                                           "demoted")))
+        walks[name] = _seq_walk_check(grid, base, q, stats, f"K15b-7b{name[:3]}", S, thr_f,
+                                      thr_g)
+    # the 3 shards' launches at once, each on its stream with its own ticket
+    base, q = runs["(c) 256 queries, 32 clusters"]
+    whole = explore_cut_plain(base, *q[:4], thr_f, thr_g, S)
+    want = explore_sequential_stack_plain(grid, whole, *q)
+
+    def shard_walk(rank):
+        stats = torch.full((4,), -1, dtype=torch.int32, device=dev)
+        return (kernels.explore_seq_stack(whole, grid.shape, *q, 96, stats=stats), stats,
+                kernels.seq_ticket(whole.device, kernels._stream()))
+
+    outs = comm.run(shard_walk)
+    torch.cuda.synchronize()
+    for rank, (walk, stats, _) in enumerate(outs):
+        _equal(walk, want, " ".join(f"K15b-7b(c)[{rank}].{f}" for f in (
+            "connected", "reached", "corners", "demoted")))
+        if stats.tolist() != outs[0][1].tolist():
+            raise AssertionError(f"K15b-7b shard {rank}'s walk counts {stats.tolist()}")
+    tickets = [int(t) for _, _, t in outs]
+    if len({t.data_ptr() for _, _, t in outs}) != n or any(tickets):
+        raise AssertionError(f"K15b-7b shards' tickets {tickets}: not 0, or shared")
+    say("2-grid-seq-walk", concurrent_shards=n, shard_tickets_after=tickets,
+        shard_walk=outs[0][1].tolist(), **walks)
     a, ta, tc = (cases["(a) flagship scan"], timed["(a) flagship scan"],
                  timed["(c) 256 queries, 32 clusters"])
     word = 4 if S <= 32 else 8
@@ -4087,8 +4195,8 @@ PORT_KERNELS = (
     "ball_pool_kernel", "demote_ema_kernel", "exact_demote_kernel", "point_ema_kernel",
     "sweeps_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
     "cone_cluster_lat_kernel", "cone_cluster_zt_kernel", "compact_kernel",
-    "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_seq_kernel",
-    "explore_cut_kernel", "explore_stack_kernel", "demote_direct_kernel", "slots_kernel",
+    "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_spec_kernel",
+    "explore_cut_kernel", "demote_direct_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
     "gate_faces_kernel", "ray_update_kernel", "ray_ema_grid_kernel", "detect_kernel",
     "dda_kernel", "round_kernel", "census_add_kernel", "census_read_kernel",

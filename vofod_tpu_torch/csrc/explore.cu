@@ -36,7 +36,8 @@
 //    zeroes the int32 K8 adds its writes to (it lies after the corners in
 //    their allocation: no fill launch).
 // 32 < S <= 62 keeps the block BFS of 64-bit rows in shared memory
-// (explore_kernel on bfs_block / bfs_sweeps, K7s's too).  Reached leaves the
+// (explore_kernel on bfs_block / bfs_sweeps; bfs_sweeps is the S > 32 flood
+// of K7s and K15b-7b too).  Reached leaves the
 // kernel as packed int64 rows [Q, S, S] (bit x of row (z, y)).
 //
 // K8 runs one block per query.  The verdict is one parallel pass: the
@@ -55,22 +56,46 @@
 // :1692-1718): the queries run one at a time in ascending (component label,
 // flat id) order, a query whose cluster already connected is skipped, and a
 // failed query demotes its reached voxels before the next one reads the
-// grid.  That chain is sequential by definition, so it is ONE block of 1024
-// threads walking the Q queries in one launch (no host sync, no launch per
-// query): the order is a Q x Q rank in the block, the connected clusters a
-// flag per slot in shared memory, each query runs bfs_block on the
-// CURRENT grid and, when it fails, writes min(v, thr) at its reached voxels
-// before a __syncthreads().  The grid is read and written in the same
-// launch, so it is no `const __restrict__` pointer and every read goes
-// through L2 (__ldcg), never the read-only cache, which is not coherent with
-// the kernel's own stores.  Bound: latency again — valid queries x sweeps
-// on one SM.
+// grid.  K15b-7b is the same walk on the grid-sharded step's replicated
+// stack of band and ground words.  Both are ONE launch of
+// explore_spec_kernel, which speculates, then commits:
+//  - most of the walk does not depend on its order.  A failed query
+//    demotes only voxels it reached, all in the unknown band, to
+//    thr_frontiers (neither band nor ground).  When query j's flood R on the
+//    grid before the walk (Jacobi, at most max_iters sweeps: the ball of
+//    that radius in the band graph) meets no voxel an earlier failed query
+//    reached, j reaches the same R with the same verdict on the grid the
+//    walk left: every voxel of R keeps a shortest path inside R, removing
+//    voxels outside R only lengthens other paths, and ground is untouched;
+//  - so each valid query's block floods it on the grid before the walk, all
+//    in parallel, on K7's registers (S <= 32, planes_flood) or on rows in
+//    shared memory (S > 32, bfs_sweeps), and writes its reached rows, its
+//    verdict and its rank among the valid queries (K7s also its band and
+//    ground words, so that a redone flood reloads no grid) to scratch,
+//    fences, and takes a ticket;
+//  - the block that draws the last ticket walks the valid queries in rank
+//    order: a query whose cluster connected is skipped, a grid-edge start
+//    connects, and any other has its speculative rows tested against the
+//    rows of the earlier failed queries whose boxes overlap its own (one L2
+//    round trip).  Only where they meet is the query flooded again, on its
+//    band words minus those rows.  One barrier a walked query publishes the
+//    connected slots and the failed list;
+//  - K7s's failed floods are disjoint sets of band voxels (each one floods
+//    the band minus the earlier ones), and the walk reads band words, never
+//    the grid, so the walking block stores thr_frontiers, which is min(v,
+//    thr_frontiers) there, at a failed query's voxels from the registers
+//    that hold its flood as it fails (plain stores), and writes the count
+//    at the end.
+// Scratch, rows and the live grid are written in this launch, so every read
+// of them goes through L2 (__ldcg), never the read-only cache.  The ticket
+// is an int32 per (device, stream) that the last block sets back to 0: no
+// memset, and no co-residency (Q may pass the resident blocks).  Bound:
+// latency, the floods in parallel, then the walk's chain of round trips.
 #include "common.cuh"
 
 namespace {
 
 constexpr int EXPLORE_T = 256;
-constexpr int SEQ_T = 1024;
 
 template <typename W>
 __device__ __forceinline__ W low_bits(int n) {  // n in [0, 8 * sizeof(W)]
@@ -183,7 +208,7 @@ __device__ bool bfs_sweeps(int bound, int S, int max_iters, const W* expandable,
 // holds the z rows [z_lo, z_lo + nz) (the whole grid, or a shard's slab
 // extended by the explore pad); rows outside it read as air.  Returns
 // bfs_sweeps' verdict; the reached rows are left in `cur`.
-template <typename W, bool kLive>
+template <typename W>
 __device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, int x0, int y0,
                           int z0, int bound, float thr_f, float thr_g, int S, int max_iters,
                           W* expandable, W* ground, W*& cur, W*& nxt) {
@@ -193,8 +218,8 @@ __device__ bool bfs_block(const float* grid, int nz, int ny, int nx, int z_lo, i
   for (int r = warp; r < rows; r += nwarps) {
     const int z = r / S, y = r - (r / S) * S;
     W unk, gnd;
-    submap_row_bits<W, kLive>(grid, nz, ny, nx, z0 + z - z_lo, y0 + y, x0, S, thr_f, thr_g,
-                              unk, gnd);
+    submap_row_bits<W, false>(grid, nz, ny, nx, z0 + z - z_lo, y0 + y, x0, S, thr_f, thr_g,
+                               unk, gnd);
     if ((threadIdx.x & 31) == 0) {
       const int dzy = abs(z - half) + abs(y - half);
       const W e = unk & ball_bits<W>(dzy, bound, half);
@@ -258,38 +283,29 @@ __device__ __forceinline__ uint32_t lane_dil6(uint32_t c, uint32_t zm, uint32_t 
 //    max_iters sweeps: exactly the JAX while_loop's Jacobi sweeps.
 //  - The closure, ground and shell tests run on the fixpoint's registers;
 //    lanes y store the reached rows of a plane coalesced (S x 8 bytes).
+// The flood (planes_flood) is K7s's and K15b-7b's too, on the rows of the
+// grid (planes_load_grid) or of packed words (planes_load_words).
 constexpr int EXPLORE_WARPS = 8;
 constexpr int EXPLORE_PLANES = 32 / EXPLORE_WARPS;
 constexpr int LOAD_ROWS = 16;
 
-__global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
-    const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
-    const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
-    int max_iters, uint8_t* __restrict__ connected,
-    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners,
-    int32_t* __restrict__ n_writes) {
-  __shared__ uint32_t edge[2][EXPLORE_WARPS][2][32];  // parity, warp, (first, last), lane
-  const int q = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int half = S / 2, rows = S * S;
-  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
-  unsigned long long* rout = reached_out + (size_t)q * rows;
-  explore_head(q, x0, y0, z0, corners, n_writes);
-  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
-    explore_skip(rout, rows, connected, q);
-    return;
-  }
-  const int bound = min(max_manhattan[q], half - 1);
-  const int zw = warp * EXPLORE_PLANES;  // this warp's first plane
+using PlaneWords = uint32_t[EXPLORE_PLANES];
+using EdgePlanes = uint32_t[2][EXPLORE_WARPS][2][32];  // parity, warp, (first, last), lane
 
-  // the load: band and ground words of rows (zw + j, lane)
-  uint32_t expd[EXPLORE_PLANES], gnd[EXPLORE_PLANES], cur[EXPLORE_PLANES];
+// The band and ground words of the lane's rows (zw + j, lane) of the submap
+// at corner (x0, y0, z0), read from `grid` (the z rows [z_lo, z_lo + nz) of
+// the grid; a voxel outside them or the grid is certain air).
+template <bool kLive>
+__device__ __forceinline__ void planes_load_grid(const float* grid, int nz, int ny, int nx,
+                                                 int z_lo, int x0, int y0, int z0, int S,
+                                                 float thr_f, float thr_g, PlaneWords& band,
+                                                 PlaneWords& gnd) {
+  const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
   const int gx = x0 + lane;
   const bool x_in = lane < S && gx >= 0 && gx < nx;
 #pragma unroll
   for (int j = 0; j < EXPLORE_PLANES; ++j) {
-    expd[j] = 0;
+    band[j] = 0;
     gnd[j] = 0;
     const int lz = z0 + zw + j - z_lo;  // the row's plane in the buffer
     if (zw + j >= S) continue;          // warp-uniform
@@ -301,25 +317,52 @@ __global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
         const int gy = y0 + yc + b;
         v[b] = -1e30f;  // outside the grid or the buffer: certain air
         if (x_in && z_in && yc + b < S && gy >= 0 && gy < ny)
-          v[b] = __ldg(grid + ((size_t)lz * ny + gy) * nx + gx);
+          v[b] = grid_at<kLive>(grid, ((size_t)lz * ny + gy) * nx + gx);
       }
 #pragma unroll
       for (int b = 0; b < LOAD_ROWS; ++b) {
         const uint32_t bu = __ballot_sync(0xffffffffu, v[b] > thr_f && v[b] <= thr_g);
         const uint32_t bg = __ballot_sync(0xffffffffu, v[b] > thr_g);
         if (lane == yc + b) {
-          expd[j] = bu;
+          band[j] = bu;
           gnd[j] = bg;
         }
       }
     }
   }
-  // the submap is loaded
+}
+
+// The lane's rows of packed [S, S] words written in this launch or before
+// (through L2), one load a lane-plane; 0 past S.
+__device__ __forceinline__ void planes_load_words(const uint32_t* rows, int S, PlaneWords& w) {
+  const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j)
+    w[j] = zw + j < S && lane < S ? __ldcg(rows + (zw + j) * S + lane) : 0u;
+}
+
+__device__ __forceinline__ void planes_store_words(uint32_t* rows, int S, const PlaneWords& w) {
+  const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
+#pragma unroll
+  for (int j = 0; j < EXPLORE_PLANES; ++j)
+    if (zw + j < S && lane < S) rows[(zw + j) * S + lane] = w[j];
+}
+
+// The flood by the whole block on its registers: band and ground words in,
+// the reached words out in `cur`; returns whether the flood's closure
+// touched ground or the reached set the shell at bound - 1 (the same on
+// every thread).  Ends on a barrier, after its last read of `edge`.
+__device__ __forceinline__ bool planes_flood(const PlaneWords& band, const PlaneWords& gnd,
+                                             PlaneWords& cur, int bound, int S, int max_iters,
+                                             EdgePlanes& edge) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = S / 2, zw = warp * EXPLORE_PLANES;  // this warp's first plane
   const int dy = abs(lane - half);
+  uint32_t expd[EXPLORE_PLANES];
 #pragma unroll
   for (int j = 0; j < EXPLORE_PLANES; ++j) {
     const int z = zw + j;
-    expd[j] &= ball_bits<uint32_t>(abs(z - half) + dy, bound, half);
+    expd[j] = band[j] & ball_bits<uint32_t>(abs(z - half) + dy, bound, half);
     cur[j] = (z == half && lane == half) ? (expd[j] & (1u << half)) : 0u;
   }
 
@@ -362,7 +405,32 @@ __global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
     hit |= (clo & gnd[j]) != 0u;
     hit |= (cur[j] & shell_bits<uint32_t>(dzy, bound - 1, half)) != 0u;
   }
-  const bool h = __syncthreads_or(hit) != 0;
+  return __syncthreads_or(hit) != 0;
+}
+
+__global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
+    const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
+    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
+    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
+    const int32_t* __restrict__ max_manhattan, float thr_f, float thr_g, int S,
+    int max_iters, uint8_t* __restrict__ connected,
+    unsigned long long* __restrict__ reached_out, int32_t* __restrict__ corners,
+    int32_t* __restrict__ n_writes) {
+  __shared__ EdgePlanes edge;
+  const int q = blockIdx.x, lane = threadIdx.x & 31;
+  const int half = S / 2, rows = S * S;
+  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
+  unsigned long long* rout = reached_out + (size_t)q * rows;
+  explore_head(q, x0, y0, z0, corners, n_writes);
+  if (qvalid[q] == 0) {  // the JAX tier ladder's saving, with no host sync
+    explore_skip(rout, rows, connected, q);
+    return;
+  }
+  PlaneWords band, gnd, cur;
+  planes_load_grid<false>(grid, nz, ny, nx, z_lo, x0, y0, z0, S, thr_f, thr_g, band, gnd);
+  const bool h = planes_flood(band, gnd, cur, min(max_manhattan[q], half - 1), S, max_iters,
+                              edge);
+  const int zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
 #pragma unroll
   for (int j = 0; j < EXPLORE_PLANES; ++j)
     if (zw + j < S && lane < S) rout[(zw + j) * S + lane] = (unsigned long long)cur[j];
@@ -396,8 +464,8 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
   W* cur = ground + rows;
   W* nxt = cur + rows;
   const int bound = min(max_manhattan[q], half - 1);
-  const bool hit = bfs_block<W, false>(grid, nz, ny, nx, z_lo, x0, y0, z0, bound, thr_f, thr_g,
-                                       S, max_iters, expandable, ground, cur, nxt);
+  const bool hit = bfs_block<W>(grid, nz, ny, nx, z_lo, x0, y0, z0, bound, thr_f, thr_g, S,
+                                max_iters, expandable, ground, cur, nxt);
   for (int r = threadIdx.x; r < rows; r += blockDim.x) rout[r] = cur[r];
   if (threadIdx.x == 0)
     connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
@@ -537,82 +605,399 @@ __global__ void __launch_bounds__(DEMOTE_T) demote_kernel(
   add_count(count, n_writes);
 }
 
-// The (label, id, index) rank of every query, jnp.lexsort((qids, qlabels))
-// (a stable sort): order[j] is the j-th query.  No barrier.
-__device__ void rank_queries(const int32_t* __restrict__ qlabels,
-                             const int32_t* __restrict__ qids, int Q, int* order) {
-  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
-    const int li = qlabels[i], di = qids[i];
-    int rank = 0;
-    for (int j = 0; j < Q; ++j) {
-      const int lj = qlabels[j], dj = qids[j];
-      rank += lj < li || (lj == li && (dj < di || (dj == di && j < i)));
-    }
-    order[rank] = i;
+// ---- K7s and K15b-7b: speculate, then commit --------------------------------
+// A valid query's record, by rank: (gx, gy, gz, meta), meta = the slot q
+// (bits 0-11), the speculative verdict (bit 12), a grid-edge start (bit 13)
+// and bound + 1 (bits 16-23; a negative bound acts as -1: no ball, no
+// shell).
+__device__ __forceinline__ int rec_q(const int4& r) { return r.w & 0xfff; }
+__device__ __forceinline__ bool rec_hit(const int4& r) { return (r.w >> 12) & 1; }
+__device__ __forceinline__ bool rec_edge(const int4& r) { return (r.w >> 13) & 1; }
+__device__ __forceinline__ int rec_bound(const int4& r) { return ((r.w >> 16) & 0xff) - 1; }
+
+// K7s's demotion of one reached row w (bit x: grid x0 + x) of a failed
+// query: thr_f at its voxels inside the grid.  They were in the band (v >
+// thr_f) when the launch began and no two failed floods share one, so
+// min(v, thr_f) is thr_f: stored without a read.  Returns the stores.
+__device__ __forceinline__ int store_row(float* row, unsigned long long w, int x0, int nx,
+                                         float thr_f) {
+  int count = 0;
+  while (w != 0ull) {
+    const int x = x0 + __ffsll((long long)w) - 1;
+    w &= w - 1;
+    if (x < 0 || x >= nx) continue;
+    row[x] = thr_f;
+    ++count;
   }
+  return count;
 }
 
-template <typename W>
-__global__ void __launch_bounds__(SEQ_T) explore_seq_kernel(
-    float* grid, int nz, int ny, int nx,
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
-    const int32_t* __restrict__ qlabels, const int32_t* __restrict__ qids,
-    const uint8_t* __restrict__ qslot, const int32_t* __restrict__ max_manhattan,
-    const uint8_t* __restrict__ query_overflow, float thr_f, float thr_g, int Q, int K, int S,
-    int max_iters, uint8_t* __restrict__ cluster_connected, int32_t* __restrict__ n_writes) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int total;
-  const int half = S / 2, rows = S * S;
-  W* expandable = reinterpret_cast<W*>(smem_raw);
-  W* ground = expandable + rows;
-  W* buf_a = ground + rows;
-  W* buf_b = buf_a + rows;
-  int* order = reinterpret_cast<int*>(buf_b + rows);  // order[j]: the j-th query
-  uint8_t* conn = reinterpret_cast<uint8_t*>(order + Q);  // slot k has connected
+// A query's rows on the S <= 32 route: K7's registers (lane y of warp w
+// holds rows (w * PLANES + j, y)); `clear` gathers the rows of the earlier
+// failed floods that fall in the query's box.
+struct PlanesBody {
+  using W = uint32_t;
+  static __host__ __device__ size_t smem(int) { return 0; }
+  PlaneWords band, gnd, cur, clear;
+  EdgePlanes& edge;
+  int S, max_iters;
 
-  rank_queries(qlabels, qids, Q, order);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) conn[k] = 0;
-  if (threadIdx.x == 0) total = 0;
-  __syncthreads();
-
-  int count = 0;
-  // under query overflow every query is skipped (the cluster verdicts are
-  // conservative then); the launch still happens, so the host never reads it
-  for (int j = 0; j < Q && query_overflow[0] == 0; ++j) {
-    const int q = order[j];
-    if (qvalid[q] == 0) continue;
-    const uint8_t* slots = qslot + (size_t)q * K;
-    int already = 0;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) already |= slots[k] != 0 && conn[k] != 0;
-    if (__syncthreads_or(already)) continue;  // its cluster connected before
-    const int gx = qx[q], gy = qy[q], gz = qz[q];
-    // grid-edge starts connect by definition; their BFS could not change that
-    bool connected = at_grid_edge(gx, gy, gz, nz, ny, nx);
-    if (!connected) {
-      W* cur = buf_a;
-      W* nxt = buf_b;
-      const int bound = min(max_manhattan[q], half - 1);
-      const int x0 = gx - half, y0 = gy - half, z0 = gz - half;
-      connected = bfs_block<W, true>(grid, nz, ny, nx, 0, x0, y0, z0, bound, thr_f, thr_g, S,
-                                     max_iters, expandable, ground, cur, nxt);
-      if (!connected) {
-        // live demotion: min(v, thr) at the reached voxels inside the grid
-        count += store_min_rows(grid, nz, ny, nx, 0, nz, cur, z0, y0, x0, S, thr_f);
-        __syncthreads();  // the next query's submap reads these stores
+  __device__ PlanesBody(unsigned char*, int S_, int max_iters_, EdgePlanes& e)
+      : edge(e), S(S_), max_iters(max_iters_) {}
+  // K7s: the band and ground words from the live grid, also kept in `words`
+  // ([2, S, S]) for a redone flood
+  __device__ void load_grid(const float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
+                            float thr_f, float thr_g, W* words) {
+    planes_load_grid<true>(grid, nz, ny, nx, 0, x0, y0, z0, S, thr_f, thr_g, band, gnd);
+    planes_store_words(words, S, band);
+    planes_store_words(words + S * S, S, gnd);
+  }
+  __device__ void load_words(const W* words) {
+    planes_load_words(words, S, band);
+    planes_load_words(words + S * S, S, gnd);
+  }
+  __device__ bool flood(int bound) {
+    return planes_flood(band, gnd, cur, bound, S, max_iters, edge);
+  }
+  __device__ void load_rows(const W* rows) { planes_load_words(rows, S, cur); }
+  __device__ void store_rows(W* rows) const { planes_store_words(rows, S, cur); }
+  // `clear` = the rows of the earlier failed queries (ranks sfail[0, nf))
+  // whose boxes overlap this query's (record `rec`): a failed query's box
+  // lies at d = (dz, dy, dx) = this corner - its corner, so its row (z + dz,
+  // y + dy), shifted by dx, meets this query's row (z, y).  CLEAR_BATCH
+  // failed floods' rows are loaded at once, then OR-ed: one round trip for
+  // up to CLEAR_BATCH of them, not one each.
+  static constexpr int CLEAR_BATCH = 8;
+  __device__ void clear_failed(const W* frows, const int4* srec, const int* sfail, int nf,
+                               const int4& rec) {
+    const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) clear[j] = 0u;
+    for (int f0 = 0; f0 < nf; f0 += CLEAR_BATCH) {
+      W w[CLEAR_BATCH][EXPLORE_PLANES];
+      int dx[CLEAR_BATCH];
+#pragma unroll
+      for (int b = 0; b < CLEAR_BATCH; ++b) {
+        const int4 rf = f0 + b < nf ? srec[sfail[f0 + b]] : rec;
+        const int dz = rec.z - rf.z, dy = rec.y - rf.y, iy = lane + dy;
+        dx[b] = rec.x - rf.x;
+        const bool live = f0 + b < nf && abs(dz) < S && abs(dy) < S && abs(dx[b]) < S &&
+                          lane < S && iy >= 0 && iy < S;
+        if (!live) dx[b] = 0;
+        const W* rows = frows + (size_t)rec_q(rf) * S * S;
+#pragma unroll
+        for (int j = 0; j < EXPLORE_PLANES; ++j) {
+          const int iz = zw + j + dz;
+          w[b][j] = live && zw + j < S && iz >= 0 && iz < S ? __ldcg(rows + iz * S + iy) : 0u;
+        }
       }
-    }
-    if (connected) {
-      for (int k = threadIdx.x; k < K; k += blockDim.x)
-        if (slots[k] != 0) conn[k] = 1;
-      __syncthreads();
+#pragma unroll
+      for (int b = 0; b < CLEAR_BATCH; ++b)
+#pragma unroll
+        for (int j = 0; j < EXPLORE_PLANES; ++j)
+          clear[j] |= dx[b] >= 0 ? W(w[b][j] >> dx[b]) : W(w[b][j] << -dx[b]);
     }
   }
+  __device__ bool overlaps() const {
+    W m = 0;
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) m |= cur[j] & clear[j];
+    return m != 0;
+  }
+  // K7s: thr_f at the reached voxels inside the grid (box corner (x0, y0,
+  // z0)) of the failed query the registers hold; returns this thread's count
+  __device__ int store_demotions(float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
+                                 float thr_f) const {
+    const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
+    const int gy = y0 + lane;
+    int count = 0;
+    if (lane >= S || gy < 0 || gy >= ny) return 0;
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) {
+      const int gz = z0 + zw + j;
+      if (zw + j >= S || gz < 0 || gz >= nz) continue;
+      count += store_row(grid + ((size_t)gz * ny + gy) * nx, cur[j], x0, nx, thr_f);
+    }
+    return count;
+  }
+  __device__ void apply_clear() {
+#pragma unroll
+    for (int j = 0; j < EXPLORE_PLANES; ++j) band[j] &= ~clear[j];
+  }
+};
 
-  for (int k = threadIdx.x; k < K; k += blockDim.x) cluster_connected[k] = conn[k];
-  add_count(count, &total);
+// The S > 32 route: 64-bit rows in shared memory (band, ground and the two
+// Jacobi buffers; bfs_sweeps), thread t owning rows t + k * EXPLORE_T.
+constexpr int SMEM_ROWS = (62 * 62 + EXPLORE_T - 1) / EXPLORE_T;
+
+struct SmemBody {
+  using W = unsigned long long;
+  static __host__ __device__ size_t smem(int S) { return 4 * (size_t)S * S * sizeof(W); }
+  W *band, *ground, *cur, *nxt;
+  W clear[SMEM_ROWS];
+  int S, max_iters;
+
+  __device__ SmemBody(unsigned char* raw, int S_, int max_iters_, EdgePlanes&)
+      : S(S_), max_iters(max_iters_) {
+    band = reinterpret_cast<W*>(raw);
+    ground = band + S * S;
+    cur = ground + S * S;
+    nxt = cur + S * S;
+  }
+  __device__ void load_grid(const float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
+                            float thr_f, float thr_g, W* words) {
+    const int rows = S * S, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    for (int r = warp; r < rows; r += nwarps) {  // one warp a row
+      W unk, gnd;
+      submap_row_bits<W, true>(grid, nz, ny, nx, z0 + r / S, y0 + r % S, x0, S, thr_f, thr_g,
+                               unk, gnd);
+      if ((threadIdx.x & 31) == 0) {
+        band[r] = words[r] = unk;
+        ground[r] = words[rows + r] = gnd;
+      }
+    }
+  }
+  __device__ void load_words(const W* words) {
+    const int rows = S * S;
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      if (r < rows) {
+        band[r] = __ldcg(words + r);
+        ground[r] = __ldcg(words + rows + r);
+      }
+    }
+  }
+  __device__ bool flood(int bound) {
+    const int half = S / 2, rows = S * S;
+    __syncthreads();  // the rows other threads loaded
+    for (int r = threadIdx.x; r < rows; r += EXPLORE_T) {
+      const int z = r / S, y = r - z * S;
+      const W e = band[r] & ball_bits<W>(abs(z - half) + abs(y - half), bound, half);
+      band[r] = e;
+      cur[r] = (z == half && y == half) ? (e & (W(1) << half)) : W(0);
+    }
+    __syncthreads();
+    return bfs_sweeps<W>(bound, S, max_iters, band, ground, cur, nxt);
+  }
+  __device__ void load_rows(const W* rows) {
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      if (r < S * S) cur[r] = __ldcg(rows + r);
+    }
+  }
+  __device__ void store_rows(W* rows) const {
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      if (r < S * S) rows[r] = cur[r];
+    }
+  }
+  // PlanesBody::clear_failed's contract, one failed flood at a time
+  __device__ void clear_failed(const W* frows, const int4* srec, const int* sfail, int nf,
+                               const int4& rec) {
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) clear[k] = 0;
+    for (int f = 0; f < nf; ++f) {
+      const int4 rf = srec[sfail[f]];
+      const int dz = rec.z - rf.z, dy = rec.y - rf.y, dx = rec.x - rf.x;
+      if (abs(dz) >= S || abs(dy) >= S || abs(dx) >= S) continue;  // boxes apart
+      const W* rows = frows + (size_t)rec_q(rf) * S * S;
+#pragma unroll
+      for (int k = 0; k < SMEM_ROWS; ++k) {
+        const int r = threadIdx.x + k * EXPLORE_T;
+        const int iz = r / S + dz, iy = r % S + dy;
+        if (r >= S * S || iz < 0 || iz >= S || iy < 0 || iy >= S) continue;
+        const W w = __ldcg(rows + iz * S + iy);
+        clear[k] |= dx >= 0 ? W(w >> dx) : W(w << -dx);
+      }
+    }
+  }
+  __device__ bool overlaps() const {
+    W m = 0;
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      if (r < S * S) m |= cur[r] & clear[k];
+    }
+    return m != 0;
+  }
+  __device__ int store_demotions(float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
+                                 float thr_f) const {
+    int count = 0;
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      const int gz = z0 + r / S, gy = y0 + r % S;
+      if (r >= S * S || gz < 0 || gz >= nz || gy < 0 || gy >= ny) continue;
+      count += store_row(grid + ((size_t)gz * ny + gy) * nx, cur[r], x0, nx, thr_f);
+    }
+    return count;
+  }
+  __device__ void apply_clear() {
+#pragma unroll
+    for (int k = 0; k < SMEM_ROWS; ++k) {
+      const int r = threadIdx.x + k * EXPLORE_T;
+      if (r < S * S) band[r] &= ~clear[k];
+    }
+  }
+};
+
+// K7s (kDense: the live grid, demoted by the walk as queries fail; `words` the
+// scratch of band and ground words its blocks write) and K15b-7b (the
+// replicated stack as `words`; outputs reached, corners, demoted), one
+// block a query slot.  `spec` [Q, S, S]: the speculative reached rows;
+// `frows`: where the failed queries' rows are read back (K7s: `spec`, a
+// redone flood writing over its query's; K15b-7b: `reached`).
+template <class Body, bool kDense>
+__global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
+    float* grid, int nz, int ny, int nx, const int32_t* __restrict__ qx,
+    const int32_t* __restrict__ qy, const int32_t* __restrict__ qz,
+    const uint8_t* __restrict__ qvalid, const int32_t* __restrict__ qlabels,
+    const int32_t* __restrict__ qids, const uint8_t* __restrict__ qslot,
+    const int32_t* __restrict__ max_manhattan, const uint8_t* __restrict__ query_overflow,
+    float thr_f, float thr_g, int Q, int K, int S, int max_iters, typename Body::W* words,
+    typename Body::W* spec, int4* recs, uint32_t* slotw, typename Body::W* frows,
+    uint8_t* __restrict__ cluster_connected, int32_t* __restrict__ n_writes,
+    int32_t* __restrict__ corners, uint8_t* __restrict__ demoted, int* ticket, int* stats) {
+  using W = typename Body::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ EdgePlanes edge;
+  __shared__ int last, total;
+  const int q = blockIdx.x, half = S / 2, rows = S * S, KW = (K + 31) / 32;
+  const bool overflow = query_overflow[0] != 0;  // every query is skipped
+  Body body(smem_raw, S, max_iters, edge);
+
+  // ---- the speculative flood of slot q on the grid before the walk
+  const int gx = qx[q], gy = qy[q], gz = qz[q];
+  if (!kDense) {  // K15b-7b's outputs: the walk writes the failed queries'
+    if (threadIdx.x == 0) {
+      corners[3 * q + 0] = gz - half;
+      corners[3 * q + 1] = gy - half;
+      corners[3 * q + 2] = gx - half;
+      demoted[q] = 0;
+    }
+    for (int r = threadIdx.x; r < rows; r += EXPLORE_T) frows[(size_t)q * rows + r] = W(0);
+  }
+  if (qvalid[q] != 0 && !overflow) {  // block-uniform
+    // its rank among the valid queries, jnp.lexsort((qids, qlabels)) order
+    const int lq = qlabels[q], dq = qids[q];
+    int rank = 0;
+    for (int j0 = 0; j0 < Q; j0 += EXPLORE_T) {
+      const int j = j0 + threadIdx.x;
+      int before = 0;
+      if (j < Q && qvalid[j] != 0) {
+        const int lj = qlabels[j], dj = qids[j];
+        before = lj < lq || (lj == lq && (dj < dq || (dj == dq && j < q)));
+      }
+      rank += __syncthreads_count(before);
+    }
+    const bool at_edge = at_grid_edge(gx, gy, gz, nz, ny, nx);
+    const int bound = max(min(max_manhattan[q], half - 1), -1);
+    bool hit = false;
+    if (!at_edge) {  // an edge start connects by definition: no flood
+      if (kDense)
+        body.load_grid(grid, nz, ny, nx, gx - half, gy - half, gz - half, thr_f, thr_g,
+                       words + (size_t)q * 2 * rows);
+      else
+        body.load_words(words + (size_t)q * 2 * rows);
+      hit = body.flood(bound);
+      body.store_rows(spec + (size_t)q * rows);
+    }
+    for (int w = threadIdx.x; w < KW; w += EXPLORE_T) {  // its slots as words of 32
+      const uint8_t* row = qslot + (size_t)q * K + 32 * w;
+      const int n = min(32, K - 32 * w);
+      uint32_t bits = 0u;
+      for (int b = 0; b < n; ++b) bits |= (uint32_t)(row[b] != 0) << b;
+      slotw[(size_t)rank * KW + w] = bits;
+    }
+    if (threadIdx.x == 0)
+      recs[rank] = make_int4(gx, gy, gz, q | (int)hit << 12 | (int)at_edge << 13 |
+                                             (bound + 1) << 16);
+  }
+
+  // ---- the handoff: the block that takes the last ticket walks
+  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) n_writes[0] = total;
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) {
+    *ticket = 0;  // for the next launch on this stream
+    total = 0;
+  }
+
+  // ---- the walk, over the valid queries in rank order
+  int4* srec = reinterpret_cast<int4*>(smem_raw + (Body::smem(S) + 15) / 16 * 16);
+  uint32_t* sslot = reinterpret_cast<uint32_t*>(srec + Q);  // [rank][KW]
+  uint32_t* sconn = sslot + (size_t)Q * KW;                  // the connected slots
+  int* sfail = reinterpret_cast<int*>(sconn + KW);           // the failed queries' ranks
+  int nv = 0;
+  for (int j0 = 0; j0 < Q && !overflow; j0 += EXPLORE_T)
+    nv += __syncthreads_count(j0 + (int)threadIdx.x < Q && qvalid[j0 + threadIdx.x] != 0);
+  for (int t = threadIdx.x; t < nv; t += EXPLORE_T) srec[t] = __ldcg(recs + t);
+  for (int i = threadIdx.x; i < nv * KW; i += EXPLORE_T) sslot[i] = __ldcg(slotw + i);
+  for (int w = threadIdx.x; w < KW; w += EXPLORE_T) sconn[w] = 0u;
+  __syncthreads();
+
+  int nf = 0, nredo = 0, nwalk = 0;  // the same on every thread
+  int count = 0;                     // K7s: this thread's demotion stores
+  for (int t = 0; t < nv; ++t) {
+    const int4 rec = srec[t];
+    const uint32_t* ks = sslot + (size_t)t * KW;
+    bool already = false;
+    for (int w = 0; w < KW; ++w) already |= (ks[w] & sconn[w]) != 0u;
+    if (already) continue;  // its cluster connected before
+    const int q_t = rec_q(rec);
+    const bool at_edge = rec_edge(rec);
+    if (!at_edge) {
+      // its speculative rows against the earlier failed floods' rows, its
+      // band and ground words with them (a redone flood's input): the
+      // loads in flight together
+      body.load_rows(spec + (size_t)q_t * rows);
+      body.load_words(words + (size_t)q_t * 2 * rows);
+      body.clear_failed(frows, srec, sfail, nf, rec);
+    }
+    // (also the barrier between the skip test's reads of sconn and its update)
+    const bool redo = __syncthreads_or(!at_edge && body.overlaps()) != 0;
+    bool conn = at_edge || rec_hit(rec);
+    nwalk += at_edge ? 0 : 1;
+    if (redo) {  // flood again on the band the earlier failed queries left
+      ++nredo;
+      body.apply_clear();
+      conn = body.flood(rec_bound(rec));
+    }
+    if (conn) {
+      for (int w = threadIdx.x; w < KW; w += EXPLORE_T) sconn[w] |= ks[w];
+    } else {
+      if (!kDense || redo) body.store_rows(frows + (size_t)q_t * rows);
+      if (kDense)  // the walk reads band words, never the grid: store now
+        count += body.store_demotions(grid, nz, ny, nx, rec.x - half, rec.y - half, rec.z - half,
+                                      thr_f);
+      if (threadIdx.x == 0) {
+        sfail[nf] = t;
+        if (!kDense) demoted[q_t] = 1;
+      }
+      ++nf;
+    }
+    __syncthreads();  // the next query reads sconn, sfail and these rows
+  }
+
+  for (int k = threadIdx.x; k < K; k += EXPLORE_T)
+    cluster_connected[k] = (sconn[k >> 5] >> (k & 31)) & 1u;
+  if (kDense) {
+    add_count(count, &total);
+    __syncthreads();
+    if (threadIdx.x == 0) n_writes[0] = total;
+  }
+  if (threadIdx.x == 0) {
+    stats[0] = nredo;  // floods redone
+    stats[1] = nwalk;  // speculative rows tested
+    stats[2] = nf;     // failed queries
+    stats[3] = nv;     // valid queries walked (0 under query overflow)
+  }
 }
 
 // K15b-7a, the cut: one block per query packs the band and ground bits of
@@ -644,104 +1029,6 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_cut_kernel(
       gnd[r] = g;
     }
   }
-}
-
-// K15b-7b, the walk: K7s on the replicated stack.  The order, the skips,
-// the grid-edge rule (global dims) and the BFS are explore_seq_kernel's;
-// instead of reading a grid the earlier failed queries demoted, a query
-// takes its stack rows and clears from its band every voxel an earlier
-// failed query reached (a demoted voxel holds thr_f: neither band nor
-// ground).  Query i's box is offset by d = corner_j - corner_i from query
-// j's, so j's row (z, y) meets i's row (z + dz, y + dy) with x shifted by
-// dx.  The failed queries' rows are written to `reached` and read back
-// from it (through L2: written in this launch) for the later queries;
-// every other query's rows are 0.
-template <typename W>
-__global__ void __launch_bounds__(SEQ_T) explore_stack_kernel(
-    const W* __restrict__ stack, int nz, int ny, int nx,
-    const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
-    const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid,
-    const int32_t* __restrict__ qlabels, const int32_t* __restrict__ qids,
-    const uint8_t* __restrict__ qslot, const int32_t* __restrict__ max_manhattan,
-    const uint8_t* __restrict__ query_overflow, int Q, int K, int S, int max_iters,
-    uint8_t* __restrict__ cluster_connected, W* reached, int32_t* __restrict__ corners,
-    uint8_t* __restrict__ demoted) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int half = S / 2, rows = S * S;
-  W* expandable = reinterpret_cast<W*>(smem_raw);
-  W* ground = expandable + rows;
-  W* buf_a = ground + rows;
-  W* buf_b = buf_a + rows;
-  int* order = reinterpret_cast<int*>(buf_b + rows);
-  int* failed = order + Q;  // the failed queries so far, in order
-  uint8_t* conn = reinterpret_cast<uint8_t*>(failed + Q);
-
-  rank_queries(qlabels, qids, Q, order);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) conn[k] = 0;
-  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
-    corners[3 * q + 0] = qz[q] - half;
-    corners[3 * q + 1] = qy[q] - half;
-    corners[3 * q + 2] = qx[q] - half;
-  }
-  __syncthreads();
-
-  const bool overflow = query_overflow[0] != 0;
-  int nf = 0;  // the same on every thread
-  for (int j = 0; j < Q; ++j) {
-    const int q = order[j];
-    const uint8_t* slots = qslot + (size_t)q * K;
-    // under query overflow every query is skipped, as in K7s
-    bool skip = overflow || qvalid[q] == 0;
-    if (!skip) {
-      int already = 0;
-      for (int k = threadIdx.x; k < K; k += blockDim.x) already |= slots[k] != 0 && conn[k] != 0;
-      skip = __syncthreads_or(already) != 0;  // its cluster connected before
-    }
-    W* cur = buf_a;
-    W* nxt = buf_b;
-    bool fails = false;
-    if (!skip) {
-      const int gx = qx[q], gy = qy[q], gz = qz[q];
-      bool connected = at_grid_edge(gx, gy, gz, nz, ny, nx);
-      if (!connected) {
-        const int bound = min(max_manhattan[q], half - 1);
-        const W* band = stack + (size_t)q * 2 * rows;
-        for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-          const int z = r / S, y = r - (r / S) * S;
-          W clear = 0;
-          for (int f = 0; f < nf; ++f) {
-            const int i = failed[f];
-            const int dz = gz - qz[i], dy = gy - qy[i], dx = gx - qx[i];
-            const int iz = z + dz, iy = y + dy;
-            if (dx <= -S || dx >= S || iz < 0 || iz >= S || iy < 0 || iy >= S) continue;
-            const W w = __ldcg(reached + ((size_t)i * S + iz) * S + iy);
-            clear |= dx >= 0 ? W(w >> dx) : W(w << -dx);
-          }
-          const int dzy = abs(z - half) + abs(y - half);
-          const W e = band[r] & ~clear & ball_bits<W>(dzy, bound, half);
-          expandable[r] = e;
-          ground[r] = band[rows + r];
-          cur[r] = (z == half && y == half) ? (e & (W(1) << half)) : W(0);
-        }
-        __syncthreads();
-        connected = bfs_sweeps<W>(bound, S, max_iters, expandable, ground, cur, nxt);
-      }
-      fails = !connected;
-      if (connected)
-        for (int k = threadIdx.x; k < K; k += blockDim.x)
-          if (slots[k] != 0) conn[k] = 1;
-    }
-    // the query's reached rows: a failed query's flood, else 0
-    W* rq = reached + (size_t)q * rows;
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) rq[r] = fails ? cur[r] : W(0);
-    if (threadIdx.x == 0) {
-      demoted[q] = fails ? 1 : 0;
-      if (fails) failed[nf] = q;
-    }
-    nf += fails ? 1 : 0;
-    __syncthreads();  // the next query reads these rows, the list and the flags
-  }
-  for (int k = threadIdx.x; k < K; k += blockDim.x) cluster_connected[k] = conn[k];
 }
 
 // K15b-7c, the write-back: min(v, thr) at the reached voxels of every
@@ -791,45 +1078,69 @@ int launch_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
   return (int)cudaGetLastError();
 }
 
-template <typename W>
-int launch_explore_seq(void* grid, int nz, int ny, int nx, const void* qx, const void* qy,
-                       const void* qz, const void* qvalid, const void* qlabels,
-                       const void* qids, const void* qslot, const void* mm,
-                       const void* query_overflow, float thr_f, float thr_g, int Q, int K,
-                       int S, int max_iters, void* cluster_connected, void* n_writes,
-                       cudaStream_t s) {
-  const size_t smem = 4 * (size_t)S * S * sizeof(W) + (size_t)Q * sizeof(int) + (size_t)K;
-  const int e = allow_smem(explore_seq_kernel<W>, smem);
-  if (e != 0) return e;
-  explore_seq_kernel<W><<<1, SEQ_T, smem, s>>>(
-      static_cast<float*>(grid), nz, ny, nx, static_cast<const int32_t*>(qx),
-      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
-      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(qlabels),
-      static_cast<const int32_t*>(qids), static_cast<const uint8_t*>(qslot),
-      static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), thr_f,
-      thr_g, Q, K, S, max_iters, static_cast<uint8_t*>(cluster_connected),
-      static_cast<int32_t*>(n_writes));
-  return (int)cudaGetLastError();
+// One launch's scratch for K7s / K15b-7b, in 16-byte aligned pieces: the
+// walk's counts (4 int32), the records by rank (Q int4), the slot words by
+// rank (Q x ceil(K / 32)), the speculative rows [Q, S, S] and, for K7s, the
+// band and ground words [Q, 2, S, S].  Words are 32-bit for S <= 32.
+struct SeqScratch {
+  int* stats;
+  int4* recs;
+  uint32_t* slotw;
+  void* spec;
+  void* words;
+  size_t bytes;
+};
+
+SeqScratch seq_scratch(void* base, int Q, int K, int S, bool dense) {
+  const size_t word = S <= 32 ? 4 : 8, rows = (size_t)S * S;
+  auto up = [](size_t n) { return (n + 15) / 16 * 16; };
+  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
+  SeqScratch sc;
+  size_t off = 0;
+  sc.stats = reinterpret_cast<int*>(b + off);
+  off += 16;
+  sc.recs = reinterpret_cast<int4*>(b + off);
+  off += up(16 * (size_t)Q);
+  sc.slotw = reinterpret_cast<uint32_t*>(b + off);
+  off += up(4 * (size_t)Q * ((K + 31) / 32));
+  sc.spec = reinterpret_cast<void*>(b + off);
+  off += up(word * Q * rows);
+  sc.words = dense ? reinterpret_cast<void*>(b + off) : nullptr;
+  off += dense ? up(2 * word * Q * rows) : 0;
+  sc.bytes = off;
+  return sc;
 }
 
-template <typename W>
-int launch_explore_stack(const void* stack, int nz, int ny, int nx, const void* qx,
-                         const void* qy, const void* qz, const void* qvalid, const void* qlabels,
-                         const void* qids, const void* qslot, const void* mm,
-                         const void* query_overflow, int Q, int K, int S, int max_iters,
-                         void* cluster_connected, void* reached, void* corners, void* demoted,
-                         cudaStream_t s) {
-  const size_t smem = 4 * (size_t)S * S * sizeof(W) + 2 * (size_t)Q * sizeof(int) + (size_t)K;
-  const int e = allow_smem(explore_stack_kernel<W>, smem);
+// The spec kernel's launch: Q blocks of EXPLORE_T threads, the body's rows
+// and the walk's records, slot words, connected slots and failed list in
+// dynamic shared memory.  `stats`: where the walk writes its counts (null:
+// the scratch's).
+template <class Body, bool kDense>
+int launch_spec(float* grid, const void* stack, int nz, int ny, int nx, const void* qx,
+                const void* qy, const void* qz, const void* qvalid, const void* qlabels,
+                const void* qids, const void* qslot, const void* mm, const void* query_overflow,
+                float thr_f, float thr_g, int Q, int K, int S, int max_iters, void* scratch,
+                void* cluster_connected, void* n_writes, void* reached, void* corners,
+                void* demoted, void* ticket, void* stats, cudaStream_t s) {
+  using W = typename Body::W;
+  const SeqScratch sc = seq_scratch(scratch, Q, K, S, kDense);
+  const size_t KW = (K + 31) / 32;
+  const size_t smem = (Body::smem(S) + 15) / 16 * 16 + (size_t)Q * (16 + 4 * KW + 4) + 4 * KW;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int e = allow_smem(explore_spec_kernel<Body, kDense>, smem);
   if (e != 0) return e;
-  explore_stack_kernel<W><<<1, SEQ_T, smem, s>>>(
-      static_cast<const W*>(stack), nz, ny, nx, static_cast<const int32_t*>(qx),
-      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
-      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(qlabels),
-      static_cast<const int32_t*>(qids), static_cast<const uint8_t*>(qslot),
-      static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), Q, K, S,
-      max_iters, static_cast<uint8_t*>(cluster_connected), static_cast<W*>(reached),
-      static_cast<int32_t*>(corners), static_cast<uint8_t*>(demoted));
+  W* spec = static_cast<W*>(sc.spec);
+  W* words = kDense ? static_cast<W*>(sc.words) : static_cast<W*>(const_cast<void*>(stack));
+  explore_spec_kernel<Body, kDense><<<Q, EXPLORE_T, smem, s>>>(
+      grid, nz, ny, nx, static_cast<const int32_t*>(qx), static_cast<const int32_t*>(qy),
+      static_cast<const int32_t*>(qz), static_cast<const uint8_t*>(qvalid),
+      static_cast<const int32_t*>(qlabels), static_cast<const int32_t*>(qids),
+      static_cast<const uint8_t*>(qslot), static_cast<const int32_t*>(mm),
+      static_cast<const uint8_t*>(query_overflow), thr_f, thr_g, Q, K, S, max_iters, words, spec,
+      sc.recs, sc.slotw, kDense ? spec : static_cast<W*>(reached),
+      static_cast<uint8_t*>(cluster_connected), static_cast<int32_t*>(n_writes),
+      static_cast<int32_t*>(corners), static_cast<uint8_t*>(demoted), static_cast<int*>(ticket),
+      stats != nullptr ? static_cast<int*>(stats) : sc.stats);
   return (int)cudaGetLastError();
 }
 
@@ -879,28 +1190,41 @@ VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, int z_lo, int nz_
   return (int)cudaGetLastError();
 }
 
+// The scratch bytes one K7s (dense != 0) or K15b-7b launch takes.
+VOFOD_API int vofod_explore_seq_scratch(int Q, int K, int S, int dense, long long* bytes) {
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  bytes[0] = (long long)seq_scratch(nullptr, Q, K, S, dense != 0).bytes;
+  return 0;
+}
+
 // K7s, in place on grid: the sequential explore of the Q queries in (label,
 // id) order with live demotion.  qx/qy/qz/qlabels/qids/max_manhattan: int32
 // [Q]; qvalid: bool [Q]; qslot: bool [Q, K]; query_overflow: bool scalar.
 // Outputs: cluster_connected bool [K], n_writes int32 scalar (written, not
-// added to).  1 <= Q <= 4096, 2 <= S <= 62.
+// added to).  scratch: vofod_explore_seq_scratch's bytes (16-byte
+// aligned); ticket: an int32 that is 0 and that no launch on another
+// stream uses (left 0); stats: null or int32 [4], the walk's counts (floods
+// redone, speculative rows tested, failed queries, valid queries walked).
+// 1 <= Q <= 4096, 2 <= S <= 62.
 VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const void* qx,
                                        const void* qy, const void* qz, const void* qvalid,
                                        const void* qlabels, const void* qids, const void* qslot,
                                        const void* max_manhattan, const void* query_overflow,
                                        float thr_f, float thr_g, int Q, int K, int S,
                                        int max_iters, void* cluster_connected, void* n_writes,
-                                       void* stream) {
+                                       void* scratch, void* ticket, void* stats, void* stream) {
   if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(grid);
   if (S <= 32)
-    return launch_explore_seq<uint32_t>(grid, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
-                                        qslot, max_manhattan, query_overflow, thr_f, thr_g, Q,
-                                        K, S, max_iters, cluster_connected, n_writes, s);
-  return launch_explore_seq<unsigned long long>(grid, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
-                                                qids, qslot, max_manhattan, query_overflow,
-                                                thr_f, thr_g, Q, K, S, max_iters,
-                                                cluster_connected, n_writes, s);
+    return launch_spec<PlanesBody, true>(g, nullptr, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
+                                         qids, qslot, max_manhattan, query_overflow, thr_f, thr_g,
+                                         Q, K, S, max_iters, scratch, cluster_connected, n_writes,
+                                         nullptr, nullptr, nullptr, ticket, stats, s);
+  return launch_spec<SmemBody, true>(g, nullptr, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
+                                     qslot, max_manhattan, query_overflow, thr_f, thr_g, Q, K, S,
+                                     max_iters, scratch, cluster_connected, n_writes, nullptr,
+                                     nullptr, nullptr, ticket, stats, s);
 }
 
 // K15b-7a: the cut of a shard's slab.  grid: device float32 [nz, ny, nx],
@@ -929,9 +1253,9 @@ VOFOD_API int vofod_explore_cut(const void* grid, int nz, int ny, int nx, int z_
 }
 
 // K15b-7b: the walk on the replicated stack (vofod_explore_cut's words)
-// of a grid of (nz, ny, nx) rows.  The query table as
-// vofod_explore_sequential's.  Outputs: cluster_connected bool [K],
-// reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
+// of a grid of (nz, ny, nx) rows.  The query table, scratch, ticket and
+// stats as vofod_explore_sequential's.  Outputs: cluster_connected bool
+// [K], reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
 // corners int32 [Q, 3] (z, y, x), demoted bool [Q] (the failed queries).
 // 1 <= Q <= 4096, 2 <= S <= 62.
 VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx, const void* qx,
@@ -940,18 +1264,20 @@ VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx,
                                       const void* max_manhattan, const void* query_overflow,
                                       int Q, int K, int S, int max_iters,
                                       void* cluster_connected, void* reached, void* corners,
-                                      void* demoted, void* stream) {
+                                      void* demoted, void* scratch, void* ticket, void* stats,
+                                      void* stream) {
   if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 32)
-    return launch_explore_stack<uint32_t>(stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
-                                          qslot, max_manhattan, query_overflow, Q, K, S,
-                                          max_iters, cluster_connected, reached, corners,
-                                          demoted, s);
-  return launch_explore_stack<unsigned long long>(stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
-                                                  qids, qslot, max_manhattan, query_overflow, Q,
-                                                  K, S, max_iters, cluster_connected, reached,
-                                                  corners, demoted, s);
+    return launch_spec<PlanesBody, false>(nullptr, stack, nz, ny, nx, qx, qy, qz, qvalid,
+                                          qlabels, qids, qslot, max_manhattan, query_overflow,
+                                          0.0f, 0.0f, Q, K, S, max_iters, scratch,
+                                          cluster_connected, nullptr, reached, corners, demoted,
+                                          ticket, stats, s);
+  return launch_spec<SmemBody, false>(nullptr, stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
+                                      qids, qslot, max_manhattan, query_overflow, 0.0f, 0.0f, Q,
+                                      K, S, max_iters, scratch, cluster_connected, nullptr,
+                                      reached, corners, demoted, ticket, stats, s);
 }
 
 // K15b-7c, in place on a shard's slab: min(v, thr) at the reached voxels

@@ -203,7 +203,8 @@ def load():
             _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P]
         lib.vofod_explore_sequential.argtypes = [
             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P,
-            _P]
+            _P, _P, _P, _P]
+        lib.vofod_explore_seq_scratch.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_LL)]
         lib.vofod_cluster_stats.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P]
         lib.vofod_gate_faces.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P]
@@ -236,13 +237,14 @@ def load():
         lib.vofod_cone_sweep_zt.argtypes = [_P] * 6 + [_I] * 10 + [_P]
         lib.vofod_explore_cut.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _P,
                                           _P]
-        lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 5
+        lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 8
         lib.vofod_demote_direct.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P,
                                             _P]
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweeps,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_compact_geometry,
                    lib.vofod_explore, lib.vofod_demote, lib.vofod_explore_sequential,
+                   lib.vofod_explore_seq_scratch,
                    lib.vofod_cluster_stats,
                    lib.vofod_gate_faces, lib.vofod_ray_update, lib.vofod_ray_update_geometry,
                    lib.vofod_detect, lib.vofod_detect_geometry,
@@ -676,40 +678,90 @@ def demote_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
     return n_writes, cluster_connected
 
 
-def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
-                        qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
-                        qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
-                        query_overflow: torch.Tensor, thr_frontiers: float, thr_ground: float,
-                        submap: int, max_iters: int):
-    """K7s, in place on ``vmap``: the queries explored one at a time in
-    (label, id) order, a failed one demoting its reached voxels before the
-    next runs.  Returns (cluster_connected bool [K], n_writes int32)."""
-    if vmap.dim() != 3:
-        raise ValueError("explore_sequential takes a 3-D grid")
-    Q, S = qx.shape[0], int(submap)
+# K7s's and K15b-7b's launch state (csrc/explore.cu explore_spec_kernel):
+# the int32 ticket its blocks take, per (device, stream) as K6's look-back
+# state (the grid-sharded step's shards launch at once on their own
+# streams), zeroed once here and set back to 0 by each launch's last block;
+# and the scratch bytes a launch takes, by (Q, K, S, dense).
+_seq_tickets: dict[tuple[int, int], torch.Tensor] = {}
+_seq_scratch_bytes: dict[tuple[int, int, int, bool], int] = {}
+_seq_lock = threading.Lock()
+
+
+def seq_ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The ticket of K7s / K15b-7b launches on ``stream`` of ``dev`` (0
+    between launches)."""
+    key = (dev.index, stream)
+    t = _seq_tickets.get(key)
+    if t is None:
+        with _seq_lock:
+            t = _seq_tickets.setdefault(key, torch.zeros(1, dtype=torch.int32, device=dev))
+    return t
+
+
+def _seq_launch_state(dev: torch.device, Q: int, K: int, S: int, dense: bool):
+    """(scratch uint8 tensor, ticket, stream) of one K7s / K15b-7b launch on
+    the calling thread's current stream."""
+    key = (Q, K, S, dense)
+    n = _seq_scratch_bytes.get(key)
+    if n is None:
+        out = _LL()
+        _check(load().vofod_explore_seq_scratch(Q, K, S, int(dense), ctypes.byref(out)),
+               "vofod_explore_seq_scratch")
+        n = _seq_scratch_bytes[key] = out.value
+    stream = _stream(dev.index)
+    return torch.empty(n, dtype=torch.uint8, device=dev), seq_ticket(dev, stream), stream
+
+
+def _seq_args(name: str, Q: int, S: int, qx, qy, qz, qvalid, qlabels, qids, qslot,
+              max_manhattan, query_overflow, stats) -> int:
+    """Checks K7s's / K15b-7b's query table; returns K."""
     K = qslot.shape[-1] if qslot.dim() == 2 else 0
     if not 2 <= S <= 62:
         raise ValueError(f"explore submap side must be in [2, 62], got {S}")
     if not (1 <= Q <= 4096 and K >= 1):
-        raise ValueError(f"explore_sequential takes 1-4096 queries and >= 1 slot, got Q={Q}, "
-                         f"K={K}")
-    _require(vmap, "explore_seq grid", torch.float32)
-    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
+        raise ValueError(f"{name} takes 1-4096 queries and >= 1 slot, got Q={Q}, K={K}")
+    for t, what in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
                     (max_manhattan, "max_manhattan")):
-        _require(t, f"explore_seq {name}", torch.int32, (Q,))
-    _require(qvalid, "explore_seq qvalid", torch.bool, (Q,))
-    _require(qslot, "explore_seq qslot", torch.bool, (Q, K))
-    _require(query_overflow, "explore_seq query_overflow", torch.bool, ())
+        _require(t, f"{name} {what}", torch.int32, (Q,))
+    _require(qvalid, f"{name} qvalid", torch.bool, (Q,))
+    _require(qslot, f"{name} qslot", torch.bool, (Q, K))
+    _require(query_overflow, f"{name} query_overflow", torch.bool, ())
+    if stats is not None:
+        _require(stats, f"{name} stats", torch.int32, (4,))
+    return K
+
+
+def explore_sequential_(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor,
+                        qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
+                        qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
+                        query_overflow: torch.Tensor, thr_frontiers: float, thr_ground: float,
+                        submap: int, max_iters: int, stats: torch.Tensor | None = None):
+    """K7s, in place on ``vmap``: the queries explored in (label, id) order,
+    a failed one demoting its reached voxels before the next runs — every
+    valid query flooded at once on the grid before the walk, then one
+    block's walk flooding again only those whose flood meets an earlier
+    failed one's.  Returns (cluster_connected bool [K], n_writes int32).
+    ``stats``: None, or int32 [4] the walk writes its counts into (floods
+    redone, speculative floods tested, failed queries, valid queries)."""
+    if vmap.dim() != 3:
+        raise ValueError("explore_sequential takes a 3-D grid")
+    Q, S = qx.shape[0], int(submap)
+    K = _seq_args("explore_seq", Q, S, qx, qy, qz, qvalid, qlabels, qids, qslot, max_manhattan,
+                  query_overflow, stats)
+    _require(vmap, "explore_seq grid", torch.float32)
     dev = vmap.device
     cluster_connected = torch.empty(K, dtype=torch.bool, device=dev)
     n_writes = torch.empty((), dtype=torch.int32, device=dev)
+    scratch, ticket, stream = _seq_launch_state(dev, Q, K, S, True)
     nz, ny, nx = vmap.shape
     err = load().vofod_explore_sequential(
         vmap.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
         qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(), qslot.data_ptr(),
         max_manhattan.data_ptr(), query_overflow.data_ptr(), float(thr_frontiers),
         float(thr_ground), Q, K, S, int(max_iters), cluster_connected.data_ptr(),
-        n_writes.data_ptr(), _stream())
+        n_writes.data_ptr(), scratch.data_ptr(), ticket.data_ptr(),
+        None if stats is None else stats.data_ptr(), stream)
     _check(err, "vofod_explore_sequential")
     _count("explore_seq")
     return cluster_connected, n_writes
@@ -749,37 +801,32 @@ def explore_cut(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torc
 def explore_seq_stack(stack: torch.Tensor, grid_shape, qx: torch.Tensor, qy: torch.Tensor,
                       qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
                       qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
-                      query_overflow: torch.Tensor, max_iters: int):
-    """K15b-7b: K7s on the replicated stack of a grid of ``grid_shape``.
-    Returns (cluster_connected bool [K], reached [Q, S, S] words, corners
-    int32 [Q, 3], demoted bool [Q])."""
+                      query_overflow: torch.Tensor, max_iters: int,
+                      stats: torch.Tensor | None = None):
+    """K15b-7b: K7s on the replicated stack of a grid of ``grid_shape``, in
+    the same speculate-then-commit launch.  Returns (cluster_connected bool
+    [K], reached [Q, S, S] words, corners int32 [Q, 3], demoted bool [Q]).
+    ``stats``: as :func:`explore_sequential_`'s."""
     if stack.dim() != 4 or stack.shape[1] != 2 or stack.shape[2] != stack.shape[3]:
         raise ValueError(f"explore_seq_stack takes a [Q, 2, S, S] stack, got {tuple(stack.shape)}")
     Q, S = stack.shape[0], stack.shape[-1]
-    K = qslot.shape[-1] if qslot.dim() == 2 else 0
-    if not 2 <= S <= 62:
-        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
-    if not (1 <= Q <= 4096 and K >= 1):
-        raise ValueError(f"explore_seq_stack takes 1-4096 queries and >= 1 slot, got Q={Q}, "
-                         f"K={K}")
+    K = _seq_args("explore_seq_stack", Q, S, qx, qy, qz, qvalid, qlabels, qids, qslot,
+                  max_manhattan, query_overflow, stats)
     _require(stack, "explore_seq_stack stack", stack_words(S))
-    for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
-                    (max_manhattan, "max_manhattan")):
-        _require(t, f"explore_seq_stack {name}", torch.int32, (Q,))
-    _require(qvalid, "explore_seq_stack qvalid", torch.bool, (Q,))
-    _require(qslot, "explore_seq_stack qslot", torch.bool, (Q, K))
-    _require(query_overflow, "explore_seq_stack query_overflow", torch.bool, ())
     dev = stack.device
     conn = torch.empty(K, dtype=torch.bool, device=dev)
     reached = torch.empty((Q, S, S), dtype=stack.dtype, device=dev)
     corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
     demoted = torch.empty(Q, dtype=torch.bool, device=dev)
+    scratch, ticket, stream = _seq_launch_state(dev, Q, K, S, False)
     nz, ny, nx = (int(d) for d in grid_shape)
     err = load().vofod_explore_seq_stack(
         stack.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
         qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(), qslot.data_ptr(),
         max_manhattan.data_ptr(), query_overflow.data_ptr(), Q, K, S, int(max_iters),
-        conn.data_ptr(), reached.data_ptr(), corners.data_ptr(), demoted.data_ptr(), _stream())
+        conn.data_ptr(), reached.data_ptr(), corners.data_ptr(), demoted.data_ptr(),
+        scratch.data_ptr(), ticket.data_ptr(), None if stats is None else stats.data_ptr(),
+        stream)
     _check(err, "vofod_explore_seq_stack")
     _count("explore_seq_stack")
     return conn, reached, corners, demoted

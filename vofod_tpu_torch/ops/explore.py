@@ -47,6 +47,13 @@ packed rows), a psum replicates the stack, every shard walks the queries
 on it (:func:`explore_sequential_stack`, a failed query's reached voxels
 leaving the later queries' band), and each shard writes the failed
 queries' demotions into its own rows (:func:`demote_direct`).
+
+On the card K7s and K15b-7b are one launch each that speculates, then
+commits: every valid query is flooded at once on the grid before the walk,
+and one block's walk floods again only the queries whose speculative flood
+meets an earlier failed query's.  :func:`explore_sequential_spec_plain` is
+that schedule's plain model, held by the tests to both plain versions and
+to the JAX package.
 """
 
 from __future__ import annotations
@@ -210,9 +217,24 @@ def explore_planes_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tens
     gz = qz.long()[:, None] - half - z_lo + torch.arange(S, device=dev)
     inz = ((gz >= 0) & (gz < vmap_grid.shape[0]))[:, :, None, None]
     vals = torch.where(inz, vals, -1e30)  # rows past the buffer: certain air
-    band = _lanes(_pack_rows((vals > thr_frontiers) & (vals <= thr_ground)))
-    ground = _lanes(_pack_rows(vals > thr_ground))
+    band = _pack_rows((vals > thr_frontiers) & (vals <= thr_ground))
+    ground = _pack_rows(vals > thr_ground)
+    hit, reached, sweeps = _planes_flood(band, ground, max_manhattan, qvalid, max_iters)
+    connected = (hit | _at_grid_edge(grid, qx, qy, qz)) & qvalid
+    corners = torch.stack([qz - half, qy - half, qx - half], dim=-1).to(torch.int32)
+    return connected, reached, corners, sweeps
 
+
+def _planes_flood(band: Tensor, ground: Tensor, max_manhattan: Tensor, qvalid: Tensor,
+                  max_iters: int) -> tuple[Tensor, Tensor, Tensor]:
+    """K7's flood on the block's registers (csrc/explore.cu planes_flood),
+    from the [Q, S, S] band and ground words of each query's submap: (hit
+    bool [Q] — the closure touched ground or the reached set the shell at
+    bound - 1 —, reached int64 [Q, S, S] (0 for an invalid query), sweeps
+    int32 [Q]).  Only the ``qvalid`` queries flood."""
+    Q, S = band.shape[0], band.shape[-1]
+    half, dev = S // 2, band.device
+    band, ground = _lanes(band), _lanes(ground)
     lane = torch.arange(32, device=dev)
     z = lane.reshape(EXPLORE_WARPS, EXPLORE_PLANES)  # the plane of (warp, j)
     dzy = ((z - half).abs()[:, :, None] + (lane - half).abs()[None, None, :])[None]
@@ -223,7 +245,6 @@ def explore_planes_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tens
     cur = expandable & centre
     full = (1 << S) - 1
 
-    Q = qx.shape[0]
     sweeps = torch.zeros(Q, dtype=torch.int32, device=dev)
     running = qvalid.clone()  # an invalid query's block stores empty rows and leaves
     for _ in range(max_iters):
@@ -237,11 +258,8 @@ def explore_planes_plain(grid: GridSpec, vmap_grid: Tensor, qx: Tensor, qy: Tens
     clo = (_lane_dil6(cur, full) & ball) | centre
     shell = _ring_bits(dzy, bound - 1, half, shell=True)
     hit = ((clo & ground) != 0).any(dim=(1, 2, 3)) | ((cur & shell) != 0).any(dim=(1, 2, 3))
-    connected = (hit | _at_grid_edge(grid, qx, qy, qz)) & qvalid
-    reached = torch.where(qvalid[:, None, None],
-                          cur.reshape(Q, 32, 32)[:, :S, :S], 0)
-    corners = torch.stack([qz - half, qy - half, qx - half], dim=-1).to(torch.int32)
-    return connected, reached, corners, sweeps
+    reached = torch.where(qvalid[:, None, None], cur.reshape(Q, 32, 32)[:, :S, :S], 0)
+    return hit, reached, sweeps
 
 
 def _at_grid_edge(grid: GridSpec, qx: Tensor, qy: Tensor, qz: Tensor) -> Tensor:
@@ -602,6 +620,95 @@ def explore_sequential_stack_plain(grid: GridSpec, stack: Tensor, qx: Tensor, qy
             demoted[q] = True
             gone[box] |= unpack_rows(bits[0], S)
     return conn, reached, corners, demoted
+
+
+def _shifted_rows(w: Tensor, d: tuple[int, int, int]) -> Tensor:
+    """The [S, S] rows ``w`` of a failed query's box seen from a box at d =
+    (dz, dy, dx) = that box's corner - its corner (|d| < S): row (z, y) is
+    w's row (z + dz, y + dy) shifted right by dx (left by -dx), 0 where that
+    row lies outside ``w`` — K15b-7b's word shifts."""
+    S = w.shape[-1]
+    dz, dy, dx = d
+    out = torch.zeros_like(w)
+    z0, z1, y0, y1 = max(0, -dz), min(S, S - dz), max(0, -dy), min(S, S - dy)
+    src = w[z0 + dz:z1 + dz, y0 + dy:y1 + dy]
+    out[z0:z1, y0:y1] = (src >> dx) if dx >= 0 else (src << -dx) & ((1 << S) - 1)
+    return out
+
+
+def explore_sequential_spec_plain(grid: GridSpec, words: Tensor, qx: Tensor, qy: Tensor,
+                                  qz: Tensor, qvalid: Tensor, qlabels: Tensor, qids: Tensor,
+                                  qslot: Tensor, max_manhattan: Tensor, query_overflow: Tensor,
+                                  max_iters: int = 96):
+    """The schedule of K7s's and K15b-7b's launch (csrc/explore.cu
+    explore_spec_kernel), step by step, on the [Q, 2, S, S] band and ground
+    words of each query's submap (:func:`explore_cut_plain` of the whole
+    grid: what K7s's blocks load, K15b-7b's stack).  Returns
+    (cluster_connected bool [K], reached [Q, S, S] words of the failed
+    queries — 0 elsewhere, corners int32 [Q, 3], demoted bool [Q], redo —
+    the floods the walk ran again): :func:`explore_sequential_stack_plain`'s
+    outputs, and K7s's grid and count are :func:`demote_direct_plain` of
+    them.  A test instrument, not the CPU path.
+
+    1. Every valid query that does not start at the grid's edge is flooded
+       on the grid before the walk (K7's register flood for S <= 32, the
+       packed-row BFS past it), all at once.
+    2. The walk takes the valid queries in (label, id, index) order and skips
+       one whose cluster connected; a grid-edge start connects.
+    3. Any other query's speculative rows are tested against the rows of
+       every earlier failed query whose box overlaps its own (K15b-7b's word
+       shifts, :func:`_shifted_rows`).
+    4. With no voxel in common the speculative verdict and rows stand;
+       otherwise the query is flooded again on its band minus those rows."""
+    Q, S = words.shape[0], words.shape[-1]
+    K = qslot.shape[1]
+    half, dev = S // 2, words.device
+    conn = torch.zeros(K, dtype=torch.bool, device=dev)
+    reached = torch.zeros((Q, S, S), dtype=words.dtype, device=dev)
+    demoted = torch.zeros(Q, dtype=torch.bool, device=dev)
+    corners = torch.stack([qz - half, qy - half, qx - half], dim=-1).to(torch.int32)
+    if bool(query_overflow):
+        return conn, reached, corners, demoted, 0
+    band, ground = _words_i64(words[:, 0]), _words_i64(words[:, 1])
+    edge = _at_grid_edge(grid, qx, qy, qz)
+
+    def flood(b: Tensor, g: Tensor, mm: Tensor, live: Tensor) -> tuple[Tensor, Tensor]:
+        if S <= 32:
+            hit, rows, _ = _planes_flood(b, g, mm, live, max_iters)
+            return hit, rows
+        bound = torch.clamp(mm, max=half - 1)
+        rows, hit = _bfs_plain(unpack_rows(b, S) & live[:, None, None, None],
+                               unpack_rows(g, S), bound, max_iters)
+        return hit, rows
+
+    spec_hit, spec_rows = flood(band, ground, max_manhattan, qvalid & ~edge)
+    labels, ids, valid = qlabels.tolist(), qids.tolist(), qvalid.tolist()
+    box = corners.tolist()
+    failed, redo = [], 0
+    for q in sorted(range(Q), key=lambda i: (labels[i], ids[i], i)):
+        if not valid[q] or bool(torch.any(qslot[q] & conn)):
+            continue
+        if bool(edge[q]):
+            conn = conn | qslot[q]
+            continue
+        clear = torch.zeros((S, S), dtype=torch.int64, device=dev)
+        for f in failed:
+            d = tuple(a - b for a, b in zip(box[q], box[f]))
+            if max(abs(v) for v in d) < S:
+                clear |= _shifted_rows(_words_i64(reached[f]), d)
+        rows, hit = spec_rows[q], bool(spec_hit[q])
+        if bool(torch.any(rows & clear)):
+            redo += 1
+            h, r = flood((band[q] & ~clear)[None], ground[q:q + 1], max_manhattan[q:q + 1],
+                         torch.ones(1, dtype=torch.bool, device=dev))
+            rows, hit = r[0], bool(h[0])
+        if hit:
+            conn = conn | qslot[q]
+        else:
+            reached[q] = rows.to(words.dtype)
+            demoted[q] = True
+            failed.append(q)
+    return conn, reached, corners, demoted, redo
 
 
 def explore_sequential_stack(grid: GridSpec, stack: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
