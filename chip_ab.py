@@ -4,6 +4,7 @@
     python3 chip_ab.py PARENT_DIR CHANGE_DIR [--order pccp] [--exact-pairs N]
                        [--grid-exact-pairs N] [--demote-only] [--compact-gate-only]
                        [--explore-only] [--ray-detect-only] [--seq-only]
+                       [--seq-variants all|NAME,...]
                        [--variants all|NAME,...]
                        [--ray-detect-variants all|NAME,...] [--grid-sweeps-only]
                        [--grid-sweeps-variants all|K,...] [--grid-cones-only]
@@ -71,15 +72,27 @@ call:
   launches and other device ops (a fill, a memset) a call, the wrapper's
   host us a call over 1,000 calls with no sync, and the means over the
   five scans.  ``--explore-only`` runs these cases alone.
-- K7s and K15b-7b on the inputs the steps pass them (the wrappers' calls
-  on the 7th to 11th scans of a fresh sequential node and grid-sequential
-  driver, those with valid queries), each checked bit-equal to its plain
-  version, with its device ms, launches, other device ops and memsets a
-  scan (K7s replayed on a fresh copy of its grid every call), the
-  wrapper's host us a call over 300 calls with no sync, and the means over
-  the scans; and an L2 round trip (one thread chasing pointers through a
-  4 MB random cycle with ``ld.global.cg``).  ``--seq-only`` runs these
-  cases alone.
+- K7s, K15b-7a and K15b-7b on the inputs the steps pass them (the
+  wrappers' calls on the 7th to 11th scans of a fresh sequential node and
+  grid-sequential driver, those with valid queries), and K15b-7c's where
+  the tree launches it on its own, each checked bit-equal to its plain
+  version (a walk that stores into its slab: the walk's plain version,
+  then ``demote_direct_plain``), with its device ms, launches, other device
+  ops and memsets a scan (K7s, a storing walk and K15b-7c replayed on a
+  fresh copy of their grid every call), the wrapper's host us a call over
+  300 calls with no sync, and the means over the scans; the registers,
+  stack and local memory of K15b-7a's and K15b-7b's kernels (cuobjdump's
+  resource usage of the tree's library); and an L2 round trip (one thread
+  chasing pointers through a 4 MB random cycle with ``ld.global.cg``).
+  ``--seq-only`` runs these cases alone.  ``--seq-variants`` then replays
+  the grid-sequential cases (K15b-7a, K15b-7b) in the change tree, before
+  and after the given variants (``all``: SEQ_VARIANTS), each a copy of the
+  tree under its build/seq_variants/ with csrc/explore.cu edited in its
+  text and built on its own: ``cut:P:W``, K15b-7a's CUT_PLANES = P and
+  CUT_WARPS = W (and kernels.py's); ``no_stores``, K15b-7b's demotion
+  stores compiled out (its slab and count wrong: timed, not checked);
+  ``guard``, the stores behind a test of the query's box against the slab;
+  ``noinline``, ``store_demotions`` not inlined.
 - K10 and K5b on the inputs the sweep step passes them (the wrappers'
   calls on the 7th to 11th scans of a fresh node), each checked against
   its plain version (K10: valid, ids and the counter bit-equal, the floats
@@ -1069,17 +1082,23 @@ print(json.dumps(dict(nvidia_smi=smi, explore_cases=cases, explore_means=means))
 """
 
 # runs in the tree's root; prints one JSON line: K7s's calls of the dense
-# sequential step's scans 7-11 and K15b-7b's of the grid-sequential step's
-# (one a shard, 3 a scan), the scans with valid queries, each checked
-# bit-equal to its plain version (K7s on a fresh copy of its grid every
-# call) and replayed: device ms, launches, other device ops (K7s's grid copy
-# among them) and memsets a scan (torch.profiler), the wrapper's host us a
-# call over 300 calls with no sync, and the means over the scans; and an L2
-# round trip (a pointer chase on one thread)
+# sequential step's scans 7-11, and K15b-7a's and K15b-7b's of the
+# grid-sequential step's (one a shard, 3 a scan) with K15b-7c's where the
+# tree launches it on its own (a wrapper with its own fill), the scans with
+# valid queries, each checked bit-equal to its plain version (K7s, a walk
+# that stores into its slab and K15b-7c on a fresh copy of their grid every
+# call) and replayed: device ms, launches, other device ops (the copy and a
+# fill among them) and memsets a scan (torch.profiler), the wrapper's host
+# us a call over 300 calls with no sync, and the means over the scans; the
+# registers of K15b-7a's and K15b-7b's kernels; and an L2 round trip (a
+# pointer chase on one thread).  Arguments: ``grid``, the grid-sequential
+# cases alone (no K7s, no round trip); ``unchecked``, the storing walk's
+# slab and count timed but not checked (a variant without the stores)
 _SEQ_CASES = PROFILE + r"""
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -1088,7 +1107,9 @@ import chip_smoke as cs
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.config import DynParams
 from vofod_tpu_torch.geometry import GridSpec
-from vofod_tpu_torch.ops.explore import explore_sequential_plain, explore_sequential_stack_plain
+from vofod_tpu_torch.ops.explore import (demote_direct_plain, explore_cut_plain,
+                                         explore_sequential_plain,
+                                         explore_sequential_stack_plain)
 from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
 
 KERNEL = r"explore_(seq|stack|spec)_kernel"
@@ -1137,22 +1158,49 @@ def l2_round_trip_us(hops=100000):
     return round(min(ms[1:]) * 1e3 / hops, 4)
 
 
+def registers(match=r"explore_(cut|spec)_kernel"):
+    # {mangled kernel name: "REG:n STACK:n LOCAL:n"} of the library's
+    # kernels matching ``match``, from cuobjdump's resource usage
+    so, _ = kernels.build()
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    try:
+        text = subprocess.run([str(tool), "--dump-resource-usage", str(so)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        return {"error": str(e)[-300:]}
+    regs, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "REG:" in line:
+            if re.search(match, fn):
+                regs[fn] = " ".join(w for w in line.split()
+                                    if w.split(":")[0] in ("REG", "STACK", "LOCAL"))
+            fn = None
+    return regs
 
-def record(lut, name, grid_path, first=7, n=5):
-    # kernels.<name>'s calls (inputs cloned before the call) on scans
-    # first .. first + n - 1 of a fresh sequential node or grid driver
+
+def record(lut, names, grid_path, first=7, n=5):
+    # kernels.<name>'s calls for each of ``names`` (inputs cloned before the
+    # call) on scans first .. first + n - 1 of a fresh sequential node or
+    # grid driver: [(scan, {name: [args, ...]})]
     cfg = cs.sequential_config()
     node = VoFOD(cfg, DynParams(), NodeOptions(raycast_mode="exact"), lut, device="cuda")
     node.load_apriori_map(cs.apriori_ground())
     drive = cs.GridDriver(lut, node.state, cfg, raycast_mode="exact") if grid_path else node
-    orig, got, on, out = getattr(kernels, name), [], [False], []
+    origs, got, on, out = {k: getattr(kernels, k) for k in names}, {}, [False], []
 
-    def rec(*a, **kw):
-        if on[0]:
-            got.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
-        return orig(*a, **kw)
+    def recorder(name):
+        def rec(*a, **kw):
+            if on[0]:
+                got.setdefault(name, []).append(
+                    tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+            return origs[name](*a, **kw)
+        return rec
 
-    setattr(kernels, name, rec)
+    for k in names:
+        setattr(kernels, k, recorder(k))
     try:
         for i, (r, p) in enumerate(cs.scan_cycle(lut, first - 1 + n)):
             on[0] = i >= first - 1
@@ -1160,63 +1208,149 @@ def record(lut, name, grid_path, first=7, n=5):
             drive.process_scan(r, None, p)
             torch.cuda.synchronize()
             if on[0]:
-                out.append((i + 1, list(got)))
+                out.append((i + 1, {k: list(v) for k, v in got.items()}))
     finally:
-        setattr(kernels, name, orig)
+        for k, f in origs.items():
+            setattr(kernels, k, f)
     return cfg, out
 
 
+def fresh(fn, work, orig):
+    # fn on a fresh copy of its in-place grid every call
+    def run():
+        work.copy_(orig)
+        return fn(work)
+    return run
+
+
+grid_only, checked = "grid" in sys.argv[1:], "unchecked" not in sys.argv[1:]
 lut = cs.make_lut(cs.VoFODConfig().sensor)
 cases = {}
-cfg, calls = record(lut, "explore_sequential_", False)
-grid = GridSpec.from_config(cfg)
+cfg, calls = record(lut, ["explore_sequential_"], False) if not grid_only else (None, [])
 for scan, got in calls:
-    (a,) = got
+    (a,) = got["explore_sequential_"]
     if not bool(a[4].any()):
         continue
     vmap, work = a[0], a[0].clone()
-    want = explore_sequential_plain(grid, vmap.clone(), *a[1:])
+    want = explore_sequential_plain(GridSpec.from_config(cfg), vmap.clone(), *a[1:])
     res = kernels.explore_sequential_(work, *a[1:])
     if not (torch.equal(work, want[0]) and torch.equal(res[0], want[1])
             and torch.equal(res[1], want[2])):
         raise AssertionError(f"K7s sequential scan {scan}: differs from its plain version")
-
-    def fn(a=a, vmap=vmap, work=work):
-        work.copy_(vmap)  # a fresh grid every call: every demotion stores
-        return kernels.explore_sequential_(work, *a[1:])
-
+    fn = fresh(lambda w, a=a: kernels.explore_sequential_(w, *a[1:]), work, vmap)
     cases[f"sequential scan {scan}"] = dict(
         valid_queries=int(a[4].sum()), n_writes=int(want[2]),
         k7s=dict(**profiled(fn, KERNEL),
                  host_us=host_us(lambda a=a, work=work: kernels.explore_sequential_(work, *a[1:]),
                                  n=300)))
-cfg, calls = record(lut, "explore_seq_stack", True)
+# a tree whose K15b-7c has a launch of its own (its wrapper fills the count)
+split = hasattr(kernels, "demote_direct_")
+names = ["explore_cut", "explore_seq_stack"] + (["demote_direct_"] if split else [])
+cfg, calls = record(lut, names, True)
+grid = GridSpec.from_config(cfg)
 for scan, got in calls:
-    if not bool(got[0][5].any()):
+    walks = got["explore_seq_stack"]
+    if not bool(walks[0][5].any()):
         continue
-    for a in got:
-        want = explore_sequential_stack_plain(grid, a[0], *a[2:11], a[11])
-        if not all(torch.equal(x, y) for x, y in zip(kernels.explore_seq_stack(*a), want)):
-            raise AssertionError(f"K15b-7b grid-sequential scan {scan}: differs from its plain "
+    row = dict(valid_queries=int(walks[0][5].sum()), calls=len(walks))
+    # K15b-7a
+    for a in got["explore_cut"]:
+        if not torch.equal(kernels.explore_cut(*a), explore_cut_plain(*a)):
+            raise AssertionError(f"K15b-7a grid-sequential scan {scan}: differs from its plain "
                                  "version")
-
-    def fn(got=got):
-        return [kernels.explore_seq_stack(*a) for a in got]
-
-    cases[f"grid sequential scan {scan}"] = dict(
-        valid_queries=int(got[0][5].sum()), calls=len(got),
-        k15b7b=dict(**profiled(fn, KERNEL),
-                    host_us=host_us(lambda a=got[0]: kernels.explore_seq_stack(*a), n=300)))
+    cut = lambda cs_=got["explore_cut"]: [kernels.explore_cut(*a) for a in cs_]
+    row["k15b7a"] = dict(**profiled(cut, "explore_cut_kernel"),
+                         host_us=host_us(lambda a=got["explore_cut"][0]: kernels.explore_cut(*a),
+                                         n=300))
+    # K15b-7b, with K15b-7c's stores in its launch or, split, K15b-7c after it
+    fns, fns_c = [], []
+    for k, a in enumerate(walks):
+        want = explore_sequential_stack_plain(grid, a[0], *a[2:11], a[11])
+        if split:
+            ok = all(torch.equal(x, y) for x, y in zip(kernels.explore_seq_stack(*a), want))
+            fns.append(lambda a=a: kernels.explore_seq_stack(*a))
+            host_fn = fns[0]
+            d = got["demote_direct_"][k]
+            work, orig = d[0].clone(), d[0]
+            n_ = kernels.demote_direct_(work, *d[1:])
+            wg, wn = demote_direct_plain(orig.clone(), *d[1:])
+            ok = ok and torch.equal(work, wg) and torch.equal(n_, wn)
+            fns_c.append(fresh(lambda w, d=d: kernels.demote_direct_(w, *d[1:]), work, orig))
+        else:
+            slab, orig = a[12].clone(), a[12]
+            res = kernels.explore_seq_stack(*a[:12], slab, *a[13:])
+            wg, wn = demote_direct_plain(orig.clone(), *want[1:], a[14], (a[13], grid.nz))
+            ok = (all(torch.equal(x, y) for x, y in zip(res[:4], want))
+                  and (not checked or torch.equal(slab, wg) and torch.equal(res[4], wn)))
+            fns.append(fresh(lambda w, a=a: kernels.explore_seq_stack(*a[:12], w, *a[13:]), slab,
+                             orig))
+            if k == 0:  # the wrapper alone: its stores land on a scratch slab
+                host_fn = lambda a=a, w=orig.clone(): kernels.explore_seq_stack(*a[:12], w, *a[13:])
+        if not ok:
+            raise AssertionError(f"K15b-7b/c grid-sequential scan {scan}: differs from its plain "
+                                 "version")
+    row["k15b7b"] = dict(**profiled(lambda: [f() for f in fns], KERNEL),
+                         host_us=host_us(host_fn, n=300))
+    if split:  # the wrapper with its count's fill, on a scratch slab
+        w0 = got["demote_direct_"][0]
+        row["k15b7c"] = dict(**profiled(lambda: [f() for f in fns_c], "demote_direct_kernel"),
+                             host_us=host_us(lambda w=w0[0].clone(): kernels.demote_direct_(
+                                 w, *w0[1:]), n=300))
+    cases[f"grid sequential scan {scan}"] = row
 means = {}
-for path, k in (("sequential", "k7s"), ("grid sequential", "k15b7b")):
-    rows = [r[k] for c, r in cases.items() if c.startswith(path + " ")]
-    means[f"{path} {k}"] = {m: round(sum(r[m] for r in rows) / len(rows), 5)
-                            for m in ("device_ms", "launches", "other_ops", "memsets", "host_us")}
+for path, k in (("sequential", "k7s"), ("grid sequential", "k15b7a"),
+                ("grid sequential", "k15b7b"), ("grid sequential", "k15b7c")):
+    rows = [r[k] for c, r in cases.items() if c.startswith(path + " ") and k in r]
+    if rows:
+        means[f"{path} {k}"] = {m: round(sum(r[m] for r in rows) / len(rows), 5) for m in (
+            "device_ms", "launches", "other_ops", "memsets", "host_us")}
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
-print(json.dumps(dict(nvidia_smi=smi, seq_cases=cases, seq_means=means,
-                      l2_round_trip_us=l2_round_trip_us())))
+print(json.dumps(dict(nvidia_smi=smi, seq_cases=cases, seq_means=means, registers=registers(),
+                      stores_checked=checked,
+                      l2_round_trip_us=None if grid_only else l2_round_trip_us())))
 """
+
+# --seq-variants all: K15b-7a's schedule (z planes of a slot a block : warps a
+# block; 32 planes is one block a slot), then K15b-7b's demotion stores
+SEQ_VARIANTS = ("cut:32:8", "cut:32:16", "cut:8:8", "cut:8:4", "cut:4:8", "cut:2:4", "cut:2:2",
+                "no_stores", "guard", "noinline")
+_EXPLORE_CU = "vofod_tpu_torch/csrc/explore.cu"
+_STORE_CALL = r"^([ \t]*)count \+= body\.store_demotions\("
+# name: [(file, pattern, replacement, matches)]
+_SEQ_EDITS = {
+    "no_stores": [(_EXPLORE_CU, _STORE_CALL, r"\1if (kDense) count += body.store_demotions(", 1)],
+    "guard": [(_EXPLORE_CU, _STORE_CALL,
+               r"\1if (rec.z - half < z_lo + nzw && rec.z - half + S > z_lo) "
+               r"count += body.store_demotions(", 1)],
+    "noinline": [(_EXPLORE_CU, r"__device__ int store_demotions\(",
+                  "__device__ __noinline__ int store_demotions(", 2)],
+}
+
+
+def seq_variant_tree(tree: Path, name: str) -> Path:
+    """A copy of ``tree`` under its build/seq_variants/ with the variant's
+    edits (SEQ_VARIANTS' names) in its text; the copy builds its own kernel
+    library."""
+    if name.startswith("cut:"):
+        _, planes, warps = name.split(":")
+        edits = [e for const, v in (("CUT_PLANES", planes), ("CUT_WARPS", warps))
+                 for e in ((_EXPLORE_CU, rf"^constexpr int {const} = \d+;",
+                            f"constexpr int {const} = {int(v)};", 1),
+                           ("vofod_tpu_torch/kernels.py", rf"^{const} = \d+$",
+                            f"{const} = {int(v)}", 1))]
+    else:
+        edits = _SEQ_EDITS[name]
+    dst = tree / "build" / "seq_variants" / name.replace(":", "_")
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(tree, dst, ignore=shutil.ignore_patterns("build", "chiprun_out", ".git"))
+    for rel, pat, new, count in edits:
+        text, n = re.subn(pat, new, (dst / rel).read_text(), flags=re.M)
+        if n != count:
+            raise RuntimeError(f"seq variant {name}: {pat!r} found {n} times in {rel}")
+        (dst / rel).write_text(text)
+    return dst
 
 # the sweep step's calls of K10 and K5b on scans 7-11 (the wrappers' calls
 # recorded on a fresh node after the apriori plane, the scans chip_smoke's
@@ -2230,8 +2364,11 @@ def main() -> int:
     ap.add_argument("--ray-detect-only", action="store_true",
                     help="time only K10's and K5b's calls of the sweep step in each run")
     ap.add_argument("--seq-only", action="store_true",
-                    help="time only K7s's calls of the sequential step and K15b-7b's of the "
+                    help="time only K7s's calls of the sequential step and K15b-7a/b/c's of the "
                          "grid-sequential step in each run")
+    ap.add_argument("--seq-variants", default="",
+                    help="then replay K15b-7a's and K15b-7b's calls in these variants of the "
+                         "change ('all': " + ",".join(SEQ_VARIANTS) + ")")
     ap.add_argument("--variants", default="",
                     help="then time these variants of the change's K6 and K5a ('all': every one)")
     ap.add_argument("--ray-detect-variants", default="",
@@ -2307,6 +2444,22 @@ def main() -> int:
         out["ray_detect_variants"] = (json.loads(lines[-1]) if v.returncode == 0 and lines
                                       else {"error": v.stderr[-4000:]})
         ok = ok and v.returncode == 0
+    if args.seq_variants:
+        names = (SEQ_VARIANTS if args.seq_variants == "all" else args.seq_variants.split(","))
+        out["seq_variants"] = []
+        for name in ["change", *names, "change"]:
+            cwd = trees["c"] if name == "change" else seq_variant_tree(trees["c"], name)
+            flags = ["grid"] + (["unchecked"] if name == "no_stores" else [])
+            v = subprocess.run([sys.executable, "-c", _SEQ_CASES, *flags], cwd=cwd,
+                               capture_output=True, text=True, timeout=1200)
+            lines = v.stdout.strip().splitlines()
+            r = (json.loads(lines[-1]) if v.returncode == 0 and lines
+                 else {"error": v.stderr[-4000:]})
+            r = dict(variant=name, **{k: r[k] for k in ("seq_means", "registers", "stores_checked",
+                                                         "error") if k in r})
+            print(json.dumps(r), flush=True)
+            out["seq_variants"].append(r)
+            ok = ok and v.returncode == 0
     if args.grid_sweeps_variants:
         ks = ("2,4,8,16" if args.grid_sweeps_variants == "all"
               else args.grid_sweeps_variants).split(",")

@@ -258,7 +258,7 @@ from vofod_tpu_torch.ops.components import (  # noqa: E402
     SENTINEL, label_census, label_census_plain, label_components, label_components_plain,
     label_components_seeded, sweeps, sweeps_plain, sweeps_tiled_plain)
 from vofod_tpu_torch.ops.explore import (  # noqa: E402
-    demote_direct, demote_direct_plain, demote_floating, demote_floating_plain, explore,
+    demote_direct_plain, demote_floating, demote_floating_plain, explore,
     explore_cut_plain, explore_plain, explore_planes_plain, explore_sequential_,
     explore_sequential_plain, explore_sequential_spec_plain, explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
@@ -401,7 +401,6 @@ KERNEL_INFO = {
     "explore_cut": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/parallel/gridops.py:532"),
     "explore_seq_stack": ("vofod_tpu_torch/csrc/explore.cu",
                           "vofod_tpu/pipeline/classify.py:211"),
-    "demote_direct": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/parallel/gridops.py:548"),
 }
 # the grid-sharded step: shards of the flagship grid (51 = 3 x 17 planes),
 # all on the one card, and the kernels its path adds
@@ -413,10 +412,11 @@ GRID_EXACT_KERNELS = ("halo_exchange", "halo_fold_min", "ball_pool", "propagate_
                       "census_scatter", "census_read", "quirk_columns", "quirk_ranks",
                       "quirk_query", "dda_slab", "ray_ema", "exact_demote_ema")
 GRID_TRANSPOSE_KERNELS = ("halo_exchange", "halo_fold_min", "cone_sweep_lat", "cone_sweep_zt")
-# the reference-exact grid path with the sequential explore: K15b-7a/b/c in
-# place of K7s (and of the sharded K7 / K8 and their fold)
+# the reference-exact grid path with the sequential explore: K15b-7a and
+# K15b-7b (K15b-7c's stores in its launch) in place of K7s (and of the
+# sharded K7 / K8 and their fold)
 GRID_SEQ_KERNELS = tuple(k for k in GRID_EXACT_KERNELS if k != "halo_fold_min") + (
-    "explore_cut", "explore_seq_stack", "demote_direct")
+    "explore_cut", "explore_seq_stack")
 
 
 def say(phase: str, **kw) -> None:
@@ -3740,22 +3740,103 @@ def _voxels_read(grid: GridSpec, qx, qy, qz, qvalid, S: int, z0: int, nzl: int) 
     return int((n * qvalid).sum())
 
 
+def _cut_cases(grid: GridSpec, base: torch.Tensor, Q: int) -> dict:
+    """K15b-7a's cases past the K7s cases (query slots only; the rest of
+    the Q slots invalid): boxes that straddle a seam between the shards'
+    slabs, boxes that miss a slab (planes 0-2 and 48-50: the S = 32 box of
+    one misses the far slab), boxes at the grid's x / y edges, and case
+    (c)'s random field's queries at S = 40 (64-bit words)."""
+    dev = base.device
+    g = torch.Generator(device=dev).manual_seed(22)
+    nzl = grid.nz // GRID_SHARDS
+
+    def table(z, y, x, n_valid):
+        n = z.shape[0]
+        qx, qy, qz = (torch.zeros(Q, dtype=torch.int32, device=dev) for _ in range(3))
+        qz[:n], qy[:n], qx[:n] = z, y, x
+        qvalid = torch.arange(Q, device=dev) < n_valid
+        return qx, qy, qz, qvalid
+
+    def rand(hi, n):
+        return torch.randint(0, hi, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    seams = torch.tensor([nzl - 1, nzl, nzl + 1, 2 * nzl - 1, 2 * nzl, 2 * nzl + 1],
+                         dtype=torch.int32, device=dev)
+    n = 48
+    seam_z = seams[torch.arange(n, device=dev) % seams.shape[0]]
+    out_z = torch.tensor([0, 1, 2, grid.nz - 3, grid.nz - 2, grid.nz - 1], dtype=torch.int32,
+                         device=dev)[torch.arange(n, device=dev) % 6]
+    ex = torch.tensor([0, 1, grid.nx - 2, grid.nx - 1], dtype=torch.int32, device=dev)
+    ey = torch.tensor([0, 1, grid.ny - 2, grid.ny - 1], dtype=torch.int32, device=dev)
+    k = torch.arange(n, device=dev)
+    edge_x = torch.where(k % 2 == 0, ex[k % 4], rand(grid.nx, n))
+    edge_y = torch.where(k % 2 == 1, ey[k % 4], rand(grid.ny, n))
+    return {
+        "(s) seam-straddling boxes": (32, table(seam_z, rand(grid.ny, n), rand(grid.nx, n), 40)),
+        "(t) boxes outside a slab": (32, table(out_z, rand(grid.ny, n), rand(grid.nx, n), 40)),
+        "(u) S = 40": (40, table(rand(grid.nz, 256), rand(grid.ny, 256), rand(grid.nx, 256),
+                                 256)),
+        "(v) boxes at the x / y edges": (32, table(rand(grid.nz, n), edge_y, edge_x, 40)),
+    }
+
+
+def _cut_vs_plain(comm, base: torch.Tensor, qt: tuple, S: int, thr_f: float, thr_g: float,
+                  tag: str) -> torch.Tensor:
+    """K15b-7a on each shard's slab of ``base`` at once, each bit-equal to
+    its plain version, and the psum'd stack equal to the plain cut of the
+    whole grid; returns the whole grid's plain cut."""
+    nzl = base.shape[0] // GRID_SHARDS
+    whole = explore_cut_plain(base, *qt, thr_f, thr_g, S)
+
+    def cut_shard(rank):
+        slab = base[rank * nzl:(rank + 1) * nzl].contiguous()
+        k = kernels.explore_cut(slab, *qt, thr_f, thr_g, S, rank * nzl)
+        _equal((k,), (explore_cut_plain(slab, *qt, thr_f, thr_g, S, rank * nzl),),
+               f"K15b-7a{tag}[{rank}]")
+        return comm.psum(k)
+
+    for rank, st in enumerate(comm.run(cut_shard)):
+        _equal((st,), (whole,), f"K15b-7a{tag}.stack[{rank}]")
+    return whole
+
+
+def _fused_vs_plain(grid: GridSpec, whole: torch.Tensor, base: torch.Tensor, q: tuple, rank: int,
+                    thr_f: float, tag: str, stats: torch.Tensor | None = None) -> dict:
+    """K15b-7b's launch with K15b-7c's stores on shard ``rank``'s slab (a
+    copy of ``base``'s rows): the walk bit-equal to its plain version, and
+    the slab and count bit-equal to ``demote_direct_plain`` of the launch's
+    own reached / corners / demoted on the slab.  Returns the count and
+    the slab's voxels the stores changed."""
+    nzl = grid.nz // GRID_SHARDS
+    z0 = rank * nzl
+    slab = base[z0:z0 + nzl].clone()
+    walk = kernels.explore_seq_stack(whole, grid.shape, *q, 96, slab, z0, thr_f, stats=stats)
+    _equal(walk[:4], explore_sequential_stack_plain(grid, whole, *q),
+           " ".join(f"K15b-7b{tag}[{rank}].{f}" for f in ("connected", "reached", "corners",
+                                                          "demoted")))
+    want = demote_direct_plain(base[z0:z0 + nzl].clone(), *walk[1:4], thr_f, (z0, grid.nz))
+    _equal((slab, walk[4]), want, f"K15b-7c{tag}.slab[{rank}] K15b-7c{tag}.n_writes[{rank}]")
+    return dict(n_writes=int(walk[4]), changed=int((slab != base[z0:z0 + nzl]).sum()))
+
+
 def phase2_grid_seq(lut) -> list[dict]:
-    """The sequential explore over z shards (K15b-7a/b/c) with 3 shards of
-    17 planes of the flagship grid on the card, in two K7s cases of
-    :func:`_seq_cases`: (a) a flagship scan's queries and (c) 256 random
-    queries over 32 clusters, where boxes overlap and demotions chain.
-    K15b-7a's cut of each slab bit-equal to its plain version, and the
-    psum'd stack equal to the plain cut of the whole grid; K15b-7b's walk
-    bit-equal to its plain version on that stack; K15b-7c on each slab
-    bit-equal to its plain version; and the three through
+    """The sequential explore over z shards (K15b-7a, and K15b-7b with
+    K15b-7c's stores in its launch) with 3 shards of 17 planes of the
+    flagship grid on the card.  K15b-7a's cut of each slab bit-equal to its
+    plain version, and the psum'd stack equal to the plain cut of the whole grid, in K7s cases (a)
+    a flagship scan's queries and (c) 256 random queries over 32 clusters
+    (boxes overlap, demotions chain) of :func:`_seq_cases`, and in
+    :func:`_cut_cases`.  In (a) and (c) the fused launch on each slab:
+    its walk bit-equal to its plain version, its slab and count to
+    ``demote_direct_plain`` of its own outputs; and the two through
     ``ZShardOps.explore_sequential`` bit-equal to the dense K7s on the same
-    grid: the grid, cluster_connected and n_writes.  Then K15b-7b alone on
-    the whole grid's stack in all eight cases (its walk's counts equal the
-    schedule model's, its ticket 0 after), and the 3 shards' K15b-7b
-    launches of case (c) at once on their own streams and tickets.
-    CUDA-event ms of each kernel and its plain version, on case (a) (case
-    (c) beside it)."""
+    grid: the grid, cluster_connected and n_writes.  Then the fused launch
+    on every shard in all eight cases (its walk's counts equal the schedule
+    model's, its ticket 0 after), the shared-memory bodies' stores at S =
+    40 on case (c)'s queries (the fused launch on every slab, K7s on the
+    whole grid), and the 3 shards' launches of case (c) at once on their
+    own streams and tickets.  CUDA-event ms of each kernel
+    and its plain version, on case (a) (case (c) beside it)."""
     dev = torch.device("cuda")
     cfg, dyn = sequential_config(), DynParams()
     grid = GridSpec.from_config(cfg)
@@ -3767,38 +3848,25 @@ def phase2_grid_seq(lut) -> list[dict]:
     ops = ZShardOps(comm, n)
     runs, _ = _seq_cases(lut)
     cases, timed = {}, {}
+    field = runs["(c) 256 queries, 32 clusters"][0]
+    for name, (s_, qt) in _cut_cases(grid, field, Q).items():
+        _cut_vs_plain(comm, field, qt, s_, thr_f, thr_g, name[:3])
+        cases[name] = dict(S=s_, valid_queries=int(qt[3].sum()))
     for name in ("(a) flagship scan", "(c) 256 queries, 32 clusters"):
         tag = name[:3]
         base, q = runs[name]
         qx, qy, qz, qvalid, qlabels, qids, qslot, mm, ov = q
-
-        def cut_shard(rank):
-            slab = base[sl[rank]].contiguous()
-            k = kernels.explore_cut(slab, qx, qy, qz, qvalid, thr_f, thr_g, S, rank * nzl)
-            _equal((k,), (explore_cut_plain(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
-                                            rank * nzl),), f"K15b-7a{tag}[{rank}]")
-            return comm.psum(k)
-
-        whole = explore_cut_plain(base, qx, qy, qz, qvalid, thr_f, thr_g, S)
-        for rank, st in enumerate(comm.run(cut_shard)):
-            _equal((st,), (whole,), f"K15b-7a{tag}.stack[{rank}]")
-        walk = kernels.explore_seq_stack(whole, grid.shape, qx, qy, qz, qvalid, qlabels, qids,
-                                         qslot, mm, ov, 96)
-        _equal(walk, explore_sequential_stack_plain(grid, whole, *q),
-               " ".join(f"K15b-7b{tag}.{f}" for f in ("connected", "reached", "corners",
-                                                       "demoted")))
-        conn, reached, corners, demoted = walk
-        for rank in range(n):
-            args = (reached, corners, demoted, thr_f, (rank * nzl, grid.nz))
-            k = demote_direct(base[sl[rank]].clone(), *args)
-            _equal(k, demote_direct_plain(base[sl[rank]].clone(), *args),
-                   f"K15b-7c{tag}.grid[{rank}] K15b-7c{tag}.n_writes[{rank}]")
+        whole = _cut_vs_plain(comm, base, q[:4], S, thr_f, thr_g, tag)
+        fused = [_fused_vs_plain(grid, whole, base, q, rank, thr_f, tag) for rank in range(n)]
+        conn, reached, corners, demoted = explore_sequential_stack_plain(grid, whole, *q)
         dg, dc, dn = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, S)
         outs = comm.run(lambda rank: ops.explore_sequential(grid, base[sl[rank]].clone(), *q,
                                                             thr_f, thr_g, S))
         for rank, (_, c, w) in enumerate(outs):
             _equal((c, w), (dc, dn), f"K15b-7{tag}.connected[{rank}] K15b-7{tag}.n_writes[{rank}]")
         _equal((torch.cat([o[0] for o in outs]),), (dg,), f"K15b-7{tag}.grid")
+        if sum(f["n_writes"] for f in fused) != int(dn):
+            raise AssertionError(f"K15b-7c{tag}: the shards' counts {fused}, the dense {int(dn)}")
         # boxes that overlap an earlier failed query's (what the walk's
         # clearing reads)
         gz = corners.long()
@@ -3808,90 +3876,104 @@ def phase2_grid_seq(lut) -> list[dict]:
         overlap = close.any(-1) & qvalid
         cases[name] = dict(valid_queries=int(qvalid.sum()), failed_queries=int(demoted.sum()),
                            clusters_connected=int(dc.sum()), n_writes=int(dn),
+                           shard_writes=[f["n_writes"] for f in fused],
                            queries_overlapping_a_failed_box=int(overlap.sum()))
         mid = 1  # the middle shard's slab
         z0 = mid * nzl
         slab = base[sl[mid]].contiguous()
-        win = (z0, grid.nz)
-        slab_writes = int(demote_direct_plain(slab.clone(), reached, corners, demoted, thr_f,
-                                              win)[1])
+
+        # the walk on the shard with the most stores
+        ws = max(range(n), key=lambda r: fused[r]["n_writes"])
+        wslab, wwin = base[sl[ws]].contiguous(), (ws * nzl, grid.nz)
+
+        def walk_plain(v):
+            c = explore_sequential_stack_plain(grid, whole, *q)
+            return demote_direct_plain(v, *c[1:], thr_f, wwin)
+
         timed[name] = dict(
             cut=(cuda_ms(lambda: kernels.explore_cut(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
                                                      z0)),
                  cuda_ms(lambda: explore_cut_plain(slab, qx, qy, qz, qvalid, thr_f, thr_g, S,
                                                    z0), reps=3)),
-            walk=(cuda_ms(lambda: kernels.explore_seq_stack(whole, grid.shape, *q, 96)),
-                  cuda_ms(lambda: explore_sequential_stack_plain(grid, whole, *q), reps=1)),
-            demote=(_inplace_ms(lambda v: demote_direct(v, reached, corners, demoted, thr_f,
-                                                        win), slab),
-                    _inplace_ms(lambda v: demote_direct_plain(v, reached, corners, demoted,
-                                                              thr_f, win), slab, reps=3)),
+            walk=(_inplace_ms(lambda v: kernels.explore_seq_stack(whole, grid.shape, *q, 96, v,
+                                                                  ws * nzl, thr_f), wslab),
+                  _inplace_ms(walk_plain, wslab, reps=1)),
             voxels_read=_voxels_read(grid, qx, qy, qz, qvalid, S, z0, nzl),
-            slab_writes=slab_writes)
+            slab_writes=fused[ws]["n_writes"], walk_shard=ws)
     c_ = cases["(c) 256 queries, 32 clusters"]
     if not (c_["n_writes"] > 0 and 0 < c_["clusters_connected"] < K
-            and c_["queries_overlapping_a_failed_box"] > 0):
-        raise AssertionError(f"K15b-7 case (c) does not chain demotions: {c_}")
-    # K15b-7b alone in every case of _seq_cases, on the whole grid's stack,
-    # its walk's counts held to the schedule model's
+            and c_["queries_overlapping_a_failed_box"] > 0
+            and sum(w > 0 for w in c_["shard_writes"]) >= 2):
+        raise AssertionError(f"K15b-7 case (c) does not chain demotions over shards: {c_}")
+    # the fused launch on every shard in every case of _seq_cases, on the
+    # whole grid's stack, its walk's counts held to the schedule model's
     walks = {}
     for name, (base, q) in runs.items():
         whole = explore_cut_plain(base, *q[:4], thr_f, thr_g, S)
-        stats = torch.full((4,), -1, dtype=torch.int32, device=dev)
-        walk = kernels.explore_seq_stack(whole, grid.shape, *q, 96, stats=stats)
-        _equal(walk, explore_sequential_stack_plain(grid, whole, *q),
-               " ".join(f"K15b-7b{name[:3]}.{f}" for f in ("connected", "reached", "corners",
-                                                           "demoted")))
-        walks[name] = _seq_walk_check(grid, base, q, stats, f"K15b-7b{name[:3]}", S, thr_f,
+        stats = [torch.full((4,), -1, dtype=torch.int32, device=dev) for _ in range(n)]
+        fused = [_fused_vs_plain(grid, whole, base, q, rank, thr_f, name[:3], stats[rank])
+                 for rank in range(n)]
+        walks[name] = _seq_walk_check(grid, base, q, stats[0], f"K15b-7b{name[:3]}", S, thr_f,
                                       thr_g)
+        if any(st.tolist() != stats[0].tolist() for st in stats):
+            raise AssertionError(f"K15b-7b{name[:3]}: the shards' walk counts differ")
+        walks[name]["shard_writes"] = [f["n_writes"] for f in fused]
+    # the shared-memory body's stores (S = 40, 64-bit words) on case (c)'s
+    # queries: K7s's on the whole grid, the fused launch's on every slab
+    base, q = runs["(c) 256 queries, 32 clusters"]
+    whole = explore_cut_plain(base, *q[:4], thr_f, thr_g, 40)
+    fused = [_fused_vs_plain(grid, whole, base, q, rank, thr_f, "(c)S40") for rank in range(n)]
+    dense = explore_sequential_(grid, base.clone(), *q, thr_f, thr_g, 40)
+    _equal(dense, explore_sequential_plain(grid, base.clone(), *q, thr_f, thr_g, 40),
+           "K7s(c)S40.grid K7s(c)S40.connected K7s(c)S40.n_writes")
+    if sum(f["n_writes"] for f in fused) != int(dense[2]) or int(dense[2]) == 0:
+        raise AssertionError(f"K15b-7c(c)S40: the shards' counts {fused}, K7s's {int(dense[2])}")
+    walks["(c) at S = 40"] = dict(shard_writes=[f["n_writes"] for f in fused])
     # the 3 shards' launches at once, each on its stream with its own ticket
     base, q = runs["(c) 256 queries, 32 clusters"]
     whole = explore_cut_plain(base, *q[:4], thr_f, thr_g, S)
-    want = explore_sequential_stack_plain(grid, whole, *q)
 
     def shard_walk(rank):
         stats = torch.full((4,), -1, dtype=torch.int32, device=dev)
-        return (kernels.explore_seq_stack(whole, grid.shape, *q, 96, stats=stats), stats,
-                kernels.seq_ticket(whole.device, kernels._stream()))
+        f = _fused_vs_plain(grid, whole, base, q, rank, thr_f, f"(c)@{rank}", stats)
+        return f, stats, kernels.seq_ticket(whole.device, kernels._stream())
 
     outs = comm.run(shard_walk)
     torch.cuda.synchronize()
-    for rank, (walk, stats, _) in enumerate(outs):
-        _equal(walk, want, " ".join(f"K15b-7b(c)[{rank}].{f}" for f in (
-            "connected", "reached", "corners", "demoted")))
+    for rank, (_, stats, _) in enumerate(outs):
         if stats.tolist() != outs[0][1].tolist():
             raise AssertionError(f"K15b-7b shard {rank}'s walk counts {stats.tolist()}")
     tickets = [int(t) for _, _, t in outs]
     if len({t.data_ptr() for _, _, t in outs}) != n or any(tickets):
         raise AssertionError(f"K15b-7b shards' tickets {tickets}: not 0, or shared")
     say("2-grid-seq-walk", concurrent_shards=n, shard_tickets_after=tickets,
-        shard_walk=outs[0][1].tolist(), **walks)
+        shard_walk=outs[0][1].tolist(), shard_writes=[f["n_writes"] for f, _, _ in outs],
+        **walks)
     a, ta, tc = (cases["(a) flagship scan"], timed["(a) flagship scan"],
                  timed["(c) 256 queries, 32 clusters"])
     word = 4 if S <= 32 else 8
     rows = Q * S * S * word
     qtab = Q * (6 * 4 + 1 + K)
     shapes = (f"Q={Q}, K={K}, S={S}, {n} shards of {nzl} planes; ms/plain_ms: case (a) "
-              f"({a['valid_queries']} valid queries, {a['failed_queries']} failed), the middle "
-              f"shard's slab; synthetic_ms: case (c) ({c_['valid_queries']} valid, "
+              f"({a['valid_queries']} valid queries, {a['failed_queries']} failed), the cut on "
+              f"the middle shard's slab, the walk on shard {ta['walk_shard']}'s (the most "
+              f"stores); synthetic_ms: case (c) ({c_['valid_queries']} valid, "
               f"{c_['failed_queries']} failed, {c_['n_writes']} writes)")
     common = dict(max_abs_err=0.0, library_ms=None, cases=cases, shapes=shapes)
     out = [
-        # the slab voxels of the submaps read once, the stack written once
+        # the slab voxels of the submaps read once, the stack written once,
+        # the slots' corners and flags read
         dict(name="explore_cut", ms=ta["cut"][0], plain_ms=ta["cut"][1],
-             synthetic_ms=tc["cut"][0], bytes=ta["voxels_read"] * 4 + 2 * rows + qtab,
-             ops=ta["voxels_read"] * 3, **common),
+             synthetic_ms=tc["cut"][0],
+             bytes=ta["voxels_read"] * 4 + 2 * rows + Q * 13, ops=ta["voxels_read"] * 3,
+             **common),
         # each valid query's stack rows read once, the reached rows written
-        # once; K7s's op count
+        # once, the slab's demotions stored (no read); K7s's op count
         dict(name="explore_seq_stack", ms=ta["walk"][0], plain_ms=ta["walk"][1],
-             synthetic_ms=tc["walk"][0],
-             bytes=a["valid_queries"] * 2 * S * S * word + rows + Q * 14 + qtab + K,
-             ops=a["valid_queries"] * S**3 * 7 + Q * Q, **common),
-        # the failed queries' rows read, each written voxel read and written
-        dict(name="demote_direct", ms=ta["demote"][0], plain_ms=ta["demote"][1],
-             synthetic_ms=tc["demote"][0],
-             bytes=a["failed_queries"] * S * S * word + ta["slab_writes"] * 8 + Q * 13 + 4,
-             ops=ta["slab_writes"], **common),
+             synthetic_ms=tc["walk"][0], slab_writes=ta["slab_writes"],
+             bytes=(a["valid_queries"] * 2 * S * S * word + rows + Q * 14 + qtab + K
+                    + ta["slab_writes"] * 4),
+             ops=a["valid_queries"] * S**3 * 7 + Q * Q + ta["slab_writes"], **common),
     ]
     for r_ in out:
         say("2-grid-seq", **r_)
@@ -4016,8 +4098,7 @@ GRID_PATHS = {
     "sequential": (sequential_config, dict(raycast_mode="exact"), dict(raycast_mode="exact"),
                    GRID_SEQ_KERNELS, _EXACT_NEVER + ("halo_fold_min", "explore_seq",
                                                      "explore_bfs", "demote"),
-                   {**{k: GRID_SHARDS for k in ("explore_cut", "explore_seq_stack",
-                                                "demote_direct")},
+                   {**{k: GRID_SHARDS for k in ("explore_cut", "explore_seq_stack")},
                     **_grid_counts(18, _CC, 128)}),
 }
 GRID_PHASES = {"sweep": "4-grid", "exact": "4-grid-exact", "transpose": "4-grid-transpose",
@@ -4196,7 +4277,7 @@ PORT_KERNELS = (
     "sweeps_kernel", "frontend_bin_kernel", "cone_cluster_kernel",
     "cone_cluster_lat_kernel", "cone_cluster_zt_kernel", "compact_kernel",
     "explore_planes_kernel", "explore_kernel", "demote_kernel", "explore_spec_kernel",
-    "explore_cut_kernel", "demote_direct_kernel", "slots_kernel",
+    "explore_cut_kernel", "slots_kernel",
     "chunk_sort_kernel", "chunk_heads_kernel", "chunk_rank_kernel", "chunk_stats_kernel",
     "gate_faces_kernel", "ray_update_kernel", "ray_ema_grid_kernel", "detect_kernel",
     "dda_kernel", "round_kernel", "census_add_kernel", "census_read_kernel",
@@ -4359,8 +4440,7 @@ def main() -> int:
                      "propagate_batch": gx_launches,
                      "explore_seq": seq_launches, "cone_sweep_zt": gt_launches,
                      **{g: grid_launches for g in GRID_KERNELS},
-                     **{g: gs_launches for g in ("explore_cut", "explore_seq_stack",
-                                                 "demote_direct")},
+                     **{g: gs_launches for g in ("explore_cut", "explore_seq_stack")},
                      **{g: gx_launches for g in ("census_scatter", "census_read", "quirk_columns",
                                                  "quirk_ranks", "quirk_query", "dda_slab")}}
     record = []

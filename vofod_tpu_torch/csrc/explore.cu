@@ -80,12 +80,16 @@
 //    round trip).  Only where they meet is the query flooded again, on its
 //    band words minus those rows.  One barrier a walked query publishes the
 //    connected slots and the failed list;
-//  - K7s's failed floods are disjoint sets of band voxels (each one floods
+//  - the failed floods are disjoint sets of band voxels (each one floods
 //    the band minus the earlier ones), and the walk reads band words, never
 //    the grid, so the walking block stores thr_frontiers, which is min(v,
 //    thr_frontiers) there, at a failed query's voxels from the registers
 //    that hold its flood as it fails (plain stores), and writes the count
-//    at the end.
+//    at the end: K7s into the live grid, K15b-7b into the shard's slab (its
+//    z rows of the grid; the stack was cut from the slabs before the launch
+//    and nothing writes them in between, so a reached voxel still holds its
+//    band value).  That store is K15b-7c, the grid-sharded step's demotion
+//    write-back: it has no launch of its own.
 // Scratch, rows and the live grid are written in this launch, so every read
 // of them goes through L2 (__ldcg), never the read-only cache.  The ticket
 // is an int32 per (device, stream) that the last block sets back to 0: no
@@ -471,34 +475,6 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
     connected[q] = (hit || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
 }
 
-// The stores of one query's demotion, by the whole block: min(v, thr) at
-// the reached voxels (rows `rq`, submap corner (z0, y0, x0)) inside
-// both the buffer (rows [z_lo, z_lo + nz)) and the grid (nz_g rows).  Every
-// reached voxel was in the unknown band (v > thr) of the grid the BFS
-// read, so all writers of a voxel store the same value: plain stores, no
-// atomics on the grid.  Returns this thread's count of the stores.
-template <typename W>
-__device__ int store_min_rows(float* grid, int nz, int ny, int nx, int z_lo, int nz_g,
-                              const W* rq, int z0, int y0, int x0, int S, float thr) {
-  int count = 0;
-  for (int r = threadIdx.x; r < S * S; r += blockDim.x) {
-    unsigned long long w = (unsigned long long)rq[r];
-    if (w == 0ull) continue;
-    const int gz = z0 + r / S, gy = y0 + r % S, lz = gz - z_lo;
-    if (gz < 0 || gz >= nz_g || lz < 0 || lz >= nz || gy < 0 || gy >= ny) continue;
-    float* row = grid + ((size_t)lz * ny + gy) * nx;
-    while (w != 0ull) {
-      const int x = __ffsll((long long)w) - 1;
-      w &= w - 1;
-      const int gx = x0 + x;
-      if (gx < 0 || gx >= nx) continue;
-      if (row[gx] > thr) row[gx] = thr;  // min(v, thr), NaN kept as in torch.clamp
-      ++count;
-    }
-  }
-  return count;
-}
-
 // One atomic per warp on a device write counter.
 __device__ __forceinline__ void add_count(int count, int* n_writes) {
   for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
@@ -615,10 +591,10 @@ __device__ __forceinline__ bool rec_hit(const int4& r) { return (r.w >> 12) & 1;
 __device__ __forceinline__ bool rec_edge(const int4& r) { return (r.w >> 13) & 1; }
 __device__ __forceinline__ int rec_bound(const int4& r) { return ((r.w >> 16) & 0xff) - 1; }
 
-// K7s's demotion of one reached row w (bit x: grid x0 + x) of a failed
-// query: thr_f at its voxels inside the grid.  They were in the band (v >
-// thr_f) when the launch began and no two failed floods share one, so
-// min(v, thr_f) is thr_f: stored without a read.  Returns the stores.
+// The demotion of one reached row w (bit x: grid x0 + x) of a failed query:
+// thr_f at its voxels inside the grid.  They were in the band (v > thr_f)
+// when the launch began and no two failed floods share one, so min(v,
+// thr_f) is thr_f: stored without a read.  Returns the stores.
 __device__ __forceinline__ int store_row(float* row, unsigned long long w, int x0, int nx,
                                          float thr_f) {
   int count = 0;
@@ -704,19 +680,20 @@ struct PlanesBody {
     for (int j = 0; j < EXPLORE_PLANES; ++j) m |= cur[j] & clear[j];
     return m != 0;
   }
-  // K7s: thr_f at the reached voxels inside the grid (box corner (x0, y0,
-  // z0)) of the failed query the registers hold; returns this thread's count
-  __device__ int store_demotions(float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
-                                 float thr_f) const {
+  // thr_f at the reached voxels (box corner (x0, y0, z0)) of the failed
+  // query the registers hold that lie in `grid`, the z rows [z_lo, z_lo +
+  // nzw) of the grid; returns this thread's count
+  __device__ int store_demotions(float* grid, int z_lo, int nzw, int ny, int nx, int x0, int y0,
+                                 int z0, float thr_f) const {
     const int lane = threadIdx.x & 31, zw = (threadIdx.x >> 5) * EXPLORE_PLANES;
     const int gy = y0 + lane;
     int count = 0;
     if (lane >= S || gy < 0 || gy >= ny) return 0;
 #pragma unroll
     for (int j = 0; j < EXPLORE_PLANES; ++j) {
-      const int gz = z0 + zw + j;
-      if (zw + j >= S || gz < 0 || gz >= nz) continue;
-      count += store_row(grid + ((size_t)gz * ny + gy) * nx, cur[j], x0, nx, thr_f);
+      const int lz = z0 + zw + j - z_lo;
+      if (zw + j >= S || lz < 0 || lz >= nzw) continue;
+      count += store_row(grid + ((size_t)lz * ny + gy) * nx, cur[j], x0, nx, thr_f);
     }
     return count;
   }
@@ -823,15 +800,15 @@ struct SmemBody {
     }
     return m != 0;
   }
-  __device__ int store_demotions(float* grid, int nz, int ny, int nx, int x0, int y0, int z0,
-                                 float thr_f) const {
+  __device__ int store_demotions(float* grid, int z_lo, int nzw, int ny, int nx, int x0, int y0,
+                                 int z0, float thr_f) const {
     int count = 0;
 #pragma unroll
     for (int k = 0; k < SMEM_ROWS; ++k) {
       const int r = threadIdx.x + k * EXPLORE_T;
-      const int gz = z0 + r / S, gy = y0 + r % S;
-      if (r >= S * S || gz < 0 || gz >= nz || gy < 0 || gy >= ny) continue;
-      count += store_row(grid + ((size_t)gz * ny + gy) * nx, cur[r], x0, nx, thr_f);
+      const int lz = z0 + r / S - z_lo, gy = y0 + r % S;
+      if (r >= S * S || lz < 0 || lz >= nzw || gy < 0 || gy >= ny) continue;
+      count += store_row(grid + ((size_t)lz * ny + gy) * nx, cur[r], x0, nx, thr_f);
     }
     return count;
   }
@@ -847,12 +824,15 @@ struct SmemBody {
 // K7s (kDense: the live grid, demoted by the walk as queries fail; `words` the
 // scratch of band and ground words its blocks write) and K15b-7b (the
 // replicated stack as `words`; outputs reached, corners, demoted), one
-// block a query slot.  `spec` [Q, S, S]: the speculative reached rows;
-// `frows`: where the failed queries' rows are read back (K7s: `spec`, a
-// redone flood writing over its query's; K15b-7b: `reached`).
+// block a query slot, on a grid of (nz, ny, nx) rows.  `grid` holds its z
+// rows [z_lo, z_lo + nzw), where the walk stores the demotions and counts
+// them in n_writes (K7s: the whole grid; K15b-7b: the shard's slab).
+// `spec` [Q, S, S]: the speculative reached rows; `frows`: where the failed
+// queries' rows are read back (K7s: `spec`, a redone flood writing over its
+// query's; K15b-7b: `reached`).
 template <class Body, bool kDense>
 __global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
-    float* grid, int nz, int ny, int nx, const int32_t* __restrict__ qx,
+    float* grid, int z_lo, int nzw, int nz, int ny, int nx, const int32_t* __restrict__ qx,
     const int32_t* __restrict__ qy, const int32_t* __restrict__ qz,
     const uint8_t* __restrict__ qvalid, const int32_t* __restrict__ qlabels,
     const int32_t* __restrict__ qids, const uint8_t* __restrict__ qslot,
@@ -943,7 +923,7 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
   __syncthreads();
 
   int nf = 0, nredo = 0, nwalk = 0;  // the same on every thread
-  int count = 0;                     // K7s: this thread's demotion stores
+  int count = 0;                     // this thread's demotion stores
   for (int t = 0; t < nv; ++t) {
     const int4 rec = srec[t];
     const uint32_t* ks = sslot + (size_t)t * KW;
@@ -973,9 +953,9 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
       for (int w = threadIdx.x; w < KW; w += EXPLORE_T) sconn[w] |= ks[w];
     } else {
       if (!kDense || redo) body.store_rows(frows + (size_t)q_t * rows);
-      if (kDense)  // the walk reads band words, never the grid: store now
-        count += body.store_demotions(grid, nz, ny, nx, rec.x - half, rec.y - half, rec.z - half,
-                                      thr_f);
+      // the walk reads band words, never the grid: store now
+      count += body.store_demotions(grid, z_lo, nzw, ny, nx, rec.x - half, rec.y - half,
+                                    rec.z - half, thr_f);
       if (threadIdx.x == 0) {
         sfail[nf] = t;
         if (!kDense) demoted[q_t] = 1;
@@ -987,12 +967,10 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
 
   for (int k = threadIdx.x; k < K; k += EXPLORE_T)
     cluster_connected[k] = (sconn[k >> 5] >> (k & 31)) & 1u;
-  if (kDense) {
-    add_count(count, &total);
-    __syncthreads();
-    if (threadIdx.x == 0) n_writes[0] = total;
-  }
+  add_count(count, &total);
+  __syncthreads();
   if (threadIdx.x == 0) {
+    n_writes[0] = total;
     stats[0] = nredo;  // floods redone
     stats[1] = nwalk;  // speculative rows tested
     stats[2] = nf;     // failed queries
@@ -1000,50 +978,92 @@ __global__ void __launch_bounds__(EXPLORE_T) explore_spec_kernel(
   }
 }
 
-// K15b-7a, the cut: one block per query packs the band and ground bits of
-// the submap rows that lie in this shard's slab (rows [z_lo, z_lo + nz) of
-// the grid), one warp per row as bfs_block; every other row, and every row
-// of an invalid query, is 0.  Each row has one owner, so a psum of the
-// shards' stacks is the whole grid's.
+// ---- K15b-7a: the cut -----------------------------------------------------
+// The band and ground words [2, S, S] of each query slot's submap rows that
+// lie in the shard's slab (rows [z_lo, z_lo + nz) of the grid); every other
+// row, the voxels past the grid in x and y, and every row of an invalid
+// slot are 0.  Each row has one owner, so a psum of the shards' stacks is
+// the whole grid's.  Bound: latency (the flagship's 9 valid slots read
+// ~1.1 MB from L2; the launch writes a 2 MB stack).  A block of CUT_WARPS
+// warps takes CUT_PLANES z planes of one slot (gridDim.y blocks a slot):
+//  - from the slot's corner, before any load, it works out which of its
+//    planes lie in the slab, [za, zb) (none for an invalid slot), and zeroes
+//    the rows of its other planes with 16-byte stores (a slot's [2, S, S]
+//    words are contiguous: two ranges a side of the slab, band and ground);
+//  - the slab rows go a warp CUT_ROWS consecutive rows at a time: lane x
+//    issues the loads of all of them through the read-only cache (the
+//    launch writes no grid) before the ballots of any, so a warp waits one
+//    L2 round trip for CUT_ROWS rows, not CUT_ROWS round trips; lane b then
+//    stores row b's band word and lane CUT_ROWS + b its ground word.
+// A block whose planes miss the slab leaves after its zero stores.  4
+// planes on 4 warps took the least device time of the schedules measured
+// on the grid-sequential step's calls, one block a slot among them
+// (`chip_ab.py --seq-variants`); `kernels.CUT_PLANES` / `CUT_WARPS` mirror
+// the two for the plain model.
+constexpr int CUT_ROWS = 16;
+constexpr int CUT_PLANES = 4;
+constexpr int CUT_WARPS = 4;
+
+// Words [0, n) of p to 0 by the whole block: 16-byte stores from the first
+// 16-byte boundary, a scalar head and tail.
 template <typename W>
-__global__ void __launch_bounds__(EXPLORE_T) explore_cut_kernel(
+__device__ __forceinline__ void zero_words(W* p, int n) {
+  const int mis = (int)(reinterpret_cast<uintptr_t>(p) & 15u);
+  const int head = min(n, ((16 - mis) & 15) / (int)sizeof(W));
+  const int nvec = max(n - head, 0) * (int)sizeof(W) / 16;
+  const int tail = head + nvec * 16 / (int)sizeof(W);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = W(0);
+  uint4* v = reinterpret_cast<uint4*>(p + head);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tail + threadIdx.x; i < n; i += blockDim.x) p[i] = W(0);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(CUT_WARPS * 32) explore_cut_kernel(
     const float* __restrict__ grid, int nz, int ny, int nx, int z_lo,
     const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
     const int32_t* __restrict__ qz, const uint8_t* __restrict__ qvalid, float thr_f,
     float thr_g, int S, W* __restrict__ stack) {
-  const int q = blockIdx.x;
-  const int half = S / 2, rows = S * S;
+  const int q = blockIdx.x, half = S / 2, rows = S * S;
+  const int p0 = blockIdx.y * CUT_PLANES, p1 = min(S, p0 + CUT_PLANES);
   W* band = stack + (size_t)q * 2 * rows;
   W* gnd = band + rows;
-  const bool valid = qvalid[q] != 0;
-  const int x0 = qx[q] - half, y0 = qy[q] - half, z0 = qz[q] - half;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += nwarps) {
-    const int z = r / S, y = r - (r / S) * S;
-    W unk = 0, g = 0;
-    if (valid)
-      submap_row_bits<W, false>(grid, nz, ny, nx, z0 + z - z_lo, y0 + y, x0, S, thr_f, thr_g,
-                                unk, g);
-    if ((threadIdx.x & 31) == 0) {
-      band[r] = unk;
-      gnd[r] = g;
+  const int z0 = qz[q] - half;
+  int za = max(p0, z_lo - z0), zb = min(p1, z_lo + nz - z0);  // the planes in the slab
+  if (qvalid[q] == 0 || za >= zb) za = zb = p1;
+  zero_words(band + p0 * S, (za - p0) * S);
+  zero_words(gnd + p0 * S, (za - p0) * S);
+  zero_words(band + zb * S, (p1 - zb) * S);
+  zero_words(gnd + zb * S, (p1 - zb) * S);
+  const int n = (zb - za) * S;  // the slab rows, rows za * S + i of the slot
+  if (n == 0) return;
+  const int x0 = qx[q] - half, y0 = qy[q] - half;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* plane = grid + (size_t)(z0 + za - z_lo) * ny * nx;  // plane za in the slab
+  for (int i0 = warp * CUT_ROWS; i0 < n; i0 += CUT_WARPS * CUT_ROWS) {
+    W mine = 0;  // lane b: row i0 + b's band word; lane CUT_ROWS + b: its ground word
+    for (int xc = 0; xc < S; xc += 32) {
+      const int gx = x0 + xc + lane;
+      const bool x_in = xc + lane < S && gx >= 0 && gx < nx;
+      float v[CUT_ROWS];
+#pragma unroll
+      for (int b = 0; b < CUT_ROWS; ++b) {
+        const int i = i0 + b, dz = i / S, gy = y0 + i - dz * S;
+        v[b] = -1e30f;  // past the grid: certain air
+        if (x_in && i < n && gy >= 0 && gy < ny)
+          v[b] = __ldg(plane + ((size_t)dz * ny + gy) * nx + gx);
+      }
+#pragma unroll
+      for (int b = 0; b < CUT_ROWS; ++b) {
+        const uint32_t bu = __ballot_sync(0xffffffffu, v[b] > thr_f && v[b] <= thr_g);
+        const uint32_t bg = __ballot_sync(0xffffffffu, v[b] > thr_g);
+        if (lane == b) mine |= W(bu) << xc;
+        if (lane == CUT_ROWS + b) mine |= W(bg) << xc;
+      }
     }
+    const int i = i0 + (lane & (CUT_ROWS - 1));
+    if (i < n) (lane < CUT_ROWS ? band : gnd)[za * S + i] = mine;
   }
-}
-
-// K15b-7c, the write-back: min(v, thr) at the reached voxels of every
-// demoted query inside the shard's slab (the z window of K8), one block per
-// query; the stores and the count are K8's.
-template <typename W>
-__global__ void __launch_bounds__(DEMOTE_T) demote_direct_kernel(
-    float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
-    const W* __restrict__ reached, const int32_t* __restrict__ corners,
-    const uint8_t* __restrict__ demoted, int S, float thr, int* __restrict__ n_writes) {
-  const int q = blockIdx.x;
-  if (demoted[q] == 0) return;
-  add_count(store_min_rows(grid, nz, ny, nx, z_lo, nz_g, reached + (size_t)q * S * S,
-                           corners[3 * q], corners[3 * q + 1], corners[3 * q + 2], S, thr),
-            n_writes);
 }
 
 template <typename Kern>
@@ -1113,15 +1133,17 @@ SeqScratch seq_scratch(void* base, int Q, int K, int S, bool dense) {
 
 // The spec kernel's launch: Q blocks of EXPLORE_T threads, the body's rows
 // and the walk's records, slot words, connected slots and failed list in
-// dynamic shared memory.  `stats`: where the walk writes its counts (null:
-// the scratch's).
+// dynamic shared memory.  `grid` holds the z rows [z_lo, z_lo + nzw) of the
+// (nz, ny, nx) grid the walk stores its demotions into; `stats`: where the
+// walk writes its counts (null: the scratch's).
 template <class Body, bool kDense>
-int launch_spec(float* grid, const void* stack, int nz, int ny, int nx, const void* qx,
-                const void* qy, const void* qz, const void* qvalid, const void* qlabels,
-                const void* qids, const void* qslot, const void* mm, const void* query_overflow,
-                float thr_f, float thr_g, int Q, int K, int S, int max_iters, void* scratch,
-                void* cluster_connected, void* n_writes, void* reached, void* corners,
-                void* demoted, void* ticket, void* stats, cudaStream_t s) {
+int launch_spec(float* grid, int z_lo, int nzw, const void* stack, int nz, int ny, int nx,
+                const void* qx, const void* qy, const void* qz, const void* qvalid,
+                const void* qlabels, const void* qids, const void* qslot, const void* mm,
+                const void* query_overflow, float thr_f, float thr_g, int Q, int K, int S,
+                int max_iters, void* scratch, void* cluster_connected, void* n_writes,
+                void* reached, void* corners, void* demoted, void* ticket, void* stats,
+                cudaStream_t s) {
   using W = typename Body::W;
   const SeqScratch sc = seq_scratch(scratch, Q, K, S, kDense);
   const size_t KW = (K + 31) / 32;
@@ -1132,14 +1154,15 @@ int launch_spec(float* grid, const void* stack, int nz, int ny, int nx, const vo
   W* spec = static_cast<W*>(sc.spec);
   W* words = kDense ? static_cast<W*>(sc.words) : static_cast<W*>(const_cast<void*>(stack));
   explore_spec_kernel<Body, kDense><<<Q, EXPLORE_T, smem, s>>>(
-      grid, nz, ny, nx, static_cast<const int32_t*>(qx), static_cast<const int32_t*>(qy),
-      static_cast<const int32_t*>(qz), static_cast<const uint8_t*>(qvalid),
-      static_cast<const int32_t*>(qlabels), static_cast<const int32_t*>(qids),
-      static_cast<const uint8_t*>(qslot), static_cast<const int32_t*>(mm),
-      static_cast<const uint8_t*>(query_overflow), thr_f, thr_g, Q, K, S, max_iters, words, spec,
-      sc.recs, sc.slotw, kDense ? spec : static_cast<W*>(reached),
-      static_cast<uint8_t*>(cluster_connected), static_cast<int32_t*>(n_writes),
-      static_cast<int32_t*>(corners), static_cast<uint8_t*>(demoted), static_cast<int*>(ticket),
+      grid, z_lo, nzw, nz, ny, nx, static_cast<const int32_t*>(qx),
+      static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
+      static_cast<const uint8_t*>(qvalid), static_cast<const int32_t*>(qlabels),
+      static_cast<const int32_t*>(qids), static_cast<const uint8_t*>(qslot),
+      static_cast<const int32_t*>(mm), static_cast<const uint8_t*>(query_overflow), thr_f, thr_g,
+      Q, K, S, max_iters, words, spec, sc.recs, sc.slotw,
+      kDense ? spec : static_cast<W*>(reached), static_cast<uint8_t*>(cluster_connected),
+      static_cast<int32_t*>(n_writes), static_cast<int32_t*>(corners),
+      static_cast<uint8_t*>(demoted), static_cast<int*>(ticket),
       stats != nullptr ? static_cast<int*>(stats) : sc.stats);
   return (int)cudaGetLastError();
 }
@@ -1217,88 +1240,75 @@ VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(grid);
   if (S <= 32)
-    return launch_spec<PlanesBody, true>(g, nullptr, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
-                                         qids, qslot, max_manhattan, query_overflow, thr_f, thr_g,
-                                         Q, K, S, max_iters, scratch, cluster_connected, n_writes,
-                                         nullptr, nullptr, nullptr, ticket, stats, s);
-  return launch_spec<SmemBody, true>(g, nullptr, nz, ny, nx, qx, qy, qz, qvalid, qlabels, qids,
-                                     qslot, max_manhattan, query_overflow, thr_f, thr_g, Q, K, S,
-                                     max_iters, scratch, cluster_connected, n_writes, nullptr,
-                                     nullptr, nullptr, ticket, stats, s);
+    return launch_spec<PlanesBody, true>(g, 0, nz, nullptr, nz, ny, nx, qx, qy, qz, qvalid,
+                                         qlabels, qids, qslot, max_manhattan, query_overflow,
+                                         thr_f, thr_g, Q, K, S, max_iters, scratch,
+                                         cluster_connected, n_writes, nullptr, nullptr, nullptr,
+                                         ticket, stats, s);
+  return launch_spec<SmemBody, true>(g, 0, nz, nullptr, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
+                                     qids, qslot, max_manhattan, query_overflow, thr_f, thr_g, Q,
+                                     K, S, max_iters, scratch, cluster_connected, n_writes,
+                                     nullptr, nullptr, nullptr, ticket, stats, s);
 }
 
 // K15b-7a: the cut of a shard's slab.  grid: device float32 [nz, ny, nx],
 // the rows [z_lo, z_lo + nz) of the grid; qx/qy/qz: int32 [Q] global;
 // qvalid: bool [Q].  Output: stack [Q, 2, S, S] (band rows, then ground
-// rows), uint32 words for S <= 32, else uint64.  2 <= S <= 62.
+// rows), uint32 words for S <= 32, else uint64.  2 <= S <= 62, 1 <= Q <=
+// 65535.
 VOFOD_API int vofod_explore_cut(const void* grid, int nz, int ny, int nx, int z_lo,
                                 const void* qx, const void* qy, const void* qz,
                                 const void* qvalid, float thr_f, float thr_g, int Q, int S,
                                 void* stack, void* stream) {
-  if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || Q > 65535 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grid);
   const int32_t *x = static_cast<const int32_t*>(qx), *y = static_cast<const int32_t*>(qy),
                 *z = static_cast<const int32_t*>(qz);
   const uint8_t* v = static_cast<const uint8_t*>(qvalid);
+  const dim3 blocks(Q, (S + CUT_PLANES - 1) / CUT_PLANES);
   if (S <= 32)
-    explore_cut_kernel<uint32_t><<<Q, EXPLORE_T, 0, s>>>(g, nz, ny, nx, z_lo, x, y, z, v, thr_f,
-                                                         thr_g, S,
-                                                         static_cast<uint32_t*>(stack));
+    explore_cut_kernel<uint32_t><<<blocks, CUT_WARPS * 32, 0, s>>>(
+        g, nz, ny, nx, z_lo, x, y, z, v, thr_f, thr_g, S, static_cast<uint32_t*>(stack));
   else
-    explore_cut_kernel<unsigned long long><<<Q, EXPLORE_T, 0, s>>>(
+    explore_cut_kernel<unsigned long long><<<blocks, CUT_WARPS * 32, 0, s>>>(
         g, nz, ny, nx, z_lo, x, y, z, v, thr_f, thr_g, S,
         static_cast<unsigned long long*>(stack));
   return (int)cudaGetLastError();
 }
 
-// K15b-7b: the walk on the replicated stack (vofod_explore_cut's words)
-// of a grid of (nz, ny, nx) rows.  The query table, scratch, ticket and
-// stats as vofod_explore_sequential's.  Outputs: cluster_connected bool
-// [K], reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
+// K15b-7b and K15b-7c: the walk on the replicated stack (vofod_explore_cut's
+// words) of a grid of (nz, ny, nx) rows, and the demotions in place on
+// `slab`, device float32 [slab_nz, ny, nx], the z rows [z_lo, z_lo +
+// slab_nz) of that grid: thr_f at each failed query's reached voxels there,
+// stored by the walk as the query fails.  The query table, scratch, ticket
+// and stats as vofod_explore_sequential's.  Outputs: cluster_connected bool
+// [K], n_writes int32 scalar (the slab's stores; written, not added to),
+// reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
 // corners int32 [Q, 3] (z, y, x), demoted bool [Q] (the failed queries).
-// 1 <= Q <= 4096, 2 <= S <= 62.
-VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx, const void* qx,
-                                      const void* qy, const void* qz, const void* qvalid,
-                                      const void* qlabels, const void* qids, const void* qslot,
+// 1 <= Q <= 4096, 2 <= S <= 62, 0 <= z_lo, z_lo + slab_nz <= nz.
+VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx, void* slab,
+                                      int z_lo, int slab_nz, const void* qx, const void* qy,
+                                      const void* qz, const void* qvalid, const void* qlabels,
+                                      const void* qids, const void* qslot,
                                       const void* max_manhattan, const void* query_overflow,
-                                      int Q, int K, int S, int max_iters,
-                                      void* cluster_connected, void* reached, void* corners,
-                                      void* demoted, void* scratch, void* ticket, void* stats,
-                                      void* stream) {
-  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+                                      float thr_f, int Q, int K, int S, int max_iters,
+                                      void* cluster_connected, void* n_writes, void* reached,
+                                      void* corners, void* demoted, void* scratch, void* ticket,
+                                      void* stats, void* stream) {
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62 || z_lo < 0 || slab_nz < 1 ||
+      z_lo + slab_nz > nz)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(slab);
   if (S <= 32)
-    return launch_spec<PlanesBody, false>(nullptr, stack, nz, ny, nx, qx, qy, qz, qvalid,
-                                          qlabels, qids, qslot, max_manhattan, query_overflow,
-                                          0.0f, 0.0f, Q, K, S, max_iters, scratch,
-                                          cluster_connected, nullptr, reached, corners, demoted,
-                                          ticket, stats, s);
-  return launch_spec<SmemBody, false>(nullptr, stack, nz, ny, nx, qx, qy, qz, qvalid, qlabels,
-                                      qids, qslot, max_manhattan, query_overflow, 0.0f, 0.0f, Q,
-                                      K, S, max_iters, scratch, cluster_connected, nullptr,
-                                      reached, corners, demoted, ticket, stats, s);
-}
-
-// K15b-7c, in place on a shard's slab: min(v, thr) at the reached voxels
-// (vofod_explore_seq_stack's words) of the demoted queries.  grid: the z
-// rows [z_lo, z_lo + nz) of a grid of nz_g rows; n_writes: int32 scalar the
-// kernel adds its stores to (zeroed by the caller).
-VOFOD_API int vofod_demote_direct(void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
-                                  const void* reached, const void* corners, const void* demoted,
-                                  int Q, int S, float thr, void* n_writes, void* stream) {
-  if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* g = static_cast<float*>(grid);
-  const int32_t* c = static_cast<const int32_t*>(corners);
-  const uint8_t* d = static_cast<const uint8_t*>(demoted);
-  int* n = static_cast<int*>(n_writes);
-  if (S <= 32)
-    demote_direct_kernel<uint32_t><<<Q, DEMOTE_T, 0, s>>>(
-        g, nz, ny, nx, z_lo, nz_g, static_cast<const uint32_t*>(reached), c, d, S, thr, n);
-  else
-    demote_direct_kernel<unsigned long long><<<Q, DEMOTE_T, 0, s>>>(
-        g, nz, ny, nx, z_lo, nz_g, static_cast<const unsigned long long*>(reached), c, d, S,
-        thr, n);
-  return (int)cudaGetLastError();
+    return launch_spec<PlanesBody, false>(g, z_lo, slab_nz, stack, nz, ny, nx, qx, qy, qz,
+                                          qvalid, qlabels, qids, qslot, max_manhattan,
+                                          query_overflow, thr_f, 0.0f, Q, K, S, max_iters,
+                                          scratch, cluster_connected, n_writes, reached, corners,
+                                          demoted, ticket, stats, s);
+  return launch_spec<SmemBody, false>(g, z_lo, slab_nz, stack, nz, ny, nx, qx, qy, qz, qvalid,
+                                      qlabels, qids, qslot, max_manhattan, query_overflow, thr_f,
+                                      0.0f, Q, K, S, max_iters, scratch, cluster_connected,
+                                      n_writes, reached, corners, demoted, ticket, stats, s);
 }

@@ -80,7 +80,6 @@ LAUNCHES: dict[str, int] = {
     "dda_slab": 0,
     "explore_cut": 0,
     "explore_seq_stack": 0,
-    "demote_direct": 0,
 }
 
 # The stencil kernels (K1 and the demotion EMAs of K11 and K13c on its run
@@ -98,6 +97,12 @@ CONE_CLUSTER = 16
 # COL_TILE, CELL_TILE)
 QUIRK_COL_TILE = 1024
 QUIRK_CELL_TILE = 4096
+# K15b-7a's schedule, as csrc/explore.cu's constants of explore_cut_kernel
+# (for its plain model): z planes of a query slot a block, warps a block and
+# rows in flight a warp
+CUT_PLANES = 4
+CUT_WARPS = 4
+CUT_ROWS = 16
 
 _lib = None
 _lock = threading.Lock()
@@ -235,11 +240,10 @@ def load():
         lib.vofod_cone_sweep_lat.argtypes = [_P] * 6 + [_I] * 9 + [_P]
         lib.vofod_cone_sweep_z.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.vofod_cone_sweep_zt.argtypes = [_P] * 6 + [_I] * 10 + [_P]
-        lib.vofod_explore_cut.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _P,
-                                          _P]
-        lib.vofod_explore_seq_stack.argtypes = [_P, _I, _I, _I] + [_P] * 9 + [_I] * 4 + [_P] * 8
-        lib.vofod_demote_direct.argtypes = [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P,
-                                            _P]
+        lib.vofod_explore_cut.argtypes = [_P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I,
+                                          _P, _P]
+        lib.vofod_explore_seq_stack.argtypes = ([_P, _I, _I, _I, _P, _I, _I] + [_P] * 9 + [_F]
+                                                + [_I] * 4 + [_P] * 9)
         for fn in (lib.vofod_ball_pool, lib.vofod_propagate_sweeps,
                    lib.vofod_frontend_bin, lib.vofod_cone_sweep, lib.vofod_compact,
                    lib.vofod_compact_geometry,
@@ -255,7 +259,7 @@ def load():
                    lib.vofod_cone_sweep_z, lib.vofod_cone_sweep_zt, lib.vofod_census_scatter,
                    lib.vofod_census_read,
                    lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query,
-                   lib.vofod_explore_cut, lib.vofod_explore_seq_stack, lib.vofod_demote_direct):
+                   lib.vofod_explore_cut, lib.vofod_explore_seq_stack):
             fn.restype = _I
         _lib = lib
         return lib
@@ -777,12 +781,13 @@ def explore_cut(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torc
                 z_lo: int) -> torch.Tensor:
     """K15b-7a: the [Q, 2, S, S] band and ground rows of every valid query's
     submap rows inside ``vmap``, the grid's z rows [z_lo, z_lo + rows) (0
-    elsewhere)."""
+    elsewhere); :data:`CUT_PLANES` z planes of a slot a block, on
+    :data:`CUT_WARPS` warps."""
     if vmap.dim() != 3:
         raise ValueError("explore_cut takes a 3-D grid")
     Q, S = qx.shape[0], int(submap)
-    if not 2 <= S <= 62 or Q < 1:
-        raise ValueError(f"explore_cut takes S in [2, 62] and >= 1 query, got S={S}, Q={Q}")
+    if not 2 <= S <= 62 or not 1 <= Q <= 65535:
+        raise ValueError(f"explore_cut takes S in [2, 62] and 1-65535 queries, got S={S}, Q={Q}")
     _require(vmap, "explore_cut grid", torch.float32)
     for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz")):
         _require(t, f"explore_cut {name}", torch.int32, (Q,))
@@ -801,61 +806,44 @@ def explore_cut(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torc
 def explore_seq_stack(stack: torch.Tensor, grid_shape, qx: torch.Tensor, qy: torch.Tensor,
                       qz: torch.Tensor, qvalid: torch.Tensor, qlabels: torch.Tensor,
                       qids: torch.Tensor, qslot: torch.Tensor, max_manhattan: torch.Tensor,
-                      query_overflow: torch.Tensor, max_iters: int,
-                      stats: torch.Tensor | None = None):
-    """K15b-7b: K7s on the replicated stack of a grid of ``grid_shape``, in
-    the same speculate-then-commit launch.  Returns (cluster_connected bool
-    [K], reached [Q, S, S] words, corners int32 [Q, 3], demoted bool [Q]).
-    ``stats``: as :func:`explore_sequential_`'s."""
+                      query_overflow: torch.Tensor, max_iters: int, slab: torch.Tensor,
+                      z_lo: int, thr_frontiers: float, stats: torch.Tensor | None = None):
+    """K15b-7b and K15b-7c: K7s on the replicated stack of a grid of
+    ``grid_shape``, in the same speculate-then-commit launch, whose walk
+    stores thr_frontiers at each failed query's reached voxels inside
+    ``slab`` (the grid's z rows [z_lo, z_lo + rows), IN PLACE) as the query
+    fails.  Returns (cluster_connected bool [K], reached [Q, S, S] words,
+    corners int32 [Q, 3], demoted bool [Q], n_writes int32: the slab's
+    stores).  ``stats``: as :func:`explore_sequential_`'s."""
     if stack.dim() != 4 or stack.shape[1] != 2 or stack.shape[2] != stack.shape[3]:
         raise ValueError(f"explore_seq_stack takes a [Q, 2, S, S] stack, got {tuple(stack.shape)}")
     Q, S = stack.shape[0], stack.shape[-1]
     K = _seq_args("explore_seq_stack", Q, S, qx, qy, qz, qvalid, qlabels, qids, qslot,
                   max_manhattan, query_overflow, stats)
     _require(stack, "explore_seq_stack stack", stack_words(S))
+    _require(slab, "explore_seq_stack slab", torch.float32)
+    nz, ny, nx = (int(d) for d in grid_shape)
+    if slab.dim() != 3 or tuple(slab.shape[1:]) != (ny, nx) or not (
+            0 <= z_lo and z_lo + slab.shape[0] <= nz):
+        raise ValueError(f"explore_seq_stack takes a slab of the grid's z rows, got "
+                         f"{tuple(slab.shape)} at z_lo={z_lo} of {(nz, ny, nx)}")
     dev = stack.device
     conn = torch.empty(K, dtype=torch.bool, device=dev)
+    n_writes = torch.empty((), dtype=torch.int32, device=dev)
     reached = torch.empty((Q, S, S), dtype=stack.dtype, device=dev)
     corners = torch.empty((Q, 3), dtype=torch.int32, device=dev)
     demoted = torch.empty(Q, dtype=torch.bool, device=dev)
     scratch, ticket, stream = _seq_launch_state(dev, Q, K, S, False)
-    nz, ny, nx = (int(d) for d in grid_shape)
     err = load().vofod_explore_seq_stack(
-        stack.data_ptr(), nz, ny, nx, qx.data_ptr(), qy.data_ptr(), qz.data_ptr(),
-        qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(), qslot.data_ptr(),
-        max_manhattan.data_ptr(), query_overflow.data_ptr(), Q, K, S, int(max_iters),
-        conn.data_ptr(), reached.data_ptr(), corners.data_ptr(), demoted.data_ptr(),
-        scratch.data_ptr(), ticket.data_ptr(), None if stats is None else stats.data_ptr(),
-        stream)
+        stack.data_ptr(), nz, ny, nx, slab.data_ptr(), int(z_lo), slab.shape[0], qx.data_ptr(),
+        qy.data_ptr(), qz.data_ptr(), qvalid.data_ptr(), qlabels.data_ptr(), qids.data_ptr(),
+        qslot.data_ptr(), max_manhattan.data_ptr(), query_overflow.data_ptr(),
+        float(thr_frontiers), Q, K, S, int(max_iters), conn.data_ptr(), n_writes.data_ptr(),
+        reached.data_ptr(), corners.data_ptr(), demoted.data_ptr(), scratch.data_ptr(),
+        ticket.data_ptr(), None if stats is None else stats.data_ptr(), stream)
     _check(err, "vofod_explore_seq_stack")
     _count("explore_seq_stack")
-    return conn, reached, corners, demoted
-
-
-def demote_direct_(vmap: torch.Tensor, reached: torch.Tensor, corners: torch.Tensor,
-                   demoted: torch.Tensor, thr_frontiers: float,
-                   z_window: tuple[int, int] | None = None) -> torch.Tensor:
-    """K15b-7c, in place on ``vmap``: min(v, thr) at the reached voxels of
-    the ``demoted`` queries.  Returns the int32 count of those writes.
-    ``z_window``: as :func:`explore`'s."""
-    if vmap.dim() != 3 or reached.dim() != 3:
-        raise ValueError("demote_direct takes a 3-D grid and [Q, S, S] rows")
-    Q, S = reached.shape[0], reached.shape[-1]
-    if not 2 <= S <= 62 or Q < 1:
-        raise ValueError(f"demote_direct takes S in [2, 62] and >= 1 query, got S={S}, Q={Q}")
-    _require(vmap, "demote_direct grid", torch.float32)
-    _require(reached, "demote_direct reached", stack_words(S), (Q, S, S))
-    _require(corners, "demote_direct corners", torch.int32, (Q, 3))
-    _require(demoted, "demote_direct demoted", torch.bool, (Q,))
-    n_writes = torch.zeros((), dtype=torch.int32, device=vmap.device)
-    nz, ny, nx = vmap.shape
-    err = load().vofod_demote_direct(
-        vmap.data_ptr(), nz, ny, nx, *_z_window(vmap, z_window), reached.data_ptr(),
-        corners.data_ptr(), demoted.data_ptr(), Q, S, float(thr_frontiers), n_writes.data_ptr(),
-        _stream())
-    _check(err, "vofod_demote_direct")
-    _count("demote_direct")
-    return n_writes
+    return conn, reached, corners, demoted, n_writes
 
 
 # K9: F up to K9_SMEM_KEYS sorts in one block's shared memory (one launch);

@@ -43,10 +43,14 @@ K15b-7a/b/c are K7s on the grid-sharded step (parallel/gridops.py
 ``ZShardOps.explore_sequential``): the walk's BFS reads two bits a voxel
 (unknown band, ground) of its queries' submaps only, so each shard cuts
 those bits of its own rows (:func:`explore_cut`, a [Q, 2, S, S] stack of
-packed rows), a psum replicates the stack, every shard walks the queries
-on it (:func:`explore_sequential_stack`, a failed query's reached voxels
-leaving the later queries' band), and each shard writes the failed
-queries' demotions into its own rows (:func:`demote_direct`).
+packed rows; its launch's schedule block by block:
+:func:`explore_cut_blocks_plain`), a psum replicates the stack, every shard
+walks the queries on it (:func:`explore_sequential_stack`, a failed query's
+reached voxels leaving the later queries' band), and each shard writes the
+failed queries' demotions into its own rows (K15b-7c).  On the card the
+walk's launch stores them as each query fails (:func:`explore_seq_fused_plain`
+models it); on the CPU :func:`demote_direct_plain` writes them after the
+walk.
 
 On the card K7s and K15b-7b are one launch each that speculates, then
 commits: every valid query is flooded at once on the grid before the walk,
@@ -572,6 +576,64 @@ def explore_cut(vmap_grid: Tensor, qx: Tensor, qy: Tensor, qz: Tensor, qvalid: T
                              z_lo)
 
 
+def cut_block_planes(S: int, planes: int, chunk: int, z0: int, z_lo: int, nz: int,
+                     valid: bool) -> tuple[int, int, int, int]:
+    """K15b-7a's block for one chunk of a slot (csrc/explore.cu
+    explore_cut_kernel): (p0, p1, za, zb) — its submap planes [p0, p1), and
+    [za, zb) the ones it loads, those in the slab's rows [z_lo, z_lo + nz)
+    of a submap whose corner is at z0 (none for an invalid slot: za = zb =
+    p1).  It zeroes its other planes' words."""
+    p0 = chunk * planes
+    p1 = min(S, p0 + planes)
+    za, zb = max(p0, z_lo - z0), min(p1, z_lo + nz - z0)
+    if not valid or za >= zb:
+        za = zb = p1
+    return p0, p1, za, zb
+
+
+def explore_cut_blocks_plain(vmap_grid: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
+                             qvalid: Tensor, thr_frontiers: float, thr_ground: float,
+                             submap: int, z_lo: int = 0, planes: int | None = None,
+                             warps: int | None = None) -> Tensor:
+    """The schedule of K15b-7a's launch, block by block (``planes`` z planes
+    of a slot a block, ``warps`` warps; default the kernel's
+    ``kernels.CUT_PLANES`` / ``CUT_WARPS``): each block zeroes the words of
+    its planes outside the slab (:func:`cut_block_planes`) and writes the
+    band and ground words of its slab rows, warp w taking rows i0 .. i0 +
+    CUT_ROWS - 1 for i0 = (w + k * warps) * CUT_ROWS.  Raises unless every
+    word of the stack is written exactly once.  The tests hold it to
+    :func:`explore_cut_plain`."""
+    S = submap
+    planes = min(S, kernels.CUT_PLANES if planes is None else planes)
+    warps = kernels.CUT_WARPS if warps is None else warps
+    R, Q, half = kernels.CUT_ROWS, qx.shape[0], S // 2
+    nz, dev = vmap_grid.shape[0], vmap_grid.device
+    padded = F.pad(vmap_grid, (S,) * 4, value=-1e30)  # past the grid in x and y: air
+    out = torch.zeros((Q, 2, S * S), dtype=torch.int64, device=dev)
+    writes = torch.zeros((Q, 2, S * S), dtype=torch.int32, device=dev)
+    for q in range(Q):
+        z0, y0, x0 = (int(c) - half for c in (qz[q], qy[q], qx[q]))
+        for chunk in range(-(-S // planes)):
+            p0, p1, za, zb = cut_block_planes(S, planes, chunk, z0, z_lo, nz, bool(qvalid[q]))
+            for lo, hi in ((p0, za), (zb, p1)):  # the zero stores (out holds 0)
+                writes[q, :, lo * S:hi * S] += 1
+            n = (zb - za) * S
+            if n == 0:
+                continue
+            i = torch.cat([torch.arange(i0, min(i0 + R, n), device=dev) for w in range(warps)
+                           for i0 in range(w * R, n, warps * R)])
+            lz, gy = z0 + za + i // S - z_lo, y0 + i % S
+            v = padded[lz[:, None], (gy + S)[:, None],
+                       x0 + S + torch.arange(S, device=dev)[None, :]]
+            rows = za * S + i
+            out[q, 0, rows] = _pack_rows((v > thr_frontiers) & (v <= thr_ground))
+            out[q, 1, rows] = _pack_rows(v > thr_ground)
+            writes[q, :, rows] += 1
+    if not bool((writes == 1).all()):
+        raise AssertionError("K15b-7a's blocks do not write every word of the stack once")
+    return out.reshape(Q, 2, S, S).to(kernels.stack_words(S))
+
+
 def explore_sequential_stack_plain(grid: GridSpec, stack: Tensor, qx: Tensor, qy: Tensor,
                                    qz: Tensor, qvalid: Tensor, qlabels: Tensor, qids: Tensor,
                                    qslot: Tensor, max_manhattan: Tensor, query_overflow: Tensor,
@@ -711,19 +773,6 @@ def explore_sequential_spec_plain(grid: GridSpec, words: Tensor, qx: Tensor, qy:
     return conn, reached, corners, demoted, redo
 
 
-def explore_sequential_stack(grid: GridSpec, stack: Tensor, qx: Tensor, qy: Tensor, qz: Tensor,
-                             qvalid: Tensor, qlabels: Tensor, qids: Tensor, qslot: Tensor,
-                             max_manhattan: Tensor, query_overflow: Tensor, max_iters: int = 96):
-    """K15b-7b; see :func:`explore_sequential_stack_plain`."""
-    if stack.is_cuda:
-        return kernels.explore_seq_stack(stack, grid.shape, qx, qy, qz, qvalid, qlabels, qids,
-                                         qslot, max_manhattan, query_overflow, max_iters)
-    if stack.device.type != "cpu":
-        raise ValueError(f"explore walk: unsupported device {stack.device}")
-    return explore_sequential_stack_plain(grid, stack, qx, qy, qz, qvalid, qlabels, qids, qslot,
-                                          max_manhattan, query_overflow, max_iters)
-
-
 def demote_direct_plain(vmap_grid: Tensor, reached: Tensor, corners: Tensor, demoted: Tensor,
                         thr_frontiers: float,
                         z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
@@ -735,14 +784,67 @@ def demote_direct_plain(vmap_grid: Tensor, reached: Tensor, corners: Tensor, dem
     return _demotion_writes(vmap_grid, bits, corners, demoted, thr_frontiers, z_window)
 
 
-def demote_direct(vmap_grid: Tensor, reached: Tensor, corners: Tensor, demoted: Tensor,
-                  thr_frontiers: float,
-                  z_window: tuple[int, int] | None = None) -> tuple[Tensor, Tensor]:
-    """K15b-7c.  On a CUDA tensor the kernel updates ``vmap_grid`` IN PLACE
-    and returns it; the plain version returns a new tensor."""
-    if vmap_grid.is_cuda:
-        n = kernels.demote_direct_(vmap_grid, reached, corners, demoted, thr_frontiers, z_window)
-        return vmap_grid, n
-    if vmap_grid.device.type != "cpu":
-        raise ValueError(f"demote: unsupported device {vmap_grid.device}")
-    return demote_direct_plain(vmap_grid, reached, corners, demoted, thr_frontiers, z_window)
+def slab_stores_plain(slab: Tensor, z_lo: int, reached: Tensor, corners: Tensor,
+                      demoted: Tensor, thr_frontiers: float) -> tuple[Tensor, Tensor]:
+    """K15b-7c as K15b-7b's walking block does it (csrc/explore.cu
+    ``store_demotions`` on the slab's window): each failed query stores
+    thr_frontiers, with no read, at its reached voxels ([Q, S, S] words)
+    that lie in ``slab`` (the grid's z rows [z_lo, z_lo + rows)) and inside
+    the grid in x and y, one store and count each.  Returns (new slab,
+    int32 count of the stores).  It equals :func:`demote_direct_plain`'s
+    min(v, thr) only because every reached voxel was in the band (v > thr)
+    and no two failed floods share one: the tests hold it there."""
+    out = slab.clone()
+    S = reached.shape[-1]
+    nzw, ny, nx = slab.shape
+    n = 0
+    for q in torch.nonzero(demoted)[:, 0].tolist():
+        z, y, x = torch.nonzero(unpack_rows(_words_i64(reached[q]), S)).unbind(1)
+        z0, y0, x0 = (int(c) for c in corners[q])
+        lz, gy, gx = z + z0 - z_lo, y + y0, x + x0
+        keep = (lz >= 0) & (lz < nzw) & (gy >= 0) & (gy < ny) & (gx >= 0) & (gx < nx)
+        out[lz[keep], gy[keep], gx[keep]] = thr_frontiers
+        n += int(keep.sum())
+    return out, torch.tensor(n, dtype=torch.int32, device=slab.device)
+
+
+def explore_seq_fused_plain(grid: GridSpec, stack: Tensor, slab: Tensor, z_lo: int, qx: Tensor,
+                            qy: Tensor, qz: Tensor, qvalid: Tensor, qlabels: Tensor,
+                            qids: Tensor, qslot: Tensor, max_manhattan: Tensor,
+                            query_overflow: Tensor, thr_frontiers: float, max_iters: int = 96):
+    """The plain model of K15b-7b's launch with K15b-7c's stores: the
+    schedule's walk (:func:`explore_sequential_spec_plain`), then the
+    walking block's stores into ``slab`` (:func:`slab_stores_plain`).
+    Returns :func:`explore_sequential_stack`'s
+    (slab, cluster_connected, reached, corners, demoted, n_writes).  A test
+    instrument, not the CPU path."""
+    conn, reached, corners, demoted, _ = explore_sequential_spec_plain(
+        grid, stack, qx, qy, qz, qvalid, qlabels, qids, qslot, max_manhattan, query_overflow,
+        max_iters)
+    slab, n = slab_stores_plain(slab, z_lo, reached, corners, demoted, thr_frontiers)
+    return slab, conn, reached, corners, demoted, n
+
+
+def explore_sequential_stack(grid: GridSpec, stack: Tensor, slab: Tensor, z_lo: int,
+                             qx: Tensor, qy: Tensor, qz: Tensor, qvalid: Tensor,
+                             qlabels: Tensor, qids: Tensor, qslot: Tensor, max_manhattan: Tensor,
+                             query_overflow: Tensor, thr_frontiers: float, max_iters: int = 96):
+    """K15b-7b and K15b-7c: the walk on the stack, and the failed queries'
+    demotions in ``slab`` (the grid's z rows [z_lo, z_lo + rows)).  Returns
+    (slab, cluster_connected bool [K], reached [Q, S, S] words, corners
+    int32 [Q, 3], demoted bool [Q], n_writes int32: the slab's writes).  On
+    a CUDA tensor one launch, whose walk stores as each query fails, updates
+    ``slab`` IN PLACE and returns it; on the CPU
+    :func:`explore_sequential_stack_plain`, then :func:`demote_direct_plain`
+    into a new tensor."""
+    q = (qx, qy, qz, qvalid, qlabels, qids, qslot, max_manhattan, query_overflow)
+    if stack.is_cuda:
+        conn, reached, corners, demoted, n = kernels.explore_seq_stack(
+            stack, grid.shape, *q, max_iters, slab, z_lo, thr_frontiers)
+        return slab, conn, reached, corners, demoted, n
+    if stack.device.type != "cpu":
+        raise ValueError(f"explore walk: unsupported device {stack.device}")
+    conn, reached, corners, demoted = explore_sequential_stack_plain(grid, stack, *q, max_iters)
+    slab, n = demote_direct_plain(slab, reached, corners, demoted, thr_frontiers,
+                                  (z_lo, grid.nz))
+    return slab, conn, reached, corners, demoted, n

@@ -47,8 +47,7 @@ from vofod_tpu_torch.ops.components import (
     SENTINEL, census_read_plain, census_scatter_plain, label_census, label_components,
     label_components_seeded, propagate_reach, sweeps_batch_plain)
 from vofod_tpu_torch.ops.explore import (
-    demote_direct, demote_floating, explore, explore_cut, explore_sequential_,
-    explore_sequential_stack)
+    demote_floating, explore, explore_cut, explore_sequential_, explore_sequential_stack)
 from vofod_tpu_torch.ops.morphology import (
     INT_FILL, Shells, ball_pool, ball_pool_max, ball_pool_max_traced, ball_pool_sum,
     ball_pool_sum_traced, shell_pool, tap_set)
@@ -668,17 +667,17 @@ class ZShardOps:
         of the rows it owns (K15b-7a), one psum replicates the stack (each
         row has one owner, the others send 0), every shard walks the queries
         on it (K15b-7b, replicated as K9 is), and each writes the failed
-        queries' demotions into its own rows (K15b-7c, on the bare slab);
-        the write counts are psum'd.  Returns (slab, cluster_connected
-        bool [K], n_writes int32), the dense K7s's."""
+        queries' demotions into its own rows (K15b-7c, on the bare slab; on
+        the card stored by K15b-7b's walk as each query fails, in the same
+        launch); the write counts are psum'd.  Returns (slab,
+        cluster_connected bool [K], n_writes int32), the dense K7s's."""
         z0, _ = self.slab(grid.nz)
         vals = vals.contiguous()
         stack = self.comm.psum(explore_cut(vals, qx, qy, qz, qvalid, thr_frontiers, thr_ground,
                                            submap, z0))
-        conn, reached, corners, demoted = explore_sequential_stack(
-            grid, stack, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q, query_overflow)
-        vals, n_writes = demote_direct(vals, reached, corners, demoted, thr_frontiers,
-                                       z_window=(z0, grid.nz))
+        vals, conn, _, _, _, n_writes = explore_sequential_stack(
+            grid, stack, vals, z0, qx, qy, qz, qvalid, qlabels, qids, qslot, m_q, query_overflow,
+            thr_frontiers)
         return vals, conn, self.comm.psum(n_writes)
 
     # ---- raycast --------------------------------------------------------------------
