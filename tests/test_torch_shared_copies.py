@@ -286,6 +286,21 @@ _NO_JAX = textwrap.dedent(
     seq.process_scan(render_scan(scene, node.lut, pose), None, pose)
     assert set(seq.last_stage_ms) == {"cnc", "raycasting", "sepbgclusters"}
     assert seq.process_rangefinder(1.0, 0.1, 10.0, pose)
+    # the serving modules: the scan ring, the streaming runtime, the
+    # streams' step, the fleet and its CLI
+    from vofod_tpu_torch.io.scan_queue import ScanQueue
+    from vofod_tpu_torch.parallel import sharding
+    from vofod_tpu_torch.runtime.fleet import FleetVoFOD
+    from vofod_tpu_torch.runtime.stream import StreamRunner
+    from vofod_tpu_torch.tools import serve_fleet
+    scan = render_scan(scene, node.lut, pose)
+    q = ScanQueue(scan.size, capacity=2)
+    assert q.push(scan, pose) and np.array_equal(q.pop()[0], scan)
+    fleet = FleetVoFOD(cfg, DynParams(), n_streams=2, device="cpu")
+    fleet.load_apriori_map(np.zeros((1, 3)), stream=1)
+    assert len(fleet.process_scans(np.stack([scan] * 2), np.stack([pose] * 2))) == 2
+    assert sharding.batched_state_to_numpy(fleet.state)["step"].tolist() == [1, 1]
+    assert callable(StreamRunner.start) and callable(serve_fleet.main)
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("NO_JAX_OK", int(node.last_diag.n_occupied))
     """

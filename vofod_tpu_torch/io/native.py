@@ -1,5 +1,6 @@
 """Build and load the native host library (``native/frontend.cpp``, the scan
-binner, and ``native/pc_loader.cpp``) for the port.
+binner, and ``native/pc_loader.cpp``, the SPSC scan ring of io/scan_queue.py)
+for the port.
 
 The port's own loader in place of vofod_tpu/io/pc_loader ``_native_lib``:
 at first use it compiles the two sources in ``native/`` (read, never
@@ -79,7 +80,7 @@ def build() -> Path:
 
 def load():
     """Build (if needed) and load the library once per process, with the
-    binner's signatures set."""
+    binner's and the scan ring's signatures set."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -93,5 +94,17 @@ def load():
         lib.vofod_binner_destroy.argtypes = [P]
         lib.vofod_binner_bin_dense.restype = None
         lib.vofod_binner_bin_dense.argtypes = [P, P, P, P, F, P, P, P]
+        # the SPSC scan ring (io/scan_queue.py)
+        LL = ctypes.c_longlong
+        lib.vofod_queue_create.restype = P
+        lib.vofod_queue_create.argtypes = [LL, LL]
+        lib.vofod_queue_destroy.restype = None
+        lib.vofod_queue_destroy.argtypes = [P]
+        for name in ("vofod_queue_push", "vofod_queue_pop"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [P, P]
+        for name in ("vofod_queue_size", "vofod_queue_dropped"):
+            getattr(lib, name).restype = LL
+            getattr(lib, name).argtypes = [P]
         _lib = lib
         return lib

@@ -116,6 +116,32 @@ def _unpack(buf: np.ndarray, layout: list) -> list[np.ndarray]:
     return out
 
 
+def apriori_fids(cfg: VoFODConfig, grid: GridSpec, points_xyz: np.ndarray,
+                 yaw_deg: float | None = None, translation=None) -> np.ndarray:
+    """Flat grid ids (int64, one per point that lands in the grid, in point
+    order) of an apriori cloud placed as in vofod_tpu: ``p' = R_yaw @ (p +
+    t + sim_correction)`` (ref initialize_apriori_map,
+    vofod_nodelet.cpp:224-225), the config's tf unless given."""
+    if yaw_deg is None:
+        yaw_deg = cfg.apriori_tf_yaw_deg
+    if translation is None:
+        translation = tuple(t + c for t, c in zip(cfg.apriori_tf, cfg.apriori_sim_correction))
+    pts = np.asarray(points_xyz, np.float32)
+    if pts.size == 0:
+        return np.zeros(0, np.int64)
+    R = yaw_rotation(np.deg2rad(yaw_deg))
+    pts = (pts + np.asarray(translation, np.float32)) @ R.T
+    ox, oy, oz = grid.origin
+    idx = np.floor((pts - np.array([ox, oy, oz])) / grid.voxel_size).astype(np.int64)
+    ok = (
+        (idx[:, 0] >= 0) & (idx[:, 0] < grid.nx)
+        & (idx[:, 1] >= 0) & (idx[:, 1] < grid.ny)
+        & (idx[:, 2] >= 0) & (idx[:, 2] < grid.nz)
+    )
+    idx = idx[ok]
+    return (idx[:, 2] * grid.ny + idx[:, 1]) * grid.nx + idx[:, 0]
+
+
 def _close_trace_at_exit(ref) -> None:
     node = ref()
     if node is not None:
@@ -459,31 +485,12 @@ class VoFOD:
         (ref initialize_apriori_map, vofod_nodelet.cpp:305-355); placement as
         in vofod_tpu (``p' = R @ (p + t + sim_correction)``).  Returns the
         number of stamped voxels."""
-        if yaw_deg is None:
-            yaw_deg = self.cfg.apriori_tf_yaw_deg
-        if translation is None:
-            translation = tuple(
-                t + c for t, c in zip(self.cfg.apriori_tf, self.cfg.apriori_sim_correction)
-            )
-        pts = np.asarray(points_xyz, np.float32)
-        if pts.size == 0:
-            return 0
-        R = yaw_rotation(np.deg2rad(yaw_deg))
-        pts = (pts + np.asarray(translation, np.float32)) @ R.T
-        g = self.grid_spec
-        ox, oy, oz = g.origin
-        idx = np.floor((pts - np.array([ox, oy, oz])) / g.voxel_size).astype(np.int64)
-        ok = (
-            (idx[:, 0] >= 0) & (idx[:, 0] < g.nx)
-            & (idx[:, 1] >= 0) & (idx[:, 1] < g.ny)
-            & (idx[:, 2] >= 0) & (idx[:, 2] < g.nz)
-        )
-        idx = idx[ok]
-        fids = (idx[:, 2] * g.ny + idx[:, 1]) * g.nx + idx[:, 0]
-        self.state.grid.view(-1).index_fill_(
-            0, torch.as_tensor(fids, device=self.device), float("inf")
-        )  # ref stamps +inf (:341)
-        return int(idx.shape[0])
+        fids = apriori_fids(self.cfg, self.grid_spec, points_xyz, yaw_deg, translation)
+        if fids.size:
+            self.state.grid.view(-1).index_fill_(
+                0, torch.as_tensor(fids, device=self.device), float("inf")
+            )  # ref stamps +inf (:341)
+        return int(fids.size)
 
     # -------------------------------------------------------------- live tuning
     def update_params(self, **kwargs) -> None:
