@@ -285,12 +285,25 @@ def test_fleet_bit_equal_to_single_stream_nodes(warm, node_run, stream):
         _same_state(fleet.state[stream], state, f"tick {k}")
 
 
-def test_null_scan_stream(caplog):
+class _FakeClock:
+    """Stands in for the fleet module's ``time``: the test moves it."""
+
+    def __init__(self, now: float = 1000.0):
+        self.now = now
+
+    def time(self) -> float:
+        return self.now
+
+
+def test_null_scan_stream(caplog, monkeypatch):
     """tests/test_hostile_inputs.py TestFleetLevel on the port: a NaN
     rotation makes that stream's tick a null scan, equal to a direct step
     on zero ranges and the sentinel pose; the stream stays NaN-free, every
     other stream is bit-unaffected, the rejection is counted per stream and
-    logged once per throttle period."""
+    logged once per throttle period.  The throttle reads a clock that the
+    test advances, so the count does not depend on the host's speed."""
+    clock = _FakeClock()
+    monkeypatch.setattr(fleet_mod, "time", clock)
     lut = _port_fleet().lut
     runs = {}
     for poisoned in (True, False):
@@ -302,6 +315,7 @@ def test_null_scan_stream(caplog):
                     p[NAN_STREAM, 0, 3] = np.inf  # a second bad tick within the period
                 msgs = fleet.process_scans(r, p)
                 assert len(msgs) == B
+                clock.now += 0.1 * fleet.pose_warn_period
         runs[poisoned] = fleet
     a, b = runs[True], runs[False]
     assert list(a.n_pose_rejected) == [0, 0, 2, 0] and list(b.n_pose_rejected) == [0] * B
@@ -312,6 +326,15 @@ def test_null_scan_stream(caplog):
             _same_state(a.state[s], vars(b.state[s]), f"stream {s}")
     assert not torch.equal(a.state[NAN_STREAM].grid, b.state[NAN_STREAM].grid)
     assert a.state[NAN_STREAM].step == b.state[NAN_STREAM].step  # counters advance
+
+    # a bad tick once the period has passed logs a second line
+    clock.now += a.pose_warn_period
+    r, p, _ = _tick_inputs(lut, NAN_TICK + 2)
+    p[NAN_STREAM, 1, 3] = np.nan
+    with caplog.at_level(logging.WARNING, logger="vofod_tpu_torch.fleet"):
+        a.process_scans(r, p)
+    assert list(a.n_pose_rejected) == [0, 0, 3, 0]
+    assert sum("non-finite pose" in m for m in caplog.messages) == 2
 
     # the null tick alone: the same as a direct step on the sentinel scan
     fleet, node = _port_fleet(), VoFOD(_cfg(), _dyn(), device="cpu")
