@@ -213,7 +213,31 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    4-grid-dynamic (the dynamic radii's schedule on both, K14 launched, no
    kernel rebuild; p50 per segment) and 4-grid-sequential (the exact path
    with the sequential explore: K15b-7a/b/c once a shard, K7s, K7, K8 and
-   the fold never; explore queries, demotion writes, copies by kind);
+   the fold never; explore queries, demotion writes, copies by kind).
+   Then phase 4-cli, the offline detector's runtime surface at the
+   flagship size, on 12 scans of the cycle and the apriori ground, writing
+   under build/chip_smoke/cli: (a) an uncompressed bag of organized 128 x
+   1024 clouds (x, y, z, intensity, range) and a /tf chain world -> base
+   -> sensor with a static 180-degree base -> sensor edge; ``convert_bag``
+   bit-equal to the rendered ranges, poses within 1e-6; tools/detect run
+   in-process on the bag (``--json --save-state DIR --markers M
+   --watch-params Y``), every sweep-path kernel launched 12 x its phase-4
+   count a scan and no other kernel, its JSON lines bit-equal to a node
+   stepped directly on the converted NPZ, and a params edit before scan 6
+   giving the state of ``update_params`` at scan 6; (b) one scan each in a
+   bz2 and an lz4 bag, staggered by a metadata JSON's
+   ``pixel_shift_by_row`` and destaggered on conversion, equal to the
+   rendered ranges (write and conversion seconds); (c) checkpoints: a
+   ``SnapshotManager`` (keep 2, every 4 scans) whose latest snapshot,
+   stepped 4 more scans, equals the uninterrupted node; an ``AsyncSaver``
+   save at scan 6 while scans 7-12 step equal to scan 6's state; phase
+   4-grid's 3-shard states saved per shard, restored onto the dense state
+   and back, bit-equal; the save ms and the step p50 with and without a
+   save in flight; (d) ``MaskCreator`` on the card over the 12 scans with
+   pixels zeroed, and the create_mask CLI's .npy, equal to numpy's
+   ``logical_and.reduce(r > 0)``; (e) ``RosNode`` under an in-process stub
+   of rospy and its message modules, 3 scans, publishing the JSON of a
+   node stepped directly;
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
    prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
    grid-sharded exact, grid-sharded sequential, grid-sharded with the
@@ -4580,7 +4604,507 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
                          for m, v in ms.items()})
             for i, (g, sep) in enumerate(DYN_SEGMENTS)])
     say(GRID_PHASES[path], **out)
+    if path == "sweep":
+        GRID_FINAL[path] = (drv.states, node.state, drv.comm)
     return total, out["step_ms_p50"]["grid"]
+
+
+# ---------------------------------------------------------------------------
+# phase 4-cli: the offline detector's runtime surface at the flagship size
+# ---------------------------------------------------------------------------
+
+CLI_SCANS = 12
+CLI_EDIT_SCAN = 6  # the watched params file changes before this scan
+CLI_EDIT = ("raycast: {weight_coefficient: 0.003}\n", "raycast: {weight_coefficient: 0.004}\n",
+            dict(raycast_weight_coefficient=0.004))
+CLI_KEEP, CLI_EVERY = 2, 4  # SnapshotManager: keep 2 snapshots, one every 4 scans
+CLI_ASYNC_SCAN = 6
+CLI_ROS_SCANS = 3
+# the static base -> sensor edge: 180 degrees about z (as os_sensor -> os_lidar)
+CLI_BASE_SENSOR = dict(txyz=(0.0, 0.0, 0.0), quat=(0.0, 0.0, 1.0, 0.0))
+GRID_FINAL: dict = {}  # phase 4-grid's final states, by path: (shard states, dense state, comm)
+
+
+def _quat(R: np.ndarray) -> tuple:
+    """A unit quaternion (x, y, z, w) of a rotation matrix (Shepperd)."""
+    R = np.asarray(R, np.float64)
+    t = np.trace(R)
+    if t > 0.0:
+        s = 2.0 * np.sqrt(1.0 + t)
+        q = ((R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s, 0.25 * s)
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
+        v = [0.0, 0.0, 0.0]
+        v[i], v[j], v[k] = 0.25 * s, (R[j, i] + R[i, j]) / s, (R[k, i] + R[i, k]) / s
+        q = (*v, (R[k, j] - R[j, k]) / s)
+    q = np.asarray(q)
+    return tuple(float(x) for x in q / np.linalg.norm(q))
+
+
+def _cloud_record(lut, r: np.ndarray, k: int) -> np.ndarray:
+    """An Ouster-like organized cloud: x, y, z (sensor frame), intensity, range."""
+    rec = np.zeros(r.size, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                  ("intensity", "<f4"), ("range", "<u4")])
+    pts = lut.directions * (r.astype(np.float32) * np.float32(1e-3))[:, None] + lut.offsets
+    rec["x"], rec["y"], rec["z"] = pts.T
+    rec["intensity"] = 100.0 + (np.arange(r.size) % 7) + 0.5 * k
+    rec["range"] = r
+    return rec
+
+
+_CLOUD_FIELDS = [("x", 0, 7, 1), ("y", 4, 7, 1), ("z", 8, 7, 1), ("intensity", 12, 7, 1),
+                 ("range", 16, 6, 1)]
+
+
+def _write_cli_bag(path, lut, scans, first_stamp: float, compression="none", shift=None):
+    """A bag of the scans' organized clouds (staggered by ``shift`` when
+    given: destagger(stagger(x)) == x) and the TF chain world -> base ->
+    sensor, base -> sensor static."""
+    from vofod_tpu_torch.io import rosbag_lite
+    from vofod_tpu_torch.runtime.ros_adapter import transform_to_pose
+
+    H, W = lut.height, lut.width
+    T_bs = transform_to_pose(*CLI_BASE_SENSOR["txyz"], *CLI_BASE_SENSOR["quat"])
+    with rosbag_lite.BagWriter(str(path), compression=compression) as w:
+        w.write_tf("/tf_static", 0.0, [dict(stamp=0.0, parent="base", child="os_sensor",
+                                            **CLI_BASE_SENSOR)])
+        for k, (r, pose) in enumerate(scans):
+            t = first_stamp + 0.1 * k
+            T_wb = pose.astype(np.float64) @ np.linalg.inv(T_bs.astype(np.float64))
+            w.write_tf("/tf", t, [dict(stamp=t, parent="world", child="base",
+                                       txyz=tuple(float(v) for v in T_wb[:3, 3]),
+                                       quat=_quat(T_wb[:3, :3]))])
+            rec = _cloud_record(lut, r, k).reshape(H, W)
+            if shift is not None:
+                cols = (np.arange(W)[None, :] - np.asarray(shift)[:, None]) % W
+                rec = np.take_along_axis(rec, cols, axis=1)
+            w.write_pointcloud2("/os_cloud_node/points", t, frame_id="os_sensor", height=H,
+                                width=W, fields=_CLOUD_FIELDS, point_step=rec.dtype.itemsize,
+                                data=rec.tobytes())
+
+
+def _check_converted(npz, scans, what: str) -> dict:
+    from vofod_tpu_torch.io.scan_source import load_scans_npz
+
+    ranges, poses, _, inten = load_scans_npz(str(npz))
+    want_r = np.stack([r for r, _ in scans])
+    if not (ranges.dtype == np.uint32 and np.array_equal(ranges, want_r)):
+        raise AssertionError(f"{what}: converted ranges differ from the rendered ones")
+    err = float(np.max(np.abs(poses.astype(np.float64)
+                              - np.stack([p for _, p in scans]).astype(np.float64))))
+    if err > 1e-6:
+        raise AssertionError(f"{what}: converted poses {err} from the rendered ones (> 1e-6)")
+    if inten is None:
+        raise AssertionError(f"{what}: the intensity channel was not converted")
+    return dict(ranges_bit_equal=True, pose_max_abs_err=err)
+
+
+def _state_np(state) -> dict:
+    from vofod_tpu_torch.pipeline.state import state_to_numpy
+
+    return {k: np.array(v, copy=True) for k, v in state_to_numpy(state).items()}
+
+
+def _same_np(a: dict, b: dict, what: str) -> None:
+    for k, v in a.items():
+        if not (v.dtype == b[k].dtype and np.array_equal(v, b[k])):
+            raise AssertionError(f"{what}: state.{k} differs")
+
+
+def _cli_node(lut, cloud_path):
+    """A node as tools/detect builds it with no config files."""
+    from vofod_tpu_torch.io.pc_loader import load_cloud
+
+    cfg = VoFODConfig()
+    node = VoFOD(cfg, DynParams(), NodeOptions(throttle_period=cfg.throttle_period), lut,
+                 device="cuda")
+    node.load_apriori_map(load_cloud(str(cloud_path)))
+    return node
+
+
+class _Rec:
+    """A recording stand-in for rospy's publishers, services and timers."""
+
+    def __init__(self):
+        self.subs, self.pubs, self.srvs, self.timers, self.warnings = {}, {}, {}, [], []
+
+
+def _ros_stub(rec: _Rec, tf_lookup) -> dict:
+    """Minimal in-process rospy, std_msgs, std_srvs, sensor_msgs,
+    visualization_msgs and tf2_ros modules for RosNode."""
+    import types
+    from types import SimpleNamespace as NS
+
+    class Pub:
+        def __init__(self, topic, typ, queue_size=1):
+            self.topic, self.published = topic, []
+            rec.pubs[topic] = self
+
+        def publish(self, msg):
+            self.published.append(msg)
+
+        def get_num_connections(self):
+            return 1
+
+    class Time:
+        def __init__(self, t=0.0):
+            self._t = t
+
+        def to_sec(self):
+            return self._t
+
+        @staticmethod
+        def now():
+            return Time(0.0)
+
+    class String:
+        def __init__(self, data=""):
+            self.data = data
+
+    class Header:
+        def __init__(self):
+            self.stamp, self.frame_id = Time(), ""
+
+    class TriggerResponse:
+        def __init__(self, success=False, message=""):
+            self.success, self.message = success, message
+
+    class Marker:
+        SPHERE, ADD = 2, 0
+
+        def __init__(self):
+            self.header = Header()
+            self.pose = NS(position=NS(x=0, y=0, z=0), orientation=NS(x=0, y=0, z=0, w=0))
+            self.scale, self.color = NS(x=0, y=0, z=0), NS(r=0, g=0, b=0, a=0)
+
+    class MarkerArray:
+        def __init__(self):
+            self.markers = []
+
+    class Buffer:
+        def lookup_transform(self, target, source, stamp):
+            return tf_lookup(target, source, stamp.to_sec())
+
+    def read_points(msg, field_names):
+        cols = [msg.columns[n] for n in field_names]
+        return list(zip(*cols))
+
+    m = {name: types.ModuleType(name) for name in (
+        "rospy", "std_msgs", "std_msgs.msg", "std_srvs", "std_srvs.srv", "sensor_msgs",
+        "sensor_msgs.msg", "sensor_msgs.point_cloud2", "visualization_msgs",
+        "visualization_msgs.msg", "tf2_ros")}
+    r = m["rospy"]
+    r.Subscriber = lambda topic, typ, cb, queue_size=1: rec.subs.__setitem__(topic, cb)
+    r.Service = lambda name, typ, cb: rec.srvs.__setitem__(name, cb)
+    r.Publisher, r.Duration, r.Time = Pub, (lambda s: s), Time
+    r.Timer = lambda dur, cb: rec.timers.append((dur, cb))
+    r.get_time = lambda: 0.0
+    r.logwarn_throttle = lambda period, msg: rec.warnings.append(msg)
+    m["std_msgs.msg"].String, m["std_msgs.msg"].Header = String, Header
+    m["std_srvs.srv"].Trigger, m["std_srvs.srv"].TriggerResponse = object, TriggerResponse
+    m["sensor_msgs.msg"].PointCloud2 = m["sensor_msgs.msg"].Range = object
+    m["sensor_msgs.msg"].Image = object
+    m["sensor_msgs.point_cloud2"].read_points = read_points
+    m["sensor_msgs.point_cloud2"].create_cloud_xyz32 = lambda h, pts: NS(header=h, n=len(pts))
+    m["visualization_msgs.msg"].Marker = Marker
+    m["visualization_msgs.msg"].MarkerArray = MarkerArray
+    m["tf2_ros"].Buffer, m["tf2_ros"].TransformListener = Buffer, (lambda buf: None)
+    m["_Time"] = Time
+    return m
+
+
+def _cli_ros(lut, scans, poses, stamps, snapshot) -> dict:
+    """(e) RosNode under the stub over CLI_ROS_SCANS scans against a node
+    stepped directly; both start from ``snapshot``."""
+    from types import SimpleNamespace as NS
+
+    from vofod_tpu_torch.runtime.ros_adapter import RosNode, detections_to_json
+
+    by_stamp = {float(t): p for t, p in zip(stamps, poses)}
+
+    def tf_lookup(target, source, t):
+        p = by_stamp[t]
+        q = _quat(p[:3, :3])
+        return NS(transform=NS(translation=NS(x=float(p[0, 3]), y=float(p[1, 3]),
+                                              z=float(p[2, 3])),
+                               rotation=NS(x=q[0], y=q[1], z=q[2], w=q[3])))
+
+    rec = _Rec()
+    mods = _ros_stub(rec, tf_lookup)
+    Time = mods.pop("_Time")
+    saved = {name: sys.modules.get(name) for name in mods}
+    sys.modules.update(mods)
+    try:
+        from vofod_tpu_torch.runtime.ros_adapter import transform_to_pose
+
+        wrapped, direct = (VoFOD(VoFODConfig(), DynParams(), NodeOptions(), lut, device="cuda")
+                           for _ in range(2))
+        wrapped.load_snapshot(str(snapshot))
+        direct.load_snapshot(str(snapshot))
+        ros = RosNode(wrapped)
+        cb = rec.subs["~pointcloud"]
+        want = []
+        for (r, _), t in zip(scans, stamps):
+            msg = NS(height=lut.height, width=lut.width, fields=[NS(name="range")],
+                     header=NS(stamp=Time(float(t)), frame_id="os_sensor"),
+                     columns={"range": r.tolist()})
+            cb(msg)
+            tf = tf_lookup("world", "os_sensor", float(t)).transform
+            pose = transform_to_pose(tf.translation.x, tf.translation.y, tf.translation.z,
+                                     tf.rotation.x, tf.rotation.y, tf.rotation.z,
+                                     tf.rotation.w)
+            want.append(detections_to_json(direct.process_scan(r, None, pose, float(t))))
+        got = [m.data for m in rec.pubs["~detections_json"].published]
+        if got != want or ros.tf_failures:
+            raise AssertionError(f"RosNode: published {len(got)} lines, equal "
+                                 f"{got == want}, tf failures {ros.tf_failures}")
+        rec.timers[0][1](None)  # the status timer
+        status = json.loads(rec.pubs["~status_json"].published[-1].data)
+        _same_np(_state_np(wrapped.state), _state_np(direct.state), "RosNode")
+        return dict(scans=len(got), json_equal_to_direct_node=True,
+                    detections=[len(json.loads(g)["detections"]) for g in got],
+                    status=status, markers_published=len(rec.pubs["~detections_mks"].published))
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def phase4_cli(lut, sweep_launches: dict) -> None:
+    """Phase 4-cli: the offline detector and its runtime surface on the
+    card (see the module docstring); fails on any check."""
+    import contextlib as _cl
+    import io
+    import os
+    import shutil
+
+    from vofod_tpu_torch.io.pc_loader import save_cloud
+    from vofod_tpu_torch.io.scan_source import load_scans_npz, save_scans_npz
+    from vofod_tpu_torch.pipeline.state import init_state
+    from vofod_tpu_torch.parallel.grid_step import init_grid_sharded_state
+    from vofod_tpu_torch.runtime import checkpoint
+    from vofod_tpu_torch.runtime.mask_creator import MaskCreator
+    from vofod_tpu_torch.runtime.node import VoFOD as NodeClass
+    from vofod_tpu_torch.tools import bag_to_npz, create_mask, detect
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out: dict = {}
+    scans = scan_cycle(lut, CLI_SCANS)
+    cloud = work / "ground.pts"
+    save_cloud(str(cloud), apriori_ground())
+
+    # (a) the uncompressed bag through the detect CLI
+    bag = work / "flight.bag"
+    t0 = time.perf_counter()
+    _write_cli_bag(bag, lut, scans, 100.0)
+    write_s = time.perf_counter() - t0
+    npz = work / "flight.npz"
+    t0 = time.perf_counter()
+    n = bag_to_npz.convert_bag(str(bag), str(npz), "/os_cloud_node/points")
+    conv_s = time.perf_counter() - t0
+    assert n == CLI_SCANS, f"convert_bag: {n} scans"
+    out["bag"] = dict(bytes=bag.stat().st_size, write_s=write_s, convert_s=conv_s,
+                      **_check_converted(npz, scans, "uncompressed bag"))
+    params = work / "params.yaml"
+    params.write_text(CLI_EDIT[0])
+    os.utime(params, (1.0e9, 1.0e9))
+    real_replay = NodeClass.replay
+
+    def replay(self, path, intensity=None, before_scan=None):
+        def edit_then_poll(k):
+            if k == CLI_EDIT_SCAN:
+                params.write_text(CLI_EDIT[1])
+                os.utime(params, (1.0e9 + 1.0, 1.0e9 + 1.0))
+            before_scan(k)
+        return real_replay(self, path, intensity, edit_then_poll)
+
+    ckpt, markers = work / "state", work / "markers.npz"
+    stdout = io.StringIO()
+    NodeClass.replay = replay
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        with _cl.redirect_stdout(stdout):
+            rc = detect.main(["--scans", str(bag), "--apriori-cloud", str(cloud), "--json",
+                              "--save-state", str(ckpt), "--markers", str(markers),
+                              "--watch-params", str(params)])
+        cli_s = time.perf_counter() - t0
+    finally:
+        NodeClass.replay = real_replay
+    launches = kernels.launch_counts()
+    assert rc == 0, f"tools.detect returned {rc}"
+    per_scan = {k: sweep_launches[k] // N_SCANS for k in SWEEP_KERNELS}
+    assert all(sweep_launches[k] == per_scan[k] * N_SCANS for k in SWEEP_KERNELS), (
+        "phase 4's launches are not a whole number a scan")
+    off = {k: (launches[k], CLI_SCANS * per_scan[k]) for k in SWEEP_KERNELS
+           if launches[k] != CLI_SCANS * per_scan[k]}
+    assert not off, f"tools.detect: launches (got, 12 x phase 4's a scan): {off}"
+    foreign = {k: v for k, v in launches.items() if v and k not in SWEEP_KERNELS}
+    assert not foreign, f"tools.detect launched other paths' kernels: {foreign}"
+    lines = stdout.getvalue().splitlines()
+    direct = _cli_node(lut, cloud)
+    rr, pp, ss, ii = load_scans_npz(str(npz))
+    want, step_ms = [], []
+    mgr_dir = work / "snapshots"
+    with checkpoint.SnapshotManager(str(mgr_dir), max_to_keep=CLI_KEEP) as mgr:
+        for k in range(CLI_SCANS):
+            if k == CLI_EDIT_SCAN:
+                direct.update_params(**CLI_EDIT[2])
+            t0 = time.perf_counter()
+            msg = direct.process_scan(rr[k], ii[k], pp[k], float(ss[k]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            want.append(detect.json_line(msg))
+            if (k + 1) % CLI_EVERY == 0:
+                mgr.save(direct.state.step, direct.state)
+        if lines != want:
+            bad = [k for k, (a, b) in enumerate(zip(lines, want)) if a != b]
+            raise AssertionError(f"tools.detect JSON differs from the direct node: {len(lines)} "
+                                 f"lines, scans {bad[:5]}")
+        cli_state = checkpoint.restore_state(str(ckpt), init_state(direct.cfg, device="cuda"))
+        _same_np(_state_np(cli_state), _state_np(direct.state), "tools.detect --save-state")
+        with np.load(markers) as z:
+            n_markers = {k: int(z[k].shape[0]) for k in z.files if k.endswith("_points")}
+        out["detect_cli"] = dict(
+            seconds=cli_s, scans=len(lines), json_bit_equal_to_direct_node=True,
+            detections=int(sum(len(json.loads(x)["detections"]) for x in lines)),
+            params_edit_scan=CLI_EDIT_SCAN, params_edit_equals_update_params=True,
+            launches_equal_12x_phase4=True, launches=launches, marker_points=n_markers)
+
+        # (c) checkpoints: keep-last-K and resume
+        steps = mgr.all_steps()
+        assert steps == [8, 12], f"SnapshotManager kept {steps}"
+        resumed = _cli_node(lut, cloud)
+        t0 = time.perf_counter()
+        resumed.state = mgr.restore(resumed.state)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    resumed.update_params(**CLI_EDIT[2])
+    for k in range(CLI_EVERY):
+        a = direct.process_scan(rr[k], ii[k], pp[k], float(ss[k]) + 10.0)
+        b = resumed.process_scan(rr[k], ii[k], pp[k], float(ss[k]) + 10.0)
+        if detect.json_line(a) != detect.json_line(b):
+            raise AssertionError(f"resumed node's scan {k} differs")
+    _same_np(_state_np(resumed.state), _state_np(direct.state), "SnapshotManager resume")
+    t0 = time.perf_counter()
+    checkpoint.save_state(str(work / "sync"), direct.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+
+    # the async save at scan 6 while the later scans step
+    node = _cli_node(lut, cloud)
+    saved_at, enqueue_ms, inflight_ms = None, [], []
+    with checkpoint.AsyncSaver() as saver:
+        for k in range(CLI_SCANS):
+            if k >= 1:
+                path = work / ("async_at6" if k == CLI_ASYNC_SCAN else f"async_{k % 2}")
+                if k == CLI_ASYNC_SCAN:
+                    saved_at = _state_np(node.state)
+                t0 = time.perf_counter()
+                saver.save(str(path), node.state)
+                enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+                if k == CLI_ASYNC_SCAN:  # an in-place write right after the save
+                    rf = np.eye(4, dtype=np.float32)
+                    rf[:3, 3] = (40.0, 20.0, 3.0)
+                    assert node.process_rangefinder(5.0, 0.1, 30.0, rf)
+            t0 = time.perf_counter()
+            node.process_scan(rr[k], ii[k], pp[k], float(ss[k]))
+            if k >= 1:
+                inflight_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        saver.wait()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+    got = checkpoint.restore_state(str(work / "async_at6"), init_state(node.cfg, device="cuda"))
+    _same_np(_state_np(got), saved_at, "AsyncSaver at scan 6")
+    assert got.step == CLI_ASYNC_SCAN and node.state.step == CLI_SCANS
+    assert not np.array_equal(_state_np(node.state)["grid"], saved_at["grid"])
+
+    # phase 4-grid's 3-shard states: per shard onto the dense state and back
+    states, dense_state, comm = GRID_FINAL["sweep"]
+    t0 = time.perf_counter()
+    checkpoint.save_state(str(work / "grid"), states, layout="zshards")
+    shard_save_ms = (time.perf_counter() - t0) * 1e3
+    m = checkpoint.read_manifest(str(work / "grid"))
+    onto_dense = checkpoint.restore_state(str(work / "grid"), init_state(VoFODConfig(),
+                                                                            device="cuda"))
+    _same_np(_state_np(onto_dense), _state_np(dense_state), "3-shard checkpoint onto dense")
+    checkpoint.save_state(str(work / "grid_dense"), onto_dense)
+    back = checkpoint.restore_state(str(work / "grid_dense"),
+                                    init_grid_sharded_state(VoFODConfig(), DynParams(), comm))
+    for i, (a, b) in enumerate(zip(back, states)):
+        _same_np(_state_np(a), _state_np(b), f"dense checkpoint onto shard {i}")
+        assert a.grid.device == b.grid.device
+    out["checkpoints"] = dict(
+        snapshot_manager=dict(kept=steps, resumed_4_scans_bit_equal=True, restore_ms=restore_ms),
+        async_save=dict(at_scan=CLI_ASYNC_SCAN, restored_equals_scan_6=True,
+                        enqueue_ms_p50=float(np.percentile(enqueue_ms, 50)),
+                        drain_ms=drain_ms),
+        save_ms_dense=save_ms, save_ms_3_shards=shard_save_ms,
+        shard_files=[(e["name"], e["z0"], e["z1"]) for e in m["files"]],
+        grid_3_shards_onto_dense_and_back_bit_equal=True,
+        step_ms_p50_without_save=float(np.percentile(step_ms[1:], 50)),
+        step_ms_p50_with_save_in_flight=float(np.percentile(inflight_ms, 50)),
+        host_clock="process_scan wall ms, the readback included")
+
+    # (b) compressed and staggered bags, one scan each
+    H, W = lut.height, lut.width
+    shift = np.asarray([(12, 4, -4, -12)[u % 4] % W for u in range(H)], np.int64)
+    meta = work / "metadata.json"
+    meta.write_text(json.dumps({
+        "beam_intrinsics": {"beam_altitude_angles": list(np.linspace(45.0, -45.0, H)),
+                            "beam_azimuth_angles": [0.0] * H,
+                            "lidar_origin_to_beam_origin_mm": 0.0},
+        "lidar_data_format": {"pixels_per_column": H, "columns_per_frame": W,
+                              "pixel_shift_by_row": [int(v) for v in shift]}}))
+    out["compressed_bags"] = {}
+    for comp in ("bz2", "lz4"):
+        one = scans[5:6]
+        path = work / f"one_{comp}.bag"
+        t0 = time.perf_counter()
+        _write_cli_bag(path, lut, one, 50.0, compression=comp, shift=shift)
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bag_to_npz.convert_bag(str(path), str(work / f"one_{comp}.npz"), "/os_cloud_node/points",
+                               do_destagger=True, metadata_json=str(meta))
+        c_s = time.perf_counter() - t0
+        out["compressed_bags"][comp] = dict(
+            bytes=path.stat().st_size, write_s=w_s, convert_s=c_s, staggered=True,
+            **_check_converted(work / f"one_{comp}.npz", one, f"{comp} bag"))
+
+    # (d) the mask creator on the card and its CLI
+    rng = np.random.default_rng(24)
+    zeroed = []
+    for r, _ in scans:
+        r = r.copy()
+        r[rng.random(r.size) < 0.01] = 0
+        zeroed.append(r)
+    mc = MaskCreator(H, W)
+    for r in zeroed:
+        mc.add_scan(r)
+    want_mask = np.logical_and.reduce(np.stack(zeroed) > 0, axis=0).reshape(H, W).astype(np.uint8)
+    assert np.array_equal(mc.mask(), want_mask), "MaskCreator differs from numpy's reduce"
+    mask_npz = work / "masked.npz"
+    save_scans_npz(str(mask_npz), np.stack(zeroed), np.stack([p for _, p in scans]))
+    with _cl.redirect_stderr(io.StringIO()):
+        assert create_mask.main(["--scans", str(mask_npz), "--out", str(work / "mask.npy"),
+                                 "--rays", f"{H}x{W}"]) == 0
+    assert np.array_equal(np.load(work / "mask.npy"), want_mask), "create_mask's .npy differs"
+    out["mask"] = dict(scans=len(zeroed), occluded_px=int((want_mask == 0).sum()),
+                       equal_to_numpy=True, cli_equal=True)
+
+    # (e) the ROS adapter under a stub
+    out["ros_node"] = _cli_ros(lut, scans[:CLI_ROS_SCANS], pp[:CLI_ROS_SCANS],
+                               ss[:CLI_ROS_SCANS] + 20.0, ckpt)
+    shutil.rmtree(work, ignore_errors=True)
+    say("4-cli", nvidia_smi=_smi(), seconds=time.perf_counter() - t_phase,
+        checks=["a: bag -> tools.detect", "b: bz2 and lz4 staggered bags",
+                "c: SnapshotManager, AsyncSaver, 3-shard checkpoint", "d: MaskCreator + CLI",
+                "e: RosNode"], **out)
 
 
 def _dev_us(e, self_only: bool) -> float:
@@ -4752,6 +5276,7 @@ def main() -> int:
     phase4_grid(lut, "prebinned")
     phase4_grid(lut, "dynamic")
     gs_launches, gs_ms_p50 = phase4_grid(lut, "sequential")
+    phase4_cli(lut, launches)
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")

@@ -1,13 +1,15 @@
 """The PyTorch port's copies of framework-neutral modules equal their originals.
 
 The port cannot import vofod_tpu where it runs (importing any vofod_tpu
-module loads JAX), so it carries numpy copies of the config, sensor,
-scan-source, angular-gate, host-binner, message and profiling code.  These tests hold each copy to its
+module loads JAX), so it carries numpy copies of the config, sensor
+(with the Ouster metadata parser and destagger), scan-source,
+angular-gate, host-binner, message, profiling, LZ4 and rosbag code.  These tests hold each copy to its
 original, check that the port imports no JAX at all, and that asking for a
 CUDA device without one raises instead of running on the CPU.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -20,7 +22,9 @@ import torch
 from vofod_tpu import config as jcfg
 from vofod_tpu import sensor as jsensor
 from vofod_tpu.io import binner as jbinner
+from vofod_tpu.io import lz4_lite as jlz4
 from vofod_tpu.io import msgs as jmsgs
+from vofod_tpu.io import rosbag_lite as jrb
 from vofod_tpu.io import scan_source as jsrc
 from vofod_tpu.ops import raycast as jray
 from vofod_tpu.runtime import profiling as jprof
@@ -28,7 +32,9 @@ from vofod_tpu_torch import config as tcfg
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch import sensor as tsensor
 from vofod_tpu_torch.io import binner as tbinner
+from vofod_tpu_torch.io import lz4_lite as tlz4
 from vofod_tpu_torch.io import msgs as tmsgs
+from vofod_tpu_torch.io import rosbag_lite as trb
 from vofod_tpu_torch.io import scan_source as tsrc
 from vofod_tpu_torch.ops import raycast as tray
 from vofod_tpu_torch.runtime import profiling as tprof
@@ -236,6 +242,58 @@ def test_binner_copy_matches(use_native):
         assert tbinner.choose_ingest(*args) == jbinner.choose_ingest(*args)
 
 
+def _ouster_metadata(nested: bool) -> str:
+    """tests/test_sensor_metadata.py's metadata: nested or flat."""
+    H, W = 16, 64
+    beam = {"beam_altitude_angles": list(np.linspace(22.5, -22.5, H)),
+            "beam_azimuth_angles": list(np.linspace(-1.5, 1.5, H)),
+            "lidar_origin_to_beam_origin_mm": 15.806}
+    fmt = {"pixels_per_column": H, "columns_per_frame": W,
+           "pixel_shift_by_row": [(3 * u) % W for u in range(H)]}
+    intr = {"lidar_to_sensor_transform": [-1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 1, 36.18, 0, 0, 0, 1]}
+    if nested:
+        return json.dumps({"beam_intrinsics": beam, "lidar_data_format": fmt,
+                           "lidar_intrinsics": intr})
+    return json.dumps({**beam, **fmt, **intr})
+
+
+@pytest.mark.parametrize("nested", [True, False])
+def test_ouster_metadata_and_destagger_copies_match(nested):
+    meta = _ouster_metadata(nested)
+    (tc, tl, ts), (jc, jl, js) = tsensor.parse_ouster_metadata(meta), jsensor.parse_ouster_metadata(meta)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tl.directions.tobytes() == jl.directions.tobytes()
+    assert tl.offsets.tobytes() == jl.offsets.tobytes()
+    assert ts.dtype == js.dtype and np.array_equal(ts, js)
+    img = np.random.default_rng(2).integers(0, 9000, (16, 64)).astype(np.uint32)
+    assert np.array_equal(tsensor.destagger(img, ts), jsensor.destagger(img, js))
+    assert not np.array_equal(tsensor.destagger(img, ts), img)
+
+
+def test_lz4_and_rosbag_copies_match():
+    """The LZ4 codec and the bag records' encoders give the originals'
+    bytes; each decoder reads the other's."""
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, 64, 20000, dtype=np.uint8).tobytes() + b"xyz" * 4000
+    frame = tlz4.compress(data)
+    assert frame == jlz4.compress(data) and tlz4.decompress(frame) == data
+    assert tlz4.decompress(jlz4.compress(data)) == jlz4.decompress(frame) == data
+    assert tlz4.xxh32(data) == jlz4.xxh32(data)
+    kw = dict(stamp=3.25, frame_id="os_sensor", height=4, width=8,
+              fields=[("range", 0, 6, 1)], point_step=4,
+              data=rng.integers(0, 9000, 32).astype("<u4").tobytes())
+    pc = trb.serialize_pointcloud2(**kw)
+    assert pc == jrb.serialize_pointcloud2(**kw)
+    a, b = trb.deserialize_pointcloud2(pc), jrb.deserialize_pointcloud2(pc)
+    assert (a.stamp, a.frame_id, a.fields, a.data) == (b.stamp, b.frame_id, b.fields, b.data)
+    tfs = [dict(stamp=1.5, parent="world", child="uav", txyz=(1.0, 2.0, 3.0),
+                quat=(0.0, 0.0, 0.6, 0.8))]
+    tf = trb.serialize_tf_message(tfs)
+    assert tf == jrb.serialize_tf_message(tfs)
+    assert trb.deserialize_tf_message(tf) == jrb.deserialize_tf_message(tf)
+    assert (trb.MAGIC, trb.PC2_MD5, trb.TF_MD5) == (jrb.MAGIC, jrb.PC2_MD5, jrb.TF_MD5)
+
+
 _NO_JAX = textwrap.dedent(
     """
     import importlib.abc, sys
@@ -301,6 +359,42 @@ _NO_JAX = textwrap.dedent(
     assert len(fleet.process_scans(np.stack([scan] * 2), np.stack([pose] * 2))) == 2
     assert sharding.batched_state_to_numpy(fleet.state)["step"].tolist() == [1, 1]
     assert callable(StreamRunner.start) and callable(serve_fleet.main)
+    # the runtime surface: a tiny bag through the detect CLI on the CPU,
+    # a checkpoint directory, the mask creator and the other modules
+    import contextlib, io, json, os, tempfile
+    from vofod_tpu_torch.io import lz4_lite, pc_loader, rosbag_lite
+    from vofod_tpu_torch.pipeline.step import StagedStep
+    from vofod_tpu_torch.runtime import (checkpoint, mask_creator, param_watch, ros_adapter,
+                                         viz)
+    from vofod_tpu_torch.sensor import destagger, parse_ouster_metadata
+    from vofod_tpu_torch.tools import bag_to_npz, create_mask, detect
+    tmp = tempfile.mkdtemp()
+    bag = os.path.join(tmp, "tiny.bag")
+    with rosbag_lite.BagWriter(bag, compression="lz4") as w:
+        for k in range(2):
+            pose = hover_pose((0.0, 0.0, 2.0 + 0.1 * k))
+            t, q = pose[:3, 3], (0.0, 0.0, 0.0, 1.0)
+            w.write_tf("/tf", float(k), [dict(stamp=float(k), parent="world", child="os_sensor",
+                                              txyz=tuple(float(v) for v in t), quat=q)])
+            r = render_scan(scene, node.lut, pose).astype("<u4")
+            w.write_pointcloud2("/os_cloud_node/points", float(k), frame_id="os_sensor",
+                                height=8, width=32, fields=[("range", 0, 6, 1)], point_step=4,
+                                data=r.tobytes())
+    sen, area = os.path.join(tmp, "sensor.yaml"), os.path.join(tmp, "map.yaml")
+    with open(sen, "w") as f:
+        f.write("sensor: {vertical_rays: 8, horizontal_rays: 32}\\n")
+    with open(area, "w") as f:
+        f.write("operation_area: {offset: {x: 4.0, y: 4.0, z: 0.0}, "
+                "size: {x: 8.0, y: 8.0, z: 6.0}}\\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = detect.main(["--scans", bag, "--sensor", sen, "--map", area, "--small-capacities",
+                          "--json", "--device", "cpu", "--save-state", os.path.join(tmp, "ck")])
+    assert rc == 0 and len(out.getvalue().splitlines()) == 2
+    assert checkpoint.read_manifest(os.path.join(tmp, "ck"))["layout"] == "dense"
+    mc = mask_creator.MaskCreator(8, 32, device="cpu")
+    mc.add_scan(scan)
+    assert mc.mask().shape == (8, 32)
     assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
     print("NO_JAX_OK", int(node.last_diag.n_occupied))
     """

@@ -1,6 +1,6 @@
 """Build and load the native host library (``native/frontend.cpp``, the scan
-binner, and ``native/pc_loader.cpp``, the SPSC scan ring of io/scan_queue.py)
-for the port.
+binner, and ``native/pc_loader.cpp``, the SPSC scan ring of io/scan_queue.py
+and the ASCII cloud reader of io/pc_loader.py) for the port.
 
 The port's own loader in place of vofod_tpu/io/pc_loader ``_native_lib``:
 at first use it compiles the two sources in ``native/`` (read, never
@@ -96,6 +96,11 @@ def load():
         lib.vofod_binner_bin_dense.argtypes = [P, P, P, P, F, P, P, P]
         # the SPSC scan ring (io/scan_queue.py)
         LL = ctypes.c_longlong
+        # the ASCII cloud reader (io/pc_loader.py)
+        lib.vofod_count_points.restype = LL
+        lib.vofod_count_points.argtypes = [ctypes.c_char_p]
+        lib.vofod_load_cloud.restype = LL
+        lib.vofod_load_cloud.argtypes = [ctypes.c_char_p, ctypes.POINTER(F), LL]
         lib.vofod_queue_create.restype = P
         lib.vofod_queue_create.argtypes = [LL, LL]
         lib.vofod_queue_destroy.restype = None

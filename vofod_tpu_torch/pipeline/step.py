@@ -36,7 +36,9 @@ same collectives in the same order.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -302,3 +304,87 @@ def make_step_fn(
         return state, StepOutput(detections=dets, diag=diag)
 
     return step
+
+
+class StagedStep:
+    """The step with its three routines (CNC / RAYCASTING / SEPBGCLUSTERS)
+    timed apart — for attributing per-routine device times to the
+    ProfilingInfo stream (the reference publishes per-thread START/END
+    events, vofod_nodelet.cpp:2178-2203).
+
+    Counterpart of vofod_tpu/pipeline/step.py ``StagedStep``.  The JAX class
+    dispatches three jitted stages and blocks between them; here the stages
+    are the boundaries the step reports through its ``stage_hook``, and each
+    boundary records a CUDA event on the current stream (the host clock on
+    the CPU, where the step runs synchronously), so the staged step issues
+    exactly the fused step's work and no sync of its own: its result is the
+    fused step's, bit for bit.  ``last_timings`` ({"cnc", "raycasting",
+    "sepbgclusters"} seconds of the latest call) reads the events, waiting
+    for them if the device has not reached them yet; ``last_marks`` are the
+    boundaries themselves: (name, CUDA event or perf_counter, wall time).
+
+    ``step``: a step of :func:`make_step_fn` to stage (the node passes its
+    own); else one is built from ``cfg``, ``lut``, ``device`` and ``kw``.
+    """
+
+    def __init__(self, cfg: VoFODConfig | None = None, lut: XyzLut | None = None, *,
+                 device=None, step: Callable | None = None, **kw):
+        if step is None:
+            if cfg is None or lut is None or device is None:
+                raise ValueError("StagedStep needs a step, or cfg, lut and device to build one")
+            step = make_step_fn(cfg, lut, device=device, **kw)
+        self._step = step
+        self.last_marks: list = []
+
+    @staticmethod
+    def _mark(name: str, device: torch.device):
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return name, ev, time.time()
+        return name, time.perf_counter(), time.time()
+
+    def __call__(self, state: VoFODState, scan: ScanInput | PrebinnedScan, dyn: DynParams,
+                 stage_ctx: Callable | None = None) -> tuple[VoFODState, StepOutput]:
+        """Run the step once, marking each routine's boundaries.
+
+        ``stage_ctx(name)`` (names "cnc" / "raycasting" / "sepbgclusters")
+        may return a context manager entered around each stage."""
+        ctx = stage_ctx or (lambda name: contextlib.nullcontext())
+        device = state.grid.device
+        marks, open_ctx = [], []
+
+        def hook(name: str) -> None:
+            if open_ctx:
+                open_ctx.pop().__exit__(None, None, None)
+            marks.append(self._mark(name, device))
+            if name != "end":
+                cm = ctx(name)
+                cm.__enter__()
+                open_ctx.append(cm)
+
+        try:
+            out = self._step(state, scan, dyn, stage_hook=hook)
+        except BaseException as e:
+            if open_ctx:
+                open_ctx.pop().__exit__(type(e), e, e.__traceback__)
+            raise
+        self.last_marks = marks
+        return out
+
+    @staticmethod
+    def timings(marks: list) -> dict[str, float]:
+        """Seconds per routine between a call's marks."""
+        out = {}
+        for (name, t0, _), (_, t1, _) in zip(marks, marks[1:]):
+            if isinstance(t0, torch.cuda.Event):
+                t1.synchronize()
+                out[name] = t0.elapsed_time(t1) / 1e3
+            else:
+                out[name] = t1 - t0
+        return out
+
+    @property
+    def last_timings(self) -> dict[str, float]:
+        """Seconds per routine of the latest call."""
+        return self.timings(self.last_marks)

@@ -16,11 +16,12 @@ turn (io/staging.py: pinned once on CUDA, each guarded by the event of its
 last copy) and one non-blocking copy per buffer.
 
 The runtime surface of the JAX node: the rangefinder fusion, NPZ snapshots
-that either package reads, the debug voxel export, replay of a recorded NPZ,
+that either package reads and checkpoint directories
+(runtime/checkpoint.py), the debug voxel export, replay of a recorded NPZ,
 the one-time LUT consistency check, the ProfilingInfo event stream (with
-``profile_stages``, per-routine device times from CUDA events read after
-the scan's readback) and one ``torch.profiler`` trace window
-(``trace_dir``).
+``profile_stages``, per-routine device times from the CUDA events of a
+``StagedStep``, read after the scan's readback) and one ``torch.profiler``
+trace window (``trace_dir``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from vofod_tpu_torch.io.scan_source import load_scans_npz
 from vofod_tpu_torch.io.staging import HostStaging
 from vofod_tpu_torch.pipeline.state import (
     PrebinnedScan, ScanInput, VoFODState, init_state, state_from_numpy, state_to_numpy)
-from vofod_tpu_torch.pipeline.step import make_step_fn
+from vofod_tpu_torch.pipeline.step import StagedStep, make_step_fn
 from vofod_tpu_torch.runtime.profiling import ProfilingStream, ScopeTimer
 from vofod_tpu_torch.sensor import XyzLut, check_sensor_params, load_mask, make_lut
 
@@ -190,6 +191,8 @@ class VoFOD:
             mask=self.mask,
             frontend_mode=self.options.frontend_mode,
         )
+        # profile_stages: the same step, its routines' boundaries marked
+        self._staged = StagedStep(step=self._step) if self.options.profile_stages else None
         n = self.cfg.sensor.n_points
         self._binner = None
         if self.options.frontend_mode == "prebinned":
@@ -273,10 +276,9 @@ class VoFOD:
         if self._trace_state == "pending" and self.state.step >= self.options.trace_skip:
             self._start_trace()
         marks = None
-        if self.options.profile_stages:
-            marks = []
-            self.state, out = self._step(self.state, scan, self.dyn,
-                                         stage_hook=lambda name: marks.append(self._mark(name)))
+        if self._staged is not None:
+            self.state, out = self._staged(self.state, scan, self.dyn)
+            marks = self._staged.last_marks
         else:
             with self.profiling.routine(ProfilingInfo.ROUTINE_CNC):
                 self.state, out = self._step(self.state, scan, self.dyn)
@@ -312,15 +314,6 @@ class VoFOD:
         return PrebinnedScan(packed=packed.view(self._binner.shape), active=active,
                              pose=pose_np, stats=stats)
 
-    def _mark(self, name: str):
-        """A stage boundary: a CUDA event on the current stream, or the host
-        clock on the CPU (where the step runs synchronously)."""
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return name, ev, time.time()
-        return name, time.perf_counter(), time.time()
-
     def _emit_markers(self, step_idx: int) -> None:
         """The fused step subsumes the reference's raycast and sepclusters
         threads: their START/END markers (no duration) keep the routine
@@ -341,9 +334,7 @@ class VoFOD:
         complete once the readback returned): ``last_stage_ms`` and one
         START/END pair per routine, stamped from the first mark's wall time
         plus the device times."""
-        ms = {}
-        for (name, t0, _), (_, t1, _) in zip(marks, marks[1:]):
-            ms[name] = t0.elapsed_time(t1) if self.device.type == "cuda" else (t1 - t0) * 1e3
+        ms = {name: s * 1e3 for name, s in StagedStep.timings(marks).items()}
         self.last_stage_ms = ms
         t = marks[0][2]
         for name, d in ms.items():
@@ -566,18 +557,26 @@ class VoFOD:
 
     # ----------------------------------------------------------- checkpointing
     def save_snapshot(self, path: str):
-        """Snapshot of the full detector state as an NPZ with the JAX node's
-        keys and dtypes, so either package reads the other's files."""
+        """Snapshot of the full detector state.  ``*.npz`` paths write a host
+        NPZ with the JAX node's keys and dtypes, so either package reads the
+        other's files; any other path writes a checkpoint directory
+        (runtime/checkpoint.py, the dense layout: its ``state.npz`` is such
+        an NPZ)."""
         if not path.endswith(".npz"):
-            raise NotImplementedError(
-                "only .npz snapshots: the Orbax checkpoint directory format of "
-                "vofod_tpu.runtime.checkpoint needs jax and orbax")
+            from vofod_tpu_torch.runtime.checkpoint import save_state
+
+            save_state(path, self.state)
+            return
         np.savez_compressed(path, **state_to_numpy(self.state))
 
     def load_snapshot(self, path: str):
+        """Restore a snapshot written by :meth:`save_snapshot` (either
+        package's NPZ, or a checkpoint directory of any z-slab layout) onto
+        this node's device."""
         if not path.endswith(".npz"):
-            raise NotImplementedError(
-                "only .npz snapshots: the Orbax checkpoint directory format of "
-                "vofod_tpu.runtime.checkpoint needs jax and orbax")
+            from vofod_tpu_torch.runtime.checkpoint import restore_state
+
+            self.state = restore_state(path, self.state)
+            return
         with np.load(path) as z:
             self.state = state_from_numpy(z, self.device)

@@ -5,8 +5,9 @@ runs (importing vofod_tpu loads JAX); tests/test_torch_shared_copies.py holds
 it to the original.  Builds the per-pixel ray ``directions`` and ``offsets``
 lookup tables either from an ideal spherical model (simulation, ref
 src/vofod_nodelet.cpp:374-420) or from Ouster beam calibration angles (ref
-:358-371, via ouster::make_xyz_lut) and loads the FOV mask (ref load_mask
-:504-562).
+:358-371, via ouster::make_xyz_lut) or an Ouster metadata JSON
+(``parse_ouster_metadata``), loads the FOV mask (ref load_mask :504-562)
+and destaggers organized fields.
 
 Row/column convention: arrays are (H, W) = (vertical_rays, horizontal_rays);
 flat pixel index is ``row * W + col`` like the reference's organized clouds
@@ -126,6 +127,47 @@ def make_lut_ouster(
     )
 
 
+def parse_ouster_metadata(metadata_json: str):
+    """Parse an Ouster sensor metadata JSON (the get_metadata service payload
+    the reference consumes, ref initialize_sensor vofod_nodelet.cpp:446-501).
+
+    Returns (SensorConfig, XyzLut, pixel_shift_by_row).  Accepts both the
+    flat legacy format and the nested (firmware >= 2.x) format with
+    ``beam_intrinsics`` / ``lidar_data_format`` sections.
+    """
+    import json
+
+    from vofod_tpu_torch.config import SensorConfig
+
+    m = json.loads(metadata_json)
+    beam = m.get("beam_intrinsics", m)
+    fmt = m.get("lidar_data_format", m.get("data_format", m))
+    alt = beam["beam_altitude_angles"]
+    az = beam.get("beam_azimuth_angles", [0.0] * len(alt))
+    n_off = float(beam.get("lidar_origin_to_beam_origin_mm", 0.0))
+    H = int(fmt.get("pixels_per_column", len(alt)))
+    W = int(fmt.get("columns_per_frame", 1024))
+    shift = fmt.get("pixel_shift_by_row", [0] * H)
+    l2s = m.get("lidar_intrinsics", m).get("lidar_to_sensor_transform", None)
+
+    cfg = SensorConfig(
+        vertical_rays=H,
+        horizontal_rays=W,
+        vertical_fov=float(abs(alt[-1] - alt[0])) * np.pi / 180.0,
+        simulation=False,
+        beam_azimuth_angles_deg=tuple(float(a) for a in az),
+        beam_altitude_angles_deg=tuple(float(a) for a in alt),
+        lidar_origin_to_beam_origin_mm=n_off,
+    )
+    lut = make_lut_ouster(
+        W, H, az, alt, n_off,
+        lidar_to_sensor_transform=np.asarray(l2s, np.float64).reshape(4, 4)
+        if l2s is not None
+        else None,
+    )
+    return cfg, lut, np.asarray(shift, np.int64)
+
+
 def make_lut(cfg_sensor) -> XyzLut:
     """Build the LUT for a SensorConfig (metadata variant when beam angles are
     provided, ideal spherical model otherwise; ref initialize_sensor
@@ -206,6 +248,14 @@ def _read_mask_file(path: str) -> np.ndarray | None:
         return np.asarray(Image.open(path).convert("L"))
     except ImportError:
         return None
+
+
+def destagger(img: np.ndarray, pixel_shift_by_row) -> np.ndarray:
+    """Destagger an organized (H, W) Ouster field by per-row pixel shift."""
+    H, W = img.shape[:2]
+    shift = np.asarray(pixel_shift_by_row, dtype=np.int64)
+    cols = (np.arange(W)[None, :] + shift[:, None]) % W
+    return np.take_along_axis(img, cols, axis=1)
 
 
 # =============================================================================
