@@ -237,7 +237,32 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    pixels zeroed, and the create_mask CLI's .npy, equal to numpy's
    ``logical_and.reduce(r > 0)``; (e) ``RosNode`` under an in-process stub
    of rospy and its message modules, 3 scans, publishing the JSON of a
-   node stepped directly;
+   node stepped directly.  Then phase 4-fleet-grid, the 2-D streams x grid
+   fleet (``FleetVoFOD(n_streams=2, grid_shards=3)``, the apriori plane,
+   stream b fed the cycle from scan 3 b): 8 ticks beside dense nodes,
+   diagnostics, detection integers and final states bit-equal, detection
+   floats within 1e-5 relative; a NaN rotation on stream 1 at tick 4 (a
+   null scan, ``n_pose_rejected`` [0, 1]); ``reset_stream(0)`` +
+   ``load_apriori_map(plane, stream=0)`` before tick 6; exactly 1 host
+   sync a tick and 2 x phase 4-grid's launches a scan of every kernel
+   (the null tick's ray stage once), none of the others; the state after
+   tick 3 saved in the ``streams_zshards`` checkpoint layout, restored onto
+   a fresh 2-D fleet and onto a 1-shard fleet, both stepped to tick 8 equal
+   to the uninterrupted run; one prebinned tick through
+   ``make_fleet_grid_step`` equal to dense prebinned nodes; tick p50 / p95
+   at 1 and 2 streams, 2 streams' device busy ms and idle share
+   (torch.profiler), and tools/serve_fleet ``--grid-shards 3`` (2 streams,
+   5 ticks).  Then phase 4-fleet-procs: two worker processes
+   (``chip_smoke.py --fleet-worker``, started once the parent has built
+   the kernels) join a gloo group on 127.0.0.1 and share the card; each
+   runs ``FleetVoFOD(n_streams=4)`` on its 2 streams, 12 ticks with 1
+   grid shard (past the first detections) and 3 with 3, every stream's records and final state equal to a
+   single-process 4-stream fleet's (``local_streams`` [0, 1] and [2, 3]);
+   then tools/serve_fleet ``--coordinator`` in two processes for 5 ticks,
+   each reporting its own streams only; each process's tick host ms beside
+   the single process's, and whether the card time-slices the two
+   contexts or runs MPS.  A worker's non-zero exit, a timeout or a missing
+   record fails the phase;
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
    prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
    grid-sharded exact, grid-sharded sequential, grid-sharded with the
@@ -269,8 +294,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -336,7 +363,8 @@ from vofod_tpu_torch.parallel.gridops import (  # noqa: E402
     DENSE, HALO_TILE_BYTES, SWEEP_BATCH, ZShardOps, batch_on_card, batch_plain,
     halo_exchange_plain, halo_fill_plain_, halo_fold_min_plain, halo_segments, sharded_sweeps)
 from vofod_tpu_torch.parallel.grid_step import (  # noqa: E402
-    gather_state, make_grid_sharded_step, shard_state)
+    gather_state, make_fleet_grid_step, make_grid_sharded_step, shard_state)
+from vofod_tpu_torch.runtime.checkpoint import restore_state, save_state  # noqa: E402
 from vofod_tpu_torch.sensor import make_lut, make_lut_ouster  # noqa: E402
 
 # K4 tolerance: T lies in [0, 1] and is stored in bf16; kernel and plain
@@ -5107,6 +5135,494 @@ def phase4_cli(lut, sweep_launches: dict) -> None:
                 "e: RosNode"], **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 4-fleet-grid: the 2-D streams x grid fleet at the flagship size
+# ---------------------------------------------------------------------------
+
+FG_B = 2
+FG_TICKS = 8
+FG_NAN = (4, 1)  # (tick, stream) of the NaN rotation
+FG_RESET = (6, 0)  # (tick, stream) reset and re-stamped before that tick
+FG_SAVE = 4  # the checkpoint holds the state after ticks 0-3
+FG_TIMING_B = (1, 2)
+FG_TIMED_TICKS = 10
+FG_DET_RTOL = 1e-5  # detection floats against the dense nodes (JAX's bound for its sharded step)
+# the kernels of the ray stage, which a null scan's step does not launch
+RAY_STAGE = ("gate_faces", "ray_update", "cone_sweep_lat", "cone_sweep_z")
+
+
+def _fg_fleet(n_streams: int, plane, grid_shards: int = GRID_SHARDS):
+    fleet = FleetVoFOD(VoFODConfig(), DynParams(), n_streams, device="cuda",
+                       grid_shards=grid_shards)
+    fleet.load_apriori_map(plane)
+    return fleet
+
+
+def _fg_events(fleet, plane, k: int, r, p) -> None:
+    """The phase's script at tick k, on a fleet: reset and re-stamp stream
+    FG_RESET[1] before tick FG_RESET[0]; a NaN rotation on stream FG_NAN[1]
+    at tick FG_NAN[0] (in ``p``, in place)."""
+    if k == FG_RESET[0]:
+        fleet.reset_stream(FG_RESET[1])
+        fleet.load_apriori_map(plane, stream=FG_RESET[1])
+    if k == FG_NAN[0]:
+        p[FG_NAN[1], :3, :3] = np.nan  # finite translation, NaN rotation
+
+
+def _close_record(a: tuple, b: tuple, what: str) -> bool:
+    """Two (detections, diagnostics) records: diagnostics and detection
+    integers equal, detection floats within FG_DET_RTOL relative; returns
+    whether the floats are bit-equal too."""
+    for f, v in a[1].items():
+        if not np.array_equal(v, b[1][f]):
+            raise AssertionError(f"{what}: diag.{f} differs")
+    if len(a[0]) != len(b[0]):
+        raise AssertionError(f"{what}: {len(a[0])} detections, {len(b[0])} expected")
+    bit = True
+    for x, y in zip(a[0], b[0]):
+        if (x.id, x.n_points) != (y.id, y.n_points):
+            raise AssertionError(f"{what}: detection ids / n_points differ")
+        fx, fy = (np.array([d.confidence, d.detection_probability, *d.position, *d.covariance],
+                           np.float64) for d in (x, y))
+        np.testing.assert_allclose(fx, fy, rtol=FG_DET_RTOL, atol=0.0, err_msg=what)
+        bit &= bool(np.array_equal(fx, fy))
+    return bit
+
+
+def _fg_states_equal(a: list, b: list, what: str) -> None:
+    """Two fleets' states (2-D slab lists or 1-shard states) bit-equal."""
+    for s, (x, y) in enumerate(zip(a, b)):
+        _same_stream_state(x if isinstance(x, VoFODState) else gather_state(x),
+                           y if isinstance(y, VoFODState) else gather_state(y),
+                           f"{what}, stream {s}")
+
+
+def _fg_parity(lut, cycle, plane, grid_launches: dict, ckpt: Path) -> dict:
+    """(a)-(d) and the checkpoint's save: FG_B streams of 3 shards for
+    FG_TICKS ticks beside FG_B dense nodes fed the same scans (the null scan
+    a node step on zero ranges and the sentinel pose, the reset a fresh node
+    with the plane); each tick one host sync and, but on the null-scan
+    tick, FG_B x phase 4-grid's launches a scan of every kernel (the null
+    tick: the ray stage's once); the state after tick FG_SAVE - 1 saved in
+    the ``streams_zshards`` layout."""
+    fleet = _fg_fleet(FG_B, plane)
+    nodes = [_fresh_node(lut, plane) for _ in range(FG_B)]
+    sentinel = np.eye(4, dtype=np.float32)
+    sentinel[:3, 3] = np.asarray(VoFODConfig().oparea.lo, np.float32) - 1.0e6
+    per_scan = {k: v / N_SCANS for k, v in grid_launches.items()}
+    records, syncs, launches, bit_equal, save_ms = [], [], [], True, None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k in range(FG_TICKS):
+            if k == FG_SAVE:
+                t0 = time.perf_counter()
+                save_state(str(ckpt), fleet.state, layout="streams_zshards")
+                save_ms = (time.perf_counter() - t0) * 1e3
+            r, p = _fleet_tick(cycle, FG_B, k)
+            _fg_events(fleet, plane, k, r, p)
+            if k == FG_RESET[0]:
+                nodes[FG_RESET[1]] = _fresh_node(lut, plane)
+                _same_stream_state(gather_state(fleet.state[FG_RESET[1]]),
+                                   nodes[FG_RESET[1]].state, "(c) just after the reset")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            before = len(caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                msgs = fleet.process_scans(r, p)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)
+                             and "prototype" not in str(w.message)))
+            fl = kernels.launch_counts()
+            launches.append({g: v for g, v in fl.items() if v})
+            null = k == FG_NAN[0]
+            want = {g: (FG_B - (null and g in RAY_STAGE)) * v for g, v in per_scan.items()}
+            off = {g: (fl[g], w) for g, w in want.items() if fl[g] != w}
+            if off:
+                raise AssertionError(f"(d) tick {k}: launches (got, {FG_B} x phase 4-grid's "
+                                     f"a scan) {off}")
+            tick = []
+            for b, node in enumerate(nodes):
+                rb, pb = (np.zeros_like(r[b]), sentinel) if not np.isfinite(p[b]).all() \
+                    else (r[b], p[b])
+                ref = _node_record(node, node.process_scan(rb, None, pb))
+                rec = _stream_record(fleet, msgs, b)
+                bit_equal &= _close_record(rec, ref, f"(a) tick {k}, stream {b}")
+                tick.append(rec)
+            records.append(tick)
+    if syncs != [1] * FG_TICKS:
+        raise AssertionError(f"(d) host syncs per tick {syncs}, expected exactly 1")
+    _fg_states_equal(fleet.state, [n.state for n in nodes], "(a) final state")
+    rejected = [int(x) for x in fleet.n_pose_rejected]
+    if rejected != [int(b == FG_NAN[1]) for b in range(FG_B)]:
+        raise AssertionError(f"(b) n_pose_rejected {rejected}")
+    for b, s in enumerate(fleet.state):
+        if any(torch.isnan(sh.grid).any() for sh in s):
+            raise AssertionError(f"(b) stream {b}: grid holds NaN")
+    steps = [s[0].step for s in fleet.state]
+    if steps != [FG_TICKS - FG_RESET[0] if b == FG_RESET[1] else FG_TICKS for b in range(FG_B)]:
+        raise AssertionError(f"(c) step counters {steps}")
+    return dict(fleet=fleet, records=records, syncs=syncs, bit_equal_dets=bit_equal,
+                launches_per_tick=launches[0], null_tick_launches=launches[FG_NAN[0]],
+                n_pose_rejected=rejected, steps_final=steps, save_ms=save_ms,
+                detections_per_stream=[sum(len(t[b][0]) for t in records) for b in range(FG_B)])
+
+
+def _fg_resumed(lut, cycle, plane, ckpt: Path, clean: dict) -> dict:
+    """The checkpoint restored onto a fresh 2-D fleet and onto a 1-shard
+    fleet, each stepped through ticks FG_SAVE..FG_TICKS - 1 of the script:
+    every tick's records and the final states equal the uninterrupted
+    run's."""
+    out = {}
+    for name, shards in (("2-D", GRID_SHARDS), ("1-shard", 1)):
+        fleet = _fg_fleet(FG_B, plane, shards)
+        t0 = time.perf_counter()
+        fleet.state = restore_state(str(ckpt), fleet.state)
+        ms = (time.perf_counter() - t0) * 1e3
+        for k in range(FG_SAVE, FG_TICKS):
+            r, p = _fleet_tick(cycle, FG_B, k)
+            _fg_events(fleet, plane, k, r, p)
+            msgs = fleet.process_scans(r, p)
+            for b in range(FG_B):
+                _close_record(_stream_record(fleet, msgs, b), clean["records"][k][b],
+                              f"(e) {name} resumed, tick {k}, stream {b}")
+        _fg_states_equal(fleet.state, clean["fleet"].state, f"(e) {name} resumed")
+        out[name] = dict(restore_ms=ms, ticks=FG_TICKS - FG_SAVE)
+    return out
+
+
+def _fg_prebinned(lut, cycle, plane) -> dict:
+    """(f) One prebinned tick of FG_B streams through make_fleet_grid_step
+    (each shard uploading its slab of each stream's host-binned grid) beside
+    dense prebinned nodes: state, diagnostics and detections equal."""
+    cfg = VoFODConfig()
+    comm = LocalComm(GRID_SHARDS, ["cuda"])
+    step = make_fleet_grid_step(cfg, lut, comm, frontend_mode="prebinned")
+    nodes = []
+    for _ in range(FG_B):
+        node = VoFOD(cfg, DynParams(), NodeOptions(frontend_mode="prebinned"), lut, device="cuda")
+        node.load_apriori_map(plane)
+        nodes.append(node)
+    states = [shard_state(n.state, comm) for n in nodes]
+    hb = HostBinner(cfg, lut)
+    r, p = _fleet_tick(cycle, FG_B, 0)
+    bins = [hb.bin(r[b], p[b], min_intensity=float(DynParams().raycast_min_intensity))
+            .to_device("cpu") for b in range(FG_B)]
+    events = []
+    states, outs = step(states, bins, DynParams(), upload_events=events)
+    if len(events) != FG_B * GRID_SHARDS:
+        raise AssertionError(f"(f) {len(events)} upload events, expected {FG_B * GRID_SHARDS}")
+    fetched = [GridDriver.fetch(o) for o in outs]
+    for b, node in enumerate(nodes):
+        pending = node.process_scan_async(r[b], None, p[b])
+        dense_out = pending[0]
+        node.fetch_result(pending)
+        _same_stream_state(gather_state(states[b]), node.state, f"(f) prebinned stream {b}")
+        diag, dets = fetched[b]
+        for f, v in diag.items():
+            if not np.array_equal(v, getattr(node.last_diag, f)):
+                raise AssertionError(f"(f) prebinned stream {b}: diag.{f} differs")
+        for f, v in dets.items():
+            want = getattr(dense_out.detections, f).cpu().numpy()
+            if v.dtype.kind == "f":
+                np.testing.assert_allclose(v, want, rtol=FG_DET_RTOL, atol=0.0,
+                                           err_msg=f"(f) prebinned stream {b}: detections.{f}")
+            elif not np.array_equal(v, want):
+                raise AssertionError(f"(f) prebinned stream {b}: detections.{f} differs")
+    return dict(streams=FG_B, upload_events=len(events), equal_to_dense_prebinned=True)
+
+
+def _fg_timing(cycle, plane) -> dict:
+    """(g) For B of FG_TIMING_B: tick wall ms p50 / p95 (host clock from the
+    stacked upload to the host messages) over FG_TIMED_TICKS ticks after
+    FLEET_WARM_TICKS, and B = 2's device busy ms and idle share a tick."""
+    out, profiled = {}, None
+    for n_streams in FG_TIMING_B:
+        fleet = _fg_fleet(n_streams, plane)
+        ms = []
+        for k in range(FLEET_WARM_TICKS + FG_TIMED_TICKS):
+            r, p = _fleet_tick(cycle, n_streams, k)
+            t0 = time.perf_counter()
+            fleet.process_scans(r, p)
+            if k >= FLEET_WARM_TICKS:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out[n_streams] = dict(tick_ms_p50=float(np.percentile(ms, 50)),
+                              tick_ms_p95=float(np.percentile(ms, 95)),
+                              tick_ms_per_stream_p50=float(np.percentile(ms, 50)) / n_streams,
+                              tick_ms_all=[round(x, 3) for x in ms])
+        if n_streams == FG_B:
+            profiled = _fleet_profile(fleet, cycle, out[n_streams]["tick_ms_p50"])
+        del fleet
+    return dict(by_streams=out, profile_b2=profiled)
+
+
+def _fg_cli() -> dict:
+    """(h) tools/serve_fleet --grid-shards 3 --streams 2 --sim --ticks 5
+    --json on the card, in-process."""
+    import io
+
+    from vofod_tpu_torch.tools import serve_fleet
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = serve_fleet.main(["--grid-shards", str(GRID_SHARDS), "--streams", str(FG_B),
+                               "--sim", "--ticks", "5", "--json", "--device", "cuda"])
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    summary = [ln for ln in lines if ln.get("summary")]
+    ticks = [ln for ln in lines if "latency_ms" in ln]
+    if (rc != 0 or len(summary) != 1 or summary[0]["ticks"] != 5
+            or summary[0]["streams"] != FG_B or len(ticks) != 5):
+        raise AssertionError(f"(h) serve_fleet --grid-shards: rc {rc}, summary {summary}, "
+                             f"{len(ticks)} tick lines; stderr {err.getvalue()[-2000:]}")
+    return dict(summary=summary[0], stderr=err.getvalue().strip().splitlines()[-1])
+
+
+def phase4_fleet_grid(lut, grid_launches: dict) -> None:
+    """The 2-D streams x grid fleet (FleetVoFOD(n_streams=2, grid_shards=3))
+    at the flagship size, the apriori plane in every stream, stream b fed
+    the cycle from scan 3 b: (a) 8 ticks beside dense nodes, diagnostics,
+    detection integers and final states bit-equal, detection floats within
+    1e-5 relative; (b) a NaN rotation on stream 1 at tick 4 (a null scan,
+    n_pose_rejected [0, 1]); (c) reset_stream(0) + load_apriori_map(plane,
+    stream=0) before tick 6; (d) 1 host sync a tick and 2 x phase 4-grid's
+    launches a scan of every kernel, none of the others; (e) the state
+    after tick 3 saved in the ``streams_zshards`` layout, restored onto a
+    fresh 2-D fleet and onto a 1-shard fleet, both stepped to tick 8 equal
+    to the uninterrupted run; (f) one prebinned tick through
+    make_fleet_grid_step equal to dense prebinned nodes; (g) tick p50 / p95
+    at B = 1 and 2, B = 2's device busy and idle share; (h) serve_fleet
+    --grid-shards 3 on the card."""
+    t_phase = time.perf_counter()
+    cycle = scan_cycle(lut, N_SCANS)
+    plane = apriori_ground()
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    ckpt = work / "fleet_grid_ckpt"
+    clean = _fg_parity(lut, cycle, plane, grid_launches, ckpt)
+    resumed = _fg_resumed(lut, cycle, plane, ckpt, clean)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    prebinned = _fg_prebinned(lut, cycle, plane)
+    say("4-fleet-grid", streams=FG_B, shards=GRID_SHARDS, ticks=FG_TICKS,
+        bit_equal_state_and_diag=True, detection_floats_bit_equal=clean["bit_equal_dets"],
+        host_syncs_per_tick=clean["syncs"], launches_per_tick=clean["launches_per_tick"],
+        null_tick_launches=clean["null_tick_launches"],
+        detections_per_stream=clean["detections_per_stream"],
+        null_scan=dict(tick=FG_NAN[0], stream=FG_NAN[1],
+                       n_pose_rejected=clean["n_pose_rejected"]),
+        reset=dict(tick=FG_RESET[0], stream=FG_RESET[1], steps_final=clean["steps_final"]),
+        checkpoint=dict(saved_after_tick=FG_SAVE - 1, save_ms=clean["save_ms"], **resumed),
+        prebinned=prebinned, seconds=time.perf_counter() - t_phase)
+    del clean
+    say("4-fleet-grid-timing", nvidia_smi=_smi(), warm_ticks=FLEET_WARM_TICKS,
+        timed_ticks=FG_TIMED_TICKS, **_fg_timing(cycle, plane))
+    say("4-fleet-grid-cli", nvidia_smi=_smi(), **_fg_cli())
+
+
+# ---------------------------------------------------------------------------
+# phase 4-fleet-procs: the fleet served by two processes on the one card
+# ---------------------------------------------------------------------------
+
+PROC_B = 4
+# 1-shard ticks past the 6 a check needs: a cold map's first detections
+# come at ticks 8-9 of the cycle (phase 4-fleet), and these compare them
+PROC_TICKS, PROC_GRID_TICKS = 12, 3
+PROC_TIMEOUT = 300.0  # seconds a worker process may take
+
+
+def _procs_run(fleet, cycle, plane, ticks: int, local: bool) -> dict:
+    """A fleet of PROC_B streams through ``ticks`` ticks of the cycle (stream
+    b from scan 3 b), the apriori plane first; ``local``: through
+    process_local_scans with this process's streams only.  Returns the
+    records by tick and global stream id, each tick's host ms and a digest
+    of each stream's final state."""
+    fleet.load_apriori_map(plane)
+    ticks_out, ms = [], []
+    for k in range(ticks):
+        r, p = _fleet_tick(cycle, PROC_B, k)
+        t0 = time.perf_counter()
+        if local:
+            ids = fleet.local_streams
+            msgs = fleet.process_local_scans(r[ids], p[ids])
+        else:
+            msgs = dict(enumerate(fleet.process_scans(r, p)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        d = fleet.last_diag
+        ticks_out.append({b: ([dataclasses.astuple(x) for x in m.detections],
+                              {f.name: np.asarray(getattr(d, f.name))[i].tolist()
+                               for f in dataclasses.fields(d)})
+                          for i, (b, m) in enumerate(msgs.items())})
+    final = {}
+    for b, s in zip(fleet.local_streams, fleet.state):
+        s = s if isinstance(s, VoFODState) else gather_state(s)
+        final[b] = [s.step] + [hashlib.sha1(getattr(s, f).cpu().numpy().tobytes()).hexdigest()
+                               for f in STATE_FIELDS if f != "step"]
+    return dict(local=fleet.local_streams, ticks=ticks_out, ms=ms, final=final)
+
+
+def fleet_worker(rank: int, port: int, out: str) -> int:
+    """``python3 chip_smoke.py --fleet-worker RANK PORT OUT``: one of phase
+    4-fleet-procs' two processes.  Joins the gloo group on 127.0.0.1:PORT,
+    runs FleetVoFOD(n_streams=4) through PROC_TICKS ticks with 1 grid shard
+    and PROC_GRID_TICKS with 3, feeding its own streams only, and writes
+    its records to OUT.  Any failure raises (a non-zero exit)."""
+    import pickle
+
+    from vofod_tpu_torch.runtime.fleet import initialize_multihost
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the fleet worker needs a CUDA GPU")
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank)
+    try:
+        lut = make_lut(VoFODConfig().sensor)
+        cycle, plane = scan_cycle(lut, N_SCANS), apriori_ground()
+        res = {shards: _procs_run(FleetVoFOD(VoFODConfig(), DynParams(), PROC_B, device="cuda",
+                                             grid_shards=shards), cycle, plane, ticks, True)
+               for shards, ticks in ((1, PROC_TICKS), (GRID_SHARDS, PROC_GRID_TICKS))}
+        res["device"] = torch.cuda.current_device()
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    print("FLEET_WORKER_OK", rank, flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _two_processes(cmds: list, logs: list) -> list[int]:
+    """Run the two commands at once (output to ``logs``), each within
+    PROC_TIMEOUT; a process still running then is killed and fails the
+    phase.  Returns the exit codes."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+    t_end = time.time() + PROC_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.time()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a process of {cmds[0][:4]} ran past {PROC_TIMEOUT} s: "
+                             + " | ".join(Path(x).read_text()[-1500:] for x in logs)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def _mps_state() -> dict:
+    """Whether the card runs MPS (a control daemon's pipe, an MPS server
+    process) or time-slices the two processes' contexts, and its compute
+    mode."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    server = subprocess.run(["pgrep", "-f", "nvidia-cuda-mps"], capture_output=True,
+                            text=True).stdout.split()
+    pipe = Path("/tmp/nvidia-mps").exists()
+    return dict(compute_mode=mode, mps_processes=len(server), mps_pipe_dir=pipe,
+                sharing="mps" if server else "time-sliced contexts")
+
+
+def phase4_fleet_procs(lut) -> None:
+    """The fleet served by two processes on the one card (runtime/fleet.py
+    initialize_multihost, a gloo group on 127.0.0.1): two workers
+    (``--fleet-worker``) each run FleetVoFOD(n_streams=4) with 1 grid shard
+    for 12 ticks and with 3 for 3 ticks, feeding only their streams; every
+    stream's records and final state equal a single-process 4-stream fleet
+    on the same scans, local_streams [0, 1] and [2, 3]; then serve_fleet
+    --coordinator in two processes for 5 ticks, each reporting only its own
+    streams.  A worker's non-zero exit, a timeout or a missing record
+    fails the phase.  Recorded, not claimed: each process's tick host ms
+    beside the single process's, and whether the card time-slices the two
+    contexts or runs MPS."""
+    import pickle
+
+    t_phase = time.perf_counter()
+    kernels.build()  # built in phase 1: the workers load it, none compiles
+    native.build()
+    cycle, plane = scan_cycle(lut, N_SCANS), apriori_ground()
+    single = {shards: _procs_run(FleetVoFOD(VoFODConfig(), DynParams(), PROC_B, device="cuda",
+                                            grid_shards=shards), cycle, plane, ticks, False)
+              for shards, ticks in ((1, PROC_TICKS), (GRID_SHARDS, PROC_GRID_TICKS))}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke" / "procs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    outs = [work / f"rank{r}.pkl" for r in range(2)]
+    port = _free_port()
+    t0 = time.perf_counter()
+    rcs = _two_processes(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-worker", str(r), str(port),
+          str(outs[r])] for r in range(2)], [work / f"worker{r}.log" for r in range(2)])
+    workers_s = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        log = (work / f"worker{r}.log").read_text()
+        if rc != 0 or f"FLEET_WORKER_OK {r}" not in log or not outs[r].exists():
+            raise AssertionError(f"(a) worker {r}: exit {rc}, log {log[-3000:]}")
+    res = [pickle.loads(p.read_bytes()) for p in outs]
+    timing = {}
+    for shards in (1, GRID_SHARDS):
+        one = single[shards]
+        if [w[shards]["local"] for w in res] != [[0, 1], [2, 3]]:
+            raise AssertionError(f"(a) local_streams {[w[shards]['local'] for w in res]}")
+        for r, w in enumerate(res):
+            run = w[shards]
+            if len(run["ticks"]) != len(one["ticks"]):
+                raise AssertionError(f"(a) worker {r}, {shards} shards: "
+                                     f"{len(run['ticks'])} ticks recorded")
+            for k, tick in enumerate(run["ticks"]):
+                if sorted(tick) != run["local"]:
+                    raise AssertionError(f"(a) worker {r} tick {k}: streams {sorted(tick)}")
+                for b, rec in tick.items():
+                    if rec != one["ticks"][k][b]:
+                        raise AssertionError(f"(a) {shards} shards, tick {k}, stream {b}: "
+                                             "records differ from the single process's")
+            for b, digest in run["final"].items():
+                if digest != one["final"][b]:
+                    raise AssertionError(f"(a) {shards} shards, stream {b}: final state differs")
+        timing[shards] = dict(
+            single_process_tick_ms_p50=float(np.percentile(one["ms"][1:], 50)),
+            per_process_tick_ms_p50=[float(np.percentile(w[shards]["ms"][1:], 50)) for w in res],
+            single_process_tick_ms_all=[round(x, 3) for x in one["ms"]],
+            per_process_tick_ms_all=[[round(x, 3) for x in w[shards]["ms"]] for w in res])
+    detections = sum(len(rec[0]) for t in single[1]["ticks"] for rec in t.values())
+    # (b) the serving CLI across the two processes
+    port = _free_port()
+    logs = [work / f"cli{r}.log" for r in range(2)]
+    rcs = _two_processes(
+        [[sys.executable, "-m", "vofod_tpu_torch.tools.serve_fleet", "--streams", str(PROC_B),
+          "--sim", "--ticks", "5", "--json", "--device", "cuda", "--coordinator",
+          f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(r)]
+         for r in range(2)], logs)
+    cli = []
+    for r, (rc, log) in enumerate(zip(rcs, logs)):
+        text = log.read_text()
+        lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+        summary = [ln for ln in lines if ln.get("summary")]
+        streams = sorted({ln["stream"] for ln in lines if "stream" in ln})
+        if (rc != 0 or len(summary) != 1 or summary[0]["ticks"] != 5
+                or summary[0]["streams"] != PROC_B // 2
+                or not set(streams) <= {2 * r, 2 * r + 1}):
+            raise AssertionError(f"(b) serve_fleet process {r}: exit {rc}, summary {summary}, "
+                                 f"streams {streams}; log {text[-3000:]}")
+        cli.append(dict(summary=summary[0], detection_streams=streams))
+    say("4-fleet-procs", nvidia_smi=_smi(), processes=2, streams=PROC_B,
+        ticks={1: PROC_TICKS, GRID_SHARDS: PROC_GRID_TICKS}, bit_equal_to_one_process=True,
+        local_streams=[[0, 1], [2, 3]], worker_devices=[w["device"] for w in res],
+        detections_one_process=detections, workers_wall_s=workers_s, tick_host_ms=timing,
+        cli=cli, card_sharing=_mps_state(), seconds=time.perf_counter() - t_phase)
+
+
 def _dev_us(e, self_only: bool) -> float:
     name = "self_device_time_total" if self_only else "device_time_total"
     legacy = "self_cuda_time_total" if self_only else "cuda_time_total"
@@ -5277,6 +5793,8 @@ def main() -> int:
     phase4_grid(lut, "dynamic")
     gs_launches, gs_ms_p50 = phase4_grid(lut, "sequential")
     phase4_cli(lut, launches)
+    phase4_fleet_grid(lut, grid_launches)
+    phase4_fleet_procs(lut)
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
@@ -5328,4 +5846,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

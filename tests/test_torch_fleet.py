@@ -437,13 +437,14 @@ def test_batched_step_and_state_layout():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(grid_shards=2), NotImplementedError),
+    (dict(grid_shards=2), ValueError),
     (dict(frontend_mode="prebinned"), ValueError),
     (dict(device="cuda"), RuntimeError),
 ])
 def test_fleet_refuses(monkeypatch, kw, err):
-    """The 2-D fleet and the prebinned ingest are not served; a CUDA fleet
-    where there is no CUDA raises instead of running on the CPU."""
+    """A 2-D fleet whose grid (17 planes) does not split into the shards,
+    and the prebinned ingest, are refused; a CUDA fleet where there is no
+    CUDA raises instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kw = {"device": "cpu", **kw}
     with pytest.raises(err):

@@ -253,9 +253,11 @@ def test_serve_fleet_cli_matches_direct_fleet(tmp_path, capsys, monkeypatch):
     (["--grid-shards", "2"], "2-D"),
 ])
 def test_serve_fleet_refuses_what_waits(flags, says, capsys):
-    """The multi-host flags, --streams auto and the 2-D fleet end in an
-    argument error (exit code 2) that says what each waits for, before any
-    fleet is built."""
+    """Each ends in an argument error (exit code 2) that says why, before
+    any fleet is built or any process group joined: --coordinator without
+    --ticks, --num-processes or --process-id without --coordinator,
+    --streams auto (it waits for the bench's stream knee) and --grid-shards
+    2 on the flagship grid's 51 planes."""
     with pytest.raises(SystemExit) as ei:
         serve_fleet.main(["--sim", "--device", "cpu", *flags])
     assert ei.value.code == 2

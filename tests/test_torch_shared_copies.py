@@ -359,6 +359,15 @@ _NO_JAX = textwrap.dedent(
     assert len(fleet.process_scans(np.stack([scan] * 2), np.stack([pose] * 2))) == 2
     assert sharding.batched_state_to_numpy(fleet.state)["step"].tolist() == [1, 1]
     assert callable(StreamRunner.start) and callable(serve_fleet.main)
+    # the 2-D streams x grid fleet: 2 ticks of 2 streams on 2 grid shards
+    from vofod_tpu_torch.parallel import grid_step
+    from vofod_tpu_torch.runtime import fleet as fleet_mod
+    cfg2 = dataclasses.replace(cfg, oparea=Box((0.0, 0.0, 3.75), (8.0, 8.0, 7.5)))
+    fleet2 = fleet_mod.FleetVoFOD(cfg2, DynParams(), n_streams=2, device="cpu", grid_shards=2)
+    for _ in range(2):
+        assert len(fleet2.process_scans(np.stack([scan] * 2), np.stack([pose] * 2))) == 2
+    assert grid_step.fleet_grid_state_to_numpy(fleet2.state)["step"].tolist() == [2, 2]
+    assert callable(fleet_mod.initialize_multihost)
     # the runtime surface: a tiny bag through the detect CLI on the CPU,
     # a checkpoint directory, the mask creator and the other modules
     import contextlib, io, json, os, tempfile

@@ -11,8 +11,9 @@ cone sweep, K5b ray update), the prebinned ingest (K15a), dynamic radii
 sequential explore (K7s), and the grid-sharded step over z shards
 (parallel/, K15b).  ``runtime/node.VoFOD`` serves one sensor stream,
 ``runtime/fleet.FleetVoFOD`` many on one device (each stream's step in
-turn, one host sync a tick), fed by ``runtime/stream.StreamRunner`` or
-``tools/serve_fleet``.  Module and function names follow ``vofod_tpu`` so
+turn, one host sync a tick; with ``grid_shards > 1`` each stream's grid
+z-sharded; from several processes after ``initialize_multihost``), fed by
+``runtime/stream.StreamRunner`` or ``tools/serve_fleet``.  Module and function names follow ``vofod_tpu`` so
 each counterpart sits at the same path; grids keep the JAX layout (nz, ny,
 nx).  Nothing here imports JAX.
 """

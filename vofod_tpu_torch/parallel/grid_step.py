@@ -24,24 +24,44 @@ test_torch_grid_step.py, tests/test_torch_grid_exact.py, tests/
 test_torch_grid_modes.py, chip_smoke.py phases 4-grid*).  JAX's sharded
 step pools the hasCloseTo box on the bare slab; this one takes its halo,
 so it is held to the dense step.
+
+The 2-D fleet — N sensor streams, each stream's grid z-sharded — is
+:func:`make_fleet_grid_step` (vofod_tpu grid_step ``make_fleet_grid_step``):
+one ``comm.run`` a tick in which each shard steps its slab of every stream
+in stream order, the counterpart of the JAX ``lax.scan`` over the streams
+inside the 2-D ``shard_map``.  The port's step never branches on device
+data, so every shard issues the same collectives in the same order for
+every stream, a null-scan stream's skipped raycast included, and the JAX
+step's lockstep reductions over the data axis have no counterpart here.
+``make_fleet_grid_mesh`` has no function of its own: its "axes >= 1" rule
+is ``LocalComm``'s ``n >= 1``, and its "enough devices" rule is that the
+process count divides ``n_streams`` (runtime/fleet.py: each process holds
+one block of streams, its grid shards on its own ``LocalComm``).
+:func:`fleet_grid_state_to_numpy` / :func:`fleet_grid_state_from_numpy`
+carry the 2-D state to and from JAX's layout (every grid field ``[B, nz,
+ny, nx]``, ``step`` ``[B]``, the scalars per stream).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
 from vofod_tpu_torch.config import DynParams, VoFODConfig
 from vofod_tpu_torch.parallel.gridops import ZShardOps
-from vofod_tpu_torch.pipeline.state import PrebinnedScan, VoFODState, init_state
+from vofod_tpu_torch.pipeline.state import (
+    PrebinnedScan, ScanInput, VoFODState, init_state, state_from_numpy, state_to_numpy)
 from vofod_tpu_torch.pipeline.step import make_step_fn
 from vofod_tpu_torch.sensor import XyzLut
 
 
-def _validate_grid_sharding(cfg: VoFODConfig, n: int) -> None:
-    """vofod_tpu grid_step._validate_grid_sharding."""
+def validate_grid_sharding(cfg: VoFODConfig, n: int) -> None:
+    """vofod_tpu grid_step._validate_grid_sharding: raises ValueError unless
+    ``cfg``'s grid splits into ``n`` z shards."""
     nz, ny, nx = cfg.grid_shape
     if nz % n:
         raise ValueError(f"grid nz={nz} not divisible by {n} shards; pad the operation-area "
@@ -149,29 +169,141 @@ def make_grid_sharded_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
     Requires nz divisible by the shards, a shard height of at least 2
     planes (the sweep's lateral halo taps) and, with the exact census,
     divisible by its coarse leaf."""
-    _validate_grid_sharding(cfg, comm.n)
+    step_shard = _shard_step(cfg, lut, comm, zcone_mode, step_kw)
+
+    def step(states: list[VoFODState], scan, dyn: DynParams, upload_events: list | None = None):
+        if len(states) != comm.n:
+            raise ValueError(f"{len(states)} shard states for {comm.n} shards")
+        out = comm.run(lambda rank: step_shard(rank, states[rank], scan, dyn))
+        if upload_events is not None:
+            upload_events.extend(ev for _, _, ev in out if ev is not None)
+        return [s for s, _, _ in out], out[0][1]
+
+    return step
+
+
+def _shard_step(cfg: VoFODConfig, lut: XyzLut, comm, zcone_mode: str, step_kw: dict):
+    """The per-shard body of the grid-sharded steps: ``body(rank, state,
+    scan, dyn) -> (state, StepOutput, upload event or None)`` runs the step
+    on shard ``rank``'s slab inside ``comm.run``; a raw scan is put on the
+    shard's device, a prebinned one cut to the shard's z slab
+    (:func:`_slab_on`)."""
+    validate_grid_sharding(cfg, comm.n)
     ops = ZShardOps(comm, comm.n, zcone_mode=zcone_mode)
     steps = {dev: make_step_fn(cfg, lut, device=dev, ops=ops, **step_kw)
              for dev in set(comm.devices)}
     prebinned = step_kw.get("frontend_mode") == "prebinned"
     nzl = cfg.grid_shape[0] // comm.n
 
-    def step(states: list[VoFODState], scan, dyn: DynParams, upload_events: list | None = None):
-        if len(states) != comm.n:
-            raise ValueError(f"{len(states)} shard states for {comm.n} shards")
-        events = [None] * comm.n
+    def body(rank: int, state: VoFODState, scan, dyn: DynParams):
+        dev = comm.devices[rank]
+        ev = None
+        if prebinned:
+            scan, ev = _slab_on(scan, rank * nzl, nzl, dev)
+        else:
+            scan = _scan_on(scan, dev)
+        state, out = steps[dev](state, scan, dyn)
+        return state, out, ev
+
+    return body
+
+
+# =============================================================================
+# 2-D: stream data-parallelism x grid sharding
+# =============================================================================
+
+
+def init_fleet_grid_state(cfg: VoFODConfig, dyn: DynParams, batch: int,
+                          comm) -> list[list[VoFODState]]:
+    """``batch`` fresh detector states, each one list of per-shard slabs
+    over ``comm`` (:func:`init_grid_sharded_state`)."""
+    return [init_grid_sharded_state(cfg, dyn, comm) for _ in range(batch)]
+
+
+def make_fleet_grid_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
+                         zcone_mode: str = "pipelined", **step_kw):
+    """Both scaling axes in one step: ``step(states, scans, dyn,
+    upload_events=None) -> (states, outs)`` with ``states`` one list of
+    per-shard slabs a stream (:func:`init_fleet_grid_state`) and ``outs[b]``
+    stream b's StepOutput (shard 0's).  One ``comm.run`` a tick: each
+    shard's thread steps its slab of every stream, in stream order, with
+    the body of :func:`make_grid_sharded_step`, so each stream's result is
+    the 1-D grid step's bit for bit.
+
+    ``scans``: a ScanInput of stacked streams (ranges and intensity ``[B,
+    H*W]``, pose a host ``[B, 4, 4]``), replicated to every shard; or, with
+    ``frontend_mode="prebinned"``, one PrebinnedScan a stream, each shard
+    uploading only its z slab of every stream's packed grid (its copy
+    events go to ``upload_events``).  ``step_kw`` and ``zcone_mode``: as
+    :func:`make_grid_sharded_step`.  ``sequential_explore`` is refused, as
+    in JAX."""
+    if cfg.sequential_explore:
+        raise ValueError(
+            "sequential_explore (the demotion-coupling parity instrument) does not compose "
+            "with the 2-D streams x grid fleet, as in vofod_tpu's make_fleet_grid_step: run "
+            "parity studies on the 1-D grid-sharded step instead")
+    step_shard = _shard_step(cfg, lut, comm, zcone_mode, step_kw)
+    prebinned = step_kw.get("frontend_mode") == "prebinned"
+
+    def step(states: list[list[VoFODState]], scans, dyn: DynParams,
+             upload_events: list | None = None):
+        b = len(states)
+        if any(len(s) != comm.n for s in states):
+            raise ValueError(f"every stream needs {comm.n} shard states, got "
+                             f"{[len(s) for s in states]}")
+        if prebinned:
+            per_stream = list(scans)
+            if len(per_stream) != b:
+                raise ValueError(f"{b} stream states for a batch of {len(per_stream)} scans")
+        else:
+            if (scans.ranges_mm.shape[0] != b or scans.intensity.shape[0] != b
+                    or len(scans.pose) != b):
+                raise ValueError(f"{b} stream states for a batch of "
+                                 f"{scans.ranges_mm.shape[0]} scans")
+            per_stream = [ScanInput(ranges_mm=r, intensity=i, pose=p)
+                          for r, i, p in zip(scans.ranges_mm, scans.intensity, scans.pose)]
 
         def shard(rank: int):
-            dev = comm.devices[rank]
-            if prebinned:
-                s, events[rank] = _slab_on(scan, rank * nzl, nzl, dev)
-            else:
-                s = _scan_on(scan, dev)
-            return steps[dev](states[rank], s, dyn)
+            got = [step_shard(rank, states[s][rank], per_stream[s], dyn) for s in range(b)]
+            return ([g[0] for g in got], [g[1] for g in got],
+                    [g[2] for g in got if g[2] is not None])
 
-        out = comm.run(shard)
+        res = comm.run(shard)
         if upload_events is not None:
-            upload_events.extend(e for e in events if e is not None)
-        return [s for s, _ in out], out[0][1]
+            upload_events.extend(ev for _, _, evs in res for ev in evs)
+        return [[res[r][0][s] for r in range(comm.n)] for s in range(b)], res[0][1]
 
     return step
+
+
+def fleet_grid_state_to_numpy(states: Sequence[Sequence[VoFODState]]) -> dict[str, np.ndarray]:
+    """The 2-D state in JAX's layout: every field stacked over the streams
+    (grid and safe ``[B, nz, ny, nx]``, each stream's slabs joined on the
+    host; ``step`` int32 ``[B]``; the scalars shard 0's)."""
+    out: dict[str, list] = {f.name: [] for f in dataclasses.fields(VoFODState)}
+    for shards in states:
+        per = [state_to_numpy(s) for s in shards]
+        for name in out:
+            out[name].append(np.concatenate([p[name] for p in per])
+                             if name in ("grid", "safe") else per[0][name])
+    return {name: np.stack(v) for name, v in out.items()}
+
+
+def fleet_grid_state_from_numpy(arrays: Mapping[str, np.ndarray],
+                                comm) -> list[list[VoFODState]]:
+    """The 2-D state from JAX's layout (e.g. a JAX 2-D fleet's
+    ``jax.device_get(state)._asdict()``): stream b's z slabs on ``comm``'s
+    shards, each shard's slab uploaded from the host alone."""
+    grid = np.asarray(arrays["grid"])
+    b, nz = grid.shape[0], grid.shape[1]
+    if nz % comm.n:
+        raise ValueError(f"grid nz={nz} not divisible by {comm.n} shards")
+    nzl = nz // comm.n
+    out = []
+    for s in range(b):
+        row = {k: np.asarray(v)[s] for k, v in arrays.items()}
+        # copies: the fleet writes its grids in place (load_apriori_map)
+        out.append([state_from_numpy({**row, "grid": row["grid"][i * nzl:(i + 1) * nzl].copy(),
+                                      "safe": row["safe"][i * nzl:(i + 1) * nzl].copy()}, dev)
+                    for i, dev in enumerate(comm.devices)])
+    return out

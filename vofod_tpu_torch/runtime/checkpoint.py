@@ -16,15 +16,21 @@ sure_bg_sufficient, bg_sufficient).  The manifest names the layout:
   (parallel/grid_step.shard_state), ``shard_NNN.npz`` with each file's
   z range [z0, z1) in the manifest;
 * ``streams``: a fleet's list of per-stream states (parallel/sharding),
-  ``stream_NNN.npz``, each a whole grid.
+  ``stream_NNN.npz``, each a whole grid;
+* ``streams_zshards``: the 2-D streams x grid fleet's state, one list of
+  z slabs a stream (parallel/grid_step.init_fleet_grid_state),
+  ``stream_SSS_shard_NNN.npz``; the manifest records the stream count and
+  each file's stream and z range [z0, z1).
 
 Each state tensor is copied from its own device into host memory; a
 sharded save never assembles the grid.  ``restore_state(path, like)``
 places the state onto ``like``'s layout and devices: a ``dense`` or
 ``zshards`` checkpoint restores onto a dense state or onto any number of
 z shards (each target slab is filled from the files that overlap it; the
-scalars are shard 0's, as in ``gather_state``), a ``streams`` checkpoint
-onto as many stream states.
+scalars are shard 0's, as in ``gather_state``); a ``streams`` or
+``streams_zshards`` checkpoint onto as many streams, each a whole state
+(the 1-shard fleet) or a list of z slabs of any split that divides nz
+(the 2-D fleet), either way round.
 
 ``AsyncSaver.save`` enqueues every tensor's copy into pinned host memory
 on the caller's current CUDA stream before it returns, so work issued
@@ -53,24 +59,39 @@ from vofod_tpu_torch.pipeline.state import VoFODState
 FORMAT = "vofod_tpu_torch.checkpoint"
 VERSION = 1
 MANIFEST = "manifest.json"
-LAYOUTS = ("dense", "zshards", "streams")
-_FILE = {"dense": "state.npz", "zshards": "shard_{:03d}.npz", "streams": "stream_{:03d}.npz"}
+LAYOUTS = ("dense", "zshards", "streams", "streams_zshards")
+_FILE = {"dense": "state.npz", "zshards": "shard_{1:03d}.npz", "streams": "stream_{0:03d}.npz",
+         "streams_zshards": "stream_{0:03d}_shard_{1:03d}.npz"}
+_PER_STREAM = ("streams", "streams_zshards")
 _TENSORS = tuple(f.name for f in fields(VoFODState) if f.name != "step")
 _NP = {torch.float32: np.float32, torch.bool: np.bool_, torch.int32: np.int32}
 
 
-def _states_of(state, layout: str | None) -> tuple[str, list[VoFODState]]:
+def _states_of(state, layout: str | None) -> tuple[str, list[VoFODState], list[tuple]]:
+    """(layout, the states in file order, each one's (stream, shard))."""
     if isinstance(state, VoFODState):
         if layout not in (None, "dense"):
             raise ValueError(f"one VoFODState is the dense layout, not {layout!r}")
-        return "dense", [state]
+        return "dense", [state], [(0, 0)]
     states = list(state)
+    if layout == "streams_zshards":
+        rows = [list(s) for s in states]
+        flat = [s for row in rows for s in row]
+        if not rows or not all(rows) or not all(isinstance(s, VoFODState) for s in flat):
+            raise ValueError("layout='streams_zshards' takes one non-empty list of z-slab "
+                             "states a stream")
+        if len({sum(int(s.grid.shape[0]) for s in row) for row in rows}) != 1:
+            raise ValueError("the streams' z slabs cover different grid heights")
+        return layout, flat, [(b, k) for b, row in enumerate(rows) for k in range(len(row))]
     if layout not in ("zshards", "streams"):
         raise ValueError("a list of states is either z-shard slabs or a fleet's streams: "
-                         "pass layout='zshards' or layout='streams'")
+                         "pass layout='zshards' or layout='streams' (a list of slab lists: "
+                         "layout='streams_zshards')")
     if not states or not all(isinstance(s, VoFODState) for s in states):
         raise ValueError("expected a non-empty list of VoFODState")
-    return layout, states
+    keys = [(0, i) for i in range(len(states))] if layout == "zshards" else \
+        [(i, 0) for i in range(len(states))]
+    return layout, states, keys
 
 
 def _stage(states: list[VoFODState]) -> tuple[list[dict], list]:
@@ -115,7 +136,8 @@ def _savez(path: str, arrays: dict[str, np.ndarray]) -> None:
                 f.write(memoryview(a.reshape(-1)).cast("B") if a.ndim else a.tobytes())
 
 
-def _write(path: str, layout: str, staged: list[dict], events: list, overwrite: bool) -> None:
+def _write(path: str, layout: str, keys: list[tuple], staged: list[dict], events: list,
+           overwrite: bool) -> None:
     for ev in events:
         ev.synchronize()
     path = os.path.abspath(path)
@@ -125,21 +147,25 @@ def _write(path: str, layout: str, staged: list[dict], events: list, overwrite: 
     os.makedirs(parent, exist_ok=True)
     work = tempfile.mkdtemp(prefix=".ckpt-", dir=parent)
     try:
-        files, z = [], 0
-        for i, host in enumerate(staged):
+        files, z = [], {}
+        for (stream, shard), host in zip(keys, staged):
             arrays = {k: (v if k == "step" else v.numpy()) for k, v in host.items()}
-            name = _FILE[layout].format(i)
+            name = _FILE[layout].format(stream, shard)
             _savez(os.path.join(work, name), arrays)
             entry = {"name": name}
+            if layout == "streams_zshards":
+                entry["stream"] = stream
             if layout != "streams":
-                nzl = int(arrays["grid"].shape[0])
-                entry.update(z0=z, z1=z + nzl)
-                z += nzl
+                z0, nzl = z.get(stream, 0), int(arrays["grid"].shape[0])
+                entry.update(z0=z0, z1=z0 + nzl)
+                z[stream] = z0 + nzl
             files.append(entry)
         g = staged[0]["grid"].shape
-        grid_shape = [z, int(g[1]), int(g[2])] if layout != "streams" else [int(v) for v in g]
+        nz = int(g[0]) if layout == "streams" else z[0]
         manifest = {"format": FORMAT, "version": VERSION, "layout": layout,
-                    "grid_shape": grid_shape, "files": files}
+                    "grid_shape": [nz, int(g[1]), int(g[2])], "files": files}
+        if layout in _PER_STREAM:
+            manifest["streams"] = keys[-1][0] + 1
         with open(os.path.join(work, MANIFEST), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(path):
@@ -155,11 +181,12 @@ def save_state(path: str, state, *, overwrite: bool = True, layout: str | None =
 
     ``state``: a ``VoFODState`` (dense), or a list of them with
     ``layout="zshards"`` (the grid-sharded step's slabs, shard order) or
-    ``layout="streams"`` (a fleet's streams).  Each tensor is read back
-    from its own device."""
-    layout, states = _states_of(state, layout)
+    ``layout="streams"`` (a fleet's streams), or a list of such slab lists
+    with ``layout="streams_zshards"`` (the 2-D fleet's streams).  Each
+    tensor is read back from its own device."""
+    layout, states, keys = _states_of(state, layout)
     staged, events = _stage(states)
-    _write(path, layout, staged, events, overwrite)
+    _write(path, layout, keys, staged, events, overwrite)
 
 
 def read_manifest(path: str) -> dict:
@@ -201,7 +228,8 @@ def _scalars(arrays: dict, like: VoFODState) -> dict:
 
 
 def _restore_slabs(path: str, m: dict, likes: list[VoFODState]) -> list[VoFODState]:
-    """Fill each target z slab from the files that overlap it."""
+    """Fill each target z slab from the files of ``m`` (one stream's
+    grid_shape and files) that overlap it."""
     nz, ny, nx = m["grid_shape"]
     total = sum(int(s.grid.shape[0]) for s in likes)
     if total != nz or any(tuple(s.grid.shape[1:]) != (ny, nx) for s in likes):
@@ -234,29 +262,44 @@ def _restore_slabs(path: str, m: dict, likes: list[VoFODState]) -> list[VoFODSta
     return out
 
 
+def _stream_parts(m: dict) -> list[dict]:
+    """The checkpoint as one (grid_shape, files with z ranges) a stream."""
+    layout, nz = m["layout"], m["grid_shape"][0]
+    if layout == "streams":
+        return [{"grid_shape": m["grid_shape"], "files": [{**e, "z0": 0, "z1": nz}]}
+                for e in m["files"]]
+    if layout == "streams_zshards":
+        return [{"grid_shape": m["grid_shape"],
+                 "files": [e for e in m["files"] if e["stream"] == b]}
+                for b in range(m["streams"])]
+    return [m]
+
+
 def restore_state(path: str, like):
     """Restore a checkpoint onto the layout and devices of ``like``: a
-    ``VoFODState`` (dense) or a list of them (z slabs in shard order, or a
-    fleet's streams for a ``streams`` checkpoint), e.g. ``init_state`` /
-    ``init_grid_sharded_state`` / ``init_batched_state``.  Returns a state
-    of ``like``'s form."""
+    ``VoFODState`` (dense), a list of them (z slabs in shard order; a
+    fleet's streams for a ``streams`` or ``streams_zshards`` checkpoint),
+    or a list of z-slab lists (the 2-D fleet's streams), e.g.
+    ``init_state`` / ``init_grid_sharded_state`` / ``init_batched_state``
+    / ``init_fleet_grid_state``.  Returns a state of ``like``'s form."""
     path = os.path.abspath(path)
     m = read_manifest(path)
-    dense = isinstance(like, VoFODState)
-    likes = [like] if dense else list(like)
-    if m["layout"] == "streams":
-        if dense or len(likes) != len(m["files"]):
-            raise ValueError(f"a checkpoint of {len(m['files'])} streams restores onto as many "
+    parts = _stream_parts(m)
+    if isinstance(like, VoFODState):
+        if len(parts) != 1:
+            raise ValueError(f"a checkpoint of {len(parts)} streams restores onto as many "
                              "stream states")
-        out = []
-        for e, s in zip(m["files"], likes):
-            a = _load(path, e)
-            out.append(VoFODState(grid=_like_tensor(a["grid"], s.grid, "grid"),
-                                  safe=_like_tensor(a["safe"], s.safe, "safe"),
-                                  **_scalars(a, s)))
-        return out
-    out = _restore_slabs(path, m, likes)
-    return out[0] if dense else out
+        return _restore_slabs(path, parts[0], [like])[0]
+    likes = list(like)
+    nested = bool(likes) and not isinstance(likes[0], VoFODState)
+    if not nested and m["layout"] not in _PER_STREAM:
+        return _restore_slabs(path, parts[0], likes)
+    if len(likes) != len(parts):
+        raise ValueError(f"a checkpoint of {len(parts)} streams restores onto as many "
+                         f"stream states, not {len(likes)}")
+    if nested:
+        return [_restore_slabs(path, part, list(s)) for part, s in zip(parts, likes)]
+    return [_restore_slabs(path, part, [s])[0] for part, s in zip(parts, likes)]
 
 
 class AsyncSaver:
@@ -273,10 +316,10 @@ class AsyncSaver:
 
     def save(self, path: str, state, *, overwrite: bool = True,
              layout: str | None = None) -> None:
-        layout, states = _states_of(state, layout)
+        layout, states, keys = _states_of(state, layout)
         staged, events = _stage(states)
         self._pending.append(
-            self._pool.submit(_write, path, layout, staged, events, overwrite))
+            self._pool.submit(_write, path, layout, keys, staged, events, overwrite))
 
     def wait(self) -> None:
         pending, self._pending = self._pending, []
