@@ -262,7 +262,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    each reporting its own streams only; each process's tick host ms beside
    the single process's, and whether the card time-slices the two
    contexts or runs MPS.  A worker's non-zero exit, a timeout or a missing
-   record fails the phase;
+   record fails the phase.  Then phase 4-grid-procs: the grid axis across
+   processes (``parallel/comm.ProcessComm``, one 17-plane shard a process,
+   the collectives staged through pinned host memory over gloo): three
+   workers (``chip_smoke.py --grid-proc-worker``) share the card and run
+   phase 4-grid's 36 sweep scans and the first 12 of phase 4-grid-exact's,
+   every process's diagnostics, detections and slab bit-equal to those
+   phases' in-process runs (detection floats within 1e-5 of the dense
+   node's), each kernel of the path launched in every process and their
+   launches summing to the in-process counts; phase 4-fleet-grid's script
+   on ``FleetVoFOD(grid_shards=3, grid_shards_per_process=1)``, records
+   and final states equal, its state after tick 3 saved by the three
+   processes and restored onto a one-process fleet that steps on equal;
+   tools/serve_fleet ``--grid-shards 3 --grid-shards-per-process 1`` in
+   three processes for 5 ticks of a recording; step p50 / p95 beside the
+   in-process path's, staged collectives, host syncs and transport host ms
+   (and the syncs' wait in them) a scan;
 5. a torch.profiler trace of 5 flagship scans of each path (sweep, exact,
    prebinned, dynamic radii at 2.0 / 1.9 m, sequential, grid-sharded,
    grid-sharded exact, grid-sharded sequential, grid-sharded with the
@@ -296,6 +311,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -316,7 +332,8 @@ from vofod_tpu_torch.io import native  # noqa: E402
 from vofod_tpu_torch.io.binner import HostBinner  # noqa: E402
 from vofod_tpu_torch.config import Box, DynParams, SensorConfig, VoFODConfig  # noqa: E402
 from vofod_tpu_torch.geometry import GridSpec  # noqa: E402
-from vofod_tpu_torch.io.scan_source import Scene, hover_pose, render_scan  # noqa: E402
+from vofod_tpu_torch.io.scan_source import (  # noqa: E402
+    Scene, hover_pose, render_scan, save_scans_npz)
 from vofod_tpu_torch.ops.compaction import (  # noqa: E402
     masked_compact, masked_compact_isin, masked_compact_isin_plain, masked_compact_plain)
 from vofod_tpu_torch.ops.components import (  # noqa: E402
@@ -4376,11 +4393,13 @@ class GridDriver:
     on the host into a staging set, each shard uploads its slab, and the set
     is guarded by the shards' copy events.  ``cfg`` and ``step_kw``: the
     step's config and make_grid_sharded_step options (default the flagship
-    sweep path)."""
+    sweep path; ``comm``: default 3 shards of a LocalComm on the card, or
+    a ProcessComm, whose process holds its own shard)."""
 
-    def __init__(self, lut, state: VoFODState, cfg: VoFODConfig | None = None, **step_kw):
+    def __init__(self, lut, state: VoFODState, cfg: VoFODConfig | None = None, comm=None,
+                 **step_kw):
         self.cfg, self.dyn = cfg or VoFODConfig(), DynParams()
-        self.comm = LocalComm(GRID_SHARDS, ["cuda"])
+        self.comm = comm or LocalComm(GRID_SHARDS, ["cuda"])
         self.step = make_grid_sharded_step(self.cfg, lut, self.comm, **step_kw)
         self.states = shard_state(state, self.comm)
         n = self.cfg.sensor.n_points
@@ -4525,6 +4544,7 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
     ms = {"dense": [], "grid": []}
     syncs, per_scan, copies, rel_err, n_dets = [], [], [], 0.0, 0
     sweeps, capped, queries, demoted = [], [], [], []
+    kept = []  # per scan, for phase 4-grid-procs
     bit_equal_dets = True
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -4588,6 +4608,10 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
                     rel_err = max(rel_err, float(np.max(np.abs(v - want) / den, initial=0.0)))
                 elif not np.array_equal(v, want):
                     raise AssertionError(f"{path} grid scan {k}: detections.{f} differs")
+            if k < GRID_KEEP.get(path, 0):
+                kept.append(dict(diag=diag, dets=dets, slabs=[_slab_digest(x) for x in drv.states],
+                                 dense_dets={f: getattr(dense_out.detections, f).cpu().numpy()
+                                             for f in dets}, launches=launches))
     assert max(syncs) <= 1, f"host syncs per {path} grid scan: {syncs}"
     assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
     total = {g: sum(s[g] for s in per_scan) for g in per_scan[0]}
@@ -4634,6 +4658,8 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
     say(GRID_PHASES[path], **out)
     if path == "sweep":
         GRID_FINAL[path] = (drv.states, node.state, drv.comm)
+    if kept:
+        GRID_RECORDS[path] = dict(scans=kept, ms=ms["grid"])
     return total, out["step_ms_p50"]["grid"]
 
 
@@ -4651,6 +4677,19 @@ CLI_ROS_SCANS = 3
 # the static base -> sensor edge: 180 degrees about z (as os_sensor -> os_lidar)
 CLI_BASE_SENSOR = dict(txyz=(0.0, 0.0, 0.0), quat=(0.0, 0.0, 1.0, 0.0))
 GRID_FINAL: dict = {}  # phase 4-grid's final states, by path: (shard states, dense state, comm)
+# phase 4-grid-procs' references: the scans of each grid path it replays
+# across processes, and per scan what phase 4-grid's run gave
+GRID_KEEP = {"sweep": N_SCANS, "exact": 12}
+GRID_RECORDS: dict = {}
+
+
+def _slab_digest(s: VoFODState) -> str:
+    """A digest of a state's (or slab's) tensors and step."""
+    h = hashlib.sha1(str(s.step).encode())
+    for f in STATE_FIELDS:
+        if f != "step":
+            h.update(getattr(s, f).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _quat(R: np.ndarray) -> tuple:
@@ -5378,6 +5417,9 @@ def _fg_cli() -> dict:
     return dict(summary=summary[0], stderr=err.getvalue().strip().splitlines()[-1])
 
 
+FG_CLEAN: dict = {}  # phase 4-fleet-grid's records by tick and its streams' final digests
+
+
 def phase4_fleet_grid(lut, grid_launches: dict) -> None:
     """The 2-D streams x grid fleet (FleetVoFOD(n_streams=2, grid_shards=3))
     at the flagship size, the apriori plane in every stream, stream b fed
@@ -5413,6 +5455,8 @@ def phase4_fleet_grid(lut, grid_launches: dict) -> None:
         reset=dict(tick=FG_RESET[0], stream=FG_RESET[1], steps_final=clean["steps_final"]),
         checkpoint=dict(saved_after_tick=FG_SAVE - 1, save_ms=clean["save_ms"], **resumed),
         prebinned=prebinned, seconds=time.perf_counter() - t_phase)
+    FG_CLEAN.update(records=clean["records"],
+                    final=[_slab_digest(gather_state(s)) for s in clean["fleet"].state])
     del clean
     say("4-fleet-grid-timing", nvidia_smi=_smi(), warm_ticks=FLEET_WARM_TICKS,
         timed_ticks=FG_TIMED_TICKS, **_fg_timing(cycle, plane))
@@ -5496,8 +5540,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _two_processes(cmds: list, logs: list) -> list[int]:
-    """Run the two commands at once (output to ``logs``), each within
+def _processes(cmds: list, logs: list) -> list[int]:
+    """Run the commands at once (output to ``logs``), each within
     PROC_TIMEOUT; a process still running then is killed and fails the
     phase.  Returns the exit codes."""
     procs = []
@@ -5561,7 +5605,7 @@ def phase4_fleet_procs(lut) -> None:
     outs = [work / f"rank{r}.pkl" for r in range(2)]
     port = _free_port()
     t0 = time.perf_counter()
-    rcs = _two_processes(
+    rcs = _processes(
         [[sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-worker", str(r), str(port),
           str(outs[r])] for r in range(2)], [work / f"worker{r}.log" for r in range(2)])
     workers_s = time.perf_counter() - t0
@@ -5599,7 +5643,7 @@ def phase4_fleet_procs(lut) -> None:
     # (b) the serving CLI across the two processes
     port = _free_port()
     logs = [work / f"cli{r}.log" for r in range(2)]
-    rcs = _two_processes(
+    rcs = _processes(
         [[sys.executable, "-m", "vofod_tpu_torch.tools.serve_fleet", "--streams", str(PROC_B),
           "--sim", "--ticks", "5", "--json", "--device", "cuda", "--coordinator",
           f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(r)]
@@ -5621,6 +5665,339 @@ def phase4_fleet_procs(lut) -> None:
         local_streams=[[0, 1], [2, 3]], worker_devices=[w["device"] for w in res],
         detections_one_process=detections, workers_wall_s=workers_s, tick_host_ms=timing,
         cli=cli, card_sharing=_mps_state(), seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# phase 4-grid-procs: the grid axis across processes, one shard a process
+# ---------------------------------------------------------------------------
+
+GP_PATHS = tuple(GRID_KEEP.items())  # (path, scans) replayed across processes
+GP_CLI_TICKS = 5
+GP_CLI_WARM = 12  # ticks of the cycle in the state (d) resumes from: past the first detection
+
+
+def _gp_scans(lut, comm, path: str, n_scans: int) -> list[dict]:
+    """One grid path's first ``n_scans`` scans of the cycle through this
+    process's shard of ``comm`` (phase 4-grid's start: the apriori plane on
+    a fresh map): per scan the diagnostics, the detections, the slab's
+    digest, the launches, the transport's calls, host syncs and host ms
+    by collective, and the step's ms (CUDA events, as phase 4-grid; and
+    the host clock through the readback)."""
+    make_cfg, node_kw, step_kw, *_ = GRID_PATHS[path]
+    cfg = make_cfg()
+    node = VoFOD(cfg, DynParams(), NodeOptions(**node_kw), lut, device="cuda")
+    node.load_apriori_map(apriori_ground())
+    drv = GridDriver(lut, node.state, cfg, comm=comm, **step_kw)
+    del node
+    out = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r, p in scan_cycle(lut, N_SCANS)[:n_scans]:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        comm.reset_copies()
+        t0, c0 = time.perf_counter(), time.process_time()
+        start.record()
+        pending = drv.process_scan_async(r, p)
+        end.record()
+        diag, dets = drv.fetch(pending)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out.append(dict(diag=diag, dets=dets, slab=_slab_digest(drv.states[0]),
+                        launches={g: v for g, v in kernels.launch_counts().items() if v},
+                        calls=dict(comm.calls_by), syncs=dict(comm.syncs_by),
+                        transport_ms=dict(comm.host_ms_by), sync_ms=dict(comm.sync_ms_by),
+                        exchange_ms=dict(comm.wait_ms_by),
+                        cpu_ms=(time.process_time() - c0) * 1e3,
+                        ms=start.elapsed_time(end), host_ms=host_ms))
+    return out
+
+
+def _gp_fleet(lut, ckpt: Path) -> dict:
+    """Phase 4-fleet-grid's script on FleetVoFOD(n_streams=2, grid_shards=3,
+    grid_shards_per_process=1): this process's records by tick, tick host
+    ms, the streams' final digests (gathered over the group), and the state
+    before tick FG_SAVE saved by the three processes into ``ckpt``."""
+    cycle, plane = scan_cycle(lut, N_SCANS), apriori_ground()
+    fleet = FleetVoFOD(VoFODConfig(), DynParams(), FG_B, device="cuda", grid_shards=GRID_SHARDS,
+                       grid_shards_per_process=1)
+    fleet.load_apriori_map(plane)
+    records, ms = [], []
+    for k in range(FG_TICKS):
+        if k == FG_SAVE:
+            save_state(str(ckpt), fleet.state, layout="streams_zshards", comm=fleet.comm,
+                       streams=fleet.local_streams)
+        r, p = _fleet_tick(cycle, FG_B, k)
+        _fg_events(fleet, plane, k, r, p)
+        t0 = time.perf_counter()
+        msgs = fleet.process_local_scans(r, p)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        records.append([_stream_record(fleet, msgs, b) for b in range(FG_B)])
+    final = [_slab_digest(gather_state(s, fleet.comm)) for s in fleet.state]
+    return dict(local=fleet.local_streams, shard=fleet.comm.rank, records=records, ms=ms,
+                final=final, rejected=[int(x) for x in fleet.n_pose_rejected])
+
+
+def grid_proc_worker(rank: int, port: int, out: str) -> int:
+    """``python3 chip_smoke.py --grid-proc-worker RANK PORT OUT``: one of
+    phase 4-grid-procs' three processes, grid shard RANK.  Joins the gloo
+    group on 127.0.0.1:PORT, runs the sweep and exact grid paths over a
+    ProcessComm(3) on the card (GP_PATHS) and the 2-D fleet with one shard
+    a process, and writes its records to OUT.  Any failure raises (a
+    non-zero exit)."""
+    import pickle
+
+    from vofod_tpu_torch.parallel.comm import ProcessComm
+    from vofod_tpu_torch.runtime.fleet import initialize_multihost
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the grid worker needs a CUDA GPU")
+    initialize_multihost(f"127.0.0.1:{port}", GRID_SHARDS, rank)
+    try:
+        lut = make_lut(VoFODConfig().sensor)
+        comm = ProcessComm(GRID_SHARDS, "cuda")
+        res = {path: _gp_scans(lut, comm, path, n) for path, n in GP_PATHS}
+        res["host"] = dict(torch_threads=torch.get_num_threads(),
+                           cpus=len(os.sched_getaffinity(0)))
+        res["fleet"] = _gp_fleet(lut, Path(out).parent / "fleet_ckpt")
+        res["device"] = str(comm.device)
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    print("GRID_WORKER_OK", rank, flush=True)
+    return 0
+
+
+def _gp_check_path(path: str, n: int, runs: list) -> dict:
+    """(a) / (b): each process's scans against phase 4-grid's in-process
+    run of the path: diagnostics, detections and its slab bit-equal,
+    detection floats within 1e-5 relative of the dense node's; each kernel
+    of the path launched in every process on every scan, none of the
+    others, the processes' launches summing to phase 4-grid's a scan."""
+    _, _, _, path_kernels, never, _ = GRID_PATHS[path]
+    ref = GRID_RECORDS[path]["scans"]
+    rel_err, n_dets = 0.0, 0
+    for r, run in enumerate(runs):
+        if len(run) != n:
+            raise AssertionError(f"{path} process {r}: {len(run)} scans recorded")
+        for k, (got, want) in enumerate(zip(run, ref)):
+            what = f"{path} process {r} scan {k}"
+            for f, v in want["diag"].items():
+                if not np.array_equal(got["diag"][f], v):
+                    raise AssertionError(f"{what}: diag.{f} differs from phase 4-grid's")
+            for f, v in want["dets"].items():
+                if not np.array_equal(got["dets"][f], v):
+                    raise AssertionError(f"{what}: detections.{f} differs from phase 4-grid's")
+                d = want["dense_dets"][f]
+                if v.dtype.kind == "f":
+                    np.testing.assert_allclose(got["dets"][f], d, rtol=1e-5, atol=0.0,
+                                               err_msg=f"{what}: detections.{f} vs dense")
+                    den = np.maximum(np.abs(d), 1e-30)
+                    rel_err = max(rel_err, float(np.max(np.abs(got["dets"][f] - d) / den,
+                                                        initial=0.0)))
+                elif not np.array_equal(got["dets"][f], d):
+                    raise AssertionError(f"{what}: detections.{f} differs from the dense node's")
+            if got["slab"] != want["slabs"][r]:
+                raise AssertionError(f"{what}: slab differs from phase 4-grid's shard {r}")
+            missing = [g for g in path_kernels if not got["launches"].get(g)]
+            if missing:
+                raise AssertionError(f"{what}: kernels not launched: {missing}")
+            foreign = [g for g in never if got["launches"].get(g)]
+            if foreign:
+                raise AssertionError(f"{what}: other paths' kernels launched: {foreign}")
+            if r == 0:
+                n_dets += int(got["dets"]["valid"].sum())
+    for k in range(n):
+        want = {g: v for g, v in ref[k]["launches"].items() if v}
+        total = {}
+        for run in runs:
+            for g, v in run[k]["launches"].items():
+                total[g] = total.get(g, 0) + v
+        if total != want:
+            off = {g: (total.get(g, 0), want.get(g, 0)) for g in set(total) | set(want)
+                   if total.get(g, 0) != want.get(g, 0)}
+            raise AssertionError(f"{path} scan {k}: the processes' launches (got, phase "
+                                 f"4-grid's) {off}")
+    kinds = sorted({c for run in runs for s in run for c in s["calls"]})
+
+    def per_scan(key: str, run: list) -> dict:
+        return {c: float(np.mean([s[key].get(c, 0) for s in run])) for c in kinds}
+
+    ms_ref = GRID_RECORDS[path]["ms"][:n]
+    return dict(
+        scans=n, bit_equal_to_in_process=True, detection_float_max_rel_err_vs_dense=rel_err,
+        detections=n_dets,
+        launches_per_scan_per_process=[
+            {g: float(np.mean([s["launches"].get(g, 0) for s in run]))
+             for g in sorted({g for s in run for g in s["launches"]})} for run in runs],
+        step_ms_p50=[float(np.percentile([s["ms"] for s in run], 50)) for run in runs],
+        step_ms_p95=[float(np.percentile([s["ms"] for s in run], 95)) for run in runs],
+        step_host_ms_p50=[float(np.percentile([s["host_ms"] for s in run], 50)) for run in runs],
+        in_process_step_ms_p50=float(np.percentile(ms_ref, 50)),
+        in_process_step_ms_p95=float(np.percentile(ms_ref, 95)),
+        staged_collectives_per_scan=[per_scan("calls", run) for run in runs],
+        host_syncs_per_scan=[dict(per_scan("syncs", run), readback=1.0) for run in runs],
+        transport_host_ms_per_scan=[per_scan("transport_ms", run) for run in runs],
+        transport_sync_wait_ms_per_scan=[per_scan("sync_ms", run) for run in runs],
+        transport_exchange_ms_per_scan=[per_scan("exchange_ms", run) for run in runs],
+        process_cpu_ms_per_scan_p50=[float(np.percentile([s["cpu_ms"] for s in run], 50))
+                                     for run in runs],
+        step_ms_all=[[round(s["ms"], 3) for s in run] for run in runs])
+
+
+def _gp_check_fleet(lut, runs: list, ckpt: Path) -> dict:
+    """(c): every process's records and final digests equal phase
+    4-fleet-grid's; the processes' checkpoint restored onto a one-process
+    2-D fleet steps to tick FG_TICKS equal to the run not interrupted."""
+    for r, run in enumerate(runs):
+        if (run["local"], run["shard"]) != ([0, 1], r):
+            raise AssertionError(f"(c) process {r}: streams {run['local']}, shard {run['shard']}")
+        for k, tick in enumerate(run["records"]):
+            for b, rec in enumerate(tick):
+                _same_record(rec, FG_CLEAN["records"][k][b],
+                             f"(c) process {r} tick {k} stream {b}")
+        if run["final"] != FG_CLEAN["final"]:
+            raise AssertionError(f"(c) process {r}: final states differ from phase 4-fleet-grid's")
+        if run["rejected"] != [int(b == FG_NAN[1]) for b in range(FG_B)]:
+            raise AssertionError(f"(c) process {r}: n_pose_rejected {run['rejected']}")
+    cycle, plane = scan_cycle(lut, N_SCANS), apriori_ground()
+    fleet = _fg_fleet(FG_B, plane)
+    t0 = time.perf_counter()
+    fleet.state = restore_state(str(ckpt), fleet.state)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for k in range(FG_SAVE, FG_TICKS):
+        r, p = _fleet_tick(cycle, FG_B, k)
+        _fg_events(fleet, plane, k, r, p)
+        msgs = fleet.process_scans(r, p)
+        for b in range(FG_B):
+            _same_record(_stream_record(fleet, msgs, b), FG_CLEAN["records"][k][b],
+                         f"(c) resumed on one process, tick {k}, stream {b}")
+    if [_slab_digest(gather_state(s)) for s in fleet.state] != FG_CLEAN["final"]:
+        raise AssertionError("(c) resumed on one process: final states differ")
+    return dict(streams=FG_B, ticks=FG_TICKS, records_and_states_equal=True,
+                tick_host_ms_p50=[float(np.percentile(run["ms"][1:], 50)) for run in runs],
+                tick_host_ms_all=[[round(x, 3) for x in run["ms"]] for run in runs],
+                checkpoint=dict(saved_after_tick=FG_SAVE - 1, restored_on_one_process=True,
+                                restore_ms=restore_ms, files=len(list(ckpt.glob("*.npz")))))
+
+
+def _gp_cli_record(d) -> dict:
+    """A detection as serve_fleet --json prints it (floats through JSON)."""
+    return json.loads(json.dumps({"id": d.id, "position": list(d.position),
+                                  "confidence": d.confidence,
+                                  "detection_probability": d.detection_probability}))
+
+
+def _gp_check_cli(lut, work: Path) -> list:
+    """(d): serve_fleet --coordinator --grid-shards 3
+    --grid-shards-per-process 1 in three processes for GP_CLI_TICKS ticks
+    of a looped recording of the cycle, resumed (``--load-state``) from a
+    one-process 2-D fleet's state after GP_CLI_WARM ticks of it (the
+    apriori plane first).  Process 0 alone prints the streams; every
+    process reports the same frames a tick; process 0's detections, a
+    tick and a stream, equal that one-process fleet's fed the same frames
+    from the same state, and are not empty."""
+    cycle, plane = scan_cycle(lut, N_SCANS), apriori_ground()
+    ranges = np.stack([r for r, _ in cycle])
+    poses = np.stack([p for _, p in cycle]).astype(np.float32)
+    save_scans_npz(str(work / "scans.npz"), ranges, poses)
+    fleet = _fg_fleet(FG_B, plane)
+    for k in range(GP_CLI_WARM):
+        fleet.process_scans(*_fleet_tick(cycle, FG_B, k))
+    save_state(str(work / "cli_ckpt"), fleet.state, layout="streams_zshards")
+    port = _free_port()
+    logs = [work / f"cli{r}.log" for r in range(GRID_SHARDS)]
+    rcs = _processes(
+        [[sys.executable, "-m", "vofod_tpu_torch.tools.serve_fleet", "--streams", str(FG_B),
+          "--scans", str(work / "scans.npz"), "--loop", "--ticks", str(GP_CLI_TICKS),
+          "--json", "--device", "cuda", "--load-state", str(work / "cli_ckpt"),
+          "--grid-shards", str(GRID_SHARDS), "--grid-shards-per-process", "1",
+          "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(GRID_SHARDS),
+          "--process-id", str(r)] for r in range(GRID_SHARDS)], logs)
+    cli, frames = [], None
+    for r, (rc, log) in enumerate(zip(rcs, logs)):
+        text = log.read_text()
+        lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+        summary = [ln for ln in lines if ln.get("summary")]
+        ticks = [ln for ln in lines if "latency_ms" in ln]
+        dets = [ln for ln in lines if "stream" in ln]
+        if (rc != 0 or len(summary) != 1 or summary[0]["ticks"] != GP_CLI_TICKS
+                or summary[0]["streams"] != FG_B or len(ticks) != GP_CLI_TICKS
+                or (r and dets)):
+            raise AssertionError(f"(d) serve_fleet process {r}: exit {rc}, summary {summary}, "
+                                 f"{len(ticks)} ticks, {len(dets)} detection lines; "
+                                 f"log {text[-3000:]}")
+        got = [ln["frames"] for ln in ticks]
+        if frames is None:
+            frames, printed = got, dets
+        elif got != frames:
+            raise AssertionError(f"(d) process {r} stepped frames {got}, process 0 {frames}")
+        cli.append(dict(summary=summary[0], frames=got, detection_lines=len(dets)))
+    # the one-process fleet, still at the saved state, fed process 0's frames
+    want = []
+    for t, idx in enumerate(frames, start=1):
+        idx = [k % N_SCANS for k in idx]
+        msgs = fleet.process_scans(ranges[idx], poses[idx])
+        want += [{"tick": t, "stream": b, **_gp_cli_record(d)}
+                 for b in range(FG_B) for d in msgs[b].detections]
+    if not want or printed != want:
+        raise AssertionError(f"(d) process 0 printed {len(printed)} detections, the one-process "
+                             f"fleet on its frames {len(want)}: {printed[:3]} / {want[:3]}")
+    cli[0]["detections_equal_to_one_process"] = len(want)
+    return cli
+
+
+def phase4_grid_procs(lut) -> None:
+    """The grid axis across processes (parallel/comm.ProcessComm: one z
+    shard a process, the collectives staged through the host over gloo) at
+    the flagship size: three worker processes (``--grid-proc-worker``,
+    started once the parent has built the kernels) share the card, each
+    holding one 17-plane shard: (a) the sweep path's 36 scans and (b) the
+    exact path's 12, every process's diagnostics, detections and slab
+    bit-equal to phase 4-grid's in-process run (and the detection floats
+    within 1e-5 of its dense node's), every kernel of the path launched in
+    each process, their launches summing to phase 4-grid's; (c) phase
+    4-fleet-grid's script on FleetVoFOD(n_streams=2, grid_shards=3,
+    grid_shards_per_process=1), records and final states equal to that
+    phase's, the state after tick 3 saved by the three processes and
+    restored onto a one-process fleet that steps to tick 8 equal; (d)
+    serve_fleet --coordinator --grid-shards 3 --grid-shards-per-process 1
+    in three processes (:func:`_gp_check_cli`), process 0's detections
+    equal to a one-process fleet's on the frames it stepped.  Recorded: step p50
+    / p95 beside the in-process path's, the staged collectives, host syncs,
+    transport host ms and the syncs' share of them a scan by collective.  A worker's non-zero exit, a timeout or a missing record
+    fails the phase."""
+    import pickle
+
+    t_phase = time.perf_counter()
+    kernels.build()  # built in phase 1: the workers load it, none compiles
+    native.build()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke" / "grid_procs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    outs = [work / f"rank{r}.pkl" for r in range(GRID_SHARDS)]
+    port = _free_port()
+    t0 = time.perf_counter()
+    rcs = _processes(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--grid-proc-worker", str(r), str(port),
+          str(outs[r])] for r in range(GRID_SHARDS)],
+        [work / f"worker{r}.log" for r in range(GRID_SHARDS)])
+    workers_s = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        log = (work / f"worker{r}.log").read_text()
+        if rc != 0 or f"GRID_WORKER_OK {r}" not in log or not outs[r].exists():
+            raise AssertionError(f"worker {r}: exit {rc}, log {log[-3000:]}")
+    res = [pickle.loads(p.read_bytes()) for p in outs]
+    paths = {path: _gp_check_path(path, n, [w[path] for w in res]) for path, n in GP_PATHS}
+    fleet = _gp_check_fleet(lut, [w["fleet"] for w in res], work / "fleet_ckpt")
+    cli = _gp_check_cli(lut, work)
+    say("4-grid-procs", nvidia_smi=_smi(), processes=GRID_SHARDS,
+        shard_planes=_FLAGSHIP.nz // GRID_SHARDS, worker_devices=[w["device"] for w in res],
+        sweep=paths["sweep"], exact=paths["exact"], fleet=fleet, cli=cli,
+        worker_host=[w["host"] for w in res],
+        workers_wall_s=workers_s, card_sharing=_mps_state(),
+        seconds=time.perf_counter() - t_phase)
 
 
 def _dev_us(e, self_only: bool) -> float:
@@ -5795,6 +6172,7 @@ def main() -> int:
     phase4_cli(lut, launches)
     phase4_fleet_grid(lut, grid_launches)
     phase4_fleet_procs(lut)
+    phase4_grid_procs(lut)
     first = phase5_profile(lut, step_ms_p50)
     phase5_profile(lut, exact_ms_p50, path="exact")
     phase5_profile(lut, pre_ms_p50, path="prebinned")
@@ -5848,4 +6226,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:
         sys.exit(fleet_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--grid-proc-worker"]:
+        sys.exit(grid_proc_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

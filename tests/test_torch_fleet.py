@@ -449,3 +449,84 @@ def test_fleet_refuses(monkeypatch, kw, err):
     kw = {"device": "cpu", **kw}
     with pytest.raises(err):
         FleetVoFOD(_cfg(), _dyn(), n_streams=2, **kw)
+
+
+# --- a null scan on a cold map: the port's fleet against JAX's ----------------
+# A 2-stream fleet from a cold map (the apriori plane only), at 16 x 64 rays
+# over a 16 x 16 x 7.5 m area, with a 12-scan cycle in the spirit of
+# bench.py's (ground, a structure, a target orbiting above the sensor's own
+# arc), stream b from scan 3 b, a NaN rotation on stream 1 at tick 4, for 20
+# ticks.  At the default ray weight this size learns too slowly to detect in
+# 20 ticks, so both fleets run at 10 times it (0.03): stream 1 first
+# detects at tick 6 without the null scan and at tick 7 with it, in both
+# packages.  Detection ids and n_points are equal tick for tick; positions
+# within 1 cm and confidences within 1 % (measured 7 mm and <0.1 %: the
+# larger ray weight moves the grid's bf16 rounding further, as in
+# tests/test_torch_grid_step.py).
+REPLAY_TICKS, REPLAY_NAN, REPLAY_WEIGHT, REPLAY_CYCLE = 20, (4, 1), 0.03, 12
+REPLAY_POS_ATOL, REPLAY_CONF_RTOL = 1e-2, 1e-2
+
+
+def _replay_cfg(jax_side: bool = False):
+    S, Bx, C = (JSensor, JBox, JConfig) if jax_side else (SensorConfig, Box, VoFODConfig)
+    return C(sensor=S(vertical_rays=16, horizontal_rays=64, vertical_fov=np.deg2rad(90.0)),
+             oparea=Bx((0.0, 0.0, 3.75), (16.0, 16.0, 7.5)), max_clusters=8, max_far_voxels=512,
+             max_queries=64, explore_submap=16, confidence_submap=8)
+
+
+def _replay_cycle(lut):
+    out = []
+    for k in range(REPLAY_CYCLE):
+        a = 2.0 * np.pi * k / REPLAY_CYCLE
+        sc = Scene(ground_z=0.25)
+        sc.add_box((5.0, 3.0, 0.25), (6.0, 4.0, 3.5))
+        sc.add_sphere(center=(-3.0 + np.cos(a), -1.5 + np.sin(a), 4.5), radius=0.5)
+        p = hover_pose((1.5 + 0.5 * np.cos(a), 0.5 * np.sin(a), 2.5 + 0.1 * np.sin(2 * a)),
+                       yaw=0.1 * np.sin(a))
+        out.append((render_scan(sc, lut, p), p))
+    return out
+
+
+def _replay(fleet, cycle, null: bool):
+    """The replay's ticks on a fleet (either package): per tick and stream
+    the detections (id, n_points, position, confidence)."""
+    xs = np.arange(-6.0, 6.0, 0.4)
+    gx, gy = np.meshgrid(xs, xs)
+    fleet.load_apriori_map(np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, 0.25)], axis=1))
+    out = []
+    for k in range(REPLAY_TICKS):
+        idx = [(3 * b + k) % REPLAY_CYCLE for b in range(2)]
+        r = np.stack([cycle[i][0] for i in idx])
+        p = np.stack([cycle[i][1] for i in idx]).astype(np.float32)
+        if null and k == REPLAY_NAN[0]:
+            p[REPLAY_NAN[1], :3, :3] = np.nan
+        msgs = fleet.process_scans(r, p)
+        out.append([[(d.id, d.n_points, np.array(d.position), d.confidence) for d in m.detections]
+                    for m in msgs])
+    return out, [int(x) for x in fleet.n_pose_rejected]
+
+
+def test_null_scan_cold_start_against_jax():
+    """A null scan before a cold stream's first detection: the port's fleet
+    detects on the same ticks as JAX's fleet, with the same ids and
+    n_points; the null scan costs stream 1 its one tick (first detection 7
+    against 6 without it), in both packages."""
+    port = FleetVoFOD(_replay_cfg(), DynParams(raycast_weight_coefficient=REPLAY_WEIGHT),
+                      n_streams=2, device="cpu")
+    cycle = _replay_cycle(port.lut)
+    got, rejected = _replay(port, cycle, null=True)
+    jfleet = JFleet(_replay_cfg(True), JDyn(raycast_weight_coefficient=REPLAY_WEIGHT),
+                    n_streams=2, mesh=make_mesh(2))
+    want, jrejected = _replay(jfleet, cycle, null=True)
+    assert rejected == jrejected == [0, 1]
+    for k, (a, b) in enumerate(zip(got, want)):
+        for s in range(2):
+            assert [d[:2] for d in a[s]] == [d[:2] for d in b[s]], f"tick {k} stream {s}"
+            for x, y in zip(a[s], b[s]):
+                np.testing.assert_allclose(x[2], y[2], atol=REPLAY_POS_ATOL, rtol=0)
+                np.testing.assert_allclose(x[3], y[3], rtol=REPLAY_CONF_RTOL, atol=0)
+    clean, _ = _replay(FleetVoFOD(_replay_cfg(), DynParams(
+        raycast_weight_coefficient=REPLAY_WEIGHT), n_streams=2, device="cpu"), cycle, null=False)
+    first = [[next(k for k, t in enumerate(run) if t[s]) for s in range(2)]
+             for run in (clean, got, want)]
+    assert first == [[7, 6], [7, 7], [7, 7]], first

@@ -5,7 +5,9 @@ against JAX's 2-D fleet and against the port's dense and 1-D grid steps, at
 a small size on the CPU with ``LocalComm`` shards.
 
 * Against ``vofod_tpu.parallel.grid_step.make_fleet_grid_step`` on a 2 x 4
-  virtual mesh (compiled once for the module), at tests/test_grid_step.py's
+  virtual mesh (built and run once for the module, in a thread started
+  with it, so that XLA compiles it while the port-only tests run; the
+  tests that compare with it come last), at tests/test_grid_step.py's
   ``sharded_config`` (32 x 33 x 33 grid), the port at 4 shards with the 4
   streams of tests/test_fleet_grid.py's ``_stream_scans``: per stream and
   tick the budgets of tests/test_torch_step.py ``_compare``.  Those budgets
@@ -37,6 +39,7 @@ a small size on the CPU with ``LocalComm`` shards.
 import dataclasses
 import json
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -151,8 +154,7 @@ def scen():
                 warm={k: np.stack([v] * B) for k, v in one.items()})
 
 
-@pytest.fixture(scope="module")
-def jax_run(scen):
+def _jax_fleet_run(scen):
     """JAX's 2-D fleet on the 2 x 4 mesh through the 6 ticks from the learned
     map: per tick its per-stream records, and its state after CARRY_AT
     ticks (numpy, batched layout)."""
@@ -174,6 +176,21 @@ def jax_run(scen):
         recs.append([dict(diag={f: int(diag[f][b]) for f in DIAG_FIELDS}, dets=_dets(det, b),
                           grid=grid[b]) for b in range(B)])
     return recs, carried
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_future(scen):
+    """JAX's 2-D fleet (:func:`_jax_fleet_run`), built and run once for the
+    module's comparisons, in a thread started with the module: XLA compiles
+    it (~50 s on this CPU) while the port-only tests run, and the tests
+    that compare with it come last."""
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="jax-fleet") as pool:
+        yield pool.submit(_jax_fleet_run, scen)
+
+
+@pytest.fixture(scope="module")
+def jax_run(jax_future):
+    return jax_future.result()
 
 
 @pytest.fixture(scope="module")
@@ -217,30 +234,6 @@ def grid1d_run(scen):
     step = make_grid_sharded_step(scen["cfg"], scen["lut"], comm)
     return _per_stream(scen, step, lambda b: shard_state(state_from_numpy(
         {k: v[b] for k, v in scen["warm"].items()}, "cpu"), comm))
-
-
-@pytest.mark.parametrize("stream", range(B))
-def test_against_jax_fleet_grid(jax_run, port_run, stream):
-    """Every tick of one stream within _compare's budgets of JAX's 2-D fleet."""
-    ref, _ = jax_run
-    outs, states = port_run
-    dmax = 0.0
-    for t in range(N_SCANS):
-        port = _record(outs[t][stream], states[t]["grid"][stream])
-        dmax = max(dmax, _compare(port, ref[t][stream], t))
-    assert dmax <= GRID_ATOL and CONF_RTOL > 0
-
-
-def test_scenario_detects(jax_run, port_run):
-    """Non-vacuity: both fleets detect the staggered targets, on more than
-    one stream, and the streams' maps differ."""
-    ref, _ = jax_run
-    outs, states = port_run
-    jax_dets = {b for tick in ref for b, r in enumerate(tick) if r["dets"]}
-    port_dets = {b for tick in outs for b, o in enumerate(tick) if o["det"]["valid"].any()}
-    assert len(jax_dets) >= 2 and port_dets == jax_dets, (jax_dets, port_dets)
-    g = states[-1]["grid"]
-    assert not np.array_equal(g[0], g[1])
 
 
 def _same_tick(a_out: dict, a_state: dict, b_out: dict, b_state: dict, what: str) -> None:
@@ -559,25 +552,6 @@ def test_checkpoint_layout_roundtrips(tmp_path):
         str(tmp_path / "async"), init_fleet_grid_state(cfg, DynParams(), 2, comm4))), arrays)
 
 
-def test_state_carried_from_jax_fleet_grid(scen, jax_run):
-    """JAX's 2-D state after CARRY_AT ticks carried in with
-    fleet_grid_state_from_numpy: the round trip is exact, and the port's
-    continuation stays within _compare's budgets of JAX's ticks."""
-    ref, carried = jax_run
-    comm = LocalComm(SHARDS, ["cpu"])
-    states = fleet_grid_state_from_numpy(carried, comm)
-    back = fleet_grid_state_to_numpy(states)
-    for f, v in carried.items():
-        assert np.array_equal(back[f], v) and back[f].dtype == v.dtype, f
-    assert back["step"].tolist() == [N_WARM + CARRY_AT] * B
-    step = make_fleet_grid_step(scen["cfg"], scen["lut"], comm)
-    for t in range(CARRY_AT, N_SCANS):
-        states, outs = step(states, _scans(scen["streams"], t), DynParams())
-        grid = fleet_grid_state_to_numpy(states)["grid"]
-        for b in range(B):
-            _compare(_record(_port_out(outs[b]), grid[b]), ref[t][b], t)
-
-
 def test_serve_fleet_grid_shards_cli(tmp_path, capsys, monkeypatch):
     """serve_fleet --grid-shards 4 --device cpu --sim --ticks 3 --json
     in-process, on a 16-plane grid: it builds the 2-D fleet and serves 3
@@ -612,3 +586,47 @@ def test_serve_fleet_grid_shards_cli(tmp_path, capsys, monkeypatch):
     (fleet,) = built
     assert fleet.grid_shards == 4 and fleet.comm.n == 4
     assert all(len(s) == 4 and s[0].step == 3 for s in fleet.state)
+
+
+# against JAX's 2-D fleet: last, once its run (started with the module) is in
+@pytest.mark.parametrize("stream", range(B))
+def test_against_jax_fleet_grid(jax_run, port_run, stream):
+    """Every tick of one stream within _compare's budgets of JAX's 2-D fleet."""
+    ref, _ = jax_run
+    outs, states = port_run
+    dmax = 0.0
+    for t in range(N_SCANS):
+        port = _record(outs[t][stream], states[t]["grid"][stream])
+        dmax = max(dmax, _compare(port, ref[t][stream], t))
+    assert dmax <= GRID_ATOL and CONF_RTOL > 0
+
+
+def test_scenario_detects(jax_run, port_run):
+    """Non-vacuity: both fleets detect the staggered targets, on more than
+    one stream, and the streams' maps differ."""
+    ref, _ = jax_run
+    outs, states = port_run
+    jax_dets = {b for tick in ref for b, r in enumerate(tick) if r["dets"]}
+    port_dets = {b for tick in outs for b, o in enumerate(tick) if o["det"]["valid"].any()}
+    assert len(jax_dets) >= 2 and port_dets == jax_dets, (jax_dets, port_dets)
+    g = states[-1]["grid"]
+    assert not np.array_equal(g[0], g[1])
+
+
+def test_state_carried_from_jax_fleet_grid(scen, jax_run):
+    """JAX's 2-D state after CARRY_AT ticks carried in with
+    fleet_grid_state_from_numpy: the round trip is exact, and the port's
+    continuation stays within _compare's budgets of JAX's ticks."""
+    ref, carried = jax_run
+    comm = LocalComm(SHARDS, ["cpu"])
+    states = fleet_grid_state_from_numpy(carried, comm)
+    back = fleet_grid_state_to_numpy(states)
+    for f, v in carried.items():
+        assert np.array_equal(back[f], v) and back[f].dtype == v.dtype, f
+    assert back["step"].tolist() == [N_WARM + CARRY_AT] * B
+    step = make_fleet_grid_step(scen["cfg"], scen["lut"], comm)
+    for t in range(CARRY_AT, N_SCANS):
+        states, outs = step(states, _scans(scen["streams"], t), DynParams())
+        grid = fleet_grid_state_to_numpy(states)["grid"]
+        for b in range(B):
+            _compare(_record(_port_out(outs[b]), grid[b]), ref[t][b], t)

@@ -144,6 +144,9 @@ _WORKER = textwrap.dedent(
             FleetVoFOD(cfg(), DynParams(), n_streams=4 + 2 * rank, device="cpu")
         except ValueError as e:
             print("MISMATCH", e, flush=True)
+            # join the group's threads before the interpreter exits: a
+            # joinable one left to the exit aborts the process
+            torch.distributed.destroy_process_group()
             sys.exit(3)
         sys.exit(0)
     res, learned = {}, warm()

@@ -31,14 +31,21 @@ shard issues the same collectives in the same order; the JAX step needs its
 ``ctrl_any`` reductions for that lockstep.  ``run`` fences the shards'
 streams against the caller's current stream on the way in and out.
 
-These methods are the whole interface a ``torch.distributed`` transport
-would implement for hosts where each shard has a process and a card.
+These methods are the interface :class:`ProcessComm` implements over
+``torch.distributed`` for a grid axis that crosses processes: one shard a
+process, its card its own or shared with the other processes.  Both say
+which shards the calling process drives (``shards``): every state list the
+step code takes or returns holds those shards' slabs, in that order.
 """
 
 from __future__ import annotations
 
+import math
 import threading
+import time
+from datetime import timedelta
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -71,6 +78,7 @@ class LocalComm:
             devs = [torch.device("cuda", d.index if d.index is not None else
                                  torch.cuda.current_device()) for d in devs]
         self.n = n
+        self.shards = list(range(n))  # every shard is this process's
         self.timeout = float(timeout)
         self.devices = [devs[i % len(devs)] for i in range(n)]
         self.streams = [torch.cuda.Stream(device=d) if self.is_cuda else None
@@ -279,3 +287,329 @@ class LocalComm:
     def any(self, x: Tensor) -> Tensor:
         """Elementwise OR of a bool tensor over the shards."""
         return self._reduce(x, torch.logical_or, "any")
+
+
+# the dtypes a ProcessComm moves, by their index in a ppermute header
+_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.uint8, torch.int8,
+           torch.int16, torch.int32, torch.int64, torch.bool)
+_MAX_DIMS = 8
+_HDR = 2 + _MAX_DIMS  # a ppermute item's header: dtype index, ndim, the dims (padded)
+_TAG_HEADER, _TAG_PAYLOAD = 1, 2
+_ALIGN = 16  # a ppermute item's offset in its peer's message: a multiple of this many bytes
+
+
+def _padded(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _bytes(t: Tensor) -> Tensor:
+    """``t``'s contents as a flat uint8 tensor (a view where ``t`` is
+    contiguous)."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+class ProcessComm:
+    """One grid shard a process: :class:`LocalComm`'s interface over a
+    ``torch.distributed`` (gloo) group.
+
+    Every process of the default group builds it alike (a collective): the
+    world's W processes form W / n stream groups of n consecutive ranks,
+    process p being shard ``p % n`` of group ``p // n``, so the grid axis
+    is minor as in the JAX package's (data, grid) mesh.  Each group is a
+    ``dist.new_group`` of its own, with ``timeout`` as its timeout: a peer
+    that raises or dies makes every collective of the others raise within
+    it, never hang.
+
+    The collectives move bytes through the host, by design: gloo moves CUDA
+    tensors only for ``broadcast`` and ``all_reduce``, and NCCL refuses two
+    ranks on one card.  A CUDA sender copies its tensors into pinned host
+    memory on the current (the comm's) stream and waits for the copies --
+    one host sync a collective, counted in ``syncs`` / ``syncs_by``; the
+    bytes go through gloo; the receiver uploads them non-blocking on its
+    stream.  Nothing runs on the CPU in place of the card.  Float reductions
+    are an all-gather and a fold in rank order on the device, as
+    :meth:`LocalComm._reduce` adds, never ``dist.all_reduce``: the two
+    transports' sums agree bit for bit.  ``ppermutes`` posts every receive
+    and send of the call at once (a header of dtypes and shapes, then the
+    payload, one message each a peer), so cyclic permutations cannot
+    deadlock.
+
+    ``copies`` / ``copies_by`` count the staged copies (down and up),
+    ``syncs_by`` the host syncs, ``calls_by`` the collectives,
+    ``host_ms_by`` the host milliseconds spent in them, ``sync_ms_by``
+    the part of those spent waiting in the syncs (for the device work
+    queued before the copies) and ``wait_ms_by`` the part spent in the gloo
+    exchanges (the peers' arrival and the bytes' transfer), each by
+    collective since :meth:`reset_copies`.
+
+    n: the shards of a stream group (default: the world size).
+    device: this process's device, CUDA (its current card unless an index
+      is given) or the CPU (the tests); a CUDA device when CUDA is not
+      available raises.
+    """
+
+    def __init__(self, n: int | None = None, device="cuda", timeout: float = 120.0):
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("ProcessComm needs a torch.distributed process group: call "
+                               "runtime/fleet.initialize_multihost first")
+        world, me = dist.get_world_size(), dist.get_rank()
+        n = world if n is None else int(n)
+        if n < 1 or world % n:
+            raise ValueError(f"ProcessComm: {world} processes do not form groups of {n} shards")
+        dev = torch.device(device)
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"ProcessComm: unsupported device {dev}")
+        self.is_cuda = dev.type == "cuda"
+        if self.is_cuda and not torch.cuda.is_available():
+            raise RuntimeError("a CUDA device was requested but torch.cuda.is_available() is False")
+        if self.is_cuda:
+            dev = torch.device("cuda", dev.index if dev.index is not None
+                               else torch.cuda.current_device())
+        self.n, self.rank = n, me % n
+        self.shards = [self.rank]
+        self.device = dev
+        self.timeout = float(timeout)
+        self._td = timedelta(seconds=self.timeout)
+        first = me - self.rank
+        self._peers = list(range(first, first + n))  # the group's global ranks
+        # every process takes part in every group's creation
+        groups = [dist.new_group(list(range(g, g + n)), timeout=self._td, backend="gloo")
+                  for g in range(0, world, n)]
+        self.group = groups[me // n]
+        names = [None] * n
+        dist.all_gather_object(names, str(dev), group=self.group)
+        self.devices = [torch.device(x) for x in names]
+        self.stream = torch.cuda.Stream(device=dev) if self.is_cuda else None
+        self.reset_copies()
+
+    def run(self, fn) -> list:
+        """``[fn(rank)]``: this process's shard, in the calling thread, on the
+        comm's CUDA stream, fenced against the caller's current stream on
+        the way in and out; a list in :attr:`shards` order, as
+        :meth:`LocalComm.run` returns."""
+        if not self.is_cuda:
+            return [fn(self.rank)]
+        caller = torch.cuda.current_stream(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self.stream.wait_stream(caller)
+            out = fn(self.rank)
+        caller.wait_stream(self.stream)
+        return [out]
+
+    # ---- plumbing ---------------------------------------------------------------
+    def reset_copies(self) -> None:
+        self.copies = 0
+        self.copies_by: dict[str, int] = {}
+        self.syncs_by: dict[str, int] = {}
+        self.calls_by: dict[str, int] = {}
+        self.host_ms_by: dict[str, float] = {}
+        self.sync_ms_by: dict[str, float] = {}
+        self.wait_ms_by: dict[str, float] = {}
+
+    @property
+    def syncs(self) -> int:
+        return sum(self.syncs_by.values())
+
+    @property
+    def host_ms(self) -> float:
+        return sum(self.host_ms_by.values())
+
+    def _count(self, kind: str, copies: int = 0, syncs: int = 0) -> None:
+        self.copies += copies
+        if copies:
+            self.copies_by[kind] = self.copies_by.get(kind, 0) + copies
+        if syncs:
+            self.syncs_by[kind] = self.syncs_by.get(kind, 0) + syncs
+
+    def _done(self, kind: str, t0: float) -> None:
+        self.calls_by[kind] = self.calls_by.get(kind, 0) + 1
+        self.host_ms_by[kind] = self.host_ms_by.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def _host(self, nbytes: int) -> Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.is_cuda)
+
+    def _down(self, parts: list[list[Tensor]], kind: str, align: bool = False) -> list[Tensor]:
+        """Each list of tensors as one flat uint8 host buffer (their bytes
+        back to back; with ``align`` each at an offset that is a multiple of
+        ``_ALIGN``, so the receiver can view any dtype there).  CUDA tensors
+        are copied into pinned buffers on the current stream, then the host
+        waits for them: one sync for all."""
+        out = []
+        for ts in parts:
+            flat = [_bytes(t) for t in ts]
+            if not self.is_cuda and len(flat) == 1:
+                out.append(flat[0])
+                continue
+            size = _padded if align else int
+            buf = self._host(sum(size(f.numel()) for f in flat))
+            o = 0
+            for f in flat:
+                buf[o:o + f.numel()].copy_(f, non_blocking=self.is_cuda)
+                o += size(f.numel())
+            if self.is_cuda:
+                self._count(kind, copies=len(flat))
+            out.append(buf)
+        if self.is_cuda and out:
+            t0 = time.perf_counter()
+            torch.cuda.current_stream(self.device).synchronize()
+            self.sync_ms_by[kind] = (self.sync_ms_by.get(kind, 0.0)
+                                     + (time.perf_counter() - t0) * 1e3)
+            self._count(kind, syncs=1)
+        return out
+
+    def _up(self, buf: Tensor, kind: str) -> Tensor:
+        """Host bytes onto the device (non-blocking from pinned memory, on
+        the current stream)."""
+        if not self.is_cuda:
+            return buf
+        self._count(kind, copies=1)
+        return buf.to(self.device, non_blocking=True)
+
+    def _waited(self, kind: str, t0: float) -> None:
+        self.wait_ms_by[kind] = self.wait_ms_by.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def _wait(self, works, kind: str) -> None:
+        t0 = time.perf_counter()
+        for w in works:
+            w.wait(self._td)
+        self._waited(kind, t0)
+
+    # ---- collectives ------------------------------------------------------------
+    def ppermutes(self, items: list) -> list:
+        """As :meth:`LocalComm.ppermutes`: ``items`` a list of (tensor, perm),
+        perm a list of (source, destination) ranks; returns per item what
+        this shard received, or None when no shard sends to it."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        me = self.rank
+        out: list = [None] * len(items)
+        sends: dict[int, list] = {}
+        recvs: dict[int, list] = {}
+        for j, (x, perm) in enumerate(items):
+            for s, d in perm:
+                if s == me and d == me:
+                    out[j] = x.detach().clone()
+                elif s == me:
+                    sends.setdefault(d, []).append(x)
+                elif d == me:
+                    recvs.setdefault(s, []).append(j)
+        dsts = sorted(sends)
+        heads = {}
+        for d in dsts:
+            h = torch.zeros((len(sends[d]), _HDR), dtype=torch.int64)
+            for i, x in enumerate(sends[d]):
+                if x.dim() > _MAX_DIMS:
+                    raise ValueError(f"ppermute of a {x.dim()}-d tensor (at most {_MAX_DIMS})")
+                h[i, 0], h[i, 1] = _DTYPES.index(x.dtype), x.dim()
+                h[i, 2:2 + x.dim()] = torch.tensor(x.shape, dtype=torch.int64)
+            heads[d] = h
+        got_h = {s: torch.empty((len(js), _HDR), dtype=torch.int64) for s, js in recvs.items()}
+        g = self.group
+        works = [dist.irecv(got_h[s], src=self._peers[s], group=g, tag=_TAG_HEADER) for s in got_h]
+        works += [dist.isend(heads[d], dst=self._peers[d], group=g, tag=_TAG_HEADER)
+                  for d in dsts]
+        payload = dict(zip(dsts, self._down([sends[d] for d in dsts], "ppermute", align=True)))
+        self._wait(works, "ppermute")
+        shapes = {s: [(_DTYPES[int(r[0])], tuple(int(v) for v in r[2:2 + int(r[1])]))
+                      for r in h] for s, h in got_h.items()}
+        sizes = {s: [math.prod(shape) * dt.itemsize for dt, shape in meta]
+                 for s, meta in shapes.items()}
+        bufs = {s: self._host(sum(_padded(nb) for nb in v)) for s, v in sizes.items()}
+        works = [dist.irecv(bufs[s], src=self._peers[s], group=g, tag=_TAG_PAYLOAD)
+                 for s in bufs]
+        works += [dist.isend(payload[d], dst=self._peers[d], group=g, tag=_TAG_PAYLOAD)
+                  for d in dsts]
+        self._wait(works, "ppermute")
+        for s, js in recvs.items():
+            dev = self._up(bufs[s], "ppermute")
+            o = 0
+            for j, (dt, shape), nb in zip(js, shapes[s], sizes[s]):
+                out[j] = dev[o:o + nb].view(dt).reshape(shape)
+                o += _padded(nb)
+        self._done("ppermute", t0)
+        return out
+
+    def ppermute(self, x: Tensor, perm) -> Tensor | None:
+        return self.ppermutes([(x, perm)])[0]
+
+    def broadcast_host(self, *arrays: np.ndarray) -> list[np.ndarray]:
+        """Host arrays as shard 0 of the stream group holds them: one gloo
+        broadcast of their bytes over the group (host memory only: no
+        staging, no count)."""
+        import torch.distributed as dist
+
+        buf = torch.from_numpy(np.concatenate(
+            [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in arrays]))
+        dist.broadcast(buf, src=self._peers[0], group=self.group)
+        raw, out, o = buf.numpy(), [], 0
+        for a in arrays:
+            out.append(raw[o:o + a.nbytes].view(a.dtype).reshape(a.shape).copy())
+            o += a.nbytes
+        return out
+
+    def _gather(self, x: Tensor, kind: str) -> Tensor:
+        """[n, *x.shape] on the device: every shard's ``x`` in rank order."""
+        import torch.distributed as dist
+
+        (h,) = self._down([[x]], kind)
+        buf = self._host(self.n * h.numel()).view(self.n, -1)
+        t0 = time.perf_counter()
+        dist.all_gather(list(buf.unbind(0)), h, group=self.group)
+        self._waited(kind, t0)
+        return self._up(buf, kind).view(x.dtype).reshape((self.n,) + tuple(x.shape))
+
+    def all_gather(self, x: Tensor) -> Tensor:
+        """[n, *x.shape]: every shard's ``x`` in rank order."""
+        t0 = time.perf_counter()
+        out = self._gather(x, "all_gather")
+        self._done("all_gather", t0)
+        return out
+
+    def all_to_all(self, x: Tensor, split_axis: int, concat_axis: int) -> Tensor:
+        """JAX's tiled ``lax.all_to_all``, as :meth:`LocalComm.all_to_all`:
+        block j of ``x``'s split along ``split_axis`` to shard j; the blocks
+        received concatenated in rank order along ``concat_axis``.  Every
+        shard's ``x`` has the same shape."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        me, n = self.rank, self.n
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} does not "
+                             f"split into {n} blocks")
+        blocks = torch.chunk(x, n, dim=split_axis)
+        (h,) = self._down([list(blocks)], "all_to_all")
+        buf = self._host(h.numel())
+        t1 = time.perf_counter()
+        dist.all_to_all_single(buf, h, group=self.group)
+        self._waited("all_to_all", t1)
+        got = self._up(buf, "all_to_all").view(n, -1)
+        shape = tuple(blocks[0].shape)
+        out = torch.cat([blocks[me] if j == me else got[j].view(x.dtype).reshape(shape)
+                         for j in range(n)], dim=concat_axis)
+        self._done("all_to_all", t0)
+        return out
+
+    def _reduce(self, x: Tensor, op, kind: str) -> Tensor:
+        t0 = time.perf_counter()
+        parts = self._gather(x, kind)
+        acc = parts[0]
+        for j in range(1, self.n):
+            acc = op(acc, parts[j])
+        self._done(kind, t0)
+        return acc
+
+    def psum(self, x: Tensor) -> Tensor:
+        """Elementwise sum over the shards, added in rank order."""
+        return self._reduce(x, torch.add, "psum")
+
+    def pmax(self, x: Tensor) -> Tensor:
+        return self._reduce(x, torch.maximum, "pmax")
+
+    def any(self, x: Tensor) -> Tensor:
+        """Elementwise OR of a bool tensor over the shards."""
+        return self._reduce(x, torch.logical_or, "any")
+

@@ -9,15 +9,24 @@ the prebinned ingest, live-tunable radii and the sequential explore.  The
 confidence grid and the sepclusters warm-start mask shard along z, the
 leading axis; the step of pipeline/step.py runs unchanged on every shard
 with parallel/gridops.ZShardOps as its grid provider, each shard in a
-thread of a parallel/comm.LocalComm with its own CUDA stream.  The state's
-dense grids are per-shard slabs, its scalars are replicated, and the
-step's outputs are replicated: shard 0's are returned.  A prebinned scan's
-packed grid shards with the state: each shard uploads only its z slab.
+thread of a parallel/comm.LocalComm with its own CUDA stream, or in a
+process of its own over a parallel/comm.ProcessComm (one shard a process,
+the collectives over torch.distributed).  The state's dense grids are
+per-shard slabs, its scalars are replicated, and the step's outputs are
+replicated (every shard's equals shard 0's: the detections and scalars
+come from psum'd / pmax'd values and the replicated point-space work), as
+JAX's ``out_specs=P()``: the first shard this process drives returns them.
+A comm's ``shards`` are the shards the calling process drives (all of them
+on a LocalComm, its own on a ProcessComm); every list of per-shard states
+below holds those shards' slabs, and a process builds and holds only
+those.  A prebinned scan's packed grid shards with the state: each shard
+uploads only its z slab.
 
 :func:`shard_state` / :func:`gather_state` carry a dense state (e.g.
 pipeline/state.state_from_numpy of a JAX state's arrays) into the shards
 and back; ``gather_state`` is the port's counterpart of ``np.asarray`` on
-a sharded JAX array.
+a sharded JAX array (over a ProcessComm an all-gather of the slabs, which
+every process of the group calls).
 
 Every output equals the dense step's bit for bit (tests/
 test_torch_grid_step.py, tests/test_torch_grid_exact.py, tests/
@@ -34,9 +43,10 @@ data, so every shard issues the same collectives in the same order for
 every stream, a null-scan stream's skipped raycast included, and the JAX
 step's lockstep reductions over the data axis have no counterpart here.
 ``make_fleet_grid_mesh`` has no function of its own: its "axes >= 1" rule
-is ``LocalComm``'s ``n >= 1``, and its "enough devices" rule is that the
+is the comm's ``n >= 1``, and its "enough devices" rule is that the
 process count divides ``n_streams`` (runtime/fleet.py: each process holds
-one block of streams, its grid shards on its own ``LocalComm``).
+one block of streams, its grid shards on its own ``LocalComm``, or one
+grid shard of its stream group's ``ProcessComm``).
 :func:`fleet_grid_state_to_numpy` / :func:`fleet_grid_state_from_numpy`
 carry the 2-D state to and from JAX's layout (every grid field ``[B, nz,
 ny, nx]``, ``step`` ``[B]``, the scalars per stream).
@@ -86,29 +96,42 @@ def _shard(t: torch.Tensor, i: int, n: int, dev) -> torch.Tensor:
     return t[i * nzl:(i + 1) * nzl].to(dev, copy=True)
 
 
+def spans_processes(comm) -> bool:
+    """Whether ``comm``'s shards lie in other processes too (a ProcessComm)."""
+    return len(comm.shards) < comm.n
+
+
 def shard_state(state: VoFODState, comm) -> list[VoFODState]:
-    """The dense ``state`` as one state per shard of ``comm``: the z slabs of
-    grid and safe, copies of the scalars, on each shard's device."""
+    """The dense ``state`` as one state per shard this process drives
+    (``comm.shards``): the z slabs of grid and safe, copies of the scalars,
+    on each shard's device."""
     n = comm.n
     if state.grid.shape[0] % n:
         raise ValueError(f"grid nz={state.grid.shape[0]} not divisible by {n} shards")
     return [
         VoFODState(
-            grid=_shard(state.grid, i, n, dev),
-            safe=_shard(state.safe, i, n, dev),
-            det_counter=state.det_counter.to(dev, copy=True),
+            grid=_shard(state.grid, i, n, comm.devices[i]),
+            safe=_shard(state.safe, i, n, comm.devices[i]),
+            det_counter=state.det_counter.to(comm.devices[i], copy=True),
             step=state.step,
-            sure_bg_sufficient=state.sure_bg_sufficient.to(dev, copy=True),
-            bg_sufficient=state.bg_sufficient.to(dev, copy=True),
+            sure_bg_sufficient=state.sure_bg_sufficient.to(comm.devices[i], copy=True),
+            bg_sufficient=state.bg_sufficient.to(comm.devices[i], copy=True),
         )
-        for i, dev in enumerate(comm.devices)
+        for i in comm.shards
     ]
 
 
-def gather_state(states: list[VoFODState]) -> VoFODState:
-    """The inverse of :func:`shard_state`: one dense state on shard 0's
-    device (the slabs concatenated, shard 0's scalars)."""
+def gather_state(states: list[VoFODState], comm=None) -> VoFODState:
+    """The inverse of :func:`shard_state`: one dense state on the first
+    slab's device (the slabs concatenated, the first slab's scalars).  The
+    slabs of every shard: a list of them all, or, with a ``comm`` that
+    spans processes, this process's slab, the others' gathered over the
+    group (a collective: every process of the group calls it, and each
+    gets the whole state)."""
     s0 = states[0]
+    if comm is not None and spans_processes(comm):
+        grid, safe = comm.run(lambda rank: (comm.all_gather(s0.grid), comm.all_gather(s0.safe)))[0]
+        return dataclasses.replace(s0, grid=grid.flatten(0, 1), safe=safe.flatten(0, 1))
     dev = s0.grid.device
     return dataclasses.replace(
         s0,
@@ -118,9 +141,14 @@ def gather_state(states: list[VoFODState]) -> VoFODState:
 
 
 def init_grid_sharded_state(cfg: VoFODConfig, dyn: DynParams, comm) -> list[VoFODState]:
-    """Fresh state (pipeline/state.init_state) with the dense grids sharded
-    over ``comm``'s shards."""
-    return shard_state(init_state(cfg, dyn, device=comm.devices[0]), comm)
+    """Fresh state (pipeline/state.init_state) as the z slabs of the shards
+    this process drives, each built on its shard's device alone: no device
+    holds the whole grid."""
+    nz, ny, nx = cfg.grid_shape
+    if nz % comm.n:
+        raise ValueError(f"grid nz={nz} not divisible by {comm.n} shards")
+    return [init_state(cfg, dyn, device=comm.devices[i], shape=(nz // comm.n, ny, nx))
+            for i in comm.shards]
 
 
 def _scan_on(scan, dev):
@@ -148,10 +176,12 @@ def _slab_on(scan: PrebinnedScan, z0: int, nzl: int, dev):
 
 def make_grid_sharded_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
                            zcone_mode: str = "pipelined", **step_kw):
-    """The grid-sharded step over ``comm`` (a parallel/comm.LocalComm):
-    ``step(states, scan, dyn, upload_events=None) -> (states, StepOutput)``,
-    with ``states`` one VoFODState per shard (:func:`shard_state`,
-    :func:`init_grid_sharded_state`).  ``step_kw``: the make_step_fn options
+    """The grid-sharded step over ``comm`` (a parallel/comm.LocalComm, or a
+    ProcessComm: one shard a process): ``step(states, scan, dyn,
+    upload_events=None) -> (states, StepOutput)``, with ``states`` one
+    VoFODState per shard this process drives (:func:`shard_state`,
+    :func:`init_grid_sharded_state`); every process of a ProcessComm calls
+    it with the same scan.  ``step_kw``: the make_step_fn options
     (raycast_mode "sweep", "exact" or "off", raycast_every, mask,
     raycast_gate, frontend_mode "raw" or "prebinned"); ``zcone_mode``:
     "pipelined" or "transpose" (K15b-4b).  The config may set every mode the
@@ -172,9 +202,10 @@ def make_grid_sharded_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
     step_shard = _shard_step(cfg, lut, comm, zcone_mode, step_kw)
 
     def step(states: list[VoFODState], scan, dyn: DynParams, upload_events: list | None = None):
-        if len(states) != comm.n:
-            raise ValueError(f"{len(states)} shard states for {comm.n} shards")
-        out = comm.run(lambda rank: step_shard(rank, states[rank], scan, dyn))
+        if len(states) != len(comm.shards):
+            raise ValueError(f"{len(states)} shard states for {len(comm.shards)} shards")
+        local = dict(zip(comm.shards, states))
+        out = comm.run(lambda rank: step_shard(rank, local[rank], scan, dyn))
         if upload_events is not None:
             upload_events.extend(ev for _, _, ev in out if ev is not None)
         return [s for s, _, _ in out], out[0][1]
@@ -191,7 +222,7 @@ def _shard_step(cfg: VoFODConfig, lut: XyzLut, comm, zcone_mode: str, step_kw: d
     validate_grid_sharding(cfg, comm.n)
     ops = ZShardOps(comm, comm.n, zcone_mode=zcone_mode)
     steps = {dev: make_step_fn(cfg, lut, device=dev, ops=ops, **step_kw)
-             for dev in set(comm.devices)}
+             for dev in {comm.devices[r] for r in comm.shards}}
     prebinned = step_kw.get("frontend_mode") == "prebinned"
     nzl = cfg.grid_shape[0] // comm.n
 
@@ -215,8 +246,8 @@ def _shard_step(cfg: VoFODConfig, lut: XyzLut, comm, zcone_mode: str, step_kw: d
 
 def init_fleet_grid_state(cfg: VoFODConfig, dyn: DynParams, batch: int,
                           comm) -> list[list[VoFODState]]:
-    """``batch`` fresh detector states, each one list of per-shard slabs
-    over ``comm`` (:func:`init_grid_sharded_state`)."""
+    """``batch`` fresh detector states, each one list of the slabs of the
+    shards this process drives (:func:`init_grid_sharded_state`)."""
     return [init_grid_sharded_state(cfg, dyn, comm) for _ in range(batch)]
 
 
@@ -224,11 +255,13 @@ def make_fleet_grid_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
                          zcone_mode: str = "pipelined", **step_kw):
     """Both scaling axes in one step: ``step(states, scans, dyn,
     upload_events=None) -> (states, outs)`` with ``states`` one list of
-    per-shard slabs a stream (:func:`init_fleet_grid_state`) and ``outs[b]``
-    stream b's StepOutput (shard 0's).  One ``comm.run`` a tick: each
-    shard's thread steps its slab of every stream, in stream order, with
-    the body of :func:`make_grid_sharded_step`, so each stream's result is
-    the 1-D grid step's bit for bit.
+    per-shard slabs a stream, the shards this process drives
+    (:func:`init_fleet_grid_state`), and ``outs[b]`` stream b's StepOutput
+    (replicated).  One ``comm.run`` a tick: each shard steps its slab of
+    every stream, in stream order, with the body of
+    :func:`make_grid_sharded_step`, so each stream's result is the 1-D grid
+    step's bit for bit; over a ProcessComm every process of the group
+    steps the same streams' scans.
 
     ``scans``: a ScanInput of stacked streams (ranges and intensity ``[B,
     H*W]``, pose a host ``[B, 4, 4]``), replicated to every shard; or, with
@@ -248,8 +281,8 @@ def make_fleet_grid_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
     def step(states: list[list[VoFODState]], scans, dyn: DynParams,
              upload_events: list | None = None):
         b = len(states)
-        if any(len(s) != comm.n for s in states):
-            raise ValueError(f"every stream needs {comm.n} shard states, got "
+        if any(len(s) != len(comm.shards) for s in states):
+            raise ValueError(f"every stream needs {len(comm.shards)} shard states, got "
                              f"{[len(s) for s in states]}")
         if prebinned:
             per_stream = list(scans)
@@ -264,24 +297,30 @@ def make_fleet_grid_step(cfg: VoFODConfig, lut: XyzLut, comm, *,
                           for r, i, p in zip(scans.ranges_mm, scans.intensity, scans.pose)]
 
         def shard(rank: int):
-            got = [step_shard(rank, states[s][rank], per_stream[s], dyn) for s in range(b)]
+            k = comm.shards.index(rank)
+            got = [step_shard(rank, states[s][k], per_stream[s], dyn) for s in range(b)]
             return ([g[0] for g in got], [g[1] for g in got],
                     [g[2] for g in got if g[2] is not None])
 
         res = comm.run(shard)
         if upload_events is not None:
             upload_events.extend(ev for _, _, evs in res for ev in evs)
-        return [[res[r][0][s] for r in range(comm.n)] for s in range(b)], res[0][1]
+        return [[res[k][0][s] for k in range(len(res))] for s in range(b)], res[0][1]
 
     return step
 
 
-def fleet_grid_state_to_numpy(states: Sequence[Sequence[VoFODState]]) -> dict[str, np.ndarray]:
+def fleet_grid_state_to_numpy(states: Sequence[Sequence[VoFODState]],
+                              comm=None) -> dict[str, np.ndarray]:
     """The 2-D state in JAX's layout: every field stacked over the streams
     (grid and safe ``[B, nz, ny, nx]``, each stream's slabs joined on the
-    host; ``step`` int32 ``[B]``; the scalars shard 0's)."""
+    host; ``step`` int32 ``[B]``; the scalars the first slab's).  With a
+    ``comm`` that spans processes each stream's slabs are gathered over the
+    group first (:func:`gather_state`, a collective)."""
     out: dict[str, list] = {f.name: [] for f in dataclasses.fields(VoFODState)}
     for shards in states:
+        if comm is not None and spans_processes(comm):
+            shards = [gather_state(shards, comm)]
         per = [state_to_numpy(s) for s in shards]
         for name in out:
             out[name].append(np.concatenate([p[name] for p in per])
@@ -292,8 +331,8 @@ def fleet_grid_state_to_numpy(states: Sequence[Sequence[VoFODState]]) -> dict[st
 def fleet_grid_state_from_numpy(arrays: Mapping[str, np.ndarray],
                                 comm) -> list[list[VoFODState]]:
     """The 2-D state from JAX's layout (e.g. a JAX 2-D fleet's
-    ``jax.device_get(state)._asdict()``): stream b's z slabs on ``comm``'s
-    shards, each shard's slab uploaded from the host alone."""
+    ``jax.device_get(state)._asdict()``): stream b's z slabs of the shards
+    this process drives, each shard's slab uploaded from the host alone."""
     grid = np.asarray(arrays["grid"])
     b, nz = grid.shape[0], grid.shape[1]
     if nz % comm.n:
@@ -304,6 +343,7 @@ def fleet_grid_state_from_numpy(arrays: Mapping[str, np.ndarray],
         row = {k: np.asarray(v)[s] for k, v in arrays.items()}
         # copies: the fleet writes its grids in place (load_apriori_map)
         out.append([state_from_numpy({**row, "grid": row["grid"][i * nzl:(i + 1) * nzl].copy(),
-                                      "safe": row["safe"][i * nzl:(i + 1) * nzl].copy()}, dev)
-                    for i, dev in enumerate(comm.devices)])
+                                      "safe": row["safe"][i * nzl:(i + 1) * nzl].copy()},
+                                     comm.devices[i])
+                    for i in comm.shards])
     return out

@@ -10,9 +10,10 @@ small set of primitives below, so the same stage code runs in two layouts:
   (the dense step's launches and results do not change).
 
 * :class:`ZShardOps`: the grid is sharded along z over the shards of a
-  parallel/comm.LocalComm and each method runs inside ``LocalComm.run`` on
-  the shard's local (nz/n, ny, nx) slab.  Stencils read slabs extended by a
-  halo of the neighbours' rows (K15b-1), the explore's demotions fold back
+  parallel/comm.LocalComm (or a ProcessComm, one shard a process) and each
+  method runs inside the comm's ``run`` on the shard's local (nz/n, ny,
+  nx) slab.  Stencils read slabs extended by a halo of the neighbours' rows
+  (K15b-1), the explore's demotions fold back
   onto their owners (K15b-2), compactions merge per-shard lists (z is the
   leading axis, so shard-major concatenation keeps ids ascending), lookups
   and sums reduce over the shards, and the sweep raycast runs lateral-
@@ -355,7 +356,9 @@ def sharded_sweeps(ops, init: Tensor, occ: Tensor, ball, n: int, until_fixpoint:
     bufs = kernels.sweep_buffers(init, halo)
     n_launches = -(-n // k)
     scratch = kernels.sweeps_scratch(shape, n, n_launches, init.device)
-    share = ops.comm.devices.count(ops.comm.device)
+    # the shards that share this card's residency: those this process drives
+    # on it (other processes' contexts are time-sliced, never co-resident)
+    share = sum(ops.comm.devices[r] == ops.comm.device for r in ops.comm.shards)
     flags, gate, cur = [], None, 0
     for b in range(n_launches):
         i0 = b * k
@@ -378,7 +381,8 @@ def sharded_sweeps(ops, init: Tensor, occ: Tensor, ball, n: int, until_fixpoint:
 
 class ZShardOps:
     """Z-sharded primitives over the ``n`` shards of ``comm`` (a
-    parallel/comm.LocalComm); every method runs inside ``comm.run`` with the
+    parallel/comm.LocalComm, or a ProcessComm: one shard a process); every
+    method runs inside ``comm.run`` with the
     dense grid arguments being the calling shard's (nz/n, ny, nx) slab.
 
     zcone_mode: "pipelined" (the z cones run sweep-sharded, n rounds), the

@@ -34,11 +34,13 @@ class VoFODState:
     bg_sufficient: Tensor  # bool (ref m_background_pts_sufficient)
 
 
-def init_state(cfg: VoFODConfig, dyn: DynParams | None = None, *, device) -> VoFODState:
+def init_state(cfg: VoFODConfig, dyn: DynParams | None = None, *, device,
+               shape: tuple[int, int, int] | None = None) -> VoFODState:
     """Fresh state — the ~reset service (ref reset(), vofod_nodelet.cpp:1610-1632):
-    every voxel starts at scores/init."""
+    every voxel starts at scores/init.  ``shape``: the grid's (default
+    ``cfg.grid_shape``; a z slab's for the grid-sharded step)."""
     dyn = dyn or DynParams()
-    shape = cfg.grid_shape
+    shape = cfg.grid_shape if shape is None else tuple(shape)
     return VoFODState(
         grid=torch.full(shape, float(dyn.score_init), dtype=torch.float32, device=device),
         safe=torch.zeros(shape, dtype=torch.bool, device=device),

@@ -32,6 +32,16 @@ scalars are shard 0's, as in ``gather_state``); a ``streams`` or
 (the 1-shard fleet) or a list of z slabs of any split that divides nz
 (the 2-D fleet), either way round.
 
+Across processes (parallel/comm.ProcessComm: one z slab a process;
+runtime/fleet.py: a block of streams a process or a stream group) both are
+collectives over the default torch.distributed group: pass the slabs'
+``comm`` and the global ids of this process's ``streams``.  ``save_state``
+writes each process's own ``stream_SSS_shard_NNN.npz`` / ``shard_NNN.npz``
+into one directory, and process 0 writes the manifest once every process
+has written; ``restore_state`` reads only the files that overlap the
+process's slabs.  Such a checkpoint is the same directory a single process
+writes, so either restores onto the other's layout.
+
 ``AsyncSaver.save`` enqueues every tensor's copy into pinned host memory
 on the caller's current CUDA stream before it returns, so work issued
 later on that stream (the next scans' steps, the node's in-place writes
@@ -136,8 +146,42 @@ def _savez(path: str, arrays: dict[str, np.ndarray]) -> None:
                 f.write(memoryview(a.reshape(-1)).cast("B") if a.ndim else a.tobytes())
 
 
+def _write_files(work: str, layout: str, keys: list[tuple], staged: list[dict],
+                 z0s: list[int] | None) -> list[dict]:
+    """Write each staged state's file into ``work``; returns the manifest's
+    entries.  ``z0s``: each slab's first global z plane (None: the slabs of
+    a stream follow each other from plane 0)."""
+    files, z = [], {}
+    for i, ((stream, shard), host) in enumerate(zip(keys, staged)):
+        arrays = {k: (v if k == "step" else v.numpy()) for k, v in host.items()}
+        name = _FILE[layout].format(stream, shard)
+        _savez(os.path.join(work, name), arrays)
+        entry = {"name": name}
+        if layout in _PER_STREAM:
+            entry["stream"] = stream
+        if layout != "streams":
+            z0 = z.get(stream, 0) if z0s is None else z0s[i]
+            nzl = int(arrays["grid"].shape[0])
+            entry.update(z0=z0, z1=z0 + nzl)
+            z[stream] = z0 + nzl
+        files.append(entry)
+    return files
+
+
+def _manifest(layout: str, files: list[dict], plane: tuple) -> dict:
+    """The manifest of ``files`` (every process's entries), ``plane`` a
+    slab's grid shape."""
+    files = sorted(files, key=lambda e: (e.get("stream", 0), e.get("z0", 0)))
+    nz = int(plane[0]) if layout == "streams" else max(e["z1"] for e in files)
+    m = {"format": FORMAT, "version": VERSION, "layout": layout,
+         "grid_shape": [nz, int(plane[1]), int(plane[2])], "files": files}
+    if layout in _PER_STREAM:
+        m["streams"] = files[-1]["stream"] + 1
+    return m
+
+
 def _write(path: str, layout: str, keys: list[tuple], staged: list[dict], events: list,
-           overwrite: bool) -> None:
+           overwrite: bool, z0s: list[int] | None = None) -> None:
     for ev in events:
         ev.synchronize()
     path = os.path.abspath(path)
@@ -147,46 +191,123 @@ def _write(path: str, layout: str, keys: list[tuple], staged: list[dict], events
     os.makedirs(parent, exist_ok=True)
     work = tempfile.mkdtemp(prefix=".ckpt-", dir=parent)
     try:
-        files, z = [], {}
-        for (stream, shard), host in zip(keys, staged):
-            arrays = {k: (v if k == "step" else v.numpy()) for k, v in host.items()}
-            name = _FILE[layout].format(stream, shard)
-            _savez(os.path.join(work, name), arrays)
-            entry = {"name": name}
-            if layout == "streams_zshards":
-                entry["stream"] = stream
-            if layout != "streams":
-                z0, nzl = z.get(stream, 0), int(arrays["grid"].shape[0])
-                entry.update(z0=z0, z1=z0 + nzl)
-                z[stream] = z0 + nzl
-            files.append(entry)
-        g = staged[0]["grid"].shape
-        nz = int(g[0]) if layout == "streams" else z[0]
-        manifest = {"format": FORMAT, "version": VERSION, "layout": layout,
-                    "grid_shape": [nz, int(g[1]), int(g[2])], "files": files}
-        if layout in _PER_STREAM:
-            manifest["streams"] = keys[-1][0] + 1
-        with open(os.path.join(work, MANIFEST), "w") as f:
-            json.dump(manifest, f, indent=1)
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.replace(work, path)
+        files = _write_files(work, layout, keys, staged, z0s)
+        _finish(path, work, _manifest(layout, files, staged[0]["grid"].shape))
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
 
 
-def save_state(path: str, state, *, overwrite: bool = True, layout: str | None = None) -> None:
+def _finish(path: str, work: str, manifest: dict) -> None:
+    """Write the manifest into ``work`` and move it to ``path``."""
+    with open(os.path.join(work, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.replace(work, path)
+
+
+def _all_ok(dist, what):
+    """``what`` of every process (an all-gather of objects); raises on every
+    process if one of them holds an exception."""
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, what)
+    bad = [(r, v) for r, v in enumerate(every) if isinstance(v, BaseException)]
+    if bad:
+        raise RuntimeError(f"checkpoint: process {bad[0][0]} failed: {bad[0][1]!r}")
+    return every
+
+
+def _write_collective(path: str, layout: str, keys: list[tuple], staged: list[dict],
+                      events: list, z0s: list[int] | None, overwrite: bool) -> None:
+    """:func:`_write` across the processes of the default group: process 0
+    makes the work directory, every process writes its files into it, and
+    process 0 writes the manifest of them all and moves it into place; every
+    process returns once it is there."""
+    import torch.distributed as dist
+
+    path = os.path.abspath(path)
+    work = None
+    if dist.get_rank() == 0:
+        try:
+            if os.path.exists(path) and not overwrite:
+                raise FileExistsError(path)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            work = tempfile.mkdtemp(prefix=".ckpt-", dir=os.path.dirname(path))
+        except OSError as e:
+            work = e
+    work = _all_ok(dist, work)[0]
+    try:
+        for ev in events:
+            ev.synchronize()
+        files = _write_files(work, layout, keys, staged, z0s)
+    except Exception as e:  # noqa: BLE001 — raised on every process below
+        files = e
+    try:
+        every = _all_ok(dist, files)
+        done = None
+        if dist.get_rank() == 0:
+            try:
+                _finish(path, work, _manifest(layout, [e for f in every for e in f],
+                                              staged[0]["grid"].shape))
+            except OSError as e:
+                done = e
+        _all_ok(dist, done)
+    except BaseException:
+        if dist.get_rank() == 0:
+            shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def _placed(layout: str, states: list[VoFODState], keys: list[tuple], comm, streams):
+    """The keys of a process's part of a checkpoint (global stream ids and
+    shard indices) and each slab's first global z plane (None: one process
+    holds every slab)."""
+    if streams is not None:
+        streams = list(streams)
+        if layout not in _PER_STREAM or len(streams) != keys[-1][0] + 1:
+            raise ValueError(f"streams={streams}: the state holds {keys[-1][0] + 1} streams of "
+                             f"a {layout!r} layout")
+    if comm is not None and layout not in ("zshards", "streams_zshards"):
+        raise ValueError(f"comm= places z slabs; the {layout!r} layout has none")
+    shards = comm.shards if comm is not None else None
+    out, z0s = [], []
+    for (b, k), s in zip(keys, states):
+        k = k if shards is None else shards[k]
+        out.append((b if streams is None else streams[b], k))
+        z0s.append(k * int(s.grid.shape[0]))
+    return out, (z0s if comm is not None else None)
+
+
+def _collective(comm, streams) -> bool:
+    """Whether a save / restore with these arguments spans processes."""
+    import torch.distributed as dist
+
+    return ((comm is not None or streams is not None) and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1)
+
+
+def save_state(path: str, state, *, overwrite: bool = True, layout: str | None = None,
+               comm=None, streams=None) -> None:
     """Write ``state`` as a checkpoint directory.
 
     ``state``: a ``VoFODState`` (dense), or a list of them with
     ``layout="zshards"`` (the grid-sharded step's slabs, shard order) or
     ``layout="streams"`` (a fleet's streams), or a list of such slab lists
     with ``layout="streams_zshards"`` (the 2-D fleet's streams).  Each
-    tensor is read back from its own device."""
+    tensor is read back from its own device.
+
+    In a process group: ``comm`` the slabs' comm (their shards are
+    ``comm.shards``), ``streams`` the global ids of this process's streams
+    (a fleet's ``local_streams``); then every process of the default group
+    calls it, each writing its own files, and process 0 the manifest."""
     layout, states, keys = _states_of(state, layout)
+    keys, z0s = _placed(layout, states, keys, comm, streams)
     staged, events = _stage(states)
-    _write(path, layout, keys, staged, events, overwrite)
+    if _collective(comm, streams):
+        _write_collective(path, layout, keys, staged, events, z0s, overwrite)
+    else:
+        _write(path, layout, keys, staged, events, overwrite, z0s)
 
 
 def read_manifest(path: str) -> dict:
@@ -227,12 +348,19 @@ def _scalars(arrays: dict, like: VoFODState) -> dict:
     return out
 
 
-def _restore_slabs(path: str, m: dict, likes: list[VoFODState]) -> list[VoFODState]:
+def _restore_slabs(path: str, m: dict, likes: list[VoFODState],
+                   z0s: list[int] | None = None) -> list[VoFODState]:
     """Fill each target z slab from the files of ``m`` (one stream's
-    grid_shape and files) that overlap it."""
+    grid_shape and files) that overlap it.  ``z0s``: each slab's first
+    global plane (None: the slabs tile the grid from plane 0)."""
     nz, ny, nx = m["grid_shape"]
-    total = sum(int(s.grid.shape[0]) for s in likes)
-    if total != nz or any(tuple(s.grid.shape[1:]) != (ny, nx) for s in likes):
+    heights = [int(s.grid.shape[0]) for s in likes]
+    if z0s is None:
+        z0s = [sum(heights[:i]) for i in range(len(likes))]
+        whole = sum(heights) == nz
+    else:
+        whole = all(0 <= z0 and z0 + h <= nz for z0, h in zip(z0s, heights))
+    if not whole or any(tuple(s.grid.shape[1:]) != (ny, nx) for s in likes):
         raise ValueError(f"checkpoint grid {tuple(m['grid_shape'])} does not fit the target's "
                          f"slabs {[tuple(s.grid.shape) for s in likes]}")
     cache: dict[int, dict] = {}
@@ -242,9 +370,11 @@ def _restore_slabs(path: str, m: dict, likes: list[VoFODState]) -> list[VoFODSta
             cache[i] = _load(path, m["files"][i])
         return cache[i]
 
-    out, t0 = [], 0
-    for like in likes:
+    out = []
+    for like, t0 in zip(likes, z0s):
         t1 = t0 + int(like.grid.shape[0])
+        # the scalars are every file's: take them from one this slab reads
+        first = None
         dev = like.grid.device
         parts = {name: torch.empty(like.grid.shape, dtype=getattr(like, name).dtype, device=dev)
                  for name in ("grid", "safe")}
@@ -252,13 +382,13 @@ def _restore_slabs(path: str, m: dict, likes: list[VoFODState]) -> list[VoFODSta
             a, b = max(t0, e["z0"]), min(t1, e["z1"])
             if a >= b:
                 continue
+            first = i if first is None else first
             src = arrays(i)
             for name, dst in parts.items():
                 piece = src[name][a - e["z0"]:b - e["z0"]]
                 dst[a - t0:b - t0].copy_(_host_tensor(piece, dst[a - t0:b - t0], name))
         out.append(VoFODState(grid=parts["grid"], safe=parts["safe"],
-                              **_scalars(arrays(0), like)))
-        t0 = t1
+                              **_scalars(arrays(first), like)))
     return out
 
 
@@ -275,31 +405,50 @@ def _stream_parts(m: dict) -> list[dict]:
     return [m]
 
 
-def restore_state(path: str, like):
+def restore_state(path: str, like, *, comm=None, streams=None):
     """Restore a checkpoint onto the layout and devices of ``like``: a
     ``VoFODState`` (dense), a list of them (z slabs in shard order; a
     fleet's streams for a ``streams`` or ``streams_zshards`` checkpoint),
     or a list of z-slab lists (the 2-D fleet's streams), e.g.
     ``init_state`` / ``init_grid_sharded_state`` / ``init_batched_state``
-    / ``init_fleet_grid_state``.  Returns a state of ``like``'s form."""
+    / ``init_fleet_grid_state``.  Returns a state of ``like``'s form.
+
+    In a process group, as :func:`save_state`: ``comm`` the target slabs'
+    comm (slab k is shard ``comm.shards[k]``), ``streams`` the global ids of
+    the target's streams; only the files that overlap them are read."""
     path = os.path.abspath(path)
     m = read_manifest(path)
     parts = _stream_parts(m)
-    if isinstance(like, VoFODState):
-        if len(parts) != 1:
-            raise ValueError(f"a checkpoint of {len(parts)} streams restores onto as many "
-                             "stream states")
-        return _restore_slabs(path, parts[0], [like])[0]
-    likes = list(like)
+    dense = isinstance(like, VoFODState)
+    likes = [like] if dense else list(like)
     nested = bool(likes) and not isinstance(likes[0], VoFODState)
-    if not nested and m["layout"] not in _PER_STREAM:
-        return _restore_slabs(path, parts[0], likes)
-    if len(likes) != len(parts):
-        raise ValueError(f"a checkpoint of {len(parts)} streams restores onto as many "
-                         f"stream states, not {len(likes)}")
+    one_stream = not (dense or nested or m["layout"] in _PER_STREAM)
+    # the target as one list of z slabs a stream
+    rows = [list(s) for s in likes] if nested else [likes] if one_stream else \
+        [[s] for s in likes]
+    if streams is None:
+        streams = range(len(rows))
+        if len(rows) != len(parts):
+            raise ValueError(f"a checkpoint of {len(parts)} streams restores onto as many "
+                             f"stream states, not {len(rows)}")
+    streams = list(streams)
+    if len(streams) != len(rows) or any(not 0 <= b < len(parts) for b in streams):
+        raise ValueError(f"streams={streams} for {len(rows)} target streams of a checkpoint "
+                         f"of {len(parts)} streams")
+    out = []
+    for b, row in zip(streams, rows):
+        z0s = None  # any split that tiles the grid
+        if comm is not None:
+            if int(row[0].grid.shape[0]) * comm.n != parts[b]["grid_shape"][0]:
+                raise ValueError(f"checkpoint grid {tuple(parts[b]['grid_shape'])} does not "
+                                 f"split into {comm.n} slabs of {tuple(row[0].grid.shape)}")
+            z0s = [k * int(s.grid.shape[0]) for k, s in zip(comm.shards, row)]
+        out.append(_restore_slabs(path, parts[b], row, z0s))
+    if dense:
+        return out[0][0]
     if nested:
-        return [_restore_slabs(path, part, list(s)) for part, s in zip(parts, likes)]
-    return [_restore_slabs(path, part, [s])[0] for part, s in zip(parts, likes)]
+        return out
+    return out[0] if one_stream else [r[0] for r in out]
 
 
 class AsyncSaver:

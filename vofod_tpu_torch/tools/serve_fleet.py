@@ -6,8 +6,12 @@ SPSC rings (io/scan_queue.py — the reference's subscriber-queue
 back-pressure, vofod_nodelet.cpp:1113-1122), and a lockstep consumer that
 pops the freshest frame of every stream each tick and runs the streams'
 steps.  Every tick's scan -> detections latency (the stacked upload to the
-host messages) is recorded; ``--json`` prints it per tick and a final
-percentile summary (p50 / p95 / p99) either way.
+host messages) is recorded; ``--json`` prints it per tick, with the frame
+each local stream stepped (its index among the frames its source produced,
+so a recording of M scans looped gives scan ``k % M``), and a final
+percentile summary (p50 / p95 / p99) either way.  ``--load-state`` resumes
+the fleet from a checkpoint directory (runtime/checkpoint.py), each process
+reading its own streams' slabs.
 
 ``--grid-shards N`` z-shards every stream's grid over N shards of the
 device (the 2-D streams x grid fleet; nz must split into shards of at
@@ -19,7 +23,11 @@ only its own block of streams, and npz recordings are assigned by local
 index.  Every process runs the same number of ticks: ``--ticks`` is
 required, ticks are paced at ``--rate``, and a process whose rings hold
 no fresh frame re-dispatches each stream's freshest frame seen rather than
-skipping the tick.
+skipping the tick.  ``--grid-shards-per-process 1`` (with ``--grid-shards N
+--coordinator``) puts each grid shard in a process of its own: the P
+processes form P / N stream groups, each serving a block of the streams
+(runtime/fleet.py); every process of a group steps the group's streams,
+and its grid shard 0 alone prints their detections.
 
 ``--streams auto`` is refused with exit code 2: it waits for a stream
 knee measured by the port's bench (the JAX tool's constants are a TPU
@@ -34,15 +42,25 @@ relay's).
   # process 0 of 2 (run process 1 beside it with --process-id 1):
   python -m vofod_tpu_torch.tools.serve_fleet --streams 4 --sim --ticks 50 \\
       --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+
+  # 2 streams, each grid over 3 processes of one shard (process ids 0-2):
+  python -m vofod_tpu_torch.tools.serve_fleet --streams 2 --sim --ticks 50 \\
+      --grid-shards 3 --grid-shards-per-process 1 \\
+      --coordinator 127.0.0.1:29500 --num-processes 3 --process-id 0
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
 import threading
 import time
+
+# --small-capacities: the capacities of a small grid's test runs
+SMALL_CAPACITIES = dict(max_clusters=8, max_far_voxels=512, max_queries=64, explore_submap=16,
+                        confidence_submap=8)
 
 
 def main(argv=None):
@@ -67,9 +85,17 @@ def main(argv=None):
     ap.add_argument("--sensor", default="", help="sensors/*.yaml")
     ap.add_argument("--map", dest="map_yaml", default="",
                     help="apriori_maps/*.yaml")
+    ap.add_argument("--load-state", default="",
+                    help="checkpoint directory (runtime/checkpoint.py) to resume the fleet "
+                    "from: stream b from the checkpoint's stream b (a dense or zshards "
+                    "checkpoint is one stream's)")
     ap.add_argument("--grid-shards", type=int, default=1,
                     help="z-shard every stream's grid over this many shards of the device "
                     "(the 2-D streams x grid fleet; nz must be divisible by it)")
+    ap.add_argument("--grid-shards-per-process", type=int, default=None,
+                    help="the grid shards each process holds: --grid-shards (the default: "
+                    "every shard in one process) or 1 (one shard a process, a stream's grid "
+                    "spanning --grid-shards processes of the --coordinator group)")
     ap.add_argument("--small-capacities", action="store_true")
     ap.add_argument("--json", action="store_true", help="JSON lines output")
     ap.add_argument("--device", default="cuda",
@@ -99,6 +125,17 @@ def main(argv=None):
         if args.num_processes < 1 or not 0 <= args.process_id < args.num_processes:
             ap.error("--coordinator needs --num-processes P >= 1 and --process-id in "
                      "[0, P) (torch.distributed world size and rank)")
+    per = args.grid_shards_per_process
+    if per is not None and per not in (args.grid_shards, 1):
+        ap.error(f"--grid-shards-per-process must be --grid-shards ({args.grid_shards}) or 1, "
+                 f"got {per}")
+    if per == 1 and args.grid_shards > 1:
+        if not multi:
+            ap.error("--grid-shards-per-process 1 spans a stream's grid over processes: it "
+                     "needs --coordinator")
+        if args.num_processes % args.grid_shards:
+            ap.error(f"--grid-shards-per-process 1: --num-processes {args.num_processes} does "
+                     f"not form stream groups of --grid-shards {args.grid_shards} processes")
 
     from vofod_tpu_torch.config import DynParams, VoFODConfig, load_config
 
@@ -109,10 +146,7 @@ def main(argv=None):
     if args.small_capacities:
         import dataclasses
 
-        cfg = dataclasses.replace(
-            cfg, max_clusters=8, max_far_voxels=512, max_queries=64,
-            explore_submap=16, confidence_submap=8,
-        )
+        cfg = dataclasses.replace(cfg, **SMALL_CAPACITIES)
     if args.grid_shards != 1:
         from vofod_tpu_torch.parallel.grid_step import validate_grid_sharding
 
@@ -142,11 +176,23 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
 
     from vofod_tpu_torch.io.scan_queue import ScanQueue
     from vofod_tpu_torch.io.scan_source import Scene, hover_pose, load_scans_npz, render_scan
+    from vofod_tpu_torch.parallel.grid_step import spans_processes
     from vofod_tpu_torch.runtime.fleet import FleetVoFOD
 
     fleet = FleetVoFOD(cfg, dyn, n_streams=int(args.streams) or None, device=args.device,
-                       grid_shards=args.grid_shards)
+                       grid_shards=args.grid_shards,
+                       grid_shards_per_process=args.grid_shards_per_process)
     local = fleet.local_streams
+    if args.load_state:
+        from vofod_tpu_torch.runtime.checkpoint import restore_state
+
+        # each process reads the files of its own streams and slabs
+        fleet.state = restore_state(args.load_state, fleet.state, comm=fleet.comm,
+                                    streams=local)
+    # a stream group's processes step the same streams: its grid shard 0
+    # alone reports their detections
+    reports = fleet.comm is None or fleet.comm.shards[0] == 0
+    spanned = fleet.comm is not None and spans_processes(fleet.comm)
     n_pts = cfg.sensor.n_points
 
     # --- per-stream frame sources ---------------------------------------------
@@ -180,15 +226,20 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
         sources = [npz_frames(paths[i % len(paths)]) for i in range(len(local))]
 
     queues = [ScanQueue(n_pts, capacity=4) for _ in local]
+    # each ring's frames' indices in their source, in ring order: appended
+    # before the push and taken back when the push drops the frame
+    seqs = [collections.deque() for _ in local]
     done = threading.Event()
     drained = [False] * len(local)
     period = 1.0 / args.rate if args.rate > 0 else 0.0
 
     def producer(i, src, q):
-        for ranges, pose, inten in src:
+        for k, (ranges, pose, inten) in enumerate(src):
             if done.is_set():
                 return
-            q.push(ranges, pose, intensity=inten)
+            seqs[i].append(k)
+            if not q.push(ranges, pose, intensity=inten):
+                seqs[i].pop()
             if period:
                 time.sleep(period)
         drained[i] = True
@@ -202,6 +253,7 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
 
     # --- lockstep consumer: freshest frame per stream each tick ---------------
     last = [None] * len(local)
+    last_seq = np.zeros(len(local), np.int64)
     tick = 0
     t0 = time.time()
     next_t = time.time()
@@ -214,6 +266,7 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
                 frame = q.pop()
                 while frame is not None:  # drain to freshest
                     last[i] = frame
+                    last_seq[i] = seqs[i].popleft()
                     fresh = True
                     frame = q.pop()
             if any(f is None for f in last):
@@ -240,6 +293,13 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
             ranges = np.stack([f[0] for f in last])
             inten = np.stack([f[1] for f in last])
             poses = np.stack([f[2] for f in last])
+            if spanned:
+                # the processes of a stream group step one scan a stream:
+                # grid shard 0's frames, which each process's rings may not hold
+                ranges, inten, poses, frames = fleet.comm.broadcast_host(
+                    ranges, inten, poses, last_seq)
+            else:
+                frames = last_seq
             t_tick = time.perf_counter()
             out = fleet.process_local_scans(ranges, poses, stamp=time.time(), intensity=inten)
             # the fleet returns HOST messages, so this spans the stacked
@@ -255,8 +315,9 @@ def _serve(args, cfg, dyn, multi: bool) -> int:
                     "tick": tick,
                     "latency_ms": round(lat_ms[-1], 2),
                     "period_ms": round(period_ms[-1], 2) if period_ms else None,
+                    "frames": frames.tolist(),
                 }))
-            for b, msg in sorted(out.items()):
+            for b, msg in sorted(out.items()) if reports else ():
                 for d in msg.detections:
                     rec = {
                         "tick": tick, "stream": b, "id": d.id,
