@@ -311,6 +311,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -344,8 +345,9 @@ from vofod_tpu_torch.ops.explore import (  # noqa: E402
     explore_cut_plain, explore_plain, explore_planes_plain, explore_sequential_,
     explore_sequential_plain, explore_sequential_spec_plain, explore_sequential_stack_plain)
 from vofod_tpu_torch.ops.morphology import (  # noqa: E402
-    Shells, ball_pool, ball_pool_plain, ball_taps, hascloseto_pool_any, hascloseto_taps,
-    run_table, shell_pool, shell_taps, tap_pool_plain, tap_set)
+    Shells, ball_pool, ball_pool_plain, ball_pool_runs_plain, ball_taps, hascloseto_pool_any,
+    hascloseto_taps, is_wide, pool_combines, pool_plain, run_table, shell_pool, shell_taps,
+    tap_pool_plain, tap_set)
 from vofod_tpu_torch.ops.raycast import (  # noqa: E402
     RAY_TILE, RayConsts, cone_sweep, cone_sweep_plain, dda_emissions_plain, gate_faces,
     gate_faces_plain, dda_n_steps, make_angular_gate, ray_cull_plain, ray_ema_grid_, ray_ema_plain,
@@ -358,8 +360,8 @@ from vofod_tpu_torch.pipeline.classify import (  # noqa: E402
 from vofod_tpu_torch.pipeline.detect import (  # noqa: E402
     DET_WARPS, DetectConsts, detect_boxes, detect_slots, detect_slots_plain)
 from vofod_tpu_torch.pipeline.sepclusters import (  # noqa: E402
-    demote_ema, demote_ema_plain, demote_weights, exact_demote_ema, exact_demote_ema_plain,
-    pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain,
+    demote_ema, demote_ema_plain, demote_ema_runs_plain, demote_weights, exact_demote_ema,
+    exact_demote_ema_plain, exact_demote_runs_plain, pool_sum_coarse, quirk_counts_columnwalk_plain, quirk_sure_counts, quirk_sure_counts_plain,
     traced_radii)
 from vofod_tpu_torch.pipeline.step import exact_rays, ray_ema  # noqa: E402
 from vofod_tpu_torch.pipeline.frontend import (  # noqa: E402
@@ -485,6 +487,16 @@ KERNEL_INFO = {
     "explore_cut": ("vofod_tpu_torch/csrc/explore.cu", "vofod_tpu/parallel/gridops.py:532"),
     "explore_seq_stack": ("vofod_tpu_torch/csrc/explore.cu",
                           "vofod_tpu/pipeline/classify.py:211"),
+    # the stencils' wide forms (past halo 7)
+    "ball_pool_wide": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:70"),
+    "shell_pool_wide": ("vofod_tpu_torch/csrc/ball_pool.cu", "vofod_tpu/ops/morphology.py:147"),
+    "propagate_sweeps_wide": ("vofod_tpu_torch/csrc/propagate.cu",
+                              "vofod_tpu/ops/components.py:88"),
+    "propagate_batch_wide": ("vofod_tpu_torch/csrc/propagate.cu",
+                             "vofod_tpu/parallel/gridops.py:374"),
+    "demote_ema_wide": ("vofod_tpu_torch/csrc/ema.cu", "vofod_tpu/pipeline/sepclusters.py:150"),
+    "exact_demote_ema_wide": ("vofod_tpu_torch/csrc/ema.cu",
+                              "vofod_tpu/pipeline/sepclusters.py:301"),
 }
 # the grid-sharded step: shards of the flagship grid (51 = 3 x 17 planes),
 # all on the one card, and the kernels its path adds
@@ -596,6 +608,50 @@ def scan_cycle(lut, n_scans: int):
     return scans
 
 
+# fine-0125: the flagship's own 241 x 201 x 51 grid at a quarter of its
+# voxel size (0.125 m) over a quarter of its extent, every radius of
+# configs/detection_params.yaml kept in metres: the ground ball is r 12
+# (7,153 taps: K1 int8 max and K2's label sweeps past halo 7), the local
+# sure count r 8 (K1 int32 sum past halo 7), the sepclusters reach r 7 and
+# the demotion r 6.4.  The capacities that scale with the voxel count: the
+# explore submap covers 2 x 24 + 1 voxels of the 3 m explore distance, and
+# the far voxels and explore queries hold every scan of the cycle
+# (far_overflow never set: phase 4-fine checks it).
+FINE_CAPACITIES = dict(explore_submap=64, max_far_voxels=16384, max_queries=1024)
+
+
+def fine_config(**kw) -> VoFODConfig:
+    return VoFODConfig(voxel_size=0.125,
+                       oparea=Box((40.0, 20.0, -1.25 + 3.125), (30.0, 25.0, 6.25)),
+                       **FINE_CAPACITIES, **kw)
+
+
+def fine_scan_cycle(lut, n_scans: int):
+    """fine-0125's cycle: the ground, a 2 m block standing on it and a 0.4 m
+    sphere (a small drone) orbiting 4.2 m above the ground (past the 3 m
+    explore distance), the sensor hovering on its own arc 2.5 m up, all
+    inside the fine area."""
+    scans = []
+    for k in range(n_scans):
+        a = 2.0 * np.pi * k / n_scans
+        scene = Scene(ground_z=-1.0)
+        scene.add_box((46.0, 25.0, -1.0), (48.0, 27.0, 1.0))
+        scene.add_sphere(center=(36.0 + 2.0 * np.cos(a), 20.0 + 2.0 * np.sin(a), 3.2),
+                         radius=0.4)
+        p = hover_pose((40.0 + 1.0 * np.cos(a), 20.0 + 1.0 * np.sin(a), 1.5), yaw=0.1 * np.sin(a))
+        scans.append((render_scan(scene, lut, p), p))
+    return scans
+
+
+def fine_apriori_ground() -> np.ndarray:
+    """fine-0125's apriori ground: the plane under the fine area at its own
+    0.125 m, so that the background is sufficient (15 % of the area's
+    columns) from the first scan and every scan of the cycle classifies."""
+    xs, ys = np.arange(25.0, 55.01, 0.125), np.arange(7.5, 32.51, 0.125)
+    gx, gy = np.meshgrid(xs, ys)
+    return np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, -1.0)], axis=1).astype(np.float32)
+
+
 def apriori_ground() -> np.ndarray:
     """bench.py apriori_ground: a ground plane under the scanned area."""
     xs = np.arange(10.0, 60.0, 0.4)
@@ -646,8 +702,9 @@ def phase1() -> None:
         if m:
             entry = m.group(1)
         elif entry and "Used" in ln and "registers" in ln:
-            k = re.search(r"(ball_pool_kernel|demote_ema_kernel|exact_demote_kernel)(\w{0,40})",
-                          entry)
+            k = re.search(r"(ball_pool_kernel|demote_ema_kernel|exact_demote_kernel|"
+                          r"ball_pool_wide_kernel|demote_ema_wide_kernel|"
+                          r"exact_demote_wide_kernel|sweeps_kernel)(\w{0,40})", entry)
             if k:
                 pool.append([k.group(0), int(re.search(r"Used (\d+) registers", ln).group(1))])
             entry = None
@@ -975,6 +1032,7 @@ def phase2(lut) -> list[dict]:
     results += phase2_stages(cfg, dyn, grid, lut, node, r_np, vals, k3, pose, kt, window)
     results += phase2_ingest(cfg, grid, lut, scans, n_warm, k3, ranges, pose)
     results += phase2_taps(cfg, grid, vals, occupied, node.state.safe)
+    results += phase2_wide(cfg, grid, vals, occupied)
     for r in results:
         say("2-kernel", **r)
     return results
@@ -1901,6 +1959,200 @@ def phase2_taps(cfg, grid, vals, occupied, safe) -> list[dict]:
     )]
 
 
+# the wide forms' halos: fine-0125's ground ball (12), a local sure count
+# past halo 7 (8) and a ball past K2's parameter limit (16)
+WIDE_HALOS = (8, 12, 16)
+
+
+def _crop_model(kernel_out, model_out, what: str) -> None:
+    if not torch.equal(kernel_out, model_out):
+        raise AssertionError(f"{what}: the kernel differs from its schedule's plain model")
+
+
+def _pool_smem(table, dtype) -> int:
+    """Dynamic shared bytes of K1's launch on ``table`` (csrc/ball_pool.cuh
+    launch_pool: two pool buffers of a group's pairs, two staged planes,
+    the rows' offsets); a wide table's largest piece's."""
+    if table.wide:
+        return max(_pool_smem(p, dtype) for p in table.pieces)
+    txu, ty, nw, sw = 16, 16, 4, 48 if dtype == torch.int8 else 80
+    sy = ty + 2 * table.halo
+    g = min(len(table.runs), kernels.BALL_RUN_GROUP)
+    return (2 * g * sy * txu * nw + 2 * sy * sw + len(table.rows)) * 4
+
+
+def _sweep_smem(plan, halo: int, itemsize: int) -> int:
+    """Dynamic shared bytes of K2's wide launch: a band's box, 16-byte
+    aligned, and its taps' offsets (csrc/propagate.cu launch_sweeps_wide)."""
+    tz, ty, tx = kernels.TILE_ZYX
+    box = (tx + 2 * halo) * (ty + plan.by - 1) * (tz + plan.bz - 1) * itemsize
+    return -(-box // 16) * 16 + 4 * plan.max_taps
+
+
+def _timed(fn, name: str, n_bytes: float, n_ops: float) -> dict:
+    """One call of a wide form: event ms, device ms and kernels a call
+    (torch.profiler), its launches a call (the wrapper's count) and its
+    bound."""
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()[name]
+    dp = device_profile(fn, reps=3)
+    return dict(ms=cuda_ms(fn, reps=5), device_ms=dp["device_ms"],
+                device_kernels=dp["cuda_launches"], launches_a_call=launches,
+                bytes=n_bytes, ops=n_ops, **_bound(n_bytes, n_ops))
+
+
+def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
+    """The stencil kernels past halo 7 (their wide forms) at halo 8, 12 and
+    16 on the flagship scan's inputs: K1 int8 max and int32 sum, K14's
+    shells (the shells of a bound b kept at r² b²), K2's label and reach
+    sweeps (one persistent call of 8), K2's batched launch on the 3 shards
+    at r 12, K11's demotion and K13c (leaf ceil(r) - 1, as the exact census
+    takes it).  Each bit-equal to its plain version on the whole grid and,
+    on the grid's first 20 planes, to the plain model of its schedule (K1's
+    pieces through ``ball_pool_runs_plain``, K2's bands through
+    ``sweeps_tiled_plain``, the demotions' through their runs models) at
+    the z chunk the card chose; event ms, device ms, launches a call and
+    the bound of each case.  Returns the kernels' records."""
+    dyn = DynParams()
+    dev = vals.device
+    nv = grid.n_voxels
+    bg = vals > dyn.thr_new_obstacles
+    sure = (vals > dyn.thr_sure_obstacles).to(torch.int32)
+    bg8 = bg.to(torch.int8)
+    crop = slice(0, 20)
+    flat = torch.arange(nv, dtype=torch.int32, device=dev).reshape(grid.shape)
+    keys0 = torch.where(occupied, (nv - 1) - flat, SENTINEL)
+    reach0 = (bg & (sure > 0)).to(torch.uint8)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    cases: dict = {"K1": {}, "K14": {}, "K2": {}, "K11": {}, "K13c": {}}
+
+    def pool_case(a, ball, op, what, wrapper, count):
+        taps, h = tap_set(ball)
+        table = run_table(ball)
+        k = wrapper(a)
+        _equal((k,), (pool_plain(a, ball, op, 0),), f"{what}.out")
+        ac = a[crop].contiguous()
+        kc, used = kernels.ball_pool_schedule(ac, taps, h, op, 0)
+        _crop_model(kc, ball_pool_runs_plain(ac, table, op, 0,
+                                             kernels.BALL_POOL_TILE[a.dtype], used["zchunk"]),
+                    what)
+        # the function's combines, whatever the cut (the cut's own beside them)
+        n_bytes, n_ops = 2 * a.numel() * a.element_size(), nv * pool_combines(taps)
+        return dict(taps=len(taps), halo=h, pieces=table.n_pieces, set_voxels=int((k > 0).sum()),
+                    combines_a_voxel=pool_combines(taps), cut_combines_a_voxel=table.combines(),
+                    smem_bytes_max_piece=_pool_smem(table, a.dtype),
+                    schedule=kernels.ball_pool_schedule(a, taps, h, op, 0)[1],
+                    plain_ms=cuda_ms(lambda: pool_plain(a, ball, op, 0), reps=3),
+                    **_timed(lambda: wrapper(a), count, n_bytes, n_ops))
+
+    for h in WIDE_HALOS:
+        for a, op in ((bg8, "max"), (sure, "sum")):
+            cases["K1"][f"{a.dtype} {op} r{h}"] = pool_case(
+                a, float(h), op, f"K1w[{op} r{h}]", lambda x, h=h, op=op: ball_pool(x, float(h), op, 0),
+                "ball_pool_wide")
+        a, op = (sure, "sum") if h == 12 else (bg8, "max")
+        sh = Shells(float(h), float(h * h))
+        cases["K14"][f"{a.dtype} {op} bound {h}, r² {h * h}"] = pool_case(
+            a, sh, op, f"K14w[b{h}]",
+            lambda x, h=h, op=op: shell_pool(x, float(h * h), float(h), op, 0), "shell_pool_wide")
+    say("2-wide-k1", k1=cases["K1"], k14=cases["K14"])
+
+    for h in WIDE_HALOS:
+        for what, init, occ in (("label", keys0, occupied), ("reach", reach0, bg)):
+            c = _k2_case(init, occ, float(h), cfg.cc_sweeps, reps=3)
+            crop_k = sweeps(init[crop].contiguous(), occ[crop].contiguous(), float(h),
+                            cfg.cc_sweeps)
+            crop_m = sweeps_tiled_plain(init[crop].contiguous(), occ[crop].contiguous(), float(h),
+                                        cfg.cc_sweeps)
+            _equal(crop_k, crop_m[:2], "K2w.crop_grid K2w.crop_flags")
+            plan = kernels.sweep_plan(*tap_set(float(h)), init.element_size())
+            n_bytes = nv * (2 * init.element_size() + 1)
+            n_ops = sum(c["tiles"]) * 32 * 8 * 4 * c["taps"]
+            c.update(bands=plan.n_bands, band_extent=[plan.bz, plan.by],
+                     band_taps_max=plan.max_taps,
+                     smem_bytes=_sweep_smem(plan, h, init.element_size()),
+                     **_timed(lambda init=init, occ=occ, h=h: sweeps(init, occ, float(h),
+                                                                      cfg.cc_sweeps),
+                              "propagate_sweeps_wide", n_bytes, n_ops))
+            cases["K2"][f"{what} r{h}, {cfg.cc_sweeps} sweeps"] = c
+    say("2-wide-k2", cases=cases["K2"])
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.01
+    rnd_safe = torch.rand(grid.shape, generator=g, device=dev) < 0.5
+    for h in WIDE_HALOS:
+        ball = h + 0.5
+        taps, hh = tap_set(ball)
+        k = demote_ema(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0)
+        _equal((k,), (demote_ema_plain(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0),),
+               f"K11w[r{ball}].grid")
+        args = (vals[crop].contiguous(), rnd_bg[crop].contiguous(), rnd_safe[crop].contiguous(),
+                true, taps, hh, 0.5, -500.0)
+        kc, used = kernels.demote_ema_schedule(*args)
+        _crop_model(kc, demote_ema_runs_plain(*args[:4], ball, 0.5, -500.0, used["zchunk"]),
+                    f"K11w[r{ball}]")
+        cases["K11"][f"r{ball}"] = dict(
+            taps=len(taps), halo=hh, demoted=int((k != vals).sum()),
+            pieces=run_table(ball).n_pieces, combines_a_voxel=pool_combines(taps),
+            cut_combines_a_voxel=run_table(ball).combines(),
+            smem_bytes_max_piece=_pool_smem(run_table(ball), torch.int8),
+            plain_ms=cuda_ms(lambda: demote_ema_plain(vals, rnd_bg, rnd_safe, true, ball, 0.5,
+                                                      -500.0), reps=3),
+            **_timed(lambda ball=ball: demote_ema(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0),
+                     "demote_ema_wide", nv * (1 + 1 + 4 + 4), nv * pool_combines(taps)))
+    for h in WIDE_HALOS:
+        rad, lsz = float(h), h - 1
+        cshape = tuple(-(-n // lsz) for n in grid.shape)
+        occ_c = torch.rand(cshape, generator=g, device=dev) < 0.3
+        census = torch.randint(0, 10, cshape, generator=g, device=dev, dtype=torch.int32)
+        flags = torch.tensor([True, True], device=dev)
+        prev = torch.zeros((), dtype=torch.bool, device=dev)
+        args = (occ_c, census, flags, prev, lsz, rad, 5.0, 0.9, -500.0, -300.0)
+        _equal(exact_demote_ema(vals, *args), exact_demote_ema_plain(vals, *args),
+               f"K13cw[r{h}].grid K13cw[r{h}].safe K13cw[r{h}].sure")
+        vc = vals[:2 * lsz].contiguous()  # whole coarse rows
+        occ_cc, census_c = occ_c[:2].contiguous(), census[:2].contiguous()
+        kc = kernels.exact_demote_ema_schedule(vc, occ_cc, census_c, flags, prev, lsz,
+                                               *tap_set(rad), 5.0, 0.9, -500.0, -300.0)
+        mc = exact_demote_runs_plain(vc, occ_cc, census_c, flags, prev, lsz, rad, 5.0, 0.9,
+                                     -500.0, -300.0, None, kc[3]["zchunk"])
+        _equal(kc[:3], mc, f"K13cw[r{h}, model].grid K13cw[r{h}, model].safe "
+                           f"K13cw[r{h}, model].sure")
+        n_cells = occ_c.numel()
+        cases["K13c"][f"r{h} leaf {lsz}"] = dict(
+            taps=len(ball_taps(rad)), halo=h, pieces=run_table(rad).n_pieces,
+            combines_a_voxel=pool_combines(ball_taps(rad)),
+            cut_combines_a_voxel=run_table(rad).combines(),
+            smem_bytes_max_piece=_pool_smem(run_table(rad), torch.int8),
+            demoted=int((exact_demote_ema(vals, *args)[0] != vals).sum()),
+            plain_ms=cuda_ms(lambda: exact_demote_ema_plain(vals, *args), reps=3),
+            **_timed(lambda args=args: exact_demote_ema(vals, *args), "exact_demote_ema_wide",
+                     nv * (4 + 4 + 1) + n_cells * 5, nv * pool_combines(ball_taps(rad))))
+    say("2-wide-demotions", k11=cases["K11"], k13c=cases["K13c"])
+
+    def record(name, case, **kw):
+        return dict(name=name, max_abs_err=0.0, ms=case["ms"], device_ms=case["device_ms"],
+                    plain_ms=case["plain_ms"], bytes=case["bytes"], ops=case["ops"],
+                    library_ms=None, launches_a_call=case["launches_a_call"], **kw)
+    k1 = cases["K1"]["torch.int8 max r12"]
+    return [
+        record("ball_pool_wide", k1, cases=cases["K1"],
+               shapes=f"{grid.shape}; the record: int8 max r 12 (fine-0125's ground ball, "
+                      f"{k1['taps']} taps in {k1['pieces']} pieces)"),
+        record("shell_pool_wide", cases["K14"]["torch.int32 sum bound 12, r² 144"],
+               cases=cases["K14"], shapes=f"{grid.shape}; the record: int32 sum, bound 12"),
+        record("propagate_sweeps_wide", cases["K2"][f"label r12, {cfg.cc_sweeps} sweeps"],
+               cases=cases["K2"], shapes=f"{grid.shape}; the record: {cfg.cc_sweeps} label "
+                                         "sweeps at r 12 from the scan's keys"),
+        record("demote_ema_wide", cases["K11"]["r8.5"], cases=cases["K11"],
+               shapes=f"{grid.shape}; random 1 % bg, 50 % safe; the record: r 8.5"),
+        record("exact_demote_ema_wide", cases["K13c"]["r8 leaf 7"], cases=cases["K13c"],
+               shapes=f"{grid.shape}; random coarse cells; the record: r 8, leaf 7"),
+    ]
+
+
 def exact_config() -> VoFODConfig:
     """The reference-exact configuration at the flagship size."""
     return VoFODConfig(sepclusters_exact_census=True, compat_hascloseto_bounds=True,
@@ -2056,13 +2308,19 @@ def phase2_exact(lut) -> list[dict]:
                              f"against the plain version's {int(nan_b.sum())}")
     ema_cases["old rule, raylen holding NaN"] = dict(nan_voxels=int(nan_b.sum()))
     ema1 = ray_ema(cfg, dyn, 1.0)
+    ema_touched = int(((k12 > 0) & ~had).sum())
     work = vals.clone()
     out.append(dict(
         name="ray_ema", max_abs_err=0.0, cases=ema_cases,
         tol_walk_and_ema=K5B_TOL_REL * abs(dyn.score_ray),
         ms=cuda_ms(lambda: ray_ema_grid_(work, had, k12, ema1)),
         plain_ms=cuda_ms(lambda: ray_ema_plain(vals, k12, had, ema1)),
-        bytes=nv * (4 + 1 + 4 + 4), ops=nv * 8, library_ms=None,
+        # the bytes the new rule's launch moves: raylen and the point flag
+        # read at every voxel, the grid read and written only where a chord
+        # reached a voxel without a point (the kernel returns before them
+        # elsewhere); the operations of those voxels' EMA
+        bytes=nv * (4 + 1) + 8 * ema_touched, ops=ema_touched * 8, library_ms=None,
+        ema_voxels_updated=ema_touched,
         shapes=f"{grid.shape}; EMA on the kernel's raylen bit-equal",
     ))
 
@@ -2577,6 +2835,16 @@ def _k2_dense_scans(launches: dict, calls: list | None, n_scans: int, what: str)
                 k2_sweeps_run_per_call=[int((t > 0).sum()) for t in calls])
 
 
+# the stencils' wide forms (past halo 7): never launched by a flagship path
+WIDE_KERNELS = ("ball_pool_wide", "shell_pool_wide", "propagate_sweeps_wide",
+                "propagate_batch_wide", "demote_ema_wide", "exact_demote_ema_wide")
+
+
+def _no_wide(launches: dict, what: str) -> None:
+    wide = {k: launches[k] for k in WIDE_KERNELS if launches[k]}
+    assert not wide, f"{what}: the wide stencil forms launched {wide}"
+
+
 def phase4(lut) -> dict:
     """The flagship main path: 36 scans through VoFOD(device="cuda")."""
     cfg = VoFODConfig()
@@ -2606,6 +2874,7 @@ def phase4(lut) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     launches = kernels.launch_counts()
+    _no_wide(launches, "sweep path")
     d = node.last_diag
     g = node.state.grid
     assert bool(d.bg_sufficient), "background never became sufficient"
@@ -2637,6 +2906,166 @@ def phase4(lut) -> dict:
     )
     say("4-flagship", **out)
     return launches, out["step_ms_p50"]
+
+
+# phase 4-fine: fine-0125's scans, its dense node's kernels (K1's and K2's
+# wide forms in place of K1 and K2's label call: K2's reach at r 7 keeps
+# the narrow form) and its grid path's
+N_FINE_SCANS = 24
+N_FINE_PLAIN = 6
+FINE_KERNELS = tuple(k for k in SWEEP_KERNELS if k != "ball_pool") + (
+    "ball_pool_wide", "propagate_sweeps_wide")
+FINE_GRID_KERNELS = GRID_KERNELS + ("ball_pool_wide", "propagate_batch_wide")
+
+
+@contextlib.contextmanager
+def wide_forms_plain():
+    """Within the block, K1's and K2's dense wrappers run a tap set in the
+    wide forms (``is_wide``) through plain versions on the card (K1:
+    ``pool_plain``; K2: ``sweeps_tiled_plain``), and launch their kernels
+    for any other set."""
+    real_pool, real_sweeps = kernels.ball_pool, kernels.propagate_sweeps
+
+    def pool(a, taps, halo, op, fill):
+        if not is_wide(taps, halo):
+            return real_pool(a, taps, halo, op, fill)
+        return pool_plain(a, taps, op, fill)
+
+    def sweeps_(init, occ, taps, halo, n):
+        if not is_wide(taps, halo):
+            return real_sweeps(init, occ, taps, halo, n)
+        out, flags, tiles = sweeps_tiled_plain(init, occ.view(torch.bool), taps, n)
+        return out, flags.to(torch.int32), tiles, 0
+    kernels.ball_pool, kernels.propagate_sweeps = pool, sweeps_
+    try:
+        yield
+    finally:
+        kernels.ball_pool, kernels.propagate_sweeps = real_pool, real_sweeps
+
+
+def phase4_fine(lut) -> tuple[dict, dict, float, float]:
+    """fine-0125's main path: N_FINE_SCANS scans of its cycle through the
+    dense node (``VoFOD(fine_config(), device="cuda")``), each beside the
+    3-shard grid step on the same scan (17-plane slabs: K2's label sweeps at
+    r 12 take a halo of 8 x 12 rows), and the first N_FINE_PLAIN beside a
+    dense node whose wide forms run their plain versions on the card.  Per
+    scan: the grid path's state and every diagnostic bit-equal to the dense
+    node's, detection integers equal and floats within 1e-5 relative; the
+    plain node's state bit-equal (the integer parts are required to be, the
+    grid within K5b's 1e-5 x |score_ray|).  Every kernel of both paths
+    launched, K1 only in its wide form, far_overflow never set, detections
+    on the cycle, every scan classified (the background sufficient from the
+    apriori plane on), at most 1 host sync a dense scan.  Returns (dense
+    launches, grid launches, dense step p50, grid step p50)."""
+    cfg = fine_config()
+    dyn = DynParams()
+    scans = fine_scan_cycle(lut, N_FINE_SCANS)
+    node = VoFOD(cfg, dyn, NodeOptions(), lut, device="cuda")
+    n_apriori = node.load_apriori_map(fine_apriori_ground())
+    plain = VoFOD(cfg, dyn, NodeOptions(), lut, device="cuda")
+    plain.load_apriori_map(fine_apriori_ground())
+    drv = GridDriver(lut, node.state, cfg)
+    torch.cuda.synchronize()
+    dense_l = dict.fromkeys(kernels.LAUNCHES, 0)
+    grid_l = dict.fromkeys(kernels.LAUNCHES, 0)
+    ms = {"dense": [], "grid": []}
+    syncs, n_dets, n_far, n_q, n_inactive, plain_err, rel_err = [], [], [], [], [], 0.0, 0.0
+    tol = K5B_TOL_REL * abs(dyn.score_ray)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k, (r, p) in enumerate(scans):
+            kernels.reset_launch_counts()
+            before = len(caught)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start.record()
+                pending = node.process_scan_async(r, None, p)
+                end.record()
+                dense_out = pending[0]
+                msg = node.fetch_result(pending)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ms["dense"].append(start.elapsed_time(end))
+            syncs.append(sum(1 for w in caught[before:] if "synchroniz" in str(w.message)
+                             and "prototype" not in str(w.message)))
+            _add(dense_l, kernels.launch_counts())
+            d = node.last_diag
+            n_dets.append(len(msg.detections))
+            n_far.append(int(d.n_far))
+            n_q.append(int(d.n_queries))
+            n_inactive.append(int(not (bool(d.bg_sufficient) and bool(d.sure_bg_sufficient))))
+            assert not bool(d.far_overflow), f"fine scan {k}: far voxels past max_far_voxels"
+            kernels.reset_launch_counts()
+            start.record()
+            diag, dets = drv.fetch(drv.process_scan_async(r, p))
+            end.record()
+            torch.cuda.synchronize()
+            ms["grid"].append(start.elapsed_time(end))
+            launches = kernels.launch_counts()
+            _add(grid_l, launches)
+            missing = [g for g in FINE_GRID_KERNELS if launches[g] == 0]
+            assert not missing, f"fine grid scan {k}: kernels not launched: {missing}"
+            g = gather_state(drv.states)
+            for f in ("grid", "safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
+                if not torch.equal(getattr(g, f), getattr(node.state, f)):
+                    raise AssertionError(f"fine grid scan {k}: state.{f} differs from dense")
+            for f, v in diag.items():
+                if not np.array_equal(v, getattr(node.last_diag, f)):
+                    raise AssertionError(f"fine grid scan {k}: diag.{f} differs from dense")
+            for f, v in dets.items():
+                want = getattr(dense_out.detections, f).cpu().numpy()
+                if v.dtype.kind == "f":
+                    np.testing.assert_allclose(v, want, rtol=1e-5, atol=0.0,
+                                               err_msg=f"fine grid scan {k}: detections.{f}")
+                    den = np.maximum(np.abs(want), 1e-30)
+                    rel_err = max(rel_err, float(np.max(np.abs(v - want) / den, initial=0.0)))
+                elif not np.array_equal(v, want):
+                    raise AssertionError(f"fine grid scan {k}: detections.{f} differs")
+            if k < N_FINE_PLAIN:
+                with wide_forms_plain():
+                    plain.process_scan(r, None, p)
+                for f in ("safe", "det_counter", "sure_bg_sufficient", "bg_sufficient"):
+                    if not torch.equal(getattr(plain.state, f), getattr(node.state, f)):
+                        raise AssertionError(f"fine scan {k}: state.{f} differs from the node "
+                                             "on the wide forms' plain versions")
+                a, b = plain.state.grid, node.state.grid
+                fin = torch.isfinite(b)
+                if not (torch.equal(fin, torch.isfinite(a)) and max_abs(a[fin], b[fin]) <= tol):
+                    raise AssertionError(f"fine scan {k}: the grid differs from the plain node's")
+                plain_err = max(plain_err, max_abs(a[fin], b[fin]))
+    missing = [g for g in FINE_KERNELS if dense_l[g] == 0]
+    assert not missing, f"kernels never launched on the fine path: {missing}"
+    assert dense_l["ball_pool"] == 0 and dense_l["propagate_sweeps_wide"] == N_FINE_SCANS, dense_l
+    assert max(syncs) <= 1, f"host syncs per fine scan: {syncs}"
+    assert sum(n_dets) > 0 and n_dets[-1] > 0, f"fine-0125 detected nothing: {n_dets}"
+    # (the first scan's sure flag is the initial state's; every later scan
+    # classifies)
+    assert not any(n_inactive[1:]), f"scans not classified: {n_inactive}"
+    out = dict(
+        config="fine-0125", scans=N_FINE_SCANS, grid=list(cfg.grid_shape),
+        voxel_size=cfg.voxel_size, rays=cfg.sensor.n_points, capacities=FINE_CAPACITIES,
+        radii_voxels=dict(ground=cfg.ground_points_max_distance / cfg.voxel_size,
+                          local_sure=math.ceil(cfg.sepclusters_max_bg_distance / cfg.voxel_size)
+                          + 1.0, reach=float(math.ceil(cfg.sepclusters_max_bg_distance
+                                                       / cfg.voxel_size)),
+                          demotion=cfg.sepclusters_max_bg_distance / cfg.voxel_size),
+        apriori_voxels=n_apriori, shards=GRID_SHARDS,
+        step_ms_p50={m: float(np.percentile(v, 50)) for m, v in ms.items()},
+        step_ms_p95={m: float(np.percentile(v, 95)) for m, v in ms.items()},
+        step_ms_all={m: [round(x, 3) for x in v] for m, v in ms.items()},
+        host_syncs_per_scan=float(np.mean(syncs)), host_syncs_max=int(max(syncs)),
+        detections_per_scan=n_dets, detections_total=int(sum(n_dets)),
+        first_detection_scan=next(i for i, n in enumerate(n_dets) if n),
+        far_voxels_max=max(n_far), explore_queries_max=max(n_q),
+        classification_inactive_per_scan=n_inactive,
+        grid_bit_equal_state_and_diag=True, grid_detection_float_max_rel_err=rel_err,
+        plain_node_scans=N_FINE_PLAIN, plain_node_grid_max_abs=plain_err,
+        launches_per_scan={g: v / N_FINE_SCANS for g, v in dense_l.items() if v},
+        grid_launches_per_scan={g: v / N_FINE_SCANS for g, v in grid_l.items() if v},
+    )
+    say("4-fine", **out)
+    return dense_l, grid_l, out["step_ms_p50"]["dense"], out["step_ms_p50"]["grid"]
 
 
 def phase4_raycast_every(lut, n: int = 6) -> None:
@@ -2694,6 +3123,7 @@ def phase4_exact(lut, sequential: bool = False) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     launches = kernels.launch_counts()
+    _no_wide(launches, "sequential path" if sequential else "exact path")
     d = node.last_diag
     g = node.state.grid
     what = "sequential" if sequential else "exact"
@@ -2806,6 +3236,8 @@ def phase4_prebinned(lut) -> dict:
             _same_scan(out["prebinned"], out["raw"], f"prebinned vs raw, scan {k}")
             n_dets += len(out["raw"][1].detections)
     lp, lr = launches["prebinned"], launches["raw"]
+    for m, got in launches.items():
+        _no_wide({k: got.get(k, 0) for k in WIDE_KERNELS}, f"{m} path")
     assert lp.get("unpack", 0) == N_SCANS and lp.get("frontend_bin", 0) == 0, lp
     assert lr.get("frontend_bin", 0) == N_SCANS and lr.get("unpack", 0) == 0, lr
     _k2_dense_scans(lp, None, N_SCANS, "prebinned path")
@@ -2886,6 +3318,7 @@ def phase4_dynamic(lut) -> dict:
     assert not rebuilt, "the kernel library was rebuilt when the radii changed"
     assert max(syncs) <= 1, f"host syncs per dynamic scan: {syncs}"
     assert launches.get("shell_pool", 0) > 0, launches
+    _no_wide({k: launches.get(k, 0) for k in WIDE_KERNELS}, "dynamic path")
     _k2_dense_scans(launches, None, N_SCANS, "dynamic path")
     assert bool(node.last_diag.bg_sufficient), "background never became sufficient"
     say("4-dynamic", scans=N_SCANS, segments=segments, bit_equal_to_static=True,
@@ -3603,6 +4036,75 @@ def _sharded_k2_cases(comm, ops, grid: GridSpec, cfg, dyn, vals, keys) -> dict:
     )
 
 
+def _sharded_k2_wide(comm, ops, grid: GridSpec, cfg, dyn, vals, keys) -> dict:
+    """K2's batched launch in its wide form (fine-0125's ground ball, r 12:
+    the step's 8 label sweeps a launch on a halo of 96 rows, 6 hops of 17)
+    through parallel/gridops.sharded_sweeps on the 3 shards at once, beside
+    the plain model of each launch (slab, flags, tiles per sweep bit-equal)
+    and the dense sweeps; one launch on shard 1 timed beside its plain
+    model, bound as ``_sharded_k2_cases``'s."""
+    dev = vals.device
+    n, nzl = GRID_SHARDS, grid.nz // GRID_SHARDS
+    bg = vals > dyn.thr_new_obstacles
+    radius = 12.0
+    want, wflags = sweeps(keys, bg, radius, cfg.cc_sweeps)
+    kernels.reset_launch_counts()
+
+    def shard(rank):
+        sl = slice(rank * nzl, (rank + 1) * nzl)
+        args = (keys[sl].contiguous(), bg[sl].contiguous(), radius, cfg.cc_sweeps, False)
+        return (sharded_sweeps(ops, *args, batch_on_card), sharded_sweeps(ops, *args, batch_plain))
+    got = comm.run(shard)
+    launches = kernels.launch_counts()
+    for rank, (k, p) in enumerate(got):
+        _equal(k, p, f"K2bw[{rank}].slab K2bw[{rank}].flags K2bw[{rank}].tiles")
+    if not (torch.equal(torch.cat([k[0] for k, _ in got]), want)
+            and all(torch.equal(k[1], wflags) for k, _ in got)):
+        raise AssertionError("sharded K2 wide form differs from the dense sweeps")
+    if (launches["propagate_batch_wide"], launches["propagate_batch"]) != (n, 0):
+        raise AssertionError(f"sharded K2 wide form: launches {launches}")
+    taps, reach = tap_set(radius)
+    k = min(SWEEP_BATCH, cfg.cc_sweeps)
+    h, z0 = k * reach, nzl
+    pair = torch.stack(kernels.sweep_buffers(_global_ext(keys, z0, nzl, h, SENTINEL)))
+    occ_e = _global_ext(bg.view(torch.uint8), z0, nzl, h, 0).contiguous()
+    rows = (h, h + nzl)
+
+    def launch(bufs):
+        sc = kernels.sweeps_scratch(bufs.shape[1:], k, 1, dev)
+        kernels.propagate_batch(bufs[0], bufs[1], occ_e, taps, reach, sc, 0, 0, k, reach, rows,
+                                None, n)
+        return sc
+
+    def plain(bufs):
+        sc = kernels.sweeps_scratch(bufs.shape[1:], k, 1, dev)
+        batch_plain(bufs[0], bufs[1], occ_e, radius, taps, reach, sc, 0, 0, k, reach, rows,
+                    None, n)
+        return sc
+
+    tiles = launch(pair.clone())[1]
+    if not torch.equal(tiles, plain(pair.clone())[1]):
+        raise AssertionError("K2bw: one launch's tiles differ from the plain model's")
+    plane = grid.ny * grid.nx
+    cone = min(grid.nz, z0 + nzl + h) - max(0, z0 - h)
+    clones = [pair.clone() for _ in range(12)]
+    dp = device_profile(lambda: launch(clones.pop()), reps=3)
+    plan = kernels.sweep_plan(taps, reach, 4)
+    out = dict(sweeps=cfg.cc_sweeps, halo_rows=h, hops=-(-h // nzl), launches=launches[
+        "propagate_batch_wide"], bands=plan.n_bands, tiles_per_sweep=tiles.tolist(),
+        flags=wflags.int().tolist())
+    say("2-grid-k2-wide", **out)
+    return dict(
+        name="propagate_batch_wide", max_abs_err=0.0, ms=_inplace_ms(launch, pair, reps=5),
+        device_ms=dp["device_ms"], plain_ms=_inplace_ms(plain, pair, reps=2),
+        bytes=cone * plane * (4 + 1) + nzl * plane * 4,
+        ops=int(tiles.sum()) * 32 * 8 * 4 * len(taps), library_ms=None, cases=out,
+        shapes=f"shard 1's slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x {h} halo rows, {k} label "
+               f"sweeps at r 12 ({len(taps)} taps, {plan.n_bands} bands) a launch; the device ms "
+               "includes the zero fill of the launch's scratch",
+    )
+
+
 def phase2_grid(lut) -> list[dict]:
     """The grid-sharded step's kernels against their plain versions on the
     card, with 3 shards of the flagship grid on one card: K15b-1 on f32,
@@ -3723,6 +4225,7 @@ def phase2_grid(lut) -> list[dict]:
 
     # K2's batched launches on halo'd slabs, beside their plain model
     results.append(_sharded_k2_cases(comm, ops, grid, cfg, dyn, vals, keys))
+    results.append(_sharded_k2_wide(comm, ops, grid, cfg, dyn, vals, keys))
 
     # K15b-2: each shard stamps its whole halo-extended view with 50 - rank
     base = (torch.arange(grid.n_voxels, dtype=torch.float32, device=dev) + 100.0).reshape(
@@ -4579,6 +5082,7 @@ def phase4_grid(lut, path: str = "sweep") -> tuple[dict, float]:
             syncs.append(len(synced))
             assert len(synced) <= 1, f"{path} grid scan {k}: host syncs at {synced}"
             launches = kernels.launch_counts()
+            _no_wide(launches, f"{path} grid scan {k}")
             per_scan.append(launches)
             copies.append(dict(drv.comm.copies_by, total=drv.comm.copies))
             missing = [g for g in path_kernels if launches[g] == 0]
@@ -6072,17 +6576,20 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     elif path == "dynamic":
         cfg = VoFODConfig(dynamic_radii=True, ground_points_max_distance_bound=2.0,
                           sepclusters_max_bg_distance_bound=2.0)
+    elif path.endswith("fine"):
+        cfg = fine_config()
     node = VoFOD(cfg, DynParams(), opts, lut, device="cuda")
     if path == "dynamic":
         node.update_params(ground_points_max_distance=2.0, sepclusters_max_bg_distance=1.9)
-    node.load_apriori_map(apriori_ground())
+    node.load_apriori_map(fine_apriori_ground() if path.endswith("fine") else apriori_ground())
     if path == "grid":  # the 3-shard step from the same start
         node = GridDriver(lut, node.state)
     elif path == "grid-transpose":
         node = GridDriver(lut, node.state, zcone_mode="transpose")
-    elif path in ("grid-exact", "grid-sequential"):
-        node = GridDriver(lut, node.state, cfg, raycast_mode="exact")
-    scans = scan_cycle(lut, 6 + n)
+    elif path in ("grid-exact", "grid-sequential", "grid-fine"):
+        node = GridDriver(lut, node.state, cfg,
+                          **({} if path == "grid-fine" else dict(raycast_mode="exact")))
+    scans = (fine_scan_cycle if path.endswith("fine") else scan_cycle)(lut, 6 + n)
     for r, p in scans[:6]:
         node.process_scan(r, None, p)
     torch.cuda.synchronize()
@@ -6120,7 +6627,7 @@ def phase5_profile(lut, step_ms_p50: float, n: int = 5, path: str = "sweep",
     # sees more device launches than that (it may see fewer: a session
     # loses the first kernels of its first scan, PERF.md section 7)
     pk = out["port_kernels_ms_per_scan"]
-    expect = {"sweep": (3, 1), "grid": (15, 3)}.get(path)
+    expect = {"sweep": (3, 1), "grid": (15, 3), "fine": (3, 1), "grid-fine": (15, 3)}.get(path)
     for i, (fn, wrapper) in enumerate((("compact_kernel", "masked_compact"),
                                        ("gate_faces_kernel", "gate_faces"))):
         got, want = pk.get(fn, [0.0, 0.0])[1], calls[wrapper] / n
@@ -6169,6 +6676,7 @@ def main() -> int:
     phase4_grid(lut, "prebinned")
     phase4_grid(lut, "dynamic")
     gs_launches, gs_ms_p50 = phase4_grid(lut, "sequential")
+    fine_launches, fine_grid_launches, fine_ms_p50, fine_grid_ms_p50 = phase4_fine(lut)
     phase4_cli(lut, launches)
     phase4_fleet_grid(lut, grid_launches)
     phase4_fleet_procs(lut)
@@ -6182,6 +6690,8 @@ def main() -> int:
     phase5_profile(lut, gx_ms_p50, path="grid-exact")
     phase5_profile(lut, gs_ms_p50, path="grid-sequential")
     phase5_profile(lut, gt_ms_p50, path="grid-transpose")
+    phase5_profile(lut, fine_ms_p50, path="fine")
+    phase5_profile(lut, fine_grid_ms_p50, path="grid-fine")
     # the sweep path once more, in the last profiler session: the same code
     # counted in another session says whether the op count is the session's
     again = phase5_profile(lut, step_ms_p50, label="5-profile-sweep-again")
@@ -6200,7 +6710,11 @@ def main() -> int:
                      **{g: grid_launches for g in GRID_KERNELS},
                      **{g: gs_launches for g in ("explore_cut", "explore_seq_stack")},
                      **{g: gx_launches for g in ("census_scatter", "census_read", "quirk_columns",
-                                                 "quirk_ranks", "quirk_query", "dda_slab")}}
+                                                 "quirk_ranks", "quirk_query", "dda_slab")},
+                     # the wide forms: fine-0125's dense and grid paths (K14's,
+                     # K11's and K13c's wide forms run on no path of the script)
+                     **{g: fine_launches for g in WIDE_KERNELS},
+                     "propagate_batch_wide": fine_grid_launches}
     record = []
     for r in results:
         src, replaces = KERNEL_INFO[r["name"]]

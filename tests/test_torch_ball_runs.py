@@ -95,7 +95,7 @@ def test_run_table_shapes():
     slices of 18 rows for 7 planes (the ball's dz and -dz slices are equal:
     29 rows, 123 taps); the hasCloseTo box's full rows miss their +3 end, so
     its dz = -3 slice has no +3 twin; a gapped row gets several runs; the pairs
-    beyond 8 take a second group."""
+    beyond 8 take a second group; a ball past halo 7 takes pieces."""
     r3 = tm.run_table(3.0)
     assert r3.runs.tolist() == [[0, 0], [-1, 1], [-2, 2], [-3, 3]]
     assert r3.sym[0, :4].tolist() == [0, 1, 2, 3] and len(r3.slices) == 4
@@ -110,8 +110,11 @@ def test_run_table_shapes():
     assert tm.run_table(_gapped(3, 100, 2)).n_groups > 1
     with pytest.raises(ValueError, match="repeat"):
         tm.run_table(np.array([(0, 0, 0), (0, 0, 0)], np.int32))
-    with pytest.raises(ValueError, match="halo 7"):
-        tm.run_table(8.0)
+    # past halo 7 the table is the wide form's pieces, each within halo 7
+    for r, pieces in ((8.0, 12), (12.0, 12), (16.0, 27)):
+        wide = tm.run_table(r)
+        assert wide.wide and wide.halo == int(r) and wide.n_pieces == pieces
+        assert max(p.halo for p in wide.pieces) <= 7
 
 
 @pytest.mark.parametrize("tile,zchunk", [

@@ -122,15 +122,22 @@ def test_shell_arithmetic_is_jax_float32():
 
 
 def test_kernel_tap_limits():
-    """The stencil kernels take every ball within halo 7 (2,103 taps at
-    r² < 64); past it the wrappers raise, naming the limit."""
+    """The stencil kernels take every ball: within halo 7 (2,103 taps at
+    r² < 64) in their table form, past it (halo 8, 12 and 16) in their
+    wide form; the wrappers raise only for an empty set or taps past the
+    given halo."""
     assert len(tm.ball_taps(4.0)) == 257 and len(tm.ball_taps(5.0)) == 515
     big = tm.ball_taps(7.99)
     assert len(big) == 2103 and kernels._taps_arg(big, 7)[0].shape == (2103, 3)
-    with pytest.raises(ValueError, match="halo 7"):
-        kernels._taps_arg(tm.ball_taps(8.0), 8)
-    with pytest.raises(ValueError, match="halo 7"):
+    assert not tm.is_wide(big, 7) and not tm.run_table(7.99).wide
+    for r, n in ((8.0, 2109), (12.0, 7153), (16.0, 17077)):
+        taps = tm.ball_taps(r)
+        assert len(taps) == n and kernels._taps_arg(taps, int(r))[0].shape == (n, 3)
+        assert tm.is_wide(taps, int(r)) and tm.run_table(r).wide
+    with pytest.raises(ValueError, match="within its halo"):
         kernels._taps_arg(tm.ball_taps(3.0), 2)  # taps reach past the halo
+    with pytest.raises(ValueError, match="non-empty"):
+        kernels._taps_arg(np.zeros((0, 3), np.int32), 3)
 
 
 # the JAX comparisons start from free air (below thr_frontiers) over the

@@ -41,12 +41,16 @@
 // - Out-of-grid voxels are staged as `fill`, whole planes beyond z too, so
 //   a run clipped at the grid edge combines the fill exactly as the plain
 //   version's padding does.
-// - One kernel for every accepted tap set (1-2,112 taps within halo 7):
-//   the table travels in the kernel parameters, in a tiny struct (halo 1:
-//   3 accumulators), a small one (the production radii) or a large one
-//   (ball_pool.cuh with_table); the pools of 8 pairs sit in shared
-//   memory at once, more pairs take turns, and a block above 48 KB of
-//   shared memory opts in first.
+// - One kernel for every tap set within halo 7: the table travels in the
+//   kernel parameters, in a tiny struct (halo 1: 3 accumulators), a small
+//   one (the production radii) or a large one (ball_pool.cuh with_table);
+//   the pools of 8 pairs sit in shared memory at once, more pairs take
+//   turns, and a block above 48 KB of shared memory opts in first.
+// - Past halo 7 (vofod_ball_pool_wide), the wide form of ball_pool.cuh:
+//   the set cut into pieces within halo 7 on every axis, one launch of
+//   the same body a piece with its staging shifted by the piece's centre,
+//   each folding its pool into a scratch of units, the last storing.  The
+//   flagship's production radii never take it.
 //
 // Integer min / max / sum are exact in any order, so the output is
 // bit-equal to the JAX decomposition and to the plain PyTorch version;
@@ -95,6 +99,22 @@ __global__ void __launch_bounds__(Lanes<T>::TXU* Lanes<T>::TY)
   pool_stream<T, OP>(io, nz, ny, nx, zchunk, tab);
 }
 
+template <typename T, int OP>
+__global__ void __launch_bounds__(Lanes<T>::TXU* Lanes<T>::TY)
+    ball_pool_wide_kernel(PieceIO<T, OP, PoolIO<T>> io, int nz, int ny, int nx, int zchunk,
+                          const __grid_constant__ RunTableLarge tab) {
+  pool_stream<T, OP>(io, nz, ny, nx, zchunk, tab);
+}
+
+template <typename T, int OP>
+int launch_wide(const void* in, void* out, int nz, int ny, int nx, const short* tables,
+                const int* lens, const int* shifts, int n, int fill, void* acc, int* used,
+                cudaStream_t stream) {
+  const PoolIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, (T)fill};
+  return launch_pieces<T, OP>(ball_pool_wide_kernel<T, OP>, io, nz, ny, nx, tables, lens, shifts,
+                              n, acc, used, stream);
+}
+
 template <typename T, int OP, typename Tab>
 int launch(const void* in, void* out, int nz, int ny, int nx, const Tab& tab, int fill,
            int* used, cudaStream_t stream) {
@@ -131,4 +151,38 @@ VOFOD_API int vofod_ball_pool(const void* in, void* out, int dtype, int op, int 
     return dispatch(in, out, dtype, op, nz, ny, nx, t, fill, used,
                     static_cast<cudaStream_t>(stream));
   });
+}
+
+// The wide form: a tap set past halo 7 as n_pieces packed tables within
+// halo 7 (ops/morphology.WideTable: tables back to back, host int16; lens:
+// host int32 [n_pieces]; shifts: host int32 [n_pieces, 3], each piece's
+// centre (dz, dy, dx)), one launch a piece in order.  acc: device scratch
+// of (nz, ny, ceil(nx / 8)) 16-byte units (int8) or (nz, ny, ceil(nx /
+// 4)) (int32).  Other arguments as vofod_ball_pool's; used: the first
+// piece's schedule.
+VOFOD_API int vofod_ball_pool_wide(const void* in, void* out, int dtype, int op, int nz, int ny,
+                                   int nx, const short* tables, const int* lens,
+                                   const int* shifts, int n_pieces, int fill, void* acc,
+                                   int* used, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (op == 0)
+      return launch_wide<int8_t, 0>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+                                    acc, used, s);
+    if (op == 1)
+      return launch_wide<int8_t, 1>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+                                    acc, used, s);
+  } else if (dtype == 1) {
+    if (op == 0)
+      return launch_wide<int32_t, 0>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+                                     acc, used, s);
+    if (op == 1)
+      return launch_wide<int32_t, 1>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+                                     acc, used, s);
+    if (op == 2)
+      return launch_wide<int32_t, 2>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+                                     acc, used, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

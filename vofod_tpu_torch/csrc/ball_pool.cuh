@@ -533,6 +533,80 @@ int launch_pool(void (*kernel)(IO, int, int, int, int, Tab), const IO& io, int n
   return (int)cudaGetLastError();
 }
 
+// ---- The wide form: tap sets past halo 7 (K1, K14, K11's demotion, K13c) ----
+//
+// A tap set past halo 7 reaches past what one table holds (kmask's 15
+// accumulators, a row's dy + 7 in 4 bits, BP_XPAD staged columns), so the
+// host (ops/morphology.WideTable) cuts it into pieces: the taps of a box of
+// at most 15 offsets on every axis, recentred on the box's centre (dz, dy,
+// dx) into a table within halo 7.  Each piece runs the unchanged body with
+// its staging shifted by its centre, one launch a piece in order on the
+// caller's stream, and folds its pooled units into `acc` (one unit Vec a
+// unit, the pool's own representation: int8 as s16 pairs) with the pool's
+// own op; the last piece hands the folded unit to the inner policy's
+// store.  min, max and int32 sums are exact in any order, so the result is
+// bit-equal to one pool over the whole set.  The sum of int8 values (K13c)
+// stays in its s16 lanes: the host refuses a set whose sum could reach 2^15.
+template <typename T, int OP, typename Inner>
+struct PieceIO {
+  using L = Lanes<T>;
+  using V = Vec<typename L::W, L::NW>;
+  using Raw = typename Inner::Raw;
+  static constexpr bool SKIP = Inner::SKIP;
+  Inner in;
+  Raw none;
+  int dz, dy, dx;  // the piece's centre: staged plane zi reads the inner plane zi + dz
+  V* acc;          // the fold, (nz, ny, units)
+  int ny, nx, units;
+  bool first, last;
+  __device__ __forceinline__ long long plane(int zi, bool& ok) const {
+    return in.plane(zi + dz, ok);
+  }
+  __device__ __forceinline__ int row(int gy, bool& ok) const { return in.row(gy + dy, ok); }
+  __device__ __forceinline__ int col(int gx, bool& ok) const { return in.col(gx + dx, ok); }
+  __device__ __forceinline__ Raw load(long long i) const { return in.load(i); }
+  __device__ __forceinline__ auto stage(Raw r) const { return in.stage(r); }
+  __device__ __forceinline__ bool row_any(int zi, int gy, int lo, int hi) const {
+    return in.row_any(zi + dz, gy + dy, lo + dx, hi + dx);
+  }
+  __device__ __forceinline__ void store(int zo, int gy, int gx, const V& v) const {
+    if (gx >= nx) return;
+    V* a = acc + ((size_t)zo * ny + gy) * units + gx / L::VX;
+    const V f = first ? v : combine<OP>(*a, v);
+    if (last)
+      in.store(zo, gy, gx, f);
+    else
+      *a = f;
+  }
+};
+
+// The pieces' launches: tables (host int16) the n packed tables back to
+// back, lens their lengths, shifts (dz, dy, dx) a piece; acc: device
+// memory of (nz, ny, ceil(nx / VX)) unit Vecs.  used: the first piece's
+// schedule (as launch_pool's).
+template <typename T, int OP, typename Inner>
+int launch_pieces(void (*kernel)(PieceIO<T, OP, Inner>, int, int, int, int, RunTableLarge),
+                  const Inner& inner, int nz, int ny, int nx, const short* tables,
+                  const int* lens, const int* shifts, int n, void* acc, int* used,
+                  cudaStream_t stream) {
+  if (tables == nullptr || lens == nullptr || shifts == nullptr || acc == nullptr || n < 1)
+    return (int)cudaErrorInvalidValue;
+  PieceIO<T, OP, Inner> io;
+  io.in = inner;
+  io.none = inner.none;
+  io.acc = static_cast<typename PieceIO<T, OP, Inner>::V*>(acc);
+  io.ny = ny, io.nx = nx, io.units = (nx + Lanes<T>::VX - 1) / Lanes<T>::VX;
+  RunTableLarge tab;
+  for (int i = 0, at = 0; i < n; at += lens[i++]) {
+    if (!parse_table(tables + at, lens[i], &tab)) return (int)cudaErrorInvalidValue;
+    io.dz = shifts[3 * i], io.dy = shifts[3 * i + 1], io.dx = shifts[3 * i + 2];
+    io.first = i == 0, io.last = i + 1 == n;
+    const int err = launch_pool<T>(kernel, io, nz, ny, nx, tab, i == 0 ? used : nullptr, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 template <typename Tab>
 bool fits(const short* table) {
   return table[0] <= Tab::HMAX && table[1] <= Tab::MAX_RUNS && table[2] <= Tab::MAX_ROWS &&

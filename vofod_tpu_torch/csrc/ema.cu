@@ -22,7 +22,8 @@
 //   the exact-census mode): the same pool, summing.  Staging builds the
 //   extended-lattice centre mask of the unsure coarse cells from the
 //   occupancy and K13a's census; its int8 0/1 values are summed as s16
-//   pairs (a voxel's k <= 2,112 taps < 2^15); the epilogue applies k
+//   pairs (a voxel's k is at most the centres in its ball, which the host
+//   keeps below 2^15); the epilogue applies k
 //   demotions, w1^k v + (1 - w1^k) score where sure_sufficient (from K13a's
 //   two flags and the previous value, on the device), and writes the
 //   carried safe = bg & sure cell beside the grid.  The centre mask, k,
@@ -72,6 +73,11 @@
 // - The sharded call's slabs (17 + 2h planes) and the flagship grid take
 //   their z chunk from the occupancy (auto_zchunk), 2 resident blocks an
 //   SM at halo <= 3 (the tiny and small tables), 1 above.
+// - A ball past halo 7 (the *_wide entries) takes ball_pool.cuh's wide
+//   form: the same staging and epilogue behind PieceIO, one launch a
+//   piece, the pieces' pools folded in a scratch of units and the epilogue
+//   run once, by the last piece, on the folded unit.  A skipping block's
+//   identity folds to nothing, so the skip stays exact.
 #include "ball_pool.cuh"
 
 #include <type_traits>
@@ -304,6 +310,14 @@ __global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
   pool_stream<int8_t, 1>(at, nz, ny, nx, zchunk, tab);
 }
 
+__global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
+    demote_ema_wide_kernel(PieceIO<int8_t, 1, DemoteIO> io, int nz, int ny, int nx, int zchunk,
+                           const __grid_constant__ RunTableLarge tab) {
+  PieceIO<int8_t, 1, DemoteIO> at = io;
+  at.in.sure = *io.in.sure_sufficient != 0;
+  pool_stream<int8_t, 1>(at, nz, ny, nx, zchunk, tab);
+}
+
 // ---- K13c ----
 
 // the coarse lattice of the exact census
@@ -422,6 +436,62 @@ __global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
   pool_stream<int8_t, 2>(at, nz, ny, nx, zchunk, tab);
 }
 
+__global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
+    exact_demote_wide_kernel(PieceIO<int8_t, 2, CentreIO> io, int nz, int ny, int nx,
+                             int zchunk, const __grid_constant__ RunTableLarge tab) {
+  PieceIO<int8_t, 2, CentreIO> at = io;
+  at.in.sure = io.in.flags[0] ? io.in.flags[1] != 0 : io.in.prev_sure[0] != 0;
+  if (io.last && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0 &&
+      threadIdx.y == 0)
+    io.in.sure_out[0] = at.in.sure;
+  pool_stream<int8_t, 2>(at, nz, ny, nx, zchunk, tab);
+}
+
+DemoteIO demote_io(const void* vals, const void* bg, const void* safe,
+                   const void* sure_sufficient, int nz, int ny, int nx, float w1, float c,
+                   void* out) {
+  DemoteIO io{};
+  io.vals = static_cast<const float*>(vals);
+  io.bg = static_cast<const uint8_t*>(bg);
+  io.safe = static_cast<const uint8_t*>(safe);
+  io.sure_sufficient = static_cast<const uint8_t*>(sure_sufficient);
+  io.out = static_cast<float*>(out);
+  io.nz = nz, io.ny = ny, io.nx = nx;
+  io.w1 = w1, io.c = c;
+  return io;
+}
+
+// K13c's policy, false for a window it cannot take
+bool centre_io(const void* vals, const void* occ_c, const void* census, const void* flags,
+               const void* prev_sure, int nz, int ny, int nx, int lsz, const float* floats,
+               const int* window, void* out, void* safe, void* sure_out, CentreIO* io) {
+  if (lsz < 1 || nz < 1 || ny < 1 || nx < 1) return false;
+  CoarseLattice c;
+  c.lsz = lsz;
+  c.ncz = (nz + lsz - 1) / lsz; c.ncy = (ny + lsz - 1) / lsz; c.ncx = (nx + lsz - 1) / lsz;
+  c.z_off = 0; c.zc_lo = 0; c.ncz_held = c.ncz;
+  if (window != nullptr) {
+    c.z_off = window[0]; c.zc_lo = window[1]; c.ncz_held = window[2]; c.ncz = window[3];
+    if (c.z_off < 0 || c.z_off % lsz || c.z_off / lsz < c.zc_lo ||
+        (c.z_off + nz + lsz - 1) / lsz > c.zc_lo + c.ncz_held)
+      return false;
+  }
+  c.min_sure = floats[0];
+  *io = CentreIO{};
+  io->vals = static_cast<const float*>(vals);
+  io->occ_c = static_cast<const uint8_t*>(occ_c);
+  io->census = static_cast<const int32_t*>(census);
+  io->flags = static_cast<const uint8_t*>(flags);
+  io->prev_sure = static_cast<const uint8_t*>(prev_sure);
+  io->out = static_cast<float*>(out);
+  io->safe = static_cast<uint8_t*>(safe);
+  io->sure_out = static_cast<uint8_t*>(sure_out);
+  io->c = c;
+  io->ny = ny, io->nx = nx;
+  io->w1 = floats[1], io->score = floats[2], io->thr_new = floats[3];
+  return true;
+}
+
 }  // namespace
 
 // vals: device f32 grid [n]; counts: int32 [n]; close: bool [n].  Outputs:
@@ -449,14 +519,7 @@ VOFOD_API int vofod_demote_ema(const void* vals, const void* bg, const void* saf
                                const short* table, int table_len, float w1, float c,
                                void* out, int* used, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
-  DemoteIO io{};
-  io.vals = static_cast<const float*>(vals);
-  io.bg = static_cast<const uint8_t*>(bg);
-  io.safe = static_cast<const uint8_t*>(safe);
-  io.sure_sufficient = static_cast<const uint8_t*>(sure_sufficient);
-  io.out = static_cast<float*>(out);
-  io.nz = nz, io.ny = ny, io.nx = nx;
-  io.w1 = w1, io.c = c;
+  const DemoteIO io = demote_io(vals, bg, safe, sure_sufficient, nz, ny, nx, w1, c, out);
   return with_table(table, table_len, [&](const auto& t) {
     using Tab = std::decay_t<decltype(t)>;
     return launch_pool<int8_t>(demote_ema_kernel<Tab>, io, nz, ny, nx, t, used,
@@ -479,33 +542,42 @@ VOFOD_API int vofod_exact_demote_ema(const void* vals, const void* occ_c, const 
                                      int nx, int lsz, const short* table, int table_len,
                                      const float* floats, const int* window, void* out,
                                      void* safe, void* sure_out, int* used, void* stream) {
-  if (lsz < 1 || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
-  CoarseLattice c;
-  c.lsz = lsz;
-  c.ncz = (nz + lsz - 1) / lsz; c.ncy = (ny + lsz - 1) / lsz; c.ncx = (nx + lsz - 1) / lsz;
-  c.z_off = 0; c.zc_lo = 0; c.ncz_held = c.ncz;
-  if (window != nullptr) {
-    c.z_off = window[0]; c.zc_lo = window[1]; c.ncz_held = window[2]; c.ncz = window[3];
-    if (c.z_off < 0 || c.z_off % lsz || c.z_off / lsz < c.zc_lo ||
-        (c.z_off + nz + lsz - 1) / lsz > c.zc_lo + c.ncz_held)
-      return (int)cudaErrorInvalidValue;
-  }
-  c.min_sure = floats[0];
-  CentreIO io{};
-  io.vals = static_cast<const float*>(vals);
-  io.occ_c = static_cast<const uint8_t*>(occ_c);
-  io.census = static_cast<const int32_t*>(census);
-  io.flags = static_cast<const uint8_t*>(flags);
-  io.prev_sure = static_cast<const uint8_t*>(prev_sure);
-  io.out = static_cast<float*>(out);
-  io.safe = static_cast<uint8_t*>(safe);
-  io.sure_out = static_cast<uint8_t*>(sure_out);
-  io.c = c;
-  io.ny = ny, io.nx = nx;
-  io.w1 = floats[1], io.score = floats[2], io.thr_new = floats[3];
+  CentreIO io;
+  if (!centre_io(vals, occ_c, census, flags, prev_sure, nz, ny, nx, lsz, floats, window, out,
+                 safe, sure_out, &io))
+    return (int)cudaErrorInvalidValue;
   return with_table(table, table_len, [&](const auto& t) {
     using Tab = std::decay_t<decltype(t)>;
     return launch_pool<int8_t>(exact_demote_kernel<Tab>, io, nz, ny, nx, t, used,
                                static_cast<cudaStream_t>(stream));
   });
+}
+
+// The wide forms (a ball past halo 7): tables, lens, shifts and n_pieces as
+// vofod_ball_pool_wide's; acc: device scratch of (nz, ny, ceil(nx / 8))
+// 16-byte units.  Other arguments as the entries above.
+VOFOD_API int vofod_demote_ema_wide(const void* vals, const void* bg, const void* safe,
+                                    const void* sure_sufficient, int nz, int ny, int nx,
+                                    const short* tables, const int* lens, const int* shifts,
+                                    int n_pieces, float w1, float c, void* out, void* acc,
+                                    int* used, void* stream) {
+  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  const DemoteIO io = demote_io(vals, bg, safe, sure_sufficient, nz, ny, nx, w1, c, out);
+  return launch_pieces<int8_t, 1>(demote_ema_wide_kernel, io, nz, ny, nx, tables, lens, shifts,
+                                  n_pieces, acc, used, static_cast<cudaStream_t>(stream));
+}
+
+VOFOD_API int vofod_exact_demote_ema_wide(const void* vals, const void* occ_c, const void* census,
+                                          const void* flags, const void* prev_sure, int nz,
+                                          int ny, int nx, int lsz, const short* tables,
+                                          const int* lens, const int* shifts, int n_pieces,
+                                          const float* floats, const int* window, void* out,
+                                          void* safe, void* sure_out, void* acc, int* used,
+                                          void* stream) {
+  CentreIO io;
+  if (!centre_io(vals, occ_c, census, flags, prev_sure, nz, ny, nx, lsz, floats, window, out,
+                 safe, sure_out, &io))
+    return (int)cudaErrorInvalidValue;
+  return launch_pieces<int8_t, 2>(exact_demote_wide_kernel, io, nz, ny, nx, tables, lens,
+                                  shifts, n_pieces, acc, used, static_cast<cudaStream_t>(stream));
 }

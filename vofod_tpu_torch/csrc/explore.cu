@@ -35,7 +35,7 @@
 //  - an invalid query's block writes empty outputs and returns; block 0
 //    zeroes the int32 K8 adds its writes to (it lies after the corners in
 //    their allocation: no fill launch).
-// 32 < S <= 62 keeps the block BFS of 64-bit rows in shared memory
+// 32 < S <= 64 keeps the block BFS of 64-bit rows in shared memory
 // (explore_kernel on bfs_block / bfs_sweeps; bfs_sweeps is the S > 32 flood
 // of K7s and K15b-7b too).  Reached leaves the
 // kernel as packed int64 rows [Q, S, S] (bit x of row (z, y)).
@@ -442,7 +442,7 @@ __global__ void __launch_bounds__(EXPLORE_WARPS * 32) explore_planes_kernel(
     connected[q] = (h || at_grid_edge(x0 + half, y0 + half, z0 + half, nz_g, ny, nx)) ? 1 : 0;
 }
 
-// K7 for 32 < S <= 62 (64-bit rows): one block a query runs bfs_block, the
+// K7 for 32 < S <= 64 (64-bit rows): one block a query runs bfs_block, the
 // Jacobi sweeps over packed rows in shared memory.
 __global__ void __launch_bounds__(EXPLORE_T) explore_kernel(
     const float* __restrict__ grid, int nz, int ny, int nx, int z_lo, int nz_g,
@@ -705,7 +705,7 @@ struct PlanesBody {
 
 // The S > 32 route: 64-bit rows in shared memory (band, ground and the two
 // Jacobi buffers; bfs_sweeps), thread t owning rows t + k * EXPLORE_T.
-constexpr int SMEM_ROWS = (62 * 62 + EXPLORE_T - 1) / EXPLORE_T;
+constexpr int SMEM_ROWS = (64 * 64 + EXPLORE_T - 1) / EXPLORE_T;
 
 struct SmemBody {
   using W = unsigned long long;
@@ -1174,13 +1174,13 @@ int launch_spec(float* grid, int z_lo, int nzw, const void* stack, int nz, int n
 // step); qx/qy/qz/max_manhattan: int32 [Q] in global grid coordinates;
 // qvalid: bool [Q].  Outputs: connected bool [Q], reached int64 [Q, S, S]
 // (bit x of row (z, y)), corners int32 [Q, 3] (z, y, x), and n_writes, the
-// int32 K8 adds its stores to, zeroed.  2 <= S <= 62.
+// int32 K8 adds its stores to, zeroed.  2 <= S <= 64.
 VOFOD_API int vofod_explore(const void* grid, int nz, int ny, int nx, int z_lo, int nz_g,
                             const void* qx, const void* qy, const void* qz, const void* qvalid,
                             const void* max_manhattan, float thr_f, float thr_g, int Q, int S,
                             int max_iters, void* connected, void* reached, void* corners,
                             void* n_writes, void* stream) {
-  if (Q <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || S < 2 || S > 64) return (int)cudaErrorInvalidValue;
   return launch_explore(grid, nz, ny, nx, z_lo, nz_g, qx, qy, qz, qvalid, max_manhattan, thr_f,
                         thr_g, Q, S, max_iters, connected, reached, corners, n_writes,
                         static_cast<cudaStream_t>(stream));
@@ -1199,7 +1199,7 @@ VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, int z_lo, int nz_
                            const void* qvalid, const void* qgate, const void* query_overflow,
                            int Q, int K, float thr, void* n_writes, void* cluster_connected,
                            void* stream) {
-  if (Q <= 0 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || K <= 0 || S < 2 || S > 64) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(K + 31) / 32 * sizeof(uint32_t);
   const int e = allow_smem(demote_kernel, smem);
   if (e != 0) return e;
@@ -1215,7 +1215,7 @@ VOFOD_API int vofod_demote(void* grid, int nz, int ny, int nx, int z_lo, int nz_
 
 // The scratch bytes one K7s (dense != 0) or K15b-7b launch takes.
 VOFOD_API int vofod_explore_seq_scratch(int Q, int K, int S, int dense, long long* bytes) {
-  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 64) return (int)cudaErrorInvalidValue;
   bytes[0] = (long long)seq_scratch(nullptr, Q, K, S, dense != 0).bytes;
   return 0;
 }
@@ -1228,7 +1228,7 @@ VOFOD_API int vofod_explore_seq_scratch(int Q, int K, int S, int dense, long lon
 // aligned); ticket: an int32 that is 0 and that no launch on another
 // stream uses (left 0); stats: null or int32 [4], the walk's counts (floods
 // redone, speculative rows tested, failed queries, valid queries walked).
-// 1 <= Q <= 4096, 2 <= S <= 62.
+// 1 <= Q <= 4096, 2 <= S <= 64.
 VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const void* qx,
                                        const void* qy, const void* qz, const void* qvalid,
                                        const void* qlabels, const void* qids, const void* qslot,
@@ -1236,7 +1236,7 @@ VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const
                                        float thr_f, float thr_g, int Q, int K, int S,
                                        int max_iters, void* cluster_connected, void* n_writes,
                                        void* scratch, void* ticket, void* stats, void* stream) {
-  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = static_cast<float*>(grid);
   if (S <= 32)
@@ -1254,13 +1254,13 @@ VOFOD_API int vofod_explore_sequential(void* grid, int nz, int ny, int nx, const
 // K15b-7a: the cut of a shard's slab.  grid: device float32 [nz, ny, nx],
 // the rows [z_lo, z_lo + nz) of the grid; qx/qy/qz: int32 [Q] global;
 // qvalid: bool [Q].  Output: stack [Q, 2, S, S] (band rows, then ground
-// rows), uint32 words for S <= 32, else uint64.  2 <= S <= 62, 1 <= Q <=
+// rows), uint32 words for S <= 32, else uint64.  2 <= S <= 64, 1 <= Q <=
 // 65535.
 VOFOD_API int vofod_explore_cut(const void* grid, int nz, int ny, int nx, int z_lo,
                                 const void* qx, const void* qy, const void* qz,
                                 const void* qvalid, float thr_f, float thr_g, int Q, int S,
                                 void* stack, void* stream) {
-  if (Q <= 0 || Q > 65535 || S < 2 || S > 62) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || Q > 65535 || S < 2 || S > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grid);
   const int32_t *x = static_cast<const int32_t*>(qx), *y = static_cast<const int32_t*>(qy),
@@ -1286,7 +1286,7 @@ VOFOD_API int vofod_explore_cut(const void* grid, int nz, int ny, int nx, int z_
 // [K], n_writes int32 scalar (the slab's stores; written, not added to),
 // reached [Q, S, S] words (the failed queries' floods, 0 elsewhere),
 // corners int32 [Q, 3] (z, y, x), demoted bool [Q] (the failed queries).
-// 1 <= Q <= 4096, 2 <= S <= 62, 0 <= z_lo, z_lo + slab_nz <= nz.
+// 1 <= Q <= 4096, 2 <= S <= 64, 0 <= z_lo, z_lo + slab_nz <= nz.
 VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx, void* slab,
                                       int z_lo, int slab_nz, const void* qx, const void* qy,
                                       const void* qz, const void* qvalid, const void* qlabels,
@@ -1296,7 +1296,7 @@ VOFOD_API int vofod_explore_seq_stack(const void* stack, int nz, int ny, int nx,
                                       void* cluster_connected, void* n_writes, void* reached,
                                       void* corners, void* demoted, void* scratch, void* ticket,
                                       void* stats, void* stream) {
-  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 62 || z_lo < 0 || slab_nz < 1 ||
+  if (Q <= 0 || Q > 4096 || K <= 0 || S < 2 || S > 64 || z_lo < 0 || slab_nz < 1 ||
       z_lo + slab_nz > nz)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -72,8 +72,19 @@
 // number of sweeps.
 //
 // The ball is any K1 tap set: the static ball, or the traced shells of
-// cfg.dynamic_radii (K14, ops/morphology.shell_taps), up to halo 7 (the
-// large tap struct and the shared-memory opt-in of common.cuh).
+// cfg.dynamic_radii (K14, ops/morphology.shell_taps).  Up to halo 7 and
+// 2,112 taps the taps travel by value (the large tap struct and the
+// shared-memory opt-in of common.cuh) and a tile's whole box sits in
+// shared memory.  Past that (the wide form, vofod_propagate_sweeps_wide)
+// neither fits: at halo 12 an int32 box takes 200,704 of the card's
+// 232,448 bytes, at halo 16 the taps alone exceed the parameter limit.
+// There the host (kernels.sweep_plan) cuts the taps into bands of at most
+// BZ dz x BY dy values, and a tile's pool walks the bands: each stages the
+// (TILE_Z + BZ - 1) x (TILE_Y + BY - 1) x (TILE_X + 2 halo) box its taps
+// read and the band's offsets into it (from the plan in global memory),
+// and every voxel folds the band's taps into its running min / max.  The
+// work lists, barriers, flags and tile counts are the narrow form's, and
+// min / max are exact in any order, so both forms give the same sweeps.
 #include "common.cuh"
 
 #include <type_traits>
@@ -155,9 +166,63 @@ struct Batch {
 // 256 taps run two blocks a multiprocessor (32 registers: the tile loads of
 // one overlap the other's taps); larger sets one (their tap loop spills at
 // 32).
+// The wide form's taps: the host's band plan in global memory, int32
+// [4 n_bands] (z0, y0, first, end: the band's dz from z0, dy from y0, and
+// its taps' range) then each tap's offset into its band's box; bz, by the
+// bands' extents, max_taps the most taps a band holds.
+struct WideTaps {
+  int halo, n_bands, bz, by, max_taps;
+  const int* plan;
+};
+
 template <typename Taps>
 constexpr int sweeps_blocks_per_sm() {
-  return sizeof(Taps) <= sizeof(BallTaps) ? 2 : 1;
+  return sizeof(Taps) <= sizeof(BallTaps) && !std::is_same<Taps, WideTaps>::value ? 2 : 1;
+}
+
+// The wide form's pool of one voxel: the running min / max over the bands
+// of the tile (tx, ty, tz), `box` the band's staged box, `boff` its taps'
+// offsets; every thread of the block takes part in the staging.  Returns
+// the voxel's new value from `old` (its own) and `o` (occupied), as
+// sweep_voxel.
+template <typename T, int MODE>
+__device__ __forceinline__ T sweep_voxel_wide(const T* src, T* box, int* boff,
+                                              const WideTaps& w, int tx, int ty, int tz, int nz,
+                                              int ny, int nx, T fill, bool in, bool o, T old) {
+  const int h = w.halo, sx = TILE_X + 2 * h, sy = TILE_Y + w.by - 1, sz = TILE_Z + w.bz - 1;
+  const int tid = threadIdx.x + TILE_X * (threadIdx.y + TILE_Y * threadIdx.z);
+  constexpr int NT = TILE_X * TILE_Y * TILE_Z;
+  const int base = (threadIdx.z * sy + threadIdx.y) * sx + threadIdx.x;
+  T acc = fill;
+  for (int b = 0; b < w.n_bands; ++b) {
+    const int z0 = w.plan[4 * b], y0 = w.plan[4 * b + 1];
+    const int t0 = w.plan[4 * b + 2], t1 = w.plan[4 * b + 3];
+    const int gx0 = tx * TILE_X - h, gy0 = ty * TILE_Y + y0, gz0 = tz * TILE_Z + z0;
+    __syncthreads();  // the last band's readers are done with the box
+    for (int i = tid; i < sx * sy * sz; i += NT) {
+      const int lx = i % sx, rest = i / sx, ly = rest % sy, lz = rest / sy;
+      const int gx = gx0 + lx, gy = gy0 + ly, gz = gz0 + lz;
+      T v = fill;
+      if (gx >= 0 && gx < nx && gy >= 0 && gy < ny && gz >= 0 && gz < nz)
+        v = src[((size_t)gz * ny + gy) * nx + gx];
+      box[i] = v;
+    }
+    const int* offs = w.plan + 4 * w.n_bands;
+    for (int t = t0 + tid; t < t1; t += NT) boff[t - t0] = offs[t];
+    __syncthreads();
+    if (in && o) {
+      for (int t = 0; t < t1 - t0; ++t) {
+        const T v = box[base + boff[t]];
+        if (MODE == 0)
+          acc = v < acc ? v : acc;
+        else
+          acc = v > acc ? v : acc;
+      }
+    }
+  }
+  if (!o) return MODE == 0 ? (T)SENTINEL : (old != 0 ? (T)1 : (T)0);
+  if (MODE == 0) return acc;
+  return (old != 0 || acc != 0) ? (T)1 : (T)0;
 }
 
 template <typename T, int MODE, typename Taps>
@@ -165,6 +230,7 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
     sweeps_kernel(T* buf0, T* buf1, const uint8_t* __restrict__ occ, int nz, int ny, int nx,
                   Taps taps, Batch bt, int* changed, int* tiles, unsigned int* barrier,
                   int* mark, int* lists, int* tile_occ) {
+  constexpr bool WIDE = std::is_same<Taps, WideTaps>::value;
   if (bt.gate != nullptr && *bt.gate == 0) return;  // past the fixpoint
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // what thread 0 read for the block past a barrier (1,024 threads of every
@@ -174,8 +240,12 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
   const int h = taps.halo;
   T* tile = reinterpret_cast<T*>(smem_raw);
   // after the tile: each tap's offset into it (the host sizes the launch so)
-  const size_t tile_bytes =
-      (size_t)(TILE_X + 2 * h) * (TILE_Y + 2 * h) * (TILE_Z + 2 * h) * sizeof(T);
+  size_t tile_bytes;
+  if constexpr (WIDE)
+    tile_bytes = (size_t)(TILE_X + 2 * h) * (TILE_Y + taps.by - 1) * (TILE_Z + taps.bz - 1) *
+                 sizeof(T);
+  else
+    tile_bytes = (size_t)(TILE_X + 2 * h) * (TILE_Y + 2 * h) * (TILE_Z + 2 * h) * sizeof(T);
   int* off = reinterpret_cast<int*>(smem_raw + ((tile_bytes + 15) & ~(size_t)15));
   const T fill = MODE == 0 ? (T)SENTINEL : (T)0;
   const int gx = (nx + TILE_X - 1) / TILE_X, gy = (ny + TILE_Y - 1) / TILE_Y,
@@ -189,8 +259,10 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
   const bool lead = tid == 0;
   const int sx = TILE_X + 2 * h, sy = TILE_Y + 2 * h;
   const int centre = ((threadIdx.z + h) * sy + threadIdx.y + h) * sx + threadIdx.x + h;
-  for (int t = tid; t < taps.n; t += TILE_X * TILE_Y * TILE_Z)
-    off[t] = (taps.dz[t] * sy + taps.dy[t]) * sx + taps.dx[t];
+  if constexpr (!WIDE) {
+    for (int t = tid; t < taps.n; t += TILE_X * TILE_Y * TILE_Z)
+      off[t] = (taps.dz[t] * sy + taps.dy[t]) * sx + taps.dx[t];
+  }
 
   // the occupied tiles, a warp a tile (lane = x, the tile's 32 rows' bytes
   // loaded together), and sweep 0's list
@@ -239,19 +311,33 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
       for (int k = 0; k < n_c; ++k) {
         const int t = mine[k];
         const int tx = t % gx, ty = (t / gx) % gy, tz = t / plane_tiles;
-        load_tile_at<T>(src, tile, tx, ty, tz, nz, ny, nx, h, fill);
-        __syncthreads();
         const int x = tx * TILE_X + threadIdx.x, y = ty * TILE_Y + threadIdx.y,
                   z = tz * TILE_Z + threadIdx.z;
         int diff = 0, inner = 0;
-        if (x < nx && y < ny && z < nz) {
-          const size_t v = ((size_t)z * ny + y) * nx + x;
-          T old;
-          const T nv = sweep_voxel<T, MODE>(
-              tile, taps.n, [&](int t) { return centre + off[t]; }, centre, occ[v] != 0, &old);
-          dst[v] = nv;
-          diff = nv != old && z >= lo && z < hi;
-          inner = nv != old && z >= bt.fz0 && z < bt.fz1;
+        if constexpr (WIDE) {
+          const bool in = x < nx && y < ny && z < nz;
+          const size_t v = in ? ((size_t)z * ny + y) * nx + x : 0;
+          const bool o = in && occ[v] != 0;
+          const T old = in ? src[v] : fill;
+          const T nv = sweep_voxel_wide<T, MODE>(src, tile, off, taps, tx, ty, tz, nz, ny, nx,
+                                                 fill, in, o, old);
+          if (in) {
+            dst[v] = nv;
+            diff = nv != old && z >= lo && z < hi;
+            inner = nv != old && z >= bt.fz0 && z < bt.fz1;
+          }
+        } else {
+          load_tile_at<T>(src, tile, tx, ty, tz, nz, ny, nx, h, fill);
+          __syncthreads();
+          if (x < nx && y < ny && z < nz) {
+            const size_t v = ((size_t)z * ny + y) * nx + x;
+            T old;
+            const T nv = sweep_voxel<T, MODE>(
+                tile, taps.n, [&](int t) { return centre + off[t]; }, centre, occ[v] != 0, &old);
+            dst[v] = nv;
+            diff = nv != old && z >= lo && z < hi;
+            inner = nv != old && z >= bt.fz0 && z < bt.fz1;
+          }
         }
         // also the barrier before the next tile's load overwrites `tile`
         const int tile_changed = __syncthreads_or(diff);
@@ -262,9 +348,11 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
           any |= tile_changed;
         else if (z_hi > bt.fz0 && z_lo < bt.fz1)
           any |= __syncthreads_or(inner);
-        if (tile_changed && !last && tid < n_near) {
-          const int qx = tx + tid % wx - rx, qy = ty + (tid / wx) % wy - ry,
-                    qz = tz + tid / (wx * wy) - rz;
+        // (the wide form's reach can pass a thread a near tile)
+        for (int q = tid; tile_changed && !last && q < n_near;
+             q += WIDE ? TILE_X * TILE_Y * TILE_Z : n_near) {
+          const int qx = tx + q % wx - rx, qy = ty + (q / wx) % wy - ry,
+                    qz = tz + q / (wx * wy) - rz;
           if (qx >= 0 && qx < gx && qy >= 0 && qy < gy && qz >= 0 && qz < gz &&
               qz * TILE_Z < next_hi && qz * TILE_Z + TILE_Z > next_lo) {
             const int u = (qz * gy + qy) * gx + qx;
@@ -288,6 +376,43 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
 // this tile's shared memory (the occupancy calculator's count), divided by
 // `share`, at most one per tile; cooperative so that the launch is refused
 // rather than run with blocks that could never reach the barrier.
+template <typename T, int MODE, typename Taps>
+int launch_with(const Taps& t, size_t smem, void* b0, void* b1, const void* occ, int nz, int ny,
+                int nx, const Batch& bt, int share, int* changed, int* tiles,
+                unsigned int* barrier, int* mark, int* lists, int* tile_occ, int* blocks_out,
+                cudaStream_t stream) {
+  auto* kernel = sweeps_kernel<T, MODE, Taps>;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      TILE_X * TILE_Y * TILE_Z, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int resident = per_sm * sms / share;
+  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const dim3 g = tile_grid(nz, ny, nx);
+  const int n_tiles = (int)(g.x * g.y * g.z);
+  const int blocks = resident < n_tiles ? resident : n_tiles;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(TILE_X, TILE_Y, TILE_Z);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  *blocks_out = blocks;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<T*>(b0), static_cast<T*>(b1),
+                         static_cast<const uint8_t*>(occ), nz, ny, nx, t, bt, changed, tiles,
+                         barrier, mark, lists, tile_occ);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int MODE>
 int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, const int* taps,
                   int n_taps, int halo, const Batch& bt, int share, int* changed, int* tiles,
@@ -296,43 +421,28 @@ int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, c
   // the tile, then the taps' offsets into it
   const size_t smem = ((tile_elems(halo) * sizeof(T) + 15) & ~(size_t)15) + 4 * (size_t)n_taps;
   return with_taps(taps, n_taps, halo, [&](const auto& t) {
-    auto* kernel = sweeps_kernel<T, MODE, std::decay_t<decltype(t)>>;
-    if (const int err = allow_smem(kernel, smem)) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        TILE_X * TILE_Y * TILE_Z, smem);
-    if (e != cudaSuccess) return (int)e;
-    const int resident = per_sm * sms / share;
-    if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const dim3 g = tile_grid(nz, ny, nx);
-    const int n_tiles = (int)(g.x * g.y * g.z);
-    const int blocks = resident < n_tiles ? resident : n_tiles;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(TILE_X, TILE_Y, TILE_Z);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    *blocks_out = blocks;
-    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<T*>(b0), static_cast<T*>(b1),
-                           static_cast<const uint8_t*>(occ), nz, ny, nx, t, bt, changed, tiles,
-                           barrier, mark, lists, tile_occ);
-    if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
+    return launch_with<T, MODE>(t, smem, b0, b1, occ, nz, ny, nx, bt, share, changed, tiles,
+                                barrier, mark, lists, tile_occ, blocks_out, stream);
   });
+}
+
+// the wide form: a band's box, then its taps' offsets
+template <typename T, int MODE>
+int launch_sweeps_wide(void* b0, void* b1, const void* occ, int nz, int ny, int nx,
+                       const WideTaps& w, const Batch& bt, int share, int* changed, int* tiles,
+                       unsigned int* barrier, int* mark, int* lists, int* tile_occ,
+                       int* blocks_out, cudaStream_t stream) {
+  const size_t box = (size_t)(TILE_X + 2 * w.halo) * (TILE_Y + w.by - 1) * (TILE_Z + w.bz - 1);
+  const size_t smem = ((box * sizeof(T) + 15) & ~(size_t)15) + 4 * (size_t)w.max_taps;
+  return launch_with<T, MODE>(w, smem, b0, b1, occ, nz, ny, nx, bt, share, changed, tiles,
+                              barrier, mark, lists, tile_occ, blocks_out, stream);
 }
 
 }  // namespace
 
 // mode 0: int32 min-label sweeps; mode 1: uint8 reach sweeps.  taps: host
-// int32 [n_taps, 3], 1 <= n_taps <= 2,112, every |offset| <= halo <= 7.
+// int32 [n_taps, 3], 1 <= n_taps <= 2,112, every |offset| <= halo <= 7
+// (past that: vofod_propagate_sweeps_wide).
 // Runs sweeps i0 .. i0 + n_sweeps - 1 of the caller's count in one
 // cooperative launch, stopping after the first sweep that leaves the next
 // one nothing to compute: buf0 holds the launch's initial grid, buf1 the
@@ -373,5 +483,40 @@ VOFOD_API int vofod_propagate_sweeps(void* buf0, void* buf1, const void* occ, in
   if (mode == 1)
     return launch_sweeps<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, taps, n_taps, halo, bt, share,
                                      ch, ti, ba, mk, ls, to, blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide form (a tap set past halo 7 or 2,112 taps): plan, the device
+// int32 band plan of kernels.sweep_plan ([4 n_bands] bands, then each
+// tap's offset into its band's box), its n_bands, the bands' extents bz x
+// by and the most taps a band holds; halo: the set's.  Every other argument
+// as vofod_propagate_sweeps'.
+VOFOD_API int vofod_propagate_sweeps_wide(void* buf0, void* buf1, const void* occ, int mode,
+                                          int nz, int ny, int nx, const void* plan, int n_bands,
+                                          int bz, int by, int max_taps, int halo, int i0,
+                                          int n_sweeps, int grow, int flag_z0, int flag_z1,
+                                          const void* gate, int share, void* changed,
+                                          void* tiles, void* barrier, void* marks, void* lists,
+                                          void* tile_occ, int* blocks, void* stream) {
+  if (n_sweeps < 1 || i0 < 0 || share < 1 || grow < 0 || blocks == nullptr ||
+      flag_z0 < n_sweeps * grow || flag_z1 > nz - n_sweeps * grow || flag_z0 >= flag_z1 ||
+      plan == nullptr || n_bands < 1 || bz < 1 || by < 1 || bz > 2 * halo + 1 ||
+      by > 2 * halo + 1 || max_taps < 1 || halo < 0)
+    return (int)cudaErrorInvalidValue;
+  const Batch bt = {i0, n_sweeps, grow, flag_z0, flag_z1, static_cast<const int*>(gate)};
+  const WideTaps w = {halo, n_bands, bz, by, max_taps, static_cast<const int*>(plan)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ch = static_cast<int*>(changed);
+  int* ti = static_cast<int*>(tiles);
+  unsigned int* ba = static_cast<unsigned int*>(barrier);
+  int* mk = static_cast<int*>(marks);
+  int* ls = static_cast<int*>(lists);
+  int* to = static_cast<int*>(tile_occ);
+  if (mode == 0)
+    return launch_sweeps_wide<int32_t, 0>(buf0, buf1, occ, nz, ny, nx, w, bt, share, ch, ti, ba,
+                                          mk, ls, to, blocks, s);
+  if (mode == 1)
+    return launch_sweeps_wide<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, w, bt, share, ch, ti, ba,
+                                          mk, ls, to, blocks, s);
   return (int)cudaErrorInvalidValue;
 }

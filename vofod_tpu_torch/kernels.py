@@ -80,14 +80,28 @@ LAUNCHES: dict[str, int] = {
     "dda_slab": 0,
     "explore_cut": 0,
     "explore_seq_stack": 0,
+    "ball_pool_wide": 0,
+    "shell_pool_wide": 0,
+    "propagate_sweeps_wide": 0,
+    "propagate_batch_wide": 0,
+    "demote_ema_wide": 0,
+    "exact_demote_ema_wide": 0,
 }
 
 # The stencil kernels (K1 and the demotion EMAs of K11 and K13c on its run
-# table, K2, K14) take any tap set of at most MAX_TAPS offsets within halo
-# MAX_HALO (csrc/common.cuh): the ball of r^2 < 64 has 2,103 taps.
-
-MAX_TAPS = 2112
-MAX_HALO = 7
+# table, K2, K14) take any tap set.  One run table holds a set within halo
+# TABLE_HALO (csrc/common.cuh VOFOD_MAX_HALO), and K2's taps travel by value
+# up to TAP_STRUCT taps within it (VOFOD_MAX_TAPS_LARGE; the ball of r^2 <
+# 64 has 2,103): the production radii.  A set past either takes every
+# stencil's wide form (ops/morphology.is_wide; "*_wide" in LAUNCHES): K1's
+# run table cut into pieces within
+# TABLE_HALO (ops/morphology.WideTable), one launch a piece, and K2's taps
+# in bands from global memory (:func:`sweep_plan`).
+TABLE_HALO = 7
+TAP_STRUCT = 2112
+# the wide K2's dynamic shared memory a block, at most: a band's box and its
+# taps' offsets (the H100 opts in to 232,448 bytes a block)
+K2_WIDE_SMEM = 200 * 1024
 # their output tile (z, y, x): csrc/common.cuh TILE_Z, TILE_Y, TILE_X
 TILE_ZYX = (4, 8, 32)
 # K4's, K15b-3's and K15b-4b's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
@@ -197,6 +211,15 @@ def load():
         lib.vofod_propagate_sweeps.argtypes = [
             _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
             _P, _P, ctypes.POINTER(_I), _P]
+        lib.vofod_propagate_sweeps_wide.argtypes = [
+            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+            _P, _P, _P, _P, _P, ctypes.POINTER(_I), _P]
+        lib.vofod_ball_pool_wide.argtypes = [
+            _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
+        lib.vofod_demote_ema_wide.argtypes = [
+            _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P]
+        lib.vofod_exact_demote_ema_wide.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P]
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -259,7 +282,9 @@ def load():
                    lib.vofod_cone_sweep_z, lib.vofod_cone_sweep_zt, lib.vofod_census_scatter,
                    lib.vofod_census_read,
                    lib.vofod_quirk_columns, lib.vofod_quirk_ranks, lib.vofod_quirk_query,
-                   lib.vofod_explore_cut, lib.vofod_explore_seq_stack):
+                   lib.vofod_explore_cut, lib.vofod_explore_seq_stack,
+                   lib.vofod_propagate_sweeps_wide, lib.vofod_ball_pool_wide,
+                   lib.vofod_demote_ema_wide, lib.vofod_exact_demote_ema_wide):
             fn.restype = _I
         _lib = lib
         return lib
@@ -290,15 +315,22 @@ def _require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
 
 
 def _taps_arg(taps: np.ndarray, halo: int):
-    """The tap set as the C entry points take it; raises past the kernels'
-    limits (MAX_TAPS taps, every |offset| <= halo <= MAX_HALO)."""
+    """The tap set as the C entry points take it; raises for an empty set or
+    one reaching past ``halo``."""
     arr = np.ascontiguousarray(taps, dtype=np.int32).reshape(-1, 3)
     reach = int(np.abs(arr).max()) if len(arr) else 0
-    if not (1 <= len(arr) <= MAX_TAPS and reach <= halo <= MAX_HALO):
-        raise ValueError(
-            f"the stencil kernels take 1-{MAX_TAPS} taps within halo {MAX_HALO} (radius < 8 "
-            f"voxels); got {len(arr)} taps reaching {reach} with halo {halo}")
+    if not (len(arr) >= 1 and reach <= halo):
+        raise ValueError(f"the stencil kernels take a non-empty tap set within its halo; got "
+                         f"{len(arr)} taps reaching {reach} with halo {halo}")
     return arr, arr.ctypes.data_as(_P)
+
+
+def _fold_scratch(shape, dtype, device) -> torch.Tensor:
+    """The wide run-table forms' fold: int32 (nz, ny, units a row, 4 words),
+    K1's unit of 8 int8 voxels (4 words of s16 pairs) or 4 int32 voxels."""
+    nz, ny, nx = shape
+    vx = 8 if dtype == torch.int8 else 4
+    return torch.empty((nz, ny, -(-nx // vx), 4), dtype=torch.int32, device=device)
 
 
 _DTYPE_CODE = {torch.int8: 0, torch.int32: 1}
@@ -322,11 +354,18 @@ def _pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str, fill: int,
     table = run_table(taps, halo)
     out = torch.empty_like(a)
     nz, ny, nx = a.shape
+    if table.wide:
+        acc = _fold_scratch(a.shape, a.dtype, a.device)
+        err = load().vofod_ball_pool_wide(
+            a.data_ptr(), out.data_ptr(), _DTYPE_CODE[a.dtype], _OP_CODE[op], nz, ny, nx,
+            *table.args, int(fill), acc.data_ptr(), used, _stream(a.get_device()))
+        _check(err, "vofod_ball_pool_wide")
+        return out, table.n_pieces
     err = load().vofod_ball_pool(
         a.data_ptr(), out.data_ptr(), _DTYPE_CODE[a.dtype], _OP_CODE[op],
         nz, ny, nx, table.blob_ptr, len(table.blob), int(fill), used, _stream(a.get_device()))
     _check(err, "vofod_ball_pool")
-    return out
+    return out, 0
 
 
 def ball_pool_schedule(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
@@ -334,17 +373,26 @@ def ball_pool_schedule(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
     """K1 once, with the schedule the card chose for it: (output, {zchunk,
     blocks, blocks_per_sm})."""
     used = (ctypes.c_int * 3)()
-    out = _pool(a, taps, halo, op, fill, used)
-    _count("ball_pool")
+    out, pieces = _pool(a, taps, halo, op, fill, used)
+    _count_pool("ball_pool", pieces)
     return out, _schedule(used)
+
+
+def _count_pool(name: str, pieces: int) -> None:
+    """A run-table call's launches: one, or one a piece of the wide form."""
+    if pieces:
+        _count(name + "_wide", pieces)
+    else:
+        _count(name)
 
 
 def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
               fill: int) -> torch.Tensor:
     """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill),
-    run from the tap set's run table (ops/morphology.run_table)."""
-    out = _pool(a, taps, halo, op, fill)
-    _count("ball_pool")
+    run from the tap set's run table (ops/morphology.run_table); a set past
+    halo 7 in the wide form, one launch a piece."""
+    out, pieces = _pool(a, taps, halo, op, fill)
+    _count_pool("ball_pool", pieces)
     return out
 
 
@@ -352,8 +400,8 @@ def shell_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
                fill: int) -> torch.Tensor:
     """K14: the traced-radius pool of cfg.dynamic_radii — K1's kernel on the
     kept shells of a static bound (ops/morphology.shell_taps)."""
-    out = _pool(a, taps, halo, op, fill)
-    _count("shell_pool")
+    out, pieces = _pool(a, taps, halo, op, fill)
+    _count_pool("shell_pool", pieces)
     return out
 
 
@@ -402,14 +450,106 @@ def _sweeps(buf0, buf1, occ, taps, halo, scratch, launch: int, i0: int, n: int, 
     nz, ny, nx = buf0.shape
     fz0, fz1 = (0, nz) if rows is None else rows
     blocks = _I(0)
+    tail = (i0, n, grow, fz0, fz1, None if gate is None else gate.data_ptr(), share,
+            changed.data_ptr(), tiles.data_ptr(), barriers.data_ptr() + 4 * launch,
+            marks.data_ptr(), lists.data_ptr(), tile_occ.data_ptr(), ctypes.byref(blocks),
+            _stream())
+    from vofod_tpu_torch.ops.morphology import is_wide  # it imports this module
+    if is_wide(keep, halo):
+        plan = sweep_plan(keep, halo, buf0.element_size())
+        err = load().vofod_propagate_sweeps_wide(
+            buf0.data_ptr(), buf1.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
+            plan.on(buf0.device).data_ptr(), plan.n_bands, plan.bz, plan.by, plan.max_taps,
+            halo, *tail)
+        _check(err, "vofod_propagate_sweeps_wide")
+        _count(name + "_wide")
+        return blocks.value
     err = load().vofod_propagate_sweeps(
         buf0.data_ptr(), buf1.data_ptr(), occ.data_ptr(), mode, nz, ny, nx, ptr, len(keep),
-        halo, i0, n, grow, fz0, fz1, None if gate is None else gate.data_ptr(), share,
-        changed.data_ptr(), tiles.data_ptr(), barriers.data_ptr() + 4 * launch, marks.data_ptr(),
-        lists.data_ptr(), tile_occ.data_ptr(), ctypes.byref(blocks), _stream())
+        halo, *tail)
     _check(err, "vofod_propagate_sweeps")
     _count(name)
     return blocks.value
+
+
+class SweepPlan:
+    """K2's wide form's taps (csrc/propagate.cu ``WideTaps``): the set cut
+    into bands of at most ``bz`` dz x ``by`` dy values, band b the taps
+    ``bands[b, 2]:bands[b, 3]`` with dz from ``bands[b, 0]`` and dy from
+    ``bands[b, 1]``; ``offsets`` each tap's index into its band's box of
+    (TILE_Z + bz - 1) x (TILE_Y + by - 1) x (TILE_X + 2 halo) cells, from the
+    box cell of the tile's first voxel; ``taps`` in band order.  The
+    extents are the widest that keep the box and a band's offsets within
+    :data:`K2_WIDE_SMEM` with the fewest cells staged over the bands."""
+
+    def __init__(self, taps: np.ndarray, halo: int, itemsize: int):
+        tz, ty, tx = TILE_ZYX
+        sx = tx + 2 * halo
+        best = None
+        for by in range(2 * halo + 1, 0, -1):
+            for bz in range(2 * halo + 1, 0, -1):
+                box = sx * (ty + by - 1) * (tz + bz - 1)
+                if -(-box * itemsize // 16) * 16 > K2_WIDE_SMEM:
+                    continue
+                band = (taps[:, 0] + halo) // bz * (2 * halo + 1) + (taps[:, 1] + halo) // by
+                _, counts = np.unique(band, return_counts=True)
+                if -(-box * itemsize // 16) * 16 + 4 * int(counts.max()) > K2_WIDE_SMEM:
+                    continue
+                cost = len(counts) * box
+                if best is None or cost < best[0]:
+                    best = (cost, bz, by, band)
+                break  # the widest bz that fits this by
+        if best is None:
+            raise ValueError(f"K2's wide form stages no band of halo {halo} within "
+                             f"{K2_WIDE_SMEM} bytes")
+        _, bz, by, band = best
+        order = np.argsort(band, kind="stable")
+        self.taps = taps[order]
+        keys, first, counts = np.unique(band[order], return_index=True, return_counts=True)
+        z0 = keys // (2 * halo + 1) * bz - halo
+        y0 = keys % (2 * halo + 1) * by - halo
+        self.bands = np.stack([z0, y0, first, first + counts], 1).astype(np.int32)
+        band_of = np.repeat(np.arange(len(keys)), counts)
+        dz, dy, dx = self.taps.T
+        self.offsets = (((dz - z0[band_of]) * (ty + by - 1) + dy - y0[band_of]) * sx
+                        + dx + halo).astype(np.int32)
+        self.halo, self.bz, self.by = halo, bz, by
+        self.n_bands, self.max_taps = len(keys), int(counts.max())
+        self._flat = torch.from_numpy(np.concatenate([self.bands.reshape(-1), self.offsets]))
+        self._dev: dict = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        """The plan as the kernel reads it (int32 [4 n_bands + n_taps]), on
+        ``device``: copied once a (device, stream) from pinned memory on that
+        stream, so that the launches after it on the stream see it and no
+        copy waits on the host."""
+        key = (str(device), _stream(device.index))
+        got = self._dev.get(key)
+        if got is None:
+            with _lock:
+                got = self._dev.get(key)
+                if got is None:
+                    if not self._flat.is_pinned():
+                        self._flat = self._flat.pin_memory()  # kept: the copies read it later
+                    got = self._dev[key] = self._flat.to(device, non_blocking=True)
+        return got
+
+
+_plans: dict = {}
+
+
+def sweep_plan(taps: np.ndarray, halo: int, itemsize: int) -> SweepPlan:
+    """The :class:`SweepPlan` of a tap set, built once per set, halo and
+    element size."""
+    arr = np.ascontiguousarray(taps, dtype=np.int32).reshape(-1, 3)
+    key = (arr.tobytes(), halo, itemsize)
+    plan = _plans.get(key)
+    if plan is None:
+        with _lock:
+            plan = _plans.get(key)
+            if plan is None:
+                plan = _plans[key] = SweepPlan(arr, halo, itemsize)
+    return plan
 
 
 def sweep_buffers(init: torch.Tensor, halo: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -614,8 +754,8 @@ def explore(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torch.Te
     if vmap.dim() != 3:
         raise ValueError("explore takes a 3-D grid")
     Q, S = qx.shape[0], int(submap)
-    if not 2 <= S <= 62:
-        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
+    if not 2 <= S <= 64:
+        raise ValueError(f"explore submap side must be in [2, 64], got {S}")
     _require(vmap, "explore grid", torch.float32)
     for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (max_manhattan, "max_manhattan")):
         _require(t, f"explore {name}", torch.int32, (Q,))
@@ -721,8 +861,8 @@ def _seq_args(name: str, Q: int, S: int, qx, qy, qz, qvalid, qlabels, qids, qslo
               max_manhattan, query_overflow, stats) -> int:
     """Checks K7s's / K15b-7b's query table; returns K."""
     K = qslot.shape[-1] if qslot.dim() == 2 else 0
-    if not 2 <= S <= 62:
-        raise ValueError(f"explore submap side must be in [2, 62], got {S}")
+    if not 2 <= S <= 64:
+        raise ValueError(f"explore submap side must be in [2, 64], got {S}")
     if not (1 <= Q <= 4096 and K >= 1):
         raise ValueError(f"{name} takes 1-4096 queries and >= 1 slot, got Q={Q}, K={K}")
     for t, what in ((qx, "qx"), (qy, "qy"), (qz, "qz"), (qlabels, "qlabels"), (qids, "qids"),
@@ -786,8 +926,8 @@ def explore_cut(vmap: torch.Tensor, qx: torch.Tensor, qy: torch.Tensor, qz: torc
     if vmap.dim() != 3:
         raise ValueError("explore_cut takes a 3-D grid")
     Q, S = qx.shape[0], int(submap)
-    if not 2 <= S <= 62 or not 1 <= Q <= 65535:
-        raise ValueError(f"explore_cut takes S in [2, 62] and 1-65535 queries, got S={S}, Q={Q}")
+    if not 2 <= S <= 64 or not 1 <= Q <= 65535:
+        raise ValueError(f"explore_cut takes S in [2, 64] and 1-65535 queries, got S={S}, Q={Q}")
     _require(vmap, "explore_cut grid", torch.float32)
     for t, name in ((qx, "qx"), (qy, "qy"), (qz, "qz")):
         _require(t, f"explore_cut {name}", torch.int32, (Q,))
@@ -1106,9 +1246,17 @@ def _demote(vals, bg, safe, sure_sufficient, taps, halo, w1, c, used=None) -> to
     table = run_table(taps, halo)
     out = torch.empty_like(vals)
     nz, ny, nx = vals.shape
+    head = (vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
+            nz, ny, nx)
+    if table.wide:
+        acc = _fold_scratch(vals.shape, torch.int8, vals.device)
+        err = load().vofod_demote_ema_wide(*head, *table.args, float(w1), float(c),
+                                           out.data_ptr(), acc.data_ptr(), used, _stream())
+        _check(err, "vofod_demote_ema_wide")
+        _count("demote_ema_wide", table.n_pieces)
+        return out
     err = load().vofod_demote_ema(
-        vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
-        nz, ny, nx, table.blob_ptr, len(table.blob), float(w1), float(c), out.data_ptr(), used,
+        *head, table.blob_ptr, len(table.blob), float(w1), float(c), out.data_ptr(), used,
         _stream())
     _check(err, "vofod_demote_ema")
     _count("demote_ema")
@@ -1368,11 +1516,25 @@ def _exact_demote(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_su
     safe = torch.empty(vals.shape, dtype=torch.bool, device=dev)
     sure_out = torch.empty((), dtype=torch.bool, device=dev)
     floats = _host_f32(min_sure, w1, score, thr_new)
+    head = (vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
+            prev_sure.data_ptr(), nz, ny, nx, int(lsz))
+    outs = (floats[1], None if win is None else win[1], out.data_ptr(), safe.data_ptr(),
+            sure_out.data_ptr())
+    if table.wide:
+        # k sums in the s16 lanes of csrc/ema.cu: at most the centres (one a
+        # lsz-lattice point) in the ball's box, never near 2^15 at the exact
+        # census's leaf, ceil(r) - 1
+        if min(len(taps), ((2 * halo) // lsz + 1) ** 3) >= 2**15:
+            raise ValueError(f"K13c sums fewer than 2^15 centres a voxel: {len(taps)} taps "
+                             f"at leaf size {lsz}")
+        acc = _fold_scratch(vals.shape, torch.int8, dev)
+        err = load().vofod_exact_demote_ema_wide(*head, *table.args, *outs, acc.data_ptr(), used,
+                                                 _stream())
+        _check(err, "vofod_exact_demote_ema_wide")
+        _count("exact_demote_ema_wide", table.n_pieces)
+        return out, safe, sure_out
     err = load().vofod_exact_demote_ema(
-        vals.data_ptr(), occ_c.data_ptr(), census.data_ptr(), flags.data_ptr(),
-        prev_sure.data_ptr(), nz, ny, nx, int(lsz), table.blob_ptr, len(table.blob), floats[1],
-        None if win is None else win[1], out.data_ptr(), safe.data_ptr(), sure_out.data_ptr(),
-        used, _stream())
+        *head, table.blob_ptr, len(table.blob), *outs, used, _stream())
     _check(err, "vofod_exact_demote_ema")
     _count("exact_demote_ema")
     return out, safe, sure_out

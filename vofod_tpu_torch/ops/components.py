@@ -45,11 +45,15 @@ the census between them.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
-from vofod_tpu_torch.ops.morphology import Shells, pool_plain, tap_set
+from vofod_tpu_torch.ops.morphology import (
+    _COMBINE, Shells, is_wide, pool_plain, tap_set, x_runs)
 
 Tensor = torch.Tensor
 
@@ -65,6 +69,74 @@ def sweep_plain(cur: Tensor, occ: Tensor, ball) -> tuple[Tensor, Tensor]:
         new = torch.where(occ, pool_plain(cur, ball, "min", SENTINEL), SENTINEL)
     else:
         pooled = pool_plain(cur.view(torch.int8), ball, "max", 0)
+        new = cur | (occ & (pooled > 0)).to(torch.uint8)
+    return new, torch.any(new != cur)
+
+
+@functools.lru_cache(maxsize=64)
+def _band_runs(plan: kernels.SweepPlan) -> tuple:
+    """Each band's taps as the wide K2 reads them, as x-runs: its offsets
+    decoded through the band's box (csrc/propagate.cu ``sweep_voxel_wide``:
+    (TILE_Z + bz - 1) x (TILE_Y + by - 1) x (TILE_X + 2 halo) cells from
+    the tile's first voxel moved by (z0, y0, -halo)); raises where an
+    offset would carry past its box's row, plane or end for a voxel of the
+    tile (plans live as long as the process)."""
+    tz, ty, tx = kernels.TILE_ZYX
+    h = plan.halo
+    sx, sy = tx + 2 * h, ty + plan.by - 1
+    out = []
+    for z0, y0, t0, t1 in plan.bands.tolist():
+        off = plan.offsets[t0:t1].astype(np.int64)
+        oz, rest = np.divmod(off, sy * sx)
+        oy, ox = np.divmod(rest, sx)
+        if not ((off >= 0) & (oz < plan.bz) & (oy < plan.by) & (ox <= 2 * h)).all():
+            raise ValueError(f"K2's band at dz {z0}, dy {y0} reads past its box")
+        out.append(tuple(x_runs(np.stack([z0 + oz, y0 + oy, ox - h], 1))))
+    return tuple(out)
+
+
+def bands_pool_plain(a: Tensor, plan: kernels.SweepPlan, op: str, fill: int) -> Tensor:
+    """Plain model of the wide K2's pool (csrc/propagate.cu
+    ``sweep_voxel_wide``), on any device: out[v] = ``op`` over the
+    ``plan``'s bands in order, each band's taps decoded from its offsets
+    (:func:`_band_runs`) and pooled as x-runs (one shifted combine a run of
+    the pools of its (lo, hi) pair) from ``a`` padded by ``fill``."""
+    combine = _COMBINE[op]
+    nz, ny, nx = a.shape
+    h = plan.halo
+    pad = F.pad(a, (h, h, h, h, h, h), value=fill)
+    xpools: dict = {}
+
+    def xpool(lo: int, hi: int) -> Tensor:
+        if (lo, hi) not in xpools:
+            p = pad[:, :, h + lo: h + lo + nx]
+            for k in range(lo + 1, hi + 1):
+                p = combine(p, pad[:, :, h + k: h + k + nx])
+            xpools[lo, hi] = p
+        return xpools[lo, hi]
+
+    out = None
+    for runs in _band_runs(plan):
+        band = None
+        for dz, dy, lo, hi in runs:
+            s = xpool(lo, hi)[h + dz: h + dz + nz, h + dy: h + dy + ny]
+            band = s if band is None else combine(band, s)
+        out = band if out is None else combine(out, band)
+    return out.contiguous()
+
+
+def sweep_model(cur: Tensor, occ: Tensor, ball) -> tuple[Tensor, Tensor]:
+    """One K2 sweep as the kernel pools it: :func:`sweep_plain` in the
+    narrow form, the wide form's bands (:func:`bands_pool_plain`) where
+    ``is_wide``."""
+    taps, halo = tap_set(ball)
+    if not is_wide(taps, halo):
+        return sweep_plain(cur, occ, ball)
+    plan = kernels.sweep_plan(taps, halo, cur.element_size())
+    if cur.dtype == torch.int32:
+        new = torch.where(occ, bands_pool_plain(cur, plan, "min", SENTINEL), SENTINEL)
+    else:
+        pooled = bands_pool_plain(cur.view(torch.int8), plan, "max", 0)
         new = cur | (occ & (pooled > 0)).to(torch.uint8)
     return new, torch.any(new != cur)
 
@@ -109,7 +181,8 @@ def sweeps_batch_plain(buf0: Tensor, buf1: Tensor, occ: Tensor, ball, changed: T
     rows; the others keep what the destination holds.  Writes
     ``changed[i0 + s]`` (1 iff a voxel of the z ``rows``, default all,
     changed) and ``tiles[i0 + s]`` (tiles computed), and stops when the
-    next sweep has no tile.  With ``gate`` 0 it does nothing."""
+    next sweep has no tile.  With ``gate`` 0 it does nothing.  Each sweep pools as
+    :func:`sweep_model` (the wide form's bands past halo 7)."""
     if gate is not None and not bool(gate):
         return
     _, halo = tap_set(ball)
@@ -147,7 +220,7 @@ def sweeps_batch_plain(buf0: Tensor, buf1: Tensor, occ: Tensor, ball, changed: T
         za, zb = int(rows_on[0]) * tile[0], min(nz, (int(rows_on[-1]) + 1) * tile[0])
         ra, rb = max(0, za - halo), min(nz, zb + halo)
         new = src.clone()
-        new[za:zb] = sweep_plain(src[ra:rb], occ[ra:rb], ball)[0][za - ra:zb - ra]
+        new[za:zb] = sweep_model(src[ra:rb], occ[ra:rb], ball)[0][za - ra:zb - ra]
         dst.copy_(torch.where(vox, new, dst))
         d = vox & (new != src)
         tile_changed = _tiles_any(d & (z >= lo) & (z < hi), grid_t, tile)

@@ -17,7 +17,7 @@ count is the int32 K7 zeroed after its corners (``kernels.demote_count``).
 
 The reached set travels between the two as packed rows: int64 [Q, S, S]
 with bit x of row (z, y) set when voxel (z, y, x) of the query's submap was
-explored (S <= 62).  :func:`explore_to_ground` and :func:`apply_demotions`
+explored (S <= 64).  :func:`explore_to_ground` and :func:`apply_demotions`
 keep the JAX package's bool [Q, S, S, S] form for the tests.  One deliberate
 difference: the reached set of an invalid query is empty here, where the
 JAX version may hold its centre voxel; no caller reads it (an invalid query
@@ -86,13 +86,24 @@ def unpack_rows(b: Tensor, S: int) -> Tensor:
     return ((b[..., None] >> sh) & 1).to(torch.bool)
 
 
+def _full(S: int) -> int:
+    """The int64 value of a row's S low bits (all 64: -1)."""
+    return -1 if S == 64 else (1 << S) - 1
+
+
+def _shr(m: Tensor, k: int) -> Tensor:
+    """Rows shifted right by k >= 0 bits as unsigned words (torch's int64
+    shift carries bit 63 down)."""
+    return (m >> k) & _full(64 - k) if k else m
+
+
 def _dil6_bits(m: Tensor, full: int) -> Tensor:
     """6-neighbour dilation of bit-packed [Q, S(z), S(y)] rows (x in bits)."""
     p = F.pad(m, (1, 1, 1, 1))
     S = m.shape[1]
     return (
         m
-        | ((m << 1) & full) | (m >> 1)
+        | ((m << 1) & full) | _shr(m, 1)
         | p[:, 2:, 1:-1] | p[:, :S, 1:-1]
         | p[:, 1:-1, 2:] | p[:, 1:-1, :S]
     )
@@ -128,7 +139,7 @@ def _bfs_plain(unknown: Tensor, ground: Tensor, bound: Tensor, max_iters: int,
     half = S // 2
     manh = _manhattan(S, dev)
     ball = manh[None] <= bound[:, None, None, None]
-    full = (1 << S) - 1
+    full = _full(S)
     exp_bits = _pack_rows(unknown & ball)  # [Q, S, S]
     # start: the centre voxel (built from comparisons: no host-to-device copy)
     is_mid = torch.arange(S, device=dev) == half
@@ -305,8 +316,8 @@ def explore_plain(
     packed rows, corners int32 [Q, 3] (z, y, x) submap corner in grid
     coords)."""
     S = submap
-    if S > 62:
-        raise ValueError("explore submap side must be <= 62 (int64 rows)")
+    if S > 64:
+        raise ValueError("explore submap side must be <= 64 (int64 rows)")
     half = S // 2
     z_lo = 0 if z_window is None else z_window[0]
     vals = _submaps(vmap_grid, qx, qy, qz, S, z_lo)  # [Q, S, S, S]
@@ -448,7 +459,9 @@ def demote_rows_plain(vmap_grid: Tensor, reached_bits: Tensor, corners: Tensor, 
     row_in = (gz >= 0) & (gz < nz_g) & (lz >= 0) & (lz < nz) & (gy >= 0) & (gy < ny)
     x0 = corners[:, 2].long()
     xlo, xhi = (-x0).clamp(min=0), (nx - x0).clamp(max=S)
-    xmask = torch.where(xhi > xlo, ((1 << (xhi - xlo).clamp(min=0)) - 1) << xlo, 0)
+    width = (xhi - xlo).clamp(min=0)
+    low = torch.where(width >= 64, -1, (1 << width.clamp(max=63)) - 1)
+    xmask = torch.where(xhi > xlo, low << xlo, 0)
     w = torch.where(row_in & demote[:, None], reached_bits.reshape(Q, -1) & xmask[:, None], 0)
     hit = unpack_rows(w, S)  # [Q, S * S, S]: lane x of each non-empty row
     count = hit.sum().to(torch.int32)
@@ -694,7 +707,7 @@ def _shifted_rows(w: Tensor, d: tuple[int, int, int]) -> Tensor:
     out = torch.zeros_like(w)
     z0, z1, y0, y1 = max(0, -dz), min(S, S - dz), max(0, -dy), min(S, S - dy)
     src = w[z0 + dz:z1 + dz, y0 + dy:y1 + dy]
-    out[z0:z1, y0:y1] = (src >> dx) if dx >= 0 else (src << -dx) & ((1 << S) - 1)
+    out[z0:z1, y0:y1] = _shr(src, dx) if dx >= 0 else (src << -dx) & _full(S)
     return out
 
 

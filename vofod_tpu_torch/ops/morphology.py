@@ -10,15 +10,17 @@ bound kept by a runtime r², another K1 tap set: :func:`shell_taps`).
 
 A "ball" below is a radius (the static ball of :func:`ball_offsets`), the
 :class:`Shells` of a traced-radius pool, or a tap set, int32 [n_taps, 3].
-The CUDA kernels take any tap set within halo 7 (radius < 8 voxels, at
-most 2,103 taps); past that they raise.
+The CUDA kernels take any tap set, of any radius.
 
 A CUDA tensor goes to the hand-written stencil (csrc/ball_pool.cu), given
-the ball's :class:`RunTable` (its x-runs, pairs and z slices); a CPU tensor
-takes the plain version below, which is the JAX decomposition (x running
-pools shared across rows, then one shifted combine per (dz, dy) row).
-:func:`ball_pool_runs_plain` models the kernel's schedule on the CPU.
-Integer pools are exact in any order, so all are bit-equal to JAX.
+the ball's :class:`RunTable` (its x-runs, pairs and z slices) within halo
+7, or past it its :class:`WideTable` (the set cut into pieces within halo
+7, one launch a piece, the pieces' pools folded); a CPU tensor takes the
+plain version below, which is the JAX decomposition (x running pools
+shared across rows, then one shifted combine per (dz, dy) row).
+:func:`ball_pool_runs_plain` models the kernel's schedule, both forms, on
+the CPU.  Integer pools are exact in any order, so all are bit-equal to
+JAX.
 
 Grids are (nz, ny, nx); radii are in voxel units and may be fractional.
 """
@@ -28,6 +30,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -107,6 +110,7 @@ class RunTable:
     rows: np.ndarray
     blob: np.ndarray
     blob_ptr: int  # the blob's address, taken once (numpy's .ctypes costs a microsecond)
+    wide: ClassVar[bool] = False
 
     @property
     def n_groups(self) -> int:
@@ -127,8 +131,56 @@ class RunTable:
         return n
 
 
-# a slice's accumulators k = halo - dz: at most 2 x the largest halo + 1
-_KS = 2 * kernels.MAX_HALO + 1
+@dataclass(frozen=True, eq=False)
+class WideTable:
+    """A tap set past halo 7 as the kernels' wide form runs it
+    (csrc/ball_pool.cuh ``PieceIO``): each axis of the set's extent cut into
+    segments of at most 15 offsets, and each box of segments that holds taps
+    a piece: its taps recentred on the box's centre ``shifts[i]`` (dz, dy,
+    dx), a :class:`RunTable` within halo 7 (``pieces[i]``).  A piece's
+    launch stages the input shifted by its centre and folds its pool into
+    the pieces' before it; ``blob``, ``lens`` and ``shifts`` are what the C
+    entry points take (the pieces' packed tables back to back)."""
+
+    halo: int
+    shifts: np.ndarray  # int32 [n_pieces, 3]
+    pieces: tuple
+    blob: np.ndarray
+    lens: np.ndarray
+    wide: ClassVar[bool] = True
+
+    @property
+    def n_pieces(self) -> int:
+        return len(self.pieces)
+
+    @property
+    def args(self) -> tuple:
+        """(tables, lens, shifts, n_pieces) as the wide entries take them."""
+        return (self.blob.ctypes.data, self.lens.ctypes.data, self.shifts.ctypes.data,
+                self.n_pieces)
+
+    def combines(self) -> int:
+        """Combines an output voxel takes over the pieces, one more a piece
+        for the fold."""
+        return sum(p.combines() + 1 for p in self.pieces)
+
+
+def pool_combines(taps: np.ndarray) -> int:
+    """Combines an output voxel of a pool over ``taps`` takes in the run
+    decomposition, counted as one run table of any size and halo would
+    take them, whatever cut the kernel makes: 2 a step of one chain of the
+    symmetric pairs (to the widest), hi - lo for any other pair, one a
+    slice row (equal slices, a ball's dz and -dz, counted once) and one a
+    slice's accumulator (one a dz).  A narrow table of one group counts
+    the same (:meth:`RunTable.combines`)."""
+    runs = x_runs(taps)
+    pairs = {(lo, hi) for _, _, lo, hi in runs}
+    n = 2 * max((hi for lo, hi in pairs if lo == -hi), default=0)
+    n += sum(hi - lo for lo, hi in pairs if lo != -hi)
+    by_dz: dict[int, list] = {}
+    for dz, dy, lo, hi in runs:
+        by_dz.setdefault(dz, []).append((dy, lo, hi))
+    return n + sum(map(len, {tuple(sorted(s)) for s in by_dz.values()})) + len(by_dz)
 
 
 def x_runs(taps: np.ndarray) -> list[tuple[int, int, int, int]]:
@@ -185,19 +237,76 @@ def _build_run_table(taps: np.ndarray, halo: int) -> RunTable:
     gslice = np.asarray(gslice, np.int32)
     blob = np.concatenate([
         [halo, len(runs), len(rows), len(slices)], runs.reshape(-1), sym.reshape(-1), gslice,
-        slices.reshape(-1), (rows[:, 0] + kernels.MAX_HALO) * 256 + rows[:, 1]]).astype(np.int16)
+        slices.reshape(-1), (rows[:, 0] + kernels.TABLE_HALO) * 256 + rows[:, 1]]).astype(np.int16)
     return RunTable(halo, runs, sym, gslice, slices, rows, blob, blob.ctypes.data)
 
 
+def _segments(lo: int, hi: int, centred: bool = False) -> list[tuple[int, int]]:
+    """[lo, hi] cut into the fewest segments of at most 2 x 7 + 1 offsets,
+    of near-equal length; with ``centred`` and an odd length, the fewest
+    odd number of them, mirrored about the range's centre (the middle one
+    centred on it)."""
+    size, width = hi - lo + 1, 2 * kernels.TABLE_HALO + 1
+    n = -(-size // width)
+    if centred and size % 2 and n > 1:
+        n += n % 2 == 0
+        m, k = size // n | 1, n // 2  # the middle's length (odd); segments a side
+        side = (size - m) // 2
+        left = [(lo + side * i // k, lo + side * (i + 1) // k - 1) for i in range(k)]
+        right = [(lo + hi - b, lo + hi - a) for a, b in reversed(left)]
+        return left + [(lo + side, hi - side)] + right
+    edges = [lo + size * i // n for i in range(n + 1)]
+    return [(edges[i], edges[i + 1] - 1) for i in range(n)]
+
+
+def _build_wide_table(taps: np.ndarray, halo: int) -> WideTable:
+    kernels._taps_arg(taps, halo)
+    if len(np.unique(taps, axis=0)) != len(taps):
+        raise ValueError("a ball pool's tap set must not repeat a tap")
+    # x cut about its centre: a ball's middle pieces keep symmetric x-runs,
+    # pooled on the chain, and the outer ones short runs
+    axes = [_segments(int(taps[:, k].min()), int(taps[:, k].max()), centred=k == 2)
+            for k in range(3)]
+    shifts, pieces = [], []
+    for sz in axes[0]:
+        for sy in axes[1]:
+            for sx in axes[2]:
+                lo, hi = np.array([sz[0], sy[0], sx[0]]), np.array([sz[1], sy[1], sx[1]])
+                sel = ((taps >= lo) & (taps <= hi)).all(1)
+                if not sel.any():
+                    continue
+                centre = (lo + hi) // 2
+                rel = (taps[sel] - centre).astype(np.int32)
+                shifts.append(centre)
+                pieces.append(_build_run_table(rel, int(np.abs(rel).max())))
+    return WideTable(halo, np.asarray(shifts, np.int32).reshape(-1, 3), tuple(pieces),
+                     np.concatenate([p.blob for p in pieces]),
+                     np.asarray([len(p.blob) for p in pieces], np.int32))
+
+
+def is_wide(taps: np.ndarray, halo: int) -> bool:
+    """Whether the stencil kernels (K1, K14, K11's demotion, K13c and K2)
+    take a tap set at ``halo`` in their wide forms: past one run table's
+    halo (:data:`kernels.TABLE_HALO`), or past the :data:`kernels.TAP_STRUCT`
+    taps that K2's narrow form passes by value (CUDA's 32,764-byte parameter
+    limit).  One rule for both, so that a set takes the same form in K1 and
+    K2; the production sets (radius < 8, at most 2,103 taps) are narrow."""
+    return halo > kernels.TABLE_HALO or len(taps) > kernels.TAP_STRUCT
+
+
 @functools.lru_cache(maxsize=256)
-def _run_table_of_taps(key: bytes, halo: int) -> RunTable:
-    return _build_run_table(np.frombuffer(key, np.int32).reshape(-1, 3), halo)
+def _run_table_of_taps(key: bytes, halo: int) -> RunTable | WideTable:
+    taps = np.frombuffer(key, np.int32).reshape(-1, 3)
+    if is_wide(taps, halo):
+        return _build_wide_table(taps, halo)
+    return _build_run_table(taps, halo)
 
 
-def run_table(ball, halo: int | None = None) -> RunTable:
+def run_table(ball, halo: int | None = None) -> RunTable | WideTable:
     """The :class:`RunTable` of a ball (a radius, traced shells or a tap
-    set) at ``halo`` (default :func:`tap_set`'s), built once per tap set
-    and halo; the kernels' wrappers pass a tap set and its halo."""
+    set) at ``halo`` (default :func:`tap_set`'s), or its :class:`WideTable`
+    where :func:`is_wide`, built once per tap set and halo; the kernels'
+    wrappers pass a tap set and its halo."""
     taps, reach = tap_set(ball)
     taps = np.ascontiguousarray(taps, np.int32).reshape(-1, 3)
     return _run_table_of_taps(taps.tobytes(), reach if halo is None else halo)
@@ -225,8 +334,21 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
     device.  The sum of int8 values (K13c's s16 pairs) is taken in int32.
     With ``skip_empty`` a tile and chunk whose staged values are all 0 pools
     nothing: its outputs are the op's identity (K11's and K13c's kernels
-    then run only their epilogue)."""
+    then run only their epilogue).
+
+    A :class:`WideTable` runs its pieces in order, each on the staging
+    shifted by its centre, and folds their pools with ``op``."""
     combine = _COMBINE[op]
+    if table.wide:
+        stage = staging if staging is not None else _grid_staging(a, fill)
+        out = None
+        for (dz, dy, dx), piece in zip(table.shifts.tolist(), table.pieces):
+            got = ball_pool_runs_plain(
+                a, piece, op, fill, tile, zchunk, skip_empty=skip_empty,
+                staging=lambda zi, rows, cols, dz=dz, dy=dy, dx=dx: stage(zi + dz, rows + dy,
+                                                                          cols + dx))
+            out = got if out is None else combine(out, got)
+        return out
     nz, ny, nx = a.shape
     h, (ty, tx), pad = table.halo, tile, 8
     nty, ntx = -(-ny // ty), -(-nx // tx)
@@ -291,6 +413,21 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
 
 
 _COMBINE = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}
+
+
+def _grid_staging(a: Tensor, fill: int):
+    """K1's staging rule as a ``staging`` function: input plane ``zi`` of
+    ``a`` at the global ``rows`` and ``cols``, ``fill`` outside the grid."""
+    nz, ny, nx = a.shape
+    fill_t = torch.tensor(fill, dtype=a.dtype, device=a.device)
+
+    def stage(zi: int, rows: Tensor, cols: Tensor) -> Tensor:
+        if not 0 <= zi < nz:
+            return fill_t.expand(len(rows), len(cols))
+        ok = ((rows >= 0) & (rows < ny))[:, None] & ((cols >= 0) & (cols < nx))[None, :]
+        v = a[zi][rows.clamp(0, ny - 1)][:, cols.clamp(0, nx - 1)]
+        return torch.where(ok, v, fill_t)
+    return stage
 
 
 def ball_pool_plain(a: Tensor, radius: float, op: str, fill: int) -> Tensor:
