@@ -8,7 +8,7 @@
                        [--variants all|NAME,...]
                        [--ray-detect-variants all|NAME,...] [--grid-sweeps-only]
                        [--grid-sweeps-variants all|K,...] [--grid-cones-only]
-                       [--grid-cones-variants all|K:C,...] [--out build/ab]
+                       [--grid-cones-variants all|K:C,...] [--wide-only] [--out build/ab]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (e.g. ``git archive``
 unpacked into a git-ignored directory).  For each letter of ``--order``
@@ -131,6 +131,15 @@ call:
   ops/raycast at run time, clusters of C blocks from a copy of the tree
   whose csrc/cone_sweep.cu (and kernels.py) has CONE_CLUSTER = C in its
   text, built on its own under the tree's build/cone_variants/.
+
+- The stencils' wide forms (K1, K14, K2 dense and in the 3-shard grid
+  step's batched launches, K11's demotion, K13c) at halo 8, 12 and 16 on
+  the inputs fine-0125's dense step passes them (its 7th scan) and on
+  seeded masks, the narrow K1 / K2 calls of the flagship sweep step's 7th
+  scan beside them, each checked bit-equal to its plain version, with its
+  CUDA-event ms, device ms and launches a call; and fine-0125's dense step
+  p50 over 24 scans with its profile (busy ms, idle share).
+  ``--wide-only`` runs these cases alone.
 
 Then it profiles 5 scans of the sweep, prebinned, dynamic (2.0 / 1.9 m)
 and exact paths (K1, K14, K15a, K9, the DDA walk, K11's demotion and K13c's
@@ -671,6 +680,198 @@ for name, (kind, a) in inputs.items():
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
 print(json.dumps(dict(nvidia_smi=smi, demote_cases=cases)))
+"""
+
+# runs in the tree's root; prints one JSON line: the stencils' wide forms on
+# the inputs fine-0125's dense step passes them (its wrappers' calls on the
+# 7th scan of a fresh node: K1's r 12 int8 max and r 8 int32 sum, K2's r 12
+# label call) and at halo 8, 12 and 16 on the same grids (K1, K14, K2's
+# label and reach, dense and in the batched launches of the 3-shard grid
+# step's slabs), K11's demotion and K13c on seeded random masks and cells,
+# the narrow K1 / K2 calls of the flagship sweep step's 7th scan, each
+# checked bit-equal to its plain version, with its CUDA-event ms, device
+# ms and launches a call; then fine-0125's dense step: p50 over 24 scans
+# of a fresh node and a profile of 5 (chip_smoke.phase5_profile: busy ms,
+# idle share, its kernels' device ms a scan)
+_WIDE_CASES = r"""
+import json
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from vofod_tpu_torch import kernels
+from vofod_tpu_torch.config import DynParams
+from vofod_tpu_torch.ops import components as tc
+from vofod_tpu_torch.ops import morphology as tm
+from vofod_tpu_torch.pipeline import sepclusters as ts
+from vofod_tpu_torch.runtime.node import NodeOptions, VoFOD
+
+dev = torch.device("cuda")
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+# the wide kernels' registers and spill stores (ptxas; on a build this run made)
+_, log = kernels.build()
+registers, entry, spill = {}, None, 0
+for ln in log.splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", ln)
+    if m:
+        entry = m.group(1)
+    elif entry and "spill stores" in ln:
+        spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+    elif entry and "Used" in ln and "registers" in ln:
+        if "wide" in entry or "WideTaps" in entry:
+            registers[entry] = [int(re.search(r"Used (\d+) registers", ln).group(1)), spill]
+        entry, spill = None, 0
+
+
+def timed(fn, reps=10):
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    return dict(ms=cs.cuda_ms(fn, reps=reps), device_ms=cs.device_profile(fn, reps=reps)["device_ms"],
+                launches=launches)
+
+
+def recorded(cfg, lut, apriori, scans):
+    # the wide and narrow K1 / K2 calls of the 7th scan of a fresh node
+    node = VoFOD(cfg, DynParams(), NodeOptions(), lut, device="cuda")
+    node.load_apriori_map(apriori)
+    for r, p in scans[:6]:
+        node.process_scan(r, None, p)
+    got, real = {"pool": [], "sweeps": []}, (kernels.ball_pool, kernels.propagate_sweeps)
+
+    def pool(a, taps, halo, op, fill):
+        got["pool"].append((a.clone(), taps, halo, op, fill))
+        return real[0](a, taps, halo, op, fill)
+
+    def sw(init, occ, taps, halo, n):
+        got["sweeps"].append((init.clone(), occ.clone(), taps, halo, n))
+        return real[1](init, occ, taps, halo, n)
+
+    kernels.ball_pool, kernels.propagate_sweeps = pool, sw
+    try:
+        node.process_scan(scans[6][0], None, scans[6][1])
+        torch.cuda.synchronize()
+    finally:
+        kernels.ball_pool, kernels.propagate_sweeps = real
+    return node, got
+
+
+def check(what, got, want):
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: the kernel differs from its plain version")
+
+
+fcfg = cs.fine_config()
+lut = cs.make_lut(fcfg.sensor)
+node, fine = recorded(fcfg, lut, cs.fine_apriori_ground(), cs.fine_scan_cycle(lut, 7))
+max8 = next(c[0] for c in fine["pool"] if c[3] == "max" and c[2] > 7)
+sum32 = next(c[0] for c in fine["pool"] if c[3] == "sum" and c[2] > 7)
+keys, occ = next((c[0], c[1].bool()) for c in fine["sweeps"] if c[3] > 7 and c[0].dtype == torch.int32)
+dyn = DynParams()
+vals = node.state.grid
+bg = vals > dyn.thr_new_obstacles
+reach0 = (bg & (vals > dyn.thr_sure_obstacles)).to(torch.uint8)
+cases = {}
+for h in (8, 12, 16):
+    for a, op in ((max8, "max"), (sum32, "sum")):
+        check(f"K1 {op} r{h}", (tm.ball_pool(a, float(h), op, 0),), (tm.pool_plain(a, float(h), op, 0),))
+        cases[f"K1 {a.dtype} {op} r{h}"] = timed(lambda: tm.ball_pool(a, float(h), op, 0))
+        cases[f"K1 {a.dtype} {op} r{h}"]["blocks_per_sm"] = kernels.ball_pool_schedule(
+            a, *tm.tap_set(float(h)), op, 0)[1]["blocks_per_sm"]
+    a, op = (sum32, "sum") if h == 12 else (max8, "max")
+    fn = lambda: tm.shell_pool(a, float(h * h), float(h), op, 0)
+    check(f"K14 b{h}", (fn(),), (tm.pool_plain(a, float(h), op, 0),))
+    cases[f"K14 {a.dtype} {op} bound {h}"] = timed(fn)
+    for what, init, o in (("label", keys, occ), ("reach", reach0, bg)):
+        fn = lambda: tc.sweeps(init, o, float(h), 8)
+        check(f"K2 {what} r{h}", fn(), tc.sweeps_plain(init, o, float(h), 8))
+        cases[f"K2 {what} r{h}"] = timed(fn, reps=5)
+        cases[f"K2 {what} r{h}"]["blocks_per_sm"] = kernels.propagate_sweeps(
+            init, o.view(torch.uint8), *tm.tap_set(float(h)), 8)[3] / sms
+# the batched launches of the 3-shard grid step at r 12: each shard's slab
+# with a halo of 8 x 12 rows, 8 sweeps a launch
+nz, nzl, halo, taps = keys.shape[0], keys.shape[0] // 3, 96, tm.ball_taps(12.0)
+for what, init, o, fill in (("label", keys, occ, tc.SENTINEL), ("reach", reach0, bg, 0)):
+    launches, want = [], tc.sweeps_plain(init, o, 12.0, 8)[0]
+    for rank in range(3):
+        z0 = rank * nzl
+        lo, hi = max(0, z0 - halo), min(nz, z0 + nzl + halo)
+        ext = torch.full((nzl + 2 * halo,) + tuple(init.shape[1:]), fill, dtype=init.dtype, device=dev)
+        ext[lo - (z0 - halo):hi - (z0 - halo)] = init[lo:hi]
+        oe = torch.zeros(ext.shape, dtype=torch.uint8, device=dev)
+        oe[lo - (z0 - halo):hi - (z0 - halo)] = o[lo:hi].to(torch.uint8)
+        bufs = torch.stack(kernels.sweep_buffers(ext))
+
+        def launch(bufs=bufs, oe=oe):
+            b = bufs.clone()
+            sc = kernels.sweeps_scratch(b.shape[1:], 8, 1, dev)
+            kernels.propagate_batch(b[0], b[1], oe, taps, 12, sc, 0, 0, 8, 12, (halo, halo + nzl), None, 3)
+            return b[0], sc
+        if not torch.equal(launch()[0][halo:halo + nzl], want[z0:z0 + nzl]):
+            raise AssertionError(f"K2 batched {what} r12: shard {rank} differs from the dense sweeps")
+        launches.append(launch)
+    def three(launches=launches):
+        for f in launches:
+            f()
+    cases[f"K2 batched {what} r12, 3 shards"] = timed(three, reps=5)
+g = torch.Generator(device=dev).manual_seed(28)
+rnd_bg = torch.rand(vals.shape, generator=g, device=dev) < 0.01
+rnd_safe = torch.rand(vals.shape, generator=g, device=dev) < 0.5
+true = torch.ones((), dtype=torch.bool, device=dev)
+for h in (8, 12, 16):
+    ball = h + 0.5
+    fn = lambda: ts.demote_ema(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0)
+    check(f"K11 r{ball}", (fn(),), (ts.demote_ema_plain(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0),))
+    cases[f"K11 r{ball}"] = timed(fn)
+    lsz = h - 1
+    cshape = tuple(-(-n // lsz) for n in vals.shape)
+    occ_c = torch.rand(cshape, generator=g, device=dev) < 0.3
+    census = torch.randint(0, 10, cshape, generator=g, device=dev, dtype=torch.int32)
+    flags = torch.tensor([True, True], device=dev)
+    prev = torch.zeros((), dtype=torch.bool, device=dev)
+    args = (occ_c, census, flags, prev, lsz, float(h), 5.0, 0.9, -500.0, -300.0)
+    fn = lambda: ts.exact_demote_ema(vals, *args)
+    check(f"K13c r{h}", fn(), ts.exact_demote_ema_plain(vals, *args))
+    cases[f"K13c r{h} leaf {lsz}"] = timed(fn)
+# the narrow calls of the flagship sweep step
+fl_lut = cs.make_lut(cs.VoFODConfig().sensor)
+_, flag = recorded(cs.VoFODConfig(), fl_lut, cs.apriori_ground(), cs.scan_cycle(fl_lut, 7))
+for i, (a, tp, h, op, fill) in enumerate(flag["pool"]):
+    fn = lambda: kernels.ball_pool(a, tp, h, op, fill)
+    check(f"narrow K1 {i}", (fn(),), (tm.tap_pool_plain(a, tp, op, fill),))
+    cases[f"narrow K1 {a.dtype} {op} halo {h} ({len(tp)} taps)"] = timed(fn, reps=20)
+for i, (init, o, tp, h, n) in enumerate(flag["sweeps"]):
+    fn = lambda: tc.sweeps(init, o.bool(), tp, n)
+    check(f"narrow K2 {i}", fn(), tc.sweeps_plain(init, o.bool(), tp, n))
+    cases[f"narrow K2 {init.dtype} halo {h} ({len(tp)} taps), {n} sweeps"] = timed(fn, reps=20)
+# fine-0125's dense step: p50 of 24 scans from a fresh node, then its profile
+step = VoFOD(fcfg, DynParams(), NodeOptions(), lut, device="cuda")
+step.load_apriori_map(cs.fine_apriori_ground())
+ms = []
+for r, p in cs.fine_scan_cycle(lut, 24):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pending = step.process_scan_async(r, None, p)
+    end.record()
+    step.fetch_result(pending)
+    torch.cuda.synchronize()
+    ms.append(start.elapsed_time(end))
+p50 = float(np.percentile(ms[4:], 50))
+prof = cs.phase5_profile(lut, p50, 5, "fine")
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True).stdout.strip()
+print(json.dumps(dict(nvidia_smi=smi, registers=registers, wide_cases=cases, fine_dense=dict(
+    step_ms_p50=p50, step_ms_p95=float(np.percentile(ms[4:], 95)),
+    device_busy_ms_per_scan=prof["device_busy_ms_per_scan"],
+    idle_share=prof["idle_share_of_unprofiled_step"],
+    port_kernels_ms_per_scan=prof["port_kernels_ms_per_scan"],
+    top_device_kernels=prof["top_device_kernels"]))))
 """
 
 # The inputs of K6 and K5a as the sweep step passes them (the wrappers'
@@ -2378,6 +2579,9 @@ def main() -> int:
     ap.add_argument("--grid-sweeps-variants", default="",
                     help="then replay K2's sharded sweeps with these SWEEP_BATCH values built "
                          "from the change's source ('all': 2,4,8,16)")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="time only the stencils' wide forms (K1, K14, K2, K11's demotion, "
+                         "K13c) and the narrow K1 / K2 flagship calls, and fine-0125's dense step")
     ap.add_argument("--grid-cones-only", action="store_true",
                     help="time only the grid steps' sharded cone sweeps (K15b-3, K15b-4b)")
     ap.add_argument("--grid-cones-variants", default="",
@@ -2395,14 +2599,16 @@ def main() -> int:
                              (args.ray_detect_only, _RAY_DETECT_CASES),
                              (args.seq_only, _SEQ_CASES),
                              (args.grid_sweeps_only, _GRID_SWEEPS),
-                             (args.grid_cones_only, _GRID_CONES)):
+                             (args.grid_cones_only, _GRID_CONES),
+                             (args.wide_only, _WIDE_CASES)):
             if flag:
                 g, gate = _json_run(script, tree)
                 ok = ok and g
                 print(json.dumps(dict(run=i, tree=name, **gate)), flush=True)
                 runs.append(dict(run=i, tree=name, **gate))
         if (args.compact_gate_only or args.explore_only or args.ray_detect_only
-                or args.seq_only or args.grid_sweeps_only or args.grid_cones_only):
+                or args.seq_only or args.grid_sweeps_only or args.grid_cones_only
+                or args.wide_only):
             continue
         d, demote = _json_run(_DEMOTE_CASES, tree)
         if args.demote_only:

@@ -701,15 +701,34 @@ def phase1() -> None:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             entry = m.group(1)
+        elif entry and "spill stores" in ln:
+            SPILLS[entry] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
         elif entry and "Used" in ln and "registers" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            REGISTERS[entry] = regs
             k = re.search(r"(ball_pool_kernel|demote_ema_kernel|exact_demote_kernel|"
                           r"ball_pool_wide_kernel|demote_ema_wide_kernel|"
                           r"exact_demote_wide_kernel|sweeps_kernel)(\w{0,40})", entry)
             if k:
-                pool.append([k.group(0), int(re.search(r"Used (\d+) registers", ln).group(1))])
+                pool.append([k.group(0), regs, SPILLS.get(entry, 0)])
             entry = None
     say("1-build", seconds=round(time.perf_counter() - t0, 3), library=so.name,
         host_library=host_so.name, ptxas=info, run_table_kernels_registers=pool)
+
+
+# every kernel's registers and spill stores in bytes (its mangled name:
+# ptxas's counts), from phase 1
+REGISTERS: dict[str, int] = {}
+SPILLS: dict[str, int] = {}
+
+
+def _registers(*parts: str, piece: bool = False) -> int | None:
+    """The registers of the one kernel whose mangled name holds every
+    ``parts``, a z piece's (``PieceIO``) iff ``piece`` (None: the build was
+    cached)."""
+    got = [r for k, r in REGISTERS.items()
+           if all(p in k for p in parts) and ("PieceIO" in k) == piece]
+    return got[0] if len(got) == 1 else None
 
 
 @contextlib.contextmanager
@@ -1972,9 +1991,11 @@ def _crop_model(kernel_out, model_out, what: str) -> None:
 def _pool_smem(table, dtype) -> int:
     """Dynamic shared bytes of K1's launch on ``table`` (csrc/ball_pool.cuh
     launch_pool: two pool buffers of a group's pairs, two staged planes,
-    the rows' offsets); a wide table's largest piece's."""
+    the rows' offsets; launch_pool_wide: the wide form's, its largest z
+    piece's)."""
     if table.wide:
-        return max(_pool_smem(p, dtype) for p in table.pieces)
+        return max(kernels.wide_pool_smem(p.halo, p.group, dtype, len(p.blob))
+                   for p in table.pieces)
     txu, ty, nw, sw = 16, 16, 4, 48 if dtype == torch.int8 else 80
     sy = ty + 2 * table.halo
     g = min(len(table.runs), kernels.BALL_RUN_GROUP)
@@ -1982,11 +2003,30 @@ def _pool_smem(table, dtype) -> int:
 
 
 def _sweep_smem(plan, halo: int, itemsize: int) -> int:
-    """Dynamic shared bytes of K2's wide launch: a band's box, 16-byte
-    aligned, and its taps' offsets (csrc/propagate.cu launch_sweeps_wide)."""
+    """Dynamic shared bytes of K2's wide launch (csrc/propagate.cu
+    launch_sweeps_wide: two pool buffers, the carry, two staged planes,
+    the table)."""
+    return kernels.sweep_wide_smem(halo, plan.group, itemsize, len(plan.blob))
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+_OPS = {"min": 0, "max": 1, "sum": 2}
+
+
+def _k2_executed(plan) -> float:
+    """Combines a voxel of a tile in K2's wide pool: its dz slices' rows,
+    and its share of the x chains (2 a width) and other pairs of the tile's
+    staged rows over its 4 + 2 h planes."""
     tz, ty, tx = kernels.TILE_ZYX
-    box = (tx + 2 * halo) * (ty + plan.by - 1) * (tz + plan.bz - 1) * itemsize
-    return -(-box // 16) * 16 + 4 * plan.max_taps
+    h = plan.halo
+    rows = sum(int(plan.slices[q, 1] - plan.slices[q, 0])
+               for g in range(plan.n_groups) for q in plan.zslice[g].tolist() if q >= 0)
+    xs = 2 * max(int(c1) for _, c1, _ in plan.chain.tolist()) + sum(
+        hi - lo for lo, hi in plan.runs.tolist() if lo != -hi)
+    return rows + (tz + 2 * h) * (ty + 2 * h) * tx * xs / (tz * ty * tx)
 
 
 def _timed(fn, name: str, n_bytes: float, n_ops: float) -> dict:
@@ -2011,10 +2051,13 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
     at r 12, K11's demotion and K13c (leaf ceil(r) - 1, as the exact census
     takes it).  Each bit-equal to its plain version on the whole grid and,
     on the grid's first 20 planes, to the plain model of its schedule (K1's
-    pieces through ``ball_pool_runs_plain``, K2's bands through
+    wide table through ``ball_pool_runs_plain``, K2's tile pool through
     ``sweeps_tiled_plain``, the demotions' through their runs models) at
-    the z chunk the card chose; event ms, device ms, launches a call and
-    the bound of each case.  Returns the kernels' records."""
+    the z chunk the card chose; event ms, device ms, launches a call, the
+    combines a voxel (the function's and the schedule's), registers,
+    shared bytes and blocks an SM, and the bound of each case (on the
+    function's combines: K2's at every voxel of the tiles computed), and
+    K1's r 8 sum beside ``F.conv3d``.  Returns the kernels' records."""
     dyn = DynParams()
     dev = vals.device
     nv = grid.n_voxels
@@ -2038,12 +2081,18 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
         _crop_model(kc, ball_pool_runs_plain(ac, table, op, 0,
                                              kernels.BALL_POOL_TILE[a.dtype], used["zchunk"]),
                     what)
-        # the function's combines, whatever the cut (the cut's own beside them)
+        # the function's combines, whatever the schedule (the table's own beside them)
         n_bytes, n_ops = 2 * a.numel() * a.element_size(), nv * pool_combines(taps)
+        sched = kernels.ball_pool_schedule(a, taps, h, op, 0)[1]
+        code = "a" if a.dtype == torch.int8 else "i"
         return dict(taps=len(taps), halo=h, pieces=table.n_pieces, set_voxels=int((k > 0).sum()),
-                    combines_a_voxel=pool_combines(taps), cut_combines_a_voxel=table.combines(),
-                    smem_bytes_max_piece=_pool_smem(table, a.dtype),
-                    schedule=kernels.ball_pool_schedule(a, taps, h, op, 0)[1],
+                    combines_a_voxel=pool_combines(taps),
+                    executed_combines_a_voxel=table.combines(),
+                    groups=[p.n_groups for p in table.pieces],
+                    registers=_registers(f"ball_pool_wide_kernelI{code}Li{_OPS[op]}E",
+                                         piece=table.n_pieces > 1),
+                    smem_bytes=_pool_smem(table, a.dtype), schedule=sched,
+                    blocks_per_sm=sched["blocks_per_sm"],
                     plain_ms=cuda_ms(lambda: pool_plain(a, ball, op, 0), reps=3),
                     **_timed(lambda: wrapper(a), count, n_bytes, n_ops))
 
@@ -2057,6 +2106,24 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
         cases["K14"][f"{a.dtype} {op} bound {h}, r² {h * h}"] = pool_case(
             a, sh, op, f"K14w[b{h}]",
             lambda x, h=h, op=op: shell_pool(x, float(h * h), float(h), op, 0), "shell_pool_wide")
+    # a set past WIDE_ZHALO in z: two z pieces (PieceIO, the fold scratch)
+    z_cut = cases["K1"]["torch.int8 max r20, z cut"] = pool_case(
+        bg8, 20.0, "max", "K1w[max r20]", lambda x: ball_pool(x, 20.0, "max", 0),
+        "ball_pool_wide")
+    if z_cut["launches_a_call"] != 2 or z_cut["pieces"] != 2:
+        raise AssertionError(f"K1w[max r20]: {z_cut['launches_a_call']} launches, "
+                             f"{z_cut['pieces']} pieces; 2 z pieces expected")
+    # the library call: F.conv3d of the 0/1 sure grid with the r 8 ball (the
+    # int32 sum's values on 0/1 inputs only)
+    sure_f = sure.to(torch.float32)[None, None]
+    w8 = torch.zeros((17, 17, 17), dtype=torch.float32, device=dev)
+    t8 = torch.from_numpy(ball_taps(8.0)).to(dev).long() + 8
+    w8[t8[:, 0], t8[:, 1], t8[:, 2]] = 1.0
+    conv = torch.nn.functional.conv3d(sure_f, w8[None, None], padding=8)
+    if not torch.equal(conv[0, 0].round().to(torch.int32), ball_pool(sure, 8.0, "sum", 0)):
+        raise AssertionError("F.conv3d of the sure grid differs from K1's r 8 sum")
+    cases["K1"]["torch.int32 sum r8"]["library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.conv3d(sure_f, w8[None, None], padding=8), reps=5)
     say("2-wide-k1", k1=cases["K1"], k14=cases["K14"])
 
     for h in WIDE_HALOS:
@@ -2067,12 +2134,18 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
             crop_m = sweeps_tiled_plain(init[crop].contiguous(), occ[crop].contiguous(), float(h),
                                         cfg.cc_sweeps)
             _equal(crop_k, crop_m[:2], "K2w.crop_grid K2w.crop_flags")
-            plan = kernels.sweep_plan(*tap_set(float(h)), init.element_size())
+            taps = tap_set(float(h))[0]
+            plan = kernels.sweep_plan(taps, h, init.element_size())
             n_bytes = nv * (2 * init.element_size() + 1)
-            n_ops = sum(c["tiles"]) * 32 * 8 * 4 * c["taps"]
-            c.update(bands=plan.n_bands, band_extent=[plan.bz, plan.by],
-                     band_taps_max=plan.max_taps,
+            # the function's combines at every voxel of the tiles computed
+            n_ops = sum(c["tiles"]) * 32 * 8 * 4 * pool_combines(taps)
+            mode = "Ii" if init.dtype == torch.int32 else "Ih"
+            c.update(pairs=len(plan.runs), groups=plan.n_groups, table_ints=len(plan.blob),
+                     combines_a_voxel=pool_combines(taps),
+                     executed_combines_a_voxel=_k2_executed(plan),
+                     registers=_registers(f"sweeps_kernel{mode}", "WideTaps"),
                      smem_bytes=_sweep_smem(plan, h, init.element_size()),
+                     blocks_per_sm=c["blocks"] / _sms(),
                      **_timed(lambda init=init, occ=occ, h=h: sweeps(init, occ, float(h),
                                                                       cfg.cc_sweeps),
                               "propagate_sweeps_wide", n_bytes, n_ops))
@@ -2082,7 +2155,7 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(27)
     rnd_bg = torch.rand(grid.shape, generator=g, device=dev) < 0.01
     rnd_safe = torch.rand(grid.shape, generator=g, device=dev) < 0.5
-    for h in WIDE_HALOS:
+    for h in WIDE_HALOS + (20,):  # r 20.5: two z pieces
         ball = h + 0.5
         taps, hh = tap_set(ball)
         k = demote_ema(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0)
@@ -2093,11 +2166,15 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
         kc, used = kernels.demote_ema_schedule(*args)
         _crop_model(kc, demote_ema_runs_plain(*args[:4], ball, 0.5, -500.0, used["zchunk"]),
                     f"K11w[r{ball}]")
+        pieces = run_table(ball).n_pieces
         cases["K11"][f"r{ball}"] = dict(
             taps=len(taps), halo=hh, demoted=int((k != vals).sum()),
-            pieces=run_table(ball).n_pieces, combines_a_voxel=pool_combines(taps),
-            cut_combines_a_voxel=run_table(ball).combines(),
-            smem_bytes_max_piece=_pool_smem(run_table(ball), torch.int8),
+            pieces=pieces, combines_a_voxel=pool_combines(taps),
+            executed_combines_a_voxel=run_table(ball).combines(),
+            registers=_registers("demote_ema_wide_kernel", "DemoteIO", piece=pieces > 1),
+            smem_bytes=_pool_smem(run_table(ball), torch.int8),
+            blocks_per_sm=kernels.demote_ema_schedule(vals, rnd_bg, rnd_safe, true, taps, hh,
+                                                      0.5, -500.0)[1]["blocks_per_sm"],
             plain_ms=cuda_ms(lambda: demote_ema_plain(vals, rnd_bg, rnd_safe, true, ball, 0.5,
                                                       -500.0), reps=3),
             **_timed(lambda ball=ball: demote_ema(vals, rnd_bg, rnd_safe, true, ball, 0.5, -500.0),
@@ -2124,8 +2201,10 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
         cases["K13c"][f"r{h} leaf {lsz}"] = dict(
             taps=len(ball_taps(rad)), halo=h, pieces=run_table(rad).n_pieces,
             combines_a_voxel=pool_combines(ball_taps(rad)),
-            cut_combines_a_voxel=run_table(rad).combines(),
-            smem_bytes_max_piece=_pool_smem(run_table(rad), torch.int8),
+            executed_combines_a_voxel=run_table(rad).combines(),
+            registers=_registers("exact_demote_wide_kernel", "CentreIO"),
+            smem_bytes=_pool_smem(run_table(rad), torch.int8),
+            blocks_per_sm=kc[3]["blocks_per_sm"],
             demoted=int((exact_demote_ema(vals, *args)[0] != vals).sum()),
             plain_ms=cuda_ms(lambda: exact_demote_ema_plain(vals, *args), reps=3),
             **_timed(lambda args=args: exact_demote_ema(vals, *args), "exact_demote_ema_wide",
@@ -2135,12 +2214,14 @@ def phase2_wide(cfg, grid, vals, occupied) -> list[dict]:
     def record(name, case, **kw):
         return dict(name=name, max_abs_err=0.0, ms=case["ms"], device_ms=case["device_ms"],
                     plain_ms=case["plain_ms"], bytes=case["bytes"], ops=case["ops"],
-                    library_ms=None, launches_a_call=case["launches_a_call"], **kw)
+                    library_ms=case.get("library_ms"), launches_a_call=case["launches_a_call"],
+                    **kw)
     k1 = cases["K1"]["torch.int8 max r12"]
     return [
         record("ball_pool_wide", k1, cases=cases["K1"],
                shapes=f"{grid.shape}; the record: int8 max r 12 (fine-0125's ground ball, "
-                      f"{k1['taps']} taps in {k1['pieces']} pieces)"),
+                      f"{k1['taps']} taps, {k1['pieces']} launch; F.conv3d of the 0/1 grid "
+                      "with the r 8 ball beside the int32 sum r 8 case)"),
         record("shell_pool_wide", cases["K14"]["torch.int32 sum bound 12, r² 144"],
                cases=cases["K14"], shapes=f"{grid.shape}; the record: int32 sum, bound 12"),
         record("propagate_sweeps_wide", cases["K2"][f"label r12, {cfg.cc_sweeps} sweeps"],
@@ -4091,16 +4172,19 @@ def _sharded_k2_wide(comm, ops, grid: GridSpec, cfg, dyn, vals, keys) -> dict:
     dp = device_profile(lambda: launch(clones.pop()), reps=3)
     plan = kernels.sweep_plan(taps, reach, 4)
     out = dict(sweeps=cfg.cc_sweeps, halo_rows=h, hops=-(-h // nzl), launches=launches[
-        "propagate_batch_wide"], bands=plan.n_bands, tiles_per_sweep=tiles.tolist(),
-        flags=wflags.int().tolist())
+        "propagate_batch_wide"], pairs=len(plan.runs), groups=plan.n_groups,
+        combines_a_voxel=pool_combines(taps), executed_combines_a_voxel=_k2_executed(plan),
+        registers=_registers("sweeps_kernelIi", "WideTaps"), smem_bytes=_sweep_smem(plan, reach, 4),
+        tiles_per_sweep=tiles.tolist(), flags=wflags.int().tolist())
     say("2-grid-k2-wide", **out)
     return dict(
         name="propagate_batch_wide", max_abs_err=0.0, ms=_inplace_ms(launch, pair, reps=5),
         device_ms=dp["device_ms"], plain_ms=_inplace_ms(plain, pair, reps=2),
         bytes=cone * plane * (4 + 1) + nzl * plane * 4,
-        ops=int(tiles.sum()) * 32 * 8 * 4 * len(taps), library_ms=None, cases=out,
+        ops=int(tiles.sum()) * 32 * 8 * 4 * pool_combines(taps), library_ms=None, cases=out,
         shapes=f"shard 1's slab ({nzl}, {grid.ny}, {grid.nx}) + 2 x {h} halo rows, {k} label "
-               f"sweeps at r 12 ({len(taps)} taps, {plan.n_bands} bands) a launch; the device ms "
+               f"sweeps at r 12 ({len(taps)} taps, {len(plan.runs)} pairs) a launch, bound on "
+               "the function's combines at every voxel of the tiles computed; the device ms "
                "includes the zero fill of the launch's scratch",
     )
 

@@ -95,7 +95,8 @@ def test_run_table_shapes():
     slices of 18 rows for 7 planes (the ball's dz and -dz slices are equal:
     29 rows, 123 taps); the hasCloseTo box's full rows miss their +3 end, so
     its dz = -3 slice has no +3 twin; a gapped row gets several runs; the pairs
-    beyond 8 take a second group; a ball past halo 7 takes pieces."""
+    beyond 8 take a second group; a ball past halo 7 takes one wide table
+    of its own halo (one piece), a ball past WIDE_ZHALO pieces cut in z."""
     r3 = tm.run_table(3.0)
     assert r3.runs.tolist() == [[0, 0], [-1, 1], [-2, 2], [-3, 3]]
     assert r3.sym[0, :4].tolist() == [0, 1, 2, 3] and len(r3.slices) == 4
@@ -110,11 +111,14 @@ def test_run_table_shapes():
     assert tm.run_table(_gapped(3, 100, 2)).n_groups > 1
     with pytest.raises(ValueError, match="repeat"):
         tm.run_table(np.array([(0, 0, 0), (0, 0, 0)], np.int32))
-    # past halo 7 the table is the wide form's pieces, each within halo 7
-    for r, pieces in ((8.0, 12), (12.0, 12), (16.0, 27)):
+    # past halo 7 the table is the wide form's: one table of the ball's own
+    # halo up to WIDE_ZHALO, symmetric pairs only; past it pieces in z
+    for r, pieces in ((8.0, 1), (12.0, 1), (16.0, 1), (20.0, 2)):
         wide = tm.run_table(r)
         assert wide.wide and wide.halo == int(r) and wide.n_pieces == pieces
-        assert max(p.halo for p in wide.pieces) <= 7
+        assert all(p.halo == int(r) and p.zhalo <= kernels.WIDE_ZHALO for p in wide.pieces)
+        assert all((p.runs[:, 0] == -p.runs[:, 1]).all() for p in wide.pieces)
+        assert wide.shifts[:, 1:].tolist() == [[0, 0]] * pieces
 
 
 @pytest.mark.parametrize("tile,zchunk", [

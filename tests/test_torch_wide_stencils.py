@@ -1,18 +1,20 @@
 """The stencil kernels past halo 7, as their wide forms run them, on the CPU.
 
-A tap set that reaches past halo 7 does not fit one run table (K1, K14,
-K11's demotion, K13c: csrc/ball_pool.cuh) nor K2's taps by value
+A tap set that reaches past halo 7 does not fit one narrow run table (K1,
+K14, K11's demotion, K13c: csrc/ball_pool.cuh) nor K2's taps by value
 (csrc/propagate.cu).  On the card:
 
-* K1's wide form cuts the set into pieces within halo 7 on every axis
-  (``ops.morphology.WideTable``), runs the unchanged run-table body once a
-  piece with its staging shifted by the piece's centre, and folds the
-  pieces' pools with the pool's op; ``ball_pool_runs_plain`` models it;
-* K2's wide form walks the taps in bands of dz x dy values staged from
-  global memory (``kernels.sweep_plan``); ``sweeps_tiled_plain`` and
-  ``sweeps_batch_plain`` model it (``ops.components.bands_pool_plain``,
-  which reads each band's taps back from the plan's offsets as the kernel
-  does).
+* K1's wide form runs the whole set as one run table of any halo
+  (``ops.morphology.WideRunTable``) in one pass over the grid
+  (``pool_stream_wide``): every x-run of a ball on the symmetric chain, the
+  2 x 16 + 1 plane accumulators of a z piece in registers; a set past 16 in
+  z is cut in z only (``ops.morphology.WideTable``'s pieces), its pieces'
+  pools folded.  ``ball_pool_runs_plain`` models it;
+* K2's wide form pools each listed 32 x 8 x 4 tile on the same run
+  decomposition (``kernels.sweep_plan``: the x chains of the tile's staged
+  rows, each dz's slice over its rows); ``sweeps_tiled_plain`` and
+  ``sweeps_batch_plain`` model it (``ops.components.runs_pool_plain``,
+  which reads the taps back from the table as the kernel does).
 
 One rule (``ops.morphology.is_wide``) sends a set to the wide forms of
 both: a halo past 7, or more taps than K2's narrow form passes by value.
@@ -20,24 +22,30 @@ both: a halo past 7, or more taps than K2's narrow form passes by value.
 Held here, on seeded numpy grids and bit for bit (integer pools and
 sweeps are exact in any order; the tolerance is zero):
 
-* the pieces cover every tap of the set once, each piece within halo 7;
+* the tables cover every tap of the set once, a ball's x-runs all
+  symmetric chain widths, each z piece within 16 planes;
 * K1's model against vofod_tpu ``ball_pool_{min,max,sum}`` at radius 8, 12
   and 16 (int8 and int32, grids thinner than the ball) and on traced
-  shells (against the static ball they equal), and on the hasCloseTo box
-  past halo 7 and a gapped set against the port's one-slice-a-tap pool;
-* K2's model against vofod_tpu ``label_components_seeded`` at radius 8
-  and 12 over 2 sweeps (its compile takes 2-5 s a radius, 8-20 s at 4
-  sweeps) and ``propagate_reach`` at 8, 12 and 16 over 3, and the sharded
-  launch's model on a halo'd slab; a plan with a wrong offset fails it;
+  shells (against the static ball they equal), on the hasCloseTo box past
+  halo 7, a gapped set and a ball cut in z against the port's
+  one-slice-a-tap pool;
+* K2's model against vofod_tpu ``label_components_seeded`` at radius 8,
+  12 and 16 over 2 sweeps (its compile takes 2-5 s a radius) and
+  ``propagate_reach`` at 8, 12 and 16 over 3, and the sharded launch's
+  model on a halo'd slab; a table with a wrong row fails it;
 * K11's demotion and K13c at the local-sure radius of 0.125 m voxels (r 8)
   inside the port's sepclusters stages against vofod_tpu's;
 * K7 at the explore submap of 0.125 m voxels (S = 64: a row's 64 bits) and
   K8's write-back there, against vofod_tpu's explore and demotion;
-* the kernels' wrappers take halo 8, 12 and 16 (no cap below the grid).
+* the kernels' wrappers take halo 8, 12 and 16 (no cap below the grid),
+  their launches' shared memory within the card's, and the schedule's
+  constants as the sources have them.
 """
 
-import copy
+import dataclasses
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -85,26 +93,76 @@ WIDE_SETS = ([pytest.param(r, id=f"ball-r{r}") for r in (8.0, 12.0, 16.0)]
                 pytest.param(_gapped(9, 1500, 1), id="gapped-h9")])
 
 
-@pytest.mark.parametrize("ball", WIDE_SETS)
+def _table_taps(t, dz0: int = 0) -> list:
+    """The taps a :class:`WideRunTable` pools, read back from its groups,
+    dz slices and rows as the kernels index them."""
+    got = []
+    for g in range(t.n_groups):
+        for dz in range(-t.zhalo, t.zhalo + 1):
+            q = int(t.zslice[g, t.zhalo + dz])
+            if q < 0:
+                continue
+            for dy, i in t.rows[t.slices[q, 0]:t.slices[q, 1]].tolist():
+                lo, hi = t.runs[g * t.group + i].tolist()
+                got += [(dz + dz0, dy, dx) for dx in range(lo, hi + 1)]
+    return got
+
+
+@pytest.mark.parametrize("ball", WIDE_SETS + [pytest.param(20.0, id="ball-r20-zcut")])
 def test_wide_table_pieces_cover_the_taps_once(ball):
     taps, halo = tm.tap_set(ball)
     table = tm.run_table(ball)
     assert table.wide and table.halo == halo > kernels.TABLE_HALO
-    assert table.n_pieces == len(table.lens) == len(table.shifts) >= 2
+    assert table.n_pieces == len(table.lens) == len(table.shifts)
+    assert table.n_pieces == (1 if halo <= kernels.WIDE_ZHALO else 2)
     assert sum(table.lens) == len(table.blob)
     got = []
-    for shift, piece in zip(table.shifts, table.pieces):
-        assert not piece.wide and piece.halo <= kernels.TABLE_HALO
-        group = kernels.BALL_RUN_GROUP
-        for g in range(piece.n_groups):
-            for first, end, kmask in piece.slices[piece.gslice[g]:piece.gslice[g + 1]].tolist():
-                for k in range(2 * piece.halo + 1):
-                    if kmask >> k & 1:
-                        for dy, run in piece.rows[first:end].tolist():
-                            lo, hi = piece.runs[g * group + run].tolist()
-                            got += [(piece.halo - k + shift[0], dy + shift[1], dx + shift[2])
-                                    for dx in range(lo, hi + 1)]
+    for shift, piece in zip(table.shifts.tolist(), table.pieces):
+        assert shift[1:] == [0, 0] and piece.zhalo <= kernels.WIDE_ZHALO and piece.halo == halo
+        got += _table_taps(piece, shift[0])
     assert sorted(got) == sorted(map(tuple, taps.tolist()))  # every tap, none twice
+
+
+@pytest.mark.parametrize("ball", [8.0, 12.0, 16.0, tm.Shells(16.0, 200.0)])
+def test_wide_table_of_a_ball_is_one_chain(ball):
+    """A ball's wide table: one piece of its own halo, every pair a width of
+    one chain run once across the groups (each group going on from the one
+    before), no pair pooled element by element; its combines are the
+    function's where the pairs fit one group."""
+    taps, halo = tm.tap_set(ball)
+    (t,) = tm.run_table(ball).pieces
+    assert t.zhalo == halo and (t.runs[:, 0] == -t.runs[:, 1]).all()
+    widths = [w for c0, c1, _ in t.chain.tolist() if c1 >= 0 for w in range(c0, c1 + 1)]
+    assert widths == list(range(int(t.runs[:, 1].max()) + 1))
+    assert [bool(k) for k in t.chain[:-1, 2]] == [True] * (t.n_groups - 1)
+    one = tm.wide_run_table(taps, halo, len(t.runs))
+    assert one.n_groups == 1 and one.combines() == tm.pool_combines(taps)
+
+
+def test_wide_z_cut_model_equals_the_plain_pool():
+    """A ball past WIDE_ZHALO (r 20): two z pieces, their pools folded, on
+    a grid thinner than the ball."""
+    a = _grid(I8, (11, 18, 70), seed=20, lo=-100, hi=100)
+    table = tm.run_table(20.0)
+    assert table.n_pieces == 2
+    got = tm.ball_pool_runs_plain(a, table, "max", -128, TILE8, 4)
+    assert torch.equal(got, tm.tap_pool_plain(a, tm.ball_taps(20.0), "max", -128))
+
+
+@pytest.mark.parametrize("ball", WIDE_SETS)
+def test_k2_runs_model_equals_the_plain_pool(ball):
+    """K2's tile pool (``runs_pool_plain``) on its table of every wide set,
+    int32 min and uint8 max, against the one-slice-a-tap pool."""
+    taps, halo = tm.tap_set(ball)
+    rng = np.random.default_rng(halo)
+    keys = torch.from_numpy(rng.integers(0, 2**20, (9, 20, 36)).astype(np.int32))
+    plan = kernels.sweep_plan(taps, halo, 4)
+    assert torch.equal(tc.runs_pool_plain(keys, plan, "min", tc.SENTINEL),
+                       tm.tap_pool_plain(keys, taps, "min", tc.SENTINEL))
+    reach = torch.from_numpy(rng.random((9, 20, 36)) < 0.02).to(I8)
+    plan = kernels.sweep_plan(taps, halo, 1)
+    assert torch.equal(tc.runs_pool_plain(reach, plan, "max", 0),
+                       tm.tap_pool_plain(reach, taps, "max", 0))
 
 
 # (id, radius, dtype, op, fill, shape, zchunk): 0.125 m voxels' radii; the
@@ -173,7 +231,7 @@ def _jax_labels(radius, n):
     return occ, seed, [np.asarray(x) for x in fn(jnp.asarray(occ), jnp.asarray(seed))]
 
 
-@pytest.mark.parametrize("radius", [8.0, 12.0])
+@pytest.mark.parametrize("radius", [8.0, 12.0, 16.0])
 def test_wide_sweeps_model_bit_equal_to_jax_labels(radius):
     n = 2
     occ, seed, want = _jax_labels(radius, n)
@@ -198,30 +256,34 @@ def test_wide_sweeps_model_bit_equal_to_jax_reach(radius):
 
 
 def test_wide_sweeps_model_decodes_the_plan():
-    """The model reads each band's taps from the plan's offsets: one offset
-    moved by a column pools another tap, one moved past its box raises."""
+    """The model reads each slice's rows from the table: one row's dy moved
+    by one within the halo pools another tap, one moved past the halo
+    raises, and so does a pair off the chain ahead of the chain's pairs
+    (the kernel's host check refuses those tables)."""
     taps, halo = tm.tap_set(8.0)
     plan = kernels.sweep_plan(taps, halo, 4)
     rng = np.random.default_rng(6)
     occ = torch.from_numpy(rng.random((9, 20, 36)) < 0.05)
     flat = torch.arange(occ.numel(), dtype=I32).reshape(occ.shape)
     keys = torch.where(occ, flat, tc.SENTINEL)
-    assert torch.equal(tc.bands_pool_plain(keys, plan, "min", tc.SENTINEL),
-                       tm.pool_plain(keys, 8.0, "min", tc.SENTINEL))
-    sx = 32 + 2 * halo
-    t = int(np.flatnonzero((plan.taps[:, 0] == 0) & (plan.taps[:, 1] == 0)
-                           & (plan.taps[:, 2] == halo))[0])  # the row's last tap
-    assert plan.offsets[t] % sx == 2 * halo  # the box row's last column
-    for delta, ok in ((-1, True), (1, False)):
-        bad = copy.copy(plan)
-        bad.offsets = plan.offsets.copy()
-        bad.offsets[t] += delta  # onto its neighbour's column, then past the row
+    want = tm.pool_plain(keys, 8.0, "min", tc.SENTINEL)
+    assert torch.equal(tc.runs_pool_plain(keys, plan, "min", tc.SENTINEL), want)
+    q = int(plan.zslice[0, plan.zhalo])  # dz 0's slice: its first row is dy = -8
+    r = int(plan.slices[q, 0])
+    assert plan.rows[r, 0] == -halo
+    for delta, ok in ((1, True), (-1, False)):
+        rows = plan.rows.copy()
+        rows[r, 0] += delta  # onto the next row, then past the halo
+        bad = dataclasses.replace(plan, rows=rows)
         if ok:
-            got = tc.bands_pool_plain(keys, bad, "min", tc.SENTINEL)
-            assert not torch.equal(got, tm.pool_plain(keys, 8.0, "min", tc.SENTINEL))
+            assert not torch.equal(tc.runs_pool_plain(keys, bad, "min", tc.SENTINEL), want)
         else:
-            with pytest.raises(ValueError, match="past its box"):
-                tc.bands_pool_plain(keys, bad, "min", tc.SENTINEL)
+            with pytest.raises(ValueError, match="past its halo"):
+                tc.runs_pool_plain(keys, bad, "min", tc.SENTINEL)
+    runs = plan.runs.copy()
+    runs[0] = (0, 1)  # a pair off the chain ahead of the chain's
+    with pytest.raises(ValueError, match="come first"):
+        tc.runs_pool_plain(keys, dataclasses.replace(plan, runs=runs), "min", tc.SENTINEL)
 
 
 def test_one_wideness_rule():
@@ -245,15 +307,19 @@ def test_one_wideness_rule():
 
 def test_pool_combines_ignore_the_cut():
     """The bound's count of combines a voxel: a narrow table of one group
-    counts it the same; the wide ball's cut takes several times more."""
+    counts it the same; the wide table of the r 12 ball runs the function's
+    own combines but for a second group's accumulators (a cut into pieces
+    within halo 7 took 1,395, 5.4x)."""
     for ball in (3.0, 5.0, 7.99, tm.hascloseto_taps(3.0)):
         table = tm.run_table(ball)
         assert table.n_groups == 1
         assert tm.pool_combines(tm.tap_set(ball)[0]) == table.combines()
     # r 12: the chain to 12 (24), 210 slice rows (dz and -dz shared), 25
     # accumulators
-    assert tm.pool_combines(tm.ball_taps(12.0)) == 24 + 210 + 25
-    assert tm.run_table(12.0).combines() > 5 * tm.pool_combines(tm.ball_taps(12.0))
+    taps = tm.ball_taps(12.0)
+    assert tm.pool_combines(taps) == 24 + 210 + 25
+    assert tm.pool_combines(taps) <= tm.run_table(12.0).combines() < 1.2 * tm.pool_combines(taps)
+    assert kernels.sweep_plan(taps, 12, 4).combines() == tm.pool_combines(taps)
 
 
 def test_wide_sweeps_batch_model_on_a_slab():
@@ -414,11 +480,31 @@ def test_demotion_write_back_submap_64_matches_jax():
 
 @pytest.mark.parametrize("radius", [8.0, 12.0, 16.0])
 def test_wrappers_take_any_halo(radius):
+    """The wide launches of halo 8, 12 and 16: K1's and K11's / K13c's in
+    shared memory that lets two blocks share an SM, K2's within the card's
+    opt-in, both tables holding every tap."""
     taps, halo = tm.tap_set(radius)
     assert halo == int(radius) and kernels._taps_arg(taps, halo)[0].shape == taps.shape
-    assert tm.run_table(radius).wide and tm.is_wide(taps, halo)
+    table = tm.run_table(radius)
+    assert table.wide and tm.is_wide(taps, halo) and table.n_pieces == 1
+    (piece,) = table.pieces
+    for dtype in (I8, I32):
+        assert kernels.wide_pool_smem(halo, piece.group, dtype, len(piece.blob)) \
+            <= kernels.WIDE_POOL_SMEM
     for itemsize in (1, 4):
         plan = kernels.sweep_plan(taps, halo, itemsize)
-        assert sorted(map(tuple, plan.taps.tolist())) == sorted(map(tuple, taps.tolist()))
-        box = (32 + 2 * halo) * (8 + plan.by - 1) * (4 + plan.bz - 1) * itemsize
-        assert -(-box // 16) * 16 + 4 * plan.max_taps <= kernels.K2_WIDE_SMEM
+        assert sorted(_table_taps(plan)) == sorted(map(tuple, taps.tolist()))
+        assert kernels.sweep_wide_smem(halo, plan.group, itemsize, len(plan.blob)) \
+            <= kernels.K2_WIDE_SMEM
+
+
+def test_wide_constants_mirror_the_sources():
+    """kernels.py's mirrors of the wide forms' compile-time constants (the
+    z reach of a piece, the column tiles) as csrc/ball_pool.cuh has them."""
+    src = (Path(kernels.__file__).parent / "csrc" / "ball_pool.cuh").read_text()
+    assert int(re.search(r"constexpr int WIDE_ZHALO = (\d+);", src).group(1)) == kernels.WIDE_ZHALO
+    for ctype, dtype in (("int8_t", I8), ("int32_t", I32)):
+        m = re.search(r"struct LanesW<%s> \{\n.*\n\s+static constexpr int NW = (\d+), VX = (\d+), "
+                      r"TXU = (\d+), TY = (\d+)" % ctype, src)
+        nw, vx, txu, ty = map(int, m.groups())
+        assert (ty, txu * vx) == kernels.WIDE_POOL_TILE[dtype] and nw == 2

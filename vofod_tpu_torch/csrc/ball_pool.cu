@@ -46,10 +46,10 @@
 //   one (the production radii) or a large one (ball_pool.cuh with_table);
 //   the pools of 8 pairs sit in shared memory at once, more pairs take
 //   turns, and a block above 48 KB of shared memory opts in first.
-// - Past halo 7 (vofod_ball_pool_wide), the wide form of ball_pool.cuh:
-//   the set cut into pieces within halo 7 on every axis, one launch of
-//   the same body a piece with its staging shifted by the piece's centre,
-//   each folding its pool into a scratch of units, the last storing.  The
+// - Past halo 7 (vofod_ball_pool_wide), the wide form of ball_pool.cuh
+//   (pool_stream_wide): one run table of any halo in one pass, staged
+//   columns padded to the halo so that every x-run of a ball is on the
+//   chain, 33 plane accumulators a thread on units of 2 words.  The
 //   flagship's production radii never take it.
 //
 // Integer min / max / sum are exact in any order, so the output is
@@ -88,7 +88,7 @@ struct PoolIO {
   __device__ __forceinline__ bool row_any(int, int, int, int) const { return true; }
   template <typename V>
   __device__ __forceinline__ void store(int zo, int gy, int gx, const V& v) const {
-    store_unit<Lanes<T>::NW>(out + ((size_t)zo * ny + gy) * nx, gx, nx, v);
+    store_unit(out + ((size_t)zo * ny + gy) * nx, gx, nx, v);
   }
 };
 
@@ -99,20 +99,21 @@ __global__ void __launch_bounds__(Lanes<T>::TXU* Lanes<T>::TY)
   pool_stream<T, OP>(io, nz, ny, nx, zchunk, tab);
 }
 
-template <typename T, int OP>
-__global__ void __launch_bounds__(Lanes<T>::TXU* Lanes<T>::TY)
-    ball_pool_wide_kernel(PieceIO<T, OP, PoolIO<T>> io, int nz, int ny, int nx, int zchunk,
-                          const __grid_constant__ RunTableLarge tab) {
-  pool_stream<T, OP>(io, nz, ny, nx, zchunk, tab);
+template <typename T, int OP, typename IO>
+__global__ void __launch_bounds__(LanesW<T>::TXU* LanesW<T>::TY, WIDE_BLOCKS_PER_SM)
+    ball_pool_wide_kernel(IO io, int nz, int ny, int nx, int zchunk, const int* __restrict__ tab,
+                          int len) {
+  pool_stream_wide<T, OP>(io, nz, ny, nx, zchunk, tab, len);
 }
 
 template <typename T, int OP>
-int launch_wide(const void* in, void* out, int nz, int ny, int nx, const short* tables,
-                const int* lens, const int* shifts, int n, int fill, void* acc, int* used,
-                cudaStream_t stream) {
+int launch_wide(const void* in, void* out, int nz, int ny, int nx, const int* host,
+                const int* dev, const int* lens, const int* dz, int n, int fill, void* acc,
+                int* used, cudaStream_t stream) {
   const PoolIO<T> io{static_cast<const T*>(in), static_cast<T*>(out), nz, ny, nx, (T)fill};
-  return launch_pieces<T, OP>(ball_pool_wide_kernel<T, OP>, io, nz, ny, nx, tables, lens, shifts,
-                              n, acc, used, stream);
+  return launch_wide_pieces<T, OP>(ball_pool_wide_kernel<T, OP, PoolIO<T>>,
+                                   ball_pool_wide_kernel<T, OP, PieceIO<T, OP, PoolIO<T>>>, io,
+                                   nz, ny, nx, host, dev, lens, dz, n, acc, used, stream);
 }
 
 template <typename T, int OP, typename Tab>
@@ -153,35 +154,36 @@ VOFOD_API int vofod_ball_pool(const void* in, void* out, int dtype, int op, int 
   });
 }
 
-// The wide form: a tap set past halo 7 as n_pieces packed tables within
-// halo 7 (ops/morphology.WideTable: tables back to back, host int16; lens:
-// host int32 [n_pieces]; shifts: host int32 [n_pieces, 3], each piece's
-// centre (dz, dy, dx)), one launch a piece in order.  acc: device scratch
-// of (nz, ny, ceil(nx / 8)) 16-byte units (int8) or (nz, ny, ceil(nx /
-// 4)) (int32).  Other arguments as vofod_ball_pool's; used: the first
-// piece's schedule.
+// The wide form: a tap set past halo 7 (or 2,112 taps) as n_pieces packed
+// wide tables (ops/morphology.WideTable; one for every set within
+// WIDE_ZHALO in z, else its z pieces): host the tables back to back (host
+// int32), dev the same on the device, lens their lengths (host int32
+// [n_pieces]), dz each piece's z shift (host int32 [n_pieces]).  acc: NULL
+// for one piece, else device scratch of (nz, ny, ceil(nx / 4)) 8-byte units
+// (int8) or (nz, ny, ceil(nx / 2)) (int32).  Other arguments as
+// vofod_ball_pool's; used: the first piece's schedule.
 VOFOD_API int vofod_ball_pool_wide(const void* in, void* out, int dtype, int op, int nz, int ny,
-                                   int nx, const short* tables, const int* lens,
-                                   const int* shifts, int n_pieces, int fill, void* acc,
-                                   int* used, void* stream) {
+                                   int nx, const int* host, const int* dev, const int* lens,
+                                   const int* dz, int n_pieces, int fill, void* acc, int* used,
+                                   void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (op == 0)
-      return launch_wide<int8_t, 0>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+      return launch_wide<int8_t, 0>(in, out, nz, ny, nx, host, dev, lens, dz, n_pieces, fill,
                                     acc, used, s);
     if (op == 1)
-      return launch_wide<int8_t, 1>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+      return launch_wide<int8_t, 1>(in, out, nz, ny, nx, host, dev, lens, dz, n_pieces, fill,
                                     acc, used, s);
   } else if (dtype == 1) {
     if (op == 0)
-      return launch_wide<int32_t, 0>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+      return launch_wide<int32_t, 0>(in, out, nz, ny, nx, host, dev, lens, dz, n_pieces, fill,
                                      acc, used, s);
     if (op == 1)
-      return launch_wide<int32_t, 1>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+      return launch_wide<int32_t, 1>(in, out, nz, ny, nx, host, dev, lens, dz, n_pieces, fill,
                                      acc, used, s);
     if (op == 2)
-      return launch_wide<int32_t, 2>(in, out, nz, ny, nx, tables, lens, shifts, n_pieces, fill,
+      return launch_wide<int32_t, 2>(in, out, nz, ny, nx, host, dev, lens, dz, n_pieces, fill,
                                      acc, used, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -18,8 +18,8 @@
 // parameters: the production radii) and every ball up to halo 7 (the ball
 // of r^2 < 64 holds 2,103 taps: 8 + 6,336 bytes, above the classic 4 KB
 // parameter limit, within the 32,764 bytes that CUDA 12.1+ takes on sm_70+).
-// A larger set goes to K2's wide form (csrc/propagate.cu: its taps in
-// bands from global memory), never through these structs.
+// A larger set goes to K2's wide form (csrc/propagate.cu: the tile's pool
+// on a run table in global memory), never through these structs.
 #define VOFOD_MAX_TAPS 256
 #define VOFOD_MAX_TAPS_LARGE 2112
 #define VOFOD_MAX_HALO 7

@@ -74,9 +74,10 @@
 //   their z chunk from the occupancy (auto_zchunk), 2 resident blocks an
 //   SM at halo <= 3 (the tiny and small tables), 1 above.
 // - A ball past halo 7 (the *_wide entries) takes ball_pool.cuh's wide
-//   form: the same staging and epilogue behind PieceIO, one launch a
-//   piece, the pieces' pools folded in a scratch of units and the epilogue
-//   run once, by the last piece, on the folded unit.  A skipping block's
+//   form (pool_stream_wide): the same staging and epilogue on units of 4
+//   voxels, one launch; a set cut in z runs a launch a piece behind
+//   PieceIO, the pools folded in a scratch of units and the epilogue run
+//   once, by the last piece, on the folded unit.  A skipping block's
 //   identity folds to nothing, so the skip stays exact.
 #include "ball_pool.cuh"
 
@@ -110,110 +111,113 @@ __global__ void __launch_bounds__(EMA_T)
   if ((threadIdx.x & 31) == 0 && occ != 0) atomicAdd(n_occupied, occ);
 }
 
-// ---- a unit's 8 floats / bytes in the widest pieces its address allows ----
+// ---- a unit's N (8 or 4) floats / bytes in the widest pieces its address allows ----
 
-// floats [O, 8) of v to p, whose address is A floats past a 16-byte boundary
-template <int A, int O>
-__device__ __forceinline__ void store8_from(float* p, const float (&v)[8]) {
-  if constexpr (O < 8) {
+// floats [O, N) of v to p, whose address is A floats past a 16-byte boundary
+template <int N, int A, int O>
+__device__ __forceinline__ void store_from(float* p, const float (&v)[N]) {
+  if constexpr (O < N) {
     constexpr int mis = (A + O) & 3;
-    if constexpr (mis == 0 && O + 4 <= 8) {
+    if constexpr (mis == 0 && O + 4 <= N) {
       *reinterpret_cast<float4*>(p + O) = make_float4(v[O], v[O + 1], v[O + 2], v[O + 3]);
-      store8_from<A, O + 4>(p, v);
-    } else if constexpr ((mis & 1) == 0 && O + 2 <= 8) {
+      store_from<N, A, O + 4>(p, v);
+    } else if constexpr ((mis & 1) == 0 && O + 2 <= N) {
       *reinterpret_cast<float2*>(p + O) = make_float2(v[O], v[O + 1]);
-      store8_from<A, O + 2>(p, v);
+      store_from<N, A, O + 2>(p, v);
     } else {
       p[O] = v[O];
-      store8_from<A, O + 1>(p, v);
+      store_from<N, A, O + 1>(p, v);
     }
   }
 }
 
-// bytes [O, 8) of b (byte j of the unit at bits 8 j) to p, A bytes past an
+// bytes [O, N) of b (byte j of the unit at bits 8 j) to p, A bytes past an
 // 8-byte boundary
-template <int A, int O>
-__device__ __forceinline__ void store8b_from(uint8_t* p, unsigned long long b) {
-  if constexpr (O < 8) {
+template <int N, int A, int O>
+__device__ __forceinline__ void storeb_from(uint8_t* p, unsigned long long b) {
+  if constexpr (O < N) {
     constexpr int mis = (A + O) & 7;
-    if constexpr (mis == 0 && O == 0) {
+    if constexpr (mis == 0 && O == 0 && N == 8) {
       *reinterpret_cast<unsigned long long*>(p) = b;
-    } else if constexpr ((mis & 3) == 0 && O + 4 <= 8) {
+    } else if constexpr ((mis & 3) == 0 && O + 4 <= N) {
       *reinterpret_cast<uint32_t*>(p + O) = (uint32_t)(b >> (8 * O));
-      store8b_from<A, O + 4>(p, b);
-    } else if constexpr ((mis & 1) == 0 && O + 2 <= 8) {
+      storeb_from<N, A, O + 4>(p, b);
+    } else if constexpr ((mis & 1) == 0 && O + 2 <= N) {
       *reinterpret_cast<uint16_t*>(p + O) = (uint16_t)(b >> (8 * O));
-      store8b_from<A, O + 2>(p, b);
+      storeb_from<N, A, O + 2>(p, b);
     } else {
       p[O] = (uint8_t)(b >> (8 * O));
-      store8b_from<A, O + 1>(p, b);
+      storeb_from<N, A, O + 1>(p, b);
     }
   }
 }
 
-// floats [O, 8) of p to v, p A floats past a 16-byte boundary
-template <int A, int O>
-__device__ __forceinline__ void load8_from(const float* p, float (&v)[8]) {
-  if constexpr (O < 8) {
+// floats [O, N) of p to v, p A floats past a 16-byte boundary
+template <int N, int A, int O>
+__device__ __forceinline__ void load_from(const float* p, float (&v)[N]) {
+  if constexpr (O < N) {
     constexpr int mis = (A + O) & 3;
-    if constexpr (mis == 0 && O + 4 <= 8) {
+    if constexpr (mis == 0 && O + 4 <= N) {
       const float4 q = *reinterpret_cast<const float4*>(p + O);
       v[O] = q.x, v[O + 1] = q.y, v[O + 2] = q.z, v[O + 3] = q.w;
-      load8_from<A, O + 4>(p, v);
-    } else if constexpr ((mis & 1) == 0 && O + 2 <= 8) {
+      load_from<N, A, O + 4>(p, v);
+    } else if constexpr ((mis & 1) == 0 && O + 2 <= N) {
       const float2 q = *reinterpret_cast<const float2*>(p + O);
       v[O] = q.x, v[O + 1] = q.y;
-      load8_from<A, O + 2>(p, v);
+      load_from<N, A, O + 2>(p, v);
     } else {
       v[O] = p[O];
-      load8_from<A, O + 1>(p, v);
+      load_from<N, A, O + 1>(p, v);
     }
   }
 }
 
-// the first n of 8 floats at p (n < 8: the row's end, element by element)
-__device__ __forceinline__ void load8(const float* p, int n, float (&v)[8]) {
-  if (n >= 8) {
+// the first n of N floats at p (n < N: the row's end, element by element)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, int n, float (&v)[N]) {
+  if (n >= N) {
     switch ((reinterpret_cast<uintptr_t>(p) >> 2) & 3) {
-      case 0: load8_from<0, 0>(p, v); return;
-      case 1: load8_from<1, 0>(p, v); return;
-      case 2: load8_from<2, 0>(p, v); return;
-      default: load8_from<3, 0>(p, v); return;
+      case 0: load_from<N, 0, 0>(p, v); return;
+      case 1: load_from<N, 1, 0>(p, v); return;
+      case 2: load_from<N, 2, 0>(p, v); return;
+      default: load_from<N, 3, 0>(p, v); return;
     }
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = j < n ? p[j] : 0.0f;
+  for (int j = 0; j < N; ++j) v[j] = j < n ? p[j] : 0.0f;
 }
 
-__device__ __forceinline__ void store8(float* p, int n, const float (&v)[8]) {
-  if (n >= 8) {
+template <int N>
+__device__ __forceinline__ void store_n(float* p, int n, const float (&v)[N]) {
+  if (n >= N) {
     switch ((reinterpret_cast<uintptr_t>(p) >> 2) & 3) {
-      case 0: store8_from<0, 0>(p, v); return;
-      case 1: store8_from<1, 0>(p, v); return;
-      case 2: store8_from<2, 0>(p, v); return;
-      default: store8_from<3, 0>(p, v); return;
+      case 0: store_from<N, 0, 0>(p, v); return;
+      case 1: store_from<N, 1, 0>(p, v); return;
+      case 2: store_from<N, 2, 0>(p, v); return;
+      default: store_from<N, 3, 0>(p, v); return;
     }
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
     if (j < n) p[j] = v[j];
 }
 
-__device__ __forceinline__ void store8b(uint8_t* p, int n, unsigned long long b) {
-  if (n >= 8) {
+template <int N>
+__device__ __forceinline__ void storeb_n(uint8_t* p, int n, unsigned long long b) {
+  if (n >= N) {
     switch (reinterpret_cast<uintptr_t>(p) & 7) {
-      case 0: store8b_from<0, 0>(p, b); return;
-      case 1: store8b_from<1, 0>(p, b); return;
-      case 2: store8b_from<2, 0>(p, b); return;
-      case 3: store8b_from<3, 0>(p, b); return;
-      case 4: store8b_from<4, 0>(p, b); return;
-      case 5: store8b_from<5, 0>(p, b); return;
-      case 6: store8b_from<6, 0>(p, b); return;
-      default: store8b_from<7, 0>(p, b); return;
+      case 0: storeb_from<N, 0, 0>(p, b); return;
+      case 1: storeb_from<N, 1, 0>(p, b); return;
+      case 2: storeb_from<N, 2, 0>(p, b); return;
+      case 3: storeb_from<N, 3, 0>(p, b); return;
+      case 4: storeb_from<N, 4, 0>(p, b); return;
+      case 5: storeb_from<N, 5, 0>(p, b); return;
+      case 6: storeb_from<N, 6, 0>(p, b); return;
+      default: storeb_from<N, 7, 0>(p, b); return;
     }
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
     if (j < n) p[j] = (uint8_t)(b >> (8 * j));
 }
 
@@ -285,19 +289,21 @@ struct DemoteIO {
     }
     return any != 0;
   }
+  template <int NW>  // a unit of 2 NW voxels (the narrow form's 8, the wide's 4)
   __device__ __forceinline__ void store(int zo, int gy, int gx,
-                                        const Vec<uint32_t, 4>& pooled) const {
+                                        const Vec<uint32_t, NW>& pooled) const {
+    constexpr int N = 2 * NW;
     const int n = nx - gx;
     if (n <= 0) return;
     const size_t g = ((size_t)zo * ny + gy) * nx + gx;
-    float v[8];
-    load8(vals + g, n, v);
+    float v[N];
+    load_n<N>(vals + g, n, v);
     if (sure) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < N; ++j)
         if (lane_s16(pooled, j) > 0) v[j] = __fadd_rn(__fmul_rn(w1, v[j]), c);
     }
-    store8(out + g, n, v);
+    store_n<N>(out + g, n, v);
   }
 };
 
@@ -310,12 +316,20 @@ __global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
   pool_stream<int8_t, 1>(at, nz, ny, nx, zchunk, tab);
 }
 
-__global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
-    demote_ema_wide_kernel(PieceIO<int8_t, 1, DemoteIO> io, int nz, int ny, int nx, int zchunk,
-                           const __grid_constant__ RunTableLarge tab) {
-  PieceIO<int8_t, 1, DemoteIO> at = io;
-  at.in.sure = *io.in.sure_sufficient != 0;
-  pool_stream<int8_t, 1>(at, nz, ny, nx, zchunk, tab);
+// the policy inside a z piece's (the wide form cut in z)
+__device__ __forceinline__ DemoteIO& inner(DemoteIO& io) { return io; }
+template <typename Inner>
+__device__ __forceinline__ Inner& inner(PieceIO<int8_t, 1, Inner>& io) {
+  return io.in;
+}
+
+template <typename IO>
+__global__ void __launch_bounds__(LanesW<int8_t>::TXU* LanesW<int8_t>::TY, WIDE_BLOCKS_PER_SM)
+    demote_ema_wide_kernel(IO io, int nz, int ny, int nx, int zchunk,
+                           const int* __restrict__ tab, int len) {
+  IO at = io;
+  inner(at).sure = *inner(at).sure_sufficient != 0;
+  pool_stream_wide<int8_t, 1>(at, nz, ny, nx, zchunk, tab, len);
 }
 
 // ---- K13c ----
@@ -393,19 +407,21 @@ struct CentreIO {
     }
     return any != 0;
   }
+  template <int NW>  // a unit of 2 NW voxels (the narrow form's 8, the wide's 4)
   __device__ __forceinline__ void store(int zo, int gy, int gx,
-                                        const Vec<uint32_t, 4>& pooled) const {
+                                        const Vec<uint32_t, NW>& pooled) const {
+    constexpr int N = 2 * NW;
     const int n = nx - gx;
     if (n <= 0) return;
     const size_t g = ((size_t)zo * ny + gy) * nx + gx;
     // the held cells of this fine row (global row z_off + zo)
     const size_t crow =
         ((size_t)((c.z_off + zo) / c.lsz - c.zc_lo) * c.ncy + gy / c.lsz) * c.ncx;
-    float v[8];
-    load8(vals + g, n, v);
+    float v[N];
+    load_n<N>(vals + g, n, v);
     unsigned long long sb = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N; ++j) {
       bool s = false;
       if (j < n && v[j] > thr_new) {  // safe = bg & a sure cell
         const size_t cell = crow + (gx + j) / c.lsz;
@@ -418,8 +434,8 @@ struct CentreIO {
         v[j] = __fadd_rn(__fmul_rn(w1k, v[j]), __fmul_rn(__fsub_rn(1.0f, w1k), score));
       }
     }
-    store8(out + g, n, v);
-    store8b(safe + g, n, sb);
+    store_n<N>(out + g, n, v);
+    storeb_n<N>(safe + g, n, sb);
   }
 };
 
@@ -436,15 +452,28 @@ __global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
   pool_stream<int8_t, 2>(at, nz, ny, nx, zchunk, tab);
 }
 
-__global__ void __launch_bounds__(Lanes<int8_t>::TXU* Lanes<int8_t>::TY)
-    exact_demote_wide_kernel(PieceIO<int8_t, 2, CentreIO> io, int nz, int ny, int nx,
-                             int zchunk, const __grid_constant__ RunTableLarge tab) {
-  PieceIO<int8_t, 2, CentreIO> at = io;
-  at.in.sure = io.in.flags[0] ? io.in.flags[1] != 0 : io.in.prev_sure[0] != 0;
-  if (io.last && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0 &&
-      threadIdx.y == 0)
-    io.in.sure_out[0] = at.in.sure;
-  pool_stream<int8_t, 2>(at, nz, ny, nx, zchunk, tab);
+__device__ __forceinline__ CentreIO& inner(CentreIO& io) { return io; }
+__device__ __forceinline__ bool last_piece(const CentreIO&) { return true; }
+template <typename Inner>
+__device__ __forceinline__ Inner& inner(PieceIO<int8_t, 2, Inner>& io) {
+  return io.in;
+}
+template <typename Inner>
+__device__ __forceinline__ bool last_piece(const PieceIO<int8_t, 2, Inner>& io) {
+  return io.last;
+}
+
+template <typename IO>
+__global__ void __launch_bounds__(LanesW<int8_t>::TXU* LanesW<int8_t>::TY, WIDE_BLOCKS_PER_SM)
+    exact_demote_wide_kernel(IO io, int nz, int ny, int nx, int zchunk,
+                             const int* __restrict__ tab, int len) {
+  IO at = io;
+  CentreIO& c = inner(at);
+  c.sure = c.flags[0] ? c.flags[1] != 0 : c.prev_sure[0] != 0;
+  if (last_piece(at) && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0 && threadIdx.y == 0)
+    c.sure_out[0] = c.sure;
+  pool_stream_wide<int8_t, 2>(at, nz, ny, nx, zchunk, tab, len);
 }
 
 DemoteIO demote_io(const void* vals, const void* bg, const void* safe,
@@ -553,31 +582,36 @@ VOFOD_API int vofod_exact_demote_ema(const void* vals, const void* occ_c, const 
   });
 }
 
-// The wide forms (a ball past halo 7): tables, lens, shifts and n_pieces as
-// vofod_ball_pool_wide's; acc: device scratch of (nz, ny, ceil(nx / 8))
-// 16-byte units.  Other arguments as the entries above.
+// The wide forms (a ball past halo 7): host, dev, lens, dz and n_pieces
+// as vofod_ball_pool_wide's; acc: NULL for one piece, else device scratch
+// of (nz, ny, ceil(nx / 4)) 8-byte units.  Other arguments as the entries
+// above.
 VOFOD_API int vofod_demote_ema_wide(const void* vals, const void* bg, const void* safe,
                                     const void* sure_sufficient, int nz, int ny, int nx,
-                                    const short* tables, const int* lens, const int* shifts,
-                                    int n_pieces, float w1, float c, void* out, void* acc,
-                                    int* used, void* stream) {
+                                    const int* host, const int* dev, const int* lens,
+                                    const int* dz, int n_pieces, float w1, float c, void* out,
+                                    void* acc, int* used, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   const DemoteIO io = demote_io(vals, bg, safe, sure_sufficient, nz, ny, nx, w1, c, out);
-  return launch_pieces<int8_t, 1>(demote_ema_wide_kernel, io, nz, ny, nx, tables, lens, shifts,
-                                  n_pieces, acc, used, static_cast<cudaStream_t>(stream));
+  return launch_wide_pieces<int8_t, 1>(demote_ema_wide_kernel<DemoteIO>,
+                                       demote_ema_wide_kernel<PieceIO<int8_t, 1, DemoteIO>>, io,
+                                       nz, ny, nx, host, dev, lens, dz, n_pieces, acc, used,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 VOFOD_API int vofod_exact_demote_ema_wide(const void* vals, const void* occ_c, const void* census,
                                           const void* flags, const void* prev_sure, int nz,
-                                          int ny, int nx, int lsz, const short* tables,
-                                          const int* lens, const int* shifts, int n_pieces,
-                                          const float* floats, const int* window, void* out,
-                                          void* safe, void* sure_out, void* acc, int* used,
-                                          void* stream) {
+                                          int ny, int nx, int lsz, const int* host,
+                                          const int* dev, const int* lens, const int* dz,
+                                          int n_pieces, const float* floats, const int* window,
+                                          void* out, void* safe, void* sure_out, void* acc,
+                                          int* used, void* stream) {
   CentreIO io;
   if (!centre_io(vals, occ_c, census, flags, prev_sure, nz, ny, nx, lsz, floats, window, out,
                  safe, sure_out, &io))
     return (int)cudaErrorInvalidValue;
-  return launch_pieces<int8_t, 2>(exact_demote_wide_kernel, io, nz, ny, nx, tables, lens,
-                                  shifts, n_pieces, acc, used, static_cast<cudaStream_t>(stream));
+  return launch_wide_pieces<int8_t, 2>(exact_demote_wide_kernel<CentreIO>,
+                                       exact_demote_wide_kernel<PieceIO<int8_t, 2, CentreIO>>,
+                                       io, nz, ny, nx, host, dev, lens, dz, n_pieces, acc, used,
+                                       static_cast<cudaStream_t>(stream));
 }

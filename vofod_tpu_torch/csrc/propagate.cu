@@ -75,17 +75,21 @@
 // cfg.dynamic_radii (K14, ops/morphology.shell_taps).  Up to halo 7 and
 // 2,112 taps the taps travel by value (the large tap struct and the
 // shared-memory opt-in of common.cuh) and a tile's whole box sits in
-// shared memory.  Past that (the wide form, vofod_propagate_sweeps_wide)
-// neither fits: at halo 12 an int32 box takes 200,704 of the card's
-// 232,448 bytes, at halo 16 the taps alone exceed the parameter limit.
-// There the host (kernels.sweep_plan) cuts the taps into bands of at most
-// BZ dz x BY dy values, and a tile's pool walks the bands: each stages the
-// (TILE_Z + BZ - 1) x (TILE_Y + BY - 1) x (TILE_X + 2 halo) box its taps
-// read and the band's offsets into it (from the plan in global memory),
-// and every voxel folds the band's taps into its running min / max.  The
-// work lists, barriers, flags and tile counts are the narrow form's, and
-// min / max are exact in any order, so both forms give the same sweeps.
-#include "common.cuh"
+// shared memory, every voxel walking every tap.  Past that (the wide form,
+// vofod_propagate_sweeps_wide) a tile's pool takes K1's run decomposition
+// (ops/morphology.WideRunTable, the host's kernels.sweep_plan, in global
+// memory and copied into shared memory once a block): the tile's 4 + 2 h
+// input planes are staged one at a time through a double buffer (each
+// (8 + 2 h) x (32 + 2 h) cells, loaded into registers a plane ahead); per
+// plane and group of (lo, hi) pairs, every staged row's x pools over the
+// tile's 32 columns (the symmetric pairs one chain to the halo, carried
+// from group to group, any other pair element by element); then each
+// voxel combines the rows of its dz's slice (dz = plane - its own z) from
+// those pools into its running min / max: ~Σ|rows| a voxel in place of one
+// load a tap (r 12: 7,153 taps).  The work lists, barriers, flags and
+// tile counts are the narrow form's, and min / max are exact in any
+// order, so both forms give the same sweeps.
+#include "ball_pool.cuh"
 
 #include <type_traits>
 
@@ -165,14 +169,16 @@ struct Batch {
 // work lists by sweep parity; tile_occ: int32 [n_tiles].  Sets of at most
 // 256 taps run two blocks a multiprocessor (32 registers: the tile loads of
 // one overlap the other's taps); larger sets one (their tap loop spills at
-// 32).
-// The wide form's taps: the host's band plan in global memory, int32
-// [4 n_bands] (z0, y0, first, end: the band's dz from z0, dy from y0, and
-// its taps' range) then each tap's offset into its band's box; bz, by the
-// bands' extents, max_taps the most taps a band holds.
+// 32).  The wide form runs one, its pools of a ball in one group
+// (kernels.K2_WIDE_SMEM): at two blocks an SM its 32 registers spilled and
+// its groups split, and fine-0125's label call took 1.45 device ms
+// against 1.11 (the batched launches 7.95 against 8.05).
+// The wide form's taps: the packed wide run table (ball_pool.cuh WideTab)
+// in global memory, `len` ints, the set's halo (its z reach too).
 struct WideTaps {
-  int halo, n_bands, bz, by, max_taps;
-  const int* plan;
+  int halo;
+  const int* tab;
+  int len;
 };
 
 template <typename Taps>
@@ -180,49 +186,125 @@ constexpr int sweeps_blocks_per_sm() {
   return sizeof(Taps) <= sizeof(BallTaps) && !std::is_same<Taps, WideTaps>::value ? 2 : 1;
 }
 
-// The wide form's pool of one voxel: the running min / max over the bands
-// of the tile (tx, ty, tz), `box` the band's staged box, `boff` its taps'
-// offsets; every thread of the block takes part in the staging.  Returns
-// the voxel's new value from `old` (its own) and `o` (occupied), as
-// sweep_voxel.
+// The wide form's shared memory: two pool buffers of a group's pairs over
+// the tile's staged rows and columns, the chain's carry, two staged
+// planes, each 16-byte aligned, then the table
+template <typename T>
+struct SweepWideShape {
+  int sy, sx;
+  size_t pools, carry, stage, smem;
+  __host__ __device__ SweepWideShape(const WideTab& t) {
+    sy = TILE_Y + 2 * t.h, sx = TILE_X + 2 * t.h;
+    pools = ((size_t)2 * t.group * sy * TILE_X * sizeof(T) + 15) & ~(size_t)15;
+    carry = ((size_t)sy * TILE_X * sizeof(T) + 15) & ~(size_t)15;
+    stage = ((size_t)2 * sy * sx * sizeof(T) + 15) & ~(size_t)15;
+    smem = pools + carry + stage + (size_t)t.len * 4;
+  }
+};
+
+// cells of a staged plane a thread holds in registers (the rest, past
+// halo 22, staged directly)
+constexpr int SWEEP_WIDE_PF = 4;
+
+// The wide form's pool of the tile (tx, ty, tz): the running min / max of
+// this thread's voxel (fill where `pool` is false), every thread of the
+// block taking part.  tb: the table in shared memory, its rows as offsets
+// into a pool buffer from the voxel's row and column.
 template <typename T, int MODE>
-__device__ __forceinline__ T sweep_voxel_wide(const T* src, T* box, int* boff,
-                                              const WideTaps& w, int tx, int ty, int tz, int nz,
-                                              int ny, int nx, T fill, bool in, bool o, T old) {
-  const int h = w.halo, sx = TILE_X + 2 * h, sy = TILE_Y + w.by - 1, sz = TILE_Z + w.bz - 1;
+__device__ __forceinline__ T sweep_tile_wide(const T* src, unsigned char* smem, const int* tb,
+                                             const WideTab& hd, int tx, int ty, int tz, int nz,
+                                             int ny, int nx, T fill, bool pool) {
+  constexpr int NT = TILE_X * TILE_Y * TILE_Z, OP = MODE == 0 ? 0 : 1;
+  const SweepWideShape<T> sh(hd);
+  const int h = hd.h, G = hd.group, SY = sh.sy, SX = sh.sx;
+  T* pools = reinterpret_cast<T*>(smem);                              // [2][G][SY][TILE_X]
+  T* carry = reinterpret_cast<T*>(smem + sh.pools);                   // [SY][TILE_X]
+  T* stage = reinterpret_cast<T*>(smem + sh.pools + sh.carry);        // [2][SY][SX]
+  const int pool_cells = G * SY * TILE_X, plane = SY * SX;
+  const int n_planes = TILE_Z + 2 * h, n_steps = n_planes * hd.n_groups;
   const int tid = threadIdx.x + TILE_X * (threadIdx.y + TILE_Y * threadIdx.z);
-  constexpr int NT = TILE_X * TILE_Y * TILE_Z;
-  const int base = (threadIdx.z * sy + threadIdx.y) * sx + threadIdx.x;
-  T acc = fill;
-  for (int b = 0; b < w.n_bands; ++b) {
-    const int z0 = w.plan[4 * b], y0 = w.plan[4 * b + 1];
-    const int t0 = w.plan[4 * b + 2], t1 = w.plan[4 * b + 3];
-    const int gx0 = tx * TILE_X - h, gy0 = ty * TILE_Y + y0, gz0 = tz * TILE_Z + z0;
-    __syncthreads();  // the last band's readers are done with the box
-    for (int i = tid; i < sx * sy * sz; i += NT) {
-      const int lx = i % sx, rest = i / sx, ly = rest % sy, lz = rest / sy;
-      const int gx = gx0 + lx, gy = gy0 + ly, gz = gz0 + lz;
-      T v = fill;
-      if (gx >= 0 && gx < nx && gy >= 0 && gy < ny && gz >= 0 && gz < nz)
-        v = src[((size_t)gz * ny + gy) * nx + gx];
-      box[i] = v;
+  const int z0 = tz * TILE_Z - h, y0 = ty * TILE_Y - h, x0 = tx * TILE_X - h;
+  auto op = [](T a, T b) { return OP == 0 ? (a < b ? a : b) : (a > b ? a : b); };
+  int n_sym = 0;
+  for (int w = 0; w <= h; ++w) n_sym += tb[hd.sym + w] >= 0;
+
+  // this thread's staged cells tid + NT k: their global row and column
+  int gyx[SWEEP_WIDE_PF];
+#pragma unroll
+  for (int k = 0; k < SWEEP_WIDE_PF; ++k) {
+    const int c = tid + NT * k, r = c / SX, x = x0 + c - r * SX, y = y0 + r;
+    gyx[k] = c < plane && y >= 0 && y < ny && x >= 0 && x < nx ? y * nx + x : -1;
+  }
+  T pf[SWEEP_WIDE_PF];
+  auto fetch = [&](int p) {
+    const int z = z0 + p;
+    const bool z_ok = z >= 0 && z < nz;
+#pragma unroll
+    for (int k = 0; k < SWEEP_WIDE_PF; ++k)
+      pf[k] = z_ok && gyx[k] >= 0 ? src[(size_t)z * ny * nx + gyx[k]] : fill;
+  };
+  auto put = [&](int p) {
+    T* st = stage + (p & 1) * plane;
+#pragma unroll
+    for (int k = 0; k < SWEEP_WIDE_PF; ++k)
+      if (tid + NT * k < plane) st[tid + NT * k] = pf[k];
+    const int z = z0 + p;
+    for (int c = tid + NT * SWEEP_WIDE_PF; c < plane; c += NT) {
+      const int r = c / SX, x = x0 + c - r * SX, y = y0 + r;
+      st[c] = z >= 0 && z < nz && y >= 0 && y < ny && x >= 0 && x < nx
+                  ? src[((size_t)z * ny + y) * nx + x]
+                  : fill;
     }
-    const int* offs = w.plan + 4 * w.n_bands;
-    for (int t = t0 + tid; t < t1; t += NT) boff[t - t0] = offs[t];
-    __syncthreads();
-    if (in && o) {
-      for (int t = 0; t < t1 - t0; ++t) {
-        const T v = box[base + boff[t]];
-        if (MODE == 0)
-          acc = v < acc ? v : acc;
-        else
-          acc = v > acc ? v : acc;
+  };
+  auto xpool = [&](int s) {
+    const int p = s / hd.n_groups, g = s - p * hd.n_groups;
+    const T* sbuf = stage + (p & 1) * plane;
+    T* pbuf = pools + (s & 1) * pool_cells;
+    for (int task = tid; task < SY * TILE_X; task += NT) {
+      const T* e = sbuf + (task / TILE_X) * SX + task % TILE_X + h;  // e[k]: k columns right
+      auto at = [&](int k) { return e[k]; };
+      wide_row_pools<0>(tb, hd, g, n_sym, op, at, at, carry + task, pbuf + task, SY * TILE_X);
+    }
+  };
+
+  T acc = fill;
+  fetch(0);
+  put(0);
+  fetch(1);
+  put(1);
+  if (n_planes > 2) fetch(2);
+  __syncthreads();
+  xpool(0);
+  __syncthreads();
+  for (int s = 0; s < n_steps; ++s) {
+    const int p = s / hd.n_groups, g = s - p * hd.n_groups;
+    if (s + 1 < n_steps) xpool(s + 1);
+    const int dz = p - h - (int)threadIdx.z;  // input plane tz * 4 - h + p, own plane tz * 4 + z
+    if (pool && dz >= -h && dz <= h) {
+      const int q = tb[hd.zs + g * (2 * h + 1) + h + dz];
+      if (q >= 0) {
+        const T* pbase =
+            pools + (s & 1) * pool_cells + (threadIdx.y + h) * TILE_X + threadIdx.x;
+        // two running values: the rows' loads overlap
+        const int t1 = tb[hd.se + q];
+        int t = tb[hd.sb + q];
+        T acc2 = acc;
+#pragma unroll 2
+        for (; t + 1 < t1; t += 2) {
+          acc = op(acc, pbase[tb[hd.row + t]]);
+          acc2 = op(acc2, pbase[tb[hd.row + t + 1]]);
+        }
+        if (t < t1) acc = op(acc, pbase[tb[hd.row + t]]);
+        acc = op(acc, acc2);
       }
     }
+    if (g == hd.n_groups - 1) {
+      if (p + 2 < n_planes) put(p + 2);  // plane p's buffer: its last x pool ran a step ago
+      if (p + 3 < n_planes) fetch(p + 3);
+    }
+    __syncthreads();
   }
-  if (!o) return MODE == 0 ? (T)SENTINEL : (old != 0 ? (T)1 : (T)0);
-  if (MODE == 0) return acc;
-  return (old != 0 || acc != 0) ? (T)1 : (T)0;
+  return acc;
 }
 
 template <typename T, int MODE, typename Taps>
@@ -239,14 +321,9 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
   __shared__ int after, mine[BLOCK_TILES];
   const int h = taps.halo;
   T* tile = reinterpret_cast<T*>(smem_raw);
-  // after the tile: each tap's offset into it (the host sizes the launch so)
-  size_t tile_bytes;
-  if constexpr (WIDE)
-    tile_bytes = (size_t)(TILE_X + 2 * h) * (TILE_Y + taps.by - 1) * (TILE_Z + taps.bz - 1) *
-                 sizeof(T);
-  else
-    tile_bytes = (size_t)(TILE_X + 2 * h) * (TILE_Y + 2 * h) * (TILE_Z + 2 * h) * sizeof(T);
-  int* off = reinterpret_cast<int*>(smem_raw + ((tile_bytes + 15) & ~(size_t)15));
+  int* off = nullptr;  // narrow: after the tile, each tap's offset into it
+  int* tb = nullptr;   // wide: after the pools and planes, the table
+  WideTab hd;
   const T fill = MODE == 0 ? (T)SENTINEL : (T)0;
   const int gx = (nx + TILE_X - 1) / TILE_X, gy = (ny + TILE_Y - 1) / TILE_Y,
             gz = (nz + TILE_Z - 1) / TILE_Z;
@@ -259,7 +336,19 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
   const bool lead = tid == 0;
   const int sx = TILE_X + 2 * h, sy = TILE_Y + 2 * h;
   const int centre = ((threadIdx.z + h) * sy + threadIdx.y + h) * sx + threadIdx.x + h;
-  if constexpr (!WIDE) {
+  if constexpr (WIDE) {
+    hd = wide_tab(taps.tab);
+    const SweepWideShape<T> sh(hd);
+    tb = reinterpret_cast<int*>(smem_raw + sh.pools + sh.carry + sh.stage);
+    for (int i = tid; i < taps.len; i += TILE_X * TILE_Y * TILE_Z) {
+      int v = taps.tab[i];
+      if (i >= hd.row) v = ((v & 0xFFFF) * sh.sy + (v >> 16)) * TILE_X;  // a row's pool offset
+      tb[i] = v;
+    }
+  } else {
+    const size_t tile_bytes =
+        (size_t)(TILE_X + 2 * h) * (TILE_Y + 2 * h) * (TILE_Z + 2 * h) * sizeof(T);
+    off = reinterpret_cast<int*>(smem_raw + ((tile_bytes + 15) & ~(size_t)15));
     for (int t = tid; t < taps.n; t += TILE_X * TILE_Y * TILE_Z)
       off[t] = (taps.dz[t] * sy + taps.dy[t]) * sx + taps.dx[t];
   }
@@ -319,8 +408,12 @@ __global__ void __launch_bounds__(TILE_X* TILE_Y* TILE_Z, sweeps_blocks_per_sm<T
           const size_t v = in ? ((size_t)z * ny + y) * nx + x : 0;
           const bool o = in && occ[v] != 0;
           const T old = in ? src[v] : fill;
-          const T nv = sweep_voxel_wide<T, MODE>(src, tile, off, taps, tx, ty, tz, nz, ny, nx,
-                                                 fill, in, o, old);
+          const T pooled = sweep_tile_wide<T, MODE>(src, smem_raw, tb, hd, tx, ty, tz, nz, ny,
+                                                    nx, fill, o);
+          // an unoccupied voxel's value does not depend on the pool; the
+          // ball holds its centre: min(key, pool) == pool
+          const T nv = !o ? (MODE == 0 ? (T)SENTINEL : (T)(old != 0))
+                          : (MODE == 0 ? pooled : (T)(old != 0 || pooled != 0));
           if (in) {
             dst[v] = nv;
             diff = nv != old && z >= lo && z < hi;
@@ -426,16 +519,18 @@ int launch_sweeps(void* b0, void* b1, const void* occ, int nz, int ny, int nx, c
   });
 }
 
-// the wide form: a band's box, then its taps' offsets
+// the wide form: its shared memory from the table (checked here)
 template <typename T, int MODE>
 int launch_sweeps_wide(void* b0, void* b1, const void* occ, int nz, int ny, int nx,
-                       const WideTaps& w, const Batch& bt, int share, int* changed, int* tiles,
-                       unsigned int* barrier, int* mark, int* lists, int* tile_occ,
-                       int* blocks_out, cudaStream_t stream) {
-  const size_t box = (size_t)(TILE_X + 2 * w.halo) * (TILE_Y + w.by - 1) * (TILE_Z + w.bz - 1);
-  const size_t smem = ((box * sizeof(T) + 15) & ~(size_t)15) + 4 * (size_t)w.max_taps;
-  return launch_with<T, MODE>(w, smem, b0, b1, occ, nz, ny, nx, bt, share, changed, tiles,
-                              barrier, mark, lists, tile_occ, blocks_out, stream);
+                       const int* host, const int* dev, int len, const Batch& bt, int share,
+                       int* changed, int* tiles, unsigned int* barrier, int* mark, int* lists,
+                       int* tile_occ, int* blocks_out, cudaStream_t stream) {
+  WideTab t;
+  if (dev == nullptr || !parse_wide(host, len, 120, &t) || t.zh != t.h)
+    return (int)cudaErrorInvalidValue;
+  const WideTaps w = {t.h, dev, len};
+  return launch_with<T, MODE>(w, SweepWideShape<T>(t).smem, b0, b1, occ, nz, ny, nx, bt, share,
+                              changed, tiles, barrier, mark, lists, tile_occ, blocks_out, stream);
 }
 
 }  // namespace
@@ -486,25 +581,21 @@ VOFOD_API int vofod_propagate_sweeps(void* buf0, void* buf1, const void* occ, in
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide form (a tap set past halo 7 or 2,112 taps): plan, the device
-// int32 band plan of kernels.sweep_plan ([4 n_bands] bands, then each
-// tap's offset into its band's box), its n_bands, the bands' extents bz x
-// by and the most taps a band holds; halo: the set's.  Every other argument
+// The wide form (a tap set past halo 7 or 2,112 taps): host, the packed
+// wide run table of kernels.sweep_plan (ops/morphology.WideRunTable, host
+// int32 [len], checked here), dev its device copy.  Every other argument
 // as vofod_propagate_sweeps'.
 VOFOD_API int vofod_propagate_sweeps_wide(void* buf0, void* buf1, const void* occ, int mode,
-                                          int nz, int ny, int nx, const void* plan, int n_bands,
-                                          int bz, int by, int max_taps, int halo, int i0,
-                                          int n_sweeps, int grow, int flag_z0, int flag_z1,
-                                          const void* gate, int share, void* changed,
-                                          void* tiles, void* barrier, void* marks, void* lists,
-                                          void* tile_occ, int* blocks, void* stream) {
+                                          int nz, int ny, int nx, const int* host,
+                                          const int* dev, int len, int i0, int n_sweeps,
+                                          int grow, int flag_z0, int flag_z1, const void* gate,
+                                          int share, void* changed, void* tiles, void* barrier,
+                                          void* marks, void* lists, void* tile_occ, int* blocks,
+                                          void* stream) {
   if (n_sweeps < 1 || i0 < 0 || share < 1 || grow < 0 || blocks == nullptr ||
-      flag_z0 < n_sweeps * grow || flag_z1 > nz - n_sweeps * grow || flag_z0 >= flag_z1 ||
-      plan == nullptr || n_bands < 1 || bz < 1 || by < 1 || bz > 2 * halo + 1 ||
-      by > 2 * halo + 1 || max_taps < 1 || halo < 0)
+      flag_z0 < n_sweeps * grow || flag_z1 > nz - n_sweeps * grow || flag_z0 >= flag_z1)
     return (int)cudaErrorInvalidValue;
   const Batch bt = {i0, n_sweeps, grow, flag_z0, flag_z1, static_cast<const int*>(gate)};
-  const WideTaps w = {halo, n_bands, bz, by, max_taps, static_cast<const int*>(plan)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ch = static_cast<int*>(changed);
   int* ti = static_cast<int*>(tiles);
@@ -513,10 +604,10 @@ VOFOD_API int vofod_propagate_sweeps_wide(void* buf0, void* buf1, const void* oc
   int* ls = static_cast<int*>(lists);
   int* to = static_cast<int*>(tile_occ);
   if (mode == 0)
-    return launch_sweeps_wide<int32_t, 0>(buf0, buf1, occ, nz, ny, nx, w, bt, share, ch, ti, ba,
-                                          mk, ls, to, blocks, s);
+    return launch_sweeps_wide<int32_t, 0>(buf0, buf1, occ, nz, ny, nx, host, dev, len, bt, share,
+                                          ch, ti, ba, mk, ls, to, blocks, s);
   if (mode == 1)
-    return launch_sweeps_wide<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, w, bt, share, ch, ti, ba,
-                                          mk, ls, to, blocks, s);
+    return launch_sweeps_wide<uint8_t, 1>(buf0, buf1, occ, nz, ny, nx, host, dev, len, bt, share,
+                                          ch, ti, ba, mk, ls, to, blocks, s);
   return (int)cudaErrorInvalidValue;
 }

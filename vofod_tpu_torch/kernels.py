@@ -93,15 +93,23 @@ LAUNCHES: dict[str, int] = {
 # TABLE_HALO (csrc/common.cuh VOFOD_MAX_HALO), and K2's taps travel by value
 # up to TAP_STRUCT taps within it (VOFOD_MAX_TAPS_LARGE; the ball of r^2 <
 # 64 has 2,103): the production radii.  A set past either takes every
-# stencil's wide form (ops/morphology.is_wide; "*_wide" in LAUNCHES): K1's
-# run table cut into pieces within
-# TABLE_HALO (ops/morphology.WideTable), one launch a piece, and K2's taps
-# in bands from global memory (:func:`sweep_plan`).
+# stencil's wide form (ops/morphology.is_wide; "*_wide" in LAUNCHES): one
+# run table of any halo in global memory (ops/morphology.WideRunTable),
+# one launch a call, K1's cut in z only past WIDE_ZHALO.
 TABLE_HALO = 7
 TAP_STRUCT = 2112
-# the wide K2's dynamic shared memory a block, at most: a band's box and its
-# taps' offsets (the H100 opts in to 232,448 bytes a block)
-K2_WIDE_SMEM = 200 * 1024
+# the wide pool's accumulators a thread: the dz values of a z piece, 2
+# WIDE_ZHALO + 1 (csrc/ball_pool.cuh WIDE_ZHALO)
+WIDE_ZHALO = 16
+# the wide pool's column tiles (y, x) by dtype (csrc/ball_pool.cuh
+# LanesW: 16 x 16 threads of 4 int8 or 2 int32 voxels)
+WIDE_POOL_TILE = {torch.int8: (16, 64), torch.int32: (16, 32)}
+# the wide pool's dynamic shared memory a block that lets two blocks share
+# an SM (the H100's 228 KB, 1 KB a block reserved; csrc/ball_pool.cuh
+# WIDE_BLOCKS_PER_SM); the wide K2's, at most (one block an SM: the card
+# opts in to 232,448 bytes a block)
+WIDE_POOL_SMEM = 112 * 1024
+K2_WIDE_SMEM = 224 * 1024
 # their output tile (z, y, x): csrc/common.cuh TILE_Z, TILE_Y, TILE_X
 TILE_ZYX = (4, 8, 32)
 # K4's, K15b-3's and K15b-4b's blocks a cone: csrc/cone_sweep.cu CONE_CLUSTER
@@ -212,14 +220,15 @@ def load():
             _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
             _P, _P, ctypes.POINTER(_I), _P]
         lib.vofod_propagate_sweeps_wide.argtypes = [
-            _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-            _P, _P, _P, _P, _P, ctypes.POINTER(_I), _P]
+            _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+            _P, _P, ctypes.POINTER(_I), _P]
         lib.vofod_ball_pool_wide.argtypes = [
-            _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
+            _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P]
         lib.vofod_demote_ema_wide.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P]
+            _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P, _P]
         lib.vofod_exact_demote_ema_wide.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+            _P]
         lib.vofod_frontend_bin.argtypes = [
             _P, _P, _P, _P, _I, _P, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.vofod_cone_sweep.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
@@ -326,11 +335,58 @@ def _taps_arg(taps: np.ndarray, halo: int):
 
 
 def _fold_scratch(shape, dtype, device) -> torch.Tensor:
-    """The wide run-table forms' fold: int32 (nz, ny, units a row, 4 words),
-    K1's unit of 8 int8 voxels (4 words of s16 pairs) or 4 int32 voxels."""
+    """The fold of K1's wide form cut in z (csrc/ball_pool.cuh
+    ``PieceIO``): int32 (nz, ny, units a row, 2 words), its unit of 4 int8
+    voxels (2 words of s16 pairs) or 2 int32 voxels."""
     nz, ny, nx = shape
-    vx = 8 if dtype == torch.int8 else 4
-    return torch.empty((nz, ny, -(-nx // vx), 4), dtype=torch.int32, device=device)
+    vx = 4 if dtype == torch.int8 else 2
+    return torch.empty((nz, ny, -(-nx // vx), 2), dtype=torch.int32, device=device)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def wide_pool_smem(halo: int, group: int, dtype, blob_len: int) -> int:
+    """Dynamic shared bytes of the wide pool's launch (csrc/ball_pool.cuh
+    launch_pool_wide): two pool buffers of a group's pairs (8-byte units),
+    the chain's carry, two staged planes (int8 rows padded to 16 mod 32
+    words), the table."""
+    ty, tx = WIDE_POOL_TILE[dtype]
+    txu, sy, xpad = 16, ty + 2 * halo, _round_up(halo, 4)
+    if dtype == torch.int8:
+        w = (tx + 2 * xpad) // 4
+        sw = w + (16 - w % 32) % 32
+    else:
+        sw = tx + 2 * xpad
+    return 2 * group * sy * txu * 8 + sy * txu * 8 + 2 * sy * sw * 4 + 4 * blob_len
+
+
+def wide_pool_group(halo: int) -> int:
+    """Pairs a group of the wide pool's table: the most, up to 8, that
+    keep an int32 launch within :data:`WIDE_POOL_SMEM` (4 KB kept for the
+    table), at least 1."""
+    for g in range(8, 0, -1):
+        if wide_pool_smem(halo, g, torch.int32, 1024) <= WIDE_POOL_SMEM:
+            return g
+    return 1
+
+
+def device_copy(cache: dict, host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device``, copied once a (device, stream) from pinned
+    memory on that stream (kept in ``cache``), so that the launches after it
+    on the stream see it and no copy waits on the host."""
+    key = (str(device), _stream(device.index))
+    got = cache.get(key)
+    if got is None:
+        with _lock:
+            got = cache.get(key)
+            if got is None:
+                pinned = cache.get("pinned")
+                if pinned is None:  # kept: the copies read it later
+                    pinned = cache["pinned"] = torch.from_numpy(host).pin_memory()
+                got = cache[key] = pinned.to(device, non_blocking=True)
+    return got
 
 
 _DTYPE_CODE = {torch.int8: 0, torch.int32: 1}
@@ -355,10 +411,11 @@ def _pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str, fill: int,
     out = torch.empty_like(a)
     nz, ny, nx = a.shape
     if table.wide:
-        acc = _fold_scratch(a.shape, a.dtype, a.device)
+        acc = _fold_scratch(a.shape, a.dtype, a.device) if table.n_pieces > 1 else None
         err = load().vofod_ball_pool_wide(
             a.data_ptr(), out.data_ptr(), _DTYPE_CODE[a.dtype], _OP_CODE[op], nz, ny, nx,
-            *table.args, int(fill), acc.data_ptr(), used, _stream(a.get_device()))
+            *table.args(a.device), int(fill), None if acc is None else acc.data_ptr(), used,
+            _stream(a.get_device()))
         _check(err, "vofod_ball_pool_wide")
         return out, table.n_pieces
     err = load().vofod_ball_pool(
@@ -379,7 +436,7 @@ def ball_pool_schedule(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
 
 
 def _count_pool(name: str, pieces: int) -> None:
-    """A run-table call's launches: one, or one a piece of the wide form."""
+    """A run-table call's launches: one, or one a z piece of the wide form."""
     if pieces:
         _count(name + "_wide", pieces)
     else:
@@ -390,7 +447,7 @@ def ball_pool(a: torch.Tensor, taps: np.ndarray, halo: int, op: str,
               fill: int) -> torch.Tensor:
     """K1: out[v] = op over the ball taps of a (out-of-grid taps read fill),
     run from the tap set's run table (ops/morphology.run_table); a set past
-    halo 7 in the wide form, one launch a piece."""
+    halo 7 in the wide form, one launch (one a z piece past WIDE_ZHALO)."""
     out, pieces = _pool(a, taps, halo, op, fill)
     _count_pool("ball_pool", pieces)
     return out
@@ -459,8 +516,7 @@ def _sweeps(buf0, buf1, occ, taps, halo, scratch, launch: int, i0: int, n: int, 
         plan = sweep_plan(keep, halo, buf0.element_size())
         err = load().vofod_propagate_sweeps_wide(
             buf0.data_ptr(), buf1.data_ptr(), occ.data_ptr(), mode, nz, ny, nx,
-            plan.on(buf0.device).data_ptr(), plan.n_bands, plan.bz, plan.by, plan.max_taps,
-            halo, *tail)
+            plan.blob.ctypes.data, plan.on(buf0.device).data_ptr(), len(plan.blob), *tail)
         _check(err, "vofod_propagate_sweeps_wide")
         _count(name + "_wide")
         return blocks.value
@@ -472,75 +528,26 @@ def _sweeps(buf0, buf1, occ, taps, halo, scratch, launch: int, i0: int, n: int, 
     return blocks.value
 
 
-class SweepPlan:
-    """K2's wide form's taps (csrc/propagate.cu ``WideTaps``): the set cut
-    into bands of at most ``bz`` dz x ``by`` dy values, band b the taps
-    ``bands[b, 2]:bands[b, 3]`` with dz from ``bands[b, 0]`` and dy from
-    ``bands[b, 1]``; ``offsets`` each tap's index into its band's box of
-    (TILE_Z + bz - 1) x (TILE_Y + by - 1) x (TILE_X + 2 halo) cells, from the
-    box cell of the tile's first voxel; ``taps`` in band order.  The
-    extents are the widest that keep the box and a band's offsets within
-    :data:`K2_WIDE_SMEM` with the fewest cells staged over the bands."""
-
-    def __init__(self, taps: np.ndarray, halo: int, itemsize: int):
-        tz, ty, tx = TILE_ZYX
-        sx = tx + 2 * halo
-        best = None
-        for by in range(2 * halo + 1, 0, -1):
-            for bz in range(2 * halo + 1, 0, -1):
-                box = sx * (ty + by - 1) * (tz + bz - 1)
-                if -(-box * itemsize // 16) * 16 > K2_WIDE_SMEM:
-                    continue
-                band = (taps[:, 0] + halo) // bz * (2 * halo + 1) + (taps[:, 1] + halo) // by
-                _, counts = np.unique(band, return_counts=True)
-                if -(-box * itemsize // 16) * 16 + 4 * int(counts.max()) > K2_WIDE_SMEM:
-                    continue
-                cost = len(counts) * box
-                if best is None or cost < best[0]:
-                    best = (cost, bz, by, band)
-                break  # the widest bz that fits this by
-        if best is None:
-            raise ValueError(f"K2's wide form stages no band of halo {halo} within "
-                             f"{K2_WIDE_SMEM} bytes")
-        _, bz, by, band = best
-        order = np.argsort(band, kind="stable")
-        self.taps = taps[order]
-        keys, first, counts = np.unique(band[order], return_index=True, return_counts=True)
-        z0 = keys // (2 * halo + 1) * bz - halo
-        y0 = keys % (2 * halo + 1) * by - halo
-        self.bands = np.stack([z0, y0, first, first + counts], 1).astype(np.int32)
-        band_of = np.repeat(np.arange(len(keys)), counts)
-        dz, dy, dx = self.taps.T
-        self.offsets = (((dz - z0[band_of]) * (ty + by - 1) + dy - y0[band_of]) * sx
-                        + dx + halo).astype(np.int32)
-        self.halo, self.bz, self.by = halo, bz, by
-        self.n_bands, self.max_taps = len(keys), int(counts.max())
-        self._flat = torch.from_numpy(np.concatenate([self.bands.reshape(-1), self.offsets]))
-        self._dev: dict = {}
-
-    def on(self, device: torch.device) -> torch.Tensor:
-        """The plan as the kernel reads it (int32 [4 n_bands + n_taps]), on
-        ``device``: copied once a (device, stream) from pinned memory on that
-        stream, so that the launches after it on the stream see it and no
-        copy waits on the host."""
-        key = (str(device), _stream(device.index))
-        got = self._dev.get(key)
-        if got is None:
-            with _lock:
-                got = self._dev.get(key)
-                if got is None:
-                    if not self._flat.is_pinned():
-                        self._flat = self._flat.pin_memory()  # kept: the copies read it later
-                    got = self._dev[key] = self._flat.to(device, non_blocking=True)
-        return got
+def sweep_wide_smem(halo: int, group: int, itemsize: int, blob_len: int) -> int:
+    """Dynamic shared bytes of K2's wide launch (csrc/propagate.cu
+    launch_sweeps_wide): two pool buffers of a group's pairs over the
+    tile's staged rows, the chain's carry, two staged planes, each 16-byte
+    aligned, and the table."""
+    tz, ty, tx = TILE_ZYX
+    sy, sx = ty + 2 * halo, tx + 2 * halo
+    return (_round_up(2 * group * sy * tx * itemsize, 16) + _round_up(sy * tx * itemsize, 16)
+            + _round_up(2 * sy * sx * itemsize, 16) + 4 * blob_len)
 
 
 _plans: dict = {}
 
 
-def sweep_plan(taps: np.ndarray, halo: int, itemsize: int) -> SweepPlan:
-    """The :class:`SweepPlan` of a tap set, built once per set, halo and
-    element size."""
+def sweep_plan(taps: np.ndarray, halo: int, itemsize: int):
+    """K2's wide form's table (ops/morphology.WideRunTable), built once per
+    set, halo and element size: its pairs in the largest groups that keep
+    the launch within :data:`K2_WIDE_SMEM` (every pair of a ball in one)."""
+    from vofod_tpu_torch.ops.morphology import wide_run_table, x_runs  # it imports this module
+
     arr = np.ascontiguousarray(taps, dtype=np.int32).reshape(-1, 3)
     key = (arr.tobytes(), halo, itemsize)
     plan = _plans.get(key)
@@ -548,7 +555,16 @@ def sweep_plan(taps: np.ndarray, halo: int, itemsize: int) -> SweepPlan:
         with _lock:
             plan = _plans.get(key)
             if plan is None:
-                plan = _plans[key] = SweepPlan(arr, halo, itemsize)
+                group = len({(lo, hi) for *_, lo, hi in x_runs(arr)})
+                while True:
+                    plan = wide_run_table(arr, halo, group)
+                    if sweep_wide_smem(halo, group, itemsize, len(plan.blob)) <= K2_WIDE_SMEM:
+                        break
+                    if group == 1:
+                        raise ValueError(f"K2's wide form stages no tile of halo {halo} within "
+                                         f"{K2_WIDE_SMEM} bytes")
+                    group -= 1
+                _plans[key] = plan
     return plan
 
 
@@ -1249,9 +1265,10 @@ def _demote(vals, bg, safe, sure_sufficient, taps, halo, w1, c, used=None) -> to
     head = (vals.data_ptr(), bg.data_ptr(), safe.data_ptr(), sure_sufficient.data_ptr(),
             nz, ny, nx)
     if table.wide:
-        acc = _fold_scratch(vals.shape, torch.int8, vals.device)
-        err = load().vofod_demote_ema_wide(*head, *table.args, float(w1), float(c),
-                                           out.data_ptr(), acc.data_ptr(), used, _stream())
+        acc = _fold_scratch(vals.shape, torch.int8, vals.device) if table.n_pieces > 1 else None
+        err = load().vofod_demote_ema_wide(*head, *table.args(vals.device), float(w1), float(c),
+                                           out.data_ptr(), None if acc is None else acc.data_ptr(),
+                                           used, _stream())
         _check(err, "vofod_demote_ema_wide")
         _count("demote_ema_wide", table.n_pieces)
         return out
@@ -1527,8 +1544,9 @@ def _exact_demote(vals, occ_c, census, flags, prev_sure, lsz, taps, halo, min_su
         if min(len(taps), ((2 * halo) // lsz + 1) ** 3) >= 2**15:
             raise ValueError(f"K13c sums fewer than 2^15 centres a voxel: {len(taps)} taps "
                              f"at leaf size {lsz}")
-        acc = _fold_scratch(vals.shape, torch.int8, dev)
-        err = load().vofod_exact_demote_ema_wide(*head, *table.args, *outs, acc.data_ptr(), used,
+        acc = _fold_scratch(vals.shape, torch.int8, dev) if table.n_pieces > 1 else None
+        err = load().vofod_exact_demote_ema_wide(*head, *table.args(dev), *outs,
+                                                 None if acc is None else acc.data_ptr(), used,
                                                  _stream())
         _check(err, "vofod_exact_demote_ema_wide")
         _count("exact_demote_ema_wide", table.n_pieces)

@@ -45,7 +45,6 @@ the census between them.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -53,7 +52,7 @@ import torch.nn.functional as F
 
 from vofod_tpu_torch import kernels
 from vofod_tpu_torch.ops.morphology import (
-    _COMBINE, Shells, is_wide, pool_plain, tap_set, x_runs)
+    _COMBINE, Shells, is_wide, pool_plain, tap_set, wide_row_pools)
 
 Tensor = torch.Tensor
 
@@ -73,70 +72,72 @@ def sweep_plain(cur: Tensor, occ: Tensor, ball) -> tuple[Tensor, Tensor]:
     return new, torch.any(new != cur)
 
 
-@functools.lru_cache(maxsize=64)
-def _band_runs(plan: kernels.SweepPlan) -> tuple:
-    """Each band's taps as the wide K2 reads them, as x-runs: its offsets
-    decoded through the band's box (csrc/propagate.cu ``sweep_voxel_wide``:
-    (TILE_Z + bz - 1) x (TILE_Y + by - 1) x (TILE_X + 2 halo) cells from
-    the tile's first voxel moved by (z0, y0, -halo)); raises where an
-    offset would carry past its box's row, plane or end for a voxel of the
-    tile (plans live as long as the process)."""
-    tz, ty, tx = kernels.TILE_ZYX
-    h = plan.halo
-    sx, sy = tx + 2 * h, ty + plan.by - 1
-    out = []
-    for z0, y0, t0, t1 in plan.bands.tolist():
-        off = plan.offsets[t0:t1].astype(np.int64)
-        oz, rest = np.divmod(off, sy * sx)
-        oy, ox = np.divmod(rest, sx)
-        if not ((off >= 0) & (oz < plan.bz) & (oy < plan.by) & (ox <= 2 * h)).all():
-            raise ValueError(f"K2's band at dz {z0}, dy {y0} reads past its box")
-        out.append(tuple(x_runs(np.stack([z0 + oz, y0 + oy, ox - h], 1))))
-    return tuple(out)
+def _check_wide(table) -> None:
+    """The bounds csrc/ball_pool.cuh ``parse_wide`` holds a wide table to
+    before a launch: every pair and slice row within the halo, the
+    symmetric pairs first, a row's pair within its group, the chain's
+    widths continuing the group before."""
+    h, group = table.halo, table.group
+    if not ((table.runs >= -h) & (table.runs <= h)).all() or (
+            table.runs[:, 0] > table.runs[:, 1]).any():
+        raise ValueError("a wide table's run reaches past its halo")
+    sym = table.runs[:, 0] == -table.runs[:, 1]
+    if sym[int(sym.sum()):].any():
+        raise ValueError("a wide table's symmetric pairs do not come first")
+    n_in = [min(group, len(table.runs) - g * group) for g in range(table.n_groups)]
+    last = -1
+    for g, (c0, c1, _) in enumerate(table.chain.tolist()):
+        if c1 >= 0 and c0 != last + 1:
+            raise ValueError("a wide table's chain skips widths")
+        last = max(last, c1)
+        for q in set(table.zslice[g].tolist()) - {-1}:
+            dy, i = table.rows[table.slices[q, 0]:table.slices[q, 1]].T
+            if (np.abs(dy) > h).any() or (i >= n_in[g]).any():
+                raise ValueError(f"a wide table's slice {q} reads past its halo or group")
 
 
-def bands_pool_plain(a: Tensor, plan: kernels.SweepPlan, op: str, fill: int) -> Tensor:
+def runs_pool_plain(a: Tensor, table, op: str, fill: int) -> Tensor:
     """Plain model of the wide K2's pool (csrc/propagate.cu
-    ``sweep_voxel_wide``), on any device: out[v] = ``op`` over the
-    ``plan``'s bands in order, each band's taps decoded from its offsets
-    (:func:`_band_runs`) and pooled as x-runs (one shifted combine a run of
-    the pools of its (lo, hi) pair) from ``a`` padded by ``fill``."""
+    ``sweep_tile_wide``), on any device: out[v] = ``op`` over the table's
+    groups and dz slices (ops/morphology.WideRunTable), each slice's rows
+    (dy, pair) read from the pair's x pool over ``a`` padded by ``fill``:
+    the group's widths of the chain from the value the group before it
+    left, any other pair element by element.  Raises for a table the
+    kernel's host check refuses."""
+    _check_wide(table)
     combine = _COMBINE[op]
     nz, ny, nx = a.shape
-    h = plan.halo
-    pad = F.pad(a, (h, h, h, h, h, h), value=fill)
-    xpools: dict = {}
+    h, zh = table.halo, table.zhalo
+    pad = F.pad(a, (h, h, h, h, zh, zh), value=fill)
 
-    def xpool(lo: int, hi: int) -> Tensor:
-        if (lo, hi) not in xpools:
-            p = pad[:, :, h + lo: h + lo + nx]
-            for k in range(lo + 1, hi + 1):
-                p = combine(p, pad[:, :, h + k: h + k + nx])
-            xpools[lo, hi] = p
-        return xpools[lo, hi]
+    def e(k: int) -> Tensor:
+        return pad[:, :, h + k: h + k + nx]
 
-    out = None
-    for runs in _band_runs(plan):
-        band = None
-        for dz, dy, lo, hi in runs:
-            s = xpool(lo, hi)[h + dz: h + dz + nz, h + dy: h + dy + ny]
-            band = s if band is None else combine(band, s)
-        out = band if out is None else combine(out, band)
+    out, carry = None, None
+    for g in range(table.n_groups):
+        pools, carry = wide_row_pools(table, g, e, carry, combine)
+        for dz in range(-zh, zh + 1):
+            q = int(table.zslice[g, zh + dz])
+            if q < 0:
+                continue
+            for dy, i in table.rows[table.slices[q, 0]:table.slices[q, 1]].tolist():
+                s = pools[i][zh + dz: zh + dz + nz, h + dy: h + dy + ny]
+                out = s if out is None else combine(out, s)
     return out.contiguous()
 
 
 def sweep_model(cur: Tensor, occ: Tensor, ball) -> tuple[Tensor, Tensor]:
     """One K2 sweep as the kernel pools it: :func:`sweep_plain` in the
-    narrow form, the wide form's bands (:func:`bands_pool_plain`) where
-    ``is_wide``."""
+    narrow form, the wide form's run decomposition (:func:`runs_pool_plain`
+    on ``kernels.sweep_plan``'s table) where ``is_wide``."""
     taps, halo = tap_set(ball)
     if not is_wide(taps, halo):
         return sweep_plain(cur, occ, ball)
     plan = kernels.sweep_plan(taps, halo, cur.element_size())
     if cur.dtype == torch.int32:
-        new = torch.where(occ, bands_pool_plain(cur, plan, "min", SENTINEL), SENTINEL)
+        new = torch.where(occ, runs_pool_plain(cur, plan, "min", SENTINEL), SENTINEL)
     else:
-        pooled = bands_pool_plain(cur.view(torch.int8), plan, "max", 0)
+        pooled = runs_pool_plain(cur.view(torch.int8), plan, "max", 0)
         new = cur | (occ & (pooled > 0)).to(torch.uint8)
     return new, torch.any(new != cur)
 
@@ -182,7 +183,7 @@ def sweeps_batch_plain(buf0: Tensor, buf1: Tensor, occ: Tensor, ball, changed: T
     ``changed[i0 + s]`` (1 iff a voxel of the z ``rows``, default all,
     changed) and ``tiles[i0 + s]`` (tiles computed), and stops when the
     next sweep has no tile.  With ``gate`` 0 it does nothing.  Each sweep pools as
-    :func:`sweep_model` (the wide form's bands past halo 7)."""
+    :func:`sweep_model` (the wide form's run decomposition past halo 7)."""
     if gate is not None and not bool(gate):
         return
     _, halo = tap_set(ball)

@@ -14,8 +14,9 @@ The CUDA kernels take any tap set, of any radius.
 
 A CUDA tensor goes to the hand-written stencil (csrc/ball_pool.cu), given
 the ball's :class:`RunTable` (its x-runs, pairs and z slices) within halo
-7, or past it its :class:`WideTable` (the set cut into pieces within halo
-7, one launch a piece, the pieces' pools folded); a CPU tensor takes the
+7, or past it its :class:`WideTable` (one :class:`WideRunTable` of any
+halo, one launch; cut in z only past :data:`kernels.WIDE_ZHALO`, the
+pieces' pools folded); a CPU tensor takes the
 plain version below, which is the JAX decomposition (x running pools
 shared across rows, then one shifted combine per (dz, dy) row).
 :func:`ball_pool_runs_plain` models the kernel's schedule, both forms, on
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import ClassVar
 
 import numpy as np
@@ -132,37 +133,105 @@ class RunTable:
 
 
 @dataclass(frozen=True, eq=False)
+class WideRunTable:
+    """A tap set as the stencil kernels' wide forms run it in one pass
+    (csrc/ball_pool.cuh ``WideTab``: K1, K14, K11's demotion and K13c;
+    csrc/propagate.cu: K2), of any in-plane ``halo`` and z reach
+    ``zhalo``.
+
+    The x-runs' distinct ``(lo, hi)`` pairs (``runs``: symmetric pairs
+    first, narrowest first) are pooled per staged row in groups of
+    ``group``, the pools a block holds in shared memory at once.  The
+    symmetric pairs ``(-w, w)`` of every group are one chain ``S[w] =
+    op(S[w - 1], e[-w], e[w])``: group g runs its widths ``chain[g, 0] ..
+    chain[g, 1]`` (-1: none), starting from the chain value the group
+    before it left (``chain[g, 0] > 0``) and leaving its own for a later
+    group (``chain[g, 2]``); ``symidx[w]`` is the pair ``(-w, w)``'s index
+    (-1: none).  Any other pair is pooled element by element.
+
+    ``zslice[g, zhalo + dz]``: the slice (rows ``(dy, pair within its
+    group)`` of the group's runs at that dz) or -1; equal slices are kept
+    once, and K1's wide body pools a slice equal to the one it pooled last
+    (a ball's dz and -dz) once a plane.  ``slices`` int32 [n_slices, 2]:
+    first and end row.  ``blob``
+    is the packed int32 form the kernels take (:meth:`on` puts it on a
+    device)."""
+
+    zhalo: int
+    halo: int
+    group: int
+    runs: np.ndarray
+    symidx: np.ndarray
+    chain: np.ndarray
+    zslice: np.ndarray
+    slices: np.ndarray
+    rows: np.ndarray
+    blob: np.ndarray
+    _dev: dict = field(default_factory=dict, repr=False)
+    wide: ClassVar[bool] = True
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.chain)
+
+    def on(self, device: torch.device) -> Tensor:
+        """The blob on ``device``, copied once a (device, stream) from pinned
+        memory on that stream, so that the launches after it on the stream
+        see it and no copy waits on the host."""
+        return kernels.device_copy(self._dev, self.blob, device)
+
+    def combines(self) -> int:
+        """Combines an output voxel takes in K1's wide schedule: 2 a width
+        of the chain, hi - lo for any other pair, one a row of a slice
+        pooled (dz = j, then -j, for j = 0, 1, ...: one equal to the slice
+        pooled last is reused, as a ball's dz and -dz) and one an
+        accumulator a dz (a ball's in one group: :func:`pool_combines`)."""
+        n = sum(2 * (c1 - max(c0, 1) + 1) for c0, c1, _ in self.chain.tolist() if c1 >= 1)
+        n += sum(hi - lo for lo, hi in self.runs.tolist() if lo != -hi)
+        zh = self.zhalo
+        for g in range(self.n_groups):
+            zs, last = self.zslice[g].tolist(), -1
+            for j in range(zh + 1):
+                for q in (zs[zh + j], zs[zh - j]) if j else (zs[zh],):
+                    if q >= 0:
+                        n += 1 + (int(self.slices[q, 1] - self.slices[q, 0]) if q != last else 0)
+                        last = q
+        return n
+
+
+@dataclass(frozen=True, eq=False)
 class WideTable:
-    """A tap set past halo 7 as the kernels' wide form runs it
-    (csrc/ball_pool.cuh ``PieceIO``): each axis of the set's extent cut into
-    segments of at most 15 offsets, and each box of segments that holds taps
-    a piece: its taps recentred on the box's centre ``shifts[i]`` (dz, dy,
-    dx), a :class:`RunTable` within halo 7 (``pieces[i]``).  A piece's
-    launch stages the input shifted by its centre and folds its pool into
-    the pieces' before it; ``blob``, ``lens`` and ``shifts`` are what the C
-    entry points take (the pieces' packed tables back to back)."""
+    """K1's wide form (past halo 7): the set as :class:`WideRunTable`
+    pieces cut in z only, each of at most 2 x :data:`kernels.WIDE_ZHALO` + 1
+    dz values recentred on ``shifts[i]`` = (dz, 0, 0).  A set within
+    ``WIDE_ZHALO`` (every radius up to 16) is one piece, one launch, and
+    its pool is stored as it is; more pieces launch in order, each staging
+    the input shifted by its dz, and fold their pools with the pool's op in
+    a scratch of units, the last storing."""
 
     halo: int
     shifts: np.ndarray  # int32 [n_pieces, 3]
     pieces: tuple
     blob: np.ndarray
     lens: np.ndarray
+    dz: np.ndarray  # int32 [n_pieces]: shifts[:, 0], as the entries take it
+    _dev: dict = field(default_factory=dict, repr=False)
     wide: ClassVar[bool] = True
 
     @property
     def n_pieces(self) -> int:
         return len(self.pieces)
 
-    @property
-    def args(self) -> tuple:
-        """(tables, lens, shifts, n_pieces) as the wide entries take them."""
-        return (self.blob.ctypes.data, self.lens.ctypes.data, self.shifts.ctypes.data,
-                self.n_pieces)
+    def args(self, device: torch.device) -> tuple:
+        """(host tables, device tables, lens, dz shifts, n_pieces) as the
+        wide entries take them."""
+        return (self.blob.ctypes.data, kernels.device_copy(self._dev, self.blob, device).data_ptr(),
+                self.lens.ctypes.data, self.dz.ctypes.data, self.n_pieces)
 
     def combines(self) -> int:
         """Combines an output voxel takes over the pieces, one more a piece
-        for the fold."""
-        return sum(p.combines() + 1 for p in self.pieces)
+        past the first for the fold."""
+        return sum(p.combines() for p in self.pieces) + self.n_pieces - 1
 
 
 def pool_combines(taps: np.ndarray) -> int:
@@ -241,47 +310,96 @@ def _build_run_table(taps: np.ndarray, halo: int) -> RunTable:
     return RunTable(halo, runs, sym, gslice, slices, rows, blob, blob.ctypes.data)
 
 
-def _segments(lo: int, hi: int, centred: bool = False) -> list[tuple[int, int]]:
-    """[lo, hi] cut into the fewest segments of at most 2 x 7 + 1 offsets,
-    of near-equal length; with ``centred`` and an odd length, the fewest
-    odd number of them, mirrored about the range's centre (the middle one
-    centred on it)."""
-    size, width = hi - lo + 1, 2 * kernels.TABLE_HALO + 1
-    n = -(-size // width)
-    if centred and size % 2 and n > 1:
-        n += n % 2 == 0
-        m, k = size // n | 1, n // 2  # the middle's length (odd); segments a side
-        side = (size - m) // 2
-        left = [(lo + side * i // k, lo + side * (i + 1) // k - 1) for i in range(k)]
-        right = [(lo + hi - b, lo + hi - a) for a, b in reversed(left)]
-        return left + [(lo + side, hi - side)] + right
-    edges = [lo + size * i // n for i in range(n + 1)]
-    return [(edges[i], edges[i + 1] - 1) for i in range(n)]
+def _build_wide_run_table(taps: np.ndarray, zhalo: int, halo: int, group: int) -> WideRunTable:
+    """The :class:`WideRunTable` of ``taps`` (|dz| <= ``zhalo``, |dy|, |dx|
+    <= ``halo``) with pools in groups of ``group`` pairs."""
+    runs_dz = x_runs(taps)
+    # symmetric pairs first, narrowest first: the chain pools them in order
+    pairs = sorted({(lo, hi) for _, _, lo, hi in runs_dz},
+                   key=lambda p: (p[0] != -p[1], p[1] - p[0], p[0]))
+    index = {p: i for i, p in enumerate(pairs)}
+    n_groups = -(-len(pairs) // group)
+    symidx = np.full(halo + 1, -1, np.int32)
+    widths = [[] for _ in range(n_groups)]
+    for i, (lo, hi) in enumerate(pairs):
+        if lo == -hi:
+            symidx[hi] = i
+            widths[i // group].append(hi)
+    chain, done = [], -1
+    for g in range(n_groups):
+        c1 = max(widths[g], default=-1)
+        later = any(widths[g + 1:])
+        chain.append((done + 1 if c1 >= 0 else -1, c1, int(c1 >= 0 and later)))
+        done = max(done, c1)
+    by: dict[tuple[int, int], list] = {}
+    for dz, dy, lo, hi in runs_dz:
+        i = index[(lo, hi)]
+        by.setdefault((i // group, dz), []).append((dy, i % group))
+    zslice = np.full((n_groups, 2 * zhalo + 1), -1, np.int32)
+    slices, rows = [], []
+    for g in range(n_groups):
+        kept: dict[tuple, int] = {}
+        for dz in range(-zhalo, zhalo + 1):
+            if (g, dz) not in by:
+                continue
+            key = tuple(sorted(by[g, dz]))
+            if key not in kept:
+                kept[key] = len(slices)
+                slices.append((len(rows), len(rows) + len(key)))
+                rows += key
+            zslice[g, zhalo + dz] = kept[key]
+    runs = np.asarray(pairs, np.int32).reshape(-1, 2)
+    chain = np.asarray(chain, np.int32).reshape(-1, 3)
+    slices = np.asarray(slices, np.int32).reshape(-1, 2)
+    rows = np.asarray(rows, np.int32).reshape(-1, 2)
+    head = [zhalo, halo, len(runs), group, n_groups, len(slices), len(rows), 0]
+    blob = np.concatenate([
+        head, runs[:, 0], runs[:, 1], symidx, chain.T.reshape(-1), zslice.reshape(-1),
+        slices[:, 0], slices[:, 1], rows[:, 0].astype(np.int64) * 65536 + rows[:, 1]])
+    blob = blob.astype(np.int32)
+    blob[7] = len(blob)
+    return WideRunTable(zhalo, halo, group, runs, symidx, chain, zslice, slices, rows, blob)
+
+
+def wide_run_table(taps: np.ndarray, halo: int, group: int) -> WideRunTable:
+    """The whole set as one :class:`WideRunTable` (K2's wide form takes any
+    z reach: a voxel keeps one running value)."""
+    taps, _ = _checked(taps, halo)
+    return _build_wide_run_table(taps, halo, halo, group)
+
+
+def _checked(taps: np.ndarray, halo: int) -> tuple[np.ndarray, object]:
+    out = kernels._taps_arg(taps, halo)  # the stencil kernels' limits
+    if len(np.unique(out[0], axis=0)) != len(out[0]):
+        raise ValueError("a ball pool's tap set must not repeat a tap")
+    return out
 
 
 def _build_wide_table(taps: np.ndarray, halo: int) -> WideTable:
-    kernels._taps_arg(taps, halo)
-    if len(np.unique(taps, axis=0)) != len(taps):
-        raise ValueError("a ball pool's tap set must not repeat a tap")
-    # x cut about its centre: a ball's middle pieces keep symmetric x-runs,
-    # pooled on the chain, and the outer ones short runs
-    axes = [_segments(int(taps[:, k].min()), int(taps[:, k].max()), centred=k == 2)
-            for k in range(3)]
+    taps, _ = _checked(taps, halo)
+    # z cut only: segments of at most 2 WIDE_ZHALO + 1 dz values, each
+    # recentred; every x-run of a ball stays one run of one piece
+    zmin, zmax = int(taps[:, 0].min()), int(taps[:, 0].max())
+    zh = kernels.WIDE_ZHALO
+    if -zh <= zmin and zmax <= zh:
+        segments = [(zmin, zmax + 1, 0)]
+    else:
+        n = -(-(zmax - zmin + 1) // (2 * zh + 1))
+        edges = [zmin + (zmax - zmin + 1) * i // n for i in range(n + 1)]
+        segments = [(a, b, (a + b - 1) // 2) for a, b in zip(edges[:-1], edges[1:])]
+    group = kernels.wide_pool_group(halo)
     shifts, pieces = [], []
-    for sz in axes[0]:
-        for sy in axes[1]:
-            for sx in axes[2]:
-                lo, hi = np.array([sz[0], sy[0], sx[0]]), np.array([sz[1], sy[1], sx[1]])
-                sel = ((taps >= lo) & (taps <= hi)).all(1)
-                if not sel.any():
-                    continue
-                centre = (lo + hi) // 2
-                rel = (taps[sel] - centre).astype(np.int32)
-                shifts.append(centre)
-                pieces.append(_build_run_table(rel, int(np.abs(rel).max())))
-    return WideTable(halo, np.asarray(shifts, np.int32).reshape(-1, 3), tuple(pieces),
-                     np.concatenate([p.blob for p in pieces]),
-                     np.asarray([len(p.blob) for p in pieces], np.int32))
+    for a, b, dz0 in segments:
+        sel = (taps[:, 0] >= a) & (taps[:, 0] < b)
+        if not sel.any():
+            continue
+        piece = taps[sel] - np.array([dz0, 0, 0], np.int32)
+        pieces.append(_build_wide_run_table(piece, int(np.abs(piece[:, 0]).max()), halo, group))
+        shifts.append((dz0, 0, 0))
+    shifts = np.asarray(shifts, np.int32).reshape(-1, 3)
+    return WideTable(halo, shifts, tuple(pieces), np.concatenate([p.blob for p in pieces]),
+                     np.asarray([len(p.blob) for p in pieces], np.int32),
+                     np.ascontiguousarray(shifts[:, 0]))
 
 
 def is_wide(taps: np.ndarray, halo: int) -> bool:
@@ -337,16 +455,17 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
     then run only their epilogue).
 
     A :class:`WideTable` runs its pieces in order, each on the staging
-    shifted by its centre, and folds their pools with ``op``."""
+    shifted by its dz, and folds their pools with ``op``; each piece takes
+    the wide form's tile (:data:`kernels.WIDE_POOL_TILE`, in place of
+    ``tile``) and :func:`wide_runs_plain`'s schedule."""
     combine = _COMBINE[op]
     if table.wide:
         stage = staging if staging is not None else _grid_staging(a, fill)
         out = None
-        for (dz, dy, dx), piece in zip(table.shifts.tolist(), table.pieces):
-            got = ball_pool_runs_plain(
-                a, piece, op, fill, tile, zchunk, skip_empty=skip_empty,
-                staging=lambda zi, rows, cols, dz=dz, dy=dy, dx=dx: stage(zi + dz, rows + dy,
-                                                                          cols + dx))
+        for (dz, _, _), piece in zip(table.shifts.tolist(), table.pieces):
+            got = wide_runs_plain(a, piece, op, zchunk,
+                                  lambda zi, rows, cols, dz=dz: stage(zi + dz, rows, cols),
+                                  skip_empty)
             out = got if out is None else combine(out, got)
         return out
     nz, ny, nx = a.shape
@@ -413,6 +532,89 @@ def ball_pool_runs_plain(a: Tensor, table: RunTable, op: str, fill: int,
 
 
 _COMBINE = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}
+
+
+def wide_row_pools(t: WideRunTable, g: int, e, carry, combine) -> tuple[list, object]:
+    """The x pools of group ``g`` of ``t`` on staged rows (csrc/ball_pool.cuh
+    ``wide_row_pools``, which K1's and K2's wide forms share): the group's
+    widths of the chain ``S[w] = combine(S[w - 1], e(-w), e(w))`` from
+    ``e(0)`` or, past the first group's, from ``carry``, then its other pairs
+    element by element; ``e(k)`` the staged elements k columns right.
+    Returns the group's pools in pair order and the chain's carry."""
+    group = t.group
+    pairs = t.runs[g * group:(g + 1) * group].tolist()
+    pools = [None] * len(pairs)
+    c0, c1, keep = t.chain[g].tolist()
+    if c1 >= 0:
+        chain = e(0) if c0 == 0 else carry
+        for w in range(c0, c1 + 1):
+            if w:
+                chain = combine(combine(chain, e(-w)), e(w))
+            if t.symidx[w] >= 0:
+                pools[int(t.symidx[w]) - g * group] = chain
+        carry = chain if keep else None
+    for i, (lo, hi) in enumerate(pairs):
+        if lo != -hi:
+            pools[i] = e(lo)
+            for k in range(lo + 1, hi + 1):
+                pools[i] = combine(pools[i], e(k))
+    return pools, carry
+
+
+def wide_runs_plain(a: Tensor, t: WideRunTable, op: str, zchunk: int, stage,
+                    skip_empty: bool = False) -> Tensor:
+    """Plain model of the wide pool's schedule (csrc/ball_pool.cuh
+    ``pool_stream_wide``) on one :class:`WideRunTable`, on any device:
+    ``a``'s (y, x) plane cut into :data:`kernels.WIDE_POOL_TILE` column
+    tiles and its z into chunks of ``zchunk`` output planes.  A tile and
+    chunk stages every input plane from ``zhalo`` before its chunk to
+    ``zhalo`` after it with ``halo`` rows and columns around the tile
+    (``stage(zi, rows, cols)``: the staged values at the global rows and
+    columns).  Per plane and group it pools each staged row: the group's
+    widths of the chain (from the value the group before it left), the
+    other pairs element by element; then each dz's slice combines its rows'
+    pools into the accumulator of output plane ``zi - dz`` where that lies
+    in the chunk.  With ``skip_empty`` a tile and chunk whose staged values
+    are all 0 pools nothing (its outputs the op's identity).  ``a`` gives
+    the output's shape, dtype and device; an int8 sum is taken in int32."""
+    combine = _COMBINE[op]
+    nz, ny, nx = a.shape
+    zh, h = t.zhalo, t.halo
+    ty, tx = kernels.WIDE_POOL_TILE[a.dtype]
+    nty, ntx = -(-ny // ty), -(-nx // tx)
+    dtype = torch.int32 if op == "sum" else a.dtype
+    ident = 0 if op == "sum" else INT_FILL[op][a.dtype]
+    out = torch.empty_like(a, dtype=dtype)
+    rows = torch.arange(-h, nty * ty + h, device=a.device)
+    cols = torch.arange(-h, ntx * tx + h, device=a.device)
+    for zc0 in range(0, nz, zchunk):
+        zc1 = min(nz, zc0 + zchunk)
+        acc = {zo: torch.full((nty, ntx, ty, tx), ident, dtype=dtype, device=a.device)
+               for zo in range(zc0, zc1)}
+        busy = torch.zeros((nty, ntx, 1, 1), dtype=torch.bool, device=a.device)
+        for zi in range(zc0 - zh, zc1 + zh):
+            # [tiles_y, tiles_x, TY + 2h, TX + 2h]
+            st = stage(zi, rows, cols).to(dtype).unfold(0, ty + 2 * h, ty).unfold(
+                1, tx + 2 * h, tx)
+            e = {k: st[..., h + k: h + k + tx] for k in range(-h, h + 1)}
+            busy |= (st != 0).any(-1).any(-1)[..., None, None]
+            carry = None
+            for g in range(t.n_groups):
+                pools, carry = wide_row_pools(t, g, e.__getitem__, carry, combine)
+                for dz in range(-zh, zh + 1):
+                    q, zo = int(t.zslice[g, zh + dz]), zi - dz
+                    if q < 0 or not zc0 <= zo < zc1:
+                        continue
+                    d = None
+                    for dy, i in t.rows[t.slices[q, 0]:t.slices[q, 1]].tolist():
+                        s = pools[i][:, :, h + dy: h + dy + ty, :]
+                        d = s if d is None else combine(d, s)
+                    acc[zo] = combine(acc[zo], d)
+        for zo, done in acc.items():  # a skipping tile's decision takes its whole chunk
+            if skip_empty:
+                done = torch.where(busy, done, torch.full_like(done, ident))
+            out[zo] = done.permute(0, 2, 1, 3).reshape(nty * ty, ntx * tx)[:ny, :nx]
+    return out
 
 
 def _grid_staging(a: Tensor, fill: int):
